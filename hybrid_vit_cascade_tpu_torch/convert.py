@@ -9,7 +9,9 @@ tests/test_parity_model.py.
 Layouts: flax Dense kernels are (in, out) and torch wants (out, in); flax
 nn.Conv kernels are (k…, I, O) and torch wants (O, I, k…). ConvNCDHW kernels
 and the chain ``*_kernel`` parameters are already OIDHW and copy as they
-are; the stage-1 seed volume moves from NDHWC to NCDHW.
+are; the stage-1 seed volume moves from NDHWC to NCDHW. BatchNorm running
+statistics come from ``batch_stats``. ``vgg16`` converts the perceptual
+loss's VGG variables.
 """
 
 from __future__ import annotations
@@ -157,4 +159,17 @@ def cascade(variables: Mapping) -> StateDict:
         sd.update(vit3d(trunk.pop("vit_refiner"), "stage3.vit_trunk.vit_refiner."))
         _flat(trunk, "stage3.vit_trunk.", sd)
         _flat(s3["detail_enhancer"], "stage3.detail_enhancer.", sd)
+    return sd
+
+
+def vgg16(variables: Mapping) -> StateDict:
+    """The VGG16-prefix filters of the JAX ``TriPlanarPerceptualLoss``
+    (``{"params": {"Conv_i": {"kernel" (3, 3, I, O), "bias"}}}``) →
+    ``Conv_i.weight`` (O, I, 3, 3) / ``Conv_i.bias`` for the port's
+    ``TriPlanarPerceptualLoss(weights=...)``."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for name in _indexed(p, "Conv"):
+        sd[f"{name}.weight"] = _t(p[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
     return sd

@@ -28,7 +28,8 @@
 // weights are stored [ci][tap][co] so each tap's 32 output channels are read
 // as eight float4 broadcasts: four FMAs per shared-memory load. Input
 // channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems do no
-// zero work.
+// zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
+// data gradient of the 1→C convs, which kernel B computes with Cout = 1.
 //
 // Layout: x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3) in x's dtype, bias
 // (Cout,) fp32, out (B, Cout, Do, Ho, Wo) with Do = (D - 1) / S + 1 (likewise
@@ -39,7 +40,7 @@
 
 namespace {
 
-constexpr int kCoTile = 32;  // output channels per block
+constexpr int kCoTile = 32;  // output channels per block (the CO_T = 1 variant aside)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -53,7 +54,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, int S, int TH, int TW, int CI_C>
+template <typename T, int S, int TH, int TW, int CI_C, int CO_T>
 __global__ void __launch_bounds__(TH * TW)
 conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const float* __restrict__ bias, T* __restrict__ out, int cin, int cout, int D,
@@ -62,7 +63,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int PH = (TH - 1) * S + 3;
   constexpr int PW = (TW - 1) * S + 3;
   constexpr int PATCH = 3 * PH * PW;
-  constexpr int WCHUNK = CI_C * 27 * kCoTile;
+  constexpr int WCHUNK = CI_C * 27 * CO_T;
   __shared__ float xs[CI_C * PATCH];
   __shared__ __align__(16) float ws[WCHUNK];
 
@@ -71,7 +72,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tile_w = blockIdx.x % tiles_w;
   const int od = blockIdx.y;
   const int b = blockIdx.z / n_co_groups;
-  const int co0 = (blockIdx.z % n_co_groups) * kCoTile;
+  const int co0 = (blockIdx.z % n_co_groups) * CO_T;
   const int ty = threadIdx.x / TW;
   const int tx = threadIdx.x % TW;
   const int oh = tile_h * TH + ty;
@@ -85,9 +86,9 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const long long vol = static_cast<long long>(D) * plane;
   const T* xb = x + static_cast<long long>(b) * cin * vol;
 
-  float acc[kCoTile];
+  float acc[CO_T];
 #pragma unroll
-  for (int co = 0; co < kCoTile; ++co) acc[co] = (co0 + co < cout) ? bias[co0 + co] : 0.f;
+  for (int co = 0; co < CO_T; ++co) acc[co] = (co0 + co < cout) ? bias[co0 + co] : 0.f;
 
   for (int ci0 = 0; ci0 < cin; ci0 += CI_C) {
     __syncthreads();  // the previous chunk is no longer read
@@ -108,8 +109,8 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       xs[i] = val;
     }
     for (int i = threadIdx.x; i < WCHUNK; i += NT) {
-      const int co = i % kCoTile;
-      const int t = i / kCoTile;
+      const int co = i % CO_T;
+      const int t = i / CO_T;
       const int tap = t % 27;
       const int ci = ci0 + t / 27;
       const int oc = co0 + co;
@@ -129,15 +130,20 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
           for (int kw = 0; kw < 3; ++kw) {
             const float xv = xp[kd * PH * PW + kh * PW + kw];
-            const float4* wr = reinterpret_cast<const float4*>(
-                ws + (cl * 27 + kd * 9 + kh * 3 + kw) * kCoTile);
+            const float* wt = ws + (cl * 27 + kd * 9 + kh * 3 + kw) * CO_T;
+            if constexpr (CO_T % 4 == 0) {
+              const float4* wr = reinterpret_cast<const float4*>(wt);
 #pragma unroll
-            for (int c4 = 0; c4 < kCoTile / 4; ++c4) {
-              const float4 ww = wr[c4];
-              acc[4 * c4 + 0] = fmaf(xv, ww.x, acc[4 * c4 + 0]);
-              acc[4 * c4 + 1] = fmaf(xv, ww.y, acc[4 * c4 + 1]);
-              acc[4 * c4 + 2] = fmaf(xv, ww.z, acc[4 * c4 + 2]);
-              acc[4 * c4 + 3] = fmaf(xv, ww.w, acc[4 * c4 + 3]);
+              for (int c4 = 0; c4 < CO_T / 4; ++c4) {
+                const float4 ww = wr[c4];
+                acc[4 * c4 + 0] = fmaf(xv, ww.x, acc[4 * c4 + 0]);
+                acc[4 * c4 + 1] = fmaf(xv, ww.y, acc[4 * c4 + 1]);
+                acc[4 * c4 + 2] = fmaf(xv, ww.z, acc[4 * c4 + 2]);
+                acc[4 * c4 + 3] = fmaf(xv, ww.w, acc[4 * c4 + 3]);
+              }
+            } else {
+#pragma unroll
+              for (int co = 0; co < CO_T; ++co) acc[co] = fmaf(xv, wt[co], acc[co]);
             }
           }
         }
@@ -151,22 +157,22 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     T* ob = out + (static_cast<long long>(b) * cout + co0) * ovol + od * oplane +
             static_cast<long long>(oh) * Wo + ow;
 #pragma unroll
-    for (int co = 0; co < kCoTile; ++co)
+    for (int co = 0; co < CO_T; ++co)
       if (co0 + co < cout) ob[co * ovol] = from_f32<T>(acc[co]);
   }
 }
 
-template <typename T, int S, int TH, int TW, int CI_C>
+template <typename T, int S, int TH, int TW, int CI_C, int CO_T = kCoTile>
 int launch(const void* x, const void* w, const void* bias, void* out, long long batch, int cin,
            int cout, int D, int H, int W, int Do, int Ho, int Wo, cudaStream_t stream) {
-  const int n_co_groups = (cout + kCoTile - 1) / kCoTile;
+  const int n_co_groups = (cout + CO_T - 1) / CO_T;
   const long long tiles =
       static_cast<long long>((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW);
   if (tiles > 2147483647LL || Do > 65535 || batch * n_co_groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(Do),
                   static_cast<unsigned>(batch * n_co_groups));
-  conv3d_k3_kernel<T, S, TH, TW, CI_C><<<grid, TH * TW, 0, stream>>>(
+  conv3d_k3_kernel<T, S, TH, TW, CI_C, CO_T><<<grid, TH * TW, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
       static_cast<T*>(out), cin, cout, D, H, W, Do, Ho, Wo, n_co_groups);
   return static_cast<int>(cudaGetLastError());
@@ -187,6 +193,14 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, long lon
   constexpr int TW = S == 1 ? 32 : 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small_cin = cin < 4;
+  if constexpr (S == 1) {
+    if (cout == 1 && !small_cin) {
+      if (dtype == 0)
+        return launch<float, S, TH, TW, 4, 1>(x, w, bias, out, batch, cin, cout, D, H, W, Do, Ho, Wo, s);
+      if (dtype == 1)
+        return launch<__nv_bfloat16, S, TH, TW, 4, 1>(x, w, bias, out, batch, cin, cout, D, H, W, Do, Ho, Wo, s);
+    }
+  }
   if (dtype == 0) {
     return small_cin
                ? launch<float, S, TH, TW, 1>(x, w, bias, out, batch, cin, cout, D, H, W, Do, Ho, Wo, s)

@@ -1,0 +1,417 @@
+// Kernels E, F and G: gradients of the 3×3×3 convolution (padding 1) for
+// Hopper (sm_90a).
+//
+//   E  stride-1 weight gradient. Replaces
+//      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py::_wgrad (body _wgrad_kernel).
+//   F  stride-2 data gradient. Replaces
+//      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py::_dgrad_s2 (body _dgrad_kernel).
+//   G  stride-2 weight gradient. Replaces
+//      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py::_wgrad_s2 (body _wgrad_kernel).
+//
+// (The stride-1 data gradient is kernel B itself, run on the output gradient
+// with channel-transposed, tap-flipped weights, as the TPU package does.)
+//
+// Semantics are those of torch.nn.grad.conv3d_weight / conv3d_input for
+// F.conv3d(x, w, stride=S, padding=1) on NCDHW input with OIDHW weights:
+//   dW[co, ci, dz, dy, dx] = Σ_{b, oz, oy, ox} g[b, co, oz, oy, ox] ·
+//                            x[b, ci, S·oz+dz−1, S·oy+dy−1, S·ox+dx−1]
+//   dx[b, ci, iz, iy, ix]  = Σ_{co, taps with S·o + d − 1 = i} g[b, co, o…] · w[co, ci, d…]
+// with zero padding, fp32 accumulation, dW in fp32 and dx in the input dtype.
+//
+// Not carried over from the TPU kernels: the flat (H·W)-lane layout, the
+// g-shifting by lane rolls, the even/odd plane split and the selection-matrix
+// packing (_sel_matrix) of the stride-2 kernels, and the "arbitrary" grid
+// that accumulates dW into one resident output block. Hopper runs blocks
+// concurrently, so the weight gradients split the B·D·H·W reduction over
+// blocks (split-K): each block writes its fp32 partial sum, and a second
+// small kernel adds the partials in a fixed order — deterministic, so the
+// card-vs-plain check is stable.
+//
+// What bounds them on this card: the hot calls are at 256³ (64→32 weight
+// gradient: 1.86 TFLOP; the 32→64 stride-2 data gradient from 128³: 0.23 TFLOP)
+// and compute-bound; the 1-channel ones (1→32, 1→64 at 256³) are bound by
+// reading the 32/64-channel output gradient. These first versions compute
+// with fp32 FMAs on the CUDA cores, not with the tensor cores.
+//   E/G: a block owns 32 output channels × 4 input channels × 27 taps of dW
+//        (one 4-channel group per thread × 4 (ci, tap) columns) and walks its
+//        share of 8×16 output-voxel tiles; per tile it stages the output
+//        gradient as [voxel][32 channels] and the input patch (halo
+//        zero-filled) in shared memory, so each voxel costs one float4
+//        broadcast of g plus one load per column for 16 FMAs.
+//   F:   one input voxel per thread and 32 input channels per block in
+//        registers; per chunk of 8 output channels the block stages the
+//        2×5×17 output-gradient patch its 8×32 input tile reads and the
+//        chunk's weights [co][tap][ci] (rows padded to 36 floats against bank
+//        conflicts) in shared memory. Each voxel visits only the taps its
+//        parity selects (1 or 2 per dim), each tap one g load and eight float4
+//        weight broadcasts for 32 FMAs.
+//
+// Layout: x (B, Cin, D, H, W), g (B, Cout, Do, Ho, Wo) with Do = (D − 1)/S + 1,
+// w (Cout, Cin, 3, 3, 3), all contiguous and in one dtype (fp32 or bf16).
+// All offsets are 64-bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// ------------------------------------------------------------ E and G ---
+
+constexpr int kWgThreads = 256;
+constexpr int kWgCo = 32;  // output channels per block
+constexpr int kWgTh = 8;   // output-voxel tile rows
+constexpr int kWgTw = 16;  // output-voxel tile columns
+
+template <typename T, int S, int CI_C>
+__global__ void __launch_bounds__(kWgThreads)
+wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ partial,
+             int cin, int cout, int D, int H, int W, int Do, int Ho, int Wo,
+             long long n_tiles, long long tiles_per_split) {
+  constexpr int NV = kWgTh * kWgTw;
+  constexpr int PH = (kWgTh - 1) * S + 3;
+  constexpr int PW = (kWgTw - 1) * S + 3;
+  constexpr int PATCH = 3 * PH * PW;
+  constexpr int NN = CI_C * 27;          // (ci, tap) columns of the block
+  constexpr int NPT = (NN + 31) / 32;    // columns per thread
+  __shared__ float xs[CI_C * PATCH];
+  __shared__ __align__(16) float gs[NV * kWgCo];  // [voxel][channel]
+
+  const int co0 = blockIdx.y * kWgCo;
+  const int ci0 = blockIdx.z * CI_C;
+  const int quad = threadIdx.x / 32;  // output channels co0 + 4·quad … +3
+  const int slot = threadIdx.x % 32;  // columns slot, slot + 32, …
+
+  int xoff[NPT];
+  bool nvalid[NPT];
+#pragma unroll
+  for (int t = 0; t < NPT; ++t) {
+    const int n = slot + 32 * t;
+    const int cl = n / 27;
+    const int tap = n - cl * 27;
+    nvalid[t] = n < NN && ci0 + cl < cin;
+    xoff[t] = nvalid[t] ? cl * PATCH + (tap / 9) * PH * PW + ((tap / 3) % 3) * PW + tap % 3 : 0;
+  }
+  float acc[NPT][4];
+#pragma unroll
+  for (int t = 0; t < NPT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  const int tiles_w = (Wo + kWgTw - 1) / kWgTw;
+  const int tiles_hw = ((Ho + kWgTh - 1) / kWgTh) * tiles_w;
+  const long long plane = static_cast<long long>(H) * W;
+  const long long vol = static_cast<long long>(D) * plane;
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const long long t_begin = blockIdx.x * tiles_per_split;
+  const long long t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  for (long long tile = t_begin; tile < t_end; ++tile) {
+    const int thw = static_cast<int>(tile % tiles_hw);
+    const long long bd = tile / tiles_hw;
+    const int od = static_cast<int>(bd % Do);
+    const long long b = bd / Do;
+    const int tile_h = thw / tiles_w;
+    const int tile_w = thw % tiles_w;
+    const int id0 = od * S - 1;
+    const int ih0 = tile_h * kWgTh * S - 1;
+    const int iw0 = tile_w * kWgTw * S - 1;
+    const T* xb = x + b * cin * vol;
+    const T* gb = g + (b * cout + co0) * ovol + od * oplane;
+
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < CI_C * PATCH; i += kWgThreads) {
+      const int cl = i / PATCH;
+      const int r = i - cl * PATCH;
+      const int pd = r / (PH * PW);
+      const int r2 = r - pd * (PH * PW);
+      const int ph = r2 / PW;
+      const int pw = r2 - ph * PW;
+      const int ci = ci0 + cl;
+      const int id = id0 + pd;
+      const int ih = ih0 + ph;
+      const int iw = iw0 + pw;
+      float val = 0.f;
+      if (ci < cin && id >= 0 && id < D && ih >= 0 && ih < H && iw >= 0 && iw < W)
+        val = to_f32(xb[ci * vol + id * plane + static_cast<long long>(ih) * W + iw]);
+      xs[i] = val;
+    }
+    for (int i = threadIdx.x; i < NV * kWgCo; i += kWgThreads) {
+      const int co = i % kWgCo;
+      const int vv = i / kWgCo;
+      const int oh = tile_h * kWgTh + vv / kWgTw;
+      const int ow = tile_w * kWgTw + vv % kWgTw;
+      float val = 0.f;
+      if (co0 + co < cout && oh < Ho && ow < Wo)
+        val = to_f32(gb[co * ovol + static_cast<long long>(oh) * Wo + ow]);
+      gs[i] = val;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int vv = 0; vv < NV; ++vv) {
+      const float4 gg = *reinterpret_cast<const float4*>(gs + vv * kWgCo + 4 * quad);
+      const int base = (vv / kWgTw) * S * PW + (vv % kWgTw) * S;
+#pragma unroll
+      for (int t = 0; t < NPT; ++t) {
+        const float xv = xs[xoff[t] + base];
+        acc[t][0] = fmaf(xv, gg.x, acc[t][0]);
+        acc[t][1] = fmaf(xv, gg.y, acc[t][1]);
+        acc[t][2] = fmaf(xv, gg.z, acc[t][2]);
+        acc[t][3] = fmaf(xv, gg.w, acc[t][3]);
+      }
+    }
+  }
+
+  // partial[split][co][ci][tap]
+  const long long n_out = static_cast<long long>(cout) * cin * 27;
+  float* pb = partial + blockIdx.x * n_out;
+#pragma unroll
+  for (int t = 0; t < NPT; ++t) {
+    if (!nvalid[t]) continue;
+    const int n = slot + 32 * t;
+    const int ci = ci0 + n / 27;
+    const int tap = n % 27;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = co0 + 4 * quad + e;
+      if (co < cout) pb[(static_cast<long long>(co) * cin + ci) * 27 + tap] = acc[t][e];
+    }
+  }
+}
+
+// out[i] = Σ_s partial[s][i], in split order.
+__global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                    long long n, int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += partial[k * n + i];
+  out[i] = s;
+}
+
+template <typename T, int S, int CI_C>
+int launch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
+                 int cin, int cout, int D, int H, int W, int splits, cudaStream_t stream) {
+  const int Do = (D - 1) / S + 1;
+  const int Ho = (H - 1) / S + 1;
+  const int Wo = (W - 1) / S + 1;
+  const long long n_tiles = batch * Do * static_cast<long long>((Ho + kWgTh - 1) / kWgTh) *
+                            ((Wo + kWgTw - 1) / kWgTw);
+  const int n_co = (cout + kWgCo - 1) / kWgCo;
+  const int n_ci = (cin + CI_C - 1) / CI_C;
+  if (splits < 1 || splits > n_tiles || n_co > 65535 || n_ci > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per = (n_tiles + splits - 1) / splits;
+  wgrad_kernel<T, S, CI_C><<<dim3(splits, n_co, n_ci), kWgThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(partial), cin,
+      cout, D, H, W, Do, Ho, Wo, n_tiles, per);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = static_cast<long long>(cout) * cin * 27;
+  sum_partials_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
+                   int cin, int cout, int D, int H, int W, int dtype, int splits, void* stream) {
+  if (batch <= 0 || cin <= 0 || cout <= 0 || D <= 0 || H <= 0 || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool small = cin < 4;
+  if (dtype == 0)
+    return small ? launch_wgrad<float, S, 1>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s)
+                 : launch_wgrad<float, S, 4>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s);
+  if (dtype == 1)
+    return small ? launch_wgrad<__nv_bfloat16, S, 1>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s)
+                 : launch_wgrad<__nv_bfloat16, S, 4>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------------- F ---
+
+constexpr int kDgTh = 8;        // input-voxel tile rows
+constexpr int kDgTw = 32;       // input-voxel tile columns (one warp per row)
+constexpr int kDgCi = 32;       // dx channels per block, in registers
+constexpr int kDgCoC = 8;       // output-gradient channels per shared-memory chunk
+constexpr int kDgWRow = 36;     // padded [co][tap] row of 32 ci weights
+constexpr int kDgGh = kDgTh / 2 + 1;
+constexpr int kDgGw = kDgTw / 2 + 1;
+constexpr int kDgGPatch = 2 * kDgGh * kDgGw;
+
+template <typename T>
+__global__ void __launch_bounds__(kDgTh * kDgTw)
+dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx, int cin,
+                int cout, int D, int H, int W, int Do, int Ho, int Wo, int n_ci_groups) {
+  constexpr int NT = kDgTh * kDgTw;
+  __shared__ float gsm[kDgCoC * kDgGPatch];
+  __shared__ __align__(16) float wsm[kDgCoC * 27 * kDgWRow];
+
+  const int tiles_w = (W + kDgTw - 1) / kDgTw;
+  const int tile_h = blockIdx.x / tiles_w;
+  const int tile_w = blockIdx.x % tiles_w;
+  const int iz = blockIdx.y;
+  const long long b = blockIdx.z / n_ci_groups;
+  const int ci0 = (blockIdx.z % n_ci_groups) * kDgCi;
+  const int ty = threadIdx.x / kDgTw;
+  const int tx = threadIdx.x % kDgTw;
+  const int iy0 = tile_h * kDgTh;
+  const int ix0 = tile_w * kDgTw;
+  const int iy = iy0 + ty;
+  const int ix = ix0 + tx;
+  // Output coordinates that can reach this tile: oz ∈ {iz/2, iz/2 + 1},
+  // oy ∈ [iy0/2, iy0/2 + kDgTh/2], ox ∈ [ix0/2, ix0/2 + kDgTw/2].
+  const int oz0 = iz >> 1;
+  const int oy0 = iy0 >> 1;
+  const int ox0 = ix0 >> 1;
+
+  // Taps by parity: i = 2·o + d − 1. Even i: d = 1, o = i/2. Odd i: d = 0,
+  // o = (i+1)/2 and d = 2, o = (i−1)/2. Offsets are relative to oz0/oy0/ox0.
+  int nz, zd[2], zp[2];
+  if ((iz & 1) == 0) { nz = 1; zd[0] = 1; zp[0] = 0; zd[1] = 0; zp[1] = 0; }
+  else { nz = 2; zd[0] = 0; zp[0] = 1; zd[1] = 2; zp[1] = 0; }
+  int ny, yd[2], yp[2];
+  if ((ty & 1) == 0) { ny = 1; yd[0] = 1; yp[0] = ty / 2; yd[1] = 0; yp[1] = 0; }
+  else { ny = 2; yd[0] = 0; yp[0] = (ty + 1) / 2; yd[1] = 2; yp[1] = (ty - 1) / 2; }
+  int nx, xd[2], xp[2];
+  if ((tx & 1) == 0) { nx = 1; xd[0] = 1; xp[0] = tx / 2; xd[1] = 0; xp[1] = 0; }
+  else { nx = 2; xd[0] = 0; xp[0] = (tx + 1) / 2; xd[1] = 2; xp[1] = (tx - 1) / 2; }
+
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const T* gb = g + b * cout * ovol;
+
+  float acc[kDgCi];
+#pragma unroll
+  for (int c = 0; c < kDgCi; ++c) acc[c] = 0.f;
+
+  for (int co0 = 0; co0 < cout; co0 += kDgCoC) {
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = threadIdx.x; i < kDgCoC * kDgGPatch; i += NT) {
+      const int cl = i / kDgGPatch;
+      const int r = i - cl * kDgGPatch;
+      const int pz = r / (kDgGh * kDgGw);
+      const int r2 = r - pz * (kDgGh * kDgGw);
+      const int py = r2 / kDgGw;
+      const int px = r2 - py * kDgGw;
+      const int co = co0 + cl;
+      const int oz = oz0 + pz;
+      const int oy = oy0 + py;
+      const int ox = ox0 + px;
+      float val = 0.f;
+      if (co < cout && oz < Do && oy < Ho && ox < Wo)
+        val = to_f32(gb[co * ovol + oz * oplane + static_cast<long long>(oy) * Wo + ox]);
+      gsm[i] = val;
+    }
+    for (int i = threadIdx.x; i < kDgCoC * 27 * kDgCi; i += NT) {
+      const int cil = i % kDgCi;
+      const int t = i / kDgCi;
+      const int tap = t % 27;
+      const int col = t / 27;
+      const int co = co0 + col;
+      const int ci = ci0 + cil;
+      wsm[t * kDgWRow + cil] = (co < cout && ci < cin)
+                                   ? to_f32(w[(static_cast<long long>(co) * cin + ci) * 27 + tap])
+                                   : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int cl = 0; cl < kDgCoC; ++cl) {
+      const float* gp = gsm + cl * kDgGPatch;
+      const float* wp = wsm + cl * 27 * kDgWRow;
+      // constant trip counts with early exits keep the tap tables in registers
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        if (a >= nz) break;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (c >= ny) break;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (e >= nx) break;
+            const float gv = gp[(zp[a] * kDgGh + yp[c]) * kDgGw + xp[e]];
+            const float4* wr =
+                reinterpret_cast<const float4*>(wp + (zd[a] * 9 + yd[c] * 3 + xd[e]) * kDgWRow);
+#pragma unroll
+            for (int c4 = 0; c4 < kDgCi / 4; ++c4) {
+              const float4 ww = wr[c4];
+              acc[4 * c4 + 0] = fmaf(gv, ww.x, acc[4 * c4 + 0]);
+              acc[4 * c4 + 1] = fmaf(gv, ww.y, acc[4 * c4 + 1]);
+              acc[4 * c4 + 2] = fmaf(gv, ww.z, acc[4 * c4 + 2]);
+              acc[4 * c4 + 3] = fmaf(gv, ww.w, acc[4 * c4 + 3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (iy < H && ix < W) {
+    const long long plane = static_cast<long long>(H) * W;
+    const long long vol = static_cast<long long>(D) * plane;
+    T* ob = dx + (b * cin + ci0) * vol + iz * plane + static_cast<long long>(iy) * W + ix;
+#pragma unroll
+    for (int c = 0; c < kDgCi; ++c)
+      if (ci0 + c < cin) ob[c * vol] = from_f32<T>(acc[c]);
+  }
+}
+
+template <typename T>
+int launch_dgrad_s2(const void* g, const void* w, void* dx, long long batch, int cin, int cout,
+                    int D, int H, int W, cudaStream_t stream) {
+  const int Do = (D - 1) / 2 + 1;
+  const int Ho = (H - 1) / 2 + 1;
+  const int Wo = (W - 1) / 2 + 1;
+  const int n_ci = (cin + kDgCi - 1) / kDgCi;
+  const long long tiles = static_cast<long long>((H + kDgTh - 1) / kDgTh) * ((W + kDgTw - 1) / kDgTw);
+  if (tiles > 2147483647LL || D > 65535 || batch * n_ci > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(D),
+                  static_cast<unsigned>(batch * n_ci));
+  dgrad_s2_kernel<T><<<grid, kDgTh * kDgTw, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx), cin, cout, D, H,
+      W, Do, Ho, Wo, n_ci);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Kernels E (stride 1) and G (stride 2): dW (Cout, Cin, 3, 3, 3) fp32 into
+// `out`, through `partial` (splits × Cout × Cin × 27 fp32 scratch).
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int hvc_conv3d_k3s1_wgrad(const void* x, const void* g, void* partial, void* out,
+                                     long long batch, int cin, int cout, int D, int H, int W,
+                                     int dtype, int splits, void* stream) {
+  return dispatch_wgrad<1>(x, g, partial, out, batch, cin, cout, D, H, W, dtype, splits, stream);
+}
+
+extern "C" int hvc_conv3d_k3s2_wgrad(const void* x, const void* g, void* partial, void* out,
+                                     long long batch, int cin, int cout, int D, int H, int W,
+                                     int dtype, int splits, void* stream) {
+  return dispatch_wgrad<2>(x, g, partial, out, batch, cin, cout, D, H, W, dtype, splits, stream);
+}
+
+// Kernel F: dx (B, Cin, D, H, W) of the stride-2 conv from g (B, Cout, Do, Ho, Wo).
+extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, void* dx, long long batch,
+                                     int cin, int cout, int D, int H, int W, int dtype,
+                                     void* stream) {
+  if (batch <= 0 || cin <= 0 || cout <= 0 || D <= 0 || H <= 0 || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dgrad_s2<float>(g, w, dx, batch, cin, cout, D, H, W, s);
+  if (dtype == 1) return launch_dgrad_s2<__nv_bfloat16>(g, w, dx, batch, cin, cout, D, H, W, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,255 @@
+// Kernel D: flash attention backward for Hopper (sm_90a).
+//
+// Replaces hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py::_bwd_pallas_fused
+// (kernel body _bwd_fused_kernel): dq, dk and dv of out = softmax(q·kᵀ·scale)·v
+// from one sweep, recomputing the probabilities from the forward's per-row
+// log-sum-exp, with delta = Σ_d do·out precomputed per query row (the caller
+// passes it, as _bwd_pallas_fused computes it before the pallas_call).
+//
+// What differs from the TPU kernel, and why:
+// - The TPU kernel accumulates dq in VMEM across a sequential kv sweep
+//   ("TPU grid steps run sequentially"). Hopper blocks run concurrently, so
+//   here one block owns a tile of BKV keys, sweeps every query tile, keeps its
+//   dk and dv in registers, and adds its share of dq into an fp32 (BH, Nq, d)
+//   buffer with atomicAdd. The caller zeroes that buffer and casts it to the
+//   input dtype afterwards.
+// - The lse is the natural-log one kernel A stores; there is no base-2/LN2
+//   bookkeeping, no 128-lane padding of d and no lse = 1e30 padded rows.
+//   Bounds checks mask the ragged kv tail and the ragged last query tile.
+//
+// What bounds it on this card: at the main path's long shapes (8 heads ×
+// 32,768 × 32,768, d = 32) it does 5 products of N²·d per head (s, dp, dv, dk,
+// dq) and reads a few MB, so it is compute-bound; this first version runs
+// them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor
+// cores. Design against that bound: each thread owns one key row (d = 32) or
+// half of one (d = 64, the two halves combined with one warp shuffle), holding
+// its k, v, dk and dv slices (4 × 32 floats) in registers; the query, dout,
+// lse and delta of a query tile are staged once per block in shared memory and
+// read as float4 broadcasts, so the four per-row products issue four FMAs per
+// shared-memory load. The dq share of a (query tile, key tile) pair is a small
+// product ds·K done from shared memory with a register-blocked tile, then one
+// atomicAdd per element.
+//
+// Layout: q (BH, Nq, d), k and v (BH, Nk, d), dout (BH, Nq, d), contiguous,
+// fp32 or bf16; lse and delta (BH, Nq) fp32; dq_acc (BH, Nq, d) fp32, zeroed by
+// the caller; dk and dv (BH, Nk, d) in the input dtype. All offsets 64-bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBkv = 64;  // keys per block
+constexpr int kDh = 32;   // columns owned by one thread
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int D>
+struct BwdShape {
+  static constexpr int kTpr = D / kDh;                 // threads per key row
+  static constexpr int kThreads = kBkv * kTpr;
+  static constexpr int kBq = D == 32 ? 64 : 32;        // query rows per staged tile
+  static constexpr int kColGroups = D / 4;             // float4 columns of dq
+  static constexpr int kRows = kBq * kColGroups / kThreads;  // dq rows per thread
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdShape<D>::kThreads)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 T* __restrict__ dk, T* __restrict__ dv, long long nq, long long nk,
+                 float scale) {
+  using S = BwdShape<D>;
+  constexpr int TPR = S::kTpr;
+  constexpr int NT = S::kThreads;
+  constexpr int BQ = S::kBq;
+  constexpr int CG = S::kColGroups;
+  constexpr int RQ = S::kRows;
+  constexpr int DSS = kBkv + 1;  // ds row stride: conflict-free column reads
+  static_assert(RQ * (NT / CG) == BQ, "dq tile must cover the query tile");
+
+  __shared__ __align__(16) float qs[BQ * D];
+  __shared__ __align__(16) float dos[BQ * D];
+  __shared__ __align__(16) float ks[kBkv * D];
+  __shared__ float ds_s[BQ * DSS];
+  __shared__ float lse_s[BQ];
+  __shared__ float delta_s[BQ];
+
+  const long long bh = blockIdx.y;
+  const long long kv0 = static_cast<long long>(blockIdx.x) * kBkv;
+  const int tid = threadIdx.x;
+  const int jr = tid / TPR;         // key row within the tile
+  const int c0 = (tid % TPR) * kDh;  // first column owned by this thread
+  const long long j = kv0 + jr;
+  const bool jvalid = j < nk;
+
+  const T* qb = q + bh * nq * D;
+  const T* dob = dout + bh * nq * D;
+  const T* kb = k + bh * nk * D;
+  const T* vb = v + bh * nk * D;
+
+  float kr[kDh], vr[kDh], dkr[kDh], dvr[kDh];
+  {
+    const T* krow = kb + (jvalid ? j : 0) * D + c0;
+    const T* vrow = vb + (jvalid ? j : 0) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kDh; ++c) {
+      kr[c] = jvalid ? to_f32(krow[c]) : 0.f;
+      vr[c] = jvalid ? to_f32(vrow[c]) : 0.f;
+      dkr[c] = 0.f;
+      dvr[c] = 0.f;
+    }
+  }
+  for (int i = tid; i < kBkv * D; i += NT) {
+    const bool in = kv0 + i / D < nk;
+    ks[i] = in ? to_f32(kb[kv0 * D + i]) : 0.f;
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  const int cg = tid % CG;  // dq phase: float4 column group
+  const int rg = tid / CG;  // dq phase: row group
+
+  for (long long q0 = 0; q0 < nq; q0 += BQ) {
+    __syncthreads();  // the previous query tile is no longer read
+    for (int i = tid; i < BQ * D; i += NT) {
+      const bool in = q0 + i / D < nq;
+      qs[i] = in ? to_f32(qb[q0 * D + i]) : 0.f;
+      dos[i] = in ? to_f32(dob[q0 * D + i]) : 0.f;
+    }
+    for (int i = tid; i < BQ; i += NT) {
+      const bool in = q0 + i < nq;
+      // base 2, so p = exp2(s·scale·log2e − lse·log2e); +inf gives p = 0 on
+      // the rows past Nq
+      lse_s[i] = in ? lse[bh * nq + q0 + i] * kLog2e : CUDART_INF_F;
+      delta_s[i] = in ? delta[bh * nq + q0 + i] : 0.f;
+    }
+    __syncthreads();
+
+    for (int i = 0; i < BQ; ++i) {
+      const float4* qrow = reinterpret_cast<const float4*>(qs + i * D + c0);
+      const float4* drow = reinterpret_cast<const float4*>(dos + i * D + c0);
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c4 = 0; c4 < kDh / 4; ++c4) {
+        const float4 qq = qrow[c4];
+        const float4 dd = drow[c4];
+        s = fmaf(qq.x, kr[4 * c4 + 0], s);
+        s = fmaf(qq.y, kr[4 * c4 + 1], s);
+        s = fmaf(qq.z, kr[4 * c4 + 2], s);
+        s = fmaf(qq.w, kr[4 * c4 + 3], s);
+        dp = fmaf(dd.x, vr[4 * c4 + 0], dp);
+        dp = fmaf(dd.y, vr[4 * c4 + 1], dp);
+        dp = fmaf(dd.z, vr[4 * c4 + 2], dp);
+        dp = fmaf(dd.w, vr[4 * c4 + 3], dp);
+      }
+      if (TPR == 2) {  // the two halves of a key row are neighbouring lanes
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      }
+      const float p = jvalid ? exp2f(fmaf(s, scale_log2, -lse_s[i])) : 0.f;
+      const float ds = p * (dp - delta_s[i]);
+#pragma unroll
+      for (int c4 = 0; c4 < kDh / 4; ++c4) {
+        const float4 qq = qrow[c4];
+        const float4 dd = drow[c4];
+        dvr[4 * c4 + 0] = fmaf(p, dd.x, dvr[4 * c4 + 0]);
+        dvr[4 * c4 + 1] = fmaf(p, dd.y, dvr[4 * c4 + 1]);
+        dvr[4 * c4 + 2] = fmaf(p, dd.z, dvr[4 * c4 + 2]);
+        dvr[4 * c4 + 3] = fmaf(p, dd.w, dvr[4 * c4 + 3]);
+        dkr[4 * c4 + 0] = fmaf(ds, qq.x, dkr[4 * c4 + 0]);
+        dkr[4 * c4 + 1] = fmaf(ds, qq.y, dkr[4 * c4 + 1]);
+        dkr[4 * c4 + 2] = fmaf(ds, qq.z, dkr[4 * c4 + 2]);
+        dkr[4 * c4 + 3] = fmaf(ds, qq.w, dkr[4 * c4 + 3]);
+      }
+      if (c0 == 0) ds_s[i * DSS + jr] = ds;
+    }
+    __syncthreads();
+
+    // dq[i, :] += scale · Σ_j ds[i, j] · k[j, :] for this key tile
+    float acc[RQ][4];
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+    for (int jj = 0; jj < kBkv; ++jj) {
+      const float4 kk = *reinterpret_cast<const float4*>(ks + jj * D + cg * 4);
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) {
+        const float d = ds_s[(rg * RQ + r) * DSS + jj];
+        acc[r][0] = fmaf(d, kk.x, acc[r][0]);
+        acc[r][1] = fmaf(d, kk.y, acc[r][1]);
+        acc[r][2] = fmaf(d, kk.z, acc[r][2]);
+        acc[r][3] = fmaf(d, kk.w, acc[r][3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      const long long row = q0 + rg * RQ + r;
+      if (row < nq) {
+        float* dst = dq_acc + (bh * nq + row) * D + cg * 4;
+        atomicAdd(dst + 0, acc[r][0] * scale);
+        atomicAdd(dst + 1, acc[r][1] * scale);
+        atomicAdd(dst + 2, acc[r][2] * scale);
+        atomicAdd(dst + 3, acc[r][3] * scale);
+      }
+    }
+  }
+
+  if (jvalid) {
+    T* dkrow = dk + (bh * nk + j) * D + c0;
+    T* dvrow = dv + (bh * nk + j) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kDh; ++c) {
+      dkrow[c] = from_f32<T>(dkr[c] * scale);
+      dvrow[c] = from_f32<T>(dvr[c]);
+    }
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dq_acc, void* dk, void* dv, long long bh, long long nq,
+            long long nk, float scale, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((nk + kBkv - 1) / kBkv), static_cast<unsigned>(bh));
+  flash_bwd_kernel<T, D><<<grid, BwdShape<D>::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq_acc), static_cast<T*>(dk),
+      static_cast<T*>(dv), nq, nk, scale);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t.
+extern "C" int hvc_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dq_acc, void* dk, void* dv, long long bh,
+                                       long long nq, long long nk, int head_dim, int dtype,
+                                       float scale, void* stream) {
+  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (nk + kBkv - 1) / kBkv > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 32) {
+    launch<float, 32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
+  } else if (dtype == 0 && head_dim == 64) {
+    launch<float, 64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
+  } else if (dtype == 1 && head_dim == 32) {
+    launch<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
+  } else if (dtype == 1 && head_dim == 64) {
+    launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -17,8 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hybrid_vit_cascade_tpu.config import Config
-
+from ..config import Config
 from ..models.cascade import ProgressiveCascadeModel
 
 _STAGE_PREFIXES = {1: ("xray_encoder.", "stage2.", "stage3."), 2: ("stage3.",), 3: ()}
@@ -43,7 +42,8 @@ def build_model(cfg: Config, built_stages: int = 3) -> ProgressiveCascadeModel:
     return ProgressiveCascadeModel(
         xray_feature_dim=m.xray_feature_dim, voxel_dim=m.voxel_dim,
         stage_depths=tuple(m.stage_depths), stage_heads=tuple(m.stage_heads),
-        stage_sizes=tuple(m.stage_sizes), dtype=dtype, built_stages=built_stages)
+        stage_sizes=tuple(m.stage_sizes), dtype=dtype, built_stages=built_stages,
+        use_gradient_checkpointing=m.use_gradient_checkpointing, remat_mode=m.remat_mode)
 
 
 def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> None:

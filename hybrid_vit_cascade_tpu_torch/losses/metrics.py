@@ -1,0 +1,23 @@
+"""Quality metrics in fp32 (counterpart of hybrid_vit_cascade_tpu/losses/metrics.py)."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.ssim import ssim3d
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 2.0) -> torch.Tensor:
+    """20·log10(range/√MSE); range 2.0 for [-1, 1] volumes."""
+    mse = ((pred.float() - target.float()) ** 2).mean()
+    return 20.0 * torch.log10(data_range / torch.sqrt(mse.clamp_min(1e-12)))
+
+
+def ssim_metric(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11) -> torch.Tensor:
+    """Mean 3D SSIM (higher is better)."""
+    return ssim3d(pred, target, window_size)
+
+
+def mae(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred.float() - target.float()).abs().mean()
+

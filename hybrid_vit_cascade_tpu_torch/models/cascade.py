@@ -1,5 +1,5 @@
 """Progressive 64³→128³→256³ cascade (counterpart of
-hybrid_vit_cascade_tpu/models/cascade.py), inference only.
+hybrid_vit_cascade_tpu/models/cascade.py).
 
 Stage 1 generates 64³ from a learnable seed volume; stages 2 and 3
 trilinearly upsample the previous stage, refine it with a ViT (plus a CNN
@@ -11,6 +11,19 @@ distinct from the cascade-level one that stages 2 and 3 both call (shared
 weights, two runs). The stage-3 conv chains are evaluated densely
 (ops/chain.py); the JAX package's eval schedule streams them and folds
 conv→GroupNorm at batch 1, which gives the same result to fp32 tolerance.
+
+Training, as the JAX module runs it (``cascade.py:410-525``):
+- ``train=True`` puts every BatchNorm in batch-statistics mode and updates
+  its running statistics, frozen stages included, and turns on dropout,
+  whose seed is drawn once per forward from the caller's ``generator``.
+- ``stop_grad_stage1`` cuts the backward at stage 1's output (``.detach()``
+  of the JAX ``stop_gradient``); stage 1 then runs without recording.
+- With ``use_gradient_checkpointing``, stage 3 recomputes in the backward:
+  the upsample conv chain and the ViT trunk as one region (the port never
+  slab-streams, so the JAX package's no-slab branch, ``cascade.py:324-331``),
+  the ViT blocks inside it by ``remat_mode``, and the detail enhancer's chain
+  as another region (``:352``). Stages 1 and 2 do not recompute, as in JAX.
+  Checkpointing applies only while autograd records.
 """
 
 from __future__ import annotations
@@ -21,11 +34,13 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.chain import chain_apply_dense
 from ..ops.conv3d import ConvNCDHW, GroupNormNCDHW
 from ..ops.resize import resize_trilinear
 from .encoders import MultiScaleXrayEncoder
+from .layers import number_dropout_sites
 from .vit3d import HybridViT3D, _stem_plan
 
 
@@ -56,14 +71,16 @@ class Stage1Base64(nn.Module):
         self.xray_encoder = MultiScaleXrayEncoder(xray_feature_dim, stages=(1,), dtype=dtype)
         self.initial_volume = nn.Parameter(0.01 * torch.randn(1, 1, *volume_size))
         self.vit_backbone = HybridViT3D(volume_size, 1, voxel_dim, vit_depth, num_heads,
-                                        context_dim=xray_feature_dim, dtype=dtype)
+                                        context_dim=xray_feature_dim, dtype=dtype,
+                                        layout="NDHWC")
 
-    def forward(self, xrays: torch.Tensor) -> torch.Tensor:
+    def forward(self, xrays: torch.Tensor, train: bool = False,
+                seed: int | None = None) -> torch.Tensor:
         B = xrays.shape[0]
-        feats, cond, _ = self.xray_encoder(xrays, stage=1)
+        feats, cond, _ = self.xray_encoder(xrays, stage=1, train=train)
         x = self.initial_volume.expand(B, -1, -1, -1, -1).to(self.dtype)
         context = feats.flatten(2).transpose(1, 2)  # (B, H'·W', E), (H', W') order
-        return self.vit_backbone(x, context, cond)  # (B, 1, D, H, W)
+        return self.vit_backbone(x, context, cond, seed)  # (B, 1, D, H, W)
 
 
 class Stage2Refiner128(nn.Module):
@@ -80,9 +97,9 @@ class Stage2Refiner128(nn.Module):
         self.residual_weight = nn.Parameter(torch.full((1,), 0.5))
 
     def forward(self, volume_64: torch.Tensor, xray_feats: torch.Tensor,
-                cond: torch.Tensor) -> torch.Tensor:
+                cond: torch.Tensor, seed: int | None = None) -> torch.Tensor:
         x = self.upsample_from_64(volume_64)
-        refinement = self.vit_refiner(x, xray_feats.flatten(2).transpose(1, 2), cond)
+        refinement = self.vit_refiner(x, xray_feats.flatten(2).transpose(1, 2), cond, seed)
         base = resize_trilinear(volume_64, self.volume_size, align_corners=False)
         return base + self.residual_weight.to(base.dtype) * refinement
 
@@ -128,10 +145,12 @@ class _ChainParams(nn.Module):
 
 class DetailEnhancer(_ChainParams):
     """High-frequency CNN branch on the upsampled base volume:
-    conv(1→64)→GN16→GELU→conv(64→32)→GN8→GELU→conv 1×1 (32→1)."""
+    conv(1→64)→GN16→GELU→conv(64→32)→GN8→GELU→conv 1×1 (32→1); with
+    ``remat`` the chain is recomputed in the backward."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__(dtype)
+        self.remat = remat
         self._conv_op("conv0", 64, 1, 3, 1)
         self._gn_op("gn0", 64, 16)
         self._act_op("gelu")
@@ -140,8 +159,13 @@ class DetailEnhancer(_ChainParams):
         self._act_op("gelu")
         self._conv_op("conv_out", 1, 32, 1, 1)
 
-    def forward(self, base: torch.Tensor) -> torch.Tensor:  # (B, 1, D, H, W)
+    def _run(self, base: torch.Tensor) -> torch.Tensor:
         return chain_apply_dense(base, self.chain(), self.dtype)
+
+    def forward(self, base: torch.Tensor) -> torch.Tensor:  # (B, 1, D, H, W)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._run, base, use_reentrant=False)
+        return self._run(base)
 
 
 class Stage3ViTTrunk(_ChainParams):
@@ -149,7 +173,8 @@ class Stage3ViTTrunk(_ChainParams):
     stem, as one chain → stage-3 ViT blocks on the token grid."""
 
     def __init__(self, volume_size: Tuple[int, int, int], voxel_dim: int, vit_depth: int,
-                 num_heads: int, xray_feature_dim: int, dtype: torch.dtype = torch.float32):
+                 num_heads: int, xray_feature_dim: int, dtype: torch.dtype = torch.float32,
+                 inner_remat: bool = False, remat_mode: str = "block"):
         super().__init__(dtype)
         blocks_ch, last_ch, _ = _stem_plan(volume_size, 32, voxel_dim)
         self._conv_op("upsample_conv", 32, 1, 3, 1)
@@ -165,14 +190,15 @@ class Stage3ViTTrunk(_ChainParams):
             self._conv_op("proj_conv", voxel_dim, in_ch, 3, 1)
         self.vit_refiner = HybridViT3D(volume_size, voxel_dim, voxel_dim, vit_depth, num_heads,
                                        context_dim=xray_feature_dim, dtype=dtype,
-                                       external_stem=True)
+                                       external_stem=True, remat=inner_remat,
+                                       remat_mode=remat_mode)
 
-    def forward(self, vol_nc: torch.Tensor, context: torch.Tensor,
-                cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, vol_nc: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
         d, h, w = vol_nc.shape[2:]
         x1 = resize_trilinear(vol_nc, (2 * d, 2 * h, 2 * w), align_corners=False).to(self.dtype)
         feat = chain_apply_dense(x1, self.chain(), self.dtype)
-        return self.vit_refiner(feat, context, cond)
+        return self.vit_refiner(feat, context, cond, seed)
 
 
 class Stage3Refiner256(nn.Module):
@@ -181,19 +207,26 @@ class Stage3Refiner256(nn.Module):
 
     def __init__(self, volume_size=(256, 256, 256), voxel_dim: int = 256, vit_depth: int = 8,
                  num_heads: int = 8, xray_feature_dim: int = 512,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = True,
+                 remat_mode: str = "block"):
         super().__init__()
         self.volume_size = tuple(volume_size)
+        self.remat = remat
         self.vit_trunk = Stage3ViTTrunk(self.volume_size, voxel_dim, vit_depth, num_heads,
-                                        xray_feature_dim, dtype)
-        self.detail_enhancer = DetailEnhancer(dtype)
+                                        xray_feature_dim, dtype, inner_remat=remat,
+                                        remat_mode=remat_mode)
+        self.detail_enhancer = DetailEnhancer(dtype, remat=remat)
         self.residual_weight = nn.Parameter(torch.full((1,), 0.5))
         self.detail_weight = nn.Parameter(torch.full((1,), 0.3))
 
     def forward(self, volume_128: torch.Tensor, xray_feats: torch.Tensor,
-                cond: torch.Tensor) -> torch.Tensor:
+                cond: torch.Tensor, seed: int | None = None) -> torch.Tensor:
         context = xray_feats.flatten(2).transpose(1, 2)
-        refinement = self.vit_trunk(volume_128, context, cond)
+        if self.remat and torch.is_grad_enabled():
+            refinement = checkpoint(self.vit_trunk, volume_128, context, cond, seed,
+                                    use_reentrant=False)
+        else:
+            refinement = self.vit_trunk(volume_128, context, cond, seed)
         base = resize_trilinear(volume_128, self.volume_size, align_corners=False)
         details = self.detail_enhancer(base)
         return (base + self.residual_weight.to(base.dtype) * refinement
@@ -208,11 +241,13 @@ class ProgressiveCascadeModel(nn.Module):
 
     ``built_stages`` (1-3) builds only the stages up to it — the counterpart
     of the JAX engine's max_stage template, for loading a stage-pruned
-    checkpoint."""
+    checkpoint. ``use_gradient_checkpointing`` and ``remat_mode`` are the
+    config's (stage 3 only, as in JAX)."""
 
     def __init__(self, xray_feature_dim: int = 512, voxel_dim: int = 256,
                  stage_depths=(4, 6, 8), stage_heads=(4, 8, 8), stage_sizes=(64, 128, 256),
-                 dtype: torch.dtype = torch.float32, built_stages: int = 3):
+                 dtype: torch.dtype = torch.float32, built_stages: int = 3,
+                 use_gradient_checkpointing: bool = True, remat_mode: str = "block"):
         super().__init__()
         self.built_stages = built_stages
         s1, s2, s3 = stage_sizes
@@ -226,19 +261,35 @@ class ProgressiveCascadeModel(nn.Module):
                                            num_heads=stage_heads[1], **kw)
         if built_stages >= 3:
             self.stage3 = Stage3Refiner256((s3,) * 3, vit_depth=stage_depths[2],
-                                           num_heads=stage_heads[2], **kw)
+                                           num_heads=stage_heads[2],
+                                           remat=use_gradient_checkpointing,
+                                           remat_mode=remat_mode, **kw)
+        number_dropout_sites(self)
 
     def forward(self, xrays: torch.Tensor, return_intermediate: bool = False,
-                max_stage: int = 3):
+                max_stage: int = 3, train: bool = False, stop_grad_stage1: bool = False,
+                generator: torch.Generator | None = None):
+        """train: batch-statistics BatchNorm (running statistics updated) and
+        dropout seeded from ``generator``, which it then requires."""
         if not 1 <= max_stage <= self.built_stages:
             raise ValueError(f"max_stage {max_stage} outside the built stages 1..{self.built_stages}")
-        outputs = {"stage1": self.stage1(xrays)}
+        seed = None
+        if train:
+            if generator is None:
+                raise ValueError("train=True draws its dropout seed from a torch.Generator; "
+                                 "pass generator=")
+            seed = int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                                     device=generator.device))
+        cut = stop_grad_stage1 and max_stage >= 2
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not cut):
+            vol64 = self.stage1(xrays, train, seed)
+        outputs = {"stage1": vol64.detach() if cut else vol64}
         if max_stage >= 2:
-            feats2, cond, _ = self.xray_encoder(xrays, stage=2)
-            outputs["stage2"] = self.stage2(outputs["stage1"], feats2, cond)
+            feats2, cond, _ = self.xray_encoder(xrays, stage=2, train=train)
+            outputs["stage2"] = self.stage2(outputs["stage1"], feats2, cond, seed)
         if max_stage >= 3:
-            feats3, cond, _ = self.xray_encoder(xrays, stage=3)
-            outputs["stage3"] = self.stage3(outputs["stage2"], feats3, cond)
+            feats3, cond, _ = self.xray_encoder(xrays, stage=3, train=train)
+            outputs["stage3"] = self.stage3(outputs["stage2"], feats3, cond, seed)
         if return_intermediate:
             return outputs
         return outputs[f"stage{max_stage}"]

@@ -3,7 +3,11 @@
 Feature maps are NCHW here (the JAX package is channels-last); the X-ray
 input keeps the reference layout (B, V, 1, H, W). The 2D convs, BatchNorm
 and max pooling are plain torch ops, as the JAX package leaves them to XLA.
-Only the cascade's two encoders are ported so far.
+BatchNorm and the down blocks' GroupNorm follow flax's numerics (statistics,
+normalisation and affine in fp32, then one cast to the compute dtype).
+``train=True`` normalises BatchNorm with the batch statistics and updates
+the running ones, as flax does under ``mutable=["batch_stats"]``. Only the
+cascade's two encoders are ported so far.
 """
 
 from __future__ import annotations
@@ -33,16 +37,29 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm (running statistics, eps 1e-5) computed in fp32,
-    output in ``dtype``. Training statistics come with the training port."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW in fp32,
+    output in ``dtype``. flax's momentum 0.9 keeps 0.9 of the running value,
+    torch's ``momentum=0.1`` names the same update; the running variance is
+    updated with the biased batch variance (torch's own would use the
+    unbiased one), so the update is written out here."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
-        super().__init__(channels, eps=1e-5)
+        super().__init__(channels, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+                self.running_var.mul_(1.0 - m).add_(m * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.compute_dtype)
 
 
@@ -67,12 +84,12 @@ class XrayConditioningModule(nn.Module):
         self.time1 = Linear(time_embed_dim, 2 * time_embed_dim, dtype=dtype)
         self.time2 = Linear(2 * time_embed_dim, cond_dim, dtype=dtype)
 
-    def forward(self, xrays: torch.Tensor, t_embed: torch.Tensor):
+    def forward(self, xrays: torch.Tensor, t_embed: torch.Tensor, train: bool = False):
         B, V = xrays.shape[:2]
         x = xrays.to(self.dtype).reshape(B * V, *xrays.shape[2:])  # views folded into batch
-        x = max_pool_nd(F.relu(self.bn1(self.conv1(x))), 3, stride=2, padding=1)
-        x = max_pool_nd(F.relu(self.bn2(self.conv2(x))), 2, stride=2)
-        x = F.relu(self.bn3(self.conv3(x)))
+        x = max_pool_nd(F.relu(self.bn1(self.conv1(x), train)), 3, stride=2, padding=1)
+        x = max_pool_nd(F.relu(self.bn2(self.conv2(x), train)), 2, stride=2)
+        x = F.relu(self.bn3(self.conv3(x), train))
         features = x.reshape(B, V, *x.shape[1:]).mean(dim=1)  # average views
         xray_context = self.to_cond(features.mean(dim=(2, 3)))
         t = self.time2(F.silu(self.time1(t_embed)))
@@ -85,7 +102,7 @@ class _DownBlock(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
         self.conv = Conv2d(dim, dim, 3, stride=2, padding=1, dtype=dtype)
-        self.norm = GroupNormNCDHW(32, dim, dtype)
+        self.norm = GroupNormNCDHW(32, dim, dtype, flax=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(self.norm(self.conv(x)))
@@ -112,13 +129,13 @@ class MultiScaleXrayEncoder(nn.Module):
         self.down = nn.ModuleDict(
             {name: _DownBlock(base_dim, dtype) for s in self.stages for name in _BRANCHES[s]})
 
-    def forward(self, xrays: torch.Tensor, stage: int = 1):
+    def forward(self, xrays: torch.Tensor, stage: int = 1, train: bool = False):
         """→ (features (B, base_dim, h, w), time_xray_cond, xray_context)."""
         if stage not in self.stages:
             raise ValueError(f"this encoder serves stages {self.stages}, not {stage}")
         B = xrays.shape[0]
         dummy_t = torch.zeros((B, 256), dtype=self.dtype, device=xrays.device)
-        xray_context, time_xray_cond, feats = self.xray_encoder(xrays, dummy_t)
+        xray_context, time_xray_cond, feats = self.xray_encoder(xrays, dummy_t, train)
         for name in _BRANCHES[stage]:
             feats = self.down[name](feats)
         return feats, time_xray_cond, xray_context

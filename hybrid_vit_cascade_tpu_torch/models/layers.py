@@ -3,8 +3,16 @@
 Parameters are fp32; each module takes a compute ``dtype`` and follows the
 flax ``dtype=`` rule rather than autocast: a dense layer casts its input,
 weight and bias to the compute dtype, and LayerNorm takes its statistics in
-fp32 and returns the compute dtype. Dropout is the identity at inference and
-is left out.
+fp32 and returns the compute dtype.
+
+Dropout (the JAX ``FastDropout``, ``layers.py:33``) is driven by an integer
+``seed`` that the caller draws from its ``torch.Generator`` once per forward
+(``None`` = deterministic, the JAX ``train=False``). Each site draws its mask
+from a generator seeded with (seed, site number), so a recomputation under
+activation checkpointing sees the same mask as the forward it replays. Like
+the JAX module it keeps with probability 1 − rate and scales by
+1/(1 − rate); the bits differ from JAX's, as JAX's differ from the
+reference's.
 """
 
 from __future__ import annotations
@@ -12,6 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+# The rate of every dropout site: the JAX modules' default, which no cascade
+# configuration changes.
+DROPOUT_RATE = 0.1
 
 
 class Linear(nn.Linear):
@@ -41,17 +53,45 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout at ``rate``; ``site`` numbers it within its model
+    (``number_dropout_sites``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.site = 0
+
+    def forward(self, x: torch.Tensor, seed: int | None) -> torch.Tensor:
+        if seed is None or self.rate == 0.0:
+            return x
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed((seed * 1_000_003 + self.site) % (1 << 63))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.rate
+        return torch.where(keep, x / torch.tensor(1.0 - self.rate, dtype=x.dtype), 0.0)
+
+
+def number_dropout_sites(module: nn.Module) -> None:
+    """Give every Dropout under ``module`` a distinct site number, in module
+    order (so two models built alike number alike)."""
+    for i, m in enumerate(m for m in module.modules() if isinstance(m, Dropout)):
+        m.site = i
+
+
 class Mlp(nn.Module):
-    """Transformer MLP: Linear → GELU → Linear."""
+    """Transformer MLP: Linear → GELU → Dropout → Linear → Dropout."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = Linear(in_dim, hidden_dim, dtype=dtype)
         self.fc2 = Linear(hidden_dim, out_dim, dtype=dtype)
+        self.drop1 = Dropout(DROPOUT_RATE)
+        self.drop2 = Dropout(DROPOUT_RATE)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))  # erf form, as torch nn.GELU
+    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        h = self.drop1(F.gelu(self.fc1(x)), seed)  # erf form, as torch nn.GELU
+        return self.drop2(self.fc2(h), seed)
 
 
 class AdaLNModulation(nn.Module):

@@ -4,8 +4,17 @@ The volume is conv-downsampled to a token grid (≤128³ → 16³ = 4,096 tokens
 256³ → 32³ = 32,768), run through AdaLN-modulated self-attention +
 cross-attention blocks, projected to one channel and trilinearly resized back
 (align_corners=True). The port's stem is always feature-first (NCDHW) and its
-3×3×3 convs run through the hand-written kernels; the JAX package's
-channels-last stem (stage 1) computes the same function.
+3×3×3 convs run through the hand-written kernels; ``layout`` names the JAX
+stem it reproduces, which decides the GroupNorm numerics: the channels-last
+stem (stage 1) uses flax ``nn.GroupNorm``, the feature-first one
+``group_norm_core``.
+
+Training: ``seed`` (an int drawn by the caller, or None) drives dropout, and
+``remat`` with ``remat_mode`` selects activation checkpointing as the JAX
+module does (vit3d.py:151-157): 'block' recomputes whole blocks in the
+backward; 'mlp' recomputes only each block's MLP, so the flash forward runs
+once and its saved lse is reused. Checkpointing applies only while autograd
+records.
 """
 
 from __future__ import annotations
@@ -15,11 +24,12 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3d import ConvNCDHW, GroupNormNCDHW
 from ..ops.resize import resize_trilinear
 from .attention import MultiHeadCrossAttention, MultiHeadSelfAttention
-from .layers import AdaLNModulation, LayerNorm, Linear, Mlp
+from .layers import AdaLNModulation, LayerNorm, Linear, Mlp, number_dropout_sites
 
 
 class HybridViTBlock3D(nn.Module):
@@ -27,8 +37,10 @@ class HybridViTBlock3D(nn.Module):
     cross-attn to X-ray tokens → AdaLN-modulated MLP."""
 
     def __init__(self, voxel_dim: int, num_heads: int = 8, context_dim: int = 512,
-                 cond_dim: int = 1024, mlp_ratio: int = 4, dtype: torch.dtype = torch.float32):
+                 cond_dim: int = 1024, mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
+                 remat_mlp: bool = False):
         super().__init__()
+        self.remat_mlp = remat_mlp
         self.adaln = AdaLNModulation(cond_dim, voxel_dim, dtype)
         self.norm1 = LayerNorm(voxel_dim, dtype)
         self.self_attn = MultiHeadSelfAttention(voxel_dim, num_heads, dtype)
@@ -37,14 +49,19 @@ class HybridViTBlock3D(nn.Module):
         self.norm3 = LayerNorm(voxel_dim, dtype)
         self.mlp = Mlp(voxel_dim, voxel_dim * mlp_ratio, voxel_dim, dtype)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
         # x (B, N, voxel_dim), context (B, M, context_dim), cond (B, cond_dim)
         shift_sa, scale_sa, gate_sa, shift_mlp, scale_mlp, gate_mlp = self.adaln(cond)
         h = (1.0 + scale_sa) * self.norm1(x) + shift_sa
-        x = x + gate_sa * self.self_attn(h)
-        x = x + self.cross_attn(self.norm2(x), context)
+        x = x + gate_sa * self.self_attn(h, seed)
+        x = x + self.cross_attn(self.norm2(x), context, seed)
         h = (1.0 + scale_mlp) * self.norm3(x) + shift_mlp
-        return x + gate_mlp * self.mlp(h)
+        if self.remat_mlp and torch.is_grad_enabled():
+            h = checkpoint(self.mlp, h, seed, use_reentrant=False)
+        else:
+            h = self.mlp(h, seed)
+        return x + gate_mlp * h
 
 
 def _stem_plan(volume_size: Tuple[int, int, int], in_channels: int, voxel_dim: int):
@@ -79,16 +96,22 @@ class HybridViT3D(nn.Module):
     """Backbone for one cascade stage: (B, C, D, H, W) → (B, 1, D, H, W).
 
     external_stem=True: the caller already ran the token stem and passes the
-    (B, voxel_dim, Dd, Hd, Wd) feature map (stage 3's fused chain)."""
+    (B, voxel_dim, Dd, Hd, Wd) feature map (stage 3's fused chain).
+    layout: the JAX stem this one reproduces ('NDHWC': flax GroupNorm in the
+    stem, 'NCDHW': group_norm_core); the port's tensors are NCDHW either way."""
 
     def __init__(self, volume_size: Tuple[int, int, int], in_channels: int, voxel_dim: int,
                  depth: int, num_heads: int, context_dim: int = 512, cond_dim: int = 1024,
-                 dtype: torch.dtype = torch.float32, external_stem: bool = False):
+                 dtype: torch.dtype = torch.float32, external_stem: bool = False,
+                 layout: str = "NCDHW", remat: bool = False, remat_mode: str = "block"):
         super().__init__()
+        if layout not in ("NCDHW", "NDHWC") or remat_mode not in ("block", "mlp"):
+            raise ValueError(f"layout {layout!r} / remat_mode {remat_mode!r}")
         self.volume_size = tuple(volume_size)
         self.voxel_dim = voxel_dim
         self.dtype = dtype
         self.external_stem = external_stem
+        self.remat_blocks = remat and remat_mode == "block"
         blocks_ch, last_ch, down = _stem_plan(self.volume_size, in_channels, voxel_dim)
         self.stem_convs = nn.ModuleList()
         self.stem_norms = nn.ModuleList()
@@ -97,19 +120,23 @@ class HybridViT3D(nn.Module):
             cin = in_channels
             for out_ch in blocks_ch:
                 self.stem_convs.append(ConvNCDHW(cin, out_ch, stride=2, dtype=dtype))
-                self.stem_norms.append(GroupNormNCDHW(min(8, out_ch), out_ch, dtype))
+                self.stem_norms.append(GroupNormNCDHW(min(8, out_ch), out_ch, dtype,
+                                                      flax=layout == "NDHWC"))
                 cin = out_ch
             if last_ch != voxel_dim:
                 self.proj = ConvNCDHW(cin, voxel_dim, dtype=dtype)
         n_tokens = down[0] * down[1] * down[2]
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, n_tokens, voxel_dim))
         self.blocks = nn.ModuleList(
-            HybridViTBlock3D(voxel_dim, num_heads, context_dim, cond_dim, dtype=dtype)
+            HybridViTBlock3D(voxel_dim, num_heads, context_dim, cond_dim, dtype=dtype,
+                             remat_mlp=remat and remat_mode == "mlp")
             for _ in range(depth))
         self.norm = LayerNorm(voxel_dim, dtype)
         self.head = Linear(voxel_dim, 1, dtype=dtype)
+        number_dropout_sites(self)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
         B = x.shape[0]
         h = x.to(self.dtype)
         if self.external_stem:
@@ -124,6 +151,9 @@ class HybridViT3D(nn.Module):
         # (B, C, Dd, Hd, Wd) → (B, N, C): tokens in (D, H, W) row-major order
         tokens = h.flatten(2).transpose(1, 2) + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
-            tokens = blk(tokens, context, cond)
+            if self.remat_blocks and torch.is_grad_enabled():
+                tokens = checkpoint(blk, tokens, context, cond, seed, use_reentrant=False)
+            else:
+                tokens = blk(tokens, context, cond, seed)
         out = self.head(self.norm(tokens)).reshape(B, 1, Dd, Hd, Wd)
         return resize_trilinear(out, self.volume_size, align_corners=True)

@@ -1,13 +1,25 @@
 """Feature-first (NCDHW) 3D conv + GroupNorm (counterpart of
 hybrid_vit_cascade_tpu/ops/conv3d.py).
 
-Every 3×3×3 conv with padding 1 goes through ``conv3d_ncdhw``, which on a
-CUDA tensor launches the hand-written kernels of ``ops/cuda/conv3d_k3.py``
-(stride 1: kernel B, stride 2: kernel C) and on a CPU tensor runs their
-plain version. ``group_norm_core`` copies the JAX numerics, which differ
-from ``nn.GroupNorm`` at bf16: fp32 statistics with var = E[x²] − E[x]²
-clamped at 0, eps 1e-5, and the normalisation done in the input dtype.
-Forward only: the memory-lean custom backward comes with training.
+Every 3×3×3 conv with padding 1 goes through ``conv3d_ncdhw``, an autograd
+Function over the hand-written kernels of ``ops/cuda/conv3d_k3.py``:
+forward B (stride 1) / C (stride 2); data gradient B with flipped weights
+(stride 1) / F (stride 2); weight gradient E / G; the bias gradient is an
+fp32 sum, as the JAX package takes it outside Pallas. A gradient is computed
+only for the inputs that need one. On a CPU tensor each kernel wrapper runs
+its plain version.
+
+Two GroupNorms, because the JAX package has two:
+- ``group_norm_core`` (``ops/conv3d.py:64-116`` there, used by
+  ``GroupNormNCDHW`` and the conv chains): fp32 statistics with
+  var = E[x²] − E[x]² clamped at 0, eps 1e-5, the normalisation done in the
+  input dtype, and the memory-lean hand-written VJP that keeps full tensors
+  in the input dtype and only per-group scalars in fp32.
+- ``group_norm_flax`` (flax ``nn.GroupNorm``, which the JAX package's
+  ``models/layers.py:group_norm`` builds): fp32 statistics from the input
+  promoted to fp32, normalisation and affine in fp32, one cast to the compute
+  dtype at the end.
+The two agree in fp32 and differ at bf16.
 """
 
 from __future__ import annotations
@@ -17,20 +29,52 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .cuda.conv3d_k3 import conv3d_k3s1, conv3d_k3s2
+from .cuda.conv3d_k3 import (
+    conv3d_k3s1,
+    conv3d_k3s1_dgrad,
+    conv3d_k3s1_wgrad,
+    conv3d_k3s2,
+    conv3d_k3s2_dgrad,
+    conv3d_k3s2_wgrad,
+)
+
+
+class _Conv3dK3(torch.autograd.Function):
+    """x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3) in x's dtype, fp32 bias or
+    None → the padding-1 conv at ``stride``. dW comes back in w's dtype (the
+    JAX VJP casts its fp32 kernel result to the weight's dtype), db in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return (conv3d_k3s1 if stride == 1 else conv3d_k3s2)(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (conv3d_k3s1_dgrad(g, w) if ctx.stride == 1
+                  else conv3d_k3s2_dgrad(g, w, x.shape))
+        if ctx.needs_input_grad[1]:
+            dw = (conv3d_k3s1_wgrad if ctx.stride == 1 else conv3d_k3s2_wgrad)(x, g).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 2, 3, 4))
+        return dx, dw, db, None
 
 
 def conv3d_ncdhw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  stride: int) -> torch.Tensor:
     """3×3×3 conv, padding 1, stride 1 or 2, on (B, Cin, D, H, W) in x's
     dtype; w (Cout, Cin, 3, 3, 3) is cast to x's dtype, the bias stays fp32
-    and is added before the output is rounded."""
+    and is added before the output is rounded. Differentiable."""
     if tuple(w.shape[2:]) != (3, 3, 3) or stride not in (1, 2):
         raise ValueError(f"conv3d_ncdhw takes 3×3×3 kernels at stride 1 or 2, got "
                          f"{tuple(w.shape)} stride {stride}")
-    fn = conv3d_k3s1 if stride == 1 else conv3d_k3s2
     bias = None if b is None else b.float().contiguous()
-    return fn(x.contiguous(), w.to(x.dtype).contiguous(), bias)
+    return _Conv3dK3.apply(x.contiguous(), w.to(x.dtype).contiguous(), bias, stride)
 
 
 def conv1x1_ncdhw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
@@ -45,21 +89,72 @@ def conv1x1_ncdhw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -
     return out
 
 
+class _GroupNormCore(torch.autograd.Function):
+    """GroupNorm forward (ops/conv3d.py:76-88 of the JAX package) and its
+    hand-written VJP (:96-113): saves xhat in x's dtype and the per-group
+    fp32 inverse std, nothing else of full size."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int):
+        B, C = x.shape[:2]
+        G = num_groups
+        xr = x.reshape(B, G, C // G, *x.shape[2:])
+        red = tuple(range(2, xr.dim()))
+        mean = xr.float().mean(dim=red, keepdim=True)
+        mean2 = (xr * xr).float().mean(dim=red, keepdim=True)  # square in x's dtype, as JAX
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + 1e-5)
+        xhat = ((xr - mean.to(x.dtype)) * inv.to(x.dtype)).reshape(x.shape)
+        bshape = (1, C) + (1,) * (x.dim() - 2)
+        ctx.save_for_backward(xhat, inv, scale)
+        ctx.num_groups = num_groups
+        ctx.bias_dtype = bias.dtype
+        return xhat * scale.to(x.dtype).reshape(bshape) + bias.to(x.dtype).reshape(bshape)
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, inv, scale = ctx.saved_tensors
+        B, C = xhat.shape[:2]
+        G = ctx.num_groups
+        g = g.to(xhat.dtype)
+        param_axes = (0,) + tuple(range(2, xhat.dim()))
+        dscale = (g * xhat).float().sum(dim=param_axes)
+        dbias = g.float().sum(dim=param_axes)
+        bshape = (1, C) + (1,) * (xhat.dim() - 2)
+        gs = g * scale.to(g.dtype).reshape(bshape)
+        gsr = gs.reshape(B, G, C // G, *xhat.shape[2:])
+        xhr = xhat.reshape(B, G, C // G, *xhat.shape[2:])
+        red = tuple(range(2, gsr.dim()))
+        m1 = gsr.float().mean(dim=red, keepdim=True)
+        m2 = (gsr * xhr).float().mean(dim=red, keepdim=True)
+        dxr = (gsr - m1.to(g.dtype) - xhr * m2.to(g.dtype)) * inv.to(g.dtype)
+        return (dxr.reshape(xhat.shape), dscale.to(scale.dtype), dbias.to(ctx.bias_dtype),
+                None)
+
+
 def group_norm_core(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     num_groups: int) -> torch.Tensor:
-    """GroupNorm on (B, C, *spatial) with the JAX package's numerics
-    (ops/conv3d.py:76-88); returns x's dtype."""
+    """GroupNorm on (B, C, *spatial) with the JAX package's numerics and VJP
+    (ops/conv3d.py:64-116); returns x's dtype."""
+    return _GroupNormCore.apply(x, scale, bias, num_groups)
+
+
+def group_norm_flax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.GroupNorm(epsilon=1e-5)`` on (B, C, *spatial), in the order
+    of flax's ``_compute_stats`` and ``_normalize``: x promoted to fp32,
+    mean and E[x²] in fp32, var = max(0, E[x²] − mean²), then
+    y = (x − mean)·(rsqrt(var + eps)·scale) + bias in fp32, cast to ``dtype``."""
     B, C = x.shape[:2]
     G = num_groups
-    xr = x.reshape(B, G, C // G, *x.shape[2:])
+    xr = x.float().reshape(B, G, C // G, *x.shape[2:])
     red = tuple(range(2, xr.dim()))
-    mean = xr.float().mean(dim=red, keepdim=True)
-    mean2 = (xr * xr).float().mean(dim=red, keepdim=True)  # square in x's dtype, as JAX
-    var = (mean2 - mean * mean).clamp_min(0.0)
-    inv = torch.rsqrt(var + 1e-5)
-    xhat = ((xr - mean.to(x.dtype)) * inv.to(x.dtype)).reshape(x.shape)
-    bshape = (1, C) + (1,) * (x.dim() - 2)
-    return xhat * scale.to(x.dtype).reshape(bshape) + bias.to(x.dtype).reshape(bshape)
+    mean = xr.mean(dim=red, keepdim=True)
+    var = ((xr * xr).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
+    cshape = (1, G, C // G) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + 1e-5) * scale.float().reshape(cshape)
+    y = (xr - mean) * mul + bias.float().reshape(cshape)
+    return y.reshape(x.shape).to(dtype)
 
 
 class ConvNCDHW(nn.Conv3d):
@@ -77,15 +172,22 @@ class ConvNCDHW(nn.Conv3d):
 
 
 class GroupNormNCDHW(nn.Module):
-    """torch nn.GroupNorm on (B, C, *spatial) through ``group_norm_core``
-    (fp32 statistics, eps 1e-5), output in the compute dtype."""
+    """torch nn.GroupNorm on (B, C, *spatial), output in the compute dtype.
 
-    def __init__(self, num_groups: int, num_channels: int, dtype: torch.dtype = torch.float32):
+    ``flax=False``: through ``group_norm_core`` (the JAX ``GroupNormNCDHW``).
+    ``flax=True``: through ``group_norm_flax`` (the JAX sites that use flax
+    ``nn.GroupNorm``: the channels-last token stem and the encoders)."""
+
+    def __init__(self, num_groups: int, num_channels: int, dtype: torch.dtype = torch.float32,
+                 flax: bool = False):
         super().__init__()
         self.num_groups = num_groups
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.compute_dtype = dtype
+        self.flax = flax
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.flax:
+            return group_norm_flax(x, self.weight, self.bias, self.num_groups, self.compute_dtype)
         return group_norm_core(x, self.weight, self.bias, self.num_groups).to(self.compute_dtype)

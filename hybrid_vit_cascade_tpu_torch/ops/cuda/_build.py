@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``hybrid_vit_cascade_tpu_torch/csrc/*.cu`` file compiles, in one
-``nvcc`` call, into one shared library with a plain C interface::
+Every ``hybrid_vit_cascade_tpu_torch/csrc/*.cu`` file compiles in its own
+``nvcc`` process, all started together, and the objects link into one shared
+library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<hash>/libhvc_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas=-v -c -o build/kernels/<hash>/<name>.o csrc/<name>.cu   # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/kernels/<hash>/libhvc_kernels.so build/kernels/<hash>/*.o
 
 The library lands under ``build/kernels/`` at the repository root, in a
 directory named by a hash of the sources and flags, so an unchanged tree
@@ -28,12 +31,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 LIB_NAME = "libhvc_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -Xptxas=-v writes each kernel's registers, shared memory and spills to the
 # build log (nvcc.log beside the library).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def find_nvcc() -> str:
@@ -70,14 +71,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}")
+    nvcc = find_nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link exit code {res.returncode}:\n{res.stdout}{res.stderr}")
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

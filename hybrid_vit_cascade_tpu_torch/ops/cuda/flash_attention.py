@@ -1,13 +1,16 @@
-"""Kernel A: flash attention forward (``csrc/flash_attention.cu``).
+"""Kernels A and D: flash attention forward (``csrc/flash_attention.cu``)
+and backward (``csrc/flash_attention_bwd.cu``).
 
-Counterpart of ``hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py``
-(``_flash_fwd_padded``, kernel body ``_fwd_kernel``). The backward kernels
-are not ported yet.
+Counterparts of ``hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py``:
+``_flash_fwd_padded`` (kernel body ``_fwd_kernel``) and the fused backward
+``_bwd_pallas_fused`` (kernel body ``_bwd_fused_kernel``). The split backward
+(``_bwd_pallas``) is not ported yet.
 
-``flash_attention_fwd`` launches the CUDA kernel for a tensor on a CUDA
-device and runs ``flash_attention_plain`` for a tensor on the CPU; for any
-other device it raises. It never falls back from the kernel to the plain
-version. ``flash_attention_fwd.launches`` counts kernel launches.
+``flash_attention_fwd`` and ``flash_attention_bwd`` launch the CUDA kernel
+for tensors on a CUDA device and run ``flash_attention_plain`` /
+``flash_attention_bwd_plain`` for tensors on the CPU; for any other device
+they raise. They never fall back from the kernel to the plain version. Each
+counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,13 @@ _ARGTYPES = (
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
-# Score elements per chunk of the plain version: 2**28 fp32 scores = 1 GiB.
+_BWD_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+)
+# Score elements per chunk of the plain versions: 2**28 fp32 scores = 1 GiB.
 # Unchunked, the stage-3 self-attention (8 heads × 32,768²) would need 34 GB.
 _PLAIN_CHUNK_SCORES = 1 << 28
 
@@ -100,3 +109,72 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = Σ_d dout·out per query row, fp32 (BH, Nq): the softmax
+    backward's row term, computed before the kernel as _bwd_pallas_fused does."""
+    return (dout.float() * out.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                              scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Recompute-softmax backward in fp32, chunked over query rows:
+    p = exp(q·kᵀ·scale − lse), dv = pᵀ·do, ds = p·(do·vᵀ − delta),
+    dq = ds·k·scale, dk = dsᵀ·q·scale. Returns (dq, dk, dv) in q's dtype."""
+    bh, nq, _ = q.shape
+    nk = k.shape[1]
+    kf, vf = k.float(), v.float()
+    delta = _delta(out, dout)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    rows = max(1, _PLAIN_CHUNK_SCORES // (bh * nk))
+    for r0 in range(0, nq, rows):
+        qc, dc = q[:, r0:r0 + rows].float(), dout[:, r0:r0 + rows].float()
+        p = torch.exp(torch.matmul(qc, kf.transpose(1, 2)) * scale - lse[:, r0:r0 + rows, None])
+        dv += torch.matmul(p.transpose(1, 2), dc)
+        ds = p * (torch.matmul(dc, vf.transpose(1, 2)) - delta[:, r0:r0 + rows, None])
+        dq[:, r0:r0 + rows] = (torch.matmul(ds, kf) * scale).to(q.dtype)
+        dk += torch.matmul(ds.transpose(1, 2), qc) * scale
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
+    gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
+    dtype (fp32 or bf16), d ∈ {32, 64}; lse (BH, Nq) fp32, natural log.
+    Returns (dq, dk, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:2] or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous fp32 {tuple(q.shape[:2])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    delta = _delta(out, dout)
+    dq_acc = torch.zeros((bh, nq, d), dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("hvc_flash_attention_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                bh, nq, nk, d, _DTYPE_CODES[q.dtype], float(scale), stream)
+    _build.check(rc, "hvc_flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_attention_bwd.launches = 0

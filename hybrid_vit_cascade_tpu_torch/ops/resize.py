@@ -16,6 +16,18 @@ import torch
 import torch.nn.functional as F
 
 
+def resize_bilinear(x: torch.Tensor, out_hw: Sequence[int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of the two trailing axes (..., H, W)."""
+    out_hw = tuple(int(s) for s in out_hw)
+    if tuple(x.shape[-2:]) == out_hw:
+        return x
+    lead = x.shape[:-2]
+    y = F.interpolate(x.reshape(-1, 1, *x.shape[-2:]).float(), size=out_hw,
+                      mode="bilinear", align_corners=align_corners)
+    return y.reshape(*lead, *out_hw).to(x.dtype)
+
+
 def resize_trilinear(x: torch.Tensor, out_dhw: Sequence[int],
                      align_corners: bool = False) -> torch.Tensor:
     """Trilinear resize of the three trailing axes (..., D, H, W)."""

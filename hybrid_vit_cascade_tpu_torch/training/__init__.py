@@ -1,0 +1,1 @@
+"""Training of the port (counterpart of hybrid_vit_cascade_tpu/training)."""

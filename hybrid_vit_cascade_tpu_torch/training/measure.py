@@ -1,0 +1,161 @@
+"""Time, profile and size the staged train step of the cascade.
+
+    python -m hybrid_vit_cascade_tpu_torch.training.measure --stage 3 --batch 1 --steps 3 --profile
+
+Builds the cascade of ``--config`` (default ``configs/progressive_cascade.json``,
+full width) with weights from ``--seed``, feeds seeded X-rays
+(B, 2, 1, S, S) and a seeded CT volume (B, 1, 256, 256, 256) in [-1, 1], and
+runs one warm-up step and ``--steps`` timed steps of the step that
+``stage_step`` builds for ``--stage``. ``--deterministic`` runs that step with
+``train=False`` (running statistics, no dropout). ``--profile`` runs one more
+step under ``torch.profiler`` and adds the device time of each kernel name.
+Prints one JSON object (and writes it to ``--out`` if given). Needs a CUDA
+card; ``train_steps`` also runs on the CPU at a small config.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from ..losses.multiscale import MultiScaleLoss
+from ..ops.cuda import launch_counts, reset_launch_counts
+from .trainer import stage_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+TOP_KERNELS = 25  # kernel names a profile lists
+
+
+def kernel_profile(fn, dev: torch.device) -> Dict:
+    """Run ``fn()`` once under torch.profiler: wall time, summed device
+    kernel time, the share of the wall in which no kernel ran, and the
+    TOP_KERNELS kernel names by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    _sync(dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
+    busy_us, last = 0.0, None
+    for start, end in sorted(spans):  # union of kernel intervals
+        if last is None or start > last:
+            busy_us += end - start
+            last = end
+        elif end > last:
+            busy_us += end - last
+            last = end
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"wall_ms": wall_ms, "kernel_ms": sum(ms for ms, _ in by_name.values()),
+            "busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "top": [{"name": k, "ms": ms, "launches": n} for k, (ms, n) in kernels[:TOP_KERNELS]]}
+
+
+def train_steps(model: nn.Module, cfg, stage: int, batch_size: int, steps: int,
+                generator: torch.Generator, train: bool = True,
+                loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False) -> Dict:
+    """One warm-up step and ``steps`` timed steps of stage ``stage`` on the
+    model's device, on a batch drawn from ``generator`` (which also seeds
+    dropout). Returns step times (ms, host clock around work that ends in a
+    device sync), total_loss per step (warm-up first), peak memory (GB, CUDA
+    only), kernel launches of the warm-up step, and with ``profile`` the
+    kernel profile of one more step."""
+    dev = next(model.parameters()).device
+    xs, top = cfg.data.xray_size, max(cfg.model.stage_sizes)
+    batch = {"drr_stacked": torch.rand((batch_size, 2, 1, xs, xs), generator=generator,
+                                       device=dev) * 2 - 1,
+             "ct_volume": torch.rand((batch_size, 1, top, top, top), generator=generator,
+                                     device=dev) * 2 - 1}
+    state, step = stage_step(model, cfg, stage, loss_obj, steps_per_epoch=1, train=train)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, generator)  # warm-up
+    _sync(dev)
+    out = {"warmup_s": time.perf_counter() - t0, "launches_per_step": launch_counts(),
+           "total_loss": [float(metrics["total_loss"])], "step_ms": [],
+           "trainable_params": sum(p.numel() for p in model.parameters() if p.requires_grad)}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, generator)
+        _sync(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["total_loss"].append(float(metrics["total_loss"]))
+    if steps:
+        out["steps_per_sec"] = 1e3 / statistics.median(out["step_ms"])
+    if dev.type == "cuda":
+        out["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    if profile:
+        out["profile"] = kernel_profile(lambda: step(state, batch, generator), dev)
+    return out
+
+
+def main(argv=None) -> int:
+    from ..config import Config
+    from ..inference.infer import build_model
+    from ..models.layers import seeded_init_
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="configs/progressive_cascade.json")
+    ap.add_argument("--stage", type=int, choices=(1, 2, 3), required=True)
+    ap.add_argument("--batch", type=int, required=True)
+    ap.add_argument("--steps", type=int, default=3, help="timed steps after one warm-up step")
+    ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and dropout")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="train=False: running statistics, no dropout")
+    ap.add_argument("--profile", action="store_true", help="profile one more step")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("measure: no CUDA device; the full-width step runs only on the card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = Config.from_json(args.config)
+    model = seeded_init_(build_model(cfg), args.seed).to(dev)
+    loss_obj = MultiScaleLoss({f"stage{n}": getattr(cfg.loss, f"stage{n}") for n in (1, 2, 3)})
+    g = torch.Generator(device=dev).manual_seed(args.seed + 10 + args.stage)
+    res = train_steps(model, cfg, args.stage, args.batch, args.steps, g,
+                      train=not args.deterministic, loss_obj=loss_obj, profile=args.profile)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    res.update(stage=args.stage, batch=args.batch, train=not args.deterministic, card=card,
+               torch=torch.__version__)
+    text = json.dumps(res, indent=1)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,15 +5,18 @@ Scaled config of tests/test_parity_cascade.py:46-47, 322-325: 8³→16³→32³
 volumes, 64² X-rays, E=32, 4 heads, one block per stage. fp32 on the CPU,
 rtol/atol 2e-4 (the tolerance of test_parity_cascade.py:345)."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hybrid_vit_cascade_tpu.config import Config
+from hybrid_vit_cascade_tpu.config import Config as JaxConfig
 from hybrid_vit_cascade_tpu.models import ProgressiveCascadeModel as JaxCascade
 from hybrid_vit_cascade_tpu_torch import convert
+from hybrid_vit_cascade_tpu_torch.config import Config
 from hybrid_vit_cascade_tpu_torch.inference.infer import (
     InferenceEngine,
     build_model,
@@ -23,6 +26,7 @@ from hybrid_vit_cascade_tpu_torch.inference.infer import (
 from hybrid_vit_cascade_tpu_torch.models.cascade import ProgressiveCascadeModel
 from tests.test_torch_models import jax_variables
 
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 S1, S2, S3 = 8, 16, 32
 XR, E, HEADS = 64, 32, 4
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -115,3 +119,16 @@ def test_denormalize_ct():
     v = np.array([-1.0, 0.0, 1.0], np.float32)
     np.testing.assert_allclose(denormalize_ct(v), [-200.0, 0.0, 200.0])
     np.testing.assert_allclose(denormalize_ct(np.array([0.0, 1.0]), "full"), [-1024.0, 3071.0])
+
+
+@pytest.mark.parametrize("name", [None] + sorted(p.name for p in CONFIGS.glob("*.json")))
+def test_config_matches_jax(name):
+    """The port's Config loads every config file (and the defaults) into the
+    dict the JAX package's Config loads, and round-trips it."""
+    if name is None:
+        want, got = JaxConfig().to_dict(), Config().to_dict()
+    else:
+        want = JaxConfig.from_json(str(CONFIGS / name)).to_dict()
+        got = Config.from_json(str(CONFIGS / name)).to_dict()
+    assert got == want
+    assert Config.from_dict(got).to_dict() == got

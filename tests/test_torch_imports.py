@@ -35,7 +35,9 @@ def test_port_modules_found():
     for m in ("ops.cuda._build", "ops.cuda.flash_attention", "ops.cuda.conv3d_k3",
               "ops.attention", "ops.chain", "ops.conv3d", "ops.pool", "ops.resize",
               "models.layers", "models.attention", "models.vit3d", "models.encoders",
-              "models.cascade", "convert", "inference.infer"):
+              "models.cascade", "convert", "inference.infer", "ops.ssim", "ops.fft",
+              "ops.drr", "losses.metrics", "losses.multiscale", "training.schedules",
+              "training.trainer", "config"):
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 

@@ -11,11 +11,19 @@ import pytest
 import torch
 
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
+    conv3d_k3_dgrad_plain,
     conv3d_k3_plain,
+    conv3d_k3_wgrad_plain,
     conv3d_k3s1,
+    conv3d_k3s1_dgrad,
+    conv3d_k3s1_wgrad,
     conv3d_k3s2,
+    conv3d_k3s2_dgrad,
+    conv3d_k3s2_wgrad,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -26,6 +34,10 @@ pytestmark = pytest.mark.cuda
 # accumulate in fp32 in another order. bf16: both sides round once to bf16
 # at the end (one ulp is 2^-8 relative), from the same bf16 inputs.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# Weight gradients sum up to millions of products in another order and come
+# out in fp32; their inputs are the same bf16 values on both sides, so the
+# bf16 case differs from the plain version only by summation order.
+GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (1e-3, 1e-3)}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -42,8 +54,8 @@ def _randn(shape, dtype, dev, seed):
     return torch.from_numpy(g.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
 
 
-def _close(got, want, dtype):
-    atol, rtol = TOL[dtype]
+def _close(got, want, dtype, tol=TOL):
+    atol, rtol = tol[dtype]
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
@@ -97,3 +109,47 @@ def test_conv_rejects_mixed_dtype(dev):
     w = torch.zeros((4, 4, 3, 3, 3), device=dev)
     with pytest.raises(TypeError):
         conv3d_k3s1(x, w, None)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,nq,nk,d", [(3, 200, 77, 32), (3, 200, 77, 64), (2, 130, 300, 32),
+                                        (8, 1024, 1024, 32), (4, 1024, 256, 64)])
+def test_flash_bwd_matches_plain(dev, dtype, bh, nq, nk, d):
+    q, dout = (_randn((bh, nq, d), dtype, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), dtype, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("b,cin,cout,dhw", [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10)),
+                                            (1, 1, 32, (16, 16, 16)), (1, 64, 32, (8, 24, 40)),
+                                            (2, 32, 64, (16, 16, 16)), (1, 64, 1, (6, 10, 34))])
+def test_conv_grads_match_plain(dev, dtype, stride, b, cin, cout, dhw):
+    x = _randn((b, cin, *dhw), dtype, dev, 6)
+    w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 7) / (27 * cin) ** 0.5).to(dtype)
+    odhw = tuple((s - 1) // stride + 1 for s in dhw)
+    g = _randn((b, cout, *odhw), dtype, dev, 8)
+    wgrad = conv3d_k3s1_wgrad if stride == 1 else conv3d_k3s2_wgrad
+    before = wgrad.launches
+    dw = wgrad(x, g)
+    assert wgrad.launches == before + 1 and dw.dtype == torch.float32
+    _close(dw, conv3d_k3_wgrad_plain(x, g, stride), dtype, GRAD_TOL)
+    if stride == 1:
+        before = conv3d_k3s1_dgrad.launches, conv3d_k3s1.launches
+        dx = conv3d_k3s1_dgrad(g, w)
+        assert (conv3d_k3s1_dgrad.launches, conv3d_k3s1.launches) == (before[0] + 1, before[1])
+    else:
+        before = conv3d_k3s2_dgrad.launches
+        dx = conv3d_k3s2_dgrad(g, w, x.shape)
+        assert conv3d_k3s2_dgrad.launches == before + 1
+    assert dx.shape == x.shape and dx.dtype == dtype
+    _close(dx, conv3d_k3_dgrad_plain(g, w, x.shape, stride), dtype)

@@ -105,7 +105,7 @@ def test_vit3d_matches_jax(rng, layout, in_ch, external):
     jx = jnp.asarray(x if layout == "NCDHW" else np.moveaxis(x, 1, -1))
     tree, jv = jax_variables(jm, rng, jx, jnp.asarray(ctx), jnp.asarray(cond))
     want = _ndhwc_to_ncdhw(jm.apply(jv, jx, jnp.asarray(ctx), jnp.asarray(cond)))
-    tm = HybridViT3D(vol, in_ch, E, 1, H, context_dim=C, external_stem=external)
+    tm = HybridViT3D(vol, in_ch, E, 1, H, context_dim=C, external_stem=external, layout=layout)
     tm.load_state_dict(convert.vit3d(tree["params"]), strict=True)
     with torch.no_grad():
         got = tm(_t(x), _t(ctx), _t(cond)).numpy()
