@@ -13,26 +13,36 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (sm_90a) and print the build time.
 3. Hold each kernel against its plain PyTorch version on the card, at every
    shape the main path gives it and at ragged small shapes, in bf16 and fp32.
+   Then the chain forms H (stride-1 chain conv, and as its data gradient),
+   I (stride-2 chain conv), J (stride-2 chain data gradient) and K (chain
+   weight gradients) at every shape the streamed stage-3 chains give them
+   (8-slab training, 1-slab eval, batch 1 and 2, both volume ends) and at
+   ragged small shapes, with every option (window, Σ/Σ² sums, gelu/silu
+   prologue, act′ epilogue).
 4. The slice: the full-width progressive cascade of
    ``configs/progressive_cascade.json`` (bf16 compute over fp32 weights made
    from a seeded torch.Generator, written with torch.save and loaded back
    through InferenceEngine) reconstructs one 512² X-ray pair at
-   max_stage=3 with return_intermediate=True. Checks the output shapes,
-   finiteness, and that each kernel launched as often as the path needs it
-   (36 flash attention, 5 stride-1 conv, 8 stride-2 conv).
+   max_stage=3 with return_intermediate=True, its stage-3 chains streamed
+   (the eval schedule: one slab, every endpoint stored). Checks the output
+   shapes, finiteness, and that each kernel launched as often as the path
+   needs it (EXPECTED_LAUNCHES).
 5. A small-input reference: a scaled cascade in fp32 on the card (kernels)
-   against the same weights on the CPU (plain versions).
+   against the same weights on the CPU (plain versions), its stage-3 chains
+   streamed at every level.
 6. Timings from CUDA events and the host clock after a warm-up: the median
-   end-to-end reconstruct time and volumes/s, and each kernel beside its
-   plain version at the main-path shapes.
+   end-to-end reconstruct time and volumes/s under the streamed (default) and
+   the dense stage-3 schedule, in turns; each kernel beside its plain version
+   at the main-path shapes.
 7. The gradient kernels — D (flash backward), E (stride-1 weight gradient),
    F (stride-2 data gradient), G (stride-2 weight gradient) and kernel B run
    as the stride-1 data gradient — against their plain versions at every
    shape the three training stages give them (and ragged small shapes), in
    bf16 and fp32, with kernel and plain times at the training shapes.
 8. A small training reference: one scaled stage-3 train step (deterministic
-   forward, fp32) on the card (kernels) against the same step on the CPU
-   (plain versions): loss and every trainable gradient within 2e-4.
+   forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
+   card (kernels) against the same step on the CPU (plain versions): loss and
+   every trainable gradient within 2e-4.
 9. The training slice: the full-width cascade trains stage 1 (64³, batch 8),
    stage 2 (128³, batch 2) and stage 3 (256³, batch 1) the way the JAX
    trainer's fit_cascade builds each stage (trainable stage + shared encoder,
@@ -41,7 +51,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and a seeded 256³ CT volume: one warm-up step and 3 timed ones per stage,
    finite losses, peak memory, and each kernel's launches per step (every
    counted wrapper, B as the stride-1 data gradient included, launches in
-   the stage-3 step).
+   the stage-3 step). Stage 3 trains on the config's streamed schedule
+   (8 slabs).
+10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
+   widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
+   endpoint stored, each with the activation prologue off and on — against
+   the port's dense chain on the card: values and the gradients of the input
+   and every chain array within 2e-4, the absolute part scaled by the
+   largest |want|.
+
+Every kernel in the {"kernels": ...} line carries its time, the plain
+version's, the least time the card could take for the same work (bound_ms:
+the larger of the bytes it must move over 3.35 TB/s and its operations over
+989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak) and the time of one
+PyTorch call that computes the same function (library_ms: cuDNN convolution
+or its weight/data gradient, scaled_dot_product_attention forward or
+backward), all in bf16 at the kernel's hot shape; launches are those of the
+main path: the reconstruct [4] plus the first step of each stage in [9].
 
 cuDNN and cuBLAS run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 are set False), so the fp32 plain
@@ -81,13 +107,19 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 SMALL_TOL = (2e-4, 2e-4)
 
 # Per max_stage=3 forward at the default widths: flash attention in the self-
-# and cross-attention of 4 + 6 + 8 blocks; stride-1 conv = stage-1 projection
-# (128→256 at 16³), stage-2 upsample conv, stage-3 upsample conv and the two
-# detail convs; stride-2 conv = 2 + 3 + 3 token-stem convs.
-EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 5, "conv3d_k3s2": 8}
+# and cross-attention of 4 + 6 + 8 blocks; dense stride-1 conv (B) = stage-1
+# projection (128→256 at 16³) and stage-2 upsample conv; dense stride-2 conv
+# (C) = 2 + 3 token-stem convs of stages 1-2 and the stage-3 stem's dense
+# 128³ tail (2); the streamed eval schedule (one slab, every endpoint stored)
+# runs the stage-3 upsample conv and the two detail convs as H and the first
+# stage-3 stem conv as I, once each.
+EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 2, "conv3d_k3s2": 7,
+                     "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1}
 REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 KERNELS = {
     "flash_attention": {
@@ -173,6 +205,69 @@ TRAIN_KERNELS = {
 }
 
 
+# Chain kernels H-K at the shapes of the streamed stage-3 chains at 256³:
+# (B, Cin, Cout, planes of x, H, W, slab plane of x's first plane, output
+# planes, Σ/Σ² epilogue, prologue act). Training, 8 slabs (sd 32 at 256³,
+# 16 at 128³): the detail chain's stats pass (1→64 over 34 planes, the first
+# slab's x starting at slab plane 1, the last one's ending a plane early), its
+# store pass (the GN-folded 1→64 over 36 planes, then 64→32 over 34), the
+# trunk's stats pass (1→32 over 34) and store pass (1→32 over 35, then I
+# 32→64 from 33 planes to 16 at 128²); at batch 2 (no fold) the 64→32 and the
+# stride-2 ones. Eval, 1 slab: each over the whole volume, x at slab plane 1.
+# With the prologue fused (act_fuse) the 64→32 and 32→64 convs take gelu.
+_CH = 256
+CHAIN_SHAPES_S1 = [
+    (1, 1, 64, 34, _CH, _CH, 0, 32, True, None), (1, 1, 64, 33, _CH, _CH, 1, 32, True, None),
+    (1, 1, 64, 33, _CH, _CH, 0, 32, True, None), (1, 1, 64, 36, _CH, _CH, 0, 34, False, None),
+    (1, 64, 32, 34, _CH, _CH, 0, 32, True, None), (1, 64, 32, 34, _CH, _CH, 0, 32, True, "gelu"),
+    (1, 1, 32, 34, _CH, _CH, 0, 32, True, None), (1, 1, 32, 35, _CH, _CH, 0, 33, False, None),
+    (2, 64, 32, 34, _CH, _CH, 0, 32, True, None),
+    (1, 1, 64, 256, _CH, _CH, 1, 256, True, None), (1, 64, 32, 256, _CH, _CH, 1, 256, True, None),
+    (1, 1, 32, 256, _CH, _CH, 1, 256, True, None)]
+CHAIN_SHAPES_S2 = [
+    (1, 32, 64, 33, _CH, _CH, 0, 16, True, None), (1, 32, 64, 32, _CH, _CH, 1, 16, True, None),
+    (1, 32, 64, 33, _CH, _CH, 0, 16, True, "gelu"), (2, 32, 64, 33, _CH, _CH, 0, 16, True, None),
+    (1, 32, 64, 256, _CH, _CH, 1, 128, True, None)]
+# ragged: both volume ends, x starting before the slab, every option
+CHAIN_RAGGED = [(2, 3, 5, 4, 6, 10, 2, 5, True, "gelu"), (1, 8, 40, 6, 5, 12, 0, 4, True, "silu"),
+                (1, 4, 8, 5, 6, 6, -1, 3, False, "silu"), (1, 1, 64, 9, 16, 16, 0, 8, True, None)]
+CHAIN_RAGGED_S2 = [(2, 3, 5, 4, 6, 10, 2, 3, True, "silu"), (1, 8, 40, 6, 5, 12, 0, 2, True, "gelu"),
+                   (1, 4, 8, 5, 6, 6, -1, 2, False, None)]
+_HOT_S1 = (1, 64, 32, 256, _CH, _CH, 1, 256, True, None)  # the eval 64→32, whole volume
+_HOT_S2 = (1, 32, 64, 256, _CH, _CH, 1, 128, True, None)
+_TRAIN_S1 = (1, 64, 32, 34, _CH, _CH, 0, 32, True, None)  # one training slab
+_TRAIN_S2 = (1, 32, 64, 33, _CH, _CH, 0, 16, True, None)
+CHAIN_KERNELS = {
+    "conv3d_k3s1_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+                          "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
+                          "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED, "hot": _HOT_S1,
+                          "timed": [_TRAIN_S1]},
+    "conv3d_k3s1_chain_dgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+                                "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
+                                "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED,
+                                "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+    "conv3d_k3s1_chain_wgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+                                "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:592",
+                                "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED,
+                                "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+    "conv3d_k3s2_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+                          "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:225",
+                          "shapes": CHAIN_SHAPES_S2, "ragged": CHAIN_RAGGED_S2, "hot": _HOT_S2,
+                          "timed": [_TRAIN_S2]},
+    "conv3d_k3s2_chain_dgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+                                "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:396",
+                                "shapes": CHAIN_SHAPES_S2, "ragged": CHAIN_RAGGED_S2,
+                                "hot": _HOT_S2, "timed": [_TRAIN_S2]},
+    "conv3d_k3s2_chain_wgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+                                "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:535",
+                                "shapes": CHAIN_SHAPES_S2, "ragged": CHAIN_RAGGED_S2,
+                                "hot": _HOT_S2, "timed": [_TRAIN_S2]},
+}
+# The chain phase [10]: values and gradients of the streamed chains against
+# the dense chain, fp32, absolute part scaled by the largest |want|.
+CHAIN_TOL = (2e-4, 2e-4)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -206,9 +301,9 @@ def _fns(name: str):
 
     if name == "flash_attention":
         return fa.flash_attention_fwd, fa.flash_attention_plain
-    stride = 1 if name == "conv3d_k3s1" else 2
-    kern = ck.conv3d_k3s1 if stride == 1 else ck.conv3d_k3s2
-    return (kern, lambda x, w, b: ck.conv3d_k3_plain(x, w, b, stride))
+    s = 1 if name == "conv3d_k3s1" else 2
+    return (lambda x, w, b: ck.conv3d_k3(x, w, b, s, 1, (x.shape[2] - 1) // s + 1, dense=True),
+            lambda x, w, b: ck.conv3d_k3_plain(x, w, b, s, 1, (x.shape[2] - 1) // s + 1))
 
 
 def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False) -> dict:
@@ -306,7 +401,8 @@ def _train_inputs(name: str, shape, dtype, dev, seed: int):
     if name.endswith("wgrad"):
         return (torch.randn((b, cin, *dhw), generator=g, device=dev).to(dtype), gy)
     w = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5).to(dtype)
-    return (gy, w) if stride == 1 else (gy, w, (b, cin, *dhw))
+    # the data gradient reads only x's shape (x's values only for act′)
+    return (gy, w, torch.empty((b, cin, *dhw), dtype=dtype, device=dev))
 
 
 def _train_fns(name: str):
@@ -315,14 +411,274 @@ def _train_fns(name: str):
 
     if name == "flash_attention_bwd":
         return fa.flash_attention_bwd, fa.flash_attention_bwd_plain
-    if name == "conv3d_k3s1_dgrad":
-        return ck.conv3d_k3s1_dgrad, lambda g, w: ck.conv3d_k3_dgrad_plain(
-            g, w, (g.shape[0], w.shape[1], *g.shape[2:]), 1)
-    if name == "conv3d_k3s2_dgrad":
-        return ck.conv3d_k3s2_dgrad, lambda g, w, shape: ck.conv3d_k3_dgrad_plain(g, w, shape, 2)
-    stride = 1 if name == "conv3d_k3s1_wgrad" else 2
-    kern = ck.conv3d_k3s1_wgrad if stride == 1 else ck.conv3d_k3s2_wgrad
-    return kern, lambda x, g: ck.conv3d_k3_wgrad_plain(x, g, stride)
+    s = 2 if "s2" in name else 1
+    if name.endswith("dgrad"):
+        return (lambda g, w, x: ck.conv3d_k3_dgrad(g, w, x, s, 1, dense=True),
+                lambda g, w, x: ck.conv3d_k3_dgrad_plain(g, w, x, s, 1))
+    return (lambda x, g: ck.conv3d_k3_wgrad(x, g, s, 1, dense=True),
+            lambda x, g: ck.conv3d_k3_wgrad_plain(x, g, s, 1))
+
+
+# ----------------------------------------------------------- chain kernels ---
+
+def _chain_stride(name: str) -> int:
+    return 2 if name.startswith("conv3d_k3s2") else 1
+
+
+def _chain_inputs(name: str, shape, dtype, dev, seed: int):
+    """Arguments of a chain kernel and of its plain version; x is a
+    D-narrowed view of a larger tensor, as the slab bodies pass it."""
+    b, cin, cout, nv, h, w, qlo, d_out, sums, act = shape
+    stride = _chain_stride(name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, cin, nv + 2, h, w), generator=g, device=dev).to(dtype).narrow(2, 1, nv)
+    wt = (torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) / (27 * cin) ** 0.5).to(dtype)
+    if not name.endswith(("dgrad", "wgrad")):
+        return (x, wt, 0.1 * torch.randn((cout,), generator=g, device=dev), qlo, d_out, sums, act)
+    ho, wo = ((n - 1) // stride + 1 for n in (h, w))
+    gy = torch.randn((b, cout, d_out, ho, wo), generator=g, device=dev).to(dtype)
+    return (gy, wt, x, qlo, act) if name.endswith("dgrad") else (x, gy, qlo, act)
+
+
+def _chain_fns(name: str):
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+
+    s = _chain_stride(name)
+    if name.endswith("dgrad"):
+        return (lambda g, w, x, qlo, act: ck.conv3d_k3_dgrad(g, w, x, s, qlo, act),
+                lambda g, w, x, qlo, act: ck.conv3d_k3_dgrad_plain(g, w, x, s, qlo, act))
+    if name.endswith("wgrad"):
+        return (lambda x, g, qlo, act: ck.conv3d_k3_wgrad(x, g, s, qlo, act),
+                lambda x, g, qlo, act: ck.conv3d_k3_wgrad_plain(x, g, s, qlo, act))
+    return (lambda x, w, b, qlo, d, sums, act: ck.conv3d_k3(x, w, b, s, qlo, d, sums, act),
+            lambda x, w, b, qlo, d, sums, act: ck.conv3d_k3_plain(x, w, b, s, qlo, d, sums, act))
+
+
+def check_chain_kernels(dev, seed: int) -> dict:
+    """Phase 3b: H-K against their plain versions at every chain shape, bf16
+    and fp32. Outputs take TOL of their dtype; the gradients TOL with the
+    absolute part scaled by the largest |want| (as [7]); the Σ/Σ² sums
+    |Δ| ≤ rtol·Σ|out| (resp. Σ out²), rtol that of the output's dtype — the
+    two outputs may differ by rounding in every voxel at most."""
+    worst = {}
+    for name, spec in CHAIN_KERNELS.items():
+        kern, plain = _chain_fns(name)
+        scaled = name.endswith(("dgrad", "wgrad"))
+        worst[name] = 0.0
+        for shape in spec["shapes"] + spec["ragged"]:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = _chain_inputs(name, shape, dtype, dev, seed)
+                got, want = kern(*args), plain(*args)
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                torch.cuda.synchronize()
+                out_ref = want[0].float()
+                errs = []
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        raise AssertionError(f"{name} {shape}: {g.shape}/{g.dtype} vs "
+                                             f"{w.shape}/{w.dtype}")
+                    diff = (g.float() - w.float()).abs()
+                    if i == 0:
+                        atol, rtol = TOL[w.dtype]
+                        scale = max(1.0, float(w.float().abs().max())) if scaled else 1.0
+                        bound = atol * scale + rtol * w.float().abs()
+                    else:  # Σ (i = 1) and Σ² (i = 2) per (B, Cout)
+                        mag = out_ref.abs() if i == 1 else out_ref * out_ref
+                        bound = TOL[want[0].dtype][1] * mag.sum(dim=(2, 3, 4)) + 1e-5
+                    ok = bool(torch.isfinite(g.float()).all()) and bool((diff <= bound).all())
+                    errs.append(float(diff.max()))
+                    if not ok:
+                        raise AssertionError(f"{name} disagrees with its plain version at "
+                                             f"{shape} {dtype} out{i}: max_abs_err {errs[-1]}")
+                log(f"  {name:24s} {str(shape):58s} {str(dtype):15s} max_abs_err "
+                    f"{', '.join(f'{e:.2e}' for e in errs)} ok")
+                worst[name] = max(worst[name], errs[0])
+                del args, got, want
+    return worst
+
+
+# --------------------------------------------- bounds and library yardsticks ---
+
+def _conv_geom(name: str, shape):
+    """(B, Cin, Cout, input planes read, output planes, H, W, stride, act) of
+    a conv kernel's shape, dense or chain."""
+    stride = 2 if "s2" in name else 1
+    if "chain" in name:
+        b, cin, cout, nv, h, w, _, d_out, _, act = shape
+        return b, cin, cout, nv, d_out, h, w, stride, act
+    b, cin, cout, (d, h, w) = shape
+    return b, cin, cout, d, (d - 1) // stride + 1, h, w, stride, None
+
+
+def bound(name: str, shape, itemsize: int = 2):
+    """(bound_ms, bound_by) at bf16: the larger of the bytes the function
+    must move (each input read once, each output written once) over
+    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS."""
+    if name.startswith("flash"):
+        bh, nq, nk, d = shape
+        if name == "flash_attention":  # q, k, v in; out, lse out
+            flops = 4.0 * bh * nq * nk * d
+            nbytes = itemsize * (2 * bh * nq * d + 2 * bh * nk * d) + 4 * bh * nq
+        else:  # q, k, v, out, dout, lse in; dq, dk, dv out
+            flops = 10.0 * bh * nq * nk * d
+            nbytes = itemsize * (4 * bh * nq * d + 4 * bh * nk * d) + 4 * bh * nq
+    else:
+        b, cin, cout, d_in, d_out, h, w, stride, act = _conv_geom(name, shape)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        n_in, n_out = b * cin * d_in * h * w, b * cout * d_out * ho * wo
+        flops = 2.0 * 27 * cin * n_out
+        wbytes = itemsize * 27 * cin * cout
+        if name.endswith("wgrad"):  # x, g in; dW fp32 out
+            nbytes = itemsize * (n_in + n_out) + 2 * wbytes
+        elif name.endswith("dgrad"):  # g, w in (x too with act′); dx out
+            nbytes = itemsize * (n_out + n_in * (2 if act else 1)) + wbytes
+        else:  # x, w, bias in; out (+ sums) out
+            nbytes = itemsize * (n_in + n_out) + wbytes + 4 * cout * 3 * b
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    fn()
+    ts = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ts.append(start.elapsed_time(end))
+    return statistics.median(ts)
+
+
+def library_ms(name: str, shape, dev, seed: int):
+    """The bf16 time of one PyTorch call computing the kernel's function at
+    its hot shape (cuDNN convolution or its data / weight gradient,
+    scaled_dot_product_attention forward or backward). For the chain convs
+    the call runs over the slab with its zero planes in place and computes
+    no Σ/Σ² (kernels H, I take them in the same pass)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.bfloat16
+    if name.startswith("flash"):
+        bh, nq, nk, d = shape
+        q = torch.randn((1, bh, nq, d), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((1, bh, nk, d), generator=g, device=dev).to(dt) for _ in range(2))
+        if name == "flash_attention":
+            return _median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(q, k, v)
+        dout = torch.randn_like(out)
+        return _median_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))
+    b, cin, cout, d_in, d_out, h, w, stride, _ = _conv_geom(name, shape)
+    if "chain" in name:
+        d_in = stride * (d_out - 1) + 3  # the slab with its halo planes
+        pad = (0, 1, 1)
+    else:
+        pad = 1
+    x = torch.randn((b, cin, d_in, h, w), generator=g, device=dev).to(dt)
+    wt = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev).to(dt)
+    gy = F.conv3d(x, wt, stride=stride, padding=pad)
+    if name.endswith("wgrad"):
+        return _median_ms(lambda: torch.nn.grad.conv3d_weight(x, wt.shape, gy, stride=stride,
+                                                              padding=pad))
+    if name.endswith("dgrad"):
+        return _median_ms(lambda: torch.nn.grad.conv3d_input(x.shape, wt, gy, stride=stride,
+                                                             padding=pad))
+    bias = torch.randn((cout,), generator=g, device=dev).to(dt)
+    return _median_ms(lambda: F.conv3d(x, wt, bias, stride=stride, padding=pad))
+
+
+def time_chain_kernels(dev, seed: int) -> dict:
+    """Phase 7c: H-K beside their plain versions, bf16, at the hot (eval,
+    whole volume) and training-slab shapes."""
+    rows = {}
+    for name, spec in CHAIN_KERNELS.items():
+        kern, plain = _chain_fns(name)
+        for shape in [spec["hot"]] + spec["timed"]:
+            args = _chain_inputs(name, shape, torch.bfloat16, dev, seed)
+            ms, plain_ms = _time_pair(kern, plain, args)
+            rows[(name, shape)] = (ms, plain_ms)
+            log(f"  {name:24s} {str(shape):58s} bf16 kernel {ms:9.3f} ms   plain {plain_ms:9.3f} ms")
+            del args
+    return rows
+
+
+# -------------------------------------------------------------- the chains ---
+
+class force_streaming:
+    """Within the block, the cascade's streamed chain schedule streams every
+    level (dense_max_voxels=0): at the scaled sizes of [5] and [8] every level
+    fits the dense tail, so the slab bodies would otherwise not run."""
+
+    def __enter__(self):
+        import functools
+
+        from hybrid_vit_cascade_tpu_torch.models import cascade
+
+        self.real = cascade.chain_apply_streamed
+        cascade.chain_apply_streamed = functools.partial(self.real, dense_max_voxels=0)
+
+    def __exit__(self, *exc):
+        from hybrid_vit_cascade_tpu_torch.models import cascade
+
+        cascade.chain_apply_streamed = self.real
+
+
+def chain_phase(dev, seed: int, size: int = 256) -> dict:
+    """Phase 10: the full-width size³ detail and trunk chains, streamed,
+    against the dense chain on the card, fp32: values and every gradient."""
+    from hybrid_vit_cascade_tpu_torch.models.cascade import DetailEnhancer, Stage3ViTTrunk
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.slab import chain_apply_dense, chain_apply_streamed
+
+    torch.manual_seed(seed)
+    chains = {"detail": seeded_init_(DetailEnhancer(), seed).to(dev).chain(),
+              "trunk": seeded_init_(Stage3ViTTrunk((size,) * 3, 256, 1, 8, 512), seed)
+              .to(dev).chain()}
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    x = torch.randn((1, 1, size, size, size), generator=g, device=dev)
+    runs = {"8 slabs": dict(num_slabs=8), "8 slabs, act fused": dict(num_slabs=8, act_fuse=True),
+            "1 slab store-all": dict(num_slabs=1, store_min_flops=0.0),
+            "1 slab store-all, act fused": dict(num_slabs=1, store_min_flops=0.0,
+                                                act_fuse=True)}
+    atol, rtol = CHAIN_TOL
+    out, failed = {}, []
+    for cname, chain in chains.items():
+        arrs = [t for op in chain for t in op[1:] if isinstance(t, torch.Tensor)]
+        xr = x.clone().requires_grad_()
+        want = chain_apply_dense(xr, chain)
+        cot = torch.randn(want.shape, generator=g, device=dev)
+        want_g = torch.autograd.grad((want * cot).sum(), [xr] + arrs)
+        want = want.detach()
+        for rname, kw in runs.items():
+            t0 = time.perf_counter()
+            got = chain_apply_streamed(xr, chain, **kw)
+            got_g = torch.autograd.grad((got * cot).sum(), [xr] + arrs)
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            errs = []
+            for gv, wv in [(got.detach(), want)] + list(zip(got_g, want_g)):
+                diff = (gv - wv).abs()
+                scale = max(1.0, float(wv.abs().max()))
+                errs.append(float(diff.max()) / scale)
+                if not bool((diff <= atol * scale + rtol * wv.abs()).all()):
+                    failed.append(f"{cname} {rname}: tensor {len(errs) - 1} "
+                                  f"max_abs_err {float(diff.max()):.3e} (scale {scale:.3g})")
+            out[f"{cname} {rname}"] = {"max_err_over_scale": max(errs), "fwd_bwd_s": secs}
+            log(f"[10] {cname:6s} {rname:28s} vs dense: max |err|/max|want| over value and "
+                f"{len(errs) - 1} gradients {max(errs):.3e} (values {errs[0]:.3e}); "
+                f"fwd+bwd {secs:.2f} s")
+            del got, got_g
+        del want, want_g, xr
+        if x.is_cuda:
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("[10] streamed chains disagree with the dense chain: "
+                             + "; ".join(failed))
+    return out
 
 
 # -------------------------------------------------------------- training ---
@@ -351,16 +707,19 @@ def train_reference(cfg, dev, seed: int) -> dict:
     from hybrid_vit_cascade_tpu_torch.training.trainer import stage_step
 
     small = scaled_config(cfg)
+    small.model.slab_count = 4
     g = torch.Generator().manual_seed(seed + 3)
     batch = {"drr_stacked": torch.rand((1, 2, 1, 64, 64), generator=g) * 2 - 1,
              "ct_volume": torch.rand((1, 1, 32, 32, 32), generator=g) * 2 - 1}
     runs = {}
     for where in ("cpu", dev):
         model = seeded_init_(build_model(small), seed).to(where)
+        model.stage3.eval_schedule = "train"  # the deterministic step streams as training does
         state, step = stage_step(model, small, 3, MultiScaleLoss(), train=False)
         b = {k: v.to(where) for k, v in batch.items()}
         reset_launch_counts()
-        _, metrics = step(state, b, None)
+        with force_streaming():
+            _, metrics = step(state, b, None)
         runs[str(where)] = (metrics, {n: p.grad.cpu() for n, p in model.named_parameters()
                                       if p.grad is not None}, launch_counts())
     (m_cpu, g_cpu, _), (m_gpu, g_gpu, launched) = runs["cpu"], runs[str(dev)]
@@ -378,12 +737,13 @@ def train_reference(cfg, dev, seed: int) -> dict:
         worst["grad"] = max(worst["grad"], float(diff.max()))
         if not bool((diff <= atol + rtol * w.abs()).all()):
             raise AssertionError(f"[8] gradient of {n} disagrees: max_abs_err {float(diff.max())}")
-    log(f"[8] small train reference (stage 3, fp32, {len(g_cpu)} trainable tensors): "
+    log(f"[8] small train reference (stage 3, fp32, 4 slabs, {len(g_cpu)} trainable tensors): "
         f"total_loss card {float(m_gpu['total_loss']):.6f} cpu {float(m_cpu['total_loss']):.6f}; "
         f"max_abs_err loss {worst['loss']:.3e} grads {worst['grad']:.3e} "
         f"tol={atol:g}+{rtol:g}|ref| ok; launches {launched}")
-    if 0 in launched.values():
-        raise AssertionError(f"[8] the card's step did not run every kernel: {launched}")
+    need = ("flash_attention", "flash_attention_bwd", *CHAIN_KERNELS, "conv3d_k3s2_chain")
+    if any(launched[k] == 0 for k in need):
+        raise AssertionError(f"[8] the card's step did not run every kernel of {need}: {launched}")
     return {"max_abs_err": worst, "launches": launched}
 
 
@@ -414,9 +774,11 @@ def train_full_width(cfg, dev, seed: int) -> dict:
             raise AssertionError(f"[9] stage {stage}: non-finite loss {r['total_loss']}")
         out[f"stage{stage}"] = r
         torch.cuda.empty_cache()
-    if 0 in out["stage3"]["launches_per_step"].values():
-        raise AssertionError(f"[9] the stage-3 step did not run every kernel: "
-                             f"{out['stage3']['launches_per_step']}")
+    step3 = out["stage3"]["launches_per_step"]
+    need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
+            "conv3d_k3s2_wgrad", *CHAIN_KERNELS)
+    if any(step3[k] == 0 for k in need):
+        raise AssertionError(f"[9] the stage-3 step did not run every kernel of its path: {step3}")
     return out
 
 
@@ -461,7 +823,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     log("[3] kernels vs plain versions (bf16 and fp32)")
     worst = check_kernels(dev, args.seed, KERNELS, _inputs, _fns)
+    log("[3] chain kernels H-K vs plain versions (bf16 and fp32)")
+    worst.update(check_chain_kernels(dev, args.seed))
     record["max_abs_err"] = worst
+    torch.cuda.empty_cache()
 
     # 4. the slice
     cfg = Config.from_json(str(CONFIG))
@@ -514,7 +879,7 @@ def main() -> int:
     gpu_model = seeded_init_(build_model(small), args.seed).to(dev).eval()
     xs = torch.rand((1, 2, 1, 64, 64), generator=torch.Generator().manual_seed(args.seed + 2))
     before = launch_counts()
-    with torch.inference_mode():
+    with torch.inference_mode(), force_streaming():
         want = cpu_model(xs, return_intermediate=True)
         got = gpu_model(xs.to(dev), return_intermediate=True)
     after = launch_counts()
@@ -529,26 +894,51 @@ def main() -> int:
             f"tol={atol:g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"small-input reference disagrees at {stage}")
-    if any(after[k] <= before[k] for k in EXPECTED_LAUNCHES):
-        raise AssertionError(f"small reference did not run every kernel: {before} → {after}")
+    # at the scaled sizes stages 1-2 have no token-stem conv and stage 3's one
+    # stride-2 conv streams (I): no dense stride-2 conv runs
+    need = ("flash_attention", "conv3d_k3s1", "conv3d_k3s1_chain", "conv3d_k3s2_chain")
+    if any(after[k] <= before[k] for k in need):
+        raise AssertionError(f"small reference did not run every kernel of {need}: "
+                             f"{before} → {after}")
     record["small_reference_max_abs_err"] = small_err
     del cpu_model, gpu_model, got, want
 
-    # 6. timings
-    engine.reconstruct(xr, max_stage=3)  # warm-up
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
+    # 6. timings: the streamed (default) and the dense stage-3 schedule in turns
+    from hybrid_vit_cascade_tpu_torch.training.measure import use_dense_stage3
+
+    s3 = engine.model.stage3
+    streamed = (s3.slab_scan, s3.eval_schedule)
+
+    def reconstruct_s(dense: bool) -> tuple[float, float]:
+        if dense:
+            use_dense_stage3(engine.model)
+        else:
+            s3.slab_scan, s3.eval_schedule = streamed
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         engine.reconstruct(xr, max_stage=3)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    log(f"[6] reconstruct 256³ (batch 1, bf16, max_stage=3): median {med * 1e3:.1f} ms over "
-        f"{REPS} calls ({', '.join(f'{t * 1e3:.1f}' for t in times)}); "
-        f"{1.0 / med:.3f} volumes/s")
-    record.update(reconstruct_ms=[t * 1e3 for t in times], reconstruct_median_ms=med * 1e3,
-                  volumes_per_s=1.0 / med)
+        return time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 1e9
+
+    reconstruct_s(False), reconstruct_s(True)  # warm-up of each
+    times = {"streamed": [], "dense": []}
+    peaks = {}
+    for i in range(REPS):
+        for dense in ((False, True) if i % 2 == 0 else (True, False)):
+            t, peaks["dense" if dense else "streamed"] = reconstruct_s(dense)
+            times["dense" if dense else "streamed"].append(t)
+    s3.slab_scan, s3.eval_schedule = streamed
+    med = statistics.median(times["streamed"])
+    med_dense = statistics.median(times["dense"])
+    for k in ("streamed", "dense"):
+        log(f"[6] reconstruct 256³ (batch 1, bf16, max_stage=3), stage-3 schedule {k}: median "
+            f"{statistics.median(times[k]) * 1e3:.1f} ms over {REPS} calls "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in times[k])}); "
+            f"{1.0 / statistics.median(times[k]):.3f} volumes/s; peak {peaks[k]:.2f} GB")
+    record.update(reconstruct_ms=[t * 1e3 for t in times["streamed"]],
+                  reconstruct_median_ms=med * 1e3, volumes_per_s=1.0 / med,
+                  reconstruct_dense_ms=[t * 1e3 for t in times["dense"]],
+                  reconstruct_dense_median_ms=med_dense * 1e3, reconstruct_peak_gb=peaks)
     del engine
     torch.cuda.empty_cache()
     rows = time_kernels(dev, args.seed, KERNELS, _inputs, _fns)
@@ -558,26 +948,39 @@ def main() -> int:
     worst.update(check_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns,
                                scaled=True))
     rows.update(time_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns))
+    log("[7] chain kernels H-K, bf16 times")
+    rows.update(time_chain_kernels(dev, args.seed))
     record["max_abs_err"] = worst
     record["kernel_ms"] = {f"{n} {s}": {"ms": a, "plain_ms": b} for (n, s), (a, b) in rows.items()}
     record["after_timing"] = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     torch.cuda.empty_cache()
 
-    # 8. small training reference; 9. the training slice
+    # 8. small training reference; 9. the training slice; 10. the chains
     record["train_reference"] = train_reference(cfg, dev, args.seed)
     record["train"] = train_full_width(cfg, dev, args.seed)
-    step3 = record["train"]["stage3"]["launches_per_step"]
+    torch.cuda.empty_cache()
+    record["chains"] = chain_phase(dev, args.seed)
 
+    # launches on the main path: the reconstruct [4] and the first step of
+    # each stage in [9], each counted from 0
+    by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
+                                          for k, v in record["train"].items()}}
     kernels = []
-    for name, spec in {**KERNELS, **TRAIN_KERNELS}.items():
+    for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
+        b_ms, b_by = bound(name, spec["hot"])
+        runs = {run: counts[name] for run, counts in by_run.items()}
         kernels.append({"name": name, "route": "cuda", "source": spec["source"],
-                        "replaces": spec["replaces"],
-                        # inference kernels: the reconstruct run [4]; gradient
-                        # kernels: one stage-3 train step [9]
-                        "launches": launches[name] if name in launches else step3[name],
+                        "replaces": spec["replaces"], "launches": sum(runs.values()),
                         "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
-                        "at": f"{spec['hot']} bf16"})
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms(name, spec["hot"], dev, args.seed),
+                        "at": f"{spec['hot']} bf16", "launches_by_run": runs})
+        log(f"  {name:24s} {ms:9.3f} ms  plain {plain_ms:9.3f}  bound {b_ms:8.3f} ({b_by})  "
+            f"library {kernels[-1]['library_ms']:9.3f}  launches {runs}")
+    unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
+    if unlaunched:
+        raise AssertionError(f"kernels the main path never launched: {unlaunched}")
     (BUILD_DIR / "chip_smoke.json").write_text(json.dumps({**record, "kernels": kernels}, indent=1))
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

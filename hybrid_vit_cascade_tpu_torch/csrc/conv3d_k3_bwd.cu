@@ -1,5 +1,5 @@
-// Kernels E, F and G: gradients of the 3×3×3 convolution (padding 1) for
-// Hopper (sm_90a).
+// Kernels E, F and G: gradients of the 3×3×3 convolution (padding 1), and
+// their chain forms J and K, for Hopper (sm_90a).
 //
 //   E  stride-1 weight gradient. Replaces
 //      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py::_wgrad (body _wgrad_kernel).
@@ -7,15 +7,25 @@
 //      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py::_dgrad_s2 (body _dgrad_kernel).
 //   G  stride-2 weight gradient. Replaces
 //      hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py::_wgrad_s2 (body _wgrad_kernel).
+//   J  F with the chain options of _dgrad_s2: the output-plane window
+//      (out_window) and the act′ epilogue (dact).
+//   K  E and G with the chain options of _wgrad / _wgrad_s2: the input-plane
+//      window and the activation prologue replayed (act).
 //
-// (The stride-1 data gradient is kernel B itself, run on the output gradient
-// with channel-transposed, tap-flipped weights, as the TPU package does.)
+// (The stride-1 data gradient is kernel B/H itself, run on the output
+// gradient with channel-transposed, tap-flipped weights, as the TPU package
+// does.)
 //
-// Semantics are those of torch.nn.grad.conv3d_weight / conv3d_input for
-// F.conv3d(x, w, stride=S, padding=1) on NCDHW input with OIDHW weights:
+// The input side is addressed as in csrc/conv3d_k3.cu: output plane o of the
+// conv reads planes S·o + {0, 1, 2} of a virtual D-slab whose plane q is
+// plane q − qlo of the view x (nv planes, batch/channel strides xb/xc), zero
+// outside the view. The dense conv is qlo = 1 over all D planes. Semantics
+// are then those of torch.nn.grad.conv3d_weight / conv3d_input for
+// F.conv3d(slab, w, stride=S, padding=(0, 1, 1)):
 //   dW[co, ci, dz, dy, dx] = Σ_{b, oz, oy, ox} g[b, co, oz, oy, ox] ·
-//                            x[b, ci, S·oz+dz−1, S·oy+dy−1, S·ox+dx−1]
-//   dx[b, ci, iz, iy, ix]  = Σ_{co, taps with S·o + d − 1 = i} g[b, co, o…] · w[co, ci, d…]
+//                            act(slab[b, ci, S·oz+dz, S·oy+dy−1, S·ox+dx−1])
+//   dx[b, ci, q, iy, ix]   = act′(x…) · Σ_{co, taps with S·o + d = q} g[b, co, o…] · w[co, ci, d…]
+// for the view's planes q only (the window: dx is never written outside it),
 // with zero padding, fp32 accumulation, dW in fp32 and dx in the input dtype.
 //
 // Not carried over from the TPU kernels: the flat (H·W)-lane layout, the
@@ -31,7 +41,10 @@
 // gradient: 1.86 TFLOP; the 32→64 stride-2 data gradient from 128³: 0.23 TFLOP)
 // and compute-bound; the 1-channel ones (1→32, 1→64 at 256³) are bound by
 // reading the 32/64-channel output gradient. These first versions compute
-// with fp32 FMAs on the CUDA cores, not with the tensor cores.
+// with fp32 FMAs on the CUDA cores, not with the tensor cores. The chain
+// options add work per staged input value (K's prologue) or per written
+// output value (J's act′), not per product, so J and K keep those bounds;
+// J's epilogue is a template flag, so F compiles without it.
 //   E/G: a block owns 32 output channels × 4 input channels × 27 taps of dW
 //        (one 4-channel group per thread × 4 (ci, tap) columns) and walks its
 //        share of 8×16 output-voxel tiles; per tile it stages the output
@@ -74,11 +87,26 @@ constexpr int kWgCo = 32;  // output channels per block
 constexpr int kWgTh = 8;   // output-voxel tile rows
 constexpr int kWgTw = 16;  // output-voxel tile columns
 
+// act codes: 0 none, 1 gelu (erf form), 2 silu
+__device__ __forceinline__ float act_f32(int act, float v) {
+  if (act == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if (act == 2) return v / (1.f + expf(-v));
+  return v;
+}
+
+__device__ __forceinline__ float dact_f32(int act, float v) {
+  if (act == 1)
+    return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+           v * 0.3989422804014327f * expf(-0.5f * v * v);
+  const float s = 1.f / (1.f + expf(-v));
+  return s * (1.f + v * (1.f - s));
+}
+
 template <typename T, int S, int CI_C>
 __global__ void __launch_bounds__(kWgThreads)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ partial,
-             int cin, int cout, int D, int H, int W, int Do, int Ho, int Wo,
-             long long n_tiles, long long tiles_per_split) {
+             int cin, int cout, int nv, int qlo, long long xbs, long long xcs, int act, int H,
+             int W, int Do, int Ho, int Wo, long long n_tiles, long long tiles_per_split) {
   constexpr int NV = kWgTh * kWgTw;
   constexpr int PH = (kWgTh - 1) * S + 3;
   constexpr int PW = (kWgTw - 1) * S + 3;
@@ -110,7 +138,6 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict
   const int tiles_w = (Wo + kWgTw - 1) / kWgTw;
   const int tiles_hw = ((Ho + kWgTh - 1) / kWgTh) * tiles_w;
   const long long plane = static_cast<long long>(H) * W;
-  const long long vol = static_cast<long long>(D) * plane;
   const long long oplane = static_cast<long long>(Ho) * Wo;
   const long long ovol = static_cast<long long>(Do) * oplane;
   const long long t_begin = blockIdx.x * tiles_per_split;
@@ -123,10 +150,10 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict
     const long long b = bd / Do;
     const int tile_h = thw / tiles_w;
     const int tile_w = thw % tiles_w;
-    const int id0 = od * S - 1;
+    const int p0 = od * S - qlo;  // view plane of the patch origin
     const int ih0 = tile_h * kWgTh * S - 1;
     const int iw0 = tile_w * kWgTw * S - 1;
-    const T* xb = x + b * cin * vol;
+    const T* xb = x + b * xbs;
     const T* gb = g + (b * cout + co0) * ovol + od * oplane;
 
     __syncthreads();  // the previous tile is no longer read
@@ -138,12 +165,14 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict
       const int ph = r2 / PW;
       const int pw = r2 - ph * PW;
       const int ci = ci0 + cl;
-      const int id = id0 + pd;
+      const int p = p0 + pd;
       const int ih = ih0 + ph;
       const int iw = iw0 + pw;
       float val = 0.f;
-      if (ci < cin && id >= 0 && id < D && ih >= 0 && ih < H && iw >= 0 && iw < W)
-        val = to_f32(xb[ci * vol + id * plane + static_cast<long long>(ih) * W + iw]);
+      if (ci < cin && p >= 0 && p < nv && ih >= 0 && ih < H && iw >= 0 && iw < W) {
+        val = to_f32(xb[ci * xcs + p * plane + static_cast<long long>(ih) * W + iw]);
+        if (act) val = to_f32(from_f32<T>(act_f32(act, val)));  // the forward's prologue
+      }
       xs[i] = val;
     }
     for (int i = threadIdx.x; i < NV * kWgCo; i += kWgThreads) {
@@ -202,8 +231,8 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
 
 template <typename T, int S, int CI_C>
 int launch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
-                 int cin, int cout, int D, int H, int W, int splits, cudaStream_t stream) {
-  const int Do = (D - 1) / S + 1;
+                 int cin, int cout, int nv, int qlo, long long xb, long long xc, int act, int H,
+                 int W, int Do, int splits, cudaStream_t stream) {
   const int Ho = (H - 1) / S + 1;
   const int Wo = (W - 1) / S + 1;
   const long long n_tiles = batch * Do * static_cast<long long>((Ho + kWgTh - 1) / kWgTh) *
@@ -215,7 +244,7 @@ int launch_wgrad(const void* x, const void* g, void* partial, void* out, long lo
   const long long per = (n_tiles + splits - 1) / splits;
   wgrad_kernel<T, S, CI_C><<<dim3(splits, n_co, n_ci), kWgThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(partial), cin,
-      cout, D, H, W, Do, Ho, Wo, n_tiles, per);
+      cout, nv, qlo, xb, xc, act, H, W, Do, Ho, Wo, n_tiles, per);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n = static_cast<long long>(cout) * cin * 27;
@@ -226,17 +255,18 @@ int launch_wgrad(const void* x, const void* g, void* partial, void* out, long lo
 
 template <int S>
 int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
-                   int cin, int cout, int D, int H, int W, int dtype, int splits, void* stream) {
-  if (batch <= 0 || cin <= 0 || cout <= 0 || D <= 0 || H <= 0 || W <= 0)
+                   int cin, int cout, int nv, int qlo, long long xb, long long xc, int act,
+                   int H, int W, int Do, int dtype, int splits, void* stream) {
+  if (batch <= 0 || cin <= 0 || cout <= 0 || nv < 0 || H <= 0 || W <= 0 || Do <= 0 ||
+      act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool small = cin < 4;
-  if (dtype == 0)
-    return small ? launch_wgrad<float, S, 1>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s)
-                 : launch_wgrad<float, S, 4>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s);
-  if (dtype == 1)
-    return small ? launch_wgrad<__nv_bfloat16, S, 1>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s)
-                 : launch_wgrad<__nv_bfloat16, S, 4>(x, g, partial, out, batch, cin, cout, D, H, W, splits, s);
+#define LAUNCH_WGRAD(T, C) \
+  launch_wgrad<T, S, C>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc, act, H, W, Do, splits, s)
+  if (dtype == 0) return small ? LAUNCH_WGRAD(float, 1) : LAUNCH_WGRAD(float, 4);
+  if (dtype == 1) return small ? LAUNCH_WGRAD(__nv_bfloat16, 1) : LAUNCH_WGRAD(__nv_bfloat16, 4);
+#undef LAUNCH_WGRAD
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -251,10 +281,11 @@ constexpr int kDgGh = kDgTh / 2 + 1;
 constexpr int kDgGw = kDgTw / 2 + 1;
 constexpr int kDgGPatch = 2 * kDgGh * kDgGw;
 
-template <typename T>
+template <typename T, bool DACT>
 __global__ void __launch_bounds__(kDgTh * kDgTw)
 dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict__ dx, int cin,
-                int cout, int D, int H, int W, int Do, int Ho, int Wo, int n_ci_groups) {
+                int cout, int nv, int qlo, int H, int W, int Do, int Ho, int Wo, int n_ci_groups,
+                int dact, const T* __restrict__ dact_x, long long db, long long dc) {
   constexpr int NT = kDgTh * kDgTw;
   __shared__ float gsm[kDgCoC * kDgGPatch];
   __shared__ __align__(16) float wsm[kDgCoC * 27 * kDgWRow];
@@ -262,7 +293,8 @@ dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict_
   const int tiles_w = (W + kDgTw - 1) / kDgTw;
   const int tile_h = blockIdx.x / tiles_w;
   const int tile_w = blockIdx.x % tiles_w;
-  const int iz = blockIdx.y;
+  const int pv = blockIdx.y;         // dx plane (of the view)
+  const int iz = pv + qlo - 1;       // its input plane in padding-1 terms: S·o + d − 1 = iz
   const long long b = blockIdx.z / n_ci_groups;
   const int ci0 = (blockIdx.z % n_ci_groups) * kDgCi;
   const int ty = threadIdx.x / kDgTw;
@@ -273,7 +305,7 @@ dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict_
   const int ix = ix0 + tx;
   // Output coordinates that can reach this tile: oz ∈ {iz/2, iz/2 + 1},
   // oy ∈ [iy0/2, iy0/2 + kDgTh/2], ox ∈ [ix0/2, ix0/2 + kDgTw/2].
-  const int oz0 = iz >> 1;
+  const int oz0 = iz >> 1;  // floor, iz may be −1
   const int oy0 = iy0 >> 1;
   const int ox0 = ix0 >> 1;
 
@@ -311,7 +343,7 @@ dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict_
       const int oy = oy0 + py;
       const int ox = ox0 + px;
       float val = 0.f;
-      if (co < cout && oz < Do && oy < Ho && ox < Wo)
+      if (co < cout && oz >= 0 && oz < Do && oy < Ho && ox < Wo)
         val = to_f32(gb[co * ovol + oz * oplane + static_cast<long long>(oy) * Wo + ox]);
       gsm[i] = val;
     }
@@ -361,57 +393,75 @@ dgrad_s2_kernel(const T* __restrict__ g, const T* __restrict__ w, T* __restrict_
 
   if (iy < H && ix < W) {
     const long long plane = static_cast<long long>(H) * W;
-    const long long vol = static_cast<long long>(D) * plane;
-    T* ob = dx + (b * cin + ci0) * vol + iz * plane + static_cast<long long>(iy) * W + ix;
+    const long long vol = static_cast<long long>(nv) * plane;
+    const long long pix = pv * plane + static_cast<long long>(iy) * W + ix;
+    T* ob = dx + (b * cin + ci0) * vol + pix;
 #pragma unroll
-    for (int c = 0; c < kDgCi; ++c)
-      if (ci0 + c < cin) ob[c * vol] = from_f32<T>(acc[c]);
+    for (int c = 0; c < kDgCi; ++c) {
+      if (ci0 + c >= cin) continue;
+      float a = acc[c];
+      if constexpr (DACT) a *= dact_f32(dact, to_f32(dact_x[b * db + (ci0 + c) * dc + pix]));
+      ob[c * vol] = from_f32<T>(a);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool DACT>
 int launch_dgrad_s2(const void* g, const void* w, void* dx, long long batch, int cin, int cout,
-                    int D, int H, int W, cudaStream_t stream) {
-  const int Do = (D - 1) / 2 + 1;
+                    int nv, int qlo, int H, int W, int Do, int dact, const void* dact_x,
+                    long long db, long long dc, cudaStream_t stream) {
   const int Ho = (H - 1) / 2 + 1;
   const int Wo = (W - 1) / 2 + 1;
   const int n_ci = (cin + kDgCi - 1) / kDgCi;
   const long long tiles = static_cast<long long>((H + kDgTh - 1) / kDgTh) * ((W + kDgTw - 1) / kDgTw);
-  if (tiles > 2147483647LL || D > 65535 || batch * n_ci > 65535)
+  if (tiles > 2147483647LL || nv > 65535 || batch * n_ci > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(D),
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(nv),
                   static_cast<unsigned>(batch * n_ci));
-  dgrad_s2_kernel<T><<<grid, kDgTh * kDgTw, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx), cin, cout, D, H,
-      W, Do, Ho, Wo, n_ci);
+  dgrad_s2_kernel<T, DACT><<<grid, kDgTh * kDgTw, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx), cin, cout, nv,
+      qlo, H, W, Do, Ho, Wo, n_ci, dact, static_cast<const T*>(dact_x), db, dc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Kernels E (stride 1) and G (stride 2): dW (Cout, Cin, 3, 3, 3) fp32 into
-// `out`, through `partial` (splits × Cout × Cin × 27 fp32 scratch).
+// Kernels E/K (stride 1) and G/K (stride 2): dW (Cout, Cin, 3, 3, 3) fp32
+// into `out`, through `partial` (splits × Cout × Cin × 27 fp32 scratch), from
+// the input view x (nv planes, strides xb/xc, slab offset qlo, prologue act)
+// and g (B, Cout, Do, Ho, Wo) contiguous.
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int hvc_conv3d_k3s1_wgrad(const void* x, const void* g, void* partial, void* out,
-                                     long long batch, int cin, int cout, int D, int H, int W,
+                                     long long batch, int cin, int cout, int nv, int H, int W,
+                                     int Do, int qlo, long long xb, long long xc, int act,
                                      int dtype, int splits, void* stream) {
-  return dispatch_wgrad<1>(x, g, partial, out, batch, cin, cout, D, H, W, dtype, splits, stream);
+  return dispatch_wgrad<1>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc, act, H, W, Do,
+                           dtype, splits, stream);
 }
 
 extern "C" int hvc_conv3d_k3s2_wgrad(const void* x, const void* g, void* partial, void* out,
-                                     long long batch, int cin, int cout, int D, int H, int W,
+                                     long long batch, int cin, int cout, int nv, int H, int W,
+                                     int Do, int qlo, long long xb, long long xc, int act,
                                      int dtype, int splits, void* stream) {
-  return dispatch_wgrad<2>(x, g, partial, out, batch, cin, cout, D, H, W, dtype, splits, stream);
+  return dispatch_wgrad<2>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc, act, H, W, Do,
+                           dtype, splits, stream);
 }
 
-// Kernel F: dx (B, Cin, D, H, W) of the stride-2 conv from g (B, Cout, Do, Ho, Wo).
+// Kernels F/J: dx (B, Cin, nv, H, W) contiguous, the gradient of the view's
+// planes, from g (B, Cout, Do, Ho, Wo); dact/dact_x/db/dc: act′ epilogue
+// (dact_x at dx's geometry with batch/channel strides db/dc).
 extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, void* dx, long long batch,
-                                     int cin, int cout, int D, int H, int W, int dtype,
-                                     void* stream) {
-  if (batch <= 0 || cin <= 0 || cout <= 0 || D <= 0 || H <= 0 || W <= 0)
+                                     int cin, int cout, int nv, int H, int W, int Do, int qlo,
+                                     int dact, const void* dact_x, long long db, long long dc,
+                                     int dtype, void* stream) {
+  if (batch <= 0 || cin <= 0 || cout <= 0 || nv <= 0 || H <= 0 || W <= 0 || Do <= 0 ||
+      dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dgrad_s2<float>(g, w, dx, batch, cin, cout, D, H, W, s);
-  if (dtype == 1) return launch_dgrad_s2<__nv_bfloat16>(g, w, dx, batch, cin, cout, D, H, W, s);
+#define LAUNCH_DGRAD(T, A) \
+  launch_dgrad_s2<T, A>(g, w, dx, batch, cin, cout, nv, qlo, H, W, Do, dact, dact_x, db, dc, s)
+  if (dtype == 0) return dact ? LAUNCH_DGRAD(float, true) : LAUNCH_DGRAD(float, false);
+  if (dtype == 1) return dact ? LAUNCH_DGRAD(__nv_bfloat16, true) : LAUNCH_DGRAD(__nv_bfloat16, false);
+#undef LAUNCH_DGRAD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -43,7 +43,8 @@ def build_model(cfg: Config, built_stages: int = 3) -> ProgressiveCascadeModel:
         xray_feature_dim=m.xray_feature_dim, voxel_dim=m.voxel_dim,
         stage_depths=tuple(m.stage_depths), stage_heads=tuple(m.stage_heads),
         stage_sizes=tuple(m.stage_sizes), dtype=dtype, built_stages=built_stages,
-        use_gradient_checkpointing=m.use_gradient_checkpointing, remat_mode=m.remat_mode)
+        use_gradient_checkpointing=m.use_gradient_checkpointing, remat_mode=m.remat_mode,
+        stage3_slab_scan=m.stage3_slab_scan, slab_count=m.slab_count, slab_impl=m.slab_impl)
 
 
 def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> None:

@@ -8,9 +8,17 @@ are NCDHW throughout.
 
 Preserved from the JAX package: stage 1 owns a private MultiScaleXrayEncoder,
 distinct from the cascade-level one that stages 2 and 3 both call (shared
-weights, two runs). The stage-3 conv chains are evaluated densely
-(ops/chain.py); the JAX package's eval schedule streams them and folds
-conv→GroupNorm at batch 1, which gives the same result to fp32 tolerance.
+weights, two runs).
+
+The stage-3 conv chains (the upsample conv + token stem, and the detail
+enhancer) run on the schedule the JAX package picks per call
+(``Stage3Refiner256._schedule``, ``cascade.py:310-314``), keyed on ``train``:
+- ``train=False`` with ``stage3_eval_schedule="auto"`` (the default): the
+  streamed slab schedule with one slab and every endpoint stored
+  (``ops/slab.py:chain_apply_streamed``), whatever the training flags say;
+- otherwise the configured flags: ``stage3_slab_scan`` with ``slab_count``
+  slabs of ``slab_impl`` ('streamed' | 'recompute'), or the dense chain.
+All schedules share one parameter tree and agree to fp32 tolerance.
 
 Training, as the JAX module runs it (``cascade.py:410-525``):
 - ``train=True`` puts every BatchNorm in batch-statistics mode and updates
@@ -19,24 +27,25 @@ Training, as the JAX module runs it (``cascade.py:410-525``):
 - ``stop_grad_stage1`` cuts the backward at stage 1's output (``.detach()``
   of the JAX ``stop_gradient``); stage 1 then runs without recording.
 - With ``use_gradient_checkpointing``, stage 3 recomputes in the backward:
-  the upsample conv chain and the ViT trunk as one region (the port never
-  slab-streams, so the JAX package's no-slab branch, ``cascade.py:324-331``),
-  the ViT blocks inside it by ``remat_mode``, and the detail enhancer's chain
-  as another region (``:352``). Stages 1 and 2 do not recompute, as in JAX.
-  Checkpointing applies only while autograd records.
+  the ViT blocks by ``remat_mode``; with ``train=True`` and no slab
+  streaming also the upsample conv chain and the ViT trunk as one region
+  (``cascade.py:324-331``) and the detail enhancer's dense chain as another
+  (``:352``). Under slab streaming each slab body is its own recompute region
+  instead. Stages 1 and 2 do not recompute, as in JAX. Checkpointing applies
+  only while autograd records.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.chain import chain_apply_dense
+from ..ops.slab import chain_apply_dense, chain_apply_slab, chain_apply_streamed
 from ..ops.conv3d import ConvNCDHW, GroupNormNCDHW
 from ..ops.resize import resize_trilinear
 from .encoders import MultiScaleXrayEncoder
@@ -104,10 +113,33 @@ class Stage2Refiner128(nn.Module):
         return base + self.residual_weight.to(base.dtype) * refinement
 
 
+# (slab_scan, slab_count, slab_impl, store_min_flops): how a chain runs
+Schedule = Tuple[bool, int, str, Optional[float]]
+
+
+def apply_chain(x: torch.Tensor, chain, dtype: torch.dtype, schedule: Schedule,
+                remat: bool = False) -> torch.Tensor:
+    """Run an ops/slab.py chain on `schedule` (the JAX modules' dispatch,
+    ``cascade.py:189-198, 248-255``); `remat` checkpoints the dense chain."""
+    slab_scan, slab_count, slab_impl, store_min_flops = schedule
+    if slab_scan:
+        if slab_impl == "streamed":
+            kw = {} if store_min_flops is None else {"store_min_flops": store_min_flops}
+            return chain_apply_streamed(x, chain, slab_count, dtype=dtype, **kw)
+        if slab_impl != "recompute":
+            raise ValueError(f"slab_impl must be 'streamed' or 'recompute', got {slab_impl!r}")
+        return chain_apply_slab(x, chain, slab_count, dtype=dtype)
+    if remat and torch.is_grad_enabled():
+        return checkpoint(chain_apply_dense, x, chain, dtype, use_reentrant=False)
+    return chain_apply_dense(x, chain, dtype)
+
+
 class _ChainParams(nn.Module):
-    """Owns the conv/GroupNorm parameters of an ops/chain.py spec under the
+    """Owns the conv/GroupNorm parameters of an ops/slab.py spec under the
     JAX package's flat names (``<name>_kernel``, ``<name>_bias``,
-    ``<name>_scale``), so one parameter tree serves every chain schedule."""
+    ``<name>_scale``), so one parameter tree serves every chain schedule.
+    The schedule comes with each call: Stage3Refiner256 picks it (the JAX
+    modules carry it as fields because flax builds them per call)."""
 
     def __init__(self, dtype: torch.dtype):
         super().__init__()
@@ -146,11 +178,10 @@ class _ChainParams(nn.Module):
 class DetailEnhancer(_ChainParams):
     """High-frequency CNN branch on the upsampled base volume:
     conv(1→64)→GN16→GELU→conv(64→32)→GN8→GELU→conv 1×1 (32→1); with
-    ``remat`` the chain is recomputed in the backward."""
+    ``remat`` the dense chain is recomputed in the backward."""
 
-    def __init__(self, dtype: torch.dtype = torch.float32, remat: bool = False):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__(dtype)
-        self.remat = remat
         self._conv_op("conv0", 64, 1, 3, 1)
         self._gn_op("gn0", 64, 16)
         self._act_op("gelu")
@@ -159,13 +190,9 @@ class DetailEnhancer(_ChainParams):
         self._act_op("gelu")
         self._conv_op("conv_out", 1, 32, 1, 1)
 
-    def _run(self, base: torch.Tensor) -> torch.Tensor:
-        return chain_apply_dense(base, self.chain(), self.dtype)
-
-    def forward(self, base: torch.Tensor) -> torch.Tensor:  # (B, 1, D, H, W)
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(self._run, base, use_reentrant=False)
-        return self._run(base)
+    def forward(self, base: torch.Tensor, schedule: Schedule,
+                remat: bool = False) -> torch.Tensor:  # (B, 1, D, H, W)
+        return apply_chain(base, self.chain(), self.dtype, schedule, remat)
 
 
 class Stage3ViTTrunk(_ChainParams):
@@ -194,41 +221,61 @@ class Stage3ViTTrunk(_ChainParams):
                                        remat_mode=remat_mode)
 
     def forward(self, vol_nc: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
-                seed: int | None = None) -> torch.Tensor:
+                seed: Optional[int], schedule: Schedule) -> torch.Tensor:
         d, h, w = vol_nc.shape[2:]
         x1 = resize_trilinear(vol_nc, (2 * d, 2 * h, 2 * w), align_corners=False).to(self.dtype)
-        feat = chain_apply_dense(x1, self.chain(), self.dtype)
+        feat = apply_chain(x1, self.chain(), self.dtype, schedule)
         return self.vit_refiner(feat, context, cond, seed)
 
 
 class Stage3Refiner256(nn.Module):
     """Stage-2 → stage-3 size refiner with the CNN detail branch:
-    base + residual_weight·refinement + detail_weight·details."""
+    base + residual_weight·refinement + detail_weight·details.
+
+    ``slab_scan``/``slab_count``/``slab_impl``/``store_min_flops``: the
+    training schedule of the two conv chains (ops/slab.py). ``eval_schedule``
+    'auto' runs every ``train=False`` call streamed with one slab and every
+    endpoint stored; 'train' keeps the training flags."""
 
     def __init__(self, volume_size=(256, 256, 256), voxel_dim: int = 256, vit_depth: int = 8,
                  num_heads: int = 8, xray_feature_dim: int = 512,
                  dtype: torch.dtype = torch.float32, remat: bool = True,
-                 remat_mode: str = "block"):
+                 remat_mode: str = "block", slab_scan: bool = False, slab_count: int = 8,
+                 slab_impl: str = "streamed", store_min_flops: Optional[float] = None,
+                 eval_schedule: str = "auto"):
         super().__init__()
+        if eval_schedule not in ("auto", "train"):
+            raise ValueError(f"eval_schedule must be 'auto' or 'train', got {eval_schedule!r}")
         self.volume_size = tuple(volume_size)
         self.remat = remat
+        self.slab_scan, self.slab_count = slab_scan, slab_count
+        self.slab_impl, self.store_min_flops = slab_impl, store_min_flops
+        self.eval_schedule = eval_schedule
         self.vit_trunk = Stage3ViTTrunk(self.volume_size, voxel_dim, vit_depth, num_heads,
                                         xray_feature_dim, dtype, inner_remat=remat,
                                         remat_mode=remat_mode)
-        self.detail_enhancer = DetailEnhancer(dtype, remat=remat)
+        self.detail_enhancer = DetailEnhancer(dtype)
         self.residual_weight = nn.Parameter(torch.full((1,), 0.5))
         self.detail_weight = nn.Parameter(torch.full((1,), 0.3))
 
+    def _schedule(self, train: bool) -> Schedule:
+        """The chains' schedule for this call (``cascade.py:310-314``)."""
+        if not train and self.eval_schedule == "auto":
+            return True, 1, "streamed", 0.0
+        return self.slab_scan, self.slab_count, self.slab_impl, self.store_min_flops
+
     def forward(self, volume_128: torch.Tensor, xray_feats: torch.Tensor,
-                cond: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+                cond: torch.Tensor, seed: int | None = None, train: bool = False) -> torch.Tensor:
+        schedule = self._schedule(train)
+        remat = self.remat and train and not schedule[0]
         context = xray_feats.flatten(2).transpose(1, 2)
-        if self.remat and torch.is_grad_enabled():
-            refinement = checkpoint(self.vit_trunk, volume_128, context, cond, seed,
+        if remat and torch.is_grad_enabled():
+            refinement = checkpoint(self.vit_trunk, volume_128, context, cond, seed, schedule,
                                     use_reentrant=False)
         else:
-            refinement = self.vit_trunk(volume_128, context, cond, seed)
+            refinement = self.vit_trunk(volume_128, context, cond, seed, schedule)
         base = resize_trilinear(volume_128, self.volume_size, align_corners=False)
-        details = self.detail_enhancer(base)
+        details = self.detail_enhancer(base, schedule, remat)
         return (base + self.residual_weight.to(base.dtype) * refinement
                 + self.detail_weight.to(base.dtype) * details)
 
@@ -242,12 +289,17 @@ class ProgressiveCascadeModel(nn.Module):
     ``built_stages`` (1-3) builds only the stages up to it — the counterpart
     of the JAX engine's max_stage template, for loading a stage-pruned
     checkpoint. ``use_gradient_checkpointing`` and ``remat_mode`` are the
-    config's (stage 3 only, as in JAX)."""
+    config's (stage 3 only, as in JAX), as are ``stage3_slab_scan``,
+    ``slab_count`` and ``slab_impl``; ``stage3_store_min_flops`` and
+    ``stage3_eval_schedule`` are the JAX module's fields (Stage3Refiner256)."""
 
     def __init__(self, xray_feature_dim: int = 512, voxel_dim: int = 256,
                  stage_depths=(4, 6, 8), stage_heads=(4, 8, 8), stage_sizes=(64, 128, 256),
                  dtype: torch.dtype = torch.float32, built_stages: int = 3,
-                 use_gradient_checkpointing: bool = True, remat_mode: str = "block"):
+                 use_gradient_checkpointing: bool = True, remat_mode: str = "block",
+                 stage3_slab_scan: bool = False, slab_count: int = 8,
+                 slab_impl: str = "streamed", stage3_store_min_flops: Optional[float] = None,
+                 stage3_eval_schedule: str = "auto"):
         super().__init__()
         self.built_stages = built_stages
         s1, s2, s3 = stage_sizes
@@ -263,7 +315,10 @@ class ProgressiveCascadeModel(nn.Module):
             self.stage3 = Stage3Refiner256((s3,) * 3, vit_depth=stage_depths[2],
                                            num_heads=stage_heads[2],
                                            remat=use_gradient_checkpointing,
-                                           remat_mode=remat_mode, **kw)
+                                           remat_mode=remat_mode, slab_scan=stage3_slab_scan,
+                                           slab_count=slab_count, slab_impl=slab_impl,
+                                           store_min_flops=stage3_store_min_flops,
+                                           eval_schedule=stage3_eval_schedule, **kw)
         number_dropout_sites(self)
 
     def forward(self, xrays: torch.Tensor, return_intermediate: bool = False,
@@ -289,7 +344,7 @@ class ProgressiveCascadeModel(nn.Module):
             outputs["stage2"] = self.stage2(outputs["stage1"], feats2, cond, seed)
         if max_stage >= 3:
             feats3, cond, _ = self.xray_encoder(xrays, stage=3, train=train)
-            outputs["stage3"] = self.stage3(outputs["stage2"], feats3, cond, seed)
+            outputs["stage3"] = self.stage3(outputs["stage2"], feats3, cond, seed, train)
         if return_intermediate:
             return outputs
         return outputs[f"stage{max_stage}"]

@@ -1,13 +1,13 @@
 """Feature-first (NCDHW) 3D conv + GroupNorm (counterpart of
 hybrid_vit_cascade_tpu/ops/conv3d.py).
 
-Every 3×3×3 conv with padding 1 goes through ``conv3d_ncdhw``, an autograd
-Function over the hand-written kernels of ``ops/cuda/conv3d_k3.py``:
-forward B (stride 1) / C (stride 2); data gradient B with flipped weights
-(stride 1) / F (stride 2); weight gradient E / G; the bias gradient is an
-fp32 sum, as the JAX package takes it outside Pallas. A gradient is computed
-only for the inputs that need one. On a CPU tensor each kernel wrapper runs
-its plain version.
+Every 3×3×3 conv goes through one autograd Function over the hand-written
+kernels of ``ops/cuda/conv3d_k3.py``: ``conv3d_ncdhw`` for the padding-1
+conv (kernels B-G), ``conv3d_chain`` for the slab-streamed chains of
+``ops/slab.py`` (H-K); the dense conv is the chain conv over the whole
+volume. The bias gradient is an fp32 sum, as the JAX package takes it
+outside Pallas. A gradient is computed only for the inputs that need one.
+On a CPU tensor each kernel wrapper runs its plain version.
 
 Two GroupNorms, because the JAX package has two:
 - ``group_norm_core`` (``ops/conv3d.py:64-116`` there, used by
@@ -29,52 +29,75 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .cuda.conv3d_k3 import (
-    conv3d_k3s1,
-    conv3d_k3s1_dgrad,
-    conv3d_k3s1_wgrad,
-    conv3d_k3s2,
-    conv3d_k3s2_dgrad,
-    conv3d_k3s2_wgrad,
-)
+from .cuda.conv3d_k3 import conv3d_k3, conv3d_k3_dgrad, conv3d_k3_wgrad
 
 
 class _Conv3dK3(torch.autograd.Function):
-    """x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3) in x's dtype, fp32 bias or
-    None → the padding-1 conv at ``stride``. dW comes back in w's dtype (the
-    JAX VJP casts its fp32 kernel result to the weight's dtype), db in fp32."""
+    """The 3×3×3 conv of the chain contract (``ops/cuda/conv3d_k3.py``) and
+    its VJP as ``_vjp_bwd_chain`` computes it (``conv3d_k3.py:693-723``,
+    ``conv3d_k3s2.py:621-641``): the stats cotangents fold into the output
+    gradient, g + gs1 + 2·gs2·out in fp32, cast to x's dtype; the data
+    gradient of x's planes with the act′ epilogue; the weight gradient with
+    the prologue replayed, in w's dtype (the JAX VJP casts its fp32 kernel
+    result to the weight's dtype); db = Σ g in fp32. ``dense`` marks the
+    padding-1 conv, whose launches count under B-G."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, stride: int):
-        ctx.save_for_backward(x, w)
-        ctx.stride = stride
-        return (conv3d_k3s1 if stride == 1 else conv3d_k3s2)(x, w, bias)
+    def forward(ctx, x, w, bias, stride: int, qlo: int, d_out: int, want_sums: bool,
+                act: Optional[str], dense: bool):
+        res = conv3d_k3(x, w, bias, stride, qlo, d_out, want_sums, act, dense=dense)
+        ctx.save_for_backward(x, w, res[0] if want_sums else None)
+        ctx.meta = (stride, qlo, want_sums, act, dense)
+        return res
 
     @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
+    def backward(ctx, g, *stat_grads):
+        x, w, out = ctx.saved_tensors
+        stride, qlo, want_sums, act, dense = ctx.meta
+        if want_sums:
+            gs1, gs2 = (t[:, :, None, None, None] for t in stat_grads)
+            g = g.float() + gs1 + 2.0 * gs2 * out.float()
         g = g.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = (conv3d_k3s1_dgrad(g, w) if ctx.stride == 1
-                  else conv3d_k3s2_dgrad(g, w, x.shape))
+            dx = conv3d_k3_dgrad(g, w, x, stride, qlo, act, dense=dense)
         if ctx.needs_input_grad[1]:
-            dw = (conv3d_k3s1_wgrad if ctx.stride == 1 else conv3d_k3s2_wgrad)(x, g).to(w.dtype)
+            dw = conv3d_k3_wgrad(x, g, stride, qlo, act, dense=dense).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = g.float().sum(dim=(0, 2, 3, 4))
-        return dx, dw, db, None
+        return dx, dw, db, None, None, None, None, None, None
+
+
+def _check_k3(fn: str, w: torch.Tensor, stride: int) -> None:
+    if tuple(w.shape[2:]) != (3, 3, 3) or stride not in (1, 2):
+        raise ValueError(f"{fn} takes 3×3×3 kernels at stride 1 or 2, got "
+                         f"{tuple(w.shape)} stride {stride}")
 
 
 def conv3d_ncdhw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  stride: int) -> torch.Tensor:
     """3×3×3 conv, padding 1, stride 1 or 2, on (B, Cin, D, H, W) in x's
     dtype; w (Cout, Cin, 3, 3, 3) is cast to x's dtype, the bias stays fp32
-    and is added before the output is rounded. Differentiable."""
-    if tuple(w.shape[2:]) != (3, 3, 3) or stride not in (1, 2):
-        raise ValueError(f"conv3d_ncdhw takes 3×3×3 kernels at stride 1 or 2, got "
-                         f"{tuple(w.shape)} stride {stride}")
+    and is added before the output is rounded. Differentiable. The chain
+    conv over the whole volume: offset 1, ⌈D/S⌉ output planes."""
+    _check_k3("conv3d_ncdhw", w, stride)
     bias = None if b is None else b.float().contiguous()
-    return _Conv3dK3.apply(x.contiguous(), w.to(x.dtype).contiguous(), bias, stride)
+    return _Conv3dK3.apply(x.contiguous(), w.to(x.dtype).contiguous(), bias, stride, 1,
+                           (x.shape[2] - 1) // stride + 1, False, None, True)
+
+
+def conv3d_chain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride: int,
+                 qlo: int, d_out: int, want_sums: bool = False, act: Optional[str] = None):
+    """The slab-chain 3×3×3 conv, differentiable: x holds slab planes
+    [qlo, qlo + x.shape[2]) (zeros elsewhere; its (D, H, W) planes contiguous,
+    its batch and channel strides free), output plane o reads slab planes
+    stride·o + {0, 1, 2}, H/W padding 1; w cast to x's dtype, bias fp32.
+    Returns out (B, Cout, d_out, ·, ·) or (out, s1, s2) with per-(B, Cout)
+    fp32 Σ, Σ² of the rounded output. ``act`` is the fused prologue."""
+    _check_k3("conv3d_chain", w, stride)
+    bias = None if b is None else b.float().contiguous()
+    return _Conv3dK3.apply(x, w.to(x.dtype).contiguous(), bias, stride, qlo, d_out,
+                           want_sums, act, False)
 
 
 def conv1x1_ncdhw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions
 (counterpart of hybrid_vit_cascade_tpu/ops/pallas).
 
-Each kernel wrapper counts the launches of its kernel in ``.launches``;
-``launch_counts`` reads them all and ``reset_launch_counts`` sets them to 0.
+Each kernel wrapper counts the launches of its kernel: the flash-attention
+wrappers in their ``.launches``, the conv wrappers in
+``conv3d_k3.LAUNCHES``, one counter per kernel letter. ``launch_counts``
+reads them all and ``reset_launch_counts`` sets them to 0.
 """
 
 from __future__ import annotations
@@ -10,23 +12,23 @@ from __future__ import annotations
 from typing import Dict
 
 
-def _wrappers() -> dict:
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per counter since the last reset: flash_attention (A),
+    flash_attention_bwd (D), and the conv counters conv3d_k3s{1,2} (B, C),
+    conv3d_k3s1_dgrad (B as the stride-1 data gradient), conv3d_k3s2_dgrad
+    (F), conv3d_k3s{1,2}_wgrad (E, G) and their ``_chain`` forms (H, I; H as
+    the stride-1 data gradient, J; K)."""
     from . import conv3d_k3 as ck
     from . import flash_attention as fa
 
-    return {"flash_attention": fa.flash_attention_fwd, "conv3d_k3s1": ck.conv3d_k3s1,
-            "conv3d_k3s2": ck.conv3d_k3s2, "flash_attention_bwd": fa.flash_attention_bwd,
-            "conv3d_k3s1_wgrad": ck.conv3d_k3s1_wgrad, "conv3d_k3s1_dgrad": ck.conv3d_k3s1_dgrad,
-            "conv3d_k3s2_dgrad": ck.conv3d_k3s2_dgrad, "conv3d_k3s2_wgrad": ck.conv3d_k3s2_wgrad}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset (conv3d_k3s1_dgrad:
-    kernel B launched as the stride-1 data gradient, not counted under
-    conv3d_k3s1)."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {"flash_attention": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches, **ck.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    from . import conv3d_k3 as ck
+    from . import flash_attention as fa
+
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    for name in ck.LAUNCHES:
+        ck.LAUNCHES[name] = 0

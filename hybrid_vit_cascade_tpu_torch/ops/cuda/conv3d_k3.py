@@ -1,24 +1,40 @@
-"""The 3×3×3 conv (padding 1) and its gradients on the card.
+"""The 3×3×3 conv and its gradients on the card, in one contract that covers
+the dense (padding 1) conv and the slab-chain conv: ``conv3d_k3`` (forward),
+``conv3d_k3_dgrad`` (data gradient), ``conv3d_k3_wgrad`` (weight gradient).
 
-- Kernels B and C, forward at stride 1 and 2 (``csrc/conv3d_k3.cu``):
-  counterparts of ``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py``
-  (``_conv_fwd``) and ``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py``
-  (``_conv_fwd_s2``). Semantics: ``F.conv3d(x, w, b, stride, padding=1)`` on
-  NCDHW input, OIDHW weights, fp32 bias and accumulation, output in x's dtype.
-- The stride-1 data gradient is kernel B on the output gradient with
-  channel-transposed, tap-flipped weights (``conv3d_k3.py:650-652``):
-  ``conv3d_k3s1_dgrad``.
-- Kernels E and G, the weight gradients at stride 1 and 2, and kernel F, the
-  stride-2 data gradient (``csrc/conv3d_k3_bwd.cu``): counterparts of
-  ``_wgrad`` (``conv3d_k3.py``), ``_wgrad_s2`` and ``_dgrad_s2``
-  (``conv3d_k3s2.py``). Semantics: ``torch.nn.grad.conv3d_weight`` (fp32
-  out) and ``torch.nn.grad.conv3d_input`` (x's dtype out).
+- Forward, ``csrc/conv3d_k3.cu``: counterparts of ``_conv_fwd``
+  (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py``) and ``_conv_fwd_s2``
+  (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py``). Data gradient: at
+  stride 1 the forward kernel on the output gradient with channel-
+  transposed, tap-flipped weights (``conv3d_k3.py:650-652``); at stride 2
+  ``_dgrad_s2`` (``csrc/conv3d_k3_bwd.cu``). Weight gradient: ``_wgrad`` and
+  ``_wgrad_s2`` (``csrc/conv3d_k3_bwd.cu``).
+- The kernel letters name what a call computes, and each has its own launch
+  counter: with ``dense`` the padding-1 conv — B / C forward at stride 1 / 2,
+  B as the stride-1 data gradient, F the stride-2 one, E / G the weight
+  gradients; otherwise the chain forms of ``conv3d_k3s1_chain``
+  (``conv3d_k3.py:662``) and ``conv3d_k3s2_chain`` (``conv3d_k3s2.py:602``)
+  and their VJPs — H / I forward, H as the stride-1 data gradient, J the
+  stride-2 one, K the weight gradients.
+
+The contract. ``x`` is the part of a D-slab that lies inside the
+valid-plane window: a (B, Cin, nv, H, W) tensor whose inner three dims are
+contiguous (a D-narrowed view of a larger volume is taken as it is — no copy);
+slab plane q is plane q − ``qlo`` of x, and every other slab plane reads as
+zero (the dense path's per-conv zero padding). Output plane o reads slab planes
+S·o + {0, 1, 2}; ``d_out`` output planes are computed. H and W are SAME. So
+the dense conv is the chain conv with ``qlo = 1`` and ``d_out = ⌈D/S⌉``.
+``act`` ('gelu' | 'silu' | None) applies the activation to x at the load
+(fp32, rounded to x's dtype, as ``_pact``); ``want_sums`` also returns
+per-(B, Cout) fp32 Σ and Σ² of the rounded output. The data gradients return
+the gradient of x's planes only (the window's transpose) and, with ``act``,
+multiply it by act′(x) (the act′ epilogue).
 
 Every wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain version for tensors on the CPU; for any other device it raises. It
-never falls back from the kernel to the plain version. Each counts its
-kernel launches in ``.launches`` (the stride-1 data gradient counts its
-launches of kernel B in its own ``.launches``, not in ``conv3d_k3s1``'s).
+never falls back from the kernel to the plain version. Each launch adds one
+to its letter's counter in ``LAUNCHES`` (the stride-1 data gradient is
+counted there, not under the forward).
 """
 
 from __future__ import annotations
@@ -32,32 +48,21 @@ import torch.nn.functional as F
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
-)
-
-
-def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-                    stride: int) -> torch.Tensor:
-    """F.conv3d in fp32 on x's values, rounded to x's dtype. On a CUDA tensor
-    cuDNN runs with TF32 off (torch.backends.cudnn.allow_tf32 = False for the
-    call), so the reference is full fp32."""
-    b = None if bias is None else bias.float()
-    return _no_tf32(F.conv3d, x.float(), w.float(), b, stride=stride, padding=1).to(x.dtype)
-
-
-_WGRAD_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-)
-_DGRAD_ARGTYPES = (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p,
-)
+_ACT_CODES = {None: 0, "gelu": 1, "silu": 2}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# hvc_conv3d_k3s{1,2}_fwd(x, w, bias, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
+#                         act, dact, dact_x, db, dc, partial, sums, dtype, stream)
+_FWD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L,
+                 _I, _I, _P, _L, _L, _P, _P, _I, _P)
+# hvc_conv3d_k3s{1,2}_wgrad(x, g, partial, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
+#                           act, dtype, splits, stream)
+_WGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P)
+# hvc_conv3d_k3s2_dgrad(g, w, dx, B, cin, cout, nv, H, W, Do, qlo, dact, dact_x, db, dc,
+#                       dtype, stream)
+_DGRAD_ARGTYPES = (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _I, _P)
+# Output voxels per forward block (csrc/conv3d_k3.cu): the Σ/Σ² epilogue
+# writes one partial per block.
+_FWD_TILE = {1: (8, 32), 2: (8, 16)}
 # Blocks the weight-gradient kernels aim for (8 per SM of an H100's 132): the
 # B·D·H·W reduction is split into that many fp32 partials over the output
 # tiles (csrc/conv3d_k3_bwd.cu: 8×16 output voxels per tile, 32 output and 4
@@ -79,189 +84,302 @@ def _no_tf32(fn, *args, **kwargs):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"conv3d_k3 takes float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[2:]) != (3, 3, 3) or w.shape[1] != x.shape[1]:
-        raise ValueError(f"expected x (B, Cin, D, H, W) and w (Cout, Cin, 3, 3, 3); got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if w.dtype != x.dtype:
-        raise TypeError(f"w must be in x's dtype {x.dtype}, got {w.dtype}")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (w.shape[0],):
-        raise ValueError(f"bias must be fp32 of shape ({w.shape[0]},), got "
-                         f"{bias.dtype} {tuple(bias.shape)}")
-    for name, t in (("w", w), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("w", w), ("bias", bias)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+# --------------------------------------------------------- plain versions ---
+
+def act_plain(act: Optional[str], x: torch.Tensor) -> torch.Tensor:
+    """The chain prologue: act(x) in fp32, rounded to x's dtype (``_pact``)."""
+    if act is None:
+        return x
+    y = F.gelu(x.float()) if act == "gelu" else F.silu(x.float())
+    return y.to(x.dtype)
+
+
+def dact_plain(act: str, x: torch.Tensor) -> torch.Tensor:
+    """act′(x) in fp32 (``_dact_f32``): the chain data gradient's epilogue."""
+    xf = x.float()
+    if act == "gelu":
+        return 0.5 * (1.0 + torch.erf(xf * 0.7071067811865476)) + \
+            xf * 0.3989422804014327 * torch.exp(-0.5 * xf * xf)
+    s = torch.sigmoid(xf)
+    return s * (1.0 + xf * (1.0 - s))
+
+
+def _slab_plain(x: torch.Tensor, qlo: int, n: int, act: Optional[str]) -> torch.Tensor:
+    """The n-plane fp32 D-slab of the chain contract: act(x) at planes
+    [qlo, qlo + nv), zeros elsewhere."""
+    B, C, nv, H, W = x.shape
+    slab = x.new_zeros((B, C, n, H, W), dtype=torch.float32)
+    lo, hi = max(qlo, 0), min(qlo + nv, n)
+    if hi > lo:
+        slab[:, :, lo:hi] = act_plain(act, x[:, :, lo - qlo:hi - qlo]).float()
+    return slab
+
+
+def conv3d_k3_plain(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                    stride: int, qlo: int, d_out: int, want_sums: bool = False,
+                    act: Optional[str] = None):
+    """The conv of the chain contract: mask the slab planes outside x,
+    F.conv3d with padding (0, 1, 1) in fp32 (TF32 off), rounded to x's
+    dtype; the sums are taken over the rounded output."""
+    slab = _slab_plain(x, qlo, stride * (d_out - 1) + 3, act)
+    b = None if bias is None else bias.float()
+    out = _no_tf32(F.conv3d, slab, w.float(), b, stride=stride, padding=(0, 1, 1)).to(x.dtype)
+    if not want_sums:
+        return out
+    of = out.float()
+    return out, of.sum(dim=(2, 3, 4)), (of * of).sum(dim=(2, 3, 4))
+
+
+def conv3d_k3_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: int,
+                          qlo: int, act: Optional[str] = None) -> torch.Tensor:
+    """dx (x's shape, g's dtype) of the conv for output gradient g:
+    torch.nn.grad.conv3d_input over the slab in fp32 (TF32 off), cut to x's
+    planes, times act′(x) with ``act``."""
+    B, cin, nv, H, W = x.shape
+    n = stride * (g.shape[2] - 1) + 3
+    full = _no_tf32(torch.nn.grad.conv3d_input, (B, cin, n, H, W), w.float(), g.float(),
+                    stride=stride, padding=(0, 1, 1))
+    dx = full.new_zeros((B, cin, nv, H, W))
+    lo, hi = max(qlo, 0), min(qlo + nv, n)
+    if hi > lo:
+        dx[:, :, lo - qlo:hi - qlo] = full[:, :, lo:hi]
+    if act is not None:
+        dx = dx * dact_plain(act, x)
+    return dx.to(g.dtype)
+
+
+def conv3d_k3_wgrad_plain(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
+                          act: Optional[str] = None) -> torch.Tensor:
+    """dW (Cout, Cin, 3, 3, 3) fp32 of the conv: torch.nn.grad.conv3d_weight
+    over the act-replayed slab in fp32 (TF32 off)."""
+    slab = _slab_plain(x, qlo, stride * (g.shape[2] - 1) + 3, act)
+    return _no_tf32(torch.nn.grad.conv3d_weight, slab, (g.shape[1], x.shape[1], 3, 3, 3),
+                    g.float(), stride=stride, padding=(0, 1, 1))
+
+
+# ---------------------------------------------------------------- checks ---
+
+def _check_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise RuntimeError(f"conv3d_k3 runs on cuda or cpu tensors, got {t.device}")
+
+
+def _check_view(name: str, x: torch.Tensor, dtype: torch.dtype, device) -> None:
+    """x (B, C, n, H, W) in `dtype` on `device` with contiguous (n, H, W)
+    planes; its batch and channel strides are free (a D-narrowed view)."""
+    if x.dtype not in _DTYPE_CODES or x.dtype != dtype:
+        raise TypeError(f"{name} must be float32 or bfloat16 and match: {x.dtype} vs {dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"{name} must be (B, C, D, H, W), got {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    _, _, _, H, W = x.shape
+    if x.stride(3) != W or x.stride(4) != 1 or (x.shape[2] > 1 and x.stride(2) != H * W):
+        raise ValueError(f"{name} needs contiguous (D, H, W) planes, strides {x.stride()}")
     if max(x.shape[1:]) > 2**31 - 1:
         raise ValueError(f"dimension too large for the kernel: {tuple(x.shape)}")
 
 
-def _launch(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
-            bias: Optional[torch.Tensor]) -> torch.Tensor:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3d_k3 runs on cuda or cpu tensors, got {x.device}")
+def _check_weights(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    if w.dim() != 5 or tuple(w.shape[2:]) != (3, 3, 3) or w.shape[1] != x.shape[1]:
+        raise ValueError(f"expected x (B, Cin, D, H, W) and w (Cout, Cin, 3, 3, 3); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w must be in x's dtype {x.dtype}, got {w.dtype}")
+    if w.device != x.device or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous and on {x.device}")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (w.shape[0],)
+                             or bias.device != x.device or not bias.is_contiguous()):
+        raise ValueError(f"bias must be contiguous fp32 of shape ({w.shape[0]},) on "
+                         f"{x.device}, got {bias.dtype} {tuple(bias.shape)}")
+
+
+def _check_out_grad(g: torch.Tensor, shape) -> None:
+    if tuple(g.shape) != tuple(shape):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected {tuple(shape)}")
+    if not g.is_contiguous():
+        raise ValueError("g must be contiguous")
+
+
+# ---------------------------------------------------------------- launches ---
+
+def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
+         bias: Optional[torch.Tensor], qlo: int, d_out: int, want_sums: bool = False,
+         act: Optional[str] = None, dact: Optional[tuple] = None):
+    """Launch kernel B/C/H/I; returns out or (out, s1, s2)."""
+    _check_cuda(x)
+    _check_view("x", x, x.dtype, x.device)
+    _check_weights(x, w, bias)
+    if d_out < 1:
+        raise ValueError(f"d_out must be ≥ 1, got {d_out}")
     if bias is None:
         bias = torch.zeros(w.shape[0], dtype=torch.float32, device=x.device)
-    _check(x, w, bias)
-    B, cin, D, H, W = x.shape
+    B, cin, nv, H, W = x.shape
     cout = w.shape[0]
-    out = torch.empty((B, cout, (D - 1) // stride + 1, (H - 1) // stride + 1,
-                       (W - 1) // stride + 1), dtype=x.dtype, device=x.device)
-    fn = _build.function(entry, _ARGTYPES)
+    ho, wo = _out_dims((H, W), stride)
+    out = torch.empty((B, cout, d_out, ho, wo), dtype=x.dtype, device=x.device)
+    dact_code, dact_x, db, dc = 0, None, 0, 0
+    if dact is not None:
+        dact_x = dact[1]
+        _check_view("dact x", dact_x, x.dtype, x.device)
+        if tuple(dact_x.shape) != tuple(out.shape):
+            raise ValueError(f"dact x {tuple(dact_x.shape)} must have the output's shape "
+                             f"{tuple(out.shape)}")
+        dact_code, db, dc = _ACT_CODES[dact[0]], dact_x.stride(0), dact_x.stride(1)
+    partial = sums = None
+    if want_sums:
+        th, tw = _FWD_TILE[stride]
+        nblk = d_out * -(-ho // th) * -(-wo // tw)
+        partial = torch.empty((B * cout * nblk * 2,), dtype=torch.float32, device=x.device)
+        sums = torch.empty((2, B, cout), dtype=torch.float32, device=x.device)
+    fn = _build.function(entry, _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                B, cin, cout, D, H, W, _DTYPE_CODES[x.dtype], stream)
+        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, cin, cout, nv,
+                H, W, d_out, qlo, x.stride(0), x.stride(1), _ACT_CODES[act], dact_code,
+                None if dact_x is None else dact_x.data_ptr(), db, dc,
+                None if partial is None else partial.data_ptr(),
+                None if sums is None else sums.data_ptr(), _DTYPE_CODES[x.dtype], stream)
     _build.check(rc, entry)
-    return out
+    return (out, sums[0], sums[1]) if want_sums else out
 
 
-def conv3d_k3s1(x: torch.Tensor, w: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """3×3×3 conv, stride 1, padding 1: (B, Cin, D, H, W) → (B, Cout, D, H, W)."""
-    if x.device.type == "cpu":
-        return conv3d_k3_plain(x, w, bias, 1)
-    out = _launch("hvc_conv3d_k3s1_fwd", 1, x, w, bias)
-    conv3d_k3s1.launches += 1
-    return out
-
-
-def conv3d_k3s2(x: torch.Tensor, w: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """3×3×3 conv, stride 2, padding 1: (B, Cin, D, H, W) →
-    (B, Cout, ⌈D/2⌉, ⌈H/2⌉, ⌈W/2⌉)."""
-    if x.device.type == "cpu":
-        return conv3d_k3_plain(x, w, bias, 2)
-    out = _launch("hvc_conv3d_k3s2_fwd", 2, x, w, bias)
-    conv3d_k3s2.launches += 1
-    return out
-
-
-conv3d_k3s1.launches = 0
-conv3d_k3s2.launches = 0
-
-
-# ------------------------------------------------------------- gradients ---
-
-def conv3d_k3_wgrad_plain(x: torch.Tensor, g: torch.Tensor, stride: int) -> torch.Tensor:
-    """dW (Cout, Cin, 3, 3, 3) fp32 of F.conv3d(x, w, stride, padding=1) for
-    output gradient g: torch.nn.grad.conv3d_weight in fp32 (TF32 off)."""
-    shape = (g.shape[1], x.shape[1], 3, 3, 3)
-    return _no_tf32(torch.nn.grad.conv3d_weight, x.float(), shape, g.float(),
-                    stride=stride, padding=1)
-
-
-def conv3d_k3_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
-    """dx of F.conv3d(x, w, stride, padding=1) for output gradient g:
-    torch.nn.grad.conv3d_input in fp32 (TF32 off), rounded to g's dtype."""
-    return _no_tf32(torch.nn.grad.conv3d_input, tuple(x_shape), w.float(), g.float(),
-                    stride=stride, padding=1).to(g.dtype)
-
-
-def _check_grad(x_shape, g: torch.Tensor, stride: int, cout: int, *others) -> None:
-    if g.dtype not in _DTYPE_CODES:
-        raise TypeError(f"conv3d_k3 gradients take float32 or bfloat16, got {g.dtype}")
-    if len(x_shape) != 5 or g.dim() != 5:
-        raise ValueError(f"expected 5-D x and g, got {tuple(x_shape)} and {tuple(g.shape)}")
-    want = (x_shape[0], cout, *_out_dims(x_shape[2:], stride))
-    if tuple(g.shape) != want:
-        raise ValueError(f"g has shape {tuple(g.shape)}, the conv of {tuple(x_shape)} gives {want}")
-    for name, t in (("g", g),) + others:
-        if t.dtype != g.dtype or t.device != g.device:
-            raise ValueError(f"{name} must match g in dtype and device: {t.dtype}/{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if max(x_shape[1:]) > 2**31 - 1:
-        raise ValueError(f"dimension too large for the kernel: {tuple(x_shape)}")
-
-
-def _wgrad_splits(x_shape, cout: int, stride: int) -> int:
-    """Number of partial sums of the B·D·H·W reduction (see _WGRAD_BLOCKS)."""
-    b, cin = x_shape[:2]
-    do, ho, wo = _out_dims(x_shape[2:], stride)
-    n_tiles = b * do * -(-ho // 8) * -(-wo // 16)
-    groups = -(-cout // 32) * -(-cin // (1 if cin < 4 else 4))
-    return max(1, min(n_tiles, -(-_WGRAD_BLOCKS // groups)))
-
-
-def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv3d_k3 runs on cuda or cpu tensors, got {x.device}")
-    cout = g.shape[1]
-    _check_grad(x.shape, g, stride, cout, ("x", x))
-    B, cin, D, H, W = x.shape
-    splits = _wgrad_splits(x.shape, cout, stride)
+def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
+           act: Optional[str] = None) -> torch.Tensor:
+    """Launch kernel E/G/K: dW fp32 of the (chain) conv of x for g."""
+    _check_cuda(x)
+    _check_view("x", x, g.dtype, g.device)
+    B, cin, nv, H, W = x.shape
+    cout, d_out = g.shape[1], g.shape[2]
+    _check_out_grad(g, (B, cout, d_out, *_out_dims((H, W), stride)))
+    splits = _wgrad_splits((B, cin, d_out, H, W), cout, stride)
     partial = torch.empty((splits, cout, cin, 27), dtype=torch.float32, device=x.device)
     out = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=x.device)
     fn = _build.function(entry, _WGRAD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                B, cin, cout, D, H, W, _DTYPE_CODES[x.dtype], splits, stream)
+        rc = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(), B, cin, cout,
+                nv, H, W, d_out, qlo, x.stride(0), x.stride(1), _ACT_CODES[act],
+                _DTYPE_CODES[x.dtype], splits, stream)
     _build.check(rc, entry)
     return out
 
 
-def conv3d_k3s1_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Kernel E: dW (Cout, Cin, 3, 3, 3) fp32 of the stride-1 conv of x
-    (B, Cin, D, H, W) for output gradient g (B, Cout, D, H, W), same dtype."""
-    if x.device.type == "cpu":
-        return conv3d_k3_wgrad_plain(x, g, 1)
-    out = _wgrad("hvc_conv3d_k3s1_wgrad", 1, x, g)
-    conv3d_k3s1_wgrad.launches += 1
-    return out
+def _wgrad_splits(out_shape, cout: int, stride: int) -> int:
+    """Number of partial sums of the B·Do·Ho·Wo reduction (see _WGRAD_BLOCKS);
+    out_shape = (B, Cin, Do, H, W): output planes, input rows and columns."""
+    b, cin, do = out_shape[:3]
+    ho, wo = _out_dims(out_shape[3:], stride)
+    n_tiles = b * do * -(-ho // 8) * -(-wo // 16)
+    groups = -(-cout // 32) * -(-cin // (1 if cin < 4 else 4))
+    return max(1, min(n_tiles, -(-_WGRAD_BLOCKS // groups)))
 
 
-def conv3d_k3s2_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Kernel G: dW (Cout, Cin, 3, 3, 3) fp32 of the stride-2 conv of x
-    (B, Cin, D, H, W) for output gradient g (B, Cout, ⌈D/2⌉, ⌈H/2⌉, ⌈W/2⌉)."""
-    if x.device.type == "cpu":
-        return conv3d_k3_wgrad_plain(x, g, 2)
-    out = _wgrad("hvc_conv3d_k3s2_wgrad", 2, x, g)
-    conv3d_k3s2_wgrad.launches += 1
-    return out
-
-
-def conv3d_k3s1_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """dx of the stride-1 conv: kernel B on g (B, Cout, D, H, W) with the
-    weights channel-transposed and tap-flipped, as conv3d_k3.py:650-652 does.
-    w (Cout, Cin, 3, 3, 3) in g's dtype; returns (B, Cin, D, H, W)."""
-    if g.device.type == "cpu":
-        return conv3d_k3_dgrad_plain(g, w, (g.shape[0], w.shape[1], *g.shape[2:]), 1)
-    wt = w.transpose(0, 1).flip(2, 3, 4).contiguous()
-    dx = _launch("hvc_conv3d_k3s1_fwd", 1, g, wt, None)
-    conv3d_k3s1_dgrad.launches += 1
-    return dx
-
-
-def conv3d_k3s2_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
-    """Kernel F: dx (x_shape, g's dtype) of the stride-2 conv for output
-    gradient g; w (Cout, Cin, 3, 3, 3) in g's dtype."""
-    if g.device.type == "cpu":
-        return conv3d_k3_dgrad_plain(g, w, x_shape, 2)
-    if g.device.type != "cuda":
-        raise RuntimeError(f"conv3d_k3 runs on cuda or cpu tensors, got {g.device}")
-    cout, cin = w.shape[:2]
-    if tuple(w.shape[2:]) != (3, 3, 3) or x_shape[1] != cin:
+def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
+              dact: Optional[tuple] = None) -> torch.Tensor:
+    """Launch kernel F/J: dx (x_shape) of the stride-2 (chain) conv."""
+    _check_cuda(g)
+    _check_view("g", g, g.dtype, g.device)
+    B, cin, nv, H, W = x_shape
+    cout, d_out = w.shape[0], g.shape[2]
+    if tuple(w.shape) != (cout, cin, 3, 3, 3) or not w.is_contiguous() or w.device != g.device:
         raise ValueError(f"w {tuple(w.shape)} does not fit x {tuple(x_shape)}")
-    _check_grad(x_shape, g, 2, cout, ("w", w))
-    B, _, D, H, W = x_shape
+    if w.dtype != g.dtype:
+        raise TypeError(f"w must be in g's dtype {g.dtype}, got {w.dtype}")
+    _check_out_grad(g, (B, cout, d_out, *_out_dims((H, W), 2)))
     dx = torch.empty(tuple(x_shape), dtype=g.dtype, device=g.device)
+    if nv == 0:
+        return dx
+    dact_code, dact_x, db, dc = 0, None, 0, 0
+    if dact is not None:
+        dact_x = dact[1]
+        _check_view("dact x", dact_x, g.dtype, g.device)
+        if tuple(dact_x.shape) != tuple(x_shape):
+            raise ValueError(f"dact x {tuple(dact_x.shape)} must have x's shape {tuple(x_shape)}")
+        dact_code, db, dc = _ACT_CODES[dact[0]], dact_x.stride(0), dact_x.stride(1)
     fn = _build.function("hvc_conv3d_k3s2_dgrad", _DGRAD_ARGTYPES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = fn(g.data_ptr(), w.data_ptr(), dx.data_ptr(), B, cin, cout, D, H, W,
+        rc = fn(g.data_ptr(), w.data_ptr(), dx.data_ptr(), B, cin, cout, nv, H, W, d_out, qlo,
+                dact_code, None if dact_x is None else dact_x.data_ptr(), db, dc,
                 _DTYPE_CODES[g.dtype], stream)
     _build.check(rc, "hvc_conv3d_k3s2_dgrad")
-    conv3d_k3s2_dgrad.launches += 1
     return dx
 
 
-conv3d_k3s1_wgrad.launches = 0
-conv3d_k3s1_dgrad.launches = 0
-conv3d_k3s2_wgrad.launches = 0
-conv3d_k3s2_dgrad.launches = 0
+# ---------------------------------------------------------------- wrappers ---
+
+def _counter(kind: str, stride: int, dense: bool) -> str:
+    """The launch counter of a kernel: B-G for a dense call, H-K for a chain
+    call (module docstring)."""
+    return f"conv3d_k3s{stride}{'' if dense else '_chain'}{kind}"
+
+
+def _check_dense(x_shape, stride: int, qlo: int, d_out: int, want_sums: bool,
+                 act: Optional[str]) -> None:
+    """A dense call is the chain call over the whole volume: offset 1, every
+    output plane, no options."""
+    if qlo != 1 or d_out != (x_shape[2] - 1) // stride + 1 or want_sums or act is not None:
+        raise ValueError(f"a dense conv takes qlo 1, d_out ⌈D/{stride}⌉ and no options; got "
+                         f"x {tuple(x_shape)}, qlo {qlo}, d_out {d_out}, sums {want_sums}, "
+                         f"act {act}")
+
+
+def conv3d_k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+              qlo: int, d_out: int, want_sums: bool = False, act: Optional[str] = None, *,
+              dense: bool = False):
+    """The 3×3×3 conv of the chain contract (module docstring) → out
+    (B, Cout, d_out, ⌈H/S⌉, ⌈W/S⌉), or (out, s1, s2) with ``want_sums``.
+    Kernel B / C at stride 1 / 2 with ``dense`` (the padding-1 conv: qlo 1,
+    d_out ⌈D/S⌉, no options), H / I otherwise."""
+    if dense:
+        _check_dense(x.shape, stride, qlo, d_out, want_sums, act)
+    if x.device.type == "cpu":
+        return conv3d_k3_plain(x, w, bias, stride, qlo, d_out, want_sums, act)
+    res = _fwd(f"hvc_conv3d_k3s{stride}_fwd", stride, x, w, bias, qlo, d_out, want_sums, act)
+    LAUNCHES[_counter("", stride, dense)] += 1
+    return res
+
+
+def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: int, qlo: int,
+                    act: Optional[str] = None, *, dense: bool = False) -> torch.Tensor:
+    """dx (x's shape, g's dtype) of ``conv3d_k3(x, w, ·, stride, qlo, ...)``
+    for output gradient g, times act′(x) with ``act`` (x is read only then).
+    Stride 1: kernel B (``dense``) / H on g with channel-transposed,
+    tap-flipped weights, as ``conv3d_k3.py:650-652`` (dx plane p reads g
+    planes p + qlo − 2 + {0, 1, 2}, the vp=2 virtual padding of
+    ``conv3d_k3.py:714``). Stride 2: kernel F (``dense``) / J."""
+    if dense:
+        _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
+    if g.device.type == "cpu":
+        return conv3d_k3_dgrad_plain(g, w, x, stride, qlo, act)
+    _check_view("x", x, g.dtype, g.device)
+    dact = None if act is None else (act, x)
+    if x.shape[2] == 0:
+        return torch.empty(x.shape, dtype=g.dtype, device=g.device)
+    if stride == 1:
+        wt = w.transpose(0, 1).flip(2, 3, 4).contiguous()
+        dx = _fwd("hvc_conv3d_k3s1_fwd", 1, g, wt, None, 2 - qlo, x.shape[2], dact=dact)
+    else:
+        dx = _dgrad_s2(g, w, tuple(x.shape), qlo, dact=dact)
+    LAUNCHES[_counter("_dgrad", stride, dense)] += 1
+    return dx
+
+
+def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
+                    act: Optional[str] = None, *, dense: bool = False) -> torch.Tensor:
+    """dW (Cout, Cin, 3, 3, 3) fp32 of ``conv3d_k3(x, ·, ·, stride, qlo, ...)``
+    for output gradient g, the prologue replayed: kernel E / G at stride 1 / 2
+    with ``dense``, K otherwise."""
+    if dense:
+        _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
+    if x.device.type == "cpu":
+        return conv3d_k3_wgrad_plain(x, g, stride, qlo, act)
+    out = _wgrad(f"hvc_conv3d_k3s{stride}_wgrad", stride, x, g, qlo, act)
+    LAUNCHES[_counter("_wgrad", stride, dense)] += 1
+    return out
+
+
+# Kernel launches per counter since the last reset (ops.cuda.launch_counts).
+LAUNCHES = {_counter(kind, s, dense): 0
+            for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)}

@@ -7,8 +7,12 @@ full width) with weights from ``--seed``, feeds seeded X-rays
 (B, 2, 1, S, S) and a seeded CT volume (B, 1, 256, 256, 256) in [-1, 1], and
 runs one warm-up step and ``--steps`` timed steps of the step that
 ``stage_step`` builds for ``--stage``. ``--deterministic`` runs that step with
-``train=False`` (running statistics, no dropout). ``--profile`` runs one more
-step under ``torch.profiler`` and adds the device time of each kernel name.
+``train=False`` (running statistics, no dropout). ``--stage3-schedule dense``
+runs the stage-3 conv chains densely (``stage3_slab_scan`` off, eval schedule
+'train'), to set beside the config's streamed schedule. ``--profile`` runs
+one more step under ``torch.profiler`` and adds the device time of each
+kernel name; ``--memory`` profiles one more step's allocations and lists
+what is allocated at its peak, by the code that allocated it.
 Prints one JSON object (and writes it to ``--out`` if given). Needs a CUDA
 card; ``train_steps`` also runs on the CPU at a small config.
 """
@@ -76,15 +80,95 @@ def kernel_profile(fn, dev: torch.device) -> Dict:
             "top": [{"name": k, "ms": ms, "launches": n} for k, (ms, n) in kernels[:TOP_KERNELS]]}
 
 
+TOP_SITES = 15  # allocation sites a memory report lists
+
+
+def _alloc_site(parents) -> str:
+    """Where a block was allocated, from the profiler events that enclose its
+    allocation (outermost first): the innermost Python frame in this package,
+    the autograd node the engine was running (backward) and the innermost
+    aten op."""
+    frame = next((n for n in reversed(parents) if "hybrid_vit_cascade_tpu_torch/" in n), None)
+    node = next((n.split(": ", 1)[1] for n in reversed(parents)
+                 if n.startswith("autograd::engine::evaluate_function: ")), None)
+    op = next((n for n in reversed(parents) if n.startswith("aten::")), None)
+    parts = [frame.split("hybrid_vit_cascade_tpu_torch/", 1)[1] if frame else "-",
+             f"bwd {node}" if node else "fwd", op or "-"]
+    return " | ".join(parts)
+
+
+def memory_peak(fn, dev: torch.device) -> Dict:
+    """Run ``fn()`` once under torch.profiler with memory events and Python
+    frames; replay the card's allocations to the moment of the most memory
+    allocated and group the blocks live then by ``_alloc_site``. 'before the
+    step' is what was allocated when ``fn`` began and is still live (weights,
+    optimizer state, batch). (The allocator's own history recorder is not
+    used: with Python or C++ stacks it made Function.apply fail inside a
+    checkpoint's recompute, torch 2.11 on an H100.)"""
+    from torch._C._profiler import _EventType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], profile_memory=True,
+                 with_stack=True) as prof:
+        fn()
+        _sync(dev)
+    events = []  # (time, ptr, signed size, allocated after, site)
+    stack = [(root, ()) for root in prof.profiler.kineto_results.experimental_event_tree()]
+    while stack:
+        node, parents = stack.pop()
+        if node.typed[0] == _EventType.Allocation:
+            f = node.typed[1]
+            if f.device.type == "cuda":
+                events.append((node.start_time_ns, f.id, f.ptr, f.alloc_size, f.total_allocated,
+                               parents))
+        chain = parents + (node.name,)
+        stack.extend((c, chain) for c in node.children)
+    events.sort(key=lambda e: (e[0], e[1]))
+    peak_i = max(range(len(events)), key=lambda i: events[i][4]) if events else -1
+    live, freed_before = {}, 0
+    for _, _, ptr, size, _, parents in events[:peak_i + 1]:
+        if size > 0:
+            live[ptr] = (size, parents)
+        elif live.pop(ptr, None) is None:
+            freed_before -= size
+    sites = {"before the step": [before - freed_before, 0, {}]}
+    for size, parents in live.values():
+        entry = sites.setdefault(_alloc_site(parents), [0, 0, {}])
+        entry[0] += size
+        entry[1] += 1
+        entry[2][size] = entry[2].get(size, 0) + 1
+    top = sorted(sites.items(), key=lambda kv: -kv[1][0])[:TOP_SITES]
+    return {"peak_gb": events[peak_i][4] / 1e9 if events else None,
+            "max_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "before_gb": before / 1e9, "alloc_events": len(events), "peak_event": peak_i,
+            "at_peak": [{"site": k, "gb": b / 1e9, "blocks": n,
+                         "largest_blocks_gb": [[sz / 1e9, c] for sz, c in
+                                               sorted(sizes.items(), reverse=True)[:3]]}
+                        for k, (b, n, sizes) in top]}
+
+
+def use_dense_stage3(model: nn.Module) -> None:
+    """Run the stage-3 conv chains densely in every call: stage3_slab_scan
+    off and stage3_eval_schedule 'train' (the same weights; only the
+    schedule changes)."""
+    model.stage3.slab_scan = False
+    model.stage3.eval_schedule = "train"
+
+
 def train_steps(model: nn.Module, cfg, stage: int, batch_size: int, steps: int,
                 generator: torch.Generator, train: bool = True,
-                loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False) -> Dict:
+                loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False,
+                memory: bool = False) -> Dict:
     """One warm-up step and ``steps`` timed steps of stage ``stage`` on the
     model's device, on a batch drawn from ``generator`` (which also seeds
     dropout). Returns step times (ms, host clock around work that ends in a
     device sync), total_loss per step (warm-up first), peak memory (GB, CUDA
-    only), kernel launches of the warm-up step, and with ``profile`` the
-    kernel profile of one more step."""
+    only), kernel launches of the warm-up step, with ``profile`` the kernel
+    profile of one more step and with ``memory`` (CUDA only) what is
+    allocated at the peak of one more step."""
     dev = next(model.parameters()).device
     xs, top = cfg.data.xray_size, max(cfg.model.stage_sizes)
     batch = {"drr_stacked": torch.rand((batch_size, 2, 1, xs, xs), generator=generator,
@@ -115,6 +199,8 @@ def train_steps(model: nn.Module, cfg, stage: int, batch_size: int, steps: int,
         out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
     if profile:
         out["profile"] = kernel_profile(lambda: step(state, batch, generator), dev)
+    if memory:
+        out["memory"] = memory_peak(lambda: step(state, batch, generator), dev)
     return out
 
 
@@ -131,7 +217,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and dropout")
     ap.add_argument("--deterministic", action="store_true",
                     help="train=False: running statistics, no dropout")
+    ap.add_argument("--stage3-schedule", choices=("config", "dense"), default="config",
+                    help="the config's stage-3 chain schedule, or the dense one")
     ap.add_argument("--profile", action="store_true", help="profile one more step")
+    ap.add_argument("--memory", action="store_true",
+                    help="list what is allocated at the peak of one more step")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -141,14 +231,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cfg = Config.from_json(args.config)
     model = seeded_init_(build_model(cfg), args.seed).to(dev)
+    if args.stage3_schedule == "dense":
+        use_dense_stage3(model)
     loss_obj = MultiScaleLoss({f"stage{n}": getattr(cfg.loss, f"stage{n}") for n in (1, 2, 3)})
     g = torch.Generator(device=dev).manual_seed(args.seed + 10 + args.stage)
     res = train_steps(model, cfg, args.stage, args.batch, args.steps, g,
-                      train=not args.deterministic, loss_obj=loss_obj, profile=args.profile)
+                      train=not args.deterministic, loss_obj=loss_obj, profile=args.profile,
+                      memory=args.memory)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     res.update(stage=args.stage, batch=args.batch, train=not args.deterministic, card=card,
-               torch=torch.__version__)
+               stage3_schedule=args.stage3_schedule, torch=torch.__version__)
     text = json.dumps(res, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -15,6 +15,7 @@ import torch
 
 from hybrid_vit_cascade_tpu.config import Config as JaxConfig
 from hybrid_vit_cascade_tpu.models import ProgressiveCascadeModel as JaxCascade
+from hybrid_vit_cascade_tpu.models.cascade import Stage3Refiner256 as JaxStage3
 from hybrid_vit_cascade_tpu_torch import convert
 from hybrid_vit_cascade_tpu_torch.config import Config
 from hybrid_vit_cascade_tpu_torch.inference.infer import (
@@ -23,8 +24,10 @@ from hybrid_vit_cascade_tpu_torch.inference.infer import (
     denormalize_ct,
     save_checkpoint,
 )
-from hybrid_vit_cascade_tpu_torch.models.cascade import ProgressiveCascadeModel
+from hybrid_vit_cascade_tpu_torch.models import cascade as tcascade
+from hybrid_vit_cascade_tpu_torch.models.cascade import ProgressiveCascadeModel, Stage3Refiner256
 from tests.test_torch_models import jax_variables
+from tests.test_torch_slab import force_streaming
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 S1, S2, S3 = 8, 16, 32
@@ -132,3 +135,89 @@ def test_config_matches_jax(name):
         got = Config.from_json(str(CONFIGS / name)).to_dict()
     assert got == want
     assert Config.from_dict(got).to_dict() == got
+
+
+# ------------------------------------------------- stage-3 chain schedules ---
+
+S3_KW = dict(volume_size=(32, 32, 32), voxel_dim=32, vit_depth=1, num_heads=4,
+             xray_feature_dim=16)
+# the set-up of tests/test_slab.py:216-246: 'train' pins a train=False call to
+# the configured flags; the default 'auto' streams it with one slab
+S3_SCHEDULES = {"dense": dict(slab_scan=False, eval_schedule="train"),
+                "slab4": dict(slab_scan=True, slab_count=4, eval_schedule="train"),
+                "slab4_recompute": dict(slab_scan=True, slab_count=4, slab_impl="recompute",
+                                        eval_schedule="train"),
+                "auto": dict()}
+
+
+@pytest.fixture(scope="module")
+def stage3_setup():
+    rng = np.random.default_rng(3)
+    vol = rng.normal(0, 0.5, (1, 16, 16, 16, 1)).astype(np.float32)
+    feats = rng.standard_normal((1, 4, 4, 16)).astype(np.float32)
+    cond = rng.standard_normal((1, 1024)).astype(np.float32)
+    jm = JaxStage3(**S3_KW, attn_impl="xla", remat=False, **S3_SCHEDULES["dense"])
+    tree, jv = jax_variables(jm, rng, jnp.asarray(vol), jnp.asarray(feats), jnp.asarray(cond))
+    p = tree["params"]
+    trunk = dict(p["vit_trunk"])
+    sd = {"residual_weight": torch.from_numpy(p["residual_weight"]),
+          "detail_weight": torch.from_numpy(p["detail_weight"])}
+    sd.update(convert.vit3d(trunk.pop("vit_refiner"), "vit_trunk.vit_refiner."))
+    sd.update({f"vit_trunk.{k}": torch.from_numpy(v) for k, v in trunk.items()})
+    sd.update({f"detail_enhancer.{k}": torch.from_numpy(v)
+               for k, v in p["detail_enhancer"].items()})
+    return jv, sd, vol, feats, cond
+
+
+@pytest.mark.parametrize("schedule", sorted(S3_SCHEDULES))
+def test_stage3_refiner_schedules_match_jax(stage3_setup, monkeypatch, schedule):
+    """Stage3Refiner256 on each chain schedule against the JAX module on the
+    same one (train=False), the same weights: 2e-4. The streamed schedules
+    stream every level (no dense tail at this size, see force_streaming)."""
+    jv, sd, vol, feats, cond = stage3_setup
+    force_streaming(monkeypatch)
+    kw = S3_SCHEDULES[schedule]
+    jm = JaxStage3(**S3_KW, attn_impl="xla", remat=False, **kw)
+    want = np.moveaxis(np.asarray(jm.apply(jv, jnp.asarray(vol), jnp.asarray(feats),
+                                           jnp.asarray(cond))), -1, 1)
+    tm = Stage3Refiner256(**S3_KW, remat=False, **kw)
+    tm.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(np.moveaxis(vol, -1, 1)),
+                 torch.from_numpy(np.moveaxis(feats, -1, 1)), torch.from_numpy(cond)).numpy()
+    assert got.shape == want.shape == (1, 1, 32, 32, 32)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_build_model_follows_slab_flags(monkeypatch):
+    """configs/progressive_cascade.json trains stage 3 slab-streamed (8 slabs)
+    and every train=False call streams it with one slab, every endpoint
+    stored: both conv chains go through chain_apply_streamed with those
+    arguments, as in the JAX package."""
+    cfg = Config.from_json(str(CONFIGS / "progressive_cascade.json"))
+    m = cfg.model
+    assert (m.stage3_slab_scan, m.slab_count, m.slab_impl) == (True, 8, "streamed")
+    m.voxel_dim, m.xray_feature_dim, m.dtype = E, E, "float32"
+    m.stage_depths, m.stage_heads, m.stage_sizes = (1, 1, 1), (HEADS,) * 3, (S1, S2, S3)
+    model = build_model(cfg)
+    s3 = model.stage3
+    assert s3.eval_schedule == "auto"
+    assert s3._schedule(True) == (True, 8, "streamed", None)
+    assert s3._schedule(False) == (True, 1, "streamed", 0.0)
+
+    calls = []
+    real = tcascade.chain_apply_streamed
+
+    def spy(x, chain, num_slabs, **kw):
+        calls.append((num_slabs, kw.get("store_min_flops")))
+        return real(x, chain, num_slabs, **kw)
+
+    monkeypatch.setattr(tcascade, "chain_apply_streamed", spy)
+    xr = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, 1, XR, XR),
+                                                                   dtype=np.float32))
+    with torch.no_grad():
+        model(xr, max_stage=3)
+        assert calls == [(1, 0.0), (1, 0.0)]  # the trunk's chain, then the detail chain
+        calls.clear()
+        model(xr, max_stage=3, train=True, generator=torch.Generator().manual_seed(0))
+        assert calls == [(8, None), (8, None)]

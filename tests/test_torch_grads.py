@@ -97,9 +97,9 @@ def test_conv_grads_only_where_needed(rng):
     import hybrid_vit_cascade_tpu_torch.ops.conv3d as c3
 
     calls = []
-    orig = c3.conv3d_k3s2_dgrad
+    orig = c3.conv3d_k3_dgrad
     try:
-        c3.conv3d_k3s2_dgrad = lambda *a: calls.append(1) or orig(*a)
+        c3.conv3d_k3_dgrad = lambda *a, **k: calls.append(1) or orig(*a, **k)
         x = torch.from_numpy(_f32(rng, (1, 2, 4, 4, 4)))
         w = _leaf(_f32(rng, (3, 2, 3, 3, 3)))
         conv3d_ncdhw(x, w, None, 2).sum().backward()
@@ -108,7 +108,7 @@ def test_conv_grads_only_where_needed(rng):
         conv3d_ncdhw(xg, w.detach(), None, 2).sum().backward()
         assert xg.grad is not None and calls == [1]
     finally:
-        c3.conv3d_k3s2_dgrad = orig
+        c3.conv3d_k3_dgrad = orig
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

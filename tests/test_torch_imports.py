@@ -33,7 +33,7 @@ def _modules():
 def test_port_modules_found():
     names = set(_modules())
     for m in ("ops.cuda._build", "ops.cuda.flash_attention", "ops.cuda.conv3d_k3",
-              "ops.attention", "ops.chain", "ops.conv3d", "ops.pool", "ops.resize",
+              "ops.attention", "ops.slab", "ops.conv3d", "ops.pool", "ops.resize",
               "models.layers", "models.attention", "models.vit3d", "models.encoders",
               "models.cascade", "convert", "inference.infer", "ops.ssim", "ops.fft",
               "ops.drr", "losses.metrics", "losses.multiscale", "training.schedules",

@@ -11,15 +11,13 @@ import pytest
 import torch
 
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
+    LAUNCHES,
+    conv3d_k3,
+    conv3d_k3_dgrad,
     conv3d_k3_dgrad_plain,
     conv3d_k3_plain,
+    conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
-    conv3d_k3s1,
-    conv3d_k3s1_dgrad,
-    conv3d_k3s1_wgrad,
-    conv3d_k3s2,
-    conv3d_k3s2_dgrad,
-    conv3d_k3s2_wgrad,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
@@ -95,11 +93,12 @@ def test_conv_matches_plain(dev, dtype, stride, b, cin, cout, dhw):
     x = _randn((b, cin, *dhw), dtype, dev, 3)
     w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 4) / (27 * cin) ** 0.5).to(dtype)
     bias = _randn((cout,), torch.float32, dev, 5)
-    fn = conv3d_k3s1 if stride == 1 else conv3d_k3s2
-    before = fn.launches
-    got = fn(x, w, bias)
-    assert fn.launches == before + 1
-    want = conv3d_k3_plain(x, w, bias, stride)
+    d_out = (dhw[0] - 1) // stride + 1
+    counter = f"conv3d_k3s{stride}"
+    before = LAUNCHES[counter]
+    got = conv3d_k3(x, w, bias, stride, 1, d_out, dense=True)
+    assert LAUNCHES[counter] == before + 1
+    want = conv3d_k3_plain(x, w, bias, stride, 1, d_out)
     assert got.shape == want.shape and got.dtype == dtype
     _close(got, want, dtype)
 
@@ -108,7 +107,7 @@ def test_conv_rejects_mixed_dtype(dev):
     x = torch.zeros((1, 4, 4, 4, 4), device=dev, dtype=torch.bfloat16)
     w = torch.zeros((4, 4, 3, 3, 3), device=dev)
     with pytest.raises(TypeError):
-        conv3d_k3s1(x, w, None)
+        conv3d_k3(x, w, None, 1, 1, 4, dense=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -138,18 +137,58 @@ def test_conv_grads_match_plain(dev, dtype, stride, b, cin, cout, dhw):
     w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 7) / (27 * cin) ** 0.5).to(dtype)
     odhw = tuple((s - 1) // stride + 1 for s in dhw)
     g = _randn((b, cout, *odhw), dtype, dev, 8)
-    wgrad = conv3d_k3s1_wgrad if stride == 1 else conv3d_k3s2_wgrad
-    before = wgrad.launches
-    dw = wgrad(x, g)
-    assert wgrad.launches == before + 1 and dw.dtype == torch.float32
-    _close(dw, conv3d_k3_wgrad_plain(x, g, stride), dtype, GRAD_TOL)
-    if stride == 1:
-        before = conv3d_k3s1_dgrad.launches, conv3d_k3s1.launches
-        dx = conv3d_k3s1_dgrad(g, w)
-        assert (conv3d_k3s1_dgrad.launches, conv3d_k3s1.launches) == (before[0] + 1, before[1])
-    else:
-        before = conv3d_k3s2_dgrad.launches
-        dx = conv3d_k3s2_dgrad(g, w, x.shape)
-        assert conv3d_k3s2_dgrad.launches == before + 1
+    counters = [f"conv3d_k3s{stride}_wgrad", f"conv3d_k3s{stride}_dgrad", f"conv3d_k3s{stride}"]
+    before = [LAUNCHES[c] for c in counters]
+    dw = conv3d_k3_wgrad(x, g, stride, 1, dense=True)
+    assert dw.dtype == torch.float32
+    _close(dw, conv3d_k3_wgrad_plain(x, g, stride, 1), dtype, GRAD_TOL)
+    dx = conv3d_k3_dgrad(g, w, x, stride, 1, dense=True)
+    assert [LAUNCHES[c] for c in counters] == [before[0] + 1, before[1] + 1, before[2]]
     assert dx.shape == x.shape and dx.dtype == dtype
-    _close(dx, conv3d_k3_dgrad_plain(g, w, x.shape, stride), dtype)
+    _close(dx, conv3d_k3_dgrad_plain(g, w, x, stride, 1), dtype)
+
+
+# (B, Cin, Cout, (H, W), planes of x, slab plane of x's first plane, output planes)
+CHAIN_CASES = [(2, 3, 5, (6, 10), 4, 2, 5),    # x inside the slab: both ends read as zeros
+               (1, 8, 40, (5, 12), 6, 0, 4),   # x from slab plane 0, the back zeroed
+               (1, 64, 32, (8, 24), 7, 1, 7),  # the dense form (qlo 1, all planes)
+               (1, 1, 64, (16, 16), 9, 0, 8),  # one input channel; its dgrad has Cout 1
+               (1, 4, 8, (6, 6), 5, -1, 3)]    # x begins before the slab
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("act", [None, "gelu", "silu"])
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_chain_conv_matches_plain(dev, dtype, stride, act, case):
+    """Kernels H-K: the chain conv (window, prologue, Σ/Σ² epilogue), its data
+    gradient (act′ epilogue) and weight gradient (prologue replayed), on a
+    D-narrowed view as the slab bodies pass it."""
+    b, cin, cout, (h, w_), nv, qlo, d_out = case
+    x = _randn((b, cin, nv + 3, h, w_), dtype, dev, 9).narrow(2, 1, nv)
+    w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 10) / (27 * cin) ** 0.5).to(dtype)
+    bias = _randn((cout,), torch.float32, dev, 11)
+    counters = [f"conv3d_k3s{stride}_chain{k}" for k in ("", "_dgrad", "_wgrad")]
+    counters.append(f"conv3d_k3s{stride}")
+    before = [LAUNCHES[c] for c in counters]
+    out, s1, s2 = conv3d_k3(x, w, bias, stride, qlo, d_out, True, act)
+    want = conv3d_k3_plain(x, w, bias, stride, qlo, d_out, True, act)
+    assert out.shape == want[0].shape and out.dtype == dtype
+    _close(out, want[0], dtype)
+    # the epilogue's sums are those of the kernel's own rounded output
+    of = out.float()
+    for got_s, ref in ((s1, of.sum(dim=(2, 3, 4))), (s2, (of * of).sum(dim=(2, 3, 4)))):
+        assert got_s.dtype == torch.float32
+        bound = 1e-5 * (of.abs() if got_s is s1 else of * of).sum(dim=(2, 3, 4)) + 1e-5
+        assert bool(((got_s - ref).abs() <= bound).all()), float((got_s - ref).abs().max())
+    # no sums, same output
+    assert torch.equal(conv3d_k3(x, w, bias, stride, qlo, d_out, False, act), out)
+    g = _randn(tuple(out.shape), dtype, dev, 12)
+    dx = conv3d_k3_dgrad(g, w, x, stride, qlo, act)
+    assert dx.shape == x.shape and dx.dtype == dtype
+    _close(dx, conv3d_k3_dgrad_plain(g, w, x, stride, qlo, act), dtype)
+    dw = conv3d_k3_wgrad(x, g, stride, qlo, act)
+    _close(dw, conv3d_k3_wgrad_plain(x, g, stride, qlo, act), dtype, GRAD_TOL)
+    assert [LAUNCHES[c] for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1,
+                                               before[3]]
+

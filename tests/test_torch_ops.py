@@ -19,8 +19,8 @@ from hybrid_vit_cascade_tpu.ops.resize import resize_trilinear as jax_resize
 from hybrid_vit_cascade_tpu.ops.slab import conv3d_ncdhw as jax_conv3d
 from hybrid_vit_cascade_tpu_torch.ops.attention import dot_product_attention
 from hybrid_vit_cascade_tpu_torch.ops.conv3d import conv1x1_ncdhw, conv3d_ncdhw, group_norm_core
-from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
-from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import conv3d_k3s1, conv3d_k3s2
+from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, launch_counts
+from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import conv3d_k3
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
@@ -73,9 +73,9 @@ def test_conv3d_plain_matches_jax(rng, stride, b, cin, cout, dhw):
     bias = _f32(rng, (cout,))
     want = np.asarray(jax_conv3d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), stride,
                                  d_padding=1, hw_padding=1))
-    before = (conv3d_k3s1.launches, conv3d_k3s2.launches)
+    before = launch_counts()
     got = conv3d_ncdhw(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias), stride)
-    assert (conv3d_k3s1.launches, conv3d_k3s2.launches) == before  # CPU: plain version
+    assert launch_counts() == before  # CPU: plain version
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
@@ -138,10 +138,23 @@ def test_wrappers_refuse_other_devices():
         flash_attention_fwd(q, q, q, 1.0)
     x = torch.empty((1, 4, 4, 4, 4), device="meta")
     w = torch.empty((4, 4, 3, 3, 3), device="meta")
-    for fn in (conv3d_k3s1, conv3d_k3s2):
+    for stride in (1, 2):
         with pytest.raises(RuntimeError):
-            fn(x, w, None)
+            conv3d_k3(x, w, None, stride, 1, (4 - 1) // stride + 1, dense=True)
 
+
+
+def test_dense_conv_checks_the_contract():
+    """A call counted as a dense kernel (B-G) must be the padding-1 conv:
+    offset 1, every output plane, no options."""
+    x = torch.zeros((1, 4, 6, 4, 4))
+    w = torch.zeros((4, 4, 3, 3, 3))
+    for args in ((1, 0, 6), (1, 1, 5), (2, 1, 4)):
+        with pytest.raises(ValueError):
+            conv3d_k3(x, w, None, *args, dense=True)
+    with pytest.raises(ValueError):
+        conv3d_k3(x, w, None, 2, 1, 3, True, dense=True)
+    assert conv3d_k3(x, w, None, 2, 1, 3, dense=True).shape == (1, 4, 3, 2, 2)
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -48,6 +48,7 @@ from hybrid_vit_cascade_tpu_torch.training.trainer import (
     stage_step,
 )
 from tests.test_torch_models import jax_variables
+from tests.test_torch_slab import force_streaming
 
 S1, S2, S3 = 8, 16, 32
 XR, E, HEADS = 64, 32, 4
@@ -170,9 +171,17 @@ def _torch_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("stage", [1, 2, 3])
-def test_train_step_matches_jax(setup, stage):
+@pytest.mark.parametrize("stage,slab_count", [(1, None), (2, None), (3, None), (3, 4)],
+                         ids=["1", "2", "3", "3-slab4"])
+def test_train_step_matches_jax(setup, monkeypatch, stage, slab_count):
+    """slab_count: stage 3 with stage3_slab_scan on and that many slabs on
+    both sides, the eval schedule pinned to the training flags ('train'), so
+    the deterministic step streams its chains as a train=True step would
+    (every level streamed: no dense tail at this size, see force_streaming)."""
     jm, tree, jv, batch, jvgg, vgg = setup
+    if slab_count is not None:
+        force_streaming(monkeypatch)
+        jm = jm.clone(stage3_slab_scan=True, slab_count=slab_count, stage3_eval_schedule="train")
     res = (S1, S2, S3)[stage - 1]
     jobj = JaxLoss(perceptual=jvgg)
     xr = jnp.asarray(batch["drr_stacked"])
@@ -189,6 +198,10 @@ def test_train_step_matches_jax(setup, stage):
                                   "batch_stats": tree["batch_stats"]})
 
     cfg, model = _port_model(tree)
+    if slab_count is not None:
+        cfg, model = _port_model(tree, stage3_slab_scan=True, slab_count=slab_count)
+        model.stage3.eval_schedule = "train"
+        assert model.stage3._schedule(False) == (True, slab_count, "streamed", None)
     state, step = stage_step(model, cfg, stage,
                              MultiScaleLoss(perceptual=TriPlanarPerceptualLoss(weights=vgg)),
                              train=False)
