@@ -34,11 +34,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    end-to-end reconstruct time and volumes/s under the streamed (default) and
    the dense stage-3 schedule, in turns; each kernel beside its plain version
    at the main-path shapes.
-7. The gradient kernels — D (flash backward), E (stride-1 weight gradient),
-   F (stride-2 data gradient), G (stride-2 weight gradient) and kernel B run
-   as the stride-1 data gradient — against their plain versions at every
-   shape the three training stages give them (and ragged small shapes), in
-   bf16 and fp32, with kernel and plain times at the training shapes.
+7. The gradient kernels — D (flash backward), L and M (the split flash
+   backward: dq, then dk and dv), E (stride-1 weight gradient), F (stride-2
+   data gradient), G (stride-2 weight gradient) and kernel B run as the
+   stride-1 data gradient — against their plain versions at every shape the
+   three training stages give them (and ragged small shapes), in bf16 and
+   fp32, with kernel and plain times at the training shapes; two runs of L
+   and of M at the stage-3 shape agree bitwise (no atomics).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -59,6 +61,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the port's dense chain on the card: values and the gradients of the input
    and every chain array within 2e-4, the absolute part scaled by the
    largest |want|.
+11. The training entry point: ``cli.main(["train", "--config", <copy>])``
+   in this process, on the card, on a copy of ``configs/quality_r5.json``
+   (frozen shared encoder, split stage-3 step; widths, batches, schedule and
+   losses the config's) with one epoch per stage, 11 synthetic 256³ patients
+   (8 train, 1 val), no visualization and ``save_dir`` under ``build/``,
+   with the split flash backward selected (``ops.attention.FUSED_BWD =
+   False``, what ``HVC_FLASH_FUSED_BWD=0`` selects). Checks: D never
+   launched, L and M launched in every stage, every stage's ``latest`` and
+   ``best_*`` written, finite losses, the shared encoder's parameters and
+   BatchNorm buffers at ``stage3/latest`` bitwise those at ``stage2/latest``
+   while stage 3 moved; the same command again skips every stage (resume);
+   ``InferenceEngine(<save_dir>/stage3/best_psnr)`` reconstructs a volume.
+   Prints each stage's wall time and median step time.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -67,7 +82,8 @@ the larger of the bytes it must move over 3.35 TB/s and its operations over
 PyTorch call that computes the same function (library_ms: cuDNN convolution
 or its weight/data gradient, scaled_dot_product_attention forward or
 backward), all in bf16 at the kernel's hot shape; launches are those of the
-main path: the reconstruct [4] plus the first step of each stage in [9].
+main path: the reconstruct [4], the first step of each stage in [9] and the
+training run of [11] (the only one that takes L and M).
 
 cuDNN and cuBLAS run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 are set False), so the fp32 plain
@@ -81,6 +97,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -91,6 +108,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "progressive_cascade.json"
+TRAIN_CONFIG = ROOT / "configs" / "quality_r5.json"  # what the JAX package trained round 5 with
 BUILD_DIR = ROOT / "build"
 CKPT_DIR = BUILD_DIR / "smoke"
 
@@ -160,14 +178,31 @@ _S2_GRAD_SHAPES = [(8, 1, 64, (64, 64, 64)), (8, 64, 128, (32, 32, 32)),
                    (2, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
                    (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))]
 _RAGGED_CONV = [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))]
+# (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross
+_FLASH_TRAIN_SHAPES = [(32, 4096, 4096, 64), (32, 4096, 256, 64), (16, 4096, 4096, 32),
+                       (16, 4096, 1024, 32), (8, 32768, 32768, 32), (8, 32768, 4096, 32)]
+_FLASH_RAGGED = [(3, 200, 77, 32), (3, 200, 77, 64)]
+_SDPA_BWD = "scaled_dot_product_attention backward: dq, dk and dv together"
 TRAIN_KERNELS = {
     "flash_attention_bwd": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py:399",
-        # (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross
-        "shapes": [(32, 4096, 4096, 64), (32, 4096, 256, 64), (16, 4096, 4096, 32),
-                   (16, 4096, 1024, 32), (8, 32768, 32768, 32), (8, 32768, 4096, 32)],
-        "ragged": [(3, 200, 77, 32), (3, 200, 77, 64)],
+        "shapes": _FLASH_TRAIN_SHAPES,
+        "ragged": _FLASH_RAGGED,
+        "hot": (8, 32768, 32768, 32),
+    },
+    "flash_attention_bwd_dq": {  # L: dq of the split backward
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py:280",
+        "shapes": _FLASH_TRAIN_SHAPES,
+        "ragged": _FLASH_RAGGED,
+        "hot": (8, 32768, 32768, 32),
+    },
+    "flash_attention_bwd_dkv": {  # M: dk and dv of the split backward
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention_bwd_split.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py:301",
+        "shapes": _FLASH_TRAIN_SHAPES,
+        "ragged": _FLASH_RAGGED,
         "hot": (8, 32768, 32768, 32),
     },
     "conv3d_k3s1_wgrad": {
@@ -388,7 +423,7 @@ def _train_inputs(name: str, shape, dtype, dev, seed: int):
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    if name == "flash_attention_bwd":
+    if name.startswith("flash_attention_bwd"):
         bh, nq, nk, d = shape
         q, dout = (torch.randn((bh, nq, d), generator=g, device=dev).to(dtype) for _ in range(2))
         k, v = (torch.randn((bh, nk, d), generator=g, device=dev).to(dtype) for _ in range(2))
@@ -411,6 +446,11 @@ def _train_fns(name: str):
 
     if name == "flash_attention_bwd":
         return fa.flash_attention_bwd, fa.flash_attention_bwd_plain
+    if name == "flash_attention_bwd_dq":
+        return (lambda *a: (fa.flash_attention_bwd_dq(*a),),
+                lambda *a: (fa.flash_attention_bwd_plain(*a)[0],))
+    if name == "flash_attention_bwd_dkv":
+        return fa.flash_attention_bwd_dkv, lambda *a: fa.flash_attention_bwd_plain(*a)[1:]
     s = 2 if "s2" in name else 1
     if name.endswith("dgrad"):
         return (lambda g, w, x: ck.conv3d_k3_dgrad(g, w, x, s, 1, dense=True),
@@ -519,6 +559,12 @@ def bound(name: str, shape, itemsize: int = 2):
         if name == "flash_attention":  # q, k, v in; out, lse out
             flops = 4.0 * bh * nq * nk * d
             nbytes = itemsize * (2 * bh * nq * d + 2 * bh * nk * d) + 4 * bh * nq
+        elif name == "flash_attention_bwd_dq":  # q, k, v, out, dout, lse in; dq out
+            flops = 6.0 * bh * nq * nk * d
+            nbytes = itemsize * (4 * bh * nq * d + 2 * bh * nk * d) + 4 * bh * nq
+        elif name == "flash_attention_bwd_dkv":  # q, k, v, out, dout, lse in; dk, dv out
+            flops = 8.0 * bh * nq * nk * d
+            nbytes = itemsize * (3 * bh * nq * d + 4 * bh * nk * d) + 4 * bh * nq
         else:  # q, k, v, out, dout, lse in; dq, dk, dv out
             flops = 10.0 * bh * nq * nk * d
             nbytes = itemsize * (4 * bh * nq * d + 4 * bh * nk * d) + 4 * bh * nq
@@ -782,6 +828,174 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     return out
 
 
+def split_bitwise(dev, seed: int) -> dict:
+    """Phase 7d: two runs of L and of M at the stage-3 self-attention shape in
+    fp32 give the same bits; D's dq is shown beside, for information (its
+    atomics add in launch order)."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+    shape = (8, 32768, 32768, 32)
+    args = _train_inputs("flash_attention_bwd", shape, torch.float32, dev, seed)
+    runs = {"flash_attention_bwd_dq": lambda: (fa.flash_attention_bwd_dq(*args),),
+            "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(*args),
+            "flash_attention_bwd": lambda: fa.flash_attention_bwd(*args)}
+    out = {}
+    for name, fn in runs.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        out[name] = {"bitwise_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
+                     "max_abs_diff": max(float((x - y).abs().max()) for x, y in zip(a, b))}
+        log(f"[7] {name:24s} {shape} fp32, two runs: bitwise equal "
+            f"{out[name]['bitwise_equal']}, max |diff| {out[name]['max_abs_diff']:.3e}")
+        del a, b
+    if not (out["flash_attention_bwd_dq"]["bitwise_equal"]
+            and out["flash_attention_bwd_dkv"]["bitwise_equal"]):
+        raise AssertionError(f"[7] the split backward is not deterministic: {out}")
+    return out
+
+
+# ----------------------------------------------------- training entry point ---
+
+def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
+    """Phase 11: ``cli train`` on a copy of configs/quality_r5.json with the
+    split flash backward, then resume, then serve from its checkpoint."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.inference.infer import InferenceEngine
+    from hybrid_vit_cascade_tpu_torch.ops import attention
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training import trainer as trainer_mod
+    from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry
+
+    t_phase = time.perf_counter()
+    cfg = json.loads(TRAIN_CONFIG.read_text())
+    save_dir = BUILD_DIR / "cli_train"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    overrides = {**{f"training.stages.stage{n}.num_epochs": 1 for n in (1, 2, 3)},
+                 "data.synthetic_patients": 11, "training.viz_every": 0,
+                 "checkpoints.save_dir": str(save_dir)}
+    for key, value in overrides.items():
+        *path, leaf = key.split(".")
+        node = cfg
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    copy = BUILD_DIR / "quality_r5_smoke.json"
+    copy.write_text(json.dumps(cfg, indent=1))
+    log(f"[11] cli train on {copy.relative_to(ROOT)}, a copy of {TRAIN_CONFIG.relative_to(ROOT)} "
+        f"with {overrides}; widths, batches, schedule and losses are the config's "
+        f"(freeze_shared_encoder_stage3 {cfg['training']['freeze_shared_encoder_stage3']}, "
+        f"stage3_split_step {cfg['training']['stage3_split_step']})")
+
+    # per stage: launches and wall time of its epoch loop, time of each step
+    current, per_stage, step_ms = {}, {}, {}
+    real_stage_step, real_run = trainer_mod.stage_step, trainer_mod.Trainer._run_epochs
+
+    def timed_stage_step(model, cfg_, stage, *a, **kw):
+        state, step = real_stage_step(model, cfg_, stage, *a, **kw)
+        current["stage"] = stage
+        times = step_ms.setdefault(stage, [])
+
+        def timed(state, batch, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return res
+        return state, timed
+
+    def counted_run(self, *a, **kw):
+        before, t0 = launch_counts(), time.perf_counter()
+        res = real_run(self, *a, **kw)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_stage[current["stage"]] = {"wall_s": time.perf_counter() - t0,
+                                       "launches": {k: after[k] - before[k] for k in after}}
+        return res
+
+    attention.FUSED_BWD = False
+    trainer_mod.stage_step, trainer_mod.Trainer._run_epochs = timed_stage_step, counted_run
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["train", "--config", str(copy)])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launched = launch_counts()
+    finally:
+        attention.FUSED_BWD = True
+        trainer_mod.stage_step, trainer_mod.Trainer._run_epochs = real_stage_step, real_run
+    torch.cuda.empty_cache()
+    for n in (1, 2, 3):
+        r, ms = per_stage[n], step_ms[n]
+        lc = {k: v for k, v in r["launches"].items() if v}
+        log(f"[11] stage {n}: wall {r['wall_s']:.1f} s (epoch loop, data and checkpoints "
+            f"included); {len(ms)} steps, median {statistics.median(ms):.1f} ms "
+            f"({', '.join(f'{t:.1f}' for t in ms)}); launches {lc}")
+        if r["launches"]["flash_attention_bwd"] or not (r["launches"]["flash_attention_bwd_dq"]
+                                                        and r["launches"]["flash_attention_bwd_dkv"]):
+            raise AssertionError(f"[11] stage {n} did not take the split backward: {lc}")
+    split3 = statistics.median(step_ms[3])
+    log(f"[11] split stage-3 step (frozen encoder, L + M) median {split3:.1f} ms beside [9]'s "
+        f"stage-3 step (trained encoder, D) {fused_stage3_ms:.1f} ms (information only)")
+    if launched["flash_attention_bwd"]:
+        raise AssertionError(f"[11] kernel D launched under FUSED_BWD=False: {launched}")
+
+    rows = [json.loads(line) for line in (save_dir / "training_log.jsonl").read_text().splitlines()]
+    for n in (1, 2, 3):
+        d = save_dir / f"stage{n}"
+        missing = [e for e in ("latest", "latest_opt", "best_loss", "best_psnr", "best_ssim")
+                   if not (d / e / "checkpoint.pt").is_file()]
+        if missing:
+            raise AssertionError(f"[11] stage {n}: no {missing} under {d}")
+    losses = {r["phase"]: [r["train_loss"], r["loss"], r["psnr"], r["ssim"]] for r in rows}
+    log(f"[11] per stage [train loss, val loss, val psnr, val ssim]: {losses}")
+    if sorted(losses) != ["stage1", "stage2", "stage3"] or not all(
+            math.isfinite(v) for vals in losses.values() for v in vals):
+        raise AssertionError(f"[11] expected finite losses of three stages: {losses}")
+    s2 = load_entry(save_dir / "stage2" / "latest")[0]["state_dict"]
+    s3 = load_entry(save_dir / "stage3" / "latest")[0]["state_dict"]
+    enc = [k for k in s2 if k.startswith("xray_encoder.")]
+    changed = [k for k in enc if not torch.equal(s2[k], s3[k])]
+    moved = [k for k in s2 if k.startswith("stage3.") and not torch.equal(s2[k], s3[k])]
+    log(f"[11] shared encoder at stage3/latest vs stage2/latest: {len(enc)} tensors "
+        f"({sum('running' in k for k in enc)} BatchNorm running statistics), {len(changed)} "
+        f"differ; stage-3 tensors that moved: {len(moved)}")
+    if changed or not enc or not moved:
+        raise AssertionError(f"[11] encoder changed {changed[:5]} or stage 3 did not move")
+    del s2, s3
+
+    n_rows = len(rows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "--config", str(copy)])
+    resume_s = time.perf_counter() - t0
+    again = launch_counts()
+    n_after = len((save_dir / "training_log.jsonl").read_text().splitlines())
+    log(f"[11] the same command again: {resume_s:.1f} s, {n_after - n_rows} epochs run, "
+        f"launches {({k: v for k, v in again.items() if v})}")
+    if n_after != n_rows or any(again.values()):
+        raise AssertionError("[11] resume did not skip every completed stage")
+
+    engine = InferenceEngine(save_dir / "stage3" / "best_psnr", device=dev)
+    xs = cfg["data"]["xray_size"]
+    xr = torch.rand((1, 2, 1, xs, xs), generator=torch.Generator().manual_seed(seed + 4)) * 2 - 1
+    vol = engine.reconstruct(xr)
+    torch.cuda.synchronize()
+    ok = tuple(vol.shape) == (1, 1, 256, 256, 256) and bool(torch.isfinite(vol.float()).all())
+    log(f"[11] InferenceEngine(stage3/best_psnr) reconstruct: {tuple(vol.shape)} {vol.dtype} "
+        f"finite {ok}")
+    if not ok:
+        raise AssertionError("[11] the trained checkpoint does not serve a finite 256³ volume")
+    del engine, vol
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[11] phase time {phase_s:.1f} s (train {train_s:.1f} s, resume {resume_s:.1f} s)")
+    return {"launches": launched, "per_stage": per_stage, "step_ms": step_ms,
+            "split_stage3_median_ms": split3, "fused_stage3_median_ms": fused_stage3_ms,
+            "losses": losses, "train_s": train_s, "resume_s": resume_s, "phase_s": phase_s}
+
+
 # ------------------------------------------------------------------ slice ---
 
 def main() -> int:
@@ -948,6 +1162,8 @@ def main() -> int:
     worst.update(check_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns,
                                scaled=True))
     rows.update(time_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns))
+    record["split_bitwise"] = split_bitwise(dev, args.seed)
+    torch.cuda.empty_cache()
     log("[7] chain kernels H-K, bf16 times")
     rows.update(time_chain_kernels(dev, args.seed))
     record["max_abs_err"] = worst
@@ -960,11 +1176,17 @@ def main() -> int:
     record["train"] = train_full_width(cfg, dev, args.seed)
     torch.cuda.empty_cache()
     record["chains"] = chain_phase(dev, args.seed)
+    torch.cuda.empty_cache()
 
-    # launches on the main path: the reconstruct [4] and the first step of
-    # each stage in [9], each counted from 0
+    # 11. the training entry point
+    record["train_entry_point"] = train_entry_point(
+        dev, args.seed, statistics.median(record["train"]["stage3"]["step_ms"]))
+
+    # launches on the main path: the reconstruct [4], the first step of each
+    # stage in [9] and the cli train run of [11], each counted from 0
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
-                                          for k, v in record["train"].items()}}
+                                          for k, v in record["train"].items()},
+              "cli_train": record["train_entry_point"]["launches"]}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
@@ -976,6 +1198,8 @@ def main() -> int:
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms(name, spec["hot"], dev, args.seed),
                         "at": f"{spec['hot']} bf16", "launches_by_run": runs})
+        if name.startswith("flash_attention_bwd"):
+            kernels[-1]["library_call"] = _SDPA_BWD
         log(f"  {name:24s} {ms:9.3f} ms  plain {plain_ms:9.3f}  bound {b_ms:8.3f} ({b_by})  "
             f"library {kernels[-1]['library_ms']:9.3f}  launches {runs}")
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]

@@ -4,7 +4,8 @@ hybrid_vit_cascade_tpu/config.py).
 The same dataclass tree, defaults and JSON round-trip as the JAX package's
 ``Config``, so one JSON file or checkpoint ``config`` dict loads into either
 package; the port imports this one and never the JAX package. Field comments
-are in the JAX module.
+are in the JAX module. ``validate_config`` and ``data_volume_size`` are the
+JAX module's too.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Optional, Tuple
+
+MODEL_FAMILIES = ("direct_vit", "cascade", "direct128_h200", "direct256_h200",
+                  "direct256_b200", "diffusion")
 
 
 @dataclass
@@ -182,3 +186,36 @@ def _build_training(src: dict) -> TrainingConfig:
     if stages:
         t.stages = stages
     return t
+
+
+def validate_config(cfg: Config) -> None:
+    """Schema and consistency checks (the JAX ``validate_config``)."""
+    if cfg.model.family not in MODEL_FAMILIES:
+        raise ValueError(f"unknown model family {cfg.model.family!r}; expected one of "
+                         f"{MODEL_FAMILIES}")
+    if cfg.model.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be float32|bfloat16, got {cfg.model.dtype}")
+    if cfg.model.slab_impl not in ("streamed", "recompute"):
+        raise ValueError(f"slab_impl must be streamed|recompute, got {cfg.model.slab_impl}")
+    if cfg.model.remat_mode not in ("block", "mlp"):
+        raise ValueError(f"remat_mode must be block|mlp, got {cfg.model.remat_mode}")
+    if cfg.model.family == "cascade":
+        for name in ("stage1", "stage2", "stage3"):
+            if name not in cfg.training.stages:
+                raise ValueError(f"cascade training requires stages stage1..3; missing {name}")
+    if not cfg.data.synthetic and not cfg.data.dataset_path:
+        raise ValueError("data.dataset_path required unless data.synthetic=true")
+
+
+def data_volume_size(cfg: Config) -> Tuple[int, int, int]:
+    """The dataset's target volume size: the top resolution any part of the
+    model trains or evaluates against (the cascade's last stage size)."""
+    m = cfg.model
+    if m.family == "cascade":
+        top = max(m.stage_sizes)
+        return (top, top, top)
+    if m.family.startswith("direct128"):
+        return (128, 128, 128)
+    if m.family.startswith("direct256"):
+        return (256, 256, 256)
+    return tuple(m.volume_size)

@@ -3,9 +3,11 @@ hybrid_vit_cascade_tpu/inference/infer.py:27-33, 111-160, and of the cascade
 branch of ``build_model`` in hybrid_vit_cascade_tpu/training/trainer.py).
 
 A checkpoint is one ``torch.save`` file holding
-``{"config": Config.to_dict(), "state_dict": model.state_dict()}`` — the
-port's counterpart of an Orbax directory plus its ``meta.json``.
-Evaluation, NIfTI/PNG export and the raw X-ray-pair loader are not ported
+``{"config": Config.to_dict(), "state_dict": model.state_dict()}``, or an
+entry directory that training wrote (``training/checkpoint.py``, e.g.
+``save_dir/stage3/best_psnr``: the state dict in ``checkpoint.pt``, the
+config in ``meta.json``) — the port's counterparts of an Orbax directory
+plus its ``meta.json``. Evaluation, NIfTI/PNG export and the raw X-ray-pair loader are not ported
 yet.
 """
 
@@ -19,6 +21,7 @@ import torch
 
 from ..config import Config
 from ..models.cascade import ProgressiveCascadeModel
+from ..training.checkpoint import load_entry
 
 _STAGE_PREFIXES = {1: ("xray_encoder.", "stage2.", "stage3."), 2: ("stage3.",), 3: ()}
 
@@ -53,6 +56,16 @@ def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> No
     torch.save({"config": cfg.to_dict(), "state_dict": state}, str(path))
 
 
+def load_checkpoint(path: str | Path) -> tuple[dict, dict]:
+    """(config dict, state dict) of a checkpoint file or entry directory."""
+    path = Path(path)
+    if path.is_dir():
+        tree, meta = load_entry(path)
+        return meta.get("config", {}), tree["state_dict"]
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    return ckpt["config"], ckpt["state_dict"]
+
+
 class InferenceEngine:
     """Load a checkpoint (+ embedded config) and reconstruct volumes.
 
@@ -62,12 +75,12 @@ class InferenceEngine:
 
     def __init__(self, checkpoint_path: str | Path, config: Optional[Config] = None,
                  device: str | torch.device = "cuda", max_stage: int = 3):
-        ckpt = torch.load(str(checkpoint_path), map_location="cpu", weights_only=True)
-        self.cfg = config if config is not None else Config.from_dict(ckpt["config"])
+        cfg_dict, state = load_checkpoint(checkpoint_path)
+        self.cfg = config if config is not None else Config.from_dict(cfg_dict)
         self.device = torch.device(device)
         self.max_stage = max_stage
         model = build_model(self.cfg, built_stages=max_stage)
-        state = dict(ckpt["state_dict"])
+        state = dict(state)
         extra = [k for k in state if k not in model.state_dict()]
         pruned = _STAGE_PREFIXES[max_stage]
         bad = [k for k in extra if not k.startswith(pruned)]

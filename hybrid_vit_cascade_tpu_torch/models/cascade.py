@@ -323,11 +323,19 @@ class ProgressiveCascadeModel(nn.Module):
 
     def forward(self, xrays: torch.Tensor, return_intermediate: bool = False,
                 max_stage: int = 3, train: bool = False, stop_grad_stage1: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                stage2_volume: torch.Tensor | None = None):
         """train: batch-statistics BatchNorm (running statistics updated) and
-        dropout seeded from ``generator``, which it then requires."""
+        dropout seeded from ``generator``, which it then requires.
+
+        stage2_volume: a precomputed (B, 1, s2, s2, s2) stage-2 output; with
+        it (and max_stage=3) stages 1-2 are skipped, the shared encoder runs
+        only for stage 3 and stage 3 refines this volume (the JAX module's
+        argument, which the trainer's split stage-3 step feeds)."""
         if not 1 <= max_stage <= self.built_stages:
             raise ValueError(f"max_stage {max_stage} outside the built stages 1..{self.built_stages}")
+        if stage2_volume is not None and max_stage < 3:
+            raise ValueError("stage2_volume requires max_stage=3")
         seed = None
         if train:
             if generator is None:
@@ -335,16 +343,19 @@ class ProgressiveCascadeModel(nn.Module):
                                  "pass generator=")
             seed = int(torch.randint(0, 1 << 62, (1,), generator=generator,
                                      device=generator.device))
-        cut = stop_grad_stage1 and max_stage >= 2
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not cut):
-            vol64 = self.stage1(xrays, train, seed)
-        outputs = {"stage1": vol64.detach() if cut else vol64}
-        if max_stage >= 2:
-            feats2, cond, _ = self.xray_encoder(xrays, stage=2, train=train)
-            outputs["stage2"] = self.stage2(outputs["stage1"], feats2, cond, seed)
+        outputs = {}
+        if stage2_volume is None:
+            cut = stop_grad_stage1 and max_stage >= 2
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not cut):
+                vol64 = self.stage1(xrays, train, seed)
+            outputs["stage1"] = vol64.detach() if cut else vol64
+            if max_stage >= 2:
+                feats2, cond, _ = self.xray_encoder(xrays, stage=2, train=train)
+                outputs["stage2"] = self.stage2(outputs["stage1"], feats2, cond, seed)
         if max_stage >= 3:
+            vol128 = outputs["stage2"] if stage2_volume is None else stage2_volume
             feats3, cond, _ = self.xray_encoder(xrays, stage=3, train=train)
-            outputs["stage3"] = self.stage3(outputs["stage2"], feats3, cond, seed, train)
+            outputs["stage3"] = self.stage3(vol128, feats3, cond, seed, train)
         if return_intermediate:
             return outputs
         return outputs[f"stage{max_stage}"]

@@ -14,7 +14,8 @@ from typing import Dict
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per counter since the last reset: flash_attention (A),
-    flash_attention_bwd (D), and the conv counters conv3d_k3s{1,2} (B, C),
+    flash_attention_bwd (D), flash_attention_bwd_dq (L),
+    flash_attention_bwd_dkv (M), and the conv counters conv3d_k3s{1,2} (B, C),
     conv3d_k3s1_dgrad (B as the stride-1 data gradient), conv3d_k3s2_dgrad
     (F), conv3d_k3s{1,2}_wgrad (E, G) and their ``_chain`` forms (H, I; H as
     the stride-1 data gradient, J; K)."""
@@ -22,13 +23,17 @@ def launch_counts() -> Dict[str, int]:
     from . import flash_attention as fa
 
     return {"flash_attention": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches, **ck.LAUNCHES}
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches, **ck.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from . import conv3d_k3 as ck
     from . import flash_attention as fa
 
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        fn.launches = 0
     for name in ck.LAUNCHES:
         ck.LAUNCHES[name] = 0

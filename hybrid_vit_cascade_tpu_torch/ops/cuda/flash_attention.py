@@ -1,16 +1,21 @@
-"""Kernels A and D: flash attention forward (``csrc/flash_attention.cu``)
-and backward (``csrc/flash_attention_bwd.cu``).
+"""Kernels A, D, L and M: flash attention forward (``csrc/flash_attention.cu``),
+fused backward (``csrc/flash_attention_bwd.cu``) and split backward
+(``csrc/flash_attention_bwd_split.cu``).
 
 Counterparts of ``hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py``:
-``_flash_fwd_padded`` (kernel body ``_fwd_kernel``) and the fused backward
-``_bwd_pallas_fused`` (kernel body ``_bwd_fused_kernel``). The split backward
-(``_bwd_pallas``) is not ported yet.
+``_flash_fwd_padded`` (kernel body ``_fwd_kernel``), the fused backward
+``_bwd_pallas_fused`` (kernel body ``_bwd_fused_kernel``) and the split
+backward ``_bwd_pallas`` (kernel bodies ``_bwd_dq_kernel``, L here, and
+``_bwd_dkv_kernel``, M here), which the JAX package runs when
+``HVC_FLASH_FUSED_BWD=0`` (``ops/attention.py`` picks between D and L+M).
 
-``flash_attention_fwd`` and ``flash_attention_bwd`` launch the CUDA kernel
-for tensors on a CUDA device and run ``flash_attention_plain`` /
-``flash_attention_bwd_plain`` for tensors on the CPU; for any other device
+``flash_attention_fwd``, ``flash_attention_bwd``, ``flash_attention_bwd_split``
+and its halves ``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` launch
+the CUDA kernels for tensors on a CUDA device and run ``flash_attention_plain``
+/ ``flash_attention_bwd_plain`` for tensors on the CPU; for any other device
 they raise. They never fall back from the kernel to the plain version. Each
-counts its kernel launches in ``.launches``.
+kernel counts its launches in the ``.launches`` of its wrapper (L in
+``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s).
 """
 
 from __future__ import annotations
@@ -141,15 +146,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                        lse: torch.Tensor, dout: torch.Tensor,
-                        scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
-    gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
-    dtype (fp32 or bf16), d ∈ {32, 64}; lse (BH, Nq) fp32, natural log.
-    Returns (dq, dk, dv) in q's dtype."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+               lse: torch.Tensor, dout: torch.Tensor) -> None:
+    """What the backward kernels take, for tensors that are not on the CPU."""
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
     _check(q, k, v)
@@ -161,6 +160,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if lse.dtype != torch.float32 or lse.shape != q.shape[:2] or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {tuple(q.shape[:2])}, got "
                          f"{lse.dtype} {tuple(lse.shape)}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
+    gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
+    dtype (fp32 or bf16), d ∈ {32, 64}; lse (BH, Nq) fp32, natural log.
+    Returns (dq, dk, dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    _check_bwd(q, k, v, out, lse, dout)
     bh, nq, d = q.shape
     nk = k.shape[1]
     delta = _delta(out, dout)
@@ -178,3 +189,82 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 
 
 flash_attention_bwd.launches = 0
+
+
+# kernel L: q, k, v, dout, lse, delta, dq; M: the same with dk, dv in dq's place
+_DQ_ARGTYPES = _BWD_ARGTYPES[:7] + _BWD_ARGTYPES[9:]
+_DKV_ARGTYPES = _BWD_ARGTYPES[:8] + _BWD_ARGTYPES[9:]
+
+
+def _launch_split(name: str, argtypes, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, outs,
+                  scale: float) -> None:
+    """Launch kernel L or M (C entry point ``name``) on the current stream,
+    writing into the tensors of ``outs``."""
+    bh, nq, d = q.shape
+    fn = _build.function(name, argtypes)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), *(t.data_ptr() for t in outs), bh, nq, k.shape[1], d,
+                _DTYPE_CODES[q.dtype], float(scale), stream)
+    _build.check(rc, name)
+
+
+def _bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
+    dq = torch.empty_like(q)
+    _launch_split("hvc_flash_attention_bwd_dq", _DQ_ARGTYPES, q, k, v, dout, lse, delta, (dq,),
+                  scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def _bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_split("hvc_flash_attention_bwd_dkv", _DKV_ARGTYPES, q, k, v, dout, lse, delta,
+                  (dk, dv), scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                           lse: torch.Tensor, dout: torch.Tensor, scale: float) -> torch.Tensor:
+    """Kernel L alone: dq of ``flash_attention_fwd``, in q's dtype; arguments
+    as ``flash_attention_bwd``. One block per 128 query rows sweeps every key,
+    so each dq row is written once."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[0]
+    _check_bwd(q, k, v, out, lse, dout)
+    return _bwd_dq(q, k, v, dout, lse, _delta(out, dout), scale)
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor,
+                            scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel M alone: (dk, dv) of ``flash_attention_fwd``, in q's dtype;
+    arguments as ``flash_attention_bwd``. One block per 64 keys sweeps every
+    query, so each dk and dv row is written once."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[1:]
+    _check_bwd(q, k, v, out, lse, dout)
+    return _bwd_dkv(q, k, v, dout, lse, _delta(out, dout), scale)
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                              scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split backward: the function of ``flash_attention_bwd`` from kernel
+    L (dq) then kernel M (dk, dv), with delta computed once. No atomics: the
+    result does not depend on the order in which blocks run."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    _check_bwd(q, k, v, out, lse, dout)
+    delta = _delta(out, dout)
+    dq = _bwd_dq(q, k, v, dout, lse, delta, scale)
+    return (dq, *_bwd_dkv(q, k, v, dout, lse, delta, scale))

@@ -34,7 +34,9 @@ From JAX to here:
   ``_slice_slab_flat`` / ``_group_sums_flat`` have no counterpart.
 - The environment switches become keywords with the JAX defaults:
   ``HVC_ACT_FUSE`` (off) → ``act_fuse=False``; ``HVC_GN_FOLD`` (on) →
-  ``gn_fold=True``. The port reads no ``HVC_*`` variable.
+  ``gn_fold=True``. The port reads one ``HVC_*`` variable only, the JAX
+  package's flash backward switch ``HVC_FLASH_FUSED_BWD``
+  (``ops/attention.py:FUSED_BWD``).
 
 Numerics match ``ops.conv3d.group_norm_core`` (fp32 statistics, var =
 E[x²] − E[x]² clamped ≥ 0, eps 1e-5); the statistics are taken over the

@@ -55,28 +55,38 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float, total_s
     ``step()`` clips the gradients in place, updates, then sets the next
     step's learning rate.
 
-    The hooks set the rate themselves rather than through ``LambdaLR``: a
-    scheduler holds its optimizer, so a hook holding the scheduler would
-    make a reference cycle that keeps the Adam moments alive after the
-    optimizer is dropped, until the garbage collector runs."""
+    The schedule's step count lives in each parameter group
+    (``"schedule_step"``), so ``state_dict`` carries it and
+    ``load_state_dict`` resumes the schedule where it stopped, with the
+    learning rate this optimizer's schedule gives at that count (as optax
+    keeps the count in its state and takes the schedule from the rebuilt
+    chain). The hooks set the rate themselves rather than through
+    ``LambdaLR``: a scheduler holds its optimizer, so a hook holding the
+    scheduler would make a reference cycle that keeps the Adam moments alive
+    after the optimizer is dropped, until the garbage collector runs."""
     params = list(params)
     schedule = cosine_schedule(learning_rate, total_steps, warmup_steps)
     opt = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay,
                             fused=bool(params) and all(p.is_cuda for p in params))
-    count = 0
+    for group in opt.param_groups:
+        group["schedule_step"] = 0
 
     def clip(*_) -> None:
         torch.nn.utils.clip_grad_norm_(params, gradient_clip, foreach=True)
 
     def advance(optimizer: torch.optim.Optimizer, *_) -> None:
-        nonlocal count
-        count += 1
         for group in optimizer.param_groups:
-            group["lr"] = schedule(count)
+            group["schedule_step"] += 1
+            group["lr"] = schedule(group["schedule_step"])
+
+    def resume(optimizer: torch.optim.Optimizer) -> None:
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(group.get("schedule_step", 0))
 
     opt.register_step_pre_hook(clip)
     opt.register_step_post_hook(advance)
+    opt.register_load_state_dict_post_hook(resume)
     return opt
 
 

@@ -1,0 +1,1 @@
+"""Run logs of the port (counterpart of hybrid_vit_cascade_tpu/utils)."""

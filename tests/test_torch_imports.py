@@ -37,7 +37,9 @@ def test_port_modules_found():
               "models.layers", "models.attention", "models.vit3d", "models.encoders",
               "models.cascade", "convert", "inference.infer", "ops.ssim", "ops.fft",
               "ops.drr", "losses.metrics", "losses.multiscale", "training.schedules",
-              "training.trainer", "config"):
+              "training.trainer", "config", "cli", "data.dataset", "data.nifti",
+              "data.native_io", "data.pipeline", "data.synthetic", "training.checkpoint",
+              "utils.logging"):
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 

@@ -21,7 +21,10 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_bwd_plain,
+    flash_attention_bwd_split,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -125,6 +128,33 @@ def test_flash_bwd_matches_plain(dev, dtype, bh, nq, nk, d):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == dtype
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,nq,nk,d", [(3, 200, 77, 32), (3, 200, 77, 64), (2, 130, 300, 32),
+                                        (8, 1024, 1024, 32), (4, 1024, 256, 64)])
+def test_flash_bwd_split_matches_plain(dev, dtype, bh, nq, nk, d):
+    """Kernels L (dq) and M (dk, dv): the plain backward's values, each
+    launched once per split backward, the halves alone giving the same bits,
+    and two runs bitwise equal (no atomics)."""
+    q, dout = (_randn((bh, nq, d), dtype, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), dtype, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches,
+              flash_attention_bwd.launches)
+    got = flash_attention_bwd_split(q, k, v, out, lse, dout, scale)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd.launches) == (before[0] + 1, before[1] + 1, before[2])
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        _close(g, w, dtype)
+    again = flash_attention_bwd_split(q, k, v, out, lse, dout, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(flash_attention_bwd_dq(q, k, v, out, lse, dout, scale), got[0])
+    dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale)
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
