@@ -74,6 +74,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    while stage 3 moved; the same command again skips every stage (resume);
    ``InferenceEngine(<save_dir>/stage3/best_psnr)`` reconstructs a volume.
    Prints each stage's wall time and median step time.
+12. The probe path, kernel family N (``csrc/conv_probe.cu``): each of the
+   eight probe kernels (V1 and the V0 control through one wrapper) against
+   its plain version at the probes' full size (N = 131,072 columns, R = 64
+   passes) and at ragged small N, within 1e-4·max|want| + 1e-4·|want|;
+   then the entry point's ``run`` (``hybrid_vit_cascade_tpu_torch.scripts.
+   bench_conv_probe``) over every case at full size, launches counted from
+   0: each kernel beside its plain version and its cuBLAS yardstick, and
+   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -82,8 +90,11 @@ the larger of the bytes it must move over 3.35 TB/s and its operations over
 PyTorch call that computes the same function (library_ms: cuDNN convolution
 or its weight/data gradient, scaled_dot_product_attention forward or
 backward), all in bf16 at the kernel's hot shape; launches are those of the
-main path: the reconstruct [4], the first step of each stage in [9] and the
-training run of [11] (the only one that takes L and M).
+main path: the reconstruct [4], the first step of each stage in [9], the
+training run of [11] (the only one that takes L and M) and the probe run of
+[12] (the only one that takes N). The probe rows are at N = 131,072, R = 64,
+and their library call is cuBLAS (``torch.mm`` over the same operands, R
+calls).
 
 cuDNN and cuBLAS run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 are set False), so the fp32 plain
@@ -301,6 +312,15 @@ CHAIN_KERNELS = {
 # The chain phase [10]: values and gradients of the streamed chains against
 # the dense chain, fp32, absolute part scaled by the largest |want|.
 CHAIN_TOL = (2e-4, 2e-4)
+
+# The probe phase [12]: kernel family N, one row per TPU probe function (V0
+# is make_v1 at m = 256, counted and listed under conv_probe_v1). Both sides
+# sum the same bf16 products in fp32, in another order: |got - want| <=
+# atol·max|want| + rtol·|want|. Ragged N: rows of P / X not 16-byte aligned
+# (77) and aligned with a ragged last tile (2,120).
+PROBE_SOURCE = "hybrid_vit_cascade_tpu_torch/csrc/conv_probe.cu"
+PROBE_TOL = (1e-4, 1e-4)
+PROBE_RAGGED_N = (77, 2120)
 
 
 def log(msg: str) -> None:
@@ -553,7 +573,13 @@ def _conv_geom(name: str, shape):
 def bound(name: str, shape, itemsize: int = 2):
     """(bound_ms, bound_by) at bf16: the larger of the bytes the function
     must move (each input read once, each output written once) over
-    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS."""
+    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS. A
+    probe kernel's shape is its case name (V1 ...), at N = 131,072 and R = 64
+    passes."""
+    if name.startswith("conv_probe"):
+        from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
+
+        return bench.bound(bench.BY_KEY[shape], bench.N_TOTAL, bench.R)
     if name.startswith("flash"):
         bh, nq, nk, d = shape
         if name == "flash_attention":  # q, k, v in; out, lse out
@@ -996,6 +1022,51 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
             "losses": losses, "train_s": train_s, "resume_s": resume_s, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------- the probe path ---
+
+def probe_phase(dev, seed: int) -> dict:
+    """Phase [12]: every probe kernel against its plain version at full size
+    and at ragged N, then the entry point's run over every case, launches
+    counted from 0."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
+
+    t0 = time.perf_counter()
+    atol, rtol = PROBE_TOL
+    worst = {}
+    for case in (c for c in bench.CASES if c.kernel):
+        for n, reps in ((bench.N_TOTAL, bench.R),) + tuple((n, 2) for n in PROBE_RAGGED_N):
+            args = bench.make_inputs(case, n, dev, seed)
+            # one pass of the plain version gives the same values as R
+            got, want = case.wrapper(*args, reps), case.plain(*args, 1)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != torch.float32:
+                raise AssertionError(f"[12] {case.key} N={n}: {got.shape}/{got.dtype} vs "
+                                     f"{want.shape}")
+            diff = (got - want).abs()
+            err, scale = float(diff.max()), float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and bool(
+                (diff <= atol * scale + rtol * want.abs()).all())
+            log(f"[12] {case.key:3s} N={n:6d} R={reps:2d} max_abs_err={err:.3e} "
+                f"tol={atol:g}·{scale:.4g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[12] {case.key} disagrees with its plain version at "
+                                     f"N={n}: max_abs_err {err}")
+            worst[case.kernel] = max(worst.get(case.kernel, 0.0), err)
+            del args, got, want
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    rows = bench.run(bench.CASES, dev, bench.N_TOTAL, bench.R, seed,
+                     log=lambda line: log(f"[12] {line}"))
+    launched = launch_counts()
+    probe_launches = {k: v for k, v in launched.items() if k.startswith("conv_probe")}
+    log(f"[12] launches {probe_launches}; phase time {time.perf_counter() - t0:.1f} s")
+    if any(launched[k] for k in launched if k not in probe_launches):
+        raise AssertionError(f"[12] the probe run launched another kernel: {launched}")
+    return {"max_abs_err": worst, "launches": launched, "rows": rows,
+            "phase_s": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ slice ---
 
 def main() -> int:
@@ -1182,11 +1253,18 @@ def main() -> int:
     record["train_entry_point"] = train_entry_point(
         dev, args.seed, statistics.median(record["train"]["stage3"]["step_ms"]))
 
+    # 12. the probe path
+    torch.cuda.empty_cache()
+    record["probe"] = probe_phase(dev, args.seed)
+    worst.update(record["probe"]["max_abs_err"])
+
     # launches on the main path: the reconstruct [4], the first step of each
-    # stage in [9] and the cli train run of [11], each counted from 0
+    # stage in [9], the cli train run of [11] and the probe run of [12], each
+    # counted from 0
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
-              "cli_train": record["train_entry_point"]["launches"]}
+              "cli_train": record["train_entry_point"]["launches"],
+              "conv_probe": record["probe"]["launches"]}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
@@ -1202,6 +1280,22 @@ def main() -> int:
             kernels[-1]["library_call"] = _SDPA_BWD
         log(f"  {name:24s} {ms:9.3f} ms  plain {plain_ms:9.3f}  bound {b_ms:8.3f} ({b_by})  "
             f"library {kernels[-1]['library_ms']:9.3f}  launches {runs}")
+    probe_rows = {r["case"]: r for r in record["probe"]["rows"]}
+    for r in (r for r in record["probe"]["rows"] if r["kernel"] and r["case"] != "V0"):
+        name = r["kernel"]
+        b_ms, b_by = bound(name, r["case"])
+        runs = {run: counts[name] for run, counts in by_run.items()}
+        kernels.append({"name": name, "route": "cuda", "source": PROBE_SOURCE,
+                        "replaces": r["replaces"], "launches": sum(runs.values()),
+                        "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
+                        "at": f"{r['case']}: N {r['n']}, R {r['repeats']}, bf16 in, fp32 out",
+                        "library_call": r["library_call"], "launches_by_run": runs})
+        if name == "conv_probe_v1":
+            kernels[-1]["v0"] = {k: probe_rows["V0"][k] for k in
+                                 ("ms", "plain_ms", "bound_ms", "library_ms", "pass_floor_ms")}
+        log(f"  {name:24s} {r['ms']:9.3f} ms  plain {r['plain_ms']:9.3f}  bound {b_ms:8.3f} "
+            f"({b_by})  library {r['library_ms']:9.3f}  launches {runs}")
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")

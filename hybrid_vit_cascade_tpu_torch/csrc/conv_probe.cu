@@ -1,0 +1,554 @@
+// Kernel family N: the implicit-GEMM conv probes on the tensor cores, for
+// Hopper (sm_90a). Eight C entry points, one per TPU probe function:
+//
+//   hvc_probe_v1   scripts/bench_pallas_conv_probe.py::make_v1 (:62; body
+//                  v1_kernel :56): out[m, N] = W[m, K] · P[K, N], weights as
+//                  the M side. V1 is m = 32, the V0 control m = 256.
+//   hvc_probe_v2   bench_pallas_conv_probe.py::v2 (:88; v2_kernel :81):
+//                  out[N, 32] = Pᵀ[N, K] · Wᵀ[K, 32], spatial rows as M.
+//   hvc_probe_v3   bench_pallas_conv_probe.py::v3 (:116; v3_kernel :104):
+//                  out[32, N] = Σ_{t<27} W27[32t:32t+32, :64] · P[64t:64t+64, N],
+//                  27 shifted K = 64 dots.
+//   hvc_probe_v3p  scripts/bench_pallas_conv_probe2.py::v3p (:67; v3p_kernel
+//                  :57): out[32, N] = Σ_{t<27} W27[32t:32t+32] · X[64, N], one X
+//                  shared by every tap.
+//   hvc_probe_v5   bench_pallas_conv_probe2.py::v5 (:92; v5_kernel :82):
+//                  Σ_{t<14} W14[32t:32t+32, :128] · X2[128, N], pair-packed K = 128.
+//   hvc_probe_v6   bench_pallas_conv_probe2.py::v6 (:120; v6_kernel :107):
+//                  7 dots of W27p[128g:128g+128] · X (M = 128), each dot's 32-row
+//                  groups summed into out[32, N]; the last dot keeps 3 groups.
+//   hvc_probe_v4   bench_pallas_conv_probe2.py::v4 (:146; v4_kernel :135): one
+//                  dot W27[864, 64] · X, then its 27 row groups summed.
+//   hvc_probe_v8   bench_pallas_conv_probe2.py::v8 (:171; v8_kernel :161):
+//                  Σ_{t<9} W9[32t:32t+32, :192] · X3[192, N], K = 192.
+//
+// Every operand is bf16, row-major and contiguous; products accumulate in
+// fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
+// fragments loaded from shared memory with ldmatrix) and the output is fp32.
+// A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
+// the r axis is a loop inside one launch. The grid is persistent (as many
+// blocks as fit on the SMs) and walks the work items r·tiles + tile in order,
+// so every pass sweeps all tiles before the next pass starts and each pass
+// rewrites the whole output. Any N ≥ 1: the ragged last tile is zero-filled
+// at the load and masked at the store; when N is not a multiple of 8 (a row
+// of P or X not 16-byte aligned) the streamed operand is loaded element by
+// element instead of by cp.async.
+//
+// What bounds it on this card, at the probes' shapes (N = 131,072, R = 64):
+// every function is 2·32·1728·N multiply-adds per pass (V0 8×, V5 1792/1728×),
+// so over R = 64 passes 0.938 ms at 989 TFLOP/s (V0 7.50 ms, V5 0.973 ms),
+// with each input read once. But V1, V0, V2 and V3 stream P (Pᵀ), 453 MB,
+// which does not fit the 50 MB L2: every pass re-reads it from device memory,
+// 0.140 ms at 3.35 TB/s, a practical floor of 8.98 ms per call (V0 11.24 ms
+// with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2.
+//
+// Design. Two templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
+// are not carried over. mma.sync is the simplest tensor-core path (no TMA,
+// no wgmma, no warp specialisation); what each variant probes is kept:
+//
+// - probe_gemm (V1, V0, V2, V3): C[M, Nc] = A[M, K] · B[K, Nc], both row-major
+//   in global memory, so the orientation is which array is A: W (V1, V0, V3:
+//   M = Cout, the streamed P is B) or Pᵀ (V2: M = the spatial rows, the
+//   32-column Wᵀ is B). K runs in chunks of 64 through a 3-stage cp.async
+//   ring of shared-memory tiles (rows padded by 8 bf16 so ldmatrix is free of
+//   bank conflicts). V3 is V1 with the A chunk of K step t taken from
+//   W27[32t:32t+32, :64]: one K = 64 dot per tap, accumulated in place.
+//   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), V0 128 × 128 (8 warps of
+//   64 × 32), V2 128 spatial rows × 32 (4 warps of 32 × 32).
+// - probe_tapsum (V3', V5, V6, V4, V8): the whole weight array stays in
+//   shared memory for the block's life (115-129 KB, the VMEM-resident
+//   weights of the TPU probe); per work item one X tile [KD, BN] is staged
+//   by cp.async, and each warp holds the B fragments of its columns for the
+//   whole per-dot K in registers (KD/2 registers at 32 columns: 32 at
+//   K = 64, 64 at K = 128, 96 at K = 192), so the taps reuse X from
+//   registers and stream only the weights' A fragments. The next item's X
+//   tile loads while the current one computes. Stacking taps into M: the
+//   warps split each dot's GROUPS 32-row groups (V6: 4 warps along the
+//   M = 128 dot, one group each; V4: 9 warps along the M = 864 dot, 3 groups
+//   each, kept in separate accumulators and added in registers after the
+//   dot), and the WARPS_M partial [32, BN] sums meet in shared memory in a
+//   fixed order. V3', V5 and V8 (one 32-row group per dot) accumulate every
+//   tap in one accumulator per warp, with no reduction. Tiles: V3'/V5/V8
+//   32 × 256 (8 warps along N), V6 32 × 64 (4 × 2 warps), V4 32 × 32
+//   (9 × 2 warps). The group of tap 27 in V6's last dot is skipped, not
+//   computed and dropped.
+//
+// Sums run in another order than the TPU's and the plain version's; the
+// result is deterministic (no atomics; a rewrite of the output by a later
+// pass stores the same values).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBK = 64;      // K chunk of probe_gemm
+constexpr int kStages = 3;   // cp.async ring depth of probe_gemm
+constexpr int kPad = 8;      // bf16 padding per shared-memory row
+constexpr int kGroup = 32;   // output rows per tap (Cout)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared, zero-filled beyond src_bytes (0 or 16).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a · b on one 16×8×16 tile (bf16 in, fp32 accumulate).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment of the 16×16 tile at (row0, k0) of a row-major shared array.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int row0, int k0,
+                                       int lane) {
+  ldsm_x4(a, s + (row0 + (lane & 15)) * ld + k0 + ((lane >> 4) << 3));
+}
+
+// B fragments of two 16×8 tiles at (k0, n0) and (k0, n0 + 8) of a row-major
+// [K][N] shared array: {b0, b1} of the first, then of the second.
+__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0,
+                                        int lane) {
+  ldsm_x4_t(b, s + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0 + ((lane >> 4) << 3));
+}
+
+// One 16-byte chunk of a row of a row-major bf16 array into shared memory:
+// the 8 elements at columns col..col+7 (src points at column col), zeros at
+// columns ≥ cols. ALIGNED: the row length and the base are multiples of 8
+// elements / 16 bytes, so a chunk is all in or all out and goes by cp.async;
+// otherwise element by element.
+template <bool ALIGNED>
+__device__ __forceinline__ void load_chunk8(bf16* dst, const bf16* src, int col, int cols) {
+  if (ALIGNED) {
+    cp_async16(dst, src, col < cols ? 16 : 0);
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    unsigned short v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = col + e < cols ? s[e] : 0;
+    uint4 packed;
+    packed.x = v[0] | (uint32_t(v[1]) << 16);
+    packed.y = v[2] | (uint32_t(v[3]) << 16);
+    packed.z = v[4] | (uint32_t(v[5]) << 16);
+    packed.w = v[6] | (uint32_t(v[7]) << 16);
+    *reinterpret_cast<uint4*>(dst) = packed;
+  }
+}
+
+// out[r, c], out[r, c + 1] of a row-major fp32 array (rows × cols, ld).
+__device__ __forceinline__ void store_pair(float* out, long long ld, int rows, int cols, int r,
+                                           int c, float v0, float v1) {
+  if (r >= rows || c >= cols) return;
+  float* p = out + (long long)r * ld + c;
+  if (c + 1 < cols && (ld & 1) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (c + 1 < cols) p[1] = v1;
+  }
+}
+
+// ------------------------------------------------------------ probe_gemm ---
+
+// C[M, Nc] = A[M, K] · B[K, Nc] for `repeats` passes (K a multiple of 64).
+// TAP_A (V3): A is W27 (27·32 × 64) and K step t reads its rows 32t..32t+31,
+// so M must be 32. B_ALIGNED: Nc (= ldb) is a multiple of 8.
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED>
+__global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
+    probe_gemm(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ C,
+               int M, int Nc, int K, int repeats) {
+  constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  constexpr int MT = WM / 16, NT = WN / 8;
+  constexpr int LDA = kBK + kPad, LDB = BN + kPad;
+  constexpr int A_STAGE = BM * LDA, B_STAGE = kBK * LDB;
+  static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sA = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sB = sA + kStages * A_STAGE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (Nc + BN - 1) / BN;
+  const long long per_pass = (long long)tiles_m * tiles_n;
+  const long long items = per_pass * repeats;
+  const int KC = K / kBK;
+
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long tile = it % per_pass;
+    const int m0 = int(tile / tiles_n) * BM, n0 = int(tile % tiles_n) * BN;
+
+    auto load_stage = [&](int kc, int stage) {
+      bf16* a = sA + stage * A_STAGE;
+      for (int c = tid; c < BM * (kBK / 8); c += kThreads) {
+        const int r = c / (kBK / 8), k8 = (c % (kBK / 8)) * 8;
+        const int gr = m0 + r;
+        const bool ok = gr < M;
+        const bf16* src = TAP_A ? A + ((long long)(kc * kGroup + r) * kBK + k8)
+                                : A + ((long long)gr * K + (long long)kc * kBK + k8);
+        cp_async16(a + r * LDA + k8, ok ? src : A, ok ? 16 : 0);
+      }
+      bf16* b = sB + stage * B_STAGE;
+      for (int c = tid; c < kBK * (BN / 8); c += kThreads) {
+        const int r = c / (BN / 8), n8 = (c % (BN / 8)) * 8;
+        const int gc = n0 + n8;
+        const bf16* src = B + ((long long)(kc * kBK + r) * Nc + gc);
+        load_chunk8<B_ALIGNED>(b + r * LDB + n8, gc < Nc ? src : B, gc, Nc);
+      }
+    };
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < KC) load_stage(s, s);
+      cp_async_commit();
+    }
+    for (int kc = 0; kc < KC; ++kc) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      const int pf = kc + kStages - 1;
+      if (pf < KC) load_stage(pf, pf % kStages);
+      cp_async_commit();
+      const bf16* a = sA + (kc % kStages) * A_STAGE;
+      const bf16* b = sB + (kc % kStages) * B_STAGE;
+#pragma unroll
+      for (int kk = 0; kk < kBK; kk += 16) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) load_a(af[i], a, LDA, wm * WM + i * 16, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t bfr[4];
+          load_b2(bfr, b, LDB, kk, wn * WN + j * 8, lane);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma16816(acc[i][j], af[i], bfr[0], bfr[1]);
+            mma16816(acc[i][j + 1], af[i], bfr[2], bfr[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next item's first chunks
+
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = m0 + wm * WM + i * 16 + (lane >> 2);
+        const int c = n0 + wn * WN + j * 8 + (lane & 3) * 2;
+        store_pair(C, Nc, M, Nc, r, c, acc[i][j][0], acc[i][j][1]);
+        store_pair(C, Nc, M, Nc, r + 8, c, acc[i][j][2], acc[i][j][3]);
+      }
+  }
+}
+
+// ---------------------------------------------------------- probe_tapsum ---
+
+// out[32, N] = Σ_{t<TAPS} W[32t:32t+32, :KD] · X[KD, N] for `repeats` passes,
+// computed as NDOTS dots of GROUPS·32 weight rows each (dot d holds taps
+// d·GROUPS + g). WARPS_M warps split a dot's groups, GROUPS / WARPS_M each.
+template <int KD, int NDOTS, int GROUPS, int TAPS, int WARPS_M, int WARPS_N, int WN,
+          bool X_ALIGNED>
+__global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
+    probe_tapsum(const bf16* __restrict__ W, const bf16* __restrict__ X, float* __restrict__ out,
+                 int N, int repeats) {
+  constexpr int kThreads = WARPS_M * WARPS_N * 32;
+  constexpr int GPW = GROUPS / WARPS_M;
+  constexpr int BN = WARPS_N * WN, NT = WN / 8, KS = KD / 16;
+  constexpr int W_ROWS = NDOTS * GROUPS * kGroup;
+  constexpr int LDW = KD + kPad, LDX = BN + kPad;
+  static_assert(GROUPS % WARPS_M == 0 && WN % 16 == 0 && KD % 16 == 0, "tiling");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sX = sW + W_ROWS * LDW;
+  float* sRed = reinterpret_cast<float*>(sX + KD * LDX);  // (WARPS_M - 1) × 32 × BN
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const long long per_pass = (N + BN - 1) / BN;
+  const long long items = per_pass * repeats;
+
+  auto load_x = [&](long long item) {
+    const int n0 = int(item % per_pass) * BN;
+    for (int c = tid; c < KD * (BN / 8); c += kThreads) {
+      const int r = c / (BN / 8), n8 = (c % (BN / 8)) * 8;
+      const int gc = n0 + n8;
+      const bf16* src = X + ((long long)r * N + gc);
+      load_chunk8<X_ALIGNED>(sX + r * LDX + n8, gc < N ? src : X, gc, N);
+    }
+  };
+
+  if ((long long)blockIdx.x < items) {
+    for (int c = tid; c < W_ROWS * (KD / 8); c += kThreads) {
+      const int r = c / (KD / 8), k8 = (c % (KD / 8)) * 8;
+      cp_async16(sW + r * LDW + k8, W + (long long)r * KD + k8, 16);
+    }
+    load_x(blockIdx.x);
+  }
+  cp_async_commit();
+
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const int n0 = int(it % per_pass) * BN;
+    cp_async_wait<0>();
+    __syncthreads();  // this item's X tile (and, the first time, W) in shared memory
+
+    uint32_t bx[KS][NT][2];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bfr[4];
+        load_b2(bfr, sX, LDX, ks * 16, wn * WN + j * 8, lane);
+        bx[ks][j][0] = bfr[0];
+        bx[ks][j][1] = bfr[1];
+        bx[ks][j + 1][0] = bfr[2];
+        bx[ks][j + 1][1] = bfr[3];
+      }
+    __syncthreads();  // every warp holds its X fragments: the tile is free
+    if (it + gridDim.x < items) load_x(it + gridDim.x);
+    cp_async_commit();
+
+    float acc[GPW][2][NT][4];
+#pragma unroll
+    for (int g = 0; g < GPW; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][i][j][e] = 0.f;
+
+#pragma unroll 1
+    for (int d = 0; d < NDOTS; ++d) {
+#pragma unroll
+      for (int g = 0; g < GPW; ++g) {
+        const int t = d * GROUPS + wm * GPW + g;  // tap; its weight rows are 32t..32t+31
+        if (t >= TAPS) continue;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            uint32_t af[4];
+            load_a(af, sW, LDW, t * kGroup + i * 16, ks * 16, lane);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) mma16816(acc[g][i][j], af, bx[ks][j][0], bx[ks][j][1]);
+          }
+      }
+    }
+
+    // the warp's groups, then the WARPS_M warps' partials, in a fixed order
+#pragma unroll
+    for (int g = 1; g < GPW; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][i][j][e] += acc[g][i][j][e];
+    if (WARPS_M > 1) {
+      if (wm > 0) {
+        float* red = sRed + (wm - 1) * kGroup * BN;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int r = i * 16 + (lane >> 2), c = wn * WN + j * 8 + (lane & 3) * 2;
+            red[r * BN + c] = acc[0][i][j][0];
+            red[r * BN + c + 1] = acc[0][i][j][1];
+            red[(r + 8) * BN + c] = acc[0][i][j][2];
+            red[(r + 8) * BN + c + 1] = acc[0][i][j][3];
+          }
+      }
+      __syncthreads();
+      if (wm == 0) {
+        for (int p = 0; p < WARPS_M - 1; ++p) {
+          const float* red = sRed + p * kGroup * BN;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const int r = i * 16 + (lane >> 2), c = wn * WN + j * 8 + (lane & 3) * 2;
+              acc[0][i][j][0] += red[r * BN + c];
+              acc[0][i][j][1] += red[r * BN + c + 1];
+              acc[0][i][j][2] += red[(r + 8) * BN + c];
+              acc[0][i][j][3] += red[(r + 8) * BN + c + 1];
+            }
+        }
+      }
+    }
+    if (wm == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int r = i * 16 + (lane >> 2), c = n0 + wn * WN + j * 8 + (lane & 3) * 2;
+          store_pair(out, N, kGroup, N, r, c, acc[0][i][j][0], acc[0][i][j][1]);
+          store_pair(out, N, kGroup, N, r + 8, c, acc[0][i][j][2], acc[0][i][j][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------- launches ---
+
+// A persistent launch: as many blocks as fit on the SMs, at most `items`.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kern)(KArgs...), int threads, int smem, long long items,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) !=
+      cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (items <= 0) return cudaSuccess;
+  const long long cap = (long long)sms * per_sm;
+  const int grid = int(items < cap ? items : cap);
+  kern<<<grid, threads, smem, stream>>>(static_cast<KArgs>(args)...);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED>
+cudaError_t gemm(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
+                 cudaStream_t stream) {
+  constexpr int smem = kStages * (BM * (kBK + kPad) + kBK * (BN + kPad)) * 2;
+  const long long items =
+      (long long)((M + BM - 1) / BM) * ((Nc + BN - 1) / BN) * (long long)repeats;
+  return launch(probe_gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, B_ALIGNED>, WARPS_M * WARPS_N * 32,
+                smem, items, stream, static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+                static_cast<float*>(c), M, Nc, K, repeats);
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A>
+cudaError_t gemm_any(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
+                     int aligned, cudaStream_t stream) {
+  return aligned ? gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, true>(a, b, c, M, Nc, K, repeats, stream)
+                 : gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, false>(a, b, c, M, Nc, K, repeats, stream);
+}
+
+template <int KD, int NDOTS, int GROUPS, int TAPS, int WARPS_M, int WARPS_N, int WN>
+cudaError_t tapsum(const void* w, const void* x, void* out, int n, int repeats, int aligned,
+                   cudaStream_t stream) {
+  constexpr int BN = WARPS_N * WN;
+  constexpr int smem = (NDOTS * GROUPS * kGroup * (KD + kPad) + KD * (BN + kPad)) * 2 +
+                       (WARPS_M - 1) * kGroup * BN * 4;
+  const long long items = (long long)((n + BN - 1) / BN) * repeats;
+  const int threads = WARPS_M * WARPS_N * 32;
+  const bf16* wp = static_cast<const bf16*>(w);
+  const bf16* xp = static_cast<const bf16*>(x);
+  float* op = static_cast<float*>(out);
+  return aligned
+             ? launch(probe_tapsum<KD, NDOTS, GROUPS, TAPS, WARPS_M, WARPS_N, WN, true>, threads,
+                      smem, items, stream, wp, xp, op, n, repeats)
+             : launch(probe_tapsum<KD, NDOTS, GROUPS, TAPS, WARPS_M, WARPS_N, WN, false>, threads,
+                      smem, items, stream, wp, xp, op, n, repeats);
+}
+
+}  // namespace
+
+// Entry points: bf16 operands, row-major and contiguous, 16-byte aligned
+// bases; `aligned` = 1 when N is a multiple of 8. Each returns the launch's
+// cudaError_t (0 = success) and does not synchronise.
+extern "C" {
+
+// out (m, n) fp32 = w (m, k) · p (k, n); k a multiple of 64
+int hvc_probe_v1(const void* w, const void* p, void* out, int m, int k, int n, int repeats,
+                 int aligned, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m <= 32) return gemm_any<32, 128, 1, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+  return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+}
+
+// out (n, 32) fp32 = pt (n, k) · wt (k, 32); k a multiple of 64
+int hvc_probe_v2(const void* pt, const void* wt, void* out, int k, int n, int repeats,
+                 void* stream) {
+  return gemm<128, 32, 4, 1, false, true>(pt, wt, out, n, 32, k, repeats,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · p[64t:64t+64] (64, n); p (1728, n)
+int hvc_probe_v3(const void* w27, const void* p, void* out, int n, int repeats, int aligned,
+                 void* stream) {
+  return gemm_any<32, 128, 1, 4, true>(w27, p, out, 32, n, 27 * 64, repeats, aligned,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · x (64, n)
+int hvc_probe_v3p(const void* w27, const void* x, void* out, int n, int repeats, int aligned,
+                  void* stream) {
+  return tapsum<64, 27, 1, 27, 1, 8, 32>(w27, x, out, n, repeats, aligned,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<14} w14[32t:32t+32] (32, 128) · x2 (128, n)
+int hvc_probe_v5(const void* w14, const void* x2, void* out, int n, int repeats, int aligned,
+                 void* stream) {
+  return tapsum<128, 14, 1, 14, 1, 8, 32>(w14, x2, out, n, repeats, aligned,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<27} w27p[32t:32t+32] · x, as 7 dots of M = 128; w27p (896, 64)
+int hvc_probe_v6(const void* w27p, const void* x, void* out, int n, int repeats, int aligned,
+                 void* stream) {
+  return tapsum<64, 7, 4, 27, 4, 2, 32>(w27p, x, out, n, repeats, aligned,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<27} rows 32t..32t+31 of w27 (864, 64) · x, one M = 864 dot
+int hvc_probe_v4(const void* w27, const void* x, void* out, int n, int repeats, int aligned,
+                 void* stream) {
+  return tapsum<64, 1, 27, 27, 9, 2, 16>(w27, x, out, n, repeats, aligned,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<9} w9[32t:32t+32] (32, 192) · x3 (192, n)
+int hvc_probe_v8(const void* w9, const void* x3, void* out, int n, int repeats, int aligned,
+                 void* stream) {
+  return tapsum<192, 9, 1, 9, 1, 8, 32>(w9, x3, out, n, repeats, aligned,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -3,7 +3,8 @@
 
 Each kernel wrapper counts the launches of its kernel: the flash-attention
 wrappers in their ``.launches``, the conv wrappers in
-``conv3d_k3.LAUNCHES``, one counter per kernel letter. ``launch_counts``
+``conv3d_k3.LAUNCHES``, one counter per kernel letter, and the conv probe
+wrappers (family N) in ``conv_probe.LAUNCHES``, one counter per wrapper. ``launch_counts``
 reads them all and ``reset_launch_counts`` sets them to 0.
 """
 
@@ -18,22 +19,27 @@ def launch_counts() -> Dict[str, int]:
     flash_attention_bwd_dkv (M), and the conv counters conv3d_k3s{1,2} (B, C),
     conv3d_k3s1_dgrad (B as the stride-1 data gradient), conv3d_k3s2_dgrad
     (F), conv3d_k3s{1,2}_wgrad (E, G) and their ``_chain`` forms (H, I; H as
-    the stride-1 data gradient, J; K)."""
+    the stride-1 data gradient, J; K), and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8}
+    (N)."""
     from . import conv3d_k3 as ck
+    from . import conv_probe as cp
     from . import flash_attention as fa
 
     return {"flash_attention": fa.flash_attention_fwd.launches,
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches, **ck.LAUNCHES}
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches, **ck.LAUNCHES,
+            **cp.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from . import conv3d_k3 as ck
+    from . import conv_probe as cp
     from . import flash_attention as fa
 
     for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv):
         fn.launches = 0
-    for name in ck.LAUNCHES:
-        ck.LAUNCHES[name] = 0
+    for counters in (ck.LAUNCHES, cp.LAUNCHES):
+        for name in counters:
+            counters[name] = 0

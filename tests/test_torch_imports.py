@@ -33,6 +33,7 @@ def _modules():
 def test_port_modules_found():
     names = set(_modules())
     for m in ("ops.cuda._build", "ops.cuda.flash_attention", "ops.cuda.conv3d_k3",
+              "ops.cuda.conv_probe", "scripts.bench_conv_probe",
               "ops.attention", "ops.slab", "ops.conv3d", "ops.pool", "ops.resize",
               "models.layers", "models.attention", "models.vit3d", "models.encoders",
               "models.cascade", "convert", "inference.infer", "ops.ssim", "ops.fft",

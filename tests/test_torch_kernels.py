@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     LAUNCHES,
     conv3d_k3,
@@ -28,6 +29,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
 
 pytestmark = pytest.mark.cuda
 
@@ -222,3 +224,32 @@ def test_chain_conv_matches_plain(dev, dtype, stride, act, case):
     assert [LAUNCHES[c] for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1,
                                                before[3]]
 
+
+
+# Kernel family N, the conv probes: (weights, data) of each wrapper at N
+# columns; V1 also at the V0 control's m = 256.
+PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
+
+
+@pytest.mark.parametrize("n", [77, 2120, 4096])
+@pytest.mark.parametrize("key", PROBE_CASES)
+def test_conv_probe_matches_plain(dev, key, n):
+    """Each probe kernel against its plain version in bf16, at a ragged N (77:
+    rows not 16-byte aligned; 2,120: aligned, ragged last tile) and at 4,096;
+    both sum the same bf16 products in fp32, in another order. One launch per
+    call, whatever the number of passes (the r axis is a loop in the kernel)."""
+    case = bench.BY_KEY[key]
+    kern, plain = case.wrapper, case.plain
+    shapes = [(n, conv_probe.K), case.w_shape] if key == "V2" else [case.w_shape, (case.x_rows, n)]
+    args = [_randn(s, torch.bfloat16, dev, i + 20) for i, s in enumerate(shapes)]
+    before = dict(conv_probe.LAUNCHES)
+    got = kern(*args, 3)
+    after = dict(conv_probe.LAUNCHES)
+    assert after == {**before, case.kernel: before[case.kernel] + 1}
+    want = plain(*args, 1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(kern(*args, 1), got)  # every pass rewrites the same values
