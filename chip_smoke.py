@@ -39,8 +39,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    data gradient), G (stride-2 weight gradient) and kernel B run as the
    stride-1 data gradient — against their plain versions at every shape the
    three training stages give them (and ragged small shapes), in bf16 and
-   fp32, with kernel and plain times at the training shapes; two runs of L
-   and of M at the stage-3 shape agree bitwise (no atomics).
+   fp32, with kernel and plain times at the training shapes; two runs of D
+   agree bitwise at every training shape in bf16 and fp32 (its dq partials
+   are added in a fixed order), and two runs of L and of M at the stage-3
+   shape (no atomics); the bf16 64→32 and 32→64 weight gradients of the
+   stage-3 step (dense and one training slab) take the tensor-core instance
+   of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
+   one.
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -53,8 +58,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and a seeded 256³ CT volume: one warm-up step and 3 timed ones per stage,
    finite losses, peak memory, and each kernel's launches per step (every
    counted wrapper, B as the stride-1 data gradient included, launches in
-   the stage-3 step). Stage 3 trains on the config's streamed schedule
-   (8 slabs).
+   the stage-3 step, its bf16 64→32 and 32→64 weight gradients on the tensor
+   cores). Stage 3 trains on the config's streamed schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -282,6 +287,7 @@ CHAIN_RAGGED_S2 = [(2, 3, 5, 4, 6, 10, 2, 3, True, "silu"), (1, 8, 40, 6, 5, 12,
 _HOT_S1 = (1, 64, 32, 256, _CH, _CH, 1, 256, True, None)  # the eval 64→32, whole volume
 _HOT_S2 = (1, 32, 64, 256, _CH, _CH, 1, 128, True, None)
 _TRAIN_S1 = (1, 64, 32, 34, _CH, _CH, 0, 32, True, None)  # one training slab
+_TRAIN_S1_GELU = (1, 64, 32, 34, _CH, _CH, 0, 32, True, "gelu")  # the same, prologue fused
 _TRAIN_S2 = (1, 32, 64, 33, _CH, _CH, 0, 16, True, None)
 CHAIN_KERNELS = {
     "conv3d_k3s1_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
@@ -295,7 +301,7 @@ CHAIN_KERNELS = {
     "conv3d_k3s1_chain_wgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
                                 "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:592",
                                 "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED,
-                                "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+                                "hot": _HOT_S1, "timed": [_TRAIN_S1, _TRAIN_S1_GELU]},
     "conv3d_k3s2_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                           "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:225",
                           "shapes": CHAIN_SHAPES_S2, "ragged": CHAIN_RAGGED_S2, "hot": _HOT_S2,
@@ -848,35 +854,78 @@ def train_full_width(cfg, dev, seed: int) -> dict:
         torch.cuda.empty_cache()
     step3 = out["stage3"]["launches_per_step"]
     need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
-            "conv3d_k3s2_wgrad", *CHAIN_KERNELS)
+            "conv3d_k3s2_wgrad", *CHAIN_KERNELS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc")
     if any(step3[k] == 0 for k in need):
         raise AssertionError(f"[9] the stage-3 step did not run every kernel of its path: {step3}")
     return out
 
 
-def split_bitwise(dev, seed: int) -> dict:
-    """Phase 7d: two runs of L and of M at the stage-3 self-attention shape in
-    fp32 give the same bits; D's dq is shown beside, for information (its
-    atomics add in launch order)."""
+def flash_bwd_bitwise(dev, seed: int) -> dict:
+    """Phase 7d: two runs give the same bits — kernel D at every training
+    shape in bf16 and fp32 (dq partials added in a fixed order), L and M at
+    the stage-3 self-attention shape in fp32 (no atomics)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
-    shape = (8, 32768, 32768, 32)
-    args = _train_inputs("flash_attention_bwd", shape, torch.float32, dev, seed)
-    runs = {"flash_attention_bwd_dq": lambda: (fa.flash_attention_bwd_dq(*args),),
-            "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(*args),
-            "flash_attention_bwd": lambda: fa.flash_attention_bwd(*args)}
-    out = {}
-    for name, fn in runs.items():
-        a, b = fn(), fn()
+    runs = [(name, shape, dtype) for shape in _FLASH_TRAIN_SHAPES
+            for dtype in (torch.bfloat16, torch.float32) for name in ("flash_attention_bwd",)]
+    runs += [(name, (8, 32768, 32768, 32), torch.float32)
+             for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
+    fns = {"flash_attention_bwd_dq": lambda *a: (fa.flash_attention_bwd_dq(*a),),
+           "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+           "flash_attention_bwd": fa.flash_attention_bwd}
+    out, failed = {}, []
+    for name, shape, dtype in runs:
+        args = _train_inputs("flash_attention_bwd", shape, dtype, dev, seed)
+        a, b = fns[name](*args), fns[name](*args)
         torch.cuda.synchronize()
-        out[name] = {"bitwise_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
-                     "max_abs_diff": max(float((x - y).abs().max()) for x, y in zip(a, b))}
-        log(f"[7] {name:24s} {shape} fp32, two runs: bitwise equal "
-            f"{out[name]['bitwise_equal']}, max |diff| {out[name]['max_abs_diff']:.3e}")
-        del a, b
-    if not (out["flash_attention_bwd_dq"]["bitwise_equal"]
-            and out["flash_attention_bwd_dkv"]["bitwise_equal"]):
-        raise AssertionError(f"[7] the split backward is not deterministic: {out}")
+        key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+        out[key] = {"bitwise_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
+                    "max_abs_diff": max(float((x.float() - y.float()).abs().max())
+                                        for x, y in zip(a, b))}
+        log(f"[7] {key:64s} two runs: bitwise equal {out[key]['bitwise_equal']}, "
+            f"max |diff| {out[key]['max_abs_diff']:.3e}")
+        if not out[key]["bitwise_equal"]:
+            failed.append(key)
+        del args, a, b
+    if failed:
+        raise AssertionError(f"[7] not bitwise repeatable: {failed}")
+    return out
+
+
+# bf16 weight gradients of the stage-3 step: the dense 64→32 and 32→64 and
+# one training slab of each chain, with the counter their launch must add to.
+_TC_WGRAD_CALLS = [("conv3d_k3s1_wgrad", (1, 64, 32, (256, 256, 256))),
+                   ("conv3d_k3s2_wgrad", (1, 32, 64, (256, 256, 256))),
+                   ("conv3d_k3s1_chain_wgrad", _TRAIN_S1), ("conv3d_k3s2_chain_wgrad", _TRAIN_S2)]
+
+
+def tc_wgrad_dispatch(dev, seed: int) -> dict:
+    """Phase 7e: the bf16 64→32 and 32→64 weight gradients of the stage-3
+    step launch the tensor-core instance (conv3d_k3s{1,2}_wgrad_tc counts
+    them); the same calls in fp32, and the 1-channel ones, do not."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+
+    out = {}
+    calls = [(n, sh, torch.bfloat16, True) for n, sh in _TC_WGRAD_CALLS]
+    calls += [(n, sh, torch.float32, False) for n, sh in _TC_WGRAD_CALLS[2:]]
+    calls += [("conv3d_k3s1_wgrad", (1, 1, 64, (256, 256, 256)), torch.bfloat16, False)]
+    for name, shape, dtype, want_tc in calls:
+        counter = f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
+        if "chain" in name:
+            args, fn = _chain_inputs(name, shape, dtype, dev, seed), _chain_fns(name)[0]
+        else:
+            args, fn = _train_inputs(name, shape, dtype, dev, seed), _train_fns(name)[0]
+        before = ck.LAUNCHES[counter]
+        fn(*args)
+        torch.cuda.synchronize()
+        took = ck.LAUNCHES[counter] - before
+        key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+        out[key] = took
+        log(f"[7] {key:74s} tensor-core launches {took} (expected {int(want_tc)})")
+        if took != int(want_tc):
+            raise AssertionError(f"[7] {key}: {took} tensor-core launches, expected "
+                                 f"{int(want_tc)}")
+        del args
     return out
 
 
@@ -1233,7 +1282,9 @@ def main() -> int:
     worst.update(check_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns,
                                scaled=True))
     rows.update(time_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns))
-    record["split_bitwise"] = split_bitwise(dev, args.seed)
+    record["flash_bwd_bitwise"] = flash_bwd_bitwise(dev, args.seed)
+    torch.cuda.empty_cache()
+    record["tc_wgrad_launches"] = tc_wgrad_dispatch(dev, args.seed)
     torch.cuda.empty_cache()
     log("[7] chain kernels H-K, bf16 times")
     rows.update(time_chain_kernels(dev, args.seed))
@@ -1278,6 +1329,11 @@ def main() -> int:
                         "at": f"{spec['hot']} bf16", "launches_by_run": runs})
         if name.startswith("flash_attention_bwd"):
             kernels[-1]["library_call"] = _SDPA_BWD
+        if name.endswith("wgrad"):  # E, G, K: launches that took the tensor cores
+            tc = f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
+            kernels[-1]["instance"] = "tensor cores (mma.sync) for bf16 with Cin >= 8"
+            kernels[-1]["tc_launches_by_run"] = {run: counts[tc]
+                                                 for run, counts in by_run.items()}
         log(f"  {name:24s} {ms:9.3f} ms  plain {plain_ms:9.3f}  bound {b_ms:8.3f} ({b_by})  "
             f"library {kernels[-1]['library_ms']:9.3f}  launches {runs}")
     probe_rows = {r["case"]: r for r in record["probe"]["rows"]}

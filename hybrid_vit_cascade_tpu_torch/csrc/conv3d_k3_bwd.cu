@@ -40,17 +40,54 @@
 // What bounds them on this card: the hot calls are at 256³ (64→32 weight
 // gradient: 1.86 TFLOP; the 32→64 stride-2 data gradient from 128³: 0.23 TFLOP)
 // and compute-bound; the 1-channel ones (1→32, 1→64 at 256³) are bound by
-// reading the 32/64-channel output gradient. These first versions compute
-// with fp32 FMAs on the CUDA cores, not with the tensor cores. The chain
-// options add work per staged input value (K's prologue) or per written
-// output value (J's act′), not per product, so J and K keep those bounds;
-// J's epilogue is a template flag, so F compiles without it.
-//   E/G: a block owns 32 output channels × 4 input channels × 27 taps of dW
-//        (one 4-channel group per thread × 4 (ci, tap) columns) and walks its
-//        share of 8×16 output-voxel tiles; per tile it stages the output
-//        gradient as [voxel][32 channels] and the input patch (halo
-//        zero-filled) in shared memory, so each voxel costs one float4
-//        broadcast of g plus one load per column for 16 FMAs.
+// reading the 32/64-channel output gradient. The chain options add work per
+// staged input value (K's prologue) or per written output value (J's act′),
+// not per product, so J and K keep those bounds; J's epilogue is a template
+// flag, so F compiles without it.
+//   E/G/K, two instances, picked by an explicit rule (dispatch_wgrad; the
+//        Python wrapper applies the same one): bf16 calls with Cin ≥ 8 take
+//        the tensor cores, fp32 calls (TF32 would leave the fp32 tolerances)
+//        and Cin < 8 (the 1-channel convs: K = 1 per tap, bound by reading g)
+//        the CUDA cores.
+//   E/G/K on the tensor cores (wgrad_tc_kernel): the GEMM dW[co, (ci, tap)] =
+//        Σ_voxel g[co, voxel] · x_tap[voxel, ci], M = Cout (32 a block),
+//        N = 32 input channels × 27 taps, K = output voxels, on mma.sync
+//        m16n8k16 bf16 → fp32 (the shape PR 5's probe measured at 424.5
+//        TF/s: Cout = 32 as M, no taps stacked into M; wgmma's 64-row M would
+//        waste half of a 32-channel Cout tile). Nine warps, warp w holding the
+//        taps (w / 3, w % 3, dx = 0..2) for all 32 × 32 (co, ci): 96 fp32
+//        accumulators a thread. A block walks its split's tiles (every
+//        splits-th one, so a wave's blocks work on neighbouring tiles) of
+//        TD × TH × 16 output voxels (4 × 4 × 16 at stride 1, 2 × 2 × 16 at stride 2);
+//        each tile row is one K step of 16 voxels. The alignment trap: a tap
+//        shifts the input by one bf16 (2 bytes) along W, so in x's NCDHW
+//        layout the B rows of dx = 0 and 2 are not 16-byte aligned and
+//        neither ldmatrix nor cp.async takes them. Way out: the input patch is
+//        staged channels-innermost, [position][32 ci] (80-byte rows), so every
+//        tap, at stride 1 or 2, is a per-lane row address of ldmatrix.trans
+//        and every row stays aligned; at stride 2 the even and odd patch
+//        columns are kept apart, so 16 neighbouring voxels read 16
+//        consecutive positions. The transpose is paid once per staged value:
+//        cp.async brings x's rows as they lie ([ci][row][8-column vectors],
+//        16-byte aligned from column S·ow0 − 8, the halo columns inside the
+//        outer vectors), and an 8 × 8 register transpose (byte permutes)
+//        writes the patch, replaying the act prologue in fp32 rounded to bf16
+//        on the way. g, the A operand, is staged by cp.async as it lies
+//        ([co][voxel]), double-buffered; the next tile's copies run under the
+//        current tile's products. The accumulators are flushed into the
+//        split's partial every 16,384 voxels (round-to-nearest adds): the
+//        tensor cores' own fp32 accumulation truncates, and one chain over a
+//        split's whole share left the fp32 tolerance at 256³. Cin is zero-padded to 32 and Cout masked at
+//        the staging; unaligned views (W or Wo not a multiple of 8, odd
+//        strides) stage element by element instead of by cp.async.
+//   E/G/K on the CUDA cores (wgrad_kernel): a block owns 32 output channels
+//        × 4 input channels × 27 taps of dW (one 4-channel group per thread ×
+//        4 (ci, tap) columns) and walks its share of 8×16 output-voxel tiles;
+//        per tile it stages the output gradient as [voxel][32 channels] and
+//        the input patch (halo zero-filled) in shared memory, so each voxel
+//        costs one float4 broadcast of g plus one load per column for 16 FMAs.
+//   Both write one fp32 partial per split of the voxel tiles; a second small
+//   kernel adds the partials in split order (no atomics: repeatable bits).
 //   F:   one input voxel per thread and 32 input channels per block in
 //        registers; per chunk of 8 output channels the block stages the
 //        2×5×17 output-gradient patch its 8×32 input tile reads and the
@@ -65,6 +102,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -219,6 +259,294 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g, float* __restrict
   }
 }
 
+// ------------------------------------------- E, G and K on the tensor cores ---
+
+constexpr int kTcWarps = 9;                // warp w: taps (dz, dy) = (w / 3, w % 3), dx = 0, 1, 2
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcCo = 32;                  // output channels per block: M
+constexpr int kTcCi = 32;                  // input channels per block: N = 32 × 27 taps
+constexpr int kTcTw = 16;                  // tile columns: one K step of 16 voxels per tile row
+constexpr int kTcPld = kTcCi + 8;          // bf16 per patch position: 80 B, an odd number of
+                                           // 16-byte units, so 8 consecutive positions hit
+                                           // 8 different bank groups (ldmatrix conflict-free)
+
+template <int S>
+struct TcShape {
+  static constexpr int TD = S == 1 ? 4 : 2;  // output planes per tile
+  static constexpr int TH = S == 1 ? 4 : 2;  // output rows per tile
+  static constexpr int TW = kTcTw;
+  static constexpr int NV = TD * TH * TW;    // output voxels per tile: the tile's K
+  static constexpr int PD = (TD - 1) * S + 3, PH = (TH - 1) * S + 3, PW = (TW - 1) * S + 3;
+  static constexpr int R = PD * PH;          // rows of the input patch
+  // A raw row: the 8-column vectors from input column S·ow0 − 8 (aligned)
+  // through the patch's last column S·ow0 + (TW − 1)·S + 1.
+  static constexpr int NVEC = ((TW - 1) * S + 9) / 8 + 1;
+  static constexpr int PWE = S == 1 ? PW : TW + 1;  // S = 2: even columns, then odd ones
+  static constexpr int PWP = PW | 1;                // positions per patch row, odd
+  static constexpr int GLD = NV + 8;                // bf16 per output channel of the g tile
+  static constexpr int RAW = kTcCi * NVEC * R * 8;  // bf16, [ci][vector][row][8]
+  static constexpr int PATCH = R * PWP * kTcPld;    // bf16, [row][position][ci]
+  static constexpr int GT = kTcCo * GLD;            // bf16, one of two buffers, [co][voxel]
+  static constexpr int SMEM = (RAW + PATCH + 2 * GT) * 2;
+  // Tiles between two flushes of the accumulators into the split's partial:
+  // 16,384 voxels. The tensor cores add into an fp32 accumulator with
+  // truncation, so its error grows with the chain's length times its
+  // magnitude; shorter chains, added into the partial with round-to-nearest,
+  // stay within the fp32 tolerance of the plain version at 16.7 M voxels (one
+  // chain over a whole split's ~254 K voxels did not).
+  static constexpr int FLUSH = 16384 / NV;
+  // position of patch column pw within its row: S = 2 keeps the even and the
+  // odd columns apart, so the taps of 16 neighbouring output voxels read 16
+  // consecutive positions at either stride
+  static __device__ __forceinline__ int pcol(int pw) {
+    return S == 1 ? pw : (pw & 1) * PWE + (pw >> 1);
+  }
+};
+
+__device__ __forceinline__ uint32_t act_bf16x2(int act, uint32_t w) {
+  const float lo = act_f32(act, __uint_as_float(w << 16));
+  const float hi = act_f32(act, __uint_as_float(w & 0xffff0000u));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// Block b of the 1-D grid: input-channel chunk b % n_ci (fastest, so the
+// chunks that read the same g tiles run together and share them in L2),
+// output-channel tile (b / n_ci) % n_co, split b / (n_ci · n_co) taking the
+// tiles split, split + splits, split + 2·splits, … in that order, so the
+// blocks of a wave work on neighbouring tiles and share their halo rows in
+// L2. VEC: x's rows and strides and g's rows are
+// 16-byte aligned (W, Wo, xbs, xcs multiples of 8), so the staging copies go
+// by cp.async; otherwise element by element.
+template <int S, bool VEC>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wgrad_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                float* __restrict__ partial, int cin, int cout, int nv, int qlo, long long xbs,
+                long long xcs, int act, int H, int W, int Do, int Ho, int Wo, int n_ci, int n_co,
+                int n_tiles, int splits) {
+  using TS = TcShape<S>;
+  constexpr int TD = TS::TD, TH = TS::TH, TW = TS::TW, R = TS::R, PH = TS::PH, NVEC = TS::NVEC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* raw = reinterpret_cast<bf16*>(smem_raw);
+  bf16* patch = raw + TS::RAW;
+  bf16* gsm = patch + TS::PATCH;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ci0 = static_cast<int>(blockIdx.x % n_ci) * kTcCi;
+  const int co0 = static_cast<int>((blockIdx.x / n_ci) % n_co) * kTcCo;
+  const long long split = blockIdx.x / (n_ci * n_co);
+  const int tiles_w = (Wo + TW - 1) / TW;
+  const int tiles_h = (Ho + TH - 1) / TH;
+  const int tiles_d = (Do + TD - 1) / TD;
+  const long long plane = static_cast<long long>(H) * W;
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+
+  // Stage tile `tile`: the raw input rows (channels ci0 … ci0 + 31, zero
+  // outside the view's planes, the image and Cin) and the g tile (zero
+  // outside the output and Cout) into gdst.
+  auto issue = [&](int tile, bf16* gdst) {
+    const int tx = tile % tiles_w;
+    int rest = tile / tiles_w;
+    const int ty = rest % tiles_h;
+    rest /= tiles_h;
+    const int tz = rest % tiles_d;
+    const long long b = rest / tiles_d;
+    const int od0 = tz * TD, oh0 = ty * TH, ow0 = tx * TW;
+    const int p0 = od0 * S - qlo;  // view plane of the patch's first plane
+    const int ih0 = oh0 * S - 1;
+    const int c_first = ow0 * S - 8;
+    const bf16* xb = x + b * xbs;
+    // consecutive threads take consecutive vectors of a row: the warp reads
+    // whole row segments (full 32-byte sectors)
+    for (int u = tid; u < kTcCi * NVEC * R; u += kTcThreads) {
+      const int v = u % NVEC;
+      const int r = (u / NVEC) % R;
+      const int ci = u / (R * NVEC);
+      const int p = p0 + r / PH, ih = ih0 + r % PH, c = c_first + 8 * v;
+      const bool row_ok = ci0 + ci < cin && p >= 0 && p < nv && ih >= 0 && ih < H;
+      bf16* dst = raw + ((ci * NVEC + v) * R + r) * 8;
+      if (VEC) {
+        const bool ok = row_ok && c >= 0 && c < W;  // W % 8 = 0: a vector is all in or out
+        const bf16* src = ok ? xb + (ci0 + ci) * xcs + p * plane + static_cast<long long>(ih) * W + c : x;
+        cp_async16(dst, src, ok ? 16 : 0);
+      } else {
+        unsigned short e8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int ce = c + e;
+          e8[e] = row_ok && ce >= 0 && ce < W
+                      ? __bfloat16_as_ushort(xb[(ci0 + ci) * xcs + p * plane +
+                                                static_cast<long long>(ih) * W + ce])
+                      : 0;
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(e8[0] | (uint32_t(e8[1]) << 16), e8[2] | (uint32_t(e8[3]) << 16),
+                       e8[4] | (uint32_t(e8[5]) << 16), e8[6] | (uint32_t(e8[7]) << 16));
+      }
+    }
+    const bf16* gb = g + (b * cout + co0) * ovol;
+    for (int u = tid; u < kTcCo * TD * TH * (TW / 8); u += kTcThreads) {
+      const int h8 = u % (TW / 8);
+      const int vy = (u / (TW / 8)) % TH;
+      const int vz = (u / (TW / 8 * TH)) % TD;
+      const int co = u / (TW / 8 * TH * TD);
+      const int od = od0 + vz, oh = oh0 + vy, ow = ow0 + 8 * h8;
+      bf16* dst = gdst + co * TS::GLD + (vz * TH + vy) * TW + 8 * h8;
+      const bool row_ok = co0 + co < cout && od < Do && oh < Ho;
+      const long long off = co * ovol + od * oplane + static_cast<long long>(oh) * Wo + ow;
+      if (VEC) {
+        const bool ok = row_ok && ow < Wo;  // Wo % 8 = 0
+        cp_async16(dst, ok ? gb + off : g, ok ? 16 : 0);
+      } else {
+        unsigned short e8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          e8[e] = row_ok && ow + e < Wo ? __bfloat16_as_ushort(gb[off + e]) : 0;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(e8[0] | (uint32_t(e8[1]) << 16), e8[2] | (uint32_t(e8[3]) << 16),
+                       e8[4] | (uint32_t(e8[5]) << 16), e8[6] | (uint32_t(e8[7]) << 16));
+      }
+    }
+  };
+
+  // raw [ci][vector][row][8 columns] → patch [row][position][ci]: each unit
+  // is 8 channels × 8 columns, transposed in registers (byte permutes), the
+  // prologue applied on the way. Consecutive threads take consecutive rows,
+  // so the 16-byte reads and writes of a quarter warp are conflict-free.
+  auto transpose = [&]() {
+    for (int u = tid; u < (kTcCi / 8) * NVEC * R; u += kTcThreads) {
+      const int r = u % R;
+      const int v = (u / R) % NVEC;
+      const int cg = u / (R * NVEC);
+      uint32_t w[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint4 t = *reinterpret_cast<const uint4*>(
+            raw + ((static_cast<long long>(cg * 8 + i) * NVEC + v) * R + r) * 8);
+        w[i][0] = t.x, w[i][1] = t.y, w[i][2] = t.z, w[i][3] = t.w;
+      }
+      if (act) {  // the forward's prologue, rounded to bf16; act(0) = 0 keeps the padding
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) w[i][j] = act_bf16x2(act, w[i][j]);
+      }
+      bf16* prow = patch + static_cast<long long>(r) * TS::PWP * kTcPld + cg * 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int pw = 8 * v + e - 7;  // raw column 0 is input column S·ow0 − 8
+        if (pw < 0 || pw >= TS::PW) continue;
+        const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+        const int j = e >> 1;
+        *reinterpret_cast<uint4*>(prow + TS::pcol(pw) * kTcPld) =
+            make_uint4(__byte_perm(w[0][j], w[1][j], sel), __byte_perm(w[2][j], w[3][j], sel),
+                       __byte_perm(w[4][j], w[5][j], sel), __byte_perm(w[6][j], w[7][j], sel));
+      }
+    }
+  };
+
+  const int dz = warp / 3, dy = warp % 3;
+  // this lane's row of the ldmatrix.trans B loads: output column ltx of a
+  // tile row, channels lci … lci + 7 of a 16-channel group
+  const int ltx = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int lci = (lane >> 4) << 3;
+  int lpos[3];
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) lpos[dx] = TS::pcol(ltx * S + dx) * kTcPld + lci;
+
+  float acc[3][4][2][4];  // [dx][8-channel column tile][16-row co tile][fragment]
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][b][c][e] = 0.f;
+
+  // partial[split][co][ci][tap], as the CUDA-core instance writes it: the
+  // first flush stores, the later ones add (each element has one writer).
+  // Written out in place: a lambda capturing acc put it in local memory.
+  const long long n_out = static_cast<long long>(cout) * cin * 27;
+  float* pb = partial + split * n_out;
+// Per dx: the 32 old values are loaded first, all in flight together, then
+// added and stored (one load, add and store at a time would wait on device
+// memory 96 times a flush).
+#define HVC_TC_FLUSH(FIRST)                                                                     \
+  _Pragma("unroll") for (int dx = 0; dx < 3; ++dx) {                                            \
+    float old[4][2][4];                                                                         \
+    _Pragma("unroll") for (int nt = 0; nt < 4; ++nt)                                            \
+    _Pragma("unroll") for (int mt = 0; mt < 2; ++mt)                                            \
+    _Pragma("unroll") for (int f = 0; f < 4; ++f) {                                             \
+      const int co = co0 + mt * 16 + (lane >> 2) + (f >> 1) * 8;                                \
+      const int ci = ci0 + nt * 8 + (lane & 3) * 2 + (f & 1);                                    \
+      old[nt][mt][f] = !(FIRST) && co < cout && ci < cin                                        \
+          ? pb[(static_cast<long long>(co) * cin + ci) * 27 + dz * 9 + dy * 3 + dx] : 0.f;      \
+    }                                                                                           \
+    _Pragma("unroll") for (int nt = 0; nt < 4; ++nt)                                            \
+    _Pragma("unroll") for (int mt = 0; mt < 2; ++mt)                                            \
+    _Pragma("unroll") for (int f = 0; f < 4; ++f) {                                             \
+      const int co = co0 + mt * 16 + (lane >> 2) + (f >> 1) * 8;                                \
+      const int ci = ci0 + nt * 8 + (lane & 3) * 2 + (f & 1);                                    \
+      if (co < cout && ci < cin)                                                                \
+        pb[(static_cast<long long>(co) * cin + ci) * 27 + dz * 9 + dy * 3 + dx] =               \
+            old[nt][mt][f] + acc[dx][nt][mt][f];                                                \
+      acc[dx][nt][mt][f] = 0.f;                                                                 \
+    }                                                                                           \
+  }
+
+  const int first_tile = static_cast<int>(split);
+  if (first_tile < n_tiles) {
+    issue(first_tile, gsm);
+  } else {
+    HVC_TC_FLUSH(true)  // an empty split writes zeros
+  }
+  cp_async_commit();
+  int buf = 0;
+  int done = 0;
+  for (int tile = first_tile; tile < n_tiles; tile += splits) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's raw rows and g landed; the patch is no longer read
+    transpose();
+    __syncthreads();  // the patch is ready; the raw rows are free
+    if (tile + splits < n_tiles) issue(tile + splits, gsm + (buf ^ 1) * TS::GT);
+    cp_async_commit();
+    const bf16* gt = gsm + buf * TS::GT;
+#pragma unroll 1
+    for (int vz = 0; vz < TD; ++vz) {
+#pragma unroll
+      for (int vy = 0; vy < TH; ++vy) {
+        const int k0 = (vz * TH + vy) * TW;
+        uint32_t a[2][4];
+        load_a(a[0], gt, TS::GLD, 0, k0, lane);
+        load_a(a[1], gt, TS::GLD, 16, k0, lane);
+        const bf16* prow =
+            patch + static_cast<long long>((vz * S + dz) * PH + vy * S + dy) * TS::PWP * kTcPld;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int c16 = 0; c16 < 2; ++c16) {
+            uint32_t bfr[4];
+            ldsm_x4_t(bfr, prow + lpos[dx] + c16 * 16);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma16816(acc[dx][2 * c16][mt], a[mt], bfr[0], bfr[1]);
+              mma16816(acc[dx][2 * c16 + 1][mt], a[mt], bfr[2], bfr[3]);
+            }
+          }
+      }
+    }
+    buf ^= 1;
+    ++done;
+    if (done % TS::FLUSH == 0 || tile + splits >= n_tiles) {
+      HVC_TC_FLUSH(done <= TS::FLUSH)
+    }
+  }
+  cp_async_wait<0>();
+#undef HVC_TC_FLUSH
+}
+
 // out[i] = Σ_s partial[s][i], in split order.
 __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
                                     long long n, int splits) {
@@ -253,6 +581,41 @@ int launch_wgrad(const void* x, const void* g, void* partial, void* out, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int S, bool VEC>
+int launch_wgrad_tc(const void* x, const void* g, void* partial, void* out, long long batch,
+                    int cin, int cout, int nv, int qlo, long long xb, long long xc, int act, int H,
+                    int W, int Do, int splits, cudaStream_t stream) {
+  using TS = TcShape<S>;
+  const int Ho = (H - 1) / S + 1;
+  const int Wo = (W - 1) / S + 1;
+  const long long n_tiles = batch * static_cast<long long>((Do + TS::TD - 1) / TS::TD) *
+                            ((Ho + TS::TH - 1) / TS::TH) * ((Wo + TS::TW - 1) / TS::TW);
+  const int n_co = (cout + kTcCo - 1) / kTcCo;
+  const int n_ci = (cin + kTcCi - 1) / kTcCi;
+  if (splits < 1 || splits > n_tiles || n_tiles > 2147483647LL ||
+      static_cast<long long>(splits) * n_co * n_ci > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = wgrad_tc_kernel<S, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TS::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<static_cast<unsigned>(splits * n_co * n_ci), kTcThreads, TS::SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<float*>(partial),
+      cin, cout, nv, qlo, xb, xc, act, H, W, Do, Ho, Wo, n_ci, n_co, static_cast<int>(n_tiles),
+      splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = static_cast<long long>(cout) * cin * 27;
+  sum_partials_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance a call takes, an explicit rule (no fallback): bf16 with
+// Cin ≥ 8 → the tensor cores (wgrad_tc_kernel); fp32 (tensor cores would
+// mean TF32, outside the fp32 tolerances) and Cin < 8 (the 1-channel
+// convs, bound by reading g: K = 1 per tap leaves the tensor cores nothing)
+// → the CUDA-core wgrad_kernel. The Python wrapper applies the same rule
+// (ops/cuda/conv3d_k3.py: wgrad_uses_tensor_cores) to size the split.
 template <int S>
 int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
                    int cin, int cout, int nv, int qlo, long long xb, long long xc, int act,
@@ -261,6 +624,16 @@ int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long 
       act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && cin >= 8) {
+    const int Wo = (W - 1) / S + 1;
+    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(g) % 16 == 0 && W % 8 == 0 && Wo % 8 == 0 &&
+                     xb % 8 == 0 && xc % 8 == 0;
+    return vec ? launch_wgrad_tc<S, true>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc,
+                                          act, H, W, Do, splits, s)
+               : launch_wgrad_tc<S, false>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc,
+                                           act, H, W, Do, splits, s);
+  }
   const bool small = cin < 4;
 #define LAUNCH_WGRAD(T, C) \
   launch_wgrad<T, S, C>(x, g, partial, out, batch, cin, cout, nv, qlo, xb, xc, act, H, W, Do, splits, s)

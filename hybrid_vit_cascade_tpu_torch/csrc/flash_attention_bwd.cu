@@ -9,10 +9,16 @@
 // What differs from the TPU kernel, and why:
 // - The TPU kernel accumulates dq in VMEM across a sequential kv sweep
 //   ("TPU grid steps run sequentially"). Hopper blocks run concurrently, so
-//   here one block owns a tile of BKV keys, sweeps every query tile, keeps its
-//   dk and dv in registers, and adds its share of dq into an fp32 (BH, Nq, d)
-//   buffer with atomicAdd. The caller zeroes that buffer and casts it to the
-//   input dtype afterwards.
+//   here a block owns a group of consecutive key tiles of BKV keys each and
+//   takes them one after the other: for each it sweeps every query tile,
+//   keeps the tile's dk and dv in registers and adds its share of dq into the
+//   group's own fp32 (BH, Nq, d) partial, by a plain read-modify-write (the
+//   group's first tile writes it). No atomics: each partial element has one
+//   writer, which adds the key tiles in order, and a second small kernel adds
+//   the G partials in group order and casts to the input dtype, so two runs
+//   give the same bits, as the TPU kernel's grid-order sum does. The caller
+//   picks G (about 4 blocks per SM; every group non-empty) and allocates the
+//   (G, BH, Nq, d) partials uninitialised.
 // - The lse is the natural-log one kernel A stores; there is no base-2/LN2
 //   bookkeeping, no 128-lane padding of d and no lse = 1e30 padded rows.
 //   Bounds checks mask the ragged kv tail and the ragged last query tile.
@@ -28,11 +34,16 @@
 // read as float4 broadcasts, so the four per-row products issue four FMAs per
 // shared-memory load. The dq share of a (query tile, key tile) pair is a small
 // product ds·K done from shared memory with a register-blocked tile, then one
-// atomicAdd per element.
+// read-modify-write of the group's partial per element (a float4 per thread
+// and row). Against the atomics of the first version this adds a read of the
+// partial per (key tile, query tile) pair; the partials (G·BH·Nq·d fp32, 2.1
+// GB at 8 × 32,768 queries, d = 32, G = 64) do not fit the L2, so that read
+// comes from device memory, overlapped with the products.
 //
 // Layout: q (BH, Nq, d), k and v (BH, Nk, d), dout (BH, Nq, d), contiguous,
-// fp32 or bf16; lse and delta (BH, Nq) fp32; dq_acc (BH, Nq, d) fp32, zeroed by
-// the caller; dk and dv (BH, Nk, d) in the input dtype. All offsets 64-bit.
+// fp32 or bf16; lse and delta (BH, Nq) fp32; dq_part (G, BH, Nq, d) fp32
+// scratch; dq (BH, Nq, d), dk and dv (BH, Nk, d) in the input dtype. All
+// offsets 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +52,7 @@
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBkv = 64;  // keys per block
+constexpr int kBkv = 64;  // keys per key tile
 constexpr int kDh = 32;   // columns owned by one thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -65,13 +76,15 @@ struct BwdShape {
   static constexpr int kRows = kBq * kColGroups / kThreads;  // dq rows per thread
 };
 
+// Grid (G, BH): block (grp, bh) takes key tiles grp·per … grp·per + per − 1
+// (those below n_tiles) in order and writes dq_part[grp, bh].
 template <typename T, int D>
 __global__ void __launch_bounds__(BwdShape<D>::kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq_acc,
-                 T* __restrict__ dk, T* __restrict__ dv, long long nq, long long nk,
-                 float scale) {
+                 const float* __restrict__ delta, float* __restrict__ dq_part,
+                 T* __restrict__ dk, T* __restrict__ dv, long long bhs, long long nq,
+                 long long nk, long long per, float scale) {
   using S = BwdShape<D>;
   constexpr int TPR = S::kTpr;
   constexpr int NT = S::kThreads;
@@ -88,168 +101,199 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   __shared__ float lse_s[BQ];
   __shared__ float delta_s[BQ];
 
+  const long long grp = blockIdx.x;
   const long long bh = blockIdx.y;
-  const long long kv0 = static_cast<long long>(blockIdx.x) * kBkv;
   const int tid = threadIdx.x;
   const int jr = tid / TPR;         // key row within the tile
   const int c0 = (tid % TPR) * kDh;  // first column owned by this thread
-  const long long j = kv0 + jr;
-  const bool jvalid = j < nk;
+  const float scale_log2 = scale * kLog2e;
+  const int cg = tid % CG;  // dq phase: float4 column group
+  const int rg = tid / CG;  // dq phase: row group
 
   const T* qb = q + bh * nq * D;
   const T* dob = dout + bh * nq * D;
   const T* kb = k + bh * nk * D;
   const T* vb = v + bh * nk * D;
+  float* dqb = dq_part + (grp * bhs + bh) * nq * D;
 
-  float kr[kDh], vr[kDh], dkr[kDh], dvr[kDh];
-  {
-    const T* krow = kb + (jvalid ? j : 0) * D + c0;
-    const T* vrow = vb + (jvalid ? j : 0) * D + c0;
+  const long long n_tiles = (nk + kBkv - 1) / kBkv;
+  const long long kt_end = min(n_tiles, (grp + 1) * per);
+  for (long long kt = grp * per; kt < kt_end; ++kt) {
+    const bool first = kt == grp * per;  // writes the partial; later tiles add to it
+    const long long kv0 = kt * kBkv;
+    const long long j = kv0 + jr;
+    const bool jvalid = j < nk;
+
+    float kr[kDh], vr[kDh], dkr[kDh], dvr[kDh];
+    {
+      const T* krow = kb + (jvalid ? j : 0) * D + c0;
+      const T* vrow = vb + (jvalid ? j : 0) * D + c0;
 #pragma unroll
-    for (int c = 0; c < kDh; ++c) {
-      kr[c] = jvalid ? to_f32(krow[c]) : 0.f;
-      vr[c] = jvalid ? to_f32(vrow[c]) : 0.f;
-      dkr[c] = 0.f;
-      dvr[c] = 0.f;
-    }
-  }
-  for (int i = tid; i < kBkv * D; i += NT) {
-    const bool in = kv0 + i / D < nk;
-    ks[i] = in ? to_f32(kb[kv0 * D + i]) : 0.f;
-  }
-
-  const float scale_log2 = scale * kLog2e;
-  const int cg = tid % CG;  // dq phase: float4 column group
-  const int rg = tid / CG;  // dq phase: row group
-
-  for (long long q0 = 0; q0 < nq; q0 += BQ) {
-    __syncthreads();  // the previous query tile is no longer read
-    for (int i = tid; i < BQ * D; i += NT) {
-      const bool in = q0 + i / D < nq;
-      qs[i] = in ? to_f32(qb[q0 * D + i]) : 0.f;
-      dos[i] = in ? to_f32(dob[q0 * D + i]) : 0.f;
-    }
-    for (int i = tid; i < BQ; i += NT) {
-      const bool in = q0 + i < nq;
-      // base 2, so p = exp2(s·scale·log2e − lse·log2e); +inf gives p = 0 on
-      // the rows past Nq
-      lse_s[i] = in ? lse[bh * nq + q0 + i] * kLog2e : CUDART_INF_F;
-      delta_s[i] = in ? delta[bh * nq + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    for (int i = 0; i < BQ; ++i) {
-      const float4* qrow = reinterpret_cast<const float4*>(qs + i * D + c0);
-      const float4* drow = reinterpret_cast<const float4*>(dos + i * D + c0);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < kDh / 4; ++c4) {
-        const float4 qq = qrow[c4];
-        const float4 dd = drow[c4];
-        s = fmaf(qq.x, kr[4 * c4 + 0], s);
-        s = fmaf(qq.y, kr[4 * c4 + 1], s);
-        s = fmaf(qq.z, kr[4 * c4 + 2], s);
-        s = fmaf(qq.w, kr[4 * c4 + 3], s);
-        dp = fmaf(dd.x, vr[4 * c4 + 0], dp);
-        dp = fmaf(dd.y, vr[4 * c4 + 1], dp);
-        dp = fmaf(dd.z, vr[4 * c4 + 2], dp);
-        dp = fmaf(dd.w, vr[4 * c4 + 3], dp);
+      for (int c = 0; c < kDh; ++c) {
+        kr[c] = jvalid ? to_f32(krow[c]) : 0.f;
+        vr[c] = jvalid ? to_f32(vrow[c]) : 0.f;
+        dkr[c] = 0.f;
+        dvr[c] = 0.f;
       }
-      if (TPR == 2) {  // the two halves of a key row are neighbouring lanes
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      }
-      const float p = jvalid ? exp2f(fmaf(s, scale_log2, -lse_s[i])) : 0.f;
-      const float ds = p * (dp - delta_s[i]);
-#pragma unroll
-      for (int c4 = 0; c4 < kDh / 4; ++c4) {
-        const float4 qq = qrow[c4];
-        const float4 dd = drow[c4];
-        dvr[4 * c4 + 0] = fmaf(p, dd.x, dvr[4 * c4 + 0]);
-        dvr[4 * c4 + 1] = fmaf(p, dd.y, dvr[4 * c4 + 1]);
-        dvr[4 * c4 + 2] = fmaf(p, dd.z, dvr[4 * c4 + 2]);
-        dvr[4 * c4 + 3] = fmaf(p, dd.w, dvr[4 * c4 + 3]);
-        dkr[4 * c4 + 0] = fmaf(ds, qq.x, dkr[4 * c4 + 0]);
-        dkr[4 * c4 + 1] = fmaf(ds, qq.y, dkr[4 * c4 + 1]);
-        dkr[4 * c4 + 2] = fmaf(ds, qq.z, dkr[4 * c4 + 2]);
-        dkr[4 * c4 + 3] = fmaf(ds, qq.w, dkr[4 * c4 + 3]);
-      }
-      if (c0 == 0) ds_s[i * DSS + jr] = ds;
     }
-    __syncthreads();
+    __syncthreads();  // the previous key tile's ks is no longer read
+    for (int i = tid; i < kBkv * D; i += NT) {
+      const bool in = kv0 + i / D < nk;
+      ks[i] = in ? to_f32(kb[kv0 * D + i]) : 0.f;
+    }
 
-    // dq[i, :] += scale · Σ_j ds[i, j] · k[j, :] for this key tile
-    float acc[RQ][4];
+    for (long long q0 = 0; q0 < nq; q0 += BQ) {
+      __syncthreads();  // the previous query tile is no longer read
+      for (int i = tid; i < BQ * D; i += NT) {
+        const bool in = q0 + i / D < nq;
+        qs[i] = in ? to_f32(qb[q0 * D + i]) : 0.f;
+        dos[i] = in ? to_f32(dob[q0 * D + i]) : 0.f;
+      }
+      for (int i = tid; i < BQ; i += NT) {
+        const bool in = q0 + i < nq;
+        // base 2, so p = exp2(s·scale·log2e − lse·log2e); +inf gives p = 0 on
+        // the rows past Nq
+        lse_s[i] = in ? lse[bh * nq + q0 + i] * kLog2e : CUDART_INF_F;
+        delta_s[i] = in ? delta[bh * nq + q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      for (int i = 0; i < BQ; ++i) {
+        const float4* qrow = reinterpret_cast<const float4*>(qs + i * D + c0);
+        const float4* drow = reinterpret_cast<const float4*>(dos + i * D + c0);
+        float s = 0.f, dp = 0.f;
 #pragma unroll
-    for (int r = 0; r < RQ; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    for (int jj = 0; jj < kBkv; ++jj) {
-      const float4 kk = *reinterpret_cast<const float4*>(ks + jj * D + cg * 4);
+        for (int c4 = 0; c4 < kDh / 4; ++c4) {
+          const float4 qq = qrow[c4];
+          const float4 dd = drow[c4];
+          s = fmaf(qq.x, kr[4 * c4 + 0], s);
+          s = fmaf(qq.y, kr[4 * c4 + 1], s);
+          s = fmaf(qq.z, kr[4 * c4 + 2], s);
+          s = fmaf(qq.w, kr[4 * c4 + 3], s);
+          dp = fmaf(dd.x, vr[4 * c4 + 0], dp);
+          dp = fmaf(dd.y, vr[4 * c4 + 1], dp);
+          dp = fmaf(dd.z, vr[4 * c4 + 2], dp);
+          dp = fmaf(dd.w, vr[4 * c4 + 3], dp);
+        }
+        if (TPR == 2) {  // the two halves of a key row are neighbouring lanes
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        }
+        const float p = jvalid ? exp2f(fmaf(s, scale_log2, -lse_s[i])) : 0.f;
+        const float ds = p * (dp - delta_s[i]);
+#pragma unroll
+        for (int c4 = 0; c4 < kDh / 4; ++c4) {
+          const float4 qq = qrow[c4];
+          const float4 dd = drow[c4];
+          dvr[4 * c4 + 0] = fmaf(p, dd.x, dvr[4 * c4 + 0]);
+          dvr[4 * c4 + 1] = fmaf(p, dd.y, dvr[4 * c4 + 1]);
+          dvr[4 * c4 + 2] = fmaf(p, dd.z, dvr[4 * c4 + 2]);
+          dvr[4 * c4 + 3] = fmaf(p, dd.w, dvr[4 * c4 + 3]);
+          dkr[4 * c4 + 0] = fmaf(ds, qq.x, dkr[4 * c4 + 0]);
+          dkr[4 * c4 + 1] = fmaf(ds, qq.y, dkr[4 * c4 + 1]);
+          dkr[4 * c4 + 2] = fmaf(ds, qq.z, dkr[4 * c4 + 2]);
+          dkr[4 * c4 + 3] = fmaf(ds, qq.w, dkr[4 * c4 + 3]);
+        }
+        if (c0 == 0) ds_s[i * DSS + jr] = ds;
+      }
+      __syncthreads();
+
+      // dq[i, :] += scale · Σ_j ds[i, j] · k[j, :] for this key tile
+      float acc[RQ][4];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+      for (int jj = 0; jj < kBkv; ++jj) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + jj * D + cg * 4);
+#pragma unroll
+        for (int r = 0; r < RQ; ++r) {
+          const float d = ds_s[(rg * RQ + r) * DSS + jj];
+          acc[r][0] = fmaf(d, kk.x, acc[r][0]);
+          acc[r][1] = fmaf(d, kk.y, acc[r][1]);
+          acc[r][2] = fmaf(d, kk.z, acc[r][2]);
+          acc[r][3] = fmaf(d, kk.w, acc[r][3]);
+        }
+      }
 #pragma unroll
       for (int r = 0; r < RQ; ++r) {
-        const float d = ds_s[(rg * RQ + r) * DSS + jj];
-        acc[r][0] = fmaf(d, kk.x, acc[r][0]);
-        acc[r][1] = fmaf(d, kk.y, acc[r][1]);
-        acc[r][2] = fmaf(d, kk.z, acc[r][2]);
-        acc[r][3] = fmaf(d, kk.w, acc[r][3]);
+        const long long row = q0 + rg * RQ + r;
+        if (row < nq) {
+          float4* dst = reinterpret_cast<float4*>(dqb + row * D + cg * 4);
+          float4 val = make_float4(acc[r][0] * scale, acc[r][1] * scale, acc[r][2] * scale,
+                                   acc[r][3] * scale);
+          if (!first) {
+            const float4 old = *dst;
+            val = make_float4(old.x + val.x, old.y + val.y, old.z + val.z, old.w + val.w);
+          }
+          *dst = val;
+        }
       }
     }
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const long long row = q0 + rg * RQ + r;
-      if (row < nq) {
-        float* dst = dq_acc + (bh * nq + row) * D + cg * 4;
-        atomicAdd(dst + 0, acc[r][0] * scale);
-        atomicAdd(dst + 1, acc[r][1] * scale);
-        atomicAdd(dst + 2, acc[r][2] * scale);
-        atomicAdd(dst + 3, acc[r][3] * scale);
-      }
-    }
-  }
 
-  if (jvalid) {
-    T* dkrow = dk + (bh * nk + j) * D + c0;
-    T* dvrow = dv + (bh * nk + j) * D + c0;
+    if (jvalid) {
+      T* dkrow = dk + (bh * nk + j) * D + c0;
+      T* dvrow = dv + (bh * nk + j) * D + c0;
 #pragma unroll
-    for (int c = 0; c < kDh; ++c) {
-      dkrow[c] = from_f32<T>(dkr[c] * scale);
-      dvrow[c] = from_f32<T>(dvr[c]);
+      for (int c = 0; c < kDh; ++c) {
+        dkrow[c] = from_f32<T>(dkr[c] * scale);
+        dvrow[c] = from_f32<T>(dvr[c]);
+      }
     }
   }
 }
 
+// dq[i] = Σ_g dq_part[g][i] in group order, cast to T.
+template <typename T>
+__global__ void sum_groups_kernel(const float* __restrict__ dq_part, T* __restrict__ dq,
+                                  long long n, int groups) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int g = 0; g < groups; ++g) s += dq_part[g * n + i];
+  dq[i] = from_f32<T>(s);
+}
+
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-            const void* delta, void* dq_acc, void* dk, void* dv, long long bh, long long nq,
-            long long nk, float scale, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((nk + kBkv - 1) / kBkv), static_cast<unsigned>(bh));
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq_part, void* dq, void* dk, void* dv, long long bh,
+           long long nq, long long nk, int groups, float scale, cudaStream_t stream) {
+  const long long n_tiles = (nk + kBkv - 1) / kBkv;
+  const long long per = (n_tiles + groups - 1) / groups;
+  // every group takes at least one key tile: its partial is written
+  if (groups < 1 || groups > n_tiles || (groups - 1) * per >= n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(bh));
   flash_bwd_kernel<T, D><<<grid, BwdShape<D>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq_acc), static_cast<T*>(dk),
-      static_cast<T*>(dv), nq, nk, scale);
+      static_cast<const float*>(delta), static_cast<float*>(dq_part), static_cast<T*>(dk),
+      static_cast<T*>(dv), bh, nq, nk, per, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = bh * nq * D;
+  sum_groups_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(dq_part), static_cast<T*>(dq), n, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. groups: the number G
+// of key-tile groups (1 ≤ G ≤ ⌈Nk/64⌉, every group non-empty); dq_part holds
+// G·BH·Nq·d fp32. Returns a cudaError_t.
 extern "C" int hvc_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
-                                       void* dq_acc, void* dk, void* dv, long long bh,
+                                       void* dq_part, void* dq, void* dk, void* dv, long long bh,
                                        long long nq, long long nk, int head_dim, int dtype,
-                                       float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (nk + kBkv - 1) / kBkv > 2147483647LL)
+                                       int groups, float scale, void* stream) {
+  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || bh * nq * head_dim / 256 > 2147483646LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 32) {
-    launch<float, 32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
-  } else if (dtype == 0 && head_dim == 64) {
-    launch<float, 64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
-  } else if (dtype == 1 && head_dim == 32) {
-    launch<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, nq, nk, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define LAUNCH_BWD(T, D) \
+  launch<T, D>(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, bh, nq, nk, groups, scale, s)
+  if (dtype == 0 && head_dim == 32) return LAUNCH_BWD(float, 32);
+  if (dtype == 0 && head_dim == 64) return LAUNCH_BWD(float, 64);
+  if (dtype == 1 && head_dim == 32) return LAUNCH_BWD(__nv_bfloat16, 32);
+  if (dtype == 1 && head_dim == 64) return LAUNCH_BWD(__nv_bfloat16, 64);
+#undef LAUNCH_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }

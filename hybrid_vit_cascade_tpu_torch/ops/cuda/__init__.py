@@ -19,8 +19,9 @@ def launch_counts() -> Dict[str, int]:
     flash_attention_bwd_dkv (M), and the conv counters conv3d_k3s{1,2} (B, C),
     conv3d_k3s1_dgrad (B as the stride-1 data gradient), conv3d_k3s2_dgrad
     (F), conv3d_k3s{1,2}_wgrad (E, G) and their ``_chain`` forms (H, I; H as
-    the stride-1 data gradient, J; K), and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8}
-    (N)."""
+    the stride-1 data gradient, J; K), conv3d_k3s{1,2}_wgrad_tc (the launches
+    of E, G and K on the tensor-core instance, counted beside their letter),
+    and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
     from . import flash_attention as fa

@@ -10,7 +10,8 @@ library with a plain C interface::
          -o build/kernels/<hash>/libhvc_kernels.so build/kernels/<hash>/*.o
 
 The library lands under ``build/kernels/`` at the repository root, in a
-directory named by a hash of the sources and flags, so an unchanged tree
+directory named by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an unchanged tree
 reuses it and an edited one rebuilds. Nothing is compiled on import: the
 first call to :func:`library` (or :func:`build`) does it. No PyTorch headers
 are involved, which keeps a cold build to seconds.
@@ -55,10 +56,14 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def build_dir() -> Path:
-    """Directory of the library for the current sources and flags."""
+    """Directory of the library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16]

@@ -34,7 +34,9 @@ Every wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain version for tensors on the CPU; for any other device it raises. It
 never falls back from the kernel to the plain version. Each launch adds one
 to its letter's counter in ``LAUNCHES`` (the stride-1 data gradient is
-counted there, not under the forward).
+counted there, not under the forward); a weight gradient on the tensor-core
+instance (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) also adds one to
+``conv3d_k3s{1,2}_wgrad_tc``.
 """
 
 from __future__ import annotations
@@ -63,11 +65,15 @@ _DGRAD_ARGTYPES = (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _
 # Output voxels per forward block (csrc/conv3d_k3.cu): the Σ/Σ² epilogue
 # writes one partial per block.
 _FWD_TILE = {1: (8, 32), 2: (8, 16)}
-# Blocks the weight-gradient kernels aim for (8 per SM of an H100's 132): the
-# B·D·H·W reduction is split into that many fp32 partials over the output
-# tiles (csrc/conv3d_k3_bwd.cu: 8×16 output voxels per tile, 32 output and 4
-# input channels per block, 1 input channel when Cin < 4).
-_WGRAD_BLOCKS = 1056
+# The weight gradient's two instances (csrc/conv3d_k3_bwd.cu), each as
+# (output voxels per tile (D, H, W), output and input channels per block,
+# blocks per SM it aims for): the B·Do·Ho·Wo reduction is split into fp32
+# partials over the output tiles, one per block of (split, Cout tile, Cin
+# chunk). The tensor-core instance holds 162 KB of shared memory (139 KB at
+# stride 2), one block per SM; the CUDA-core one takes 1 input channel a block
+# when Cin < 4.
+_WGRAD_TC = {1: ((4, 4, 16), 32, 32, 1), 2: ((2, 2, 16), 32, 32, 1)}
+_WGRAD_CUDA_CORE = ((1, 8, 16), 32, 4, 8)
 
 
 def _out_dims(dhw, stride: int) -> tuple[int, int, int]:
@@ -246,13 +252,16 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
 
 def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
            act: Optional[str] = None) -> torch.Tensor:
-    """Launch kernel E/G/K: dW fp32 of the (chain) conv of x for g."""
+    """Launch kernel E/G/K: dW fp32 of the (chain) conv of x for g, on the
+    instance ``wgrad_uses_tensor_cores`` names; a tensor-core launch also
+    counts in ``conv3d_k3s{stride}_wgrad_tc``."""
     _check_cuda(x)
     _check_view("x", x, g.dtype, g.device)
     B, cin, nv, H, W = x.shape
     cout, d_out = g.shape[1], g.shape[2]
     _check_out_grad(g, (B, cout, d_out, *_out_dims((H, W), stride)))
-    splits = _wgrad_splits((B, cin, d_out, H, W), cout, stride)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tc, splits, _ = wgrad_plan((B, cin, d_out, H, W), cout, stride, x.dtype, sms)
     partial = torch.empty((splits, cout, cin, 27), dtype=torch.float32, device=x.device)
     out = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=x.device)
     fn = _build.function(entry, _WGRAD_ARGTYPES)
@@ -262,17 +271,43 @@ def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
                 nv, H, W, d_out, qlo, x.stride(0), x.stride(1), _ACT_CODES[act],
                 _DTYPE_CODES[x.dtype], splits, stream)
     _build.check(rc, entry)
+    if tc:
+        LAUNCHES[f"conv3d_k3s{stride}_wgrad_tc"] += 1
     return out
 
 
-def _wgrad_splits(out_shape, cout: int, stride: int) -> int:
-    """Number of partial sums of the B·Do·Ho·Wo reduction (see _WGRAD_BLOCKS);
-    out_shape = (B, Cin, Do, H, W): output planes, input rows and columns."""
+def wgrad_uses_tensor_cores(dtype: torch.dtype, cin: int) -> bool:
+    """Which instance of the weight gradient a call takes, the rule of
+    ``dispatch_wgrad`` (csrc/conv3d_k3_bwd.cu): bf16 with Cin ≥ 8 runs on the
+    tensor cores; fp32 (TF32 would leave the fp32 tolerances) and Cin < 8 (the
+    1-channel convs, bound by reading g) on the CUDA cores."""
+    return dtype == torch.bfloat16 and cin >= 8
+
+
+def split_tiles(n_tiles: int, blocks: int) -> tuple[int, int]:
+    """(splits, per): split s takes tiles s·per … min(n, (s + 1)·per) − 1, about
+    ``blocks`` splits, none of them empty."""
+    per = -(-n_tiles // max(1, min(n_tiles, blocks)))
+    return -(-n_tiles // per), per
+
+
+def wgrad_plan(out_shape, cout: int, stride: int, dtype: torch.dtype,
+               sms: int) -> tuple[bool, int, int]:
+    """(tensor cores, splits, tiles) of a weight-gradient call on a card with
+    ``sms`` SMs; out_shape = (B, Cin, Do, H, W): output planes, input rows and
+    columns. Each tile goes to one split, none is empty, and the blocks
+    (splits × Cout tiles × Cin chunks) aim for the instance's blocks per SM:
+    on the CUDA cores split s takes a contiguous range (``split_tiles``), on
+    the tensor cores the tiles s, s + splits, s + 2·splits, …"""
     b, cin, do = out_shape[:3]
     ho, wo = _out_dims(out_shape[3:], stride)
-    n_tiles = b * do * -(-ho // 8) * -(-wo // 16)
-    groups = -(-cout // 32) * -(-cin // (1 if cin < 4 else 4))
-    return max(1, min(n_tiles, -(-_WGRAD_BLOCKS // groups)))
+    tc = wgrad_uses_tensor_cores(dtype, cin)
+    (td, th, tw), co_blk, ci_blk, per_sm = _WGRAD_TC[stride] if tc else _WGRAD_CUDA_CORE
+    if not tc and cin < 4:
+        ci_blk = 1
+    n_tiles = b * -(-do // td) * -(-ho // th) * -(-wo // tw)
+    groups = -(-cout // co_blk) * -(-cin // ci_blk)
+    return tc, split_tiles(n_tiles, max(1, per_sm * sms // groups))[0], n_tiles
 
 
 def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
@@ -370,7 +405,8 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
                     act: Optional[str] = None, *, dense: bool = False) -> torch.Tensor:
     """dW (Cout, Cin, 3, 3, 3) fp32 of ``conv3d_k3(x, ·, ·, stride, qlo, ...)``
     for output gradient g, the prologue replayed: kernel E / G at stride 1 / 2
-    with ``dense``, K otherwise."""
+    with ``dense``, K otherwise; bf16 with Cin ≥ 8 on the tensor cores, the
+    rest on the CUDA cores (``wgrad_uses_tensor_cores``)."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if x.device.type == "cpu":
@@ -380,6 +416,9 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
     return out
 
 
-# Kernel launches per counter since the last reset (ops.cuda.launch_counts).
-LAUNCHES = {_counter(kind, s, dense): 0
-            for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)}
+# Kernel launches per counter since the last reset (ops.cuda.launch_counts):
+# one per kernel letter, and conv3d_k3s{1,2}_wgrad_tc, the launches of E, G
+# and K (dense and chain) that took the tensor-core instance.
+LAUNCHES = {**{_counter(kind, s, dense): 0
+               for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
+            "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0}

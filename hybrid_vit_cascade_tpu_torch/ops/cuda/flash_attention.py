@@ -39,6 +39,14 @@ _BWD_ARGTYPES = (
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
+# hvc_flash_attention_bwd(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, BH, Nq, Nk,
+#                         d, dtype, groups, scale, stream)
+_FUSED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 3
+                   + (ctypes.c_float, ctypes.c_void_p))
+# Kernel D: keys per key tile, and the blocks per SM its group count aims for
+# (csrc/flash_attention_bwd.cu: 64 or 128 threads, ~41 KB of shared memory).
+_BKV = 64
+_D_BLOCKS_PER_SM = 4
 # Score elements per chunk of the plain versions: 2**28 fp32 scores = 1 GiB.
 # Unchunked, the stage-3 self-attention (8 heads × 32,768²) would need 34 GB.
 _PLAIN_CHUNK_SCORES = 1 << 28
@@ -162,36 +170,55 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
                          f"{lse.dtype} {tuple(lse.shape)}")
 
 
+def dq_groups(nk: int, bh: int, sms: int) -> tuple[int, int]:
+    """Kernel D's plan: (G, per), the key tiles of each head (64 keys each)
+    cut into G groups of ``per`` consecutive tiles, group g taking tiles
+    g·per … min(n, (g + 1)·per) − 1. G·BH blocks aim for
+    ``_D_BLOCKS_PER_SM`` per SM, and no group is empty (its partial would
+    stay unwritten)."""
+    n_tiles = -(-nk // _BKV)
+    groups = max(1, min(n_tiles, -(-_D_BLOCKS_PER_SM * sms // bh)))
+    per = -(-n_tiles // groups)
+    return -(-n_tiles // per), per
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
     gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
     dtype (fp32 or bf16), d ∈ {32, 64}; lse (BH, Nq) fp32, natural log.
-    Returns (dq, dk, dv) in q's dtype."""
+    Returns (dq, dk, dv) in q's dtype. Kernel D: each block takes one group
+    of key tiles (``dq_groups``) and adds its dq shares into the group's own
+    fp32 partial; the partials are summed in group order, so two runs give
+    the same bits."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
     _check_bwd(q, k, v, out, lse, dout)
     bh, nq, d = q.shape
     nk = k.shape[1]
     delta = _delta(out, dout)
-    dq_acc = torch.zeros((bh, nq, d), dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function("hvc_flash_attention_bwd", _BWD_ARGTYPES)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    groups, _ = dq_groups(nk, bh, sms)
+    dq_part = torch.empty((groups, bh, nq, d), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("hvc_flash_attention_bwd", _FUSED_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                bh, nq, nk, d, _DTYPE_CODES[q.dtype], float(scale), stream)
+                delta.data_ptr(), dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), bh, nq, nk, d, _DTYPE_CODES[q.dtype], groups, float(scale),
+                stream)
     _build.check(rc, "hvc_flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 
 
 # kernel L: q, k, v, dout, lse, delta, dq; M: the same with dk, dv in dq's place
+# (the fused layout without dq_part)
 _DQ_ARGTYPES = _BWD_ARGTYPES[:7] + _BWD_ARGTYPES[9:]
 _DKV_ARGTYPES = _BWD_ARGTYPES[:8] + _BWD_ARGTYPES[9:]
 

@@ -1,0 +1,272 @@
+"""The plans of the port's fixed-order backward kernels, on the CPU: which
+weight-gradient instance a call takes, how the splits of the weight gradient
+and the key-tile groups of the fused flash backward (kernel D) cover their
+work, and torch emulations of both kernels' orders of summation against the
+plain versions and the JAX package.
+
+- ``wgrad_uses_tensor_cores``: bf16 with Cin ≥ 8 takes the tensor-core
+  instance of E/G/K, fp32 and Cin < 8 the CUDA-core one (the rule of
+  ``dispatch_wgrad`` in csrc/conv3d_k3_bwd.cu).
+- ``wgrad_plan`` / ``split_tiles``: the splits cover every voxel tile exactly
+  once, none empty, at every main-path shape (contiguous ranges on the CUDA
+  cores, every splits-th tile on the tensor cores).
+- ``dq_groups``: kernel D's groups cover every key tile of a head exactly
+  once, in order, none empty.
+- Kernel D's dq: each group's partial summed over its key tiles in order,
+  then the partials in group order, against ``flash_attention_bwd_plain``
+  and the JAX fused backward ``_bwd_pallas_fused`` (Pallas interpret mode),
+  fp32.
+- The phase switches of ``scripts/wgrad_phases.py`` still match the kernel.
+- The tensor-core weight gradient's staging (raw 8-column vectors from
+  column S·ow0 − 8, the channels-innermost patch, even/odd columns apart at
+  stride 2) and split order, replayed in torch, against
+  ``conv3d_k3_wgrad_plain`` and against the JAX chain conv's weight gradient
+  (``conv3d_k3s1_chain`` / ``conv3d_k3s2_chain`` VJP in interpret mode).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3 import conv3d_k3s1_chain as jax_chain_s1
+from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_chain as jax_chain_s2
+from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+jfa = importlib.import_module("hybrid_vit_cascade_tpu.ops.pallas.flash_attention")
+
+H100_SMS = 132
+
+
+def _covers_in_order(n, parts, per):
+    ranges = [range(s * per, min(n, (s + 1) * per)) for s in range(parts)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [i for r in ranges for i in r] == list(range(n))
+
+
+@pytest.mark.parametrize("dtype,cin,tc", [(torch.bfloat16, 64, True), (torch.bfloat16, 8, True),
+                                          (torch.bfloat16, 24, True), (torch.bfloat16, 7, False),
+                                          (torch.bfloat16, 1, False), (torch.float32, 64, False),
+                                          (torch.float32, 1, False)])
+def test_wgrad_dispatch_rule(dtype, cin, tc):
+    assert ck.wgrad_uses_tensor_cores(dtype, cin) is tc
+    assert ck.wgrad_plan((1, cin, 8, 16, 16), 32, 1, dtype, H100_SMS)[0] is tc
+
+
+# (B, Cin, output planes, H, W, Cout, stride): the weight gradients of the
+# training step (dense and streamed chains) and ragged ones
+WGRAD_SHAPES = [(1, 64, 256, 256, 256, 32, 1), (1, 64, 32, 256, 256, 32, 1),
+                (2, 64, 32, 256, 256, 32, 1), (8, 128, 16, 16, 16, 256, 1),
+                (1, 1, 256, 256, 256, 64, 1), (1, 32, 128, 256, 256, 64, 2),
+                (1, 32, 16, 256, 256, 64, 2), (2, 128, 16, 32, 32, 256, 2),
+                (1, 24, 4, 7, 9, 20, 1), (2, 40, 3, 5, 32, 36, 2), (1, 3, 5, 6, 10, 5, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_wgrad_splits_cover_tiles_in_order(dtype, shape):
+    b, cin, do, h, w, cout, stride = shape
+    for sms in (H100_SMS, 7):
+        tc, splits, n_tiles = ck.wgrad_plan((b, cin, do, h, w), cout, stride, dtype, sms)
+        (td, th, tw), co_blk, ci_blk, per_sm = (ck._WGRAD_TC[stride] if tc
+                                                else ck._WGRAD_CUDA_CORE)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        assert n_tiles == b * -(-do // td) * -(-ho // th) * -(-wo // tw)
+        if tc:  # split s takes tiles s, s + splits, ...
+            parts = [list(range(sp, n_tiles, splits)) for sp in range(splits)]
+            assert all(parts) and sorted(t for p in parts for t in p) == list(range(n_tiles))
+        else:  # contiguous ranges, per as the kernel takes it
+            _covers_in_order(n_tiles, splits, -(-n_tiles // splits))
+        blocks = splits * -(-cout // co_blk) * -(-cin // (ci_blk if tc or cin >= 4 else 1))
+        assert splits == 1 or blocks <= per_sm * sms
+
+
+def test_wgrad_hot_plan_fills_the_card():
+    """The 64→32 stride-1 weight gradient at 256³ on the tensor cores: one
+    block per SM (66 splits × 2 input-channel chunks)."""
+    assert ck.wgrad_plan((1, 64, 256, 256, 256), 32, 1, torch.bfloat16, H100_SMS) == \
+        (True, 66, 65536)
+
+
+# (BH, Nk) of the training shapes (chip_smoke.py _FLASH_TRAIN_SHAPES) and ragged
+@pytest.mark.parametrize("bh,nk", [(32, 4096), (32, 256), (16, 4096), (16, 1024), (8, 32768),
+                                   (8, 4096), (3, 77), (2, 4100), (1, 1), (65535, 64)])
+def test_dq_groups_cover_key_tiles(bh, nk):
+    for sms in (H100_SMS, 1, 500):
+        groups, per = fa.dq_groups(nk, bh, sms)
+        n_tiles = -(-nk // fa._BKV)
+        _covers_in_order(n_tiles, groups, per)
+        assert groups * bh < fa._D_BLOCKS_PER_SM * sms + bh  # about 4 blocks per SM
+
+
+def test_dq_groups_stage3_scratch():
+    """At the stage-3 self-attention, 64 groups of 8 key tiles: 512 blocks,
+    and a 2.1 GB fp32 partial (64 × 8 × 32,768 × 32 × 4 bytes)."""
+    groups, per = fa.dq_groups(32768, 8, H100_SMS)
+    assert (groups, per) == (64, 8)
+    assert groups * 8 * 32768 * 32 * 4 == 2_147_483_648
+
+
+def _dq_by_groups(q, k, v, out, lse, dout, scale, sms):
+    """Kernel D's dq in its order of summation, fp32: group g adds the dq
+    shares of its key tiles in order into its partial; then the partials are
+    added in group order."""
+    bh, _, _ = q.shape
+    groups, per = fa.dq_groups(k.shape[1], bh, sms)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    n_tiles = -(-k.shape[1] // fa._BKV)
+    dq = torch.zeros_like(qf)
+    for g in range(groups):
+        part = None
+        for kt in range(g * per, min(n_tiles, (g + 1) * per)):
+            ks, vs = (t[:, kt * fa._BKV:(kt + 1) * fa._BKV] for t in (kf, vf))
+            p = torch.exp(qf @ ks.transpose(1, 2) * scale - lse[..., None])
+            ds = p * (dof @ vs.transpose(1, 2) - delta)
+            share = (ds @ ks) * scale
+            part = share if part is None else part + share
+        dq = dq + part
+    return dq
+
+
+@pytest.mark.parametrize("nq,nk,d,sms,with_jax", [(96, 300, 32, 2, True), (72, 130, 64, 1, False),
+                                                   (50, 200, 32, 4, False)])
+def test_dq_group_partials_match_plain_and_jax(monkeypatch, nq, nk, d, sms, with_jax):
+    rng = np.random.default_rng(7)
+    q, dout = (rng.standard_normal((1, 2, nq, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, nk, d)).astype(np.float32) for _ in range(2))
+    scale = d ** -0.5
+    qt, kt, vt, dot = (torch.from_numpy(a[0]) for a in (q, k, v, dout))
+    out, lse = fa.flash_attention_plain(qt, kt, vt, scale)
+    got = _dq_by_groups(qt, kt, vt, out, lse, dot, scale, sms)
+    assert fa.dq_groups(nk, 2, sms)[0] > 1  # more than one partial to add
+    want = fa.flash_attention_bwd_plain(qt, kt, vt, out, lse, dot, scale)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    if not with_jax:
+        return
+
+    def loss(q_, k_, v_):
+        o = jfa.flash_attention(q_, k_, v_, scale, block_q=32, block_kv=32)
+        return (o * jnp.asarray(dout)).sum()
+
+    monkeypatch.setattr(jfa, "FUSED_BWD", True)  # the JAX default: _bwd_pallas_fused
+    want_j = jax.grad(loss)(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_j)[0], rtol=5e-4, atol=5e-4)
+
+
+# ------------------------------------------ the tensor-core weight gradient ---
+
+def _wgrad_tc_emulated(x, g, stride, qlo, act, sms=H100_SMS):
+    """dW as the tensor-core instance computes it, in fp32: per tile, the raw
+    rows of 8-column vectors from input column S·ow0 − 8, the patch
+    [row][position][ci] (patch column pw = raw column − 7; at stride 2 even
+    columns first), the 27 taps read per voxel from the patch, the products
+    added per split (split s: tiles s, s + splits, ...), the splits in
+    order."""
+    B, cin, nv, H, W = x.shape
+    cout, do, ho, wo = g.shape[1:]
+    (td, th, tw), _, ci_blk, _ = ck._WGRAD_TC[stride]
+    s = stride
+    pd, ph, pw_n = (td - 1) * s + 3, (th - 1) * s + 3, (tw - 1) * s + 3
+    nvec = ((tw - 1) * s + 9) // 8 + 1
+    pwe = pw_n if s == 1 else tw + 1
+    pcol = (lambda c: c) if s == 1 else (lambda c: (c & 1) * pwe + (c >> 1))
+    cpad = -(-cin // ci_blk) * ci_blk
+    xs = ck.act_plain(act, x).float()  # the prologue, rounded to x's dtype
+    _, splits, n_tiles = ck.wgrad_plan((B, cin, do, H, W), cout, stride, torch.bfloat16, sms)
+    tiles_w, tiles_h, tiles_d = -(-wo // tw), -(-ho // th), -(-do // td)
+    gf = g.float()
+    dw = torch.zeros((cout, cin, 27))
+    for sp in range(splits):
+        part = torch.zeros((cout, cpad, 27))
+        for tile in range(sp, n_tiles, splits):
+            tx, rest = tile % tiles_w, tile // tiles_w
+            ty, rest = rest % tiles_h, rest // tiles_h
+            tz, b = rest % tiles_d, rest // tiles_d
+            od0, oh0, ow0 = tz * td, ty * th, tx * tw
+            raw = torch.zeros((cpad, pd, ph, nvec * 8))
+            for r_d in range(pd):
+                p = od0 * s - qlo + r_d
+                if not 0 <= p < nv:
+                    continue
+                for r_h in range(ph):
+                    ih = oh0 * s - 1 + r_h
+                    if not 0 <= ih < H:
+                        continue
+                    for c in range(nvec * 8):
+                        col = ow0 * s - 8 + c
+                        if 0 <= col < W:
+                            raw[:cin, r_d, r_h, c] = xs[b, :, p, ih, col]
+            patch = torch.zeros((pd, ph, pw_n | 1, cpad))
+            for c in range(7, 7 + pw_n):
+                patch[:, :, pcol(c - 7), :] = raw[:, :, :, c].permute(1, 2, 0)
+            gt = torch.zeros((cout, td, th, tw))
+            dz_, dy_, dx_ = (min(n, lim) for n, lim in ((td, do - od0), (th, ho - oh0),
+                                                        (tw, wo - ow0)))
+            gt[:, :dz_, :dy_, :dx_] = gf[b, :, od0:od0 + dz_, oh0:oh0 + dy_, ow0:ow0 + dx_]
+            for tap in range(27):
+                dz, dy, dx = tap // 9, (tap // 3) % 3, tap % 3
+                cols = [pcol(t * s + dx) for t in range(tw)]
+                bmat = torch.stack([torch.stack([patch[vz * s + dz, vy * s + dy, cols]
+                                                 for vy in range(th)]) for vz in range(td)])
+                part[:, :, tap] += gt.reshape(cout, -1) @ bmat.reshape(-1, cpad)
+        dw += part[:, :cin]
+    return dw.reshape(cout, cin, 3, 3, 3)
+
+
+# (B, Cin, Cout, (H, W), planes of x, slab plane of x's first plane, output
+# planes at stride 1, at stride 2)
+TC_EMULATED = [(1, 24, 20, (7, 9), 5, -1, 4, 2), (2, 10, 36, (5, 32), 6, 0, 5, 3),
+               (1, 9, 7, (9, 35), 7, 1, 7, 4)]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("act", [None, "gelu"])
+@pytest.mark.parametrize("case", TC_EMULATED)
+def test_wgrad_tc_staging_matches_plain(stride, act, case):
+    b, cin, cout, (h, w), nv, qlo, d1, d2 = case
+    d_out = d1 if stride == 1 else d2
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((b, cin, nv, h, w)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (b, cout, d_out, (h - 1) // stride + 1, (w - 1) // stride + 1)).astype(np.float32))
+    got = _wgrad_tc_emulated(x, g, stride, qlo, act, sms=3)
+    want = ck.conv3d_k3_wgrad_plain(x, g, stride, qlo, act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_wgrad_tc_staging_matches_jax(stride):
+    """Against the JAX chain conv's weight gradient (interpret mode) at the
+    smallest width its shape gate takes, x windowed at the front."""
+    B, cin, cout, H, W, dext = 1, 8, 4, 4, 128 * stride, 5
+    vlo, vhi = 1, dext
+    d_out = dext - 2 if stride == 1 else (dext - 1) // 2
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((B, cin, dext, H, W)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)
+    bias = np.zeros(cout, np.float32)
+    ho, wo = H // stride, W // stride
+    g = rng.standard_normal((B, cout, d_out * ho * wo)).astype(np.float32)
+    jfn = jax_chain_s1 if stride == 1 else jax_chain_s2
+    _, vjp = jax.vjp(lambda wv: jfn((dext, H, W, False, "silu"), jnp.asarray(x.reshape(B, cin, -1)),
+                                    jnp.asarray([vlo, vhi], jnp.int32), wv, jnp.asarray(bias)),
+                     jnp.asarray(w))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).narrow(2, vlo, vhi - vlo)
+    got = _wgrad_tc_emulated(xt, torch.from_numpy(g).reshape(B, cout, d_out, ho, wo), stride,
+                             vlo, "silu", sms=2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_wgrad_phase_switches_match_the_kernel():
+    """scripts/wgrad_phases.py switches the tensor-core kernel's phases off by
+    editing a copy of its source: every switch still finds its line."""
+    from hybrid_vit_cascade_tpu_torch.scripts import wgrad_phases
+
+    src = wgrad_phases.ablated_source()
+    assert all(new in src for _, new in wgrad_phases.SWITCHES.values())

@@ -19,6 +19,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_plain,
     conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
+    wgrad_uses_tensor_cores,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd,
@@ -224,6 +225,94 @@ def test_chain_conv_matches_plain(dev, dtype, stride, act, case):
     assert [LAUNCHES[c] for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1,
                                                before[3]]
 
+
+# (B, Cin, Cout, (H, W), planes of x, slab plane of x's first plane, output
+# planes at stride 1, at stride 2): weight gradients that reach the tensor-
+# core instance (bf16, Cin ≥ 8) at ragged shapes: Cin not a multiple of 8 or
+# 32, Cout not a multiple of 32, odd H and W, x beginning before the slab;
+# W = 32 stages by cp.async (rows 16-byte aligned), the others element by
+# element.
+TC_CASES = [(1, 24, 20, (7, 9), 5, -1, 4, 2),
+            (2, 40, 36, (5, 32), 6, 0, 5, 3),
+            (1, 64, 40, (9, 24), 7, 1, 7, 4),
+            (1, 8, 32, (16, 16), 9, 0, 8, 4)]
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("act", [None, "gelu", "silu"])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_wgrad_tensor_cores_ragged(dev, stride, act, case):
+    """The tensor-core weight gradient (E, G, K in bf16 with Cin ≥ 8) against
+    its plain version at ragged shapes, counted in its own counter, and
+    bitwise repeatable; the same call in fp32 stays on the CUDA cores."""
+    b, cin, cout, (h, w_), nv, qlo, d1, d2 = case
+    d_out = d1 if stride == 1 else d2
+    ho, wo = ((n - 1) // stride + 1 for n in (h, w_))
+    tc = f"conv3d_k3s{stride}_wgrad_tc"
+    for dtype in DTYPES:
+        x = _randn((b, cin, nv + 3, h, w_), dtype, dev, 13).narrow(2, 1, nv)
+        g = _randn((b, cout, d_out, ho, wo), dtype, dev, 14)
+        before = LAUNCHES[tc]
+        dw = conv3d_k3_wgrad(x, g, stride, qlo, act)
+        assert LAUNCHES[tc] == before + (dtype == torch.bfloat16)
+        assert wgrad_uses_tensor_cores(dtype, cin) == (dtype == torch.bfloat16)
+        _close(dw, conv3d_k3_wgrad_plain(x, g, stride, qlo, act), dtype, GRAD_TOL)
+        assert torch.equal(conv3d_k3_wgrad(x, g, stride, qlo, act), dw)
+
+
+# Weight-gradient shapes of the main path (chip_smoke.py TRAIN_KERNELS and
+# CHAIN_KERNELS) that take the tensor cores: (stride, B, Cin, Cout, planes of
+# x, H, W, slab plane of x's first plane, output planes, act). Dense calls are
+# the chain call over the whole volume (qlo 1).
+_R = 256
+TC_MAIN_SHAPES = [(1, 8, 128, 256, 16, 16, 16, 1, 16, None), (1, 1, 64, 32, _R, _R, _R, 1, _R, None),
+                  (1, 1, 64, 32, 34, _R, _R, 0, 32, None), (1, 1, 64, 32, 34, _R, _R, 0, 32, "gelu"),
+                  (1, 2, 64, 32, 34, _R, _R, 0, 32, None),
+                  (2, 2, 32, 64, 128, 128, 128, 1, 64, None), (2, 2, 64, 128, 64, 64, 64, 1, 32, None),
+                  (2, 2, 128, 256, 32, 32, 32, 1, 16, None), (2, 8, 64, 128, 32, 32, 32, 1, 16, None),
+                  (2, 1, 32, 64, _R, _R, _R, 1, 128, None), (2, 1, 64, 128, 128, 128, 128, 1, 64, None),
+                  (2, 1, 128, 256, 64, 64, 64, 1, 32, None), (2, 1, 32, 64, 33, _R, _R, 0, 16, None),
+                  (2, 1, 32, 64, 32, _R, _R, 1, 16, None), (2, 1, 32, 64, 33, _R, _R, 0, 16, "gelu"),
+                  (2, 2, 32, 64, 33, _R, _R, 0, 16, None)]
+
+
+@pytest.mark.parametrize("shape", TC_MAIN_SHAPES)
+def test_wgrad_tensor_cores_main_path(dev, shape):
+    """The tensor-core weight gradient at the main path's bf16 shapes: within
+    chip_smoke.py's tolerance of the plain version (that of dW's dtype, fp32
+    1e-4, the absolute part scaled by the largest |want|: sums over up to
+    16.7 M voxels; both sides sum the same bf16 products) and bitwise
+    repeatable."""
+    stride, b, cin, cout, nv, h, w_, qlo, d_out, act = shape
+    x = _randn((b, cin, nv + 2, h, w_), torch.bfloat16, dev, 15).narrow(2, 1, nv)
+    g = _randn((b, cout, d_out, (h - 1) // stride + 1, (w_ - 1) // stride + 1), torch.bfloat16,
+               dev, 16)
+    before = LAUNCHES[f"conv3d_k3s{stride}_wgrad_tc"]
+    dw = conv3d_k3_wgrad(x, g, stride, qlo, act)
+    assert LAUNCHES[f"conv3d_k3s{stride}_wgrad_tc"] == before + 1
+    want = conv3d_k3_wgrad_plain(x, g, stride, qlo, act)
+    torch.cuda.synchronize()
+    err = (dw - want).abs()
+    assert torch.isfinite(dw).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(conv3d_k3_wgrad(x, g, stride, qlo, act), dw)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,nq,nk,d", [(8, 32768, 32768, 32), (3, 200, 77, 32), (3, 200, 77, 64),
+                                        (2, 130, 4100, 32)])
+def test_flash_bwd_bitwise_repeatable(dev, dtype, bh, nq, nk, d):
+    """Kernel D sums dq in a fixed order (per-group partials, added in group
+    order; no atomics): two runs give the same bits, at the stage-3 self-
+    attention shape and at ragged ones."""
+    q, dout = (_randn((bh, nq, d), dtype, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), dtype, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 # Kernel family N, the conv probes: (weights, data) of each wrapper at N
