@@ -12,10 +12,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. Build the kernels from ``hybrid_vit_cascade_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build time.
 3. Hold each kernel against its plain PyTorch version on the card, at every
-   shape the main path gives it and at ragged small shapes, in bf16 and fp32.
-   Then the chain forms H (stride-1 chain conv, and as its data gradient),
-   I (stride-2 chain conv), J (stride-2 chain data gradient) and K (chain
-   weight gradients) at every shape the streamed stage-3 chains give them
+   shape the main path gives it and at ragged small shapes, in bf16 and fp32
+   (flash attention's output with the absolute part of its tolerance scaled
+   by the call's largest |want|: FLASH_OUT_TOL). Then the chain forms H
+   (stride-1 chain conv, and as its data gradient), I (stride-2 chain
+   conv), J (stride-2 chain data gradient) and K (chain weight gradients)
+   at every shape the streamed stage-3 chains give them
    (8-slab training, 1-slab eval, batch 1 and 2, both volume ends) and at
    ragged small shapes, with every option (window, Σ/Σ² sums, gelu/silu
    prologue, act′ epilogue).
@@ -26,14 +28,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    max_stage=3 with return_intermediate=True, its stage-3 chains streamed
    (the eval schedule: one slab, every endpoint stored). Checks the output
    shapes, finiteness, and that each kernel launched as often as the path
-   needs it (EXPECTED_LAUNCHES).
+   needs it (EXPECTED_LAUNCHES), its tensor-core instances included.
 5. A small-input reference: a scaled cascade in fp32 on the card (kernels)
    against the same weights on the CPU (plain versions), its stage-3 chains
    streamed at every level.
 6. Timings from CUDA events and the host clock after a warm-up: the median
    end-to-end reconstruct time and volumes/s under the streamed (default) and
-   the dense stage-3 schedule, in turns; each kernel beside its plain version
-   at the main-path shapes.
+   the dense stage-3 schedule, in turns, then one streamed reconstruct under
+   torch.profiler (device time by kernel name, idle share); each kernel
+   beside its plain version at the main-path shapes.
 7. The gradient kernels — D (flash backward), L and M (the split flash
    backward: dq, then dk and dv), E (stride-1 weight gradient), F (stride-2
    data gradient), G (stride-2 weight gradient) and kernel B run as the
@@ -45,7 +48,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    shape (no atomics); the bf16 64→32 and 32→64 weight gradients of the
    stage-3 step (dense and one training slab) take the tensor-core instance
    of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
-   one.
+   one; the bf16 64→32 conv and its data gradient (dense and one training
+   slab) take the tensor-core B/H and every bf16 flash forward of the
+   training shapes the tensor-core A, their fp32 calls and the 1-channel
+   conv (and its one-output-channel data gradient) the CUDA-core ones.
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -58,8 +64,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and a seeded 256³ CT volume: one warm-up step and 3 timed ones per stage,
    finite losses, peak memory, and each kernel's launches per step (every
    counted wrapper, B as the stride-1 data gradient included, launches in
-   the stage-3 step, its bf16 64→32 and 32→64 weight gradients on the tensor
-   cores). Stage 3 trains on the config's streamed schedule (8 slabs).
+   the stage-3 step, its bf16 64→32 and 32→64 weight gradients, its 64→32
+   chain conv and data gradient in every slab, and every flash forward of
+   each stage on the tensor cores). Stage 3 trains on the config's streamed
+   schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -91,7 +99,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
 the larger of the bytes it must move over 3.35 TB/s and its operations over
-989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak) and the time of one
+989 TFLOP/s, the H100 SXM's HBM rate and dense bf16 peak; bound_terms_ms
+holds each term, and for the flash kernels A, D, L and M also exp2_ms, one
+exp2 per score over 16 a clock per SM at the card's maximum SM clock, the
+special-function units' fp32 rate: informative only and not in bound_ms,
+since exps computed as polynomials on the FMA units or two at a time by
+ex2.approx.bf16x2 go under it) and the time of one
 PyTorch call that computes the same function (library_ms: cuDNN convolution
 or its weight/data gradient, scaled_dot_product_attention forward or
 backward), all in bf16 at the kernel's hot shape; launches are those of the
@@ -111,6 +124,7 @@ the full record goes to build/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import shutil
@@ -132,6 +146,12 @@ CKPT_DIR = BUILD_DIR / "smoke"
 # another order. bf16: both sides compute in fp32 from the same bf16 inputs
 # and round once to bf16 (one ulp is 2^-8 relative).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# Flash attention's output: its values are averages over up to 32,768 keys of
+# unit-variance v, |out| ~ (e / Nk)^0.5 (0.009 at Nk = 32,768), so an
+# absolute part of 2e-2 would let an output 30% off pass. The absolute part
+# is scaled by the call's largest |want| instead; one bf16 ulp is at most
+# 2^-7·|want|, well inside the relative part.
+FLASH_OUT_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 # Gradient kernels take the same bounds with the absolute part scaled by the
 # largest |want| of the call: their sums run over up to 16.7 M voxels or
 # 32,768 keys, so an element that cancels to near zero carries the rounding
@@ -146,14 +166,25 @@ SMALL_TOL = (2e-4, 2e-4)
 # (C) = 2 + 3 token-stem convs of stages 1-2 and the stage-3 stem's dense
 # 128³ tail (2); the streamed eval schedule (one slab, every endpoint stored)
 # runs the stage-3 upsample conv and the two detail convs as H and the first
-# stage-3 stem conv as I, once each.
+# stage-3 stem conv as I, once each. On the tensor-core instances (bf16): all
+# 36 flash forwards, the 128→256 projection (B; the 1→32 upsample conv stays
+# on the CUDA cores) and the detail chain's 64→32 conv (H; the 1→32 and 1→64
+# convs stay).
 EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 2, "conv3d_k3s2": 7,
-                     "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1}
+                     "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1,
+                     "flash_attention_tc": 36, "conv3d_k3s1_tc": 1, "conv3d_k3s1_chain_tc": 1}
 REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# fp32 exp2 per clock per SM on the special-function units (compute
+# capability 9.0, CUDA C Programming Guide, arithmetic instruction
+# throughput); times the SMs and the card's maximum SM clock (nvidia-smi
+# clocks.max.sm) it gives the flash rows' informative exp2_ms term, one exp2
+# per score. It is no lower bound: a kernel may compute exps as polynomials
+# on the FMA units, or two a time by ex2.approx.bf16x2.
+EXP2_PER_CLOCK_PER_SM = 16
 
 KERNELS = {
     "flash_attention": {
@@ -372,7 +403,8 @@ def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False
     every shape, in bf16 and fp32; returns the max error per kernel. Each
     output is held to the tolerance of its own dtype (flash attention's lse
     and the weight gradients are fp32); ``scaled`` multiplies the absolute
-    part by the largest |want| of the call."""
+    part by the largest |want| of the call, as FLASH_OUT_TOL always does for
+    flash attention's output."""
     worst = {}
     for name, spec in specs.items():
         kern, plain = fns(name)
@@ -388,10 +420,12 @@ def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False
                     if g.shape != w.shape or g.dtype != w.dtype:
                         raise AssertionError(f"{name} {shape}: {g.shape}/{g.dtype} vs "
                                              f"{w.shape}/{w.dtype}")
-                    atol, rtol = TOL[w.dtype]
+                    flash_out = name == "flash_attention" and i == 0
+                    atol, rtol = (FLASH_OUT_TOL if flash_out else TOL)[w.dtype]
                     diff = (g.float() - w.float()).abs()
                     err = float(diff.max())
-                    scale = max(1.0, float(w.float().abs().max())) if scaled else 1.0
+                    scale = (float(w.float().abs().max()) if flash_out else
+                             max(1.0, float(w.float().abs().max())) if scaled else 1.0)
                     ok = bool(torch.isfinite(g.float()).all()) and bool(
                         (diff <= atol * scale + rtol * w.float().abs()).all())
                     log(f"  {name:19s} {str(shape):32s} {str(dtype):15s} out{i} "
@@ -576,16 +610,23 @@ def _conv_geom(name: str, shape):
     return b, cin, cout, d, (d - 1) // stride + 1, h, w, stride, None
 
 
-def bound(name: str, shape, itemsize: int = 2):
-    """(bound_ms, bound_by) at bf16: the larger of the bytes the function
-    must move (each input read once, each output written once) over
-    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS. A
+def bound(name: str, shape, itemsize: int = 2, exp2_rate: float = 0.0):
+    """(bound_ms, bound_by, terms) at bf16: the larger of the bytes the
+    function must move (each input read once, each output written once) over
+    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS; for
+    the flash kernels (A, D, L, M each compute every score's exp2 once)
+    ``terms`` also holds the exp2s over ``exp2_rate`` (per second, the
+    special-function units' fp32 rate) as exp2_ms, which is informative and
+    not part of the bound: exps computed as polynomials on the FMA units or
+    by ex2.approx.bf16x2 go under it. ``terms`` holds each term in ms. A
     probe kernel's shape is its case name (V1 ...), at N = 131,072 and R = 64
     passes."""
     if name.startswith("conv_probe"):
         from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
 
-        return bench.bound(bench.BY_KEY[shape], bench.N_TOTAL, bench.R)
+        b_ms, b_by = bench.bound(bench.BY_KEY[shape], bench.N_TOTAL, bench.R)
+        return b_ms, b_by, {}
+    n_exp = 0.0
     if name.startswith("flash"):
         bh, nq, nk, d = shape
         if name == "flash_attention":  # q, k, v in; out, lse out
@@ -600,6 +641,7 @@ def bound(name: str, shape, itemsize: int = 2):
         else:  # q, k, v, out, dout, lse in; dq, dk, dv out
             flops = 10.0 * bh * nq * nk * d
             nbytes = itemsize * (4 * bh * nq * d + 4 * bh * nk * d) + 4 * bh * nq
+        n_exp = float(bh) * nq * nk
     else:
         b, cin, cout, d_in, d_out, h, w, stride, act = _conv_geom(name, shape)
         ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
@@ -612,8 +654,11 @@ def bound(name: str, shape, itemsize: int = 2):
             nbytes = itemsize * (n_out + n_in * (2 if act else 1)) + wbytes
         else:  # x, w, bias in; out (+ sums) out
             nbytes = itemsize * (n_in + n_out) + wbytes + 4 * cout * 3 * b
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    terms = {"products_ms": flops / PEAK_FLOPS * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    if n_exp:
+        terms["exp2_ms"] = n_exp / exp2_rate * 1e3
+    return ((terms["products_ms"], "operations", terms)
+            if terms["products_ms"] >= terms["bytes_ms"] else (terms["bytes_ms"], "bytes", terms))
 
 
 def _median_ms(fn, reps: int = 5) -> float:
@@ -854,9 +899,20 @@ def train_full_width(cfg, dev, seed: int) -> dict:
         torch.cuda.empty_cache()
     step3 = out["stage3"]["launches_per_step"]
     need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
-            "conv3d_k3s2_wgrad", *CHAIN_KERNELS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc")
+            "conv3d_k3s2_wgrad", *CHAIN_KERNELS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc",
+            "conv3d_k3s1_chain_tc", "flash_attention_tc")
     if any(step3[k] == 0 for k in need):
         raise AssertionError(f"[9] the stage-3 step did not run every kernel of its path: {step3}")
+    # every flash forward of a bf16 step takes the tensor cores, and so do the
+    # 64→32 chain conv and its data gradient (at least one of each per slab)
+    for stage, r in out.items():
+        lc = r["launches_per_step"]
+        if lc["flash_attention_tc"] != lc["flash_attention"]:
+            raise AssertionError(f"[9] {stage}: {lc['flash_attention_tc']} of "
+                                 f"{lc['flash_attention']} flash forwards on the tensor cores")
+    if step3["conv3d_k3s1_chain_tc"] < 2 * cfg.model.slab_count:
+        raise AssertionError(f"[9] the stage-3 step's 64→32 chain conv and its data gradient "
+                             f"did not take the tensor cores in every slab: {step3}")
     return out
 
 
@@ -919,6 +975,52 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
         fn(*args)
         torch.cuda.synchronize()
         took = ck.LAUNCHES[counter] - before
+        key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+        out[key] = took
+        log(f"[7] {key:74s} tensor-core launches {took} (expected {int(want_tc)})")
+        if took != int(want_tc):
+            raise AssertionError(f"[7] {key}: {took} tensor-core launches, expected "
+                                 f"{int(want_tc)}")
+        del args
+    return out
+
+
+# bf16 calls of the stage-3 step on the stride-1 conv and the flash forward:
+# the dense and one-slab 64→32 conv and its data gradient (the forward on g,
+# 32→64 channels), with the counter their launch must add to.
+_TC_FWD_CALLS = [("conv3d_k3s1", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
+                 ("conv3d_k3s1_dgrad", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
+                 ("conv3d_k3s1_chain", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc"),
+                 ("conv3d_k3s1_chain_dgrad", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc")]
+
+
+def tc_fwd_dispatch(dev, seed: int) -> dict:
+    """Phase 7f: the bf16 64→32 conv of the stage-3 step and its data
+    gradient (dense and one training slab) launch the tensor-core conv
+    (conv3d_k3s1_tc / conv3d_k3s1_chain_tc count them), and every bf16 flash
+    forward of the training shapes the tensor-core A (flash_attention_tc);
+    the same calls in fp32, and the 1-channel conv and its one-output-channel
+    data gradient, do not."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
+
+    calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
+             for dt in (torch.bfloat16, torch.float32)]
+    calls += [(n, (1, 1, 64, (256, 256, 256)), "conv3d_k3s1_tc", torch.bfloat16, False)
+              for n in ("conv3d_k3s1", "conv3d_k3s1_dgrad")]
+    calls += [("flash_attention", sh, "flash_attention_tc", dt, dt == torch.bfloat16)
+              for sh in _FLASH_TRAIN_SHAPES for dt in (torch.bfloat16, torch.float32)]
+    out = {}
+    for name, shape, counter, dtype, want_tc in calls:
+        if "chain" in name:
+            args, fn = _chain_inputs(name, shape, dtype, dev, seed), _chain_fns(name)[0]
+        elif name.endswith("dgrad"):
+            args, fn = _train_inputs(name, shape, dtype, dev, seed), _train_fns(name)[0]
+        else:
+            args, fn = _inputs(name, shape, dtype, dev, seed), _fns(name)[0]
+        before = launch_counts()[counter]
+        fn(*args)
+        torch.cuda.synchronize()
+        took = launch_counts()[counter] - before
         key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
         out[key] = took
         log(f"[7] {key:74s} tensor-core launches {took} (expected {int(want_tc)})")
@@ -1116,6 +1218,29 @@ def probe_phase(dev, seed: int) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+_EXP2_NOTE = ("bound_ms is max(products_ms, bytes_ms); exp2_ms, every score's exp2 on the "
+              "special-function units at 16 fp32 a clock per SM, is informative and not in "
+              "the bound: exps computed as polynomials on the FMA units or by "
+              "ex2.approx.bf16x2 go under it")
+
+# The tensor-core instances: each kernel row's counter (the conv forward's
+# counts its data gradient too).
+_TC_COUNTERS = {"flash_attention": "flash_attention_tc", "conv3d_k3s1": "conv3d_k3s1_tc",
+                "conv3d_k3s1_dgrad": "conv3d_k3s1_tc", "conv3d_k3s1_chain": "conv3d_k3s1_chain_tc",
+                "conv3d_k3s1_chain_dgrad": "conv3d_k3s1_chain_tc"}
+
+
+def _tc_rule(counter: str) -> str:
+    """The rule that sends a call to ``counter``'s instance: the docstring of
+    the wrapper's predicate that states it."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+    rule = (fa.fwd_uses_tensor_cores if counter.startswith("flash") else
+            ck.wgrad_uses_tensor_cores if "wgrad" in counter else ck.fwd_uses_tensor_cores)
+    return " ".join(inspect.getdoc(rule).split())
+
+
 # ------------------------------------------------------------------ slice ---
 
 def main() -> int:
@@ -1142,7 +1267,13 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"TF32 off for cuDNN and cuBLAS")
-    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    exp2_rate = EXP2_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    log(f"[1] {sms} SMs at up to {clock_mhz:g} MHz: exp2 rate {exp2_rate:.4g}/s "
+        f"({EXP2_PER_CLOCK_PER_SM} a clock per SM)")
+    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "sm_clock_max_mhz": clock_mhz, "sms": sms, "exp2_rate_per_s": exp2_rate}
 
     # 2. build
     t0 = time.perf_counter()
@@ -1238,7 +1369,7 @@ def main() -> int:
     del cpu_model, gpu_model, got, want
 
     # 6. timings: the streamed (default) and the dense stage-3 schedule in turns
-    from hybrid_vit_cascade_tpu_torch.training.measure import use_dense_stage3
+    from hybrid_vit_cascade_tpu_torch.training.measure import kernel_profile, use_dense_stage3
 
     s3 = engine.model.stage3
     streamed = (s3.slab_scan, s3.eval_schedule)
@@ -1273,6 +1404,13 @@ def main() -> int:
                   reconstruct_median_ms=med * 1e3, volumes_per_s=1.0 / med,
                   reconstruct_dense_ms=[t * 1e3 for t in times["dense"]],
                   reconstruct_dense_median_ms=med_dense * 1e3, reconstruct_peak_gb=peaks)
+    # one more streamed reconstruct under torch.profiler: device time by kernel
+    # name and the share of the wall in which no kernel ran
+    prof = kernel_profile(lambda: engine.reconstruct(xr, max_stage=3), dev)
+    log(f"[6] profiled reconstruct (streamed): wall {prof['wall_ms']:.1f} ms, kernels "
+        f"{prof['kernel_ms']:.1f} ms, idle {prof['idle_share']:.1%}; top: "
+        + "; ".join(f"{t['name'][:60]} {t['ms']:.1f} ms ×{t['launches']}" for t in prof["top"][:10]))
+    record["reconstruct_profile"] = prof
     del engine
     torch.cuda.empty_cache()
     rows = time_kernels(dev, args.seed, KERNELS, _inputs, _fns)
@@ -1285,6 +1423,8 @@ def main() -> int:
     record["flash_bwd_bitwise"] = flash_bwd_bitwise(dev, args.seed)
     torch.cuda.empty_cache()
     record["tc_wgrad_launches"] = tc_wgrad_dispatch(dev, args.seed)
+    torch.cuda.empty_cache()
+    record["tc_fwd_launches"] = tc_fwd_dispatch(dev, args.seed)
     torch.cuda.empty_cache()
     log("[7] chain kernels H-K, bf16 times")
     rows.update(time_chain_kernels(dev, args.seed))
@@ -1319,19 +1459,24 @@ def main() -> int:
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
-        b_ms, b_by = bound(name, spec["hot"])
+        b_ms, b_by, terms = bound(name, spec["hot"], exp2_rate=exp2_rate)
         runs = {run: counts[name] for run, counts in by_run.items()}
         kernels.append({"name": name, "route": "cuda", "source": spec["source"],
                         "replaces": spec["replaces"], "launches": sum(runs.values()),
                         "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms(name, spec["hot"], dev, args.seed),
-                        "at": f"{spec['hot']} bf16", "launches_by_run": runs})
+                        "at": f"{spec['hot']} bf16", "launches_by_run": runs,
+                        "bound_terms_ms": terms})
         if name.startswith("flash_attention_bwd"):
             kernels[-1]["library_call"] = _SDPA_BWD
-        if name.endswith("wgrad"):  # E, G, K: launches that took the tensor cores
-            tc = f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
-            kernels[-1]["instance"] = "tensor cores (mma.sync) for bf16 with Cin >= 8"
+        if "exp2_ms" in terms:
+            kernels[-1]["bound_note"] = _EXP2_NOTE
+        tc = _TC_COUNTERS.get(name) or (name.endswith("wgrad") and
+                                        f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
+        if tc:  # launches that took the tensor-core instance
+            kernels[-1]["instance"] = _tc_rule(tc)
+            kernels[-1]["tc_counter"] = tc
             kernels[-1]["tc_launches_by_run"] = {run: counts[tc]
                                                  for run, counts in by_run.items()}
         log(f"  {name:24s} {ms:9.3f} ms  plain {plain_ms:9.3f}  bound {b_ms:8.3f} ({b_by})  "
@@ -1339,7 +1484,7 @@ def main() -> int:
     probe_rows = {r["case"]: r for r in record["probe"]["rows"]}
     for r in (r for r in record["probe"]["rows"] if r["kernel"] and r["case"] != "V0"):
         name = r["kernel"]
-        b_ms, b_by = bound(name, r["case"])
+        b_ms, b_by, _ = bound(name, r["case"])
         runs = {run: counts[name] for run, counts in by_run.items()}
         kernels.append({"name": name, "route": "cuda", "source": PROBE_SOURCE,
                         "replaces": r["replaces"], "launches": sum(runs.values()),

@@ -35,15 +35,49 @@
 // read does the same here), and _erf_f32 (Mosaic has no erf; CUDA has erff).
 //
 // What bounds it on this card: the hot call is 64→32 channels at 256³
-// (1.86 TFLOP per call), so the conv is compute-bound; the 1-channel-input
-// calls at 256³ (1→32, 1→64) are bound by writing their 32/64-channel
-// outputs. This first version computes with fp32 FMAs on the CUDA cores, not
-// with the tensor cores (an implicit GEMM on wgmma is later work). Design
-// against that bound: one output voxel per thread and CO_T = 32 output
-// channels per block held in registers; per chunk of CI_C input channels the
-// block stages the input patch (with its halo, zero-filled outside the view
-// and the H/W borders, the prologue applied once per staged value) and the
-// chunk's weights in shared memory, both converted to fp32 once. The
+// (1.86 TFLOP per call, forward or as the 32→64-channel data gradient), so
+// the conv is compute-bound; the 1-channel-input calls at 256³ (1→32, 1→64)
+// are bound by writing their 32/64-channel outputs. Two instances, picked by
+// an explicit rule (fwd_uses_tc, which the wrapper reads through
+// hvc_conv3d_k3_fwd_tc; no fallback): bf16 at stride 1 with Cin ≥ 8 and
+// Cout ≥ 8 takes the tensor cores; fp32 (the tensor cores would mean TF32,
+// outside the fp32 tolerances), the 1-channel stems, the one-output-channel
+// data gradient and stride 2 take the CUDA cores.
+//
+// B/H on the tensor cores (conv_tc_kernel): the implicit GEMM out[co, voxel]
+// = Σ_{tap, ci} w_tap[co, ci] · x_tap[ci, voxel] with M = Cout (32 a block,
+// masked at the tile), N = output voxels, K = Cin × 27 taps, on mma.sync
+// m16n8k16 bf16 → fp32, the orientation PR 5's probe V3' sustained at 424.5
+// TF/s (Cout = 32 as M, K = Cin per tap). mma.sync, not wgmma: wgmma's
+// 64-row M would waste half of a 32-channel Cout tile, and at 8 warps the
+// per-warp shared-memory operands already keep the tensor cores fed. A block
+// computes 4 planes × 4 rows × 32 columns of output voxels (512) and walks
+// Cin in chunks of 16 (one k16 step per tap); its input patch, 6 × 6 × 34
+// positions (2.4× the tile's voxels), is staged channels-innermost,
+// [position][16 ci] in 48-byte rows, so a tap is a per-lane row offset of an
+// ldmatrix B load (8 neighbouring positions are 8 different bank groups) and
+// every row stays 16-byte aligned however the tap shifts the input along W.
+// The staging reads x with one 2-byte load per (position, channel) —
+// neighbouring threads take neighbouring columns, so a warp reads whole row
+// segments of any alignment — replays the act prologue in fp32 rounded to
+// bf16, packs 8 channels and stores 16 bytes. The chunk's weights sit beside
+// the patch as [tap][co][16 ci] (the A operand, ldmatrix). Warp w owns plane
+// w / 2, rows 2·(w % 2) + {0, 1}, all 32 columns: 32 co × 64 voxels, 64 fp32
+// accumulators a thread, and per tap 2 A and 4 B ldmatrix.x4 for 16 mma.
+// The accumulators run the whole K (≤ 6,912 products a value; no flush).
+// 100 KB of shared memory and ≤ 128 registers a thread keep two blocks on
+// an SM, so one block's staging runs under the other's products. Epilogue
+// on the fragments: bias, act′(x) at the voxel (dact), round to bf16, store
+// (pairs of columns as one 32-bit store where Wo is even); Σ/Σ² of the
+// rounded values by quad shuffles, then the 8 warps in order through shared
+// memory, one partial per block.
+//
+// B/H/C/I on the CUDA cores (conv3d_k3_kernel): one output voxel per thread
+// and CO_T = 32 output channels per block held in registers, fp32 FMAs; per
+// chunk of CI_C input channels the block stages the input patch (with its
+// halo, zero-filled outside the view and the H/W borders, the prologue
+// applied once per staged value) and the chunk's weights in shared memory,
+// both converted to fp32 once. The
 // weights are stored [ci][tap][co] so each tap's 32 output channels are read
 // as eight float4 broadcasts: four FMAs per shared-memory load. Input
 // channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems do no
@@ -59,6 +93,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -295,6 +334,277 @@ sum_block_partials_kernel(const float* __restrict__ partial, float* __restrict__
   }
 }
 
+// ------------------------------------------- B and H on the tensor cores ---
+
+constexpr int kTcThreads = 256;                  // 8 warps
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTcCo = 32;                        // output channels per block: M
+constexpr int kTcCi = 16;                        // input channels per chunk: one k16 step a tap
+constexpr int kTcTd = 4, kTcTh = 4, kTcTw = 32;  // output voxels per block: 512
+constexpr int kTcPd = kTcTd + 2, kTcPh = kTcTh + 2, kTcPw = kTcTw + 2;
+constexpr int kTcPos = kTcPd * kTcPh * kTcPw;    // patch positions: 1,224
+constexpr int kTcLd = kTcCi + 8;                 // bf16 per patch position and weight row: 48
+                                                 // bytes, three 16-byte units, so 8 neighbouring
+                                                 // rows hit 8 different bank groups
+constexpr int kTcPatch = kTcPos * kTcLd;         // bf16, [position][ci]
+constexpr int kTcWts = 27 * kTcCo * kTcLd;       // bf16, [tap][co][ci]
+constexpr int kTcSmem = (kTcPatch + kTcWts) * 2; // 100,224 bytes: two blocks an SM
+
+__device__ __forceinline__ unsigned short act_bits(int act, unsigned short u) {
+  const float v = act_f32(act, __bfloat162float(__ushort_as_bfloat16(u)));
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Block (blockIdx.x, blockIdx.y): Cout tile blockIdx.x % n_co (fastest, so
+// the Cout tiles of one voxel tile run together and share its patch in L2),
+// voxel tile blockIdx.x / n_co (W fastest, then H, then D: neighbouring
+// blocks share halo rows in L2), batch blockIdx.y.
+template <bool CHAIN>
+__global__ void __launch_bounds__(kTcThreads, 2)
+conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+               const float* __restrict__ bias, bf16* __restrict__ out, int cin, int cout,
+               int H, int W, int Do, int n_co, ChainArgs ca) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* patch = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wts = patch + kTcPatch;
+  __shared__ float red[kTcWarps][kTcCo][2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = H, Wo = W;
+  const int tiles_w = (Wo + kTcTw - 1) / kTcTw;
+  const int tiles_h = (Ho + kTcTh - 1) / kTcTh;
+  const int co0 = static_cast<int>(blockIdx.x % n_co) * kTcCo;
+  const int tile = static_cast<int>(blockIdx.x / n_co);
+  const int od0 = tile / (tiles_w * tiles_h) * kTcTd;
+  const int oh0 = tile / tiles_w % tiles_h * kTcTh;
+  const int ow0 = tile % tiles_w * kTcTw;
+  const long long b = blockIdx.y;
+  const long long plane = static_cast<long long>(H) * W;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) + b * ca.xb;
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(wts);
+
+  // warp w: output plane w / 2, rows 2·(w % 2) + {0, 1}, columns 0-31, as four
+  // groups of 16 voxels (group g: row g / 2, columns 16·(g % 2) + 0-15). This
+  // lane's row of the B loads: voxel ln of a group, channels lk … lk + 7.
+  const int vz = warp >> 1, vy0 = (warp & 1) * 2;
+  const int ln = (lane & 7) + ((lane >> 4) << 3);
+  const int lk = ((lane >> 3) & 1) * 8;
+  const bf16* brow[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    brow[g] = patch + ((vz * kTcPh + vy0 + (g >> 1)) * kTcPw + (g & 1) * 16 + ln) * kTcLd + lk;
+
+  float acc[2][8][4];  // [16-row co tile][8-voxel column tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int ci0 = 0; ci0 < cin; ci0 += kTcCi) {
+    __syncthreads();  // the previous chunk's patch and weights are no longer read
+    // the patch, zero outside the view's planes, the image and Cin; the
+    // prologue applied (act(0) = 0 keeps the padding)
+    for (int pos = tid; pos < kTcPos; pos += kTcThreads) {
+      const int pw = pos % kTcPw;
+      const int ph = pos / kTcPw % kTcPh;
+      const int pd = pos / (kTcPw * kTcPh);
+      const int p = od0 - ca.qlo + pd, ih = oh0 - 1 + ph, iw = ow0 - 1 + pw;
+      const bool ok = p >= 0 && p < ca.nv && ih >= 0 && ih < H && iw >= 0 && iw < W;
+      const unsigned short* src = xb + (ok ? p * plane + static_cast<long long>(ih) * W + iw : 0);
+      // all 16 loads first, in flight together; the prologue after them (a
+      // branch between the loads would serialize them)
+      unsigned short u[kTcCi];
+#pragma unroll
+      for (int c = 0; c < kTcCi; ++c) u[c] = ok && ci0 + c < cin ? src[(ci0 + c) * ca.xc] : 0;
+      if constexpr (CHAIN) {
+        if (ca.act) {
+#pragma unroll
+          for (int c = 0; c < kTcCi; ++c) u[c] = act_bits(ca.act, u[c]);
+        }
+      }
+      uint32_t v[kTcCi / 2];
+#pragma unroll
+      for (int i = 0; i < kTcCi / 2; ++i)
+        v[i] = static_cast<uint32_t>(u[2 * i]) | (static_cast<uint32_t>(u[2 * i + 1]) << 16);
+      uint4* dst = reinterpret_cast<uint4*>(patch + pos * kTcLd);
+      dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+    }
+    // the chunk's weights, [tap][co][ci], zero outside Cout and Cin
+    for (int u = tid; u < kTcCo * kTcCi; u += kTcThreads) {
+      const int k = u % kTcCi, co = u / kTcCi;
+      const int ci = ci0 + k, oc = co0 + co;
+      const bool ok = ci < cin && oc < cout;
+      const unsigned short* src = wg + (ok ? (static_cast<long long>(oc) * cin + ci) * 27 : 0);
+#pragma unroll
+      for (int tap = 0; tap < 27; ++tap)
+        wsm[(tap * kTcCo + co) * kTcLd + k] = ok ? src[tap] : 0;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int tap = 0; tap < 27; ++tap) {
+      const int toff = (((tap / 9) * kTcPh + (tap / 3) % 3) * kTcPw + tap % 3) * kTcLd;
+      uint32_t a[2][4];
+      load_a(a[0], wts + tap * kTcCo * kTcLd, kTcLd, 0, 0, lane);
+      load_a(a[1], wts + tap * kTcCo * kTcLd, kTcLd, 16, 0, lane);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        uint32_t r[4];
+        ldsm_x4(r, brow[g] + toff);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(acc[mt][2 * g], a[mt], r[0], r[1]);
+          mma16816(acc[mt][2 * g + 1], a[mt], r[2], r[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue on the fragments: acc[mt][nt][2·half + j] is output channel
+  // co0 + 16·mt + lane / 4 + 8·half at column 8·nt + 2·(lane % 4) + j of the
+  // warp's voxels. Bias, then act′ (its loads together, outside any branch
+  // per value), then round, store and sum.
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const int od = od0 + vz;
+  auto co_of = [&](int mt, int half) { return co0 + mt * 16 + (lane >> 2) + half * 8; };
+  auto oh_of = [&](int nt) { return oh0 + vy0 + (nt >> 2); };
+  auto ow_of = [&](int nt) { return ow0 + (nt & 3) * 8 + 2 * (lane & 3); };
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co_of(mt, half);
+      const float bco = co < cout ? bias[co] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[mt][nt][2 * half] += bco;
+        acc[mt][nt][2 * half + 1] += bco;
+      }
+    }
+  if constexpr (CHAIN) {
+    if (ca.dact) {  // block-uniform branch
+      const unsigned short* dxp = static_cast<const unsigned short*>(ca.dact_x);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int co = co_of(mt, half);
+          unsigned short xv[8][2];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int oh = oh_of(nt), ow = ow_of(nt);
+            const bool row_ok = co < cout && od < Do && oh < Ho;
+            const long long off = row_ok ? b * ca.db + co * ca.dc + od * oplane +
+                                               static_cast<long long>(oh) * Wo + ow : 0;
+            xv[nt][0] = row_ok && ow < Wo ? dxp[off] : 0;
+            xv[nt][1] = row_ok && ow + 1 < Wo ? dxp[off + 1] : 0;
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              acc[mt][nt][2 * half + j] *=
+                  dact_f32(ca.dact, __bfloat162float(__ushort_as_bfloat16(xv[nt][j])));
+        }
+    }
+  }
+  float s1[2][2], s2[2][2];  // this thread's Σ and Σ² per [mt][half]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co_of(mt, half);
+      bf16* ob = out + (b * cout + co) * ovol;
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int oh = oh_of(nt), ow = ow_of(nt);
+        const bool row_ok = co < cout && od < Do && oh < Ho;
+        const bool ok0 = row_ok && ow < Wo, ok1 = row_ok && ow + 1 < Wo;
+        const long long opix = od * oplane + static_cast<long long>(oh) * Wo + ow;
+        const bf16 r0 = __float2bfloat16_rn(acc[mt][nt][2 * half]);
+        const bf16 r1 = __float2bfloat16_rn(acc[mt][nt][2 * half + 1]);
+        if (ok1 && (Wo & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + opix) = __halves2bfloat162(r0, r1);
+        } else {
+          if (ok0) ob[opix] = r0;
+          if (ok1) ob[opix + 1] = r1;
+        }
+        const float f0 = ok0 ? __bfloat162float(r0) : 0.f;  // the values the statistics see
+        const float f1 = ok1 ? __bfloat162float(r1) : 0.f;
+        s += f0 + f1;
+        q += f0 * f0 + f1 * f1;
+      }
+      s1[mt][half] = s;
+      s2[mt][half] = q;
+    }
+  if constexpr (CHAIN) {
+    if (ca.partial != nullptr) {  // block-uniform branch
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float s = s1[mt][half], q = s2[mt][half];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {  // the quad: the voxels of this row
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+            q += __shfl_xor_sync(0xffffffffu, q, off);
+          }
+          if ((lane & 3) == 0) {
+            const int c = mt * 16 + (lane >> 2) + half * 8;
+            red[warp][c][0] = s;
+            red[warp][c][1] = q;
+          }
+        }
+      __syncthreads();
+      if (tid < 2 * kTcCo) {  // the warps in order, one partial per block
+        const int c = tid / 2, k = tid % 2;
+        if (co0 + c < cout) {
+          float t = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < kTcWarps; ++wi) t += red[wi][c][k];
+          const long long nblk = gridDim.x / n_co;
+          ca.partial[((b * cout + co0 + c) * nblk + tile) * 2 + k] = t;
+        }
+      }
+    }
+  }
+}
+
+template <bool CHAIN>
+int launch_tc(const void* x, const void* w, const void* bias, void* out, long long batch,
+              int cin, int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
+              cudaStream_t stream) {
+  const long long tiles = static_cast<long long>((Do + kTcTd - 1) / kTcTd) *
+                          ((H + kTcTh - 1) / kTcTh) * ((W + kTcTw - 1) / kTcTw);
+  const int n_co = (cout + kTcCo - 1) / kTcCo;
+  if (tiles * n_co > 2147483647LL || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = conv_tc_kernel<CHAIN>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles * n_co), static_cast<unsigned>(batch)), kTcThreads,
+         kTcSmem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                            static_cast<const float*>(bias), static_cast<bf16*>(out), cin, cout,
+                            H, W, Do, n_co, ca);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ca.partial == nullptr) return static_cast<int>(e);
+  const long long rows = batch * cout;
+  if (rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  sum_block_partials_kernel<<<static_cast<unsigned>(rows), kSumThreads, 0, stream>>>(
+      ca.partial, sums, tiles, static_cast<int>(rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------- CUDA-core launches ---
+
 template <typename T, int S, int TH, int TW, int CI_C, int CO_T, bool CHAIN>
 int launch(const void* x, const void* w, const void* bias, void* out, long long batch, int cin,
            int cout, int H, int W, int Do, int Ho, int Wo, const ChainArgs& ca,
@@ -318,9 +628,19 @@ int launch(const void* x, const void* w, const void* bias, void* out, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tiles: stride 1 uses 8×32 output voxels per block (256 threads); stride 2
+// The instance a call takes, an explicit rule (no fallback): bf16 at stride
+// 1 with Cin ≥ 8 and Cout ≥ 8 → the tensor cores (conv_tc_kernel, 4 × 4 × 32
+// output voxels a block); everything else → the CUDA cores. The Python
+// wrapper counts tensor-core launches by this rule (hvc_conv3d_k3_fwd_tc) and
+// sizes the Σ/Σ² partials for the larger grid of the two instances
+// (ops/cuda/conv3d_k3.py: fwd_partial_blocks), so either fits. CUDA-core
+// tiles: stride 1 uses 8×32 output voxels per block (256 threads); stride 2
 // uses 8×16 (128 threads), which keeps its 2×-wider input patch under the
 // 48 KB of static shared memory.
+bool fwd_uses_tc(int stride, bool bf16, int cin, int cout) {
+  return stride == 1 && bf16 && cin >= 8 && cout >= 8;
+}
+
 template <int S, bool CHAIN, typename T>
 int dispatch_t(const void* x, const void* w, const void* bias, void* out, long long batch,
                int cin, int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
@@ -329,6 +649,8 @@ int dispatch_t(const void* x, const void* w, const void* bias, void* out, long l
   const int Wo = (W - 1) / S + 1;
   constexpr int TH = 8;
   constexpr int TW = S == 1 ? 32 : 16;
+  if (fwd_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout))
+    return launch_tc<CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sums, s);
   if constexpr (S == 1) {
     if (cout == 1 && cin >= 4)
       return launch<T, S, TH, TW, 4, 1, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, Ho,
@@ -389,4 +711,11 @@ extern "C" int hvc_conv3d_k3s2_fwd(const void* x, const void* w, const void* bia
   if (dact != 0) return static_cast<int>(cudaErrorInvalidValue);  // stride-1 dgrad only
   return dispatch<2>(x, w, bias, out, batch, cin, cout, nv, H, W, Do, qlo, xb, xc, act, dact,
                      dact_x, db, dc, partial, sums, dtype, stream);
+}
+
+// 1 if hvc_conv3d_k3s{stride}_fwd runs a call with these channel counts and
+// dtype (0 = float32, 1 = bfloat16) on the tensor cores, else 0: the rule of
+// dispatch_t, which the wrapper counts tensor-core launches by.
+extern "C" int hvc_conv3d_k3_fwd_tc(int stride, int cin, int cout, int dtype) {
+  return fwd_uses_tc(stride, dtype == 1, cin, cout) ? 1 : 0;
 }

@@ -2,9 +2,11 @@
 the dense (padding 1) conv and the slab-chain conv: ``conv3d_k3`` (forward),
 ``conv3d_k3_dgrad`` (data gradient), ``conv3d_k3_wgrad`` (weight gradient).
 
-- Forward, ``csrc/conv3d_k3.cu``: counterparts of ``_conv_fwd``
-  (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py``) and ``_conv_fwd_s2``
-  (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py``). Data gradient: at
+- Forward, ``csrc/conv3d_k3.cu`` (the stride-1 conv in two instances, bf16
+  on the tensor cores and the rest on the CUDA cores): counterparts of
+  ``_conv_fwd`` (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py``) and
+  ``_conv_fwd_s2`` (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py``).
+  Data gradient: at
   stride 1 the forward kernel on the output gradient with channel-
   transposed, tap-flipped weights (``conv3d_k3.py:650-652``); at stride 2
   ``_dgrad_s2`` (``csrc/conv3d_k3_bwd.cu``). Weight gradient: ``_wgrad`` and
@@ -34,8 +36,12 @@ Every wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain version for tensors on the CPU; for any other device it raises. It
 never falls back from the kernel to the plain version. Each launch adds one
 to its letter's counter in ``LAUNCHES`` (the stride-1 data gradient is
-counted there, not under the forward); a weight gradient on the tensor-core
-instance (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) also adds one to
+counted there, not under the forward). A call on a tensor-core instance also
+adds one to that instance's counter: the stride-1 conv and data gradient
+(bf16, Cin ≥ 8 and Cout ≥ 8 as the kernel sees them: the C rule, which
+``fwd_uses_tensor_cores`` states for the CPU) to
+``conv3d_k3s1_tc`` when dense and ``conv3d_k3s1_chain_tc`` otherwise, a weight
+gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
 ``conv3d_k3s{1,2}_wgrad_tc``.
 """
 
@@ -62,9 +68,14 @@ _WGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _
 # hvc_conv3d_k3s2_dgrad(g, w, dx, B, cin, cout, nv, H, W, Do, qlo, dact, dact_x, db, dc,
 #                       dtype, stream)
 _DGRAD_ARGTYPES = (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _I, _P)
-# Output voxels per forward block (csrc/conv3d_k3.cu): the Σ/Σ² epilogue
-# writes one partial per block.
-_FWD_TILE = {1: (8, 32), 2: (8, 16)}
+# hvc_conv3d_k3_fwd_tc(stride, cin, cout, dtype): 1 if the forward takes the
+# tensor cores
+_FWD_TC_ARGTYPES = (_I, _I, _I, _I)
+# Output voxels (D, H, W) per forward block of each instance
+# (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
+# output channel (fwd_partial_blocks).
+_FWD_TILE_TC = (4, 4, 32)
+_FWD_TILE_CUDA_CORE = {1: (1, 8, 32), 2: (1, 8, 16)}
 # The weight gradient's two instances (csrc/conv3d_k3_bwd.cu), each as
 # (output voxels per tile (D, H, W), output and input channels per block,
 # blocks per SM it aims for): the B·Do·Ho·Wo reduction is split into fp32
@@ -211,8 +222,11 @@ def _check_out_grad(g: torch.Tensor, shape) -> None:
 
 def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
          bias: Optional[torch.Tensor], qlo: int, d_out: int, want_sums: bool = False,
-         act: Optional[str] = None, dact: Optional[tuple] = None):
-    """Launch kernel B/C/H/I; returns out or (out, s1, s2)."""
+         act: Optional[str] = None, dact: Optional[tuple] = None, dense: bool = False):
+    """Launch kernel B/C/H/I on the instance the C dispatch picks; returns out
+    or (out, s1, s2). A tensor-core launch, by the C rule
+    (``hvc_conv3d_k3_fwd_tc``), also counts in ``conv3d_k3s1_tc`` (``dense``)
+    or ``conv3d_k3s1_chain_tc``."""
     _check_cuda(x)
     _check_view("x", x, x.dtype, x.device)
     _check_weights(x, w, bias)
@@ -234,8 +248,7 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         dact_code, db, dc = _ACT_CODES[dact[0]], dact_x.stride(0), dact_x.stride(1)
     partial = sums = None
     if want_sums:
-        th, tw = _FWD_TILE[stride]
-        nblk = d_out * -(-ho // th) * -(-wo // tw)
+        nblk = fwd_partial_blocks((B, cin, d_out, H, W), stride)
         partial = torch.empty((B * cout * nblk * 2,), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, B, cout), dtype=torch.float32, device=x.device)
     fn = _build.function(entry, _FWD_ARGTYPES)
@@ -247,7 +260,49 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
                 None if partial is None else partial.data_ptr(),
                 None if sums is None else sums.data_ptr(), _DTYPE_CODES[x.dtype], stream)
     _build.check(rc, entry)
+    if _build.function("hvc_conv3d_k3_fwd_tc", _FWD_TC_ARGTYPES)(stride, cin, cout,
+                                                                 _DTYPE_CODES[x.dtype]):
+        LAUNCHES[f"conv3d_k3s1{'' if dense else '_chain'}_tc"] += 1
     return (out, sums[0], sums[1]) if want_sums else out
+
+
+def fwd_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int) -> bool:
+    """Which instance of the conv forward a call takes (the stride-1 data
+    gradient is the forward on g: Cin and Cout swapped), the rule of
+    ``fwd_uses_tc`` (csrc/conv3d_k3.cu) for plans and tests on the CPU; on
+    the card the wrapper reads the C rule itself: bf16 at stride 1 with Cin ≥ 8 and
+    Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the fp32
+    tolerances), the 1-channel stems and the one-output-channel data
+    gradient (bound by their output or input bytes) and stride 2 on the CUDA
+    cores."""
+    return dtype == torch.bfloat16 and stride == 1 and cin >= 8 and cout >= 8
+
+
+def fwd_plan(out_shape, cout: int, stride: int,
+             dtype: torch.dtype) -> tuple[bool, tuple[int, int, int], int]:
+    """(tensor cores, tile, blocks) of a forward call; out_shape = (B, Cin,
+    Do, H, W): output planes, input rows and columns. ``tile`` is the output
+    voxels (D, H, W) of one block and ``blocks`` the number of blocks per
+    (batch, Cout tile), each of which writes one Σ/Σ² partial per output
+    channel."""
+    tc = fwd_uses_tensor_cores(dtype, stride, out_shape[1], cout)
+    tile = _FWD_TILE_TC if tc else _FWD_TILE_CUDA_CORE[stride]
+    return tc, tile, _fwd_blocks(out_shape, stride, tile)
+
+
+def fwd_partial_blocks(out_shape, stride: int) -> int:
+    """Σ/Σ² partials per (batch, output channel) that a forward call
+    allocates: the larger of the two instances' block counts, so the buffer
+    holds the grid of whichever instance the C dispatch launches."""
+    return max(_fwd_blocks(out_shape, stride, tile)
+               for tile in (_FWD_TILE_TC, _FWD_TILE_CUDA_CORE[stride]))
+
+
+def _fwd_blocks(out_shape, stride: int, tile) -> int:
+    do = out_shape[2]
+    ho, wo = _out_dims(out_shape[3:], stride)
+    td, th, tw = tile
+    return -(-do // td) * -(-ho // th) * -(-wo // tw)
 
 
 def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
@@ -366,12 +421,15 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], st
     """The 3×3×3 conv of the chain contract (module docstring) → out
     (B, Cout, d_out, ⌈H/S⌉, ⌈W/S⌉), or (out, s1, s2) with ``want_sums``.
     Kernel B / C at stride 1 / 2 with ``dense`` (the padding-1 conv: qlo 1,
-    d_out ⌈D/S⌉, no options), H / I otherwise."""
+    d_out ⌈D/S⌉, no options), H / I otherwise; bf16 at stride 1 with Cin ≥ 8
+    and Cout ≥ 8 on the tensor cores, the rest on the CUDA cores
+    (``fwd_uses_tensor_cores``)."""
     if dense:
         _check_dense(x.shape, stride, qlo, d_out, want_sums, act)
     if x.device.type == "cpu":
         return conv3d_k3_plain(x, w, bias, stride, qlo, d_out, want_sums, act)
-    res = _fwd(f"hvc_conv3d_k3s{stride}_fwd", stride, x, w, bias, qlo, d_out, want_sums, act)
+    res = _fwd(f"hvc_conv3d_k3s{stride}_fwd", stride, x, w, bias, qlo, d_out, want_sums, act,
+               dense=dense)
     LAUNCHES[_counter("", stride, dense)] += 1
     return res
 
@@ -383,7 +441,9 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
     Stride 1: kernel B (``dense``) / H on g with channel-transposed,
     tap-flipped weights, as ``conv3d_k3.py:650-652`` (dx plane p reads g
     planes p + qlo − 2 + {0, 1, 2}, the vp=2 virtual padding of
-    ``conv3d_k3.py:714``). Stride 2: kernel F (``dense``) / J."""
+    ``conv3d_k3.py:714``), on the instance ``fwd_uses_tensor_cores`` names
+    for that call (its Cin is g's channels). Stride 2: kernel F (``dense``) /
+    J."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if g.device.type == "cpu":
@@ -394,7 +454,8 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
         return torch.empty(x.shape, dtype=g.dtype, device=g.device)
     if stride == 1:
         wt = w.transpose(0, 1).flip(2, 3, 4).contiguous()
-        dx = _fwd("hvc_conv3d_k3s1_fwd", 1, g, wt, None, 2 - qlo, x.shape[2], dact=dact)
+        dx = _fwd("hvc_conv3d_k3s1_fwd", 1, g, wt, None, 2 - qlo, x.shape[2], dact=dact,
+                  dense=dense)
     else:
         dx = _dgrad_s2(g, w, tuple(x.shape), qlo, dact=dact)
     LAUNCHES[_counter("_dgrad", stride, dense)] += 1
@@ -417,8 +478,10 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 
 
 # Kernel launches per counter since the last reset (ops.cuda.launch_counts):
-# one per kernel letter, and conv3d_k3s{1,2}_wgrad_tc, the launches of E, G
-# and K (dense and chain) that took the tensor-core instance.
+# one per kernel letter; conv3d_k3s1_tc and conv3d_k3s1_chain_tc, the
+# launches of B and H (forward and data gradient) that took the tensor-core
+# instance; conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain).
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
+            "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
             "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0}

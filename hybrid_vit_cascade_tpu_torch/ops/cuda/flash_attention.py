@@ -15,7 +15,10 @@ the CUDA kernels for tensors on a CUDA device and run ``flash_attention_plain``
 / ``flash_attention_bwd_plain`` for tensors on the CPU; for any other device
 they raise. They never fall back from the kernel to the plain version. Each
 kernel counts its launches in the ``.launches`` of its wrapper (L in
-``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s).
+``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s). The
+forward has two instances, by an explicit rule (``fwd_uses_tensor_cores``):
+bf16 on the tensor cores, whose launches also count in
+``flash_attention_fwd.tc_launches``, and fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -96,17 +99,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def fwd_uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Which instance of kernel A a call takes, the rule of
+    ``hvc_flash_attention_fwd``: bf16 on the tensor cores (the probabilities
+    rounded to bf16 into P·V, as the TPU kernel does); fp32 on the CUDA cores
+    (TF32 would leave the fp32 tolerances)."""
+    return dtype == torch.bfloat16
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention without materialised scores.
 
-    q (BH, Nq, d), k and v (BH, Nk, d), contiguous, fp32 or bf16, d ∈ {32, 64}
-    → (out (BH, Nq, d) in q's dtype, lse (BH, Nq) fp32, natural log)."""
+    q (BH, Nq, d), k and v (BH, Nk, d), contiguous, fp32 or bf16 (16-byte
+    aligned), d ∈ {32, 64} → (out (BH, Nq, d) in q's dtype, lse (BH, Nq)
+    fp32, natural log)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash attention runs on cuda or cpu tensors, got {q.device}")
     _check(q, k, v)
+    tc = fwd_uses_tensor_cores(q.dtype)
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash forward needs q, k and v 16-byte aligned")
     bh, nq, d = q.shape
     nk = k.shape[1]
     out = torch.empty_like(q)
@@ -118,10 +133,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bh, nq, nk, d, _DTYPE_CODES[q.dtype], float(scale), stream)
     _build.check(rc, "hvc_flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tc_launches += tc
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,14 @@ This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 """
 
+import ctypes
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
-from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe
+from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     LAUNCHES,
     conv3d_k3,
@@ -19,6 +22,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_plain,
     conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
+    fwd_uses_tensor_cores,
     wgrad_uses_tensor_cores,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
@@ -42,6 +46,10 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # out in fp32; their inputs are the same bf16 values on both sides, so the
 # bf16 case differs from the plain version only by summation order.
 GRAD_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (1e-3, 1e-3)}
+# Flash attention's output (chip_smoke.py FLASH_OUT_TOL): |out| is about
+# (e / Nk)^0.5, far under TOL's absolute part at long Nk, so the absolute
+# part is scaled by the call's largest |want|.
+FLASH_OUT_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -61,6 +69,8 @@ def _randn(shape, dtype, dev, seed):
 def _close(got, want, dtype, tol=TOL):
     atol, rtol = tol[dtype]
     torch.cuda.synchronize()
+    if tol is FLASH_OUT_TOL:
+        atol *= float(want.float().abs().max())
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
     assert bool((err <= atol + rtol * want.float().abs()).all()), float(err.max())
@@ -77,7 +87,7 @@ def test_flash_matches_plain(dev, dtype, bh, nq, nk, d):
     assert flash_attention_fwd.launches == before + 1
     want_out, want_lse = flash_attention_plain(q, k, v, scale)
     assert out.dtype == dtype and lse.dtype == torch.float32
-    _close(out, want_out, dtype)
+    _close(out, want_out, dtype, FLASH_OUT_TOL)
     _close(lse, want_lse, torch.float32)
 
 
@@ -296,6 +306,185 @@ def test_wgrad_tensor_cores_main_path(dev, shape):
     assert torch.isfinite(dw).all()
     assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
     assert torch.equal(conv3d_k3_wgrad(x, g, stride, qlo, act), dw)
+
+
+# Stride-1 conv shapes of the main path (chip_smoke.py KERNELS["conv3d_k3s1"],
+# TRAIN_KERNELS["conv3d_k3s1_dgrad"], CHAIN_KERNELS["conv3d_k3s1_chain"] and
+# "conv3d_k3s1_chain_dgrad"), as the chain call: (B, Cin, Cout, planes of x,
+# H, W, slab plane of x's first plane, output planes, Σ/Σ², act). Dense calls
+# are the chain call over the whole volume (qlo 1, no options).
+_FWD_MAIN_DENSE = [(1, 128, 256, 16, 16, 16, 1, 16, False, None),
+                   (1, 1, 32, 128, 128, 128, 1, 128, False, None),
+                   (1, 1, 32, _R, _R, _R, 1, _R, False, None), (1, 1, 64, _R, _R, _R, 1, _R, False, None),
+                   (1, 64, 32, _R, _R, _R, 1, _R, False, None), (8, 128, 256, 16, 16, 16, 1, 16, False, None)]
+_FWD_MAIN_CHAIN = [
+    (1, 1, 64, 34, _R, _R, 0, 32, True, None), (1, 1, 64, 33, _R, _R, 1, 32, True, None),
+    (1, 1, 64, 33, _R, _R, 0, 32, True, None), (1, 1, 64, 36, _R, _R, 0, 34, False, None),
+    (1, 64, 32, 34, _R, _R, 0, 32, True, None), (1, 64, 32, 34, _R, _R, 0, 32, True, "gelu"),
+    (1, 1, 32, 34, _R, _R, 0, 32, True, None), (1, 1, 32, 35, _R, _R, 0, 33, False, None),
+    (2, 64, 32, 34, _R, _R, 0, 32, True, None),
+    (1, 1, 64, _R, _R, _R, 1, _R, True, None), (1, 64, 32, _R, _R, _R, 1, _R, True, None),
+    (1, 1, 32, _R, _R, _R, 1, _R, True, None)]
+
+
+def _fwd_case(shape, dtype, dev, seed):
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    x = _randn((b, cin, nv + 2, h, w_), dtype, dev, seed).narrow(2, 1, nv)
+    w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, seed + 1) / (27 * cin) ** 0.5).to(dtype)
+    return x, w, _randn((cout,), torch.float32, dev, seed + 2)
+
+
+def _check_sums(out, s1, s2):
+    """The Σ/Σ² epilogue sums the kernel's own rounded output (TOL of fp32
+    sums over up to 16.7 M voxels in another order)."""
+    of = out.float()
+    for got_s, mag, ref in ((s1, of.abs(), of), (s2, of * of, of * of)):
+        want = ref.sum(dim=(2, 3, 4))
+        bound = 1e-5 * mag.sum(dim=(2, 3, 4)) + 1e-5
+        assert bool(((got_s - want).abs() <= bound).all()), float((got_s - want).abs().max())
+
+
+def _conv_fwd_and_dgrad(shape, dev, dense):
+    """The conv and its stride-1 data gradient in bf16 against their plain
+    versions, each counted on the instance ``fwd_uses_tensor_cores`` names."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    dt = torch.bfloat16
+    x, w, bias = _fwd_case(shape, dt, dev, 30)
+    tc = "conv3d_k3s1_tc" if dense else "conv3d_k3s1_chain_tc"
+    before = LAUNCHES[tc]
+    res = conv3d_k3(x, w, bias, 1, qlo, d_out, sums, act, dense=dense)
+    assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 1, cin, cout)
+    want = conv3d_k3_plain(x, w, bias, 1, qlo, d_out, sums, act)
+    out = res[0] if sums else res
+    _close(out, want[0] if sums else want, dt)
+    if sums:
+        _check_sums(out, res[1], res[2])
+    del res, want
+    g = _randn(tuple(out.shape), dt, dev, 33)
+    before = LAUNCHES[tc]
+    dx = conv3d_k3_dgrad(g, w, x, 1, qlo, act, dense=dense)
+    assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 1, cout, cin)
+    want = conv3d_k3_dgrad_plain(g, w, x, 1, qlo, act)
+    torch.cuda.synchronize()
+    err = (dx.float() - want.float()).abs()
+    scale = max(1.0, float(want.float().abs().max()))  # chip_smoke.py's gradient tolerance
+    assert torch.isfinite(dx.float()).all()
+    assert bool((err <= 2e-2 * scale + 2e-2 * want.float().abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("shape", _FWD_MAIN_DENSE)
+def test_conv_tensor_cores_main_path_dense(dev, shape):
+    """Kernel B and B as the stride-1 data gradient at the main path's dense
+    shapes, bf16: the Cin ≥ 8, Cout ≥ 8 calls on the tensor cores."""
+    _conv_fwd_and_dgrad(shape, dev, dense=True)
+
+
+@pytest.mark.parametrize("shape", _FWD_MAIN_CHAIN)
+def test_conv_tensor_cores_main_path_chain(dev, shape):
+    """Kernel H and H as the data gradient at the streamed chains' shapes."""
+    _conv_fwd_and_dgrad(shape, dev, dense=False)
+
+
+# Ragged calls that reach the tensor-core conv: Cin 8 / 24 / 40 (not a
+# multiple of the 16-channel chunk), Cout 8 / 40 / 48 (not a multiple of
+# the 32-channel tile), odd H and W, x beginning before the slab (qlo < 0)
+# and ending before the output's last planes, with every option.
+TC_FWD_CASES = [(1, 8, 40, 5, 7, 9, -1, 6, True, "gelu"),
+                (2, 24, 8, 6, 5, 33, 0, 5, True, "silu"),
+                (1, 40, 48, 7, 9, 35, 1, 7, True, None),
+                (1, 24, 40, 4, 6, 12, 0, 6, False, "gelu"),
+                (2, 16, 48, 9, 11, 40, 2, 9, True, "silu")]
+
+
+@pytest.mark.parametrize("case", TC_FWD_CASES)
+def test_conv_tensor_cores_ragged(dev, case):
+    """The tensor-core conv (bf16, stride 1) at ragged shapes: the chain
+    options (window, prologue, Σ/Σ², the act′ epilogue of its data
+    gradient), Σ/Σ² bitwise equal over two runs; the fp32 call stays on the
+    CUDA cores."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = case
+    _conv_fwd_and_dgrad(case, dev, dense=False)
+    x, w, bias = _fwd_case(case, torch.bfloat16, dev, 40)
+    first = conv3d_k3(x, w, bias, 1, qlo, d_out, True, act)
+    again = conv3d_k3(x, w, bias, 1, qlo, d_out, True, act)
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+    xf, wf, _ = _fwd_case(case, torch.float32, dev, 40)
+    before = LAUNCHES["conv3d_k3s1_chain_tc"]
+    conv3d_k3(xf, wf, bias, 1, qlo, d_out, sums, act)
+    assert LAUNCHES["conv3d_k3s1_chain_tc"] == before
+    assert not fwd_uses_tensor_cores(torch.float32, 1, cin, cout)
+
+
+def test_conv_fwd_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3_fwd_tc``, which the wrapper
+    counts tensor-core launches by) is ``fwd_uses_tensor_cores`` at every
+    dtype, stride and channel count around its edges."""
+    rule = _build.function("hvc_conv3d_k3_fwd_tc", (ctypes.c_int,) * 4)
+    for (dtype, code), stride, cin, cout in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 2), (1, 4, 7, 8, 9, 64, 256),
+            (1, 4, 7, 8, 9, 64, 256)):
+        assert bool(rule(stride, cin, cout, code)) == fwd_uses_tensor_cores(dtype, stride, cin,
+                                                                             cout)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 32, _R, _R, _R, 1, _R, True, None),
+                                   (1, 64, 32, 34, _R, _R, 0, 32, True, "gelu")])
+def test_conv_tensor_cores_sums_bitwise(dev, shape):
+    """Two runs of the hot 64→32 chain conv's Σ/Σ² give the same bits."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    x, w, bias = _fwd_case(shape, torch.bfloat16, dev, 50)
+    first = conv3d_k3(x, w, bias, 1, qlo, d_out, True, act)
+    again = conv3d_k3(x, w, bias, 1, qlo, d_out, True, act)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+# (BH, Nq, Nk, d) of the flash forward on the main path (chip_smoke.py
+# KERNELS["flash_attention"] and _FLASH_TRAIN_SHAPES) and ragged: Nq and Nk
+# not multiples of the 64-row and 64-key tiles, one query, one key.
+FLASH_MAIN = [(4, 4096, 4096, 64), (4, 4096, 256, 64), (8, 4096, 4096, 32), (8, 4096, 1024, 32),
+              (8, 32768, 32768, 32), (8, 32768, 4096, 32), (32, 4096, 4096, 64),
+              (32, 4096, 256, 64), (16, 4096, 4096, 32), (16, 4096, 1024, 32)]
+FLASH_RAGGED = [(3, 200, 77, 32), (3, 200, 77, 64), (2, 130, 4100, 32), (2, 65, 63, 64),
+                (1, 1, 1, 32), (2, 1000, 129, 64)]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", FLASH_MAIN + FLASH_RAGGED)
+def test_flash_tensor_cores_match_plain(dev, bh, nq, nk, d):
+    """The tensor-core flash forward (bf16) against its plain version, out
+    within FLASH_OUT_TOL and lse (fp32 from the same bf16 inputs on both
+    sides) within the fp32 one, counted in flash_attention_tc; the fp32 call
+    stays on the CUDA cores."""
+    q, k, v = (_randn((bh, n, d), torch.bfloat16, dev, s) for s, n in ((0, nq), (1, nk), (2, nk)))
+    scale = d ** -0.5
+    before = (flash_attention_fwd.launches, flash_attention_fwd.tc_launches)
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    assert (flash_attention_fwd.launches, flash_attention_fwd.tc_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_out, want_lse = flash_attention_plain(q, k, v, scale)
+    _close(out, want_out, torch.bfloat16, FLASH_OUT_TOL)
+    _close(lse, want_lse, torch.float32)
+    if nq * nk <= 4096 * 4096:
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        flash_attention_fwd(qf, kf, vf, scale)
+        assert flash_attention_fwd.tc_launches == before[1] + 1
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", [(8, 4096, 4096, 32), (4, 4096, 256, 64)] + FLASH_RAGGED[:4])
+def test_flash_bwd_from_tensor_core_forward(dev, bh, nq, nk, d):
+    """D, L and M take the tensor-core forward's out and lse (bf16) and stay
+    within the bf16 tolerance of the plain backward given the same ones."""
+    q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    before = flash_attention_fwd.tc_launches
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    assert flash_attention_fwd.tc_launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    for got in (flash_attention_bwd(q, k, v, out, lse, dout, scale),
+                flash_attention_bwd_split(q, k, v, out, lse, dout, scale)):
+        for g, w in zip(got, want):
+            _close(g, w, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
