@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 3. Hold each kernel against its plain PyTorch version on the card, at every
    shape the main path gives it and at ragged small shapes, in bf16 and fp32
    (flash attention's output with the absolute part of its tolerance scaled
-   by the call's largest |want|: FLASH_OUT_TOL). Then the chain forms H
+   by the call's largest |want|: FLASH_OUT_TOL; the bf16 calls with Cin ≥ 8
+   and Cout ≥ 8 at either stride on the tensor-core conv). Then the chain forms H
    (stride-1 chain conv, and as its data gradient), I (stride-2 chain
    conv), J (stride-2 chain data gradient) and K (chain weight gradients)
    at every shape the streamed stage-3 chains give them
@@ -28,7 +29,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    max_stage=3 with return_intermediate=True, its stage-3 chains streamed
    (the eval schedule: one slab, every endpoint stored). Checks the output
    shapes, finiteness, and that each kernel launched as often as the path
-   needs it (EXPECTED_LAUNCHES), its tensor-core instances included.
+   needs it (EXPECTED_LAUNCHES), its tensor-core instances included: every
+   stride-2 conv but the 1→64 stem on the tensor cores.
 5. A small-input reference: a scaled cascade in fp32 on the card (kernels)
    against the same weights on the CPU (plain versions), its stage-3 chains
    streamed at every level.
@@ -42,16 +44,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    data gradient), G (stride-2 weight gradient) and kernel B run as the
    stride-1 data gradient — against their plain versions at every shape the
    three training stages give them (and ragged small shapes), in bf16 and
-   fp32, with kernel and plain times at the training shapes; two runs of D
-   agree bitwise at every training shape in bf16 and fp32 (its dq partials
-   are added in a fixed order), and two runs of L and of M at the stage-3
-   shape (no atomics); the bf16 64→32 and 32→64 weight gradients of the
+   fp32, with kernel and plain times at the training shapes (the three
+   flash backward kernels with FLASH_OUT_TOL: their gradients are well under
+   1 at the long shapes); two runs of D agree bitwise at every training
+   shape in bf16 and fp32 (its dq adds go in a fixed order), and two runs of
+   L and of M at the stage-3 shape (no atomics); the bf16 64→32 and 32→64 weight gradients of the
    stage-3 step (dense and one training slab) take the tensor-core instance
    of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
    one; the bf16 64→32 conv and its data gradient (dense and one training
    slab) take the tensor-core B/H and every bf16 flash forward of the
-   training shapes the tensor-core A, their fp32 calls and the 1-channel
-   conv (and its one-output-channel data gradient) the CUDA-core ones.
+   training shapes the tensor-core A and D, the bf16 32→64 stride-2 conv
+   (dense and one training slab) the tensor-core C/I, their fp32 calls, the
+   1-channel conv (and its one-output-channel data gradient) and the 1→64
+   stride-2 stem the CUDA-core ones.
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -65,9 +70,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    finite losses, peak memory, and each kernel's launches per step (every
    counted wrapper, B as the stride-1 data gradient included, launches in
    the stage-3 step, its bf16 64→32 and 32→64 weight gradients, its 64→32
-   chain conv and data gradient in every slab, and every flash forward of
-   each stage on the tensor cores). Stage 3 trains on the config's streamed
-   schedule (8 slabs).
+   chain conv and data gradient in every slab, every 32→64 chain conv (I),
+   and every flash forward and fused backward of each stage on the tensor
+   cores). Stage 3 trains on the config's streamed schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -107,7 +112,8 @@ since exps computed as polynomials on the FMA units or two at a time by
 ex2.approx.bf16x2 go under it) and the time of one
 PyTorch call that computes the same function (library_ms: cuDNN convolution
 or its weight/data gradient, scaled_dot_product_attention forward or
-backward), all in bf16 at the kernel's hot shape; launches are those of the
+backward), all in bf16 at the kernel's hot shape; each row names the card
+and its power limit; launches are those of the
 main path: the reconstruct [4], the first step of each stage in [9], the
 training run of [11] (the only one that takes L and M) and the probe run of
 [12] (the only one that takes N). The probe rows are at N = 131,072, R = 64,
@@ -152,6 +158,11 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 # is scaled by the call's largest |want| instead; one bf16 ulp is at most
 # 2^-7·|want|, well inside the relative part.
 FLASH_OUT_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+# The flash backward kernels (D, L, M) take FLASH_OUT_TOL too: at the long
+# shapes their dq, dk and dv are 0.1-0.15 at most (PERF.md §6), where TOL's
+# absolute 2e-2 would be over 10% of the largest gradient. On the
+# tensor cores D rounds p and ds to bf16 before its products, as the TPU
+# kernel does (2^-9 relative each).
 # Gradient kernels take the same bounds with the absolute part scaled by the
 # largest |want| of the call: their sums run over up to 16.7 M voxels or
 # 32,768 keys, so an element that cancels to near zero carries the rounding
@@ -168,11 +179,13 @@ SMALL_TOL = (2e-4, 2e-4)
 # runs the stage-3 upsample conv and the two detail convs as H and the first
 # stage-3 stem conv as I, once each. On the tensor-core instances (bf16): all
 # 36 flash forwards, the 128→256 projection (B; the 1→32 upsample conv stays
-# on the CUDA cores) and the detail chain's 64→32 conv (H; the 1→32 and 1→64
-# convs stay).
+# on the CUDA cores), the detail chain's 64→32 conv (H; the 1→32 and 1→64
+# convs stay), every dense stride-2 conv but stage 1's 1→64 stem (C) and the
+# 32→64 stage-3 stem conv (I).
 EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 2, "conv3d_k3s2": 7,
                      "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1,
-                     "flash_attention_tc": 36, "conv3d_k3s1_tc": 1, "conv3d_k3s1_chain_tc": 1}
+                     "flash_attention_tc": 36, "conv3d_k3s1_tc": 1, "conv3d_k3s1_chain_tc": 1,
+                     "conv3d_k3s2_tc": 6, "conv3d_k3s2_chain_tc": 1}
 REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
@@ -420,7 +433,8 @@ def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False
                     if g.shape != w.shape or g.dtype != w.dtype:
                         raise AssertionError(f"{name} {shape}: {g.shape}/{g.dtype} vs "
                                              f"{w.shape}/{w.dtype}")
-                    flash_out = name == "flash_attention" and i == 0
+                    flash_out = (name == "flash_attention" and i == 0) or \
+                        name.startswith("flash_attention_bwd")
                     atol, rtol = (FLASH_OUT_TOL if flash_out else TOL)[w.dtype]
                     diff = (g.float() - w.float()).abs()
                     err = float(diff.max())
@@ -900,26 +914,33 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     step3 = out["stage3"]["launches_per_step"]
     need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
             "conv3d_k3s2_wgrad", *CHAIN_KERNELS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc",
-            "conv3d_k3s1_chain_tc", "flash_attention_tc")
+            "conv3d_k3s1_chain_tc", "flash_attention_tc", "flash_attention_bwd_tc",
+            "conv3d_k3s2_chain_tc")
     if any(step3[k] == 0 for k in need):
         raise AssertionError(f"[9] the stage-3 step did not run every kernel of its path: {step3}")
-    # every flash forward of a bf16 step takes the tensor cores, and so do the
-    # 64→32 chain conv and its data gradient (at least one of each per slab)
+    # every flash forward and fused backward of a bf16 step takes the tensor
+    # cores, and so do the 64→32 chain conv and its data gradient (at least
+    # one of each per slab) and the stage-3 step's 32→64 chain conv (I)
     for stage, r in out.items():
         lc = r["launches_per_step"]
-        if lc["flash_attention_tc"] != lc["flash_attention"]:
-            raise AssertionError(f"[9] {stage}: {lc['flash_attention_tc']} of "
-                                 f"{lc['flash_attention']} flash forwards on the tensor cores")
+        for k in ("flash_attention", "flash_attention_bwd"):
+            if lc[f"{k}_tc"] != lc[k]:
+                raise AssertionError(f"[9] {stage}: {lc[f'{k}_tc']} of {lc[k]} launches of {k} "
+                                     f"on the tensor cores")
     if step3["conv3d_k3s1_chain_tc"] < 2 * cfg.model.slab_count:
         raise AssertionError(f"[9] the stage-3 step's 64→32 chain conv and its data gradient "
                              f"did not take the tensor cores in every slab: {step3}")
+    if step3["conv3d_k3s2_chain_tc"] != step3["conv3d_k3s2_chain"]:
+        raise AssertionError(f"[9] the stage-3 step's 32→64 chain conv (I) did not take the "
+                             f"tensor cores every time: {step3}")
     return out
 
 
 def flash_bwd_bitwise(dev, seed: int) -> dict:
     """Phase 7d: two runs give the same bits — kernel D at every training
-    shape in bf16 and fp32 (dq partials added in a fixed order), L and M at
-    the stage-3 self-attention shape in fp32 (no atomics)."""
+    shape in bf16 (tensor cores: dq added in key-tile order) and fp32 (CUDA
+    cores: dq partials added in group order), L and M at the stage-3
+    self-attention shape in fp32 (no atomics)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
     runs = [(name, shape, dtype) for shape in _FLASH_TRAIN_SHAPES
@@ -985,35 +1006,43 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
     return out
 
 
-# bf16 calls of the stage-3 step on the stride-1 conv and the flash forward:
-# the dense and one-slab 64→32 conv and its data gradient (the forward on g,
-# 32→64 channels), with the counter their launch must add to.
+# bf16 calls of the stage-3 step on the conv forward: the dense and
+# one-slab 64→32 conv and its data gradient (the forward on g, 32→64
+# channels) and the dense and one-slab 32→64 stride-2 conv, with the counter
+# their launch must add to.
 _TC_FWD_CALLS = [("conv3d_k3s1", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
                  ("conv3d_k3s1_dgrad", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
                  ("conv3d_k3s1_chain", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc"),
-                 ("conv3d_k3s1_chain_dgrad", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc")]
+                 ("conv3d_k3s1_chain_dgrad", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc"),
+                 ("conv3d_k3s2", (1, 32, 64, (256, 256, 256)), "conv3d_k3s2_tc"),
+                 ("conv3d_k3s2_chain", _TRAIN_S2, "conv3d_k3s2_chain_tc")]
 
 
 def tc_fwd_dispatch(dev, seed: int) -> dict:
     """Phase 7f: the bf16 64→32 conv of the stage-3 step and its data
     gradient (dense and one training slab) launch the tensor-core conv
-    (conv3d_k3s1_tc / conv3d_k3s1_chain_tc count them), and every bf16 flash
-    forward of the training shapes the tensor-core A (flash_attention_tc);
-    the same calls in fp32, and the 1-channel conv and its one-output-channel
-    data gradient, do not."""
+    (conv3d_k3s1_tc / conv3d_k3s1_chain_tc count them), the bf16 32→64
+    stride-2 conv (dense and one training slab) the tensor-core C/I
+    (conv3d_k3s2_tc / conv3d_k3s2_chain_tc), and every bf16 flash forward and
+    fused backward of the training shapes the tensor-core A and D
+    (flash_attention_tc, flash_attention_bwd_tc); the same calls in fp32, the
+    1-channel conv and its one-output-channel data gradient, and the 1→64
+    stride-2 stem do not."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
 
     calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
              for dt in (torch.bfloat16, torch.float32)]
     calls += [(n, (1, 1, 64, (256, 256, 256)), "conv3d_k3s1_tc", torch.bfloat16, False)
               for n in ("conv3d_k3s1", "conv3d_k3s1_dgrad")]
-    calls += [("flash_attention", sh, "flash_attention_tc", dt, dt == torch.bfloat16)
+    calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_tc", torch.bfloat16, False)]
+    calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
+              for n in ("flash_attention", "flash_attention_bwd")
               for sh in _FLASH_TRAIN_SHAPES for dt in (torch.bfloat16, torch.float32)]
     out = {}
     for name, shape, counter, dtype, want_tc in calls:
         if "chain" in name:
             args, fn = _chain_inputs(name, shape, dtype, dev, seed), _chain_fns(name)[0]
-        elif name.endswith("dgrad"):
+        elif name.endswith("dgrad") or name == "flash_attention_bwd":
             args, fn = _train_inputs(name, shape, dtype, dev, seed), _train_fns(name)[0]
         else:
             args, fn = _inputs(name, shape, dtype, dev, seed), _fns(name)[0]
@@ -1225,9 +1254,11 @@ _EXP2_NOTE = ("bound_ms is max(products_ms, bytes_ms); exp2_ms, every score's ex
 
 # The tensor-core instances: each kernel row's counter (the conv forward's
 # counts its data gradient too).
-_TC_COUNTERS = {"flash_attention": "flash_attention_tc", "conv3d_k3s1": "conv3d_k3s1_tc",
+_TC_COUNTERS = {"flash_attention": "flash_attention_tc",
+                "flash_attention_bwd": "flash_attention_bwd_tc", "conv3d_k3s1": "conv3d_k3s1_tc",
                 "conv3d_k3s1_dgrad": "conv3d_k3s1_tc", "conv3d_k3s1_chain": "conv3d_k3s1_chain_tc",
-                "conv3d_k3s1_chain_dgrad": "conv3d_k3s1_chain_tc"}
+                "conv3d_k3s1_chain_dgrad": "conv3d_k3s1_chain_tc",
+                "conv3d_k3s2": "conv3d_k3s2_tc", "conv3d_k3s2_chain": "conv3d_k3s2_chain_tc"}
 
 
 def _tc_rule(counter: str) -> str:
@@ -1236,7 +1267,8 @@ def _tc_rule(counter: str) -> str:
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
-    rule = (fa.fwd_uses_tensor_cores if counter.startswith("flash") else
+    rule = (fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
+            fa.fwd_uses_tensor_cores if counter.startswith("flash") else
             ck.wgrad_uses_tensor_cores if "wgrad" in counter else ck.fwd_uses_tensor_cores)
     return " ".join(inspect.getdoc(rule).split())
 
@@ -1466,7 +1498,7 @@ def main() -> int:
                         "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms(name, spec["hot"], dev, args.seed),
-                        "at": f"{spec['hot']} bf16", "launches_by_run": runs,
+                        "at": f"{spec['hot']} bf16", "card": card, "launches_by_run": runs,
                         "bound_terms_ms": terms})
         if name.startswith("flash_attention_bwd"):
             kernels[-1]["library_call"] = _SDPA_BWD
@@ -1491,6 +1523,7 @@ def main() -> int:
                         "max_abs_err": worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
                         "at": f"{r['case']}: N {r['n']}, R {r['repeats']}, bf16 in, fp32 out",
+                        "card": card,
                         "library_call": r["library_call"], "launches_by_run": runs})
         if name == "conv_probe_v1":
             kernels[-1]["v0"] = {k: probe_rows["V0"][k] for k in

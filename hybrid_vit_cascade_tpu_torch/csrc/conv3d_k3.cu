@@ -603,6 +603,284 @@ int launch_tc(const void* x, const void* w, const void* bias, void* out, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- C and I on the tensor cores ---
+
+constexpr int kS2Threads = 256;                  // 8 warps
+constexpr int kS2Warps = kS2Threads / 32;
+constexpr int kS2Co = 64;                        // output channels per block: M, four 16-row tiles
+constexpr int kS2Ci = 16;                        // input channels per chunk: one k16 step a tap
+constexpr int kS2Td = 2, kS2Th = 4, kS2Tw = 16;  // output voxels per block: 128
+constexpr int kS2Ph = 2 * kS2Th + 1;             // patch rows per plane: 9
+constexpr int kS2R = (2 * kS2Td + 1) * kS2Ph;    // patch rows: 5 planes × 9
+constexpr int kS2Pw = 2 * kS2Tw + 1;             // patch columns: 33, the even ones (17) first
+constexpr int kS2Pwe = kS2Tw + 1;
+constexpr int kS2Nvec = 5;                       // 8-column vectors of a raw row, from column
+                                                 // 2·ow0 − 8 through the patch's last, 2·ow0 + 31
+constexpr int kS2Units = (kS2Ci / 8) * kS2Nvec * kS2R;  // staging units: 8 channels × 8 columns
+constexpr int kS2Patch = kS2R * kS2Pw * kS2Ci;   // bf16, [row][position][16 ci]
+constexpr int kS2Wts = 27 * kS2Co * kS2Ci;       // bf16, [tap][co][16 ci]
+constexpr int kS2Smem = (kS2Patch + kS2Wts) * 2; // 102,816 bytes: two blocks an SM
+
+// Element offset of 16-byte unit u (channels 8u … 8u + 7) of 32-byte row
+// `row` (a patch position or a weight row): the two units swap places in
+// every other group of four rows, so the 8 consecutive rows an ldmatrix
+// reads hit 8 different bank groups wherever they start, without padding.
+__device__ __forceinline__ int s2_swz(int row, int u) {
+  return row * 16 + ((u ^ ((row >> 2) & 1)) << 3);
+}
+
+// position of patch column pw within its row: the even columns, then the
+// odd ones, so output voxel ox reads position ox + {0, 17, 1} at tap dx
+__device__ __forceinline__ int s2_pcol(int pw) { return (pw & 1) * kS2Pwe + (pw >> 1); }
+
+__device__ __forceinline__ uint32_t act_bf16x2(int act, uint32_t w) {
+  const float lo = act_f32(act, __uint_as_float(w << 16));
+  const float hi = act_f32(act, __uint_as_float(w & 0xffff0000u));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// Block (blockIdx.x, blockIdx.y): Cout tile blockIdx.x % n_co (fastest, so
+// the Cout tiles of one voxel tile run together and share its rows in L2),
+// voxel tile blockIdx.x / n_co (W fastest, then H, then D), batch
+// blockIdx.y. wtc: the weights as [Cout tile][Cin chunk][tap][64 co][16 ci],
+// zero-padded (ops/cuda/conv3d_k3.py: s2_tc_weights), so a chunk's weights
+// are one contiguous 55 KB copy. VEC: x's rows and strides are 16-byte
+// aligned (W, xb, xc multiples of 8), so the staging loads 16-byte vectors;
+// otherwise element by element.
+template <bool CHAIN, bool VEC>
+__global__ void __launch_bounds__(kS2Threads, 2)
+conv_tc_s2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wtc,
+                  const float* __restrict__ bias, bf16* __restrict__ out, int cin, int cout,
+                  int H, int W, int Do, int n_co, ChainArgs ca) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* patch = reinterpret_cast<bf16*>(smem_raw);
+  bf16* wts = patch + kS2Patch;
+  __shared__ float red[kS2Warps][kS2Co][2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tiles_w = (Wo + kS2Tw - 1) / kS2Tw;
+  const int tiles_h = (Ho + kS2Th - 1) / kS2Th;
+  const int cot = static_cast<int>(blockIdx.x % n_co);
+  const int co0 = cot * kS2Co;
+  const int tile = static_cast<int>(blockIdx.x / n_co);
+  const int od0 = tile / (tiles_w * tiles_h) * kS2Td;
+  const int oh0 = tile / tiles_w % tiles_h * kS2Th;
+  const int ow0 = tile % tiles_w * kS2Tw;
+  const long long b = blockIdx.y;
+  const long long plane = static_cast<long long>(H) * W;
+  const bf16* xb = x + b * ca.xb;
+  const int n_ci = (cin + kS2Ci - 1) / kS2Ci;
+  const int p0 = 2 * od0 - ca.qlo;  // view plane of the patch's first plane
+  const int ih0 = 2 * oh0 - 1, c_first = 2 * ow0 - 8;
+
+  // warp w: output plane w / 4, row w % 4, columns 0-15 (two 8-voxel tiles).
+  // This lane's row of the B loads: voxel ln, channel unit lk.
+  const int vz = warp >> 2, vy = warp & 3;
+  const int ln = (lane & 7) + ((lane >> 4) << 3);
+  const int lk = (lane >> 3) & 1;
+  const int arow = lane & 15, au = lane >> 4;  // this lane's row and unit of the A loads
+
+  float acc[4][2][4];  // [16-row co tile][8-voxel tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int ch = 0; ch < n_ci; ++ch) {
+    const int ci0 = ch * kS2Ci;
+    __syncthreads();  // the previous chunk's patch and weights are no longer read
+    // the chunk's weights, one contiguous copy
+    const bf16* wsrc = wtc + (static_cast<long long>(cot) * n_ci + ch) * kS2Wts;
+    for (int u = tid; u < kS2Wts / 8; u += kS2Threads)
+      cp_async16(wts + s2_swz(u >> 1, u & 1), wsrc + u * 8, 16);
+    cp_async_commit();
+    // the patch: units of 8 channels × one 8-column vector of a raw row, two
+    // a thread, all their loads in flight together; then an 8 × 8 register
+    // transpose (byte permutes) into [position][ci], the prologue on the way
+    // (act(0) = 0 keeps the padding); zero outside the view's planes, the
+    // image and Cin
+    for (int u0 = tid; u0 < kS2Units; u0 += 2 * kS2Threads) {
+      uint32_t wv[2][8][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int u = u0 + t * kS2Threads;
+        const int r = u % kS2R, v = (u / kS2R) % kS2Nvec, cg = u / (kS2R * kS2Nvec);
+        const int p = p0 + r / kS2Ph, ih = ih0 + r % kS2Ph, c = c_first + 8 * v;
+        const bool row_ok = u < kS2Units && p >= 0 && p < ca.nv && ih >= 0 && ih < H;
+        const long long off = p * plane + static_cast<long long>(ih) * W + c;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int ci = ci0 + cg * 8 + i;
+          if (VEC) {
+            const bool ok = row_ok && ci < cin && c >= 0 && c < W;  // W % 8 = 0: all in or out
+            const uint4 q4 = ok ? *reinterpret_cast<const uint4*>(xb + ci * ca.xc + off)
+                                : make_uint4(0u, 0u, 0u, 0u);
+            wv[t][i][0] = q4.x, wv[t][i][1] = q4.y, wv[t][i][2] = q4.z, wv[t][i][3] = q4.w;
+          } else {
+            const unsigned short* src = reinterpret_cast<const unsigned short*>(xb) + ci * ca.xc + off;
+            unsigned short e8[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              e8[e] = row_ok && ci < cin && c + e >= 0 && c + e < W ? src[e] : 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              wv[t][i][j] = e8[2 * j] | (static_cast<uint32_t>(e8[2 * j + 1]) << 16);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int u = u0 + t * kS2Threads;
+        if (u >= kS2Units) continue;
+        const int r = u % kS2R, v = (u / kS2R) % kS2Nvec, cg = u / (kS2R * kS2Nvec);
+        if constexpr (CHAIN) {
+          if (ca.act) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) wv[t][i][j] = act_bf16x2(ca.act, wv[t][i][j]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int pw = 8 * v + e - 7;  // raw column 0 is input column 2·ow0 − 8
+          if (pw < 0 || pw >= kS2Pw) continue;
+          const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+          const int j = e >> 1;
+          *reinterpret_cast<uint4*>(patch + s2_swz(r * kS2Pw + s2_pcol(pw), cg)) =
+              make_uint4(__byte_perm(wv[t][0][j], wv[t][1][j], sel),
+                         __byte_perm(wv[t][2][j], wv[t][3][j], sel),
+                         __byte_perm(wv[t][4][j], wv[t][5][j], sel),
+                         __byte_perm(wv[t][6][j], wv[t][7][j], sel));
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+#pragma unroll
+    for (int tap = 0; tap < 27; ++tap) {
+      const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(a[mt], wts + s2_swz(tap * kS2Co + mt * 16 + arow, au));
+      const int idx = ((2 * vz + dz) * kS2Ph + 2 * vy + dy) * kS2Pw + ln +
+                      (dx == 1 ? kS2Pwe : dx >> 1);
+      uint32_t r[4];
+      ldsm_x4(r, patch + s2_swz(idx, lk));
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        mma16816(acc[mt][0], a[mt], r[0], r[1]);
+        mma16816(acc[mt][1], a[mt], r[2], r[3]);
+      }
+    }
+  }
+
+  // epilogue on the fragments: acc[mt][nt][2·half + j] is output channel
+  // co0 + 16·mt + lane / 4 + 8·half at column ow0 + 8·nt + 2·(lane % 4) + j
+  // of row oh0 + vy, plane od0 + vz. Bias, round, store and sum.
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const int od = od0 + vz, oh = oh0 + vy;
+  const bool row_ok = od < Do && oh < Ho;
+  float s1[4][2], s2[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co0 + mt * 16 + (lane >> 2) + half * 8;
+      const float bco = co < cout ? bias[co] : 0.f;
+      bf16* ob = out + (b * cout + co) * ovol + od * oplane + static_cast<long long>(oh) * Wo;
+      float sa = 0.f, sq = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int ow = ow0 + nt * 8 + 2 * (lane & 3);
+        const bool ok0 = row_ok && co < cout && ow < Wo, ok1 = row_ok && co < cout && ow + 1 < Wo;
+        const bf16 r0 = __float2bfloat16_rn(acc[mt][nt][2 * half] + bco);
+        const bf16 r1 = __float2bfloat16_rn(acc[mt][nt][2 * half + 1] + bco);
+        if (ok1 && (Wo & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + ow) = __halves2bfloat162(r0, r1);
+        } else {
+          if (ok0) ob[ow] = r0;
+          if (ok1) ob[ow + 1] = r1;
+        }
+        const float f0 = ok0 ? __bfloat162float(r0) : 0.f;  // the values the statistics see
+        const float f1 = ok1 ? __bfloat162float(r1) : 0.f;
+        sa += f0 + f1;
+        sq += f0 * f0 + f1 * f1;
+      }
+      s1[mt][half] = sa;
+      s2[mt][half] = sq;
+    }
+  if constexpr (CHAIN) {
+    if (ca.partial != nullptr) {  // block-uniform branch
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float sa = s1[mt][half], sq = s2[mt][half];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {  // the quad: the voxels of this row
+            sa += __shfl_xor_sync(0xffffffffu, sa, off);
+            sq += __shfl_xor_sync(0xffffffffu, sq, off);
+          }
+          if ((lane & 3) == 0) {
+            const int cc = mt * 16 + (lane >> 2) + half * 8;
+            red[warp][cc][0] = sa;
+            red[warp][cc][1] = sq;
+          }
+        }
+      __syncthreads();
+      if (tid < 2 * kS2Co) {  // the warps in order, one partial per block
+        const int cc = tid / 2, k = tid % 2;
+        if (co0 + cc < cout) {
+          float t = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < kS2Warps; ++wi) t += red[wi][cc][k];
+          const long long nblk = gridDim.x / n_co;
+          ca.partial[((b * cout + co0 + cc) * nblk + tile) * 2 + k] = t;
+        }
+      }
+    }
+  }
+}
+
+template <bool CHAIN>
+int launch_tc_s2(const void* x, const void* wtc, const void* bias, void* out, long long batch,
+                 int cin, int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
+                 cudaStream_t stream) {
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const long long tiles = static_cast<long long>((Do + kS2Td - 1) / kS2Td) *
+                          ((Ho + kS2Th - 1) / kS2Th) * ((Wo + kS2Tw - 1) / kS2Tw);
+  const int n_co = (cout + kS2Co - 1) / kS2Co;
+  if (wtc == nullptr || tiles * n_co > 2147483647LL || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = W % 8 == 0 && ca.xb % 8 == 0 && ca.xc % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kern = vec ? conv_tc_s2_kernel<CHAIN, true> : conv_tc_s2_kernel<CHAIN, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kS2Smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles * n_co), static_cast<unsigned>(batch)), kS2Threads,
+         kS2Smem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(wtc),
+                            static_cast<const float*>(bias), static_cast<bf16*>(out), cin, cout,
+                            H, W, Do, n_co, ca);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ca.partial == nullptr) return static_cast<int>(e);
+  const long long rows = batch * cout;
+  if (rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  sum_block_partials_kernel<<<static_cast<unsigned>(rows), kSumThreads, 0, stream>>>(
+      ca.partial, sums, tiles, static_cast<int>(rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ----------------------------------------------------- CUDA-core launches ---
 
 template <typename T, int S, int TH, int TW, int CI_C, int CO_T, bool CHAIN>
@@ -628,29 +906,34 @@ int launch(const void* x, const void* w, const void* bias, void* out, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance a call takes, an explicit rule (no fallback): bf16 at stride
-// 1 with Cin ≥ 8 and Cout ≥ 8 → the tensor cores (conv_tc_kernel, 4 × 4 × 32
-// output voxels a block); everything else → the CUDA cores. The Python
-// wrapper counts tensor-core launches by this rule (hvc_conv3d_k3_fwd_tc) and
-// sizes the Σ/Σ² partials for the larger grid of the two instances
-// (ops/cuda/conv3d_k3.py: fwd_partial_blocks), so either fits. CUDA-core
-// tiles: stride 1 uses 8×32 output voxels per block (256 threads); stride 2
-// uses 8×16 (128 threads), which keeps its 2×-wider input patch under the
-// 48 KB of static shared memory.
+// The instance a call takes, an explicit rule (no fallback): bf16 with Cin
+// ≥ 8 and Cout ≥ 8 → the tensor cores (stride 1: conv_tc_kernel, 4 × 4 × 32
+// output voxels a block; stride 2: conv_tc_s2_kernel, 2 × 4 × 16);
+// everything else → the CUDA cores. The Python wrapper counts tensor-core
+// launches by this rule (hvc_conv3d_k3_fwd_tc) and sizes the Σ/Σ² partials
+// for the larger grid of the two instances (ops/cuda/conv3d_k3.py:
+// fwd_partial_blocks), so either fits. CUDA-core tiles: stride 1 uses 8×32
+// output voxels per block (256 threads); stride 2 uses 8×16 (128 threads),
+// which keeps its 2×-wider input patch under the 48 KB of static shared
+// memory.
 bool fwd_uses_tc(int stride, bool bf16, int cin, int cout) {
-  return stride == 1 && bf16 && cin >= 8 && cout >= 8;
+  return (stride == 1 || stride == 2) && bf16 && cin >= 8 && cout >= 8;
 }
 
 template <int S, bool CHAIN, typename T>
-int dispatch_t(const void* x, const void* w, const void* bias, void* out, long long batch,
-               int cin, int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
-               cudaStream_t s) {
+int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, void* out,
+               long long batch, int cin, int cout, int H, int W, int Do, const ChainArgs& ca,
+               float* sums, cudaStream_t s) {
   const int Ho = (H - 1) / S + 1;
   const int Wo = (W - 1) / S + 1;
   constexpr int TH = 8;
   constexpr int TW = S == 1 ? 32 : 16;
-  if (fwd_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout))
-    return launch_tc<CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sums, s);
+  if (fwd_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout)) {
+    if constexpr (S == 1)
+      return launch_tc<CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sums, s);
+    else
+      return launch_tc_s2<CHAIN>(x, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sums, s);
+  }
   if constexpr (S == 1) {
     if (cout == 1 && cin >= 4)
       return launch<T, S, TH, TW, 4, 1, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, Ho,
@@ -664,10 +947,10 @@ int dispatch_t(const void* x, const void* w, const void* bias, void* out, long l
 }
 
 template <int S>
-int dispatch(const void* x, const void* w, const void* bias, void* out, long long batch,
-             int cin, int cout, int nv, int H, int W, int Do, int qlo, long long xb,
-             long long xc, int act, int dact, const void* dact_x, long long db, long long dc,
-             void* partial, void* sums, int dtype, void* stream) {
+int dispatch(const void* x, const void* w, const void* wtc, const void* bias, void* out,
+             long long batch, int cin, int cout, int nv, int H, int W, int Do, int qlo,
+             long long xb, long long xc, int act, int dact, const void* dact_x, long long db,
+             long long dc, void* partial, void* sums, int dtype, void* stream) {
   if (batch <= 0 || cin <= 0 || cout <= 0 || nv < 0 || H <= 0 || W <= 0 || Do <= 0 ||
       act < 0 || act > 2 || dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr) ||
       (partial == nullptr) != (sums == nullptr))
@@ -677,11 +960,11 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, long lon
   float* sm = static_cast<float*>(sums);
   const bool chain = act != 0 || dact != 0 || partial != nullptr;
   if (dtype == 0)
-    return chain ? dispatch_t<S, true, float>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sm, s)
-                 : dispatch_t<S, false, float>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sm, s);
+    return chain ? dispatch_t<S, true, float>(x, w, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sm, s)
+                 : dispatch_t<S, false, float>(x, w, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sm, s);
   if (dtype == 1)
-    return chain ? dispatch_t<S, true, __nv_bfloat16>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sm, s)
-                 : dispatch_t<S, false, __nv_bfloat16>(x, w, bias, out, batch, cin, cout, H, W, Do, ca, sm, s);
+    return chain ? dispatch_t<S, true, __nv_bfloat16>(x, w, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sm, s)
+                 : dispatch_t<S, false, __nv_bfloat16>(x, w, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sm, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -699,18 +982,23 @@ extern "C" int hvc_conv3d_k3s1_fwd(const void* x, const void* w, const void* bia
                                    int Do, int qlo, long long xb, long long xc, int act, int dact,
                                    const void* dact_x, long long db, long long dc, void* partial,
                                    void* sums, int dtype, void* stream) {
-  return dispatch<1>(x, w, bias, out, batch, cin, cout, nv, H, W, Do, qlo, xb, xc, act, dact,
-                     dact_x, db, dc, partial, sums, dtype, stream);
+  return dispatch<1>(x, w, nullptr, bias, out, batch, cin, cout, nv, H, W, Do, qlo, xb, xc, act,
+                     dact, dact_x, db, dc, partial, sums, dtype, stream);
 }
 
-extern "C" int hvc_conv3d_k3s2_fwd(const void* x, const void* w, const void* bias, void* out,
-                                   long long batch, int cin, int cout, int nv, int H, int W,
-                                   int Do, int qlo, long long xb, long long xc, int act, int dact,
-                                   const void* dact_x, long long db, long long dc, void* partial,
-                                   void* sums, int dtype, void* stream) {
+// As hvc_conv3d_k3s1_fwd, plus wtc: the weights in the tensor-core
+// instance's layout (Cout tiles of 64 × Cin chunks of 16 × 27 taps × 64 × 16,
+// zero-padded), which that instance reads instead of w; null for a call on
+// the CUDA cores.
+extern "C" int hvc_conv3d_k3s2_fwd(const void* x, const void* w, const void* wtc,
+                                   const void* bias, void* out, long long batch, int cin,
+                                   int cout, int nv, int H, int W, int Do, int qlo, long long xb,
+                                   long long xc, int act, int dact, const void* dact_x,
+                                   long long db, long long dc, void* partial, void* sums,
+                                   int dtype, void* stream) {
   if (dact != 0) return static_cast<int>(cudaErrorInvalidValue);  // stride-1 dgrad only
-  return dispatch<2>(x, w, bias, out, batch, cin, cout, nv, H, W, Do, qlo, xb, xc, act, dact,
-                     dact_x, db, dc, partial, sums, dtype, stream);
+  return dispatch<2>(x, w, wtc, bias, out, batch, cin, cout, nv, H, W, Do, qlo, xb, xc, act,
+                     dact, dact_x, db, dc, partial, sums, dtype, stream);
 }
 
 // 1 if hvc_conv3d_k3s{stride}_fwd runs a call with these channel counts and

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the port's mma.sync kernels (the
-// conv probes in conv_probe.cu, the tensor-core weight gradient in
-// conv3d_k3_bwd.cu): cp.async copies, ldmatrix fragment loads and the
-// m16n8k16 bf16 → fp32 product.
+// conv probes in conv_probe.cu, the tensor-core conv and weight gradient in
+// conv3d_k3.cu and conv3d_k3_bwd.cu, the tensor-core flash forward and
+// backward): cp.async copies, ldmatrix fragment loads and the m16n8k16
+// bf16 → fp32 product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,6 +19,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global → shared, zero-filled beyond src_bytes (0 or 16).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global → shared, zero-filled beyond src_bytes (0 or 4).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(src_bytes)
                : "memory");
 }

@@ -2,8 +2,8 @@
 the dense (padding 1) conv and the slab-chain conv: ``conv3d_k3`` (forward),
 ``conv3d_k3_dgrad`` (data gradient), ``conv3d_k3_wgrad`` (weight gradient).
 
-- Forward, ``csrc/conv3d_k3.cu`` (the stride-1 conv in two instances, bf16
-  on the tensor cores and the rest on the CUDA cores): counterparts of
+- Forward, ``csrc/conv3d_k3.cu`` (each stride in two instances, bf16 on the
+  tensor cores and the rest on the CUDA cores): counterparts of
   ``_conv_fwd`` (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py``) and
   ``_conv_fwd_s2`` (``hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py``).
   Data gradient: at
@@ -37,11 +37,11 @@ its plain version for tensors on the CPU; for any other device it raises. It
 never falls back from the kernel to the plain version. Each launch adds one
 to its letter's counter in ``LAUNCHES`` (the stride-1 data gradient is
 counted there, not under the forward). A call on a tensor-core instance also
-adds one to that instance's counter: the stride-1 conv and data gradient
-(bf16, Cin ≥ 8 and Cout ≥ 8 as the kernel sees them: the C rule, which
-``fwd_uses_tensor_cores`` states for the CPU) to
-``conv3d_k3s1_tc`` when dense and ``conv3d_k3s1_chain_tc`` otherwise, a weight
-gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
+adds one to that instance's counter: the conv at either stride and the
+stride-1 data gradient (bf16, Cin ≥ 8 and Cout ≥ 8 as the kernel sees them:
+the C rule, which ``fwd_uses_tensor_cores`` states for the CPU) to
+``conv3d_k3s{1,2}_tc`` when dense and ``conv3d_k3s{1,2}_chain_tc`` otherwise,
+a weight gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
 ``conv3d_k3s{1,2}_wgrad_tc``.
 """
 
@@ -58,10 +58,12 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {None: 0, "gelu": 1, "silu": 2}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# hvc_conv3d_k3s{1,2}_fwd(x, w, bias, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
-#                         act, dact, dact_x, db, dc, partial, sums, dtype, stream)
+# hvc_conv3d_k3s1_fwd(x, w, bias, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
+#                     act, dact, dact_x, db, dc, partial, sums, dtype, stream);
+# hvc_conv3d_k3s2_fwd takes wtc (s2_tc_weights, or null) after w
 _FWD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L,
                  _I, _I, _P, _L, _L, _P, _P, _I, _P)
+_FWD_S2_ARGTYPES = _FWD_ARGTYPES[:2] + (_P,) + _FWD_ARGTYPES[2:]
 # hvc_conv3d_k3s{1,2}_wgrad(x, g, partial, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
 #                           act, dtype, splits, stream)
 _WGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P)
@@ -71,11 +73,16 @@ _DGRAD_ARGTYPES = (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _
 # hvc_conv3d_k3_fwd_tc(stride, cin, cout, dtype): 1 if the forward takes the
 # tensor cores
 _FWD_TC_ARGTYPES = (_I, _I, _I, _I)
-# Output voxels (D, H, W) per forward block of each instance
+# Output voxels (D, H, W) per forward block of each instance, by stride
 # (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
 # output channel (fwd_partial_blocks).
-_FWD_TILE_TC = (4, 4, 32)
+_FWD_TILE_TC = {1: (4, 4, 32), 2: (2, 4, 16)}
 _FWD_TILE_CUDA_CORE = {1: (1, 8, 32), 2: (1, 8, 16)}
+# The stride-2 tensor-core instance: output channels per block (M) and input
+# channels per chunk (one k16 step a tap), the blocks of its weight layout
+# (s2_tc_weights).
+_S2_TC_CO = 64
+_S2_TC_CI = 16
 # The weight gradient's two instances (csrc/conv3d_k3_bwd.cu), each as
 # (output voxels per tile (D, H, W), output and input channels per block,
 # blocks per SM it aims for): the B·Do·Ho·Wo reduction is split into fp32
@@ -220,13 +227,26 @@ def _check_out_grad(g: torch.Tensor, shape) -> None:
 
 # ---------------------------------------------------------------- launches ---
 
+def s2_tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights (Cout, Cin, 3, 3, 3) in the stride-2 tensor-core
+    instance's layout: (⌈Cout/64⌉, ⌈Cin/16⌉, 27 taps, 64 co, 16 ci),
+    zero-padded, so the weights of a block's Cout tile and Cin chunk are one
+    contiguous copy, [tap][co][ci] as the A operand's rows."""
+    cout, cin = w.shape[:2]
+    n_co, n_ci = -(-cout // _S2_TC_CO), -(-cin // _S2_TC_CI)
+    wp = w.new_zeros((n_co * _S2_TC_CO, n_ci * _S2_TC_CI, 27))
+    wp[:cout, :cin] = w.reshape(cout, cin, 27)
+    return wp.view(n_co, _S2_TC_CO, n_ci, _S2_TC_CI, 27).permute(0, 2, 4, 1, 3).contiguous()
+
+
 def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
          bias: Optional[torch.Tensor], qlo: int, d_out: int, want_sums: bool = False,
          act: Optional[str] = None, dact: Optional[tuple] = None, dense: bool = False):
     """Launch kernel B/C/H/I on the instance the C dispatch picks; returns out
     or (out, s1, s2). A tensor-core launch, by the C rule
-    (``hvc_conv3d_k3_fwd_tc``), also counts in ``conv3d_k3s1_tc`` (``dense``)
-    or ``conv3d_k3s1_chain_tc``."""
+    (``hvc_conv3d_k3_fwd_tc``), also counts in ``conv3d_k3s{stride}_tc``
+    (``dense``) or ``conv3d_k3s{stride}_chain_tc``; at stride 2 it reads the
+    weights in ``s2_tc_weights``'s layout."""
     _check_cuda(x)
     _check_view("x", x, x.dtype, x.device)
     _check_weights(x, w, bias)
@@ -251,18 +271,23 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         nblk = fwd_partial_blocks((B, cin, d_out, H, W), stride)
         partial = torch.empty((B * cout * nblk * 2,), dtype=torch.float32, device=x.device)
         sums = torch.empty((2, B, cout), dtype=torch.float32, device=x.device)
-    fn = _build.function(entry, _FWD_ARGTYPES)
+    tc = bool(_build.function("hvc_conv3d_k3_fwd_tc", _FWD_TC_ARGTYPES)(
+        stride, cin, cout, _DTYPE_CODES[x.dtype]))
+    weights = (w.data_ptr(),)
+    if stride == 2:
+        wtc = s2_tc_weights(w) if tc else None
+        weights += (None if wtc is None else wtc.data_ptr(),)
+    fn = _build.function(entry, _FWD_S2_ARGTYPES if stride == 2 else _FWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, cin, cout, nv,
+        rc = fn(x.data_ptr(), *weights, bias.data_ptr(), out.data_ptr(), B, cin, cout, nv,
                 H, W, d_out, qlo, x.stride(0), x.stride(1), _ACT_CODES[act], dact_code,
                 None if dact_x is None else dact_x.data_ptr(), db, dc,
                 None if partial is None else partial.data_ptr(),
                 None if sums is None else sums.data_ptr(), _DTYPE_CODES[x.dtype], stream)
     _build.check(rc, entry)
-    if _build.function("hvc_conv3d_k3_fwd_tc", _FWD_TC_ARGTYPES)(stride, cin, cout,
-                                                                 _DTYPE_CODES[x.dtype]):
-        LAUNCHES[f"conv3d_k3s1{'' if dense else '_chain'}_tc"] += 1
+    if tc:
+        LAUNCHES[f"conv3d_k3s{stride}{'' if dense else '_chain'}_tc"] += 1
     return (out, sums[0], sums[1]) if want_sums else out
 
 
@@ -270,12 +295,11 @@ def fwd_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int) 
     """Which instance of the conv forward a call takes (the stride-1 data
     gradient is the forward on g: Cin and Cout swapped), the rule of
     ``fwd_uses_tc`` (csrc/conv3d_k3.cu) for plans and tests on the CPU; on
-    the card the wrapper reads the C rule itself: bf16 at stride 1 with Cin ≥ 8 and
-    Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the fp32
-    tolerances), the 1-channel stems and the one-output-channel data
-    gradient (bound by their output or input bytes) and stride 2 on the CUDA
-    cores."""
-    return dtype == torch.bfloat16 and stride == 1 and cin >= 8 and cout >= 8
+    the card the wrapper reads the C rule itself: bf16 at stride 1 or 2 with
+    Cin ≥ 8 and Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the
+    fp32 tolerances), the 1-channel stems and the one-output-channel data
+    gradient (bound by their output or input bytes) on the CUDA cores."""
+    return dtype == torch.bfloat16 and stride in (1, 2) and cin >= 8 and cout >= 8
 
 
 def fwd_plan(out_shape, cout: int, stride: int,
@@ -286,7 +310,7 @@ def fwd_plan(out_shape, cout: int, stride: int,
     (batch, Cout tile), each of which writes one Σ/Σ² partial per output
     channel."""
     tc = fwd_uses_tensor_cores(dtype, stride, out_shape[1], cout)
-    tile = _FWD_TILE_TC if tc else _FWD_TILE_CUDA_CORE[stride]
+    tile = (_FWD_TILE_TC if tc else _FWD_TILE_CUDA_CORE)[stride]
     return tc, tile, _fwd_blocks(out_shape, stride, tile)
 
 
@@ -295,7 +319,7 @@ def fwd_partial_blocks(out_shape, stride: int) -> int:
     allocates: the larger of the two instances' block counts, so the buffer
     holds the grid of whichever instance the C dispatch launches."""
     return max(_fwd_blocks(out_shape, stride, tile)
-               for tile in (_FWD_TILE_TC, _FWD_TILE_CUDA_CORE[stride]))
+               for tile in (_FWD_TILE_TC[stride], _FWD_TILE_CUDA_CORE[stride]))
 
 
 def _fwd_blocks(out_shape, stride: int, tile) -> int:
@@ -421,8 +445,8 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], st
     """The 3×3×3 conv of the chain contract (module docstring) → out
     (B, Cout, d_out, ⌈H/S⌉, ⌈W/S⌉), or (out, s1, s2) with ``want_sums``.
     Kernel B / C at stride 1 / 2 with ``dense`` (the padding-1 conv: qlo 1,
-    d_out ⌈D/S⌉, no options), H / I otherwise; bf16 at stride 1 with Cin ≥ 8
-    and Cout ≥ 8 on the tensor cores, the rest on the CUDA cores
+    d_out ⌈D/S⌉, no options), H / I otherwise; bf16 with Cin ≥ 8 and Cout ≥ 8
+    on the tensor cores, the rest on the CUDA cores
     (``fwd_uses_tensor_cores``)."""
     if dense:
         _check_dense(x.shape, stride, qlo, d_out, want_sums, act)
@@ -480,8 +504,10 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # Kernel launches per counter since the last reset (ops.cuda.launch_counts):
 # one per kernel letter; conv3d_k3s1_tc and conv3d_k3s1_chain_tc, the
 # launches of B and H (forward and data gradient) that took the tensor-core
-# instance; conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain).
+# instance; conv3d_k3s2_tc and conv3d_k3s2_chain_tc, those of C and I;
+# conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain).
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
             "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
+            "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,
             "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0}

@@ -16,9 +16,10 @@ the CUDA kernels for tensors on a CUDA device and run ``flash_attention_plain``
 they raise. They never fall back from the kernel to the plain version. Each
 kernel counts its launches in the ``.launches`` of its wrapper (L in
 ``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s). The
-forward has two instances, by an explicit rule (``fwd_uses_tensor_cores``):
-bf16 on the tensor cores, whose launches also count in
-``flash_attention_fwd.tc_launches``, and fp32 on the CUDA cores.
+forward and the fused backward have two instances each, by an explicit rule
+(``fwd_uses_tensor_cores``, ``bwd_uses_tensor_cores``): bf16 on the tensor
+cores, whose launches also count in ``flash_attention_fwd.tc_launches`` and
+``flash_attention_bwd.tc_launches``, and fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -42,14 +43,19 @@ _BWD_ARGTYPES = (
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
 )
-# hvc_flash_attention_bwd(q, k, v, dout, lse, delta, dq_part, dq, dk, dv, BH, Nq, Nk,
-#                         d, dtype, groups, scale, stream)
-_FUSED_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 3
+# hvc_flash_attention_bwd(q, k, v, dout, lse, delta, dq_scratch, counters, dq, dk, dv,
+#                         BH, Nq, Nk, d, dtype, groups, scale, stream)
+_FUSED_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 3
                    + (ctypes.c_float, ctypes.c_void_p))
-# Kernel D: keys per key tile, and the blocks per SM its group count aims for
-# (csrc/flash_attention_bwd.cu: 64 or 128 threads, ~41 KB of shared memory).
+# Kernel D on the CUDA cores: keys per key tile, and the blocks per SM its
+# group count aims for (csrc/flash_attention_bwd.cu: 64 or 128 threads, ~41 KB
+# of shared memory).
 _BKV = 64
 _D_BLOCKS_PER_SM = 4
+# Kernel D on the tensor cores: keys per work item (16 a warp, 8 warps) and
+# query rows per tile, each (head, query tile) with one int32 counter.
+_TC_KEYS = 128
+_TC_ROWS = 64
 # Score elements per chunk of the plain versions: 2**28 fp32 scores = 1 GiB.
 # Unchunked, the stage-3 self-attention (8 heads × 32,768²) would need 34 GB.
 _PLAIN_CHUNK_SCORES = 1 << 28
@@ -188,7 +194,7 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Ten
 
 
 def dq_groups(nk: int, bh: int, sms: int) -> tuple[int, int]:
-    """Kernel D's plan: (G, per), the key tiles of each head (64 keys each)
+    """Kernel D's plan on the CUDA cores: (G, per), the key tiles of each head (64 keys each)
     cut into G groups of ``per`` consecutive tiles, group g taking tiles
     g·per … min(n, (g + 1)·per) − 1. G·BH blocks aim for
     ``_D_BLOCKS_PER_SM`` per SM, and no group is empty (its partial would
@@ -199,39 +205,73 @@ def dq_groups(nk: int, bh: int, sms: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
+def bwd_uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Which instance of kernel D a call takes, the rule of
+    ``hvc_flash_attention_bwd`` (``bwd_uses_tc`` in C, which the wrapper
+    reads through ``hvc_flash_attention_bwd_tc``): bf16 on the tensor cores
+    (the probabilities and ds rounded to bf16 into their products, as the TPU
+    kernel does); fp32 on the CUDA cores (TF32 would leave the fp32
+    tolerances)."""
+    return dtype == torch.bfloat16
+
+
+def bwd_tc_scratch(bh: int, nq: int, d: int) -> tuple[int, int]:
+    """(fp32 elements, int32 counters) of the tensor-core D's scratch: one
+    (BH, Nq, d) dq accumulator, and the next-item counter plus one counter per
+    (head, query tile of ``_TC_ROWS`` rows), all zeroed per call."""
+    return bh * nq * d, 1 + bh * -(-nq // _TC_ROWS)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
     gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
-    dtype (fp32 or bf16), d ∈ {32, 64}; lse (BH, Nq) fp32, natural log.
-    Returns (dq, dk, dv) in q's dtype. Kernel D: each block takes one group
-    of key tiles (``dq_groups``) and adds its dq shares into the group's own
-    fp32 partial; the partials are summed in group order, so two runs give
-    the same bits."""
+    dtype (fp32 or bf16, 16-byte aligned), d ∈ {32, 64}; lse (BH, Nq) fp32,
+    natural log. Returns (dq, dk, dv) in q's dtype. Kernel D, on the instance
+    the C rule names (``bwd_uses_tensor_cores``): on the tensor cores work
+    items of one head's ``_TC_KEYS`` keys, handed out in index order (key tile
+    i // BH of head i % BH), add their dq shares into one fp32 accumulator in
+    key-tile order (``bwd_tc_scratch``); on the CUDA cores each block takes
+    one group of key tiles (``dq_groups``) and adds into the group's own fp32
+    partial, the partials summed in group order. Either way two runs give the
+    same bits."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
     _check_bwd(q, k, v, out, lse, dout)
     bh, nq, d = q.shape
     nk = k.shape[1]
+    code = _DTYPE_CODES[q.dtype]
+    tc = bool(_build.function("hvc_flash_attention_bwd_tc", (ctypes.c_int,))(code))
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the bf16 flash backward needs q, k, v and dout 16-byte aligned")
     delta = _delta(out, dout)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    groups, _ = dq_groups(nk, bh, sms)
-    dq_part = torch.empty((groups, bh, nq, d), dtype=torch.float32, device=q.device)
+    if tc:
+        n_acc, n_cnt = bwd_tc_scratch(bh, nq, d)
+        scratch = torch.empty((n_acc,), dtype=torch.float32, device=q.device)
+        counters = torch.zeros((n_cnt,), dtype=torch.int32, device=q.device)
+        groups = 1
+    else:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        groups, _ = dq_groups(nk, bh, sms)
+        scratch = torch.empty((groups, bh, nq, d), dtype=torch.float32, device=q.device)
+        counters = None
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("hvc_flash_attention_bwd", _FUSED_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq_part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), bh, nq, nk, d, _DTYPE_CODES[q.dtype], groups, float(scale),
-                stream)
+                delta.data_ptr(), scratch.data_ptr(),
+                None if counters is None else counters.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, nq, nk, d, code, groups, float(scale), stream)
     _build.check(rc, "hvc_flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += tc
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 
 
 # kernel L: q, k, v, dout, lse, delta, dq; M: the same with dk, dv in dq's place

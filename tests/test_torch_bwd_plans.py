@@ -10,13 +10,21 @@ plain versions and the JAX package.
 - ``wgrad_plan`` / ``split_tiles``: the splits cover every voxel tile exactly
   once, none empty, at every main-path shape (contiguous ranges on the CUDA
   cores, every splits-th tile on the tensor cores).
-- ``dq_groups``: kernel D's groups cover every key tile of a head exactly
-  once, in order, none empty.
-- Kernel D's dq: each group's partial summed over its key tiles in order,
-  then the partials in group order, against ``flash_attention_bwd_plain``
-  and the JAX fused backward ``_bwd_pallas_fused`` (Pallas interpret mode),
-  fp32.
-- The phase switches of ``scripts/wgrad_phases.py`` still match the kernel.
+- ``dq_groups``: kernel D's groups (its fp32 instance, on the CUDA cores)
+  cover every key tile of a head exactly once, in order, none empty.
+- Kernel D's dq on the CUDA cores: each group's partial summed over its key
+  tiles in order, then the partials in group order, against
+  ``flash_attention_bwd_plain`` and the JAX fused backward
+  ``_bwd_pallas_fused`` (Pallas interpret mode), fp32.
+- Kernel D on the tensor cores: its rule (``bwd_uses_tensor_cores``), its
+  persistent schedule (every (head, key tile) once, each item waiting only
+  on an item handed out before it, as the kernel source hands them out), its
+  scratch (``bwd_tc_scratch``), and a torch replay of its arithmetic (key tiles of
+  128, query tiles of 64, p and ds rounded to bf16 into their products, dq
+  added in key-tile order into one fp32 accumulator) against
+  ``flash_attention_bwd_plain`` and the JAX ``_bwd_pallas_fused``.
+- The switches of ``scripts/wgrad_phases.py``, ``scripts/flash_bwd_phases.py``
+  and ``scripts/conv_s2_weights.py`` still match their kernels.
 - The tensor-core weight gradient's staging (raw 8-column vectors from
   column S·ow0 − 8, the channels-innermost patch, even/odd columns apart at
   stride 2) and split order, replayed in torch, against
@@ -25,6 +33,8 @@ plain versions and the JAX package.
 """
 
 import importlib
+import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +44,7 @@ import torch
 
 from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3 import conv3d_k3s1_chain as jax_chain_s1
 from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_chain as jax_chain_s2
+from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -158,6 +169,171 @@ def test_dq_group_partials_match_plain_and_jax(monkeypatch, nq, nk, d, sms, with
     np.testing.assert_allclose(got.numpy(), np.asarray(want_j)[0], rtol=5e-4, atol=5e-4)
 
 
+# ------------------------------------------ D on the tensor cores ---
+
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, True), (torch.float32, False)])
+def test_flash_bwd_dispatch_rule(dtype, tc):
+    """bf16 takes the tensor-core D (``bwd_uses_tc`` in C), fp32 the CUDA
+    cores: TF32 products would leave the fp32 tolerance."""
+    assert fa.bwd_uses_tensor_cores(dtype) is tc
+
+
+# (BH, Nq, Nk) of the training shapes (chip_smoke.py _FLASH_TRAIN_SHAPES) and ragged
+D_TC_SHAPES = [(32, 4096, 4096), (32, 4096, 256), (16, 4096, 4096), (16, 4096, 1024),
+               (8, 32768, 32768), (8, 32768, 4096), (3, 200, 77), (2, 130, 4100), (1, 1, 1),
+               (5, 64, 129)]
+
+
+# The tensor-core D's hand-out of work items, as csrc/flash_attention_bwd.cu
+# states it: item i (from one atomic counter) is key tile i / BH of head
+# i % BH, and a (head, query tile)'s counter is waited on until it reads kt.
+_D_TC_HANDOUT = ("const long long n_items = static_cast<long long>(bhs) * "
+                 "((nk + kTbKeys - 1) / kTbKeys);",
+                 "if (tid == 0) item_s = atomicAdd(counters, 1);",
+                 "const long long bh = item % bhs;",
+                 "const int kt = item / bhs;",
+                 "if (tid == 0) wait_for(cnt, kt);")
+
+
+def _d_tc_items(bh, nk):
+    """(head, key tile) of each work item of the tensor-core D, in the order
+    the kernel hands them out (key tiles of ``_TC_KEYS`` keys)."""
+    return [(i % bh, i // bh) for i in range(bh * -(-nk // fa._TC_KEYS))]
+
+
+def test_flash_bwd_tc_schedule_is_the_kernels():
+    """The schedule the tests replay (``_d_tc_items``) is the one the kernel
+    source states: its hand-out lines and its tile constants (8 warps × 16
+    keys, query tiles of 64) equal the port's ``_TC_KEYS`` / ``_TC_ROWS``."""
+    src = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    for line in _D_TC_HANDOUT:
+        assert src.count(line) == 1, line
+    warps = int(re.search(r"constexpr int kTbWarps = (\d+);", src).group(1))
+    assert re.search(r"constexpr int kTbKeys = 16 \* kTbWarps;", src)
+    assert 16 * warps == fa._TC_KEYS
+    assert int(re.search(r"constexpr int kTbRows = (\d+);", src).group(1)) == fa._TC_ROWS
+
+
+@pytest.mark.parametrize("bh,nq,nk", D_TC_SHAPES)
+def test_flash_bwd_tc_schedule(bh, nq, nk):
+    """Every (head, key tile) is one work item, handed out once; an item's
+    dq adds wait only on the same head's previous key tile, an item with a
+    lower index, so handed out (and running) before it: no wait can be on a
+    block that has not started, whatever the grid."""
+    items = _d_tc_items(bh, nk)
+    n_kt = -(-nk // fa._TC_KEYS)
+    assert sorted(items) == [(h, kt) for h in range(bh) for kt in range(n_kt)]
+    pos = {it: i for i, it in enumerate(items)}
+    for i, (h, kt) in enumerate(items):
+        if kt > 0:  # the kernel's wait: item i on item i − BH
+            assert pos[(h, kt - 1)] == i - bh < i
+    # heads interleave: the first key tiles of every head go out first
+    assert items[:bh] == [(h, 0) for h in range(bh)]
+
+
+@pytest.mark.parametrize("bh,nq,nk", D_TC_SHAPES[:6])
+def test_flash_bwd_tc_scratch(bh, nq, nk):
+    """One fp32 (BH, Nq, d) accumulator and 1 + one counter per (head, query
+    tile of 64), in place of the CUDA-core instance's G partials: at the
+    stage-3 self-attention 32 MB (inside the 50 MB L2) against 2.1 GB."""
+    d = 32 if bh in (8, 16) else 64
+    acc, cnt = fa.bwd_tc_scratch(bh, nq, d)
+    assert acc == bh * nq * d
+    assert cnt == 1 + bh * -(-nq // 64)
+    groups, _ = fa.dq_groups(nk, bh, H100_SMS)
+    assert acc <= groups * bh * nq * d
+    if (bh, nq, nk) == (8, 32768, 32768):
+        assert acc * 4 == 33_554_432 and groups * acc * 4 == 2_147_483_648
+
+
+def _d_tc_emulated(q, k, v, out, lse, dout, scale):
+    """(dq, dk, dv) as the tensor-core D computes them from bf16 inputs: per
+    work item (``_d_tc_items``: 128 keys of one head) and query tile of 64,
+    Sᵀ = K·qᵀ and dPᵀ = V·doutᵀ in fp32, p = exp2(s·scale·log2e −
+    lse·log2e), ds = p·(dp − delta); dv += bf16(p)·dout, dk += bf16(ds)·q;
+    the tile's dq share bf16(ds)ᵀ·K written (first key tile) or added (the
+    rest, in key-tile order) into one fp32 accumulator; dq = bf16(acc·scale),
+    dk = bf16(dk·scale), dv = bf16(dv)."""
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dof * out.float()).sum(-1)
+    c, l2 = scale * math.log2(math.e), lse * math.log2(math.e)
+    acc = torch.full((bh, nq, d), float("nan"))
+    dk, dv = torch.zeros((bh, nk, d)), torch.zeros((bh, nk, d))
+    for h, kt in _d_tc_items(bh, nk):
+        k0 = kt * fa._TC_KEYS
+        ks, vs = kf[h, k0:k0 + fa._TC_KEYS], vf[h, k0:k0 + fa._TC_KEYS]
+        for r0 in range(0, nq, fa._TC_ROWS):
+            qs, ds_ = qf[h, r0:r0 + fa._TC_ROWS], dof[h, r0:r0 + fa._TC_ROWS]
+            p = torch.exp2((ks @ qs.T) * c - l2[h, r0:r0 + fa._TC_ROWS])
+            ds = p * ((vs @ ds_.T) - delta[h, r0:r0 + fa._TC_ROWS])
+            pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+            dv[h, k0:k0 + fa._TC_KEYS] += pb @ ds_
+            dk[h, k0:k0 + fa._TC_KEYS] += dsb @ qs
+            share = dsb.T @ ks
+            if kt == 0:
+                acc[h, r0:r0 + fa._TC_ROWS] = share
+            else:
+                acc[h, r0:r0 + fa._TC_ROWS] += share
+    bf = torch.bfloat16
+    return (acc * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+def _bf16_inputs(bh, nq, nk, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
+                 for sh in ((bh, nq, d), (bh, nk, d), (bh, nk, d), (bh, nq, d)))
+
+
+# (BH, Nq, Nk, d): ragged query and key tails, several key tiles and query tiles
+D_TC_EMULATED = [(2, 96, 300, 32), (2, 130, 77, 64), (1, 64, 129, 32)]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", D_TC_EMULATED)
+def test_flash_bwd_tc_emulated_matches_plain(bh, nq, nk, d):
+    """Within the card's tolerance of the flash backward in bf16
+    (chip_smoke.py FLASH_OUT_TOL: 1e-2·max|want| + 2e-2·|want|): both sides
+    take the same bf16 inputs and fp32 lse; the replay rounds p and ds to
+    bf16 before their products (2^-9 relative each) and its outputs to
+    bf16."""
+    q, k, v, dout = _bf16_inputs(bh, nq, nk, d, 41)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = _d_tc_emulated(q, k, v, out, lse, dout, scale)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        wf = w.float()
+        err = (g.float() - wf).abs()
+        assert bool((err <= 1e-2 * wf.abs().max() + 2e-2 * wf.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", D_TC_EMULATED[:2])
+def test_flash_bwd_tc_emulated_matches_jax(monkeypatch, bh, nq, nk, d):
+    """Against the gradients of the JAX flash attention in bf16 through its
+    fused backward ``_bwd_pallas_fused`` (interpret mode), which rounds p and
+    ds to bf16 as the replay does. JAX runs its own forward, whose bf16
+    pre-scale of q moves every score by up to 2^-8 relative (the forward
+    test's note), so the two differ by more than rounding: ROADMAP's flash
+    bf16 tolerance, 3e-2 absolute and relative."""
+    q, k, v, dout = _bf16_inputs(bh, nq, nk, d, 42)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = _d_tc_emulated(q, k, v, out, lse, dout, scale)
+
+    def loss(q_, k_, v_):  # (B, H, N, d) with B = 1, H = BH
+        o = jfa.flash_attention(q_, k_, v_, scale, block_q=32, block_kv=32)
+        return (o.astype(jnp.float32) * jnp.asarray(dout.float().numpy()[None])).sum()
+
+    monkeypatch.setattr(jfa, "FUSED_BWD", True)  # the JAX default: _bwd_pallas_fused
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.float().numpy()[None], jnp.bfloat16) for t in (q, k, v)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32))[0],
+                                   rtol=3e-2, atol=3e-2)
+
+
 # ------------------------------------------ the tensor-core weight gradient ---
 
 def _wgrad_tc_emulated(x, g, stride, qlo, act, sms=H100_SMS):
@@ -270,3 +446,13 @@ def test_wgrad_phase_switches_match_the_kernel():
 
     src = wgrad_phases.ablated_source()
     assert all(new in src for _, new in wgrad_phases.SWITCHES.values())
+
+
+@pytest.mark.parametrize("script", ["flash_bwd_phases", "conv_s2_weights"])
+def test_switches_match_the_kernel(script):
+    """scripts/flash_bwd_phases.py (D's phases switched off) and
+    scripts/conv_s2_weights.py (C/I's weights staged from w) edit a copy of
+    their kernel's source: every switch still finds its text."""
+    phases = importlib.import_module(f"hybrid_vit_cascade_tpu_torch.scripts.{script}")
+    src = phases.ablated_source()
+    assert all(new in src for _, new in phases.SWITCHES.values())

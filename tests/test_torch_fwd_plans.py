@@ -1,15 +1,21 @@
 """The plans of the port's tensor-core forward kernels, on the CPU: which
-instance of the stride-1 conv (B/H) and of the flash forward (A) a call
-takes, how many Σ/Σ² partials the conv writes, and torch emulations of both
-tensor-core kernels' arithmetic against the plain versions and the JAX
-package.
+instance of the conv (B/H at stride 1, C/I at stride 2) and of the flash
+forward (A) a call takes, how many Σ/Σ² partials the conv writes, and torch
+emulations of the tensor-core kernels' arithmetic against the plain versions
+and the JAX package.
 
-- ``fwd_uses_tensor_cores`` / ``fwd_plan``: bf16 at stride 1 with Cin ≥ 8 and
-  Cout ≥ 8 takes the tensor-core conv, everything else the CUDA-core one (the
-  rule of ``fwd_uses_tc`` in csrc/conv3d_k3.cu); the partial buffer the
-  wrapper allocates holds one entry per block of either instance's grid, at
-  every conv shape of ``chip_smoke.py`` (forward, and the stride-1 data
+- ``fwd_uses_tensor_cores`` / ``fwd_plan``: bf16 with Cin ≥ 8 and Cout ≥ 8
+  takes the tensor-core conv at either stride, everything else the CUDA-core
+  one (the rule of ``fwd_uses_tc`` in csrc/conv3d_k3.cu); the partial buffer
+  the wrapper allocates holds one entry per block of either instance's grid,
+  at every conv shape of ``chip_smoke.py`` (forward, and the stride-1 data
   gradient with its qlo = 2 − qlo).
+- The stride-2 tensor-core conv's staging (2 × 4 × 16 voxel tiles, raw rows
+  of 8-column vectors from column 2·ow0 − 8, the even and the odd columns
+  apart in the channels-innermost patch, the window and the act prologue at
+  the load, the weights in ``s2_tc_weights``'s layout, Cout tiles of 64,
+  Σ/Σ² per block), replayed in torch, against ``conv3d_k3_plain`` and the JAX
+  ``conv3d_k3s2_chain`` (``_conv_fwd_s2`` in interpret mode).
 - The tensor-core conv's staging and tap addressing (4 × 4 × 32 voxel tiles,
   the channels-innermost patch with Cin padded to 16, one row offset per tap,
   Cout masked to the 32-channel tile, the epilogue's bias, act′ and rounding,
@@ -34,6 +40,7 @@ import torch
 
 import chip_smoke
 from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3 import conv3d_k3s1_chain as jax_chain_s1
+from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_chain as jax_chain_s2
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -46,7 +53,10 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 1, 64, 32, True), (BF16, 1, 32, 64, True), (BF16, 1, 8, 8, True),
     (BF16, 1, 128, 256, True), (BF16, 1, 24, 40, True), (BF16, 1, 7, 32, False),
     (BF16, 1, 1, 64, False), (BF16, 1, 64, 1, False), (BF16, 1, 32, 7, False),
-    (BF16, 2, 32, 64, False), (F32, 1, 64, 32, False), (F32, 1, 1, 32, False)])
+    (BF16, 2, 32, 64, True), (F32, 1, 64, 32, False), (F32, 1, 1, 32, False),
+    (BF16, 2, 8, 8, True), (BF16, 2, 128, 256, True), (BF16, 2, 24, 40, True),
+    (BF16, 2, 1, 64, False), (BF16, 2, 7, 32, False), (BF16, 2, 32, 7, False),
+    (F32, 2, 32, 64, False)])
 def test_conv_fwd_dispatch_rule(dtype, stride, cin, cout, tc):
     assert ck.fwd_uses_tensor_cores(dtype, stride, cin, cout) is tc
     assert ck.fwd_plan((1, cin, 8, 16, 16), cout, stride, dtype)[0] is tc
@@ -54,11 +64,15 @@ def test_conv_fwd_dispatch_rule(dtype, stride, cin, cout, tc):
 
 def _c_blocks(tc: bool, stride: int, do: int, h: int, w: int) -> int:
     """The blocks per (batch, Cout tile) that csrc/conv3d_k3.cu launches:
-    launch_tc's tiles of 4 planes × 4 rows × 32 columns, or launch's grid of
-    Do planes × 8-row tiles × 32 (stride 1) or 16 (stride 2) columns."""
-    if tc:
-        return -(-do // 4) * -(-h // 4) * -(-w // 32)
+    launch_tc's tiles of 4 planes × 4 rows × 32 columns (stride 1),
+    launch_tc_s2's of 2 planes × 4 rows × 16 output columns (stride 2), or
+    launch's grid of Do planes × 8-row tiles × 32 (stride 1) or 16 (stride
+    2) columns."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if tc and stride == 1:
+        return -(-do // 4) * -(-h // 4) * -(-w // 32)
+    if tc:
+        return -(-do // 2) * -(-ho // 4) * -(-wo // 16)
     return do * -(-ho // 8) * -(-wo // (32 if stride == 1 else 16))
 
 
@@ -102,8 +116,9 @@ def test_conv_fwd_partials_match_the_kernel_grid(dtype):
         assert nblk == _c_blocks(tc, stride, do, h, w), (name, out_shape)
         assert ck.fwd_partial_blocks(out_shape, stride) == max(
             _c_blocks(True, stride, do, h, w), _c_blocks(False, stride, do, h, w)), (name, out_shape)
-        assert tile == ((4, 4, 32) if tc else (1, 8, 32 if stride == 1 else 16))
-        if dtype == BF16 and (cin, cout) in ((64, 32), (32, 64)) and stride == 1:
+        tc_tile = (4, 4, 32) if stride == 1 else (2, 4, 16)
+        assert tile == (tc_tile if tc else (1, 8, 32 if stride == 1 else 16))
+        if dtype == BF16 and cin >= 8 and cout >= 8:
             assert tc, (name, out_shape)
 
 
@@ -112,6 +127,42 @@ def test_conv_fwd_hot_plan():
     voxels; the CUDA-core plan of the same call in fp32: 256 × 32 × 8."""
     assert ck.fwd_plan((1, 64, 256, 256, 256), 32, 1, BF16) == (True, (4, 4, 32), 32768)
     assert ck.fwd_plan((1, 64, 256, 256, 256), 32, 1, F32) == (False, (1, 8, 32), 65536)
+
+
+def test_conv_s2_hot_plan():
+    """The 32→64 stride-2 conv from 256³ on the tensor cores: 64 × 32 × 8 =
+    16,384 blocks of 2 × 4 × 16 output voxels, one Cout tile of 64 each; the
+    CUDA-core plan of the same call in fp32: 128 planes × 16 × 8."""
+    assert ck.fwd_plan((1, 32, 128, 256, 256), 64, 2, BF16) == (True, (2, 4, 16), 16384)
+    assert ck.fwd_plan((1, 32, 128, 256, 256), 64, 2, F32) == (False, (1, 8, 16), 16384)
+
+
+def _s2_calls():
+    """(B, Cin, Cout, output planes, H, W) of every stride-2 conv forward of
+    chip_smoke.py, dense and chain, main path and ragged."""
+    calls = [(b, cin, cout, (d - 1) // 2 + 1, h, w)
+             for b, cin, cout, (d, h, w) in (chip_smoke.KERNELS["conv3d_k3s2"]["shapes"]
+                                            + chip_smoke.KERNELS["conv3d_k3s2"]["ragged"])]
+    spec = chip_smoke.CHAIN_KERNELS["conv3d_k3s2_chain"]
+    calls += [(b, cin, cout, d_out, h, w)
+              for b, cin, cout, _, h, w, _, d_out, _, _ in spec["shapes"] + spec["ragged"]]
+    return calls
+
+
+@pytest.mark.parametrize("call", _s2_calls())
+def test_conv_s2_partials_cover_tc_grid(call):
+    """At every stride-2 conv of the main path and the ragged ones, the
+    Σ/Σ² buffer holds one partial per block of the stride-2 tensor-core grid
+    (2 × 4 × 16 output voxels a block, launch_tc_s2), which the bf16 calls
+    with Cin, Cout ≥ 8 take, and of the CUDA-core grid."""
+    b, cin, cout, do, h, w = call
+    nblk = ck.fwd_partial_blocks((b, cin, do, h, w), 2)
+    tc_blocks = _c_blocks(True, 2, do, h, w)
+    assert nblk == max(tc_blocks, _c_blocks(False, 2, do, h, w))
+    tc, tile, blocks = ck.fwd_plan((b, cin, do, h, w), cout, 2, BF16)
+    assert tc == (cin >= 8 and cout >= 8)
+    if tc:
+        assert tile == (2, 4, 16) and blocks == tc_blocks <= nblk
 
 
 # ----------------------------------------------- the tensor-core conv ---
@@ -128,7 +179,7 @@ def _conv_tc_emulated(x, w, bias, qlo, d_out, act=None, dact=None):
     order."""
     B, cin, nv, H, W = x.shape
     cout = w.shape[0]
-    td, th, tw = ck._FWD_TILE_TC
+    td, th, tw = ck._FWD_TILE_TC[1]
     pd_n, ph_n, pw_n = td + 2, th + 2, tw + 2
     cpad, copad = -(-cin // 16) * 16, -(-cout // 32) * 32
     xa = ck.act_plain(act, x).float()
@@ -222,6 +273,136 @@ def test_conv_tc_staging_matches_jax():
     xt = torch.from_numpy(x).narrow(2, vlo, vhi - vlo)
     out, s1, s2 = _conv_tc_emulated(xt, torch.from_numpy(w), torch.from_numpy(bias), vlo,
                                     dext - 2, "gelu")
+    np.testing.assert_allclose(out.reshape(B, cout, -1).numpy(), np.asarray(out_j),
+                               rtol=1e-4, atol=1e-4)
+    for got, ref in ((s1, s1_j), (s2, s2_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------ the stride-2 tensor-core conv ---
+
+def _conv_tc_s2_emulated(x, w, bias, qlo, d_out, act=None):
+    """out, Σ, Σ² as the stride-2 tensor-core conv computes them, fp32
+    products of the operands in x's dtype: per 2 × 4 × 16 output-voxel tile,
+    the raw rows (5 planes from view plane 2·od0 − qlo × 9 rows from 2·oh0 −
+    1) of 8-column vectors from input column 2·ow0 − 8, zero outside the view,
+    the image and Cin, the prologue applied; the patch [row][position][ci]
+    takes raw column 7 + pw at position (pw % 2)·17 + pw // 2 (even columns,
+    then odd); output voxel (vz, vy, ox) reads patch row (2vz + dz)·9 + 2vy +
+    dy, position ox + (0, 17, 1)[dx] at tap (dz, dy, dx); the weights from
+    ``s2_tc_weights`` (Cout tiles of 64, Cin chunks of 16); then bias and
+    rounding to x's dtype; Σ/Σ² one partial per block, the blocks in
+    order."""
+    B, cin, nv, H, W = x.shape
+    cout = w.shape[0]
+    td, th, tw = ck._FWD_TILE_TC[2]
+    ho, wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    pd_n, ph_n, pw_n, nraw = 2 * td + 1, 2 * th + 1, 2 * tw + 1, 8 * 5
+    xa = ck.act_plain(act, x).float()
+    wt = ck.s2_tc_weights(w).float()
+    n_co, n_ci = wt.shape[:2]
+    cpad = 16 * n_ci
+    pos_of = torch.tensor([(pw % 2) * (tw + 1) + pw // 2 for pw in range(pw_n)])
+    vz, vy, ox = (t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(td), torch.arange(th), torch.arange(tw), indexing="ij"))
+    bf = torch.zeros(n_co * 64) if bias is None else \
+        torch.cat([bias.float(), torch.zeros(n_co * 64 - cout)])
+    tiles = list(itertools.product(range(-(-d_out // td)), range(-(-ho // th)), range(-(-wo // tw))))
+    out = torch.zeros((B, cout, d_out, ho, wo), dtype=x.dtype)
+    partial = torch.zeros((B, cout, len(tiles), 2))
+    for b in range(B):
+        for blk, (tz, ty, tx) in enumerate(tiles):
+            od0, oh0, ow0 = tz * td, ty * th, tx * tw
+            raw = torch.zeros((cpad, pd_n, ph_n, nraw))
+            p = torch.arange(pd_n) + 2 * od0 - qlo
+            ih = torch.arange(ph_n) + 2 * oh0 - 1
+            c = torch.arange(nraw) + 2 * ow0 - 8
+            pm, hm, cm = (p >= 0) & (p < nv), (ih >= 0) & (ih < H), (c >= 0) & (c < W)
+            sub = xa[b][:, p[pm]][:, :, ih[hm]][:, :, :, c[cm]]
+            raw[:cin, pm.nonzero()[:, 0, None, None], hm.nonzero()[:, 0, None],
+                cm.nonzero()[:, 0]] = sub
+            patch = torch.zeros((pd_n * ph_n, pw_n, cpad))
+            patch[:, pos_of] = raw[:, :, :, 7:7 + pw_n].reshape(cpad, pd_n * ph_n, pw_n).permute(1, 2, 0)
+            acc = torch.zeros((n_co * 64, len(vz)))
+            for ct in range(n_co):
+                for ch in range(n_ci):
+                    for tap in range(27):
+                        dz, dy, dx = tap // 9, (tap // 3) % 3, tap % 3
+                        rows = (2 * vz + dz) * ph_n + 2 * vy + dy
+                        bmat = patch[rows, ox + (0, tw + 1, 1)[dx], 16 * ch:16 * ch + 16]
+                        acc[64 * ct:64 * ct + 64] += wt[ct, ch, tap] @ bmat.T
+            val = (acc + bf[:, None]).reshape(-1, td, th, tw)[:cout]
+            dz_, dy_, dx_ = (min(n, lim) for n, lim in ((td, d_out - od0), (th, ho - oh0),
+                                                       (tw, wo - ow0)))
+            r = val[:, :dz_, :dy_, :dx_].to(x.dtype)
+            out[b, :, od0:od0 + dz_, oh0:oh0 + dy_, ow0:ow0 + dx_] = r
+            rf = r.float()
+            partial[b, :, blk, 0] = rf.sum(dim=(1, 2, 3))
+            partial[b, :, blk, 1] = (rf * rf).sum(dim=(1, 2, 3))
+    sums = torch.zeros((2, B, cout))
+    for blk in range(len(tiles)):
+        sums[0] += partial[:, :, blk, 0]
+        sums[1] += partial[:, :, blk, 1]
+    return out, sums[0], sums[1]
+
+
+# (B, Cin, Cout, (H, W), planes of x, slab plane of x's first plane, output
+# planes): Cin not a multiple of 16, Cout not a multiple of 64 and over one
+# tile, odd H and W, Wo over one 16-column tile, x beginning before the slab
+# and inside it, the window ending before the last output's planes
+TC_S2_EMULATED = [(1, 8, 40, (5, 7), 5, -1, 3), (2, 24, 8, (6, 33), 6, 0, 3),
+                  (1, 20, 72, (9, 35), 7, 2, 4)]
+
+
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("case", TC_S2_EMULATED)
+def test_conv_tc_s2_staging_matches_plain(act, case):
+    """The emulated stride-2 tensor-core conv (values, Σ/Σ²) against the
+    plain version, fp32 (1e-4: fp32 sums in another order)."""
+    b, cin, cout, (h, w_), nv, qlo, d_out = case
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((b, cin, nv, h, w_)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3)) /
+                          np.sqrt(27 * cin)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+    got = _conv_tc_s2_emulated(x, w, bias, qlo, d_out, act)
+    want = ck.conv3d_k3_plain(x, w, bias, 2, qlo, d_out, True, act)
+    for g, ref in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_s2_tc_weights_layout():
+    """``s2_tc_weights``: element (co, ci, tap) of the weights at [co // 64,
+    ci // 16, tap, co % 64, ci % 16], zeros in the padding."""
+    rng = np.random.default_rng(24)
+    w = torch.from_numpy(rng.standard_normal((72, 20, 3, 3, 3)).astype(np.float32))
+    wt = ck.s2_tc_weights(w)
+    assert tuple(wt.shape) == (2, 2, 27, 64, 16) and wt.is_contiguous()
+    flat = w.reshape(72, 20, 27)
+    for co, ci, tap in itertools.product((0, 63, 64, 71), (0, 15, 16, 19), (0, 13, 26)):
+        assert wt[co // 64, ci // 16, tap, co % 64, ci % 16] == flat[co, ci, tap]
+    assert wt[1, :, :, 8:].abs().sum() == 0 and wt[:, 1, :, :, 4:].abs().sum() == 0
+
+
+def test_conv_tc_s2_staging_matches_jax():
+    """Against the JAX stride-2 chain conv (values and Σ/Σ², interpret mode)
+    at the smallest width its shape gate takes (W % 256 = 0), x windowed at
+    the front, the gelu prologue, Cin and Cout ragged for the tensor-core
+    tiles."""
+    B, cin, cout, H, W, dext = 1, 12, 72, 4, 256, 7
+    vlo, vhi = 1, dext
+    d_out = (dext - 1) // 2
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((B, cin, dext, H, W)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    out_j, s1_j, s2_j = jax_chain_s2((dext, H, W, True, "gelu"),
+                                     jnp.asarray(x.reshape(B, cin, -1)),
+                                     jnp.asarray([vlo, vhi], jnp.int32), jnp.asarray(w),
+                                     jnp.asarray(bias))
+    xt = torch.from_numpy(x).narrow(2, vlo, vhi - vlo)
+    out, s1, s2 = _conv_tc_s2_emulated(xt, torch.from_numpy(w), torch.from_numpy(bias), vlo,
+                                       d_out, "gelu")
     np.testing.assert_allclose(out.reshape(B, cout, -1).numpy(), np.asarray(out_j),
                                rtol=1e-4, atol=1e-4)
     for got, ref in ((s1, s1_j), (s2, s2_j)):

@@ -26,6 +26,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     wgrad_uses_tensor_cores,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
+    bwd_uses_tensor_cores,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -66,11 +67,11 @@ def _randn(shape, dtype, dev, seed):
     return torch.from_numpy(g.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
 
 
-def _close(got, want, dtype, tol=TOL):
+def _close(got, want, dtype, tol=TOL, floor=0.0):
     atol, rtol = tol[dtype]
     torch.cuda.synchronize()
     if tol is FLASH_OUT_TOL:
-        atol *= float(want.float().abs().max())
+        atol *= max(float(want.float().abs().max()), floor)
     err = (got.float() - want.float()).abs()
     assert torch.isfinite(got.float()).all()
     assert bool((err <= atol + rtol * want.float().abs()).all()), float(err.max())
@@ -477,14 +478,15 @@ def test_flash_bwd_from_tensor_core_forward(dev, bh, nq, nk, d):
     q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (0, 3))
     k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (1, 2))
     scale = d ** -0.5
-    before = flash_attention_fwd.tc_launches
+    before = flash_attention_fwd.tc_launches, flash_attention_bwd.tc_launches
     out, lse = flash_attention_fwd(q, k, v, scale)
-    assert flash_attention_fwd.tc_launches == before + 1
+    assert flash_attention_fwd.tc_launches == before[0] + 1
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
     for got in (flash_attention_bwd(q, k, v, out, lse, dout, scale),
                 flash_attention_bwd_split(q, k, v, out, lse, dout, scale)):
         for g, w in zip(got, want):
             _close(g, w, torch.bfloat16)
+    assert flash_attention_bwd.tc_launches == before[1] + 1  # D on the tensor cores
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -502,6 +504,144 @@ def test_flash_bwd_bitwise_repeatable(dev, dtype, bh, nq, nk, d):
     again = flash_attention_bwd(q, k, v, out, lse, dout, scale)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _ds_rounding(q, k, v, dout, scale):
+    """A floor for the scale of dq and dk, tied to the inputs: where ds =
+    p·(dp − delta) cancels (one key: p = 1, dp = delta), they are rounding
+    alone. dp and delta each sum d ≤ 64 fp32 products of size up to
+    ‖dout‖·‖v‖ (largest rows), in another order on the two sides, so they
+    differ by at most 2·d·2^-24 < 2^-16 of that; dq and dk carry it by one
+    product with k or q and the scale. At the long shapes this is ~1e-3,
+    far under their max|want| of ~0.1."""
+    def rows(t):
+        return float(t.float().norm(dim=-1).max())
+    big = max(float(q.float().abs().max()), float(k.float().abs().max()))
+    return 2.0 ** -16 * rows(dout) * rows(v) * big * scale
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", FLASH_MAIN + FLASH_RAGGED)
+def test_flash_bwd_tensor_cores_match_plain(dev, bh, nq, nk, d):
+    """The tensor-core D (bf16) against its plain version at the main path's
+    shapes and ragged ones: dq, dk and dv within FLASH_OUT_TOL (at 32,768
+    keys the gradients are ~0.1, where TOL's absolute part would be loose; D
+    rounds p and ds to bf16 before their products, as the TPU kernel does),
+    its scale no lower than the rounding of ds (``_ds_rounding``: at one
+    key dq and dk are rounding alone, max|want| may be 0), counted in
+    flash_attention_bwd.tc_launches; the fp32 call stays on the CUDA
+    cores."""
+    q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    out, lse = flash_attention_plain(q, k, v, scale)
+    before = (flash_attention_bwd.launches, flash_attention_bwd.tc_launches)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    assert (flash_attention_bwd.launches, flash_attention_bwd.tc_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)
+    floor = _ds_rounding(q, k, v, dout, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close(g, w, torch.bfloat16, FLASH_OUT_TOL, floor)
+    if nq * nk <= 4096 * 4096:
+        f32 = [t.float() for t in (q, k, v, out)]
+        flash_attention_bwd(*f32, lse, dout.float(), scale)
+        assert flash_attention_bwd.tc_launches == before[1] + 1
+
+
+# (BH, Nq, Nk, d) of the training shapes (chip_smoke.py _FLASH_TRAIN_SHAPES)
+FLASH_TRAIN = [(32, 4096, 4096, 64), (32, 4096, 256, 64), (16, 4096, 4096, 32),
+               (16, 4096, 1024, 32), (8, 32768, 32768, 32), (8, 32768, 4096, 32)]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", FLASH_TRAIN + FLASH_RAGGED)
+def test_flash_bwd_tensor_cores_bitwise(dev, bh, nq, nk, d):
+    """Two runs of the tensor-core D give the same bits at every training
+    shape: its dq adds go into one fp32 accumulator in key-tile order."""
+    q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (4, 7))
+    k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (5, 6))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    first = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_bwd_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_flash_attention_bwd_tc``, which the
+    wrapper sizes its scratch and counts launches by) is
+    ``bwd_uses_tensor_cores``."""
+    rule = _build.function("hvc_flash_attention_bwd_tc", (ctypes.c_int,))
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert bool(rule(code)) == bwd_uses_tensor_cores(dtype)
+
+
+# Stride-2 conv shapes of the main path (chip_smoke.py KERNELS["conv3d_k3s2"]
+# and CHAIN_KERNELS["conv3d_k3s2_chain"]) as the chain call, (B, Cin, Cout,
+# planes of x, H, W, slab plane of x's first plane, output planes, Σ/Σ², act),
+# and ragged ones that reach the tensor cores: Cin 8 / 24 / 40 (not a
+# multiple of the 16-channel chunk), Cout 8 / 40 / 72 (not a multiple of the
+# 64-channel tile), odd H and W, W not a multiple of 8 (element-by-element
+# staging), x beginning before the slab, every option.
+_S2_MAIN_DENSE = [(1, 1, 64, 64, 64, 64, 1, 32, False, None), (1, 64, 128, 32, 32, 32, 1, 16, False, None),
+                  (1, 32, 64, 128, 128, 128, 1, 64, False, None),
+                  (1, 64, 128, 64, 64, 64, 1, 32, False, None),
+                  (1, 128, 256, 32, 32, 32, 1, 16, False, None),
+                  (1, 32, 64, _R, _R, _R, 1, 128, False, None),
+                  (1, 64, 128, 128, 128, 128, 1, 64, False, None),
+                  (1, 128, 256, 64, 64, 64, 1, 32, False, None)]
+_S2_MAIN_CHAIN = [(1, 32, 64, 33, _R, _R, 0, 16, True, None), (1, 32, 64, 32, _R, _R, 1, 16, True, None),
+                  (1, 32, 64, 33, _R, _R, 0, 16, True, "gelu"), (2, 32, 64, 33, _R, _R, 0, 16, True, None),
+                  (1, 32, 64, _R, _R, _R, 1, 128, True, None)]
+TC_S2_CASES = [(1, 8, 40, 6, 5, 12, 0, 2, True, "gelu"), (2, 24, 8, 7, 9, 33, 0, 3, True, "silu"),
+               (1, 40, 72, 7, 9, 35, 1, 4, True, None), (2, 16, 64, 9, 11, 40, 2, 4, False, "gelu"),
+               (1, 24, 40, 5, 6, 16, -1, 3, True, "silu")]
+
+
+def _conv_s2_check(shape, dev, dense):
+    """The stride-2 conv in bf16 against its plain version, counted on the
+    instance ``fwd_uses_tensor_cores`` names, Σ/Σ² bitwise over two runs."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    dt = torch.bfloat16
+    x, w, bias = _fwd_case(shape, dt, dev, 60)
+    tc = "conv3d_k3s2_tc" if dense else "conv3d_k3s2_chain_tc"
+    before = LAUNCHES[tc]
+    res = conv3d_k3(x, w, bias, 2, qlo, d_out, sums, act, dense=dense)
+    assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 2, cin, cout)
+    want = conv3d_k3_plain(x, w, bias, 2, qlo, d_out, sums, act)
+    out = res[0] if sums else res
+    _close(out, want[0] if sums else want, dt)
+    if sums:
+        _check_sums(out, res[1], res[2])
+        again = conv3d_k3(x, w, bias, 2, qlo, d_out, True, act)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(res, again))
+
+
+@pytest.mark.parametrize("shape", _S2_MAIN_DENSE)
+def test_conv_s2_tensor_cores_main_path_dense(dev, shape):
+    """Kernel C at the main path's dense shapes, bf16: the Cin ≥ 8, Cout ≥ 8
+    calls on the tensor cores, the 1→64 stem on the CUDA cores."""
+    _conv_s2_check(shape, dev, dense=True)
+
+
+@pytest.mark.parametrize("shape", _S2_MAIN_CHAIN)
+def test_conv_s2_tensor_cores_main_path_chain(dev, shape):
+    """Kernel I at the streamed chains' shapes, its Σ/Σ² bitwise repeatable."""
+    _conv_s2_check(shape, dev, dense=False)
+
+
+@pytest.mark.parametrize("case", TC_S2_CASES)
+def test_conv_s2_tensor_cores_ragged(dev, case):
+    """The stride-2 tensor-core conv at ragged shapes with every chain
+    option; the fp32 call stays on the CUDA cores."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = case
+    _conv_s2_check(case, dev, dense=False)
+    xf, wf, bias = _fwd_case(case, torch.float32, dev, 61)
+    before = LAUNCHES["conv3d_k3s2_chain_tc"]
+    conv3d_k3(xf, wf, bias, 2, qlo, d_out, sums, act)
+    assert LAUNCHES["conv3d_k3s2_chain_tc"] == before
 
 
 # Kernel family N, the conv probes: (weights, data) of each wrapper at N
