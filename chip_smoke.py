@@ -47,16 +47,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    fp32, with kernel and plain times at the training shapes (the three
    flash backward kernels with FLASH_OUT_TOL: their gradients are well under
    1 at the long shapes); two runs of D agree bitwise at every training
-   shape in bf16 and fp32 (its dq adds go in a fixed order), and two runs of
-   L and of M at the stage-3 shape (no atomics); the bf16 64→32 and 32→64 weight gradients of the
-   stage-3 step (dense and one training slab) take the tensor-core instance
+   shape in bf16 and fp32 (its dq adds go in a fixed order), two runs of M at
+   every training shape in bf16 (and its dk, dv are D's bits), and two runs
+   of L and of M at the stage-3 shape in fp32 (no atomics); the bf16 64→32
+   and 32→64 weight gradients of the stage-3 step (dense and one training
+   slab) take the tensor-core instance
    of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
    one; the bf16 64→32 conv and its data gradient (dense and one training
    slab) take the tensor-core B/H and every bf16 flash forward of the
-   training shapes the tensor-core A and D, the bf16 32→64 stride-2 conv
-   (dense and one training slab) the tensor-core C/I, their fp32 calls, the
-   1-channel conv (and its one-output-channel data gradient) and the 1→64
-   stride-2 stem the CUDA-core ones.
+   training shapes the tensor-core A, D and M, the bf16 32→64 stride-2 conv
+   and its data gradient (dense and one training slab) the tensor-core C/I
+   and F/J, their fp32 calls, the 1-channel conv (and its one-output-channel
+   data gradient) and the 1→64 stride-2 stem (and its data gradient) the
+   CUDA-core ones.
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -72,7 +75,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the stage-3 step, its bf16 64→32 and 32→64 weight gradients, its 64→32
    chain conv and data gradient in every slab, every 32→64 chain conv (I),
    and every flash forward and fused backward of each stage on the tensor
-   cores). Stage 3 trains on the config's streamed schedule (8 slabs).
+   cores; every bf16 F/J call with Cin, Cout ≥ 8 on the tensor cores, as
+   many launches as the rule names). Stage 3 trains on the config's streamed
+   schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -86,7 +91,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (8 train, 1 val), no visualization and ``save_dir`` under ``build/``,
    with the split flash backward selected (``ops.attention.FUSED_BWD =
    False``, what ``HVC_FLASH_FUSED_BWD=0`` selects). Checks: D never
-   launched, L and M launched in every stage, every stage's ``latest`` and
+   launched, L and M launched in every stage, every bf16 M and F/J call
+   (Cin, Cout ≥ 8) on the tensor cores, every stage's ``latest`` and
    ``best_*`` written, finite losses, the shared encoder's parameters and
    BatchNorm buffers at ``stage3/latest`` bitwise those at ``stage2/latest``
    while stage 3 moved; the same command again skips every stage (resume);
@@ -161,8 +167,8 @@ FLASH_OUT_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 # The flash backward kernels (D, L, M) take FLASH_OUT_TOL too: at the long
 # shapes their dq, dk and dv are 0.1-0.15 at most (PERF.md §6), where TOL's
 # absolute 2e-2 would be over 10% of the largest gradient. On the
-# tensor cores D rounds p and ds to bf16 before its products, as the TPU
-# kernel does (2^-9 relative each).
+# tensor cores D and M round p and ds to bf16 before their products, as the
+# TPU kernels do (2^-9 relative each).
 # Gradient kernels take the same bounds with the absolute part scaled by the
 # largest |want| of the call: their sums run over up to 16.7 M voxels or
 # 32,768 keys, so an element that cancels to near zero carries the rounding
@@ -333,6 +339,7 @@ _HOT_S2 = (1, 32, 64, 256, _CH, _CH, 1, 128, True, None)
 _TRAIN_S1 = (1, 64, 32, 34, _CH, _CH, 0, 32, True, None)  # one training slab
 _TRAIN_S1_GELU = (1, 64, 32, 34, _CH, _CH, 0, 32, True, "gelu")  # the same, prologue fused
 _TRAIN_S2 = (1, 32, 64, 33, _CH, _CH, 0, 16, True, None)
+_TRAIN_S2_GELU = (1, 32, 64, 33, _CH, _CH, 0, 16, True, "gelu")  # the same, prologue fused
 CHAIN_KERNELS = {
     "conv3d_k3s1_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                           "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
@@ -763,6 +770,46 @@ class force_streaming:
         cascade.chain_apply_streamed = self.real
 
 
+# The tensor-core counters of the kernels whose rule depends on the call's
+# channels (F/J) or dtype (M), which [9] and [11] hold to the calls the rules
+# name.
+_RULE_COUNTERS = ("conv3d_k3s2_dgrad_tc", "conv3d_k3s2_chain_dgrad_tc",
+                  "flash_attention_bwd_dkv_tc")
+
+
+class rule_calls:
+    """Within the block, count per tensor-core counter the calls of F/J
+    (``conv3d_k3._dgrad_s2``) and M (``flash_attention._bwd_dkv``) that the
+    Python rules (``dgrad_s2_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``)
+    send to the tensor cores: the wrappers' launch functions are wrapped, so
+    every call on the path is seen."""
+
+    def __enter__(self):
+        from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+        from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+        self.n = dict.fromkeys(_RULE_COUNTERS, 0)
+        self.real = real_d, real_m = ck._dgrad_s2, fa._bwd_dkv
+
+        def dgrad(g, w, x_shape, qlo, dact=None, dense=False):
+            if ck.dgrad_s2_uses_tensor_cores(g.dtype, x_shape[1], w.shape[0]):
+                self.n[_RULE_COUNTERS[0] if dense else _RULE_COUNTERS[1]] += 1
+            return real_d(g, w, x_shape, qlo, dact=dact, dense=dense)
+
+        def dkv(q, *args):
+            self.n[_RULE_COUNTERS[2]] += fa.bwd_dkv_uses_tensor_cores(q.dtype)
+            return real_m(q, *args)
+
+        ck._dgrad_s2, fa._bwd_dkv = dgrad, dkv
+        return self
+
+    def __exit__(self, *exc):
+        from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+        from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+        ck._dgrad_s2, fa._bwd_dkv = self.real
+
+
 def chain_phase(dev, seed: int, size: int = 256) -> dict:
     """Phase 10: the full-width size³ detail and trunk chains, streamed,
     against the dense chain on the card, fp32: values and every gradient."""
@@ -897,7 +944,10 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     for stage in (1, 2, 3):
         b = TRAIN_BATCH[stage]
         g = torch.Generator(device=dev).manual_seed(seed + 10 + stage)
-        r = train_steps(model, cfg, stage, b, TRAIN_STEPS, g, loss_obj=loss_obj)
+        with rule_calls() as rc:
+            r = train_steps(model, cfg, stage, b, TRAIN_STEPS, g, loss_obj=loss_obj)
+        # every step runs the same calls: the warm-up step's share of them
+        r["tc_rule_calls_per_step"] = {k: n / (1 + TRAIN_STEPS) for k, n in rc.n.items()}
         res = (64, 128, 256)[stage - 1]
         key = f"train_stage{stage}_{res}_b{b}_steps_per_sec"
         r[key] = r.pop("steps_per_sec")
@@ -933,18 +983,31 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     if step3["conv3d_k3s2_chain_tc"] != step3["conv3d_k3s2_chain"]:
         raise AssertionError(f"[9] the stage-3 step's 32→64 chain conv (I) did not take the "
                              f"tensor cores every time: {step3}")
+    # every bf16 stride-2 data gradient with Cin, Cout ≥ 8 took the tensor
+    # cores (F/J), as many as the rule names, and stage 3 ran both forms
+    for stage, r in out.items():
+        lc, want = r["launches_per_step"], r["tc_rule_calls_per_step"]
+        if any(lc[k] != want[k] for k in _RULE_COUNTERS):
+            raise AssertionError(f"[9] {stage}: tensor-core launches "
+                                 f"{ {k: lc[k] for k in _RULE_COUNTERS} } differ from the calls "
+                                 f"the rules name {want}")
+    if not (step3["conv3d_k3s2_dgrad_tc"] and step3["conv3d_k3s2_chain_dgrad_tc"]):
+        raise AssertionError(f"[9] the stage-3 step ran no tensor-core F or J: {step3}")
     return out
 
 
 def flash_bwd_bitwise(dev, seed: int) -> dict:
     """Phase 7d: two runs give the same bits — kernel D at every training
     shape in bf16 (tensor cores: dq added in key-tile order) and fp32 (CUDA
-    cores: dq partials added in group order), L and M at the stage-3
+    cores: dq partials added in group order), M at every training shape in
+    bf16 (tensor cores: one writer a row), its dk and dv also bitwise D's
+    (the same body without the dq phase), and L and M at the stage-3
     self-attention shape in fp32 (no atomics)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
     runs = [(name, shape, dtype) for shape in _FLASH_TRAIN_SHAPES
             for dtype in (torch.bfloat16, torch.float32) for name in ("flash_attention_bwd",)]
+    runs += [("flash_attention_bwd_dkv", shape, torch.bfloat16) for shape in _FLASH_TRAIN_SHAPES]
     runs += [(name, (8, 32768, 32768, 32), torch.float32)
              for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
     fns = {"flash_attention_bwd_dq": lambda *a: (fa.flash_attention_bwd_dq(*a),),
@@ -959,13 +1022,18 @@ def flash_bwd_bitwise(dev, seed: int) -> dict:
         out[key] = {"bitwise_equal": all(torch.equal(x, y) for x, y in zip(a, b)),
                     "max_abs_diff": max(float((x.float() - y.float()).abs().max())
                                         for x, y in zip(a, b))}
+        if name == "flash_attention_bwd_dkv" and dtype == torch.bfloat16:
+            fused = fa.flash_attention_bwd(*args)[1:]
+            out[key]["equals_d"] = all(torch.equal(x, y) for x, y in zip(a, fused))
+            del fused
         log(f"[7] {key:64s} two runs: bitwise equal {out[key]['bitwise_equal']}, "
-            f"max |diff| {out[key]['max_abs_diff']:.3e}")
-        if not out[key]["bitwise_equal"]:
+            f"max |diff| {out[key]['max_abs_diff']:.3e}"
+            + (f"; dk, dv bitwise D's {out[key]['equals_d']}" if "equals_d" in out[key] else ""))
+        if not out[key]["bitwise_equal"] or not out[key].get("equals_d", True):
             failed.append(key)
         del args, a, b
     if failed:
-        raise AssertionError(f"[7] not bitwise repeatable: {failed}")
+        raise AssertionError(f"[7] not bitwise repeatable (or M not D's dk, dv): {failed}")
     return out
 
 
@@ -1006,43 +1074,51 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
     return out
 
 
-# bf16 calls of the stage-3 step on the conv forward: the dense and
+# bf16 calls of the stage-3 step on the tensor-core convs: the dense and
 # one-slab 64→32 conv and its data gradient (the forward on g, 32→64
-# channels) and the dense and one-slab 32→64 stride-2 conv, with the counter
-# their launch must add to.
+# channels), the dense and one-slab 32→64 stride-2 conv and its data
+# gradient, with the counter their launch must add to.
 _TC_FWD_CALLS = [("conv3d_k3s1", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
                  ("conv3d_k3s1_dgrad", (1, 64, 32, (256, 256, 256)), "conv3d_k3s1_tc"),
                  ("conv3d_k3s1_chain", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc"),
                  ("conv3d_k3s1_chain_dgrad", _TRAIN_S1_GELU, "conv3d_k3s1_chain_tc"),
                  ("conv3d_k3s2", (1, 32, 64, (256, 256, 256)), "conv3d_k3s2_tc"),
-                 ("conv3d_k3s2_chain", _TRAIN_S2, "conv3d_k3s2_chain_tc")]
+                 ("conv3d_k3s2_chain", _TRAIN_S2, "conv3d_k3s2_chain_tc"),
+                 ("conv3d_k3s2_dgrad", (1, 32, 64, (256, 256, 256)), "conv3d_k3s2_dgrad_tc"),
+                 ("conv3d_k3s2_chain_dgrad", _TRAIN_S2, "conv3d_k3s2_chain_dgrad_tc"),
+                 ("conv3d_k3s2_chain_dgrad", _TRAIN_S2_GELU, "conv3d_k3s2_chain_dgrad_tc")]
 
 
 def tc_fwd_dispatch(dev, seed: int) -> dict:
     """Phase 7f: the bf16 64→32 conv of the stage-3 step and its data
     gradient (dense and one training slab) launch the tensor-core conv
     (conv3d_k3s1_tc / conv3d_k3s1_chain_tc count them), the bf16 32→64
-    stride-2 conv (dense and one training slab) the tensor-core C/I
-    (conv3d_k3s2_tc / conv3d_k3s2_chain_tc), and every bf16 flash forward and
-    fused backward of the training shapes the tensor-core A and D
-    (flash_attention_tc, flash_attention_bwd_tc); the same calls in fp32, the
-    1-channel conv and its one-output-channel data gradient, and the 1→64
-    stride-2 stem do not."""
+    stride-2 conv and its data gradient (dense and one training slab, the
+    slab's with and without act′) the tensor-core C/I and F/J
+    (conv3d_k3s2_tc / conv3d_k3s2_chain_tc, conv3d_k3s2_dgrad_tc /
+    conv3d_k3s2_chain_dgrad_tc), and every bf16 flash forward, fused backward
+    and dk/dv of the training shapes the tensor-core A, D and M
+    (flash_attention_tc, flash_attention_bwd_tc, flash_attention_bwd_dkv_tc);
+    the same calls in fp32, the 1-channel conv and its one-output-channel
+    data gradient, and the 1→64 stride-2 stem and its data gradient do
+    not."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
 
     calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
              for dt in (torch.bfloat16, torch.float32)]
     calls += [(n, (1, 1, 64, (256, 256, 256)), "conv3d_k3s1_tc", torch.bfloat16, False)
               for n in ("conv3d_k3s1", "conv3d_k3s1_dgrad")]
-    calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_tc", torch.bfloat16, False)]
+    calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_tc", torch.bfloat16, False),
+              ("conv3d_k3s2_dgrad", (8, 1, 64, (64, 64, 64)), "conv3d_k3s2_dgrad_tc",
+               torch.bfloat16, False)]
     calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
-              for n in ("flash_attention", "flash_attention_bwd")
+              for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv")
               for sh in _FLASH_TRAIN_SHAPES for dt in (torch.bfloat16, torch.float32)]
     out = {}
     for name, shape, counter, dtype, want_tc in calls:
         if "chain" in name:
             args, fn = _chain_inputs(name, shape, dtype, dev, seed), _chain_fns(name)[0]
-        elif name.endswith("dgrad") or name == "flash_attention_bwd":
+        elif name.endswith("dgrad") or name.startswith("flash_attention_bwd"):
             args, fn = _train_inputs(name, shape, dtype, dev, seed), _train_fns(name)[0]
         else:
             args, fn = _inputs(name, shape, dtype, dev, seed), _fns(name)[0]
@@ -1124,7 +1200,8 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
     try:
         reset_launch_counts()
         t0 = time.perf_counter()
-        cli.main(["train", "--config", str(copy)])
+        with rule_calls() as rc:
+            cli.main(["train", "--config", str(copy)])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launched = launch_counts()
@@ -1146,6 +1223,11 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
         f"stage-3 step (trained encoder, D) {fused_stage3_ms:.1f} ms (information only)")
     if launched["flash_attention_bwd"]:
         raise AssertionError(f"[11] kernel D launched under FUSED_BWD=False: {launched}")
+    log(f"[11] tensor-core F, J, M launches { {k: launched[k] for k in _RULE_COUNTERS} }, "
+        f"calls the rules name {rc.n}")
+    if any(launched[k] != rc.n[k] for k in _RULE_COUNTERS) or not all(rc.n.values()):
+        raise AssertionError(f"[11] tensor-core F/J/M launches differ from the calls the rules "
+                             f"name, or one never ran: {launched} vs {rc.n}")
 
     rows = [json.loads(line) for line in (save_dir / "training_log.jsonl").read_text().splitlines()]
     for n in (1, 2, 3):
@@ -1197,7 +1279,7 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     log(f"[11] phase time {phase_s:.1f} s (train {train_s:.1f} s, resume {resume_s:.1f} s)")
-    return {"launches": launched, "per_stage": per_stage, "step_ms": step_ms,
+    return {"launches": launched, "tc_rule_calls": rc.n, "per_stage": per_stage, "step_ms": step_ms,
             "split_stage3_median_ms": split3, "fused_stage3_median_ms": fused_stage3_ms,
             "losses": losses, "train_s": train_s, "resume_s": resume_s, "phase_s": phase_s}
 
@@ -1258,7 +1340,10 @@ _TC_COUNTERS = {"flash_attention": "flash_attention_tc",
                 "flash_attention_bwd": "flash_attention_bwd_tc", "conv3d_k3s1": "conv3d_k3s1_tc",
                 "conv3d_k3s1_dgrad": "conv3d_k3s1_tc", "conv3d_k3s1_chain": "conv3d_k3s1_chain_tc",
                 "conv3d_k3s1_chain_dgrad": "conv3d_k3s1_chain_tc",
-                "conv3d_k3s2": "conv3d_k3s2_tc", "conv3d_k3s2_chain": "conv3d_k3s2_chain_tc"}
+                "conv3d_k3s2": "conv3d_k3s2_tc", "conv3d_k3s2_chain": "conv3d_k3s2_chain_tc",
+                "conv3d_k3s2_dgrad": "conv3d_k3s2_dgrad_tc",
+                "conv3d_k3s2_chain_dgrad": "conv3d_k3s2_chain_dgrad_tc",
+                "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_tc"}
 
 
 def _tc_rule(counter: str) -> str:
@@ -1267,9 +1352,12 @@ def _tc_rule(counter: str) -> str:
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
-    rule = (fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
+    rule = (fa.bwd_dkv_uses_tensor_cores if counter.startswith("flash_attention_bwd_dkv") else
+            fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
             fa.fwd_uses_tensor_cores if counter.startswith("flash") else
-            ck.wgrad_uses_tensor_cores if "wgrad" in counter else ck.fwd_uses_tensor_cores)
+            ck.wgrad_uses_tensor_cores if "wgrad" in counter else
+            ck.dgrad_s2_uses_tensor_cores if "s2" in counter and "dgrad" in counter else
+            ck.fwd_uses_tensor_cores)
     return " ".join(inspect.getdoc(rule).split())
 
 

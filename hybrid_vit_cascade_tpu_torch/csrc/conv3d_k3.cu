@@ -621,14 +621,6 @@ constexpr int kS2Patch = kS2R * kS2Pw * kS2Ci;   // bf16, [row][position][16 ci]
 constexpr int kS2Wts = 27 * kS2Co * kS2Ci;       // bf16, [tap][co][16 ci]
 constexpr int kS2Smem = (kS2Patch + kS2Wts) * 2; // 102,816 bytes: two blocks an SM
 
-// Element offset of 16-byte unit u (channels 8u … 8u + 7) of 32-byte row
-// `row` (a patch position or a weight row): the two units swap places in
-// every other group of four rows, so the 8 consecutive rows an ldmatrix
-// reads hit 8 different bank groups wherever they start, without padding.
-__device__ __forceinline__ int s2_swz(int row, int u) {
-  return row * 16 + ((u ^ ((row >> 2) & 1)) << 3);
-}
-
 // position of patch column pw within its row: the even columns, then the
 // odd ones, so output voxel ox reads position ox + {0, 17, 1} at tap dx
 __device__ __forceinline__ int s2_pcol(int pw) { return (pw & 1) * kS2Pwe + (pw >> 1); }

@@ -37,13 +37,14 @@
 // small kernel adds the partials in a fixed order — deterministic, so the
 // card-vs-plain check is stable.
 //
-// What bounds them on this card: the hot calls are at 256³ (64→32 weight
-// gradient: 1.86 TFLOP; the 32→64 stride-2 data gradient from 128³: 0.23 TFLOP)
-// and compute-bound; the 1-channel ones (1→32, 1→64 at 256³) are bound by
-// reading the 32/64-channel output gradient. The chain options add work per
-// staged input value (K's prologue) or per written output value (J's act′),
-// not per product, so J and K keep those bounds; J's epilogue is a template
-// flag, so F compiles without it.
+// What bounds them on this card: the hot weight gradient (64→32 at 256³,
+// 1.86 TFLOP) is compute-bound; the hot stride-2 data gradient (32→64, dx of
+// 256³ from g of 128³: 0.23 TFLOP = 0.23 ms at the bf16 peak, 1.34 GB of g,
+// weights and dx = 0.40 ms) is bound by its bytes; the 1-channel ones (1→32,
+// 1→64 at 256³) are bound by reading the 32/64-channel output gradient. The
+// chain options add work per staged input value (K's prologue) or per
+// written output value (J's act′), not per product, so J and K keep those
+// bounds; J's epilogue is a template flag, so F compiles without it.
 //   E/G/K, two instances, picked by an explicit rule (dispatch_wgrad; the
 //        Python wrapper applies the same one): bf16 calls with Cin ≥ 8 take
 //        the tensor cores, fp32 calls (TF32 would leave the fp32 tolerances)
@@ -88,13 +89,45 @@
 //        costs one float4 broadcast of g plus one load per column for 16 FMAs.
 //   Both write one fp32 partial per split of the voxel tiles; a second small
 //   kernel adds the partials in split order (no atomics: repeatable bits).
-//   F:   one input voxel per thread and 32 input channels per block in
-//        registers; per chunk of 8 output channels the block stages the
-//        2×5×17 output-gradient patch its 8×32 input tile reads and the
-//        chunk's weights [co][tap][ci] (rows padded to 36 floats against bank
-//        conflicts) in shared memory. Each voxel visits only the taps its
-//        parity selects (1 or 2 per dim), each tap one g load and eight float4
-//        weight broadcasts for 32 FMAs.
+//   F/J, two instances, picked by an explicit rule (dgrad_s2_uses_tc, which
+//        the wrapper reads through hvc_conv3d_k3s2_dgrad_tc): bf16 with Cin ≥
+//        8 and Cout ≥ 8 takes the tensor cores; fp32 (TF32 would leave the
+//        fp32 tolerances) and the 1-channel stem (Cin = 1) the CUDA cores.
+//   F/J on the tensor cores (dgrad_s2_tc_kernel): dx splits into 8 parity
+//        classes by the (z, y, x) parity of the voxel; a voxel at even index
+//        takes tap d = 1 along that dim, one at odd index d ∈ {0, 2}, so the
+//        classes take 1, 2, 2, 4, 2, 4, 4 and 8 of the 27 taps, and each is a
+//        stride-1 GEMM over g: M = 32 dx channels (two m16 tiles), N = the
+//        class's voxels, K = Cout × its taps, on mma.sync m16n8k16 bf16 →
+//        fp32. A block owns 2 planes (paired by their padding-1 index iz =
+//        view plane + qlo − 1, the even one first, so a slab starting at any
+//        qlo is covered) × 8 rows × 32 columns of dx (512 voxels, 64 a class)
+//        and walks Cout in chunks of 16. g's 2 × 5 × 17 patch is staged
+//        channels-innermost, [position][16 co] in swizzled 32-byte rows, so
+//        every tap is a per-lane row address of an ldmatrix B load (a tap
+//        shifts g by one bf16, the alignment trap of the NCDHW layout): g's
+//        rows arrive as they lie by 16-byte cp.async copies (unit stride: no
+//        even/odd split) and an 8 × 8 register transpose writes the patch.
+//        The chunk's weights arrive pre-arranged [tap][32 ci][16 co] (the A
+//        operand) as one 27 KB cp.async copy; both copies of the next chunk
+//        run under the current one's products (76 KB, two blocks an SM,
+//        ≤ 128 registers a thread). Warp w takes class
+//        row w % 4, all 16 class columns, of the classes {7, 0, 1, 2} (w < 4:
+//        8 + 1 + 2 + 2 taps) or {3, 4, 5, 6} (4 + 2 + 4 + 4): every warp does
+//        13 or 14 taps with 64 accumulators a thread, 2 A and 1 B
+//        ldmatrix.x4 for 4 mma a tap.
+//        Epilogue: the classes' accumulators interleave back into dx order in
+//        a 66 KB fp32 tile that takes the staging's place, then each thread
+//        writes 8 dx columns of a row with one 16-byte store, J's act′(x)
+//        read by the same 16-byte vectors and applied in fp32 before the one
+//        rounding to bf16. Each dx element has one writer: repeatable bits.
+//   F/J on the CUDA cores (dgrad_s2_kernel): one input voxel per thread and
+//        32 input channels per block in registers; per chunk of 8 output
+//        channels the block stages the 2×5×17 output-gradient patch its 8×32
+//        input tile reads and the chunk's weights [co][tap][ci] (rows padded
+//        to 36 floats against bank conflicts) in shared memory. Each voxel
+//        visits only the taps its parity selects (1 or 2 per dim), each tap
+//        one g load and eight float4 weight broadcasts for 32 FMAs.
 //
 // Layout: x (B, Cin, D, H, W), g (B, Cout, Do, Ho, Wo) with Do = (D − 1)/S + 1,
 // w (Cout, Cin, 3, 3, 3), all contiguous and in one dtype (fp32 or bf16).
@@ -797,6 +830,312 @@ int launch_dgrad_s2(const void* g, const void* w, void* dx, long long batch, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// -------------------------------------------- F and J on the tensor cores ---
+
+constexpr int kDtThreads = 256;              // 8 warps
+constexpr int kDtCi = 32;                    // dx channels per block: M, two 16-row tiles
+constexpr int kDtCo = 16;                    // g channels per chunk: one k16 step a tap
+constexpr int kDtTy = 8, kDtTx = 32;         // dx rows and columns per block, in 2 planes
+constexpr int kDtGh = kDtTy / 2 + 1;         // g rows the block reads: 5
+constexpr int kDtGw = kDtTx / 2 + 1;         // g columns: 17
+constexpr int kDtGvec = 3;                   // 8-column vectors of a g row, from ox0
+constexpr int kDtRaw = 2 * kDtGh * kDtGvec;  // vectors of a channel's raw g rows: 30
+constexpr int kDtWts = 27 * kDtCi * kDtCo;   // bf16, a chunk's weights [tap][ci][co]
+constexpr int kDtGraw = kDtCo * kDtRaw * 8;  // bf16, its raw g rows [co][row][vector]
+constexpr int kDtGp = 2 * kDtGh * kDtGw * kDtCo;  // bf16, its g patch [position][co]
+constexpr int kDtVox = 2 * kDtTy * kDtTx;    // dx voxels of a block: 512
+constexpr int kDtEld = kDtVox + 8;           // fp32 per channel of the epilogue tile
+// 76,096 bytes: two chunks' weights and raw g rows and the patch; after the
+// last chunk the epilogue tile (66,560 bytes) takes their place
+constexpr int kDtSmem = (2 * (kDtWts + kDtGraw) + kDtGp) * 2;
+static_assert(kDtCi * kDtEld * 4 <= kDtSmem, "the epilogue tile must fit the staging");
+
+// The products of parity class C = 4·pz + 2·py + px for this warp's row uy
+// of the class, columns 0-15: acc[mt][nt] += W_tap[16·mt …][co] · g_tap[co][8·nt …]
+// over the class's taps. Along a dimension a voxel at even index 2u (the
+// block's first plane, row and column are even) takes tap d = 1 from g index
+// u; one at odd index 2u + 1 takes d = 0 from u + 1 and d = 2 from u.
+template <int C>
+__device__ __forceinline__ void dgrad_tc_class(float (&acc)[2][2][4], const bf16* wts,
+                                               const bf16* gp, int uy, int lane) {
+  constexpr int pz = C >> 2, py = (C >> 1) & 1, px = C & 1;
+  const int ln = (lane & 7) + ((lane >> 4) << 3), lk = (lane >> 3) & 1;  // B rows: voxel, k unit
+  const int arow = lane & 15, au = lane >> 4;                           // A rows: channel, k unit
+#pragma unroll
+  for (int a = 0; a <= pz; ++a)
+#pragma unroll
+    for (int c = 0; c <= py; ++c)
+#pragma unroll
+      for (int e = 0; e <= px; ++e) {
+        const int dz = pz ? 2 * a : 1, dy = py ? 2 * c : 1, dx = px ? 2 * e : 1;
+        const int tap = dz * 9 + dy * 3 + dx;
+        // g plane, row and column offsets of the tap: 1 where d = 0
+        const int pos = ((dz == 0) * kDtGh + uy + (dy == 0)) * kDtGw + (dx == 0) + ln;
+        uint32_t a0[4], a1[4], b[4];
+        ldsm_x4(a0, wts + s2_swz(tap * kDtCi + arow, au));
+        ldsm_x4(a1, wts + s2_swz(tap * kDtCi + 16 + arow, au));
+        ldsm_x4(b, gp + s2_swz(pos, lk));
+        mma16816(acc[0][0], a0, b[0], b[1]);
+        mma16816(acc[0][1], a0, b[2], b[3]);
+        mma16816(acc[1][0], a1, b[0], b[1]);
+        mma16816(acc[1][1], a1, b[2], b[3]);
+      }
+}
+
+// Class C's accumulators into the epilogue tile [ci][z][y][x] (fp32):
+// acc[mt][nt][e] is channel 16·mt + lane / 4 + 8·(e / 2) at class column
+// 8·nt + 2·(lane % 4) + e % 2, i.e. dx column 2·that + px, row 2·uy + py,
+// plane pz.
+template <int C>
+__device__ __forceinline__ void dgrad_tc_put(const float (&acc)[2][2][4], float* eb, int uy,
+                                             int lane) {
+  constexpr int pz = C >> 2, py = (C >> 1) & 1, px = C & 1;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = 16 * mt + (lane >> 2) + 8 * (e >> 1);
+        const int x = 2 * (8 * nt + 2 * (lane & 3) + (e & 1)) + px;
+        eb[ci * kDtEld + (pz * kDtTy + 2 * uy + py) * kDtTx + x] = acc[mt][nt][e];
+      }
+}
+
+// Block b of the 1-D grid: Cin tile b % n_ci (fastest: the tiles that read
+// the same g patch run together), then dx column tile, row tile, plane pair,
+// batch. The block's planes are iz0 and iz0 + 1 in padding-1 terms (iz = view
+// plane + qlo − 1), iz0 even, so g planes oz0 = iz0 / 2 and oz0 + 1 reach
+// them; view planes outside [0, nv) are not written. wtc: the weights as
+// [Cin tile][Cout chunk][tap][32 ci][16 co], zero-padded
+// (ops/cuda/conv3d_k3.py: s2_dgrad_tc_weights). VEC: g's, dx's and x's rows
+// and strides are 16-byte aligned (W a multiple of 16), so g is read and dx
+// written (x read) by 16-byte vectors; otherwise element by element.
+template <bool DACT, bool VEC>
+__global__ void __launch_bounds__(kDtThreads, 2)
+dgrad_s2_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ wtc,
+                   bf16* __restrict__ dx, int cin, int cout, int nv, int qlo, int H, int W, int Do,
+                   int n_ci, int n_tx, int n_ty, int n_tz, int dact, const bf16* __restrict__ dact_x,
+                   long long db, long long dc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* wbuf = reinterpret_cast<bf16*>(smem_raw);  // two chunks' weights
+  bf16* graw = wbuf + 2 * kDtWts;                  // two chunks' raw g rows
+  bf16* gp = graw + 2 * kDtGraw;                   // the chunk's g patch
+  float* eb = reinterpret_cast<float*>(smem_raw);  // after the last chunk: the epilogue tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  long long rest = blockIdx.x;
+  const int cit = static_cast<int>(rest % n_ci);
+  rest /= n_ci;
+  const int tx = static_cast<int>(rest % n_tx);
+  rest /= n_tx;
+  const int ty = static_cast<int>(rest % n_ty);
+  rest /= n_ty;
+  const int iz0 = ((qlo - 1) & ~1) + 2 * static_cast<int>(rest % n_tz);
+  const long long b = rest / n_tz;
+  const int oz0 = iz0 >> 1, oy0 = ty * (kDtTy / 2), ox0 = tx * (kDtTx / 2);
+  const int n_co = (cout + kDtCo - 1) / kDtCo;
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const bf16* gb = g + b * cout * ovol;
+  const bf16* wsrc = wtc + static_cast<long long>(cit) * n_co * kDtWts;
+
+  // chunk ch's weights, one contiguous copy
+  auto issue_w = [&](int ch, bf16* dst) {
+    const bf16* src = wsrc + static_cast<long long>(ch) * kDtWts;
+    for (int u = tid; u < kDtWts / 8; u += kDtThreads)
+      cp_async16(dst + s2_swz(u >> 1, u & 1), src + u * 8, 16);
+  };
+  // chunk ch's raw g rows: [co][row][vector] of 8 columns, 2 planes × 5 rows ×
+  // 3 vectors from column ox0, zero outside g and Cout; VEC: cp.async, so the
+  // next chunk's rows land under the current chunk's products
+  auto issue_g = [&](int ch, bf16* dst) {
+    for (int u = tid; u < kDtCo * kDtRaw; u += kDtThreads) {
+      const int v = u % kDtGvec, r = (u / kDtGvec) % (2 * kDtGh), co = ch * kDtCo + u / kDtRaw;
+      const int oz = oz0 + r / kDtGh, oy = oy0 + r % kDtGh, c = ox0 + 8 * v;
+      const bool row_ok = co < cout && oz >= 0 && oz < Do && oy < Ho;
+      const long long off = co * ovol + oz * oplane + static_cast<long long>(oy) * Wo + c;
+      if (VEC) {
+        const bool ok = row_ok && c < Wo;  // Wo % 8 = 0: a vector is all in or out
+        cp_async16(dst + u * 8, ok ? gb + off : g, ok ? 16 : 0);
+      } else {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(gb) + off;
+        unsigned short e8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) e8[e] = row_ok && c + e < Wo ? src[e] : 0;
+        *reinterpret_cast<uint4*>(dst + u * 8) =
+            make_uint4(e8[0] | (uint32_t(e8[1]) << 16), e8[2] | (uint32_t(e8[3]) << 16),
+                       e8[4] | (uint32_t(e8[5]) << 16), e8[6] | (uint32_t(e8[7]) << 16));
+      }
+    }
+  };
+  // raw rows → the patch [position][16 co]: units of 8 channels × one vector,
+  // an 8 × 8 register transpose (byte permutes), 4 columns at a time (16
+  // words live beside the accumulators)
+  auto transpose_g = [&](const bf16* raw) {
+    for (int u = tid; u < (kDtCo / 8) * kDtRaw; u += kDtThreads) {
+      const int rv = u % kDtRaw, cg = u / kDtRaw;
+      const int v = rv % kDtGvec, r = rv / kDtGvec;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t wv[8][2];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const uint2 q2 =
+              *reinterpret_cast<const uint2*>(raw + ((cg * 8 + i) * kDtRaw + rv) * 8 + 4 * half);
+          wv[i][0] = q2.x, wv[i][1] = q2.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * v + 4 * half + e;
+          if (col >= kDtGw) continue;
+          const uint32_t sel = (e & 1) ? 0x7632u : 0x5410u;
+          const int j = e >> 1;
+          *reinterpret_cast<uint4*>(gp + s2_swz(r * kDtGw + col, cg)) =
+              make_uint4(__byte_perm(wv[0][j], wv[1][j], sel), __byte_perm(wv[2][j], wv[3][j], sel),
+                         __byte_perm(wv[4][j], wv[5][j], sel), __byte_perm(wv[6][j], wv[7][j], sel));
+        }
+      }
+    }
+  };
+
+  // warp w: class row uy = w % 4, all 16 columns of the 4 classes of its
+  // group: {7, 0, 1, 2} (8 + 1 + 2 + 2 taps) for w < 4, {3, 4, 5, 6}
+  // (4 + 2 + 4 + 4) for the others, so every warp does 13 or 14 of the 27
+  // taps with 64 accumulators a thread
+  const int uy = warp & 3;
+  const bool grp1 = warp >= 4;
+  float acc[4][2][2][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[k][mt][nt][e] = 0.f;
+
+  issue_w(0, wbuf);
+  issue_g(0, graw);
+  cp_async_commit();
+  for (int ch = 0; ch < n_co; ++ch) {
+    __syncthreads();  // chunk ch − 1 is no longer read: the patch and its buffers are free
+    if (ch + 1 < n_co) {
+      issue_w(ch + 1, wbuf + ((ch + 1) & 1) * kDtWts);
+      issue_g(ch + 1, graw + ((ch + 1) & 1) * kDtGraw);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ch's weights and raw g rows are in shared memory
+    transpose_g(graw + (ch & 1) * kDtGraw);
+    __syncthreads();  // its patch is ready
+    const bf16* wts = wbuf + (ch & 1) * kDtWts;
+    if (grp1) {
+      dgrad_tc_class<3>(acc[0], wts, gp, uy, lane);
+      dgrad_tc_class<4>(acc[1], wts, gp, uy, lane);
+      dgrad_tc_class<5>(acc[2], wts, gp, uy, lane);
+      dgrad_tc_class<6>(acc[3], wts, gp, uy, lane);
+    } else {
+      dgrad_tc_class<7>(acc[0], wts, gp, uy, lane);
+      dgrad_tc_class<0>(acc[1], wts, gp, uy, lane);
+      dgrad_tc_class<1>(acc[2], wts, gp, uy, lane);
+      dgrad_tc_class<2>(acc[3], wts, gp, uy, lane);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the staging buffers are no longer read: the epilogue tile takes them
+  if (grp1) {
+    dgrad_tc_put<3>(acc[0], eb, uy, lane);
+    dgrad_tc_put<4>(acc[1], eb, uy, lane);
+    dgrad_tc_put<5>(acc[2], eb, uy, lane);
+    dgrad_tc_put<6>(acc[3], eb, uy, lane);
+  } else {
+    dgrad_tc_put<7>(acc[0], eb, uy, lane);
+    dgrad_tc_put<0>(acc[1], eb, uy, lane);
+    dgrad_tc_put<1>(acc[2], eb, uy, lane);
+    dgrad_tc_put<2>(acc[3], eb, uy, lane);
+  }
+  __syncthreads();
+
+  // dx rows out of the tile, 8 columns a thread: act′(x) at the voxel in fp32
+  // (DACT), one rounding to bf16, 16-byte stores (VEC)
+  const long long plane = static_cast<long long>(H) * W;
+  const long long vol = static_cast<long long>(nv) * plane;
+  for (int u = tid; u < kDtCi * kDtVox / 8; u += kDtThreads) {
+    const int x8 = u % (kDtTx / 8), y = (u / (kDtTx / 8)) % kDtTy;
+    const int z = (u / (kDtTx / 8 * kDtTy)) % 2, ci = u / (kDtVox / 8);
+    const int c = cit * kDtCi + ci;
+    const int pv = iz0 + z - (qlo - 1), iy = ty * kDtTy + y, ix = tx * kDtTx + 8 * x8;
+    if (c >= cin || pv < 0 || pv >= nv || iy >= H || ix >= W) continue;
+    const float4* src = reinterpret_cast<const float4*>(eb + ci * kDtEld + (z * kDtTy + y) * kDtTx + 8 * x8);
+    const float4 lo = src[0], hi = src[1];
+    float val[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const long long pix = pv * plane + static_cast<long long>(iy) * W + ix;
+    if constexpr (DACT) {
+      const bf16* xs = dact_x + b * db + c * dc + pix;
+      if (VEC) {
+        const uint4 q4 = *reinterpret_cast<const uint4*>(xs);
+        const uint32_t w4[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          val[2 * j] *= dact_f32(dact, __uint_as_float(w4[j] << 16));
+          val[2 * j + 1] *= dact_f32(dact, __uint_as_float(w4[j] & 0xffff0000u));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (ix + e < W) val[e] *= dact_f32(dact, __bfloat162float(xs[e]));
+      }
+    }
+    bf16* dst = dx + (b * cin + c) * vol + pix;
+    if (VEC) {
+      uint32_t w4[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w4[j] = pack_bf16x2(val[2 * j], val[2 * j + 1]);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w4[0], w4[1], w4[2], w4[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (ix + e < W) dst[e] = __float2bfloat16_rn(val[e]);
+    }
+  }
+}
+
+template <bool DACT>
+int launch_dgrad_s2_tc(const void* g, const void* wtc, void* dx, long long batch, int cin,
+                       int cout, int nv, int qlo, int H, int W, int Do, int dact,
+                       const void* dact_x, long long db, long long dc, cudaStream_t stream) {
+  const int n_ci = (cin + kDtCi - 1) / kDtCi;
+  const int n_tx = (W + kDtTx - 1) / kDtTx, n_ty = (H + kDtTy - 1) / kDtTy;
+  const int iz_first = (qlo - 1) & ~1, iz_end = qlo - 1 + nv;  // even start; one past the last
+  const int n_tz = (iz_end - iz_first + 1) / 2;
+  const long long blocks = batch * n_tz * static_cast<long long>(n_ty) * n_tx * n_ci;
+  if (wtc == nullptr || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = W % 16 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                   (!DACT || (reinterpret_cast<uintptr_t>(dact_x) % 16 == 0 && db % 8 == 0 &&
+                              dc % 8 == 0));
+  auto kern = vec ? dgrad_s2_tc_kernel<DACT, true> : dgrad_s2_tc_kernel<DACT, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kDtSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<static_cast<unsigned>(blocks), kDtThreads, kDtSmem, stream>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(wtc), static_cast<bf16*>(dx), cin,
+      cout, nv, qlo, H, W, Do, n_ci, n_tx, n_ty, n_tz, dact, static_cast<const bf16*>(dact_x), db,
+      dc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance a call takes, an explicit rule (no fallback): bf16 with Cin ≥ 8
+// and Cout ≥ 8 → the tensor cores (dgrad_s2_tc_kernel); fp32 (tensor cores
+// would mean TF32, outside the fp32 tolerances) and the 1-channel stem's
+// data gradient (Cin = 1: bound by its bytes, M = 1 of 32 rows) → the CUDA-core
+// dgrad_s2_kernel. The wrapper reads it through hvc_conv3d_k3s2_dgrad_tc.
+bool dgrad_s2_uses_tc(bool bf16, int cin, int cout) { return bf16 && cin >= 8 && cout >= 8; }
+
 }  // namespace
 
 // Kernels E/K (stride 1) and G/K (stride 2): dW (Cout, Cin, 3, 3, 3) fp32
@@ -822,19 +1161,34 @@ extern "C" int hvc_conv3d_k3s2_wgrad(const void* x, const void* g, void* partial
 
 // Kernels F/J: dx (B, Cin, nv, H, W) contiguous, the gradient of the view's
 // planes, from g (B, Cout, Do, Ho, Wo); dact/dact_x/db/dc: act′ epilogue
-// (dact_x at dx's geometry with batch/channel strides db/dc).
-extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, void* dx, long long batch,
-                                     int cin, int cout, int nv, int H, int W, int Do, int qlo,
-                                     int dact, const void* dact_x, long long db, long long dc,
-                                     int dtype, void* stream) {
+// (dact_x at dx's geometry with batch/channel strides db/dc). wtc: the
+// weights in the tensor-core instance's layout (Cin tiles of 32 × Cout chunks
+// of 16 × 27 taps × 32 × 16, zero-padded), which that instance reads instead
+// of w; null for a call on the CUDA cores.
+extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* wtc, void* dx,
+                                     long long batch, int cin, int cout, int nv, int H, int W,
+                                     int Do, int qlo, int dact, const void* dact_x, long long db,
+                                     long long dc, int dtype, void* stream) {
   if (batch <= 0 || cin <= 0 || cout <= 0 || nv <= 0 || H <= 0 || W <= 0 || Do <= 0 ||
       dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dgrad_s2_uses_tc(dtype == 1, cin, cout))
+    return dact ? launch_dgrad_s2_tc<true>(g, wtc, dx, batch, cin, cout, nv, qlo, H, W, Do, dact,
+                                           dact_x, db, dc, s)
+                : launch_dgrad_s2_tc<false>(g, wtc, dx, batch, cin, cout, nv, qlo, H, W, Do, dact,
+                                            dact_x, db, dc, s);
 #define LAUNCH_DGRAD(T, A) \
   launch_dgrad_s2<T, A>(g, w, dx, batch, cin, cout, nv, qlo, H, W, Do, dact, dact_x, db, dc, s)
   if (dtype == 0) return dact ? LAUNCH_DGRAD(float, true) : LAUNCH_DGRAD(float, false);
   if (dtype == 1) return dact ? LAUNCH_DGRAD(__nv_bfloat16, true) : LAUNCH_DGRAD(__nv_bfloat16, false);
 #undef LAUNCH_DGRAD
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// 1 if hvc_conv3d_k3s2_dgrad runs a call with these channel counts (Cin of
+// dx, Cout of g) and dtype (0 = float32, 1 = bfloat16) on the tensor cores,
+// else 0: the rule of its dispatch, which the wrapper counts launches by.
+extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dtype) {
+  return dgrad_s2_uses_tc(dtype == 1, cin, cout) ? 1 : 0;
 }

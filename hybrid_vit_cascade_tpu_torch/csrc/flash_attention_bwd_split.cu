@@ -16,9 +16,11 @@
 //   concurrently and in no order, so here that sweep is a loop inside the
 //   block: L gives one block a tile of query rows and loops over every key
 //   tile; M gives one block a tile of key rows and loops over every query
-//   tile. Each dq, dk and dv element is accumulated by one thread in registers
-//   and stored once, with no atomics, so the result does not depend on launch
-//   order (kernel D's dq does: it adds per-key-tile shares with atomicAdd).
+//   tile. Each dq, dk and dv element is accumulated in registers by one
+//   thread (L; M on the CUDA cores) or one warp (M on the tensor cores) and
+//   stored once, with no atomics, so the result does not depend on launch
+//   order (kernel D's dq is summed across blocks: it adds the key tiles'
+//   shares into one accumulator in key-tile order).
 // - The lse is the natural-log one kernel A stores; no base-2/LN2 bookkeeping
 //   on the outputs, no 128-lane padding of d, no lse = 1e30 padded rows.
 //   Bounds checks mask the ragged kv tail (L) and the ragged query tail (M).
@@ -26,13 +28,25 @@
 // What bounds them on this card: at the main path's long shape (8 heads ×
 // 32,768 × 32,768, d = 32) L does 3 and M 4 products of N²·d per head and
 // both read a few MB, so both are compute-bound. Together they do 7 products
-// where kernel D does 5: s and dp are computed in both. This first version runs
-// them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the tensor
-// cores. Design against that bound, as in kernel D: each thread owns one row
-// (d = 32) or half of one (d = 64, the halves combined with one warp shuffle)
-// and holds its slices of the row's operands and accumulators in registers;
-// the other side's tile is staged once per block in shared memory as fp32 and
-// read as float4 broadcasts, four FMAs per shared-memory load.
+// where kernel D does 5: s and dp are computed in both.
+//
+// M has two instances, by an explicit rule (dkv_uses_tc, which the wrapper
+// reads through hvc_flash_attention_bwd_dkv_tc; no fallback): bf16 on the
+// tensor cores, fp32 on the CUDA cores (TF32 would leave the fp32
+// tolerances). On the tensor cores M is kernel D's body without its dq phase
+// (flash_bwd_tc_kernel<D, false>, flash_bwd_tc.cuh): work items of one head's
+// 128 keys, 16 a warp, k and v fragments and the dk and dv accumulators in
+// registers, query tiles of 64 double-buffered by cp.async, Sᵀ = K·qᵀ and
+// dPᵀ = V·doutᵀ, P and dS rounded to bf16 (as _bwd_dkv_kernel rounds them:
+// pb = p.astype, ds = (...).astype) and taken as A operands straight from the
+// accumulator fragments; one block per item. Its dk and dv are D's bits.
+//
+// L, and M in fp32, run as fp32 FMAs on the CUDA cores (67 TFLOP/s peak): each
+// thread owns one row (d = 32) or half of one (d = 64, the halves combined with
+// one warp shuffle) and holds its slices of the row's operands and
+// accumulators in registers; the other side's tile is staged once per block in
+// shared memory as fp32 and read as float4 broadcasts, four FMAs per
+// shared-memory load. These do not round p and ds to bf16.
 //
 // Layout: q, dout (BH, Nq, d), k and v (BH, Nk, d), contiguous, fp32 or bf16;
 // lse and delta (BH, Nq) fp32; dq (BH, Nq, d), dk and dv (BH, Nk, d) in the
@@ -41,10 +55,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kDh = 32;  // columns owned by one thread
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -248,6 +264,11 @@ bool sizes_ok(long long bh, long long nq, long long nk, long long rows_per_block
          (rows + rows_per_block - 1) / rows_per_block <= 2147483647LL;
 }
 
+// The instance of M a call takes, an explicit rule (no fallback): bf16 on the
+// tensor cores, fp32 on the CUDA cores. The wrapper reads it through
+// hvc_flash_attention_bwd_dkv_tc to count launches.
+bool dkv_uses_tc(int dtype) { return dtype == 1; }
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Returns a cudaError_t.
@@ -285,8 +306,20 @@ extern "C" int hvc_flash_attention_bwd_dkv(const void* q, const void* k, const v
                                            long long nq, long long nk, int head_dim, int dtype,
                                            float scale, void* stream) {
   if (!sizes_ok(bh, nq, nk, kKvRows, nk)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((nk + kKvRows - 1) / kKvRows), static_cast<unsigned>(bh));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dkv_uses_tc(dtype)) {
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    if (head_dim == 32)
+      return launch_bwd_tc<32, false>(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
+                                      bh, nq, nk, scale, s);
+    if (head_dim == 64)
+      return launch_bwd_tc<64, false>(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
+                                      bh, nq, nk, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((nk + kKvRows - 1) / kKvRows), static_cast<unsigned>(bh));
 #define HVC_DKV(T, D)                                                                         \
   flash_bwd_dkv_kernel<T, D><<<grid, DkvShape<D>::kThreads, 0, s>>>(                           \
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),            \
@@ -297,13 +330,13 @@ extern "C" int hvc_flash_attention_bwd_dkv(const void* q, const void* k, const v
     HVC_DKV(float, 32);
   } else if (dtype == 0 && head_dim == 64) {
     HVC_DKV(float, 64);
-  } else if (dtype == 1 && head_dim == 32) {
-    HVC_DKV(__nv_bfloat16, 32);
-  } else if (dtype == 1 && head_dim == 64) {
-    HVC_DKV(__nv_bfloat16, 64);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef HVC_DKV
   return static_cast<int>(cudaGetLastError());
 }
+
+// 1 if hvc_flash_attention_bwd_dkv runs a call of this dtype (0 = float32,
+// 1 = bfloat16) on the tensor cores, else 0: the rule of its dispatch.
+extern "C" int hvc_flash_attention_bwd_dkv_tc(int dtype) { return dkv_uses_tc(dtype) ? 1 : 0; }

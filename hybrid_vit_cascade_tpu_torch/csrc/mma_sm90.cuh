@@ -1,8 +1,8 @@
 // Tensor-core building blocks shared by the port's mma.sync kernels (the
-// conv probes in conv_probe.cu, the tensor-core conv and weight gradient in
+// conv probes in conv_probe.cu, the tensor-core conv and its gradients in
 // conv3d_k3.cu and conv3d_k3_bwd.cu, the tensor-core flash forward and
-// backward): cp.async copies, ldmatrix fragment loads and the m16n8k16
-// bf16 → fp32 product.
+// backward): cp.async copies, ldmatrix fragment loads, the m16n8k16
+// bf16 → fp32 product, bf16 packing and the swizzle of 32-byte channel rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +59,21 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int row0, int k0,
                                        int lane) {
   ldsm_x4(a, s + (row0 + (lane & 15)) * ld + k0 + ((lane >> 4) << 3));
+}
+
+// Two fp32 values rounded to bf16, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Element offset of 16-byte unit u (channels 8u … 8u + 7) of 32-byte bf16
+// row `row` (a patch position or a weight row, 16 channels): the two units
+// swap places in every other group of four rows, so the 8 consecutive rows
+// an ldmatrix reads hit 8 different bank groups wherever they start,
+// without padding.
+__device__ __forceinline__ int s2_swz(int row, int u) {
+  return row * 16 + ((u ^ ((row >> 2) & 1)) << 3);
 }
 
 // B fragments of two 16×8 tiles at (k0, n0) and (k0, n0 + 8) of a row-major

@@ -42,7 +42,9 @@ stride-1 data gradient (bf16, Cin ≥ 8 and Cout ≥ 8 as the kernel sees them:
 the C rule, which ``fwd_uses_tensor_cores`` states for the CPU) to
 ``conv3d_k3s{1,2}_tc`` when dense and ``conv3d_k3s{1,2}_chain_tc`` otherwise,
 a weight gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
-``conv3d_k3s{1,2}_wgrad_tc``.
+``conv3d_k3s{1,2}_wgrad_tc``, the stride-2 data gradient (bf16, Cin ≥ 8 and
+Cout ≥ 8: ``dgrad_s2_uses_tensor_cores``) to ``conv3d_k3s2_dgrad_tc`` when
+dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise.
 """
 
 from __future__ import annotations
@@ -67,12 +69,14 @@ _FWD_S2_ARGTYPES = _FWD_ARGTYPES[:2] + (_P,) + _FWD_ARGTYPES[2:]
 # hvc_conv3d_k3s{1,2}_wgrad(x, g, partial, out, B, cin, cout, nv, H, W, Do, qlo, xb, xc,
 #                           act, dtype, splits, stream)
 _WGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _I, _P)
-# hvc_conv3d_k3s2_dgrad(g, w, dx, B, cin, cout, nv, H, W, Do, qlo, dact, dact_x, db, dc,
-#                       dtype, stream)
-_DGRAD_ARGTYPES = (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _I, _P)
+# hvc_conv3d_k3s2_dgrad(g, w, wtc, dx, B, cin, cout, nv, H, W, Do, qlo, dact, dact_x, db,
+#                       dc, dtype, stream); wtc: s2_dgrad_tc_weights, or null
+_DGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _I, _P)
 # hvc_conv3d_k3_fwd_tc(stride, cin, cout, dtype): 1 if the forward takes the
-# tensor cores
+# tensor cores; hvc_conv3d_k3s2_dgrad_tc(cin, cout, dtype): 1 if the stride-2
+# data gradient does
 _FWD_TC_ARGTYPES = (_I, _I, _I, _I)
+_DGRAD_TC_ARGTYPES = (_I, _I, _I)
 # Output voxels (D, H, W) per forward block of each instance, by stride
 # (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
 # output channel (fwd_partial_blocks).
@@ -83,6 +87,11 @@ _FWD_TILE_CUDA_CORE = {1: (1, 8, 32), 2: (1, 8, 16)}
 # (s2_tc_weights).
 _S2_TC_CO = 64
 _S2_TC_CI = 16
+# The stride-2 data gradient's tensor-core instance: dx channels per block (M)
+# and output-gradient channels per chunk (one k16 step a tap), the blocks of
+# its weight layout (s2_dgrad_tc_weights).
+_DGRAD_TC_CI = 32
+_DGRAD_TC_CO = 16
 # The weight gradient's two instances (csrc/conv3d_k3_bwd.cu), each as
 # (output voxels per tile (D, H, W), output and input channels per block,
 # blocks per SM it aims for): the B·Do·Ho·Wo reduction is split into fp32
@@ -389,9 +398,34 @@ def wgrad_plan(out_shape, cout: int, stride: int, dtype: torch.dtype,
     return tc, split_tiles(n_tiles, max(1, per_sm * sms // groups))[0], n_tiles
 
 
+def s2_dgrad_tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights (Cout, Cin, 3, 3, 3) in the stride-2 data gradient's
+    tensor-core layout: (⌈Cin/32⌉, ⌈Cout/16⌉, 27 taps, 32 ci, 16 co),
+    zero-padded, so the weights of a block's Cin tile and Cout chunk are one
+    contiguous copy, [tap][ci][co] as the A operand's rows."""
+    cout, cin = w.shape[:2]
+    n_ci, n_co = -(-cin // _DGRAD_TC_CI), -(-cout // _DGRAD_TC_CO)
+    wp = w.new_zeros((n_co * _DGRAD_TC_CO, n_ci * _DGRAD_TC_CI, 27))
+    wp[:cout, :cin] = w.reshape(cout, cin, 27)
+    return wp.view(n_co, _DGRAD_TC_CO, n_ci, _DGRAD_TC_CI, 27).permute(2, 0, 4, 3, 1).contiguous()
+
+
+def dgrad_s2_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+    """Which instance of the stride-2 data gradient (F/J) a call takes, the
+    rule of ``dgrad_s2_uses_tc`` (csrc/conv3d_k3_bwd.cu), which the wrapper
+    reads through ``hvc_conv3d_k3s2_dgrad_tc``; Cin and Cout are the conv's
+    (dx's and g's channels): bf16 with Cin ≥ 8 and Cout ≥ 8 runs on the tensor
+    cores; fp32 (TF32 would leave the fp32 tolerances) and the 1-channel stem
+    (bound by its bytes) on the CUDA cores."""
+    return dtype == torch.bfloat16 and cin >= 8 and cout >= 8
+
+
 def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
-              dact: Optional[tuple] = None) -> torch.Tensor:
-    """Launch kernel F/J: dx (x_shape) of the stride-2 (chain) conv."""
+              dact: Optional[tuple] = None, dense: bool = False) -> torch.Tensor:
+    """Launch kernel F/J: dx (x_shape) of the stride-2 (chain) conv, on the
+    instance the C rule names; a tensor-core launch also counts in
+    ``conv3d_k3s2_dgrad_tc`` (``dense``) or ``conv3d_k3s2_chain_dgrad_tc`` and
+    reads the weights in ``s2_dgrad_tc_weights``'s layout."""
     _check_cuda(g)
     _check_view("g", g, g.dtype, g.device)
     B, cin, nv, H, W = x_shape
@@ -411,13 +445,19 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
         if tuple(dact_x.shape) != tuple(x_shape):
             raise ValueError(f"dact x {tuple(dact_x.shape)} must have x's shape {tuple(x_shape)}")
         dact_code, db, dc = _ACT_CODES[dact[0]], dact_x.stride(0), dact_x.stride(1)
+    tc = bool(_build.function("hvc_conv3d_k3s2_dgrad_tc", _DGRAD_TC_ARGTYPES)(
+        cin, cout, _DTYPE_CODES[g.dtype]))
+    wtc = s2_dgrad_tc_weights(w) if tc else None
     fn = _build.function("hvc_conv3d_k3s2_dgrad", _DGRAD_ARGTYPES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = fn(g.data_ptr(), w.data_ptr(), dx.data_ptr(), B, cin, cout, nv, H, W, d_out, qlo,
-                dact_code, None if dact_x is None else dact_x.data_ptr(), db, dc,
-                _DTYPE_CODES[g.dtype], stream)
+        rc = fn(g.data_ptr(), w.data_ptr(), None if wtc is None else wtc.data_ptr(),
+                dx.data_ptr(), B, cin, cout, nv, H, W, d_out, qlo, dact_code,
+                None if dact_x is None else dact_x.data_ptr(), db, dc, _DTYPE_CODES[g.dtype],
+                stream)
     _build.check(rc, "hvc_conv3d_k3s2_dgrad")
+    if tc:
+        LAUNCHES[_counter("_dgrad_tc", 2, dense)] += 1
     return dx
 
 
@@ -467,7 +507,7 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
     planes p + qlo − 2 + {0, 1, 2}, the vp=2 virtual padding of
     ``conv3d_k3.py:714``), on the instance ``fwd_uses_tensor_cores`` names
     for that call (its Cin is g's channels). Stride 2: kernel F (``dense``) /
-    J."""
+    J, on the instance ``dgrad_s2_uses_tensor_cores`` names."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if g.device.type == "cpu":
@@ -481,7 +521,7 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
         dx = _fwd("hvc_conv3d_k3s1_fwd", 1, g, wt, None, 2 - qlo, x.shape[2], dact=dact,
                   dense=dense)
     else:
-        dx = _dgrad_s2(g, w, tuple(x.shape), qlo, dact=dact)
+        dx = _dgrad_s2(g, w, tuple(x.shape), qlo, dact=dact, dense=dense)
     LAUNCHES[_counter("_dgrad", stride, dense)] += 1
     return dx
 
@@ -505,9 +545,11 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # one per kernel letter; conv3d_k3s1_tc and conv3d_k3s1_chain_tc, the
 # launches of B and H (forward and data gradient) that took the tensor-core
 # instance; conv3d_k3s2_tc and conv3d_k3s2_chain_tc, those of C and I;
-# conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain).
+# conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain);
+# conv3d_k3s2_dgrad_tc and conv3d_k3s2_chain_dgrad_tc, those of F and J.
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
             "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
             "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,
-            "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0}
+            "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0,
+            "conv3d_k3s2_dgrad_tc": 0, "conv3d_k3s2_chain_dgrad_tc": 0}

@@ -16,10 +16,13 @@ the CUDA kernels for tensors on a CUDA device and run ``flash_attention_plain``
 they raise. They never fall back from the kernel to the plain version. Each
 kernel counts its launches in the ``.launches`` of its wrapper (L in
 ``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s). The
-forward and the fused backward have two instances each, by an explicit rule
-(``fwd_uses_tensor_cores``, ``bwd_uses_tensor_cores``): bf16 on the tensor
-cores, whose launches also count in ``flash_attention_fwd.tc_launches`` and
-``flash_attention_bwd.tc_launches``, and fp32 on the CUDA cores.
+forward, the fused backward and M have two instances each, by an explicit
+rule (``fwd_uses_tensor_cores``, ``bwd_uses_tensor_cores``,
+``bwd_dkv_uses_tensor_cores``): bf16 on the tensor cores, whose launches
+also count in ``flash_attention_fwd.tc_launches``,
+``flash_attention_bwd.tc_launches`` and ``flash_attention_bwd_dkv.tc_launches``,
+and fp32 on the CUDA cores. M's tensor-core instance is D's body without its
+dq phase.
 """
 
 from __future__ import annotations
@@ -303,11 +306,26 @@ def _bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
     return dq
 
 
+def bwd_dkv_uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Which instance of kernel M a call takes, the rule of
+    ``hvc_flash_attention_bwd_dkv`` (``dkv_uses_tc`` in C, which the wrapper
+    reads through ``hvc_flash_attention_bwd_dkv_tc``): bf16 on the tensor
+    cores (D's body without its dq phase; p and ds rounded to bf16 into their
+    products, as the TPU kernel does); fp32 on the CUDA cores (TF32 would leave
+    the fp32 tolerances)."""
+    return dtype == torch.bfloat16
+
+
 def _bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    tc = bool(_build.function("hvc_flash_attention_bwd_dkv_tc", (ctypes.c_int,))(
+        _DTYPE_CODES[q.dtype]))
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the bf16 dk/dv kernel needs q, k, v and dout 16-byte aligned")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_split("hvc_flash_attention_bwd_dkv", _DKV_ARGTYPES, q, k, v, dout, lse, delta,
                   (dk, dv), scale)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.tc_launches += tc
     return dk, dv
 
 
@@ -329,8 +347,10 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
                             lse: torch.Tensor, dout: torch.Tensor,
                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel M alone: (dk, dv) of ``flash_attention_fwd``, in q's dtype;
-    arguments as ``flash_attention_bwd``. One block per 64 keys sweeps every
-    query, so each dk and dv row is written once."""
+    arguments as ``flash_attention_bwd``. One block per key tile (``_TC_KEYS``
+    keys on the tensor cores, 64 on the CUDA cores, by
+    ``bwd_dkv_uses_tensor_cores``) sweeps every query, so each dk and dv row
+    is written once."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[1:]
     _check_bwd(q, k, v, out, lse, dout)
@@ -338,6 +358,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
 
 
 def flash_attention_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

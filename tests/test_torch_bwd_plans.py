@@ -30,9 +30,19 @@ plain versions and the JAX package.
   stride 2) and split order, replayed in torch, against
   ``conv3d_k3_wgrad_plain`` and against the JAX chain conv's weight gradient
   (``conv3d_k3s1_chain`` / ``conv3d_k3s2_chain`` VJP in interpret mode).
+- The tensor-core stride-2 data gradient (F/J): its rule
+  (``dgrad_s2_uses_tensor_cores``), its weight layout
+  (``s2_dgrad_tc_weights``), its cover of the view's planes by blocks of two
+  planes paired by their padding-1 index, and a torch replay of its parity
+  classes, staging and epilogue (the window, act′ for gelu and silu) against
+  ``conv3d_k3_dgrad_plain`` and the JAX ``conv3d_k3s2_chain`` VJP.
+- The tensor-core dk/dv kernel (M): its rule (``bwd_dkv_uses_tensor_cores``)
+  and the dk/dv half of the tensor-core D replay against
+  ``flash_attention_bwd_plain`` and the JAX split backward ``_bwd_pallas``.
 """
 
 import importlib
+import itertools
 import math
 import re
 
@@ -184,8 +194,8 @@ D_TC_SHAPES = [(32, 4096, 4096), (32, 4096, 256), (16, 4096, 4096), (16, 4096, 1
                (5, 64, 129)]
 
 
-# The tensor-core D's hand-out of work items, as csrc/flash_attention_bwd.cu
-# states it: item i (from one atomic counter) is key tile i / BH of head
+# The tensor-core D's hand-out of work items, as csrc/flash_bwd_tc.cuh (the
+# body D and M share) states it: item i (from one atomic counter) is key tile i / BH of head
 # i % BH, and a (head, query tile)'s counter is waited on until it reads kt.
 _D_TC_HANDOUT = ("const long long n_items = static_cast<long long>(bhs) * "
                  "((nk + kTbKeys - 1) / kTbKeys);",
@@ -205,7 +215,7 @@ def test_flash_bwd_tc_schedule_is_the_kernels():
     """The schedule the tests replay (``_d_tc_items``) is the one the kernel
     source states: its hand-out lines and its tile constants (8 warps × 16
     keys, query tiles of 64) equal the port's ``_TC_KEYS`` / ``_TC_ROWS``."""
-    src = (_build.CSRC_DIR / "flash_attention_bwd.cu").read_text()
+    src = (_build.CSRC_DIR / "flash_bwd_tc.cuh").read_text()
     for line in _D_TC_HANDOUT:
         assert src.count(line) == 1, line
     warps = int(re.search(r"constexpr int kTbWarps = (\d+);", src).group(1))
@@ -246,14 +256,16 @@ def test_flash_bwd_tc_scratch(bh, nq, nk):
         assert acc * 4 == 33_554_432 and groups * acc * 4 == 2_147_483_648
 
 
-def _d_tc_emulated(q, k, v, out, lse, dout, scale):
+def _d_tc_emulated(q, k, v, out, lse, dout, scale, dq=True):
     """(dq, dk, dv) as the tensor-core D computes them from bf16 inputs: per
     work item (``_d_tc_items``: 128 keys of one head) and query tile of 64,
     Sᵀ = K·qᵀ and dPᵀ = V·doutᵀ in fp32, p = exp2(s·scale·log2e −
     lse·log2e), ds = p·(dp − delta); dv += bf16(p)·dout, dk += bf16(ds)·q;
     the tile's dq share bf16(ds)ᵀ·K written (first key tile) or added (the
     rest, in key-tile order) into one fp32 accumulator; dq = bf16(acc·scale),
-    dk = bf16(dk·scale), dv = bf16(dv)."""
+    dk = bf16(dk·scale), dv = bf16(dv). Without ``dq``: (dk, dv) as the
+    tensor-core M computes them, the same body without the dq phase (each
+    item's dk and dv rows its own, so the order of the items is free)."""
     bh, nq, d = q.shape
     nk = k.shape[1]
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
@@ -271,13 +283,16 @@ def _d_tc_emulated(q, k, v, out, lse, dout, scale):
             pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
             dv[h, k0:k0 + fa._TC_KEYS] += pb @ ds_
             dk[h, k0:k0 + fa._TC_KEYS] += dsb @ qs
+            if not dq:
+                continue
             share = dsb.T @ ks
             if kt == 0:
                 acc[h, r0:r0 + fa._TC_ROWS] = share
             else:
                 acc[h, r0:r0 + fa._TC_ROWS] += share
     bf = torch.bfloat16
-    return (acc * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+    grads = (dk * scale).to(bf), dv.to(bf)
+    return ((acc * scale).to(bf), *grads) if dq else grads
 
 
 def _bf16_inputs(bh, nq, nk, d, seed):
@@ -329,6 +344,61 @@ def test_flash_bwd_tc_emulated_matches_jax(monkeypatch, bh, nq, nk, d):
     monkeypatch.setattr(jfa, "FUSED_BWD", True)  # the JAX default: _bwd_pallas_fused
     want = jax.grad(loss, argnums=(0, 1, 2))(
         *(jnp.asarray(t.float().numpy()[None], jnp.bfloat16) for t in (q, k, v)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32))[0],
+                                   rtol=3e-2, atol=3e-2)
+
+
+# ------------------------------------------ M on the tensor cores ---
+
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, True), (torch.float32, False)])
+def test_flash_bwd_dkv_dispatch_rule(dtype, tc):
+    """bf16 takes the tensor-core M (``dkv_uses_tc`` in C), fp32 the CUDA
+    cores, as D."""
+    assert fa.bwd_dkv_uses_tensor_cores(dtype) is tc
+    assert fa.bwd_dkv_uses_tensor_cores(dtype) is fa.bwd_uses_tensor_cores(dtype)
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", D_TC_EMULATED)
+def test_flash_bwd_dkv_tc_emulated_matches_plain(bh, nq, nk, d):
+    """The tensor-core M's dk and dv within FLASH_OUT_TOL (chip_smoke.py:
+    1e-2·max|want| + 2e-2·|want|) of the plain fp32 backward: p and ds are
+    rounded to bf16 before their products (2^-9 relative each), the outputs
+    to bf16; and equal to the replay of D's dk and dv, whose body M is."""
+    q, k, v, dout = _bf16_inputs(bh, nq, nk, d, 43)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = _d_tc_emulated(q, k, v, out, lse, dout, scale, dq=False)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[1:]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        wf = w.float()
+        err = (g.float() - wf).abs()
+        assert bool((err <= 1e-2 * wf.abs().max() + 2e-2 * wf.abs()).all()), float(err.max())
+    fused = _d_tc_emulated(q, k, v, out, lse, dout, scale)[1:]
+    assert all(torch.equal(a, b) for a, b in zip(got, fused))
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", D_TC_EMULATED[:2])
+def test_flash_bwd_dkv_tc_emulated_matches_jax(monkeypatch, bh, nq, nk, d):
+    """Against dk and dv of the JAX flash attention in bf16 through its split
+    backward ``_bwd_pallas`` (``FUSED_BWD`` off: ``_bwd_dkv_kernel``, interpret
+    mode), which rounds p and ds to bf16 as the replay does; ROADMAP's flash
+    bf16 tolerance, 3e-2 absolute and relative (JAX's bf16 pre-scale of q
+    moves every score by up to 2^-8 relative)."""
+    q, k, v, dout = _bf16_inputs(bh, nq, nk, d, 44)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = _d_tc_emulated(q, k, v, out, lse, dout, scale, dq=False)
+
+    def loss(k_, v_):  # (B, H, N, d) with B = 1, H = BH
+        q_ = jnp.asarray(q.float().numpy()[None], jnp.bfloat16)
+        o = jfa.flash_attention(q_, k_, v_, scale, block_q=32, block_kv=32)
+        return (o.astype(jnp.float32) * jnp.asarray(dout.float().numpy()[None])).sum()
+
+    monkeypatch.setattr(jfa, "FUSED_BWD", False)  # HVC_FLASH_FUSED_BWD=0: _bwd_pallas
+    want = jax.grad(loss, argnums=(0, 1))(
+        *(jnp.asarray(t.float().numpy()[None], jnp.bfloat16) for t in (k, v)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32))[0],
                                    rtol=3e-2, atol=3e-2)
@@ -448,11 +518,192 @@ def test_wgrad_phase_switches_match_the_kernel():
     assert all(new in src for _, new in wgrad_phases.SWITCHES.values())
 
 
-@pytest.mark.parametrize("script", ["flash_bwd_phases", "conv_s2_weights"])
+@pytest.mark.parametrize("script", ["flash_bwd_phases", "conv_s2_weights", "dgrad_s2_phases"])
 def test_switches_match_the_kernel(script):
-    """scripts/flash_bwd_phases.py (D's phases switched off) and
-    scripts/conv_s2_weights.py (C/I's weights staged from w) edit a copy of
+    """scripts/flash_bwd_phases.py (D's phases switched off, M's grid),
+    scripts/conv_s2_weights.py (C/I's weights staged from w) and
+    scripts/dgrad_s2_phases.py (F/J's phases switched off) edit a copy of
     their kernel's source: every switch still finds its text."""
     phases = importlib.import_module(f"hybrid_vit_cascade_tpu_torch.scripts.{script}")
     src = phases.ablated_source()
     assert all(new in src for _, new in phases.SWITCHES.values())
+
+
+# ------------------------------------------ F/J on the tensor cores ---
+
+@pytest.mark.parametrize("dtype,cin,cout,tc", [
+    (torch.bfloat16, 32, 64, True), (torch.bfloat16, 8, 8, True), (torch.bfloat16, 24, 40, True),
+    (torch.bfloat16, 7, 64, False), (torch.bfloat16, 64, 7, False), (torch.bfloat16, 1, 64, False),
+    (torch.float32, 32, 64, False), (torch.float32, 1, 64, False)])
+def test_dgrad_s2_dispatch_rule(dtype, cin, cout, tc):
+    """bf16 with Cin ≥ 8 and Cout ≥ 8 takes the tensor-core F/J
+    (``dgrad_s2_uses_tc`` in csrc/conv3d_k3_bwd.cu); fp32 and the 1-channel
+    stem the CUDA cores."""
+    assert ck.dgrad_s2_uses_tensor_cores(dtype, cin, cout) is tc
+
+
+def test_s2_dgrad_tc_weights_layout():
+    """``s2_dgrad_tc_weights``: element (co, ci, tap) of the weights at
+    [ci // 32, co // 16, tap, ci % 32, co % 16], zeros in the padding."""
+    rng = np.random.default_rng(26)
+    w = torch.from_numpy(rng.standard_normal((20, 40, 3, 3, 3)).astype(np.float32))
+    wt = ck.s2_dgrad_tc_weights(w)
+    assert tuple(wt.shape) == (2, 2, 27, 32, 16) and wt.is_contiguous()
+    flat = w.reshape(20, 40, 27)
+    for co, ci, tap in itertools.product((0, 15, 16, 19), (0, 31, 32, 39), (0, 13, 26)):
+        assert wt[ci // 32, co // 16, tap, ci % 32, co % 16] == flat[co, ci, tap]
+    assert wt[1, :, :, 8:].abs().sum() == 0 and wt[:, 1, :, :, 4:].abs().sum() == 0
+
+
+# The tensor-core F/J's cover of the view's planes, as csrc/conv3d_k3_bwd.cu
+# states it: blocks of two planes iz0, iz0 + 1 in padding-1 terms (iz = view
+# plane + qlo − 1), iz0 even, from the even iz at or before the first plane.
+_DGRAD_TC_TILING = ("const int iz0 = ((qlo - 1) & ~1) + 2 * static_cast<int>(rest % n_tz);",
+                    "const int iz_first = (qlo - 1) & ~1, iz_end = qlo - 1 + nv;",
+                    "const int n_tz = (iz_end - iz_first + 1) / 2;",
+                    "const int pv = iz0 + z - (qlo - 1)")
+
+
+def _dgrad_tc_plane_pairs(qlo, nv):
+    """(iz0, view planes of z = 0, 1) of each plane pair of the tensor-core
+    F/J, None where the plane lies outside the view (not written)."""
+    iz_first, iz_end = (qlo - 1) & ~1, qlo - 1 + nv
+    out = []
+    for tz in range((iz_end - iz_first + 1) // 2):
+        iz0 = iz_first + 2 * tz
+        pvs = [iz0 + z - (qlo - 1) for z in (0, 1)]
+        out.append((iz0, [pv if 0 <= pv < nv else None for pv in pvs]))
+    return out
+
+
+def test_dgrad_tc_tiling_is_the_kernels():
+    src = (_build.CSRC_DIR / "conv3d_k3_bwd.cu").read_text()
+    for line in _DGRAD_TC_TILING:
+        assert src.count(line) == 1, line
+    assert "constexpr int kDtTy = 8, kDtTx = 32;" in src
+    assert "constexpr int kDtCi = 32;" in src and "constexpr int kDtCo = 16;" in src
+    assert (ck._DGRAD_TC_CI, ck._DGRAD_TC_CO) == (32, 16)
+
+
+# (qlo, planes of x): the chain shapes of chip_smoke.py (CHAIN_SHAPES_S2,
+# CHAIN_RAGGED_S2: qlo −1, 0, 1, 2) and odd counts
+@pytest.mark.parametrize("qlo,nv", [(0, 33), (1, 32), (1, 256), (2, 4), (0, 6), (-1, 5), (2, 7),
+                                    (-1, 1), (1, 1), (0, 2)])
+def test_dgrad_tc_plane_pairs_cover_the_view(qlo, nv):
+    """Every view plane is written by exactly one block, in the z slot its
+    padding-1 parity names (even iz in slot 0), and no block writes outside
+    the view."""
+    pairs = _dgrad_tc_plane_pairs(qlo, nv)
+    written = [pv for _, pvs in pairs for pv in pvs if pv is not None]
+    assert sorted(written) == list(range(nv))
+    for iz0, pvs in pairs:
+        assert iz0 % 2 == 0
+        for z, pv in enumerate(pvs):
+            if pv is not None:
+                assert (pv + qlo - 1) % 2 == z
+    assert all(any(pv is not None for pv in pvs) for _, pvs in pairs)
+
+
+def _dgrad_tc_emulated(g, w, x, qlo, act=None):
+    """dx of the stride-2 chain conv as the tensor-core F/J computes it, fp32
+    products of the operands in g's dtype: per block of two planes
+    (``_dgrad_tc_plane_pairs``) × 8 rows × 32 columns and Cin tile of 32,
+    the g patch (planes iz0 / 2 + {0, 1}, 5 rows from row 4·ty, 17 columns
+    from 16·tx; zero outside g and Cout) and per parity class (pz, py, px) the
+    products over its taps with the weights from ``s2_dgrad_tc_weights`` (a
+    voxel at even index takes d = 1 from g index u, one at odd index d = 0
+    from u + 1 and d = 2 from u), Cout chunk by chunk; the classes interleave
+    into the block's fp32 tile, act′(x) multiplies it, one rounding to g's
+    dtype, view planes only. Also returns how often each dx element was
+    written."""
+    B, cin, nv, H, W = x.shape
+    cout, do, ho, wo = g.shape[1:]
+    wt = ck.s2_dgrad_tc_weights(w).float()
+    n_ci, n_co = wt.shape[:2]
+    gp = torch.zeros((B, n_co * 16, do + nv + 4, ho + 4, wo + 16))  # g, zero-padded: plane −1 …
+    gp[:, :cout, 1:do + 1, :ho, :wo] = g.float()
+    dx = torch.zeros((B, cin, nv, H, W), dtype=g.dtype)
+    writes = torch.zeros((B, cin, nv, H, W), dtype=torch.int32)
+    for b, (iz0, pvs), ty, tx, cit in itertools.product(
+            range(B), _dgrad_tc_plane_pairs(qlo, nv), range(-(-H // 8)), range(-(-W // 32)),
+            range(n_ci)):
+        oz0, oy0, ox0 = iz0 // 2, 4 * ty, 16 * tx
+        patch = gp[b, :, oz0 + 1:oz0 + 3, oy0:oy0 + 5, ox0:ox0 + 17]  # (co, 2, 5, 17)
+        tile = torch.zeros((32, 2, 8, 32))
+        for pz, py, px in itertools.product((0, 1), repeat=3):
+            acc = torch.zeros((32, 4, 16))
+            for dz, dy, dx_ in itertools.product(*((0, 2) if p else (1,) for p in (pz, py, px))):
+                tap = dz * 9 + dy * 3 + dx_
+                rz, ry, rx = int(dz == 0), int(dy == 0), int(dx_ == 0)
+                for ch in range(n_co):
+                    gt = patch[16 * ch:16 * ch + 16, rz, ry:ry + 4, rx:rx + 16]
+                    acc += torch.einsum("ic,cyx->iyx", wt[cit, ch, tap], gt)
+            tile[:, pz, py::2, px::2] = acc
+        ci0, iy0, ix0 = 32 * cit, 8 * ty, 32 * tx
+        nc, nh, nw = min(32, cin - ci0), min(8, H - iy0), min(32, W - ix0)
+        for z, pv in enumerate(pvs):
+            if pv is None:
+                continue
+            val = tile[:nc, z, :nh, :nw]
+            if act is not None:
+                val = val * ck.dact_plain(act, x[b, ci0:ci0 + nc, pv, iy0:iy0 + nh, ix0:ix0 + nw])
+            dx[b, ci0:ci0 + nc, pv, iy0:iy0 + nh, ix0:ix0 + nw] = val.to(g.dtype)
+            writes[b, ci0:ci0 + nc, pv, iy0:iy0 + nh, ix0:ix0 + nw] += 1
+    return dx, writes
+
+
+# (B, Cin, Cout, planes of x, H, W, slab plane of x's first plane, output
+# planes, act): chip_smoke.py CHAIN_RAGGED_S2 with the act′ epilogue on, and
+# ragged ones for the tiles: Cin over a 32-channel tile, Cout not a multiple
+# of 16, H and W not multiples of 8 and 32 (odd), x beginning before the slab
+DGRAD_TC_EMULATED = [(2, 3, 5, 4, 6, 10, 2, 3, "silu"), (1, 8, 40, 6, 5, 12, 0, 2, "gelu"),
+                     (1, 4, 8, 5, 6, 6, -1, 2, None), (1, 40, 20, 7, 9, 35, 1, 4, "gelu"),
+                     (1, 12, 17, 5, 17, 33, -1, 3, "silu"), (2, 9, 16, 3, 8, 32, 1, 2, None)]
+
+
+@pytest.mark.parametrize("case", DGRAD_TC_EMULATED)
+def test_dgrad_tc_emulated_matches_plain(case):
+    """The replay writes every dx element once and agrees with
+    ``conv3d_k3_dgrad_plain`` in fp32 (both sum the same products in another
+    order: 1e-4)."""
+    b, cin, cout, nv, h, w_, qlo, d_out, act = case
+    rng = np.random.default_rng(27)
+    x = torch.from_numpy(rng.standard_normal((b, cin, nv, h, w_)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3)) / np.sqrt(27 * cin))
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1)).astype(np.float32))
+    got, writes = _dgrad_tc_emulated(g, w, x, qlo, act)
+    assert bool((writes == 1).all())
+    want = ck.conv3d_k3_dgrad_plain(g, w, x, 2, qlo, act)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_dgrad_tc_emulated_matches_jax(act):
+    """Against dx of the JAX stride-2 chain conv (``conv3d_k3s2_chain`` VJP,
+    ``_dgrad_s2`` in interpret mode, fp32) at the smallest width its shape
+    gate takes (W % 256 = 0), x windowed at the front (view planes 1-6 of 7:
+    the first block's even plane lies outside the view), Cin and Cout ragged
+    for the tiles, with and without the fused prologue's act′; the stride-2
+    VJP's tolerance (tests/test_pallas_conv_s2.py: 1e-4 relative, 1e-3
+    absolute)."""
+    B, cin, cout, H, W, dext = 1, 12, 20, 4, 256, 7
+    vlo, vhi = 1, dext
+    d_out = (dext - 1) // 2
+    rng = np.random.default_rng(28)
+    x = rng.standard_normal((B, cin, dext, H, W)).astype(np.float32)
+    w = (rng.uniform(-1, 1, (cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)
+    bias = np.zeros(cout, np.float32)
+    ho, wo = H // 2, W // 2
+    g = rng.standard_normal((B, cout, d_out * ho * wo)).astype(np.float32)
+    meta = (dext, H, W, False) + (() if act is None else (act,))
+    _, vjp = jax.vjp(lambda xv: jax_chain_s2(meta, xv, jnp.asarray([vlo, vhi], jnp.int32),
+                                             jnp.asarray(w), jnp.asarray(bias)),
+                     jnp.asarray(x.reshape(B, cin, -1)))
+    want = np.asarray(vjp(jnp.asarray(g))[0]).reshape(B, cin, dext, H, W)[:, :, vlo:vhi]
+    xt = torch.from_numpy(x).narrow(2, vlo, vhi - vlo)
+    got, writes = _dgrad_tc_emulated(torch.from_numpy(g).reshape(B, cout, d_out, ho, wo),
+                                     torch.from_numpy(w), xt, vlo, act)
+    assert bool((writes == 1).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)

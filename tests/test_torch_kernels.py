@@ -22,10 +22,12 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_plain,
     conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
+    dgrad_s2_uses_tensor_cores,
     fwd_uses_tensor_cores,
     wgrad_uses_tensor_cores,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
+    bwd_dkv_uses_tensor_cores,
     bwd_uses_tensor_cores,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -642,6 +644,113 @@ def test_conv_s2_tensor_cores_ragged(dev, case):
     before = LAUNCHES["conv3d_k3s2_chain_tc"]
     conv3d_k3(xf, wf, bias, 2, qlo, d_out, sums, act)
     assert LAUNCHES["conv3d_k3s2_chain_tc"] == before
+
+
+# The stride-2 data gradient F/J on the tensor cores, at the main path's
+# shapes that take them (chip_smoke.py _S2_GRAD_SHAPES with Cin ≥ 8 and
+# CHAIN_SHAPES_S2, as the chain call: (B, Cin, Cout, planes of x, H, W, slab
+# plane of x's first plane, output planes, act)) and ragged ones: Cin over a
+# 32-channel tile, Cout not a multiple of 16, odd H and W, W not a multiple
+# of 16 (element-by-element staging), x beginning before the slab (qlo −1 to
+# 2), act′ gelu and silu.
+_DGRAD_S2_MAIN_DENSE = [(8, 64, 128, 32, 32, 32, 1, 16, None), (2, 32, 64, 128, 128, 128, 1, 64, None),
+                        (2, 64, 128, 64, 64, 64, 1, 32, None), (2, 128, 256, 32, 32, 32, 1, 16, None),
+                        (1, 32, 64, _R, _R, _R, 1, 128, None), (1, 64, 128, 128, 128, 128, 1, 64, None),
+                        (1, 128, 256, 64, 64, 64, 1, 32, None)]
+_DGRAD_S2_MAIN_CHAIN = [(1, 32, 64, 33, _R, _R, 0, 16, None), (1, 32, 64, 32, _R, _R, 1, 16, None),
+                        (1, 32, 64, 33, _R, _R, 0, 16, "gelu"), (2, 32, 64, 33, _R, _R, 0, 16, None),
+                        (1, 32, 64, _R, _R, _R, 1, 128, None)]
+_DGRAD_S2_RAGGED = [(2, 8, 40, 4, 6, 10, 2, 3, "silu"), (1, 8, 40, 6, 5, 12, 0, 2, "gelu"),
+                    (1, 24, 8, 5, 6, 6, -1, 2, None), (1, 40, 72, 7, 9, 35, 1, 4, "silu"),
+                    (2, 16, 64, 9, 11, 40, 2, 4, "gelu"), (1, 33, 17, 7, 16, 32, -1, 4, "gelu"),
+                    (1, 8, 8, 3, 16, 16, 1, 2, None)]
+
+
+def _dgrad_s2_check(shape, dev, dense):
+    """F/J in bf16 against its plain version within chip_smoke.py's gradient
+    tolerance (TOL with its absolute part scaled by max(1, max|want|)),
+    counted on its tensor-core instance, two runs bitwise equal; the same
+    call in fp32 stays on the CUDA cores."""
+    b, cin, cout, nv, h, w_, qlo, d_out, act = shape
+    x = _randn((b, cin, nv + 2, h, w_), torch.bfloat16, dev, 70).narrow(2, 1, nv)
+    if dense:
+        x = x.contiguous()
+    w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 71) / (27 * cin) ** 0.5).bfloat16()
+    g = _randn((b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1), torch.bfloat16, dev, 72)
+    tc = "conv3d_k3s2_dgrad_tc" if dense else "conv3d_k3s2_chain_dgrad_tc"
+    before = LAUNCHES[tc]
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo, act, dense=dense)
+    assert LAUNCHES[tc] == before + 1
+    assert dgrad_s2_uses_tensor_cores(torch.bfloat16, cin, cout)
+    want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo, act)
+    _close(dx, want, torch.bfloat16, floor=0.0,
+           tol={torch.bfloat16: (2e-2 * max(1.0, float(want.float().abs().max())), 2e-2)})
+    assert torch.equal(conv3d_k3_dgrad(g, w, x, 2, qlo, act, dense=dense), dx)
+    if b * cin * nv * h * w_ <= 2**24:
+        conv3d_k3_dgrad(g.float(), w.float(), x.float(), 2, qlo, act, dense=dense)
+        assert LAUNCHES[tc] == before + 2
+
+
+@pytest.mark.parametrize("shape", _DGRAD_S2_MAIN_DENSE)
+def test_dgrad_s2_tensor_cores_main_path_dense(dev, shape):
+    """Kernel F at the main path's dense shapes with Cin ≥ 8, bf16."""
+    _dgrad_s2_check(shape, dev, dense=True)
+
+
+@pytest.mark.parametrize("shape", _DGRAD_S2_MAIN_CHAIN + _DGRAD_S2_RAGGED)
+def test_dgrad_s2_tensor_cores_chain(dev, shape):
+    """Kernel J at the streamed chains' shapes and at ragged ones."""
+    _dgrad_s2_check(shape, dev, dense=False)
+
+
+def test_dgrad_s2_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3s2_dgrad_tc``, which the
+    wrapper counts tensor-core launches by) is ``dgrad_s2_uses_tensor_cores``
+    at every dtype and channel count around its edges."""
+    rule = _build.function("hvc_conv3d_k3s2_dgrad_tc", (ctypes.c_int,) * 3)
+    for (dtype, code), cin, cout in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 4, 7, 8, 9, 64, 256),
+            (1, 4, 7, 8, 9, 64, 256)):
+        assert bool(rule(cin, cout, code)) == dgrad_s2_uses_tensor_cores(dtype, cin, cout)
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", FLASH_TRAIN + FLASH_RAGGED)
+def test_flash_bwd_dkv_tensor_cores(dev, bh, nq, nk, d):
+    """The tensor-core M (bf16) at the training shapes and ragged ones: dk and
+    dv within FLASH_OUT_TOL of the plain backward (floored by the rounding of
+    ds, as D's test), counted in flash_attention_bwd_dkv.tc_launches, two runs
+    bitwise equal and bitwise D's dk and dv (the same body without the dq
+    phase); the fp32 call stays on the CUDA cores."""
+    q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (8, 11))
+    k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (9, 10))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    before = (flash_attention_bwd_dkv.launches, flash_attention_bwd_dkv.tc_launches)
+    got = flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale)
+    assert (flash_attention_bwd_dkv.launches, flash_attention_bwd_dkv.tc_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[1:]
+    floor = _ds_rounding(q, k, v, dout, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _close(g, w, torch.bfloat16, FLASH_OUT_TOL, floor)
+    again = flash_attention_bwd_dkv(q, k, v, out, lse, dout, scale)
+    fused = flash_attention_bwd(q, k, v, out, lse, dout, scale)[1:]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, fused))
+    if nq * nk <= 4096 * 4096:
+        f32 = [t.float() for t in (q, k, v, out)]
+        flash_attention_bwd_dkv(*f32, lse, dout.float(), scale)
+        assert flash_attention_bwd_dkv.tc_launches == before[1] + 2
+
+
+def test_flash_bwd_dkv_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_flash_attention_bwd_dkv_tc``) is
+    ``bwd_dkv_uses_tensor_cores``."""
+    rule = _build.function("hvc_flash_attention_bwd_dkv_tc", (ctypes.c_int,))
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert bool(rule(code)) == bwd_dkv_uses_tensor_cores(dtype)
 
 
 # Kernel family N, the conv probes: (weights, data) of each wrapper at N
