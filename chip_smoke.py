@@ -54,12 +54,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    slab) take the tensor-core instance
    of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
    one; the bf16 64→32 conv and its data gradient (dense and one training
-   slab) take the tensor-core B/H and every bf16 flash forward of the
-   training shapes the tensor-core A, D and M, the bf16 32→64 stride-2 conv
-   and its data gradient (dense and one training slab) the tensor-core C/I
-   and F/J, their fp32 calls, the 1-channel conv (and its one-output-channel
-   data gradient) and the 1→64 stride-2 stem (and its data gradient) the
-   CUDA-core ones.
+   slab) take the tensor-core B/H and every bf16 flash forward and backward
+   of the training shapes the tensor-core A, D, M and L, the bf16 32→64
+   stride-2 conv and its data gradient (dense and one training slab) the
+   tensor-core C/I and F/J, the bf16 one-output-channel data gradient of the
+   1-channel convs (dense 64→1 and 32→1, one training slab) its own
+   tensor-core instance; their fp32 calls, the 1-channel conv itself and the
+   1→64 stride-2 stem (and its data gradient) the CUDA-core ones. The
+   one-output-channel chain data gradient has its own row in the kernels
+   line (conv3d_k3s1_chain_c1_dgrad: 64→1 over the whole volume, 32→1
+   likewise and the two training slabs, each with its conv3d_input time).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -91,8 +95,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (8 train, 1 val), no visualization and ``save_dir`` under ``build/``,
    with the split flash backward selected (``ops.attention.FUSED_BWD =
    False``, what ``HVC_FLASH_FUSED_BWD=0`` selects). Checks: D never
-   launched, L and M launched in every stage, every bf16 M and F/J call
-   (Cin, Cout ≥ 8) on the tensor cores, every stage's ``latest`` and
+   launched, L and M launched in every stage, every bf16 L, M, F/J (Cin,
+   Cout ≥ 8) and one-output-channel data gradient on the tensor cores, as
+   many launches as the rules name, every stage's ``latest`` and
    ``best_*`` written, finite losses, the shared encoder's parameters and
    BatchNorm buffers at ``stage3/latest`` bitwise those at ``stage2/latest``
    while stage 3 moved; the same command again skips every stage (resume);
@@ -205,6 +210,10 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # on the FMA units, or two a time by ex2.approx.bf16x2.
 EXP2_PER_CLOCK_PER_SM = 16
 
+# The 1-channel convs of the stage-3 chains at 256³ (1→32, 1→64): the
+# CUDA-core forward stems and weight gradients, and the dense form of the
+# one-output-channel data gradient, each timed beside its library call.
+_STEMS = [(1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256))]
 KERNELS = {
     "flash_attention": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention.cu",
@@ -224,6 +233,7 @@ KERNELS = {
                    (1, 64, 32, (256, 256, 256))],
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 64, 32, (256, 256, 256)),
+        "library_at": _STEMS,
     },
     "conv3d_k3s2": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
@@ -280,6 +290,7 @@ TRAIN_KERNELS = {
                    (1, 64, 32, (256, 256, 256))],
         "ragged": _RAGGED_CONV,
         "hot": (1, 64, 32, (256, 256, 256)),
+        "library_at": _STEMS,
     },
     "conv3d_k3s1_dgrad": {  # kernel B with flipped weights, counted on its own
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
@@ -288,6 +299,7 @@ TRAIN_KERNELS = {
                    (1, 1, 64, (256, 256, 256)), (1, 64, 32, (256, 256, 256))],
         "ragged": _RAGGED_CONV,
         "hot": (1, 64, 32, (256, 256, 256)),
+        "library_at": _STEMS,
     },
     "conv3d_k3s2_dgrad": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
@@ -340,6 +352,17 @@ _TRAIN_S1 = (1, 64, 32, 34, _CH, _CH, 0, 32, True, None)  # one training slab
 _TRAIN_S1_GELU = (1, 64, 32, 34, _CH, _CH, 0, 32, True, "gelu")  # the same, prologue fused
 _TRAIN_S2 = (1, 32, 64, 33, _CH, _CH, 0, 16, True, None)
 _TRAIN_S2_GELU = (1, 32, 64, 33, _CH, _CH, 0, 16, True, "gelu")  # the same, prologue fused
+# The one-output-channel data gradient: 64→1 over the whole volume (hot), 32→1
+# likewise, and the training slabs of the two store passes (1→64 over 36
+# planes, 1→32 over 35); ragged: g's channels 8 and 40 (not multiples of 16),
+# H, W off the 4 × 64 tile, x before the slab, more planes than a block's 32,
+# act′ gelu and silu.
+_HOT_C1 = (1, 1, 64, 256, _CH, _CH, 1, 256, True, None)
+_TRAIN_C1 = (1, 1, 64, 36, _CH, _CH, 0, 34, False, None)
+_TIMED_C1 = [(1, 1, 32, 256, _CH, _CH, 1, 256, True, None), _TRAIN_C1,
+             (1, 1, 32, 35, _CH, _CH, 0, 33, False, None)]
+CHAIN_RAGGED_C1 = [(1, 1, 8, 35, 9, 66, 1, 35, False, None), (2, 1, 40, 5, 6, 20, -1, 7, False, "gelu"),
+                   (1, 1, 24, 4, 5, 70, 2, 3, False, "silu")]
 CHAIN_KERNELS = {
     "conv3d_k3s1_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                           "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
@@ -347,8 +370,15 @@ CHAIN_KERNELS = {
                           "timed": [_TRAIN_S1]},
     "conv3d_k3s1_chain_dgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                                 "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
-                                "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED,
-                                "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+                                "shapes": [s for s in CHAIN_SHAPES_S1 if s[1] > 1],
+                                "ragged": CHAIN_RAGGED[:3], "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+    # H with one output channel: the data gradient of the 1→64 and 1→32 convs
+    "conv3d_k3s1_chain_c1_dgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+                                   "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
+                                   "shapes": [s for s in CHAIN_SHAPES_S1 if s[1] == 1],
+                                   "ragged": CHAIN_RAGGED[3:] + CHAIN_RAGGED_C1, "hot": _HOT_C1,
+                                   "timed": _TIMED_C1, "counter": "conv3d_k3s1_chain_dgrad_c1_tc",
+                                   "library_at": _TIMED_C1},
     "conv3d_k3s1_chain_wgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
                                 "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:592",
                                 "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED,
@@ -366,6 +396,10 @@ CHAIN_KERNELS = {
                                 "shapes": CHAIN_SHAPES_S2, "ragged": CHAIN_RAGGED_S2,
                                 "hot": _HOT_S2, "timed": [_TRAIN_S2]},
 }
+# The chain kernels' letter counters (H-K): the one-output-channel data
+# gradient counts under H's (conv3d_k3s1_chain_dgrad) and, on its tensor-core
+# instance, under its own counter.
+_CHAIN_LETTERS = tuple(k for k, spec in CHAIN_KERNELS.items() if "counter" not in spec)
 # The chain phase [10]: values and gradients of the streamed chains against
 # the dense chain, fp32, absolute part scaled by the largest |want|.
 CHAIN_TOL = (2e-4, 2e-4)
@@ -771,25 +805,29 @@ class force_streaming:
 
 
 # The tensor-core counters of the kernels whose rule depends on the call's
-# channels (F/J) or dtype (M), which [9] and [11] hold to the calls the rules
-# name.
+# channels (F/J, the one-output-channel B/H) or dtype (L, M), which [9] and
+# [11] hold to the calls the rules name.
 _RULE_COUNTERS = ("conv3d_k3s2_dgrad_tc", "conv3d_k3s2_chain_dgrad_tc",
-                  "flash_attention_bwd_dkv_tc")
+                  "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dq_tc",
+                  "conv3d_k3s1_dgrad_c1_tc", "conv3d_k3s1_chain_dgrad_c1_tc")
 
 
 class rule_calls:
     """Within the block, count per tensor-core counter the calls of F/J
-    (``conv3d_k3._dgrad_s2``) and M (``flash_attention._bwd_dkv``) that the
-    Python rules (``dgrad_s2_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``)
-    send to the tensor cores: the wrappers' launch functions are wrapped, so
-    every call on the path is seen."""
+    (``conv3d_k3._dgrad_s2``), M (``flash_attention._bwd_dkv``), L
+    (``flash_attention._bwd_dq``) and the stride-1 conv with one output
+    channel (``conv3d_k3._fwd``) that the Python rules
+    (``dgrad_s2_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``,
+    ``bwd_dq_uses_tensor_cores``, ``dgrad_c1_uses_tensor_cores``) send to the
+    tensor cores: the wrappers' launch functions are wrapped, so every call on
+    the path is seen."""
 
     def __enter__(self):
         from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
         self.n = dict.fromkeys(_RULE_COUNTERS, 0)
-        self.real = real_d, real_m = ck._dgrad_s2, fa._bwd_dkv
+        self.real = real_d, real_m, real_l, real_f = ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd
 
         def dgrad(g, w, x_shape, qlo, dact=None, dense=False):
             if ck.dgrad_s2_uses_tensor_cores(g.dtype, x_shape[1], w.shape[0]):
@@ -800,14 +838,25 @@ class rule_calls:
             self.n[_RULE_COUNTERS[2]] += fa.bwd_dkv_uses_tensor_cores(q.dtype)
             return real_m(q, *args)
 
-        ck._dgrad_s2, fa._bwd_dkv = dgrad, dkv
+        def dq(q, *args):
+            self.n[_RULE_COUNTERS[3]] += fa.bwd_dq_uses_tensor_cores(q.dtype)
+            return real_l(q, *args)
+
+        def fwd(entry, stride, x, w, bias, qlo, d_out, want_sums=False, act=None, dact=None,
+                dense=False):
+            if stride == 1 and ck.dgrad_c1_uses_tensor_cores(x.dtype, x.shape[1], w.shape[0],
+                                                             act, want_sums):
+                self.n[_RULE_COUNTERS[4] if dense else _RULE_COUNTERS[5]] += 1
+            return real_f(entry, stride, x, w, bias, qlo, d_out, want_sums, act, dact, dense)
+
+        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd = dgrad, dkv, dq, fwd
         return self
 
     def __exit__(self, *exc):
         from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
-        ck._dgrad_s2, fa._bwd_dkv = self.real
+        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd = self.real
 
 
 def chain_phase(dev, seed: int, size: int = 256) -> dict:
@@ -925,7 +974,7 @@ def train_reference(cfg, dev, seed: int) -> dict:
         f"total_loss card {float(m_gpu['total_loss']):.6f} cpu {float(m_cpu['total_loss']):.6f}; "
         f"max_abs_err loss {worst['loss']:.3e} grads {worst['grad']:.3e} "
         f"tol={atol:g}+{rtol:g}|ref| ok; launches {launched}")
-    need = ("flash_attention", "flash_attention_bwd", *CHAIN_KERNELS, "conv3d_k3s2_chain")
+    need = ("flash_attention", "flash_attention_bwd", *_CHAIN_LETTERS, "conv3d_k3s2_chain")
     if any(launched[k] == 0 for k in need):
         raise AssertionError(f"[8] the card's step did not run every kernel of {need}: {launched}")
     return {"max_abs_err": worst, "launches": launched}
@@ -963,7 +1012,7 @@ def train_full_width(cfg, dev, seed: int) -> dict:
         torch.cuda.empty_cache()
     step3 = out["stage3"]["launches_per_step"]
     need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
-            "conv3d_k3s2_wgrad", *CHAIN_KERNELS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc",
+            "conv3d_k3s2_wgrad", *_CHAIN_LETTERS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc",
             "conv3d_k3s1_chain_tc", "flash_attention_tc", "flash_attention_bwd_tc",
             "conv3d_k3s2_chain_tc")
     if any(step3[k] == 0 for k in need):
@@ -984,7 +1033,9 @@ def train_full_width(cfg, dev, seed: int) -> dict:
         raise AssertionError(f"[9] the stage-3 step's 32→64 chain conv (I) did not take the "
                              f"tensor cores every time: {step3}")
     # every bf16 stride-2 data gradient with Cin, Cout ≥ 8 took the tensor
-    # cores (F/J), as many as the rule names, and stage 3 ran both forms
+    # cores (F/J), and every bf16 one-output-channel data gradient with 8-64
+    # g channels its tensor-core instance, as many as the rules name; stage 3
+    # ran both forms of F/J and the chain form of the latter
     for stage, r in out.items():
         lc, want = r["launches_per_step"], r["tc_rule_calls_per_step"]
         if any(lc[k] != want[k] for k in _RULE_COUNTERS):
@@ -993,21 +1044,25 @@ def train_full_width(cfg, dev, seed: int) -> dict:
                                  f"the rules name {want}")
     if not (step3["conv3d_k3s2_dgrad_tc"] and step3["conv3d_k3s2_chain_dgrad_tc"]):
         raise AssertionError(f"[9] the stage-3 step ran no tensor-core F or J: {step3}")
+    if not step3["conv3d_k3s1_chain_dgrad_c1_tc"]:
+        raise AssertionError(f"[9] the stage-3 step ran no one-output-channel data gradient on "
+                             f"the tensor cores: {step3}")
     return out
 
 
 def flash_bwd_bitwise(dev, seed: int) -> dict:
     """Phase 7d: two runs give the same bits — kernel D at every training
     shape in bf16 (tensor cores: dq added in key-tile order) and fp32 (CUDA
-    cores: dq partials added in group order), M at every training shape in
-    bf16 (tensor cores: one writer a row), its dk and dv also bitwise D's
+    cores: dq partials added in group order), M and L at every training shape
+    in bf16 (tensor cores: one writer a row), M's dk and dv also bitwise D's
     (the same body without the dq phase), and L and M at the stage-3
     self-attention shape in fp32 (no atomics)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
     runs = [(name, shape, dtype) for shape in _FLASH_TRAIN_SHAPES
             for dtype in (torch.bfloat16, torch.float32) for name in ("flash_attention_bwd",)]
-    runs += [("flash_attention_bwd_dkv", shape, torch.bfloat16) for shape in _FLASH_TRAIN_SHAPES]
+    runs += [(name, shape, torch.bfloat16) for shape in _FLASH_TRAIN_SHAPES
+             for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")]
     runs += [(name, (8, 32768, 32768, 32), torch.float32)
              for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")]
     fns = {"flash_attention_bwd_dq": lambda *a: (fa.flash_attention_bwd_dq(*a),),
@@ -1097,22 +1152,35 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
     slab's with and without act′) the tensor-core C/I and F/J
     (conv3d_k3s2_tc / conv3d_k3s2_chain_tc, conv3d_k3s2_dgrad_tc /
     conv3d_k3s2_chain_dgrad_tc), and every bf16 flash forward, fused backward
-    and dk/dv of the training shapes the tensor-core A, D and M
-    (flash_attention_tc, flash_attention_bwd_tc, flash_attention_bwd_dkv_tc);
-    the same calls in fp32, the 1-channel conv and its one-output-channel
-    data gradient, and the 1→64 stride-2 stem and its data gradient do
-    not."""
+    and dk/dv and dq of the training shapes the tensor-core A, D, M and L
+    (flash_attention_tc, flash_attention_bwd_tc, flash_attention_bwd_dkv_tc,
+    flash_attention_bwd_dq_tc), the 1-channel conv's one-output-channel data
+    gradient (dense 64→1 and 32→1, one training slab) the one-output-channel
+    tensor-core instance (conv3d_k3s1_dgrad_c1_tc /
+    conv3d_k3s1_chain_dgrad_c1_tc); the same calls in fp32, the 1-channel conv
+    itself, and the 1→64 stride-2 stem and its data gradient do not."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
 
     calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
              for dt in (torch.bfloat16, torch.float32)]
     calls += [(n, (1, 1, 64, (256, 256, 256)), "conv3d_k3s1_tc", torch.bfloat16, False)
               for n in ("conv3d_k3s1", "conv3d_k3s1_dgrad")]
+    # the 1-channel conv's one-output-channel data gradient: dense and one
+    # training slab, bf16 on its tensor-core instance, fp32 not
+    calls += [(n, sh, c, dt, dt == torch.bfloat16)
+              for n, sh, c in (("conv3d_k3s1_dgrad", (1, 1, 64, (256, 256, 256)),
+                                "conv3d_k3s1_dgrad_c1_tc"),
+                               ("conv3d_k3s1_dgrad", (1, 1, 32, (256, 256, 256)),
+                                "conv3d_k3s1_dgrad_c1_tc"),
+                               ("conv3d_k3s1_chain_c1_dgrad", _TRAIN_C1,
+                                "conv3d_k3s1_chain_dgrad_c1_tc"))
+              for dt in (torch.bfloat16, torch.float32)]
     calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_tc", torch.bfloat16, False),
               ("conv3d_k3s2_dgrad", (8, 1, 64, (64, 64, 64)), "conv3d_k3s2_dgrad_tc",
                torch.bfloat16, False)]
     calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
-              for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv")
+              for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
+                        "flash_attention_bwd_dq")
               for sh in _FLASH_TRAIN_SHAPES for dt in (torch.bfloat16, torch.float32)]
     out = {}
     for name, shape, counter, dtype, want_tc in calls:
@@ -1223,11 +1291,15 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
         f"stage-3 step (trained encoder, D) {fused_stage3_ms:.1f} ms (information only)")
     if launched["flash_attention_bwd"]:
         raise AssertionError(f"[11] kernel D launched under FUSED_BWD=False: {launched}")
-    log(f"[11] tensor-core F, J, M launches { {k: launched[k] for k in _RULE_COUNTERS} }, "
-        f"calls the rules name {rc.n}")
-    if any(launched[k] != rc.n[k] for k in _RULE_COUNTERS) or not all(rc.n.values()):
-        raise AssertionError(f"[11] tensor-core F/J/M launches differ from the calls the rules "
-                             f"name, or one never ran: {launched} vs {rc.n}")
+    log(f"[11] tensor-core F, J, M, L and one-output-channel dgrad launches "
+        f"{ {k: launched[k] for k in _RULE_COUNTERS} }, calls the rules name {rc.n}")
+    # the one-output-channel data gradient runs only where the 1-channel
+    # convs' input needs a gradient, which the frozen-encoder split step's
+    # does not ([9]'s stage-3 step runs it)
+    if any(launched[k] != rc.n[k] for k in _RULE_COUNTERS) or not all(
+            rc.n[k] for k in _RULE_COUNTERS if "c1" not in k):
+        raise AssertionError(f"[11] tensor-core F/J/M/L/one-output-channel launches differ from "
+                             f"the calls the rules name, or one never ran: {launched} vs {rc.n}")
 
     rows = [json.loads(line) for line in (save_dir / "training_log.jsonl").read_text().splitlines()]
     for n in (1, 2, 3):
@@ -1337,6 +1409,8 @@ _EXP2_NOTE = ("bound_ms is max(products_ms, bytes_ms); exp2_ms, every score's ex
 # The tensor-core instances: each kernel row's counter (the conv forward's
 # counts its data gradient too).
 _TC_COUNTERS = {"flash_attention": "flash_attention_tc",
+                "flash_attention_bwd_dq": "flash_attention_bwd_dq_tc",
+                "conv3d_k3s1_chain_c1_dgrad": "conv3d_k3s1_chain_dgrad_c1_tc",
                 "flash_attention_bwd": "flash_attention_bwd_tc", "conv3d_k3s1": "conv3d_k3s1_tc",
                 "conv3d_k3s1_dgrad": "conv3d_k3s1_tc", "conv3d_k3s1_chain": "conv3d_k3s1_chain_tc",
                 "conv3d_k3s1_chain_dgrad": "conv3d_k3s1_chain_tc",
@@ -1353,6 +1427,8 @@ def _tc_rule(counter: str) -> str:
     from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
     rule = (fa.bwd_dkv_uses_tensor_cores if counter.startswith("flash_attention_bwd_dkv") else
+            fa.bwd_dq_uses_tensor_cores if counter.startswith("flash_attention_bwd_dq") else
+            ck.dgrad_c1_uses_tensor_cores if "c1" in counter else
             fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
             fa.fwd_uses_tensor_cores if counter.startswith("flash") else
             ck.wgrad_uses_tensor_cores if "wgrad" in counter else
@@ -1580,7 +1656,7 @@ def main() -> int:
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
         b_ms, b_by, terms = bound(name, spec["hot"], exp2_rate=exp2_rate)
-        runs = {run: counts[name] for run, counts in by_run.items()}
+        runs = {run: counts[spec.get("counter", name)] for run, counts in by_run.items()}
         kernels.append({"name": name, "route": "cuda", "source": spec["source"],
                         "replaces": spec["replaces"], "launches": sum(runs.values()),
                         "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
@@ -1590,6 +1666,11 @@ def main() -> int:
                         "bound_terms_ms": terms})
         if name.startswith("flash_attention_bwd"):
             kernels[-1]["library_call"] = _SDPA_BWD
+        if spec.get("library_at"):  # more timed shapes, each with its bound and library call
+            kernels[-1]["library_at"] = [
+                {"at": f"{sh} bf16", "ms": rows[(name, sh)][0], "plain_ms": rows[(name, sh)][1],
+                 "bound_ms": bound(name, sh)[0], "library_ms": library_ms(name, sh, dev, args.seed)}
+                for sh in spec["library_at"]]
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
         tc = _TC_COUNTERS.get(name) or (name.endswith("wgrad") and

@@ -37,12 +37,15 @@
 // What bounds it on this card: the hot call is 64→32 channels at 256³
 // (1.86 TFLOP per call, forward or as the 32→64-channel data gradient), so
 // the conv is compute-bound; the 1-channel-input calls at 256³ (1→32, 1→64)
-// are bound by writing their 32/64-channel outputs. Two instances, picked by
-// an explicit rule (fwd_uses_tc, which the wrapper reads through
-// hvc_conv3d_k3_fwd_tc; no fallback): bf16 at stride 1 with Cin ≥ 8 and
-// Cout ≥ 8 takes the tensor cores; fp32 (the tensor cores would mean TF32,
-// outside the fp32 tolerances), the 1-channel stems, the one-output-channel
-// data gradient and stride 2 take the CUDA cores.
+// are bound by writing their 32/64-channel outputs, and their data gradient
+// (32/64 → 1 channel) by reading g. The instances are picked by explicit
+// rules (no fallback): bf16 with Cin ≥ 8 and Cout ≥ 8 takes the tensor cores
+// (fwd_uses_tc, which the wrapper reads through hvc_conv3d_k3_fwd_tc), and
+// so does the bf16 stride-1 call with one output channel and 8 ≤ Cin ≤ 64,
+// the one-output-channel data gradient (c1_uses_tc, read through
+// hvc_conv3d_k3s1_c1_tc: conv_c1_tc_kernel below); fp32 (the tensor cores
+// would mean TF32, outside the fp32 tolerances) and the 1-channel stems take
+// the CUDA cores.
 //
 // B/H on the tensor cores (conv_tc_kernel): the implicit GEMM out[co, voxel]
 // = Σ_{tap, ci} w_tap[co, ci] · x_tap[ci, voxel] with M = Cout (32 a block,
@@ -82,7 +85,8 @@
 // as eight float4 broadcasts: four FMAs per shared-memory load. Input
 // channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems do no
 // zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
-// data gradient of the 1→C convs, which kernel B computes with Cout = 1. The
+// fp32 data gradient of the 1→C convs, which kernel B computes with Cout = 1
+// (the bf16 one takes conv_c1_tc_kernel). The
 // sums epilogue costs a warp-shuffle reduction per channel, small beside the
 // 27·Cin FMAs per output value except at Cin = 1.
 //
@@ -603,6 +607,236 @@ int launch_tc(const void* x, const void* w, const void* bias, void* out, long lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------ the one-output-channel B/H on the tensor cores ---
+
+constexpr int kC1Threads = 256;               // 8 warps
+constexpr int kC1Warps = kC1Threads / 32;
+constexpr int kC1Ci = 64;                     // input channels a block holds: the rule's most
+constexpr int kC1Th = 4, kC1Tw = 64;          // output rows × columns per block: one a thread
+constexpr int kC1Planes = 32;                 // output planes per block
+constexpr int kC1Rows = kC1Th + 2;            // staged rows of a plane: 6
+constexpr int kC1Cols = kC1Tw + 16;           // staged columns, from ow0 − 8: 10 vectors of 8
+constexpr int kC1Groups = kC1Rows * kC1Cols / 16;  // 16-position groups of the products: 30
+constexpr int kC1Ld = kC1Rows * kC1Cols + 8;  // bf16 per staged channel: 976 bytes, an odd
+                                              // number of 16-byte units (ldmatrix.trans
+                                              // conflict-free)
+constexpr int kC1Pw = kC1Tw + 4;              // P columns of a row: staged columns 6 … 73
+constexpr int kC1Pt = kC1Rows * kC1Pw;        // P floats per tap: 408 ≡ 24 mod 32, so a
+                                              // warp's float2 stores of 4 taps hit 32 banks
+constexpr int kC1WLd = kC1Ci + 8;             // bf16 per weight row ([tap][ci]): 144 bytes
+constexpr int kC1Smem = kC1Ci * kC1Ld * 2 + 27 * kC1Pt * 4 + 32 * kC1WLd * 2;  // 111,136 bytes:
+                                                                                 // two blocks an SM
+
+// out[od, oh, ow] = bias + Σ_tap Σ_ci w[0, ci, tap] · x[ci, od − qlo + kd,
+// oh − 1 + kh, ow − 1 + kw] (× act′ at the output with dact), as
+// conv3d_k3_kernel computes it with Cout = 1, for 8 ≤ Cin ≤ 64 and neither a
+// prologue nor sums (c1_uses_tc). The products are a GEMM with the taps as M
+// (27 of 32 rows), positions as N and channels as K: per input plane the
+// block stages the plane's 6 rows × 80 columns of every channel as they lie
+// ([ci][row][column], 16-byte cp.async from column ow0 − 8, zero outside the
+// view, the image and Cin), and each warp computes P[tap, position] for
+// 16-position groups, the weights' A fragments held in registers for the
+// whole block and the positions' B fragments by ldmatrix.trans of the
+// channel rows. P goes to shared memory as fp32 ([tap][row][column]); then
+// each thread adds its voxel's 27 shifted values, P[tap][oy + dy][ox + dx],
+// in a fixed order (the 9 taps of one dz at a time), into the accumulators of
+// the three output planes the input plane reaches (dz = 0, 1, 2). An output
+// plane is done after its third input plane: bias, act′, one rounding,
+// store. A block walks 32 output planes, so each input plane is staged once
+// per block, the next one's copy running under the current one's sums.
+// Block blockIdx.x: column tile fastest, then row tile, then plane range;
+// batch blockIdx.y. VEC: x's rows and strides are 16-byte aligned (W, xb, xc
+// multiples of 8), so the staging copies 16-byte vectors; otherwise it loads
+// element by element.
+template <bool CHAIN, bool VEC>
+__global__ void __launch_bounds__(kC1Threads, 2)
+conv_c1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                  const float* __restrict__ bias, bf16* __restrict__ out, int cin, int H, int W,
+                  int Do, ChainArgs ca) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);              // [ci][row][column]
+  float* ps = reinterpret_cast<float*>(gs + kC1Ci * kC1Ld);  // [tap][row][column − 6]
+  bf16* ws = reinterpret_cast<bf16*>(ps + 27 * kC1Pt);       // [tap (32)][ci]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_w = (W + kC1Tw - 1) / kC1Tw, tiles_h = (H + kC1Th - 1) / kC1Th;
+  const int tile = static_cast<int>(blockIdx.x);
+  const int ow0 = tile % tiles_w * kC1Tw;
+  const int oh0 = tile / tiles_w % tiles_h * kC1Th;
+  const int od0 = tile / (tiles_w * tiles_h) * kC1Planes;
+  const long long b = blockIdx.y;
+  const int n_out = Do - od0 < kC1Planes ? Do - od0 : kC1Planes;
+  const int ks = (cin + 15) / 16;  // k-steps of the products
+  const long long plane = static_cast<long long>(H) * W;
+  const bf16* xb = x + b * ca.xb;
+
+  // the weights, [tap][ci], zero past tap 26 and Cin; their A fragments stay
+  // in registers
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(ws);
+  for (int u = tid; u < 32 * kC1Ci; u += kC1Threads) {
+    const int tap = u / kC1Ci, ci = u % kC1Ci;
+    wsm[tap * kC1WLd + ci] = tap < 27 && ci < cin ? wg[ci * 27 + tap] : 0;
+  }
+  __syncthreads();
+  uint32_t a[4][2][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if (kk < ks) load_a(a[kk][mt], ws, kC1WLd, mt * 16, kk * 16, lane);
+
+  // view plane p (inside the view) into gs: units of 8 columns of one row of
+  // one channel
+  auto stage = [&](int p) {
+    const int units = ks * 16 * kC1Rows * (kC1Cols / 8);
+    for (int u = tid; u < units; u += kC1Threads) {
+      const int v = u % (kC1Cols / 8), r = u / (kC1Cols / 8) % kC1Rows;
+      const int ci = u / (kC1Rows * (kC1Cols / 8));
+      const int ih = oh0 - 1 + r, c = ow0 - 8 + 8 * v;
+      const bool row_ok = ci < cin && ih >= 0 && ih < H;
+      bf16* dst = gs + ci * kC1Ld + r * kC1Cols + 8 * v;
+      const long long off = ci * ca.xc + p * plane + static_cast<long long>(ih) * W;
+      if (VEC) {
+        const bool ok = row_ok && c >= 0 && c < W;  // W % 8 = 0: all in or out
+        cp_async16(dst, ok ? xb + off + c : x, ok ? 16 : 0);
+      } else {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(xb) + off;
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = c + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 >= 0 && c0 < W ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 >= 0 && c1 < W ? src[c1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+
+  // P of the staged plane: warp w takes the 16-position groups w, w + 8, …
+  // (group g: row g / 5, columns 16·(g % 5) …); the taps and columns the
+  // sums read (tap < 27, columns 6 … 73) go to ps
+  auto products = [&]() {
+    for (int g = warp; g < kC1Groups; g += kC1Warps) {
+      const int r = g / (kC1Cols / 16), c0 = g % (kC1Cols / 16) * 16;
+      float acc[2][2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ks) {
+          uint32_t bf[4];
+          load_b2(bf, gs, kC1Ld, kk * 16, r * kC1Cols + c0, lane);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma16816(acc[mt][0], a[kk][mt], bf[0], bf[1]);
+            mma16816(acc[mt][1], a[kk][mt], bf[2], bf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int tap = mt * 16 + (lane >> 2) + 8 * h;
+            const int c = c0 + 8 * nt + 2 * (lane & 3);
+            if (tap < 27 && c >= 6 && c < 6 + kC1Pw)
+              *reinterpret_cast<float2*>(ps + tap * kC1Pt + r * kC1Pw + c - 6) =
+                  make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          }
+    }
+  };
+
+  // this thread's output voxel: row oy, column ox of the tile, which reads
+  // P[tap][oy + dy][ox + dx] (staged column ox + dx + 7)
+  const int oy = tid / kC1Tw, ox = tid % kC1Tw;
+  const int oh = oh0 + oy, ow = ow0 + ox;
+  const bool inside = oh < H && ow < W;
+  const float* pr = ps + oy * kC1Pw + ox + 1;
+  const float bias0 = bias[0];
+  auto store = [&](int od, float val) {
+    if (!inside) return;
+    val += bias0;
+    const long long opix = od * plane + static_cast<long long>(oh) * W + ow;
+    if constexpr (CHAIN) {
+      if (ca.dact)
+        val *= dact_f32(ca.dact, __bfloat162float(
+                                     static_cast<const bf16*>(ca.dact_x)[b * ca.db + opix]));
+    }
+    out[b * Do * plane + opix] = __float2bfloat16_rn(val);
+  };
+
+  // input plane i of the block is view plane od0 − qlo + i; it reaches
+  // output planes i − dz. acc0, acc1, acc2: output planes i − 2, i − 1, i.
+  const int n_in = n_out + 2;
+  auto in_view = [&](int i) {
+    const int p = od0 - ca.qlo + i;
+    return p >= 0 && p < ca.nv;
+  };
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
+  if (in_view(0)) stage(od0 - ca.qlo);
+  cp_async_commit();
+  for (int i = 0; i < n_in; ++i) {
+    const bool next = i + 1 < n_in && in_view(i + 1);
+    if (in_view(i)) {  // block-uniform branch
+      cp_async_wait<0>();
+      __syncthreads();  // plane i is staged; the previous plane's P is no longer read
+      products();
+      __syncthreads();  // P is complete; the staging buffer is free
+      if (next) stage(od0 - ca.qlo + i + 1);
+      cp_async_commit();
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int off = t / 3 * kC1Pw + t % 3;
+        s2 += pr[t * kC1Pt + off];         // dz = 0: output plane i
+        s1 += pr[(9 + t) * kC1Pt + off];   // dz = 1: output plane i − 1
+        s0 += pr[(18 + t) * kC1Pt + off];  // dz = 2: output plane i − 2
+      }
+      acc0 += s0;
+      acc1 += s1;
+      acc2 += s2;
+    } else if (next) {  // the staging buffer is free: no plane was staged for i
+      stage(od0 - ca.qlo + i + 1);
+      cp_async_commit();
+    }
+    if (i >= 2) store(od0 + i - 2, acc0);
+    acc0 = acc1;
+    acc1 = acc2;
+    acc2 = 0.f;
+  }
+  cp_async_wait<0>();
+}
+
+template <bool CHAIN>
+int launch_c1_tc(const void* x, const void* w, const void* bias, void* out, long long batch,
+                 int cin, int H, int W, int Do, const ChainArgs& ca, cudaStream_t stream) {
+  const long long tiles = static_cast<long long>((Do + kC1Planes - 1) / kC1Planes) *
+                          ((H + kC1Th - 1) / kC1Th) * ((W + kC1Tw - 1) / kC1Tw);
+  if (cin > kC1Ci || tiles > 2147483647LL || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = W % 8 == 0 && ca.xb % 8 == 0 && ca.xc % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kern = vec ? conv_c1_tc_kernel<CHAIN, true> : conv_c1_tc_kernel<CHAIN, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kC1Smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)), kC1Threads, kC1Smem,
+         stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<const float*>(bias), static_cast<bf16*>(out), cin, H, W, Do, ca);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------- C and I on the tensor cores ---
 
 constexpr int kS2Threads = 256;                  // 8 warps
@@ -912,6 +1146,16 @@ bool fwd_uses_tc(int stride, bool bf16, int cin, int cout) {
   return (stride == 1 || stride == 2) && bf16 && cin >= 8 && cout >= 8;
 }
 
+// The one-output-channel call's instance, likewise explicit: bf16 at stride 1
+// with Cout = 1, 8 ≤ Cin ≤ 64 and neither a prologue nor sums — the data
+// gradient of a conv with one input channel (the stage-3 chains' 1→32 and
+// 1→64 convs), Cin being g's channels — takes conv_c1_tc_kernel; the rest
+// the CUDA cores (CO_T = 1). The wrapper reads it through
+// hvc_conv3d_k3s1_c1_tc.
+bool c1_uses_tc(int stride, bool bf16, int cin, int cout, int act, bool sums) {
+  return stride == 1 && bf16 && cout == 1 && cin >= 8 && cin <= kC1Ci && act == 0 && !sums;
+}
+
 template <int S, bool CHAIN, typename T>
 int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, void* out,
                long long batch, int cin, int cout, int H, int W, int Do, const ChainArgs& ca,
@@ -927,6 +1171,9 @@ int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, 
       return launch_tc_s2<CHAIN>(x, wtc, bias, out, batch, cin, cout, H, W, Do, ca, sums, s);
   }
   if constexpr (S == 1) {
+    if (c1_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout, ca.act,
+                   ca.partial != nullptr))
+      return launch_c1_tc<CHAIN>(x, w, bias, out, batch, cin, H, W, Do, ca, s);
     if (cout == 1 && cin >= 4)
       return launch<T, S, TH, TW, 4, 1, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, Ho,
                                                Wo, ca, sums, s);
@@ -998,4 +1245,12 @@ extern "C" int hvc_conv3d_k3s2_fwd(const void* x, const void* w, const void* wtc
 // dispatch_t, which the wrapper counts tensor-core launches by.
 extern "C" int hvc_conv3d_k3_fwd_tc(int stride, int cin, int cout, int dtype) {
   return fwd_uses_tc(stride, dtype == 1, cin, cout) ? 1 : 0;
+}
+
+// 1 if hvc_conv3d_k3s1_fwd runs a call with these channel counts, prologue
+// (act code), Σ/Σ² epilogue (sums 0 or 1) and dtype on the one-output-channel
+// tensor-core instance, else 0: the rule of dispatch_t, which the wrapper
+// counts its launches by.
+extern "C" int hvc_conv3d_k3s1_c1_tc(int cin, int cout, int act, int sums, int dtype) {
+  return c1_uses_tc(1, dtype == 1, cin, cout, act, sums != 0) ? 1 : 0;
 }

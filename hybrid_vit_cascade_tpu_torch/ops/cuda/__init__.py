@@ -18,6 +18,7 @@ def launch_counts() -> Dict[str, int]:
     flash_attention_tc (the launches of A on the tensor-core instance),
     flash_attention_bwd (D), flash_attention_bwd_tc (those of D on its
     tensor-core instance), flash_attention_bwd_dq (L),
+    flash_attention_bwd_dq_tc (those of L on its tensor-core instance),
     flash_attention_bwd_dkv (M), flash_attention_bwd_dkv_tc (those of M on
     its tensor-core instance), and the conv counters conv3d_k3s{1,2} (B, C),
     conv3d_k3s1_dgrad (B as the stride-1 data gradient), conv3d_k3s2_dgrad
@@ -27,6 +28,8 @@ def launch_counts() -> Dict[str, int]:
     gradient), conv3d_k3s1_chain_tc (H, likewise), conv3d_k3s2_tc (C),
     conv3d_k3s2_chain_tc (I), conv3d_k3s{1,2}_wgrad_tc (E, G and K),
     conv3d_k3s2_dgrad_tc (F), conv3d_k3s2_chain_dgrad_tc (J),
+    conv3d_k3s1_dgrad_c1_tc and conv3d_k3s1_chain_dgrad_c1_tc (B and H with
+    one output channel, the data gradient of a 1-channel conv),
     and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
@@ -37,6 +40,7 @@ def launch_counts() -> Dict[str, int]:
             "flash_attention_bwd": fa.flash_attention_bwd.launches,
             "flash_attention_bwd_tc": fa.flash_attention_bwd.tc_launches,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dq_tc": fa.flash_attention_bwd_dq.tc_launches,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
             "flash_attention_bwd_dkv_tc": fa.flash_attention_bwd_dkv.tc_launches, **ck.LAUNCHES,
             **cp.LAUNCHES}
@@ -52,6 +56,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     fa.flash_attention_fwd.tc_launches = 0
     fa.flash_attention_bwd.tc_launches = 0
+    fa.flash_attention_bwd_dq.tc_launches = 0
     fa.flash_attention_bwd_dkv.tc_launches = 0
     for counters in (ck.LAUNCHES, cp.LAUNCHES):
         for name in counters:

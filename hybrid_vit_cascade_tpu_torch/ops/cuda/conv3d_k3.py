@@ -41,7 +41,11 @@ adds one to that instance's counter: the conv at either stride and the
 stride-1 data gradient (bf16, Cin ≥ 8 and Cout ≥ 8 as the kernel sees them:
 the C rule, which ``fwd_uses_tensor_cores`` states for the CPU) to
 ``conv3d_k3s{1,2}_tc`` when dense and ``conv3d_k3s{1,2}_chain_tc`` otherwise,
-a weight gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
+the one-output-channel stride-1 call, that is the data gradient of a conv
+with one input channel (bf16, 8 ≤ Cin ≤ 64 as the kernel sees them, no
+prologue, no sums: ``dgrad_c1_uses_tensor_cores``), to
+``conv3d_k3s1_dgrad_c1_tc`` when dense and ``conv3d_k3s1_chain_dgrad_c1_tc``
+otherwise, a weight gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
 ``conv3d_k3s{1,2}_wgrad_tc``, the stride-2 data gradient (bf16, Cin ≥ 8 and
 Cout ≥ 8: ``dgrad_s2_uses_tensor_cores``) to ``conv3d_k3s2_dgrad_tc`` when
 dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise.
@@ -76,6 +80,9 @@ _DGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _
 # tensor cores; hvc_conv3d_k3s2_dgrad_tc(cin, cout, dtype): 1 if the stride-2
 # data gradient does
 _FWD_TC_ARGTYPES = (_I, _I, _I, _I)
+# hvc_conv3d_k3s1_c1_tc(cin, cout, act, sums, dtype): 1 if the stride-1 call
+# takes the one-output-channel tensor-core instance
+_C1_TC_ARGTYPES = (_I, _I, _I, _I, _I)
 _DGRAD_TC_ARGTYPES = (_I, _I, _I)
 # Output voxels (D, H, W) per forward block of each instance, by stride
 # (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
@@ -252,10 +259,11 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
          bias: Optional[torch.Tensor], qlo: int, d_out: int, want_sums: bool = False,
          act: Optional[str] = None, dact: Optional[tuple] = None, dense: bool = False):
     """Launch kernel B/C/H/I on the instance the C dispatch picks; returns out
-    or (out, s1, s2). A tensor-core launch, by the C rule
-    (``hvc_conv3d_k3_fwd_tc``), also counts in ``conv3d_k3s{stride}_tc``
-    (``dense``) or ``conv3d_k3s{stride}_chain_tc``; at stride 2 it reads the
-    weights in ``s2_tc_weights``'s layout."""
+    or (out, s1, s2). A tensor-core launch, by the C rules
+    (``hvc_conv3d_k3_fwd_tc``, ``hvc_conv3d_k3s1_c1_tc``), also counts in
+    ``conv3d_k3s{stride}_tc`` or, with one output channel,
+    ``conv3d_k3s1_dgrad_c1_tc`` (``dense``; else their ``_chain`` forms); at
+    stride 2 it reads the weights in ``s2_tc_weights``'s layout."""
     _check_cuda(x)
     _check_view("x", x, x.dtype, x.device)
     _check_weights(x, w, bias)
@@ -282,6 +290,8 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         sums = torch.empty((2, B, cout), dtype=torch.float32, device=x.device)
     tc = bool(_build.function("hvc_conv3d_k3_fwd_tc", _FWD_TC_ARGTYPES)(
         stride, cin, cout, _DTYPE_CODES[x.dtype]))
+    c1 = stride == 1 and bool(_build.function("hvc_conv3d_k3s1_c1_tc", _C1_TC_ARGTYPES)(
+        cin, cout, _ACT_CODES[act], int(want_sums), _DTYPE_CODES[x.dtype]))
     weights = (w.data_ptr(),)
     if stride == 2:
         wtc = s2_tc_weights(w) if tc else None
@@ -297,6 +307,8 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
     _build.check(rc, entry)
     if tc:
         LAUNCHES[f"conv3d_k3s{stride}{'' if dense else '_chain'}_tc"] += 1
+    if c1:
+        LAUNCHES[_counter("_dgrad_c1_tc", 1, dense)] += 1
     return (out, sums[0], sums[1]) if want_sums else out
 
 
@@ -306,9 +318,25 @@ def fwd_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int) 
     ``fwd_uses_tc`` (csrc/conv3d_k3.cu) for plans and tests on the CPU; on
     the card the wrapper reads the C rule itself: bf16 at stride 1 or 2 with
     Cin ≥ 8 and Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the
-    fp32 tolerances), the 1-channel stems and the one-output-channel data
-    gradient (bound by their output or input bytes) on the CUDA cores."""
+    fp32 tolerances) and the 1-channel stems (bound by their output bytes) on
+    the CUDA cores, the one-output-channel data gradient on the instance
+    ``dgrad_c1_uses_tensor_cores`` names."""
     return dtype == torch.bfloat16 and stride in (1, 2) and cin >= 8 and cout >= 8
+
+
+def dgrad_c1_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
+                               act: Optional[str] = None, sums: bool = False) -> bool:
+    """Which instance a stride-1 call with one output channel takes, the rule
+    of ``c1_uses_tc`` (csrc/conv3d_k3.cu), which the wrapper reads through
+    ``hvc_conv3d_k3s1_c1_tc``. Cin and Cout as the kernel sees them: for the
+    data gradient of a conv with one input channel (the stage-3 chains' 1→32
+    and 1→64 convs) Cin is g's channels and Cout = 1. bf16 with Cout = 1,
+    8 ≤ Cin ≤ 64 (the channels a block holds) and neither a prologue nor Σ/Σ²
+    (no data gradient has either) runs on the tensor cores
+    (``conv_c1_tc_kernel``, bound by reading g); fp32 (TF32 would leave the
+    fp32 tolerances) and the other channel counts on the CUDA cores."""
+    return (dtype == torch.bfloat16 and cout == 1 and 8 <= cin <= 64 and act is None
+            and not sums)
 
 
 def fwd_plan(out_shape, cout: int, stride: int,
@@ -317,7 +345,8 @@ def fwd_plan(out_shape, cout: int, stride: int,
     Do, H, W): output planes, input rows and columns. ``tile`` is the output
     voxels (D, H, W) of one block and ``blocks`` the number of blocks per
     (batch, Cout tile), each of which writes one Σ/Σ² partial per output
-    channel."""
+    channel. A call with Σ/Σ² never takes the one-output-channel instance
+    (``dgrad_c1_uses_tensor_cores``), so the plan names one of these two."""
     tc = fwd_uses_tensor_cores(dtype, stride, out_shape[1], cout)
     tile = (_FWD_TILE_TC if tc else _FWD_TILE_CUDA_CORE)[stride]
     return tc, tile, _fwd_blocks(out_shape, stride, tile)
@@ -507,7 +536,9 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
     planes p + qlo − 2 + {0, 1, 2}, the vp=2 virtual padding of
     ``conv3d_k3.py:714``), on the instance ``fwd_uses_tensor_cores`` names
     for that call (its Cin is g's channels). Stride 2: kernel F (``dense``) /
-    J, on the instance ``dgrad_s2_uses_tensor_cores`` names."""
+    J, on the instance ``dgrad_s2_uses_tensor_cores`` names. The data gradient
+    of a conv with one input channel (g's channels to one) takes the instance
+    ``dgrad_c1_uses_tensor_cores`` names."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if g.device.type == "cpu":
@@ -546,10 +577,14 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # launches of B and H (forward and data gradient) that took the tensor-core
 # instance; conv3d_k3s2_tc and conv3d_k3s2_chain_tc, those of C and I;
 # conv3d_k3s{1,2}_wgrad_tc, those of E, G and K (dense and chain);
-# conv3d_k3s2_dgrad_tc and conv3d_k3s2_chain_dgrad_tc, those of F and J.
+# conv3d_k3s2_dgrad_tc and conv3d_k3s2_chain_dgrad_tc, those of F and J;
+# conv3d_k3s1_dgrad_c1_tc and conv3d_k3s1_chain_dgrad_c1_tc, those of B and H
+# with one output channel (the data gradient of a 1-channel conv) on the
+# one-output-channel tensor-core instance.
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
             "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
+            "conv3d_k3s1_dgrad_c1_tc": 0, "conv3d_k3s1_chain_dgrad_c1_tc": 0,
             "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,
             "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0,
             "conv3d_k3s2_dgrad_tc": 0, "conv3d_k3s2_chain_dgrad_tc": 0}

@@ -15,14 +15,13 @@ the CUDA kernels for tensors on a CUDA device and run ``flash_attention_plain``
 / ``flash_attention_bwd_plain`` for tensors on the CPU; for any other device
 they raise. They never fall back from the kernel to the plain version. Each
 kernel counts its launches in the ``.launches`` of its wrapper (L in
-``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s). The
-forward, the fused backward and M have two instances each, by an explicit
-rule (``fwd_uses_tensor_cores``, ``bwd_uses_tensor_cores``,
-``bwd_dkv_uses_tensor_cores``): bf16 on the tensor cores, whose launches
-also count in ``flash_attention_fwd.tc_launches``,
-``flash_attention_bwd.tc_launches`` and ``flash_attention_bwd_dkv.tc_launches``,
-and fp32 on the CUDA cores. M's tensor-core instance is D's body without its
-dq phase.
+``flash_attention_bwd_dq``'s, M in ``flash_attention_bwd_dkv``'s). Each of
+A, D, L and M has two instances, by an explicit rule
+(``fwd_uses_tensor_cores``, ``bwd_uses_tensor_cores``,
+``bwd_dq_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``): bf16 on the
+tensor cores, whose launches also count in ``.tc_launches`` of the same
+wrapper, and fp32 on the CUDA cores. M's tensor-core instance is D's body
+without its dq phase; L's takes queries as M, as A does.
 """
 
 from __future__ import annotations
@@ -298,11 +297,25 @@ def _launch_split(name: str, argtypes, q: torch.Tensor, k: torch.Tensor, v: torc
     _build.check(rc, name)
 
 
+def bwd_dq_uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Which instance of kernel L a call takes, the rule of
+    ``hvc_flash_attention_bwd_dq`` (``dq_uses_tc`` in C, which the wrapper
+    reads through ``hvc_flash_attention_bwd_dq_tc``): bf16 on the tensor cores
+    (queries as M, ds rounded to bf16 into dS·K, as the TPU kernel does); fp32
+    on the CUDA cores (TF32 would leave the fp32 tolerances)."""
+    return dtype == torch.bfloat16
+
+
 def _bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
+    tc = bool(_build.function("hvc_flash_attention_bwd_dq_tc", (ctypes.c_int,))(
+        _DTYPE_CODES[q.dtype]))
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the bf16 dq kernel needs q, k, v and dout 16-byte aligned")
     dq = torch.empty_like(q)
     _launch_split("hvc_flash_attention_bwd_dq", _DQ_ARGTYPES, q, k, v, dout, lse, delta, (dq,),
                   scale)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.tc_launches += tc
     return dq
 
 
@@ -332,8 +345,9 @@ def _bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> tuple[torch.Tensor, tor
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                            lse: torch.Tensor, dout: torch.Tensor, scale: float) -> torch.Tensor:
     """Kernel L alone: dq of ``flash_attention_fwd``, in q's dtype; arguments
-    as ``flash_attention_bwd``. One block per 128 query rows sweeps every key,
-    so each dq row is written once."""
+    as ``flash_attention_bwd``. One block per query tile (64 rows on the
+    tensor cores, 128 on the CUDA cores, by ``bwd_dq_uses_tensor_cores``)
+    sweeps every key, so each dq row is written once."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[0]
     _check_bwd(q, k, v, out, lse, dout)
@@ -341,6 +355,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ou
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 
 
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

@@ -22,12 +22,14 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_plain,
     conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
+    dgrad_c1_uses_tensor_cores,
     dgrad_s2_uses_tensor_cores,
     fwd_uses_tensor_cores,
     wgrad_uses_tensor_cores,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     bwd_dkv_uses_tensor_cores,
+    bwd_dq_uses_tensor_cores,
     bwd_uses_tensor_cores,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -349,7 +351,9 @@ def _check_sums(out, s1, s2):
 
 def _conv_fwd_and_dgrad(shape, dev, dense):
     """The conv and its stride-1 data gradient in bf16 against their plain
-    versions, each counted on the instance ``fwd_uses_tensor_cores`` names."""
+    versions, each counted on the instance ``fwd_uses_tensor_cores`` (or,
+    for the data gradient of a 1-channel conv, ``dgrad_c1_uses_tensor_cores``)
+    names."""
     b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
     dt = torch.bfloat16
     x, w, bias = _fwd_case(shape, dt, dev, 30)
@@ -364,9 +368,11 @@ def _conv_fwd_and_dgrad(shape, dev, dense):
         _check_sums(out, res[1], res[2])
     del res, want
     g = _randn(tuple(out.shape), dt, dev, 33)
-    before = LAUNCHES[tc]
+    c1 = "conv3d_k3s1_dgrad_c1_tc" if dense else "conv3d_k3s1_chain_dgrad_c1_tc"
+    before, before_c1 = LAUNCHES[tc], LAUNCHES[c1]
     dx = conv3d_k3_dgrad(g, w, x, 1, qlo, act, dense=dense)
     assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 1, cout, cin)
+    assert LAUNCHES[c1] == before_c1 + dgrad_c1_uses_tensor_cores(dt, cout, cin)
     want = conv3d_k3_dgrad_plain(g, w, x, 1, qlo, act)
     torch.cuda.synchronize()
     err = (dx.float() - want.float()).abs()
@@ -751,6 +757,83 @@ def test_flash_bwd_dkv_tc_rule_matches_c(dev):
     rule = _build.function("hvc_flash_attention_bwd_dkv_tc", (ctypes.c_int,))
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         assert bool(rule(code)) == bwd_dkv_uses_tensor_cores(dtype)
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", FLASH_TRAIN + FLASH_RAGGED)
+def test_flash_bwd_dq_tensor_cores(dev, bh, nq, nk, d):
+    """The tensor-core L (bf16) at the training shapes and ragged ones: dq
+    within FLASH_OUT_TOL of the plain backward (floored by the rounding of
+    ds, as D's test: L rounds ds to bf16 before dS·K, as the TPU kernel
+    does), counted in flash_attention_bwd_dq.tc_launches, two runs bitwise
+    equal (one writer a row, no atomics); the fp32 call stays on the CUDA
+    cores."""
+    q, dout = (_randn((bh, nq, d), torch.bfloat16, dev, s) for s in (12, 15))
+    k, v = (_randn((bh, nk, d), torch.bfloat16, dev, s) for s in (13, 14))
+    scale = d ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dq.tc_launches)
+    got = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dq.tc_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, scale)[0]
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16, FLASH_OUT_TOL, _ds_rounding(q, k, v, dout, scale))
+    again = flash_attention_bwd_dq(q, k, v, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if nq * nk <= 4096 * 4096:
+        f32 = [t.float() for t in (q, k, v, out)]
+        flash_attention_bwd_dq(*f32, lse, dout.float(), scale)
+        assert flash_attention_bwd_dq.tc_launches == before[1] + 2
+
+
+def test_flash_bwd_dq_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_flash_attention_bwd_dq_tc``) is
+    ``bwd_dq_uses_tensor_cores``."""
+    rule = _build.function("hvc_flash_attention_bwd_dq_tc", (ctypes.c_int,))
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert bool(rule(code)) == bwd_dq_uses_tensor_cores(dtype)
+
+
+# The one-output-channel data gradient at ragged shapes, as the chain call
+# (B, Cin, Cout, planes of x, H, W, slab plane of x's first plane, output
+# planes, Σ/Σ², act) of the forward conv with Cin = 1: g's channels 8, 24, 40
+# and 64 (not all multiples of 16), H and W off the 4 × 64 tile, W not a
+# multiple of 8 (element-by-element staging), x beginning before the slab,
+# more planes than a block's 32, act′ gelu and silu.
+C1_CASES = [(1, 1, 8, 35, 9, 66, 1, 35, False, None), (2, 1, 40, 5, 6, 20, -1, 7, False, "gelu"),
+            (1, 1, 24, 4, 5, 70, 2, 3, False, "silu"), (1, 1, 64, 6, 7, 33, 0, 5, False, "gelu"),
+            (2, 1, 32, 40, 4, 64, 1, 40, False, None)]
+
+
+@pytest.mark.parametrize("case", C1_CASES)
+def test_dgrad_c1_tensor_cores_ragged(dev, case):
+    """The one-output-channel tensor-core instance (bf16) within
+    chip_smoke.py's gradient tolerance of the plain data gradient, counted in
+    conv3d_k3s1_chain_dgrad_c1_tc, two runs bitwise equal; the fp32 call
+    stays on the CUDA cores."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = case
+    _conv_fwd_and_dgrad(case, dev, dense=False)
+    x, w, _ = _fwd_case(case, torch.bfloat16, dev, 80)
+    g = _randn((b, cout, d_out, h, w_), torch.bfloat16, dev, 81)
+    first = conv3d_k3_dgrad(g, w, x, 1, qlo, act)
+    assert torch.equal(conv3d_k3_dgrad(g, w, x, 1, qlo, act), first)
+    before = LAUNCHES["conv3d_k3s1_chain_dgrad_c1_tc"]
+    conv3d_k3_dgrad(g.float(), w.float(), x.float(), 1, qlo, act)
+    assert LAUNCHES["conv3d_k3s1_chain_dgrad_c1_tc"] == before
+    assert dgrad_c1_uses_tensor_cores(torch.bfloat16, cout, cin)
+
+
+def test_dgrad_c1_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3s1_c1_tc``, which the wrapper
+    counts launches by) is ``dgrad_c1_uses_tensor_cores`` at every dtype,
+    channel count around its edges, prologue and Σ/Σ² setting."""
+    rule = _build.function("hvc_conv3d_k3s1_c1_tc", (ctypes.c_int,) * 5)
+    for (dtype, code), cin, cout, (act, act_code), sums in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 4, 7, 8, 9, 32, 64, 65, 256),
+            (1, 2, 8, 64), ((None, 0), ("gelu", 1), ("silu", 2)), (False, True)):
+        assert bool(rule(cin, cout, act_code, int(sums), code)) == \
+            dgrad_c1_uses_tensor_cores(dtype, cin, cout, act, sums)
 
 
 # Kernel family N, the conv probes: (weights, data) of each wrapper at N
