@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (the eval schedule: one slab, every endpoint stored). Checks the output
    shapes, finiteness, and that each kernel launched as often as the path
    needs it (EXPECTED_LAUNCHES), its tensor-core instances included: every
-   stride-2 conv but the 1→64 stem on the tensor cores.
+   stride-2 conv but the 1→64 stem on the tensor cores, every 1-channel
+   stride-1 conv on the one-input-channel instance.
 5. A small-input reference: a scaled cascade in fp32 on the card (kernels)
    against the same weights on the CPU (plain versions), its stage-3 chains
    streamed at every level.
@@ -52,18 +53,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    of L and of M at the stage-3 shape in fp32 (no atomics); the bf16 64→32
    and 32→64 weight gradients of the stage-3 step (dense and one training
    slab) take the tensor-core instance
-   of E/G/K (its own launch counter), fp32 and 1-channel calls the CUDA-core
-   one; the bf16 64→32 conv and its data gradient (dense and one training
-   slab) take the tensor-core B/H and every bf16 flash forward and backward
+   of E/G/K (its own launch counter), the bf16 1→64 and 1→32 ones (dense and
+   one training slab) the one-input-channel instance, fp32 calls and the
+   1→64 stride-2 stem the CUDA-core one; the bf16 64→32 conv and its data
+   gradient (dense and one training slab) take the tensor-core B/H, the bf16
+   1→64 and 1→32 convs (dense and one training slab of each chain) the
+   one-input-channel B/H, and every bf16 flash forward and backward
    of the training shapes the tensor-core A, D, M and L, the bf16 32→64
    stride-2 conv and its data gradient (dense and one training slab) the
    tensor-core C/I and F/J, the bf16 one-output-channel data gradient of the
    1-channel convs (dense 64→1 and 32→1, one training slab) its own
-   tensor-core instance; their fp32 calls, the 1-channel conv itself and the
-   1→64 stride-2 stem (and its data gradient) the CUDA-core ones. The
-   one-output-channel chain data gradient has its own row in the kernels
-   line (conv3d_k3s1_chain_c1_dgrad: 64→1 over the whole volume, 32→1
-   likewise and the two training slabs, each with its conv3d_input time).
+   tensor-core instance; their fp32 calls and the 1→64 stride-2 stem (and
+   its data gradient) the CUDA-core ones. The one-output-channel chain data
+   gradient has its own row in the kernels line
+   (conv3d_k3s1_chain_c1_dgrad: 64→1 over the whole volume, 32→1 likewise
+   and the two training slabs, each with its conv3d_input time), and so do
+   the one-input-channel instances (conv3d_k3s1_c1in, conv3d_k3s1_chain_c1in,
+   conv3d_k3s1_c1in_wgrad: 1→64 and 1→32 over 256³ and the training slabs,
+   beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem on the
+   CUDA cores (conv3d_k3s2_c1in, conv3d_k3s2_c1in_dgrad,
+   conv3d_k3s2_c1in_wgrad: stage 1's batch of 8 at 64³).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -80,8 +89,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    chain conv and data gradient in every slab, every 32→64 chain conv (I),
    and every flash forward and fused backward of each stage on the tensor
    cores; every bf16 F/J call with Cin, Cout ≥ 8 on the tensor cores, as
-   many launches as the rule names). Stage 3 trains on the config's streamed
-   schedule (8 slabs).
+   many launches as the rule names; every bf16 stride-1 conv and weight
+   gradient with one input channel on the one-input-channel instances).
+   Stage 3 trains on the config's streamed schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -96,8 +106,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    with the split flash backward selected (``ops.attention.FUSED_BWD =
    False``, what ``HVC_FLASH_FUSED_BWD=0`` selects). Checks: D never
    launched, L and M launched in every stage, every bf16 L, M, F/J (Cin,
-   Cout ≥ 8) and one-output-channel data gradient on the tensor cores, as
-   many launches as the rules name, every stage's ``latest`` and
+   Cout ≥ 8), one-output-channel data gradient and one-input-channel
+   stride-1 conv and weight gradient on the tensor cores, as many launches
+   as the rules name, every stage's ``latest`` and
    ``best_*`` written, finite losses, the shared encoder's parameters and
    BatchNorm buffers at ``stage3/latest`` bitwise those at ``stage2/latest``
    while stage 3 moved; the same command again skips every stage (resume);
@@ -189,14 +200,17 @@ SMALL_TOL = (2e-4, 2e-4)
 # 128³ tail (2); the streamed eval schedule (one slab, every endpoint stored)
 # runs the stage-3 upsample conv and the two detail convs as H and the first
 # stage-3 stem conv as I, once each. On the tensor-core instances (bf16): all
-# 36 flash forwards, the 128→256 projection (B; the 1→32 upsample conv stays
-# on the CUDA cores), the detail chain's 64→32 conv (H; the 1→32 and 1→64
-# convs stay), every dense stride-2 conv but stage 1's 1→64 stem (C) and the
-# 32→64 stage-3 stem conv (I).
+# 36 flash forwards, the 128→256 projection (B), the stage-2 1→32 upsample
+# conv (B, one-input-channel instance), the detail chain's 64→32 conv (H),
+# the stage-3 1→32 upsample conv and the detail chain's 1→64 conv (H,
+# one-input-channel instance), every dense stride-2 conv but stage 1's 1→64
+# stem (C, on the CUDA cores, counted in conv3d_k3s2_c1in) and the 32→64
+# stage-3 stem conv (I).
 EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 2, "conv3d_k3s2": 7,
                      "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1,
                      "flash_attention_tc": 36, "conv3d_k3s1_tc": 1, "conv3d_k3s1_chain_tc": 1,
-                     "conv3d_k3s2_tc": 6, "conv3d_k3s2_chain_tc": 1}
+                     "conv3d_k3s1_c1in_tc": 1, "conv3d_k3s1_chain_c1in_tc": 2,
+                     "conv3d_k3s2_tc": 6, "conv3d_k3s2_chain_tc": 1, "conv3d_k3s2_c1in": 1}
 REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
@@ -211,9 +225,12 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 EXP2_PER_CLOCK_PER_SM = 16
 
 # The 1-channel convs of the stage-3 chains at 256³ (1→32, 1→64): the
-# CUDA-core forward stems and weight gradients, and the dense form of the
-# one-output-channel data gradient, each timed beside its library call.
+# one-input-channel forward stems and weight gradients, and the dense form of
+# the one-output-channel data gradient, each timed beside its library call.
 _STEMS = [(1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256))]
+# The stride-2 1→64 stem of stage 1 (64³, the training batch of 8), which
+# stays on the CUDA cores in all three of its kernels.
+_S2_STEM = (8, 1, 64, (64, 64, 64))
 KERNELS = {
     "flash_attention": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention.cu",
@@ -228,28 +245,46 @@ KERNELS = {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
         # (B, Cin, Cout, (D, H, W))
-        "shapes": [(1, 128, 256, (16, 16, 16)), (1, 1, 32, (128, 128, 128)),
-                   (1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256)),
-                   (1, 64, 32, (256, 256, 256))],
+        "shapes": [(1, 128, 256, (16, 16, 16)), (1, 64, 32, (256, 256, 256))],
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 64, 32, (256, 256, 256)),
+    },
+    # B with one input channel: the 1→32 / 1→64 convs, dense (stage 2's
+    # upsample conv at 128³ and the dense stage-3 schedule at 256³)
+    "conv3d_k3s1_c1in": {
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:493",
+        "shapes": [(1, 1, 32, (128, 128, 128)), (1, 1, 32, (256, 256, 256)),
+                   (1, 1, 64, (256, 256, 256))],
+        "ragged": [(2, 1, 8, (5, 6, 70)), (1, 1, 40, (5, 6, 10)), (1, 1, 96, (6, 9, 64))],
+        "hot": (1, 1, 64, (256, 256, 256)),
+        "counter": "conv3d_k3s1_c1in_tc",
         "library_at": _STEMS,
     },
     "conv3d_k3s2": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:225",
-        "shapes": [(1, 1, 64, (64, 64, 64)), (1, 64, 128, (32, 32, 32)),
+        "shapes": [(1, 64, 128, (32, 32, 32)),
                    (1, 32, 64, (128, 128, 128)), (1, 64, 128, (64, 64, 64)),
                    (1, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
                    (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))],
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 32, 64, (256, 256, 256)),
     },
+    # C with one input channel: stage 1's 1→64 stem (CUDA cores)
+    "conv3d_k3s2_c1in": {
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:225",
+        "shapes": [(1, 1, 64, (64, 64, 64)), _S2_STEM],
+        "ragged": [],
+        "hot": _S2_STEM,
+        "counter": "conv3d_k3s2_c1in",
+    },
 }
 
 # Gradient kernels at the shapes of the training slice ([9]): stage 1 at
 # batch 8, stage 2 at batch 2, stage 3 at batch 1.
-_S2_GRAD_SHAPES = [(8, 1, 64, (64, 64, 64)), (8, 64, 128, (32, 32, 32)),
+_S2_GRAD_SHAPES = [(8, 64, 128, (32, 32, 32)),
                    (2, 32, 64, (128, 128, 128)), (2, 64, 128, (64, 64, 64)),
                    (2, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
                    (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))]
@@ -285,11 +320,20 @@ TRAIN_KERNELS = {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:592",
         # (B, Cin, Cout, (D, H, W)) of the forward conv
-        "shapes": [(8, 128, 256, (16, 16, 16)), (2, 1, 32, (128, 128, 128)),
-                   (1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256)),
-                   (1, 64, 32, (256, 256, 256))],
+        "shapes": [(8, 128, 256, (16, 16, 16)), (1, 64, 32, (256, 256, 256))],
         "ragged": _RAGGED_CONV,
         "hot": (1, 64, 32, (256, 256, 256)),
+    },
+    # E with one input channel: the 1→32 / 1→64 convs' weight gradient (its
+    # counter also counts K's one-input-channel launches)
+    "conv3d_k3s1_c1in_wgrad": {
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:592",
+        "shapes": [(2, 1, 32, (128, 128, 128)), (1, 1, 32, (256, 256, 256)),
+                   (1, 1, 64, (256, 256, 256))],
+        "ragged": [(2, 1, 8, (5, 6, 70)), (1, 1, 40, (5, 6, 10)), (1, 1, 96, (6, 9, 64))],
+        "hot": (1, 1, 64, (256, 256, 256)),
+        "counter": "conv3d_k3s1_wgrad_c1in_tc",
         "library_at": _STEMS,
     },
     "conv3d_k3s1_dgrad": {  # kernel B with flipped weights, counted on its own
@@ -314,6 +358,17 @@ TRAIN_KERNELS = {
         "shapes": _S2_GRAD_SHAPES,
         "ragged": _RAGGED_CONV,
         "hot": (1, 32, 64, (256, 256, 256)),
+    },
+    # F and G with one input channel: stage 1's 1→64 stem (CUDA cores)
+    "conv3d_k3s2_c1in_dgrad": {
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:396",
+        "shapes": [_S2_STEM], "ragged": [], "hot": _S2_STEM, "counter": "conv3d_k3s2_dgrad_c1in",
+    },
+    "conv3d_k3s2_c1in_wgrad": {
+        "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
+        "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:535",
+        "shapes": [_S2_STEM], "ragged": [], "hot": _S2_STEM, "counter": "conv3d_k3s2_wgrad_c1in",
     },
 }
 
@@ -363,11 +418,26 @@ _TIMED_C1 = [(1, 1, 32, 256, _CH, _CH, 1, 256, True, None), _TRAIN_C1,
              (1, 1, 32, 35, _CH, _CH, 0, 33, False, None)]
 CHAIN_RAGGED_C1 = [(1, 1, 8, 35, 9, 66, 1, 35, False, None), (2, 1, 40, 5, 6, 20, -1, 7, False, "gelu"),
                    (1, 1, 24, 4, 5, 70, 2, 3, False, "silu")]
+# The one-input-channel chain conv: the stats slabs (1→64 over 34 planes,
+# 1→32 over 34) and store slabs (1→64 over 36, 1→32 over 35) of training;
+# ragged: Cout 8 / 40 / 96 (masked and two Cout tiles), W off the 64-column
+# tile and not a multiple of 8, x before the slab, every option.
+_TIMED_C1IN = [(1, 1, 64, 34, _CH, _CH, 0, 32, True, None), _TRAIN_C1,
+               (1, 1, 32, 34, _CH, _CH, 0, 32, True, None), (1, 1, 32, 35, _CH, _CH, 0, 33, False, None)]
+CHAIN_RAGGED_C1IN = [(2, 1, 8, 5, 6, 70, -1, 7, True, "gelu"), (1, 1, 40, 6, 5, 33, 2, 6, True, "silu"),
+                     (1, 1, 96, 9, 4, 64, 0, 9, True, None)]
 CHAIN_KERNELS = {
     "conv3d_k3s1_chain": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                           "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
-                          "shapes": CHAIN_SHAPES_S1, "ragged": CHAIN_RAGGED, "hot": _HOT_S1,
-                          "timed": [_TRAIN_S1]},
+                          "shapes": [s for s in CHAIN_SHAPES_S1 if s[1] > 1],
+                          "ragged": CHAIN_RAGGED[:3], "hot": _HOT_S1, "timed": [_TRAIN_S1]},
+    # H with one input channel: the 1→64 and 1→32 chain convs
+    "conv3d_k3s1_chain_c1in": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
+                               "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:493",
+                               "shapes": [s for s in CHAIN_SHAPES_S1 if s[1] == 1],
+                               "ragged": CHAIN_RAGGED[3:] + CHAIN_RAGGED_C1IN, "hot": _HOT_C1,
+                               "timed": _TIMED_C1IN, "counter": "conv3d_k3s1_chain_c1in_tc",
+                               "library_at": _TIMED_C1IN},
     "conv3d_k3s1_chain_dgrad": {"source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
                                 "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3.py:439",
                                 "shapes": [s for s in CHAIN_SHAPES_S1 if s[1] > 1],
@@ -447,7 +517,7 @@ def _fns(name: str):
 
     if name == "flash_attention":
         return fa.flash_attention_fwd, fa.flash_attention_plain
-    s = 1 if name == "conv3d_k3s1" else 2
+    s = 2 if name.startswith("conv3d_k3s2") else 1
     return (lambda x, w, b: ck.conv3d_k3(x, w, b, s, 1, (x.shape[2] - 1) // s + 1, dense=True),
             lambda x, w, b: ck.conv3d_k3_plain(x, w, b, s, 1, (x.shape[2] - 1) // s + 1))
 
@@ -805,29 +875,36 @@ class force_streaming:
 
 
 # The tensor-core counters of the kernels whose rule depends on the call's
-# channels (F/J, the one-output-channel B/H) or dtype (L, M), which [9] and
-# [11] hold to the calls the rules name.
+# channels (F/J, the one-output-channel B/H, the one-input-channel B/H and
+# E/K) or dtype (L, M), which [9] and [11] hold to the calls the rules name.
 _RULE_COUNTERS = ("conv3d_k3s2_dgrad_tc", "conv3d_k3s2_chain_dgrad_tc",
                   "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dq_tc",
-                  "conv3d_k3s1_dgrad_c1_tc", "conv3d_k3s1_chain_dgrad_c1_tc")
+                  "conv3d_k3s1_dgrad_c1_tc", "conv3d_k3s1_chain_dgrad_c1_tc",
+                  "conv3d_k3s1_c1in_tc", "conv3d_k3s1_chain_c1in_tc", "conv3d_k3s1_wgrad_c1in_tc")
 
 
 class rule_calls:
     """Within the block, count per tensor-core counter the calls of F/J
     (``conv3d_k3._dgrad_s2``), M (``flash_attention._bwd_dkv``), L
-    (``flash_attention._bwd_dq``) and the stride-1 conv with one output
-    channel (``conv3d_k3._fwd``) that the Python rules
+    (``flash_attention._bwd_dq``), the stride-1 conv with one output or one
+    input channel (``conv3d_k3._fwd``) and the weight gradient with one input
+    channel (``conv3d_k3._wgrad``) that the Python rules
     (``dgrad_s2_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``,
-    ``bwd_dq_uses_tensor_cores``, ``dgrad_c1_uses_tensor_cores``) send to the
-    tensor cores: the wrappers' launch functions are wrapped, so every call on
-    the path is seen."""
+    ``bwd_dq_uses_tensor_cores``, ``dgrad_c1_uses_tensor_cores``,
+    ``fwd_c1in_uses_tensor_cores``, ``wgrad_instance``) send to the tensor
+    cores, and in ``c1in_bf16`` every bf16 stride-1 forward (``fwd``) and
+    weight gradient (``wgrad``) with one input channel, whatever the rules
+    say: the wrappers' launch functions are wrapped, so every call on the
+    path is seen."""
 
     def __enter__(self):
         from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
         self.n = dict.fromkeys(_RULE_COUNTERS, 0)
-        self.real = real_d, real_m, real_l, real_f = ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd
+        self.c1in_bf16 = {"fwd": 0, "wgrad": 0}
+        self.real = real_d, real_m, real_l, real_f, real_w = (ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq,
+                                                               ck._fwd, ck._wgrad)
 
         def dgrad(g, w, x_shape, qlo, dact=None, dense=False):
             if ck.dgrad_s2_uses_tensor_cores(g.dtype, x_shape[1], w.shape[0]):
@@ -844,19 +921,41 @@ class rule_calls:
 
         def fwd(entry, stride, x, w, bias, qlo, d_out, want_sums=False, act=None, dact=None,
                 dense=False):
-            if stride == 1 and ck.dgrad_c1_uses_tensor_cores(x.dtype, x.shape[1], w.shape[0],
-                                                             act, want_sums):
+            cin, cout = x.shape[1], w.shape[0]
+            if stride == 1 and ck.dgrad_c1_uses_tensor_cores(x.dtype, cin, cout, act, want_sums):
                 self.n[_RULE_COUNTERS[4] if dense else _RULE_COUNTERS[5]] += 1
+            if ck.fwd_c1in_uses_tensor_cores(x.dtype, stride, cin, cout, dact is not None):
+                self.n[_RULE_COUNTERS[6] if dense else _RULE_COUNTERS[7]] += 1
+            if stride == 1 and cin == 1 and x.dtype == torch.bfloat16:
+                self.c1in_bf16["fwd"] += 1
             return real_f(entry, stride, x, w, bias, qlo, d_out, want_sums, act, dact, dense)
 
-        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd = dgrad, dkv, dq, fwd
+        def wgrad(entry, stride, x, g, qlo, act=None):
+            if ck.wgrad_instance(x.dtype, stride, x.shape[1]) == ck.WGRAD_C1IN_TC:
+                self.n[_RULE_COUNTERS[8]] += 1
+            if stride == 1 and x.shape[1] == 1 and x.dtype == torch.bfloat16:
+                self.c1in_bf16["wgrad"] += 1
+            return real_w(entry, stride, x, g, qlo, act)
+
+        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd, ck._wgrad = dgrad, dkv, dq, fwd, wgrad
         return self
 
     def __exit__(self, *exc):
         from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
-        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd = self.real
+        ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd, ck._wgrad = self.real
+
+
+def check_c1in(launched: dict, calls: dict, where: str) -> None:
+    """Every bf16 stride-1 conv and weight gradient with one input channel
+    (``calls``: ``rule_calls.c1in_bf16``) launched the one-input-channel
+    instance."""
+    fwd = launched["conv3d_k3s1_c1in_tc"] + launched["conv3d_k3s1_chain_c1in_tc"]
+    if (fwd, launched["conv3d_k3s1_wgrad_c1in_tc"]) != (calls["fwd"], calls["wgrad"]):
+        raise AssertionError(f"{where}: {fwd} forward and {launched['conv3d_k3s1_wgrad_c1in_tc']} "
+                             f"weight-gradient launches on the one-input-channel instances, for "
+                             f"{calls} bf16 stride-1 calls with one input channel")
 
 
 def chain_phase(dev, seed: int, size: int = 256) -> dict:
@@ -997,6 +1096,7 @@ def train_full_width(cfg, dev, seed: int) -> dict:
             r = train_steps(model, cfg, stage, b, TRAIN_STEPS, g, loss_obj=loss_obj)
         # every step runs the same calls: the warm-up step's share of them
         r["tc_rule_calls_per_step"] = {k: n / (1 + TRAIN_STEPS) for k, n in rc.n.items()}
+        r["c1in_bf16_calls_per_step"] = {k: n / (1 + TRAIN_STEPS) for k, n in rc.c1in_bf16.items()}
         res = (64, 128, 256)[stage - 1]
         key = f"train_stage{stage}_{res}_b{b}_steps_per_sec"
         r[key] = r.pop("steps_per_sec")
@@ -1047,6 +1147,13 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     if not step3["conv3d_k3s1_chain_dgrad_c1_tc"]:
         raise AssertionError(f"[9] the stage-3 step ran no one-output-channel data gradient on "
                              f"the tensor cores: {step3}")
+    # every bf16 stride-1 conv and weight gradient with one input channel of
+    # each step took the one-input-channel instances; stage 3 ran both
+    for stage, r in out.items():
+        check_c1in(r["launches_per_step"], r["c1in_bf16_calls_per_step"], f"[9] {stage}")
+    if not (step3["conv3d_k3s1_chain_c1in_tc"] and step3["conv3d_k3s1_wgrad_c1in_tc"]):
+        raise AssertionError(f"[9] the stage-3 step ran no one-input-channel conv or weight "
+                             f"gradient on the tensor cores: {step3}")
     return out
 
 
@@ -1102,15 +1209,26 @@ _TC_WGRAD_CALLS = [("conv3d_k3s1_wgrad", (1, 64, 32, (256, 256, 256))),
 def tc_wgrad_dispatch(dev, seed: int) -> dict:
     """Phase 7e: the bf16 64→32 and 32→64 weight gradients of the stage-3
     step launch the tensor-core instance (conv3d_k3s{1,2}_wgrad_tc counts
-    them); the same calls in fp32, and the 1-channel ones, do not."""
+    them), the bf16 1→64 and 1→32 ones (dense and one training slab of each
+    chain) the one-input-channel instance (conv3d_k3s1_wgrad_c1in_tc); the
+    same calls in fp32, and the 1→64 stride-2 stem's, neither."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 
     out = {}
-    calls = [(n, sh, torch.bfloat16, True) for n, sh in _TC_WGRAD_CALLS]
-    calls += [(n, sh, torch.float32, False) for n, sh in _TC_WGRAD_CALLS[2:]]
-    calls += [("conv3d_k3s1_wgrad", (1, 1, 64, (256, 256, 256)), torch.bfloat16, False)]
-    for name, shape, dtype, want_tc in calls:
-        counter = f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
+    calls = [(n, sh, torch.bfloat16, True, None) for n, sh in _TC_WGRAD_CALLS]
+    calls += [(n, sh, torch.float32, False, None) for n, sh in _TC_WGRAD_CALLS[2:]]
+    calls += [("conv3d_k3s1_wgrad", (1, 1, 64, (256, 256, 256)), torch.bfloat16, False, None)]
+    c1in = "conv3d_k3s1_wgrad_c1in_tc"
+    calls += [(n, sh, dt, dt == torch.bfloat16, c1in)
+              for n, sh in (("conv3d_k3s1_wgrad", (1, 1, 64, (256, 256, 256))),
+                            ("conv3d_k3s1_wgrad", (1, 1, 32, (256, 256, 256))),
+                            ("conv3d_k3s1_chain_wgrad", _TRAIN_C1),
+                            ("conv3d_k3s1_chain_wgrad", _TIMED_C1IN[3]))
+              for dt in (torch.bfloat16, torch.float32)]
+    calls += [("conv3d_k3s2_wgrad", _S2_STEM, torch.bfloat16, False, c) for c in
+              ("conv3d_k3s2_wgrad_tc", c1in)]
+    for name, shape, dtype, want_tc, counter in calls:
+        counter = counter or f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
         if "chain" in name:
             args, fn = _chain_inputs(name, shape, dtype, dev, seed), _chain_fns(name)[0]
         else:
@@ -1119,11 +1237,11 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
         fn(*args)
         torch.cuda.synchronize()
         took = ck.LAUNCHES[counter] - before
-        key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+        key = f"{name} {shape} {str(dtype).replace('torch.', '')} {counter}"
         out[key] = took
-        log(f"[7] {key:74s} tensor-core launches {took} (expected {int(want_tc)})")
+        log(f"[7] {key:100s} launches {took} (expected {int(want_tc)})")
         if took != int(want_tc):
-            raise AssertionError(f"[7] {key}: {took} tensor-core launches, expected "
+            raise AssertionError(f"[7] {key}: {took} launches on {counter}, expected "
                                  f"{int(want_tc)}")
         del args
     return out
@@ -1175,9 +1293,17 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
                                ("conv3d_k3s1_chain_c1_dgrad", _TRAIN_C1,
                                 "conv3d_k3s1_chain_dgrad_c1_tc"))
               for dt in (torch.bfloat16, torch.float32)]
-    calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_tc", torch.bfloat16, False),
-              ("conv3d_k3s2_dgrad", (8, 1, 64, (64, 64, 64)), "conv3d_k3s2_dgrad_tc",
-               torch.bfloat16, False)]
+    # the 1-channel convs themselves: dense 1→64 and 1→32, and one training
+    # slab of each chain, bf16 on the one-input-channel instance, fp32 not
+    calls += [(n, sh, c, dt, dt == torch.bfloat16)
+              for n, sh, c in (("conv3d_k3s1", (1, 1, 64, (256, 256, 256)), "conv3d_k3s1_c1in_tc"),
+                               ("conv3d_k3s1", (1, 1, 32, (256, 256, 256)), "conv3d_k3s1_c1in_tc"),
+                               ("conv3d_k3s1_chain", _TIMED_C1IN[0], "conv3d_k3s1_chain_c1in_tc"),
+                               ("conv3d_k3s1_chain", _TIMED_C1IN[3], "conv3d_k3s1_chain_c1in_tc"))
+              for dt in (torch.bfloat16, torch.float32)]
+    calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), c, torch.bfloat16, False)
+              for c in ("conv3d_k3s2_tc", "conv3d_k3s1_c1in_tc")]
+    calls += [("conv3d_k3s2_dgrad", _S2_STEM, "conv3d_k3s2_dgrad_tc", torch.bfloat16, False)]
     calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
               for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
                         "flash_attention_bwd_dq")
@@ -1194,7 +1320,7 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
         fn(*args)
         torch.cuda.synchronize()
         took = launch_counts()[counter] - before
-        key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+        key = f"{name} {shape} {str(dtype).replace('torch.', '')} {counter}"
         out[key] = took
         log(f"[7] {key:74s} tensor-core launches {took} (expected {int(want_tc)})")
         if took != int(want_tc):
@@ -1291,15 +1417,18 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
         f"stage-3 step (trained encoder, D) {fused_stage3_ms:.1f} ms (information only)")
     if launched["flash_attention_bwd"]:
         raise AssertionError(f"[11] kernel D launched under FUSED_BWD=False: {launched}")
-    log(f"[11] tensor-core F, J, M, L and one-output-channel dgrad launches "
-        f"{ {k: launched[k] for k in _RULE_COUNTERS} }, calls the rules name {rc.n}")
+    log(f"[11] tensor-core F, J, M, L, one-output-channel dgrad and one-input-channel conv "
+        f"and wgrad launches {({k: launched[k] for k in _RULE_COUNTERS})}, calls the rules name "
+        f"{rc.n}; bf16 stride-1 calls with one input channel {rc.c1in_bf16}")
     # the one-output-channel data gradient runs only where the 1-channel
     # convs' input needs a gradient, which the frozen-encoder split step's
     # does not ([9]'s stage-3 step runs it)
     if any(launched[k] != rc.n[k] for k in _RULE_COUNTERS) or not all(
-            rc.n[k] for k in _RULE_COUNTERS if "c1" not in k):
-        raise AssertionError(f"[11] tensor-core F/J/M/L/one-output-channel launches differ from "
-                             f"the calls the rules name, or one never ran: {launched} vs {rc.n}")
+            rc.n[k] for k in _RULE_COUNTERS if "dgrad_c1" not in k):
+        raise AssertionError(f"[11] tensor-core F/J/M/L/one-output-channel/one-input-channel "
+                             f"launches differ from the calls the rules name, or one never ran: "
+                             f"{launched} vs {rc.n}")
+    check_c1in(launched, rc.c1in_bf16, "[11]")
 
     rows = [json.loads(line) for line in (save_dir / "training_log.jsonl").read_text().splitlines()]
     for n in (1, 2, 3):
@@ -1418,6 +1547,10 @@ _TC_COUNTERS = {"flash_attention": "flash_attention_tc",
                 "conv3d_k3s2_dgrad": "conv3d_k3s2_dgrad_tc",
                 "conv3d_k3s2_chain_dgrad": "conv3d_k3s2_chain_dgrad_tc",
                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_tc"}
+# The rows of the stride-2 1→64 stem: on the CUDA cores by the rules.
+_STEM_INSTANCE = ("CUDA cores: the stride-2 kernels with one input channel (conv3d_k3_kernel "
+                  "CI_C = 1, dgrad_s2_kernel, wgrad_kernel CI_C = 1), by fwd_uses_tensor_cores, "
+                  "dgrad_s2_uses_tensor_cores and wgrad_instance")
 
 
 def _tc_rule(counter: str) -> str:
@@ -1428,10 +1561,11 @@ def _tc_rule(counter: str) -> str:
 
     rule = (fa.bwd_dkv_uses_tensor_cores if counter.startswith("flash_attention_bwd_dkv") else
             fa.bwd_dq_uses_tensor_cores if counter.startswith("flash_attention_bwd_dq") else
-            ck.dgrad_c1_uses_tensor_cores if "c1" in counter else
             fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
             fa.fwd_uses_tensor_cores if counter.startswith("flash") else
-            ck.wgrad_uses_tensor_cores if "wgrad" in counter else
+            ck.wgrad_instance if "wgrad" in counter else
+            ck.fwd_c1in_uses_tensor_cores if "c1in" in counter else
+            ck.dgrad_c1_uses_tensor_cores if "c1" in counter else
             ck.dgrad_s2_uses_tensor_cores if "s2" in counter and "dgrad" in counter else
             ck.fwd_uses_tensor_cores)
     return " ".join(inspect.getdoc(rule).split())
@@ -1673,8 +1807,14 @@ def main() -> int:
                 for sh in spec["library_at"]]
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
-        tc = _TC_COUNTERS.get(name) or (name.endswith("wgrad") and
-                                        f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
+        counter = spec.get("counter")
+        if counter:  # an instance's own row: its counter is a tensor-core one, or none
+            tc = counter if counter.endswith("_tc") else None
+        else:
+            tc = _TC_COUNTERS.get(name) or (name.endswith("wgrad") and
+                                            f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
+        if counter and not tc:
+            kernels[-1]["instance"] = _STEM_INSTANCE
         if tc:  # launches that took the tensor-core instance
             kernels[-1]["instance"] = _tc_rule(tc)
             kernels[-1]["tc_counter"] = tc

@@ -43,9 +43,12 @@
 // (fwd_uses_tc, which the wrapper reads through hvc_conv3d_k3_fwd_tc), and
 // so does the bf16 stride-1 call with one output channel and 8 ≤ Cin ≤ 64,
 // the one-output-channel data gradient (c1_uses_tc, read through
-// hvc_conv3d_k3s1_c1_tc: conv_c1_tc_kernel below); fp32 (the tensor cores
-// would mean TF32, outside the fp32 tolerances) and the 1-channel stems take
-// the CUDA cores.
+// hvc_conv3d_k3s1_c1_tc: conv_c1_tc_kernel below), and so does the bf16
+// stride-1 call with one input channel, Cout ≥ 8 and no act′ epilogue, the
+// forward of the 1→32 / 1→64 convs (c1in_uses_tc, read through
+// hvc_conv3d_k3s1_c1in_tc: conv_c1in_tc_kernel below); fp32 (the tensor
+// cores would mean TF32, outside the fp32 tolerances) and the stride-2
+// 1-channel stem take the CUDA cores.
 //
 // B/H on the tensor cores (conv_tc_kernel): the implicit GEMM out[co, voxel]
 // = Σ_{tap, ci} w_tap[co, ci] · x_tap[ci, voxel] with M = Cout (32 a block,
@@ -83,8 +86,8 @@
 // both converted to fp32 once. The
 // weights are stored [ci][tap][co] so each tap's 32 output channels are read
 // as eight float4 broadcasts: four FMAs per shared-memory load. Input
-// channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems do no
-// zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
+// channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems (fp32,
+// and the stride-2 stem in bf16) do no zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
 // fp32 data gradient of the 1→C convs, which kernel B computes with Cout = 1
 // (the bf16 one takes conv_c1_tc_kernel). The
 // sums epilogue costs a warp-shuffle reduction per channel, small beside the
@@ -357,6 +360,13 @@ constexpr int kTcSmem = (kTcPatch + kTcWts) * 2; // 100,224 bytes: two blocks an
 __device__ __forceinline__ unsigned short act_bits(int act, unsigned short u) {
   const float v = act_f32(act, __bfloat162float(__ushort_as_bfloat16(u)));
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t act_bf16x2(int act, uint32_t w) {
+  const float lo = act_f32(act, __uint_as_float(w << 16));
+  const float hi = act_f32(act, __uint_as_float(w & 0xffff0000u));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
 // Block (blockIdx.x, blockIdx.y): Cout tile blockIdx.x % n_co (fastest, so
@@ -837,6 +847,298 @@ int launch_c1_tc(const void* x, const void* w, const void* bias, void* out, long
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------ the one-input-channel B/H on the tensor cores ---
+
+constexpr int kCiThreads = 256;                     // 8 warps
+constexpr int kCiWarps = kCiThreads / 32;
+constexpr int kCiTd = 4, kCiTh = 4, kCiTw = 64;     // output voxels per block: 1,024
+constexpr int kCiPd = kCiTd + 2, kCiPh = kCiTh + 2; // staged planes and rows of a copy
+// A copy is the block's input patch shifted by dx − 1 along W: copy dx, plane
+// pd, row ph, column c holds act(x) at view plane od0 − qlo + pd, row
+// oh0 − 1 + ph, column ow0 − 1 + dx + c. Its pitches make tap t = (dz, dy, dx)
+// start 16·t bytes (mod 128) after tap 0 — rows 176 ≡ 48, planes 1,168 ≡ 16,
+// copies 7,056 ≡ 16 (mod 128) — so the 8 taps of one ldmatrix phase hit 8
+// different bank groups.
+constexpr int kCiRow = 88;                          // bf16 per row: 64 columns + pad
+constexpr int kCiPlane = 584;                       // bf16 per plane: 6 rows + pad
+constexpr int kCiCopy = 3528;                       // bf16 per copy: 6 planes + pad
+constexpr int kCiZero = 3 * kCiCopy;                // the zero rows of taps 27-31, from
+                                                    // 16·27 ≡ 48 (mod 128) like tap 27's
+constexpr int kCiZeroLen = 256;                     // bf16: room for every offset a row takes
+constexpr int kCiOld = 24;                          // bf16 per channel row of a warp's output
+                                                    // tile (16 columns + pad): 48 bytes
+constexpr int kCiWLd = 40;                          // bf16 per weight row ([co][tap]): 80 bytes
+
+template <int MT>
+constexpr int c1in_smem() {  // xs copies + zero rows, weights, the warps' output tiles
+  return (kCiZero + kCiZeroLen + MT * 16 * kCiWLd + kCiWarps * MT * 16 * kCiOld) * 2;
+}
+
+// out[co, voxel] = bias[co] + Σ_tap w[co, 0, tap] · act(x)[voxel + tap],
+// as conv3d_k3_kernel computes it with one input channel, for Cout ≥ 8 and no
+// act′ epilogue (c1in_uses_tc): the TPU kernel's own product
+// (_conv_kernel_smallcin), M = Cout (MT 16-row tiles a block: 32 for Cout ≤
+// 32, else 64 and ⌈Cout/64⌉ blocks a voxel tile), N = output voxels, K = the
+// 27 taps padded to 32 (two k16 steps), on mma.sync m16n8k16 bf16 → fp32.
+// The weights' A fragments stay in registers for the block. The alignment
+// trap: a dx tap shifts x by one bf16 along W, so a B row (one tap, 8
+// neighbouring voxels) is 16-byte aligned for only one dx; with one input
+// channel there is nothing to stack channels-innermost. Way out: the block
+// stages three copies of its input patch, each pre-shifted by dx − 1 (16-byte
+// loads of x's rows, the shifts by byte permutes in registers, the act
+// prologue in fp32 rounded to bf16 on the way), so every tap of 8 voxels is an
+// aligned row and ldmatrix.trans gives the B fragments of both k steps in one
+// x4 load; taps 27-31 read zero rows. The products are tiny (58 GFLOP for
+// 1→64 at 256³); what bounds the kernel is writing the output, 32 or 64
+// times the bytes of x. Epilogue: the accumulators start at the bias, each
+// warp rounds its 16-column step once to bf16 into its own shared tile
+// ([co][16 columns]), takes Σ/Σ² of the rounded values, and writes the tile
+// back with 16-byte stores (32-byte rows per channel); Σ/Σ² by quad shuffles,
+// then the 8 warps in order, one partial per block. Block blockIdx.x: Cout
+// tile fastest, then the voxel tile (W fastest, then H, then D); batch
+// blockIdx.y. Warp w: plane w / 2, rows 2·(w % 2) + {0, 1}, 64 columns each,
+// in 16-column steps. VEC: W, the batch stride and x are 16-byte aligned, so
+// x and the output move in 16-byte vectors; otherwise element by element.
+template <int MT, bool CHAIN, bool VEC>
+__global__ void __launch_bounds__(kCiThreads, 2)
+conv_c1in_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const float* __restrict__ bias, bf16* __restrict__ out, int cout, int H,
+                    int W, int Do, int n_co, ChainArgs ca) {
+  constexpr int CO = MT * 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 3 copies, then the zero rows
+  bf16* ws = xs + kCiZero + kCiZeroLen;                 // [co][tap]
+  bf16* ot = ws + CO * kCiWLd;                   // [warp][co][16 columns]
+  __shared__ float red[kCiWarps][CO][2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_w = (W + kCiTw - 1) / kCiTw, tiles_h = (H + kCiTh - 1) / kCiTh;
+  const int co0 = static_cast<int>(blockIdx.x % n_co) * CO;
+  const int tile = static_cast<int>(blockIdx.x / n_co);
+  const int ow0 = tile % tiles_w * kCiTw;
+  const int oh0 = tile / tiles_w % tiles_h * kCiTh;
+  const int od0 = tile / (tiles_w * tiles_h) * kCiTd;
+  const long long b = blockIdx.y;
+  const long long plane = static_cast<long long>(H) * W;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) + b * ca.xb;
+
+  // the weights, [co][tap], zero past tap 26 and Cout; the zero rows
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(ws);
+  for (int u = tid; u < CO * 32; u += kCiThreads) {
+    const int co = u / 32, tap = u % 32;
+    wsm[co * kCiWLd + tap] = tap < 27 && co0 + co < cout ? wg[(co0 + co) * 27 + tap] : 0;
+  }
+  if (tid < kCiZeroLen / 8) reinterpret_cast<uint4*>(xs + kCiZero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+
+  // the three copies: unit (plane pd, row ph, 8-column chunk j) reads x's
+  // vectors at columns ow0 − 8 + 8·{j, j + 1, j + 2} and writes chunk j of
+  // each copy; zero outside the view's planes and the image
+  for (int u = tid; u < kCiPd * kCiPh * 8; u += kCiThreads) {
+    const int j = u % 8, r = u / 8, pd = r / kCiPh, ph = r % kCiPh;
+    const int p = od0 - ca.qlo + pd, ih = oh0 - 1 + ph, c = ow0 - 8 + 8 * j;
+    const bool row_ok = p >= 0 && p < ca.nv && ih >= 0 && ih < H;
+    const unsigned short* src = xb + (row_ok ? p * plane + static_cast<long long>(ih) * W : 0);
+    uint32_t v[3][4];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int ck = c + 8 * k;
+      if (VEC) {
+        const bool ok = row_ok && ck >= 0 && ck < W;  // W % 8 = 0: a vector is all in or out
+        const uint4 q = ok ? *reinterpret_cast<const uint4*>(src + ck) : make_uint4(0u, 0u, 0u, 0u);
+        v[k][0] = q.x, v[k][1] = q.y, v[k][2] = q.z, v[k][3] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = ck + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 >= 0 && c0 < W ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 >= 0 && c1 < W ? src[c1] : 0;
+          v[k][i] = lo | (hi << 16);
+        }
+      }
+    }
+    if constexpr (CHAIN) {
+      if (ca.act) {  // the prologue, rounded to bf16; act(0) = 0 keeps the padding
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[k][i] = act_bf16x2(ca.act, v[k][i]);
+      }
+    }
+    // copy 0: columns c + 7 … c + 14 (the last of vector j, then j + 1);
+    // copy 1: vector j + 1; copy 2: columns c + 9 … c + 16
+    bf16* dst = xs + pd * kCiPlane + ph * kCiRow + 8 * j;
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(__byte_perm(v[0][3], v[1][0], 0x5432), __byte_perm(v[1][0], v[1][1], 0x5432),
+                   __byte_perm(v[1][1], v[1][2], 0x5432), __byte_perm(v[1][2], v[1][3], 0x5432));
+    *reinterpret_cast<uint4*>(dst + kCiCopy) = make_uint4(v[1][0], v[1][1], v[1][2], v[1][3]);
+    *reinterpret_cast<uint4*>(dst + 2 * kCiCopy) =
+        make_uint4(__byte_perm(v[1][0], v[1][1], 0x5432), __byte_perm(v[1][1], v[1][2], 0x5432),
+                   __byte_perm(v[1][2], v[1][3], 0x5432), __byte_perm(v[1][3], v[2][0], 0x5432));
+  }
+  __syncthreads();
+
+  uint32_t a[2][MT][4];  // [k step][16-row co tile]
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) load_a(a[kk][mt], ws, kCiWLd, mt * 16, kk * 16, lane);
+
+  // this lane's row of the ldmatrix.trans B loads: tap `lane` of an 8-voxel
+  // group (the 16-byte-aligned start of its row in its copy, or a zero row)
+  const int vz = warp >> 1, vy0 = (warp & 1) * 2;
+  const int tz = lane / 9, ty = (lane / 3) % 3, tx = lane % 3;
+  const int wofs = vz * kCiPlane + vy0 * kCiRow;
+  const bf16* lrow = lane < 27 ? xs + tx * kCiCopy + tz * kCiPlane + ty * kCiRow + wofs
+                               : xs + kCiZero + (8 * (lane - 27) + wofs) % 64;
+
+  // the fragment's channels: co0 + 16·mt + lane / 4 + 8·half
+  float bco[MT][2], s1[MT][2], s2[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co0 + mt * 16 + (lane >> 2) + half * 8;
+      bco[mt][half] = co < cout ? bias[co] : 0.f;
+      s1[mt][half] = s2[mt][half] = 0.f;
+    }
+  const long long oplane = plane;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const int od = od0 + vz;
+  bf16* otw = ot + warp * CO * kCiOld;
+  // the store's lanes: 16 channel rows × 2 chunks of 8 columns, so each
+  // ldmatrix-like phase of 8 lanes reads 8 rows (conflict-free at 48 bytes)
+  const int st_chunk = (lane >> 3) & 1, st_row = (lane & 7) | ((lane >> 4) << 3);
+
+#pragma unroll 1
+  for (int step = 0; step < 2 * kCiTw / 16; ++step) {
+    const int vy = vy0 + step / (kCiTw / 16), c16 = step % (kCiTw / 16);
+    const int oh = oh0 + vy, owb = ow0 + 16 * c16;
+    float acc[2][MT][4];  // [8-voxel group][16-row co tile][fragment]
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      uint32_t r[4];
+      ldsm_x4_t(r, lrow + (step / (kCiTw / 16)) * kCiRow + 16 * c16 + 8 * q);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        acc[q][mt][0] = acc[q][mt][1] = bco[mt][0];
+        acc[q][mt][2] = acc[q][mt][3] = bco[mt][1];
+        mma16816(acc[q][mt], a[0][mt], r[0], r[1]);
+        mma16816(acc[q][mt], a[1][mt], r[2], r[3]);
+      }
+    }
+    // round once, into the warp's tile; Σ/Σ² of the rounded values inside
+    // the output
+    const bool row_ok = od < Do && oh < H;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int ow = owb + 8 * q + 2 * (lane & 3);
+      const bool ok0 = row_ok && ow < W, ok1 = row_ok && ow + 1 < W;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t pk = pack_bf16x2(acc[q][mt][2 * half], acc[q][mt][2 * half + 1]);
+          *reinterpret_cast<uint32_t*>(otw + (mt * 16 + (lane >> 2) + half * 8) * kCiOld + 8 * q +
+                                       2 * (lane & 3)) = pk;
+          const float f0 = ok0 ? __uint_as_float(pk << 16) : 0.f;
+          const float f1 = ok1 ? __uint_as_float(pk & 0xffff0000u) : 0.f;
+          s1[mt][half] += f0 + f1;
+          s2[mt][half] += f0 * f0 + f1 * f1;
+        }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < MT; ++it) {
+      const int row = it * 16 + st_row, co = co0 + row;
+      const int ow = owb + 8 * st_chunk;
+      const uint4 val = *reinterpret_cast<const uint4*>(otw + row * kCiOld + 8 * st_chunk);
+      if (!row_ok || co >= cout || ow >= W) continue;
+      bf16* dst = out + (b * cout + co) * ovol + od * oplane + static_cast<long long>(oh) * W + ow;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+        const uint32_t wv[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (ow + e < W)
+            dst[e] = __ushort_as_bfloat16(static_cast<unsigned short>(wv[e >> 1] >> (16 * (e & 1))));
+      }
+    }
+    __syncwarp();  // the tile is read before the next step writes it
+  }
+
+  if constexpr (CHAIN) {
+    if (ca.partial != nullptr) {  // block-uniform branch
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float s = s1[mt][half], q = s2[mt][half];
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {  // the quad: the voxels of this row
+            s += __shfl_xor_sync(0xffffffffu, s, off);
+            q += __shfl_xor_sync(0xffffffffu, q, off);
+          }
+          if ((lane & 3) == 0) {
+            const int c = mt * 16 + (lane >> 2) + half * 8;
+            red[warp][c][0] = s;
+            red[warp][c][1] = q;
+          }
+        }
+      __syncthreads();
+      if (tid < 2 * CO) {  // the warps in order, one partial per block
+        const int c = tid / 2, k = tid % 2;
+        if (co0 + c < cout) {
+          float t = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < kCiWarps; ++wi) t += red[wi][c][k];
+          const long long nblk = gridDim.x / n_co;
+          ca.partial[((b * cout + co0 + c) * nblk + tile) * 2 + k] = t;
+        }
+      }
+    }
+  }
+}
+
+template <int MT, bool CHAIN>
+int launch_c1in_tc_mt(const void* x, const void* w, const void* bias, void* out,
+                      long long batch, int cout, int H, int W, int Do, const ChainArgs& ca,
+                      float* sums, cudaStream_t stream) {
+  const long long tiles = static_cast<long long>((Do + kCiTd - 1) / kCiTd) *
+                          ((H + kCiTh - 1) / kCiTh) * ((W + kCiTw - 1) / kCiTw);
+  const int n_co = (cout + MT * 16 - 1) / (MT * 16);
+  if (tiles * n_co > 2147483647LL || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = W % 8 == 0 && ca.xb % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto kern = vec ? conv_c1in_tc_kernel<MT, CHAIN, true> : conv_c1in_tc_kernel<MT, CHAIN, false>;
+  constexpr int smem = c1in_smem<MT>();
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles * n_co), static_cast<unsigned>(batch)), kCiThreads,
+         smem, stream>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                         static_cast<const float*>(bias), static_cast<bf16*>(out), cout, H, W,
+                         Do, n_co, ca);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ca.partial == nullptr) return static_cast<int>(e);
+  const long long rows = batch * cout;
+  if (rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  sum_block_partials_kernel<<<static_cast<unsigned>(rows), kSumThreads, 0, stream>>>(
+      ca.partial, sums, tiles, static_cast<int>(rows));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CHAIN>
+int launch_c1in_tc(const void* x, const void* w, const void* bias, void* out, long long batch,
+                   int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
+                   cudaStream_t stream) {
+  return cout <= 32
+             ? launch_c1in_tc_mt<2, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream)
+             : launch_c1in_tc_mt<4, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream);
+}
+
 // ------------------------------------------- C and I on the tensor cores ---
 
 constexpr int kS2Threads = 256;                  // 8 warps
@@ -858,13 +1160,6 @@ constexpr int kS2Smem = (kS2Patch + kS2Wts) * 2; // 102,816 bytes: two blocks an
 // position of patch column pw within its row: the even columns, then the
 // odd ones, so output voxel ox reads position ox + {0, 17, 1} at tap dx
 __device__ __forceinline__ int s2_pcol(int pw) { return (pw & 1) * kS2Pwe + (pw >> 1); }
-
-__device__ __forceinline__ uint32_t act_bf16x2(int act, uint32_t w) {
-  const float lo = act_f32(act, __uint_as_float(w << 16));
-  const float hi = act_f32(act, __uint_as_float(w & 0xffff0000u));
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
-}
 
 // Block (blockIdx.x, blockIdx.y): Cout tile blockIdx.x % n_co (fastest, so
 // the Cout tiles of one voxel tile run together and share its rows in L2),
@@ -1156,6 +1451,19 @@ bool c1_uses_tc(int stride, bool bf16, int cin, int cout, int act, bool sums) {
   return stride == 1 && bf16 && cout == 1 && cin >= 8 && cin <= kC1Ci && act == 0 && !sums;
 }
 
+// The one-input-channel call's instance, likewise explicit: bf16 at stride 1
+// with Cin = 1, Cout ≥ 8 and no act′ epilogue — the forward of the stage-3
+// chains' 1→32 and 1→64 convs, dense or chain, with or without the prologue
+// and Σ/Σ² — takes conv_c1in_tc_kernel. It does not take the act′ epilogue:
+// no call of the main path with one input channel has it (that would be the
+// data gradient of a conv with one output channel, which the cascade does
+// not have), so such a call stays on the CUDA cores, as do fp32 (TF32 would
+// leave the fp32 tolerances) and Cin 2-7 (K = 27·Cin would need another
+// layout of the copies). The wrapper reads it through hvc_conv3d_k3s1_c1in_tc.
+bool c1in_uses_tc(int stride, bool bf16, int cin, int cout, int dact) {
+  return stride == 1 && bf16 && cin == 1 && cout >= 8 && dact == 0;
+}
+
 template <int S, bool CHAIN, typename T>
 int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, void* out,
                long long batch, int cin, int cout, int H, int W, int Do, const ChainArgs& ca,
@@ -1174,6 +1482,8 @@ int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, 
     if (c1_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout, ca.act,
                    ca.partial != nullptr))
       return launch_c1_tc<CHAIN>(x, w, bias, out, batch, cin, H, W, Do, ca, s);
+    if (c1in_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout, ca.dact))
+      return launch_c1in_tc<CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, s);
     if (cout == 1 && cin >= 4)
       return launch<T, S, TH, TW, 4, 1, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, Ho,
                                                Wo, ca, sums, s);
@@ -1253,4 +1563,12 @@ extern "C" int hvc_conv3d_k3_fwd_tc(int stride, int cin, int cout, int dtype) {
 // counts its launches by.
 extern "C" int hvc_conv3d_k3s1_c1_tc(int cin, int cout, int act, int sums, int dtype) {
   return c1_uses_tc(1, dtype == 1, cin, cout, act, sums != 0) ? 1 : 0;
+}
+
+// 1 if hvc_conv3d_k3s1_fwd runs a call with these channel counts, act′
+// epilogue (dact code) and dtype on the one-input-channel tensor-core
+// instance, else 0: the rule of dispatch_t, which the wrapper counts its
+// launches by.
+extern "C" int hvc_conv3d_k3s1_c1in_tc(int cin, int cout, int dact, int dtype) {
+  return c1in_uses_tc(1, dtype == 1, cin, cout, dact) ? 1 : 0;
 }

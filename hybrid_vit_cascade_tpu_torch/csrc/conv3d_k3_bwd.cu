@@ -45,11 +45,14 @@
 // chain options add work per staged input value (K's prologue) or per
 // written output value (J's act′), not per product, so J and K keep those
 // bounds; J's epilogue is a template flag, so F compiles without it.
-//   E/G/K, two instances, picked by an explicit rule (dispatch_wgrad; the
-//        Python wrapper applies the same one): bf16 calls with Cin ≥ 8 take
-//        the tensor cores, fp32 calls (TF32 would leave the fp32 tolerances)
-//        and Cin < 8 (the 1-channel convs: K = 1 per tap, bound by reading g)
-//        the CUDA cores.
+//   E/G/K, three instances, picked by an explicit rule (wgrad_instance, which
+//        the wrapper reads through hvc_conv3d_k3_wgrad_tc): bf16 calls with
+//        Cin ≥ 8 take the tensor cores, bf16 stride-1 calls with Cin = 1 (the
+//        1→32 / 1→64 convs, bound by reading g) the one-input-channel
+//        tensor-core instance (wgrad_c1in_tc_kernel: taps as N, three
+//        pre-shifted copies of x; its comment has the design), fp32 calls
+//        (TF32 would leave the fp32 tolerances), Cin 2-7 and the stride-2
+//        1-channel stem the CUDA cores.
 //   E/G/K on the tensor cores (wgrad_tc_kernel): the GEMM dW[co, (ci, tap)] =
 //        Σ_voxel g[co, voxel] · x_tap[voxel, ci], M = Cout (32 a block),
 //        N = 32 input channels × 27 taps, K = output voxels, on mma.sync
@@ -590,6 +593,287 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
   out[i] = s;
 }
 
+// -------------------- E/K at stride 1 with one input channel on the tensor cores ---
+
+constexpr int kW1Warps = 8;
+constexpr int kW1Threads = kW1Warps * 32;
+constexpr int kW1Co = 32;                           // output channels per block: M, two 16-row tiles
+constexpr int kW1Td = 2, kW1Th = 2, kW1Tw = 64;     // output voxels per tile: 256, 16 K steps of 16
+constexpr int kW1Nv = kW1Td * kW1Th * kW1Tw;
+constexpr int kW1R = (kW1Td + 2) * (kW1Th + 2);     // input rows a tile reads: 4 planes × 4
+constexpr int kW1Nvec = kW1Tw / 8 + 2;              // 8-column vectors of a raw row, from ow0 − 8
+// Copy dx of the tile's input patch, shifted by dx − 1 along W: plane pd, row
+// ph, column c holds act(x) at view plane od0 − qlo + pd, row oh0 − 1 + ph,
+// column ow0 − 1 + dx + c. The pitches — rows 176 ≡ 48, planes 784 ≡ 16,
+// copies 3,216 ≡ 16 bytes (mod 128) — start tap t = (dz, dy, dx) 16·t bytes
+// (mod 128) after tap 0, so the 8 taps of one ldmatrix phase hit 8 different
+// bank groups.
+constexpr int kW1Row = 88;                          // bf16 per row: 64 columns + pad
+constexpr int kW1Plane = 392;                       // bf16 per plane: 4 rows + pad
+constexpr int kW1Copy = 1608;                       // bf16 per copy: 4 planes + pad
+constexpr int kW1Zero = 3 * kW1Copy;                // the zero rows of taps 27-31, from
+                                                    // 16·27 ≡ 48 (mod 128) like tap 27's
+constexpr int kW1ZeroLen = 256;                     // bf16: room for every offset a row takes
+constexpr int kW1Stages = 3;                        // tiles staged at once: two in flight
+constexpr int kW1Gld = kW1Nv + 8;                   // bf16 per channel of the g tile: 528 bytes
+constexpr int kW1Gt = kW1Co * kW1Gld;               // bf16, one stage's g tile, [co][voxel]
+constexpr int kW1Raw = kW1R * kW1Nvec * 8;          // bf16, one stage's raw rows, [row][vector][8]
+constexpr int kW1Smem =                             // 72,624 bytes: three blocks an SM
+    (kW1Stages * (kW1Gt + kW1Raw) + kW1Zero + kW1ZeroLen) * 2 + kW1Co * 32 * 4;
+// Tiles between two flushes: a warp's accumulators then hold 16,384 voxels'
+// products, the chain length wgrad_tc_kernel flushes at (TcShape::FLUSH).
+constexpr int kW1Flush = 16384 / (kW1Nv / kW1Warps);
+
+// dW[co, 0, tap] = Σ_{b, voxel} g[b, co, voxel] · act(slab)[voxel + tap],
+// the 1-channel weight gradient, as wgrad_kernel computes it: the GEMM
+// dW[co, tap] = Σ_voxel g[co, voxel] · x_tap[voxel] with M = Cout (32 a
+// block), N = the 27 taps padded to 32, K = output voxels, on mma.sync
+// m16n8k16 bf16 → fp32 (the TPU kernel's _wgrad_kernel contracts the stitched
+// x with g over voxels the same way). What bounds it is reading g, 32 or 64
+// times the bytes of x. g, the A operand, is staged by 16-byte cp.async as it
+// lies ([co][voxel]) in a ring of three stages: the next two tiles' copies
+// run under the current tile's products, and three blocks an SM keep ~100 KB
+// of g in flight.
+// The alignment trap: a dx tap shifts x by one bf16 along W, so a B row (one
+// tap, 8 neighbouring voxels) is 16-byte aligned for only one dx, and one
+// input channel leaves nothing to stack channels-innermost. Way out: x's raw
+// rows arrive by cp.async as they lie (8-column vectors from column ow0 − 8),
+// and a pass writes three copies of the patch pre-shifted by dx − 1 (byte
+// permutes in registers, the act prologue in fp32 rounded to bf16 on the way),
+// so every tap of 8 voxels is an aligned row and ldmatrix gives the B
+// fragments of two taps' n8 tiles in one x4 load; taps 27-31 read zero rows.
+// A tile is 2 planes × 2 rows × 64 columns of output voxels; warp w takes its
+// K steps 2w, 2w + 1 (plane w / 4, row (w / 2) % 2, columns 32·(w % 2) …) with
+// all 32 × 32 (co, tap) in 32 fp32 accumulators a thread. A block walks its
+// split's tiles (every splits-th one, so a wave's blocks work on neighbouring
+// tiles). Every kW1Flush tiles and after the last, the warps add their
+// accumulators in warp order into a shared 32 × 27 sum (round-to-nearest
+// fp32 adds: the tensor cores' own accumulation truncates), which goes into
+// the split's partial (the first flush stores, the later ones add; each
+// element has one writer). Block b of the 1-D grid: Cout tile b % n_co,
+// split b / n_co. VEC: x's rows and batch stride and g's rows are 16-byte
+// aligned (W a multiple of 8), so the copies go by cp.async; otherwise
+// element by element.
+template <bool VEC>
+__global__ void __launch_bounds__(kW1Threads, 3)
+wgrad_c1in_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                     float* __restrict__ partial, int cout, int nv, int qlo, long long xbs,
+                     int act, int H, int W, int Do, int n_co, int n_tiles, int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gsm = reinterpret_cast<bf16*>(smem_raw);  // the stages' g tiles
+  bf16* raws = gsm + kW1Stages * kW1Gt;            // the stages' raw rows
+  bf16* xs = raws + kW1Stages * kW1Raw;            // 3 copies, then the zero rows
+  float* red = reinterpret_cast<float*>(xs + kW1Zero + kW1ZeroLen);  // [co][32]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int co0 = static_cast<int>(blockIdx.x % n_co) * kW1Co;
+  const int split = static_cast<int>(blockIdx.x / n_co);
+  const int Ho = H, Wo = W;
+  const int tiles_w = (Wo + kW1Tw - 1) / kW1Tw;
+  const int tiles_h = (Ho + kW1Th - 1) / kW1Th;
+  const int tiles_d = (Do + kW1Td - 1) / kW1Td;
+  const long long plane = static_cast<long long>(H) * W;
+  const long long ovol = static_cast<long long>(Do) * plane;
+
+  if (tid < kW1ZeroLen / 8)
+    reinterpret_cast<uint4*>(xs + kW1Zero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+
+  // Stage tile `tile` into stage `st`: the raw input rows (zero outside the
+  // view's planes and the image) and the g tile (zero outside the output and
+  // Cout).
+  auto issue = [&](int tile, int st) {
+    bf16* raw = raws + st * kW1Raw;
+    bf16* gdst = gsm + st * kW1Gt;
+    const int tx = tile % tiles_w;
+    int rest = tile / tiles_w;
+    const int ty = rest % tiles_h;
+    rest /= tiles_h;
+    const int tz = rest % tiles_d;
+    const long long b = rest / tiles_d;
+    const int od0 = tz * kW1Td, oh0 = ty * kW1Th, ow0 = tx * kW1Tw;
+    const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) + b * xbs;
+    for (int u = tid; u < kW1R * kW1Nvec; u += kW1Threads) {
+      const int v = u % kW1Nvec, r = u / kW1Nvec;
+      const int p = od0 - qlo + r / (kW1Th + 2), ih = oh0 - 1 + r % (kW1Th + 2);
+      const int c = ow0 - 8 + 8 * v;
+      const bool row_ok = p >= 0 && p < nv && ih >= 0 && ih < H;
+      const unsigned short* src = xb + (row_ok ? p * plane + static_cast<long long>(ih) * W : 0);
+      bf16* dst = raw + (r * kW1Nvec + v) * 8;
+      if (VEC) {
+        const bool ok = row_ok && c >= 0 && c < W;  // W % 8 = 0: a vector is all in or out
+        cp_async16(dst, ok ? src + c : reinterpret_cast<const unsigned short*>(x), ok ? 16 : 0);
+      } else {
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = c + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 >= 0 && c0 < W ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 >= 0 && c1 < W ? src[c1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+    const bf16* gb = g + (b * cout + co0) * ovol;
+    for (int u = tid; u < kW1Co * kW1Td * kW1Th * (kW1Tw / 8); u += kW1Threads) {
+      const int v = u % (kW1Tw / 8), rr = (u / (kW1Tw / 8)) % (kW1Td * kW1Th);
+      const int co = u / (kW1Td * kW1Th * (kW1Tw / 8));
+      const int od = od0 + rr / kW1Th, oh = oh0 + rr % kW1Th, ow = ow0 + 8 * v;
+      bf16* dst = gdst + co * kW1Gld + rr * kW1Tw + 8 * v;
+      const bool row_ok = co0 + co < cout && od < Do && oh < Ho;
+      const long long off = co * ovol + od * plane + static_cast<long long>(oh) * Wo + ow;
+      if (VEC) {
+        const bool ok = row_ok && ow < Wo;  // Wo % 8 = 0
+        cp_async16(dst, ok ? gb + off : g, ok ? 16 : 0);
+      } else {
+        const unsigned short* gs = reinterpret_cast<const unsigned short*>(gb) + off;
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t lo = row_ok && ow + 2 * i < Wo ? gs[2 * i] : 0;
+          const uint32_t hi = row_ok && ow + 2 * i + 1 < Wo ? gs[2 * i + 1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+
+  // raw rows → the three copies: unit (row r, 8-column chunk j) reads raw
+  // vectors j, j + 1, j + 2 and writes chunk j of each copy (copy 0: raw
+  // columns 8j + 7 …, copy 1: vector j + 1, copy 2: raw columns 8j + 9 …),
+  // the prologue applied on the way (act(0) = 0 keeps the padding)
+  auto shift = [&](const bf16* raw) {
+    for (int u = tid; u < kW1R * (kW1Tw / 8); u += kW1Threads) {
+      const int j = u % (kW1Tw / 8), r = u / (kW1Tw / 8);
+      const uint4* src = reinterpret_cast<const uint4*>(raw + (r * kW1Nvec + j) * 8);
+      const uint4 q0 = src[0], q1 = src[1], q2 = src[2];
+      uint32_t v[6] = {q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+      if (act) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) v[i] = act_bf16x2(act, v[i]);
+      }
+      bf16* dst = xs + (r / (kW1Th + 2)) * kW1Plane + (r % (kW1Th + 2)) * kW1Row + 8 * j;
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(__byte_perm(v[0], v[1], 0x5432), __byte_perm(v[1], v[2], 0x5432),
+                     __byte_perm(v[2], v[3], 0x5432), __byte_perm(v[3], v[4], 0x5432));
+      *reinterpret_cast<uint4*>(dst + kW1Copy) = make_uint4(v[1], v[2], v[3], v[4]);
+      *reinterpret_cast<uint4*>(dst + 2 * kW1Copy) =
+          make_uint4(__byte_perm(v[1], v[2], 0x5432), __byte_perm(v[2], v[3], 0x5432),
+                     __byte_perm(v[3], v[4], 0x5432), __byte_perm(v[4], v[5], 0x5432));
+    }
+  };
+
+  // This lane's rows of the two ldmatrix B loads of a K step (taps 0-15, then
+  // 16-31): tap 16·p + (lane % 8) + 8·(lane / 16), columns + 8·((lane / 8) % 2)
+  // of the warp's 16-voxel step (its copy's row, or a zero row).
+  const int vz = warp >> 2, vy = (warp >> 1) & 1, c0 = (warp & 1) * 32;
+  const int wofs = vz * kW1Plane + vy * kW1Row + c0 + 8 * ((lane >> 3) & 1);
+  const bf16* lrow[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int tap = 16 * p + (lane & 7) + 8 * (lane >> 4);
+    lrow[p] = tap < 27 ? xs + (tap % 3) * kW1Copy + (tap / 9) * kW1Plane + ((tap / 3) % 3) * kW1Row + wofs
+                       : xs + kW1Zero + 8 * (tap - 27) + wofs % 64;
+  }
+
+  float acc[2][4][4];  // [16-row co tile][8-tap column tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  float* pb = partial + static_cast<long long>(split) * cout * 27;
+  if (split >= n_tiles) {  // an empty split writes zeros
+    for (int u = tid; u < kW1Co * 27; u += kW1Threads)
+      if (co0 + u / 27 < cout) pb[(co0 + u / 27) * 27 + u % 27] = 0.f;
+    return;
+  }
+  issue(split, 0);
+  cp_async_commit();
+  if (split + splits < n_tiles) issue(split + splits, 1);
+  cp_async_commit();
+  int st = 0, done = 0;
+  for (int tile = split; tile < n_tiles; tile += splits) {
+    cp_async_wait<kW1Stages - 2>();
+    __syncthreads();  // this tile's raw rows and g landed; the copies are no longer read
+    shift(raws + st * kW1Raw);
+    __syncthreads();  // the copies are ready; the previous tile's stage is free
+    const int ahead = tile + (kW1Stages - 1) * splits;
+    if (ahead < n_tiles) issue(ahead, (st + kW1Stages - 1) % kW1Stages);
+    cp_async_commit();
+    const bf16* gt = gsm + st * kW1Gt;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int k0 = (2 * warp + kk) * 16;  // the step's voxels in the g tile
+      uint32_t a[2][4], bfr[2][4];
+      load_a(a[0], gt, kW1Gld, 0, k0, lane);
+      load_a(a[1], gt, kW1Gld, 16, k0, lane);
+      ldsm_x4(bfr[0], lrow[0] + 16 * kk);
+      ldsm_x4(bfr[1], lrow[1] + 16 * kk);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma16816(acc[mt][2 * p], a[mt], bfr[p][0], bfr[p][1]);
+          mma16816(acc[mt][2 * p + 1], a[mt], bfr[p][2], bfr[p][3]);
+        }
+    }
+    st = (st + 1) % kW1Stages;
+    ++done;
+    if (done % kW1Flush == 0 || tile + splits >= n_tiles) {
+      // the warps in order into red[co][tap], then red into the partial
+      for (int wi = 0; wi < kW1Warps; ++wi) {
+        if (warp == wi) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int f = 0; f < 4; ++f) {
+                const int co = mt * 16 + (lane >> 2) + (f >> 1) * 8;
+                const int tap = nt * 8 + (lane & 3) * 2 + (f & 1);
+                red[co * 32 + tap] = (wi == 0 ? 0.f : red[co * 32 + tap]) + acc[mt][nt][f];
+                acc[mt][nt][f] = 0.f;
+              }
+        }
+        __syncthreads();
+      }
+      for (int u = tid; u < kW1Co * 27; u += kW1Threads) {
+        const int co = u / 27, tap = u % 27;
+        if (co0 + co < cout) {
+          float* dst = pb + (co0 + co) * 27 + tap;
+          *dst = (done <= kW1Flush ? 0.f : *dst) + red[co * 32 + tap];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// out[i] = Σ_s partial[s][i] in a fixed order, for many splits of a small
+// dW: warp y of a block adds the splits y, y + 8, … of 32 neighbouring
+// elements, then the 8 warps' sums are added in warp order.
+__global__ void __launch_bounds__(256)
+sum_split_partials_kernel(const float* __restrict__ partial, float* __restrict__ out, int n,
+                          int splits) {
+  __shared__ float part[8][32];
+  const int i = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (i < n)
+    for (int k = threadIdx.y; k < splits; k += 8) s += partial[static_cast<long long>(k) * n + i];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) t += part[y][threadIdx.x];
+    out[i] = t;
+  }
+}
+
 template <typename T, int S, int CI_C>
 int launch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
                  int cin, int cout, int nv, int qlo, long long xb, long long xc, int act, int H,
@@ -643,12 +927,49 @@ int launch_wgrad_tc(const void* x, const void* g, void* partial, void* out, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance a call takes, an explicit rule (no fallback): bf16 with
-// Cin ≥ 8 → the tensor cores (wgrad_tc_kernel); fp32 (tensor cores would
-// mean TF32, outside the fp32 tolerances) and Cin < 8 (the 1-channel
-// convs, bound by reading g: K = 1 per tap leaves the tensor cores nothing)
-// → the CUDA-core wgrad_kernel. The Python wrapper applies the same rule
-// (ops/cuda/conv3d_k3.py: wgrad_uses_tensor_cores) to size the split.
+int launch_wgrad_c1in_tc(const void* x, const void* g, void* partial, void* out, long long batch,
+                         int cout, int nv, int qlo, long long xb, int act, int H, int W, int Do,
+                         int splits, cudaStream_t stream) {
+  const long long n_tiles = batch * static_cast<long long>((Do + kW1Td - 1) / kW1Td) *
+                            ((H + kW1Th - 1) / kW1Th) * ((W + kW1Tw - 1) / kW1Tw);
+  const int n_co = (cout + kW1Co - 1) / kW1Co;
+  if (splits < 1 || splits > n_tiles || n_tiles > 2147483647LL ||
+      static_cast<long long>(splits) * n_co > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 && W % 8 == 0 && xb % 8 == 0;
+  auto kern = vec ? wgrad_c1in_tc_kernel<true> : wgrad_c1in_tc_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kW1Smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<static_cast<unsigned>(splits * n_co), kW1Threads, kW1Smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<float*>(partial),
+      cout, nv, qlo, xb, act, H, W, Do, n_co, static_cast<int>(n_tiles), splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n = cout * 27;
+  sum_split_partials_kernel<<<static_cast<unsigned>((n + 31) / 32), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance a call takes, an explicit rule (no fallback): 1, bf16 with
+// Cin ≥ 8 → the tensor cores (wgrad_tc_kernel); 2, bf16 at stride 1 with
+// Cin = 1 (the stage-3 chains' 1→32 and 1→64 convs, bound by reading g) → the
+// one-input-channel tensor-core instance (wgrad_c1in_tc_kernel; Cin 2-7 would
+// need another layout of its copies); 0, fp32 (tensor cores would mean TF32,
+// outside the fp32 tolerances), Cin 2-7 and the stride-2 1-channel stem → the
+// CUDA-core wgrad_kernel. The wrapper reads it through
+// hvc_conv3d_k3_wgrad_tc to count launches and size the split
+// (ops/cuda/conv3d_k3.py: wgrad_instance states it for the CPU).
+int wgrad_instance(int stride, bool bf16, int cin) {
+  if (!bf16) return 0;
+  if (cin >= 8) return 1;
+  return stride == 1 && cin == 1 ? 2 : 0;
+}
+
 template <int S>
 int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long long batch,
                    int cin, int cout, int nv, int qlo, long long xb, long long xc, int act,
@@ -657,7 +978,11 @@ int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long 
       act < 0 || act > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && cin >= 8) {
+  const int instance = wgrad_instance(S, dtype == 1, cin);
+  if (instance == 2)
+    return launch_wgrad_c1in_tc(x, g, partial, out, batch, cout, nv, qlo, xb, act, H, W, Do,
+                                splits, s);
+  if (instance == 1) {
     const int Wo = (W - 1) / S + 1;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(g) % 16 == 0 && W % 8 == 0 && Wo % 8 == 0 &&
@@ -1191,4 +1516,13 @@ extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* w
 // else 0: the rule of its dispatch, which the wrapper counts launches by.
 extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dtype) {
   return dgrad_s2_uses_tc(dtype == 1, cin, cout) ? 1 : 0;
+}
+
+// The instance hvc_conv3d_k3s{stride}_wgrad runs a call with this Cin and
+// dtype (0 = float32, 1 = bfloat16) on: 0 the CUDA cores, 1 the tensor cores
+// (Cin ≥ 8), 2 the one-input-channel tensor-core instance; the rule of
+// dispatch_wgrad, which the wrapper counts launches by and sizes the split
+// for.
+extern "C" int hvc_conv3d_k3_wgrad_tc(int stride, int cin, int dtype) {
+  return wgrad_instance(stride, dtype == 1, cin);
 }

@@ -45,10 +45,18 @@ the one-output-channel stride-1 call, that is the data gradient of a conv
 with one input channel (bf16, 8 ≤ Cin ≤ 64 as the kernel sees them, no
 prologue, no sums: ``dgrad_c1_uses_tensor_cores``), to
 ``conv3d_k3s1_dgrad_c1_tc`` when dense and ``conv3d_k3s1_chain_dgrad_c1_tc``
-otherwise, a weight gradient (bf16, Cin ≥ 8: ``wgrad_uses_tensor_cores``) to
-``conv3d_k3s{1,2}_wgrad_tc``, the stride-2 data gradient (bf16, Cin ≥ 8 and
-Cout ≥ 8: ``dgrad_s2_uses_tensor_cores``) to ``conv3d_k3s2_dgrad_tc`` when
-dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise.
+otherwise, the one-input-channel stride-1 conv, the forward of the 1→32 and
+1→64 convs (bf16, Cin = 1, Cout ≥ 8, no act′ epilogue:
+``fwd_c1in_uses_tensor_cores``), to ``conv3d_k3s1_c1in_tc`` when dense and
+``conv3d_k3s1_chain_c1in_tc`` otherwise, a weight gradient on the tensor
+cores (bf16, Cin ≥ 8: instance 1 of ``wgrad_instance``) to
+``conv3d_k3s{1,2}_wgrad_tc`` and one with one input channel at stride 1
+(bf16: instance 2) to ``conv3d_k3s1_wgrad_c1in_tc`` (dense and chain), the
+stride-2 data gradient (bf16, Cin ≥ 8 and Cout ≥ 8:
+``dgrad_s2_uses_tensor_cores``) to ``conv3d_k3s2_dgrad_tc`` when dense and
+``conv3d_k3s2_chain_dgrad_tc`` otherwise. The stride-2 kernels with one input
+channel (the 1→64 stem, on the CUDA cores) also count in
+``conv3d_k3s2_c1in``, ``conv3d_k3s2_dgrad_c1in`` and ``conv3d_k3s2_wgrad_c1in``.
 """
 
 from __future__ import annotations
@@ -83,11 +91,21 @@ _FWD_TC_ARGTYPES = (_I, _I, _I, _I)
 # hvc_conv3d_k3s1_c1_tc(cin, cout, act, sums, dtype): 1 if the stride-1 call
 # takes the one-output-channel tensor-core instance
 _C1_TC_ARGTYPES = (_I, _I, _I, _I, _I)
+# hvc_conv3d_k3s1_c1in_tc(cin, cout, dact, dtype): 1 if the stride-1 call takes
+# the one-input-channel tensor-core instance
+_C1IN_TC_ARGTYPES = (_I, _I, _I, _I)
 _DGRAD_TC_ARGTYPES = (_I, _I, _I)
+# hvc_conv3d_k3_wgrad_tc(stride, cin, dtype): the weight gradient's instance
+_WGRAD_TC_ARGTYPES = (_I, _I, _I)
+# The forward's instances with Σ/Σ² (fwd_plan): 0 the CUDA cores, 1 the
+# tensor cores (16-channel chunks), 2 the one-input-channel tensor cores.
+FWD_CUDA_CORE, FWD_TC, FWD_C1IN_TC = 0, 1, 2
 # Output voxels (D, H, W) per forward block of each instance, by stride
 # (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
-# output channel (fwd_partial_blocks).
+# output channel (fwd_partial_blocks). The one-input-channel instance is
+# stride 1 only.
 _FWD_TILE_TC = {1: (4, 4, 32), 2: (2, 4, 16)}
+_FWD_TILE_C1IN = {1: (4, 4, 64)}
 _FWD_TILE_CUDA_CORE = {1: (1, 8, 32), 2: (1, 8, 16)}
 # The stride-2 tensor-core instance: output channels per block (M) and input
 # channels per chunk (one k16 step a tap), the blocks of its weight layout
@@ -99,14 +117,18 @@ _S2_TC_CI = 16
 # its weight layout (s2_dgrad_tc_weights).
 _DGRAD_TC_CI = 32
 _DGRAD_TC_CO = 16
-# The weight gradient's two instances (csrc/conv3d_k3_bwd.cu), each as
-# (output voxels per tile (D, H, W), output and input channels per block,
-# blocks per SM it aims for): the B·Do·Ho·Wo reduction is split into fp32
-# partials over the output tiles, one per block of (split, Cout tile, Cin
-# chunk). The tensor-core instance holds 162 KB of shared memory (139 KB at
-# stride 2), one block per SM; the CUDA-core one takes 1 input channel a block
-# when Cin < 4.
+# The weight gradient's instances (csrc/conv3d_k3_bwd.cu, the codes of
+# hvc_conv3d_k3_wgrad_tc): 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8),
+# 2 the one-input-channel tensor cores (stride 1), each blocked as (output
+# voxels per tile (D, H, W), output and input channels per block, blocks per
+# SM it aims for): the B·Do·Ho·Wo reduction is split into fp32 partials over
+# the output tiles, one per block of (split, Cout tile, Cin chunk). The
+# tensor-core instance holds 162 KB of shared memory (139 KB at stride 2), one
+# block per SM; the one-input-channel one 73 KB, three; the CUDA-core one takes
+# 1 input channel a block when Cin < 4.
+WGRAD_CUDA_CORE, WGRAD_TC, WGRAD_C1IN_TC = 0, 1, 2
 _WGRAD_TC = {1: ((4, 4, 16), 32, 32, 1), 2: ((2, 2, 16), 32, 32, 1)}
+_WGRAD_C1IN_TC = ((2, 2, 64), 32, 1, 3)
 _WGRAD_CUDA_CORE = ((1, 8, 16), 32, 4, 8)
 
 
@@ -260,10 +282,11 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
          act: Optional[str] = None, dact: Optional[tuple] = None, dense: bool = False):
     """Launch kernel B/C/H/I on the instance the C dispatch picks; returns out
     or (out, s1, s2). A tensor-core launch, by the C rules
-    (``hvc_conv3d_k3_fwd_tc``, ``hvc_conv3d_k3s1_c1_tc``), also counts in
-    ``conv3d_k3s{stride}_tc`` or, with one output channel,
-    ``conv3d_k3s1_dgrad_c1_tc`` (``dense``; else their ``_chain`` forms); at
-    stride 2 it reads the weights in ``s2_tc_weights``'s layout."""
+    (``hvc_conv3d_k3_fwd_tc``, ``hvc_conv3d_k3s1_c1_tc``,
+    ``hvc_conv3d_k3s1_c1in_tc``), also counts in ``conv3d_k3s{stride}_tc``,
+    with one output channel in ``conv3d_k3s1_dgrad_c1_tc``, with one input
+    channel in ``conv3d_k3s1_c1in_tc`` (``dense``; else their ``_chain``
+    forms); at stride 2 it reads the weights in ``s2_tc_weights``'s layout."""
     _check_cuda(x)
     _check_view("x", x, x.dtype, x.device)
     _check_weights(x, w, bias)
@@ -292,6 +315,8 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         stride, cin, cout, _DTYPE_CODES[x.dtype]))
     c1 = stride == 1 and bool(_build.function("hvc_conv3d_k3s1_c1_tc", _C1_TC_ARGTYPES)(
         cin, cout, _ACT_CODES[act], int(want_sums), _DTYPE_CODES[x.dtype]))
+    c1in = stride == 1 and bool(_build.function("hvc_conv3d_k3s1_c1in_tc", _C1IN_TC_ARGTYPES)(
+        cin, cout, dact_code, _DTYPE_CODES[x.dtype]))
     weights = (w.data_ptr(),)
     if stride == 2:
         wtc = s2_tc_weights(w) if tc else None
@@ -309,6 +334,10 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         LAUNCHES[f"conv3d_k3s{stride}{'' if dense else '_chain'}_tc"] += 1
     if c1:
         LAUNCHES[_counter("_dgrad_c1_tc", 1, dense)] += 1
+    if c1in:
+        LAUNCHES[_counter("_c1in_tc", 1, dense)] += 1
+    if stride == 2 and cin == 1:
+        LAUNCHES["conv3d_k3s2_c1in"] += 1
     return (out, sums[0], sums[1]) if want_sums else out
 
 
@@ -318,10 +347,25 @@ def fwd_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int) 
     ``fwd_uses_tc`` (csrc/conv3d_k3.cu) for plans and tests on the CPU; on
     the card the wrapper reads the C rule itself: bf16 at stride 1 or 2 with
     Cin ≥ 8 and Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the
-    fp32 tolerances) and the 1-channel stems (bound by their output bytes) on
-    the CUDA cores, the one-output-channel data gradient on the instance
-    ``dgrad_c1_uses_tensor_cores`` names."""
+    fp32 tolerances) and the stride-2 1-channel stem on the CUDA cores, the
+    one-output-channel data gradient on the instance
+    ``dgrad_c1_uses_tensor_cores`` names and the one-input-channel stride-1
+    conv on the one ``fwd_c1in_uses_tensor_cores`` names."""
     return dtype == torch.bfloat16 and stride in (1, 2) and cin >= 8 and cout >= 8
+
+
+def fwd_c1in_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int,
+                               dact: bool = False) -> bool:
+    """Which instance a conv call with one input channel takes, the rule of
+    ``c1in_uses_tc`` (csrc/conv3d_k3.cu), which the wrapper reads through
+    ``hvc_conv3d_k3s1_c1in_tc``: bf16 at stride 1 with Cin = 1, Cout ≥ 8 and
+    no act′ epilogue (``dact``: no call with one input channel on the main
+    path has it) — the forward of the stage-3 chains' 1→32 and 1→64 convs,
+    with or without the prologue and Σ/Σ² — runs on the one-input-channel
+    tensor-core instance (``conv_c1in_tc_kernel``, bound by writing its
+    output); fp32 (TF32 would leave the fp32 tolerances), Cin 2-7, the
+    stride-2 1→64 stem and a call with act′ on the CUDA cores."""
+    return dtype == torch.bfloat16 and stride == 1 and cin == 1 and cout >= 8 and not dact
 
 
 def dgrad_c1_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
@@ -340,24 +384,33 @@ def dgrad_c1_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
 
 
 def fwd_plan(out_shape, cout: int, stride: int,
-             dtype: torch.dtype) -> tuple[bool, tuple[int, int, int], int]:
-    """(tensor cores, tile, blocks) of a forward call; out_shape = (B, Cin,
-    Do, H, W): output planes, input rows and columns. ``tile`` is the output
+             dtype: torch.dtype) -> tuple[int, tuple[int, int, int], int]:
+    """(instance, tile, blocks) of a forward call with Σ/Σ²; out_shape = (B,
+    Cin, Do, H, W): output planes, input rows and columns. ``instance`` is
+    FWD_TC (``fwd_uses_tensor_cores``), FWD_C1IN_TC
+    (``fwd_c1in_uses_tensor_cores``) or FWD_CUDA_CORE, ``tile`` the output
     voxels (D, H, W) of one block and ``blocks`` the number of blocks per
     (batch, Cout tile), each of which writes one Σ/Σ² partial per output
     channel. A call with Σ/Σ² never takes the one-output-channel instance
-    (``dgrad_c1_uses_tensor_cores``), so the plan names one of these two."""
-    tc = fwd_uses_tensor_cores(dtype, stride, out_shape[1], cout)
-    tile = (_FWD_TILE_TC if tc else _FWD_TILE_CUDA_CORE)[stride]
-    return tc, tile, _fwd_blocks(out_shape, stride, tile)
+    (``dgrad_c1_uses_tensor_cores``) and has no act′ epilogue, so the plan
+    names one of these three."""
+    cin = out_shape[1]
+    if fwd_uses_tensor_cores(dtype, stride, cin, cout):
+        instance, tile = FWD_TC, _FWD_TILE_TC[stride]
+    elif fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout):
+        instance, tile = FWD_C1IN_TC, _FWD_TILE_C1IN[stride]
+    else:
+        instance, tile = FWD_CUDA_CORE, _FWD_TILE_CUDA_CORE[stride]
+    return instance, tile, _fwd_blocks(out_shape, stride, tile)
 
 
 def fwd_partial_blocks(out_shape, stride: int) -> int:
     """Σ/Σ² partials per (batch, output channel) that a forward call
-    allocates: the larger of the two instances' block counts, so the buffer
-    holds the grid of whichever instance the C dispatch launches."""
-    return max(_fwd_blocks(out_shape, stride, tile)
-               for tile in (_FWD_TILE_TC[stride], _FWD_TILE_CUDA_CORE[stride]))
+    allocates: the largest of the instances' block counts at this stride, so
+    the buffer holds the grid of whichever instance the C dispatch
+    launches."""
+    tiles = (_FWD_TILE_TC, _FWD_TILE_C1IN, _FWD_TILE_CUDA_CORE)
+    return max(_fwd_blocks(out_shape, stride, t[stride]) for t in tiles if stride in t)
 
 
 def _fwd_blocks(out_shape, stride: int, tile) -> int:
@@ -370,15 +423,19 @@ def _fwd_blocks(out_shape, stride: int, tile) -> int:
 def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
            act: Optional[str] = None) -> torch.Tensor:
     """Launch kernel E/G/K: dW fp32 of the (chain) conv of x for g, on the
-    instance ``wgrad_uses_tensor_cores`` names; a tensor-core launch also
-    counts in ``conv3d_k3s{stride}_wgrad_tc``."""
+    instance the C rule names (``hvc_conv3d_k3_wgrad_tc``), split as
+    ``wgrad_plan`` plans that instance; a launch on the tensor cores also
+    counts in ``conv3d_k3s{stride}_wgrad_tc``, one on the one-input-channel
+    instance in ``conv3d_k3s1_wgrad_c1in_tc``."""
     _check_cuda(x)
     _check_view("x", x, g.dtype, g.device)
     B, cin, nv, H, W = x.shape
     cout, d_out = g.shape[1], g.shape[2]
     _check_out_grad(g, (B, cout, d_out, *_out_dims((H, W), stride)))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tc, splits, _ = wgrad_plan((B, cin, d_out, H, W), cout, stride, x.dtype, sms)
+    instance = _build.function("hvc_conv3d_k3_wgrad_tc", _WGRAD_TC_ARGTYPES)(
+        stride, cin, _DTYPE_CODES[x.dtype])
+    splits, _ = _wgrad_splits(instance, (B, cin, d_out, H, W), cout, stride, sms)
     partial = torch.empty((splits, cout, cin, 27), dtype=torch.float32, device=x.device)
     out = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=x.device)
     fn = _build.function(entry, _WGRAD_ARGTYPES)
@@ -388,17 +445,28 @@ def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
                 nv, H, W, d_out, qlo, x.stride(0), x.stride(1), _ACT_CODES[act],
                 _DTYPE_CODES[x.dtype], splits, stream)
     _build.check(rc, entry)
-    if tc:
+    if instance == WGRAD_TC:
         LAUNCHES[f"conv3d_k3s{stride}_wgrad_tc"] += 1
+    elif instance == WGRAD_C1IN_TC:
+        LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"] += 1
+    if stride == 2 and cin == 1:
+        LAUNCHES["conv3d_k3s2_wgrad_c1in"] += 1
     return out
 
 
-def wgrad_uses_tensor_cores(dtype: torch.dtype, cin: int) -> bool:
+def wgrad_instance(dtype: torch.dtype, stride: int, cin: int) -> int:
     """Which instance of the weight gradient a call takes, the rule of
-    ``dispatch_wgrad`` (csrc/conv3d_k3_bwd.cu): bf16 with Cin ≥ 8 runs on the
-    tensor cores; fp32 (TF32 would leave the fp32 tolerances) and Cin < 8 (the
-    1-channel convs, bound by reading g) on the CUDA cores."""
-    return dtype == torch.bfloat16 and cin >= 8
+    ``wgrad_instance`` (csrc/conv3d_k3_bwd.cu) for plans and tests on the CPU;
+    on the card the wrapper reads the C rule itself
+    (``hvc_conv3d_k3_wgrad_tc``): WGRAD_TC, bf16 with Cin ≥ 8; WGRAD_C1IN_TC,
+    bf16 at stride 1 with Cin = 1 (the stage-3 chains' 1→32 and 1→64 convs,
+    bound by reading g); WGRAD_CUDA_CORE, fp32 (TF32 would leave the fp32
+    tolerances), Cin 2-7 and the stride-2 1-channel stem."""
+    if dtype != torch.bfloat16:
+        return WGRAD_CUDA_CORE
+    if cin >= 8:
+        return WGRAD_TC
+    return WGRAD_C1IN_TC if stride == 1 and cin == 1 else WGRAD_CUDA_CORE
 
 
 def split_tiles(n_tiles: int, blocks: int) -> tuple[int, int]:
@@ -408,23 +476,37 @@ def split_tiles(n_tiles: int, blocks: int) -> tuple[int, int]:
     return -(-n_tiles // per), per
 
 
-def wgrad_plan(out_shape, cout: int, stride: int, dtype: torch.dtype,
-               sms: int) -> tuple[bool, int, int]:
-    """(tensor cores, splits, tiles) of a weight-gradient call on a card with
-    ``sms`` SMs; out_shape = (B, Cin, Do, H, W): output planes, input rows and
-    columns. Each tile goes to one split, none is empty, and the blocks
-    (splits × Cout tiles × Cin chunks) aim for the instance's blocks per SM:
-    on the CUDA cores split s takes a contiguous range (``split_tiles``), on
-    the tensor cores the tiles s, s + splits, s + 2·splits, …"""
+def wgrad_blocking(instance: int, stride: int, cin: int):
+    """(tile (D, H, W), Cout per block, Cin per block, blocks per SM) of a
+    weight-gradient instance."""
+    if instance == WGRAD_TC:
+        return _WGRAD_TC[stride]
+    if instance == WGRAD_C1IN_TC:
+        return _WGRAD_C1IN_TC
+    tile, co_blk, ci_blk, per_sm = _WGRAD_CUDA_CORE
+    return tile, co_blk, 1 if cin < 4 else ci_blk, per_sm
+
+
+def _wgrad_splits(instance: int, out_shape, cout: int, stride: int, sms: int) -> tuple[int, int]:
     b, cin, do = out_shape[:3]
     ho, wo = _out_dims(out_shape[3:], stride)
-    tc = wgrad_uses_tensor_cores(dtype, cin)
-    (td, th, tw), co_blk, ci_blk, per_sm = _WGRAD_TC[stride] if tc else _WGRAD_CUDA_CORE
-    if not tc and cin < 4:
-        ci_blk = 1
+    (td, th, tw), co_blk, ci_blk, per_sm = wgrad_blocking(instance, stride, cin)
     n_tiles = b * -(-do // td) * -(-ho // th) * -(-wo // tw)
     groups = -(-cout // co_blk) * -(-cin // ci_blk)
-    return tc, split_tiles(n_tiles, max(1, per_sm * sms // groups))[0], n_tiles
+    return split_tiles(n_tiles, max(1, per_sm * sms // groups))[0], n_tiles
+
+
+def wgrad_plan(out_shape, cout: int, stride: int, dtype: torch.dtype,
+               sms: int) -> tuple[int, int, int]:
+    """(instance, splits, tiles) of a weight-gradient call on a card with
+    ``sms`` SMs; out_shape = (B, Cin, Do, H, W): output planes, input rows and
+    columns; ``instance`` as ``wgrad_instance``. Each tile goes to one split,
+    none is empty, and the blocks (splits × Cout tiles × Cin chunks) aim for
+    the instance's blocks per SM (``wgrad_blocking``): on the CUDA cores
+    split s takes a contiguous range (``split_tiles``), on either tensor-core
+    instance the tiles s, s + splits, s + 2·splits, …"""
+    instance = wgrad_instance(dtype, stride, out_shape[1])
+    return (instance, *_wgrad_splits(instance, out_shape, cout, stride, sms))
 
 
 def s2_dgrad_tc_weights(w: torch.Tensor) -> torch.Tensor:
@@ -487,6 +569,8 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
     _build.check(rc, "hvc_conv3d_k3s2_dgrad")
     if tc:
         LAUNCHES[_counter("_dgrad_tc", 2, dense)] += 1
+    if cin == 1:
+        LAUNCHES["conv3d_k3s2_dgrad_c1in"] += 1
     return dx
 
 
@@ -515,8 +599,9 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], st
     (B, Cout, d_out, ⌈H/S⌉, ⌈W/S⌉), or (out, s1, s2) with ``want_sums``.
     Kernel B / C at stride 1 / 2 with ``dense`` (the padding-1 conv: qlo 1,
     d_out ⌈D/S⌉, no options), H / I otherwise; bf16 with Cin ≥ 8 and Cout ≥ 8
-    on the tensor cores, the rest on the CUDA cores
-    (``fwd_uses_tensor_cores``)."""
+    on the tensor cores (``fwd_uses_tensor_cores``), bf16 at stride 1 with
+    Cin = 1 and Cout ≥ 8 on the one-input-channel tensor cores
+    (``fwd_c1in_uses_tensor_cores``), the rest on the CUDA cores."""
     if dense:
         _check_dense(x.shape, stride, qlo, d_out, want_sums, act)
     if x.device.type == "cpu":
@@ -561,8 +646,9 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
                     act: Optional[str] = None, *, dense: bool = False) -> torch.Tensor:
     """dW (Cout, Cin, 3, 3, 3) fp32 of ``conv3d_k3(x, ·, ·, stride, qlo, ...)``
     for output gradient g, the prologue replayed: kernel E / G at stride 1 / 2
-    with ``dense``, K otherwise; bf16 with Cin ≥ 8 on the tensor cores, the
-    rest on the CUDA cores (``wgrad_uses_tensor_cores``)."""
+    with ``dense``, K otherwise; bf16 with Cin ≥ 8 on the tensor cores, bf16
+    at stride 1 with Cin = 1 on the one-input-channel tensor cores, the rest
+    on the CUDA cores (``wgrad_instance``)."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if x.device.type == "cpu":
@@ -580,11 +666,20 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # conv3d_k3s2_dgrad_tc and conv3d_k3s2_chain_dgrad_tc, those of F and J;
 # conv3d_k3s1_dgrad_c1_tc and conv3d_k3s1_chain_dgrad_c1_tc, those of B and H
 # with one output channel (the data gradient of a 1-channel conv) on the
-# one-output-channel tensor-core instance.
+# one-output-channel tensor-core instance; conv3d_k3s1_c1in_tc and
+# conv3d_k3s1_chain_c1in_tc, those of B and H with one input channel (the
+# forward of the 1→32 and 1→64 convs) on the one-input-channel tensor-core
+# instance; conv3d_k3s1_wgrad_c1in_tc, those of E and K at stride 1 with one
+# input channel on the one-input-channel weight gradient; conv3d_k3s2_c1in,
+# conv3d_k3s2_dgrad_c1in and conv3d_k3s2_wgrad_c1in, those of C/I, F/J and
+# G/K at stride 2 with one input channel (the 1→64 stem, on the CUDA cores).
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
             "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
             "conv3d_k3s1_dgrad_c1_tc": 0, "conv3d_k3s1_chain_dgrad_c1_tc": 0,
+            "conv3d_k3s1_c1in_tc": 0, "conv3d_k3s1_chain_c1in_tc": 0,
+            "conv3d_k3s1_wgrad_c1in_tc": 0, "conv3d_k3s2_c1in": 0, "conv3d_k3s2_dgrad_c1in": 0,
+            "conv3d_k3s2_wgrad_c1in": 0,
             "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,
             "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0,
             "conv3d_k3s2_dgrad_tc": 0, "conv3d_k3s2_chain_dgrad_tc": 0}

@@ -46,8 +46,10 @@ TOP_KERNELS = 25  # kernel names a profile lists
 
 def kernel_profile(fn, dev: torch.device) -> Dict:
     """Run ``fn()`` once under torch.profiler: wall time, summed device
-    kernel time, the share of the wall in which no kernel ran, and the
-    TOP_KERNELS kernel names by device time."""
+    kernel time, the share of the wall in which no kernel ran, the
+    TOP_KERNELS kernel names by device time, and in ``own`` every kernel of
+    the port's sources (``csrc/``, all in anonymous namespaces) by device
+    time, however small."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -77,7 +79,9 @@ def kernel_profile(fn, dev: torch.device) -> Dict:
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"wall_ms": wall_ms, "kernel_ms": sum(ms for ms, _ in by_name.values()),
             "busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "top": [{"name": k, "ms": ms, "launches": n} for k, (ms, n) in kernels[:TOP_KERNELS]]}
+            "top": [{"name": k, "ms": ms, "launches": n} for k, (ms, n) in kernels[:TOP_KERNELS]],
+            "own": [{"name": k, "ms": ms, "launches": n} for k, (ms, n) in kernels
+                    if k.removeprefix("void ").startswith("(anonymous namespace)::")]}
 
 
 TOP_SITES = 15  # allocation sites a memory report lists

@@ -4,9 +4,10 @@ and the key-tile groups of the fused flash backward (kernel D) cover their
 work, and torch emulations of both kernels' orders of summation against the
 plain versions and the JAX package.
 
-- ``wgrad_uses_tensor_cores``: bf16 with Cin ≥ 8 takes the tensor-core
-  instance of E/G/K, fp32 and Cin < 8 the CUDA-core one (the rule of
-  ``dispatch_wgrad`` in csrc/conv3d_k3_bwd.cu).
+- ``wgrad_instance``: bf16 with Cin ≥ 8 takes the tensor-core instance of
+  E/G/K, bf16 at stride 1 with Cin = 1 the one-input-channel one, fp32 and
+  the rest the CUDA-core one (the rule of ``wgrad_instance`` in
+  csrc/conv3d_k3_bwd.cu).
 - ``wgrad_plan`` / ``split_tiles``: the splits cover every voxel tile exactly
   once, none empty, at every main-path shape (contiguous ranges on the CUDA
   cores, every splits-th tile on the tensor cores).
@@ -69,13 +70,20 @@ def _covers_in_order(n, parts, per):
     assert [i for r in ranges for i in r] == list(range(n))
 
 
-@pytest.mark.parametrize("dtype,cin,tc", [(torch.bfloat16, 64, True), (torch.bfloat16, 8, True),
-                                          (torch.bfloat16, 24, True), (torch.bfloat16, 7, False),
-                                          (torch.bfloat16, 1, False), (torch.float32, 64, False),
-                                          (torch.float32, 1, False)])
+_TC, _C1IN, _CC = ck.WGRAD_TC, ck.WGRAD_C1IN_TC, ck.WGRAD_CUDA_CORE
+
+
+@pytest.mark.parametrize("dtype,cin,tc", [(torch.bfloat16, 64, _TC), (torch.bfloat16, 8, _TC),
+                                          (torch.bfloat16, 24, _TC), (torch.bfloat16, 7, _CC),
+                                          (torch.bfloat16, 1, _C1IN), (torch.float32, 64, _CC),
+                                          (torch.float32, 1, _CC)])
 def test_wgrad_dispatch_rule(dtype, cin, tc):
-    assert ck.wgrad_uses_tensor_cores(dtype, cin) is tc
-    assert ck.wgrad_plan((1, cin, 8, 16, 16), 32, 1, dtype, H100_SMS)[0] is tc
+    """The instance at stride 1 (the bf16 1-channel call on the
+    one-input-channel tensor cores); at stride 2 the 1-channel stem stays on
+    the CUDA cores."""
+    assert ck.wgrad_instance(dtype, 1, cin) == tc
+    assert ck.wgrad_plan((1, cin, 8, 16, 16), 32, 1, dtype, H100_SMS)[0] == tc
+    assert ck.wgrad_instance(dtype, 2, cin) == (_CC if tc == _C1IN else tc)
 
 
 # (B, Cin, output planes, H, W, Cout, stride): the weight gradients of the
@@ -93,8 +101,7 @@ def test_wgrad_splits_cover_tiles_in_order(dtype, shape):
     b, cin, do, h, w, cout, stride = shape
     for sms in (H100_SMS, 7):
         tc, splits, n_tiles = ck.wgrad_plan((b, cin, do, h, w), cout, stride, dtype, sms)
-        (td, th, tw), co_blk, ci_blk, per_sm = (ck._WGRAD_TC[stride] if tc
-                                                else ck._WGRAD_CUDA_CORE)
+        (td, th, tw), co_blk, ci_blk, per_sm = ck.wgrad_blocking(tc, stride, cin)
         ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
         assert n_tiles == b * -(-do // td) * -(-ho // th) * -(-wo // tw)
         if tc:  # split s takes tiles s, s + splits, ...
@@ -102,7 +109,7 @@ def test_wgrad_splits_cover_tiles_in_order(dtype, shape):
             assert all(parts) and sorted(t for p in parts for t in p) == list(range(n_tiles))
         else:  # contiguous ranges, per as the kernel takes it
             _covers_in_order(n_tiles, splits, -(-n_tiles // splits))
-        blocks = splits * -(-cout // co_blk) * -(-cin // (ci_blk if tc or cin >= 4 else 1))
+        blocks = splits * -(-cout // co_blk) * -(-cin // ci_blk)
         assert splits == 1 or blocks <= per_sm * sms
 
 

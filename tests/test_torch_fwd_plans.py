@@ -49,30 +49,40 @@ jfa = importlib.import_module("hybrid_vit_cascade_tpu.ops.pallas.flash_attention
 BF16, F32 = torch.bfloat16, torch.float32
 
 
+TC, C1IN, CC = ck.FWD_TC, ck.FWD_C1IN_TC, ck.FWD_CUDA_CORE
+
+
 @pytest.mark.parametrize("dtype,stride,cin,cout,tc", [
-    (BF16, 1, 64, 32, True), (BF16, 1, 32, 64, True), (BF16, 1, 8, 8, True),
-    (BF16, 1, 128, 256, True), (BF16, 1, 24, 40, True), (BF16, 1, 7, 32, False),
-    (BF16, 1, 1, 64, False), (BF16, 1, 64, 1, False), (BF16, 1, 32, 7, False),
-    (BF16, 2, 32, 64, True), (F32, 1, 64, 32, False), (F32, 1, 1, 32, False),
-    (BF16, 2, 8, 8, True), (BF16, 2, 128, 256, True), (BF16, 2, 24, 40, True),
-    (BF16, 2, 1, 64, False), (BF16, 2, 7, 32, False), (BF16, 2, 32, 7, False),
-    (F32, 2, 32, 64, False)])
+    (BF16, 1, 64, 32, TC), (BF16, 1, 32, 64, TC), (BF16, 1, 8, 8, TC),
+    (BF16, 1, 128, 256, TC), (BF16, 1, 24, 40, TC), (BF16, 1, 7, 32, CC),
+    (BF16, 1, 1, 64, C1IN), (BF16, 1, 64, 1, CC), (BF16, 1, 32, 7, CC),
+    (BF16, 2, 32, 64, TC), (F32, 1, 64, 32, CC), (F32, 1, 1, 32, CC),
+    (BF16, 2, 8, 8, TC), (BF16, 2, 128, 256, TC), (BF16, 2, 24, 40, TC),
+    (BF16, 2, 1, 64, CC), (BF16, 2, 7, 32, CC), (BF16, 2, 32, 7, CC),
+    (F32, 2, 32, 64, CC)])
 def test_conv_fwd_dispatch_rule(dtype, stride, cin, cout, tc):
-    assert ck.fwd_uses_tensor_cores(dtype, stride, cin, cout) is tc
-    assert ck.fwd_plan((1, cin, 8, 16, 16), cout, stride, dtype)[0] is tc
+    """The instance a call with Σ/Σ² takes: the 16-channel-chunk tensor
+    cores (``fwd_uses_tensor_cores``), the one-input-channel tensor cores
+    (bf16 1→64 at stride 1) or the CUDA cores."""
+    assert ck.fwd_uses_tensor_cores(dtype, stride, cin, cout) is (tc == TC)
+    assert ck.fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout) is (tc == C1IN)
+    assert ck.fwd_plan((1, cin, 8, 16, 16), cout, stride, dtype)[0] == tc
 
 
-def _c_blocks(tc: bool, stride: int, do: int, h: int, w: int) -> int:
+def _c_blocks(instance: int, stride: int, do: int, h: int, w: int) -> int:
     """The blocks per (batch, Cout tile) that csrc/conv3d_k3.cu launches:
     launch_tc's tiles of 4 planes × 4 rows × 32 columns (stride 1),
-    launch_tc_s2's of 2 planes × 4 rows × 16 output columns (stride 2), or
+    launch_tc_s2's of 2 planes × 4 rows × 16 output columns (stride 2),
+    launch_c1in_tc's of 4 planes × 4 rows × 64 columns (stride 1), or
     launch's grid of Do planes × 8-row tiles × 32 (stride 1) or 16 (stride
     2) columns."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    if tc and stride == 1:
+    if instance == TC and stride == 1:
         return -(-do // 4) * -(-h // 4) * -(-w // 32)
-    if tc:
+    if instance == TC:
         return -(-do // 2) * -(-ho // 4) * -(-wo // 16)
+    if instance == C1IN:
+        return -(-do // 4) * -(-h // 4) * -(-w // 64)
     return do * -(-ho // 8) * -(-wo // (32 if stride == 1 else 16))
 
 
@@ -82,8 +92,10 @@ def _fwd_calls():
     the stride-1 data gradient (the forward on g, Cin and Cout swapped, nv
     output planes, qlo = 2 − qlo)."""
     calls = []
-    for name in ("conv3d_k3s1", "conv3d_k3s2"):
-        s = 1 if name == "conv3d_k3s1" else 2
+    for name in chip_smoke.KERNELS:
+        if not name.startswith("conv3d"):
+            continue
+        s = 2 if name.startswith("conv3d_k3s2") else 1
         for b, cin, cout, (d, h, w) in chip_smoke.KERNELS[name]["shapes"]:
             calls.append((name, (b, cin, (d - 1) // s + 1, h, w), cout, s))
     for b, cin, cout, (d, h, w) in chip_smoke.TRAIN_KERNELS["conv3d_k3s1_dgrad"]["shapes"]:
@@ -111,15 +123,19 @@ def test_conv_fwd_partials_match_the_kernel_grid(dtype):
     assert len(calls) > 40
     for name, out_shape, cout, stride in calls:
         b, cin, do, h, w = out_shape
-        tc, tile, nblk = ck.fwd_plan(out_shape, cout, stride, dtype)
-        assert tc == ck.fwd_uses_tensor_cores(dtype, stride, cin, cout)
-        assert nblk == _c_blocks(tc, stride, do, h, w), (name, out_shape)
+        inst, tile, nblk = ck.fwd_plan(out_shape, cout, stride, dtype)
+        assert (inst == TC) == ck.fwd_uses_tensor_cores(dtype, stride, cin, cout)
+        assert (inst == C1IN) == ck.fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout)
+        assert nblk == _c_blocks(inst, stride, do, h, w), (name, out_shape)
         assert ck.fwd_partial_blocks(out_shape, stride) == max(
-            _c_blocks(True, stride, do, h, w), _c_blocks(False, stride, do, h, w)), (name, out_shape)
+            _c_blocks(i, stride, do, h, w) for i in ((TC, C1IN, CC) if stride == 1 else (TC, CC))
+        ), (name, out_shape)
         tc_tile = (4, 4, 32) if stride == 1 else (2, 4, 16)
-        assert tile == (tc_tile if tc else (1, 8, 32 if stride == 1 else 16))
+        assert tile == {TC: tc_tile, C1IN: (4, 4, 64), CC: (1, 8, 32 if stride == 1 else 16)}[inst]
         if dtype == BF16 and cin >= 8 and cout >= 8:
-            assert tc, (name, out_shape)
+            assert inst == TC, (name, out_shape)
+        if dtype == BF16 and stride == 1 and cin == 1:
+            assert inst == C1IN, (name, out_shape)
 
 
 def test_conv_fwd_hot_plan():
@@ -141,8 +157,9 @@ def _s2_calls():
     """(B, Cin, Cout, output planes, H, W) of every stride-2 conv forward of
     chip_smoke.py, dense and chain, main path and ragged."""
     calls = [(b, cin, cout, (d - 1) // 2 + 1, h, w)
-             for b, cin, cout, (d, h, w) in (chip_smoke.KERNELS["conv3d_k3s2"]["shapes"]
-                                            + chip_smoke.KERNELS["conv3d_k3s2"]["ragged"])]
+             for name in ("conv3d_k3s2", "conv3d_k3s2_c1in")
+             for b, cin, cout, (d, h, w) in (chip_smoke.KERNELS[name]["shapes"]
+                                            + chip_smoke.KERNELS[name]["ragged"])]
     spec = chip_smoke.CHAIN_KERNELS["conv3d_k3s2_chain"]
     calls += [(b, cin, cout, d_out, h, w)
               for b, cin, cout, _, h, w, _, d_out, _, _ in spec["shapes"] + spec["ragged"]]
@@ -157,8 +174,8 @@ def test_conv_s2_partials_cover_tc_grid(call):
     with Cin, Cout ≥ 8 take, and of the CUDA-core grid."""
     b, cin, cout, do, h, w = call
     nblk = ck.fwd_partial_blocks((b, cin, do, h, w), 2)
-    tc_blocks = _c_blocks(True, 2, do, h, w)
-    assert nblk == max(tc_blocks, _c_blocks(False, 2, do, h, w))
+    tc_blocks = _c_blocks(TC, 2, do, h, w)
+    assert nblk == max(tc_blocks, _c_blocks(CC, 2, do, h, w))
     tc, tile, blocks = ck.fwd_plan((b, cin, do, h, w), cout, 2, BF16)
     assert tc == (cin >= 8 and cout >= 8)
     if tc:

@@ -16,6 +16,7 @@ import torch
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     LAUNCHES,
+    WGRAD_TC,
     conv3d_k3,
     conv3d_k3_dgrad,
     conv3d_k3_dgrad_plain,
@@ -24,8 +25,9 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_wgrad_plain,
     dgrad_c1_uses_tensor_cores,
     dgrad_s2_uses_tensor_cores,
+    fwd_c1in_uses_tensor_cores,
     fwd_uses_tensor_cores,
-    wgrad_uses_tensor_cores,
+    wgrad_instance,
 )
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     bwd_dkv_uses_tensor_cores,
@@ -270,7 +272,7 @@ def test_wgrad_tensor_cores_ragged(dev, stride, act, case):
         before = LAUNCHES[tc]
         dw = conv3d_k3_wgrad(x, g, stride, qlo, act)
         assert LAUNCHES[tc] == before + (dtype == torch.bfloat16)
-        assert wgrad_uses_tensor_cores(dtype, cin) == (dtype == torch.bfloat16)
+        assert (wgrad_instance(dtype, stride, cin) == WGRAD_TC) == (dtype == torch.bfloat16)
         _close(dw, conv3d_k3_wgrad_plain(x, g, stride, qlo, act), dtype, GRAD_TOL)
         assert torch.equal(conv3d_k3_wgrad(x, g, stride, qlo, act), dw)
 
@@ -352,15 +354,17 @@ def _check_sums(out, s1, s2):
 def _conv_fwd_and_dgrad(shape, dev, dense):
     """The conv and its stride-1 data gradient in bf16 against their plain
     versions, each counted on the instance ``fwd_uses_tensor_cores`` (or,
-    for the data gradient of a 1-channel conv, ``dgrad_c1_uses_tensor_cores``)
-    names."""
+    for a 1-channel conv, ``fwd_c1in_uses_tensor_cores``, and for its data
+    gradient ``dgrad_c1_uses_tensor_cores``) names."""
     b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
     dt = torch.bfloat16
     x, w, bias = _fwd_case(shape, dt, dev, 30)
     tc = "conv3d_k3s1_tc" if dense else "conv3d_k3s1_chain_tc"
-    before = LAUNCHES[tc]
+    c1in = "conv3d_k3s1_c1in_tc" if dense else "conv3d_k3s1_chain_c1in_tc"
+    before, before_c1in = LAUNCHES[tc], LAUNCHES[c1in]
     res = conv3d_k3(x, w, bias, 1, qlo, d_out, sums, act, dense=dense)
     assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 1, cin, cout)
+    assert LAUNCHES[c1in] == before_c1in + fwd_c1in_uses_tensor_cores(dt, 1, cin, cout)
     want = conv3d_k3_plain(x, w, bias, 1, qlo, d_out, sums, act)
     out = res[0] if sums else res
     _close(out, want[0] if sums else want, dt)
@@ -834,6 +838,129 @@ def test_dgrad_c1_tc_rule_matches_c(dev):
             (1, 2, 8, 64), ((None, 0), ("gelu", 1), ("silu", 2)), (False, True)):
         assert bool(rule(cin, cout, act_code, int(sums), code)) == \
             dgrad_c1_uses_tensor_cores(dtype, cin, cout, act, sums)
+
+
+# The one-input-channel instances at the main path's shapes (chip_smoke.py
+# KERNELS, TRAIN_KERNELS and CHAIN_KERNELS with Cin = 1), as the chain call
+# (B, Cin, Cout, planes of x, H, W, slab plane of x's first plane, output
+# planes, Σ/Σ², act): 1→32 and 1→64 over 256³ (dense: qlo 1, no options),
+# 1→32 over 128³ (stage 2's upsample conv, batch 1 forward, batch 2
+# training), the training slabs of both chains' stats and store passes, and
+# the eval chains over the whole volume with Σ/Σ².
+C1IN_MAIN = [(1, 1, 32, _R, _R, _R, 1, _R, False, None), (1, 1, 64, _R, _R, _R, 1, _R, False, None),
+             (1, 1, 32, 128, 128, 128, 1, 128, False, None),
+             (2, 1, 32, 128, 128, 128, 1, 128, False, None),
+             (1, 1, 64, 34, _R, _R, 0, 32, True, None), (1, 1, 64, 33, _R, _R, 1, 32, True, None),
+             (1, 1, 64, 36, _R, _R, 0, 34, False, None), (1, 1, 32, 34, _R, _R, 0, 32, True, None),
+             (1, 1, 32, 35, _R, _R, 0, 33, False, None), (1, 1, 64, _R, _R, _R, 1, _R, True, None),
+             (1, 1, 32, _R, _R, _R, 1, _R, True, None)]
+# Ragged: Cout 8 / 40 / 96 (masked Cout tiles of 32 and 64, two tiles), H and
+# W off the 4 × 64 and 2 × 2 × 64 tiles, W not a multiple of 8 (element-wise
+# copies and stores), x before the slab and inside it, every option.
+C1IN_RAGGED = [(1, 1, 8, 5, 6, 70, -1, 7, True, "gelu"), (2, 1, 40, 6, 5, 33, 2, 6, True, "silu"),
+               (1, 1, 96, 9, 4, 64, 0, 9, True, None), (1, 1, 64, 4, 9, 130, 1, 4, False, "gelu"),
+               (2, 1, 32, 7, 7, 24, 0, 6, False, None)]
+
+
+def _c1in_check(shape, dev, seed):
+    """The one-input-channel conv (values, Σ/Σ² bitwise over two runs) and
+    its weight gradient (bitwise over two runs) in bf16 against their plain
+    versions, each counted on its one-input-channel counter; the forward at
+    TOL, dW at chip_smoke.py's gradient tolerance (fp32 1e-4, the absolute
+    part scaled by the largest |want|: sums over up to 16.7 M voxels)."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    dense = qlo == 1 and nv == d_out and not sums and act is None
+    dt = torch.bfloat16
+    x, w, bias = _fwd_case(shape, dt, dev, seed)
+    counter = "conv3d_k3s1_c1in_tc" if dense else "conv3d_k3s1_chain_c1in_tc"
+    before = LAUNCHES[counter]
+    res = conv3d_k3(x, w, bias, 1, qlo, d_out, sums, act, dense=dense)
+    assert LAUNCHES[counter] == before + 1
+    want = conv3d_k3_plain(x, w, bias, 1, qlo, d_out, sums, act)
+    out = res[0] if sums else res
+    _close(out, want[0] if sums else want, dt)
+    if sums:
+        _check_sums(out, res[1], res[2])
+        again = conv3d_k3(x, w, bias, 1, qlo, d_out, sums, act, dense=dense)
+        assert all(torch.equal(a, c) for a, c in zip(res, again))
+    del res, want
+    g = _randn((b, cout, d_out, h, w_), dt, dev, seed + 5)
+    before = LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"]
+    dw = conv3d_k3_wgrad(x, g, 1, qlo, act, dense=dense)
+    assert LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"] == before + 1
+    want = conv3d_k3_wgrad_plain(x, g, 1, qlo, act)
+    torch.cuda.synchronize()
+    err = (dw - want).abs()
+    assert torch.isfinite(dw).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(conv3d_k3_wgrad(x, g, 1, qlo, act, dense=dense), dw)
+
+
+@pytest.mark.parametrize("shape", C1IN_MAIN)
+def test_c1in_tensor_cores_main_path(dev, shape):
+    """The one-input-channel forward and weight gradient at every bf16
+    Cin = 1 shape of the main path."""
+    _c1in_check(shape, dev, 90)
+
+
+@pytest.mark.parametrize("case", C1IN_RAGGED)
+def test_c1in_tensor_cores_ragged(dev, case):
+    """The one-input-channel instances at ragged shapes, and the same calls
+    in fp32 on the CUDA cores (GRAD_TOL)."""
+    _c1in_check(case, dev, 91)
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = case
+    x, w, bias = _fwd_case(case, torch.float32, dev, 92)
+    g = _randn((b, cout, d_out, h, w_), torch.float32, dev, 93)
+    before = (LAUNCHES["conv3d_k3s1_chain_c1in_tc"], LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"])
+    res = conv3d_k3(x, w, bias, 1, qlo, d_out, sums, act)
+    dw = conv3d_k3_wgrad(x, g, 1, qlo, act)
+    assert (LAUNCHES["conv3d_k3s1_chain_c1in_tc"], LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"]) == before
+    want = conv3d_k3_plain(x, w, bias, 1, qlo, d_out, sums, act)
+    _close(res[0] if sums else res, want[0] if sums else want, torch.float32)
+    _close(dw, conv3d_k3_wgrad_plain(x, g, 1, qlo, act), torch.float32, GRAD_TOL)
+
+
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_c1in_rule_excludes_dact(dev, act):
+    """The data gradient of a conv with one output channel is the forward on
+    g with one input channel: without act′ it takes the one-input-channel
+    instance, with act′ (a fused prologue) the CUDA cores; both match the
+    plain data gradient."""
+    b, cin, nv, h, w_, qlo = 1, 24, 6, 5, 40, 0
+    x = _randn((b, cin, nv + 2, h, w_), torch.bfloat16, dev, 94).narrow(2, 1, nv)
+    w = (_randn((1, cin, 3, 3, 3), torch.float32, dev, 95) / (27 * cin) ** 0.5).to(torch.bfloat16)
+    g = _randn((b, 1, nv, h, w_), torch.bfloat16, dev, 96)
+    before = LAUNCHES["conv3d_k3s1_chain_c1in_tc"]
+    dx = conv3d_k3_dgrad(g, w, x, 1, qlo, act)
+    assert LAUNCHES["conv3d_k3s1_chain_c1in_tc"] == before + (act is None)
+    assert fwd_c1in_uses_tensor_cores(torch.bfloat16, 1, 1, cin, act is not None) is (act is None)
+    want = conv3d_k3_dgrad_plain(g, w, x, 1, qlo, act)
+    torch.cuda.synchronize()
+    err = (dx.float() - want.float()).abs()
+    scale = max(1.0, float(want.float().abs().max()))
+    assert bool((err <= 2e-2 * scale + 2e-2 * want.float().abs()).all()), float(err.max())
+
+
+def test_conv_c1in_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3s1_c1in_tc``, which the wrapper
+    counts launches by) is ``fwd_c1in_uses_tensor_cores`` at every dtype,
+    channel count around its edges and act′ setting."""
+    rule = _build.function("hvc_conv3d_k3s1_c1in_tc", (ctypes.c_int,) * 4)
+    for (dtype, code), cin, cout, dact in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 2, 7, 8, 64),
+            (1, 4, 7, 8, 9, 32, 33, 64, 65, 256), (0, 1, 2)):
+        assert bool(rule(cin, cout, dact, code)) == \
+            fwd_c1in_uses_tensor_cores(dtype, 1, cin, cout, dact != 0)
+
+
+def test_wgrad_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3_wgrad_tc``, which the wrapper
+    counts launches and sizes the split by) is ``wgrad_instance`` at every
+    dtype, stride and Cin around its edges."""
+    rule = _build.function("hvc_conv3d_k3_wgrad_tc", (ctypes.c_int,) * 3)
+    for (dtype, code), stride, cin in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 2), (1, 2, 3, 4, 7, 8, 9, 64, 256)):
+        assert rule(stride, cin, code) == wgrad_instance(dtype, stride, cin)
 
 
 # Kernel family N, the conv probes: (weights, data) of each wrapper at N
