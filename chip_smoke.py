@@ -30,8 +30,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (the eval schedule: one slab, every endpoint stored). Checks the output
    shapes, finiteness, and that each kernel launched as often as the path
    needs it (EXPECTED_LAUNCHES), its tensor-core instances included: every
-   stride-2 conv but the 1→64 stem on the tensor cores, every 1-channel
-   stride-1 conv on the one-input-channel instance.
+   stride-2 conv on the tensor cores (the 1→64 stem on the one-input-channel
+   instance), every 1-channel stride-1 conv on the one-input-channel
+   instance.
 5. A small-input reference: a scaled cascade in fp32 on the card (kernels)
    against the same weights on the CPU (plain versions), its stage-3 chains
    streamed at every level.
@@ -55,7 +56,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    slab) take the tensor-core instance
    of E/G/K (its own launch counter), the bf16 1→64 and 1→32 ones (dense and
    one training slab) the one-input-channel instance, fp32 calls and the
-   1→64 stride-2 stem the CUDA-core one; the bf16 64→32 conv and its data
+   1→64 stride-2 stem's the CUDA-core one; the bf16 64→32 conv and its data
    gradient (dense and one training slab) take the tensor-core B/H, the bf16
    1→64 and 1→32 convs (dense and one training slab of each chain) the
    one-input-channel B/H, and every bf16 flash forward and backward
@@ -63,16 +64,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    stride-2 conv and its data gradient (dense and one training slab) the
    tensor-core C/I and F/J, the bf16 one-output-channel data gradient of the
    1-channel convs (dense 64→1 and 32→1, one training slab) its own
-   tensor-core instance; their fp32 calls and the 1→64 stride-2 stem (and
-   its data gradient) the CUDA-core ones. The one-output-channel chain data
+   tensor-core instance, the bf16 1→64 stride-2 stem and its data gradient
+   their one-input-channel and one-dx-channel tensor-core instances; their
+   fp32 calls the CUDA-core ones. The one-output-channel chain data
    gradient has its own row in the kernels line
    (conv3d_k3s1_chain_c1_dgrad: 64→1 over the whole volume, 32→1 likewise
    and the two training slabs, each with its conv3d_input time), and so do
    the one-input-channel instances (conv3d_k3s1_c1in, conv3d_k3s1_chain_c1in,
    conv3d_k3s1_c1in_wgrad: 1→64 and 1→32 over 256³ and the training slabs,
-   beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem on the
-   CUDA cores (conv3d_k3s2_c1in, conv3d_k3s2_c1in_dgrad,
-   conv3d_k3s2_c1in_wgrad: stage 1's batch of 8 at 64³).
+   beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem
+   (conv3d_k3s2_c1in and conv3d_k3s2_c1in_dgrad on their tensor-core
+   instances, conv3d_k3s2_c1in_wgrad on the CUDA cores: stage 1's batch of 8
+   at 64³).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -90,7 +93,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and every flash forward and fused backward of each stage on the tensor
    cores; every bf16 F/J call with Cin, Cout ≥ 8 on the tensor cores, as
    many launches as the rule names; every bf16 stride-1 conv and weight
-   gradient with one input channel on the one-input-channel instances).
+   gradient with one input channel on the one-input-channel instances, and
+   every bf16 stride-2 conv and data gradient with one input channel (the
+   1→64 stem: its forward and data gradient in every stage-1 step) on their
+   tensor-core instances).
    Stage 3 trains on the config's streamed schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
@@ -204,13 +210,14 @@ SMALL_TOL = (2e-4, 2e-4)
 # conv (B, one-input-channel instance), the detail chain's 64→32 conv (H),
 # the stage-3 1→32 upsample conv and the detail chain's 1→64 conv (H,
 # one-input-channel instance), every dense stride-2 conv but stage 1's 1→64
-# stem (C, on the CUDA cores, counted in conv3d_k3s2_c1in) and the 32→64
-# stage-3 stem conv (I).
+# stem (C, counted in conv3d_k3s2_c1in), which takes the one-input-channel
+# instance (conv3d_k3s2_c1in_tc), and the 32→64 stage-3 stem conv (I).
 EXPECTED_LAUNCHES = {"flash_attention": 36, "conv3d_k3s1": 2, "conv3d_k3s2": 7,
                      "conv3d_k3s1_chain": 3, "conv3d_k3s2_chain": 1,
                      "flash_attention_tc": 36, "conv3d_k3s1_tc": 1, "conv3d_k3s1_chain_tc": 1,
                      "conv3d_k3s1_c1in_tc": 1, "conv3d_k3s1_chain_c1in_tc": 2,
-                     "conv3d_k3s2_tc": 6, "conv3d_k3s2_chain_tc": 1, "conv3d_k3s2_c1in": 1}
+                     "conv3d_k3s2_tc": 6, "conv3d_k3s2_chain_tc": 1, "conv3d_k3s2_c1in": 1,
+                     "conv3d_k3s2_c1in_tc": 1}
 REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
@@ -228,9 +235,13 @@ EXP2_PER_CLOCK_PER_SM = 16
 # one-input-channel forward stems and weight gradients, and the dense form of
 # the one-output-channel data gradient, each timed beside its library call.
 _STEMS = [(1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256))]
-# The stride-2 1→64 stem of stage 1 (64³, the training batch of 8), which
-# stays on the CUDA cores in all three of its kernels.
+# The stride-2 1→64 stem of stage 1 (64³, the training batch of 8): its
+# forward and data gradient on their tensor-core instances, its weight
+# gradient on the CUDA cores. Ragged: Cout 8 / 40 / 96 (masked, and two Cout
+# tiles of the forward: the data gradient's CUDA cores), odd D, H and W, W
+# not a multiple of 16.
 _S2_STEM = (8, 1, 64, (64, 64, 64))
+_S2_STEM_RAGGED = [(2, 1, 8, (5, 6, 10)), (1, 1, 40, (7, 9, 35)), (2, 1, 64, (9, 7, 13))]
 KERNELS = {
     "flash_attention": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention.cu",
@@ -271,14 +282,14 @@ KERNELS = {
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 32, 64, (256, 256, 256)),
     },
-    # C with one input channel: stage 1's 1→64 stem (CUDA cores)
+    # C with one input channel: stage 1's 1→64 stem (its tensor-core instance)
     "conv3d_k3s2_c1in": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:225",
         "shapes": [(1, 1, 64, (64, 64, 64)), _S2_STEM],
-        "ragged": [],
+        "ragged": _S2_STEM_RAGGED + [(1, 1, 96, (6, 9, 64))],
         "hot": _S2_STEM,
-        "counter": "conv3d_k3s2_c1in",
+        "counter": "conv3d_k3s2_c1in_tc",
     },
 }
 
@@ -359,11 +370,13 @@ TRAIN_KERNELS = {
         "ragged": _RAGGED_CONV,
         "hot": (1, 32, 64, (256, 256, 256)),
     },
-    # F and G with one input channel: stage 1's 1→64 stem (CUDA cores)
+    # F and G with one input channel: stage 1's 1→64 stem (F on its
+    # one-dx-channel tensor-core instance, G on the CUDA cores)
     "conv3d_k3s2_c1in_dgrad": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:396",
-        "shapes": [_S2_STEM], "ragged": [], "hot": _S2_STEM, "counter": "conv3d_k3s2_dgrad_c1in",
+        "shapes": [_S2_STEM], "ragged": _S2_STEM_RAGGED, "hot": _S2_STEM,
+        "counter": "conv3d_k3s2_dgrad_c1in_tc",
     },
     "conv3d_k3s2_c1in_wgrad": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
@@ -875,25 +888,28 @@ class force_streaming:
 
 
 # The tensor-core counters of the kernels whose rule depends on the call's
-# channels (F/J, the one-output-channel B/H, the one-input-channel B/H and
-# E/K) or dtype (L, M), which [9] and [11] hold to the calls the rules name.
+# channels (F/J, the one-output-channel B/H, the one-input-channel B/H, C/I
+# and E/K, the one-dx-channel F/J) or dtype (L, M), which [9] and [11] hold to
+# the calls the rules name.
 _RULE_COUNTERS = ("conv3d_k3s2_dgrad_tc", "conv3d_k3s2_chain_dgrad_tc",
                   "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dq_tc",
                   "conv3d_k3s1_dgrad_c1_tc", "conv3d_k3s1_chain_dgrad_c1_tc",
-                  "conv3d_k3s1_c1in_tc", "conv3d_k3s1_chain_c1in_tc", "conv3d_k3s1_wgrad_c1in_tc")
+                  "conv3d_k3s1_c1in_tc", "conv3d_k3s1_chain_c1in_tc", "conv3d_k3s1_wgrad_c1in_tc",
+                  "conv3d_k3s2_c1in_tc", "conv3d_k3s2_dgrad_c1in_tc")
 
 
 class rule_calls:
     """Within the block, count per tensor-core counter the calls of F/J
     (``conv3d_k3._dgrad_s2``), M (``flash_attention._bwd_dkv``), L
-    (``flash_attention._bwd_dq``), the stride-1 conv with one output or one
-    input channel (``conv3d_k3._fwd``) and the weight gradient with one input
+    (``flash_attention._bwd_dq``), the conv with one output or one input
+    channel (``conv3d_k3._fwd``) and the weight gradient with one input
     channel (``conv3d_k3._wgrad``) that the Python rules
-    (``dgrad_s2_uses_tensor_cores``, ``bwd_dkv_uses_tensor_cores``,
+    (``dgrad_s2_instance``, ``bwd_dkv_uses_tensor_cores``,
     ``bwd_dq_uses_tensor_cores``, ``dgrad_c1_uses_tensor_cores``,
     ``fwd_c1in_uses_tensor_cores``, ``wgrad_instance``) send to the tensor
-    cores, and in ``c1in_bf16`` every bf16 stride-1 forward (``fwd``) and
-    weight gradient (``wgrad``) with one input channel, whatever the rules
+    cores, and in ``c1in_bf16`` every bf16 forward (``fwd`` at stride 1,
+    ``fwd_s2`` at stride 2), stride-1 weight gradient (``wgrad``) and stride-2
+    data gradient (``dgrad_s2``) with one input channel, whatever the rules
     say: the wrappers' launch functions are wrapped, so every call on the
     path is seen."""
 
@@ -902,13 +918,18 @@ class rule_calls:
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
         self.n = dict.fromkeys(_RULE_COUNTERS, 0)
-        self.c1in_bf16 = {"fwd": 0, "wgrad": 0}
+        self.c1in_bf16 = {"fwd": 0, "wgrad": 0, "fwd_s2": 0, "dgrad_s2": 0}
         self.real = real_d, real_m, real_l, real_f, real_w = (ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq,
                                                                ck._fwd, ck._wgrad)
 
         def dgrad(g, w, x_shape, qlo, dact=None, dense=False):
-            if ck.dgrad_s2_uses_tensor_cores(g.dtype, x_shape[1], w.shape[0]):
+            inst = ck.dgrad_s2_instance(g.dtype, x_shape[1], w.shape[0], dact is not None)
+            if inst == ck.DGRAD_S2_TC:
                 self.n[_RULE_COUNTERS[0] if dense else _RULE_COUNTERS[1]] += 1
+            elif inst == ck.DGRAD_S2_C1_TC:
+                self.n["conv3d_k3s2_dgrad_c1in_tc"] += 1
+            if x_shape[1] == 1 and g.dtype == torch.bfloat16:
+                self.c1in_bf16["dgrad_s2"] += 1
             return real_d(g, w, x_shape, qlo, dact=dact, dense=dense)
 
         def dkv(q, *args):
@@ -925,9 +946,10 @@ class rule_calls:
             if stride == 1 and ck.dgrad_c1_uses_tensor_cores(x.dtype, cin, cout, act, want_sums):
                 self.n[_RULE_COUNTERS[4] if dense else _RULE_COUNTERS[5]] += 1
             if ck.fwd_c1in_uses_tensor_cores(x.dtype, stride, cin, cout, dact is not None):
-                self.n[_RULE_COUNTERS[6] if dense else _RULE_COUNTERS[7]] += 1
-            if stride == 1 and cin == 1 and x.dtype == torch.bfloat16:
-                self.c1in_bf16["fwd"] += 1
+                s1 = _RULE_COUNTERS[6] if dense else _RULE_COUNTERS[7]
+                self.n[s1 if stride == 1 else "conv3d_k3s2_c1in_tc"] += 1
+            if cin == 1 and x.dtype == torch.bfloat16:
+                self.c1in_bf16["fwd" if stride == 1 else "fwd_s2"] += 1
             return real_f(entry, stride, x, w, bias, qlo, d_out, want_sums, act, dact, dense)
 
         def wgrad(entry, stride, x, g, qlo, act=None):
@@ -948,14 +970,17 @@ class rule_calls:
 
 
 def check_c1in(launched: dict, calls: dict, where: str) -> None:
-    """Every bf16 stride-1 conv and weight gradient with one input channel
-    (``calls``: ``rule_calls.c1in_bf16``) launched the one-input-channel
-    instance."""
-    fwd = launched["conv3d_k3s1_c1in_tc"] + launched["conv3d_k3s1_chain_c1in_tc"]
-    if (fwd, launched["conv3d_k3s1_wgrad_c1in_tc"]) != (calls["fwd"], calls["wgrad"]):
-        raise AssertionError(f"{where}: {fwd} forward and {launched['conv3d_k3s1_wgrad_c1in_tc']} "
-                             f"weight-gradient launches on the one-input-channel instances, for "
-                             f"{calls} bf16 stride-1 calls with one input channel")
+    """Every bf16 stride-1 conv and weight gradient and every bf16 stride-2
+    conv and data gradient with one input channel (``calls``:
+    ``rule_calls.c1in_bf16``) launched its one-input-channel (one-dx-channel)
+    tensor-core instance."""
+    got = {"fwd": launched["conv3d_k3s1_c1in_tc"] + launched["conv3d_k3s1_chain_c1in_tc"],
+           "wgrad": launched["conv3d_k3s1_wgrad_c1in_tc"],
+           "fwd_s2": launched["conv3d_k3s2_c1in_tc"],
+           "dgrad_s2": launched["conv3d_k3s2_dgrad_c1in_tc"]}
+    if got != calls:
+        raise AssertionError(f"{where}: launches on the one-input-channel instances {got}, for "
+                             f"{calls} bf16 calls with one input channel")
 
 
 def chain_phase(dev, seed: int, size: int = 256) -> dict:
@@ -1154,6 +1179,10 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     if not (step3["conv3d_k3s1_chain_c1in_tc"] and step3["conv3d_k3s1_wgrad_c1in_tc"]):
         raise AssertionError(f"[9] the stage-3 step ran no one-input-channel conv or weight "
                              f"gradient on the tensor cores: {step3}")
+    step1 = out["stage1"]["launches_per_step"]
+    if not (step1["conv3d_k3s2_c1in_tc"] and step1["conv3d_k3s2_dgrad_c1in_tc"]):
+        raise AssertionError(f"[9] the stage-1 step ran the 1→64 stem's forward or data "
+                             f"gradient off its tensor-core instance: {step1}")
     return out
 
 
@@ -1275,8 +1304,10 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
     flash_attention_bwd_dq_tc), the 1-channel conv's one-output-channel data
     gradient (dense 64→1 and 32→1, one training slab) the one-output-channel
     tensor-core instance (conv3d_k3s1_dgrad_c1_tc /
-    conv3d_k3s1_chain_dgrad_c1_tc); the same calls in fp32, the 1-channel conv
-    itself, and the 1→64 stride-2 stem and its data gradient do not."""
+    conv3d_k3s1_chain_dgrad_c1_tc), the bf16 1→64 stride-2 stem and its data
+    gradient the one-input-channel and one-dx-channel instances
+    (conv3d_k3s2_c1in_tc, conv3d_k3s2_dgrad_c1in_tc); the same calls in fp32,
+    and the 1-channel conv and the stem on the other instances, do not."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
 
     calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
@@ -1304,6 +1335,12 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
     calls += [("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), c, torch.bfloat16, False)
               for c in ("conv3d_k3s2_tc", "conv3d_k3s1_c1in_tc")]
     calls += [("conv3d_k3s2_dgrad", _S2_STEM, "conv3d_k3s2_dgrad_tc", torch.bfloat16, False)]
+    # the stem and its data gradient on their own instances, bf16 only
+    calls += [(n, sh, c, dt, dt == torch.bfloat16)
+              for n, sh, c in (("conv3d_k3s2", _S2_STEM, "conv3d_k3s2_c1in_tc"),
+                               ("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_c1in_tc"),
+                               ("conv3d_k3s2_dgrad", _S2_STEM, "conv3d_k3s2_dgrad_c1in_tc"))
+              for dt in (torch.bfloat16, torch.float32)]
     calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
               for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
                         "flash_attention_bwd_dq")
@@ -1547,10 +1584,10 @@ _TC_COUNTERS = {"flash_attention": "flash_attention_tc",
                 "conv3d_k3s2_dgrad": "conv3d_k3s2_dgrad_tc",
                 "conv3d_k3s2_chain_dgrad": "conv3d_k3s2_chain_dgrad_tc",
                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_tc"}
-# The rows of the stride-2 1→64 stem: on the CUDA cores by the rules.
-_STEM_INSTANCE = ("CUDA cores: the stride-2 kernels with one input channel (conv3d_k3_kernel "
-                  "CI_C = 1, dgrad_s2_kernel, wgrad_kernel CI_C = 1), by fwd_uses_tensor_cores, "
-                  "dgrad_s2_uses_tensor_cores and wgrad_instance")
+# The row of the stride-2 1→64 stem's weight gradient: on the CUDA cores by
+# the rule.
+_STEM_INSTANCE = ("CUDA cores: the stride-2 weight gradient with one input channel "
+                  "(wgrad_kernel CI_C = 1), by wgrad_instance")
 
 
 def _tc_rule(counter: str) -> str:
@@ -1564,9 +1601,9 @@ def _tc_rule(counter: str) -> str:
             fa.bwd_uses_tensor_cores if counter.startswith("flash_attention_bwd") else
             fa.fwd_uses_tensor_cores if counter.startswith("flash") else
             ck.wgrad_instance if "wgrad" in counter else
+            ck.dgrad_s2_instance if "s2" in counter and "dgrad" in counter else
             ck.fwd_c1in_uses_tensor_cores if "c1in" in counter else
             ck.dgrad_c1_uses_tensor_cores if "c1" in counter else
-            ck.dgrad_s2_uses_tensor_cores if "s2" in counter and "dgrad" in counter else
             ck.fwd_uses_tensor_cores)
     return " ".join(inspect.getdoc(rule).split())
 

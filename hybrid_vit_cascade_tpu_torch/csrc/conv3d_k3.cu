@@ -44,11 +44,11 @@
 // so does the bf16 stride-1 call with one output channel and 8 ≤ Cin ≤ 64,
 // the one-output-channel data gradient (c1_uses_tc, read through
 // hvc_conv3d_k3s1_c1_tc: conv_c1_tc_kernel below), and so does the bf16
-// stride-1 call with one input channel, Cout ≥ 8 and no act′ epilogue, the
-// forward of the 1→32 / 1→64 convs (c1in_uses_tc, read through
-// hvc_conv3d_k3s1_c1in_tc: conv_c1in_tc_kernel below); fp32 (the tensor
-// cores would mean TF32, outside the fp32 tolerances) and the stride-2
-// 1-channel stem take the CUDA cores.
+// call with one input channel, Cout ≥ 8 and no act′ epilogue, the forward of
+// the 1→32 / 1→64 convs at stride 1 and of stage 1's 1→64 stem at stride 2
+// (c1in_uses_tc, read through hvc_conv3d_k3s{1,2}_c1in_tc:
+// conv_c1in_tc_kernel and conv_c1in_s2_tc_kernel below); fp32 (the tensor
+// cores would mean TF32, outside the fp32 tolerances) takes the CUDA cores.
 //
 // B/H on the tensor cores (conv_tc_kernel): the implicit GEMM out[co, voxel]
 // = Σ_{tap, ci} w_tap[co, ci] · x_tap[ci, voxel] with M = Cout (32 a block,
@@ -86,8 +86,8 @@
 // both converted to fp32 once. The
 // weights are stored [ci][tap][co] so each tap's 32 output channels are read
 // as eight float4 broadcasts: four FMAs per shared-memory load. Input
-// channels with cin < 4 take a CI_C = 1 variant so the 1-channel stems (fp32,
-// and the stride-2 stem in bf16) do no zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
+// channels with cin < 4 take a CI_C = 1 variant so the fp32 1-channel stems
+// do no zero work, and a one-output-channel variant (CO_T = 1, stride 1) serves the
 // fp32 data gradient of the 1→C convs, which kernel B computes with Cout = 1
 // (the bf16 one takes conv_c1_tc_kernel). The
 // sums epilogue costs a warp-shuffle reduction per channel, small beside the
@@ -874,6 +874,44 @@ constexpr int c1in_smem() {  // xs copies + zero rows, weights, the warps' outpu
   return (kCiZero + kCiZeroLen + MT * 16 * kCiWLd + kCiWarps * MT * 16 * kCiOld) * 2;
 }
 
+// The one-input-channel forwards' Σ/Σ² epilogue: each lane's sums of its
+// fragment channels (co0 + 16·mt + lane / 4 + 8·half), the quad's voxels by
+// shuffles, then the 8 warps in order into one partial per block and output
+// channel. Block-uniform: every thread of the block calls it.
+template <int MT>
+__device__ __forceinline__ void c1in_block_sums(const float (&s1)[MT][2], const float (&s2)[MT][2],
+                                                float (*red)[MT * 16][2], int co0, int cout,
+                                                long long b, int tile, int n_co, float* partial) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s = s1[mt][half], q = s2[mt][half];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the quad: the voxels of this row
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        q += __shfl_xor_sync(0xffffffffu, q, off);
+      }
+      if ((lane & 3) == 0) {
+        const int c = mt * 16 + (lane >> 2) + half * 8;
+        red[warp][c][0] = s;
+        red[warp][c][1] = q;
+      }
+    }
+  __syncthreads();
+  if (tid < 2 * MT * 16) {  // the warps in order, one partial per block
+    const int c = tid / 2, k = tid % 2;
+    if (co0 + c < cout) {
+      float t = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kCiWarps; ++wi) t += red[wi][c][k];
+      const long long nblk = gridDim.x / n_co;
+      partial[((b * cout + co0 + c) * nblk + tile) * 2 + k] = t;
+    }
+  }
+}
+
 // out[co, voxel] = bias[co] + Σ_tap w[co, 0, tap] · act(x)[voxel + tap],
 // as conv3d_k3_kernel computes it with one input channel, for Cout ≥ 8 and no
 // act′ epilogue (c1in_uses_tc): the TPU kernel's own product
@@ -1069,49 +1107,268 @@ conv_c1in_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 
   if constexpr (CHAIN) {
-    if (ca.partial != nullptr) {  // block-uniform branch
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float s = s1[mt][half], q = s2[mt][half];
-#pragma unroll
-          for (int off = 1; off < 4; off <<= 1) {  // the quad: the voxels of this row
-            s += __shfl_xor_sync(0xffffffffu, s, off);
-            q += __shfl_xor_sync(0xffffffffu, q, off);
-          }
-          if ((lane & 3) == 0) {
-            const int c = mt * 16 + (lane >> 2) + half * 8;
-            red[warp][c][0] = s;
-            red[warp][c][1] = q;
-          }
-        }
-      __syncthreads();
-      if (tid < 2 * CO) {  // the warps in order, one partial per block
-        const int c = tid / 2, k = tid % 2;
-        if (co0 + c < cout) {
-          float t = 0.f;
-#pragma unroll
-          for (int wi = 0; wi < kCiWarps; ++wi) t += red[wi][c][k];
-          const long long nblk = gridDim.x / n_co;
-          ca.partial[((b * cout + co0 + c) * nblk + tile) * 2 + k] = t;
-        }
-      }
-    }
+    if (ca.partial != nullptr)  // block-uniform branch
+      c1in_block_sums<MT>(s1, s2, red, co0, cout, b, tile, n_co, ca.partial);
   }
 }
 
-template <int MT, bool CHAIN>
+// ------------------------ the one-input-channel C/I on the tensor cores ---
+
+constexpr int kC2Td = 4, kC2Th = 4, kC2Tw = 32;             // output voxels per block: 512
+constexpr int kC2Pd = 2 * kC2Td + 1, kC2Ph = 2 * kC2Th + 1;  // staged planes and rows: 9 each
+// A copy holds one column parity of the block's input patch: copy 1 the even
+// columns, 2·(ow0 + c) (tap dx = 1), copy 2 the odd ones, 2·(ow0 + c) + 1
+// (dx = 2), copy 0 the odd ones shifted by one, 2·(ow0 + c) − 1 (dx = 0);
+// plane pd, row ph of a copy hold act(x) at view plane 2·od0 − qlo + pd, row
+// 2·oh0 − 1 + ph. Output column c of the tile reads column c of its tap's
+// copy, so 8 neighbouring voxels of a tap are one aligned 16-byte row. The
+// pitches put tap t = (dz, dy, dx) 16·(7t mod 8) bytes (mod 128) after tap
+// 0 — rows 80 ≡ 16·5, planes 752 ≡ 16·7, copies 6,768 ≡ 16·7 (mod 128) — so
+// the 8 taps of one ldmatrix phase hit 8 different bank groups.
+constexpr int kC2Row = 40;                           // bf16 per row: 32 columns + pad
+constexpr int kC2Plane = 376;                        // bf16 per plane: 9 rows + pad
+constexpr int kC2Copy = 3384;                        // bf16 per copy: 9 planes
+constexpr int kC2Zero = 10176;                       // the zero rows of taps 27-31: the first
+                                                     // multiple of 64 bf16 (128 bytes) past the copies
+constexpr int kC2ZeroLen = 192;                      // bf16: room for every offset a row takes
+constexpr int kC2Old = 40;                           // bf16 per channel row of a warp's output
+                                                     // tile (32 columns + pad): 80 bytes
+static_assert(kC2Row >= kC2Tw && kC2Plane >= kC2Ph * kC2Row && kC2Copy >= kC2Pd * kC2Plane &&
+                  kC2Zero >= 3 * kC2Copy && kC2Zero % 64 == 0,
+              "the copies' pitches");
+
+template <int MT>
+constexpr int c1in_s2_smem() {  // xs copies + zero rows, weights, the warps' output tiles
+  return (kC2Zero + kC2ZeroLen + MT * 16 * kCiWLd + kCiWarps * MT * 16 * kC2Old) * 2;
+}
+
+// out[co, od, oh, ow] = bias[co] + Σ_tap w[co, 0, tap] · act(x)[2·od + dz −
+// qlo, 2·oh + dy − 1, 2·ow + dx − 1] for one input channel, Cout ≥ 8 and no
+// act′ (c1in_uses_tc at stride 2): stage 1's 1→64 stem, _conv_fwd_s2 at Cin
+// = 1, as conv_c1in_tc_kernel computes the stride-1 one: M = Cout (MT 16-row
+// tiles a block: 32 for Cout ≤ 32, else 64 and ⌈Cout/64⌉ blocks a voxel
+// tile), N = output voxels, K = the 27 taps padded to 32 (two k16 steps), on
+// mma.sync m16n8k16 bf16 → fp32, the weights' A fragments in registers for
+// the block. The alignment trap at stride 2: output column ow reads input
+// columns 2·ow − 1, 2·ow and 2·ow + 1, so a B row (one tap, 8 neighbouring
+// voxels) is every other input column. Way out: the block stages its input
+// patch de-interleaved by column parity into three copies (16-byte loads of
+// x's rows, the halves sorted by byte permutes, the act prologue in fp32
+// rounded to bf16 on the way), and a tap's plane and row select 2·o + d − 1
+// of the staged ones, so every tap of 8 voxels is an aligned row and
+// ldmatrix.trans gives the B fragments of both k steps in one x4 load; taps
+// 27-31 read zero rows. What bounds it is writing the output, Cout times
+// the bytes of x / 8 (the stride-1 stem's finding): each warp rounds a row's
+// 32 columns once to bf16 into its own shared tile ([co][32 columns]), takes
+// Σ/Σ² of the rounded values, and writes 64-byte channel rows by 16-byte
+// stores; Σ/Σ² by quad shuffles, then the 8 warps in order, one partial per
+// block. Block blockIdx.x: Cout tile fastest, then the voxel tile (W fastest,
+// then H, then D); batch blockIdx.y. Warp w: plane w / 2, rows 2·(w % 2) +
+// {0, 1}, 32 columns each. VEC: W a multiple of 16, the batch stride and x
+// 16-byte aligned, so x and the output move in 16-byte vectors; otherwise
+// element by element.
+template <int MT, bool CHAIN, bool VEC>
+__global__ void __launch_bounds__(kCiThreads, 2)
+conv_c1in_s2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                       const float* __restrict__ bias, bf16* __restrict__ out, int cout, int H,
+                       int W, int Do, int n_co, ChainArgs ca) {
+  constexpr int CO = MT * 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 3 copies, then the zero rows
+  bf16* ws = xs + kC2Zero + kC2ZeroLen;          // [co][tap]
+  bf16* ot = ws + CO * kCiWLd;                   // [warp][co][32 columns]
+  __shared__ float red[kCiWarps][CO][2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tiles_w = (Wo + kC2Tw - 1) / kC2Tw, tiles_h = (Ho + kC2Th - 1) / kC2Th;
+  const int co0 = static_cast<int>(blockIdx.x % n_co) * CO;
+  const int tile = static_cast<int>(blockIdx.x / n_co);
+  const int ow0 = tile % tiles_w * kC2Tw;
+  const int oh0 = tile / tiles_w % tiles_h * kC2Th;
+  const int od0 = tile / (tiles_w * tiles_h) * kC2Td;
+  const long long b = blockIdx.y;
+  const long long plane = static_cast<long long>(H) * W;
+  const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) + b * ca.xb;
+
+  // the weights, [co][tap], zero past tap 26 and Cout; the zero rows
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(ws);
+  for (int u = tid; u < CO * 32; u += kCiThreads) {
+    const int co = u / 32, tap = u % 32;
+    wsm[co * kCiWLd + tap] = tap < 27 && co0 + co < cout ? wg[(co0 + co) * 27 + tap] : 0;
+  }
+  if (tid < kC2ZeroLen / 8) reinterpret_cast<uint4*>(xs + kC2Zero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+
+  // the three copies: unit (plane pd, row ph, chunk j of 8 output columns)
+  // reads x's vectors at input columns 2·ow0 + 16·j + {−8, 0, 8} and writes
+  // chunk j of each copy; zero outside the view's planes and the image
+  for (int u = tid; u < kC2Pd * kC2Ph * (kC2Tw / 8); u += kCiThreads) {
+    const int j = u % (kC2Tw / 8), r = u / (kC2Tw / 8), pd = r / kC2Ph, ph = r % kC2Ph;
+    const int p = 2 * od0 - ca.qlo + pd, ih = 2 * oh0 - 1 + ph, c = 2 * ow0 + 16 * j - 8;
+    const bool row_ok = p >= 0 && p < ca.nv && ih >= 0 && ih < H;
+    const unsigned short* src = xb + (row_ok ? p * plane + static_cast<long long>(ih) * W : 0);
+    uint32_t v[3][4];  // v[k][i]: input columns c + 8·k + 2·i (low half) and + 1 (high half)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int ck = c + 8 * k;
+      if (VEC) {
+        const bool ok = row_ok && ck >= 0 && ck < W;  // W % 8 = 0: a vector is all in or out
+        const uint4 q = ok ? *reinterpret_cast<const uint4*>(src + ck) : make_uint4(0u, 0u, 0u, 0u);
+        v[k][0] = q.x, v[k][1] = q.y, v[k][2] = q.z, v[k][3] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = ck + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 >= 0 && c0 < W ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 >= 0 && c1 < W ? src[c1] : 0;
+          v[k][i] = lo | (hi << 16);
+        }
+      }
+    }
+    if constexpr (CHAIN) {
+      if (ca.act) {  // the prologue, rounded to bf16; act(0) = 0 keeps the padding
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[k][i] = act_bf16x2(ca.act, v[k][i]);
+      }
+    }
+    // copy 0: the high halves from the last word of vector 0 on; copy 1: the
+    // low halves of vectors 1 and 2; copy 2: their high halves
+    bf16* dst = xs + pd * kC2Plane + ph * kC2Row + 8 * j;
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(__byte_perm(v[0][3], v[1][0], 0x7632), __byte_perm(v[1][1], v[1][2], 0x7632),
+                   __byte_perm(v[1][3], v[2][0], 0x7632), __byte_perm(v[2][1], v[2][2], 0x7632));
+    *reinterpret_cast<uint4*>(dst + kC2Copy) =
+        make_uint4(__byte_perm(v[1][0], v[1][1], 0x5410), __byte_perm(v[1][2], v[1][3], 0x5410),
+                   __byte_perm(v[2][0], v[2][1], 0x5410), __byte_perm(v[2][2], v[2][3], 0x5410));
+    *reinterpret_cast<uint4*>(dst + 2 * kC2Copy) =
+        make_uint4(__byte_perm(v[1][0], v[1][1], 0x7632), __byte_perm(v[1][2], v[1][3], 0x7632),
+                   __byte_perm(v[2][0], v[2][1], 0x7632), __byte_perm(v[2][2], v[2][3], 0x7632));
+  }
+  __syncthreads();
+
+  uint32_t a[2][MT][4];  // [k step][16-row co tile]
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) load_a(a[kk][mt], ws, kCiWLd, mt * 16, kk * 16, lane);
+
+  // this lane's row of the ldmatrix.trans B loads: tap `lane` of an 8-voxel
+  // group (the 16-byte-aligned start of its row in its copy, or a zero row
+  // in the same bank group, 16·(7·lane mod 8) bytes past tap 0's)
+  const int vz = warp >> 1, vy0 = (warp & 1) * 2;
+  const int tz = lane / 9, ty = (lane / 3) % 3, tx = lane % 3;
+  const int wofs = 2 * vz * kC2Plane + 2 * vy0 * kC2Row;
+  const bf16* lrow = lane < 27 ? xs + tx * kC2Copy + tz * kC2Plane + ty * kC2Row + wofs
+                               : xs + kC2Zero + (8 * ((7 * lane) & 7) + wofs) % 64;
+
+  // the fragment's channels: co0 + 16·mt + lane / 4 + 8·half
+  float bco[MT][2], s1[MT][2], s2[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co0 + mt * 16 + (lane >> 2) + half * 8;
+      bco[mt][half] = co < cout ? bias[co] : 0.f;
+      s1[mt][half] = s2[mt][half] = 0.f;
+    }
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+  const int od = od0 + vz;
+  bf16* otw = ot + warp * CO * kC2Old;
+  // the store's lanes: 8 channel rows × 4 chunks of 8 columns, so each
+  // 8-lane phase reads 8 rows (conflict-free at 80 bytes)
+  const int st_chunk = lane >> 3, st_row = lane & 7;
+
+#pragma unroll 1
+  for (int step = 0; step < 2; ++step) {
+    const int oh = oh0 + vy0 + step;
+    const bool row_ok = od < Do && oh < Ho;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // 16 columns at a time
+      float acc[2][MT][4];  // [8-voxel group][16-row co tile][fragment]
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t r[4];
+        ldsm_x4_t(r, lrow + step * 2 * kC2Row + 16 * hh + 8 * q);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          acc[q][mt][0] = acc[q][mt][1] = bco[mt][0];
+          acc[q][mt][2] = acc[q][mt][3] = bco[mt][1];
+          mma16816(acc[q][mt], a[0][mt], r[0], r[1]);
+          mma16816(acc[q][mt], a[1][mt], r[2], r[3]);
+        }
+      }
+      // round once, into the warp's tile; Σ/Σ² of the rounded values inside
+      // the output
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = 16 * hh + 8 * q + 2 * (lane & 3), ow = ow0 + col;
+        const bool ok0 = row_ok && ow < Wo, ok1 = row_ok && ow + 1 < Wo;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t pk = pack_bf16x2(acc[q][mt][2 * half], acc[q][mt][2 * half + 1]);
+            *reinterpret_cast<uint32_t*>(otw + (mt * 16 + (lane >> 2) + half * 8) * kC2Old + col) = pk;
+            const float f0 = ok0 ? __uint_as_float(pk << 16) : 0.f;
+            const float f1 = ok1 ? __uint_as_float(pk & 0xffff0000u) : 0.f;
+            s1[mt][half] += f0 + f1;
+            s2[mt][half] += f0 * f0 + f1 * f1;
+          }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 2 * MT; ++it) {
+      const int row = it * 8 + st_row, co = co0 + row;
+      const int ow = ow0 + 8 * st_chunk;
+      const uint4 val = *reinterpret_cast<const uint4*>(otw + row * kC2Old + 8 * st_chunk);
+      if (!row_ok || co >= cout || ow >= Wo) continue;
+      bf16* dst = out + (b * cout + co) * ovol + od * oplane + static_cast<long long>(oh) * Wo + ow;
+      if (VEC) {
+        *reinterpret_cast<uint4*>(dst) = val;
+      } else {
+        const uint32_t wv[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (ow + e < Wo)
+            dst[e] = __ushort_as_bfloat16(static_cast<unsigned short>(wv[e >> 1] >> (16 * (e & 1))));
+      }
+    }
+    __syncwarp();  // the tile is read before the next step writes it
+  }
+
+  if constexpr (CHAIN) {
+    if (ca.partial != nullptr)  // block-uniform branch
+      c1in_block_sums<MT>(s1, s2, red, co0, cout, b, tile, n_co, ca.partial);
+  }
+}
+
+// The one-input-channel forward at stride S: conv_c1in_tc_kernel (stride 1,
+// 4 × 4 × 64 output voxels a block) or conv_c1in_s2_tc_kernel (stride 2,
+// 4 × 4 × 32), MT = 2 (Cout tiles of 32) for Cout ≤ 32, else 4.
+template <int S, int MT, bool CHAIN>
 int launch_c1in_tc_mt(const void* x, const void* w, const void* bias, void* out,
                       long long batch, int cout, int H, int W, int Do, const ChainArgs& ca,
                       float* sums, cudaStream_t stream) {
-  const long long tiles = static_cast<long long>((Do + kCiTd - 1) / kCiTd) *
-                          ((H + kCiTh - 1) / kCiTh) * ((W + kCiTw - 1) / kCiTw);
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  constexpr int TD = S == 1 ? kCiTd : kC2Td, TH = S == 1 ? kCiTh : kC2Th;
+  constexpr int TW = S == 1 ? kCiTw : kC2Tw;
+  const long long tiles = static_cast<long long>((Do + TD - 1) / TD) * ((Ho + TH - 1) / TH) *
+                          ((Wo + TW - 1) / TW);
   const int n_co = (cout + MT * 16 - 1) / (MT * 16);
   if (tiles * n_co > 2147483647LL || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = W % 8 == 0 && ca.xb % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  auto kern = vec ? conv_c1in_tc_kernel<MT, CHAIN, true> : conv_c1in_tc_kernel<MT, CHAIN, false>;
-  constexpr int smem = c1in_smem<MT>();
+  // stride 2 also stores 16-byte vectors of the Wo = W / 2 columns
+  const bool vec = W % (8 * S) == 0 && ca.xb % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   (S == 1 || reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  auto kern = S == 1 ? (vec ? conv_c1in_tc_kernel<MT, CHAIN, true> : conv_c1in_tc_kernel<MT, CHAIN, false>)
+                     : (vec ? conv_c1in_s2_tc_kernel<MT, CHAIN, true>
+                            : conv_c1in_s2_tc_kernel<MT, CHAIN, false>);
+  constexpr int smem = S == 1 ? c1in_smem<MT>() : c1in_s2_smem<MT>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -1130,13 +1387,13 @@ int launch_c1in_tc_mt(const void* x, const void* w, const void* bias, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CHAIN>
+template <int S, bool CHAIN>
 int launch_c1in_tc(const void* x, const void* w, const void* bias, void* out, long long batch,
                    int cout, int H, int W, int Do, const ChainArgs& ca, float* sums,
                    cudaStream_t stream) {
   return cout <= 32
-             ? launch_c1in_tc_mt<2, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream)
-             : launch_c1in_tc_mt<4, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream);
+             ? launch_c1in_tc_mt<S, 2, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream)
+             : launch_c1in_tc_mt<S, 4, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, stream);
 }
 
 // ------------------------------------------- C and I on the tensor cores ---
@@ -1451,17 +1708,19 @@ bool c1_uses_tc(int stride, bool bf16, int cin, int cout, int act, bool sums) {
   return stride == 1 && bf16 && cout == 1 && cin >= 8 && cin <= kC1Ci && act == 0 && !sums;
 }
 
-// The one-input-channel call's instance, likewise explicit: bf16 at stride 1
-// with Cin = 1, Cout ≥ 8 and no act′ epilogue — the forward of the stage-3
-// chains' 1→32 and 1→64 convs, dense or chain, with or without the prologue
-// and Σ/Σ² — takes conv_c1in_tc_kernel. It does not take the act′ epilogue:
-// no call of the main path with one input channel has it (that would be the
-// data gradient of a conv with one output channel, which the cascade does
-// not have), so such a call stays on the CUDA cores, as do fp32 (TF32 would
-// leave the fp32 tolerances) and Cin 2-7 (K = 27·Cin would need another
-// layout of the copies). The wrapper reads it through hvc_conv3d_k3s1_c1in_tc.
+// The one-input-channel call's instance, likewise explicit: bf16 with Cin =
+// 1, Cout ≥ 8 and no act′ epilogue, dense or chain, with or without the
+// prologue and Σ/Σ² — at stride 1 the forward of the stage-3 chains' 1→32
+// and 1→64 convs, which takes conv_c1in_tc_kernel, at stride 2 stage 1's
+// 1→64 stem, which takes conv_c1in_s2_tc_kernel. It does not take the act′
+// epilogue: no call of the main path with one input channel has it (that
+// would be the data gradient of a conv with one output channel, which the
+// cascade does not have), so such a call stays on the CUDA cores, as do fp32
+// (TF32 would leave the fp32 tolerances) and Cin 2-7 (K = 27·Cin would need
+// another layout of the copies). The wrapper reads it through
+// hvc_conv3d_k3s{1,2}_c1in_tc.
 bool c1in_uses_tc(int stride, bool bf16, int cin, int cout, int dact) {
-  return stride == 1 && bf16 && cin == 1 && cout >= 8 && dact == 0;
+  return (stride == 1 || stride == 2) && bf16 && cin == 1 && cout >= 8 && dact == 0;
 }
 
 template <int S, bool CHAIN, typename T>
@@ -1483,10 +1742,14 @@ int dispatch_t(const void* x, const void* w, const void* wtc, const void* bias, 
                    ca.partial != nullptr))
       return launch_c1_tc<CHAIN>(x, w, bias, out, batch, cin, H, W, Do, ca, s);
     if (c1in_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout, ca.dact))
-      return launch_c1in_tc<CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, s);
+      return launch_c1in_tc<1, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, s);
     if (cout == 1 && cin >= 4)
       return launch<T, S, TH, TW, 4, 1, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do, Ho,
                                                Wo, ca, sums, s);
+  }
+  if constexpr (S == 2) {
+    if (c1in_uses_tc(S, std::is_same<T, __nv_bfloat16>::value, cin, cout, ca.dact))
+      return launch_c1in_tc<2, CHAIN>(x, w, bias, out, batch, cout, H, W, Do, ca, sums, s);
   }
   if (cin < 4)
     return launch<T, S, TH, TW, 1, kCoTile, CHAIN>(x, w, bias, out, batch, cin, cout, H, W, Do,
@@ -1571,4 +1834,12 @@ extern "C" int hvc_conv3d_k3s1_c1_tc(int cin, int cout, int act, int sums, int d
 // launches by.
 extern "C" int hvc_conv3d_k3s1_c1in_tc(int cin, int cout, int dact, int dtype) {
   return c1in_uses_tc(1, dtype == 1, cin, cout, dact) ? 1 : 0;
+}
+
+// 1 if hvc_conv3d_k3s2_fwd runs a call with these channel counts, act′
+// epilogue (dact code) and dtype on the one-input-channel tensor-core
+// instance, else 0: the rule of dispatch_t, which the wrapper counts its
+// launches by.
+extern "C" int hvc_conv3d_k3s2_c1in_tc(int cin, int cout, int dact, int dtype) {
+  return c1in_uses_tc(2, dtype == 1, cin, cout, dact) ? 1 : 0;
 }

@@ -92,10 +92,14 @@
 //        costs one float4 broadcast of g plus one load per column for 16 FMAs.
 //   Both write one fp32 partial per split of the voxel tiles; a second small
 //   kernel adds the partials in split order (no atomics: repeatable bits).
-//   F/J, two instances, picked by an explicit rule (dgrad_s2_uses_tc, which
-//        the wrapper reads through hvc_conv3d_k3s2_dgrad_tc): bf16 with Cin ≥
-//        8 and Cout ≥ 8 takes the tensor cores; fp32 (TF32 would leave the
-//        fp32 tolerances) and the 1-channel stem (Cin = 1) the CUDA cores.
+//   F/J, three instances, picked by an explicit rule (dgrad_s2_instance,
+//        which the wrapper reads through hvc_conv3d_k3s2_dgrad_tc): bf16 with
+//        Cin ≥ 8 and Cout ≥ 8 takes the tensor cores; bf16 with one dx
+//        channel, 8 ≤ Cout ≤ 64 and no act′ (stage 1's 1→64 stem, bound by
+//        reading g) the one-dx-channel tensor cores (dgrad_s2_c1_tc_kernel:
+//        taps as M, P[tap, g position] in shared memory, a parity gather; its
+//        comment has the design); fp32 (TF32 would leave the fp32 tolerances)
+//        and the rest the CUDA cores.
 //   F/J on the tensor cores (dgrad_s2_tc_kernel): dx splits into 8 parity
 //        classes by the (z, y, x) parity of the voxel; a voxel at even index
 //        takes tap d = 1 along that dim, one at odd index d ∈ {0, 2}, so the
@@ -125,7 +129,8 @@
 //        read by the same 16-byte vectors and applied in fp32 before the one
 //        rounding to bf16. Each dx element has one writer: repeatable bits.
 //   F/J on the CUDA cores (dgrad_s2_kernel): one input voxel per thread and
-//        32 input channels per block in registers; per chunk of 8 output
+//        32 input channels per block in registers (at Cin = 1, 31 of them
+//        padding: the fp32 stem's data gradient); per chunk of 8 output
 //        channels the block stages the 2×5×17 output-gradient patch its 8×32
 //        input tile reads and the chunk's weights [co][tap][ci] (rows padded
 //        to 36 floats against bank conflicts) in shared memory. Each voxel
@@ -1454,12 +1459,262 @@ int launch_dgrad_s2_tc(const void* g, const void* wtc, void* dx, long long batch
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance a call takes, an explicit rule (no fallback): bf16 with Cin ≥ 8
-// and Cout ≥ 8 → the tensor cores (dgrad_s2_tc_kernel); fp32 (tensor cores
-// would mean TF32, outside the fp32 tolerances) and the 1-channel stem's
-// data gradient (Cin = 1: bound by its bytes, M = 1 of 32 rows) → the CUDA-core
-// dgrad_s2_kernel. The wrapper reads it through hvc_conv3d_k3s2_dgrad_tc.
-bool dgrad_s2_uses_tc(bool bf16, int cin, int cout) { return bf16 && cin >= 8 && cout >= 8; }
+// ------------------------- F/J with one dx channel on the tensor cores ---
+
+constexpr int kF1Threads = 256;                // 8 warps
+constexpr int kF1Warps = kF1Threads / 32;
+constexpr int kF1Co = 64;                      // g channels a block holds: the rule's most
+constexpr int kF1Ty = 4, kF1Tx = 32;           // g rows × columns per block: 8 × 64 dx voxels a plane
+constexpr int kF1Np = 8;                       // g planes a block walks: 16 dx planes
+constexpr int kF1Rows = kF1Ty + 1;             // staged g rows: the tile's and one halo row
+constexpr int kF1Cols = kF1Tx + 8;             // staged g columns from ox0: the tile's and a
+                                               // vector holding the halo column
+constexpr int kF1Ld = kF1Rows * kF1Cols;       // bf16 per staged channel: 400 bytes, an odd number
+                                               // of 16-byte units (ldmatrix.trans conflict-free)
+constexpr int kF1Groups = (kF1Ld + 15) / 16;   // 16-position groups of the products: 13
+constexpr int kF1Buf = kF1Co * kF1Ld + 8;      // bf16 per staging buffer: + the last group's
+                                               // over-read past the last channel
+constexpr int kF1Pt = 232;                     // P floats per tap: ≥ 16 · 13 positions, ≡ 8 mod 32,
+                                               // so a half-warp's float2 stores of 4 taps hit 32 banks
+constexpr int kF1WLd = kF1Co + 8;              // bf16 per weight row ([tap][co]): 144 bytes
+constexpr int kF1Smem = 2 * kF1Buf * 2 + 27 * kF1Pt * 4 + 32 * kF1WLd * 2;  // 80,896 bytes:
+                                                                          // two blocks an SM
+static_assert(2 * kF1Ty == kF1Warps && kF1Tx == 32, "one warp a dx row, one lane a g column");
+
+// dx[iz, iy, ix] = Σ_{co, taps with 2·o + d − 1 = i along each dim} g[co, o] ·
+// w[co, 0, tap] for one dx channel, 8 ≤ Cout ≤ 64 and no act′ epilogue
+// (dgrad_s2_instance 2): _dgrad_s2's product with the taps as M. What bounds
+// it: reading g (Cout times the bytes of dx / 8 · 2); the products are tiny.
+// The 32-channel layout of dgrad_s2_kernel would pad M from 1 to 32. Here
+// the products are a GEMM per g plane, P[tap, o] = Σ_co w[co, tap] · g[co, o],
+// M = the 27 taps padded to 32 (two m16 tiles), K = Cout (≤ 4 k16 steps),
+// N = the plane's staged g positions (5 rows × 40 columns from (oy0, ox0):
+// the block's 4 × 32 and the halo row and column the odd dx rows and columns
+// read): the weights' A fragments stay in registers for the block, g's
+// channel rows arrive by 16-byte cp.async as they lie ([co][row][column],
+// zero outside g and Cout, two buffers: the next plane lands under the
+// current one's products and sums), the B fragments come by ldmatrix.trans
+// and P goes to shared memory in fp32 ([tap][position]). Then each thread
+// gathers two dx columns of one dx row from P by the parity rule of
+// dgrad_s2_kernel: along each dimension an even index 2u takes d = 1 from g
+// index u, an odd one 2u + 1 takes d = 0 from u + 1 and d = 2 from u. A
+// block walks g planes ozs … ozs + 8: g plane oz gives dx plane 2·oz (dz = 1)
+// whole, dx plane 2·oz − 1 its dz = 0 part (added to the dz = 2 part plane
+// oz − 1 left), and keeps its own dz = 2 part for dx plane 2·oz + 1; so each
+// g plane is staged once per block. The sums run in a fixed order and each dx
+// element has one writer (no atomics: two runs give the same bits); one
+// rounding to bf16, two columns a 32-bit store, a warp's 64 columns one
+// 128-byte row segment. Block blockIdx.x: column tile fastest, then row tile,
+// then plane range (g planes from ((qlo − 1) & ~1) / 2, so the first dx plane
+// is even in padding-1 terms, iz = view plane + qlo − 1); batch blockIdx.y.
+// Warp w: dx row 2·oy0 + w; lane u: dx columns 2·(ox0 + u) and + 1. VEC: g's
+// rows are 16-byte aligned (Wo a multiple of 8) and dx's rows 4-byte aligned
+// (W even), so g arrives by cp.async and dx leaves in pairs; otherwise
+// element by element.
+template <bool VEC>
+__global__ void __launch_bounds__(kF1Threads, 2)
+dgrad_s2_c1_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
+                      bf16* __restrict__ dx, int cout, int nv, int qlo, int H, int W, int Do,
+                      int n_tx, int n_ty) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gbuf = reinterpret_cast<bf16*>(smem_raw);        // two planes' [co][row][column]
+  float* ps = reinterpret_cast<float*>(gbuf + 2 * kF1Buf);  // [tap][position]
+  bf16* ws = reinterpret_cast<bf16*>(ps + 27 * kF1Pt);     // [tap (32)][co]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tile = static_cast<int>(blockIdx.x);
+  const int ox0 = tile % n_tx * kF1Tx;
+  const int oy0 = tile / n_tx % n_ty * kF1Ty;
+  const int ozs = (((qlo - 1) & ~1) >> 1) + tile / (n_tx * n_ty) * kF1Np;
+  const long long b = blockIdx.y;
+  const int ks = (cout + 15) / 16;  // k-steps of the products
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const bf16* gb = g + b * cout * Do * oplane;
+
+  // the weights, [tap][co], zero past tap 26 and Cout; their A fragments stay
+  // in registers. The padding past the last channel of each buffer is zeroed.
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* wsm = reinterpret_cast<unsigned short*>(ws);
+  for (int u = tid; u < 32 * kF1Co; u += kF1Threads) {
+    const int tap = u / kF1Co, co = u % kF1Co;
+    wsm[tap * kF1WLd + co] = tap < 27 && co < cout ? wg[co * 27 + tap] : 0;
+  }
+  if (tid < 2) reinterpret_cast<uint4*>(gbuf + tid * kF1Buf + kF1Co * kF1Ld)[0] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  uint32_t a[4][2][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      if (kk < ks) load_a(a[kk][mt], ws, kF1WLd, mt * 16, kk * 16, lane);
+
+  // g plane oz into buffer dst: units of 8 columns of one row of one channel
+  auto stage = [&](int oz, bf16* dst) {
+    const int units = ks * 16 * kF1Rows * (kF1Cols / 8);
+    for (int u = tid; u < units; u += kF1Threads) {
+      const int v = u % (kF1Cols / 8), r = u / (kF1Cols / 8) % kF1Rows;
+      const int co = u / (kF1Rows * (kF1Cols / 8));
+      const int oy = oy0 + r, c = ox0 + 8 * v;
+      const bool row_ok = co < cout && oy < Ho;
+      bf16* d = dst + co * kF1Ld + r * kF1Cols + 8 * v;
+      const long long off = (static_cast<long long>(co) * Do + oz) * oplane +
+                            static_cast<long long>(oy) * Wo;
+      if (VEC) {
+        const bool ok = row_ok && c < Wo;  // Wo % 8 = 0: a vector is all in or out
+        cp_async16(d, ok ? gb + off + c : g, ok ? 16 : 0);
+      } else {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(gb) + off;
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = c + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 < Wo ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 < Wo ? src[c1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(d) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+
+  // P of the staged plane: warp w takes the 16-position groups w, w + 8; the
+  // taps < 27 go to ps (the last group's positions past 199 are never read)
+  auto products = [&](const bf16* src) {
+    for (int gi = warp; gi < kF1Groups; gi += kF1Warps) {
+      const int n0 = gi * 16;
+      float acc[2][2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ks) {
+          uint32_t bf[4];
+          load_b2(bf, src, kF1Ld, kk * 16, n0, lane);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma16816(acc[mt][0], a[kk][mt], bf[0], bf[1]);
+            mma16816(acc[mt][1], a[kk][mt], bf[2], bf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int tap = mt * 16 + (lane >> 2) + 8 * h;
+            if (tap < 27)
+              *reinterpret_cast<float2*>(ps + tap * kF1Pt + n0 + 8 * nt + 2 * (lane & 3)) =
+                  make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          }
+    }
+  };
+
+  // this thread's dx row ry = warp (even: dy = 1 from g row ry / 2; odd: dy = 0
+  // from row (ry + 1) / 2, then dy = 2 from row (ry − 1) / 2) and g column u
+  const int ry = warp, u = lane;
+  const int ny = 1 + (ry & 1);
+  const int dy0 = ry & 1 ? 0 : 1, r0 = (ry + 1) >> 1, r1 = (ry - 1) >> 1;
+  // the dz part of this thread's two dx columns: even 2u (dx = 1 at u), odd
+  // 2u + 1 (dx = 0 at u + 1, then dx = 2 at u), its dy terms in order
+  auto part = [&](int dz, float& se, float& so) {
+    se = so = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k >= ny) break;
+      const int dy = k ? 2 : dy0, r = k ? r1 : r0;
+      const float* pr = ps + (dz * 9 + dy * 3) * kF1Pt + r * kF1Cols + u;
+      se += pr[kF1Pt];
+      so += pr[1] + pr[2 * kF1Pt];
+    }
+  };
+  const int iy = 2 * oy0 + ry, ix = 2 * (ox0 + u);
+  const long long plane = static_cast<long long>(H) * W;
+  bf16* dxb = dx + b * nv * plane + static_cast<long long>(iy) * W + ix;
+  auto store = [&](int iz, float ve, float vo) {
+    const int pv = iz - (qlo - 1);
+    if (pv < 0 || pv >= nv || iy >= H || ix >= W) return;
+    bf16* dst = dxb + pv * plane;
+    if (VEC) {
+      *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(ve, vo);
+    } else {
+      dst[0] = __float2bfloat16_rn(ve);
+      if (ix + 1 < W) dst[1] = __float2bfloat16_rn(vo);
+    }
+  };
+
+  auto in_g = [&](int oz) { return oz >= 0 && oz < Do; };
+  if (in_g(ozs)) stage(ozs, gbuf);
+  cp_async_commit();
+  float pend_e = 0.f, pend_o = 0.f;  // dz = 2 parts of dx plane 2·oz + 1
+  for (int i = 0; i <= kF1Np; ++i) {
+    const int oz = ozs + i;
+    if (i < kF1Np && in_g(oz + 1)) stage(oz + 1, gbuf + ((i + 1) & 1) * kF1Buf);
+    cp_async_commit();
+    float e0 = 0.f, o0 = 0.f, e1 = 0.f, o1 = 0.f, e2 = 0.f, o2 = 0.f;
+    if (in_g(oz)) {  // block-uniform branch
+      cp_async_wait<1>();
+      __syncthreads();  // plane oz is staged; the previous plane's P is no longer read
+      products(gbuf + (i & 1) * kF1Buf);
+      __syncthreads();  // P is complete
+      part(0, e0, o0);
+      if (i < kF1Np) {
+        part(1, e1, o1);
+        part(2, e2, o2);
+      }
+    }
+    if (i > 0) store(2 * oz - 1, pend_e + e0, pend_o + o0);
+    if (i < kF1Np) store(2 * oz, e1, o1);
+    pend_e = e2;
+    pend_o = o2;
+  }
+  cp_async_wait<0>();
+}
+
+int launch_dgrad_s2_c1_tc(const void* g, const void* w, void* dx, long long batch, int cout,
+                          int nv, int qlo, int H, int W, int Do, cudaStream_t stream) {
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int n_tx = (Wo + kF1Tx - 1) / kF1Tx, n_ty = (Ho + kF1Ty - 1) / kF1Ty;
+  const int iz_lo = (qlo - 1) & ~1, iz_hi = qlo - 1 + nv;  // even start; one past the last
+  const int n_tz = (iz_hi - iz_lo + 2 * kF1Np - 1) / (2 * kF1Np);
+  const long long tiles = static_cast<long long>(n_tz) * n_ty * n_tx;
+  if (cout > kF1Co || tiles > 2147483647LL || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = Wo % 8 == 0 && W % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 4 == 0;
+  auto kern = vec ? dgrad_s2_c1_tc_kernel<true> : dgrad_s2_c1_tc_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kF1Smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)), kF1Threads, kF1Smem,
+         stream>>>(static_cast<const bf16*>(g), static_cast<const bf16*>(w),
+                   static_cast<bf16*>(dx), cout, nv, qlo, H, W, Do, n_tx, n_ty);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance a call takes, an explicit rule (no fallback): 1, bf16 with Cin
+// ≥ 8 and Cout ≥ 8 → the tensor cores (dgrad_s2_tc_kernel); 2, bf16 with one
+// dx channel, 8 ≤ Cout ≤ 64 and no act′ epilogue — the data gradient of
+// stage 1's 1→64 stem — → the one-dx-channel tensor cores
+// (dgrad_s2_c1_tc_kernel; act′ would be the backward of a prologue, which
+// the stem's input, the broadcast initial volume, has not); 0, fp32 (tensor
+// cores would mean TF32, outside the fp32 tolerances) and the rest → the
+// CUDA-core dgrad_s2_kernel. The wrapper reads it through
+// hvc_conv3d_k3s2_dgrad_tc (ops/cuda/conv3d_k3.py: dgrad_s2_instance states it
+// for the CPU).
+int dgrad_s2_instance(bool bf16, int cin, int cout, int dact) {
+  if (!bf16) return 0;
+  if (cin >= 8 && cout >= 8) return 1;
+  return cin == 1 && cout >= 8 && cout <= kF1Co && dact == 0 ? 2 : 0;
+}
 
 }  // namespace
 
@@ -1498,7 +1753,9 @@ extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* w
       dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dgrad_s2_uses_tc(dtype == 1, cin, cout))
+  const int instance = dgrad_s2_instance(dtype == 1, cin, cout, dact);
+  if (instance == 2) return launch_dgrad_s2_c1_tc(g, w, dx, batch, cout, nv, qlo, H, W, Do, s);
+  if (instance == 1)
     return dact ? launch_dgrad_s2_tc<true>(g, wtc, dx, batch, cin, cout, nv, qlo, H, W, Do, dact,
                                            dact_x, db, dc, s)
                 : launch_dgrad_s2_tc<false>(g, wtc, dx, batch, cin, cout, nv, qlo, H, W, Do, dact,
@@ -1511,11 +1768,13 @@ extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* w
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// 1 if hvc_conv3d_k3s2_dgrad runs a call with these channel counts (Cin of
-// dx, Cout of g) and dtype (0 = float32, 1 = bfloat16) on the tensor cores,
-// else 0: the rule of its dispatch, which the wrapper counts launches by.
-extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dtype) {
-  return dgrad_s2_uses_tc(dtype == 1, cin, cout) ? 1 : 0;
+// The instance hvc_conv3d_k3s2_dgrad runs a call with these channel counts
+// (Cin of dx, Cout of g), act′ epilogue (dact code) and dtype (0 = float32,
+// 1 = bfloat16) on: 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8), 2 the
+// one-dx-channel tensor cores; the rule of its dispatch, which the wrapper
+// counts launches by.
+extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dact, int dtype) {
+  return dgrad_s2_instance(dtype == 1, cin, cout, dact);
 }
 
 // The instance hvc_conv3d_k3s{stride}_wgrad runs a call with this Cin and

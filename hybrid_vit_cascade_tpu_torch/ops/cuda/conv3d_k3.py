@@ -45,18 +45,20 @@ the one-output-channel stride-1 call, that is the data gradient of a conv
 with one input channel (bf16, 8 ≤ Cin ≤ 64 as the kernel sees them, no
 prologue, no sums: ``dgrad_c1_uses_tensor_cores``), to
 ``conv3d_k3s1_dgrad_c1_tc`` when dense and ``conv3d_k3s1_chain_dgrad_c1_tc``
-otherwise, the one-input-channel stride-1 conv, the forward of the 1→32 and
-1→64 convs (bf16, Cin = 1, Cout ≥ 8, no act′ epilogue:
-``fwd_c1in_uses_tensor_cores``), to ``conv3d_k3s1_c1in_tc`` when dense and
-``conv3d_k3s1_chain_c1in_tc`` otherwise, a weight gradient on the tensor
-cores (bf16, Cin ≥ 8: instance 1 of ``wgrad_instance``) to
-``conv3d_k3s{1,2}_wgrad_tc`` and one with one input channel at stride 1
-(bf16: instance 2) to ``conv3d_k3s1_wgrad_c1in_tc`` (dense and chain), the
-stride-2 data gradient (bf16, Cin ≥ 8 and Cout ≥ 8:
-``dgrad_s2_uses_tensor_cores``) to ``conv3d_k3s2_dgrad_tc`` when dense and
-``conv3d_k3s2_chain_dgrad_tc`` otherwise. The stride-2 kernels with one input
-channel (the 1→64 stem, on the CUDA cores) also count in
-``conv3d_k3s2_c1in``, ``conv3d_k3s2_dgrad_c1in`` and ``conv3d_k3s2_wgrad_c1in``.
+otherwise, the one-input-channel conv (bf16, Cin = 1, Cout ≥ 8, no act′
+epilogue: ``fwd_c1in_uses_tensor_cores``), at stride 1 the forward of the
+1→32 and 1→64 convs, to ``conv3d_k3s1_c1in_tc`` when dense and
+``conv3d_k3s1_chain_c1in_tc`` otherwise, at stride 2 that of stage 1's 1→64
+stem to ``conv3d_k3s2_c1in_tc`` (dense and chain), a weight gradient on the tensor cores (bf16, Cin ≥ 8: instance 1
+of ``wgrad_instance``) to ``conv3d_k3s{1,2}_wgrad_tc`` and one with one input
+channel at stride 1 (bf16: instance 2) to ``conv3d_k3s1_wgrad_c1in_tc`` (dense
+and chain), the stride-2 data gradient on the tensor cores (bf16, Cin ≥ 8 and
+Cout ≥ 8: instance 1 of ``dgrad_s2_instance``) to ``conv3d_k3s2_dgrad_tc``
+when dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise, and one with one dx
+channel (bf16, 8 ≤ Cout ≤ 64, no act′: instance 2), the data gradient of the
+1→64 stem, to ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain). The stride-2 kernels with one
+input channel also count in ``conv3d_k3s2_c1in``, ``conv3d_k3s2_dgrad_c1in``
+and ``conv3d_k3s2_wgrad_c1in``, whichever instance they take.
 """
 
 from __future__ import annotations
@@ -85,16 +87,17 @@ _WGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _L, _I, _
 #                       dc, dtype, stream); wtc: s2_dgrad_tc_weights, or null
 _DGRAD_ARGTYPES = (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _L, _L, _I, _P)
 # hvc_conv3d_k3_fwd_tc(stride, cin, cout, dtype): 1 if the forward takes the
-# tensor cores; hvc_conv3d_k3s2_dgrad_tc(cin, cout, dtype): 1 if the stride-2
-# data gradient does
+# tensor cores
 _FWD_TC_ARGTYPES = (_I, _I, _I, _I)
 # hvc_conv3d_k3s1_c1_tc(cin, cout, act, sums, dtype): 1 if the stride-1 call
 # takes the one-output-channel tensor-core instance
 _C1_TC_ARGTYPES = (_I, _I, _I, _I, _I)
-# hvc_conv3d_k3s1_c1in_tc(cin, cout, dact, dtype): 1 if the stride-1 call takes
-# the one-input-channel tensor-core instance
+# hvc_conv3d_k3s{1,2}_c1in_tc(cin, cout, dact, dtype): 1 if the call takes the
+# one-input-channel tensor-core instance
 _C1IN_TC_ARGTYPES = (_I, _I, _I, _I)
-_DGRAD_TC_ARGTYPES = (_I, _I, _I)
+# hvc_conv3d_k3s2_dgrad_tc(cin, cout, dact, dtype): the stride-2 data
+# gradient's instance
+_DGRAD_TC_ARGTYPES = (_I, _I, _I, _I)
 # hvc_conv3d_k3_wgrad_tc(stride, cin, dtype): the weight gradient's instance
 _WGRAD_TC_ARGTYPES = (_I, _I, _I)
 # The forward's instances with Σ/Σ² (fwd_plan): 0 the CUDA cores, 1 the
@@ -102,19 +105,23 @@ _WGRAD_TC_ARGTYPES = (_I, _I, _I)
 FWD_CUDA_CORE, FWD_TC, FWD_C1IN_TC = 0, 1, 2
 # Output voxels (D, H, W) per forward block of each instance, by stride
 # (csrc/conv3d_k3.cu): the Σ/Σ² epilogue writes one partial per block and
-# output channel (fwd_partial_blocks). The one-input-channel instance is
-# stride 1 only.
+# output channel (fwd_partial_blocks).
 _FWD_TILE_TC = {1: (4, 4, 32), 2: (2, 4, 16)}
-_FWD_TILE_C1IN = {1: (4, 4, 64)}
+_FWD_TILE_C1IN = {1: (4, 4, 64), 2: (4, 4, 32)}
 _FWD_TILE_CUDA_CORE = {1: (1, 8, 32), 2: (1, 8, 16)}
 # The stride-2 tensor-core instance: output channels per block (M) and input
 # channels per chunk (one k16 step a tap), the blocks of its weight layout
 # (s2_tc_weights).
 _S2_TC_CO = 64
 _S2_TC_CI = 16
-# The stride-2 data gradient's tensor-core instance: dx channels per block (M)
+# The stride-2 data gradient's instances (csrc/conv3d_k3_bwd.cu, the codes of
+# hvc_conv3d_k3s2_dgrad_tc): 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8),
+# 2 the one-dx-channel tensor cores (8 ≤ Cout ≤ DGRAD_C1_CO_MAX, the g
+# channels a block holds). The tensor-core instance: dx channels per block (M)
 # and output-gradient channels per chunk (one k16 step a tap), the blocks of
 # its weight layout (s2_dgrad_tc_weights).
+DGRAD_S2_CUDA_CORE, DGRAD_S2_TC, DGRAD_S2_C1_TC = 0, 1, 2
+DGRAD_C1_CO_MAX = 64
 _DGRAD_TC_CI = 32
 _DGRAD_TC_CO = 16
 # The weight gradient's instances (csrc/conv3d_k3_bwd.cu, the codes of
@@ -283,10 +290,12 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
     """Launch kernel B/C/H/I on the instance the C dispatch picks; returns out
     or (out, s1, s2). A tensor-core launch, by the C rules
     (``hvc_conv3d_k3_fwd_tc``, ``hvc_conv3d_k3s1_c1_tc``,
-    ``hvc_conv3d_k3s1_c1in_tc``), also counts in ``conv3d_k3s{stride}_tc``,
-    with one output channel in ``conv3d_k3s1_dgrad_c1_tc``, with one input
-    channel in ``conv3d_k3s1_c1in_tc`` (``dense``; else their ``_chain``
-    forms); at stride 2 it reads the weights in ``s2_tc_weights``'s layout."""
+    ``hvc_conv3d_k3s{stride}_c1in_tc``), also counts in
+    ``conv3d_k3s{stride}_tc``, with one output channel in
+    ``conv3d_k3s1_dgrad_c1_tc``, with one input channel in
+    ``conv3d_k3s{stride}_c1in_tc`` (``dense``; else their ``_chain`` forms,
+    but at stride 2 ``conv3d_k3s2_c1in_tc`` counts both); at stride 2 the tensor-core instance reads the weights in
+    ``s2_tc_weights``'s layout."""
     _check_cuda(x)
     _check_view("x", x, x.dtype, x.device)
     _check_weights(x, w, bias)
@@ -315,7 +324,7 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
         stride, cin, cout, _DTYPE_CODES[x.dtype]))
     c1 = stride == 1 and bool(_build.function("hvc_conv3d_k3s1_c1_tc", _C1_TC_ARGTYPES)(
         cin, cout, _ACT_CODES[act], int(want_sums), _DTYPE_CODES[x.dtype]))
-    c1in = stride == 1 and bool(_build.function("hvc_conv3d_k3s1_c1in_tc", _C1IN_TC_ARGTYPES)(
+    c1in = bool(_build.function(f"hvc_conv3d_k3s{stride}_c1in_tc", _C1IN_TC_ARGTYPES)(
         cin, cout, dact_code, _DTYPE_CODES[x.dtype]))
     weights = (w.data_ptr(),)
     if stride == 2:
@@ -335,7 +344,7 @@ def _fwd(entry: str, stride: int, x: torch.Tensor, w: torch.Tensor,
     if c1:
         LAUNCHES[_counter("_dgrad_c1_tc", 1, dense)] += 1
     if c1in:
-        LAUNCHES[_counter("_c1in_tc", 1, dense)] += 1
+        LAUNCHES[_counter("_c1in_tc", 1, dense) if stride == 1 else "conv3d_k3s2_c1in_tc"] += 1
     if stride == 2 and cin == 1:
         LAUNCHES["conv3d_k3s2_c1in"] += 1
     return (out, sums[0], sums[1]) if want_sums else out
@@ -347,10 +356,9 @@ def fwd_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: int) 
     ``fwd_uses_tc`` (csrc/conv3d_k3.cu) for plans and tests on the CPU; on
     the card the wrapper reads the C rule itself: bf16 at stride 1 or 2 with
     Cin ≥ 8 and Cout ≥ 8 runs on the tensor cores; fp32 (TF32 would leave the
-    fp32 tolerances) and the stride-2 1-channel stem on the CUDA cores, the
-    one-output-channel data gradient on the instance
-    ``dgrad_c1_uses_tensor_cores`` names and the one-input-channel stride-1
-    conv on the one ``fwd_c1in_uses_tensor_cores`` names."""
+    fp32 tolerances) on the CUDA cores, the one-output-channel data gradient
+    on the instance ``dgrad_c1_uses_tensor_cores`` names and the
+    one-input-channel conv on the one ``fwd_c1in_uses_tensor_cores`` names."""
     return dtype == torch.bfloat16 and stride in (1, 2) and cin >= 8 and cout >= 8
 
 
@@ -358,14 +366,16 @@ def fwd_c1in_uses_tensor_cores(dtype: torch.dtype, stride: int, cin: int, cout: 
                                dact: bool = False) -> bool:
     """Which instance a conv call with one input channel takes, the rule of
     ``c1in_uses_tc`` (csrc/conv3d_k3.cu), which the wrapper reads through
-    ``hvc_conv3d_k3s1_c1in_tc``: bf16 at stride 1 with Cin = 1, Cout ≥ 8 and
-    no act′ epilogue (``dact``: no call with one input channel on the main
-    path has it) — the forward of the stage-3 chains' 1→32 and 1→64 convs,
-    with or without the prologue and Σ/Σ² — runs on the one-input-channel
-    tensor-core instance (``conv_c1in_tc_kernel``, bound by writing its
-    output); fp32 (TF32 would leave the fp32 tolerances), Cin 2-7, the
-    stride-2 1→64 stem and a call with act′ on the CUDA cores."""
-    return dtype == torch.bfloat16 and stride == 1 and cin == 1 and cout >= 8 and not dact
+    ``hvc_conv3d_k3s{1,2}_c1in_tc``: bf16 at stride 1 or 2 with Cin = 1, Cout
+    ≥ 8 and no act′ epilogue (``dact``: no call with one input channel on the
+    main path has it) — the forward of the stage-3 chains' 1→32 and 1→64
+    convs (``conv_c1in_tc_kernel``) and of stage 1's stride-2 1→64 stem
+    (``conv_c1in_s2_tc_kernel``), with or without the prologue and Σ/Σ² —
+    runs on the one-input-channel tensor-core instance, bound by writing its
+    output; fp32 (TF32 would leave the fp32 tolerances), Cin 2-7 and a call
+    with act′ on the CUDA cores."""
+    return (dtype == torch.bfloat16 and stride in (1, 2) and cin == 1 and cout >= 8
+            and not dact)
 
 
 def dgrad_c1_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int,
@@ -521,22 +531,32 @@ def s2_dgrad_tc_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.view(n_co, _DGRAD_TC_CO, n_ci, _DGRAD_TC_CI, 27).permute(2, 0, 4, 3, 1).contiguous()
 
 
-def dgrad_s2_uses_tensor_cores(dtype: torch.dtype, cin: int, cout: int) -> bool:
+def dgrad_s2_instance(dtype: torch.dtype, cin: int, cout: int, dact: bool = False) -> int:
     """Which instance of the stride-2 data gradient (F/J) a call takes, the
-    rule of ``dgrad_s2_uses_tc`` (csrc/conv3d_k3_bwd.cu), which the wrapper
+    rule of ``dgrad_s2_instance`` (csrc/conv3d_k3_bwd.cu), which the wrapper
     reads through ``hvc_conv3d_k3s2_dgrad_tc``; Cin and Cout are the conv's
-    (dx's and g's channels): bf16 with Cin ≥ 8 and Cout ≥ 8 runs on the tensor
-    cores; fp32 (TF32 would leave the fp32 tolerances) and the 1-channel stem
-    (bound by its bytes) on the CUDA cores."""
-    return dtype == torch.bfloat16 and cin >= 8 and cout >= 8
+    (dx's and g's channels): DGRAD_S2_TC, bf16 with Cin ≥ 8 and Cout ≥ 8;
+    DGRAD_S2_C1_TC, bf16 with Cin = 1, 8 ≤ Cout ≤ 64 and no act′ epilogue
+    (``dact``) — the data gradient of stage 1's 1→64 stem, bound by reading g
+    (``dgrad_s2_c1_tc_kernel``: the taps as M); DGRAD_S2_CUDA_CORE, fp32
+    (TF32 would leave the fp32 tolerances) and the rest."""
+    if dtype != torch.bfloat16:
+        return DGRAD_S2_CUDA_CORE
+    if cin >= 8 and cout >= 8:
+        return DGRAD_S2_TC
+    if cin == 1 and 8 <= cout <= DGRAD_C1_CO_MAX and not dact:
+        return DGRAD_S2_C1_TC
+    return DGRAD_S2_CUDA_CORE
 
 
 def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
               dact: Optional[tuple] = None, dense: bool = False) -> torch.Tensor:
     """Launch kernel F/J: dx (x_shape) of the stride-2 (chain) conv, on the
-    instance the C rule names; a tensor-core launch also counts in
-    ``conv3d_k3s2_dgrad_tc`` (``dense``) or ``conv3d_k3s2_chain_dgrad_tc`` and
-    reads the weights in ``s2_dgrad_tc_weights``'s layout."""
+    instance the C rule names (``hvc_conv3d_k3s2_dgrad_tc``); a launch on the
+    tensor cores also counts in ``conv3d_k3s2_dgrad_tc`` (``dense``) or
+    ``conv3d_k3s2_chain_dgrad_tc`` and reads the weights in
+    ``s2_dgrad_tc_weights``'s layout, one on the one-dx-channel tensor cores
+    in ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain)."""
     _check_cuda(g)
     _check_view("g", g, g.dtype, g.device)
     B, cin, nv, H, W = x_shape
@@ -556,9 +576,9 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
         if tuple(dact_x.shape) != tuple(x_shape):
             raise ValueError(f"dact x {tuple(dact_x.shape)} must have x's shape {tuple(x_shape)}")
         dact_code, db, dc = _ACT_CODES[dact[0]], dact_x.stride(0), dact_x.stride(1)
-    tc = bool(_build.function("hvc_conv3d_k3s2_dgrad_tc", _DGRAD_TC_ARGTYPES)(
-        cin, cout, _DTYPE_CODES[g.dtype]))
-    wtc = s2_dgrad_tc_weights(w) if tc else None
+    instance = _build.function("hvc_conv3d_k3s2_dgrad_tc", _DGRAD_TC_ARGTYPES)(
+        cin, cout, dact_code, _DTYPE_CODES[g.dtype])
+    wtc = s2_dgrad_tc_weights(w) if instance == DGRAD_S2_TC else None
     fn = _build.function("hvc_conv3d_k3s2_dgrad", _DGRAD_ARGTYPES)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -567,8 +587,10 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
                 None if dact_x is None else dact_x.data_ptr(), db, dc, _DTYPE_CODES[g.dtype],
                 stream)
     _build.check(rc, "hvc_conv3d_k3s2_dgrad")
-    if tc:
+    if instance == DGRAD_S2_TC:
         LAUNCHES[_counter("_dgrad_tc", 2, dense)] += 1
+    elif instance == DGRAD_S2_C1_TC:
+        LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"] += 1
     if cin == 1:
         LAUNCHES["conv3d_k3s2_dgrad_c1in"] += 1
     return dx
@@ -599,8 +621,8 @@ def conv3d_k3(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], st
     (B, Cout, d_out, ⌈H/S⌉, ⌈W/S⌉), or (out, s1, s2) with ``want_sums``.
     Kernel B / C at stride 1 / 2 with ``dense`` (the padding-1 conv: qlo 1,
     d_out ⌈D/S⌉, no options), H / I otherwise; bf16 with Cin ≥ 8 and Cout ≥ 8
-    on the tensor cores (``fwd_uses_tensor_cores``), bf16 at stride 1 with
-    Cin = 1 and Cout ≥ 8 on the one-input-channel tensor cores
+    on the tensor cores (``fwd_uses_tensor_cores``), bf16 with Cin = 1 and
+    Cout ≥ 8 on the one-input-channel tensor cores
     (``fwd_c1in_uses_tensor_cores``), the rest on the CUDA cores."""
     if dense:
         _check_dense(x.shape, stride, qlo, d_out, want_sums, act)
@@ -621,7 +643,7 @@ def conv3d_k3_dgrad(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor, stride: i
     planes p + qlo − 2 + {0, 1, 2}, the vp=2 virtual padding of
     ``conv3d_k3.py:714``), on the instance ``fwd_uses_tensor_cores`` names
     for that call (its Cin is g's channels). Stride 2: kernel F (``dense``) /
-    J, on the instance ``dgrad_s2_uses_tensor_cores`` names. The data gradient
+    J, on the instance ``dgrad_s2_instance`` names. The data gradient
     of a conv with one input channel (g's channels to one) takes the instance
     ``dgrad_c1_uses_tensor_cores`` names."""
     if dense:
@@ -669,15 +691,19 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # one-output-channel tensor-core instance; conv3d_k3s1_c1in_tc and
 # conv3d_k3s1_chain_c1in_tc, those of B and H with one input channel (the
 # forward of the 1→32 and 1→64 convs) on the one-input-channel tensor-core
-# instance; conv3d_k3s1_wgrad_c1in_tc, those of E and K at stride 1 with one
-# input channel on the one-input-channel weight gradient; conv3d_k3s2_c1in,
-# conv3d_k3s2_dgrad_c1in and conv3d_k3s2_wgrad_c1in, those of C/I, F/J and
-# G/K at stride 2 with one input channel (the 1→64 stem, on the CUDA cores).
+# instance, and conv3d_k3s2_c1in_tc those of C and I (the 1→64 stem);
+# conv3d_k3s1_wgrad_c1in_tc, those of E and K at stride 1 with one input
+# channel on the one-input-channel weight gradient; conv3d_k3s2_dgrad_c1in_tc,
+# those of F and J with one dx channel on the one-dx-channel tensor cores;
+# conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and conv3d_k3s2_wgrad_c1in, those
+# of C/I, F/J and G/K at stride 2 with one input channel (the 1→64 stem),
+# whichever instance they take.
 LAUNCHES = {**{_counter(kind, s, dense): 0
                for dense in (True, False) for kind in ("", "_dgrad", "_wgrad") for s in (1, 2)},
             "conv3d_k3s1_tc": 0, "conv3d_k3s1_chain_tc": 0,
             "conv3d_k3s1_dgrad_c1_tc": 0, "conv3d_k3s1_chain_dgrad_c1_tc": 0,
             "conv3d_k3s1_c1in_tc": 0, "conv3d_k3s1_chain_c1in_tc": 0,
+            "conv3d_k3s2_c1in_tc": 0, "conv3d_k3s2_dgrad_c1in_tc": 0,
             "conv3d_k3s1_wgrad_c1in_tc": 0, "conv3d_k3s2_c1in": 0, "conv3d_k3s2_dgrad_c1in": 0,
             "conv3d_k3s2_wgrad_c1in": 0,
             "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,

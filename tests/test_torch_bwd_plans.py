@@ -32,7 +32,7 @@ plain versions and the JAX package.
   ``conv3d_k3_wgrad_plain`` and against the JAX chain conv's weight gradient
   (``conv3d_k3s1_chain`` / ``conv3d_k3s2_chain`` VJP in interpret mode).
 - The tensor-core stride-2 data gradient (F/J): its rule
-  (``dgrad_s2_uses_tensor_cores``), its weight layout
+  (``dgrad_s2_instance``), its weight layout
   (``s2_dgrad_tc_weights``), its cover of the view's planes by blocks of two
   planes paired by their padding-1 index, and a torch replay of its parity
   classes, staging and epilogue (the window, act′ for gelu and silu) against
@@ -543,10 +543,11 @@ def test_switches_match_the_kernel(script):
     (torch.bfloat16, 7, 64, False), (torch.bfloat16, 64, 7, False), (torch.bfloat16, 1, 64, False),
     (torch.float32, 32, 64, False), (torch.float32, 1, 64, False)])
 def test_dgrad_s2_dispatch_rule(dtype, cin, cout, tc):
-    """bf16 with Cin ≥ 8 and Cout ≥ 8 takes the tensor-core F/J
-    (``dgrad_s2_uses_tc`` in csrc/conv3d_k3_bwd.cu); fp32 and the 1-channel
-    stem the CUDA cores."""
-    assert ck.dgrad_s2_uses_tensor_cores(dtype, cin, cout) is tc
+    """bf16 with Cin ≥ 8 and Cout ≥ 8 takes the tensor-core F/J (instance 1
+    of ``dgrad_s2_instance`` in csrc/conv3d_k3_bwd.cu); fp32 the CUDA cores,
+    the bf16 1-channel stem the one-dx-channel instance
+    (tests/test_torch_conv_s2_c1in.py)."""
+    assert (ck.dgrad_s2_instance(dtype, cin, cout) == ck.DGRAD_S2_TC) is tc
 
 
 def test_s2_dgrad_tc_weights_layout():

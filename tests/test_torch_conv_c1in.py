@@ -60,11 +60,12 @@ def _const(src, name):
     (BF16, 1, 1, 64, False, True), (BF16, 1, 1, 32, False, True), (BF16, 1, 1, 8, False, True),
     (BF16, 1, 1, 40, False, True), (BF16, 1, 1, 256, False, True), (BF16, 1, 1, 7, False, False),
     (BF16, 1, 1, 1, False, False), (BF16, 1, 1, 64, True, False), (BF16, 1, 2, 64, False, False),
-    (BF16, 1, 7, 64, False, False), (BF16, 2, 1, 64, False, False), (F32, 1, 1, 64, False, False),
+    (BF16, 1, 7, 64, False, False), (BF16, 2, 1, 64, False, True), (F32, 1, 1, 64, False, False),
     (F32, 1, 1, 32, False, False)])
 def test_fwd_c1in_dispatch_rule(dtype, stride, cin, cout, dact, tc):
-    """bf16 at stride 1, Cin = 1, Cout ≥ 8, no act′: the one-input-channel
-    tensor cores; the other instances' rules take none of those calls."""
+    """bf16 at stride 1 or 2, Cin = 1, Cout ≥ 8, no act′: the
+    one-input-channel tensor cores; the other instances' rules take none of
+    those calls."""
     assert ck.fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout, dact) is tc
     if tc:
         assert not ck.fwd_uses_tensor_cores(dtype, stride, cin, cout)
@@ -84,7 +85,8 @@ def test_wgrad_c1in_dispatch_rule(dtype, stride, cin, instance):
 def test_c1in_rules_and_tilings_are_the_kernels():
     """The Python rules, tiles and blockings state what the sources do."""
     fwd, bwd = _src("conv3d_k3.cu"), _src("conv3d_k3_bwd.cu")
-    assert "return stride == 1 && bf16 && cin == 1 && cout >= 8 && dact == 0;" in fwd
+    assert ("return (stride == 1 || stride == 2) && bf16 && cin == 1 && cout >= 8 && dact == 0;"
+            in fwd)
     assert "constexpr int kCiTd = 4, kCiTh = 4, kCiTw = 64;" in fwd
     assert ck._FWD_TILE_C1IN[1] == (4, 4, 64)
     assert "return cout <= 32\n" in fwd  # Cout tiles of 32 for Cout ≤ 32, else 64

@@ -58,12 +58,12 @@ TC, C1IN, CC = ck.FWD_TC, ck.FWD_C1IN_TC, ck.FWD_CUDA_CORE
     (BF16, 1, 1, 64, C1IN), (BF16, 1, 64, 1, CC), (BF16, 1, 32, 7, CC),
     (BF16, 2, 32, 64, TC), (F32, 1, 64, 32, CC), (F32, 1, 1, 32, CC),
     (BF16, 2, 8, 8, TC), (BF16, 2, 128, 256, TC), (BF16, 2, 24, 40, TC),
-    (BF16, 2, 1, 64, CC), (BF16, 2, 7, 32, CC), (BF16, 2, 32, 7, CC),
+    (BF16, 2, 1, 64, C1IN), (BF16, 2, 7, 32, CC), (BF16, 2, 32, 7, CC),
     (F32, 2, 32, 64, CC)])
 def test_conv_fwd_dispatch_rule(dtype, stride, cin, cout, tc):
     """The instance a call with Σ/Σ² takes: the 16-channel-chunk tensor
     cores (``fwd_uses_tensor_cores``), the one-input-channel tensor cores
-    (bf16 1→64 at stride 1) or the CUDA cores."""
+    (bf16 1→64 at stride 1 or 2) or the CUDA cores."""
     assert ck.fwd_uses_tensor_cores(dtype, stride, cin, cout) is (tc == TC)
     assert ck.fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout) is (tc == C1IN)
     assert ck.fwd_plan((1, cin, 8, 16, 16), cout, stride, dtype)[0] == tc
@@ -73,16 +73,19 @@ def _c_blocks(instance: int, stride: int, do: int, h: int, w: int) -> int:
     """The blocks per (batch, Cout tile) that csrc/conv3d_k3.cu launches:
     launch_tc's tiles of 4 planes × 4 rows × 32 columns (stride 1),
     launch_tc_s2's of 2 planes × 4 rows × 16 output columns (stride 2),
-    launch_c1in_tc's of 4 planes × 4 rows × 64 columns (stride 1), or
-    launch's grid of Do planes × 8-row tiles × 32 (stride 1) or 16 (stride
-    2) columns."""
+    launch_c1in_tc<1>'s of 4 planes × 4 rows × 64 columns (stride 1),
+    launch_c1in_tc<2>'s of 4 planes × 4 rows × 32 output columns (stride 2),
+    or launch's grid of Do planes × 8-row tiles × 32 (stride 1) or 16
+    (stride 2) columns."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     if instance == TC and stride == 1:
         return -(-do // 4) * -(-h // 4) * -(-w // 32)
     if instance == TC:
         return -(-do // 2) * -(-ho // 4) * -(-wo // 16)
-    if instance == C1IN:
+    if instance == C1IN and stride == 1:
         return -(-do // 4) * -(-h // 4) * -(-w // 64)
+    if instance == C1IN:
+        return -(-do // 4) * -(-ho // 4) * -(-wo // 32)
     return do * -(-ho // 8) * -(-wo // (32 if stride == 1 else 16))
 
 
@@ -128,13 +131,14 @@ def test_conv_fwd_partials_match_the_kernel_grid(dtype):
         assert (inst == C1IN) == ck.fwd_c1in_uses_tensor_cores(dtype, stride, cin, cout)
         assert nblk == _c_blocks(inst, stride, do, h, w), (name, out_shape)
         assert ck.fwd_partial_blocks(out_shape, stride) == max(
-            _c_blocks(i, stride, do, h, w) for i in ((TC, C1IN, CC) if stride == 1 else (TC, CC))
+            _c_blocks(i, stride, do, h, w) for i in (TC, C1IN, CC)
         ), (name, out_shape)
         tc_tile = (4, 4, 32) if stride == 1 else (2, 4, 16)
-        assert tile == {TC: tc_tile, C1IN: (4, 4, 64), CC: (1, 8, 32 if stride == 1 else 16)}[inst]
+        c1in_tile = (4, 4, 64) if stride == 1 else (4, 4, 32)
+        assert tile == {TC: tc_tile, C1IN: c1in_tile, CC: (1, 8, 32 if stride == 1 else 16)}[inst]
         if dtype == BF16 and cin >= 8 and cout >= 8:
             assert inst == TC, (name, out_shape)
-        if dtype == BF16 and stride == 1 and cin == 1:
+        if dtype == BF16 and cin == 1 and cout >= 8:
             assert inst == C1IN, (name, out_shape)
 
 
@@ -171,15 +175,20 @@ def test_conv_s2_partials_cover_tc_grid(call):
     """At every stride-2 conv of the main path and the ragged ones, the
     Σ/Σ² buffer holds one partial per block of the stride-2 tensor-core grid
     (2 × 4 × 16 output voxels a block, launch_tc_s2), which the bf16 calls
-    with Cin, Cout ≥ 8 take, and of the CUDA-core grid."""
+    with Cin, Cout ≥ 8 take, of the one-input-channel grid (4 × 4 × 32,
+    launch_c1in_tc<2>), which the bf16 1→64 stem takes, and of the CUDA-core
+    grid."""
     b, cin, cout, do, h, w = call
     nblk = ck.fwd_partial_blocks((b, cin, do, h, w), 2)
-    tc_blocks = _c_blocks(TC, 2, do, h, w)
-    assert nblk == max(tc_blocks, _c_blocks(CC, 2, do, h, w))
-    tc, tile, blocks = ck.fwd_plan((b, cin, do, h, w), cout, 2, BF16)
-    assert tc == (cin >= 8 and cout >= 8)
-    if tc:
+    tc_blocks, c1in_blocks = _c_blocks(TC, 2, do, h, w), _c_blocks(C1IN, 2, do, h, w)
+    assert nblk == max(tc_blocks, c1in_blocks, _c_blocks(CC, 2, do, h, w))
+    inst, tile, blocks = ck.fwd_plan((b, cin, do, h, w), cout, 2, BF16)
+    assert (inst == TC) == (cin >= 8 and cout >= 8)
+    assert (inst == C1IN) == (cin == 1 and cout >= 8)
+    if inst == TC:
         assert tile == (2, 4, 16) and blocks == tc_blocks <= nblk
+    if inst == C1IN:
+        assert tile == (4, 4, 32) and blocks == c1in_blocks <= nblk
 
 
 # ----------------------------------------------- the tensor-core conv ---

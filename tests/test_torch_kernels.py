@@ -15,6 +15,9 @@ import torch
 
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
+    DGRAD_S2_C1_TC,
+    DGRAD_S2_CUDA_CORE,
+    DGRAD_S2_TC,
     LAUNCHES,
     WGRAD_TC,
     conv3d_k3,
@@ -24,7 +27,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     conv3d_k3_wgrad,
     conv3d_k3_wgrad_plain,
     dgrad_c1_uses_tensor_cores,
-    dgrad_s2_uses_tensor_cores,
+    dgrad_s2_instance,
     fwd_c1in_uses_tensor_cores,
     fwd_uses_tensor_cores,
     wgrad_instance,
@@ -613,14 +616,17 @@ TC_S2_CASES = [(1, 8, 40, 6, 5, 12, 0, 2, True, "gelu"), (2, 24, 8, 7, 9, 33, 0,
 
 def _conv_s2_check(shape, dev, dense):
     """The stride-2 conv in bf16 against its plain version, counted on the
-    instance ``fwd_uses_tensor_cores`` names, Σ/Σ² bitwise over two runs."""
+    instance ``fwd_uses_tensor_cores`` (or, with one input channel,
+    ``fwd_c1in_uses_tensor_cores``) names, Σ/Σ² bitwise over two runs."""
     b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
     dt = torch.bfloat16
     x, w, bias = _fwd_case(shape, dt, dev, 60)
     tc = "conv3d_k3s2_tc" if dense else "conv3d_k3s2_chain_tc"
-    before = LAUNCHES[tc]
+    before, before_c1in = LAUNCHES[tc], LAUNCHES["conv3d_k3s2_c1in_tc"]
     res = conv3d_k3(x, w, bias, 2, qlo, d_out, sums, act, dense=dense)
     assert LAUNCHES[tc] == before + fwd_uses_tensor_cores(dt, 2, cin, cout)
+    assert LAUNCHES["conv3d_k3s2_c1in_tc"] == before_c1in + fwd_c1in_uses_tensor_cores(
+        dt, 2, cin, cout)
     want = conv3d_k3_plain(x, w, bias, 2, qlo, d_out, sums, act)
     out = res[0] if sums else res
     _close(out, want[0] if sums else want, dt)
@@ -634,7 +640,8 @@ def _conv_s2_check(shape, dev, dense):
 @pytest.mark.parametrize("shape", _S2_MAIN_DENSE)
 def test_conv_s2_tensor_cores_main_path_dense(dev, shape):
     """Kernel C at the main path's dense shapes, bf16: the Cin ≥ 8, Cout ≥ 8
-    calls on the tensor cores, the 1→64 stem on the CUDA cores."""
+    calls on the tensor cores, the 1→64 stem on the one-input-channel
+    tensor cores."""
     _conv_s2_check(shape, dev, dense=True)
 
 
@@ -691,7 +698,7 @@ def _dgrad_s2_check(shape, dev, dense):
     before = LAUNCHES[tc]
     dx = conv3d_k3_dgrad(g, w, x, 2, qlo, act, dense=dense)
     assert LAUNCHES[tc] == before + 1
-    assert dgrad_s2_uses_tensor_cores(torch.bfloat16, cin, cout)
+    assert dgrad_s2_instance(torch.bfloat16, cin, cout, act is not None) == DGRAD_S2_TC
     want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo, act)
     _close(dx, want, torch.bfloat16, floor=0.0,
            tol={torch.bfloat16: (2e-2 * max(1.0, float(want.float().abs().max())), 2e-2)})
@@ -715,13 +722,14 @@ def test_dgrad_s2_tensor_cores_chain(dev, shape):
 
 def test_dgrad_s2_tc_rule_matches_c(dev):
     """The C dispatch's rule (``hvc_conv3d_k3s2_dgrad_tc``, which the
-    wrapper counts tensor-core launches by) is ``dgrad_s2_uses_tensor_cores``
-    at every dtype and channel count around its edges."""
-    rule = _build.function("hvc_conv3d_k3s2_dgrad_tc", (ctypes.c_int,) * 3)
-    for (dtype, code), cin, cout in itertools.product(
-            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 4, 7, 8, 9, 64, 256),
-            (1, 4, 7, 8, 9, 64, 256)):
-        assert bool(rule(cin, cout, code)) == dgrad_s2_uses_tensor_cores(dtype, cin, cout)
+    wrapper counts launches on either tensor-core instance by) is
+    ``dgrad_s2_instance`` at every dtype, channel count around its edges and
+    act′ setting."""
+    rule = _build.function("hvc_conv3d_k3s2_dgrad_tc", (ctypes.c_int,) * 4)
+    for (dtype, code), cin, cout, dact in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 2, 4, 7, 8, 9, 64, 256),
+            (1, 4, 7, 8, 9, 63, 64, 65, 256), (0, 1, 2)):
+        assert rule(cin, cout, dact, code) == dgrad_s2_instance(dtype, cin, cout, dact != 0)
 
 
 @pytest.mark.parametrize("bh,nq,nk,d", FLASH_TRAIN + FLASH_RAGGED)
@@ -951,6 +959,116 @@ def test_conv_c1in_tc_rule_matches_c(dev):
             (1, 4, 7, 8, 9, 32, 33, 64, 65, 256), (0, 1, 2)):
         assert bool(rule(cin, cout, dact, code)) == \
             fwd_c1in_uses_tensor_cores(dtype, 1, cin, cout, dact != 0)
+
+
+# The stride-2 1→64 stem's forward (one input channel) and data gradient
+# (one dx channel) on the tensor cores, as the chain call (B, Cin, Cout,
+# planes of x, H, W, slab plane of x's first plane, output planes, Σ/Σ², act):
+# stage 1's batch of 8 at 64³ (chip_smoke.py _S2_STEM) and the reconstruct's
+# batch of 1; ragged: Cout 8 / 40 / 96 (masked and two Cout tiles, the data
+# gradient's K steps 1-4), odd D, H and W, W not a multiple of 16 (element
+# by element), x before the slab and inside it, more planes than a block's.
+S2_STEM_MAIN = [(8, 1, 64, 64, 64, 64, 1, 32, False, None), (1, 1, 64, 64, 64, 64, 1, 32, False, None)]
+S2_STEM_RAGGED = [(2, 1, 8, 5, 6, 10, 1, 3, True, "gelu"), (1, 1, 40, 7, 9, 35, 1, 4, False, None),
+                  (1, 1, 96, 6, 9, 64, 0, 3, True, None), (2, 1, 24, 5, 6, 70, -1, 4, True, "silu"),
+                  (1, 1, 48, 33, 30, 66, 0, 16, False, None), (8, 1, 64, 20, 17, 13, 1, 10, True, None)]
+
+
+def _s2_stem_check(shape, dev, seed):
+    """The one-input-channel stride-2 conv (values, Σ/Σ² bitwise over two
+    runs) and, without act′, the one-dx-channel data gradient (two runs
+    bitwise) in bf16 against their plain versions, each counted on its
+    tensor-core counter; the data gradient at chip_smoke.py's gradient
+    tolerance (TOL with the absolute part scaled by max(1, max|want|))."""
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = shape
+    dense = qlo == 1 and d_out == (nv - 1) // 2 + 1 and not sums and act is None
+    dt = torch.bfloat16
+    x, w, bias = _fwd_case(shape, dt, dev, seed)
+    before = LAUNCHES["conv3d_k3s2_c1in_tc"]
+    res = conv3d_k3(x, w, bias, 2, qlo, d_out, sums, act, dense=dense)
+    assert LAUNCHES["conv3d_k3s2_c1in_tc"] == before + 1
+    want = conv3d_k3_plain(x, w, bias, 2, qlo, d_out, sums, act)
+    out = res[0] if sums else res
+    _close(out, want[0] if sums else want, dt)
+    if sums:
+        _check_sums(out, res[1], res[2])
+        again = conv3d_k3(x, w, bias, 2, qlo, d_out, sums, act, dense=dense)
+        assert all(torch.equal(a, c) for a, c in zip(res, again))
+    del res, want
+    g = _randn((b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1), dt, dev, seed + 5)
+    before = LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"]
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo, dense=dense)
+    want_tc = dgrad_s2_instance(dt, 1, cout) == DGRAD_S2_C1_TC
+    assert LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"] == before + want_tc
+    want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo)
+    _close(dx, want, dt, floor=0.0,
+           tol={dt: (2e-2 * max(1.0, float(want.float().abs().max())), 2e-2)})
+    assert torch.equal(conv3d_k3_dgrad(g, w, x, 2, qlo, dense=dense), dx)
+
+
+@pytest.mark.parametrize("shape", S2_STEM_MAIN)
+def test_s2_stem_tensor_cores_main_path(dev, shape):
+    """The stem's forward and data gradient at the main path's shapes."""
+    _s2_stem_check(shape, dev, 100)
+
+
+@pytest.mark.parametrize("case", S2_STEM_RAGGED)
+def test_s2_stem_tensor_cores_ragged(dev, case):
+    """Both instances at ragged shapes (Cout 96 is over the data gradient's
+    64 channels: its CUDA cores), and the same calls in fp32 on the CUDA
+    cores."""
+    _s2_stem_check(case, dev, 101)
+    b, cin, cout, nv, h, w_, qlo, d_out, sums, act = case
+    x, w, bias = _fwd_case(case, torch.float32, dev, 102)
+    g = _randn((b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1), torch.float32, dev, 103)
+    before = (LAUNCHES["conv3d_k3s2_c1in_tc"], LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"])
+    res = conv3d_k3(x, w, bias, 2, qlo, d_out, sums, act)
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo)
+    assert (LAUNCHES["conv3d_k3s2_c1in_tc"], LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"]) == before
+    want = conv3d_k3_plain(x, w, bias, 2, qlo, d_out, sums, act)
+    _close(res[0] if sums else res, want[0] if sums else want, torch.float32)
+    _close(dx, conv3d_k3_dgrad_plain(g, w, x, 2, qlo), torch.float32)
+
+
+@pytest.mark.parametrize("act", [None, "gelu"])
+def test_dgrad_s2_c1_rule_excludes_dact(dev, act):
+    """With act′ the one-dx-channel data gradient stays on the CUDA cores;
+    both match the plain data gradient."""
+    b, cout, nv, h, w_, qlo, d_out = 1, 64, 7, 6, 20, 0, 4
+    x = _randn((b, 1, nv + 2, h, w_), torch.bfloat16, dev, 104).narrow(2, 1, nv)
+    w = (_randn((cout, 1, 3, 3, 3), torch.float32, dev, 105) / 27 ** 0.5).to(torch.bfloat16)
+    g = _randn((b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1), torch.bfloat16, dev, 106)
+    before = LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"]
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo, act)
+    assert LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"] == before + (act is None)
+    want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo, act)
+    _close(dx, want, torch.bfloat16, floor=0.0,
+           tol={torch.bfloat16: (2e-2 * max(1.0, float(want.float().abs().max())), 2e-2)})
+
+
+def test_dgrad_s2_c1_bitwise_repeatable(dev):
+    """The one-dx-channel data gradient at the stem's training shape: two
+    runs give the same bits (fixed-order sums, one writer per dx element)."""
+    b, cout, d = 8, 64, 64
+    x = torch.empty((b, 1, d, d, d), dtype=torch.bfloat16, device=dev)
+    w = (_randn((cout, 1, 3, 3, 3), torch.float32, dev, 107) / 27 ** 0.5).to(torch.bfloat16)
+    g = _randn((b, cout, d // 2, d // 2, d // 2), torch.bfloat16, dev, 108)
+    runs = [conv3d_k3_dgrad(g, w, x, 2, 1, dense=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_conv_s2_c1in_tc_rule_matches_c(dev):
+    """The C dispatch's rule (``hvc_conv3d_k3s2_c1in_tc``, which the wrapper
+    counts launches by) is ``fwd_c1in_uses_tensor_cores`` at stride 2, at
+    every dtype, channel count around its edges and act′ setting."""
+    rule = _build.function("hvc_conv3d_k3s2_c1in_tc", (ctypes.c_int,) * 4)
+    for (dtype, code), cin, cout, dact in itertools.product(
+            ((torch.float32, 0), (torch.bfloat16, 1)), (1, 2, 7, 8, 64),
+            (1, 4, 7, 8, 9, 32, 33, 64, 65, 256), (0, 1, 2)):
+        assert bool(rule(cin, cout, dact, code)) == \
+            fwd_c1in_uses_tensor_cores(dtype, 2, cin, cout, dact != 0)
+    assert dgrad_s2_instance(torch.float32, 1, 64) == DGRAD_S2_CUDA_CORE
 
 
 def test_wgrad_tc_rule_matches_c(dev):
