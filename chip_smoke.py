@@ -55,8 +55,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and 32→64 weight gradients of the stage-3 step (dense and one training
    slab) take the tensor-core instance
    of E/G/K (its own launch counter), the bf16 1→64 and 1→32 ones (dense and
-   one training slab) the one-input-channel instance, fp32 calls and the
-   1→64 stride-2 stem's the CUDA-core one; the bf16 64→32 conv and its data
+   one training slab) and the 1→64 stride-2 stem's the one-input-channel
+   instances (stride 1 and stride 2), fp32 calls the CUDA-core one; the bf16
+   64→32 conv and its data
    gradient (dense and one training slab) take the tensor-core B/H, the bf16
    1→64 and 1→32 convs (dense and one training slab of each chain) the
    one-input-channel B/H, and every bf16 flash forward and backward
@@ -73,9 +74,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the one-input-channel instances (conv3d_k3s1_c1in, conv3d_k3s1_chain_c1in,
    conv3d_k3s1_c1in_wgrad: 1→64 and 1→32 over 256³ and the training slabs,
    beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem
-   (conv3d_k3s2_c1in and conv3d_k3s2_c1in_dgrad on their tensor-core
-   instances, conv3d_k3s2_c1in_wgrad on the CUDA cores: stage 1's batch of 8
-   at 64³).
+   (conv3d_k3s2_c1in, conv3d_k3s2_c1in_dgrad and conv3d_k3s2_c1in_wgrad on
+   their tensor-core instances: stage 1's batch of 8 at 64³).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -94,8 +94,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    cores; every bf16 F/J call with Cin, Cout ≥ 8 on the tensor cores, as
    many launches as the rule names; every bf16 stride-1 conv and weight
    gradient with one input channel on the one-input-channel instances, and
-   every bf16 stride-2 conv and data gradient with one input channel (the
-   1→64 stem: its forward and data gradient in every stage-1 step) on their
+   every bf16 stride-2 conv, data gradient and weight gradient with one
+   input channel (the 1→64 stem: all three in every stage-1 step) on their
    tensor-core instances).
    Stage 3 trains on the config's streamed schedule (8 slabs).
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
@@ -127,7 +127,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    then the entry point's ``run`` (``hybrid_vit_cascade_tpu_torch.scripts.
    bench_conv_probe``) over every case at full size, launches counted from
    0: each kernel beside its plain version and its cuBLAS yardstick, and
-   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³.
+   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³; V0 must have
+   run on the wgmma instance of ``make_v1`` (conv_probe_v1_wgmma), V1 not.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -236,10 +237,9 @@ EXP2_PER_CLOCK_PER_SM = 16
 # the one-output-channel data gradient, each timed beside its library call.
 _STEMS = [(1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256))]
 # The stride-2 1→64 stem of stage 1 (64³, the training batch of 8): its
-# forward and data gradient on their tensor-core instances, its weight
-# gradient on the CUDA cores. Ragged: Cout 8 / 40 / 96 (masked, and two Cout
-# tiles of the forward: the data gradient's CUDA cores), odd D, H and W, W
-# not a multiple of 16.
+# forward, data gradient and weight gradient on their tensor-core instances.
+# Ragged: Cout 8 / 40 / 96 (masked, and two Cout tiles of the forward: the
+# data gradient's CUDA cores), odd D, H and W, W not a multiple of 16.
 _S2_STEM = (8, 1, 64, (64, 64, 64))
 _S2_STEM_RAGGED = [(2, 1, 8, (5, 6, 10)), (1, 1, 40, (7, 9, 35)), (2, 1, 64, (9, 7, 13))]
 KERNELS = {
@@ -371,7 +371,7 @@ TRAIN_KERNELS = {
         "hot": (1, 32, 64, (256, 256, 256)),
     },
     # F and G with one input channel: stage 1's 1→64 stem (F on its
-    # one-dx-channel tensor-core instance, G on the CUDA cores)
+    # one-dx-channel tensor-core instance, G on its one-input-channel one)
     "conv3d_k3s2_c1in_dgrad": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:396",
@@ -381,7 +381,8 @@ TRAIN_KERNELS = {
     "conv3d_k3s2_c1in_wgrad": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/conv3d_k3_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py:535",
-        "shapes": [_S2_STEM], "ragged": [], "hot": _S2_STEM, "counter": "conv3d_k3s2_wgrad_c1in",
+        "shapes": [_S2_STEM], "ragged": _S2_STEM_RAGGED, "hot": _S2_STEM,
+        "counter": "conv3d_k3s2_wgrad_c1in_tc",
     },
 }
 
@@ -888,14 +889,14 @@ class force_streaming:
 
 
 # The tensor-core counters of the kernels whose rule depends on the call's
-# channels (F/J, the one-output-channel B/H, the one-input-channel B/H, C/I
-# and E/K, the one-dx-channel F/J) or dtype (L, M), which [9] and [11] hold to
-# the calls the rules name.
+# channels (F/J, the one-output-channel B/H, the one-input-channel B/H, C/I,
+# E/K and G/K, the one-dx-channel F/J) or dtype (L, M), which [9] and [11]
+# hold to the calls the rules name.
 _RULE_COUNTERS = ("conv3d_k3s2_dgrad_tc", "conv3d_k3s2_chain_dgrad_tc",
                   "flash_attention_bwd_dkv_tc", "flash_attention_bwd_dq_tc",
                   "conv3d_k3s1_dgrad_c1_tc", "conv3d_k3s1_chain_dgrad_c1_tc",
                   "conv3d_k3s1_c1in_tc", "conv3d_k3s1_chain_c1in_tc", "conv3d_k3s1_wgrad_c1in_tc",
-                  "conv3d_k3s2_c1in_tc", "conv3d_k3s2_dgrad_c1in_tc")
+                  "conv3d_k3s2_c1in_tc", "conv3d_k3s2_dgrad_c1in_tc", "conv3d_k3s2_wgrad_c1in_tc")
 
 
 class rule_calls:
@@ -908,17 +909,17 @@ class rule_calls:
     ``bwd_dq_uses_tensor_cores``, ``dgrad_c1_uses_tensor_cores``,
     ``fwd_c1in_uses_tensor_cores``, ``wgrad_instance``) send to the tensor
     cores, and in ``c1in_bf16`` every bf16 forward (``fwd`` at stride 1,
-    ``fwd_s2`` at stride 2), stride-1 weight gradient (``wgrad``) and stride-2
-    data gradient (``dgrad_s2``) with one input channel, whatever the rules
-    say: the wrappers' launch functions are wrapped, so every call on the
-    path is seen."""
+    ``fwd_s2`` at stride 2), weight gradient (``wgrad``, ``wgrad_s2``) and
+    stride-2 data gradient (``dgrad_s2``) with one input channel, whatever
+    the rules say: the wrappers' launch functions are wrapped, so every call
+    on the path is seen."""
 
     def __enter__(self):
         from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
         from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
 
         self.n = dict.fromkeys(_RULE_COUNTERS, 0)
-        self.c1in_bf16 = {"fwd": 0, "wgrad": 0, "fwd_s2": 0, "dgrad_s2": 0}
+        self.c1in_bf16 = {"fwd": 0, "wgrad": 0, "fwd_s2": 0, "dgrad_s2": 0, "wgrad_s2": 0}
         self.real = real_d, real_m, real_l, real_f, real_w = (ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq,
                                                                ck._fwd, ck._wgrad)
 
@@ -953,10 +954,11 @@ class rule_calls:
             return real_f(entry, stride, x, w, bias, qlo, d_out, want_sums, act, dact, dense)
 
         def wgrad(entry, stride, x, g, qlo, act=None):
-            if ck.wgrad_instance(x.dtype, stride, x.shape[1]) == ck.WGRAD_C1IN_TC:
-                self.n[_RULE_COUNTERS[8]] += 1
-            if stride == 1 and x.shape[1] == 1 and x.dtype == torch.bfloat16:
-                self.c1in_bf16["wgrad"] += 1
+            if ck.wgrad_instance(x.dtype, stride, x.shape[1]) in (ck.WGRAD_C1IN_TC,
+                                                                  ck.WGRAD_C1IN_S2_TC):
+                self.n[f"conv3d_k3s{stride}_wgrad_c1in_tc"] += 1
+            if x.shape[1] == 1 and x.dtype == torch.bfloat16:
+                self.c1in_bf16["wgrad" if stride == 1 else "wgrad_s2"] += 1
             return real_w(entry, stride, x, g, qlo, act)
 
         ck._dgrad_s2, fa._bwd_dkv, fa._bwd_dq, ck._fwd, ck._wgrad = dgrad, dkv, dq, fwd, wgrad
@@ -970,14 +972,15 @@ class rule_calls:
 
 
 def check_c1in(launched: dict, calls: dict, where: str) -> None:
-    """Every bf16 stride-1 conv and weight gradient and every bf16 stride-2
-    conv and data gradient with one input channel (``calls``:
+    """Every bf16 conv and weight gradient at either stride and every bf16
+    stride-2 data gradient with one input channel (``calls``:
     ``rule_calls.c1in_bf16``) launched its one-input-channel (one-dx-channel)
     tensor-core instance."""
     got = {"fwd": launched["conv3d_k3s1_c1in_tc"] + launched["conv3d_k3s1_chain_c1in_tc"],
            "wgrad": launched["conv3d_k3s1_wgrad_c1in_tc"],
            "fwd_s2": launched["conv3d_k3s2_c1in_tc"],
-           "dgrad_s2": launched["conv3d_k3s2_dgrad_c1in_tc"]}
+           "dgrad_s2": launched["conv3d_k3s2_dgrad_c1in_tc"],
+           "wgrad_s2": launched["conv3d_k3s2_wgrad_c1in_tc"]}
     if got != calls:
         raise AssertionError(f"{where}: launches on the one-input-channel instances {got}, for "
                              f"{calls} bf16 calls with one input channel")
@@ -1180,9 +1183,10 @@ def train_full_width(cfg, dev, seed: int) -> dict:
         raise AssertionError(f"[9] the stage-3 step ran no one-input-channel conv or weight "
                              f"gradient on the tensor cores: {step3}")
     step1 = out["stage1"]["launches_per_step"]
-    if not (step1["conv3d_k3s2_c1in_tc"] and step1["conv3d_k3s2_dgrad_c1in_tc"]):
-        raise AssertionError(f"[9] the stage-1 step ran the 1→64 stem's forward or data "
-                             f"gradient off its tensor-core instance: {step1}")
+    if not (step1["conv3d_k3s2_c1in_tc"] and step1["conv3d_k3s2_dgrad_c1in_tc"]
+            and step1["conv3d_k3s2_wgrad_c1in_tc"]):
+        raise AssertionError(f"[9] the stage-1 step ran the 1→64 stem's forward, data gradient "
+                             f"or weight gradient off its tensor-core instance: {step1}")
     return out
 
 
@@ -1239,8 +1243,9 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
     """Phase 7e: the bf16 64→32 and 32→64 weight gradients of the stage-3
     step launch the tensor-core instance (conv3d_k3s{1,2}_wgrad_tc counts
     them), the bf16 1→64 and 1→32 ones (dense and one training slab of each
-    chain) the one-input-channel instance (conv3d_k3s1_wgrad_c1in_tc); the
-    same calls in fp32, and the 1→64 stride-2 stem's, neither."""
+    chain) the one-input-channel instance (conv3d_k3s1_wgrad_c1in_tc), the
+    bf16 1→64 stride-2 stem's its stride-2 form (conv3d_k3s2_wgrad_c1in_tc);
+    the same calls in fp32 none of them, and no call another's."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 
     out = {}
@@ -1256,6 +1261,10 @@ def tc_wgrad_dispatch(dev, seed: int) -> dict:
               for dt in (torch.bfloat16, torch.float32)]
     calls += [("conv3d_k3s2_wgrad", _S2_STEM, torch.bfloat16, False, c) for c in
               ("conv3d_k3s2_wgrad_tc", c1in)]
+    calls += [("conv3d_k3s2_wgrad", _S2_STEM, dt, dt == torch.bfloat16, "conv3d_k3s2_wgrad_c1in_tc")
+              for dt in (torch.bfloat16, torch.float32)]
+    calls += [("conv3d_k3s1_wgrad", (1, 1, 64, (256, 256, 256)), torch.bfloat16, False,
+               "conv3d_k3s2_wgrad_c1in_tc")]
     for name, shape, dtype, want_tc, counter in calls:
         counter = counter or f"conv3d_k3s{_chain_stride(name)}_wgrad_tc"
         if "chain" in name:
@@ -1563,6 +1572,13 @@ def probe_phase(dev, seed: int) -> dict:
     log(f"[12] launches {probe_launches}; phase time {time.perf_counter() - t0:.1f} s")
     if any(launched[k] for k in launched if k not in probe_launches):
         raise AssertionError(f"[12] the probe run launched another kernel: {launched}")
+    # V0 (m = 256, N = 131,072) runs on the wgmma instance, V1 (m = 32) not
+    by_case = {r["case"]: r.get("launches", {}) for r in rows}
+    v0, v1 = by_case["V0"], by_case["V1"]
+    if not (v0.get("conv_probe_v1", 0) > 0 and v0.get("conv_probe_v1_wgmma") == v0["conv_probe_v1"]
+            and not v1.get("conv_probe_v1_wgmma")):
+        raise AssertionError(f"[12] V0 did not run on the wgmma instance (or V1 did): V0 {v0}, "
+                             f"V1 {v1}")
     return {"max_abs_err": worst, "launches": launched, "rows": rows,
             "phase_s": time.perf_counter() - t0}
 
@@ -1584,10 +1600,6 @@ _TC_COUNTERS = {"flash_attention": "flash_attention_tc",
                 "conv3d_k3s2_dgrad": "conv3d_k3s2_dgrad_tc",
                 "conv3d_k3s2_chain_dgrad": "conv3d_k3s2_chain_dgrad_tc",
                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv_tc"}
-# The row of the stride-2 1→64 stem's weight gradient: on the CUDA cores by
-# the rule.
-_STEM_INSTANCE = ("CUDA cores: the stride-2 weight gradient with one input channel "
-                  "(wgrad_kernel CI_C = 1), by wgrad_instance")
 
 
 def _tc_rule(counter: str) -> str:
@@ -1844,14 +1856,9 @@ def main() -> int:
                 for sh in spec["library_at"]]
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
-        counter = spec.get("counter")
-        if counter:  # an instance's own row: its counter is a tensor-core one, or none
-            tc = counter if counter.endswith("_tc") else None
-        else:
-            tc = _TC_COUNTERS.get(name) or (name.endswith("wgrad") and
-                                            f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
-        if counter and not tc:
-            kernels[-1]["instance"] = _STEM_INSTANCE
+        # an instance's own row counts on its tensor-core counter
+        tc = spec.get("counter") or _TC_COUNTERS.get(name) or (
+            name.endswith("wgrad") and f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
         if tc:  # launches that took the tensor-core instance
             kernels[-1]["instance"] = _tc_rule(tc)
             kernels[-1]["tc_counter"] = tc
@@ -1874,6 +1881,7 @@ def main() -> int:
         if name == "conv_probe_v1":
             kernels[-1]["v0"] = {k: probe_rows["V0"][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "library_ms", "pass_floor_ms")}
+            kernels[-1]["v0"]["wgmma_launches"] = probe_rows["V0"]["launches"]["conv_probe_v1_wgmma"]
         log(f"  {name:24s} {r['ms']:9.3f} ms  plain {r['plain_ms']:9.3f}  bound {b_ms:8.3f} "
             f"({b_by})  library {r['library_ms']:9.3f}  launches {runs}")
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]

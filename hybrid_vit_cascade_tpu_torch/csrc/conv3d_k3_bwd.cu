@@ -45,14 +45,15 @@
 // chain options add work per staged input value (K's prologue) or per
 // written output value (J's act′), not per product, so J and K keep those
 // bounds; J's epilogue is a template flag, so F compiles without it.
-//   E/G/K, three instances, picked by an explicit rule (wgrad_instance, which
+//   E/G/K, four instances, picked by an explicit rule (wgrad_instance, which
 //        the wrapper reads through hvc_conv3d_k3_wgrad_tc): bf16 calls with
 //        Cin ≥ 8 take the tensor cores, bf16 stride-1 calls with Cin = 1 (the
 //        1→32 / 1→64 convs, bound by reading g) the one-input-channel
 //        tensor-core instance (wgrad_c1in_tc_kernel: taps as N, three
-//        pre-shifted copies of x; its comment has the design), fp32 calls
-//        (TF32 would leave the fp32 tolerances), Cin 2-7 and the stride-2
-//        1-channel stem the CUDA cores.
+//        pre-shifted copies of x; its comment has the design), bf16 stride-2
+//        calls with Cin = 1 (stage 1's 1→64 stem) its stride-2 form
+//        (wgrad_c1in_s2_tc_kernel: three copies by column parity), fp32 calls
+//        (TF32 would leave the fp32 tolerances) and Cin 2-7 the CUDA cores.
 //   E/G/K on the tensor cores (wgrad_tc_kernel): the GEMM dW[co, (ci, tap)] =
 //        Σ_voxel g[co, voxel] · x_tap[voxel, ci], M = Cout (32 a block),
 //        N = 32 input channels × 27 taps, K = output voxels, on mma.sync
@@ -858,6 +859,278 @@ wgrad_c1in_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   cp_async_wait<0>();
 }
 
+// ------------------- G/K at stride 2 with one input channel on the tensor cores ---
+//
+// Tiles for 32³ outputs (the 1→64 stem of stage 1 at 64³): 2 planes × 4 rows
+// × 32 columns, one output row of 32 voxels (two K steps of 16) a warp, so
+// Wo = 32 is one tile wide (the stride-1 instance's 64-column tile would be
+// half empty) and a 32³ output is 16 × 8 tiles a batch element.
+constexpr int kW2Td = 2, kW2Th = 4, kW2Tw = 32;     // output voxels per tile: 256, 16 K steps of 16
+constexpr int kW2Nv = kW2Td * kW2Th * kW2Tw;
+constexpr int kW2Pd = 2 * kW2Td + 1, kW2Ph = 2 * kW2Th + 1;  // staged planes and rows: 5 and 9
+constexpr int kW2R = kW2Pd * kW2Ph;                 // raw input rows a tile reads: 45
+constexpr int kW2Nvec = 2 * kW2Tw / 8 + 1;          // 8-column vectors of a raw row, from 2·ow0 − 8
+// Copy dx holds one column parity of the tile's input patch, as
+// conv_c1in_s2_tc_kernel's copies do: copy 1 the even columns, 2·(ow0 + c)
+// (tap dx = 1), copy 2 the odd ones, 2·(ow0 + c) + 1 (dx = 2), copy 0 the
+// odd ones shifted by one, 2·(ow0 + c) − 1 (dx = 0); plane pd, row ph of a
+// copy hold act(x) at view plane 2·od0 − qlo + pd, row 2·oh0 − 1 + ph. The
+// pitches — rows 80 ≡ 16·5, planes 752 ≡ 16·7, copies 3,824 ≡ 16·7 bytes
+// (mod 128) — start tap t = (dz, dy, dx) 16·(7t mod 8) bytes (mod 128) after
+// tap 0, so the 8 taps of one ldmatrix phase hit 8 different bank groups.
+constexpr int kW2Row = 40;                          // bf16 per row: 32 columns + pad
+constexpr int kW2Plane = 376;                       // bf16 per plane: 9 rows + pad
+constexpr int kW2Copy = 1912;                       // bf16 per copy: 5 planes + pad
+constexpr int kW2Zero = 5760;                       // the zero rows of taps 27-31: the first
+                                                    // multiple of 64 bf16 (128 bytes) past the copies
+constexpr int kW2ZeroLen = 128;                     // bf16: room for every offset a row takes
+constexpr int kW2Stages = 3;                        // tiles staged at once: two in flight
+constexpr int kW2Gld = kW2Nv + 8;                   // bf16 per channel of the g tile: 528 bytes
+constexpr int kW2Gt = kW1Co * kW2Gld;               // bf16, one stage's g tile, [co][voxel]
+constexpr int kW2Raw = kW2R * kW2Nvec * 8;          // bf16, one stage's raw rows, [row][vector][8]
+constexpr int kW2Smem =                             // 86,000 bytes: two blocks an SM
+    (kW2Stages * (kW2Gt + kW2Raw) + kW2Zero + kW2ZeroLen) * 2 + kW1Co * 32 * 4;
+// Tiles between two flushes: 16,384 voxels a warp, as the stride-1 instance.
+constexpr int kW2Flush = 16384 / (kW2Nv / kW1Warps);
+static_assert(kW2Row >= kW2Tw && kW2Plane >= kW2Ph * kW2Row && kW2Copy >= kW2Pd * kW2Plane &&
+                  kW2Zero >= 3 * kW2Copy && kW2Zero % 64 == 0 && kW2Td * kW2Th == kW1Warps,
+              "the copies' pitches; one output row a warp");
+
+// dW[co, 0, tap] = Σ_{b, voxel} g[b, co, voxel] · act(slab)[2·voxel + tap −
+// (0, 1, 1)], the stride-2 weight gradient with one input channel — stage
+// 1's 1→64 stem, _wgrad_s2 at Cin = 1 — as wgrad_c1in_tc_kernel computes the
+// stride-1 one: the GEMM dW[co, tap] = Σ_voxel g[co, voxel] · x_tap[voxel]
+// with M = Cout (32 a block, two 16-row tiles), N = the 27 taps padded to 32,
+// K = output voxels, on mma.sync m16n8k16 bf16 → fp32. What bounds it is
+// reading g, 64 times the bytes of the strided x. g, the A operand, is
+// staged by 16-byte cp.async as it lies ([co][voxel]) in a ring of three
+// stages, the next two tiles' copies under the current tile's products. The
+// alignment trap at stride 2: output column ow reads input columns 2·ow − 1,
+// 2·ow and 2·ow + 1, so a B row (one tap, 8 neighbouring voxels) is every
+// other input column. Way out: x's raw rows arrive by cp.async as they lie
+// (8-column vectors from column 2·ow0 − 8) and a pass sorts them by column
+// parity into three copies (byte permutes in registers, the act prologue in
+// fp32 rounded to bf16 on the way), so every tap of 8 voxels is an aligned
+// row and ldmatrix gives the B fragments of two taps' n8 tiles in one x4
+// load; taps 27-31 read zero rows. Warp w takes output plane w / 4, row w %
+// 4 of the tile, K steps 2w and 2w + 1, all 32 × 32 (co, tap) in 32 fp32
+// accumulators a thread. A block walks its split's tiles (every splits-th
+// one). Every kW2Flush tiles and after the last, the warps add their
+// accumulators in warp order into a shared 32 × 27 sum (round-to-nearest
+// fp32 adds), which goes into the split's partial (the first flush stores,
+// the later ones add; one writer an element): deterministic, bitwise
+// repeatable. Block b of the 1-D grid: Cout tile b % n_co, split b / n_co.
+// VEC: x's rows and batch stride and g's rows are 16-byte aligned (W a
+// multiple of 16, so Wo a multiple of 8), so the copies go by cp.async;
+// otherwise element by element.
+template <bool VEC>
+__global__ void __launch_bounds__(kW1Threads, 2)
+wgrad_c1in_s2_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                        float* __restrict__ partial, int cout, int nv, int qlo, long long xbs,
+                        int act, int H, int W, int Do, int n_co, int n_tiles, int splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gsm = reinterpret_cast<bf16*>(smem_raw);  // the stages' g tiles
+  bf16* raws = gsm + kW2Stages * kW2Gt;            // the stages' raw rows
+  bf16* xs = raws + kW2Stages * kW2Raw;            // 3 copies, then the zero rows
+  float* red = reinterpret_cast<float*>(xs + kW2Zero + kW2ZeroLen);  // [co][32]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int co0 = static_cast<int>(blockIdx.x % n_co) * kW1Co;
+  const int split = static_cast<int>(blockIdx.x / n_co);
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tiles_w = (Wo + kW2Tw - 1) / kW2Tw;
+  const int tiles_h = (Ho + kW2Th - 1) / kW2Th;
+  const int tiles_d = (Do + kW2Td - 1) / kW2Td;
+  const long long plane = static_cast<long long>(H) * W;
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const long long ovol = static_cast<long long>(Do) * oplane;
+
+  if (tid < kW2ZeroLen / 8)
+    reinterpret_cast<uint4*>(xs + kW2Zero)[tid] = make_uint4(0u, 0u, 0u, 0u);
+
+  // Stage tile `tile` into stage `st`: the raw input rows (zero outside the
+  // view's planes and the image) and the g tile (zero outside the output and
+  // Cout).
+  auto issue = [&](int tile, int st) {
+    bf16* raw = raws + st * kW2Raw;
+    bf16* gdst = gsm + st * kW2Gt;
+    const int tx = tile % tiles_w;
+    int rest = tile / tiles_w;
+    const int ty = rest % tiles_h;
+    rest /= tiles_h;
+    const int tz = rest % tiles_d;
+    const long long b = rest / tiles_d;
+    const int od0 = tz * kW2Td, oh0 = ty * kW2Th, ow0 = tx * kW2Tw;
+    const unsigned short* xb = reinterpret_cast<const unsigned short*>(x) + b * xbs;
+    for (int u = tid; u < kW2R * kW2Nvec; u += kW1Threads) {
+      const int v = u % kW2Nvec, r = u / kW2Nvec;
+      const int p = 2 * od0 - qlo + r / kW2Ph, ih = 2 * oh0 - 1 + r % kW2Ph;
+      const int c = 2 * ow0 - 8 + 8 * v;
+      const bool row_ok = p >= 0 && p < nv && ih >= 0 && ih < H;
+      const unsigned short* src = xb + (row_ok ? p * plane + static_cast<long long>(ih) * W : 0);
+      bf16* dst = raw + (r * kW2Nvec + v) * 8;
+      if (VEC) {
+        const bool ok = row_ok && c >= 0 && c < W;  // W % 8 = 0: a vector is all in or out
+        cp_async16(dst, ok ? src + c : reinterpret_cast<const unsigned short*>(x), ok ? 16 : 0);
+      } else {
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c0 = c + 2 * i, c1 = c0 + 1;
+          const uint32_t lo = row_ok && c0 >= 0 && c0 < W ? src[c0] : 0;
+          const uint32_t hi = row_ok && c1 >= 0 && c1 < W ? src[c1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+    const bf16* gb = g + (b * cout + co0) * ovol;
+    for (int u = tid; u < kW1Co * kW2Td * kW2Th * (kW2Tw / 8); u += kW1Threads) {
+      const int v = u % (kW2Tw / 8), rr = (u / (kW2Tw / 8)) % (kW2Td * kW2Th);
+      const int co = u / (kW2Td * kW2Th * (kW2Tw / 8));
+      const int od = od0 + rr / kW2Th, oh = oh0 + rr % kW2Th, ow = ow0 + 8 * v;
+      bf16* dst = gdst + co * kW2Gld + rr * kW2Tw + 8 * v;
+      const bool row_ok = co0 + co < cout && od < Do && oh < Ho;
+      const long long off = co * ovol + od * oplane + static_cast<long long>(oh) * Wo + ow;
+      if (VEC) {
+        const bool ok = row_ok && ow < Wo;  // Wo % 8 = 0
+        cp_async16(dst, ok ? gb + off : g, ok ? 16 : 0);
+      } else {
+        const unsigned short* gs = reinterpret_cast<const unsigned short*>(gb) + off;
+        uint32_t e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t lo = row_ok && ow + 2 * i < Wo ? gs[2 * i] : 0;
+          const uint32_t hi = row_ok && ow + 2 * i + 1 < Wo ? gs[2 * i + 1] : 0;
+          e[i] = lo | (hi << 16);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+
+  // raw rows → the three copies: unit (row r, chunk j of 8 output columns)
+  // reads raw vectors 2j, 2j + 1, 2j + 2 (input columns 2·ow0 + 16j − 8 …)
+  // and writes chunk j of each copy — copy 0 the high halves from the last
+  // word of vector 2j on, copy 1 the low halves of vectors 2j + 1 and 2j + 2,
+  // copy 2 their high halves — the prologue applied on the way (act(0) = 0
+  // keeps the padding)
+  auto shift = [&](const bf16* raw) {
+    for (int u = tid; u < kW2R * (kW2Tw / 8); u += kW1Threads) {
+      const int j = u % (kW2Tw / 8), r = u / (kW2Tw / 8);
+      const uint4* src = reinterpret_cast<const uint4*>(raw + (r * kW2Nvec + 2 * j) * 8);
+      const uint4 q0 = src[0], q1 = src[1], q2 = src[2];
+      uint32_t v[3][4] = {{q0.x, q0.y, q0.z, q0.w}, {q1.x, q1.y, q1.z, q1.w},
+                          {q2.x, q2.y, q2.z, q2.w}};
+      if (act) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[k][i] = act_bf16x2(act, v[k][i]);
+      }
+      bf16* dst = xs + (r / kW2Ph) * kW2Plane + (r % kW2Ph) * kW2Row + 8 * j;
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(__byte_perm(v[0][3], v[1][0], 0x7632), __byte_perm(v[1][1], v[1][2], 0x7632),
+                     __byte_perm(v[1][3], v[2][0], 0x7632), __byte_perm(v[2][1], v[2][2], 0x7632));
+      *reinterpret_cast<uint4*>(dst + kW2Copy) =
+          make_uint4(__byte_perm(v[1][0], v[1][1], 0x5410), __byte_perm(v[1][2], v[1][3], 0x5410),
+                     __byte_perm(v[2][0], v[2][1], 0x5410), __byte_perm(v[2][2], v[2][3], 0x5410));
+      *reinterpret_cast<uint4*>(dst + 2 * kW2Copy) =
+          make_uint4(__byte_perm(v[1][0], v[1][1], 0x7632), __byte_perm(v[1][2], v[1][3], 0x7632),
+                     __byte_perm(v[2][0], v[2][1], 0x7632), __byte_perm(v[2][2], v[2][3], 0x7632));
+    }
+  };
+
+  // This lane's rows of the two ldmatrix B loads of a K step (taps 0-15, then
+  // 16-31): tap 16·p + (lane % 8) + 8·(lane / 16), columns + 8·((lane / 8) % 2)
+  // of the warp's 16-voxel step: plane 2·pz + dz, row 2·py + dy of copy dx
+  // (or a zero row in the same bank group, 16·(7t mod 8) bytes past tap 0's)
+  const int pz = warp / kW2Th, py = warp % kW2Th;
+  const int wofs = 2 * pz * kW2Plane + 2 * py * kW2Row + 8 * ((lane >> 3) & 1);
+  const bf16* lrow[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int t = 16 * p + (lane & 7) + 8 * (lane >> 4);  // the lane's tap
+    lrow[p] = t < 27 ? xs + (t % 3) * kW2Copy + (t / 9) * kW2Plane + ((t / 3) % 3) * kW2Row + wofs
+                     : xs + kW2Zero + (8 * ((7 * t) & 7) + wofs) % 64;
+  }
+
+  float acc[2][4][4];  // [16-row co tile][8-tap column tile][fragment]
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  float* pb = partial + static_cast<long long>(split) * cout * 27;
+  if (split >= n_tiles) {  // an empty split writes zeros
+    for (int u = tid; u < kW1Co * 27; u += kW1Threads)
+      if (co0 + u / 27 < cout) pb[(co0 + u / 27) * 27 + u % 27] = 0.f;
+    return;
+  }
+  issue(split, 0);
+  cp_async_commit();
+  if (split + splits < n_tiles) issue(split + splits, 1);
+  cp_async_commit();
+  int st = 0, done = 0;
+  for (int tile = split; tile < n_tiles; tile += splits) {
+    cp_async_wait<kW2Stages - 2>();
+    __syncthreads();  // this tile's raw rows and g landed; the copies are no longer read
+    shift(raws + st * kW2Raw);
+    __syncthreads();  // the copies are ready; the previous tile's stage is free
+    const int ahead = tile + (kW2Stages - 1) * splits;
+    if (ahead < n_tiles) issue(ahead, (st + kW2Stages - 1) % kW2Stages);
+    cp_async_commit();
+    const bf16* gt = gsm + st * kW2Gt;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int k0 = warp * kW2Tw + 16 * ks;  // the step's voxels in the g tile
+      uint32_t a[2][4], bfr[2][4];
+      load_a(a[0], gt, kW2Gld, 0, k0, lane);
+      load_a(a[1], gt, kW2Gld, 16, k0, lane);
+      ldsm_x4(bfr[0], lrow[0] + 16 * ks);
+      ldsm_x4(bfr[1], lrow[1] + 16 * ks);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma16816(acc[mt][2 * p], a[mt], bfr[p][0], bfr[p][1]);
+          mma16816(acc[mt][2 * p + 1], a[mt], bfr[p][2], bfr[p][3]);
+        }
+    }
+    st = (st + 1) % kW2Stages;
+    ++done;
+    if (done % kW2Flush == 0 || tile + splits >= n_tiles) {
+      // the warps in order into red[co][tap], then red into the partial
+      for (int wi = 0; wi < kW1Warps; ++wi) {
+        if (warp == wi) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int f = 0; f < 4; ++f) {
+                const int r = (mt * 16 + (lane >> 2) + (f >> 1) * 8) * 32 +  // [co][tap]
+                              nt * 8 + (lane & 3) * 2 + (f & 1);
+                red[r] = (wi == 0 ? 0.f : red[r]) + acc[mt][nt][f];
+                acc[mt][nt][f] = 0.f;
+              }
+        }
+        __syncthreads();
+      }
+      for (int u = tid; u < kW1Co * 27; u += kW1Threads) {
+        const int co = u / 27, tap = u % 27;
+        if (co0 + co < cout) {
+          float* dst = pb + (co0 + co) * 27 + tap;
+          *dst = (done <= kW2Flush ? 0.f : *dst) + red[co * 32 + tap];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // out[i] = Σ_s partial[s][i] in a fixed order, for many splits of a small
 // dW: warp y of a block adds the splits y, y + 8, … of 32 neighbouring
 // elements, then the 8 warps' sums are added in warp order.
@@ -960,19 +1233,50 @@ int launch_wgrad_c1in_tc(const void* x, const void* g, void* partial, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_wgrad_c1in_s2_tc(const void* x, const void* g, void* partial, void* out,
+                            long long batch, int cout, int nv, int qlo, long long xb, int act,
+                            int H, int W, int Do, int splits, cudaStream_t stream) {
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const long long n_tiles = batch * static_cast<long long>((Do + kW2Td - 1) / kW2Td) *
+                            ((Ho + kW2Th - 1) / kW2Th) * ((Wo + kW2Tw - 1) / kW2Tw);
+  const int n_co = (cout + kW1Co - 1) / kW1Co;
+  if (splits < 1 || splits > n_tiles || n_tiles > 2147483647LL ||
+      static_cast<long long>(splits) * n_co > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 && W % 16 == 0 && xb % 8 == 0;
+  auto kern = vec ? wgrad_c1in_s2_tc_kernel<true> : wgrad_c1in_s2_tc_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kW2Smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<static_cast<unsigned>(splits * n_co), kW1Threads, kW2Smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<float*>(partial),
+      cout, nv, qlo, xb, act, H, W, Do, n_co, static_cast<int>(n_tiles), splits);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n = cout * 27;
+  sum_split_partials_kernel<<<static_cast<unsigned>((n + 31) / 32), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instance a call takes, an explicit rule (no fallback): 1, bf16 with
 // Cin ≥ 8 → the tensor cores (wgrad_tc_kernel); 2, bf16 at stride 1 with
 // Cin = 1 (the stage-3 chains' 1→32 and 1→64 convs, bound by reading g) → the
 // one-input-channel tensor-core instance (wgrad_c1in_tc_kernel; Cin 2-7 would
-// need another layout of its copies); 0, fp32 (tensor cores would mean TF32,
-// outside the fp32 tolerances), Cin 2-7 and the stride-2 1-channel stem → the
-// CUDA-core wgrad_kernel. The wrapper reads it through
-// hvc_conv3d_k3_wgrad_tc to count launches and size the split
-// (ops/cuda/conv3d_k3.py: wgrad_instance states it for the CPU).
+// need another layout of its copies); 3, bf16 at stride 2 with Cin = 1 (stage
+// 1's 1→64 stem, bound by reading g) → its stride-2 form
+// (wgrad_c1in_s2_tc_kernel); 0, fp32 (tensor cores would mean TF32, outside
+// the fp32 tolerances) and Cin 2-7 → the CUDA-core wgrad_kernel. The wrapper
+// reads it through hvc_conv3d_k3_wgrad_tc to count launches and size the
+// split (ops/cuda/conv3d_k3.py: wgrad_instance states it for the CPU).
 int wgrad_instance(int stride, bool bf16, int cin) {
   if (!bf16) return 0;
   if (cin >= 8) return 1;
-  return stride == 1 && cin == 1 ? 2 : 0;
+  if (cin != 1) return 0;
+  return stride == 1 ? 2 : 3;
 }
 
 template <int S>
@@ -987,6 +1291,9 @@ int dispatch_wgrad(const void* x, const void* g, void* partial, void* out, long 
   if (instance == 2)
     return launch_wgrad_c1in_tc(x, g, partial, out, batch, cout, nv, qlo, xb, act, H, W, Do,
                                 splits, s);
+  if (instance == 3)
+    return launch_wgrad_c1in_s2_tc(x, g, partial, out, batch, cout, nv, qlo, xb, act, H, W, Do,
+                                   splits, s);
   if (instance == 1) {
     const int Wo = (W - 1) / S + 1;
     const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -1779,9 +2086,9 @@ extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dact, int dtype) 
 
 // The instance hvc_conv3d_k3s{stride}_wgrad runs a call with this Cin and
 // dtype (0 = float32, 1 = bfloat16) on: 0 the CUDA cores, 1 the tensor cores
-// (Cin ≥ 8), 2 the one-input-channel tensor-core instance; the rule of
-// dispatch_wgrad, which the wrapper counts launches by and sizes the split
-// for.
+// (Cin ≥ 8), 2 the one-input-channel tensor-core instance at stride 1, 3 its
+// stride-2 form; the rule of dispatch_wgrad, which the wrapper counts
+// launches by and sizes the split for.
 extern "C" int hvc_conv3d_k3_wgrad_tc(int stride, int cin, int dtype) {
   return wgrad_instance(stride, dtype == 1, cin);
 }

@@ -25,7 +25,8 @@
 // Every operand is bf16, row-major and contiguous; products accumulate in
 // fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // fragments loaded from shared memory with ldmatrix; the helpers are in
-// mma_sm90.cuh) and the output is fp32.
+// mma_sm90.cuh; V0 on wgmma.mma_async m64n128k16 fed by TMA, helpers in
+// wgmma_sm90.cuh) and the output is fp32.
 // A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
 // the r axis is a loop inside one launch. The grid is persistent (as many
 // blocks as fit on the SMs) and walks the work items r·tiles + tile in order,
@@ -43,9 +44,11 @@
 // 0.140 ms at 3.35 TB/s, a practical floor of 8.98 ms per call (V0 11.24 ms
 // with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2.
 //
-// Design. Two templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
+// Design. Three templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
 // are not carried over. mma.sync is the simplest tensor-core path (no TMA,
-// no wgmma, no warp specialisation); what each variant probes is kept:
+// no wgmma, no warp specialisation) and runs every probe but V0, which runs
+// on wgmma (probe_gemm_wgmma, its comment has the design); what each
+// variant probes is kept:
 //
 // - probe_gemm (V1, V0, V2, V3): C[M, Nc] = A[M, K] · B[K, Nc], both row-major
 //   in global memory, so the orientation is which array is A: W (V1, V0, V3:
@@ -54,7 +57,8 @@
 //   ring of shared-memory tiles (rows padded by 8 bf16 so ldmatrix is free of
 //   bank conflicts). V3 is V1 with the A chunk of K step t taken from
 //   W27[32t:32t+32, :64]: one K = 64 dot per tap, accumulated in place.
-//   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), V0 128 × 128 (8 warps of
+//   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), an m > 32 call that the
+//   wgmma rule does not take (N not a multiple of 8) 128 × 128 (8 warps of
 //   64 × 32), V2 128 spatial rows × 32 (4 warps of 32 × 32).
 // - probe_tapsum (V3', V5, V6, V4, V8): the whole weight array stays in
 //   shared memory for the block's life (115-129 KB, the VMEM-resident
@@ -83,6 +87,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -131,8 +136,12 @@ __device__ __forceinline__ void store_pair(float* out, long long ld, int rows, i
 
 // C[M, Nc] = A[M, K] · B[K, Nc] for `repeats` passes (K a multiple of 64).
 // TAP_A (V3): A is W27 (27·32 × 64) and K step t reads its rows 32t..32t+31,
-// so M must be 32. B_ALIGNED: Nc (= ldb) is a multiple of 8.
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED>
+// so M must be 32. B_ALIGNED: Nc (= ldb) is a multiple of 8. M_INNER: a
+// pass walks the M tiles of one N tile together (tile = n·tiles_m + m), so
+// the blocks in flight share B tiles; otherwise every N tile of M tile 0
+// comes first (tile = m·tiles_n + n), the hvc_probe_v1 instance's walk.
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED,
+          bool M_INNER = false>
 __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
     probe_gemm(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ C,
                int M, int Nc, int K, int repeats) {
@@ -156,7 +165,8 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const long long tile = it % per_pass;
-    const int m0 = int(tile / tiles_n) * BM, n0 = int(tile % tiles_n) * BN;
+    const int m0 = int(M_INNER ? tile % tiles_m : tile / tiles_n) * BM;
+    const int n0 = int(M_INNER ? tile / tiles_m : tile % tiles_n) * BN;
 
     auto load_stage = [&](int kc, int stage) {
       bf16* a = sA + stage * A_STAGE;
@@ -379,6 +389,171 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
   cp_async_wait<0>();
 }
 
+// ------------------------------------------------------ probe_gemm_wgmma ---
+
+// V0 on wgmma: C[M, Nc] fp32 = A[M, K] · B[K, Nc] for `repeats` passes, A
+// and B bf16 row-major (K a multiple of 64, Nc a multiple of 8: the tensor
+// maps need 16-byte row pitches). What bounds it is moving bytes: P (453 MB
+// at N = 131,072) does not fit the 50 MB L2 and is read from device memory
+// every pass, and every pass writes the 134 MB fp32 output. A block owns all
+// kWgBM = 256 rows of a work item's kWgBN = 128 columns, so a pass reads
+// each P tile once (the mma.sync instance's walk ran every N tile of M tile
+// 0 before any of M tile 1). Three warpgroups: warpgroup 2 is the producer,
+// one thread of it keeping a ring of kWgStages K chunks of 64 in flight by
+// TMA (A: one 256 × 64 box, from L2; B: two 64 × 64 boxes), each into
+// 128-byte-swizzled shared memory, completion on the chunk's `full`
+// mbarrier; warpgroups 0 and 1 own rows 0-127 and 128-255 and each issues,
+// per k16 step, two wgmma.mma_async m64n128k16 (A K-major from its rows, B
+// MN-major: the [K][N] rows of P as they lie), 128 fp32 accumulators a
+// thread, and frees the chunk (its `empty` mbarrier, one arrival per
+// consumer warpgroup) as soon as its products are done, so three of the four
+// chunks can be loading while one is multiplied (freeing it one chunk later,
+// after the next chunk's products were issued, left fewer bytes in flight
+// and was slower on the card). Epilogue: each consumer writes 64 rows × 32
+// columns of its accumulators at a time into its own 8 KB buffer, in the
+// 128-byte swizzle of one TMA store box (conflict-free float2 writes from
+// the fragments), and one thread stores it by TMA, which clips the ragged
+// edge; the buffer is reused once the store has read it. A small epilogue
+// buffer leaves room for the fourth chunk of the ring (214,080 bytes of
+// shared memory, one block an SM). Persistent grid walking the work items
+// r·tiles + tile in order, N-major (tile = n·tiles_m + m: the M tiles of an N
+// tile together). Deterministic: every output element is one fixed chain of fp32
+// products.
+constexpr int kWgBM = 256, kWgBN = 128, kWgBK = 64;  // a work item's rows and columns, a chunk's K
+constexpr int kWgStages = 4;                          // K chunks in the ring
+constexpr int kWgConsumers = 2;                       // warpgroups of 128 rows (two m64 tiles)
+constexpr int kWgThreads = (kWgConsumers + 1) * 128;  // and the producer warpgroup
+constexpr int kWgBox = 64;                            // bf16 columns of a load box: 128 bytes
+constexpr int kWgOutBox = 32;                         // fp32 columns of a store box: 128 bytes
+constexpr int kWgABytes = kWgBM * kWgBK * 2;          // 32 KB: A rows [256][64], swizzled
+constexpr int kWgBBytes = kWgBK * kWgBN * 2;          // 16 KB: two B boxes [64 k][64 n], swizzled
+constexpr int kWgStageBytes = kWgABytes + kWgBBytes;
+constexpr int kWgOutCols = 32;                        // fp32 columns a consumer stores at a time
+constexpr int kWgOutBytes = 64 * kWgOutCols * 4;      // 8 KB a consumer: one [64][32] box
+constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + kWgConsumers * kWgOutBytes +
+                        2 * kWgStages * 8;            // alignment slack, ring, epilogue, barriers
+// Descriptor strides (bytes): both operands step 8 rows (A's rows, B's k
+// rows) by one 1024-byte swizzle atom; B's second 64-column box follows its
+// first after a whole box of kWgBK 128-byte rows.
+constexpr uint32_t kWgSbo = 8 * 128;
+constexpr uint32_t kWgLboB = kWgBK * 128;
+constexpr uint32_t kWgLboA = 16;  // unused by a swizzled K-major operand
+static_assert(kWgBN == 2 * kWgBox && kWgBM == kWgConsumers * 128 && kWgSmem <= 232448 &&
+                  kWgBN % kWgOutCols == 0 && kWgOutCols % kWgOutBox == 0,
+              "two B boxes a chunk, two m64 tiles a consumer, the card's shared memory");
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    probe_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_c, int M, int Nc, int K,
+                     int repeats) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWgStages * kWgStageBytes +
+                                               kWgConsumers * kWgOutBytes);
+  uint64_t* empty = full + kWgStages;
+
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const int tiles_m = (M + kWgBM - 1) / kWgBM, tiles_n = (Nc + kWgBN - 1) / kWgBN;
+  const long long per_pass = (long long)tiles_m * tiles_n;
+  const long long items = per_pass * repeats;
+  const int KC = K / kWgBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {  // the producer
+    if (lt == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+        const long long tile = it % per_pass;
+        const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;
+        for (int kc = 0; kc < KC; ++kc) {
+          mbar_wait(&empty[s], phase ^ 1);  // the consumers freed this chunk (free at first)
+          unsigned char* st = smem + s * kWgStageBytes;
+          mbar_arrive_expect_tx(&full[s], kWgStageBytes);
+          tma_load_2d(st, &map_a, &full[s], kc * kWgBK, m0);
+          tma_load_2d(st + kWgABytes, &map_b, &full[s], n0, kc * kWgBK);
+          tma_load_2d(st + kWgABytes + kWgBK * 128, &map_b, &full[s], n0 + kWgBox, kc * kWgBK);
+          if (++s == kWgStages) s = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows 128·wg … 128·wg + 127 of each work item
+  float acc[2][64];
+  unsigned char* out = smem + kWgStages * kWgStageBytes + wg * kWgOutBytes;
+  const int warp = lt / 32, lane = lt % 32;
+  int s = 0;
+  uint32_t phase = 0;
+  bool stored = false;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long tile = it % per_pass;
+    const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;
+    wgmma_fence_acc(acc[0]);
+    wgmma_fence_acc(acc[1]);
+    for (int kc = 0; kc < KC; ++kc) {
+      mbar_wait(&full[s], phase);
+      const uint32_t a0 = smem_u32(smem + s * kWgStageBytes) + wg * 128 * 128;
+      const uint32_t b0 = smem_u32(smem + s * kWgStageBytes + kWgABytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        const uint64_t db = wgmma_desc(b0 + kk * 16 * 128, kWgLboB, kWgSbo);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wgmma_m64n128k16<1>(acc[i], wgmma_desc(a0 + i * 64 * 128 + kk * 32, kWgLboA, kWgSbo), db,
+                              kc > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // this chunk's products are done: free it for the producer
+      if (lt == 0) mbar_arrive(&empty[s]);
+      if (++s == kWgStages) s = 0, phase ^= 1;
+    }
+    wgmma_fence_acc(acc[0]);
+    wgmma_fence_acc(acc[1]);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < kWgBN / kWgOutCols; ++h) {  // columns kWgOutCols·h … of sub-tile i
+        if (stored && lt == 0) tma_store_wait_read<0>();  // the last store has read the buffer
+        bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < kWgOutCols / 2; jj += 2) {
+          // accumulators j, j + 1 (j = jj + the round's first): row 16·warp + lane /
+          // 4 + 8·(j % 4 / 2), columns 8·(j / 4) + 2·(lane % 4) + {0, 1} of the
+          // sub-tile, c of them local to the round
+          const int j = h * kWgOutCols / 2 + jj;
+          const int row = 16 * warp + lane / 4 + 8 * ((jj % 4) / 2);
+          const int c = 8 * (jj / 4) + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(out + (c / kWgOutBox) * (64 * kWgOutBox * 4) +
+                                     sw128_offset(row, (c % kWgOutBox) / 4) + (lane % 2) * 8) =
+              make_float2(acc[i][j], acc[i][j + 1]);
+        }
+        fence_proxy_async_shared();
+        bar_sync(1 + wg, 128);
+        if (lt == 0) {
+          for (int b = 0; b < kWgOutCols / kWgOutBox; ++b)
+            tma_store_2d(&map_c, out + b * (64 * kWgOutBox * 4),
+                         n0 + h * kWgOutCols + b * kWgOutBox, m0 + wg * 128 + i * 64);
+          tma_store_commit();
+        }
+        stored = true;
+      }
+  }
+  if (lt == 0) tma_store_wait<0>();
+}
+
 // ---------------------------------------------------------------- launches ---
 
 // A persistent launch: as many blocks as fit on the SMs, at most `items`.
@@ -402,22 +577,26 @@ cudaError_t launch(void (*kern)(KArgs...), int threads, int smem, long long item
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool B_ALIGNED,
+          bool M_INNER = false>
 cudaError_t gemm(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
                  cudaStream_t stream) {
   constexpr int smem = kStages * (BM * (kBK + kPad) + kBK * (BN + kPad)) * 2;
   const long long items =
       (long long)((M + BM - 1) / BM) * ((Nc + BN - 1) / BN) * (long long)repeats;
-  return launch(probe_gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, B_ALIGNED>, WARPS_M * WARPS_N * 32,
-                smem, items, stream, static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                static_cast<float*>(c), M, Nc, K, repeats);
+  return launch(probe_gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, B_ALIGNED, M_INNER>,
+                WARPS_M * WARPS_N * 32, smem, items, stream, static_cast<const bf16*>(a),
+                static_cast<const bf16*>(b), static_cast<float*>(c), M, Nc, K, repeats);
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool TAP_A, bool M_INNER = false>
 cudaError_t gemm_any(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
                      int aligned, cudaStream_t stream) {
-  return aligned ? gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, true>(a, b, c, M, Nc, K, repeats, stream)
-                 : gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, false>(a, b, c, M, Nc, K, repeats, stream);
+  return aligned
+             ? gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, true, M_INNER>(a, b, c, M, Nc, K, repeats,
+                                                                   stream)
+             : gemm<BM, BN, WARPS_M, WARPS_N, TAP_A, false, M_INNER>(a, b, c, M, Nc, K, repeats,
+                                                                    stream);
 }
 
 template <int KD, int NDOTS, int GROUPS, int TAPS, int WARPS_M, int WARPS_N, int WN>
@@ -438,6 +617,61 @@ cudaError_t tapsum(const void* w, const void* x, void* out, int n, int repeats, 
                       smem, items, stream, wp, xp, op, n, repeats);
 }
 
+
+// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major rows × cols array of `type` (elem bytes an
+// element) cut into boxes of box_rows × box_cols, 128-byte swizzled in
+// shared memory; out-of-bounds reads are zeros.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                long long rows, long long cols, int box_rows, int box_cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * elem};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The rule of hvc_probe_v1 for its wgmma instance: rows in whole m64 tiles
+// and 16-byte row pitches of P and the output for the tensor maps.
+int v1_uses_wgmma(int m, int n) { return m % 64 == 0 && n % 8 == 0; }
+
+cudaError_t gemm_wgmma(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
+                       cudaStream_t stream) {
+  if (!v1_uses_wgmma(M, Nc) || K % kWgBK != 0 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(c) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb, mc;
+  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, kWgBM, kWgBox) ||
+      !tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, K, Nc, kWgBK, kWgBox) ||
+      !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c, M, Nc, 64, kWgOutBox))
+    return cudaErrorInvalidValue;
+  const long long items =
+      (long long)((M + kWgBM - 1) / kWgBM) * ((Nc + kWgBN - 1) / kWgBN) * (long long)repeats;
+  return launch(probe_gemm_wgmma, kWgThreads, kWgSmem, items, stream, ma, mb, mc, M, Nc, K,
+                repeats);
+}
 }  // namespace
 
 // Entry points: bf16 operands, row-major and contiguous, 16-byte aligned
@@ -445,12 +679,38 @@ cudaError_t tapsum(const void* w, const void* x, void* out, int n, int repeats, 
 // cudaError_t (0 = success) and does not synchronise.
 extern "C" {
 
-// out (m, n) fp32 = w (m, k) · p (k, n); k a multiple of 64
+// out (m, n) fp32 = w (m, k) · p (k, n); k a multiple of 64. m a multiple of
+// 64 with n a multiple of 8 (hvc_probe_v1_wgmma: V0) takes the wgmma
+// instance, m ≤ 32 (V1) the 32 × 128 mma.sync one, the rest the 128 × 128
+// mma.sync one.
 int hvc_probe_v1(const void* w, const void* p, void* out, int m, int k, int n, int repeats,
                  int aligned, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (v1_uses_wgmma(m, n)) return gemm_wgmma(w, p, out, m, n, k, repeats, s);
   if (m <= 32) return gemm_any<32, 128, 1, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
   return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+}
+
+// 1 if hvc_probe_v1 runs a call of these sizes on the wgmma instance (the
+// rule the wrapper counts its launches by), else 0.
+int hvc_probe_v1_wgmma(int m, int k, int n) {
+  (void)k;
+  return v1_uses_wgmma(m, n);
+}
+
+// hvc_probe_v1 on a named instance, for comparing them
+// (scripts/probe_v0_variants.py): 0 the 128 × 128 mma.sync instance as it
+// walks (every N tile of M tile 0 first), 1 the same with the M tiles of an N
+// tile walked together, 2 the wgmma instance (its rule must hold).
+int hvc_probe_v1_instance(const void* w, const void* p, void* out, int m, int k, int n,
+                          int repeats, int aligned, int instance, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == 0)
+    return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+  if (instance == 1)
+    return gemm_any<128, 128, 2, 4, false, true>(w, p, out, m, n, k, repeats, aligned, s);
+  if (instance == 2) return gemm_wgmma(w, p, out, m, n, k, repeats, s);
+  return cudaErrorInvalidValue;
 }
 
 // out (n, 32) fp32 = pt (n, k) · wt (k, 32); k a multiple of 64

@@ -33,10 +33,12 @@ def launch_counts() -> Dict[str, int]:
     conv3d_k3s1_c1in_tc and conv3d_k3s1_chain_c1in_tc (B and H with one input
     channel, the forward of a 1-channel conv), conv3d_k3s2_c1in_tc (C and I
     likewise), conv3d_k3s1_wgrad_c1in_tc (E and K at stride 1 with one input
-    channel), conv3d_k3s2_dgrad_c1in_tc (F and J with one dx channel), conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and
+    channel), conv3d_k3s2_wgrad_c1in_tc (G and K at stride 2 likewise),
+    conv3d_k3s2_dgrad_c1in_tc (F and J with one dx channel), conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and
     conv3d_k3s2_wgrad_c1in (C/I, F/J and G/K with one input channel: the 1→64
     stem, whichever instance),
-    and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N)."""
+    and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N), conv_probe_v1_wgmma (those of
+    conv_probe_v1 on its wgmma instance)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
     from . import flash_attention as fa

@@ -51,8 +51,8 @@ epilogue: ``fwd_c1in_uses_tensor_cores``), at stride 1 the forward of the
 ``conv3d_k3s1_chain_c1in_tc`` otherwise, at stride 2 that of stage 1's 1→64
 stem to ``conv3d_k3s2_c1in_tc`` (dense and chain), a weight gradient on the tensor cores (bf16, Cin ≥ 8: instance 1
 of ``wgrad_instance``) to ``conv3d_k3s{1,2}_wgrad_tc`` and one with one input
-channel at stride 1 (bf16: instance 2) to ``conv3d_k3s1_wgrad_c1in_tc`` (dense
-and chain), the stride-2 data gradient on the tensor cores (bf16, Cin ≥ 8 and
+channel (bf16: instance 2 at stride 1, 3 at stride 2) to
+``conv3d_k3s{1,2}_wgrad_c1in_tc`` (dense and chain), the stride-2 data gradient on the tensor cores (bf16, Cin ≥ 8 and
 Cout ≥ 8: instance 1 of ``dgrad_s2_instance``) to ``conv3d_k3s2_dgrad_tc``
 when dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise, and one with one dx
 channel (bf16, 8 ≤ Cout ≤ 64, no act′: instance 2), the data gradient of the
@@ -126,16 +126,18 @@ _DGRAD_TC_CI = 32
 _DGRAD_TC_CO = 16
 # The weight gradient's instances (csrc/conv3d_k3_bwd.cu, the codes of
 # hvc_conv3d_k3_wgrad_tc): 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8),
-# 2 the one-input-channel tensor cores (stride 1), each blocked as (output
-# voxels per tile (D, H, W), output and input channels per block, blocks per
-# SM it aims for): the B·Do·Ho·Wo reduction is split into fp32 partials over
-# the output tiles, one per block of (split, Cout tile, Cin chunk). The
-# tensor-core instance holds 162 KB of shared memory (139 KB at stride 2), one
-# block per SM; the one-input-channel one 73 KB, three; the CUDA-core one takes
-# 1 input channel a block when Cin < 4.
-WGRAD_CUDA_CORE, WGRAD_TC, WGRAD_C1IN_TC = 0, 1, 2
+# 2 the one-input-channel tensor cores (stride 1), 3 their stride-2 form,
+# each blocked as (output voxels per tile (D, H, W), output and input
+# channels per block, blocks per SM it aims for): the B·Do·Ho·Wo reduction is
+# split into fp32 partials over the output tiles, one per block of (split,
+# Cout tile, Cin chunk). The tensor-core instance holds 162 KB of shared
+# memory (139 KB at stride 2), one block per SM; the one-input-channel one
+# 73 KB, three (86 KB, two, at stride 2); the CUDA-core one takes 1 input
+# channel a block when Cin < 4.
+WGRAD_CUDA_CORE, WGRAD_TC, WGRAD_C1IN_TC, WGRAD_C1IN_S2_TC = 0, 1, 2, 3
 _WGRAD_TC = {1: ((4, 4, 16), 32, 32, 1), 2: ((2, 2, 16), 32, 32, 1)}
 _WGRAD_C1IN_TC = ((2, 2, 64), 32, 1, 3)
+_WGRAD_C1IN_S2_TC = ((2, 4, 32), 32, 1, 2)
 _WGRAD_CUDA_CORE = ((1, 8, 16), 32, 4, 8)
 
 
@@ -436,7 +438,7 @@ def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
     instance the C rule names (``hvc_conv3d_k3_wgrad_tc``), split as
     ``wgrad_plan`` plans that instance; a launch on the tensor cores also
     counts in ``conv3d_k3s{stride}_wgrad_tc``, one on the one-input-channel
-    instance in ``conv3d_k3s1_wgrad_c1in_tc``."""
+    instance in ``conv3d_k3s{stride}_wgrad_c1in_tc``."""
     _check_cuda(x)
     _check_view("x", x, g.dtype, g.device)
     B, cin, nv, H, W = x.shape
@@ -457,8 +459,8 @@ def _wgrad(entry: str, stride: int, x: torch.Tensor, g: torch.Tensor, qlo: int,
     _build.check(rc, entry)
     if instance == WGRAD_TC:
         LAUNCHES[f"conv3d_k3s{stride}_wgrad_tc"] += 1
-    elif instance == WGRAD_C1IN_TC:
-        LAUNCHES["conv3d_k3s1_wgrad_c1in_tc"] += 1
+    elif instance in (WGRAD_C1IN_TC, WGRAD_C1IN_S2_TC):
+        LAUNCHES[f"conv3d_k3s{stride}_wgrad_c1in_tc"] += 1
     if stride == 2 and cin == 1:
         LAUNCHES["conv3d_k3s2_wgrad_c1in"] += 1
     return out
@@ -470,13 +472,16 @@ def wgrad_instance(dtype: torch.dtype, stride: int, cin: int) -> int:
     on the card the wrapper reads the C rule itself
     (``hvc_conv3d_k3_wgrad_tc``): WGRAD_TC, bf16 with Cin ≥ 8; WGRAD_C1IN_TC,
     bf16 at stride 1 with Cin = 1 (the stage-3 chains' 1→32 and 1→64 convs,
-    bound by reading g); WGRAD_CUDA_CORE, fp32 (TF32 would leave the fp32
-    tolerances), Cin 2-7 and the stride-2 1-channel stem."""
+    bound by reading g); WGRAD_C1IN_S2_TC, bf16 at stride 2 with Cin = 1
+    (stage 1's 1→64 stem, likewise); WGRAD_CUDA_CORE, fp32 (TF32 would leave
+    the fp32 tolerances) and Cin 2-7."""
     if dtype != torch.bfloat16:
         return WGRAD_CUDA_CORE
     if cin >= 8:
         return WGRAD_TC
-    return WGRAD_C1IN_TC if stride == 1 and cin == 1 else WGRAD_CUDA_CORE
+    if cin != 1:
+        return WGRAD_CUDA_CORE
+    return WGRAD_C1IN_TC if stride == 1 else WGRAD_C1IN_S2_TC
 
 
 def split_tiles(n_tiles: int, blocks: int) -> tuple[int, int]:
@@ -493,6 +498,8 @@ def wgrad_blocking(instance: int, stride: int, cin: int):
         return _WGRAD_TC[stride]
     if instance == WGRAD_C1IN_TC:
         return _WGRAD_C1IN_TC
+    if instance == WGRAD_C1IN_S2_TC:
+        return _WGRAD_C1IN_S2_TC
     tile, co_blk, ci_blk, per_sm = _WGRAD_CUDA_CORE
     return tile, co_blk, 1 if cin < 4 else ci_blk, per_sm
 
@@ -669,8 +676,8 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
     """dW (Cout, Cin, 3, 3, 3) fp32 of ``conv3d_k3(x, ·, ·, stride, qlo, ...)``
     for output gradient g, the prologue replayed: kernel E / G at stride 1 / 2
     with ``dense``, K otherwise; bf16 with Cin ≥ 8 on the tensor cores, bf16
-    at stride 1 with Cin = 1 on the one-input-channel tensor cores, the rest
-    on the CUDA cores (``wgrad_instance``)."""
+    with Cin = 1 on the one-input-channel tensor cores (at stride 1 or 2), the
+    rest on the CUDA cores (``wgrad_instance``)."""
     if dense:
         _check_dense(x.shape, stride, qlo, g.shape[2], False, act)
     if x.device.type == "cpu":
@@ -693,7 +700,8 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # forward of the 1→32 and 1→64 convs) on the one-input-channel tensor-core
 # instance, and conv3d_k3s2_c1in_tc those of C and I (the 1→64 stem);
 # conv3d_k3s1_wgrad_c1in_tc, those of E and K at stride 1 with one input
-# channel on the one-input-channel weight gradient; conv3d_k3s2_dgrad_c1in_tc,
+# channel on the one-input-channel weight gradient, conv3d_k3s2_wgrad_c1in_tc
+# those of G and K at stride 2 (the 1→64 stem); conv3d_k3s2_dgrad_c1in_tc,
 # those of F and J with one dx channel on the one-dx-channel tensor cores;
 # conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and conv3d_k3s2_wgrad_c1in, those
 # of C/I, F/J and G/K at stride 2 with one input channel (the 1→64 stem),
@@ -704,7 +712,8 @@ LAUNCHES = {**{_counter(kind, s, dense): 0
             "conv3d_k3s1_dgrad_c1_tc": 0, "conv3d_k3s1_chain_dgrad_c1_tc": 0,
             "conv3d_k3s1_c1in_tc": 0, "conv3d_k3s1_chain_c1in_tc": 0,
             "conv3d_k3s2_c1in_tc": 0, "conv3d_k3s2_dgrad_c1in_tc": 0,
-            "conv3d_k3s1_wgrad_c1in_tc": 0, "conv3d_k3s2_c1in": 0, "conv3d_k3s2_dgrad_c1in": 0,
+            "conv3d_k3s1_wgrad_c1in_tc": 0, "conv3d_k3s2_wgrad_c1in_tc": 0,
+            "conv3d_k3s2_c1in": 0, "conv3d_k3s2_dgrad_c1in": 0,
             "conv3d_k3s2_wgrad_c1in": 0,
             "conv3d_k3s2_tc": 0, "conv3d_k3s2_chain_tc": 0,
             "conv3d_k3s1_wgrad_tc": 0, "conv3d_k3s2_wgrad_tc": 0,

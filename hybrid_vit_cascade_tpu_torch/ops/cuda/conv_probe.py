@@ -16,7 +16,9 @@ Each wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain version (``*_plain``: fp32 products of the bf16 inputs, the tap
 sums written out, ``repeats`` passes) for tensors on the CPU; for any other
 device it raises. It never falls back from the kernel to the plain version.
-Each launch adds one to the wrapper's counter in ``LAUNCHES``.
+Each launch adds one to the wrapper's counter in ``LAUNCHES``; a ``probe_v1``
+launch on the wgmma instance (``probe_v1_uses_wgmma``: V0) also adds one to
+``conv_probe_v1_wgmma``.
 """
 
 from __future__ import annotations
@@ -35,13 +37,19 @@ TAPS = 27
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # hvc_probe_v1(w, p, out, m, k, n, repeats, aligned, stream)
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
+# hvc_probe_v1_wgmma(m, k, n): 1 if hvc_probe_v1 takes the wgmma instance
+_V1_WGMMA_ARGTYPES = (_I, _I, _I)
 # hvc_probe_v2(pt, wt, out, k, n, repeats, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
-LAUNCHES = {f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")}
+LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
+            "conv_probe_v1_wgmma": 0}
+# The wgmma instance's rows per m64 tile and the row pitch its tensor maps
+# need (16 bytes: 8 bf16 of P).
+WGMMA_M, WGMMA_N_ALIGN = 64, 8
 
 
 # --------------------------------------------------------- plain versions ---
@@ -191,9 +199,21 @@ def _launch(variant: str, argtypes, a: torch.Tensor, b: torch.Tensor, out: torch
 
 # ---------------------------------------------------------------- wrappers ---
 
+def probe_v1_uses_wgmma(m: int, k: int, n: int) -> bool:
+    """Which instance ``probe_v1`` takes, the rule of ``v1_uses_wgmma``
+    (csrc/conv_probe.cu), which the wrapper reads through
+    ``hvc_probe_v1_wgmma``: m a multiple of 64 (whole m64 tiles) and N a
+    multiple of 8 (16-byte rows of P and the output for the tensor maps) —
+    V0 — runs on the wgmma instance (``probe_gemm_wgmma``: 256 rows × 128
+    columns a work item, TMA into a three-stage ring); m ≤ 32 (V1) on the 32
+    × 128 mma.sync instance, the rest on the 128 × 128 one."""
+    return m % WGMMA_M == 0 and n % WGMMA_N_ALIGN == 0
+
+
 def probe_v1(w: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
     """``make_v1(m)``: out (m, N) fp32 = w (m, K) · p (K, N), weights as M;
-    K a multiple of 64 (the probe's 1728)."""
+    K a multiple of 64 (the probe's 1728); on the instance
+    ``probe_v1_uses_wgmma`` names."""
     _check_repeats(repeats)
     _check("w", w, (None, None), p.device)
     _check("p", p, (w.shape[1], None), p.device)
@@ -202,8 +222,12 @@ def probe_v1(w: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
     if not _on_card(w, p):
         return probe_v1_plain(w, p, repeats)
     (m, k), n = w.shape, p.shape[1]
+    wgmma = bool(_build.function("hvc_probe_v1_wgmma", _V1_WGMMA_ARGTYPES)(m, k, n))
     out = torch.empty((m, n), dtype=torch.float32, device=p.device)
-    return _launch("v1", _V1_ARGTYPES, w, p, out, m, k, n, repeats, int(n % 8 == 0))
+    _launch("v1", _V1_ARGTYPES, w, p, out, m, k, n, repeats, int(n % 8 == 0))
+    if wgmma:
+        LAUNCHES["conv_probe_v1_wgmma"] += 1
+    return out
 
 
 def probe_v2(p: torch.Tensor, w: torch.Tensor, repeats: int) -> torch.Tensor:

@@ -239,7 +239,9 @@ def time_ms(fn: Callable, device, reps: int = 5) -> float:
 
 def run_case(case: Case, device, n: int, repeats: int, seed: int, vx_size: int = 256) -> dict:
     """Time one case: its kernel, its plain version and its cuBLAS yardstick
-    (VX/VX2: the cuDNN conv); returns the row of numbers."""
+    (VX/VX2: the cuDNN conv); returns the row of numbers, with the launches
+    the kernel's timing added to each counter of ``conv_probe.LAUNCHES``
+    (V0's show its wgmma instance)."""
     args = make_inputs(case, n, device, seed, vx_size)
     lib, lib_desc = library_call(case, args, repeats)
     b_ms, b_by = bound(case, n, repeats, vx_size)
@@ -251,7 +253,9 @@ def run_case(case: Case, device, n: int, repeats: int, seed: int, vx_size: int =
         row.update(title=case.title.replace("256^3", f"{vx_size}^3"), n=vx_size ** 3,
                    repeats=1, ms=time_ms(lib, device), library_ms=None, plain_ms=None)
     else:
+        before = dict(cp.LAUNCHES)
         row["ms"] = time_ms(lambda: case.wrapper(*args, repeats), device)
+        row["launches"] = {k: v - before[k] for k, v in cp.LAUNCHES.items() if v != before[k]}
         row["library_ms"] = time_ms(lib, device)
         row["plain_ms"] = time_ms(lambda: case.plain(*args, repeats), device)
     row["tflops"] = operations(case, n, repeats, vx_size) / (row["ms"] * 1e-3) / 1e12

@@ -79,11 +79,11 @@ _TC, _C1IN, _CC = ck.WGRAD_TC, ck.WGRAD_C1IN_TC, ck.WGRAD_CUDA_CORE
                                           (torch.float32, 1, _CC)])
 def test_wgrad_dispatch_rule(dtype, cin, tc):
     """The instance at stride 1 (the bf16 1-channel call on the
-    one-input-channel tensor cores); at stride 2 the 1-channel stem stays on
-    the CUDA cores."""
+    one-input-channel tensor cores); at stride 2 the bf16 1-channel stem
+    takes the stride-2 form of that instance."""
     assert ck.wgrad_instance(dtype, 1, cin) == tc
     assert ck.wgrad_plan((1, cin, 8, 16, 16), 32, 1, dtype, H100_SMS)[0] == tc
-    assert ck.wgrad_instance(dtype, 2, cin) == (_CC if tc == _C1IN else tc)
+    assert ck.wgrad_instance(dtype, 2, cin) == (ck.WGRAD_C1IN_S2_TC if tc == _C1IN else tc)
 
 
 # (B, Cin, output planes, H, W, Cout, stride): the weight gradients of the

@@ -73,7 +73,7 @@ def test_fwd_c1in_dispatch_rule(dtype, stride, cin, cout, dact, tc):
 
 
 @pytest.mark.parametrize("dtype,stride,cin,instance", [
-    (BF16, 1, 1, ck.WGRAD_C1IN_TC), (BF16, 2, 1, ck.WGRAD_CUDA_CORE),
+    (BF16, 1, 1, ck.WGRAD_C1IN_TC), (BF16, 2, 1, ck.WGRAD_C1IN_S2_TC),
     (BF16, 1, 2, ck.WGRAD_CUDA_CORE), (BF16, 1, 7, ck.WGRAD_CUDA_CORE),
     (BF16, 1, 8, ck.WGRAD_TC), (BF16, 2, 64, ck.WGRAD_TC), (F32, 1, 1, ck.WGRAD_CUDA_CORE),
     (F32, 2, 1, ck.WGRAD_CUDA_CORE)])
@@ -90,7 +90,8 @@ def test_c1in_rules_and_tilings_are_the_kernels():
     assert "constexpr int kCiTd = 4, kCiTh = 4, kCiTw = 64;" in fwd
     assert ck._FWD_TILE_C1IN[1] == (4, 4, 64)
     assert "return cout <= 32\n" in fwd  # Cout tiles of 32 for Cout ≤ 32, else 64
-    assert ("  if (cin >= 8) return 1;\n  return stride == 1 && cin == 1 ? 2 : 0;" in bwd)
+    assert ("  if (cin >= 8) return 1;\n  if (cin != 1) return 0;\n  return stride == 1 ? 2 : 3;"
+            in bwd)
     assert "constexpr int kW1Td = 2, kW1Th = 2, kW1Tw = 64;" in bwd
     assert (_const(bwd, "kW1Co"), _const(bwd, "kW1Warps"), _const(bwd, "kW1Stages")) == (32, 8, 3)
     assert "__launch_bounds__(kW1Threads, 3)" in bwd

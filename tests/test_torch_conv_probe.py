@@ -128,3 +128,146 @@ def test_entry_point_refuses_without_a_card(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         bench.main(["V1"])
     assert exc.value.code not in (0, None)
+
+
+# ------------------------------------------------- the wgmma instance of V0 ---
+
+PROBE_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "conv_probe.cu").read_text()
+WGMMA_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "wgmma_sm90.cuh").read_text()
+
+
+def _wg_const(name: str) -> int:
+    """A constant of probe_gemm_wgmma, from conv_probe.cu (a product of
+    constants, evaluated)."""
+    import re
+
+    expr = re.search(rf"^constexpr [^\n]*?\b{name} = ([^,;]+)[,;]", PROBE_SRC, re.M).group(1)
+    names = {n: _wg_const(n) for n in re.findall(r"kWg\w+", expr)}
+    return int(eval(expr, {}, names))
+
+
+@pytest.mark.parametrize("m,n", [(256, 131072), (256, 8192), (256, 2120), (64, 8), (320, 16),
+                                 (32, 131072), (256, 77), (63, 8), (65, 8), (128, 1001), (1, 1)])
+def test_v1_wgmma_rule_is_the_source(m, n):
+    """``probe_v1_uses_wgmma`` states the C rule ``v1_uses_wgmma``, which
+    ``hvc_probe_v1`` dispatches by and ``hvc_probe_v1_wgmma`` reports: m in
+    whole m64 tiles and N a multiple of 8 (16-byte rows for the tensor
+    maps); V0 takes it, V1 (m = 32) does not."""
+    assert "int v1_uses_wgmma(int m, int n) { return m % 64 == 0 && n % 8 == 0; }" in PROBE_SRC
+    assert "  if (v1_uses_wgmma(m, n)) return gemm_wgmma(w, p, out, m, n, k, repeats, s);" \
+        in PROBE_SRC
+    assert "  return v1_uses_wgmma(m, n);" in PROBE_SRC
+    assert cp.probe_v1_uses_wgmma(m, cp.K, n) == (m % 64 == 0 and n % 8 == 0)
+    assert (cp.WGMMA_M, cp.WGMMA_N_ALIGN) == (64, 8)
+
+
+def _walk(m: int, n: int, repeats: int, grid: int):
+    """The work items of probe_gemm_wgmma as its blocks walk them: block b
+    takes items b, b + grid, …; item it is pass it / (tiles_m·tiles_n) and
+    tile it % (tiles_m·tiles_n), N-major (m tile = tile % tiles_m)."""
+    bm, bn = _wg_const("kWgBM"), _wg_const("kWgBN")
+    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
+    per_pass = tiles_m * tiles_n
+    assert ("        const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;"
+            in PROBE_SRC)
+    return [(it // per_pass, (it % per_pass) % tiles_m * bm, (it % per_pass) // tiles_m * bn, b)
+            for b in range(grid) for it in range(b, repeats * per_pass, grid)]
+
+
+@pytest.mark.parametrize("m,n,repeats,grid", [(256, 131072, 64, 132), (256, 2120, 3, 132),
+                                              (320, 4096, 2, 7), (64, 200, 1, 132)])
+def test_wgmma_walk_covers_every_pass_and_tile_once(m, n, repeats, grid):
+    """Every (pass, m tile, n tile) is one work item of one block, a work item
+    holds all 256 rows of its N tile (one item per N tile at m ≤ 256), and
+    each block's items go in pass order."""
+    bm, bn = _wg_const("kWgBM"), _wg_const("kWgBN")
+    assert (bm, bn, _wg_const("kWgBK")) == (256, 128, 64)
+    items = _walk(m, n, repeats, grid)
+    keys = [(r, m0, n0) for r, m0, n0, _ in items]
+    want = [(r, m0, n0) for r in range(repeats) for n0 in range(0, n, bn) for m0 in range(0, m, bm)]
+    assert sorted(keys) == sorted(want) and len(set(keys)) == len(keys)
+    if m <= bm:
+        assert all(m0 == 0 for _, m0, _, _ in items)
+    for b in range(grid):
+        passes = [r for r, _, _, blk in items if blk == b]
+        assert passes == sorted(passes)
+
+
+def _sw128(row: int, chunk: int) -> int:
+    """sw128_offset (wgmma_sm90.cuh): byte offset of 16-byte chunk `chunk` of
+    128-byte row `row` under the 128-byte swizzle."""
+    return row * 128 + ((chunk ^ (row & 7)) << 4)
+
+
+def test_sw128_is_the_source_and_a_bijection():
+    """The mirror states the C function, and on one ring stage (A: 256 rows
+    of 128 bytes; each B box: 64 rows) and one epilogue box (64 rows of 32
+    fp32) every (row, chunk) lands on its own 16-byte slot of its row, the 8
+    rows of a chunk column in 8 different bank groups."""
+    assert "  return row * 128u + ((chunk ^ (row & 7u)) << 4);" in WGMMA_SRC
+    for rows in (_wg_const("kWgBM"), _wg_const("kWgBK"), 64):
+        offs = [_sw128(r, c) for r in range(rows) for c in range(8)]
+        assert sorted(offs) == list(range(0, rows * 128, 16))
+        assert all(_sw128(r, c) // 128 == r for r in range(rows) for c in range(8))
+        for r0 in range(0, rows, 8):
+            for c in range(8):
+                assert len({_sw128(r0 + i, c) % 128 for i in range(8)}) == 8
+    assert _wg_const("kWgABytes") == 256 * 128 and _wg_const("kWgBBytes") == 2 * 64 * 128
+
+
+def _desc(addr: int, lbo: int, sbo: int) -> int:
+    """wgmma_desc (wgmma_sm90.cuh): the 128-byte-swizzle matrix descriptor."""
+    return (((addr & 0x3FFFF) >> 4) | (((lbo >> 4) & 0x3FFF) << 16)
+            | (((sbo >> 4) & 0x3FFF) << 32) | (1 << 62))
+
+
+def test_wgmma_descriptors_are_the_source():
+    """The descriptor's fields (start address / 16 in bits 0-13, leading
+    byte offset / 16 in 16-29, stride byte offset / 16 in 32-45, layout 1 =
+    128-byte swizzle in 62-63) as wgmma_desc packs them, and the operands'
+    strides: A K-major (8-row groups 1,024 bytes apart, the leading offset
+    unused, a k16 step 32 bytes along the swizzled row), B MN-major (its
+    second 64-column box a whole 64 × 128-byte box after its first: the
+    leading offset; 8 k rows 1,024 bytes apart: the stride offset; a k16
+    step 16 rows)."""
+    for line in ("  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) |",
+                 "         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |",
+                 "         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | "
+                 "(kDescLayoutSw128 << 62);",
+                 "constexpr uint64_t kDescLayoutSw128 = 1;"):
+        assert line in WGMMA_SRC
+    sbo, lbo_b, lbo_a = _wg_const("kWgSbo"), _wg_const("kWgLboB"), _wg_const("kWgLboA")
+    assert (sbo, lbo_b, lbo_a) == (8 * 128, 64 * 128, 16)
+    assert lbo_b == _wg_const("kWgBBytes") // 2  # the second B box of a stage
+    for line in ("        const uint64_t db = wgmma_desc(b0 + kk * 16 * 128, kWgLboB, kWgSbo);",
+                 "          wgmma_m64n128k16<1>(acc[i], wgmma_desc(a0 + i * 64 * 128 + kk * 32, "
+                 "kWgLboA, kWgSbo), db,"):
+        assert line in PROBE_SRC
+    d = _desc(0x1C400 + 2048, lbo_b, sbo)
+    assert d & 0x3FFF == (0x1C400 + 2048) >> 4
+    assert (d >> 16) & 0x3FFF == 512 and (d >> 32) & 0x3FFF == 64 and d >> 62 == 1
+    assert (d >> 49) & 0x7 == 0  # base offset: every stage starts 1024-byte aligned
+    stage = _wg_const("kWgStageBytes")
+    assert stage % 1024 == 0 and _wg_const("kWgABytes") % 1024 == 0
+
+
+def test_wgmma_epilogue_fills_each_store_box_once():
+    """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
+    + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
+    fp32 box, at sw128_offset(row, column / 4) + 8·(lane % 2)) cover every
+    8-byte slot of the box once, and each warp's store of one jj hits every
+    bank the same number of times (no conflict beyond the two wavefronts of
+    256 bytes)."""
+    cols = _wg_const("kWgOutCols")
+    assert cols == _wg_const("kWgOutBox") == 32
+    slots = []
+    for warp, lane, jj in ((w, ln, j) for w in range(4) for ln in range(32)
+                           for j in range(0, cols // 2, 2)):
+        row = 16 * warp + lane // 4 + 8 * ((jj % 4) // 2)
+        c = 8 * (jj // 4) + 2 * (lane % 4)
+        slots.append(_sw128(row, (c % 32) // 4) + (lane % 2) * 8)
+    assert sorted(slots) == list(range(0, 64 * 32 * 4, 8))
+    for warp, jj in ((w, j) for w in range(4) for j in range(0, cols // 2, 2)):
+        banks = [((_sw128(16 * warp + ln // 4 + 8 * ((jj % 4) // 2), (8 * (jj // 4) + 2 * (ln % 4))
+                          // 4) + (ln % 2) * 8) // 4 + k) % 32 for ln in range(32) for k in range(2)]
+        assert sorted(banks) == sorted(list(range(32)) * 2)

@@ -19,6 +19,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     DGRAD_S2_CUDA_CORE,
     DGRAD_S2_TC,
     LAUNCHES,
+    WGRAD_C1IN_S2_TC,
     WGRAD_TC,
     conv3d_k3,
     conv3d_k3_dgrad,
@@ -1071,6 +1072,60 @@ def test_conv_s2_c1in_tc_rule_matches_c(dev):
     assert dgrad_s2_instance(torch.float32, 1, 64) == DGRAD_S2_CUDA_CORE
 
 
+# The stride-2 1→64 stem's weight gradient at Cin = 1 on the tensor cores
+# (wgrad_c1in_s2_tc_kernel): (B, Cout, planes of x, H, W, slab plane of x's
+# first plane, output planes, act). Main path: stage 1's batch of 8 at 64³
+# and the reconstruct's batch of 1 (dense: qlo 1); ragged: Cout 8 / 24 / 40
+# (masked Cout tiles), odd D, H and W, W not a multiple of 16 (element by
+# element), x before and inside the slab, several column tiles, gelu and silu
+# prologues.
+WGRAD_S2_C1IN_MAIN = [(8, 64, 64, 64, 64, 1, 32, None), (1, 64, 64, 64, 64, 1, 32, None)]
+WGRAD_S2_C1IN_RAGGED = [(2, 8, 5, 6, 10, 1, 3, None), (1, 40, 7, 9, 35, 1, 4, "gelu"),
+                        (2, 24, 9, 7, 13, -1, 5, "silu"), (1, 64, 33, 30, 66, 0, 16, None),
+                        (8, 64, 20, 17, 13, 2, 10, "gelu"), (1, 64, 17, 64, 160, 0, 8, None)]
+
+
+def _wgrad_s2_c1in_check(case, dtype, dev, seed):
+    """The stride-2 weight gradient with one input channel against its plain
+    version (chip_smoke.py's tolerance for dW: fp32 1e-4, the absolute part
+    scaled by the largest |want|; both sides sum the same products), counted
+    on the stride-2 one-input-channel counter in bf16 and on none in fp32,
+    and bitwise repeatable."""
+    b, cout, nv, h, w_, qlo, d_out, act = case
+    x = _randn((b, 1, nv + 2, h, w_), dtype, dev, seed).narrow(2, 1, nv)
+    g = _randn((b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1), dtype, dev, seed + 1)
+    dense = qlo == 1 and d_out == (nv - 1) // 2 + 1 and act is None
+    before = dict(LAUNCHES)
+    dw = conv3d_k3_wgrad(x, g, 2, qlo, act, dense=dense)
+    bf16 = dtype == torch.bfloat16
+    assert LAUNCHES["conv3d_k3s2_wgrad_c1in_tc"] == before["conv3d_k3s2_wgrad_c1in_tc"] + bf16
+    assert LAUNCHES["conv3d_k3s2_wgrad_c1in"] == before["conv3d_k3s2_wgrad_c1in"] + 1
+    assert (wgrad_instance(dtype, 2, 1) == WGRAD_C1IN_S2_TC) == bf16
+    for other in ("conv3d_k3s2_wgrad_tc", "conv3d_k3s1_wgrad_c1in_tc"):
+        assert LAUNCHES[other] == before[other]
+    want = conv3d_k3_wgrad_plain(x, g, 2, qlo, act)
+    torch.cuda.synchronize()
+    err = (dw - want).abs()
+    assert torch.isfinite(dw).all()
+    assert bool((err <= 1e-4 * max(1.0, float(want.abs().max())) + 1e-4 * want.abs()).all()), \
+        float(err.max())
+    assert torch.equal(conv3d_k3_wgrad(x, g, 2, qlo, act, dense=dense), dw)
+
+
+@pytest.mark.parametrize("case", WGRAD_S2_C1IN_MAIN)
+def test_wgrad_s2_c1in_tensor_cores_main_path(dev, case):
+    """The stem's weight gradient at the main path's shapes, bf16."""
+    _wgrad_s2_c1in_check(case, torch.bfloat16, dev, 110)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", WGRAD_S2_C1IN_RAGGED)
+def test_wgrad_s2_c1in_tensor_cores_ragged(dev, dtype, case):
+    """The same at ragged shapes and views, bf16 on the tensor cores and fp32
+    on the CUDA cores."""
+    _wgrad_s2_c1in_check(case, dtype, dev, 111)
+
+
 def test_wgrad_tc_rule_matches_c(dev):
     """The C dispatch's rule (``hvc_conv3d_k3_wgrad_tc``, which the wrapper
     counts launches and sizes the split by) is ``wgrad_instance`` at every
@@ -1100,7 +1155,9 @@ def test_conv_probe_matches_plain(dev, key, n):
     before = dict(conv_probe.LAUNCHES)
     got = kern(*args, 3)
     after = dict(conv_probe.LAUNCHES)
-    assert after == {**before, case.kernel: before[case.kernel] + 1}
+    wgmma = key in ("V1", "V0") and conv_probe.probe_v1_uses_wgmma(case.w_shape[0], conv_probe.K, n)
+    assert after == {**before, case.kernel: before[case.kernel] + 1,
+                     "conv_probe_v1_wgmma": before["conv_probe_v1_wgmma"] + wgmma}
     want = plain(*args, 1)
     assert got.shape == want.shape and got.dtype == torch.float32
     torch.cuda.synchronize()
@@ -1108,3 +1165,42 @@ def test_conv_probe_matches_plain(dev, key, n):
     assert torch.isfinite(got).all()
     assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
     assert torch.equal(kern(*args, 1), got)  # every pass rewrites the same values
+
+
+# make_v1 on its wgmma instance (V0: m = 256): (m, N, passes). The probes' N
+# (131,072: P streams from device memory), N in L2, ragged last N tiles
+# (2,120, 200), m of one and of five m64 tiles (a ragged 256-row item), and
+# N not a multiple of 8 (77, 1,001), which must take the mma.sync instance.
+PROBE_V1_WGMMA = [(256, 131072, 2), (256, 8192, 3), (256, 2120, 2), (256, 200, 1), (64, 4096, 2),
+                  (320, 4096, 2), (256, 77, 2), (256, 1001, 1), (128, 77, 1)]
+
+
+@pytest.mark.parametrize("m,n,passes", PROBE_V1_WGMMA)
+def test_probe_v1_wgmma(dev, m, n, passes):
+    """probe_v1 against its plain version (1e-4·max|want| + 1e-4·|want|: both
+    sum the same bf16 products in fp32, in another order), counted on the
+    wgmma counter exactly when ``probe_v1_uses_wgmma`` says, and bitwise
+    repeatable."""
+    w = _randn((m, conv_probe.K), torch.bfloat16, dev, 120)
+    p = _randn((conv_probe.K, n), torch.bfloat16, dev, 121)
+    before = conv_probe.LAUNCHES["conv_probe_v1_wgmma"]
+    got = conv_probe.probe_v1(w, p, passes)
+    wgmma = conv_probe.probe_v1_uses_wgmma(m, conv_probe.K, n)
+    assert wgmma == (m % 64 == 0 and n % 8 == 0)
+    assert conv_probe.LAUNCHES["conv_probe_v1_wgmma"] == before + wgmma
+    want = conv_probe.probe_v1_plain(w, p, 1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(conv_probe.probe_v1(w, p, passes), got)
+
+
+def test_probe_v1_wgmma_rule_matches_c(dev):
+    """The C rule (``hvc_probe_v1_wgmma``, which the wrapper counts wgmma
+    launches by) is ``probe_v1_uses_wgmma`` at every m and N around its
+    edges."""
+    rule = _build.function("hvc_probe_v1_wgmma", (ctypes.c_int,) * 3)
+    for m, n in itertools.product((1, 32, 63, 64, 65, 128, 192, 256, 320),
+                                  (1, 7, 8, 9, 16, 77, 2120, 131072)):
+        assert bool(rule(m, conv_probe.K, n)) == conv_probe.probe_v1_uses_wgmma(m, conv_probe.K, n)
