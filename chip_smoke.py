@@ -75,7 +75,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    conv3d_k3s1_c1in_wgrad: 1→64 and 1→32 over 256³ and the training slabs,
    beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem
    (conv3d_k3s2_c1in, conv3d_k3s2_c1in_dgrad and conv3d_k3s2_c1in_wgrad on
-   their tensor-core instances: stage 1's batch of 8 at 64³).
+   their tensor-core instances: stage 1's batch of 8 at 64³). The stem's
+   data gradient runs once more in fp32, on its CUDA-core instance
+   (dgrad_s2_kernel<float>), held to its plain version and timed beside it
+   and conv3d_input in fp32: the ``fp32`` entry of its row, whose launches
+   are that instance's on the main path (0: the main path is bf16).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -127,8 +131,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    then the entry point's ``run`` (``hybrid_vit_cascade_tpu_torch.scripts.
    bench_conv_probe``) over every case at full size, launches counted from
    0: each kernel beside its plain version and its cuBLAS yardstick, and
-   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³; V0 must have
-   run on the wgmma instance of ``make_v1`` (conv_probe_v1_wgmma), V1 not.
+   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³. Each V1, V0
+   and V2 call, at full size and at ragged N, must have taken the instance
+   its rule names (``conv_probe.probe_v1_instance``,
+   ``probe_v2_instance``): at N = 131,072 V0 on its wgmma instance
+   (conv_probe_v1_wgmma), V1 on its own (conv_probe_v1_wgmma_m32), V2 on its
+   own (conv_probe_v2_wgmma); V1 at N = 77 on mma.sync.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -223,6 +231,7 @@ REPS = 5  # timed reconstruct calls
 TRAIN_STEPS = 3  # timed train steps per stage, after one warm-up step
 TRAIN_BATCH = {1: 8, 2: 2, 3: 1}
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_FLOPS_FP32 = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # fp32 exp2 per clock per SM on the special-function units (compute
 # capability 9.0, CUDA C Programming Guide, arithmetic instruction
@@ -749,10 +758,12 @@ def _conv_geom(name: str, shape):
     return b, cin, cout, d, (d - 1) // stride + 1, h, w, stride, None
 
 
-def bound(name: str, shape, itemsize: int = 2, exp2_rate: float = 0.0):
-    """(bound_ms, bound_by, terms) at bf16: the larger of the bytes the
-    function must move (each input read once, each output written once) over
-    PEAK_BYTES and its multiply-adds (2 operations each) over PEAK_FLOPS; for
+def bound(name: str, shape, itemsize: int = 2, exp2_rate: float = 0.0,
+          peak_flops: float = PEAK_FLOPS):
+    """(bound_ms, bound_by, terms) at bf16 (``itemsize`` 2; 4 for fp32, with
+    ``peak_flops`` the fp32 rate): the larger of the bytes the function must
+    move (each input read once, each output written once) over PEAK_BYTES and
+    its multiply-adds (2 operations each) over ``peak_flops``; for
     the flash kernels (A, D, L, M each compute every score's exp2 once)
     ``terms`` also holds the exp2s over ``exp2_rate`` (per second, the
     special-function units' fp32 rate) as exp2_ms, which is informative and
@@ -793,7 +804,7 @@ def bound(name: str, shape, itemsize: int = 2, exp2_rate: float = 0.0):
             nbytes = itemsize * (n_out + n_in * (2 if act else 1)) + wbytes
         else:  # x, w, bias in; out (+ sums) out
             nbytes = itemsize * (n_in + n_out) + wbytes + 4 * cout * 3 * b
-    terms = {"products_ms": flops / PEAK_FLOPS * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    terms = {"products_ms": flops / peak_flops * 1e3, "bytes_ms": nbytes / PEAK_BYTES * 1e3}
     if n_exp:
         terms["exp2_ms"] = n_exp / exp2_rate * 1e3
     return ((terms["products_ms"], "operations", terms)
@@ -813,16 +824,16 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(ts)
 
 
-def library_ms(name: str, shape, dev, seed: int):
-    """The bf16 time of one PyTorch call computing the kernel's function at
-    its hot shape (cuDNN convolution or its data / weight gradient,
-    scaled_dot_product_attention forward or backward). For the chain convs
-    the call runs over the slab with its zero planes in place and computes
-    no Σ/Σ² (kernels H, I take them in the same pass)."""
+def library_ms(name: str, shape, dev, seed: int, dt: torch.dtype = torch.bfloat16):
+    """The time of one PyTorch call computing the kernel's function at its
+    hot shape, in bf16 unless ``dt`` says otherwise (cuDNN convolution or its
+    data / weight gradient, scaled_dot_product_attention forward or
+    backward). For the chain convs the call runs over the slab with its zero
+    planes in place and computes no Σ/Σ² (kernels H, I take them in the same
+    pass)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    dt = torch.bfloat16
     if name.startswith("flash"):
         bh, nq, nk, d = shape
         q = torch.randn((1, bh, nq, d), generator=g, device=dev).to(dt)
@@ -850,6 +861,46 @@ def library_ms(name: str, shape, dev, seed: int):
                                                              padding=pad))
     bias = torch.randn((cout,), generator=g, device=dev).to(dt)
     return _median_ms(lambda: F.conv3d(x, wt, bias, stride=stride, padding=pad))
+
+
+def fp32_stem_dgrad(dev, seed: int) -> dict:
+    """Phase 7d: the stride-2 1→64 stem's data gradient in fp32 (8 × 1→64, g
+    32³ → dx 64³), which takes the CUDA-core dgrad_s2_kernel<float>
+    (instance 0 of ``dgrad_s2_instance``: TF32 would leave the fp32
+    tolerance): one launch on that instance, held to its plain version at
+    TOL[fp32] with the absolute part scaled by the largest |want| (as [7]),
+    then timed beside it, its bound (bytes; products at the fp32 rate) and
+    conv3d_input in fp32 (TF32 off)."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+
+    name, shape = "conv3d_k3s2_c1in_dgrad", _S2_STEM
+    kern, plain = _train_fns(name)
+    args = _train_inputs(name, shape, torch.float32, dev, seed)
+    counters = ("conv3d_k3s2_dgrad_c1in", "conv3d_k3s2_dgrad_c1in_tc")
+    before = {k: ck.LAUNCHES[k] for k in counters}
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    took = {k: ck.LAUNCHES[k] - before[k] for k in counters}
+    if ck.dgrad_s2_instance(torch.float32, shape[1], shape[2]) != 0 or \
+            took != {"conv3d_k3s2_dgrad_c1in": 1, "conv3d_k3s2_dgrad_c1in_tc": 0}:
+        raise AssertionError(f"[7] the fp32 stem dgrad did not take the CUDA cores: {took}")
+    atol, rtol = TOL[torch.float32]
+    diff = (got - want).abs()
+    err, scale = float(diff.max()), max(1.0, float(want.abs().max()))
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol * scale + rtol * want.abs()).all())
+    log(f"[7] {name} {shape} fp32 (dgrad_s2_kernel<float>) max_abs_err={err:.3e} "
+        f"tol={atol:g}·{scale:.3g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[7] the fp32 stem dgrad disagrees with its plain version: {err}")
+    ms, plain_ms = _time_pair(kern, plain, args)
+    b_ms, b_by, terms = bound(name, shape, itemsize=4, peak_flops=PEAK_FLOPS_FP32)
+    lib = library_ms(name, shape, dev, seed, torch.float32)
+    log(f"[7] {name} {shape} fp32 kernel {ms:.4f} ms  plain {plain_ms:.4f}  bound {b_ms:.4f} "
+        f"({b_by})  conv3d_input fp32 {lib:.4f}")
+    return {"at": f"{shape} fp32", "instance": "dgrad_s2_kernel<float>, the CUDA cores (instance "
+            "0 of dgrad_s2_instance)", "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_terms_ms": terms, "library_ms": lib,
+            "library_call": "torch.nn.grad.conv3d_input fp32, TF32 off", "max_abs_err": err}
 
 
 def time_chain_kernels(dev, seed: int) -> dict:
@@ -1533,10 +1584,29 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
 
 # ---------------------------------------------------------- the probe path ---
 
+def _probe_instance_counter(key: str, n: int):
+    """The wgmma counter a V1 / V0 / V2 call at N columns must add to, by the
+    wrapper's rule (None: an mma.sync instance, or another case)."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
+
+    if key == "V2":
+        return {cp.V2_WGMMA: "conv_probe_v2_wgmma"}.get(cp.probe_v2_instance(cp.K, n))
+    if key in ("V1", "V0"):
+        m = 32 if key == "V1" else 256
+        return {cp.V1_WGMMA_V0: "conv_probe_v1_wgmma",
+                cp.V1_WGMMA_M32: "conv_probe_v1_wgmma_m32"}.get(cp.probe_v1_instance(m, cp.K, n))
+    return None
+
+
+_PROBE_INSTANCE_COUNTERS = ("conv_probe_v1_wgmma", "conv_probe_v1_wgmma_m32",
+                            "conv_probe_v2_wgmma")
+
+
 def probe_phase(dev, seed: int) -> dict:
     """Phase [12]: every probe kernel against its plain version at full size
-    and at ragged N, then the entry point's run over every case, launches
-    counted from 0."""
+    and at ragged N, each V1, V0 and V2 call on the instance its rule names,
+    then the entry point's run over every case, launches counted from 0."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
 
@@ -1546,8 +1616,13 @@ def probe_phase(dev, seed: int) -> dict:
     for case in (c for c in bench.CASES if c.kernel):
         for n, reps in ((bench.N_TOTAL, bench.R),) + tuple((n, 2) for n in PROBE_RAGGED_N):
             args = bench.make_inputs(case, n, dev, seed)
+            before = {k: cp.LAUNCHES[k] for k in _PROBE_INSTANCE_COUNTERS}
             # one pass of the plain version gives the same values as R
             got, want = case.wrapper(*args, reps), case.plain(*args, 1)
+            counter = _probe_instance_counter(case.key, n)
+            took = {k: cp.LAUNCHES[k] - before[k] for k in _PROBE_INSTANCE_COUNTERS}
+            if took != {k: int(k == counter) for k in _PROBE_INSTANCE_COUNTERS}:
+                raise AssertionError(f"[12] {case.key} N={n} took {took}, its rule names {counter}")
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != torch.float32:
                 raise AssertionError(f"[12] {case.key} N={n}: {got.shape}/{got.dtype} vs "
@@ -1557,7 +1632,8 @@ def probe_phase(dev, seed: int) -> dict:
             ok = bool(torch.isfinite(got).all()) and bool(
                 (diff <= atol * scale + rtol * want.abs()).all())
             log(f"[12] {case.key:3s} N={n:6d} R={reps:2d} max_abs_err={err:.3e} "
-                f"tol={atol:g}·{scale:.4g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'}")
+                f"tol={atol:g}·{scale:.4g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'} "
+                f"instance {counter or 'mma.sync'}")
             if not ok:
                 raise AssertionError(f"[12] {case.key} disagrees with its plain version at "
                                      f"N={n}: max_abs_err {err}")
@@ -1572,13 +1648,15 @@ def probe_phase(dev, seed: int) -> dict:
     log(f"[12] launches {probe_launches}; phase time {time.perf_counter() - t0:.1f} s")
     if any(launched[k] for k in launched if k not in probe_launches):
         raise AssertionError(f"[12] the probe run launched another kernel: {launched}")
-    # V0 (m = 256, N = 131,072) runs on the wgmma instance, V1 (m = 32) not
+    # at N = 131,072 V0, V1 and V2 run on their wgmma instances, every launch
     by_case = {r["case"]: r.get("launches", {}) for r in rows}
-    v0, v1 = by_case["V0"], by_case["V1"]
-    if not (v0.get("conv_probe_v1", 0) > 0 and v0.get("conv_probe_v1_wgmma") == v0["conv_probe_v1"]
-            and not v1.get("conv_probe_v1_wgmma")):
-        raise AssertionError(f"[12] V0 did not run on the wgmma instance (or V1 did): V0 {v0}, "
-                             f"V1 {v1}")
+    for key, kernel, counter in (("V0", "conv_probe_v1", "conv_probe_v1_wgmma"),
+                                 ("V1", "conv_probe_v1", "conv_probe_v1_wgmma_m32"),
+                                 ("V2", "conv_probe_v2", "conv_probe_v2_wgmma")):
+        got = by_case[key]
+        if not (got.get(kernel, 0) > 0 and got == {kernel: got[kernel], counter: got[kernel]}):
+            raise AssertionError(f"[12] {key} did not run on its wgmma instance ({counter}) "
+                                 f"alone: {got}")
     return {"max_abs_err": worst, "launches": launched, "rows": rows,
             "phase_s": time.perf_counter() - t0}
 
@@ -1805,6 +1883,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["tc_fwd_launches"] = tc_fwd_dispatch(dev, args.seed)
     torch.cuda.empty_cache()
+    record["fp32_stem_dgrad"] = fp32_stem_dgrad(dev, args.seed)
     log("[7] chain kernels H-K, bf16 times")
     rows.update(time_chain_kernels(dev, args.seed))
     record["max_abs_err"] = worst
@@ -1856,6 +1935,11 @@ def main() -> int:
                 for sh in spec["library_at"]]
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
+        if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
+            fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in"] - counts["conv3d_k3s2_dgrad_c1in_tc"]
+                         for run, counts in by_run.items()}
+            kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),
+                                   "launches_by_run": fp32_runs}
         # an instance's own row counts on its tensor-core counter
         tc = spec.get("counter") or _TC_COUNTERS.get(name) or (
             name.endswith("wgrad") and f"conv3d_k3s{_chain_stride(name)}_wgrad_tc")
@@ -1878,6 +1962,11 @@ def main() -> int:
                         "at": f"{r['case']}: N {r['n']}, R {r['repeats']}, bf16 in, fp32 out",
                         "card": card,
                         "library_call": r["library_call"], "launches_by_run": runs})
+        kernels[-1]["pass_floor_ms"] = r["pass_floor_ms"]
+        counter = _probe_instance_counter(r["case"], r["n"])
+        if counter:  # the row's launches in the timed run, on its wgmma instance
+            kernels[-1]["wgmma_counter"] = counter
+            kernels[-1]["wgmma_launches"] = r["launches"].get(counter, 0)
         if name == "conv_probe_v1":
             kernels[-1]["v0"] = {k: probe_rows["V0"][k] for k in
                                  ("ms", "plain_ms", "bound_ms", "library_ms", "pass_floor_ms")}

@@ -25,7 +25,7 @@
 // Every operand is bf16, row-major and contiguous; products accumulate in
 // fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // fragments loaded from shared memory with ldmatrix; the helpers are in
-// mma_sm90.cuh; V0 on wgmma.mma_async m64n128k16 fed by TMA, helpers in
+// mma_sm90.cuh; V0, V1 and V2 on wgmma.mma_async fed by TMA, helpers in
 // wgmma_sm90.cuh) and the output is fp32.
 // A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
 // the r axis is a loop inside one launch. The grid is persistent (as many
@@ -45,18 +45,19 @@
 // with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2.
 //
 // Design. Three templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
-// are not carried over. mma.sync is the simplest tensor-core path (no TMA,
-// no wgmma, no warp specialisation) and runs every probe but V0, which runs
-// on wgmma (probe_gemm_wgmma, its comment has the design); what each
-// variant probes is kept:
+// are not carried over. V0, V1 (N a multiple of 8) and V2 run on wgmma fed
+// by TMA (probe_gemm_wgmma, its comment has the design); the rest on
+// mma.sync, the simplest tensor-core path (no TMA, no wgmma, no warp
+// specialisation); what each variant probes is kept:
 //
-// - probe_gemm (V1, V0, V2, V3): C[M, Nc] = A[M, K] · B[K, Nc], both row-major
-//   in global memory, so the orientation is which array is A: W (V1, V0, V3:
-//   M = Cout, the streamed P is B) or Pᵀ (V2: M = the spatial rows, the
-//   32-column Wᵀ is B). K runs in chunks of 64 through a 3-stage cp.async
-//   ring of shared-memory tiles (rows padded by 8 bf16 so ldmatrix is free of
-//   bank conflicts). V3 is V1 with the A chunk of K step t taken from
-//   W27[32t:32t+32, :64]: one K = 64 dot per tap, accumulated in place.
+// - probe_gemm (V3; V1 at a ragged N; the old V1 and V2 instances, which
+//   scripts/probe_variants.py still reaches): C[M, Nc] = A[M, K] · B[K, Nc],
+//   both row-major in global memory, so the orientation is which array is A:
+//   W (V1, V0, V3: M = Cout, the streamed P is B) or Pᵀ (V2: M = the spatial
+//   rows, the 32-column Wᵀ is B). K runs in chunks of 64 through a 3-stage
+//   cp.async ring of shared-memory tiles (rows padded by 8 bf16 so ldmatrix
+//   is free of bank conflicts). V3 is V1 with the A chunk of K step t taken
+//   from W27[32t:32t+32, :64]: one K = 64 dot per tap, accumulated in place.
 //   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), an m > 32 call that the
 //   wgmma rule does not take (N not a multiple of 8) 128 × 128 (8 warps of
 //   64 × 32), V2 128 spatial rows × 32 (4 warps of 32 × 32).
@@ -391,161 +392,237 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 
 // ------------------------------------------------------ probe_gemm_wgmma ---
 
-// V0 on wgmma: C[M, Nc] fp32 = A[M, K] · B[K, Nc] for `repeats` passes, A
-// and B bf16 row-major (K a multiple of 64, Nc a multiple of 8: the tensor
-// maps need 16-byte row pitches). What bounds it is moving bytes: P (453 MB
-// at N = 131,072) does not fit the 50 MB L2 and is read from device memory
-// every pass, and every pass writes the 134 MB fp32 output. A block owns all
-// kWgBM = 256 rows of a work item's kWgBN = 128 columns, so a pass reads
-// each P tile once (the mma.sync instance's walk ran every N tile of M tile
-// 0 before any of M tile 1). Three warpgroups: warpgroup 2 is the producer,
-// one thread of it keeping a ring of kWgStages K chunks of 64 in flight by
-// TMA (A: one 256 × 64 box, from L2; B: two 64 × 64 boxes), each into
-// 128-byte-swizzled shared memory, completion on the chunk's `full`
-// mbarrier; warpgroups 0 and 1 own rows 0-127 and 128-255 and each issues,
-// per k16 step, two wgmma.mma_async m64n128k16 (A K-major from its rows, B
-// MN-major: the [K][N] rows of P as they lie), 128 fp32 accumulators a
-// thread, and frees the chunk (its `empty` mbarrier, one arrival per
-// consumer warpgroup) as soon as its products are done, so three of the four
-// chunks can be loading while one is multiplied (freeing it one chunk later,
-// after the next chunk's products were issued, left fewer bytes in flight
-// and was slower on the card). Epilogue: each consumer writes 64 rows × 32
-// columns of its accumulators at a time into its own 8 KB buffer, in the
-// 128-byte swizzle of one TMA store box (conflict-free float2 writes from
-// the fragments), and one thread stores it by TMA, which clips the ragged
-// edge; the buffer is reused once the store has read it. A small epilogue
-// buffer leaves room for the fourth chunk of the ring (214,080 bytes of
-// shared memory, one block an SM). Persistent grid walking the work items
-// r·tiles + tile in order, N-major (tile = n·tiles_m + m: the M tiles of an N
-// tile together). Deterministic: every output element is one fixed chain of fp32
-// products.
-constexpr int kWgBM = 256, kWgBN = 128, kWgBK = 64;  // a work item's rows and columns, a chunk's K
-constexpr int kWgStages = 4;                          // K chunks in the ring
-constexpr int kWgConsumers = 2;                       // warpgroups of 128 rows (two m64 tiles)
-constexpr int kWgThreads = (kWgConsumers + 1) * 128;  // and the producer warpgroup
-constexpr int kWgBox = 64;                            // bf16 columns of a load box: 128 bytes
-constexpr int kWgOutBox = 32;                         // fp32 columns of a store box: 128 bytes
-constexpr int kWgABytes = kWgBM * kWgBK * 2;          // 32 KB: A rows [256][64], swizzled
-constexpr int kWgBBytes = kWgBK * kWgBN * 2;          // 16 KB: two B boxes [64 k][64 n], swizzled
-constexpr int kWgStageBytes = kWgABytes + kWgBBytes;
-constexpr int kWgOutCols = 32;                        // fp32 columns a consumer stores at a time
-constexpr int kWgOutBytes = 64 * kWgOutCols * 4;      // 8 KB a consumer: one [64][32] box
-constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + kWgConsumers * kWgOutBytes +
-                        2 * kWgStages * 8;            // alignment slack, ring, epilogue, barriers
-// Descriptor strides (bytes): both operands step 8 rows (A's rows, B's k
-// rows) by one 1024-byte swizzle atom; B's second 64-column box follows its
-// first after a whole box of kWgBK 128-byte rows.
+// C[M, Nc] fp32 = A[M, K] · B[K, Nc] on wgmma for `repeats` passes, A bf16
+// row-major (K a multiple of 64). Three instances of one template, each a
+// TPU probe's orientation:
+//
+// - V0 (make_v1 at m = 256; WgV0): A = W, B = P read MN-major (the [K][N]
+//   rows of P as they lie), 256 rows × 128 columns a work item.
+// - V1 (make_v1 at m = 32; WgV1): A = W, its 32 rows the top half of one m64
+//   tile (the TMA box is 64 rows: rows 32-63 lie outside W and are filled
+//   with zeros, their products dropped at the store), B = P MN-major, 64 rows
+//   × 256 columns a work item. Half of each product is waste: the measured
+//   cost of Cout = 32 as wgmma's M.
+// - V2 (v2; WgV2): A = Pᵀ (spatial rows as M, K-major), B = Wᵀ with Cout = 32
+//   as wgmma's N, 256 rows × 32 columns a work item. Wᵀ (110,592 bytes at K
+//   = 1728) stays in shared memory for the block's life, as the TPU kernel
+//   keeps its W block at index (0, 0): the block's threads copy it once at
+//   the start, transposed to K-major rows of 64 k, 128-byte swizzled. Its
+//   variant WgV2Streamed instead streams a 4 KB chunk of W (32 × K, K-major:
+//   the caller passes the transpose) beside each A chunk, which leaves room
+//   for a deeper ring.
+//
+// What bounds each is moving bytes: P (Pᵀ), 453 MB at N = 131,072, does not
+// fit the 50 MB L2 and is read from device memory every pass, and every pass
+// writes the output: 64 × 469.9 MB / 3.35 TB/s = 8.98 ms for V1 and V2 (V0
+// 11.24 ms with its 8× larger output), while the products take 0.938 ms at
+// 989 TFLOP/s (V0 7.50). So the design keeps as many bytes in flight as
+// shared memory holds and spends no thread on a load. One producer warpgroup
+// (one thread of it) keeps a ring of STAGES K chunks of 64 loading by TMA,
+// each into 128-byte-swizzled shared memory (A: one box of the item's rows ×
+// 64 k; B: MN-major boxes of 64 k × 64 columns, or a K-major box of the
+// item's columns × 64 k), completion on the chunk's `full` mbarrier. CONS
+// consumer warpgroups each own MT m64 tiles × NT n-blocks of WN columns (V0:
+// two warpgroups of 128 rows × 128; V1: one of 64 × 256; V2: two of 128 × 32)
+// and issue, per k16 step, one wgmma.mma_async m64n{WN}k16 per tile (A
+// K-major from its rows, B by descriptor), MT·NT·WN/2 fp32 accumulators a
+// thread, then free the chunk (its `empty` mbarrier, one arrival per
+// consumer) as soon as its products are done. Epilogue: each consumer
+// writes 64 rows × 32 columns of its accumulators at a time into its own 8 KB
+// buffer, in the 128-byte swizzle of one TMA store box (conflict-free float2
+// writes from the fragments), and one thread stores it by TMA, which clips
+// the ragged edge (and V1's rows 32-63); the buffer is reused once the store
+// has read it. Persistent grid walking the work items r·tiles + tile in
+// order, N-major (tile = n·tiles_m + m), so every pass re-reads P from global
+// memory and rewrites the whole output, as the TPU probe's r axis does.
+// Deterministic: every output element is one fixed chain of fp32 products.
+constexpr int kWgBK = 64;      // a chunk's K: one 128-byte row of bf16
+constexpr int kWgBox = 64;     // bf16 columns of an MN-major load box: 128 bytes
+constexpr int kWgOutBox = 32;  // fp32 columns of a store box: 128 bytes
+constexpr int kWgOutBytes = 64 * kWgOutBox * 4;  // 8 KB a consumer: one [64][32] box
+constexpr int kWgTile = 64 * 128;                // an m64 tile's (or MN-major box's) 64 rows
+constexpr int kWgSmemMax = 232448;               // the card's shared memory a block
+// Descriptor strides (bytes): every operand steps 8 rows (M or N rows of a
+// K-major tile, k rows of an MN-major one) by one 1024-byte swizzle atom; an
+// MN-major B's next 64-column box follows a whole box of kWgBK 128-byte rows.
 constexpr uint32_t kWgSbo = 8 * 128;
 constexpr uint32_t kWgLboB = kWgBK * 128;
 constexpr uint32_t kWgLboA = 16;  // unused by a swizzled K-major operand
-static_assert(kWgBN == 2 * kWgBox && kWgBM == kWgConsumers * 128 && kWgSmem <= 232448 &&
-                  kWgBN % kWgOutCols == 0 && kWgOutCols % kWgOutBox == 0,
-              "two B boxes a chunk, two m64 tiles a consumer, the card's shared memory");
 
-__global__ void __launch_bounds__(kWgThreads, 1)
+enum WgB { kBStreamMN = 0, kBStreamK = 1, kBResidentK = 2 };  // where B comes from
+
+template <int CONS_, int MT_, int NT_, int WN_, int STAGES_, int BMODE_>
+struct WgCfg {
+  static constexpr int CONS = CONS_, MT = MT_, NT = NT_, WN = WN_, STAGES = STAGES_,
+                       BMODE = BMODE_;
+  static constexpr int BM = CONS * MT * 64;  // rows of a work item
+  static constexpr int BN = NT * WN;         // columns of a work item
+  static constexpr int ABytes = BM * 128;    // A rows [BM][64 k], swizzled
+  // B: BN / 64 MN-major boxes [64 k][64 n], or one K-major box [BN][64 k]
+  static constexpr int BBytes = BMODE == kBResidentK ? 0 : BN * 128;
+  static constexpr int StageBytes = ABytes + BBytes;
+  static constexpr int Threads = (CONS + 1) * 128;
+  static constexpr int TRANS_B = BMODE == kBStreamMN;
+  // alignment slack, ring, resident B (K × BN bf16), epilogue, barriers
+  static constexpr int smem(int k) {
+    return 1024 + STAGES * StageBytes + (BMODE == kBResidentK ? k * BN * 2 : 0) +
+           CONS * kWgOutBytes + 2 * STAGES * 8;
+  }
+  static_assert((WN == 128 || WN == 32) && WN % kWgOutBox == 0 && BM <= 256 && StageBytes % 1024 == 0,
+                "an m64n128 or m64n32 product, whole store boxes, one TMA box of A rows");
+  static_assert(BMODE != kBStreamMN || WN % kWgBox == 0, "whole MN-major B boxes");
+};
+using WgV0 = WgCfg<2, 2, 1, 128, 4, kBStreamMN>;   // 214,080 bytes of shared memory
+using WgV1 = WgCfg<1, 1, 2, 128, 5, kBStreamMN>;   // 214,096
+using WgV2 = WgCfg<2, 2, 1, 32, 3, kBResidentK>;   // 226,352 at K = 1728
+using WgV2Streamed = WgCfg<2, 2, 1, 32, 5, kBStreamK>;  // 201,808
+static_assert(WgV0::smem(1728) <= kWgSmemMax && WgV1::smem(1728) <= kWgSmemMax &&
+                  WgV2::smem(1728) <= kWgSmemMax && WgV2Streamed::smem(1728) <= kWgSmemMax,
+              "the card's shared memory");
+
+template <int WN, int TRANS_B>
+__device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (WN == 128)
+    wgmma_m64n128k16<TRANS_B>(d, da, db, scale_d);
+  else
+    wgmma_m64n32k16<TRANS_B>(d, da, db, scale_d);
+}
+
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::Threads, 1)
     probe_gemm_wgmma(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
-                     const __grid_constant__ CUtensorMap map_c, int M, int Nc, int K,
-                     int repeats) {
+                     const __grid_constant__ CUtensorMap map_c, const bf16* __restrict__ b_res,
+                     int M, int Nc, int K, int repeats) {
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, MT = Cfg::MT, NT = Cfg::NT, WN = Cfg::WN;
+  constexpr int STAGES = Cfg::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWgStages * kWgStageBytes +
-                                               kWgConsumers * kWgOutBytes);
-  uint64_t* empty = full + kWgStages;
+  unsigned char* bres = smem + STAGES * Cfg::StageBytes;  // resident B: K / 64 blocks [BN][64 k]
+  unsigned char* outs = bres + (Cfg::BMODE == kBResidentK ? K * BN * 2 : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + Cfg::CONS * kWgOutBytes);
+  uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
-  const int tiles_m = (M + kWgBM - 1) / kWgBM, tiles_n = (Nc + kWgBN - 1) / kWgBN;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (Nc + BN - 1) / BN;
   const long long per_pass = (long long)tiles_m * tiles_n;
   const long long items = per_pass * repeats;
   const int KC = K / kWgBK;
 
   if (tid == 0) {
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kWgConsumers);
+      mbar_init(&empty[s], Cfg::CONS);
     }
     mbar_fence_init();
   }
+  if constexpr (Cfg::BMODE == kBResidentK) {
+    // B (K × BN, row-major: the [k][n] rows of Wᵀ) into K-major swizzled
+    // rows: 8 k of one column n a 16-byte chunk, a warp's 32 threads on 32
+    // neighbouring columns of the same k rows
+    const unsigned short* src = reinterpret_cast<const unsigned short*>(b_res);
+    for (int c = tid; c < (K / 8) * BN; c += Cfg::Threads) {
+      const int n = c % BN, k8 = c / BN;
+      const unsigned short* e = src + (long long)k8 * 8 * BN + n;
+      uint4 v;
+      v.x = e[0] | (uint32_t(e[BN]) << 16);
+      v.y = e[2 * BN] | (uint32_t(e[3 * BN]) << 16);
+      v.z = e[4 * BN] | (uint32_t(e[5 * BN]) << 16);
+      v.w = e[6 * BN] | (uint32_t(e[7 * BN]) << 16);
+      *reinterpret_cast<uint4*>(bres + (k8 / 8) * (BN * 128) + sw128_offset(n, k8 % 8)) = v;
+    }
+    fence_proxy_async_shared();  // the products read it through the async proxy
+  }
   __syncthreads();
 
-  if (wg == kWgConsumers) {  // the producer
+  if (wg == Cfg::CONS) {  // the producer
     if (lt == 0) {
       int s = 0;
       uint32_t phase = 0;
       for (long long it = blockIdx.x; it < items; it += gridDim.x) {
         const long long tile = it % per_pass;
-        const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;
+        const int m0 = int(tile % tiles_m) * BM, n0 = int(tile / tiles_m) * BN;
         for (int kc = 0; kc < KC; ++kc) {
           mbar_wait(&empty[s], phase ^ 1);  // the consumers freed this chunk (free at first)
-          unsigned char* st = smem + s * kWgStageBytes;
-          mbar_arrive_expect_tx(&full[s], kWgStageBytes);
+          unsigned char* st = smem + s * Cfg::StageBytes;
+          mbar_arrive_expect_tx(&full[s], Cfg::StageBytes);
           tma_load_2d(st, &map_a, &full[s], kc * kWgBK, m0);
-          tma_load_2d(st + kWgABytes, &map_b, &full[s], n0, kc * kWgBK);
-          tma_load_2d(st + kWgABytes + kWgBK * 128, &map_b, &full[s], n0 + kWgBox, kc * kWgBK);
-          if (++s == kWgStages) s = 0, phase ^= 1;
+          if constexpr (Cfg::BMODE == kBStreamMN) {
+#pragma unroll
+            for (int b = 0; b < BN / kWgBox; ++b)
+              tma_load_2d(st + Cfg::ABytes + b * kWgTile, &map_b, &full[s], n0 + b * kWgBox,
+                          kc * kWgBK);
+          } else if constexpr (Cfg::BMODE == kBStreamK) {
+            tma_load_2d(st + Cfg::ABytes, &map_b, &full[s], kc * kWgBK, n0);
+          }
+          if (++s == STAGES) s = 0, phase ^= 1;
         }
       }
     }
     return;
   }
 
-  // a consumer: rows 128·wg … 128·wg + 127 of each work item
-  float acc[2][64];
-  unsigned char* out = smem + kWgStages * kWgStageBytes + wg * kWgOutBytes;
+  // a consumer: m64 tiles MT·wg … MT·wg + MT - 1 of each work item, all its columns
+  float acc[MT * NT][WN / 2];
+  unsigned char* out = outs + wg * kWgOutBytes;
   const int warp = lt / 32, lane = lt % 32;
   int s = 0;
   uint32_t phase = 0;
   bool stored = false;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const long long tile = it % per_pass;
-    const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;
-    wgmma_fence_acc(acc[0]);
-    wgmma_fence_acc(acc[1]);
+    const int m0 = int(tile % tiles_m) * BM, n0 = int(tile / tiles_m) * BN;
+#pragma unroll
+    for (int t = 0; t < MT * NT; ++t) wgmma_fence_acc(acc[t]);
     for (int kc = 0; kc < KC; ++kc) {
       mbar_wait(&full[s], phase);
-      const uint32_t a0 = smem_u32(smem + s * kWgStageBytes) + wg * 128 * 128;
-      const uint32_t b0 = smem_u32(smem + s * kWgStageBytes + kWgABytes);
+      const uint32_t a0 = smem_u32(smem + s * Cfg::StageBytes) + wg * MT * kWgTile;
+      const uint32_t b0 = Cfg::BMODE == kBResidentK
+                              ? smem_u32(bres + kc * (BN * 128))
+                              : smem_u32(smem + s * Cfg::StageBytes + Cfg::ABytes);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        const uint64_t db = wgmma_desc(b0 + kk * 16 * 128, kWgLboB, kWgSbo);
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wgmma_m64n128k16<1>(acc[i], wgmma_desc(a0 + i * 64 * 128 + kk * 32, kWgLboA, kWgSbo), db,
-                              kc > 0 || kk > 0);
-      }
+        for (int t = 0; t < MT * NT; ++t) {
+          const int i = t / NT, j = t % NT;  // m64 tile i, n-block j
+          const uint64_t da = wgmma_desc(a0 + i * kWgTile + kk * 32, kWgLboA, kWgSbo);
+          const uint64_t db =
+              Cfg::TRANS_B ? wgmma_desc(b0 + j * (WN / kWgBox) * kWgTile + kk * 16 * 128, kWgLboB, kWgSbo)
+                           : wgmma_desc(b0 + j * WN * 128 + kk * 32, kWgLboA, kWgSbo);
+          wgmma_tile<WN, Cfg::TRANS_B>(acc[t], da, db, kc > 0 || kk > 0);
+        }
       wgmma_commit();
       wgmma_wait<0>();  // this chunk's products are done: free it for the producer
       if (lt == 0) mbar_arrive(&empty[s]);
-      if (++s == kWgStages) s = 0, phase ^= 1;
+      if (++s == STAGES) s = 0, phase ^= 1;
     }
-    wgmma_fence_acc(acc[0]);
-    wgmma_fence_acc(acc[1]);
+#pragma unroll
+    for (int t = 0; t < MT * NT; ++t) wgmma_fence_acc(acc[t]);
 
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int t = 0; t < MT * NT; ++t)
 #pragma unroll
-      for (int h = 0; h < kWgBN / kWgOutCols; ++h) {  // columns kWgOutCols·h … of sub-tile i
+      for (int h = 0; h < WN / kWgOutBox; ++h) {  // columns kWgOutBox·h … of tile t
         if (stored && lt == 0) tma_store_wait_read<0>();  // the last store has read the buffer
         bar_sync(1 + wg, 128);
 #pragma unroll
-        for (int jj = 0; jj < kWgOutCols / 2; jj += 2) {
-          // accumulators j, j + 1 (j = jj + the round's first): row 16·warp + lane /
-          // 4 + 8·(j % 4 / 2), columns 8·(j / 4) + 2·(lane % 4) + {0, 1} of the
-          // sub-tile, c of them local to the round
-          const int j = h * kWgOutCols / 2 + jj;
+        for (int jj = 0; jj < kWgOutBox / 2; jj += 2) {
+          // accumulators q, q + 1 (q = jj + the round's first): row 16·warp + lane /
+          // 4 + 8·(q % 4 / 2), columns 8·(q / 4) + 2·(lane % 4) + {0, 1} of the
+          // tile, c of them local to the round
+          const int q = h * kWgOutBox / 2 + jj;
           const int row = 16 * warp + lane / 4 + 8 * ((jj % 4) / 2);
           const int c = 8 * (jj / 4) + 2 * (lane % 4);
-          *reinterpret_cast<float2*>(out + (c / kWgOutBox) * (64 * kWgOutBox * 4) +
-                                     sw128_offset(row, (c % kWgOutBox) / 4) + (lane % 2) * 8) =
-              make_float2(acc[i][j], acc[i][j + 1]);
+          *reinterpret_cast<float2*>(out + sw128_offset(row, c / 4) + (lane % 2) * 8) =
+              make_float2(acc[t][q], acc[t][q + 1]);
         }
         fence_proxy_async_shared();
         bar_sync(1 + wg, 128);
         if (lt == 0) {
-          for (int b = 0; b < kWgOutCols / kWgOutBox; ++b)
-            tma_store_2d(&map_c, out + b * (64 * kWgOutBox * 4),
-                         n0 + h * kWgOutCols + b * kWgOutBox, m0 + wg * 128 + i * 64);
+          tma_store_2d(&map_c, out, n0 + (t % NT) * WN + h * kWgOutBox,
+                       m0 + (wg * MT + t / NT) * 64);
           tma_store_commit();
         }
         stored = true;
@@ -653,24 +730,93 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The rule of hvc_probe_v1 for its wgmma instance: rows in whole m64 tiles
-// and 16-byte row pitches of P and the output for the tensor maps.
-int v1_uses_wgmma(int m, int n) { return m % 64 == 0 && n % 8 == 0; }
-
+// The wgmma instance Cfg on A (M × K) and B: the [K][Nc] rows of P
+// (kBStreamMN), W as Nc = BN rows of K (kBStreamK) or Wᵀ as K rows of Nc = BN
+// (kBResidentK, read by the threads, no tensor map). The tensor maps need
+// 16-byte row pitches (K a multiple of 64; Nc of 8 for an MN-major B, of 4
+// for the fp32 output) and 16-byte aligned bases.
+template <class Cfg>
 cudaError_t gemm_wgmma(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
                        cudaStream_t stream) {
-  if (!v1_uses_wgmma(M, Nc) || K % kWgBK != 0 || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(c) % 16)
+  const int smem = Cfg::smem(K);
+  if (M < 1 || Nc < 1 || K < kWgBK || K % kWgBK != 0 || Nc % 4 != 0 || smem > kWgSmemMax ||
+      (Cfg::BMODE == kBStreamMN ? Nc % 8 != 0 : Nc != Cfg::BN) ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(c) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb, mc;
-  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, kWgBM, kWgBox) ||
-      !tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, K, Nc, kWgBK, kWgBox) ||
+  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, Cfg::BM, kWgBK) ||
       !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c, M, Nc, 64, kWgOutBox))
     return cudaErrorInvalidValue;
+  if (Cfg::BMODE == kBResidentK)
+    mb = ma;  // unused
+  else if (!(Cfg::BMODE == kBStreamMN
+                 ? tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, K, Nc, kWgBK, kWgBox)
+                 : tensor_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, Nc, K, Cfg::BN, kWgBK)))
+    return cudaErrorInvalidValue;
   const long long items =
-      (long long)((M + kWgBM - 1) / kWgBM) * ((Nc + kWgBN - 1) / kWgBN) * (long long)repeats;
-  return launch(probe_gemm_wgmma, kWgThreads, kWgSmem, items, stream, ma, mb, mc, M, Nc, K,
-                repeats);
+      (long long)((M + Cfg::BM - 1) / Cfg::BM) * ((Nc + Cfg::BN - 1) / Cfg::BN) * (long long)repeats;
+  return launch(probe_gemm_wgmma<Cfg>, Cfg::Threads, smem, items, stream, ma, mb, mc,
+                static_cast<const bf16*>(b), M, Nc, K, repeats);
+}
+
+// The instances of hvc_probe_v1 (make_v1: out (m, n) = w (m, k) · p (k, n)).
+enum V1Instance {
+  kV1MmaNarrow = 0,  // mma.sync, 32 × 128 tiles (V1's before wgmma)
+  kV1MmaWide = 1,    // mma.sync, 128 × 128 tiles, every N tile of M tile 0 first
+  kV1WgmmaV0 = 2,    // WgV0: 256 × 128 work items
+  kV1WgmmaM32 = 3,   // WgV1: W's rows in one m64 tile, 64 × 256 work items
+  kV1MmaWideMInner = 4,  // kV1MmaWide with the M tiles of an N tile walked together
+};
+
+// The rule of hvc_probe_v1, an instance code: with 16-byte row pitches of P
+// and the output for the tensor maps (n a multiple of 8), rows in whole m64
+// tiles (V0) take WgV0 and at most 32 rows (V1) WgV1; otherwise at most 32
+// rows take the 32 × 128 mma.sync tiles, more the 128 × 128 ones.
+int v1_instance(int m, int n) {
+  if (n % 8 == 0 && m % 64 == 0) return kV1WgmmaV0;
+  if (n % 8 == 0 && m <= 32) return kV1WgmmaM32;
+  return m <= 32 ? kV1MmaNarrow : kV1MmaWide;
+}
+
+cudaError_t run_v1(int instance, const void* w, const void* p, void* out, int m, int k, int n,
+                   int repeats, int aligned, cudaStream_t s) {
+  switch (instance) {
+    case kV1MmaNarrow: return gemm_any<32, 128, 1, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+    case kV1MmaWide: return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+    case kV1WgmmaV0: return gemm_wgmma<WgV0>(w, p, out, m, n, k, repeats, s);
+    case kV1WgmmaM32: return gemm_wgmma<WgV1>(w, p, out, m, n, k, repeats, s);
+    case kV1MmaWideMInner:
+      return gemm_any<128, 128, 2, 4, false, true>(w, p, out, m, n, k, repeats, aligned, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The instances of hvc_probe_v2 (v2: out (n, 32) = pt (n, k) · wt (k, 32)).
+enum V2Instance {
+  kV2Mma = 0,            // mma.sync, 128 spatial rows × 32 tiles (V2's before wgmma)
+  kV2Wgmma = 1,          // WgV2: wt resident in shared memory
+  kV2WgmmaStreamed = 2,  // WgV2Streamed: w (32 × k, the transpose of wt) streamed by chunks
+};
+constexpr int kV2MaxK = (kWgSmemMax - WgV2::smem(0)) / (2 * WgV2::BN) / kWgBK * kWgBK;  // 1792
+
+// The rule of hvc_probe_v2, an instance code: every call whose wt fits in
+// shared memory beside the ring (k ≤ kV2MaxK, the probe's 1728 included)
+// takes WgV2, at any n (the tensor maps' pitches, 2k bytes of pt and 128 of
+// the output, are multiples of 16); none other (-1).
+int v2_instance(int k, int n) {
+  (void)n;
+  return k >= kWgBK && k % kWgBK == 0 && k <= kV2MaxK ? kV2Wgmma : -1;
+}
+
+cudaError_t run_v2(int instance, const void* pt, const void* w, void* out, int k, int n,
+                   int repeats, cudaStream_t s) {
+  switch (instance) {
+    case kV2Mma: return gemm<128, 32, 4, 1, false, true>(pt, w, out, n, 32, k, repeats, s);
+    case kV2Wgmma: return gemm_wgmma<WgV2>(pt, w, out, n, 32, k, repeats, s);
+    case kV2WgmmaStreamed: return gemm_wgmma<WgV2Streamed>(pt, w, out, n, 32, k, repeats, s);
+  }
+  return cudaErrorInvalidValue;
 }
 }  // namespace
 
@@ -679,45 +825,47 @@ cudaError_t gemm_wgmma(const void* a, const void* b, void* c, int M, int Nc, int
 // cudaError_t (0 = success) and does not synchronise.
 extern "C" {
 
-// out (m, n) fp32 = w (m, k) · p (k, n); k a multiple of 64. m a multiple of
-// 64 with n a multiple of 8 (hvc_probe_v1_wgmma: V0) takes the wgmma
-// instance, m ≤ 32 (V1) the 32 × 128 mma.sync one, the rest the 128 × 128
-// mma.sync one.
+// out (m, n) fp32 = w (m, k) · p (k, n); k a multiple of 64; on the instance
+// hvc_probe_v1_rule names.
 int hvc_probe_v1(const void* w, const void* p, void* out, int m, int k, int n, int repeats,
                  int aligned, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (v1_uses_wgmma(m, n)) return gemm_wgmma(w, p, out, m, n, k, repeats, s);
-  if (m <= 32) return gemm_any<32, 128, 1, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
-  return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
+  return run_v1(v1_instance(m, n), w, p, out, m, k, n, repeats, aligned,
+                static_cast<cudaStream_t>(stream));
 }
 
-// 1 if hvc_probe_v1 runs a call of these sizes on the wgmma instance (the
-// rule the wrapper counts its launches by), else 0.
-int hvc_probe_v1_wgmma(int m, int k, int n) {
+// The instance code hvc_probe_v1 runs a call of these sizes on (V1Instance:
+// 0 32 × 128 mma.sync, 1 128 × 128 mma.sync, 2 WgV0, 3 WgV1), the rule the
+// wrapper counts its launches by.
+int hvc_probe_v1_rule(int m, int k, int n) {
   (void)k;
-  return v1_uses_wgmma(m, n);
+  return v1_instance(m, n);
 }
 
-// hvc_probe_v1 on a named instance, for comparing them
-// (scripts/probe_v0_variants.py): 0 the 128 × 128 mma.sync instance as it
-// walks (every N tile of M tile 0 first), 1 the same with the M tiles of an N
-// tile walked together, 2 the wgmma instance (its rule must hold).
+// hvc_probe_v1 on a named instance (V1Instance), for comparing them
+// (scripts/probe_variants.py); a wgmma instance needs its tensor maps'
+// pitches (n a multiple of 8).
 int hvc_probe_v1_instance(const void* w, const void* p, void* out, int m, int k, int n,
                           int repeats, int aligned, int instance, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (instance == 0)
-    return gemm_any<128, 128, 2, 4, false>(w, p, out, m, n, k, repeats, aligned, s);
-  if (instance == 1)
-    return gemm_any<128, 128, 2, 4, false, true>(w, p, out, m, n, k, repeats, aligned, s);
-  if (instance == 2) return gemm_wgmma(w, p, out, m, n, k, repeats, s);
-  return cudaErrorInvalidValue;
+  return run_v1(instance, w, p, out, m, k, n, repeats, aligned, static_cast<cudaStream_t>(stream));
 }
 
-// out (n, 32) fp32 = pt (n, k) · wt (k, 32); k a multiple of 64
+// out (n, 32) fp32 = pt (n, k) · wt (k, 32); k a multiple of 64, at most
+// kV2MaxK; on the instance hvc_probe_v2_rule names.
 int hvc_probe_v2(const void* pt, const void* wt, void* out, int k, int n, int repeats,
                  void* stream) {
-  return gemm<128, 32, 4, 1, false, true>(pt, wt, out, n, 32, k, repeats,
-                                           static_cast<cudaStream_t>(stream));
+  return run_v2(v2_instance(k, n), pt, wt, out, k, n, repeats, static_cast<cudaStream_t>(stream));
+}
+
+// The instance code hvc_probe_v2 runs a call of these sizes on (V2Instance;
+// -1: none, the call is refused).
+int hvc_probe_v2_rule(int k, int n) { return v2_instance(k, n); }
+
+// hvc_probe_v2 on a named instance (V2Instance), for comparing them
+// (scripts/probe_variants.py): w is wt (k, 32) for 0 and 1, its transpose
+// (32, k) for 2.
+int hvc_probe_v2_instance(const void* pt, const void* w, void* out, int k, int n, int repeats,
+                          int instance, void* stream) {
+  return run_v2(instance, pt, w, out, k, n, repeats, static_cast<cudaStream_t>(stream));
 }
 
 // out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · p[64t:64t+64] (64, n); p (1728, n)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for warpgroup matrix products fed by the
-// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0 probe
-// GEMM in conv_probe.cu): the 128-byte swizzle address, the wgmma shared-memory
-// matrix descriptor, mbarriers, TMA tile loads and stores, wgmma's fence,
-// commit and wait, and the m64n128k16 bf16 → fp32 product. The tensor maps
+// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0, V1
+// and V2 probe GEMMs in conv_probe.cu): the 128-byte swizzle address, the
+// wgmma shared-memory matrix descriptor, mbarriers, TMA tile loads and
+// stores, wgmma's fence, commit and wait, and the m64n128k16 and m64n32k16
+// bf16 → fp32 products. The tensor maps
 // themselves are built on the host with libcuda's cuTensorMapEncodeTiled,
 // which cudaGetDriverEntryPoint reaches without linking libcuda (cuda.h is
 // included for its types only).
@@ -172,6 +173,24 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same at N = 32 (16 fp32 a thread, the first 16 of the layout above):
+// d (64 × 32) = A (64 × 16) · B (16 × 32) + (scale_d ? d : 0).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 

@@ -37,8 +37,10 @@ def launch_counts() -> Dict[str, int]:
     conv3d_k3s2_dgrad_c1in_tc (F and J with one dx channel), conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and
     conv3d_k3s2_wgrad_c1in (C/I, F/J and G/K with one input channel: the 1→64
     stem, whichever instance),
-    and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N), conv_probe_v1_wgmma (those of
-    conv_probe_v1 on its wgmma instance)."""
+    and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N), conv_probe_v1_wgmma and
+    conv_probe_v1_wgmma_m32 (those of conv_probe_v1 on V0's and V1's wgmma
+    instances), conv_probe_v2_wgmma (those of conv_probe_v2 on its wgmma
+    instance)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
     from . import flash_attention as fa

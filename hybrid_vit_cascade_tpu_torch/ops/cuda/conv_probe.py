@@ -16,9 +16,12 @@ Each wrapper launches its CUDA kernel for tensors on a CUDA device and runs
 its plain version (``*_plain``: fp32 products of the bf16 inputs, the tap
 sums written out, ``repeats`` passes) for tensors on the CPU; for any other
 device it raises. It never falls back from the kernel to the plain version.
-Each launch adds one to the wrapper's counter in ``LAUNCHES``; a ``probe_v1``
-launch on the wgmma instance (``probe_v1_uses_wgmma``: V0) also adds one to
-``conv_probe_v1_wgmma``.
+Each launch adds one to the wrapper's counter in ``LAUNCHES``; a launch on a
+wgmma instance also adds one to that instance's counter: ``probe_v1`` on
+V0's (``probe_v1_instance`` = ``V1_WGMMA_V0``) to ``conv_probe_v1_wgmma``, on
+V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, and every
+``probe_v2`` launch (``probe_v2_instance`` = ``V2_WGMMA``) to
+``conv_probe_v2_wgmma``.
 """
 
 from __future__ import annotations
@@ -37,19 +40,31 @@ TAPS = 27
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # hvc_probe_v1(w, p, out, m, k, n, repeats, aligned, stream)
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P)
-# hvc_probe_v1_wgmma(m, k, n): 1 if hvc_probe_v1 takes the wgmma instance
-_V1_WGMMA_ARGTYPES = (_I, _I, _I)
+# hvc_probe_v1_rule(m, k, n): the instance code hvc_probe_v1 takes
+_V1_RULE_ARGTYPES = (_I, _I, _I)
 # hvc_probe_v2(pt, wt, out, k, n, repeats, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
+# hvc_probe_v2_rule(k, n): the instance code hvc_probe_v2 takes (-1: none)
+_V2_RULE_ARGTYPES = (_I, _I)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
 LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
-            "conv_probe_v1_wgmma": 0}
-# The wgmma instance's rows per m64 tile and the row pitch its tensor maps
-# need (16 bytes: 8 bf16 of P).
-WGMMA_M, WGMMA_N_ALIGN = 64, 8
+            "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0}
+# The instance codes of hvc_probe_v1 and hvc_probe_v2 (V1Instance,
+# V2Instance in csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128
+# mma.sync tiles, V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma
+# instance with wt resident (WgV2).
+V1_MMA_NARROW, V1_MMA_WIDE, V1_WGMMA_V0, V1_WGMMA_M32 = 0, 1, 2, 3
+V2_WGMMA = 1
+_INSTANCE_COUNTERS = {("v1", V1_WGMMA_V0): "conv_probe_v1_wgmma",
+                      ("v1", V1_WGMMA_M32): "conv_probe_v1_wgmma_m32",
+                      ("v2", V2_WGMMA): "conv_probe_v2_wgmma"}
+# The wgmma instances' rows per m64 tile, the row pitch their tensor maps
+# need (16 bytes: 8 bf16 of P), the most rows V1's instance takes (one
+# half-filled m64 tile) and the deepest wt V2's keeps in shared memory.
+WGMMA_M, WGMMA_N_ALIGN, WGMMA_M32, V2_MAX_K = 64, 8, 32, 1792
 
 
 # --------------------------------------------------------- plain versions ---
@@ -186,7 +201,7 @@ def _on_card(*ts: torch.Tensor) -> bool:
 
 
 def _launch(variant: str, argtypes, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-            *ints: int) -> torch.Tensor:
+            *ints: int, instance: int = -1) -> torch.Tensor:
     entry = f"hvc_probe_{variant}"
     fn = _build.function(entry, argtypes)
     with torch.cuda.device(out.device):
@@ -194,26 +209,43 @@ def _launch(variant: str, argtypes, a: torch.Tensor, b: torch.Tensor, out: torch
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), *ints, stream)
     _build.check(rc, entry)
     LAUNCHES[f"conv_probe_{variant}"] += 1
+    if (variant, instance) in _INSTANCE_COUNTERS:
+        LAUNCHES[_INSTANCE_COUNTERS[variant, instance]] += 1
     return out
 
 
 # ---------------------------------------------------------------- wrappers ---
 
-def probe_v1_uses_wgmma(m: int, k: int, n: int) -> bool:
-    """Which instance ``probe_v1`` takes, the rule of ``v1_uses_wgmma``
+def probe_v1_instance(m: int, k: int, n: int) -> int:
+    """The instance ``probe_v1`` takes, the rule of ``v1_instance``
     (csrc/conv_probe.cu), which the wrapper reads through
-    ``hvc_probe_v1_wgmma``: m a multiple of 64 (whole m64 tiles) and N a
-    multiple of 8 (16-byte rows of P and the output for the tensor maps) —
-    V0 — runs on the wgmma instance (``probe_gemm_wgmma``: 256 rows × 128
-    columns a work item, TMA into a three-stage ring); m ≤ 32 (V1) on the 32
-    × 128 mma.sync instance, the rest on the 128 × 128 one."""
-    return m % WGMMA_M == 0 and n % WGMMA_N_ALIGN == 0
+    ``hvc_probe_v1_rule``: with N a multiple of 8 (16-byte rows of P and the
+    output for the tensor maps), m a multiple of 64 (whole m64 tiles: V0)
+    runs on ``V1_WGMMA_V0`` (``probe_gemm_wgmma<WgV0>``: 256 rows × 128
+    columns a work item) and m ≤ 32 (V1) on ``V1_WGMMA_M32``
+    (``probe_gemm_wgmma<WgV1>``: W's rows the top of one m64 tile, 256
+    columns a work item); otherwise m ≤ 32 on the 32 × 128 mma.sync instance
+    (``V1_MMA_NARROW``), the rest on the 128 × 128 one (``V1_MMA_WIDE``)."""
+    if n % WGMMA_N_ALIGN == 0 and m % WGMMA_M == 0:
+        return V1_WGMMA_V0
+    if n % WGMMA_N_ALIGN == 0 and m <= WGMMA_M32:
+        return V1_WGMMA_M32
+    return V1_MMA_NARROW if m <= WGMMA_M32 else V1_MMA_WIDE
+
+
+def probe_v2_instance(k: int, n: int) -> int:
+    """The instance ``probe_v2`` takes, the rule of ``v2_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v2_rule``: every K (a
+    multiple of 64) up to ``V2_MAX_K``, at any N, runs on ``V2_WGMMA``
+    (``probe_gemm_wgmma<WgV2>``: wt resident in shared memory, 256 spatial
+    rows × 32 a work item); a deeper K has no instance (-1)."""
+    return V2_WGMMA if k >= 64 and k % 64 == 0 and k <= V2_MAX_K else -1
 
 
 def probe_v1(w: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
     """``make_v1(m)``: out (m, N) fp32 = w (m, K) · p (K, N), weights as M;
     K a multiple of 64 (the probe's 1728); on the instance
-    ``probe_v1_uses_wgmma`` names."""
+    ``probe_v1_instance`` names."""
     _check_repeats(repeats)
     _check("w", w, (None, None), p.device)
     _check("p", p, (w.shape[1], None), p.device)
@@ -222,27 +254,27 @@ def probe_v1(w: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
     if not _on_card(w, p):
         return probe_v1_plain(w, p, repeats)
     (m, k), n = w.shape, p.shape[1]
-    wgmma = bool(_build.function("hvc_probe_v1_wgmma", _V1_WGMMA_ARGTYPES)(m, k, n))
+    instance = _build.function("hvc_probe_v1_rule", _V1_RULE_ARGTYPES)(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=p.device)
-    _launch("v1", _V1_ARGTYPES, w, p, out, m, k, n, repeats, int(n % 8 == 0))
-    if wgmma:
-        LAUNCHES["conv_probe_v1_wgmma"] += 1
-    return out
+    return _launch("v1", _V1_ARGTYPES, w, p, out, m, k, n, repeats, int(n % 8 == 0),
+                   instance=instance)
 
 
 def probe_v2(p: torch.Tensor, w: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v2``: out (N, 32) fp32 = p (N, K) · w (K, 32), spatial rows as M;
-    K a multiple of 64."""
+    K a multiple of 64, at most ``V2_MAX_K`` (w stays in shared memory); on
+    the instance ``probe_v2_instance`` names."""
     _check_repeats(repeats)
     _check("p", p, (None, None), p.device)
     _check("w", w, (p.shape[1], COUT), p.device)
-    if p.shape[1] % 64:
-        raise ValueError(f"K must be a multiple of 64, got {p.shape[1]}")
+    if p.shape[1] % 64 or p.shape[1] > V2_MAX_K:
+        raise ValueError(f"K must be a multiple of 64 up to {V2_MAX_K}, got {p.shape[1]}")
     if not _on_card(p, w):
         return probe_v2_plain(p, w, repeats)
     n, k = p.shape
+    instance = _build.function("hvc_probe_v2_rule", _V2_RULE_ARGTYPES)(k, n)
     out = torch.empty((n, COUT), dtype=torch.float32, device=p.device)
-    return _launch("v2", _V2_ARGTYPES, p, w, out, k, n, repeats)
+    return _launch("v2", _V2_ARGTYPES, p, w, out, k, n, repeats, instance=instance)
 
 
 def _tap_probe(variant: str, plain, w: torch.Tensor, x: torch.Tensor, w_shape: tuple,

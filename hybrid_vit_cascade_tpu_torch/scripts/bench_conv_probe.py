@@ -241,7 +241,7 @@ def run_case(case: Case, device, n: int, repeats: int, seed: int, vx_size: int =
     """Time one case: its kernel, its plain version and its cuBLAS yardstick
     (VX/VX2: the cuDNN conv); returns the row of numbers, with the launches
     the kernel's timing added to each counter of ``conv_probe.LAUNCHES``
-    (V0's show its wgmma instance)."""
+    (V1's, V0's and V2's show their wgmma instances)."""
     args = make_inputs(case, n, device, seed, vx_size)
     lib, lib_desc = library_call(case, args, repeats)
     b_ms, b_by = bound(case, n, repeats, vx_size)

@@ -130,10 +130,11 @@ def test_entry_point_refuses_without_a_card(monkeypatch):
     assert exc.value.code not in (0, None)
 
 
-# ------------------------------------------------- the wgmma instance of V0 ---
+# ------------------------------------ the wgmma instances of V0, V1 and V2 ---
 
 PROBE_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "conv_probe.cu").read_text()
 WGMMA_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "wgmma_sm90.cuh").read_text()
+B_MODES = {"kBStreamMN": 0, "kBStreamK": 1, "kBResidentK": 2}
 
 
 def _wg_const(name: str) -> int:
@@ -146,48 +147,153 @@ def _wg_const(name: str) -> int:
     return int(eval(expr, {}, names))
 
 
-@pytest.mark.parametrize("m,n", [(256, 131072), (256, 8192), (256, 2120), (64, 8), (320, 16),
-                                 (32, 131072), (256, 77), (63, 8), (65, 8), (128, 1001), (1, 1)])
-def test_v1_wgmma_rule_is_the_source(m, n):
-    """``probe_v1_uses_wgmma`` states the C rule ``v1_uses_wgmma``, which
-    ``hvc_probe_v1`` dispatches by and ``hvc_probe_v1_wgmma`` reports: m in
-    whole m64 tiles and N a multiple of 8 (16-byte rows for the tensor
-    maps); V0 takes it, V1 (m = 32) does not."""
-    assert "int v1_uses_wgmma(int m, int n) { return m % 64 == 0 && n % 8 == 0; }" in PROBE_SRC
-    assert "  if (v1_uses_wgmma(m, n)) return gemm_wgmma(w, p, out, m, n, k, repeats, s);" \
+def _wg_cfg(name: str) -> dict:
+    """The WgCfg of instance `name` (WgV0, WgV1, WgV2, WgV2Streamed), its
+    derived sizes computed as the struct computes them."""
+    import re
+
+    args = re.search(rf"^using {name} = WgCfg<(\d+), (\d+), (\d+), (\d+), (\d+), (\w+)>;",
+                     PROBE_SRC, re.M).groups()
+    cons, mt, nt, wn, stages = map(int, args[:5])
+    bmode = B_MODES[args[5]]
+    cfg = {"CONS": cons, "MT": mt, "NT": nt, "WN": wn, "STAGES": stages, "BMODE": bmode,
+           "BM": cons * mt * 64, "BN": nt * wn, "ABytes": cons * mt * 64 * 128,
+           "BBytes": 0 if bmode == 2 else nt * wn * 128, "TRANS_B": int(bmode == 0)}
+    cfg["StageBytes"] = cfg["ABytes"] + cfg["BBytes"]
+    cfg["smem"] = lambda k: (1024 + stages * cfg["StageBytes"] + (k * cfg["BN"] * 2 if bmode == 2
+                                                                    else 0)
+                             + cons * _wg_const("kWgOutBytes") + 2 * stages * 8)
+    return cfg
+
+
+WG = {key: _wg_cfg(name) for key, name in (("V0", "WgV0"), ("V1", "WgV1"), ("V2", "WgV2"),
+                                           ("V2s", "WgV2Streamed"))}
+
+
+def test_wgmma_configs_are_the_source():
+    """The struct's derived sizes as the tests compute them, and the shapes
+    each probe's orientation asks for: V0 256 × 128 items of two warpgroups
+    of two m64 tiles, B MN-major; V1 one m64 tile (W's 32 rows in its top
+    half) × 256 columns, B MN-major; V2 256 spatial rows × 32 (Cout as N),
+    B K-major and resident (or streamed); each ring within the card's
+    232,448 bytes of shared memory at K = 1728, as the source's comments say,
+    and kV2MaxK the deepest resident K."""
+    for line in ("  static constexpr int BM = CONS * MT * 64;  // rows of a work item",
+                 "  static constexpr int BN = NT * WN;         // columns of a work item",
+                 "  static constexpr int BBytes = BMODE == kBResidentK ? 0 : BN * 128;",
+                 "  static constexpr int StageBytes = ABytes + BBytes;",
+                 "    return 1024 + STAGES * StageBytes + (BMODE == kBResidentK ? k * BN * 2 : 0) +",
+                 "           CONS * kWgOutBytes + 2 * STAGES * 8;"):
+        assert line in PROBE_SRC, line
+    shapes = {k: (c["BM"], c["BN"], c["CONS"], c["MT"], c["NT"], c["WN"], c["BMODE"])
+              for k, c in WG.items()}
+    assert shapes == {"V0": (256, 128, 2, 2, 1, 128, 0), "V1": (64, 256, 1, 1, 2, 128, 0),
+                      "V2": (256, 32, 2, 2, 1, 32, 2), "V2s": (256, 32, 2, 2, 1, 32, 1)}
+    smem = {k: c["smem"](cp.K) for k, c in WG.items()}
+    assert smem == {"V0": 214080, "V1": 214096, "V2": 226352, "V2s": 201808}
+    assert max(smem.values()) <= _wg_const("kWgSmemMax") == 232448
+    max_k = (232448 - WG["V2"]["smem"](0)) // (2 * 32) // 64 * 64
+    assert max_k == cp.V2_MAX_K == 1792 and WG["V2"]["smem"](max_k) <= 232448
+    assert WG["V2"]["smem"](max_k + 64) > 232448
+    assert ("constexpr int kV2MaxK = (kWgSmemMax - WgV2::smem(0)) / (2 * WgV2::BN) / kWgBK * "
+            "kWgBK;  // 1792") in PROBE_SRC
+
+
+_V1_RULE = ("int v1_instance(int m, int n) {\n"
+            "  if (n % 8 == 0 && m % 64 == 0) return kV1WgmmaV0;\n"
+            "  if (n % 8 == 0 && m <= 32) return kV1WgmmaM32;\n"
+            "  return m <= 32 ? kV1MmaNarrow : kV1MmaWide;\n"
+            "}")
+_V2_RULE = ("int v2_instance(int k, int n) {\n"
+            "  (void)n;\n"
+            "  return k >= kWgBK && k % kWgBK == 0 && k <= kV2MaxK ? kV2Wgmma : -1;\n"
+            "}")
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (256, 131072, "V0"), (256, 8192, "V0"), (256, 2120, "V0"), (64, 8, "V0"), (320, 16, "V0"),
+    (32, 131072, "V1"), (32, 8192, "V1"), (32, 2120, "V1"), (32, 200, "V1"), (8, 16, "V1"),
+    (1, 8, "V1"), (32, 77, "narrow"), (1, 1, "narrow"), (256, 77, "wide"), (63, 8, "wide"),
+    (65, 8, "wide"), (33, 8, "wide"), (128, 1001, "wide")])
+def test_v1_wgmma_rule_is_the_source(m, n, want):
+    """``probe_v1_instance`` states the C rule ``v1_instance``, which
+    ``hvc_probe_v1`` dispatches by and ``hvc_probe_v1_rule`` reports, with
+    the source's instance codes: with N a multiple of 8 (16-byte rows for the
+    tensor maps) whole m64 tiles take V0's wgmma instance and at most 32 rows
+    V1's; a ragged N keeps the mma.sync instances (32 × 128 up to 32 rows,
+    128 × 128 above)."""
+    assert _V1_RULE in PROBE_SRC
+    assert "  return run_v1(v1_instance(m, n), w, p, out, m, k, n, repeats, aligned," in PROBE_SRC
+    assert "  return v1_instance(m, n);" in PROBE_SRC
+    for name, code in (("kV1MmaNarrow", cp.V1_MMA_NARROW), ("kV1MmaWide", cp.V1_MMA_WIDE),
+                       ("kV1WgmmaV0", cp.V1_WGMMA_V0), ("kV1WgmmaM32", cp.V1_WGMMA_M32)):
+        assert f"  {name} = {code}," in PROBE_SRC
+    for name, cfg in (("kV1WgmmaV0", "WgV0"), ("kV1WgmmaM32", "WgV1")):
+        assert f"    case {name}: return gemm_wgmma<{cfg}>(w, p, out, m, n, k, repeats, s);" in PROBE_SRC
+    codes = {"V0": cp.V1_WGMMA_V0, "V1": cp.V1_WGMMA_M32, "narrow": cp.V1_MMA_NARROW,
+             "wide": cp.V1_MMA_WIDE}
+    assert cp.probe_v1_instance(m, cp.K, n) == codes[want]
+    assert (cp.WGMMA_M, cp.WGMMA_N_ALIGN, cp.WGMMA_M32) == (64, 8, 32)
+
+
+@pytest.mark.parametrize("k,n", [(cp.K, 131072), (cp.K, 8192), (cp.K, 2120), (cp.K, 77), (cp.K, 1),
+                                 (64, 200), (1792, 77), (1856, 8), (96, 8), (0, 8)])
+def test_v2_wgmma_rule_is_the_source(k, n):
+    """``probe_v2_instance`` states the C rule ``v2_instance``: every K (a
+    multiple of 64) whose Wᵀ fits in shared memory beside the ring, at any N,
+    takes the wgmma instance (WgV2, Wᵀ resident); a deeper or ragged K has
+    none, and the wrapper refuses it before the card is reached."""
+    assert _V2_RULE in PROBE_SRC
+    assert "  return run_v2(v2_instance(k, n), pt, wt, out, k, n, repeats, " in PROBE_SRC
+    assert "int hvc_probe_v2_rule(int k, int n) { return v2_instance(k, n); }" in PROBE_SRC
+    assert "  kV2Wgmma = 1,          // WgV2: wt resident in shared memory" in PROBE_SRC
+    assert "    case kV2Wgmma: return gemm_wgmma<WgV2>(pt, w, out, n, 32, k, repeats, s);" \
         in PROBE_SRC
-    assert "  return v1_uses_wgmma(m, n);" in PROBE_SRC
-    assert cp.probe_v1_uses_wgmma(m, cp.K, n) == (m % 64 == 0 and n % 8 == 0)
-    assert (cp.WGMMA_M, cp.WGMMA_N_ALIGN) == (64, 8)
+    ok = k >= 64 and k % 64 == 0 and k <= 1792
+    assert cp.probe_v2_instance(k, n) == (cp.V2_WGMMA if ok else -1)
+    if k and not ok:
+        p = torch.zeros((n, k), dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            cp.probe_v2(p, torch.zeros((k, cp.COUT), dtype=torch.bfloat16), 1)
 
 
-def _walk(m: int, n: int, repeats: int, grid: int):
+def _walk(cfg: dict, m: int, n: int, repeats: int, grid: int):
     """The work items of probe_gemm_wgmma as its blocks walk them: block b
     takes items b, b + grid, …; item it is pass it / (tiles_m·tiles_n) and
     tile it % (tiles_m·tiles_n), N-major (m tile = tile % tiles_m)."""
-    bm, bn = _wg_const("kWgBM"), _wg_const("kWgBN")
+    bm, bn = cfg["BM"], cfg["BN"]
     tiles_m, tiles_n = -(-m // bm), -(-n // bn)
     per_pass = tiles_m * tiles_n
-    assert ("        const int m0 = int(tile % tiles_m) * kWgBM, n0 = int(tile / tiles_m) * kWgBN;"
-            in PROBE_SRC)
+    line = "        const int m0 = int(tile % tiles_m) * BM, n0 = int(tile / tiles_m) * BN;"
+    assert line in PROBE_SRC
+    assert PROBE_SRC.count(line.strip()) == 2  # the producer and the consumers
     return [(it // per_pass, (it % per_pass) % tiles_m * bm, (it % per_pass) // tiles_m * bn, b)
             for b in range(grid) for it in range(b, repeats * per_pass, grid)]
 
 
-@pytest.mark.parametrize("m,n,repeats,grid", [(256, 131072, 64, 132), (256, 2120, 3, 132),
-                                              (320, 4096, 2, 7), (64, 200, 1, 132)])
-def test_wgmma_walk_covers_every_pass_and_tile_once(m, n, repeats, grid):
+@pytest.mark.parametrize("key,m,n,repeats,grid", [
+    ("V0", 256, 131072, 64, 132), ("V0", 256, 2120, 3, 132), ("V0", 320, 4096, 2, 7),
+    ("V0", 64, 200, 1, 132), ("V1", 32, 131072, 64, 132), ("V1", 32, 8192, 3, 132),
+    ("V1", 32, 2120, 2, 5), ("V1", 8, 200, 1, 132), ("V2", 131072, 32, 64, 132),
+    ("V2", 8192, 32, 3, 132), ("V2", 2120, 32, 2, 5), ("V2", 77, 32, 1, 132),
+    ("V2s", 131072, 32, 2, 132)])
+def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     """Every (pass, m tile, n tile) is one work item of one block, a work item
-    holds all 256 rows of its N tile (one item per N tile at m ≤ 256), and
-    each block's items go in pass order."""
-    bm, bn = _wg_const("kWgBM"), _wg_const("kWgBN")
-    assert (bm, bn, _wg_const("kWgBK")) == (256, 128, 64)
-    items = _walk(m, n, repeats, grid)
+    holds all the rows of its N tile where m ≤ BM (V0, V1; V2's M is the
+    spatial N, its N the 32 output channels: one N tile), and each block's
+    items go in pass order, so every pass re-reads P and rewrites the whole
+    output."""
+    cfg = WG[key]
+    bm, bn = cfg["BM"], cfg["BN"]
+    assert _wg_const("kWgBK") == 64
+    items = _walk(cfg, m, n, repeats, grid)
     keys = [(r, m0, n0) for r, m0, n0, _ in items]
     want = [(r, m0, n0) for r in range(repeats) for n0 in range(0, n, bn) for m0 in range(0, m, bm)]
     assert sorted(keys) == sorted(want) and len(set(keys)) == len(keys)
     if m <= bm:
         assert all(m0 == 0 for _, m0, _, _ in items)
+    if n <= bn:
+        assert all(n0 == 0 for _, _, n0, _ in items)
     for b in range(grid):
         passes = [r for r, _, _, blk in items if blk == b]
         assert passes == sorted(passes)
@@ -199,20 +305,25 @@ def _sw128(row: int, chunk: int) -> int:
     return row * 128 + ((chunk ^ (row & 7)) << 4)
 
 
-def test_sw128_is_the_source_and_a_bijection():
-    """The mirror states the C function, and on one ring stage (A: 256 rows
-    of 128 bytes; each B box: 64 rows) and one epilogue box (64 rows of 32
-    fp32) every (row, chunk) lands on its own 16-byte slot of its row, the 8
-    rows of a chunk column in 8 different bank groups."""
+@pytest.mark.parametrize("key", ["V0", "V1", "V2", "V2s"])
+def test_sw128_is_the_source_and_a_bijection(key):
+    """The mirror states the C function, and on one ring stage (A: the item's
+    rows of 128 bytes; B: 64-row MN-major boxes or the item's 32 K-major
+    rows), one resident Wᵀ block and one epilogue box (64 rows of 32 fp32)
+    every (row, chunk) lands on its own 16-byte slot of its row, the 8 rows of
+    a chunk column in 8 different bank groups."""
     assert "  return row * 128u + ((chunk ^ (row & 7u)) << 4);" in WGMMA_SRC
-    for rows in (_wg_const("kWgBM"), _wg_const("kWgBK"), 64):
+    cfg = WG[key]
+    b_rows = 64 if cfg["BMODE"] == 0 else cfg["BN"]
+    for rows in (cfg["BM"], b_rows, 64):
         offs = [_sw128(r, c) for r in range(rows) for c in range(8)]
         assert sorted(offs) == list(range(0, rows * 128, 16))
         assert all(_sw128(r, c) // 128 == r for r in range(rows) for c in range(8))
         for r0 in range(0, rows, 8):
             for c in range(8):
                 assert len({_sw128(r0 + i, c) % 128 for i in range(8)}) == 8
-    assert _wg_const("kWgABytes") == 256 * 128 and _wg_const("kWgBBytes") == 2 * 64 * 128
+    assert cfg["ABytes"] == cfg["BM"] * 128 and cfg["StageBytes"] % 1024 == 0
+    assert cfg["BBytes"] == {0: cfg["BN"] // 64 * 64 * 128, 1: cfg["BN"] * 128, 2: 0}[cfg["BMODE"]]
 
 
 def _desc(addr: int, lbo: int, sbo: int) -> int:
@@ -225,11 +336,12 @@ def test_wgmma_descriptors_are_the_source():
     """The descriptor's fields (start address / 16 in bits 0-13, leading
     byte offset / 16 in 16-29, stride byte offset / 16 in 32-45, layout 1 =
     128-byte swizzle in 62-63) as wgmma_desc packs them, and the operands'
-    strides: A K-major (8-row groups 1,024 bytes apart, the leading offset
-    unused, a k16 step 32 bytes along the swizzled row), B MN-major (its
-    second 64-column box a whole 64 × 128-byte box after its first: the
-    leading offset; 8 k rows 1,024 bytes apart: the stride offset; a k16
-    step 16 rows)."""
+    strides: A, and a K-major B (V2), K-major (8-row groups 1,024 bytes
+    apart, the leading offset unused, a k16 step 32 bytes along the swizzled
+    row, n-block j WN rows on); an MN-major B (V0, V1) with its next
+    64-column box a whole 64 × 128-byte box after the last (the leading
+    offset), 8 k rows 1,024 bytes apart (the stride offset) and a k16 step of
+    16 rows; V2's resident Wᵀ one block of BN K-major rows a chunk of K."""
     for line in ("  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) |",
                  "         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |",
                  "         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | "
@@ -237,37 +349,121 @@ def test_wgmma_descriptors_are_the_source():
                  "constexpr uint64_t kDescLayoutSw128 = 1;"):
         assert line in WGMMA_SRC
     sbo, lbo_b, lbo_a = _wg_const("kWgSbo"), _wg_const("kWgLboB"), _wg_const("kWgLboA")
-    assert (sbo, lbo_b, lbo_a) == (8 * 128, 64 * 128, 16)
-    assert lbo_b == _wg_const("kWgBBytes") // 2  # the second B box of a stage
-    for line in ("        const uint64_t db = wgmma_desc(b0 + kk * 16 * 128, kWgLboB, kWgSbo);",
-                 "          wgmma_m64n128k16<1>(acc[i], wgmma_desc(a0 + i * 64 * 128 + kk * 32, "
-                 "kWgLboA, kWgSbo), db,"):
-        assert line in PROBE_SRC
+    assert (sbo, lbo_b, lbo_a, _wg_const("kWgTile")) == (8 * 128, 64 * 128, 16, 64 * 128)
+    for line in (
+            "          const uint64_t da = wgmma_desc(a0 + i * kWgTile + kk * 32, kWgLboA, kWgSbo);",
+            "              Cfg::TRANS_B ? wgmma_desc(b0 + j * (WN / kWgBox) * kWgTile + kk * 16 * "
+            "128, kWgLboB, kWgSbo)",
+            "                           : wgmma_desc(b0 + j * WN * 128 + kk * 32, kWgLboA, kWgSbo);",
+            "      const uint32_t a0 = smem_u32(smem + s * Cfg::StageBytes) + wg * MT * kWgTile;",
+            "                              ? smem_u32(bres + kc * (BN * 128))",
+            "      *reinterpret_cast<uint4*>(bres + (k8 / 8) * (BN * 128) + sw128_offset(n, k8 % 8)) "
+            "= v;",
+            "  static constexpr int TRANS_B = BMODE == kBStreamMN;"):
+        assert line in PROBE_SRC, line
     d = _desc(0x1C400 + 2048, lbo_b, sbo)
     assert d & 0x3FFF == (0x1C400 + 2048) >> 4
     assert (d >> 16) & 0x3FFF == 512 and (d >> 32) & 0x3FFF == 64 and d >> 62 == 1
     assert (d >> 49) & 0x7 == 0  # base offset: every stage starts 1024-byte aligned
-    stage = _wg_const("kWgStageBytes")
-    assert stage % 1024 == 0 and _wg_const("kWgABytes") % 1024 == 0
+    for cfg in WG.values():
+        # every tile a descriptor starts at is 1024-byte aligned past the stage's base
+        starts = [i * 64 * 128 for i in range(cfg["BM"] // 64)]
+        if cfg["BMODE"] == 0:
+            starts += [cfg["ABytes"] + j * (cfg["WN"] // 64) * 64 * 128 for j in range(cfg["NT"])]
+        elif cfg["BMODE"] == 1:
+            starts += [cfg["ABytes"] + j * cfg["WN"] * 128 for j in range(cfg["NT"])]
+        else:
+            starts += [kc * cfg["BN"] * 128 for kc in range(cp.K // 64)]  # the resident blocks
+        assert all(a % 1024 == 0 for a in starts)
 
 
-def test_wgmma_epilogue_fills_each_store_box_once():
+def _resident_wt(k: int, bn: int) -> dict:
+    """Where the kernel's transposing copy puts Wᵀ[k][n] (a K × BN row-major
+    array) in shared memory: thread item c is column n = c % BN of the 8 k
+    rows 8·(c / BN) …, one 16-byte chunk of row n of K block k8 / 8."""
+    where = {}
+    for c in range(k // 8 * bn):
+        n, k8 = c % bn, c // bn
+        base = k8 // 8 * (bn * 128) + _sw128(n, k8 % 8)
+        for e in range(8):
+            where[(k8 * 8 + e, n)] = base + 2 * e
+    return where
+
+
+def test_v2_resident_wt_is_k_major_and_swizzled():
+    """The copy of Wᵀ into shared memory at the block's start writes every
+    element once, as K-major rows of 64 k (row n of K block kb holds Wᵀ[64kb
+    … 64kb + 63][n]) in the 128-byte swizzle the descriptors read, in K /
+    64·BN·128 = 110,592 bytes at K = 1728, its global reads a warp's 32
+    neighbouring columns of one row."""
+    for line in ("    for (int c = tid; c < (K / 8) * BN; c += Cfg::Threads) {",
+                 "      const int n = c % BN, k8 = c / BN;",
+                 "      const unsigned short* e = src + (long long)k8 * 8 * BN + n;",
+                 "      v.x = e[0] | (uint32_t(e[BN]) << 16);",
+                 "      v.w = e[6 * BN] | (uint32_t(e[7 * BN]) << 16);",
+                 "    fence_proxy_async_shared();  // the products read it through the async proxy"):
+        assert line in PROBE_SRC, line
+    bn = WG["V2"]["BN"]
+    where = _resident_wt(cp.K, bn)
+    assert len(where) == cp.K * bn and sorted(where.values()) == list(range(0, cp.K * bn * 2, 2))
+    for (k, n), off in where.items():
+        kb, kin = divmod(k, 64)
+        assert off == kb * bn * 128 + _sw128(n, kin // 8) + 2 * (kin % 8)
+    for c0 in range(0, 64, 32):  # a warp's first loads: one row of Wᵀ, 32 columns
+        assert [(c % bn, c // bn) for c in range(c0, c0 + 32)] == [(n, c0 // bn) for n in range(32)]
+
+
+@pytest.mark.parametrize("key", ["V0", "V1", "V2"])
+def test_wgmma_epilogue_fills_each_store_box_once(key):
     """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
     + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
     fp32 box, at sw128_offset(row, column / 4) + 8·(lane % 2)) cover every
-    8-byte slot of the box once, and each warp's store of one jj hits every
-    bank the same number of times (no conflict beyond the two wavefronts of
-    256 bytes)."""
-    cols = _wg_const("kWgOutCols")
-    assert cols == _wg_const("kWgOutBox") == 32
+    8-byte slot of the box once, each warp's store of one jj hits every bank
+    the same number of times (no conflict beyond the two wavefronts of 256
+    bytes), and the rounds of a consumer store each 64 × 32 box of its tiles
+    once (V1's rows 32-63 fall outside the output and are clipped by the
+    store)."""
+    cols = _wg_const("kWgOutBox")
+    assert cols == 32 and _wg_const("kWgOutBytes") == 64 * 32 * 4
+    assert ("          *reinterpret_cast<float2*>(out + sw128_offset(row, c / 4) + (lane % 2) * 8) ="
+            in PROBE_SRC)
     slots = []
     for warp, lane, jj in ((w, ln, j) for w in range(4) for ln in range(32)
                            for j in range(0, cols // 2, 2)):
         row = 16 * warp + lane // 4 + 8 * ((jj % 4) // 2)
         c = 8 * (jj // 4) + 2 * (lane % 4)
-        slots.append(_sw128(row, (c % 32) // 4) + (lane % 2) * 8)
+        slots.append(_sw128(row, c // 4) + (lane % 2) * 8)
     assert sorted(slots) == list(range(0, 64 * 32 * 4, 8))
     for warp, jj in ((w, j) for w in range(4) for j in range(0, cols // 2, 2)):
         banks = [((_sw128(16 * warp + ln // 4 + 8 * ((jj % 4) // 2), (8 * (jj // 4) + 2 * (ln % 4))
                           // 4) + (ln % 2) * 8) // 4 + k) % 32 for ln in range(32) for k in range(2)]
         assert sorted(banks) == sorted(list(range(32)) * 2)
+    assert ("          tma_store_2d(&map_c, out, n0 + (t % NT) * WN + h * kWgOutBox,\n"
+            "                       m0 + (wg * MT + t / NT) * 64);") in PROBE_SRC
+    cfg = WG[key]
+    boxes = [(n0, m0) for wg in range(cfg["CONS"]) for t in range(cfg["MT"] * cfg["NT"])
+             for h in range(cfg["WN"] // cols)
+             for n0, m0 in [((t % cfg["NT"]) * cfg["WN"] + h * cols, (wg * cfg["MT"] + t // cfg["NT"]) * 64)]]
+    want = [(n0, m0) for m0 in range(0, cfg["BM"], 64) for n0 in range(0, cfg["BN"], cols)]
+    assert sorted(boxes) == sorted(want) and len(set(boxes)) == len(boxes)
+    # a thread's accumulators: MT·NT tiles of WN / 2, the round's q = 16h + jj
+    assert "  float acc[MT * NT][WN / 2];" in PROBE_SRC
+    qs = sorted(h * cols // 2 + jj + e for h in range(cfg["WN"] // cols)
+                for jj in range(0, cols // 2, 2) for e in range(2))
+    assert qs == list(range(cfg["WN"] // 2))
+
+
+@pytest.mark.parametrize("key,n,want", [
+    ("V1", 131072, "conv_probe_v1_wgmma_m32"), ("V1", 2120, "conv_probe_v1_wgmma_m32"),
+    ("V1", 77, None), ("V0", 131072, "conv_probe_v1_wgmma"), ("V0", 2120, "conv_probe_v1_wgmma"),
+    ("V0", 77, None), ("V2", 131072, "conv_probe_v2_wgmma"), ("V2", 77, "conv_probe_v2_wgmma"),
+    ("V3", 131072, None), ("V8", 131072, None)])
+def test_chip_smoke_probe_instances(key, n, want):
+    """chip_smoke.py [12] holds each V1 / V0 / V2 call to the wgmma counter
+    of the instance the wrapper's rule names at that N (V1 at 77 on
+    mma.sync), and every counter it reads exists in ``LAUNCHES``."""
+    import chip_smoke
+
+    assert chip_smoke._probe_instance_counter(key, n) == want
+    assert set(chip_smoke._PROBE_INSTANCE_COUNTERS) <= set(cp.LAUNCHES)
+    assert chip_smoke.PROBE_RAGGED_N == (77, 2120)

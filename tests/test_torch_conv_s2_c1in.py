@@ -507,3 +507,24 @@ def test_fwd_c1in_s2_emulated_matches_jax_pallas():
     got = _fwd_c1in_s2_emulated(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
                                 0, dp)[0]
     np.testing.assert_allclose(got.reshape(B, cout, -1).numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------ the fp32 data gradient's row ---
+
+@pytest.mark.parametrize("dtype,want", [(F32, CC), (BF16, C1)])
+def test_stem_dgrad_row_instances_and_fp32_bound(dtype, want):
+    """chip_smoke.py times the stem's data gradient (8 × 1→64, g 32³ → dx 64³)
+    in bf16 on the one-dx-channel tensor cores and in fp32 on the CUDA-core
+    dgrad_s2_kernel<float> (its ``fp32`` entry). The fp32 bound is the bytes
+    of g (67.1 MB) and dx (8.4 MB) over 3.35 TB/s, 0.0225 ms, over the
+    products at the fp32 rate outside the tensor cores (67 TFLOP/s: 0.0135
+    ms)."""
+    b, cin, cout, dhw = chip_smoke.TRAIN_KERNELS["conv3d_k3s2_c1in_dgrad"]["hot"]
+    assert (b, cin, cout, dhw) == chip_smoke._S2_STEM == (8, 1, 64, (64, 64, 64))
+    assert ck.dgrad_s2_instance(dtype, cin, cout) == want
+    ms, by, terms = chip_smoke.bound("conv3d_k3s2_c1in_dgrad", chip_smoke._S2_STEM, itemsize=4,
+                                     peak_flops=chip_smoke.PEAK_FLOPS_FP32)
+    g_bytes, dx_bytes = 4 * 8 * 64 * 32 ** 3, 4 * 8 * 64 ** 3
+    assert (g_bytes, dx_bytes) == (67_108_864, 8_388_608)
+    assert by == "bytes" and abs(ms - (g_bytes + dx_bytes + 4 * 27 * 64) / 3.35e12 * 1e3) < 1e-9
+    assert round(ms, 4) == 0.0225 and round(terms["products_ms"], 4) == 0.0135

@@ -1141,13 +1141,30 @@ def test_wgrad_tc_rule_matches_c(dev):
 PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
 
 
+def _probe_counters(key: str, n: int) -> dict:
+    """The launches one call of probe case `key` at N columns adds to
+    ``conv_probe.LAUNCHES``: its wrapper's counter, and the counter of the
+    wgmma instance the wrapper's rule names (V1, V0, V2)."""
+    case = bench.BY_KEY[key]
+    want = {case.kernel: 1}
+    if key == "V2":
+        instance = conv_probe.probe_v2_instance(conv_probe.K, n)
+        want["conv_probe_v2_wgmma"] = int(instance == conv_probe.V2_WGMMA)
+    elif key in ("V1", "V0"):
+        instance = conv_probe.probe_v1_instance(case.w_shape[0], conv_probe.K, n)
+        want["conv_probe_v1_wgmma"] = int(instance == conv_probe.V1_WGMMA_V0)
+        want["conv_probe_v1_wgmma_m32"] = int(instance == conv_probe.V1_WGMMA_M32)
+    return want
+
+
 @pytest.mark.parametrize("n", [77, 2120, 4096])
 @pytest.mark.parametrize("key", PROBE_CASES)
 def test_conv_probe_matches_plain(dev, key, n):
     """Each probe kernel against its plain version in bf16, at a ragged N (77:
     rows not 16-byte aligned; 2,120: aligned, ragged last tile) and at 4,096;
     both sum the same bf16 products in fp32, in another order. One launch per
-    call, whatever the number of passes (the r axis is a loop in the kernel)."""
+    call, whatever the number of passes (the r axis is a loop in the kernel),
+    counted on the wgmma instance its rule names."""
     case = bench.BY_KEY[key]
     kern, plain = case.wrapper, case.plain
     shapes = [(n, conv_probe.K), case.w_shape] if key == "V2" else [case.w_shape, (case.x_rows, n)]
@@ -1155,9 +1172,7 @@ def test_conv_probe_matches_plain(dev, key, n):
     before = dict(conv_probe.LAUNCHES)
     got = kern(*args, 3)
     after = dict(conv_probe.LAUNCHES)
-    wgmma = key in ("V1", "V0") and conv_probe.probe_v1_uses_wgmma(case.w_shape[0], conv_probe.K, n)
-    assert after == {**before, case.kernel: before[case.kernel] + 1,
-                     "conv_probe_v1_wgmma": before["conv_probe_v1_wgmma"] + wgmma}
+    assert after == {**before, **{k: before[k] + v for k, v in _probe_counters(key, n).items()}}
     want = plain(*args, 1)
     assert got.shape == want.shape and got.dtype == torch.float32
     torch.cuda.synchronize()
@@ -1167,27 +1182,35 @@ def test_conv_probe_matches_plain(dev, key, n):
     assert torch.equal(kern(*args, 1), got)  # every pass rewrites the same values
 
 
-# make_v1 on its wgmma instance (V0: m = 256): (m, N, passes). The probes' N
-# (131,072: P streams from device memory), N in L2, ragged last N tiles
-# (2,120, 200), m of one and of five m64 tiles (a ragged 256-row item), and
-# N not a multiple of 8 (77, 1,001), which must take the mma.sync instance.
+# make_v1 on its wgmma instances (V0: m = 256, V1: m = 32) and v2 on its own:
+# (m, N, passes). The probes' N (131,072: P streams from device memory), N in
+# L2, ragged last N tiles (2,120, 200), m of one and of five m64 tiles (a
+# ragged 256-row item), m under 32, and N not a multiple of 8 (77, 1,001),
+# where make_v1 must take an mma.sync instance and v2 its wgmma one.
 PROBE_V1_WGMMA = [(256, 131072, 2), (256, 8192, 3), (256, 2120, 2), (256, 200, 1), (64, 4096, 2),
-                  (320, 4096, 2), (256, 77, 2), (256, 1001, 1), (128, 77, 1)]
+                  (320, 4096, 2), (256, 77, 2), (256, 1001, 1), (128, 77, 1),
+                  (32, 131072, 2), (32, 8192, 3), (32, 2120, 2), (32, 200, 1), (32, 77, 2),
+                  (8, 1000, 1)]
+PROBE_V2_WGMMA = [(131072, 2), (8192, 3), (2120, 2), (200, 1), (77, 2), (1, 1)]
 
 
 @pytest.mark.parametrize("m,n,passes", PROBE_V1_WGMMA)
 def test_probe_v1_wgmma(dev, m, n, passes):
     """probe_v1 against its plain version (1e-4·max|want| + 1e-4·|want|: both
     sum the same bf16 products in fp32, in another order), counted on the
-    wgmma counter exactly when ``probe_v1_uses_wgmma`` says, and bitwise
+    wgmma instance ``probe_v1_instance`` names (V0's at m % 64 = 0, V1's at m
+    ≤ 32, none at a ragged N), every other counter unchanged, and bitwise
     repeatable."""
     w = _randn((m, conv_probe.K), torch.bfloat16, dev, 120)
     p = _randn((conv_probe.K, n), torch.bfloat16, dev, 121)
-    before = conv_probe.LAUNCHES["conv_probe_v1_wgmma"]
+    before = dict(conv_probe.LAUNCHES)
     got = conv_probe.probe_v1(w, p, passes)
-    wgmma = conv_probe.probe_v1_uses_wgmma(m, conv_probe.K, n)
-    assert wgmma == (m % 64 == 0 and n % 8 == 0)
-    assert conv_probe.LAUNCHES["conv_probe_v1_wgmma"] == before + wgmma
+    instance = conv_probe.probe_v1_instance(m, conv_probe.K, n)
+    wgmma = {"conv_probe_v1_wgmma": int(instance == conv_probe.V1_WGMMA_V0),
+             "conv_probe_v1_wgmma_m32": int(instance == conv_probe.V1_WGMMA_M32)}
+    assert sum(wgmma.values()) == (n % 8 == 0 and (m % 64 == 0 or m <= 32))
+    assert conv_probe.LAUNCHES == {**before, "conv_probe_v1": before["conv_probe_v1"] + 1,
+                                   **{k: before[k] + v for k, v in wgmma.items()}}
     want = conv_probe.probe_v1_plain(w, p, 1)
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -1196,11 +1219,34 @@ def test_probe_v1_wgmma(dev, m, n, passes):
     assert torch.equal(conv_probe.probe_v1(w, p, passes), got)
 
 
+@pytest.mark.parametrize("n,passes", PROBE_V2_WGMMA)
+def test_probe_v2_wgmma(dev, n, passes):
+    """probe_v2 against its plain version (the same bound), counted on its
+    wgmma instance at every N, every other counter unchanged, and bitwise
+    repeatable."""
+    p = _randn((n, conv_probe.K), torch.bfloat16, dev, 122)
+    w = _randn((conv_probe.K, conv_probe.COUT), torch.bfloat16, dev, 123)
+    before = dict(conv_probe.LAUNCHES)
+    got = conv_probe.probe_v2(p, w, passes)
+    assert conv_probe.probe_v2_instance(conv_probe.K, n) == conv_probe.V2_WGMMA
+    assert conv_probe.LAUNCHES == {**before, "conv_probe_v2": before["conv_probe_v2"] + 1,
+                                   "conv_probe_v2_wgmma": before["conv_probe_v2_wgmma"] + 1}
+    want = conv_probe.probe_v2_plain(p, w, 1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(conv_probe.probe_v2(p, w, passes), got)
+
+
 def test_probe_v1_wgmma_rule_matches_c(dev):
-    """The C rule (``hvc_probe_v1_wgmma``, which the wrapper counts wgmma
-    launches by) is ``probe_v1_uses_wgmma`` at every m and N around its
-    edges."""
-    rule = _build.function("hvc_probe_v1_wgmma", (ctypes.c_int,) * 3)
-    for m, n in itertools.product((1, 32, 63, 64, 65, 128, 192, 256, 320),
+    """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule``, which the
+    wrappers count wgmma launches by) are ``probe_v1_instance`` and
+    ``probe_v2_instance`` at every m, K and N around their edges."""
+    rule = _build.function("hvc_probe_v1_rule", (ctypes.c_int,) * 3)
+    for m, n in itertools.product((1, 31, 32, 33, 63, 64, 65, 128, 192, 256, 320),
                                   (1, 7, 8, 9, 16, 77, 2120, 131072)):
-        assert bool(rule(m, conv_probe.K, n)) == conv_probe.probe_v1_uses_wgmma(m, conv_probe.K, n)
+        assert rule(m, conv_probe.K, n) == conv_probe.probe_v1_instance(m, conv_probe.K, n)
+    rule2 = _build.function("hvc_probe_v2_rule", (ctypes.c_int,) * 2)
+    for k, n in itertools.product((0, 32, 64, 1728, 1792, 1856, 4096), (1, 7, 77, 2120, 131072)):
+        assert rule2(k, n) == conv_probe.probe_v2_instance(k, n)
