@@ -76,10 +76,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    beside cuDNN's conv3d and conv3d_weight) and the stride-2 1→64 stem
    (conv3d_k3s2_c1in, conv3d_k3s2_c1in_dgrad and conv3d_k3s2_c1in_wgrad on
    their tensor-core instances: stage 1's batch of 8 at 64³). The stem's
-   data gradient runs once more in fp32, on its CUDA-core instance
-   (dgrad_s2_kernel<float>), held to its plain version and timed beside it
-   and conv3d_input in fp32: the ``fp32`` entry of its row, whose launches
-   are that instance's on the main path (0: the main path is bf16).
+   data gradient runs once more in fp32 ([7d]), on its one-dx-channel CUDA-
+   core instance (dgrad_s2_c1_f32_kernel), held to its plain version at the
+   hot and the ragged stem shapes and bitwise across two runs, and timed
+   beside it and conv3d_input in fp32, by CUDA events around the wrapper and
+   a launch at a time (the mean of 20 back-to-back launches): the ``fp32``
+   entry of its row, whose launches are that instance's on the main path
+   (0: the main path is bf16).
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -131,12 +134,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    then the entry point's ``run`` (``hybrid_vit_cascade_tpu_torch.scripts.
    bench_conv_probe``) over every case at full size, launches counted from
    0: each kernel beside its plain version and its cuBLAS yardstick, and
-   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³. Each V1, V0
-   and V2 call, at full size and at ragged N, must have taken the instance
-   its rule names (``conv_probe.probe_v1_instance``,
-   ``probe_v2_instance``): at N = 131,072 V0 on its wgmma instance
-   (conv_probe_v1_wgmma), V1 on its own (conv_probe_v1_wgmma_m32), V2 on its
-   own (conv_probe_v2_wgmma); V1 at N = 77 on mma.sync.
+   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³. Each V1, V0,
+   V2 and V3 call, at full size and at ragged N, must have taken the
+   instance its rule names (``conv_probe.probe_v1_instance``,
+   ``probe_v2_instance``, ``probe_v3_instance``): at N = 131,072 V0 on its
+   wgmma instance (conv_probe_v1_wgmma), V1 on its own
+   (conv_probe_v1_wgmma_m32), V2 on its own (conv_probe_v2_wgmma), V3 on its
+   own (conv_probe_v3_wgmma); V1 and V3 at N = 77 on mma.sync.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -863,44 +867,86 @@ def library_ms(name: str, shape, dev, seed: int, dt: torch.dtype = torch.bfloat1
     return _median_ms(lambda: F.conv3d(x, wt, bias, stride=stride, padding=pad))
 
 
+def _dgrad_launch_ms(g, w, x_shape, reps: int = 20) -> float:
+    """The mean time of ``reps`` back-to-back launches of F's C entry point
+    (``hvc_conv3d_k3s2_dgrad``, dense: qlo 1, no act′) into one preallocated
+    dx between one pair of CUDA events: the kernel's time a launch without
+    the wrapper's host work. The wrapper's counters do not see them."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+
+    b, cin, nv, h, w_ = x_shape
+    dx = torch.empty(x_shape, dtype=g.dtype, device=g.device)
+    fn = _build.function("hvc_conv3d_k3s2_dgrad", ck._DGRAD_ARGTYPES)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    args = (g.data_ptr(), w.data_ptr(), None, dx.data_ptr(), b, cin, w.shape[0], nv, h, w_,
+            g.shape[2], 1, 0, None, 0, 0, ck._DTYPE_CODES[g.dtype], stream)
+    _build.check(fn(*args), "hvc_conv3d_k3s2_dgrad")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        _build.check(fn(*args), "hvc_conv3d_k3s2_dgrad")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def fp32_stem_dgrad(dev, seed: int) -> dict:
     """Phase 7d: the stride-2 1→64 stem's data gradient in fp32 (8 × 1→64, g
-    32³ → dx 64³), which takes the CUDA-core dgrad_s2_kernel<float>
-    (instance 0 of ``dgrad_s2_instance``: TF32 would leave the fp32
-    tolerance): one launch on that instance, held to its plain version at
-    TOL[fp32] with the absolute part scaled by the largest |want| (as [7]),
-    then timed beside it, its bound (bytes; products at the fp32 rate) and
-    conv3d_input in fp32 (TF32 off)."""
+    32³ → dx 64³, and the stem's ragged shapes), which takes the one-dx-channel
+    kernel's fp32 form dgrad_s2_c1_f32_kernel (instance 3 of
+    ``dgrad_s2_instance``: CUDA-core FMAs, TF32 would leave the fp32
+    tolerance): one launch each on its counter and none on
+    dgrad_s2_kernel<float>, held to its plain version at TOL[fp32] with the
+    absolute part scaled by the largest |want| (as [7]), two runs bitwise
+    equal; then timed beside it by CUDA events around the wrapper and a
+    launch at a time (``ms_per_launch``), with its bound (bytes; products at
+    the fp32 rate) and conv3d_input in fp32 (TF32 off)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 
     name, shape = "conv3d_k3s2_c1in_dgrad", _S2_STEM
     kern, plain = _train_fns(name)
-    args = _train_inputs(name, shape, torch.float32, dev, seed)
-    counters = ("conv3d_k3s2_dgrad_c1in", "conv3d_k3s2_dgrad_c1in_tc")
-    before = {k: ck.LAUNCHES[k] for k in counters}
-    got, want = kern(*args), plain(*args)
-    torch.cuda.synchronize()
-    took = {k: ck.LAUNCHES[k] - before[k] for k in counters}
-    if ck.dgrad_s2_instance(torch.float32, shape[1], shape[2]) != 0 or \
-            took != {"conv3d_k3s2_dgrad_c1in": 1, "conv3d_k3s2_dgrad_c1in_tc": 0}:
-        raise AssertionError(f"[7] the fp32 stem dgrad did not take the CUDA cores: {took}")
+    counters = ("conv3d_k3s2_dgrad_c1in", "conv3d_k3s2_dgrad_c1in_tc",
+                "conv3d_k3s2_dgrad_c1in_fp32")
     atol, rtol = TOL[torch.float32]
-    diff = (got - want).abs()
-    err, scale = float(diff.max()), max(1.0, float(want.abs().max()))
-    ok = bool(torch.isfinite(got).all()) and bool((diff <= atol * scale + rtol * want.abs()).all())
-    log(f"[7] {name} {shape} fp32 (dgrad_s2_kernel<float>) max_abs_err={err:.3e} "
-        f"tol={atol:g}·{scale:.3g}+{rtol:g}|ref| {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"[7] the fp32 stem dgrad disagrees with its plain version: {err}")
+    worst = 0.0
+    for at in [shape] + _S2_STEM_RAGGED:
+        args = _train_inputs(name, at, torch.float32, dev, seed)
+        before = {k: ck.LAUNCHES[k] for k in counters}
+        got = kern(*args)
+        took = {k: ck.LAUNCHES[k] - before[k] for k in counters}
+        if ck.dgrad_s2_instance(torch.float32, at[1], at[2]) != ck.DGRAD_S2_C1_FP32 or \
+                took != {"conv3d_k3s2_dgrad_c1in": 1, "conv3d_k3s2_dgrad_c1in_tc": 0,
+                         "conv3d_k3s2_dgrad_c1in_fp32": 1}:
+            raise AssertionError(f"[7] the fp32 stem dgrad at {at} did not take "
+                                 f"dgrad_s2_c1_f32_kernel alone: {took}")
+        want, again = plain(*args), kern(*args)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err, scale = float(diff.max()), max(1.0, float(want.abs().max()))
+        ok = bool(torch.isfinite(got).all()) and bool(
+            (diff <= atol * scale + rtol * want.abs()).all()) and torch.equal(got, again)
+        log(f"[7] {name} {at} fp32 (dgrad_s2_c1_f32_kernel) max_abs_err={err:.3e} "
+            f"tol={atol:g}·{scale:.3g}+{rtol:g}|ref| bitwise {torch.equal(got, again)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[7] the fp32 stem dgrad at {at} disagrees with its plain "
+                                 f"version or is not repeatable: {err}")
+        worst = max(worst, err)
+        del args, got, want, again
+    args = _train_inputs(name, shape, torch.float32, dev, seed)
     ms, plain_ms = _time_pair(kern, plain, args)
+    per_launch = _dgrad_launch_ms(args[0], args[1], tuple(args[2].shape))
     b_ms, b_by, terms = bound(name, shape, itemsize=4, peak_flops=PEAK_FLOPS_FP32)
     lib = library_ms(name, shape, dev, seed, torch.float32)
-    log(f"[7] {name} {shape} fp32 kernel {ms:.4f} ms  plain {plain_ms:.4f}  bound {b_ms:.4f} "
-        f"({b_by})  conv3d_input fp32 {lib:.4f}")
-    return {"at": f"{shape} fp32", "instance": "dgrad_s2_kernel<float>, the CUDA cores (instance "
-            "0 of dgrad_s2_instance)", "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_terms_ms": terms, "library_ms": lib,
-            "library_call": "torch.nn.grad.conv3d_input fp32, TF32 off", "max_abs_err": err}
+    log(f"[7] {name} {shape} fp32 kernel {ms:.4f} ms by events, {per_launch:.4f} a launch  "
+        f"plain {plain_ms:.4f}  bound {b_ms:.4f} ({b_by})  conv3d_input fp32 {lib:.4f}")
+    return {"at": f"{shape} fp32", "instance": "dgrad_s2_c1_f32_kernel, the one-dx-channel "
+            "kernel's fp32 form on the CUDA cores (instance 3 of dgrad_s2_instance)",
+            "counter": "conv3d_k3s2_dgrad_c1in_fp32", "ms": ms, "ms_per_launch": per_launch,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_terms_ms": terms,
+            "library_ms": lib, "library_call": "torch.nn.grad.conv3d_input fp32, TF32 off",
+            "max_abs_err": worst}
 
 
 def time_chain_kernels(dev, seed: int) -> dict:
@@ -1367,7 +1413,9 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
     conv3d_k3s1_chain_dgrad_c1_tc), the bf16 1→64 stride-2 stem and its data
     gradient the one-input-channel and one-dx-channel instances
     (conv3d_k3s2_c1in_tc, conv3d_k3s2_dgrad_c1in_tc); the same calls in fp32,
-    and the 1-channel conv and the stem on the other instances, do not."""
+    and the 1-channel conv and the stem on the other instances, do not; the
+    stem's data gradient in fp32 takes its fp32 form
+    (conv3d_k3s2_dgrad_c1in_fp32), in bf16 not."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts
 
     calls = [(n, sh, c, dt, dt == torch.bfloat16) for n, sh, c in _TC_FWD_CALLS
@@ -1401,6 +1449,8 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
                                ("conv3d_k3s2", (1, 1, 64, (64, 64, 64)), "conv3d_k3s2_c1in_tc"),
                                ("conv3d_k3s2_dgrad", _S2_STEM, "conv3d_k3s2_dgrad_c1in_tc"))
               for dt in (torch.bfloat16, torch.float32)]
+    calls += [("conv3d_k3s2_dgrad", _S2_STEM, "conv3d_k3s2_dgrad_c1in_fp32", dt,
+               dt == torch.float32) for dt in (torch.bfloat16, torch.float32)]
     calls += [(n, sh, f"{n}_tc", dt, dt == torch.bfloat16)
               for n in ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dkv",
                         "flash_attention_bwd_dq")
@@ -1585,12 +1635,14 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
 # ---------------------------------------------------------- the probe path ---
 
 def _probe_instance_counter(key: str, n: int):
-    """The wgmma counter a V1 / V0 / V2 call at N columns must add to, by the
-    wrapper's rule (None: an mma.sync instance, or another case)."""
+    """The wgmma counter a V1 / V0 / V2 / V3 call at N columns must add to, by
+    the wrapper's rule (None: an mma.sync instance, or another case)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
 
     if key == "V2":
         return {cp.V2_WGMMA: "conv_probe_v2_wgmma"}.get(cp.probe_v2_instance(cp.K, n))
+    if key == "V3":
+        return {cp.V3_WGMMA: "conv_probe_v3_wgmma"}.get(cp.probe_v3_instance(n))
     if key in ("V1", "V0"):
         m = 32 if key == "V1" else 256
         return {cp.V1_WGMMA_V0: "conv_probe_v1_wgmma",
@@ -1599,12 +1651,12 @@ def _probe_instance_counter(key: str, n: int):
 
 
 _PROBE_INSTANCE_COUNTERS = ("conv_probe_v1_wgmma", "conv_probe_v1_wgmma_m32",
-                            "conv_probe_v2_wgmma")
+                            "conv_probe_v2_wgmma", "conv_probe_v3_wgmma")
 
 
 def probe_phase(dev, seed: int) -> dict:
     """Phase [12]: every probe kernel against its plain version at full size
-    and at ragged N, each V1, V0 and V2 call on the instance its rule names,
+    and at ragged N, each V1, V0, V2 and V3 call on the instance its rule names,
     then the entry point's run over every case, launches counted from 0."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1648,11 +1700,12 @@ def probe_phase(dev, seed: int) -> dict:
     log(f"[12] launches {probe_launches}; phase time {time.perf_counter() - t0:.1f} s")
     if any(launched[k] for k in launched if k not in probe_launches):
         raise AssertionError(f"[12] the probe run launched another kernel: {launched}")
-    # at N = 131,072 V0, V1 and V2 run on their wgmma instances, every launch
+    # at N = 131,072 V0, V1, V2 and V3 run on their wgmma instances, every launch
     by_case = {r["case"]: r.get("launches", {}) for r in rows}
     for key, kernel, counter in (("V0", "conv_probe_v1", "conv_probe_v1_wgmma"),
                                  ("V1", "conv_probe_v1", "conv_probe_v1_wgmma_m32"),
-                                 ("V2", "conv_probe_v2", "conv_probe_v2_wgmma")):
+                                 ("V2", "conv_probe_v2", "conv_probe_v2_wgmma"),
+                                 ("V3", "conv_probe_v3", "conv_probe_v3_wgmma")):
         got = by_case[key]
         if not (got.get(kernel, 0) > 0 and got == {kernel: got[kernel], counter: got[kernel]}):
             raise AssertionError(f"[12] {key} did not run on its wgmma instance ({counter}) "
@@ -1936,8 +1989,7 @@ def main() -> int:
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
         if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
-            fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in"] - counts["conv3d_k3s2_dgrad_c1in_tc"]
-                         for run, counts in by_run.items()}
+            fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in_fp32"] for run, counts in by_run.items()}
             kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),
                                    "launches_by_run": fp32_runs}
         # an instance's own row counts on its tensor-core counter

@@ -93,14 +93,16 @@
 //        costs one float4 broadcast of g plus one load per column for 16 FMAs.
 //   Both write one fp32 partial per split of the voxel tiles; a second small
 //   kernel adds the partials in split order (no atomics: repeatable bits).
-//   F/J, three instances, picked by an explicit rule (dgrad_s2_instance,
+//   F/J, four instances, picked by an explicit rule (dgrad_s2_instance,
 //        which the wrapper reads through hvc_conv3d_k3s2_dgrad_tc): bf16 with
 //        Cin ≥ 8 and Cout ≥ 8 takes the tensor cores; bf16 with one dx
 //        channel, 8 ≤ Cout ≤ 64 and no act′ (stage 1's 1→64 stem, bound by
 //        reading g) the one-dx-channel tensor cores (dgrad_s2_c1_tc_kernel:
 //        taps as M, P[tap, g position] in shared memory, a parity gather; its
-//        comment has the design); fp32 (TF32 would leave the fp32 tolerances)
-//        and the rest the CUDA cores.
+//        comment has the design), the same call in fp32 its CUDA-core form
+//        (dgrad_s2_c1_f32_kernel: the same walk, P in fp32 FMAs); the rest of
+//        fp32 (TF32 would leave the fp32 tolerances) and of bf16 the CUDA
+//        cores.
 //   F/J on the tensor cores (dgrad_s2_tc_kernel): dx splits into 8 parity
 //        classes by the (z, y, x) parity of the voxel; a voxel at even index
 //        takes tap d = 1 along that dim, one at odd index d ∈ {0, 2}, so the
@@ -130,8 +132,9 @@
 //        read by the same 16-byte vectors and applied in fp32 before the one
 //        rounding to bf16. Each dx element has one writer: repeatable bits.
 //   F/J on the CUDA cores (dgrad_s2_kernel): one input voxel per thread and
-//        32 input channels per block in registers (at Cin = 1, 31 of them
-//        padding: the fp32 stem's data gradient); per chunk of 8 output
+//        32 input channels per block in registers (fewer dx channels pad
+//        them; the stem's one, without act′, takes its own instance in either
+//        dtype); per chunk of 8 output
 //        channels the block stages the 2×5×17 output-gradient patch its 8×32
 //        input tile reads and the chunk's weights [co][tap][ci] (rows padded
 //        to 36 floats against bank conflicts) in shared memory. Each voxel
@@ -1788,6 +1791,67 @@ constexpr int kF1Smem = 2 * kF1Buf * 2 + 27 * kF1Pt * 4 + 32 * kF1WLd * 2;  // 8
                                                                           // two blocks an SM
 static_assert(2 * kF1Ty == kF1Warps && kF1Tx == 32, "one warp a dx row, one lane a g column");
 
+// The dz part of dx row ry's two columns 2u (even) and 2u + 1 (odd) from P
+// ([tap][staged position], PT floats a tap, COLS positions a staged g row),
+// its dy terms in order: along each dimension an even dx index 2v takes d =
+// 1 from g index v, an odd one 2v + 1 takes d = 0 from v + 1, then d = 2 from
+// v; so row ry takes dy = 1 from g row ry / 2 (even) or dy = 0 from row (ry +
+// 1) / 2, then dy = 2 from row (ry − 1) / 2 (odd).
+template <int PT, int COLS>
+__device__ __forceinline__ void c1_part(const float* ps, int dz, int ry, int u, float& se,
+                                        float& so) {
+  const int ny = 1 + (ry & 1);
+  const int dy0 = ry & 1 ? 0 : 1, r0 = (ry + 1) >> 1, r1 = (ry - 1) >> 1;
+  se = so = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k >= ny) break;
+    const int dy = k ? 2 : dy0, r = k ? r1 : r0;
+    const float* pr = ps + (dz * 9 + dy * 3) * PT + r * COLS + u;
+    se += pr[PT];
+    so += pr[1] + pr[2 * PT];
+  }
+}
+
+// The one-dx-channel kernels' walk over g planes ozs … ozs + kF1Np (the
+// design is in dgrad_s2_c1_tc_kernel's comment): stage(oz, buf) starts the
+// copies of g plane oz into staging buffer buf (0 or 1) and products(buf)
+// writes P ([tap][position], PT floats a tap, COLS positions a staged row)
+// of that buffer's plane; each thread gathers its dx row ry's two columns
+// 2u, 2u + 1 from P (c1_part) and store(iz, even, odd) writes them to dx
+// plane iz (padding-1 index).
+template <int PT, int COLS, class Stage, class Products, class Store>
+__device__ __forceinline__ void c1_walk(int ozs, int Do, const float* ps, int ry, int u,
+                                        const Stage& stage, const Products& products,
+                                        const Store& store) {
+  auto in_g = [&](int oz) { return oz >= 0 && oz < Do; };
+  if (in_g(ozs)) stage(ozs, 0);
+  cp_async_commit();
+  float pend_e = 0.f, pend_o = 0.f;  // dz = 2 parts of dx plane 2·oz + 1
+  for (int i = 0; i <= kF1Np; ++i) {
+    const int oz = ozs + i;
+    if (i < kF1Np && in_g(oz + 1)) stage(oz + 1, (i + 1) & 1);
+    cp_async_commit();
+    float e0 = 0.f, o0 = 0.f, e1 = 0.f, o1 = 0.f, e2 = 0.f, o2 = 0.f;
+    if (in_g(oz)) {  // block-uniform branch
+      cp_async_wait<1>();
+      __syncthreads();  // plane oz is staged; the previous plane's P is no longer read
+      products(i & 1);
+      __syncthreads();  // P is complete
+      c1_part<PT, COLS>(ps, 0, ry, u, e0, o0);
+      if (i < kF1Np) {
+        c1_part<PT, COLS>(ps, 1, ry, u, e1, o1);
+        c1_part<PT, COLS>(ps, 2, ry, u, e2, o2);
+      }
+    }
+    if (i > 0) store(2 * oz - 1, pend_e + e0, pend_o + o0);
+    if (i < kF1Np) store(2 * oz, e1, o1);
+    pend_e = e2;
+    pend_o = o2;
+  }
+  cp_async_wait<0>();
+}
+
 // dx[iz, iy, ix] = Σ_{co, taps with 2·o + d − 1 = i along each dim} g[co, o] ·
 // w[co, 0, tap] for one dx channel, 8 ≤ Cout ≤ 64 and no act′ epilogue
 // (dgrad_s2_instance 2): _dgrad_s2's product with the taps as M. What bounds
@@ -1856,8 +1920,9 @@ dgrad_s2_c1_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
     for (int mt = 0; mt < 2; ++mt)
       if (kk < ks) load_a(a[kk][mt], ws, kF1WLd, mt * 16, kk * 16, lane);
 
-  // g plane oz into buffer dst: units of 8 columns of one row of one channel
-  auto stage = [&](int oz, bf16* dst) {
+  // g plane oz into buffer buf: units of 8 columns of one row of one channel
+  auto stage = [&](int oz, int buf) {
+    bf16* dst = gbuf + buf * kF1Buf;
     const int units = ks * 16 * kF1Rows * (kF1Cols / 8);
     for (int u = tid; u < units; u += kF1Threads) {
       const int v = u % (kF1Cols / 8), r = u / (kF1Cols / 8) % kF1Rows;
@@ -1887,7 +1952,8 @@ dgrad_s2_c1_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
 
   // P of the staged plane: warp w takes the 16-position groups w, w + 8; the
   // taps < 27 go to ps (the last group's positions past 199 are never read)
-  auto products = [&](const bf16* src) {
+  auto products = [&](int buf) {
+    const bf16* src = gbuf + buf * kF1Buf;
     for (int gi = warp; gi < kF1Groups; gi += kF1Warps) {
       const int n0 = gi * 16;
       float acc[2][2][4];
@@ -1923,24 +1989,8 @@ dgrad_s2_c1_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
     }
   };
 
-  // this thread's dx row ry = warp (even: dy = 1 from g row ry / 2; odd: dy = 0
-  // from row (ry + 1) / 2, then dy = 2 from row (ry − 1) / 2) and g column u
+  // this thread's dx row ry = warp and g column u
   const int ry = warp, u = lane;
-  const int ny = 1 + (ry & 1);
-  const int dy0 = ry & 1 ? 0 : 1, r0 = (ry + 1) >> 1, r1 = (ry - 1) >> 1;
-  // the dz part of this thread's two dx columns: even 2u (dx = 1 at u), odd
-  // 2u + 1 (dx = 0 at u + 1, then dx = 2 at u), its dy terms in order
-  auto part = [&](int dz, float& se, float& so) {
-    se = so = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      if (k >= ny) break;
-      const int dy = k ? 2 : dy0, r = k ? r1 : r0;
-      const float* pr = ps + (dz * 9 + dy * 3) * kF1Pt + r * kF1Cols + u;
-      se += pr[kF1Pt];
-      so += pr[1] + pr[2 * kF1Pt];
-    }
-  };
   const int iy = 2 * oy0 + ry, ix = 2 * (ox0 + u);
   const long long plane = static_cast<long long>(H) * W;
   bf16* dxb = dx + b * nv * plane + static_cast<long long>(iy) * W + ix;
@@ -1956,41 +2006,25 @@ dgrad_s2_c1_tc_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
     }
   };
 
-  auto in_g = [&](int oz) { return oz >= 0 && oz < Do; };
-  if (in_g(ozs)) stage(ozs, gbuf);
-  cp_async_commit();
-  float pend_e = 0.f, pend_o = 0.f;  // dz = 2 parts of dx plane 2·oz + 1
-  for (int i = 0; i <= kF1Np; ++i) {
-    const int oz = ozs + i;
-    if (i < kF1Np && in_g(oz + 1)) stage(oz + 1, gbuf + ((i + 1) & 1) * kF1Buf);
-    cp_async_commit();
-    float e0 = 0.f, o0 = 0.f, e1 = 0.f, o1 = 0.f, e2 = 0.f, o2 = 0.f;
-    if (in_g(oz)) {  // block-uniform branch
-      cp_async_wait<1>();
-      __syncthreads();  // plane oz is staged; the previous plane's P is no longer read
-      products(gbuf + (i & 1) * kF1Buf);
-      __syncthreads();  // P is complete
-      part(0, e0, o0);
-      if (i < kF1Np) {
-        part(1, e1, o1);
-        part(2, e2, o2);
-      }
-    }
-    if (i > 0) store(2 * oz - 1, pend_e + e0, pend_o + o0);
-    if (i < kF1Np) store(2 * oz, e1, o1);
-    pend_e = e2;
-    pend_o = o2;
-  }
-  cp_async_wait<0>();
+  c1_walk<kF1Pt, kF1Cols>(ozs, Do, ps, ry, u, stage, products, store);
+}
+
+// The one-dx-channel instances' grid: blocks of kF1Ty × kF1Tx g positions
+// (n_tx column tiles fastest, then n_ty row tiles) and kF1Np g planes.
+long long dgrad_s2_c1_tiles(int nv, int qlo, int H, int W, int& n_tx, int& n_ty) {
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  n_tx = (Wo + kF1Tx - 1) / kF1Tx;
+  n_ty = (Ho + kF1Ty - 1) / kF1Ty;
+  const int iz_lo = (qlo - 1) & ~1, iz_hi = qlo - 1 + nv;  // even start; one past the last
+  const int n_tz = (iz_hi - iz_lo + 2 * kF1Np - 1) / (2 * kF1Np);
+  return static_cast<long long>(n_tz) * n_ty * n_tx;
 }
 
 int launch_dgrad_s2_c1_tc(const void* g, const void* w, void* dx, long long batch, int cout,
                           int nv, int qlo, int H, int W, int Do, cudaStream_t stream) {
-  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const int n_tx = (Wo + kF1Tx - 1) / kF1Tx, n_ty = (Ho + kF1Ty - 1) / kF1Ty;
-  const int iz_lo = (qlo - 1) & ~1, iz_hi = qlo - 1 + nv;  // even start; one past the last
-  const int n_tz = (iz_hi - iz_lo + 2 * kF1Np - 1) / (2 * kF1Np);
-  const long long tiles = static_cast<long long>(n_tz) * n_ty * n_tx;
+  int n_tx = 0, n_ty = 0;
+  const long long tiles = dgrad_s2_c1_tiles(nv, qlo, H, W, n_tx, n_ty);
+  const int Wo = (W - 1) / 2 + 1;
   if (cout > kF1Co || tiles > 2147483647LL || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = Wo % 8 == 0 && W % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
@@ -2007,18 +2041,186 @@ int launch_dgrad_s2_c1_tc(const void* g, const void* w, void* dx, long long batc
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------- F/J with one dx channel in fp32 on the CUDA cores ---
+
+constexpr int kF1fCols = 36;                // staged g columns from ox0: the tile's 32 and the halo
+                                            // column, in 16-byte vectors (9)
+constexpr int kF1fLd = kF1Rows * kF1fCols;  // floats per staged channel: 180 (720 bytes)
+constexpr int kF1fTaps = 7;                 // taps a warp's products take: 4 groups, 28 ≥ 27
+constexpr int kF1fPos = 3;                  // staged positions a lane's products take
+constexpr int kF1fHalf = 32 * kF1fPos;      // positions a warp's products take: half a plane's
+constexpr int kF1fPt = 2 * kF1fHalf;        // P floats per tap: 192 ≥ 180 positions
+constexpr int kF1fTail = kF1fPt - kF1fLd;   // the last channel's over-read: 12 floats
+constexpr int kF1fBuf = kF1Co * kF1fLd + kF1fTail;  // floats per staging buffer
+constexpr int kF1fWLd = 4 * 8;              // floats per weight row: tap 7·group + j at 8·group + j
+constexpr int kF1fSmem = (2 * kF1fBuf + 27 * kF1fPt + kF1Co * kF1fWLd) * 4;  // 121,184 bytes:
+                                                                             // one block an SM
+static_assert(kF1fCols % 4 == 0 && kF1fCols > kF1Tx && 4 * kF1fTaps >= 27 && kF1fPt >= kF1fLd &&
+                  kF1fTaps < 8 && kF1Warps == 2 * 4,
+              "whole vectors holding the halo column; 4 tap groups × 2 position halves = 8 warps");
+
+// dgrad_s2_c1_tc_kernel's function in fp32 (dgrad_s2_instance 3): dx of one
+// dx channel from g and w in fp32, 8 ≤ Cout ≤ 64, no act′ — it replaces
+// hybrid_vit_cascade_tpu/ops/pallas/conv3d_k3s2.py::_dgrad_s2 at one input
+// channel, the stem's data gradient when the step runs in fp32. What
+// bounds it: reading g (8 × 1→64, g 32³ → dx 64³: 67.1 MB of g and 8.4 MB of
+// dx, 0.0225 ms at 3.35 TB/s; its 453 M useful multiply-adds take 0.0135 ms
+// at the 67 TFLOP/s fp32 rate). TF32 tensor cores would leave the fp32
+// tolerance, so the products run on the CUDA cores in fp32 FMAs; the
+// 32-channel layout of dgrad_s2_kernel would pad them 32-fold. The block,
+// its walk of 8 g planes, the staged window (5 g rows × 36 columns from
+// (oy0, ox0), zero outside g), P[tap, position] in shared memory and the
+// parity gather and store are dgrad_s2_c1_tc_kernel's; only the staging's
+// element type and the product step differ. Each g plane's channels arrive
+// by 16-byte cp.async as they lie ([co][row][column], two buffers: the next
+// plane lands under the current one's products and sums). Products P =
+// W[27 taps × Cout] · G[Cout × 192 positions]: warp w takes taps 7·(w % 4) …
+// + 6 (tap 27 of the last group is zero and not stored) and positions 96·(w /
+// 4) + lane + {0, 32, 64}, 21 fp32 accumulators a thread; per g channel, in
+// ascending order, it reads one g value per position (a warp's 32
+// neighbouring floats) and its 7 weights as two float4 broadcasts of one
+// [co][tap] row. Positions 180-191 read the next channel's first values (or
+// the buffer's zeroed tail) and land in P where the gather never reads. The
+// sums run in a fixed order and each dx element has one writer: no atomics,
+// two runs give the same bits. VEC: g's rows are 16-byte aligned (Wo a
+// multiple of 4) and dx's 8-byte aligned (W even), so g arrives by cp.async
+// and dx leaves in pairs; otherwise element by element.
+template <bool VEC>
+__global__ void __launch_bounds__(kF1Threads, 1)
+dgrad_s2_c1_f32_kernel(const float* __restrict__ g, const float* __restrict__ w,
+                       float* __restrict__ dx, int cout, int nv, int qlo, int H, int W, int Do,
+                       int n_tx, int n_ty) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* gbuf = reinterpret_cast<float*>(smem_raw);  // two planes' [co][row][column]
+  float* ps = gbuf + 2 * kF1fBuf;                    // [tap][position]
+  float* ws = ps + 27 * kF1fPt;                      // [co][group · 8 + j]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int tile = static_cast<int>(blockIdx.x);
+  const int ox0 = tile % n_tx * kF1Tx;
+  const int oy0 = tile / n_tx % n_ty * kF1Ty;
+  const int ozs = (((qlo - 1) & ~1) >> 1) + tile / (n_tx * n_ty) * kF1Np;
+  const long long b = blockIdx.y;
+  const long long oplane = static_cast<long long>(Ho) * Wo;
+  const float* gb = g + b * cout * Do * oplane;
+
+  // the weights, zero past tap 26; the buffers' tails past the last channel
+  for (int u = tid; u < kF1Co * kF1fWLd; u += kF1Threads) {
+    const int co = u / kF1fWLd, grp = u % kF1fWLd / 8, j = u % 8, tap = kF1fTaps * grp + j;
+    ws[u] = co < cout && j < kF1fTaps && tap < 27 ? w[co * 27 + tap] : 0.f;
+  }
+  if (tid < 2 * kF1fTail) gbuf[tid / kF1fTail * kF1fBuf + kF1Co * kF1fLd + tid % kF1fTail] = 0.f;
+
+  // g plane oz into buffer buf: units of 4 columns of one row of one channel
+  auto stage = [&](int oz, int buf) {
+    float* dst = gbuf + buf * kF1fBuf;
+    const int units = cout * kF1Rows * (kF1fCols / 4);
+    for (int u = tid; u < units; u += kF1Threads) {
+      const int v = u % (kF1fCols / 4), r = u / (kF1fCols / 4) % kF1Rows;
+      const int co = u / (kF1Rows * (kF1fCols / 4));
+      const int oy = oy0 + r, c = ox0 + 4 * v;
+      const bool row_ok = oy < Ho;
+      float* d = dst + co * kF1fLd + r * kF1fCols + 4 * v;
+      const float* src = gb + (static_cast<long long>(co) * Do + oz) * oplane +
+                         static_cast<long long>(oy) * Wo;
+      if (VEC) {
+        const bool ok = row_ok && c < Wo;  // Wo % 4 = 0: a vector is all in or out
+        cp_async16(d, ok ? src + c : g, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = row_ok && c + e < Wo ? src[c + e] : 0.f;
+      }
+    }
+  };
+
+  // P of the staged plane: warp w's taps 7·grp … and positions 96·half + lane …
+  const int grp = warp % 4, half = warp / 4;
+  auto products = [&](int buf) {
+    const float* src = gbuf + buf * kF1fBuf;
+    float acc[kF1fTaps][kF1fPos];
+#pragma unroll
+    for (int j = 0; j < kF1fTaps; ++j)
+#pragma unroll
+      for (int k = 0; k < kF1fPos; ++k) acc[j][k] = 0.f;
+    const float* gp = src + half * kF1fHalf + lane;
+    const float4* wp = reinterpret_cast<const float4*>(ws + 8 * grp);
+#pragma unroll 4
+    for (int co = 0; co < cout; ++co) {
+      const float4 wa = wp[co * (kF1fWLd / 4)], wb = wp[co * (kF1fWLd / 4) + 1];
+      const float wv[kF1fTaps] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z};
+      float gv[kF1fPos];
+#pragma unroll
+      for (int k = 0; k < kF1fPos; ++k) gv[k] = gp[co * kF1fLd + 32 * k];
+#pragma unroll
+      for (int j = 0; j < kF1fTaps; ++j)
+#pragma unroll
+        for (int k = 0; k < kF1fPos; ++k) acc[j][k] = fmaf(wv[j], gv[k], acc[j][k]);
+    }
+#pragma unroll
+    for (int j = 0; j < kF1fTaps; ++j) {
+      const int tap = kF1fTaps * grp + j;
+      if (tap < 27)
+#pragma unroll
+        for (int k = 0; k < kF1fPos; ++k)
+          ps[tap * kF1fPt + half * kF1fHalf + lane + 32 * k] = acc[j][k];
+    }
+  };
+
+  // this thread's dx row ry = warp and g column u
+  const int ry = warp, u = lane;
+  const int iy = 2 * oy0 + ry, ix = 2 * (ox0 + u);
+  const long long plane = static_cast<long long>(H) * W;
+  float* dxb = dx + b * nv * plane + static_cast<long long>(iy) * W + ix;
+  auto store = [&](int iz, float ve, float vo) {
+    const int pv = iz - (qlo - 1);
+    if (pv < 0 || pv >= nv || iy >= H || ix >= W) return;
+    float* dst = dxb + pv * plane;
+    if (VEC) {
+      *reinterpret_cast<float2*>(dst) = make_float2(ve, vo);
+    } else {
+      dst[0] = ve;
+      if (ix + 1 < W) dst[1] = vo;
+    }
+  };
+
+  c1_walk<kF1fPt, kF1fCols>(ozs, Do, ps, ry, u, stage, products, store);
+}
+
+int launch_dgrad_s2_c1_f32(const void* g, const void* w, void* dx, long long batch, int cout,
+                           int nv, int qlo, int H, int W, int Do, cudaStream_t stream) {
+  int n_tx = 0, n_ty = 0;
+  const long long tiles = dgrad_s2_c1_tiles(nv, qlo, H, W, n_tx, n_ty);
+  if (cout > kF1Co || tiles > 2147483647LL || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Wo = (W - 1) / 2 + 1;
+  const bool vec = Wo % 4 == 0 && W % 2 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 8 == 0;
+  auto kern = vec ? dgrad_s2_c1_f32_kernel<true> : dgrad_s2_c1_f32_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kF1fSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)), kF1Threads, kF1fSmem,
+         stream>>>(static_cast<const float*>(g), static_cast<const float*>(w),
+                   static_cast<float*>(dx), cout, nv, qlo, H, W, Do, n_tx, n_ty);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instance a call takes, an explicit rule (no fallback): 1, bf16 with Cin
 // ≥ 8 and Cout ≥ 8 → the tensor cores (dgrad_s2_tc_kernel); 2, bf16 with one
 // dx channel, 8 ≤ Cout ≤ 64 and no act′ epilogue — the data gradient of
 // stage 1's 1→64 stem — → the one-dx-channel tensor cores
 // (dgrad_s2_c1_tc_kernel; act′ would be the backward of a prologue, which
-// the stem's input, the broadcast initial volume, has not); 0, fp32 (tensor
-// cores would mean TF32, outside the fp32 tolerances) and the rest → the
-// CUDA-core dgrad_s2_kernel. The wrapper reads it through
+// the stem's input, the broadcast initial volume, has not); 3, the same call
+// in fp32 → its CUDA-core form (dgrad_s2_c1_f32_kernel); 0, the rest of
+// fp32 (tensor cores would mean TF32, outside the fp32 tolerances) and of
+// bf16 → the CUDA-core dgrad_s2_kernel. The wrapper reads it through
 // hvc_conv3d_k3s2_dgrad_tc (ops/cuda/conv3d_k3.py: dgrad_s2_instance states it
 // for the CPU).
 int dgrad_s2_instance(bool bf16, int cin, int cout, int dact) {
-  if (!bf16) return 0;
+  if (!bf16) return cin == 1 && cout >= 8 && cout <= kF1Co && dact == 0 ? 3 : 0;
   if (cin >= 8 && cout >= 8) return 1;
   return cin == 1 && cout >= 8 && cout <= kF1Co && dact == 0 ? 2 : 0;
 }
@@ -2057,11 +2259,12 @@ extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* w
                                      int Do, int qlo, int dact, const void* dact_x, long long db,
                                      long long dc, int dtype, void* stream) {
   if (batch <= 0 || cin <= 0 || cout <= 0 || nv <= 0 || H <= 0 || W <= 0 || Do <= 0 ||
-      dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr))
+      dact < 0 || dact > 2 || (dact != 0) != (dact_x != nullptr) || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int instance = dgrad_s2_instance(dtype == 1, cin, cout, dact);
   if (instance == 2) return launch_dgrad_s2_c1_tc(g, w, dx, batch, cout, nv, qlo, H, W, Do, s);
+  if (instance == 3) return launch_dgrad_s2_c1_f32(g, w, dx, batch, cout, nv, qlo, H, W, Do, s);
   if (instance == 1)
     return dact ? launch_dgrad_s2_tc<true>(g, wtc, dx, batch, cin, cout, nv, qlo, H, W, Do, dact,
                                            dact_x, db, dc, s)
@@ -2078,8 +2281,8 @@ extern "C" int hvc_conv3d_k3s2_dgrad(const void* g, const void* w, const void* w
 // The instance hvc_conv3d_k3s2_dgrad runs a call with these channel counts
 // (Cin of dx, Cout of g), act′ epilogue (dact code) and dtype (0 = float32,
 // 1 = bfloat16) on: 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8), 2 the
-// one-dx-channel tensor cores; the rule of its dispatch, which the wrapper
-// counts launches by.
+// one-dx-channel tensor cores, 3 the one-dx-channel CUDA-core form in fp32;
+// the rule of its dispatch, which the wrapper counts launches by.
 extern "C" int hvc_conv3d_k3s2_dgrad_tc(int cin, int cout, int dact, int dtype) {
   return dgrad_s2_instance(dtype == 1, cin, cout, dact);
 }

@@ -25,7 +25,7 @@
 // Every operand is bf16, row-major and contiguous; products accumulate in
 // fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // fragments loaded from shared memory with ldmatrix; the helpers are in
-// mma_sm90.cuh; V0, V1 and V2 on wgmma.mma_async fed by TMA, helpers in
+// mma_sm90.cuh; V0, V1, V2 and V3 on wgmma.mma_async fed by TMA, helpers in
 // wgmma_sm90.cuh) and the output is fp32.
 // A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
 // the r axis is a loop inside one launch. The grid is persistent (as many
@@ -45,13 +45,13 @@
 // with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2.
 //
 // Design. Three templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
-// are not carried over. V0, V1 (N a multiple of 8) and V2 run on wgmma fed
-// by TMA (probe_gemm_wgmma, its comment has the design); the rest on
+// are not carried over. V0, V1, V3 (N a multiple of 8) and V2 run on wgmma
+// fed by TMA (probe_gemm_wgmma, its comment has the design); the rest on
 // mma.sync, the simplest tensor-core path (no TMA, no wgmma, no warp
 // specialisation); what each variant probes is kept:
 //
-// - probe_gemm (V3; V1 at a ragged N; the old V1 and V2 instances, which
-//   scripts/probe_variants.py still reaches): C[M, Nc] = A[M, K] · B[K, Nc],
+// - probe_gemm (V1 and V3 at a ragged N; the old V1, V2 and V3 instances,
+//   which scripts/probe_variants.py still reaches): C[M, Nc] = A[M, K] · B[K, Nc],
 //   both row-major in global memory, so the orientation is which array is A:
 //   W (V1, V0, V3: M = Cout, the streamed P is B) or Pᵀ (V2: M = the spatial
 //   rows, the 32-column Wᵀ is B). K runs in chunks of 64 through a 3-stage
@@ -393,7 +393,7 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 // ------------------------------------------------------ probe_gemm_wgmma ---
 
 // C[M, Nc] fp32 = A[M, K] · B[K, Nc] on wgmma for `repeats` passes, A bf16
-// row-major (K a multiple of 64). Three instances of one template, each a
+// row-major (K a multiple of 64). Four instances of one template, each a
 // TPU probe's orientation:
 //
 // - V0 (make_v1 at m = 256; WgV0): A = W, B = P read MN-major (the [K][N]
@@ -403,6 +403,12 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 //   with zeros, their products dropped at the store), B = P MN-major, 64 rows
 //   × 256 columns a work item. Half of each product is waste: the measured
 //   cost of Cout = 32 as wgmma's M.
+// - V3 (v3; WgV3): V1's instance with W27 tap-major: K chunk t is tap t, so
+//   its A box is the 64 rows from row 32t of W27 (864 × 64), not the 64 k
+//   from column 64t of W. Rows 32-63 of the box are tap t + 1's weights (for
+//   t = 26 past row 863: zeros from TMA); their products land in accumulator
+//   rows 32-63, which the store box clips as it does V1's. The bound and the
+//   floor are V1's: every pass streams P (1728 × N) and rewrites the output.
 // - V2 (v2; WgV2): A = Pᵀ (spatial rows as M, K-major), B = Wᵀ with Cout = 32
 //   as wgmma's N, 256 rows × 32 columns a work item. Wᵀ (110,592 bytes at K
 //   = 1728) stays in shared memory for the block's life, as the TPU kernel
@@ -423,7 +429,7 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 // 64 k; B: MN-major boxes of 64 k × 64 columns, or a K-major box of the
 // item's columns × 64 k), completion on the chunk's `full` mbarrier. CONS
 // consumer warpgroups each own MT m64 tiles × NT n-blocks of WN columns (V0:
-// two warpgroups of 128 rows × 128; V1: one of 64 × 256; V2: two of 128 × 32)
+// two warpgroups of 128 rows × 128; V1, V3: one of 64 × 256; V2: two of 128 × 32)
 // and issue, per k16 step, one wgmma.mma_async m64n{WN}k16 per tile (A
 // K-major from its rows, B by descriptor), MT·NT·WN/2 fp32 accumulators a
 // thread, then free the chunk (its `empty` mbarrier, one arrival per
@@ -431,7 +437,7 @@ __global__ void __launch_bounds__(WARPS_M* WARPS_N * 32)
 // writes 64 rows × 32 columns of its accumulators at a time into its own 8 KB
 // buffer, in the 128-byte swizzle of one TMA store box (conflict-free float2
 // writes from the fragments), and one thread stores it by TMA, which clips
-// the ragged edge (and V1's rows 32-63); the buffer is reused once the store
+// the ragged edge (and V1's and V3's rows 32-63); the buffer is reused once the store
 // has read it. Persistent grid walking the work items r·tiles + tile in
 // order, N-major (tile = n·tiles_m + m), so every pass re-reads P from global
 // memory and rewrites the whole output, as the TPU probe's r axis does.
@@ -451,10 +457,12 @@ constexpr uint32_t kWgLboA = 16;  // unused by a swizzled K-major operand
 
 enum WgB { kBStreamMN = 0, kBStreamK = 1, kBResidentK = 2 };  // where B comes from
 
-template <int CONS_, int MT_, int NT_, int WN_, int STAGES_, int BMODE_>
+// TAP_A (V3): A is W27 tap-major, K chunk t's box its rows 32t … 32t + 63.
+template <int CONS_, int MT_, int NT_, int WN_, int STAGES_, int BMODE_, bool TAP_A_ = false>
 struct WgCfg {
   static constexpr int CONS = CONS_, MT = MT_, NT = NT_, WN = WN_, STAGES = STAGES_,
                        BMODE = BMODE_;
+  static constexpr bool TAP_A = TAP_A_;
   static constexpr int BM = CONS * MT * 64;  // rows of a work item
   static constexpr int BN = NT * WN;         // columns of a work item
   static constexpr int ABytes = BM * 128;    // A rows [BM][64 k], swizzled
@@ -471,13 +479,16 @@ struct WgCfg {
   static_assert((WN == 128 || WN == 32) && WN % kWgOutBox == 0 && BM <= 256 && StageBytes % 1024 == 0,
                 "an m64n128 or m64n32 product, whole store boxes, one TMA box of A rows");
   static_assert(BMODE != kBStreamMN || WN % kWgBox == 0, "whole MN-major B boxes");
+  static_assert(!TAP_A || BM == 64, "a tap-major A box is one m64 tile");
 };
 using WgV0 = WgCfg<2, 2, 1, 128, 4, kBStreamMN>;   // 214,080 bytes of shared memory
 using WgV1 = WgCfg<1, 1, 2, 128, 5, kBStreamMN>;   // 214,096
+using WgV3 = WgCfg<1, 1, 2, 128, 5, kBStreamMN, true>;  // 214,096
 using WgV2 = WgCfg<2, 2, 1, 32, 3, kBResidentK>;   // 226,352 at K = 1728
 using WgV2Streamed = WgCfg<2, 2, 1, 32, 5, kBStreamK>;  // 201,808
 static_assert(WgV0::smem(1728) <= kWgSmemMax && WgV1::smem(1728) <= kWgSmemMax &&
-                  WgV2::smem(1728) <= kWgSmemMax && WgV2Streamed::smem(1728) <= kWgSmemMax,
+                  WgV3::smem(1728) <= kWgSmemMax && WgV2::smem(1728) <= kWgSmemMax &&
+                  WgV2Streamed::smem(1728) <= kWgSmemMax,
               "the card's shared memory");
 
 template <int WN, int TRANS_B>
@@ -547,7 +558,10 @@ __global__ void __launch_bounds__(Cfg::Threads, 1)
           mbar_wait(&empty[s], phase ^ 1);  // the consumers freed this chunk (free at first)
           unsigned char* st = smem + s * Cfg::StageBytes;
           mbar_arrive_expect_tx(&full[s], Cfg::StageBytes);
-          tma_load_2d(st, &map_a, &full[s], kc * kWgBK, m0);
+          if constexpr (Cfg::TAP_A)
+            tma_load_2d(st, &map_a, &full[s], 0, kc * kGroup + m0);  // tap kc's rows, then kc + 1's
+          else
+            tma_load_2d(st, &map_a, &full[s], kc * kWgBK, m0);
           if constexpr (Cfg::BMODE == kBStreamMN) {
 #pragma unroll
             for (int b = 0; b < BN / kWgBox; ++b)
@@ -730,22 +744,25 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The wgmma instance Cfg on A (M × K) and B: the [K][Nc] rows of P
-// (kBStreamMN), W as Nc = BN rows of K (kBStreamK) or Wᵀ as K rows of Nc = BN
-// (kBResidentK, read by the threads, no tensor map). The tensor maps need
-// 16-byte row pitches (K a multiple of 64; Nc of 8 for an MN-major B, of 4
-// for the fp32 output) and 16-byte aligned bases.
+// The wgmma instance Cfg on A (M × K; with TAP_A, W27: K / 64 taps of 32
+// rows × 64, M ≤ 32) and B: the [K][Nc] rows of P (kBStreamMN), W as Nc = BN
+// rows of K (kBStreamK) or Wᵀ as K rows of Nc = BN (kBResidentK, read by the
+// threads, no tensor map). The tensor maps need 16-byte row pitches (K a
+// multiple of 64; Nc of 8 for an MN-major B, of 4 for the fp32 output) and
+// 16-byte aligned bases.
 template <class Cfg>
 cudaError_t gemm_wgmma(const void* a, const void* b, void* c, int M, int Nc, int K, int repeats,
                        cudaStream_t stream) {
   const int smem = Cfg::smem(K);
   if (M < 1 || Nc < 1 || K < kWgBK || K % kWgBK != 0 || Nc % 4 != 0 || smem > kWgSmemMax ||
       (Cfg::BMODE == kBStreamMN ? Nc % 8 != 0 : Nc != Cfg::BN) ||
-      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
-      reinterpret_cast<uintptr_t>(c) % 16)
+      (Cfg::TAP_A && M > kGroup) || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || reinterpret_cast<uintptr_t>(c) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb, mc;
-  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, Cfg::BM, kWgBK) ||
+  const long long a_rows = Cfg::TAP_A ? (long long)(K / kWgBK) * kGroup : M;
+  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_rows, Cfg::TAP_A ? kWgBK : K,
+                  Cfg::BM, kWgBK) ||
       !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c, M, Nc, 64, kWgOutBox))
     return cudaErrorInvalidValue;
   if (Cfg::BMODE == kBResidentK)
@@ -818,6 +835,28 @@ cudaError_t run_v2(int instance, const void* pt, const void* w, void* out, int k
   }
   return cudaErrorInvalidValue;
 }
+
+// The instances of hvc_probe_v3 (v3: out (32, n) = Σ_t w27[32t:32t+32] ·
+// p[64t:64t+64]).
+enum V3Instance {
+  kV3Mma = 0,    // mma.sync, 32 × 128 tiles (V3's before wgmma)
+  kV3Wgmma = 1,  // WgV3: V1's wgmma instance, A boxes of W27 tap-major
+};
+
+// The rule of hvc_probe_v3, an instance code: with 16-byte row pitches of P
+// and the output for the tensor maps (n a multiple of 8) WgV3, otherwise the
+// 32 × 128 mma.sync tiles.
+int v3_instance(int n) { return n % 8 == 0 ? kV3Wgmma : kV3Mma; }
+
+cudaError_t run_v3(int instance, const void* w27, const void* p, void* out, int n, int repeats,
+                   int aligned, cudaStream_t s) {
+  switch (instance) {
+    case kV3Mma:
+      return gemm_any<32, 128, 1, 4, true>(w27, p, out, kGroup, n, 27 * kBK, repeats, aligned, s);
+    case kV3Wgmma: return gemm_wgmma<WgV3>(w27, p, out, kGroup, n, 27 * kWgBK, repeats, s);
+  }
+  return cudaErrorInvalidValue;
+}
 }  // namespace
 
 // Entry points: bf16 operands, row-major and contiguous, 16-byte aligned
@@ -868,11 +907,23 @@ int hvc_probe_v2_instance(const void* pt, const void* w, void* out, int k, int n
   return run_v2(instance, pt, w, out, k, n, repeats, static_cast<cudaStream_t>(stream));
 }
 
-// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · p[64t:64t+64] (64, n); p (1728, n)
+// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · p[64t:64t+64] (64, n); p (1728, n);
+// on the instance hvc_probe_v3_rule names.
 int hvc_probe_v3(const void* w27, const void* p, void* out, int n, int repeats, int aligned,
                  void* stream) {
-  return gemm_any<32, 128, 1, 4, true>(w27, p, out, 32, n, 27 * 64, repeats, aligned,
-                                       static_cast<cudaStream_t>(stream));
+  return run_v3(v3_instance(n), w27, p, out, n, repeats, aligned,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The instance code hvc_probe_v3 runs a call of n columns on (V3Instance: 0
+// mma.sync, 1 WgV3), the rule the wrapper counts its launches by.
+int hvc_probe_v3_rule(int n) { return v3_instance(n); }
+
+// hvc_probe_v3 on a named instance (V3Instance), for comparing them
+// (scripts/probe_variants.py); the wgmma instance needs n a multiple of 8.
+int hvc_probe_v3_instance(const void* w27, const void* p, void* out, int n, int repeats,
+                          int aligned, int instance, void* stream) {
+  return run_v3(instance, w27, p, out, n, repeats, aligned, static_cast<cudaStream_t>(stream));
 }
 
 // out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · x (64, n)

@@ -34,13 +34,15 @@ def launch_counts() -> Dict[str, int]:
     channel, the forward of a 1-channel conv), conv3d_k3s2_c1in_tc (C and I
     likewise), conv3d_k3s1_wgrad_c1in_tc (E and K at stride 1 with one input
     channel), conv3d_k3s2_wgrad_c1in_tc (G and K at stride 2 likewise),
-    conv3d_k3s2_dgrad_c1in_tc (F and J with one dx channel), conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and
+    conv3d_k3s2_dgrad_c1in_tc (F and J with one dx channel),
+    conv3d_k3s2_dgrad_c1in_fp32 (those in fp32, on their CUDA-core form),
+    conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and
     conv3d_k3s2_wgrad_c1in (C/I, F/J and G/K with one input channel: the 1→64
     stem, whichever instance),
     and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N), conv_probe_v1_wgmma and
     conv_probe_v1_wgmma_m32 (those of conv_probe_v1 on V0's and V1's wgmma
-    instances), conv_probe_v2_wgmma (those of conv_probe_v2 on its wgmma
-    instance)."""
+    instances), conv_probe_v2_wgmma and conv_probe_v3_wgmma (those of
+    conv_probe_v2 and conv_probe_v3 on their wgmma instances)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
     from . import flash_attention as fa

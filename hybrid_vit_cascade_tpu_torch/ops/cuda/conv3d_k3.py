@@ -56,7 +56,8 @@ channel (bf16: instance 2 at stride 1, 3 at stride 2) to
 Cout ≥ 8: instance 1 of ``dgrad_s2_instance``) to ``conv3d_k3s2_dgrad_tc``
 when dense and ``conv3d_k3s2_chain_dgrad_tc`` otherwise, and one with one dx
 channel (bf16, 8 ≤ Cout ≤ 64, no act′: instance 2), the data gradient of the
-1→64 stem, to ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain). The stride-2 kernels with one
+1→64 stem, to ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain), the same call in
+fp32 (instance 3, its CUDA-core form) to ``conv3d_k3s2_dgrad_c1in_fp32``. The stride-2 kernels with one
 input channel also count in ``conv3d_k3s2_c1in``, ``conv3d_k3s2_dgrad_c1in``
 and ``conv3d_k3s2_wgrad_c1in``, whichever instance they take.
 """
@@ -117,10 +118,10 @@ _S2_TC_CI = 16
 # The stride-2 data gradient's instances (csrc/conv3d_k3_bwd.cu, the codes of
 # hvc_conv3d_k3s2_dgrad_tc): 0 the CUDA cores, 1 the tensor cores (Cin ≥ 8),
 # 2 the one-dx-channel tensor cores (8 ≤ Cout ≤ DGRAD_C1_CO_MAX, the g
-# channels a block holds). The tensor-core instance: dx channels per block (M)
-# and output-gradient channels per chunk (one k16 step a tap), the blocks of
-# its weight layout (s2_dgrad_tc_weights).
-DGRAD_S2_CUDA_CORE, DGRAD_S2_TC, DGRAD_S2_C1_TC = 0, 1, 2
+# channels a block holds), 3 their CUDA-core form in fp32. The tensor-core
+# instance: dx channels per block (M) and output-gradient channels per chunk
+# (one k16 step a tap), the blocks of its weight layout (s2_dgrad_tc_weights).
+DGRAD_S2_CUDA_CORE, DGRAD_S2_TC, DGRAD_S2_C1_TC, DGRAD_S2_C1_FP32 = 0, 1, 2, 3
 DGRAD_C1_CO_MAX = 64
 _DGRAD_TC_CI = 32
 _DGRAD_TC_CO = 16
@@ -545,15 +546,16 @@ def dgrad_s2_instance(dtype: torch.dtype, cin: int, cout: int, dact: bool = Fals
     (dx's and g's channels): DGRAD_S2_TC, bf16 with Cin ≥ 8 and Cout ≥ 8;
     DGRAD_S2_C1_TC, bf16 with Cin = 1, 8 ≤ Cout ≤ 64 and no act′ epilogue
     (``dact``) — the data gradient of stage 1's 1→64 stem, bound by reading g
-    (``dgrad_s2_c1_tc_kernel``: the taps as M); DGRAD_S2_CUDA_CORE, fp32
-    (TF32 would leave the fp32 tolerances) and the rest."""
+    (``dgrad_s2_c1_tc_kernel``: the taps as M); DGRAD_S2_C1_FP32, the same
+    call in fp32 (``dgrad_s2_c1_f32_kernel``: that kernel's walk with the
+    products in fp32 FMAs, TF32 being outside the fp32 tolerances);
+    DGRAD_S2_CUDA_CORE, the rest of fp32 and of bf16."""
+    c1 = cin == 1 and 8 <= cout <= DGRAD_C1_CO_MAX and not dact
     if dtype != torch.bfloat16:
-        return DGRAD_S2_CUDA_CORE
+        return DGRAD_S2_C1_FP32 if c1 else DGRAD_S2_CUDA_CORE
     if cin >= 8 and cout >= 8:
         return DGRAD_S2_TC
-    if cin == 1 and 8 <= cout <= DGRAD_C1_CO_MAX and not dact:
-        return DGRAD_S2_C1_TC
-    return DGRAD_S2_CUDA_CORE
+    return DGRAD_S2_C1_TC if c1 else DGRAD_S2_CUDA_CORE
 
 
 def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
@@ -563,7 +565,8 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
     tensor cores also counts in ``conv3d_k3s2_dgrad_tc`` (``dense``) or
     ``conv3d_k3s2_chain_dgrad_tc`` and reads the weights in
     ``s2_dgrad_tc_weights``'s layout, one on the one-dx-channel tensor cores
-    in ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain)."""
+    in ``conv3d_k3s2_dgrad_c1in_tc`` (dense and chain), one on their fp32
+    form in ``conv3d_k3s2_dgrad_c1in_fp32``."""
     _check_cuda(g)
     _check_view("g", g, g.dtype, g.device)
     B, cin, nv, H, W = x_shape
@@ -598,6 +601,8 @@ def _dgrad_s2(g: torch.Tensor, w: torch.Tensor, x_shape, qlo: int,
         LAUNCHES[_counter("_dgrad_tc", 2, dense)] += 1
     elif instance == DGRAD_S2_C1_TC:
         LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"] += 1
+    elif instance == DGRAD_S2_C1_FP32:
+        LAUNCHES["conv3d_k3s2_dgrad_c1in_fp32"] += 1
     if cin == 1:
         LAUNCHES["conv3d_k3s2_dgrad_c1in"] += 1
     return dx
@@ -702,7 +707,8 @@ def conv3d_k3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int, qlo: int,
 # conv3d_k3s1_wgrad_c1in_tc, those of E and K at stride 1 with one input
 # channel on the one-input-channel weight gradient, conv3d_k3s2_wgrad_c1in_tc
 # those of G and K at stride 2 (the 1→64 stem); conv3d_k3s2_dgrad_c1in_tc,
-# those of F and J with one dx channel on the one-dx-channel tensor cores;
+# those of F and J with one dx channel on the one-dx-channel tensor cores,
+# conv3d_k3s2_dgrad_c1in_fp32 those on its fp32 form;
 # conv3d_k3s2_c1in, conv3d_k3s2_dgrad_c1in and conv3d_k3s2_wgrad_c1in, those
 # of C/I, F/J and G/K at stride 2 with one input channel (the 1→64 stem),
 # whichever instance they take.
@@ -712,6 +718,7 @@ LAUNCHES = {**{_counter(kind, s, dense): 0
             "conv3d_k3s1_dgrad_c1_tc": 0, "conv3d_k3s1_chain_dgrad_c1_tc": 0,
             "conv3d_k3s1_c1in_tc": 0, "conv3d_k3s1_chain_c1in_tc": 0,
             "conv3d_k3s2_c1in_tc": 0, "conv3d_k3s2_dgrad_c1in_tc": 0,
+            "conv3d_k3s2_dgrad_c1in_fp32": 0,
             "conv3d_k3s1_wgrad_c1in_tc": 0, "conv3d_k3s2_wgrad_c1in_tc": 0,
             "conv3d_k3s2_c1in": 0, "conv3d_k3s2_dgrad_c1in": 0,
             "conv3d_k3s2_wgrad_c1in": 0,

@@ -19,9 +19,10 @@ device it raises. It never falls back from the kernel to the plain version.
 Each launch adds one to the wrapper's counter in ``LAUNCHES``; a launch on a
 wgmma instance also adds one to that instance's counter: ``probe_v1`` on
 V0's (``probe_v1_instance`` = ``V1_WGMMA_V0``) to ``conv_probe_v1_wgmma``, on
-V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, and every
-``probe_v2`` launch (``probe_v2_instance`` = ``V2_WGMMA``) to
-``conv_probe_v2_wgmma``.
+V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, every ``probe_v2``
+launch (``probe_v2_instance`` = ``V2_WGMMA``) to ``conv_probe_v2_wgmma``,
+and ``probe_v3`` on its wgmma instance (``probe_v3_instance`` =
+``V3_WGMMA``) to ``conv_probe_v3_wgmma``.
 """
 
 from __future__ import annotations
@@ -46,21 +47,27 @@ _V1_RULE_ARGTYPES = (_I, _I, _I)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # hvc_probe_v2_rule(k, n): the instance code hvc_probe_v2 takes (-1: none)
 _V2_RULE_ARGTYPES = (_I, _I)
+# hvc_probe_v3_rule(n): the instance code hvc_probe_v3 takes
+_V3_RULE_ARGTYPES = (_I,)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
 LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
-            "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0}
-# The instance codes of hvc_probe_v1 and hvc_probe_v2 (V1Instance,
-# V2Instance in csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128
-# mma.sync tiles, V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma
-# instance with wt resident (WgV2).
+            "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0,
+            "conv_probe_v3_wgmma": 0}
+# The instance codes of hvc_probe_v1, hvc_probe_v2 and hvc_probe_v3
+# (V1Instance, V2Instance, V3Instance in csrc/conv_probe.cu): V1 on the
+# 32 × 128 or the 128 × 128 mma.sync tiles, V0's wgmma instance (WgV0), V1's
+# (WgV1); V2 on its wgmma instance with wt resident (WgV2); V3 on the 32 × 128
+# mma.sync tiles or on its wgmma instance (WgV3).
 V1_MMA_NARROW, V1_MMA_WIDE, V1_WGMMA_V0, V1_WGMMA_M32 = 0, 1, 2, 3
 V2_WGMMA = 1
+V3_MMA, V3_WGMMA = 0, 1
 _INSTANCE_COUNTERS = {("v1", V1_WGMMA_V0): "conv_probe_v1_wgmma",
                       ("v1", V1_WGMMA_M32): "conv_probe_v1_wgmma_m32",
-                      ("v2", V2_WGMMA): "conv_probe_v2_wgmma"}
+                      ("v2", V2_WGMMA): "conv_probe_v2_wgmma",
+                      ("v3", V3_WGMMA): "conv_probe_v3_wgmma"}
 # The wgmma instances' rows per m64 tile, the row pitch their tensor maps
 # need (16 bytes: 8 bf16 of P), the most rows V1's instance takes (one
 # half-filled m64 tile) and the deepest wt V2's keeps in shared memory.
@@ -277,22 +284,38 @@ def probe_v2(p: torch.Tensor, w: torch.Tensor, repeats: int) -> torch.Tensor:
     return _launch("v2", _V2_ARGTYPES, p, w, out, k, n, repeats, instance=instance)
 
 
+def probe_v3_instance(n: int) -> int:
+    """The instance ``probe_v3`` takes, the rule of ``v3_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v3_rule``: with N a
+    multiple of 8 (16-byte rows of P and the output for the tensor maps)
+    ``V3_WGMMA`` (``probe_gemm_wgmma<WgV3>``: V1's wgmma instance with K chunk
+    t's A box the 64 rows of w27 from row 32t), otherwise the 32 × 128
+    mma.sync instance (``V3_MMA``)."""
+    return V3_WGMMA if n % WGMMA_N_ALIGN == 0 else V3_MMA
+
+
 def _tap_probe(variant: str, plain, w: torch.Tensor, x: torch.Tensor, w_shape: tuple,
-               x_rows: int, repeats: int) -> torch.Tensor:
+               x_rows: int, repeats: int, rule=None) -> torch.Tensor:
+    """A wrapper of the tap-sum probes (out (32, N)); ``rule``: the C entry
+    point naming the instance a call of N columns takes, if it has several."""
     _check_repeats(repeats)
     _check("w", w, w_shape, x.device)
     _check("x", x, (x_rows, None), x.device)
     if not _on_card(w, x):
         return plain(w, x, repeats)
     n = x.shape[1]
+    instance = -1 if rule is None else _build.function(rule, _V3_RULE_ARGTYPES)(n)
     out = torch.empty((COUT, n), dtype=torch.float32, device=x.device)
-    return _launch(variant, _TAP_ARGTYPES, w, x, out, n, repeats, int(n % 8 == 0))
+    return _launch(variant, _TAP_ARGTYPES, w, x, out, n, repeats, int(n % 8 == 0),
+                   instance=instance)
 
 
 def probe_v3(w27: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v3``: out (32, N) = Σ_{t<27} w27[32t:32t+32] · p[64t:64t+64];
-    w27 (864, 64), p (1728, N): 27 shifted K = 64 dots."""
-    return _tap_probe("v3", probe_v3_plain, w27, p, (TAPS * COUT, CIN), K, repeats)
+    w27 (864, 64), p (1728, N): 27 shifted K = 64 dots; on the instance
+    ``probe_v3_instance`` names."""
+    return _tap_probe("v3", probe_v3_plain, w27, p, (TAPS * COUT, CIN), K, repeats,
+                      rule="hvc_probe_v3_rule")
 
 
 def probe_v3p(w27: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""The V0, V1 and V2 probe GEMMs on each of their instances, beside cuBLAS.
+"""The V0, V1, V2 and V3 probe GEMMs on each of their instances, beside cuBLAS.
 
-    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2] [--sizes N ...]
+    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3] [--sizes N ...]
         [--out FILE]
 
 Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
-``hvc_probe_v1_instance`` and ``hvc_probe_v2_instance`` in
-``csrc/conv_probe.cu``):
+``hvc_probe_v1_instance``, ``hvc_probe_v2_instance`` and
+``hvc_probe_v3_instance`` in ``csrc/conv_probe.cu``):
 
 - V0, ``make_v1`` at m = 256: out (256, N) = W (256, 1728) · P (1728, N) on
   (a) the 128 × 128 mma.sync instance as it walks, every N tile of M tile 0
@@ -21,9 +21,13 @@ Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
   (WgV2: Wᵀ resident in shared memory, a three-chunk ring); (c) the same with
   a 4 KB chunk of W streamed beside each chunk of Pᵀ instead (WgV2Streamed,
   a five-chunk ring; W passed transposed, 32 × 1728);
+- V3, ``v3``: out (32, N) = Σ_{t<27} W27[32t:32t+32] · P[64t:64t+64] on (a)
+  the 32 × 128 mma.sync instance it took before wgmma and still takes at a
+  ragged N; (b) the wgmma instance it takes (WgV3: V1's, with K chunk t's A
+  box the 64 rows of W27 from row 32t);
 
 each beside one cuBLAS call over the same operands (``torch.mm``, R calls,
-fp32 out) as the yardstick, at N = 131,072 (P, 453 MB, streams from device
+fp32 out; V3's W27 laid out as V1's 32 × 1728 W) as the yardstick, at N = 131,072 (P, 453 MB, streams from device
 memory every pass) and at N = 8,192 (P, 28 MB, stays in the 50 MB L2: the
 rate at which the instance stages and multiplies it), or at the N of
 ``--sizes`` (a larger N leaves a smaller share of P in the L2 from one pass
@@ -59,6 +63,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # hvc_probe_v2_instance(pt, w, out, k, n, repeats, instance, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
+# hvc_probe_v3_instance(w27, p, out, n, repeats, aligned, instance, stream)
+_V3_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
 # (case, m of the product, {instance code: name})
 CASES = {
     "V0": (256, {1: "(a) mma.sync 128 x 128, N tiles of M tile 0 first",
@@ -69,6 +75,8 @@ CASES = {
     "V2": (32, {0: "(a) mma.sync 128 x 32",
                 1: "(b) wgmma 256 x 32, W^T resident",
                 2: "(c) wgmma 256 x 32, W chunks streamed"}),
+    "V3": (32, {0: "(a) mma.sync 32 x 128",
+                1: "(b) wgmma m64 (32 rows) x 256, W27 tap-major"}),
 }
 
 
@@ -99,6 +107,19 @@ def _calls(case: str, m: int, n: int, dev, gen, stream) -> tuple[dict, dict, tor
                          f"probe_variants V2 {names[v]}")
 
         lib = lambda: [torch.mm(pt, wt, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
+    elif case == "V3":
+        w27 = torch.randn((cp.TAPS * m, cp.CIN), generator=gen, device=dev, dtype=torch.bfloat16)
+        p = torch.randn((K, n), generator=gen, device=dev, dtype=torch.bfloat16)
+        w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K)
+        want = cp.probe_v3_plain(w27, p, 1)
+        fn = _build.function("hvc_probe_v3_instance", _V3_ARGTYPES)
+        out_shape = (m, n)
+
+        def run(v, out):
+            _build.check(fn(w27.data_ptr(), p.data_ptr(), out.data_ptr(), n, R, 1, v, stream),
+                         f"probe_variants V3 {names[v]}")
+
+        lib = lambda: [torch.mm(w, p, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
     else:
         w = torch.randn((m, K), generator=gen, device=dev, dtype=torch.bfloat16)
         p = torch.randn((K, n), generator=gen, device=dev, dtype=torch.bfloat16)

@@ -130,7 +130,7 @@ def test_entry_point_refuses_without_a_card(monkeypatch):
     assert exc.value.code not in (0, None)
 
 
-# ------------------------------------ the wgmma instances of V0, V1 and V2 ---
+# ------------------------------- the wgmma instances of V0, V1, V2 and V3 ---
 
 PROBE_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "conv_probe.cu").read_text()
 WGMMA_SRC = (ROOT / "hybrid_vit_cascade_tpu_torch" / "csrc" / "wgmma_sm90.cuh").read_text()
@@ -148,15 +148,16 @@ def _wg_const(name: str) -> int:
 
 
 def _wg_cfg(name: str) -> dict:
-    """The WgCfg of instance `name` (WgV0, WgV1, WgV2, WgV2Streamed), its
+    """The WgCfg of instance `name` (WgV0, WgV1, WgV3, WgV2, WgV2Streamed), its
     derived sizes computed as the struct computes them."""
     import re
 
-    args = re.search(rf"^using {name} = WgCfg<(\d+), (\d+), (\d+), (\d+), (\d+), (\w+)>;",
-                     PROBE_SRC, re.M).groups()
+    args = re.search(rf"^using {name} = WgCfg<(\d+), (\d+), (\d+), (\d+), (\d+), (\w+)"
+                     r"(?:, (true|false))?>;", PROBE_SRC, re.M).groups()
     cons, mt, nt, wn, stages = map(int, args[:5])
     bmode = B_MODES[args[5]]
     cfg = {"CONS": cons, "MT": mt, "NT": nt, "WN": wn, "STAGES": stages, "BMODE": bmode,
+           "TAP_A": args[6] == "true",
            "BM": cons * mt * 64, "BN": nt * wn, "ABytes": cons * mt * 64 * 128,
            "BBytes": 0 if bmode == 2 else nt * wn * 128, "TRANS_B": int(bmode == 0)}
     cfg["StageBytes"] = cfg["ABytes"] + cfg["BBytes"]
@@ -166,15 +167,16 @@ def _wg_cfg(name: str) -> dict:
     return cfg
 
 
-WG = {key: _wg_cfg(name) for key, name in (("V0", "WgV0"), ("V1", "WgV1"), ("V2", "WgV2"),
-                                           ("V2s", "WgV2Streamed"))}
+WG = {key: _wg_cfg(name) for key, name in (("V0", "WgV0"), ("V1", "WgV1"), ("V3", "WgV3"),
+                                           ("V2", "WgV2"), ("V2s", "WgV2Streamed"))}
 
 
 def test_wgmma_configs_are_the_source():
     """The struct's derived sizes as the tests compute them, and the shapes
     each probe's orientation asks for: V0 256 × 128 items of two warpgroups
     of two m64 tiles, B MN-major; V1 one m64 tile (W's 32 rows in its top
-    half) × 256 columns, B MN-major; V2 256 spatial rows × 32 (Cout as N),
+    half) × 256 columns, B MN-major, and V3 the same with its A boxes
+    tap-major (the only config with TAP_A); V2 256 spatial rows × 32 (Cout as N),
     B K-major and resident (or streamed); each ring within the card's
     232,448 bytes of shared memory at K = 1728, as the source's comments say,
     and kV2MaxK the deepest resident K."""
@@ -188,9 +190,14 @@ def test_wgmma_configs_are_the_source():
     shapes = {k: (c["BM"], c["BN"], c["CONS"], c["MT"], c["NT"], c["WN"], c["BMODE"])
               for k, c in WG.items()}
     assert shapes == {"V0": (256, 128, 2, 2, 1, 128, 0), "V1": (64, 256, 1, 1, 2, 128, 0),
+                      "V3": (64, 256, 1, 1, 2, 128, 0),
                       "V2": (256, 32, 2, 2, 1, 32, 2), "V2s": (256, 32, 2, 2, 1, 32, 1)}
+    assert {k for k, c in WG.items() if c["TAP_A"]} == {"V3"}
+    assert WG["V3"]["STAGES"] == WG["V1"]["STAGES"] == 5
+    assert "  static constexpr bool TAP_A = TAP_A_;" in PROBE_SRC
+    assert '  static_assert(!TAP_A || BM == 64, "a tap-major A box is one m64 tile");' in PROBE_SRC
     smem = {k: c["smem"](cp.K) for k, c in WG.items()}
-    assert smem == {"V0": 214080, "V1": 214096, "V2": 226352, "V2s": 201808}
+    assert smem == {"V0": 214080, "V1": 214096, "V3": 214096, "V2": 226352, "V2s": 201808}
     assert max(smem.values()) <= _wg_const("kWgSmemMax") == 232448
     max_k = (232448 - WG["V2"]["smem"](0)) // (2 * 32) // 64 * 64
     assert max_k == cp.V2_MAX_K == 1792 and WG["V2"]["smem"](max_k) <= 232448
@@ -276,10 +283,11 @@ def _walk(cfg: dict, m: int, n: int, repeats: int, grid: int):
     ("V0", 64, 200, 1, 132), ("V1", 32, 131072, 64, 132), ("V1", 32, 8192, 3, 132),
     ("V1", 32, 2120, 2, 5), ("V1", 8, 200, 1, 132), ("V2", 131072, 32, 64, 132),
     ("V2", 8192, 32, 3, 132), ("V2", 2120, 32, 2, 5), ("V2", 77, 32, 1, 132),
-    ("V2s", 131072, 32, 2, 132)])
+    ("V2s", 131072, 32, 2, 132), ("V3", 32, 131072, 64, 132), ("V3", 32, 8192, 3, 132),
+    ("V3", 32, 2120, 2, 5), ("V3", 32, 8, 1, 132)])
 def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     """Every (pass, m tile, n tile) is one work item of one block, a work item
-    holds all the rows of its N tile where m ≤ BM (V0, V1; V2's M is the
+    holds all the rows of its N tile where m ≤ BM (V0, V1, V3; V2's M is the
     spatial N, its N the 32 output channels: one N tile), and each block's
     items go in pass order, so every pass re-reads P and rewrites the whole
     output."""
@@ -305,7 +313,7 @@ def _sw128(row: int, chunk: int) -> int:
     return row * 128 + ((chunk ^ (row & 7)) << 4)
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V2", "V2s"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s"])
 def test_sw128_is_the_source_and_a_bijection(key):
     """The mirror states the C function, and on one ring stage (A: the item's
     rows of 128 bytes; B: 64-row MN-major boxes or the item's 32 K-major
@@ -413,7 +421,7 @@ def test_v2_resident_wt_is_k_major_and_swizzled():
         assert [(c % bn, c // bn) for c in range(c0, c0 + 32)] == [(n, c0 // bn) for n in range(32)]
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V2"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2"])
 def test_wgmma_epilogue_fills_each_store_box_once(key):
     """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
     + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
@@ -457,13 +465,84 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     ("V1", 131072, "conv_probe_v1_wgmma_m32"), ("V1", 2120, "conv_probe_v1_wgmma_m32"),
     ("V1", 77, None), ("V0", 131072, "conv_probe_v1_wgmma"), ("V0", 2120, "conv_probe_v1_wgmma"),
     ("V0", 77, None), ("V2", 131072, "conv_probe_v2_wgmma"), ("V2", 77, "conv_probe_v2_wgmma"),
-    ("V3", 131072, None), ("V8", 131072, None)])
+    ("V3", 131072, "conv_probe_v3_wgmma"), ("V3", 2120, "conv_probe_v3_wgmma"), ("V3", 77, None),
+    ("V8", 131072, None)])
 def test_chip_smoke_probe_instances(key, n, want):
-    """chip_smoke.py [12] holds each V1 / V0 / V2 call to the wgmma counter
-    of the instance the wrapper's rule names at that N (V1 at 77 on
-    mma.sync), and every counter it reads exists in ``LAUNCHES``."""
+    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 call to the wgmma
+    counter of the instance the wrapper's rule names at that N (V1 and V3 at
+    77 on mma.sync), and every counter it reads exists in ``LAUNCHES``."""
     import chip_smoke
 
     assert chip_smoke._probe_instance_counter(key, n) == want
     assert set(chip_smoke._PROBE_INSTANCE_COUNTERS) <= set(cp.LAUNCHES)
     assert chip_smoke.PROBE_RAGGED_N == (77, 2120)
+
+
+_V3_RULE = "int v3_instance(int n) { return n % 8 == 0 ? kV3Wgmma : kV3Mma; }"
+
+
+@pytest.mark.parametrize("n", [131072, 8192, 2120, 77, 8, 1])
+def test_v3_wgmma_rule_is_the_source(n):
+    """``probe_v3_instance`` states the C rule ``v3_instance``, which
+    ``hvc_probe_v3`` dispatches by and ``hvc_probe_v3_rule`` reports, with the
+    source's instance codes: N a multiple of 8 (16-byte rows of P and the
+    output for the tensor maps) takes WgV3, a ragged N the 32 × 128 mma.sync
+    tiles."""
+    assert _V3_RULE in PROBE_SRC
+    assert "  return run_v3(v3_instance(n), w27, p, out, n, repeats, aligned," in PROBE_SRC
+    assert "int hvc_probe_v3_rule(int n) { return v3_instance(n); }" in PROBE_SRC
+    for name, code in (("kV3Mma", cp.V3_MMA), ("kV3Wgmma", cp.V3_WGMMA)):
+        assert f"  {name} = {code}," in PROBE_SRC
+    assert ("    case kV3Wgmma: return gemm_wgmma<WgV3>(w27, p, out, kGroup, n, 27 * kWgBK, "
+            "repeats, s);") in PROBE_SRC
+    assert cp.probe_v3_instance(n) == (cp.V3_WGMMA if n % 8 == 0 else cp.V3_MMA)
+    assert cp._INSTANCE_COUNTERS[("v3", cp.V3_WGMMA)] == "conv_probe_v3_wgmma"
+
+
+def _v3_a_boxes(w27: torch.Tensor, bm: int) -> list:
+    """The A box the producer loads for each K chunk of WgV3: the bm rows of
+    the tensor map over W27 ((K / 64)·32 rows × 64) from row 32·kc (m0 = 0),
+    rows past the map's last read as zeros (TMA's out-of-bounds fill)."""
+    rows = w27.shape[0]
+    boxes = []
+    for kc in range(rows // cp.COUT):
+        box = torch.zeros((bm, cp.CIN), dtype=w27.dtype)
+        lo, hi = kc * cp.COUT, min(kc * cp.COUT + bm, rows)
+        box[:hi - lo] = w27[lo:hi]
+        boxes.append(box)
+    return boxes
+
+
+def test_v3_tap_major_a_boxes():
+    """WgV3's producer loads K chunk t's A box at (column 0, row 32t) of a map
+    over W27 (864 × 64): W27 rows 32t … 32t + 63, tap t + 1's rows in the
+    box's lower half and zeros past row 863 (t = 26). The products of the
+    lower half land in accumulator rows 32-63, which the output's tensor map
+    (M = 32 rows) clips: replaying the per-chunk products, the kept rows
+    0-31 equal V3's plain version (both fp32 sums of the same bf16
+    products), and rows 32-63 hold the shifted taps' sums, not V3."""
+    for line in ("          if constexpr (Cfg::TAP_A)",
+                 "            tma_load_2d(st, &map_a, &full[s], 0, kc * kGroup + m0);  // tap kc's "
+                 "rows, then kc + 1's",
+                 "  const long long a_rows = Cfg::TAP_A ? (long long)(K / kWgBK) * kGroup : M;",
+                 "  if (!tensor_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, a_rows, "
+                 "Cfg::TAP_A ? kWgBK : K,",
+                 "      !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c, M, Nc, 64, "
+                 "kWgOutBox))",
+                 "      (Cfg::TAP_A && M > kGroup) || reinterpret_cast<uintptr_t>(a) % 16 ||"):
+        assert line in PROBE_SRC, line
+    rng = np.random.default_rng(81)
+    w27 = torch.from_numpy(rng.standard_normal((cp.TAPS * cp.COUT, cp.CIN), dtype=np.float32))
+    p = torch.from_numpy(rng.standard_normal((cp.K, 40), dtype=np.float32))
+    w27, p = w27.bfloat16(), p.bfloat16()
+    boxes = _v3_a_boxes(w27, WG["V3"]["BM"])
+    assert len(boxes) == cp.K // 64 == cp.TAPS
+    for t, box in enumerate(boxes):
+        assert torch.equal(box[:32], w27[32 * t:32 * t + 32])
+        assert torch.equal(box[32:], w27[32 * t + 32:32 * t + 64]) if t < 26 else \
+            not box[32:].any()
+    acc = sum(box.float() @ p[64 * t:64 * t + 64].float() for t, box in enumerate(boxes))
+    want = cp.probe_v3_plain(w27, p, 1)
+    kept = acc[:cp.COUT]  # the store box's rows inside the output
+    assert (kept - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (acc[cp.COUT:] - want).abs().max() > 1e-2 * want.abs().max()

@@ -18,6 +18,12 @@ each kernel's arithmetic against the plain versions and the JAX package.
   ``ConvNCDHW`` VJP (XLA) and the VJP of ``conv3d_k3s2_flat`` (``_dgrad_s2`` in
   interpret mode) at the VJP tolerance of tests/test_pallas_conv_s2.py
   (1e-4 relative, 1e-3 absolute).
+- Its fp32 form (``dgrad_s2_c1_f32_kernel``, instance 3 of
+  ``dgrad_s2_instance``: fp32 with one dx channel, 8 ≤ Cout ≤ 64, no act′):
+  the same blocks, walk, gather and store, 5 × 36 staged g positions a plane
+  and P in fp32 FMAs on the CUDA cores (warp w: taps 7·(w % 4) …, positions
+  96·(w / 4) + lane + {0, 32, 64}). The replay tests run over both kernels'
+  staged windows.
 - The forward (``csrc/conv3d_k3.cu``, ``conv_c1in_s2_tc_kernel``): bf16 with
   one input channel, Cout ≥ 8 and no act′ (``fwd_c1in_uses_tensor_cores`` at
   stride 2). Per block of 4 × 4 × 32 output voxels and Cout tile of 32 (Cout
@@ -33,6 +39,7 @@ each kernel's arithmetic against the plain versions and the JAX package.
   1e-4 absolute).
 """
 
+import functools
 import itertools
 import re
 
@@ -49,7 +56,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 
 BF16, F32 = torch.bfloat16, torch.float32
-CC, TC, C1 = ck.DGRAD_S2_CUDA_CORE, ck.DGRAD_S2_TC, ck.DGRAD_S2_C1_TC
+CC, TC, C1, C1F = ck.DGRAD_S2_CUDA_CORE, ck.DGRAD_S2_TC, ck.DGRAD_S2_C1_TC, ck.DGRAD_S2_C1_FP32
 
 
 def _src(name):
@@ -69,6 +76,10 @@ BWD, FWD = _src("conv3d_k3_bwd.cu"), _src("conv3d_k3.cu")
 F1_TY, F1_TX = _pair(BWD, "kF1Ty", "kF1Tx")  # g rows × columns a block
 F1_NP = _const(BWD, "kF1Np")  # g planes a block walks
 F1_COLS = F1_TX + 8  # staged g columns: the tile's and a vector with the halo column
+F1F_COLS = _const(BWD, "kF1fCols")  # the fp32 form's: the tile's and the halo, in 4-float vectors
+F1F_TAPS, F1F_POS = _const(BWD, "kF1fTaps"), _const(BWD, "kF1fPos")  # a warp's taps, a lane's positions
+# staged g columns of each one-dx-channel kernel, which the replays take
+C1_COLS = {"tc": F1_COLS, "f32": F1F_COLS}
 
 
 # ----------------------------------------------------------------- rules ---
@@ -78,11 +89,14 @@ F1_COLS = F1_TX + 8  # staged g columns: the tile's and a vector with the halo c
     (BF16, 1, 17, False, C1), (BF16, 1, 7, False, CC), (BF16, 1, 65, False, CC),
     (BF16, 1, 128, False, CC), (BF16, 1, 64, True, CC), (BF16, 2, 64, False, CC),
     (BF16, 7, 64, False, CC), (BF16, 8, 64, False, TC), (BF16, 32, 64, True, TC),
-    (F32, 1, 64, False, CC), (F32, 32, 64, False, CC)])
+    (F32, 1, 64, False, C1F), (F32, 32, 64, False, CC), (F32, 1, 8, False, C1F),
+    (F32, 1, 40, False, C1F), (F32, 1, 65, False, CC), (F32, 1, 7, False, CC),
+    (F32, 1, 64, True, CC), (F32, 8, 64, False, CC)])
 def test_dgrad_s2_instance_rule(dtype, cin, cout, dact, instance):
     """bf16 with one dx channel, 8 ≤ Cout ≤ 64 and no act′ takes the
-    one-dx-channel tensor cores; Cin, Cout ≥ 8 the tensor-core F/J; fp32
-    and the rest the CUDA cores."""
+    one-dx-channel tensor cores, the same call in fp32 their CUDA-core form;
+    bf16 with Cin, Cout ≥ 8 the tensor-core F/J; the rest of fp32 and bf16
+    the CUDA cores."""
     assert ck.dgrad_s2_instance(dtype, cin, cout, dact) == instance
 
 
@@ -110,8 +124,11 @@ def test_s2_stem_rules_and_tilings_are_the_kernels():
     assert "constexpr int kC2Td = 4, kC2Th = 4, kC2Tw = 32;" in FWD
     assert ck._FWD_TILE_C1IN[2] == (4, 4, 32)
     assert 'extern "C" int hvc_conv3d_k3s2_c1in_tc(int cin, int cout, int dact, int dtype)' in FWD
-    assert ("  if (cin >= 8 && cout >= 8) return 1;\n"
+    assert ("  if (!bf16) return cin == 1 && cout >= 8 && cout <= kF1Co && dact == 0 ? 3 : 0;\n"
+            "  if (cin >= 8 && cout >= 8) return 1;\n"
             "  return cin == 1 && cout >= 8 && cout <= kF1Co && dact == 0 ? 2 : 0;") in BWD
+    assert ("  if (instance == 3) return launch_dgrad_s2_c1_f32(g, w, dx, batch, cout, nv, qlo, H, "
+            "W, Do, s);") in BWD
     assert _const(BWD, "kF1Co") == ck.DGRAD_C1_CO_MAX == 64
     assert (F1_TY, F1_TX, F1_NP) == (4, 32, 8)
     assert "static_assert(2 * kF1Ty == kF1Warps" in BWD
@@ -150,6 +167,41 @@ def test_s2_stem_pitches_spread_the_taps():
     assert pt % 32 in (8, 24) and pt >= 16 * -(-ld // 16)
 
 
+def test_dgrad_s2_c1_f32_tiling_is_the_kernel():
+    """The fp32 form's staging and products as the source states them: 36
+    staged columns (9 four-float vectors, the tile's 32 and the halo column;
+    720-byte channel rows, 144-byte rows: every cp.async destination
+    16-byte aligned), and its eight warps' (tap group, position half) with
+    three positions a lane cover taps 0-26 × the 180 staged positions, every
+    one once, besides tap 27 and positions 180-191, which the gather never
+    reads (its largest position is row 4, column 32); the weights' 8-float
+    rows of each group are two float4 broadcasts."""
+    assert (F1F_COLS, F1F_TAPS, F1F_POS) == (36, 7, 3)
+    ld, pt = (F1_TY + 1) * F1F_COLS, 2 * 32 * F1F_POS  # kF1fLd, kF1fPt
+    assert F1F_COLS % 4 == 0 and F1F_COLS > F1_TX and 4 * ld % 16 == 0 and 4 * F1F_COLS % 16 == 0
+    assert all(line in BWD for line in (
+        "constexpr int kF1fLd = kF1Rows * kF1fCols;",
+        "constexpr int kF1fHalf = 32 * kF1fPos;",
+        "constexpr int kF1fPt = 2 * kF1fHalf;",
+        "  const int grp = warp % 4, half = warp / 4;",
+        "    const float* gp = src + half * kF1fHalf + lane;",
+        "      for (int k = 0; k < kF1fPos; ++k) gv[k] = gp[co * kF1fLd + 32 * k];",
+        "          ps[tap * kF1fPt + half * kF1fHalf + lane + 32 * k] = acc[j][k];",
+        "    const float* src = gbuf + buf * kF1fBuf;",
+        "  c1_walk<kF1fPt, kF1fCols>(ozs, Do, ps, ry, u, stage, products, store);",
+        "  c1_walk<kF1Pt, kF1Cols>(ozs, Do, ps, ry, u, stage, products, store);"))
+    cover = [(F1F_TAPS * (w % 4) + j, 32 * F1F_POS * (w // 4) + lane + 32 * k)
+             for w in range(8) for lane in range(32) for j in range(F1F_TAPS)
+             for k in range(F1F_POS)]
+    assert len(set(cover)) == len(cover)
+    assert {c for c in cover if c[0] < 27 and c[1] < ld} == \
+        set(itertools.product(range(27), range(ld)))
+    reads = {r * F1F_COLS + u + e for r in range(F1_TY + 1) for u in range(F1_TX) for e in (0, 1)}
+    assert max(reads) == F1_TY * F1F_COLS + F1_TX < ld <= pt
+    smem = 4 * (2 * (64 * ld + pt - ld) + 27 * pt + 64 * 32)
+    assert smem == 121184 and "// 121,184 bytes:" in BWD
+
+
 # ---------------------------------------------------- grids and halos ---
 
 # (B, Cout, planes of x, H, W, slab plane of x's first plane, output planes):
@@ -185,18 +237,19 @@ def _parity_reads(i):
     return [i // 2] if i % 2 == 0 else [(i + 1) // 2, (i - 1) // 2]
 
 
+@pytest.mark.parametrize("kernel", sorted(C1_COLS))
 @pytest.mark.parametrize("call", _stem_calls())
-def test_dgrad_s2_c1_grid_covers_dx_once(call):
+def test_dgrad_s2_c1_grid_covers_dx_once(call, kernel):
     """Per dimension, the blocks' dx ranges cover the view's planes, rows and
     columns exactly once, and every g index a dx voxel reads lies in its
     block's staged window: g planes ozs … ozs + 8, rows oy0 … oy0 + 4,
-    columns ox0 … ox0 + 32 < ox0 + 40."""
+    columns ox0 … ox0 + 32 < ox0 + 40 (the fp32 form: + 36)."""
     b, cout, nv, H, W, qlo, d_out = call
     blocks = _dgrad_blocks(nv, H, W, qlo)
     for axis, (n, lo) in enumerate(((nv, qlo - 1), (H, 0), (W, 0))):
         starts = sorted({blk[axis] for blk in blocks})
         span = (2 * F1_NP, 2 * F1_TY, 2 * F1_TX)[axis]
-        staged = (F1_NP + 1, F1_TY + 1, F1_COLS)[axis]
+        staged = (F1_NP + 1, F1_TY + 1, C1_COLS[kernel])[axis]
         seen = []
         for s in starts:
             for i in range(2 * s, 2 * s + span):
@@ -239,12 +292,14 @@ def test_fwd_c1in_s2_grid_covers_out_once(call):
 
 # --------------------------------------------------- the data gradient ---
 
-def _dgrad_s2_c1_emulated(g, w, x_shape, qlo):
-    """dx (x_shape, g's dtype) as ``dgrad_s2_c1_tc_kernel`` computes it: per
-    block and g plane the staged window (zero outside g and past Cout), P =
-    W[tap, co] · G[co, position] in fp32 products of the operands in g's
-    dtype, the parity gather of each dx row and column pair in the kernel's
-    order, the dz = 2 part carried to the next g plane, one rounding."""
+def _dgrad_s2_c1_emulated(g, w, x_shape, qlo, cols=F1_COLS):
+    """dx (x_shape, g's dtype) as ``dgrad_s2_c1_tc_kernel`` computes it (and,
+    in fp32 with ``cols`` F1F_COLS, ``dgrad_s2_c1_f32_kernel``): per block and
+    g plane the staged window of ``cols`` columns (zero outside g and past
+    Cout), P = W[tap, co] · G[co, position] in fp32 products of the operands
+    in g's dtype, the parity gather of each dx row and column pair in the
+    kernel's order, the dz = 2 part carried to the next g plane, one
+    rounding."""
     B, cout, Do, Ho, Wo = g.shape
     _, _, nv, H, W = x_shape
     kp = 16 * -(-cout // 16)
@@ -287,10 +342,10 @@ def _dgrad_s2_c1_emulated(g, w, x_shape, qlo):
             oz = ozs + i
             parts = [(torch.zeros((2 * F1_TY, F1_TX)),) * 2] * 3
             if 0 <= oz < Do:
-                win = torch.zeros((kp, rows, F1_COLS))
-                nr, nc = max(0, min(rows, Ho - oy0)), max(0, min(F1_COLS, Wo - ox0))
+                win = torch.zeros((kp, rows, cols))
+                nr, nc = max(0, min(rows, Ho - oy0)), max(0, min(cols, Wo - ox0))
                 win[:cout, :nr, :nc] = gf[b, :, oz, oy0:oy0 + nr, ox0:ox0 + nc]
-                P = (wt @ win.reshape(kp, -1))[:27].reshape(27, rows, F1_COLS)
+                P = (wt @ win.reshape(kp, -1))[:27].reshape(27, rows, cols)
                 parts = [part(P, dz) for dz in range(3)]
             if i > 0:
                 store(b, 2 * oz - 1, oy0, ox0, pend[0] + parts[0][0], pend[1] + parts[0][1])
@@ -310,12 +365,14 @@ def _grad_case(call, seed, dtype=F32):
     return g, w, torch.zeros((b, 1, nv, H, W), dtype=dtype)
 
 
+@pytest.mark.parametrize("kernel", sorted(C1_COLS))
 @pytest.mark.parametrize("call", STEM_RAGGED)
-def test_dgrad_s2_c1_emulated_matches_plain(call):
-    """The replay against ``conv3d_k3_dgrad_plain`` in fp32 (1e-4: the same
-    products, in another order) on ragged shapes, batch 1, 2 and 8."""
+def test_dgrad_s2_c1_emulated_matches_plain(call, kernel):
+    """The replay of either kernel against ``conv3d_k3_dgrad_plain`` in
+    fp32 (1e-4: the same products, in another order) on ragged shapes, batch
+    1, 2 and 8."""
     g, w, x = _grad_case(call, 71)
-    got = _dgrad_s2_c1_emulated(g, w, x.shape, call[5])
+    got = _dgrad_s2_c1_emulated(g, w, x.shape, call[5], C1_COLS[kernel])
     want = ck.conv3d_k3_dgrad_plain(g, w, x, 2, call[5])
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
 
@@ -334,10 +391,11 @@ def test_dgrad_s2_c1_emulated_bf16_rounding():
     assert bool(((gf - wf).abs() <= 2e-2 * scale + 2e-2 * wf.abs()).all())
 
 
-def test_dgrad_s2_c1_emulated_matches_jax_stem():
-    """Against the VJP (dx) of the JAX main path's stem, ``ConvNCDHW`` at
-    stride 2 with one input channel (XLA), at 1→64 on an odd 9 × 7 × 13
-    volume, batch 2."""
+@functools.cache
+def _jax_stem_dgrad():
+    """(ct, w, x shape, dx) of the VJP (dx) of the JAX main path's stem,
+    ``ConvNCDHW`` at stride 2 with one input channel (XLA), at 1→64 on an
+    odd 9 × 7 × 13 volume, batch 2."""
     B, cout, D, H, W = 2, 64, 9, 7, 13
     rng = np.random.default_rng(73)
     x = rng.standard_normal((B, 1, D, H, W)).astype(np.float32)
@@ -347,16 +405,25 @@ def test_dgrad_s2_c1_emulated_matches_jax_stem():
     params = {"params": {"kernel": jnp.asarray(w), "bias": jnp.asarray(bias)}}
     out, vjp = jax.vjp(lambda xv: conv.apply(params, xv), jnp.asarray(x))
     ct = rng.standard_normal(out.shape).astype(np.float32)
-    want = np.asarray(vjp(jnp.asarray(ct))[0])
-    got = _dgrad_s2_c1_emulated(torch.from_numpy(ct), torch.from_numpy(w), x.shape, 1)
+    return ct, w, x.shape, np.asarray(vjp(jnp.asarray(ct))[0])
+
+
+@pytest.mark.parametrize("kernel", sorted(C1_COLS))
+def test_dgrad_s2_c1_emulated_matches_jax_stem(kernel):
+    """Either kernel's replay against the VJP of the JAX main path's stem
+    (``_jax_stem_dgrad``)."""
+    ct, w, x_shape, want = _jax_stem_dgrad()
+    got = _dgrad_s2_c1_emulated(torch.from_numpy(ct), torch.from_numpy(w), x_shape, 1,
+                                C1_COLS[kernel])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
 
 
-def test_dgrad_s2_c1_emulated_matches_jax_pallas():
-    """Against dx of ``conv3d_k3s2_flat``'s VJP (``_dgrad_s2`` in interpret
-    mode) at one input channel and the smallest width ``supports_s2`` takes
-    (W = 256): its VALID-in-D contract is the chain call with qlo 0 over
-    2·D' + 1 planes."""
+@functools.cache
+def _jax_pallas_dgrad():
+    """(ct, w, x shape, dx) of ``conv3d_k3s2_flat``'s VJP (``_dgrad_s2`` in
+    interpret mode) at one input channel and the smallest width
+    ``supports_s2`` takes (W = 256): its VALID-in-D contract is the chain
+    call with qlo 0 over 2·D' + 1 planes."""
     B, cout, dp, H, W = 1, 64, 2, 4, 256
     assert supports_s2(1, 3, 2, H, W)
     dext = 2 * dp + 1
@@ -368,8 +435,16 @@ def test_dgrad_s2_c1_emulated_matches_jax_pallas():
     _, vjp = jax.vjp(lambda xv: conv3d_k3s2_flat((dext, H, W), xv, jnp.asarray(w),
                                                  jnp.asarray(bias)), jnp.asarray(x))
     want = np.asarray(vjp(jnp.asarray(ct))[0]).reshape(B, 1, dext, H, W)
-    got = _dgrad_s2_c1_emulated(torch.from_numpy(ct).reshape(B, cout, dp, H // 2, W // 2),
-                                torch.from_numpy(w), (B, 1, dext, H, W), 0)
+    return ct.reshape(B, cout, dp, H // 2, W // 2), w, (B, 1, dext, H, W), want
+
+
+@pytest.mark.parametrize("kernel", sorted(C1_COLS))
+def test_dgrad_s2_c1_emulated_matches_jax_pallas(kernel):
+    """Either kernel's replay against dx of ``conv3d_k3s2_flat``'s VJP
+    (``_jax_pallas_dgrad``: ``_dgrad_s2`` in interpret mode)."""
+    ct, w, x_shape, want = _jax_pallas_dgrad()
+    got = _dgrad_s2_c1_emulated(torch.from_numpy(ct), torch.from_numpy(w), x_shape, 0,
+                                C1_COLS[kernel])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
 
 
@@ -511,11 +586,11 @@ def test_fwd_c1in_s2_emulated_matches_jax_pallas():
 
 # ------------------------------------------ the fp32 data gradient's row ---
 
-@pytest.mark.parametrize("dtype,want", [(F32, CC), (BF16, C1)])
+@pytest.mark.parametrize("dtype,want", [(F32, C1F), (BF16, C1)])
 def test_stem_dgrad_row_instances_and_fp32_bound(dtype, want):
     """chip_smoke.py times the stem's data gradient (8 × 1→64, g 32³ → dx 64³)
-    in bf16 on the one-dx-channel tensor cores and in fp32 on the CUDA-core
-    dgrad_s2_kernel<float> (its ``fp32`` entry). The fp32 bound is the bytes
+    in bf16 on the one-dx-channel tensor cores and in fp32 on their CUDA-core
+    form dgrad_s2_c1_f32_kernel (its ``fp32`` entry). The fp32 bound is the bytes
     of g (67.1 MB) and dx (8.4 MB) over 3.35 TB/s, 0.0225 ms, over the
     products at the fp32 rate outside the tensor cores (67 TFLOP/s: 0.0135
     ms)."""

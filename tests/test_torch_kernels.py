@@ -15,6 +15,7 @@ import torch
 
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
+    DGRAD_S2_C1_FP32,
     DGRAD_S2_C1_TC,
     DGRAD_S2_CUDA_CORE,
     DGRAD_S2_TC,
@@ -1059,6 +1060,49 @@ def test_dgrad_s2_c1_bitwise_repeatable(dev):
     assert torch.equal(runs[0], runs[1])
 
 
+# The stem's data gradient in fp32 on the one-dx-channel kernel's CUDA-core
+# form (dgrad_s2_c1_f32_kernel): (B, Cout, planes of x, H, W, slab plane of
+# x's first plane, output planes, g's storage offset in floats). Main path:
+# stage 1's batch of 8 at 64³ and the reconstruct's batch of 1 (dense: qlo
+# 1); ragged: Cout 8 / 16 / 24 / 40 / 64, odd D, H and W, W not a multiple
+# of 8 (element by element), x before and inside the slab, several plane,
+# row and column tiles, and g off its 16-byte alignment (element by element
+# at the hot shape).
+DGRAD_S2_C1_F32 = [(8, 64, 64, 64, 64, 1, 32, 0), (1, 64, 64, 64, 64, 1, 32, 0),
+                   (8, 64, 64, 64, 64, 1, 32, 1), (1, 64, 9, 7, 13, 1, 5, 0),
+                   (8, 16, 6, 5, 10, 1, 3, 0), (1, 40, 5, 9, 35, -1, 4, 0),
+                   (2, 8, 17, 10, 70, 0, 9, 0), (1, 64, 20, 9, 66, 2, 11, 0),
+                   (1, 24, 3, 3, 3, 1, 2, 0), (2, 64, 33, 30, 128, 0, 17, 0)]
+
+
+@pytest.mark.parametrize("case", DGRAD_S2_C1_F32)
+def test_dgrad_s2_c1_fp32(dev, case):
+    """The one-dx-channel data gradient in fp32 against its plain version
+    (fp32 TOL with the absolute part scaled by max(1, max|want|), as
+    chip_smoke.py [7d]: both sides sum the same fp32 products in another
+    order), counted on its fp32 counter and on no tensor-core one, and two
+    runs bitwise equal."""
+    b, cout, nv, h, w_, qlo, d_out, off = case
+    dt = torch.float32
+    dense = qlo == 1 and d_out == (nv - 1) // 2 + 1
+    x = _randn((b, 1, nv + 2, h, w_), dt, dev, 130).narrow(2, 1, nv)
+    if dense:
+        x = x.contiguous()
+    w = _randn((cout, 1, 3, 3, 3), dt, dev, 131) / 27 ** 0.5
+    g_shape = (b, cout, d_out, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1)
+    n = int(np.prod(g_shape))
+    g = _randn((n + off,), dt, dev, 132)[off:].view(g_shape)
+    assert dgrad_s2_instance(dt, 1, cout) == DGRAD_S2_C1_FP32
+    before = dict(LAUNCHES)
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo, dense=dense)
+    assert LAUNCHES["conv3d_k3s2_dgrad_c1in_fp32"] == before["conv3d_k3s2_dgrad_c1in_fp32"] + 1
+    assert LAUNCHES["conv3d_k3s2_dgrad_c1in"] == before["conv3d_k3s2_dgrad_c1in"] + 1
+    assert LAUNCHES["conv3d_k3s2_dgrad_c1in_tc"] == before["conv3d_k3s2_dgrad_c1in_tc"]
+    want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo)
+    _close(dx, want, dt, tol={dt: (1e-4 * max(1.0, float(want.abs().max())), 1e-4)})
+    assert torch.equal(conv3d_k3_dgrad(g, w, x, 2, qlo, dense=dense), dx)
+
+
 def test_conv_s2_c1in_tc_rule_matches_c(dev):
     """The C dispatch's rule (``hvc_conv3d_k3s2_c1in_tc``, which the wrapper
     counts launches by) is ``fwd_c1in_uses_tensor_cores`` at stride 2, at
@@ -1069,7 +1113,7 @@ def test_conv_s2_c1in_tc_rule_matches_c(dev):
             (1, 4, 7, 8, 9, 32, 33, 64, 65, 256), (0, 1, 2)):
         assert bool(rule(cin, cout, dact, code)) == \
             fwd_c1in_uses_tensor_cores(dtype, 2, cin, cout, dact != 0)
-    assert dgrad_s2_instance(torch.float32, 1, 64) == DGRAD_S2_CUDA_CORE
+    assert dgrad_s2_instance(torch.float32, 1, 64) == DGRAD_S2_C1_FP32
 
 
 # The stride-2 1→64 stem's weight gradient at Cin = 1 on the tensor cores
@@ -1144,9 +1188,11 @@ PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
 def _probe_counters(key: str, n: int) -> dict:
     """The launches one call of probe case `key` at N columns adds to
     ``conv_probe.LAUNCHES``: its wrapper's counter, and the counter of the
-    wgmma instance the wrapper's rule names (V1, V0, V2)."""
+    wgmma instance the wrapper's rule names (V1, V0, V2, V3)."""
     case = bench.BY_KEY[key]
     want = {case.kernel: 1}
+    if key == "V3":
+        want["conv_probe_v3_wgmma"] = int(conv_probe.probe_v3_instance(n) == conv_probe.V3_WGMMA)
     if key == "V2":
         instance = conv_probe.probe_v2_instance(conv_probe.K, n)
         want["conv_probe_v2_wgmma"] = int(instance == conv_probe.V2_WGMMA)
@@ -1239,10 +1285,39 @@ def test_probe_v2_wgmma(dev, n, passes):
     assert torch.equal(conv_probe.probe_v2(p, w, passes), got)
 
 
+# v3 on its wgmma instance: (N, passes). The probe's N (P streams from device
+# memory), N in L2, ragged last N tiles (2,120, 200), the smallest aligned N,
+# and N not a multiple of 8 (77, 1,001: the mma.sync instance).
+PROBE_V3_WGMMA = [(131072, 2), (8192, 3), (2120, 2), (200, 1), (8, 1), (77, 2), (1001, 1)]
+
+
+@pytest.mark.parametrize("n,passes", PROBE_V3_WGMMA)
+def test_probe_v3_wgmma(dev, n, passes):
+    """probe_v3 against its plain version (1e-4·max|want| + 1e-4·|want|: both
+    sum the same bf16 products in fp32, in another order), counted on the
+    wgmma instance ``probe_v3_instance`` names (N % 8 = 0), every other
+    counter unchanged, and bitwise repeatable."""
+    w = _randn((conv_probe.TAPS * conv_probe.COUT, conv_probe.CIN), torch.bfloat16, dev, 124)
+    p = _randn((conv_probe.K, n), torch.bfloat16, dev, 125)
+    before = dict(conv_probe.LAUNCHES)
+    got = conv_probe.probe_v3(w, p, passes)
+    wgmma = int(conv_probe.probe_v3_instance(n) == conv_probe.V3_WGMMA)
+    assert wgmma == (n % 8 == 0)
+    assert conv_probe.LAUNCHES == {**before, "conv_probe_v3": before["conv_probe_v3"] + 1,
+                                   "conv_probe_v3_wgmma": before["conv_probe_v3_wgmma"] + wgmma}
+    want = conv_probe.probe_v3_plain(w, p, 1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(conv_probe.probe_v3(w, p, passes), got)
+
+
 def test_probe_v1_wgmma_rule_matches_c(dev):
-    """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule``, which the
-    wrappers count wgmma launches by) are ``probe_v1_instance`` and
-    ``probe_v2_instance`` at every m, K and N around their edges."""
+    """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule``,
+    ``hvc_probe_v3_rule``, which the wrappers count wgmma launches by) are
+    ``probe_v1_instance``, ``probe_v2_instance`` and ``probe_v3_instance`` at
+    every m, K and N around their edges."""
     rule = _build.function("hvc_probe_v1_rule", (ctypes.c_int,) * 3)
     for m, n in itertools.product((1, 31, 32, 33, 63, 64, 65, 128, 192, 256, 320),
                                   (1, 7, 8, 9, 16, 77, 2120, 131072)):
@@ -1250,3 +1325,6 @@ def test_probe_v1_wgmma_rule_matches_c(dev):
     rule2 = _build.function("hvc_probe_v2_rule", (ctypes.c_int,) * 2)
     for k, n in itertools.product((0, 32, 64, 1728, 1792, 1856, 4096), (1, 7, 77, 2120, 131072)):
         assert rule2(k, n) == conv_probe.probe_v2_instance(k, n)
+    rule3 = _build.function("hvc_probe_v3_rule", (ctypes.c_int,))
+    for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
+        assert rule3(n) == conv_probe.probe_v3_instance(n)
