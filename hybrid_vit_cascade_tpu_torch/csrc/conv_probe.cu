@@ -25,8 +25,8 @@
 // Every operand is bf16, row-major and contiguous; products accumulate in
 // fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // fragments loaded from shared memory with ldmatrix; the helpers are in
-// mma_sm90.cuh; V0, V1, V2 and V3 on wgmma.mma_async fed by TMA, helpers in
-// wgmma_sm90.cuh) and the output is fp32.
+// mma_sm90.cuh; V0, V1, V2, V3, V4 and V6 on wgmma.mma_async fed by TMA,
+// helpers in wgmma_sm90.cuh) and the output is fp32.
 // A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
 // the r axis is a loop inside one launch. The grid is persistent (as many
 // blocks as fit on the SMs) and walks the work items r·tiles + tile in order,
@@ -42,11 +42,14 @@
 // with each input read once. But V1, V0, V2 and V3 stream P (Pᵀ), 453 MB,
 // which does not fit the 50 MB L2: every pass re-reads it from device memory,
 // 0.140 ms at 3.35 TB/s, a practical floor of 8.98 ms per call (V0 11.24 ms
-// with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2.
+// with its 8× larger output). X, X2 and X3 (16.8-50.3 MB) can stay in L2, so
+// V3', V5, V6, V4 and V8 are bound by their products alone.
 //
-// Design. Three templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
+// Design. Four templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
 // are not carried over. V0, V1, V3 (N a multiple of 8) and V2 run on wgmma
-// fed by TMA (probe_gemm_wgmma, its comment has the design); the rest on
+// fed by TMA (probe_gemm_wgmma, its comment has the design), V4 and V6 (N a
+// multiple of 8) on wgmma with the weights resident as A and the tap sum
+// folded in the accumulators (probe_tapsum_wgmma, likewise); the rest on
 // mma.sync, the simplest tensor-core path (no TMA, no wgmma, no warp
 // specialisation); what each variant probes is kept:
 //
@@ -61,9 +64,10 @@
 //   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), an m > 32 call that the
 //   wgmma rule does not take (N not a multiple of 8) 128 × 128 (8 warps of
 //   64 × 32), V2 128 spatial rows × 32 (4 warps of 32 × 32).
-// - probe_tapsum (V3', V5, V6, V4, V8): the whole weight array stays in
-//   shared memory for the block's life (115-129 KB, the VMEM-resident
-//   weights of the TPU probe); per work item one X tile [KD, BN] is staged
+// - probe_tapsum (V3', V5, V8, and V6 and V4 at a ragged N): the whole
+//   weight array stays in shared memory for the block's life (115-129 KB,
+//   the VMEM-resident weights of the TPU probe); per work item one X tile
+//   [KD, BN] is staged
 //   by cp.async, and each warp holds the B fragments of its columns for the
 //   whole per-dot K in registers (KD/2 registers at 32 columns: 32 at
 //   K = 64, 64 at K = 128, 96 at K = 192), so the taps reuse X from
@@ -78,6 +82,13 @@
 //   32 × 256 (8 warps along N), V6 32 × 64 (4 × 2 warps), V4 32 × 32
 //   (9 × 2 warps). The group of tap 27 in V6's last dot is skipped, not
 //   computed and dropped.
+// - probe_tapsum_wgmma (V4, V6 at N a multiple of 8): the weights resident
+//   as wgmma's A, two taps to an m64 tile, rows permuted so that each
+//   thread's accumulators hold one output element from two taps; every tile
+//   chains into one accumulator (V4) or, by M = 128 dot, into two (V6), 32 ×
+//   128 a work item, and one add per element after the chain
+//   gives out[32, BN]: no reduction through shared memory, no cross-warp
+//   step.
 //
 // Sums run in another order than the TPU's and the plain version's; the
 // result is deterministic (no atomics; a rewrite of the output by a later
@@ -645,6 +656,195 @@ __global__ void __launch_bounds__(Cfg::Threads, 1)
   if (lt == 0) tma_store_wait<0>();
 }
 
+// --------------------------------------------------- probe_tapsum_wgmma ---
+
+// out[32, N] fp32 = Σ_{t<27} W[32t:32t+32, :64] · X[64, N] on wgmma for
+// `repeats` passes, every tap's products on the tensor cores (V4: W = W27,
+// 864 × 64; V6: W = W27p, 896 × 64, its 28th row group never read). The
+// taps are stacked in M, two to an m64 tile, and their sum is folded in the
+// accumulators, with no shared-memory reduction:
+//
+// - The weights stay in shared memory for the block's life as the A operand
+//   (the TPU kernel's VMEM-resident W): kTapTiles = 14 m64 tiles, 896 rows ×
+//   64 k, 114,688 bytes, K-major and 128-byte swizzled. The block's threads
+//   copy them once at the start, permuted: row 16·w + h of tile i holds tap
+//   2i + h / 8, output row 8·w + h % 8 (zeros for tap 27, which V4 lacks
+//   and V6 drops). A consumer thread of warp w holds accumulator rows 16·w +
+//   lane / 4 (e = 0, 1 of each 8-column block) and 16·w + lane / 4 + 8 (e =
+//   2, 3), so its e = 0 and e = 2 are one output element, output row 8·w +
+//   lane / 4, summed over the even and the odd taps of the tiles chained into
+//   the accumulator: out = e0 + e2 (and e1 + e3), added once after the chain.
+// - X streams by TMA from L2 (16.8 MB at N = 131,072) as V1 streams P:
+//   MN-major boxes of 64 k × 64 columns. K = 64 is one ring stage, so one
+//   stage is one whole work item of BN columns, and every m64 tile of the
+//   item reuses it.
+// - Two consumer warpgroups take alternate work items of the block, each
+//   from SPC ring stages of its own (a stage is only ever read by one
+//   consumer, so the barriers' phases count per stage), and issue per item
+//   the 14 tiles × 4 k16 steps as one batch of wgmma.mma_async m64n128k16,
+//   ACCS accumulators of 64 fp32 a thread. Tile i chains into accumulator
+//   i % ACCS: V4 one chain over all 14 tiles; V6 two chains (ACCS = 2), its
+//   7 M = 128 dots g, tile 2g into the first and 2g + 1 into the second,
+//   summed once after the chain. Both at BN = 128 with three stages a
+//   consumer (at BN = 256 only one stage a consumer fits beside W, and on an
+//   H100 V4 read the same so, within the spread of three runs: PERF.md).
+//   One consumer's fold and stores overlap the other's products. The
+//   producer warpgroup (one thread of it issues the loads) gives registers
+//   to the consumers (setmaxnreg).
+// - Epilogue: the folded 32 output rows × 32 fp32 columns at a time into one
+//   of the consumer's two 4 KB store boxes (128-byte swizzle, float2 writes),
+//   stored by TMA, which clips the ragged last N tile (loads past N are
+//   zeros); a box is rewritten once the store before last has read it.
+//
+// What bounds it: the products, 2·32·1728·N a pass (0.938 ms over R = 64 at
+// N = 131,072 and 989 TFLOP/s). The 14th tile's zero half (tap 27) adds
+// 1/27: 0.973 ms at peak. X and the output (16.8 MB each) stay in L2.
+// Deterministic: every output element is one fixed chain of fp32 products.
+constexpr int kTaps = 27;                         // taps summed (V6: row groups 0-26)
+constexpr int kTapTiles = 14;                     // m64 tiles of two taps each
+constexpr int kTapOutBytes = kGroup * kWgOutBox * 4;  // a store box: [32 rows][32 fp32]
+constexpr int kTapProducerRegs = 40, kTapConsumerRegs = 232;  // registers a thread (setmaxnreg)
+
+// CONS consumer warpgroups, ACCS accumulator chains, SPC ring stages a
+// consumer; BN = 128 columns (one n128 block) a work item.
+template <int CONS_, int ACCS_, int SPC_>
+struct WgTapCfg {
+  static constexpr int CONS = CONS_, ACCS = ACCS_, SPC = SPC_;
+  static constexpr int BN = 128;                     // columns of a work item
+  static constexpr int StageBytes = BN * 128;        // X: BN / 64 boxes [64 k][64 n]
+  static constexpr int Threads = (CONS + 1) * 128;
+  // alignment slack, resident W, ring, two store boxes a consumer, barriers
+  static constexpr int Smem = 1024 + kTapTiles * kWgTile + CONS * SPC * StageBytes +
+                              CONS * 2 * kTapOutBytes + 2 * CONS * SPC * 8;
+  static_assert(kTapTiles % ACCS == 0 && ACCS * 64 <= 128 &&
+                    (CONS * kTapConsumerRegs + kTapProducerRegs) * 128 <= 65536,
+                "whole M = 64·ACCS dots; the SM's registers for the warpgroups' budgets");
+  static_assert(Smem <= kWgSmemMax, "the card's shared memory");
+};
+using WgV4 = WgTapCfg<2, 1, 3>;  // 230,496 bytes of shared memory
+using WgV6 = WgTapCfg<2, 2, 3>;  // 230,496
+
+template <class Cfg>
+__global__ void __launch_bounds__(Cfg::Threads, 1)
+    probe_tapsum_wgmma(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_c, const bf16* __restrict__ w,
+                       int N, int repeats) {
+  constexpr int CONS = Cfg::CONS, ACCS = Cfg::ACCS, SPC = Cfg::SPC, BN = Cfg::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  unsigned char* wres = smem;                                  // kTapTiles tiles [64][64 k]
+  unsigned char* ring = wres + kTapTiles * kWgTile;            // consumer c's stages c·SPC …
+  unsigned char* outs = ring + CONS * SPC * Cfg::StageBytes;   // two store boxes a consumer
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + CONS * 2 * kTapOutBytes);
+  uint64_t* empty = full + CONS * SPC;
+
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const long long per_pass = (N + BN - 1) / BN;
+  const long long items = per_pass * repeats;
+
+  if (tid == 0) {
+    for (int s = 0; s < CONS * SPC; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  // W into the resident tiles, permuted: tile i row r = 16·wr + h holds tap
+  // 2i + h / 8, output row 8·wr + h % 8; a thread copies one 16-byte chunk (8 k)
+  for (int c = tid; c < kTapTiles * 64 * 8; c += Cfg::Threads) {
+    const int i = c / 512, r = c / 8 % 64, k8 = c % 8;
+    const int tap = 2 * i + r % 16 / 8, orow = 8 * (r / 16) + r % 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (tap < kTaps)
+      v = *reinterpret_cast<const uint4*>(w + (long long)(tap * kGroup + orow) * kWgBK + k8 * 8);
+    *reinterpret_cast<uint4*>(wres + i * kWgTile + sw128_offset(r, k8)) = v;
+  }
+  fence_proxy_async_shared();  // the products read it through the async proxy
+  __syncthreads();
+
+  if (wg == CONS) {  // the producer: block item li goes to consumer li % CONS
+    setmaxnreg_dec<kTapProducerRegs>();
+    if (lt == 0) {
+      long long li = 0;
+      for (long long it = blockIdx.x; it < items; it += gridDim.x, ++li) {
+        const long long lj = li / CONS;  // the consumer's own item count
+        const int s = int(li % CONS) * SPC + int(lj % SPC);
+        mbar_wait(&empty[s], uint32_t(lj / SPC & 1) ^ 1);  // its consumer freed it (free at first)
+        unsigned char* st = ring + s * Cfg::StageBytes;
+        mbar_arrive_expect_tx(&full[s], Cfg::StageBytes);
+        const int n0 = int(it % per_pass) * BN;
+#pragma unroll
+        for (int b = 0; b < BN / kWgBox; ++b)
+          tma_load_2d(st + b * kWgTile, &map_x, &full[s], n0 + b * kWgBox, 0);
+      }
+    }
+  } else {  // a consumer: block items wg, wg + CONS, …
+    setmaxnreg_inc<kTapConsumerRegs>();
+    float acc[ACCS][64];
+    unsigned char* out = outs + wg * 2 * kTapOutBytes;
+    const int warp = lt / 32, lane = lt % 32;
+    const uint32_t w0 = smem_u32(wres);
+    int stores = 0;
+    long long lj = 0;
+    for (long long it = blockIdx.x + (long long)wg * gridDim.x; it < items;
+         it += (long long)CONS * gridDim.x, ++lj) {
+      const int s = wg * SPC + int(lj % SPC);
+      const int n0 = int(it % per_pass) * BN;
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) wgmma_fence_acc(acc[a]);
+      mbar_wait(&full[s], uint32_t(lj / SPC & 1));
+      const uint32_t x0 = smem_u32(ring + s * Cfg::StageBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int d = 0; d < kTapTiles / ACCS; ++d)  // dot d: tiles d·ACCS … (M = 64·ACCS)
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk)
+#pragma unroll
+          for (int a = 0; a < ACCS; ++a) {
+            const uint64_t da =
+                wgmma_desc(w0 + (d * ACCS + a) * kWgTile + kk * 32, kWgLboA, kWgSbo);
+            const uint64_t db = wgmma_desc(x0 + kk * 16 * 128, kWgLboB, kWgSbo);
+            wgmma_m64n128k16<1>(acc[a], da, db, d > 0 || kk > 0);
+          }
+      wgmma_commit();
+      wgmma_wait<0>();  // the item's products are done: free its stage for the producer
+      if (lt == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int a = 0; a < ACCS; ++a) wgmma_fence_acc(acc[a]);
+
+      // the chains, in order, into the first
+#pragma unroll
+      for (int a = 1; a < ACCS; ++a)
+#pragma unroll
+        for (int q = 0; q < 64; ++q) acc[0][q] += acc[a][q];
+#pragma unroll
+      for (int h = 0; h < BN / kWgOutBox; ++h) {  // columns 32·h …
+        unsigned char* box = out + (stores & 1) * kTapOutBytes;
+        if (lt == 0) tma_store_wait_read<1>();  // the store before last has read this box
+        bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int cb = 0; cb < kWgOutBox / 8; ++cb) {
+          // column block 4h + cb: accumulators q … q + 3, e0 + e2 and e1 + e3
+          // at output row 8·warp + lane / 4, box columns 8·cb + 2·(lane % 4)
+          const int q = 4 * (h * kWgOutBox / 8 + cb);
+          const int c = 8 * cb + 2 * (lane % 4);
+          *reinterpret_cast<float2*>(box + sw128_offset(8 * warp + lane / 4, c / 4) +
+                                     (lane % 2) * 8) =
+              make_float2(acc[0][q] + acc[0][q + 2], acc[0][q + 1] + acc[0][q + 3]);
+        }
+        fence_proxy_async_shared();
+        bar_sync(1 + wg, 128);
+        if (lt == 0) {
+          tma_store_2d(&map_c, box, n0 + h * kWgOutBox, 0);
+          tma_store_commit();
+        }
+        ++stores;
+      }
+    }
+    if (lt == 0) tma_store_wait<0>();
+  }
+}
+
 // ---------------------------------------------------------------- launches ---
 
 // A persistent launch: as many blocks as fit on the SMs, at most `items`.
@@ -777,6 +977,24 @@ cudaError_t gemm_wgmma(const void* a, const void* b, void* c, int M, int Nc, int
                 static_cast<const bf16*>(b), M, Nc, K, repeats);
 }
 
+// The wgmma tap-sum instance Cfg on w (W27 864 × 64, or W27p 896 × 64: the
+// first 864 rows read) and x (64 × n): the tensor maps need 16-byte row
+// pitches (n a multiple of 8) and 16-byte aligned bases.
+template <class Cfg>
+cudaError_t tapsum_wgmma(const void* w, const void* x, void* out, int n, int repeats,
+                         cudaStream_t stream) {
+  if (n < 1 || n % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mc;
+  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, kWgBK, n, kWgBK, kWgBox) ||
+      !tensor_map(&mc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, kGroup, n, kGroup, kWgOutBox))
+    return cudaErrorInvalidValue;
+  const long long items = (long long)((n + Cfg::BN - 1) / Cfg::BN) * repeats;
+  return launch(probe_tapsum_wgmma<Cfg>, Cfg::Threads, Cfg::Smem, items, stream, mx, mc,
+                static_cast<const bf16*>(w), n, repeats);
+}
+
 // The instances of hvc_probe_v1 (make_v1: out (m, n) = w (m, k) · p (k, n)).
 enum V1Instance {
   kV1MmaNarrow = 0,  // mma.sync, 32 × 128 tiles (V1's before wgmma)
@@ -854,6 +1072,42 @@ cudaError_t run_v3(int instance, const void* w27, const void* p, void* out, int 
     case kV3Mma:
       return gemm_any<32, 128, 1, 4, true>(w27, p, out, kGroup, n, 27 * kBK, repeats, aligned, s);
     case kV3Wgmma: return gemm_wgmma<WgV3>(w27, p, out, kGroup, n, 27 * kWgBK, repeats, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The instances of hvc_probe_v4 (v4: one M = 864 dot w27 · x, its 27 row
+// groups summed) and hvc_probe_v6 (v6: 7 M = 128 dots of w27p · x, 27 of
+// their 28 row groups summed).
+enum V4Instance {
+  kV4Mma = 0,    // probe_tapsum, 32 × 32 tiles, 9 × 2 warps (V4's before wgmma)
+  kV4Wgmma = 1,  // WgV4: W resident as A, one accumulator chain, 32 × 128 a work item
+};
+enum V6Instance {
+  kV6Mma = 0,    // probe_tapsum, 32 × 64 tiles, 4 × 2 warps (V6's before wgmma)
+  kV6Wgmma = 1,  // WgV6: W resident as A, M = 128 dots in two chains, 32 × 128 a work item
+};
+
+// The rules of hvc_probe_v4 and hvc_probe_v6, instance codes: with 16-byte
+// row pitches of X and the output for the tensor maps (n a multiple of 8)
+// the wgmma instance, otherwise probe_tapsum on mma.sync.
+int v4_instance(int n) { return n % 8 == 0 ? kV4Wgmma : kV4Mma; }
+int v6_instance(int n) { return n % 8 == 0 ? kV6Wgmma : kV6Mma; }
+
+cudaError_t run_v4(int instance, const void* w27, const void* x, void* out, int n, int repeats,
+                   int aligned, cudaStream_t s) {
+  switch (instance) {
+    case kV4Mma: return tapsum<64, 1, 27, 27, 9, 2, 16>(w27, x, out, n, repeats, aligned, s);
+    case kV4Wgmma: return tapsum_wgmma<WgV4>(w27, x, out, n, repeats, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t run_v6(int instance, const void* w27p, const void* x, void* out, int n, int repeats,
+                   int aligned, cudaStream_t s) {
+  switch (instance) {
+    case kV6Mma: return tapsum<64, 7, 4, 27, 4, 2, 32>(w27p, x, out, n, repeats, aligned, s);
+    case kV6Wgmma: return tapsum_wgmma<WgV6>(w27p, x, out, n, repeats, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -940,18 +1194,42 @@ int hvc_probe_v5(const void* w14, const void* x2, void* out, int n, int repeats,
                                           static_cast<cudaStream_t>(stream));
 }
 
-// out (32, n) = Σ_{t<27} w27p[32t:32t+32] · x, as 7 dots of M = 128; w27p (896, 64)
+// out (32, n) = Σ_{t<27} w27p[32t:32t+32] · x, as 7 dots of M = 128; w27p (896, 64);
+// on the instance hvc_probe_v6_rule names.
 int hvc_probe_v6(const void* w27p, const void* x, void* out, int n, int repeats, int aligned,
                  void* stream) {
-  return tapsum<64, 7, 4, 27, 4, 2, 32>(w27p, x, out, n, repeats, aligned,
-                                        static_cast<cudaStream_t>(stream));
+  return run_v6(v6_instance(n), w27p, x, out, n, repeats, aligned,
+                static_cast<cudaStream_t>(stream));
 }
 
-// out (32, n) = Σ_{t<27} rows 32t..32t+31 of w27 (864, 64) · x, one M = 864 dot
+// The instance code hvc_probe_v6 runs a call of n columns on (V6Instance: 0
+// mma.sync, 1 WgV6), the rule the wrapper counts its launches by.
+int hvc_probe_v6_rule(int n) { return v6_instance(n); }
+
+// hvc_probe_v6 on a named instance (V6Instance), for comparing them
+// (scripts/probe_variants.py); the wgmma instance needs n a multiple of 8.
+int hvc_probe_v6_instance(const void* w27p, const void* x, void* out, int n, int repeats,
+                          int aligned, int instance, void* stream) {
+  return run_v6(instance, w27p, x, out, n, repeats, aligned, static_cast<cudaStream_t>(stream));
+}
+
+// out (32, n) = Σ_{t<27} rows 32t..32t+31 of w27 (864, 64) · x, one M = 864 dot;
+// on the instance hvc_probe_v4_rule names.
 int hvc_probe_v4(const void* w27, const void* x, void* out, int n, int repeats, int aligned,
                  void* stream) {
-  return tapsum<64, 1, 27, 27, 9, 2, 16>(w27, x, out, n, repeats, aligned,
-                                         static_cast<cudaStream_t>(stream));
+  return run_v4(v4_instance(n), w27, x, out, n, repeats, aligned,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The instance code hvc_probe_v4 runs a call of n columns on (V4Instance: 0
+// mma.sync, 1 WgV4), the rule the wrapper counts its launches by.
+int hvc_probe_v4_rule(int n) { return v4_instance(n); }
+
+// hvc_probe_v4 on a named instance (V4Instance), for comparing them
+// (scripts/probe_variants.py); the wgmma instances need n a multiple of 8.
+int hvc_probe_v4_instance(const void* w27, const void* x, void* out, int n, int repeats,
+                          int aligned, int instance, void* stream) {
+  return run_v4(instance, w27, x, out, n, repeats, aligned, static_cast<cudaStream_t>(stream));
 }
 
 // out (32, n) = Σ_{t<9} w9[32t:32t+32] (32, 192) · x3 (192, n)

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for warpgroup matrix products fed by the
-// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0, V1
-// and V2 probe GEMMs in conv_probe.cu): the 128-byte swizzle address, the
-// wgmma shared-memory matrix descriptor, mbarriers, TMA tile loads and
+// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0-V4
+// and V6 probes in conv_probe.cu): the 128-byte swizzle address, the
+// wgmma shared-memory matrix descriptor, mbarriers, register rebalancing
+// between warpgroups, TMA tile loads and
 // stores, wgmma's fence, commit and wait, and the m64n128k16 and m64n32k16
 // bf16 → fp32 products. The tensor maps
 // themselves are built on the host with libcuda's cuTensorMapEncodeTiled,
@@ -81,6 +82,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The calling warpgroup's registers a thread: a producer that only issues
+// TMA gives some back (dec), consumers holding accumulators take them (inc).
+// All four warps of the warpgroup execute it; the paths after it must not
+// reconverge, or the compiler ignores it.
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
 // ------------------------------------------------------------------- TMA ---

@@ -21,8 +21,11 @@ wgmma instance also adds one to that instance's counter: ``probe_v1`` on
 V0's (``probe_v1_instance`` = ``V1_WGMMA_V0``) to ``conv_probe_v1_wgmma``, on
 V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, every ``probe_v2``
 launch (``probe_v2_instance`` = ``V2_WGMMA``) to ``conv_probe_v2_wgmma``,
-and ``probe_v3`` on its wgmma instance (``probe_v3_instance`` =
-``V3_WGMMA``) to ``conv_probe_v3_wgmma``.
+and ``probe_v3``, ``probe_v4`` and ``probe_v6`` on their wgmma instances
+(``probe_v3_instance`` = ``V3_WGMMA``, ``probe_v4_instance`` =
+``V4_WGMMA``, ``probe_v6_instance`` = ``V6_WGMMA``) to
+``conv_probe_v3_wgmma``, ``conv_probe_v4_wgmma`` and
+``conv_probe_v6_wgmma``.
 """
 
 from __future__ import annotations
@@ -47,27 +50,33 @@ _V1_RULE_ARGTYPES = (_I, _I, _I)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # hvc_probe_v2_rule(k, n): the instance code hvc_probe_v2 takes (-1: none)
 _V2_RULE_ARGTYPES = (_I, _I)
-# hvc_probe_v3_rule(n): the instance code hvc_probe_v3 takes
-_V3_RULE_ARGTYPES = (_I,)
+# hvc_probe_{v3,v4,v6}_rule(n): the instance code hvc_probe_{v3,v4,v6} takes
+_TAP_RULE_ARGTYPES = (_I,)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
 LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
             "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0,
-            "conv_probe_v3_wgmma": 0}
-# The instance codes of hvc_probe_v1, hvc_probe_v2 and hvc_probe_v3
-# (V1Instance, V2Instance, V3Instance in csrc/conv_probe.cu): V1 on the
-# 32 × 128 or the 128 × 128 mma.sync tiles, V0's wgmma instance (WgV0), V1's
-# (WgV1); V2 on its wgmma instance with wt resident (WgV2); V3 on the 32 × 128
-# mma.sync tiles or on its wgmma instance (WgV3).
+            "conv_probe_v3_wgmma": 0, "conv_probe_v4_wgmma": 0, "conv_probe_v6_wgmma": 0}
+# The instance codes of hvc_probe_v1, hvc_probe_v2, hvc_probe_v3,
+# hvc_probe_v4 and hvc_probe_v6 (V1Instance … V6Instance in
+# csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128 mma.sync tiles,
+# V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma instance with wt
+# resident (WgV2); V3 on the 32 × 128 mma.sync tiles or on its wgmma
+# instance (WgV3); V4 and V6 on probe_tapsum (mma.sync) or on their wgmma
+# instances with the weights resident as A (WgV4, WgV6).
 V1_MMA_NARROW, V1_MMA_WIDE, V1_WGMMA_V0, V1_WGMMA_M32 = 0, 1, 2, 3
 V2_WGMMA = 1
 V3_MMA, V3_WGMMA = 0, 1
+V4_MMA, V4_WGMMA = 0, 1
+V6_MMA, V6_WGMMA = 0, 1
 _INSTANCE_COUNTERS = {("v1", V1_WGMMA_V0): "conv_probe_v1_wgmma",
                       ("v1", V1_WGMMA_M32): "conv_probe_v1_wgmma_m32",
                       ("v2", V2_WGMMA): "conv_probe_v2_wgmma",
-                      ("v3", V3_WGMMA): "conv_probe_v3_wgmma"}
+                      ("v3", V3_WGMMA): "conv_probe_v3_wgmma",
+                      ("v4", V4_WGMMA): "conv_probe_v4_wgmma",
+                      ("v6", V6_WGMMA): "conv_probe_v6_wgmma"}
 # The wgmma instances' rows per m64 tile, the row pitch their tensor maps
 # need (16 bytes: 8 bf16 of P), the most rows V1's instance takes (one
 # half-filled m64 tile) and the deepest wt V2's keeps in shared memory.
@@ -294,6 +303,26 @@ def probe_v3_instance(n: int) -> int:
     return V3_WGMMA if n % WGMMA_N_ALIGN == 0 else V3_MMA
 
 
+def probe_v4_instance(n: int) -> int:
+    """The instance ``probe_v4`` takes, the rule of ``v4_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v4_rule``: with N a
+    multiple of 8 (16-byte rows of x and the output for the tensor maps)
+    ``V4_WGMMA`` (``probe_tapsum_wgmma<WgV4>``: w27 resident as wgmma's A,
+    two taps to an m64 tile, one accumulator chain, 128 columns a work
+    item), otherwise ``probe_tapsum`` on mma.sync (``V4_MMA``)."""
+    return V4_WGMMA if n % WGMMA_N_ALIGN == 0 else V4_MMA
+
+
+def probe_v6_instance(n: int) -> int:
+    """The instance ``probe_v6`` takes, the rule of ``v6_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v6_rule``: with N a
+    multiple of 8 ``V6_WGMMA`` (``probe_tapsum_wgmma<WgV6>``: the first 864
+    rows of w27p resident as wgmma's A, the M = 128 dots in two accumulator
+    chains, 128 columns a work item), otherwise ``probe_tapsum`` on mma.sync
+    (``V6_MMA``)."""
+    return V6_WGMMA if n % WGMMA_N_ALIGN == 0 else V6_MMA
+
+
 def _tap_probe(variant: str, plain, w: torch.Tensor, x: torch.Tensor, w_shape: tuple,
                x_rows: int, repeats: int, rule=None) -> torch.Tensor:
     """A wrapper of the tap-sum probes (out (32, N)); ``rule``: the C entry
@@ -304,7 +333,7 @@ def _tap_probe(variant: str, plain, w: torch.Tensor, x: torch.Tensor, w_shape: t
     if not _on_card(w, x):
         return plain(w, x, repeats)
     n = x.shape[1]
-    instance = -1 if rule is None else _build.function(rule, _V3_RULE_ARGTYPES)(n)
+    instance = -1 if rule is None else _build.function(rule, _TAP_RULE_ARGTYPES)(n)
     out = torch.empty((COUT, n), dtype=torch.float32, device=x.device)
     return _launch(variant, _TAP_ARGTYPES, w, x, out, n, repeats, int(n % 8 == 0),
                    instance=instance)
@@ -332,14 +361,17 @@ def probe_v5(w14: torch.Tensor, x2: torch.Tensor, repeats: int) -> torch.Tensor:
 
 def probe_v6(w27p: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v6``: 7 dots of M = 128 rows of w27p (896, 64) with x (64, N), their
-    32-row groups summed into out (32, N) (27 of the 28 groups)."""
-    return _tap_probe("v6", probe_v6_plain, w27p, x, (28 * COUT, CIN), CIN, repeats)
+    32-row groups summed into out (32, N) (27 of the 28 groups); on the
+    instance ``probe_v6_instance`` names."""
+    return _tap_probe("v6", probe_v6_plain, w27p, x, (28 * COUT, CIN), CIN, repeats,
+                      rule="hvc_probe_v6_rule")
 
 
 def probe_v4(w27: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v4``: one M = 864 dot w27 (864, 64) · x (64, N), its 27 row groups
-    summed into out (32, N)."""
-    return _tap_probe("v4", probe_v4_plain, w27, x, (TAPS * COUT, CIN), CIN, repeats)
+    summed into out (32, N); on the instance ``probe_v4_instance`` names."""
+    return _tap_probe("v4", probe_v4_plain, w27, x, (TAPS * COUT, CIN), CIN, repeats,
+                      rule="hvc_probe_v4_rule")
 
 
 def probe_v8(w9: torch.Tensor, x3: torch.Tensor, repeats: int) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""The V0, V1, V2 and V3 probe GEMMs on each of their instances, beside cuBLAS.
+"""The V0-V4 and V6 conv probes on each of their instances, beside cuBLAS.
 
-    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3] [--sizes N ...]
-        [--out FILE]
+    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3 V4 V6]
+        [--sizes N ...] [--out FILE]
 
 Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
-``hvc_probe_v1_instance``, ``hvc_probe_v2_instance`` and
-``hvc_probe_v3_instance`` in ``csrc/conv_probe.cu``):
+``hvc_probe_v1_instance``, ``hvc_probe_v2_instance``,
+``hvc_probe_v3_instance``, ``hvc_probe_v4_instance`` and
+``hvc_probe_v6_instance`` in ``csrc/conv_probe.cu``):
 
 - V0, ``make_v1`` at m = 256: out (256, N) = W (256, 1728) · P (1728, N) on
   (a) the 128 × 128 mma.sync instance as it walks, every N tile of M tile 0
@@ -25,18 +26,32 @@ Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
   the 32 × 128 mma.sync instance it took before wgmma and still takes at a
   ragged N; (b) the wgmma instance it takes (WgV3: V1's, with K chunk t's A
   box the 64 rows of W27 from row 32t);
+- V4, ``v4``: out (32, N) = the 27 row groups of W27 (864, 64) · X (64, N)
+  summed, on (a) ``probe_tapsum``, the mma.sync instance it took before
+  wgmma and still takes at a ragged N (32 × 32 tiles, 9 × 2 warps, the
+  warps' partial sums added through shared memory); (b) the wgmma instance
+  it takes (WgV4: W27 resident as A, two taps to an m64 tile, one
+  accumulator chain, 128 columns a work item, three ring stages a
+  consumer);
+- V6, ``v6``: the same sum as 7 dots of M = 128 over W27p (896, 64), on (a)
+  ``probe_tapsum`` (32 × 64 tiles, 4 × 2 warps); (b) the wgmma instance it
+  takes (WgV6: two accumulator chains, tiles 2g and 2g + 1 of dot g, 128
+  columns a work item);
 
 each beside one cuBLAS call over the same operands (``torch.mm``, R calls,
-fp32 out; V3's W27 laid out as V1's 32 × 1728 W) as the yardstick, at N = 131,072 (P, 453 MB, streams from device
-memory every pass) and at N = 8,192 (P, 28 MB, stays in the 50 MB L2: the
+fp32 out; V3's W27 laid out as V1's 32 × 1728 W; V4's and V6's product
+without the tap sum, (864 × 64)·(64 × N)) as the yardstick, at N = 131,072
+(P, 453 MB, streams from device memory every pass; V4's and V6's X, 16.8
+MB, stays in L2) and at N = 8,192 (P, 28 MB, stays in the 50 MB L2: the
 rate at which the instance stages and multiplies it), or at the N of
 ``--sizes`` (a larger N leaves a smaller share of P in the L2 from one pass
 to the next). Each instance is first
 held to the plain product (fp32, one pass) within 1e-4·max|want| +
 1e-4·|want|. Prints the card's name and power limit, one line per (case, N,
-variant) with the median of 5 CUDA-event times, its TFLOP/s and its rate of
-bytes (each input read once a pass, the output written once a pass), and a
-JSON record with ``--out``. Needs nvcc and a CUDA card.
+variant) with the median of 5 CUDA-event times, its TFLOP/s (the probes'
+count, 2·32·1728·N a pass; V0 8×) and its rate of bytes (each input read
+once a pass, the output written once a pass), and a JSON record with
+``--out``. Needs nvcc and a CUDA card.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ import torch
 
 from ..ops.cuda import _build
 from ..ops.cuda import conv_probe as cp
+from . import bench_conv_probe as bench
 
 K, R = cp.K, 64
 SIZES = (131072, 8192)
@@ -63,8 +79,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # hvc_probe_v2_instance(pt, w, out, k, n, repeats, instance, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
-# hvc_probe_v3_instance(w27, p, out, n, repeats, aligned, instance, stream)
-_V3_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
+# hvc_probe_{v3,v4,v6}_instance(w, x, out, n, repeats, aligned, instance, stream)
+_TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
 # (case, m of the product, {instance code: name})
 CASES = {
     "V0": (256, {1: "(a) mma.sync 128 x 128, N tiles of M tile 0 first",
@@ -77,6 +93,10 @@ CASES = {
                 2: "(c) wgmma 256 x 32, W chunks streamed"}),
     "V3": (32, {0: "(a) mma.sync 32 x 128",
                 1: "(b) wgmma m64 (32 rows) x 256, W27 tap-major"}),
+    "V4": (32, {0: "(a) mma.sync 32 x 32, 9 x 2 warps",
+                1: "(b) wgmma 32 x 128, W resident, 1 chain"}),
+    "V6": (32, {0: "(a) mma.sync 32 x 64, 4 x 2 warps",
+                1: "(b) wgmma 32 x 128, W resident, 2 chains"}),
 }
 
 
@@ -107,17 +127,19 @@ def _calls(case: str, m: int, n: int, dev, gen, stream) -> tuple[dict, dict, tor
                          f"probe_variants V2 {names[v]}")
 
         lib = lambda: [torch.mm(pt, wt, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
-    elif case == "V3":
-        w27 = torch.randn((cp.TAPS * m, cp.CIN), generator=gen, device=dev, dtype=torch.bfloat16)
-        p = torch.randn((K, n), generator=gen, device=dev, dtype=torch.bfloat16)
-        w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K)
-        want = cp.probe_v3_plain(w27, p, 1)
-        fn = _build.function("hvc_probe_v3_instance", _V3_ARGTYPES)
+    elif case in ("V3", "V4", "V6"):
+        c = bench.BY_KEY[case]
+        w27 = torch.randn(c.w_shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        p = torch.randn((c.x_rows, n), generator=gen, device=dev, dtype=torch.bfloat16)
+        w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K) if case == "V3" \
+            else w27[:cp.TAPS * m]
+        want = c.plain(w27, p, 1)
+        fn = _build.function(f"hvc_probe_{case.lower()}_instance", _TAP_ARGTYPES)
         out_shape = (m, n)
 
         def run(v, out):
             _build.check(fn(w27.data_ptr(), p.data_ptr(), out.data_ptr(), n, R, 1, v, stream),
-                         f"probe_variants V3 {names[v]}")
+                         f"probe_variants {case} {names[v]}")
 
         lib = lambda: [torch.mm(w, p, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
     else:
@@ -178,8 +200,8 @@ def main(argv=None) -> int:
             for _ in range(5):
                 for name, call in calls.items():
                     times[name].append(_time(call))
-            flops = 2.0 * R * m * K * n
-            nbytes = R * (2 * (m * K + K * n) + 4 * m * n)
+            flops = bench.operations(bench.BY_KEY[case], n, R)
+            nbytes = R * bench.nbytes(bench.BY_KEY[case], n)
             for name, ts in times.items():
                 ms = statistics.median(ts)
                 tf, tbs = flops / (ms * 1e-3) / 1e12, nbytes / (ms * 1e-3) / 1e12

@@ -13,6 +13,7 @@ another order: |got - want| <= 1e-4·max|want| + 1e-4·|want|.
 import functools
 import importlib.util
 import math
+import re
 import types
 from pathlib import Path
 
@@ -143,7 +144,7 @@ def _wg_const(name: str) -> int:
     import re
 
     expr = re.search(rf"^constexpr [^\n]*?\b{name} = ([^,;]+)[,;]", PROBE_SRC, re.M).group(1)
-    names = {n: _wg_const(n) for n in re.findall(r"kWg\w+", expr)}
+    names = {n: _wg_const(n) for n in re.findall(r"\bk[A-Z]\w*", expr)}
     return int(eval(expr, {}, names))
 
 
@@ -169,6 +170,25 @@ def _wg_cfg(name: str) -> dict:
 
 WG = {key: _wg_cfg(name) for key, name in (("V0", "WgV0"), ("V1", "WgV1"), ("V3", "WgV3"),
                                            ("V2", "WgV2"), ("V2s", "WgV2Streamed"))}
+
+
+def _tap_cfg(name: str) -> dict:
+    """The WgTapCfg of instance `name` (WgV4, WgV6) of probe_tapsum_wgmma,
+    its derived sizes computed as the struct computes them (BM: the 32
+    output rows a work item stores; BN: one n128 block)."""
+    import re
+
+    cons, accs, spc = map(int, re.search(
+        rf"^using {name} = WgTapCfg<(\d+), (\d+), (\d+)>;", PROBE_SRC, re.M).groups())
+    bn = 128
+    stage = bn * 128
+    smem = (1024 + _wg_const("kTapTiles") * _wg_const("kWgTile") + cons * spc * stage
+            + cons * 2 * _wg_const("kTapOutBytes") + 2 * cons * spc * 8)
+    return {"TAP": True, "CONS": cons, "ACCS": accs, "SPC": spc, "STAGES": cons * spc,
+            "BM": cp.COUT, "BN": bn, "WN": 128, "StageBytes": stage, "smem": smem}
+
+
+WG_TAP = {key: _tap_cfg(name) for key, name in (("V4", "WgV4"), ("V6", "WgV6"))}
 
 
 def test_wgmma_configs_are_the_source():
@@ -204,6 +224,33 @@ def test_wgmma_configs_are_the_source():
     assert WG["V2"]["smem"](max_k + 64) > 232448
     assert ("constexpr int kV2MaxK = (kWgSmemMax - WgV2::smem(0)) / (2 * WgV2::BN) / kWgBK * "
             "kWgBK;  // 1792") in PROBE_SRC
+    # the tap-sum instances of probe_tapsum_wgmma: W resident (14 m64 tiles of
+    # two taps, 896 rows, 114,688 bytes), two consumers on rings of their own,
+    # V4 one chain and V6 two (its M = 128 dots) at 128 columns a work item
+    for line in ("  static constexpr int BN = 128;                     // columns of a work item",
+                 "  static constexpr int StageBytes = BN * 128;        // X: BN / 64 boxes [64 k][64 n]",
+                 "  static constexpr int Threads = (CONS + 1) * 128;",
+                 "  static constexpr int Smem = 1024 + kTapTiles * kWgTile + CONS * SPC * StageBytes +",
+                 "                              CONS * 2 * kTapOutBytes + 2 * CONS * SPC * 8;",
+                 "  static_assert(kTapTiles % ACCS == 0 && ACCS * 64 <= 128 &&",
+                 "                    (CONS * kTapConsumerRegs + kTapProducerRegs) * 128 <= 65536,",
+                 '  static_assert(Smem <= kWgSmemMax, "the card\'s shared memory");'):
+        assert line in PROBE_SRC, line
+    tap = {k: (c["CONS"], c["ACCS"], c["SPC"], c["BN"]) for k, c in WG_TAP.items()}
+    assert tap == {"V4": (2, 1, 3, 128), "V6": (2, 2, 3, 128)}
+    tap_smem = {k: c["smem"] for k, c in WG_TAP.items()}
+    assert tap_smem == {"V4": 230496, "V6": 230496}
+    assert max(tap_smem.values()) <= 232448
+    assert (_wg_const("kTapTiles"), _wg_const("kTaps"), _wg_const("kTapOutBytes")) == (14, 27, 4096)
+    assert _wg_const("kTapTiles") * _wg_const("kWgTile") == 114688
+    # registers: two consumers at 232 and the producer at 40 share the SM's
+    # 65,536; a consumer's accumulators (ACCS·64) fit in its 232
+    regs = (_wg_const("kTapProducerRegs"), _wg_const("kTapConsumerRegs"))
+    assert regs == (40, 232) and (2 * regs[1] + regs[0]) * 128 <= 65536
+    assert all(c["ACCS"] * 64 <= 128 for c in WG_TAP.values())
+    for line in ("  float acc[ACCS][64];", "    setmaxnreg_dec<kTapProducerRegs>();",
+                 "    setmaxnreg_inc<kTapConsumerRegs>();"):
+        assert line in PROBE_SRC, line
 
 
 _V1_RULE = ("int v1_instance(int m, int n) {\n"
@@ -267,15 +314,41 @@ def test_v2_wgmma_rule_is_the_source(k, n):
 def _walk(cfg: dict, m: int, n: int, repeats: int, grid: int):
     """The work items of probe_gemm_wgmma as its blocks walk them: block b
     takes items b, b + grid, …; item it is pass it / (tiles_m·tiles_n) and
-    tile it % (tiles_m·tiles_n), N-major (m tile = tile % tiles_m)."""
+    tile it % (tiles_m·tiles_n), N-major (m tile = tile % tiles_m).
+    probe_tapsum_wgmma (one M tile: all 32 output rows) walks the same way."""
     bm, bn = cfg["BM"], cfg["BN"]
     tiles_m, tiles_n = -(-m // bm), -(-n // bn)
     per_pass = tiles_m * tiles_n
+    if cfg.get("TAP"):
+        for line in ("        const int n0 = int(it % per_pass) * BN;",  # the producer
+                     "      const int n0 = int(it % per_pass) * BN;"):  # the consumers
+            assert line in PROBE_SRC
+        return [(it // per_pass, 0, it % per_pass * bn, b)
+                for b in range(grid) for it in range(b, repeats * per_pass, grid)]
     line = "        const int m0 = int(tile % tiles_m) * BM, n0 = int(tile / tiles_m) * BN;"
     assert line in PROBE_SRC
     assert PROBE_SRC.count(line.strip()) == 2  # the producer and the consumers
     return [(it // per_pass, (it % per_pass) % tiles_m * bm, (it % per_pass) // tiles_m * bn, b)
             for b in range(grid) for it in range(b, repeats * per_pass, grid)]
+
+
+def _tap_ring(cfg: dict, uses: int) -> list:
+    """(consumer, stage, phase) of a block's items li = 0 … uses - 1 in
+    probe_tapsum_wgmma: item li goes to consumer li % CONS, its lj = li / CONS
+    th, into stage consumer·SPC + lj % SPC, at phase lj / SPC % 2 (the
+    producer's and the consumer's expressions)."""
+    for line in ("        const long long lj = li / CONS;  // the consumer's own item count",
+                 "        const int s = int(li % CONS) * SPC + int(lj % SPC);",
+                 "        mbar_wait(&empty[s], uint32_t(lj / SPC & 1) ^ 1);  // its consumer freed it "
+                 "(free at first)",
+                 "    for (long long it = blockIdx.x + (long long)wg * gridDim.x; it < items;",
+                 "         it += (long long)CONS * gridDim.x, ++lj) {",
+                 "      const int s = wg * SPC + int(lj % SPC);",
+                 "      mbar_wait(&full[s], uint32_t(lj / SPC & 1));"):
+        assert line in PROBE_SRC, line
+    cons, spc = cfg["CONS"], cfg["SPC"]
+    return [(li % cons, li % cons * spc + li // cons % spc, li // cons // spc % 2)
+            for li in range(uses)]
 
 
 @pytest.mark.parametrize("key,m,n,repeats,grid", [
@@ -284,14 +357,18 @@ def _walk(cfg: dict, m: int, n: int, repeats: int, grid: int):
     ("V1", 32, 2120, 2, 5), ("V1", 8, 200, 1, 132), ("V2", 131072, 32, 64, 132),
     ("V2", 8192, 32, 3, 132), ("V2", 2120, 32, 2, 5), ("V2", 77, 32, 1, 132),
     ("V2s", 131072, 32, 2, 132), ("V3", 32, 131072, 64, 132), ("V3", 32, 8192, 3, 132),
-    ("V3", 32, 2120, 2, 5), ("V3", 32, 8, 1, 132)])
+    ("V3", 32, 2120, 2, 5), ("V3", 32, 8, 1, 132), ("V4", 32, 131072, 64, 132),
+    ("V4", 32, 2120, 2, 5), ("V4", 32, 8, 3, 132), ("V6", 32, 131072, 64, 132),
+    ("V6", 32, 8192, 3, 7), ("V6", 32, 2120, 2, 5)])
 def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     """Every (pass, m tile, n tile) is one work item of one block, a work item
-    holds all the rows of its N tile where m ≤ BM (V0, V1, V3; V2's M is the
-    spatial N, its N the 32 output channels: one N tile), and each block's
-    items go in pass order, so every pass re-reads P and rewrites the whole
-    output."""
-    cfg = WG[key]
+    holds all the rows of its N tile where m ≤ BM (V0, V1, V3, V4, V6; V2's M
+    is the spatial N, its N the 32 output channels: one N tile), and each
+    block's items go in pass order, so every pass re-reads P (X) and rewrites
+    the whole output. V4's and V6's two consumers take alternate items of the
+    block, each from ring stages of its own, so a stage's phases follow its
+    one consumer's items in order."""
+    cfg = {**WG, **WG_TAP}[key]
     bm, bn = cfg["BM"], cfg["BN"]
     assert _wg_const("kWgBK") == 64
     items = _walk(cfg, m, n, repeats, grid)
@@ -302,9 +379,20 @@ def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
         assert all(m0 == 0 for _, m0, _, _ in items)
     if n <= bn:
         assert all(n0 == 0 for _, _, n0, _ in items)
-    for b in range(grid):
-        passes = [r for r, _, _, blk in items if blk == b]
+    by_block = {}
+    for r, _, _, blk in items:
+        by_block.setdefault(blk, []).append(r)
+    for passes in by_block.values():
         assert passes == sorted(passes)
+    if cfg.get("TAP"):
+        ring = _tap_ring(cfg, max(len(passes) for passes in by_block.values()))
+        for stage in range(cfg["STAGES"]):
+            seq = [(c, ph) for c, st, ph in ring if st == stage]
+            assert {c for c, _ in seq} <= {stage // cfg["SPC"]}  # one consumer's stage
+            assert [ph for _, ph in seq] == [k % 2 for k in range(len(seq))]
+        for c in range(cfg["CONS"]):  # a consumer's stages in rotation
+            stages = [st for cc, st, _ in ring if cc == c]
+            assert stages == [c * cfg["SPC"] + k % cfg["SPC"] for k in range(len(stages))]
 
 
 def _sw128(row: int, chunk: int) -> int:
@@ -313,23 +401,30 @@ def _sw128(row: int, chunk: int) -> int:
     return row * 128 + ((chunk ^ (row & 7)) << 4)
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s", "V4", "V6"])
 def test_sw128_is_the_source_and_a_bijection(key):
     """The mirror states the C function, and on one ring stage (A: the item's
     rows of 128 bytes; B: 64-row MN-major boxes or the item's 32 K-major
     rows), one resident Wᵀ block and one epilogue box (64 rows of 32 fp32)
     every (row, chunk) lands on its own 16-byte slot of its row, the 8 rows of
-    a chunk column in 8 different bank groups."""
+    a chunk column in 8 different bank groups; for V4 and V6 on one resident
+    m64 tile of W, one 64-row box of X and one 32-row store box."""
     assert "  return row * 128u + ((chunk ^ (row & 7u)) << 4);" in WGMMA_SRC
-    cfg = WG[key]
-    b_rows = 64 if cfg["BMODE"] == 0 else cfg["BN"]
-    for rows in (cfg["BM"], b_rows, 64):
+    cfg = {**WG, **WG_TAP}[key]
+    if cfg.get("TAP"):
+        assert cfg["StageBytes"] == cfg["BN"] // 64 * 64 * 128 and cfg["StageBytes"] % 1024 == 0
+        row_sets = (64, 64, cp.COUT)
+    else:
+        row_sets = (cfg["BM"], 64 if cfg["BMODE"] == 0 else cfg["BN"], 64)
+    for rows in row_sets:
         offs = [_sw128(r, c) for r in range(rows) for c in range(8)]
         assert sorted(offs) == list(range(0, rows * 128, 16))
         assert all(_sw128(r, c) // 128 == r for r in range(rows) for c in range(8))
         for r0 in range(0, rows, 8):
             for c in range(8):
                 assert len({_sw128(r0 + i, c) % 128 for i in range(8)}) == 8
+    if cfg.get("TAP"):
+        return
     assert cfg["ABytes"] == cfg["BM"] * 128 and cfg["StageBytes"] % 1024 == 0
     assert cfg["BBytes"] == {0: cfg["BN"] // 64 * 64 * 128, 1: cfg["BN"] * 128, 2: 0}[cfg["BMODE"]]
 
@@ -383,6 +478,29 @@ def test_wgmma_descriptors_are_the_source():
         else:
             starts += [kc * cfg["BN"] * 128 for kc in range(cp.K // 64)]  # the resident blocks
         assert all(a % 1024 == 0 for a in starts)
+    # probe_tapsum_wgmma: A the resident tile d·ACCS + a of W (K-major, k16
+    # steps 32 bytes along its rows), B the item's stage (MN-major, two
+    # 64-column boxes); its resident tiles, stages and store boxes all start
+    # 1024-byte aligned after the aligned base
+    for line in ("                wgmma_desc(w0 + (d * ACCS + a) * kWgTile + kk * 32, kWgLboA, kWgSbo);",
+                 "            const uint64_t db = wgmma_desc(x0 + kk * 16 * 128, kWgLboB, kWgSbo);",
+                 "            wgmma_m64n128k16<1>(acc[a], da, db, d > 0 || kk > 0);",
+                 "  unsigned char* ring = wres + kTapTiles * kWgTile;            // consumer c's stages c·SPC …",
+                 "  unsigned char* outs = ring + CONS * SPC * Cfg::StageBytes;   // two store boxes a consumer",
+                 "    unsigned char* out = outs + wg * 2 * kTapOutBytes;",
+                 "        unsigned char* box = out + (stores & 1) * kTapOutBytes;"):
+        assert line in PROBE_SRC, line
+    for cfg in WG_TAP.values():
+        tiles = [i * 64 * 128 for i in range(_wg_const("kTapTiles"))]
+        ring0 = len(tiles) * 64 * 128
+        stages = [ring0 + s * cfg["StageBytes"] for s in range(cfg["STAGES"])]
+        outs0 = ring0 + cfg["STAGES"] * cfg["StageBytes"]
+        boxes = [outs0 + b * _wg_const("kTapOutBytes") for b in range(2 * cfg["CONS"])]
+        assert all(a % 1024 == 0 for a in tiles + stages + boxes)
+        # the chain's first product into accumulator a is (d, kk) = (0, 0)
+        firsts = [(d, kk) for d in range(_wg_const("kTapTiles") // cfg["ACCS"]) for kk in range(4)
+                  if not (d > 0 or kk > 0)]
+        assert firsts == [(0, 0)]
 
 
 def _resident_wt(k: int, bn: int) -> dict:
@@ -421,7 +539,40 @@ def test_v2_resident_wt_is_k_major_and_swizzled():
         assert [(c % bn, c // bn) for c in range(c0, c0 + 32)] == [(n, c0 // bn) for n in range(32)]
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2"])
+def _tap_epilogue(cfg: dict) -> None:
+    """probe_tapsum_wgmma's epilogue: a round's float2 writes (output row
+    8·warp + lane / 4, columns 8·cb + 2·(lane % 4) of a 32 × 32 fp32 box, at
+    sw128_offset(row, column / 4) + 8·(lane % 2)) cover every 8-byte slot of
+    the box once, each warp's store of one cb hits every bank the same number
+    of times, the rounds of an item store each 32-column box of its BN once,
+    and the accumulators q … q + 3 they fold (q = 4·(4h + cb)) are each of a
+    thread's 64 once."""
+    for line in ("          const int q = 4 * (h * kWgOutBox / 8 + cb);",
+                 "          const int c = 8 * cb + 2 * (lane % 4);",
+                 "          *reinterpret_cast<float2*>(box + sw128_offset(8 * warp + lane / 4, c / 4) +",
+                 "                                     (lane % 2) * 8) =",
+                 "              make_float2(acc[0][q] + acc[0][q + 2], acc[0][q + 1] + acc[0][q + 3]);",
+                 "          tma_store_2d(&map_c, box, n0 + h * kWgOutBox, 0);",
+                 "      for (int h = 0; h < BN / kWgOutBox; ++h) {  // columns 32·h …",
+                 "        if (lt == 0) tma_store_wait_read<1>();  // the store before last has read "
+                 "this box"):
+        assert line in PROBE_SRC, line
+    cols = _wg_const("kWgOutBox")
+    slots = [_sw128(8 * warp + lane // 4, (8 * cb + 2 * (lane % 4)) // 4) + (lane % 2) * 8
+             for warp in range(4) for lane in range(32) for cb in range(cols // 8)]
+    assert sorted(slots) == list(range(0, _wg_const("kTapOutBytes"), 8))
+    for warp, cb in ((w, c) for w in range(4) for c in range(cols // 8)):
+        banks = [((_sw128(8 * warp + ln // 4, (8 * cb + 2 * (ln % 4)) // 4) + (ln % 2) * 8) // 4 + k)
+                 % 32 for ln in range(32) for k in range(2)]
+        assert sorted(banks) == sorted(list(range(32)) * 2)
+    boxes = [h * cols for h in range(cfg["BN"] // cols)]
+    assert sorted(boxes) == list(range(0, cfg["BN"], cols))
+    qs = sorted(4 * (h * cols // 8 + cb) + e for h in range(cfg["BN"] // cols)
+                for cb in range(cols // 8) for e in range(4))
+    assert qs == list(range(64))
+
+
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V4", "V6"])
 def test_wgmma_epilogue_fills_each_store_box_once(key):
     """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
     + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
@@ -430,7 +581,10 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     the same number of times (no conflict beyond the two wavefronts of 256
     bytes), and the rounds of a consumer store each 64 × 32 box of its tiles
     once (V1's rows 32-63 fall outside the output and are clipped by the
-    store)."""
+    store). V4's and V6's epilogue stores the folded 32 rows a round
+    (``_tap_epilogue``)."""
+    if key in WG_TAP:
+        return _tap_epilogue(WG_TAP[key])
     cols = _wg_const("kWgOutBox")
     assert cols == 32 and _wg_const("kWgOutBytes") == 64 * 32 * 4
     assert ("          *reinterpret_cast<float2*>(out + sw128_offset(row, c / 4) + (lane % 2) * 8) ="
@@ -466,11 +620,14 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     ("V1", 77, None), ("V0", 131072, "conv_probe_v1_wgmma"), ("V0", 2120, "conv_probe_v1_wgmma"),
     ("V0", 77, None), ("V2", 131072, "conv_probe_v2_wgmma"), ("V2", 77, "conv_probe_v2_wgmma"),
     ("V3", 131072, "conv_probe_v3_wgmma"), ("V3", 2120, "conv_probe_v3_wgmma"), ("V3", 77, None),
+    ("V4", 131072, "conv_probe_v4_wgmma"), ("V4", 2120, "conv_probe_v4_wgmma"), ("V4", 77, None),
+    ("V6", 131072, "conv_probe_v6_wgmma"), ("V6", 2120, "conv_probe_v6_wgmma"), ("V6", 77, None),
     ("V8", 131072, None)])
 def test_chip_smoke_probe_instances(key, n, want):
-    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 call to the wgmma
-    counter of the instance the wrapper's rule names at that N (V1 and V3 at
-    77 on mma.sync), and every counter it reads exists in ``LAUNCHES``."""
+    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 / V4 / V6 call to the
+    wgmma counter of the instance the wrapper's rule names at that N (V1, V3,
+    V4 and V6 at 77 on mma.sync), and every counter it reads exists in
+    ``LAUNCHES``."""
     import chip_smoke
 
     assert chip_smoke._probe_instance_counter(key, n) == want
@@ -546,3 +703,135 @@ def test_v3_tap_major_a_boxes():
     kept = acc[:cp.COUT]  # the store box's rows inside the output
     assert (kept - want).abs().max() <= 1e-4 * want.abs().max()
     assert (acc[cp.COUT:] - want).abs().max() > 1e-2 * want.abs().max()
+
+
+_V4_V6_RULES = ("int v4_instance(int n) { return n % 8 == 0 ? kV4Wgmma : kV4Mma; }\n"
+                "int v6_instance(int n) { return n % 8 == 0 ? kV6Wgmma : kV6Mma; }")
+
+
+@pytest.mark.parametrize("n", [131072, 8192, 2120, 200, 77, 8, 1])
+def test_v4_v6_wgmma_rules_are_the_source(n):
+    """``probe_v4_instance`` and ``probe_v6_instance`` state the C rules
+    ``v4_instance`` and ``v6_instance``, which ``hvc_probe_v4`` /
+    ``hvc_probe_v6`` dispatch by and ``hvc_probe_v{4,6}_rule`` report, with
+    the source's instance codes: N a multiple of 8 (16-byte rows of X and
+    the output for the tensor maps) takes WgV4 / WgV6, a ragged N
+    probe_tapsum on mma.sync; each wgmma launch counts on its own counter."""
+    assert _V4_V6_RULES in PROBE_SRC
+    for v in ("4", "6"):
+        w = "w27" if v == "4" else "w27p"
+        assert (f"  return run_v{v}(v{v}_instance(n), {w}, x, out, n, repeats, aligned,"
+                in PROBE_SRC)
+        assert f"int hvc_probe_v{v}_rule(int n) {{ return v{v}_instance(n); }}" in PROBE_SRC
+        assert (f"    case kV{v}Wgmma: return tapsum_wgmma<WgV{v}>({w}, x, out, n, repeats, s);"
+                in PROBE_SRC)
+    for name, code in (("kV4Mma", cp.V4_MMA), ("kV4Wgmma", cp.V4_WGMMA),
+                       ("kV6Mma", cp.V6_MMA), ("kV6Wgmma", cp.V6_WGMMA)):
+        assert re.search(rf"^  {name} = {code},", PROBE_SRC, re.M), name
+    assert ("    case kV4Mma: return tapsum<64, 1, 27, 27, 9, 2, 16>(w27, x, out, n, repeats, "
+            "aligned, s);") in PROBE_SRC
+    assert ("    case kV6Mma: return tapsum<64, 7, 4, 27, 4, 2, 32>(w27p, x, out, n, repeats, "
+            "aligned, s);") in PROBE_SRC
+    assert cp.probe_v4_instance(n) == (cp.V4_WGMMA if n % 8 == 0 else cp.V4_MMA)
+    assert cp.probe_v6_instance(n) == (cp.V6_WGMMA if n % 8 == 0 else cp.V6_MMA)
+    assert cp._INSTANCE_COUNTERS[("v4", cp.V4_WGMMA)] == "conv_probe_v4_wgmma"
+    assert cp._INSTANCE_COUNTERS[("v6", cp.V6_WGMMA)] == "conv_probe_v6_wgmma"
+    assert {"conv_probe_v4_wgmma", "conv_probe_v6_wgmma"} <= set(cp.LAUNCHES)
+
+
+def _resident_tiles(w: torch.Tensor, taps_read: int = 27) -> tuple:
+    """The kernel's copy of W into its 14 resident m64 tiles: thread item c
+    is 16-byte chunk k8 = c % 8 of row r = c / 8 % 64 of tile i = c / 512,
+    which holds tap 2i + r % 16 / 8, output row 8·(r / 16) + r % 8 of W (rows
+    32·tap + output row), zeros for a tap ≥ taps_read (the kernel's 27).
+    Returns (tiles [14, 64, 64], {(tile, row): (tap, output row)})."""
+    tiles = torch.zeros((_wg_const("kTapTiles"), 64, cp.CIN), dtype=w.dtype)
+    where = {}
+    for c in range(_wg_const("kTapTiles") * 64 * 8):
+        i, r, k8 = c // 512, c // 8 % 64, c % 8
+        tap, orow = 2 * i + r % 16 // 8, 8 * (r // 16) + r % 8
+        where[(i, r)] = (tap, orow)
+        if tap < taps_read:
+            tiles[i, r, 8 * k8:8 * k8 + 8] = w[tap * cp.COUT + orow, 8 * k8:8 * k8 + 8]
+    return tiles, where
+
+
+def _tap_replay(cfg: dict, tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out (32, N) as probe_tapsum_wgmma<cfg> forms it: per work item of BN
+    columns (X past N zero-filled, as TMA loads it), accumulator a chains the
+    products of tiles d·ACCS + a over the dots d; the chains are added in
+    order; then each thread (warp, lane) of the m64n128 fragment map
+    (wgmma_sm90.cuh: element q at row 16·warp + lane / 4 + 8·(q % 4 / 2),
+    column 8·(q / 4) + 2·(lane % 4) + q % 2) adds e0 + e2 and e1 + e3 into
+    output row 8·warp + lane / 4, every output element written once."""
+    n, bn = x.shape[1], cfg["BN"]
+    out = torch.full((cp.COUT, n), float("nan"))
+    written = torch.zeros((cp.COUT, -(-n // bn) * bn), dtype=torch.int64)
+    t = torch.arange(128)
+    warp, lane = t // 32, t % 32
+    q = torch.arange(64)
+    rows = 16 * warp[:, None] + lane[:, None] // 4 + 8 * (q[None] % 4 // 2)   # [128, 64]
+    cols = 8 * (q[None] // 4) + 2 * (lane[:, None] % 4) + q[None] % 2
+    tf = tiles.float()
+    for n0 in range(0, n, bn):
+        xb = torch.zeros((cp.CIN, bn))
+        xb[:, :min(bn, n - n0)] = x[:, n0:n0 + bn].float()
+        chains = [sum(tf[d * cfg["ACCS"] + a] @ xb
+                      for d in range(_wg_const("kTapTiles") // cfg["ACCS"]))
+                  for a in range(cfg["ACCS"])]
+        acc = chains[0]
+        for more in chains[1:]:
+            acc = acc + more
+        frag = acc[rows, cols]                                              # [128, 64]
+        for e in (0, 1):
+            v = frag[:, e::4] + frag[:, e + 2::4]                           # [128, 16]
+            orow = (8 * warp[:, None] + lane[:, None] // 4).expand_as(v)
+            ocol = n0 + cols[:, e::4]
+            written.index_put_((orow.reshape(-1), ocol.reshape(-1)),
+                               torch.ones(orow.numel(), dtype=torch.int64), accumulate=True)
+            keep = ocol < n
+            out[orow[keep], ocol[keep]] = v[keep]
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("key", ["V4", "V6"])
+def test_v4_v6_resident_rows_replay(key):
+    """A torch replay of probe_tapsum_wgmma: the permuted resident tiles (every
+    (tap, output row) pair of the 27 taps exactly once, tap 27's rows zeros),
+    the accumulator chains, their sum and the fragment fold e0 + e2 at N =
+    200 (a ragged second item) equal the plain version (both fp32 sums of the
+    same bf16 products, in another order). V6's w27p and V4's w27 padded to
+    896 rows carry 1e4 in rows 864-895 (the row group V6 drops): a copy that
+    read them (taps_read = 28) misses by far."""
+    case = bench.BY_KEY[key[:2]]
+    cfg = WG_TAP[key]
+    for line in ("    const int i = c / 512, r = c / 8 % 64, k8 = c % 8;",
+                 "    const int tap = 2 * i + r % 16 / 8, orow = 8 * (r / 16) + r % 8;",
+                 "    if (tap < kTaps)",
+                 "      v = *reinterpret_cast<const uint4*>(w + (long long)(tap * kGroup + orow) * "
+                 "kWgBK + k8 * 8);",
+                 "    *reinterpret_cast<uint4*>(wres + i * kWgTile + sw128_offset(r, k8)) = v;",
+                 "  for (int c = tid; c < kTapTiles * 64 * 8; c += Cfg::Threads) {"):
+        assert line in PROBE_SRC, line
+    rng = np.random.default_rng(160 + len(key))
+    w = torch.from_numpy(rng.standard_normal(case.w_shape, dtype=np.float32)).bfloat16()
+    x = torch.from_numpy(rng.standard_normal((cp.CIN, 200), dtype=np.float32)).bfloat16()
+    planted = torch.cat([w[:cp.TAPS * cp.COUT], torch.full((cp.COUT, cp.CIN), 1e4).bfloat16()])
+    if key == "V6":
+        w = planted
+    tiles, where = _resident_tiles(planted)
+    pairs = sorted(where.values())
+    assert pairs == sorted((t, o) for t in range(28) for o in range(cp.COUT))  # each once
+    for (i, r), (tap, _) in where.items():
+        if tap == cp.TAPS:
+            assert not tiles[i, r].any()
+    for (i, r), (tap, orow) in where.items():  # one thread's e0 / e2 rows: one output row
+        if r % 16 < 8:
+            assert where[(i, r + 8)] == (tap + 1, orow)
+    got = _tap_replay(cfg, tiles, x)
+    want = case.plain(w, x, 1)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    leaked = _tap_replay(cfg, _resident_tiles(planted, taps_read=28)[0], x)
+    assert (leaked - want).abs().max() > 1e2 * want.abs().max()

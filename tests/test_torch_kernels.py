@@ -1188,11 +1188,13 @@ PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
 def _probe_counters(key: str, n: int) -> dict:
     """The launches one call of probe case `key` at N columns adds to
     ``conv_probe.LAUNCHES``: its wrapper's counter, and the counter of the
-    wgmma instance the wrapper's rule names (V1, V0, V2, V3)."""
+    wgmma instance the wrapper's rule names (V1, V0, V2, V3, V4, V6)."""
     case = bench.BY_KEY[key]
     want = {case.kernel: 1}
-    if key == "V3":
-        want["conv_probe_v3_wgmma"] = int(conv_probe.probe_v3_instance(n) == conv_probe.V3_WGMMA)
+    if key in ("V3", "V4", "V6"):
+        v = key.lower()
+        instance = getattr(conv_probe, f"probe_{v}_instance")(n)
+        want[f"conv_probe_{v}_wgmma"] = int(instance == getattr(conv_probe, f"{key}_WGMMA"))
     if key == "V2":
         instance = conv_probe.probe_v2_instance(conv_probe.K, n)
         want["conv_probe_v2_wgmma"] = int(instance == conv_probe.V2_WGMMA)
@@ -1313,11 +1315,59 @@ def test_probe_v3_wgmma(dev, n, passes):
     assert torch.equal(conv_probe.probe_v3(w, p, passes), got)
 
 
+# v4 and v6 on their wgmma instances: (N, passes). The probes' N, N in L2,
+# ragged last N tiles (2,120 and 200: a last 128-column item of 72 columns),
+# and N not a multiple of 8 (77, 1: probe_tapsum on mma.sync).
+PROBE_TAP_WGMMA = [(131072, 2), (8192, 3), (2120, 2), (200, 1), (77, 2), (1, 1)]
+
+
+def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
+    """probe_v4 / probe_v6 against its plain version (1e-4·max|want| +
+    1e-4·|want|: both sum the same bf16 products in fp32, in another order),
+    counted on the wgmma instance the wrapper's rule names (N % 8 = 0),
+    every other counter unchanged, bitwise equal over a rerun and between 1
+    and `passes` passes. V6's w27p carries 1e4 in its rows 864-895, the row
+    group its plain version drops: a kernel that read them would miss by
+    ~1e4·|x|·8."""
+    case = bench.BY_KEY[key]
+    w = _randn(case.w_shape, torch.bfloat16, dev, seed)
+    if key == "V6":
+        w[conv_probe.TAPS * conv_probe.COUT:] = 1e4
+    x = _randn((conv_probe.CIN, n), torch.bfloat16, dev, seed + 1)
+    took = _probe_counters(key, n)
+    assert took[f"conv_probe_{key.lower()}_wgmma"] == (n % 8 == 0)
+    before = dict(conv_probe.LAUNCHES)
+    got = case.wrapper(w, x, passes)
+    assert conv_probe.LAUNCHES == {**before, **{k: before[k] + v for k, v in took.items()}}
+    want = case.plain(w, x, 1)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert got.shape == want.shape == (conv_probe.COUT, n) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+    assert torch.equal(case.wrapper(w, x, passes), got)
+    assert torch.equal(case.wrapper(w, x, 1), got)
+
+
+@pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
+def test_probe_v4_wgmma(dev, n, passes):
+    """v4 on ``probe_tapsum_wgmma<WgV4>`` (w27 resident as A, one chain)."""
+    _check_tap_wgmma(dev, "V4", n, passes, 126)
+
+
+@pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
+def test_probe_v6_wgmma(dev, n, passes):
+    """v6 on ``probe_tapsum_wgmma<WgV6>`` (M = 128 dots in two chains), with
+    w27p's dropped row group planted."""
+    _check_tap_wgmma(dev, "V6", n, passes, 128)
+
+
 def test_probe_v1_wgmma_rule_matches_c(dev):
     """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule``,
-    ``hvc_probe_v3_rule``, which the wrappers count wgmma launches by) are
-    ``probe_v1_instance``, ``probe_v2_instance`` and ``probe_v3_instance`` at
-    every m, K and N around their edges."""
+    ``hvc_probe_v3_rule``, ``hvc_probe_v4_rule``, ``hvc_probe_v6_rule``,
+    which the wrappers count wgmma launches by) are ``probe_v1_instance``,
+    ``probe_v2_instance``, ``probe_v3_instance``, ``probe_v4_instance`` and
+    ``probe_v6_instance`` at every m, K and N around their edges."""
     rule = _build.function("hvc_probe_v1_rule", (ctypes.c_int,) * 3)
     for m, n in itertools.product((1, 31, 32, 33, 63, 64, 65, 128, 192, 256, 320),
                                   (1, 7, 8, 9, 16, 77, 2120, 131072)):
@@ -1325,6 +1375,8 @@ def test_probe_v1_wgmma_rule_matches_c(dev):
     rule2 = _build.function("hvc_probe_v2_rule", (ctypes.c_int,) * 2)
     for k, n in itertools.product((0, 32, 64, 1728, 1792, 1856, 4096), (1, 7, 77, 2120, 131072)):
         assert rule2(k, n) == conv_probe.probe_v2_instance(k, n)
-    rule3 = _build.function("hvc_probe_v3_rule", (ctypes.c_int,))
-    for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
-        assert rule3(n) == conv_probe.probe_v3_instance(n)
+    for v in ("v3", "v4", "v6"):
+        rule = _build.function(f"hvc_probe_{v}_rule", (ctypes.c_int,))
+        mirror = getattr(conv_probe, f"probe_{v}_instance")
+        for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
+            assert rule(n) == mirror(n)
