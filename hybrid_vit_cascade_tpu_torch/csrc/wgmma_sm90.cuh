@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for warpgroup matrix products fed by the
-// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0-V4
-// and V6 probes in conv_probe.cu): the 128-byte swizzle address, the
+// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0-V6
+// and V8 probes in conv_probe.cu, all but V3'): the 128-byte swizzle address, the
 // wgmma shared-memory matrix descriptor, mbarriers, register rebalancing
 // between warpgroups, TMA tile loads and
 // stores, wgmma's fence, commit and wait, and the m64n128k16 and m64n32k16

@@ -21,11 +21,11 @@ wgmma instance also adds one to that instance's counter: ``probe_v1`` on
 V0's (``probe_v1_instance`` = ``V1_WGMMA_V0``) to ``conv_probe_v1_wgmma``, on
 V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, every ``probe_v2``
 launch (``probe_v2_instance`` = ``V2_WGMMA``) to ``conv_probe_v2_wgmma``,
-and ``probe_v3``, ``probe_v4`` and ``probe_v6`` on their wgmma instances
-(``probe_v3_instance`` = ``V3_WGMMA``, ``probe_v4_instance`` =
-``V4_WGMMA``, ``probe_v6_instance`` = ``V6_WGMMA``) to
-``conv_probe_v3_wgmma``, ``conv_probe_v4_wgmma`` and
-``conv_probe_v6_wgmma``.
+and ``probe_v3``, ``probe_v4``, ``probe_v6``, ``probe_v5`` and ``probe_v8``
+on their wgmma instances (``probe_v3_instance`` = ``V3_WGMMA``,
+``probe_v4_instance`` = ``V4_WGMMA``, and so on) to ``conv_probe_v3_wgmma``,
+``conv_probe_v4_wgmma``, ``conv_probe_v6_wgmma``, ``conv_probe_v5_wgmma``
+and ``conv_probe_v8_wgmma``.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ _V1_RULE_ARGTYPES = (_I, _I, _I)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # hvc_probe_v2_rule(k, n): the instance code hvc_probe_v2 takes (-1: none)
 _V2_RULE_ARGTYPES = (_I, _I)
-# hvc_probe_{v3,v4,v6}_rule(n): the instance code hvc_probe_{v3,v4,v6} takes
+# hvc_probe_{v3,v4,v6,v5,v8}_rule(n): the instance code hvc_probe_{v3,v4,v6,v5,v8} takes
 _TAP_RULE_ARGTYPES = (_I,)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
@@ -58,25 +58,31 @@ _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
 LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
             "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0,
-            "conv_probe_v3_wgmma": 0, "conv_probe_v4_wgmma": 0, "conv_probe_v6_wgmma": 0}
+            "conv_probe_v3_wgmma": 0, "conv_probe_v4_wgmma": 0, "conv_probe_v6_wgmma": 0,
+            "conv_probe_v5_wgmma": 0, "conv_probe_v8_wgmma": 0}
 # The instance codes of hvc_probe_v1, hvc_probe_v2, hvc_probe_v3,
-# hvc_probe_v4 and hvc_probe_v6 (V1Instance … V6Instance in
-# csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128 mma.sync tiles,
-# V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma instance with wt
-# resident (WgV2); V3 on the 32 × 128 mma.sync tiles or on its wgmma
-# instance (WgV3); V4 and V6 on probe_tapsum (mma.sync) or on their wgmma
-# instances with the weights resident as A (WgV4, WgV6).
+# hvc_probe_v4, hvc_probe_v6, hvc_probe_v5 and hvc_probe_v8 (V1Instance …
+# V8Instance in csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128
+# mma.sync tiles, V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma
+# instance with wt resident (WgV2); V3 on the 32 × 128 mma.sync tiles or on
+# its wgmma instance (WgV3); V4, V6, V5 and V8 on probe_tapsum (mma.sync) or
+# on their wgmma instances with the weights resident as A (WgV4, which V6
+# shares, WgV5, WgV8).
 V1_MMA_NARROW, V1_MMA_WIDE, V1_WGMMA_V0, V1_WGMMA_M32 = 0, 1, 2, 3
 V2_WGMMA = 1
 V3_MMA, V3_WGMMA = 0, 1
 V4_MMA, V4_WGMMA = 0, 1
 V6_MMA, V6_WGMMA = 0, 1
+V5_MMA, V5_WGMMA = 0, 1
+V8_MMA, V8_WGMMA = 0, 1
 _INSTANCE_COUNTERS = {("v1", V1_WGMMA_V0): "conv_probe_v1_wgmma",
                       ("v1", V1_WGMMA_M32): "conv_probe_v1_wgmma_m32",
                       ("v2", V2_WGMMA): "conv_probe_v2_wgmma",
                       ("v3", V3_WGMMA): "conv_probe_v3_wgmma",
                       ("v4", V4_WGMMA): "conv_probe_v4_wgmma",
-                      ("v6", V6_WGMMA): "conv_probe_v6_wgmma"}
+                      ("v6", V6_WGMMA): "conv_probe_v6_wgmma",
+                      ("v5", V5_WGMMA): "conv_probe_v5_wgmma",
+                      ("v8", V8_WGMMA): "conv_probe_v8_wgmma"}
 # The wgmma instances' rows per m64 tile, the row pitch their tensor maps
 # need (16 bytes: 8 bf16 of P), the most rows V1's instance takes (one
 # half-filled m64 tile) and the deepest wt V2's keeps in shared memory.
@@ -316,11 +322,30 @@ def probe_v4_instance(n: int) -> int:
 def probe_v6_instance(n: int) -> int:
     """The instance ``probe_v6`` takes, the rule of ``v6_instance``
     (csrc/conv_probe.cu), read through ``hvc_probe_v6_rule``: with N a
-    multiple of 8 ``V6_WGMMA`` (``probe_tapsum_wgmma<WgV6>``: the first 864
-    rows of w27p resident as wgmma's A, the M = 128 dots in two accumulator
-    chains, 128 columns a work item), otherwise ``probe_tapsum`` on mma.sync
-    (``V6_MMA``)."""
+    multiple of 8 ``V6_WGMMA`` (``probe_tapsum_wgmma<WgV4>``, V4's instance:
+    the first 864 rows of w27p resident as wgmma's A, the same sum),
+    otherwise ``probe_tapsum`` on mma.sync (``V6_MMA``)."""
     return V6_WGMMA if n % WGMMA_N_ALIGN == 0 else V6_MMA
+
+
+def probe_v5_instance(n: int) -> int:
+    """The instance ``probe_v5`` takes, the rule of ``v5_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v5_rule``: with N a
+    multiple of 8 ``V5_WGMMA`` (``probe_tapsum_wgmma<WgV5>``: w14 resident as
+    wgmma's A, two taps to an m64 tile, each tap's K = 128 in two k64 chunks,
+    128 columns a work item), otherwise ``probe_tapsum`` on mma.sync
+    (``V5_MMA``)."""
+    return V5_WGMMA if n % WGMMA_N_ALIGN == 0 else V5_MMA
+
+
+def probe_v8_instance(n: int) -> int:
+    """The instance ``probe_v8`` takes, the rule of ``v8_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v8_rule``: with N a
+    multiple of 8 ``V8_WGMMA`` (``probe_tapsum_wgmma<WgV8>``: w9 resident as
+    wgmma's A, each tap's K = 192 in three k64 chunks, the folded output
+    stored from registers), otherwise ``probe_tapsum`` on mma.sync
+    (``V8_MMA``)."""
+    return V8_WGMMA if n % WGMMA_N_ALIGN == 0 else V8_MMA
 
 
 def _tap_probe(variant: str, plain, w: torch.Tensor, x: torch.Tensor, w_shape: tuple,
@@ -355,8 +380,10 @@ def probe_v3p(w27: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
 
 def probe_v5(w14: torch.Tensor, x2: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v5``: out (32, N) = Σ_{t<14} w14[32t:32t+32] · x2; w14 (448, 128),
-    x2 (128, N): pair-packed K = 128."""
-    return _tap_probe("v5", probe_v5_plain, w14, x2, (14 * COUT, 2 * CIN), 2 * CIN, repeats)
+    x2 (128, N): pair-packed K = 128; on the instance ``probe_v5_instance``
+    names."""
+    return _tap_probe("v5", probe_v5_plain, w14, x2, (14 * COUT, 2 * CIN), 2 * CIN, repeats,
+                      rule="hvc_probe_v5_rule")
 
 
 def probe_v6(w27p: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
@@ -376,5 +403,6 @@ def probe_v4(w27: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
 
 def probe_v8(w9: torch.Tensor, x3: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v8``: out (32, N) = Σ_{t<9} w9[32t:32t+32] · x3; w9 (288, 192), x3
-    (192, N): K = 192."""
-    return _tap_probe("v8", probe_v8_plain, w9, x3, (9 * COUT, 3 * CIN), 3 * CIN, repeats)
+    (192, N): K = 192; on the instance ``probe_v8_instance`` names."""
+    return _tap_probe("v8", probe_v8_plain, w9, x3, (9 * COUT, 3 * CIN), 3 * CIN, repeats,
+                      rule="hvc_probe_v8_rule")

@@ -30,9 +30,10 @@ Per case one line: the median of 5 CUDA-event times after a warm-up call, the
 rate with the JAX scripts' operation count (R included), the plain version's
 time (fp32 products of the bf16 inputs, R passes), the least time the
 card could take (max of operations / 989 TFLOP/s and bytes / 3.35 TB/s, H100
-SXM dense bf16 and HBM3, each input read once), for V1/V0/V2/V3 also the
-per-pass floor (P, 453 MB, does not fit the 50 MB L2 and is re-read from
-device memory every pass), and one cuBLAS call over the same operands
+SXM dense bf16 and HBM3, each input read once), where a pass's bytes exceed
+the 50 MiB L2 also the per-pass floor (V1/V0/V2/V3: P, 453 MB; V8: X3 and
+its output, 67.2 MB; re-read from device memory every pass), and one cuBLAS
+call over the same operands
 (``torch.mm``, R calls; fp32 out where this torch has ``out_dtype``, bf16
 otherwise, as the line says) that the port never calls. The card's name and
 power limit head the output; a JSON object of every row is the last line.
@@ -62,6 +63,7 @@ from ..ops.cuda import conv_probe as cp
 
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 N_TOTAL = 131072
 R = 64
 K, CIN, COUT, TAPS = cp.K, cp.CIN, cp.COUT, cp.TAPS
@@ -169,9 +171,12 @@ def bound(case: Case, n: int, repeats: int, vx_size: int = 256) -> tuple[float, 
 
 
 def pass_floor(case: Case, n: int, repeats: int) -> Optional[float]:
-    """ms: R passes that each read P (Pᵀ) from device memory (V1, V0, V2, V3:
-    453 MB at N = 131,072, past the 50 MB L2); None for the X-resident cases."""
-    if case.kernel is None or case.x_rows != K:
+    """ms: R passes that each move their bytes (the streamed operand, W and
+    the output) through device memory, for a kernel case whose pass does not
+    fit the L2 (at N = 131,072: V1, V0, V2, V3, P 453 MB; V8, X3 and its
+    output 67.2 MB); None where a pass stays in the L2 (V3', V6, V4; V5 at
+    48.1 MiB) and for the library cases."""
+    if case.kernel is None or nbytes(case, n) <= L2_BYTES:
         return None
     return repeats * nbytes(case, n) / PEAK_BYTES * 1e3
 

@@ -1,12 +1,13 @@
-"""The V0-V4 and V6 conv probes on each of their instances, beside cuBLAS.
+"""The V0-V6 and V8 conv probes on each of their instances, beside cuBLAS.
 
-    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3 V4 V6]
+    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3 V4 V6 V5 V8]
         [--sizes N ...] [--out FILE]
 
 Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
 ``hvc_probe_v1_instance``, ``hvc_probe_v2_instance``,
-``hvc_probe_v3_instance``, ``hvc_probe_v4_instance`` and
-``hvc_probe_v6_instance`` in ``csrc/conv_probe.cu``):
+``hvc_probe_v3_instance``, ``hvc_probe_v4_instance``,
+``hvc_probe_v6_instance``, ``hvc_probe_v5_instance`` and
+``hvc_probe_v8_instance`` in ``csrc/conv_probe.cu``):
 
 - V0, ``make_v1`` at m = 256: out (256, N) = W (256, 1728) · P (1728, N) on
   (a) the 128 × 128 mma.sync instance as it walks, every N tile of M tile 0
@@ -31,19 +32,28 @@ Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
   wgmma and still takes at a ragged N (32 × 32 tiles, 9 × 2 warps, the
   warps' partial sums added through shared memory); (b) the wgmma instance
   it takes (WgV4: W27 resident as A, two taps to an m64 tile, one
-  accumulator chain, 128 columns a work item, three ring stages a
-  consumer);
+  accumulator chain, 128 columns a work item, three ring stages and two
+  TMA store boxes a consumer);
 - V6, ``v6``: the same sum as 7 dots of M = 128 over W27p (896, 64), on (a)
   ``probe_tapsum`` (32 × 64 tiles, 4 × 2 warps); (b) the wgmma instance it
-  takes (WgV6: two accumulator chains, tiles 2g and 2g + 1 of dot g, 128
-  columns a work item);
+  takes (V4's, WgV4, on W27p's first 864 rows);
+- V5, ``v5``: out (32, N) = Σ_{t<14} W14[32t:32t+32] · X2 (128, N) on (a)
+  ``probe_tapsum`` (32 × 256 tiles, 8 warps along N); (b) the wgmma instance
+  it takes (WgV5: W14 resident as A, a tap's K = 128 in two k64 chunks, a
+  ring stage one chunk of an item, three stages a consumer, the folded
+  output stored from registers);
+- V8, ``v8``: out (32, N) = Σ_{t<9} W9[32t:32t+32] · X3 (192, N) on (a)
+  ``probe_tapsum`` (32 × 256 tiles); (b) the wgmma instance it takes (WgV8:
+  three k64 chunks a tap, three stages a consumer, stored from registers);
 
 each beside one cuBLAS call over the same operands (``torch.mm``, R calls,
 fp32 out; V3's W27 laid out as V1's 32 × 1728 W; V4's and V6's product
-without the tap sum, (864 × 64)·(64 × N)) as the yardstick, at N = 131,072
-(P, 453 MB, streams from device memory every pass; V4's and V6's X, 16.8
-MB, stays in L2) and at N = 8,192 (P, 28 MB, stays in the 50 MB L2: the
-rate at which the instance stages and multiplies it), or at the N of
+without the tap sum, (864 × 64)·(64 × N); V5's (448 × 128)·(128 × N), V8's
+(288 × 192)·(192 × N)) as the yardstick, at N = 131,072 (P, 453 MB, streams
+from device memory every pass; V4's and V6's X, 16.8 MB, and V5's X2, 33.6
+MB, stay in L2; V8's X3, 50.3 MB, and its output do not) and at N = 8,192
+(P, 28 MB, stays in the 50 MB L2: the rate at which the instance stages and
+multiplies it), or at the N of
 ``--sizes`` (a larger N leaves a smaller share of P in the L2 from one pass
 to the next). Each instance is first
 held to the plain product (fp32, one pass) within 1e-4·max|want| +
@@ -79,7 +89,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # hvc_probe_v2_instance(pt, w, out, k, n, repeats, instance, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
-# hvc_probe_{v3,v4,v6}_instance(w, x, out, n, repeats, aligned, instance, stream)
+# hvc_probe_{v3,v4,v6,v5,v8}_instance(w, x, out, n, repeats, aligned, instance, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
 # (case, m of the product, {instance code: name})
 CASES = {
@@ -96,7 +106,11 @@ CASES = {
     "V4": (32, {0: "(a) mma.sync 32 x 32, 9 x 2 warps",
                 1: "(b) wgmma 32 x 128, W resident, 1 chain"}),
     "V6": (32, {0: "(a) mma.sync 32 x 64, 4 x 2 warps",
-                1: "(b) wgmma 32 x 128, W resident, 2 chains"}),
+                1: "(b) wgmma 32 x 128, W resident (V4's)"}),
+    "V5": (32, {0: "(a) mma.sync 32 x 256, 8 warps along N",
+                1: "(b) wgmma 32 x 128, W resident, 2 chunks"}),
+    "V8": (32, {0: "(a) mma.sync 32 x 256, 8 warps along N",
+                1: "(b) wgmma 32 x 128, W resident, 3 chunks"}),
 }
 
 
@@ -127,12 +141,13 @@ def _calls(case: str, m: int, n: int, dev, gen, stream) -> tuple[dict, dict, tor
                          f"probe_variants V2 {names[v]}")
 
         lib = lambda: [torch.mm(pt, wt, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
-    elif case in ("V3", "V4", "V6"):
+    elif case in ("V3", "V4", "V6", "V5", "V8"):
         c = bench.BY_KEY[case]
         w27 = torch.randn(c.w_shape, generator=gen, device=dev, dtype=torch.bfloat16)
         p = torch.randn((c.x_rows, n), generator=gen, device=dev, dtype=torch.bfloat16)
-        w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K) if case == "V3" \
-            else w27[:cp.TAPS * m]
+        w = w27[:cp.TAPS * m] if case == "V6" else w27  # V6's product: its first 864 rows
+        if case == "V3":  # V1's 32 × 1728 W
+            w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K)
         want = c.plain(w27, p, 1)
         fn = _build.function(f"hvc_probe_{case.lower()}_instance", _TAP_ARGTYPES)
         out_shape = (m, n)

@@ -107,7 +107,14 @@ def test_probe_bounds_at_full_size():
     floors = {c.key: bench.pass_floor(c, bench.N_TOTAL, bench.R) for c in bench.CASES}
     assert math.isclose(floors["V1"], 8.98, rel_tol=1e-3)
     assert math.isclose(floors["V0"], 11.24, rel_tol=1e-3)
-    assert floors["V3'"] is None and floors["VX"] is None
+    # V8 moves X3 and its output, 67.2 MB a pass, past the 50 MiB L2; V5's
+    # 48.1 MiB stays in it
+    assert math.isclose(floors["V8"], 1.284, rel_tol=1e-3)
+    assert bench.L2_BYTES == 50 * 2**20
+    assert math.isclose(bench.nbytes(bench.BY_KEY["V5"], bench.N_TOTAL) / 2**20, 48.1,
+                        rel_tol=1e-3)
+    assert {k for k, f in floors.items() if f is not None} == {"V1", "V0", "V2", "V3", "V8"}
+    assert floors["V5"] is None and floors["V3'"] is None and floors["VX"] is None
 
 
 def test_entry_point_runs_on_cpu(capsys):
@@ -173,22 +180,34 @@ WG = {key: _wg_cfg(name) for key, name in (("V0", "WgV0"), ("V1", "WgV1"), ("V3"
 
 
 def _tap_cfg(name: str) -> dict:
-    """The WgTapCfg of instance `name` (WgV4, WgV6) of probe_tapsum_wgmma,
-    its derived sizes computed as the struct computes them (BM: the 32
-    output rows a work item stores; BN: one n128 block)."""
-    import re
-
-    cons, accs, spc = map(int, re.search(
-        rf"^using {name} = WgTapCfg<(\d+), (\d+), (\d+)>;", PROBE_SRC, re.M).groups())
+    """The WgTapCfg of instance `name` (WgV4, WgV5, WgV8) of
+    probe_tapsum_wgmma, its derived sizes computed as the struct computes them
+    (BM: the 32 output rows a work item stores; BN: one n128 block)."""
+    taps, chunks, cons, spc, outb = map(int, re.search(
+        rf"^using {name} = WgTapCfg<(\d+), (\d+), (\d+), (\d+), (\d+)>;", PROBE_SRC,
+        re.M).groups())
+    tiles = (taps + 1) // 2
     bn = 128
     stage = bn * 128
-    smem = (1024 + _wg_const("kTapTiles") * _wg_const("kWgTile") + cons * spc * stage
-            + cons * 2 * _wg_const("kTapOutBytes") + 2 * cons * spc * 8)
-    return {"TAP": True, "CONS": cons, "ACCS": accs, "SPC": spc, "STAGES": cons * spc,
-            "BM": cp.COUT, "BN": bn, "WN": 128, "StageBytes": stage, "smem": smem}
+    wbytes = tiles * chunks * _wg_const("kWgTile")
+    smem = (1024 + wbytes + cons * spc * stage + cons * outb * _wg_const("kTapOutBytes")
+            + 2 * cons * spc * 8)
+    return {"TAP": True, "name": name, "TAPS": taps, "CHUNKS": chunks, "TILES": tiles,
+            "KD": 64 * chunks, "CONS": cons, "SPC": spc, "OUTB": outb, "STAGES": cons * spc,
+            "BM": cp.COUT, "BN": bn, "WN": 128, "WBytes": wbytes, "StageBytes": stage,
+            "smem": smem}
 
 
-WG_TAP = {key: _tap_cfg(name) for key, name in (("V4", "WgV4"), ("V6", "WgV6"))}
+def _tap_instance(key: str) -> str:
+    """The WgTapCfg that the wgmma instance of probe `key` (V4, V6, V5, V8)
+    launches, from its dispatch line."""
+    v = key[1:]
+    return re.search(rf"^    case kV{v}Wgmma: return tapsum_wgmma<(\w+)>\(", PROBE_SRC,
+                     re.M).group(1)
+
+
+# each wgmma tap-sum probe's instance (V6 on V4's)
+WG_TAP = {key: _tap_cfg(_tap_instance(key)) for key in ("V4", "V6", "V5", "V8")}
 
 
 def test_wgmma_configs_are_the_source():
@@ -224,33 +243,53 @@ def test_wgmma_configs_are_the_source():
     assert WG["V2"]["smem"](max_k + 64) > 232448
     assert ("constexpr int kV2MaxK = (kWgSmemMax - WgV2::smem(0)) / (2 * WgV2::BN) / kWgBK * "
             "kWgBK;  // 1792") in PROBE_SRC
-    # the tap-sum instances of probe_tapsum_wgmma: W resident (14 m64 tiles of
-    # two taps, 896 rows, 114,688 bytes), two consumers on rings of their own,
-    # V4 one chain and V6 two (its M = 128 dots) at 128 columns a work item
+    # the tap-sum instances of probe_tapsum_wgmma: W resident (TILES m64
+    # tiles of two taps × CHUNKS k64 boxes), two consumers on rings of their
+    # own, a ring stage one k64 chunk of a 128-column work item, one chain;
+    # V6 on V4's instance
     for line in ("  static constexpr int BN = 128;                     // columns of a work item",
-                 "  static constexpr int StageBytes = BN * 128;        // X: BN / 64 boxes [64 k][64 n]",
+                 "  static constexpr int KD = CHUNKS * kWgBK;          // a tap's K: W's row, X's rows",
+                 "  static constexpr int WBytes = TILES * CHUNKS * kWgTile;  // resident W: box (i, kc) "
+                 "[64][64 k]",
+                 "  static constexpr int StageBytes = BN * 128;        // a chunk of X: BN / 64 boxes "
+                 "[64 k][64 n]",
                  "  static constexpr int Threads = (CONS + 1) * 128;",
-                 "  static constexpr int Smem = 1024 + kTapTiles * kWgTile + CONS * SPC * StageBytes +",
-                 "                              CONS * 2 * kTapOutBytes + 2 * CONS * SPC * 8;",
-                 "  static_assert(kTapTiles % ACCS == 0 && ACCS * 64 <= 128 &&",
+                 "  static constexpr int Smem = 1024 + WBytes + CONS * SPC * StageBytes +",
+                 "                              CONS * OUTB * kTapOutBytes + 2 * CONS * SPC * 8;",
+                 "  static constexpr int TILES = (TAPS + 1) / 2;       // m64 tiles of two taps",
+                 "  static_assert(OUTB >= 0 && OUTB <= 2 &&",
                  "                    (CONS * kTapConsumerRegs + kTapProducerRegs) * 128 <= 65536,",
                  '  static_assert(Smem <= kWgSmemMax, "the card\'s shared memory");'):
         assert line in PROBE_SRC, line
-    tap = {k: (c["CONS"], c["ACCS"], c["SPC"], c["BN"]) for k, c in WG_TAP.items()}
-    assert tap == {"V4": (2, 1, 3, 128), "V6": (2, 2, 3, 128)}
+    tap = {k: (c["name"], c["TAPS"], c["CHUNKS"], c["TILES"], c["CONS"], c["SPC"], c["OUTB"])
+           for k, c in WG_TAP.items()}
+    assert tap == {"V4": ("WgV4", 27, 1, 14, 2, 3, 2), "V6": ("WgV4", 27, 1, 14, 2, 3, 2),
+                   "V5": ("WgV5", 14, 2, 7, 2, 3, 0), "V8": ("WgV8", 9, 3, 5, 2, 3, 0)}
+    for key, c in WG_TAP.items():  # each probe's W and X as the config reads them
+        case = bench.BY_KEY[key[:2]]
+        assert c["TILES"] == -(-c["TAPS"] // 2) and case.x_rows == c["KD"] == case.w_shape[1]
+        assert case.w_shape[0] >= c["TAPS"] * cp.COUT
+        assert case.kd == c["TAPS"] * c["KD"]
+    assert {k: c["WBytes"] for k, c in WG_TAP.items()} == {
+        "V4": 114688, "V6": 114688, "V5": 114688, "V8": 122880}
     tap_smem = {k: c["smem"] for k, c in WG_TAP.items()}
-    assert tap_smem == {"V4": 230496, "V6": 230496}
+    assert tap_smem == {"V4": 230496, "V6": 230496, "V5": 214112, "V8": 222304}
     assert max(tap_smem.values()) <= 232448
-    assert (_wg_const("kTapTiles"), _wg_const("kTaps"), _wg_const("kTapOutBytes")) == (14, 27, 4096)
-    assert _wg_const("kTapTiles") * _wg_const("kWgTile") == 114688
+    # V8 with V4's two store boxes and three stages a consumer would not fit
+    v8 = WG_TAP["V8"]
+    assert v8["smem"] + 2 * v8["CONS"] * _wg_const("kTapOutBytes") == 238688 > 232448
+    assert _wg_const("kTapOutBytes") == 4096 and _wg_const("kWgTile") == 8192
+    # the store boxes serve V4 and V6, the stores from registers V5 and V8
+    assert {k: c["OUTB"] for k, c in WG_TAP.items()} == {"V4": 2, "V6": 2, "V5": 0, "V8": 0}
     # registers: two consumers at 232 and the producer at 40 share the SM's
-    # 65,536; a consumer's accumulators (ACCS·64) fit in its 232
+    # 65,536; a consumer's one chain of 64 accumulators fits in its 232
     regs = (_wg_const("kTapProducerRegs"), _wg_const("kTapConsumerRegs"))
     assert regs == (40, 232) and (2 * regs[1] + regs[0]) * 128 <= 65536
-    assert all(c["ACCS"] * 64 <= 128 for c in WG_TAP.values())
-    for line in ("  float acc[ACCS][64];", "    setmaxnreg_dec<kTapProducerRegs>();",
+    for line in ("    float acc[64];", "    setmaxnreg_dec<kTapProducerRegs>();",
                  "    setmaxnreg_inc<kTapConsumerRegs>();"):
         assert line in PROBE_SRC, line
+    for old in ("ACCS", "WgV6", "kTapTiles", "kTaps"):  # V6 serves on V4's instance
+        assert not re.search(rf"\b{old}\b", PROBE_SRC), old
 
 
 _V1_RULE = ("int v1_instance(int m, int n) {\n"
@@ -333,22 +372,27 @@ def _walk(cfg: dict, m: int, n: int, repeats: int, grid: int):
 
 
 def _tap_ring(cfg: dict, uses: int) -> list:
-    """(consumer, stage, phase) of a block's items li = 0 … uses - 1 in
-    probe_tapsum_wgmma: item li goes to consumer li % CONS, its lj = li / CONS
-    th, into stage consumer·SPC + lj % SPC, at phase lj / SPC % 2 (the
-    producer's and the consumer's expressions)."""
-    for line in ("        const long long lj = li / CONS;  // the consumer's own item count",
-                 "        const int s = int(li % CONS) * SPC + int(lj % SPC);",
-                 "        mbar_wait(&empty[s], uint32_t(lj / SPC & 1) ^ 1);  // its consumer freed it "
-                 "(free at first)",
+    """(consumer, stage, phase) of the chunks of a block's items li = 0 …
+    uses - 1 in probe_tapsum_wgmma, in the producer's order: item li goes to
+    consumer li % CONS, its chunk kc is that consumer's chunk = li / CONS ·
+    CHUNKS + kc, into stage consumer·SPC + chunk % SPC, at phase chunk / SPC
+    % 2 (the producer's and the consumer's expressions)."""
+    for line in ("          const long long chunk = li / CONS * CHUNKS + kc;  // the consumer's own "
+                 "chunk count",
+                 "          const int s = int(li % CONS) * SPC + int(chunk % SPC);",
+                 "          mbar_wait(&empty[s], uint32_t(chunk / SPC & 1) ^ 1);  // its consumer "
+                 "freed it (free at first)",
+                 "            tma_load_2d(st + b * kWgTile, &map_x, &full[s], n0 + b * kWgBox, "
+                 "kc * kWgBK);",
                  "    for (long long it = blockIdx.x + (long long)wg * gridDim.x; it < items;",
-                 "         it += (long long)CONS * gridDim.x, ++lj) {",
-                 "      const int s = wg * SPC + int(lj % SPC);",
-                 "      mbar_wait(&full[s], uint32_t(lj / SPC & 1));"):
+                 "         it += (long long)CONS * gridDim.x) {",
+                 "      for (int kc = 0; kc < CHUNKS; ++kc, ++chunk) {",
+                 "        const int s = wg * SPC + int(chunk % SPC);",
+                 "        mbar_wait(&full[s], uint32_t(chunk / SPC & 1));"):
         assert line in PROBE_SRC, line
-    cons, spc = cfg["CONS"], cfg["SPC"]
-    return [(li % cons, li % cons * spc + li // cons % spc, li // cons // spc % 2)
-            for li in range(uses)]
+    cons, spc, chunks = cfg["CONS"], cfg["SPC"], cfg["CHUNKS"]
+    return [(li % cons, li % cons * spc + ch % spc, ch // spc % 2)
+            for li in range(uses) for ch in (li // cons * chunks + kc for kc in range(chunks))]
 
 
 @pytest.mark.parametrize("key,m,n,repeats,grid", [
@@ -359,15 +403,18 @@ def _tap_ring(cfg: dict, uses: int) -> list:
     ("V2s", 131072, 32, 2, 132), ("V3", 32, 131072, 64, 132), ("V3", 32, 8192, 3, 132),
     ("V3", 32, 2120, 2, 5), ("V3", 32, 8, 1, 132), ("V4", 32, 131072, 64, 132),
     ("V4", 32, 2120, 2, 5), ("V4", 32, 8, 3, 132), ("V6", 32, 131072, 64, 132),
-    ("V6", 32, 8192, 3, 7), ("V6", 32, 2120, 2, 5)])
+    ("V6", 32, 8192, 3, 7), ("V6", 32, 2120, 2, 5), ("V5", 32, 131072, 64, 132),
+    ("V5", 32, 2120, 2, 5), ("V5", 32, 8, 3, 132), ("V8", 32, 131072, 64, 132),
+    ("V8", 32, 8192, 3, 7), ("V8", 32, 2120, 2, 5)])
 def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     """Every (pass, m tile, n tile) is one work item of one block, a work item
-    holds all the rows of its N tile where m ≤ BM (V0, V1, V3, V4, V6; V2's M
-    is the spatial N, its N the 32 output channels: one N tile), and each
-    block's items go in pass order, so every pass re-reads P (X) and rewrites
-    the whole output. V4's and V6's two consumers take alternate items of the
-    block, each from ring stages of its own, so a stage's phases follow its
-    one consumer's items in order."""
+    holds all the rows of its N tile where m ≤ BM (V0, V1, V3 and the tap
+    sums; V2's M is the spatial N, its N the 32 output channels: one N tile),
+    and each block's items go in pass order, so every pass re-reads P (X) and
+    rewrites the whole output. The tap sums' (V4, V6, V5, V8) two consumers
+    take alternate items of the block, each from ring stages of its own, a
+    stage one k64 chunk of an item, so a stage's phases follow its one
+    consumer's chunks in order."""
     cfg = {**WG, **WG_TAP}[key]
     bm, bn = cfg["BM"], cfg["BN"]
     assert _wg_const("kWgBK") == 64
@@ -393,6 +440,48 @@ def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
         for c in range(cfg["CONS"]):  # a consumer's stages in rotation
             stages = [st for cc, st, _ in ring if cc == c]
             assert stages == [c * cfg["SPC"] + k % cfg["SPC"] for k in range(len(stages))]
+        assert _tap_pipeline_drains(cfg, ring)
+
+
+def _tap_pipeline_drains(cfg: dict, ring: list) -> bool:
+    """Plays the producer and the consumers of probe_tapsum_wgmma over the
+    chunks of `ring` (producer order): the producer fills a stage once its
+    consumer has freed the last fill; a consumer takes its chunks in order
+    once filled, and on issuing chunk kc > 0 frees the stage of chunk kc - 1
+    (wgmma_wait<1>), on the item's last chunk its own too (wgmma_wait<0>).
+    True when every chunk is filled and taken: no wait is left hanging, also
+    with fewer stages than an item has chunks."""
+    for line in ("        if (kc > 0) {",
+                 "          wgmma_wait<1>();  // the chunk before is done: free its stage for the "
+                 "producer",
+                 "          if (lt == 0) mbar_arrive(&empty[prev]);",
+                 "      wgmma_wait<0>();  // the item's products are done: free its last stage"):
+        assert line in PROBE_SRC, line
+    chunks = cfg["CHUNKS"]
+    fills, frees = {}, {}
+    per_cons = {}
+    for c, st, _ in ring:
+        per_cons.setdefault(c, []).append(st)
+    pos = {c: 0 for c in per_cons}
+    taken = {c: {} for c in per_cons}  # the consumer's uses of each stage so far
+    j = 0
+    moved = True
+    while moved:
+        moved = False
+        if j < len(ring) and fills.get(ring[j][1], 0) == frees.get(ring[j][1], 0):
+            fills[ring[j][1]] = fills.get(ring[j][1], 0) + 1
+            j, moved = j + 1, True
+        for c, seq in per_cons.items():
+            p = pos[c]
+            if p < len(seq) and fills.get(seq[p], 0) > taken[c].get(seq[p], 0):
+                taken[c][seq[p]] = taken[c].get(seq[p], 0) + 1
+                kc = p % chunks
+                if kc > 0:
+                    frees[seq[p - 1]] = frees.get(seq[p - 1], 0) + 1
+                if kc == chunks - 1:
+                    frees[seq[p]] = frees.get(seq[p], 0) + 1
+                pos[c], moved = p + 1, True
+    return j == len(ring) and all(pos[c] == len(seq) for c, seq in per_cons.items())
 
 
 def _sw128(row: int, chunk: int) -> int:
@@ -401,19 +490,20 @@ def _sw128(row: int, chunk: int) -> int:
     return row * 128 + ((chunk ^ (row & 7)) << 4)
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s", "V4", "V6"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s", "V4", "V6", "V5", "V8"])
 def test_sw128_is_the_source_and_a_bijection(key):
     """The mirror states the C function, and on one ring stage (A: the item's
     rows of 128 bytes; B: 64-row MN-major boxes or the item's 32 K-major
     rows), one resident Wᵀ block and one epilogue box (64 rows of 32 fp32)
     every (row, chunk) lands on its own 16-byte slot of its row, the 8 rows of
-    a chunk column in 8 different bank groups; for V4 and V6 on one resident
-    m64 tile of W, one 64-row box of X and one 32-row store box."""
+    a chunk column in 8 different bank groups; for the tap sums (V4, V6, V5,
+    V8) on one resident box of W (64 rows × 64 k), one 64-row box of X and
+    (V4, V6) one 32-row store box."""
     assert "  return row * 128u + ((chunk ^ (row & 7u)) << 4);" in WGMMA_SRC
     cfg = {**WG, **WG_TAP}[key]
     if cfg.get("TAP"):
         assert cfg["StageBytes"] == cfg["BN"] // 64 * 64 * 128 and cfg["StageBytes"] % 1024 == 0
-        row_sets = (64, 64, cp.COUT)
+        row_sets = (64, 64, cp.COUT) if cfg["OUTB"] else (64, 64)
     else:
         row_sets = (cfg["BM"], 64 if cfg["BMODE"] == 0 else cfg["BN"], 64)
     for rows in row_sets:
@@ -478,29 +568,32 @@ def test_wgmma_descriptors_are_the_source():
         else:
             starts += [kc * cfg["BN"] * 128 for kc in range(cp.K // 64)]  # the resident blocks
         assert all(a % 1024 == 0 for a in starts)
-    # probe_tapsum_wgmma: A the resident tile d·ACCS + a of W (K-major, k16
-    # steps 32 bytes along its rows), B the item's stage (MN-major, two
-    # 64-column boxes); its resident tiles, stages and store boxes all start
+    # probe_tapsum_wgmma: A the resident box (tile i, chunk kc) of W (K-major,
+    # k16 steps 32 bytes along its rows), B the chunk's stage (MN-major, two
+    # 64-column boxes); its resident boxes, stages and store boxes all start
     # 1024-byte aligned after the aligned base
-    for line in ("                wgmma_desc(w0 + (d * ACCS + a) * kWgTile + kk * 32, kWgLboA, kWgSbo);",
+    for line in ("                wgmma_desc(w0 + (i * CHUNKS + kc) * kWgTile + kk * 32, kWgLboA, "
+                 "kWgSbo);",
                  "            const uint64_t db = wgmma_desc(x0 + kk * 16 * 128, kWgLboB, kWgSbo);",
-                 "            wgmma_m64n128k16<1>(acc[a], da, db, d > 0 || kk > 0);",
-                 "  unsigned char* ring = wres + kTapTiles * kWgTile;            // consumer c's stages c·SPC …",
-                 "  unsigned char* outs = ring + CONS * SPC * Cfg::StageBytes;   // two store boxes a consumer",
-                 "    unsigned char* out = outs + wg * 2 * kTapOutBytes;",
-                 "        unsigned char* box = out + (stores & 1) * kTapOutBytes;"):
+                 "            wgmma_m64n128k16<1>(acc, da, db, kc > 0 || i > 0 || kk > 0);",
+                 "  unsigned char* ring = wres + Cfg::WBytes;                    // consumer c's "
+                 "stages c·SPC …",
+                 "  unsigned char* outs = ring + CONS * SPC * Cfg::StageBytes;   // OUTB store boxes "
+                 "a consumer",
+                 "    unsigned char* out = outs + wg * OUTB * kTapOutBytes;",
+                 "        unsigned char* box = out + (stores % OUTB) * kTapOutBytes;"):
         assert line in PROBE_SRC, line
     for cfg in WG_TAP.values():
-        tiles = [i * 64 * 128 for i in range(_wg_const("kTapTiles"))]
-        ring0 = len(tiles) * 64 * 128
+        tiles = [b * 64 * 128 for b in range(cfg["TILES"] * cfg["CHUNKS"])]
+        ring0 = cfg["WBytes"]
         stages = [ring0 + s * cfg["StageBytes"] for s in range(cfg["STAGES"])]
         outs0 = ring0 + cfg["STAGES"] * cfg["StageBytes"]
-        boxes = [outs0 + b * _wg_const("kTapOutBytes") for b in range(2 * cfg["CONS"])]
+        boxes = [outs0 + b * _wg_const("kTapOutBytes") for b in range(cfg["OUTB"] * cfg["CONS"])]
         assert all(a % 1024 == 0 for a in tiles + stages + boxes)
-        # the chain's first product into accumulator a is (d, kk) = (0, 0)
-        firsts = [(d, kk) for d in range(_wg_const("kTapTiles") // cfg["ACCS"]) for kk in range(4)
-                  if not (d > 0 or kk > 0)]
-        assert firsts == [(0, 0)]
+        # the chain's first product is (kc, i, kk) = (0, 0, 0): every later one adds
+        firsts = [(kc, i, kk) for kc in range(cfg["CHUNKS"]) for i in range(cfg["TILES"])
+                  for kk in range(4) if not (kc > 0 or i > 0 or kk > 0)]
+        assert firsts == [(0, 0, 0)]
 
 
 def _resident_wt(k: int, bn: int) -> dict:
@@ -545,17 +638,22 @@ def _tap_epilogue(cfg: dict) -> None:
     sw128_offset(row, column / 4) + 8·(lane % 2)) cover every 8-byte slot of
     the box once, each warp's store of one cb hits every bank the same number
     of times, the rounds of an item store each 32-column box of its BN once,
-    and the accumulators q … q + 3 they fold (q = 4·(4h + cb)) are each of a
-    thread's 64 once."""
-    for line in ("          const int q = 4 * (h * kWgOutBox / 8 + cb);",
-                 "          const int c = 8 * cb + 2 * (lane % 4);",
-                 "          *reinterpret_cast<float2*>(box + sw128_offset(8 * warp + lane / 4, c / 4) +",
-                 "                                     (lane % 2) * 8) =",
-                 "              make_float2(acc[0][q] + acc[0][q + 2], acc[0][q + 1] + acc[0][q + 3]);",
-                 "          tma_store_2d(&map_c, box, n0 + h * kWgOutBox, 0);",
-                 "      for (int h = 0; h < BN / kWgOutBox; ++h) {  // columns 32·h …",
-                 "        if (lt == 0) tma_store_wait_read<1>();  // the store before last has read "
-                 "this box"):
+    the accumulators q … q + 3 they fold (q = 4·(4h + cb)) are each of a
+    thread's 64 once, and a round's box (stores % OUTB) is the one the store
+    OUTB rounds back used, no store since, so waiting until at most OUTB - 1
+    stores still read leaves that one read."""
+    if cfg["OUTB"] == 0:
+        return _tap_direct_epilogue(cfg)
+    for line in ("            const int q = 4 * (h * kWgOutBox / 8 + cb);",
+                 "            const int c = 8 * cb + 2 * (lane % 4);",
+                 "            *reinterpret_cast<float2*>(box + sw128_offset(8 * warp + lane / 4, c / 4) +",
+                 "                                       (lane % 2) * 8) =",
+                 "                make_float2(acc[q] + acc[q + 2], acc[q + 1] + acc[q + 3]);",
+                 "            tma_store_2d(&map_c, box, n0 + h * kWgOutBox, 0);",
+                 "        for (int h = 0; h < BN / kWgOutBox; ++h) {  // columns 32·h …",
+                 "          if (lt == 0) tma_store_wait_read<OUTB - 1>();  // the store OUTB before has "
+                 "read this box",
+                 "      } else {"):
         assert line in PROBE_SRC, line
     cols = _wg_const("kWgOutBox")
     slots = [_sw128(8 * warp + lane // 4, (8 * cb + 2 * (lane % 4)) // 4) + (lane % 2) * 8
@@ -570,9 +668,43 @@ def _tap_epilogue(cfg: dict) -> None:
     qs = sorted(4 * (h * cols // 8 + cb) + e for h in range(cfg["BN"] // cols)
                 for cb in range(cols // 8) for e in range(4))
     assert qs == list(range(64))
+    outb = cfg["OUTB"]
+    used = [k % outb for k in range(3 * cfg["BN"] // cols)]  # three items' rounds
+    for k in range(outb, len(used)):
+        assert used[k] == used[k - outb] and used[k] not in used[k - outb + 1:k]
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V4", "V6"])
+def _tap_direct_epilogue(cfg: dict) -> None:
+    """probe_tapsum_wgmma's epilogue with no store box (OUTB = 0): thread
+    (warp, lane) stores e0 + e2 and e1 + e3 of column block j as one float2
+    at output row 8·warp + lane / 4, column n0 + 8j + 2·(lane % 4); over a
+    work item every output element of its 32 rows × BN columns is written
+    once, from accumulators 4j … 4j + 3 that are each of a thread's 64 once,
+    and one warp's store of one j covers whole 32-byte sectors (4 lanes on 8
+    neighbouring columns of each of 8 rows); stores past N are masked."""
+    for line in ("      if constexpr (OUTB == 0) {",
+                 "        const int col = n0 + 2 * (lane % 4);",
+                 "        float* row = dst + (long long)(8 * warp + lane / 4) * N + col;",
+                 "        for (int j = 0; j < BN / 8; ++j)",
+                 "          if (col + 8 * j < N)",
+                 "            *reinterpret_cast<float2*>(row + 8 * j) =",
+                 "                make_float2(acc[4 * j] + acc[4 * j + 2], acc[4 * j + 1] + "
+                 "acc[4 * j + 3]);"):
+        assert line in PROBE_SRC, line
+    bn = cfg["BN"]
+    cells = [(8 * warp + lane // 4, 8 * j + 2 * (lane % 4) + e)
+             for warp in range(4) for lane in range(32) for j in range(bn // 8) for e in (0, 1)]
+    assert sorted(cells) == [(r, col) for r in range(cp.COUT) for col in range(bn)]
+    assert sorted(4 * j + e for j in range(bn // 8) for e in range(4)) == list(range(64))
+    for warp, j in ((w, jj) for w in range(4) for jj in range(bn // 8)):
+        byte = [(8 * warp + ln // 4) * 4 * bn + 4 * (8 * j + 2 * (ln % 4)) for ln in range(32)]
+        sectors = {}
+        for b in byte:
+            sectors.setdefault(b // 32, set()).update({b, b + 4})
+        assert all(len(v) == 8 for v in sectors.values()) and len(sectors) == 8
+
+
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V4", "V6", "V5", "V8"])
 def test_wgmma_epilogue_fills_each_store_box_once(key):
     """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
     + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
@@ -581,8 +713,8 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     the same number of times (no conflict beyond the two wavefronts of 256
     bytes), and the rounds of a consumer store each 64 × 32 box of its tiles
     once (V1's rows 32-63 fall outside the output and are clipped by the
-    store). V4's and V6's epilogue stores the folded 32 rows a round
-    (``_tap_epilogue``)."""
+    store). The tap sums' epilogue stores the folded 32 rows a round
+    (``_tap_epilogue``; V5 and V8 from registers, no box)."""
     if key in WG_TAP:
         return _tap_epilogue(WG_TAP[key])
     cols = _wg_const("kWgOutBox")
@@ -622,12 +754,14 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     ("V3", 131072, "conv_probe_v3_wgmma"), ("V3", 2120, "conv_probe_v3_wgmma"), ("V3", 77, None),
     ("V4", 131072, "conv_probe_v4_wgmma"), ("V4", 2120, "conv_probe_v4_wgmma"), ("V4", 77, None),
     ("V6", 131072, "conv_probe_v6_wgmma"), ("V6", 2120, "conv_probe_v6_wgmma"), ("V6", 77, None),
-    ("V8", 131072, None)])
+    ("V5", 131072, "conv_probe_v5_wgmma"), ("V5", 2120, "conv_probe_v5_wgmma"), ("V5", 77, None),
+    ("V8", 131072, "conv_probe_v8_wgmma"), ("V8", 2120, "conv_probe_v8_wgmma"), ("V8", 77, None),
+    ("V3'", 131072, None)])
 def test_chip_smoke_probe_instances(key, n, want):
-    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 / V4 / V6 call to the
-    wgmma counter of the instance the wrapper's rule names at that N (V1, V3,
-    V4 and V6 at 77 on mma.sync), and every counter it reads exists in
-    ``LAUNCHES``."""
+    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 / V4 / V6 / V5 / V8
+    call to the wgmma counter of the instance the wrapper's rule names at
+    that N (V1, V3, V4, V6, V5 and V8 at 77 on mma.sync; V3' has no wgmma
+    instance), and every counter it reads exists in ``LAUNCHES``."""
     import chip_smoke
 
     assert chip_smoke._probe_instance_counter(key, n) == want
@@ -705,66 +839,83 @@ def test_v3_tap_major_a_boxes():
     assert (acc[cp.COUT:] - want).abs().max() > 1e-2 * want.abs().max()
 
 
-_V4_V6_RULES = ("int v4_instance(int n) { return n % 8 == 0 ? kV4Wgmma : kV4Mma; }\n"
-                "int v6_instance(int n) { return n % 8 == 0 ? kV6Wgmma : kV6Mma; }")
+_TAP_RULES = ("int v4_instance(int n) { return n % 8 == 0 ? kV4Wgmma : kV4Mma; }\n"
+              "int v6_instance(int n) { return n % 8 == 0 ? kV6Wgmma : kV6Mma; }\n"
+              "int v5_instance(int n) { return n % 8 == 0 ? kV5Wgmma : kV5Mma; }\n"
+              "int v8_instance(int n) { return n % 8 == 0 ? kV8Wgmma : kV8Mma; }")
+# each tap-sum probe's weight argument in the source, its mma.sync instance
+# (probe_tapsum<KD, NDOTS, GROUPS, TAPS, WARPS_M, WARPS_N, WN>) and its
+# wgmma config
+_TAP_DISPATCH = {"V4": ("w27", "x", "<64, 1, 27, 27, 9, 2, 16>", "WgV4"),
+                 "V6": ("w27p", "x", "<64, 7, 4, 27, 4, 2, 32>", "WgV4"),
+                 "V5": ("w14", "x2", "<128, 14, 1, 14, 1, 8, 32>", "WgV5"),
+                 "V8": ("w9", "x3", "<192, 9, 1, 9, 1, 8, 32>", "WgV8")}
 
 
 @pytest.mark.parametrize("n", [131072, 8192, 2120, 200, 77, 8, 1])
-def test_v4_v6_wgmma_rules_are_the_source(n):
-    """``probe_v4_instance`` and ``probe_v6_instance`` state the C rules
-    ``v4_instance`` and ``v6_instance``, which ``hvc_probe_v4`` /
-    ``hvc_probe_v6`` dispatch by and ``hvc_probe_v{4,6}_rule`` report, with
-    the source's instance codes: N a multiple of 8 (16-byte rows of X and
-    the output for the tensor maps) takes WgV4 / WgV6, a ragged N
-    probe_tapsum on mma.sync; each wgmma launch counts on its own counter."""
-    assert _V4_V6_RULES in PROBE_SRC
-    for v in ("4", "6"):
-        w = "w27" if v == "4" else "w27p"
-        assert (f"  return run_v{v}(v{v}_instance(n), {w}, x, out, n, repeats, aligned,"
-                in PROBE_SRC)
-        assert f"int hvc_probe_v{v}_rule(int n) {{ return v{v}_instance(n); }}" in PROBE_SRC
-        assert (f"    case kV{v}Wgmma: return tapsum_wgmma<WgV{v}>({w}, x, out, n, repeats, s);"
-                in PROBE_SRC)
-    for name, code in (("kV4Mma", cp.V4_MMA), ("kV4Wgmma", cp.V4_WGMMA),
-                       ("kV6Mma", cp.V6_MMA), ("kV6Wgmma", cp.V6_WGMMA)):
+@pytest.mark.parametrize("key", ["V4", "V6", "V5", "V8"])
+def test_v4_v6_wgmma_rules_are_the_source(key, n):
+    """``probe_v{4,6,5,8}_instance`` state the C rules ``v{4,6,5,8}_instance``,
+    which ``hvc_probe_v{4,6,5,8}`` dispatch by and ``hvc_probe_v{4,6,5,8}_rule``
+    report, with the source's instance codes: N a multiple of 8 (16-byte rows
+    of X and the output for the tensor maps) takes the wgmma instance (WgV4,
+    which V6 shares, WgV5, WgV8), a ragged N probe_tapsum on mma.sync; each
+    wgmma launch counts on its own counter."""
+    assert _TAP_RULES in PROBE_SRC
+    v = key[1:]
+    w, x, mma, wg = _TAP_DISPATCH[key]
+    assert (f"  return run_v{v}(v{v}_instance(n), {w}, {x}, out, n, repeats, aligned,"
+            in PROBE_SRC)
+    assert f"int hvc_probe_v{v}_rule(int n) {{ return v{v}_instance(n); }}" in PROBE_SRC
+    assert (f"    case kV{v}Wgmma: return tapsum_wgmma<{wg}>({w}, {x}, out, n, repeats, s);"
+            in PROBE_SRC)
+    assert (f"    case kV{v}Mma: return tapsum{mma}({w}, {x}, out, n, repeats, aligned, s);"
+            in PROBE_SRC)
+    mma_code, wgmma_code = getattr(cp, f"{key}_MMA"), getattr(cp, f"{key}_WGMMA")
+    for name, code in ((f"kV{v}Mma", mma_code), (f"kV{v}Wgmma", wgmma_code)):
         assert re.search(rf"^  {name} = {code},", PROBE_SRC, re.M), name
-    assert ("    case kV4Mma: return tapsum<64, 1, 27, 27, 9, 2, 16>(w27, x, out, n, repeats, "
-            "aligned, s);") in PROBE_SRC
-    assert ("    case kV6Mma: return tapsum<64, 7, 4, 27, 4, 2, 32>(w27p, x, out, n, repeats, "
-            "aligned, s);") in PROBE_SRC
-    assert cp.probe_v4_instance(n) == (cp.V4_WGMMA if n % 8 == 0 else cp.V4_MMA)
-    assert cp.probe_v6_instance(n) == (cp.V6_WGMMA if n % 8 == 0 else cp.V6_MMA)
-    assert cp._INSTANCE_COUNTERS[("v4", cp.V4_WGMMA)] == "conv_probe_v4_wgmma"
-    assert cp._INSTANCE_COUNTERS[("v6", cp.V6_WGMMA)] == "conv_probe_v6_wgmma"
-    assert {"conv_probe_v4_wgmma", "conv_probe_v6_wgmma"} <= set(cp.LAUNCHES)
+    mirror = getattr(cp, f"probe_v{v}_instance")
+    assert mirror(n) == (wgmma_code if n % 8 == 0 else mma_code)
+    assert cp._INSTANCE_COUNTERS[(f"v{v}", wgmma_code)] == f"conv_probe_v{v}_wgmma"
+    assert f"conv_probe_v{v}_wgmma" in cp.LAUNCHES
+    if key in ("V5", "V8"):  # the wrapper asks the C rule, as V4's and V6's do
+        wrapper = (ROOT / "hybrid_vit_cascade_tpu_torch" / "ops" / "cuda" /
+                   "conv_probe.py").read_text()
+        assert f'rule="hvc_probe_v{v}_rule")' in wrapper
 
 
-def _resident_tiles(w: torch.Tensor, taps_read: int = 27) -> tuple:
-    """The kernel's copy of W into its 14 resident m64 tiles: thread item c
-    is 16-byte chunk k8 = c % 8 of row r = c / 8 % 64 of tile i = c / 512,
-    which holds tap 2i + r % 16 / 8, output row 8·(r / 16) + r % 8 of W (rows
-    32·tap + output row), zeros for a tap ≥ taps_read (the kernel's 27).
-    Returns (tiles [14, 64, 64], {(tile, row): (tap, output row)})."""
-    tiles = torch.zeros((_wg_const("kTapTiles"), 64, cp.CIN), dtype=w.dtype)
+def _resident_boxes(cfg: dict, w: torch.Tensor, taps_read: int = 0) -> tuple:
+    """The kernel's copy of W into its TILES × CHUNKS resident boxes: thread
+    item c is 16-byte chunk k8 = c % 8 of row r = c / 8 % 64 of box b = c /
+    512, tile i = b / CHUNKS and chunk kc = b % CHUNKS, which holds the k 64·kc
+    + 8·k8 … of tap 2i + r % 16 / 8, output row 8·(r / 16) + r % 8 of W (row
+    32·tap + output row, KD k a row), zeros for a tap ≥ taps_read (the
+    kernel's TAPS). Returns (boxes [TILES·CHUNKS, 64, 64], {(box, row, k8):
+    (tap, output row, chunk, k8)})."""
+    taps_read = taps_read or cfg["TAPS"]
+    tiles, chunks = cfg["TILES"], cfg["CHUNKS"]
+    boxes = torch.zeros((tiles * chunks, 64, 64), dtype=w.dtype)
     where = {}
-    for c in range(_wg_const("kTapTiles") * 64 * 8):
-        i, r, k8 = c // 512, c // 8 % 64, c % 8
+    for c in range(tiles * chunks * 64 * 8):
+        b, r, k8 = c // 512, c // 8 % 64, c % 8
+        i, kc = b // chunks, b % chunks
         tap, orow = 2 * i + r % 16 // 8, 8 * (r // 16) + r % 8
-        where[(i, r)] = (tap, orow)
+        where[(b, r, k8)] = (tap, orow, kc, k8)
         if tap < taps_read:
-            tiles[i, r, 8 * k8:8 * k8 + 8] = w[tap * cp.COUT + orow, 8 * k8:8 * k8 + 8]
-    return tiles, where
+            k0 = 64 * kc + 8 * k8
+            boxes[b, r, 8 * k8:8 * k8 + 8] = w[tap * cp.COUT + orow, k0:k0 + 8]
+    return boxes, where
 
 
-def _tap_replay(cfg: dict, tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _tap_replay(cfg: dict, boxes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """out (32, N) as probe_tapsum_wgmma<cfg> forms it: per work item of BN
-    columns (X past N zero-filled, as TMA loads it), accumulator a chains the
-    products of tiles d·ACCS + a over the dots d; the chains are added in
-    order; then each thread (warp, lane) of the m64n128 fragment map
+    columns (X past N zero-filled, as TMA loads it), one chain over the
+    chunks kc (outer) and the tiles i (inner) of box (i, kc) times rows
+    64·kc … of X; then each thread (warp, lane) of the m64n128 fragment map
     (wgmma_sm90.cuh: element q at row 16·warp + lane / 4 + 8·(q % 4 / 2),
     column 8·(q / 4) + 2·(lane % 4) + q % 2) adds e0 + e2 and e1 + e3 into
     output row 8·warp + lane / 4, every output element written once."""
-    n, bn = x.shape[1], cfg["BN"]
+    n, bn, chunks = x.shape[1], cfg["BN"], cfg["CHUNKS"]
     out = torch.full((cp.COUT, n), float("nan"))
     written = torch.zeros((cp.COUT, -(-n // bn) * bn), dtype=torch.int64)
     t = torch.arange(128)
@@ -772,16 +923,14 @@ def _tap_replay(cfg: dict, tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     q = torch.arange(64)
     rows = 16 * warp[:, None] + lane[:, None] // 4 + 8 * (q[None] % 4 // 2)   # [128, 64]
     cols = 8 * (q[None] // 4) + 2 * (lane[:, None] % 4) + q[None] % 2
-    tf = tiles.float()
+    bf = boxes.float()
     for n0 in range(0, n, bn):
-        xb = torch.zeros((cp.CIN, bn))
+        xb = torch.zeros((cfg["KD"], bn))
         xb[:, :min(bn, n - n0)] = x[:, n0:n0 + bn].float()
-        chains = [sum(tf[d * cfg["ACCS"] + a] @ xb
-                      for d in range(_wg_const("kTapTiles") // cfg["ACCS"]))
-                  for a in range(cfg["ACCS"])]
-        acc = chains[0]
-        for more in chains[1:]:
-            acc = acc + more
+        acc = torch.zeros((64, bn))
+        for kc in range(chunks):
+            for i in range(cfg["TILES"]):
+                acc = acc + bf[i * chunks + kc] @ xb[64 * kc:64 * kc + 64]
         frag = acc[rows, cols]                                              # [128, 64]
         for e in (0, 1):
             v = frag[:, e::4] + frag[:, e + 2::4]                           # [128, 16]
@@ -795,43 +944,59 @@ def _tap_replay(cfg: dict, tiles: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     return out
 
 
-@pytest.mark.parametrize("key", ["V4", "V6"])
+@pytest.mark.parametrize("key", ["V4", "V6", "V5", "V8"])
 def test_v4_v6_resident_rows_replay(key):
-    """A torch replay of probe_tapsum_wgmma: the permuted resident tiles (every
-    (tap, output row) pair of the 27 taps exactly once, tap 27's rows zeros),
-    the accumulator chains, their sum and the fragment fold e0 + e2 at N =
-    200 (a ragged second item) equal the plain version (both fp32 sums of the
-    same bf16 products, in another order). V6's w27p and V4's w27 padded to
-    896 rows carry 1e4 in rows 864-895 (the row group V6 drops): a copy that
-    read them (taps_read = 28) misses by far."""
-    case = bench.BY_KEY[key[:2]]
+    """A torch replay of probe_tapsum_wgmma: the permuted, chunked resident
+    boxes (every (tap, output row, chunk, 16-byte k8) of the TAPS taps
+    exactly once, the odd tap count's last half-tile zeros: V4's and V6's tap
+    27, V8's tap 9), the chunk-outer chain and the fragment fold e0 + e2 at N
+    = 200 (a ragged second item) equal the plain version (both fp32 sums of
+    the same bf16 products, in another order). Past the TAPS row groups W
+    carries 1e4 (V6's own w27p rows 864-895, the row group it drops; V4's w27
+    and V8's w9 padded by one group): a copy that read them (taps_read = TAPS
+    + 1) misses by far."""
+    case = bench.BY_KEY[key]
     cfg = WG_TAP[key]
-    for line in ("    const int i = c / 512, r = c / 8 % 64, k8 = c % 8;",
+    for line in ("    const int b = c / 512, r = c / 8 % 64, k8 = c % 8;",
+                 "    const int i = b / CHUNKS, kc = b % CHUNKS;",
                  "    const int tap = 2 * i + r % 16 / 8, orow = 8 * (r / 16) + r % 8;",
-                 "    if (tap < kTaps)",
+                 "    if (tap < Cfg::TAPS)",
                  "      v = *reinterpret_cast<const uint4*>(w + (long long)(tap * kGroup + orow) * "
-                 "kWgBK + k8 * 8);",
-                 "    *reinterpret_cast<uint4*>(wres + i * kWgTile + sw128_offset(r, k8)) = v;",
-                 "  for (int c = tid; c < kTapTiles * 64 * 8; c += Cfg::Threads) {"):
+                 "Cfg::KD +",
+                 "                                          kc * kWgBK + k8 * 8);",
+                 "    *reinterpret_cast<uint4*>(wres + b * kWgTile + sw128_offset(r, k8)) = v;",
+                 "  for (int c = tid; c < TILES * CHUNKS * 64 * 8; c += Cfg::Threads) {",
+                 "      for (int kc = 0; kc < CHUNKS; ++kc, ++chunk) {",
+                 "        for (int i = 0; i < TILES; ++i)",
+                 "  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, Cfg::KD, n, kWgBK, "
+                 "kWgBox) ||"):
         assert line in PROBE_SRC, line
-    rng = np.random.default_rng(160 + len(key))
+    taps, kd = cfg["TAPS"], cfg["KD"]
+    rng = np.random.default_rng(160 + len(key) + int(key[1]))
     w = torch.from_numpy(rng.standard_normal(case.w_shape, dtype=np.float32)).bfloat16()
-    x = torch.from_numpy(rng.standard_normal((cp.CIN, 200), dtype=np.float32)).bfloat16()
-    planted = torch.cat([w[:cp.TAPS * cp.COUT], torch.full((cp.COUT, cp.CIN), 1e4).bfloat16()])
+    x = torch.from_numpy(rng.standard_normal((kd, 200), dtype=np.float32)).bfloat16()
+    odd = 2 * cfg["TILES"] > taps  # a half-tile past the last tap
+    planted = torch.cat([w[:taps * cp.COUT], torch.full((cp.COUT, kd), 1e4).bfloat16()])
     if key == "V6":
         w = planted
-    tiles, where = _resident_tiles(planted)
-    pairs = sorted(where.values())
-    assert pairs == sorted((t, o) for t in range(28) for o in range(cp.COUT))  # each once
-    for (i, r), (tap, _) in where.items():
-        if tap == cp.TAPS:
-            assert not tiles[i, r].any()
-    for (i, r), (tap, orow) in where.items():  # one thread's e0 / e2 rows: one output row
+    boxes, where = _resident_boxes(cfg, planted)
+    cover = sorted(where.values())
+    assert cover == sorted((t, o, kc, k8) for t in range(2 * cfg["TILES"]) for o in range(cp.COUT)
+                           for kc in range(cfg["CHUNKS"]) for k8 in range(8))  # each once
+    for (b, r, k8), (tap, orow, kc, _) in where.items():
+        chunk = boxes[b, r, 8 * k8:8 * k8 + 8]
+        if tap >= taps:
+            assert odd and tap == taps and not chunk.any()
+        else:
+            k0 = 64 * kc + 8 * k8
+            assert torch.equal(chunk, w[tap * cp.COUT + orow, k0:k0 + 8])
+    for (b, r, k8), (tap, orow, kc, _) in where.items():  # one thread's e0 / e2 rows: one output row
         if r % 16 < 8:
-            assert where[(i, r + 8)] == (tap + 1, orow)
-    got = _tap_replay(cfg, tiles, x)
+            assert where[(b, r + 8, k8)] == (tap + 1, orow, kc, k8)
+    got = _tap_replay(cfg, boxes, x)
     want = case.plain(w, x, 1)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
-    leaked = _tap_replay(cfg, _resident_tiles(planted, taps_read=28)[0], x)
-    assert (leaked - want).abs().max() > 1e2 * want.abs().max()
+    if odd:
+        leaked = _tap_replay(cfg, _resident_boxes(cfg, planted, taps_read=taps + 1)[0], x)
+        assert (leaked - want).abs().max() > 1e2 * want.abs().max()

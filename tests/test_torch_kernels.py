@@ -1188,10 +1188,10 @@ PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
 def _probe_counters(key: str, n: int) -> dict:
     """The launches one call of probe case `key` at N columns adds to
     ``conv_probe.LAUNCHES``: its wrapper's counter, and the counter of the
-    wgmma instance the wrapper's rule names (V1, V0, V2, V3, V4, V6)."""
+    wgmma instance the wrapper's rule names (V1, V0, V2, V3, V4, V6, V5, V8)."""
     case = bench.BY_KEY[key]
     want = {case.kernel: 1}
-    if key in ("V3", "V4", "V6"):
+    if key in ("V3", "V4", "V6", "V5", "V8"):
         v = key.lower()
         instance = getattr(conv_probe, f"probe_{v}_instance")(n)
         want[f"conv_probe_{v}_wgmma"] = int(instance == getattr(conv_probe, f"{key}_WGMMA"))
@@ -1315,14 +1315,14 @@ def test_probe_v3_wgmma(dev, n, passes):
     assert torch.equal(conv_probe.probe_v3(w, p, passes), got)
 
 
-# v4 and v6 on their wgmma instances: (N, passes). The probes' N, N in L2,
-# ragged last N tiles (2,120 and 200: a last 128-column item of 72 columns),
-# and N not a multiple of 8 (77, 1: probe_tapsum on mma.sync).
+# v4, v6, v5 and v8 on their wgmma instances: (N, passes). The probes' N, N
+# in L2, ragged last N tiles (2,120 and 200: a last 128-column item of 72
+# columns), and N not a multiple of 8 (77, 1: probe_tapsum on mma.sync).
 PROBE_TAP_WGMMA = [(131072, 2), (8192, 3), (2120, 2), (200, 1), (77, 2), (1, 1)]
 
 
 def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
-    """probe_v4 / probe_v6 against its plain version (1e-4·max|want| +
+    """probe_v4 / v6 / v5 / v8 against its plain version (1e-4·max|want| +
     1e-4·|want|: both sum the same bf16 products in fp32, in another order),
     counted on the wgmma instance the wrapper's rule names (N % 8 = 0),
     every other counter unchanged, bitwise equal over a rerun and between 1
@@ -1333,7 +1333,7 @@ def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
     w = _randn(case.w_shape, torch.bfloat16, dev, seed)
     if key == "V6":
         w[conv_probe.TAPS * conv_probe.COUT:] = 1e4
-    x = _randn((conv_probe.CIN, n), torch.bfloat16, dev, seed + 1)
+    x = _randn((case.x_rows, n), torch.bfloat16, dev, seed + 1)
     took = _probe_counters(key, n)
     assert took[f"conv_probe_{key.lower()}_wgmma"] == (n % 8 == 0)
     before = dict(conv_probe.LAUNCHES)
@@ -1357,17 +1357,30 @@ def test_probe_v4_wgmma(dev, n, passes):
 
 @pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
 def test_probe_v6_wgmma(dev, n, passes):
-    """v6 on ``probe_tapsum_wgmma<WgV6>`` (M = 128 dots in two chains), with
+    """v6 on V4's ``probe_tapsum_wgmma<WgV4>`` (w27p's first 864 rows), with
     w27p's dropped row group planted."""
     _check_tap_wgmma(dev, "V6", n, passes, 128)
 
 
+@pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
+def test_probe_v5_wgmma(dev, n, passes):
+    """v5 on ``probe_tapsum_wgmma<WgV5>`` (w14 resident as A, two k64 chunks
+    a tap)."""
+    _check_tap_wgmma(dev, "V5", n, passes, 130)
+
+
+@pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
+def test_probe_v8_wgmma(dev, n, passes):
+    """v8 on ``probe_tapsum_wgmma<WgV8>`` (w9 resident as A, three k64 chunks
+    a tap, tap 9's half-tile zeros)."""
+    _check_tap_wgmma(dev, "V8", n, passes, 132)
+
+
 def test_probe_v1_wgmma_rule_matches_c(dev):
-    """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule``,
-    ``hvc_probe_v3_rule``, ``hvc_probe_v4_rule``, ``hvc_probe_v6_rule``,
-    which the wrappers count wgmma launches by) are ``probe_v1_instance``,
-    ``probe_v2_instance``, ``probe_v3_instance``, ``probe_v4_instance`` and
-    ``probe_v6_instance`` at every m, K and N around their edges."""
+    """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule`` and
+    ``hvc_probe_v{3,4,6,5,8}_rule``, which the wrappers count wgmma launches
+    by) are ``probe_v1_instance``, ``probe_v2_instance`` and
+    ``probe_v{3,4,6,5,8}_instance`` at every m, K and N around their edges."""
     rule = _build.function("hvc_probe_v1_rule", (ctypes.c_int,) * 3)
     for m, n in itertools.product((1, 31, 32, 33, 63, 64, 65, 128, 192, 256, 320),
                                   (1, 7, 8, 9, 16, 77, 2120, 131072)):
@@ -1375,7 +1388,7 @@ def test_probe_v1_wgmma_rule_matches_c(dev):
     rule2 = _build.function("hvc_probe_v2_rule", (ctypes.c_int,) * 2)
     for k, n in itertools.product((0, 32, 64, 1728, 1792, 1856, 4096), (1, 7, 77, 2120, 131072)):
         assert rule2(k, n) == conv_probe.probe_v2_instance(k, n)
-    for v in ("v3", "v4", "v6"):
+    for v in ("v3", "v4", "v6", "v5", "v8"):
         rule = _build.function(f"hvc_probe_{v}_rule", (ctypes.c_int,))
         mirror = getattr(conv_probe, f"probe_{v}_instance")
         for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
