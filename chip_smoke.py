@@ -134,16 +134,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    then the entry point's ``run`` (``hybrid_vit_cascade_tpu_torch.scripts.
    bench_conv_probe``) over every case at full size, launches counted from
    0: each kernel beside its plain version and its cuBLAS yardstick, and
-   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³. Each V1, V0,
-   V2, V3, V4, V6, V5 and V8 call, at full size and at ragged N, must have
-   taken the instance its rule names (``conv_probe.probe_v1_instance``,
-   ``probe_v2_instance``, ``probe_v3_instance``, ``probe_v4_instance``,
+   the cuDNN dense convs VX (64→32) and VX2 (32→64) at 256³. Each probe
+   call, at full size and at ragged N, must have taken the instance its
+   rule names (``conv_probe.probe_v1_instance``, ``probe_v2_instance``,
+   ``probe_v3_instance``, ``probe_v3p_instance``, ``probe_v4_instance``,
    ``probe_v6_instance``, ``probe_v5_instance``, ``probe_v8_instance``): at
    N = 131,072 V0 on its wgmma instance (conv_probe_v1_wgmma), V1 on its own
-   (conv_probe_v1_wgmma_m32), V2 on its own (conv_probe_v2_wgmma), V3, V4,
-   V6, V5 and V8 on theirs (conv_probe_v3_wgmma, conv_probe_v4_wgmma,
-   conv_probe_v6_wgmma, conv_probe_v5_wgmma, conv_probe_v8_wgmma); V1, V3,
-   V4, V6, V5 and V8 at N = 77 on mma.sync.
+   (conv_probe_v1_wgmma_m32), V2 on its own (conv_probe_v2_wgmma), V3, V3',
+   V4, V6, V5 and V8 on theirs (conv_probe_v3_wgmma, conv_probe_v3p_wgmma,
+   conv_probe_v4_wgmma, conv_probe_v6_wgmma, conv_probe_v5_wgmma,
+   conv_probe_v8_wgmma); V1, V3, V3', V4, V6, V5 and V8 at N = 77 on
+   mma.sync.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -1638,16 +1639,16 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
 # ---------------------------------------------------------- the probe path ---
 
 def _probe_instance_counter(key: str, n: int):
-    """The wgmma counter a V1 / V0 / V2 / V3 / V4 / V6 / V5 / V8 call at N
-    columns must add to, by the wrapper's rule (None: an mma.sync instance,
-    or another case)."""
+    """The wgmma counter a probe call (V1, V0, V2, V3, V3', V4, V6, V5, V8)
+    at N columns must add to, by the wrapper's rule (None: an mma.sync
+    instance, or another case)."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
 
     if key == "V2":
         return {cp.V2_WGMMA: "conv_probe_v2_wgmma"}.get(cp.probe_v2_instance(cp.K, n))
-    if key in ("V3", "V4", "V6", "V5", "V8"):
-        v = key.lower()
-        wgmma = getattr(cp, f"probe_{v}_instance")(n) == getattr(cp, f"{key}_WGMMA")
+    if key in ("V3", "V3'", "V4", "V6", "V5", "V8"):
+        v = key.lower().replace("'", "p")
+        wgmma = getattr(cp, f"probe_{v}_instance")(n) == getattr(cp, f"{v.upper()}_WGMMA")
         return f"conv_probe_{v}_wgmma" if wgmma else None
     if key in ("V1", "V0"):
         m = 32 if key == "V1" else 256
@@ -1658,15 +1659,15 @@ def _probe_instance_counter(key: str, n: int):
 
 _PROBE_INSTANCE_COUNTERS = ("conv_probe_v1_wgmma", "conv_probe_v1_wgmma_m32",
                             "conv_probe_v2_wgmma", "conv_probe_v3_wgmma",
-                            "conv_probe_v4_wgmma", "conv_probe_v6_wgmma",
-                            "conv_probe_v5_wgmma", "conv_probe_v8_wgmma")
+                            "conv_probe_v3p_wgmma", "conv_probe_v4_wgmma",
+                            "conv_probe_v6_wgmma", "conv_probe_v5_wgmma",
+                            "conv_probe_v8_wgmma")
 
 
 def probe_phase(dev, seed: int) -> dict:
     """Phase [12]: every probe kernel against its plain version at full size
-    and at ragged N, each V1, V0, V2, V3, V4, V6, V5 and V8 call on the
-    instance its rule names, then the entry point's run over every case,
-    launches counted from 0."""
+    and at ragged N, each call on the instance its rule names, then the
+    entry point's run over every case, launches counted from 0."""
     from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
     from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
@@ -1709,12 +1710,13 @@ def probe_phase(dev, seed: int) -> dict:
     log(f"[12] launches {probe_launches}; phase time {time.perf_counter() - t0:.1f} s")
     if any(launched[k] for k in launched if k not in probe_launches):
         raise AssertionError(f"[12] the probe run launched another kernel: {launched}")
-    # at N = 131,072 V0, V1, V2, V3, V4, V6, V5 and V8 run on their wgmma instances, every launch
+    # at N = 131,072 every probe runs on its wgmma instance, every launch
     by_case = {r["case"]: r.get("launches", {}) for r in rows}
     for key, kernel, counter in (("V0", "conv_probe_v1", "conv_probe_v1_wgmma"),
                                  ("V1", "conv_probe_v1", "conv_probe_v1_wgmma_m32"),
                                  ("V2", "conv_probe_v2", "conv_probe_v2_wgmma"),
                                  ("V3", "conv_probe_v3", "conv_probe_v3_wgmma"),
+                                 ("V3'", "conv_probe_v3p", "conv_probe_v3p_wgmma"),
                                  ("V4", "conv_probe_v4", "conv_probe_v4_wgmma"),
                                  ("V6", "conv_probe_v6", "conv_probe_v6_wgmma"),
                                  ("V5", "conv_probe_v5", "conv_probe_v5_wgmma"),

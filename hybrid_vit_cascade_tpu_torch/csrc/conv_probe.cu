@@ -25,8 +25,8 @@
 // Every operand is bf16, row-major and contiguous; products accumulate in
 // fp32 on the tensor cores (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // fragments loaded from shared memory with ldmatrix; the helpers are in
-// mma_sm90.cuh; V0, V1, V2, V3, V4, V5, V6 and V8 on wgmma.mma_async fed by
-// TMA, helpers in wgmma_sm90.cuh) and the output is fp32.
+// mma_sm90.cuh; every probe on wgmma.mma_async fed by TMA where N is a
+// multiple of 8, helpers in wgmma_sm90.cuh) and the output is fp32.
 // A call runs `repeats` passes, as the TPU probe's "arbitrary" r axis does:
 // the r axis is a loop inside one launch. The grid is persistent (as many
 // blocks as fit on the SMs) and walks the work items r·tiles + tile in order,
@@ -47,11 +47,13 @@
 // 1.284 ms. V3', V6 and V4 (33.6 MB a pass) and V5 (50.4 MB, 48.1 MiB) can
 // stay in L2 and are bound by their products alone.
 //
-// Design. Four templates; the TPU's N_BLK = 2048 blocks and (8, 128) layout
+// Design. Five kernels; the TPU's N_BLK = 2048 blocks and (8, 128) layout
 // are not carried over. V0, V1, V3 (N a multiple of 8) and V2 run on wgmma
 // fed by TMA (probe_gemm_wgmma, its comment has the design), V4, V6, V5 and
 // V8 (N a multiple of 8) on wgmma with the weights resident as A and the tap
-// sum folded in the accumulators (probe_tapsum_wgmma, likewise); the rest on
+// sum folded in the accumulators (probe_tapsum_wgmma, likewise), V3' (N a
+// multiple of 8) on wgmma as 27 per-tap dots with X as A in registers and
+// the weights resident as B (probe_pertap_wgmma, likewise); the rest on
 // mma.sync, the simplest tensor-core path (no TMA, no wgmma, no warp
 // specialisation); what each variant probes is kept:
 //
@@ -66,7 +68,7 @@
 //   Tiles: V1/V3 32 × 128 (4 warps of 32 × 32), an m > 32 call that the
 //   wgmma rule does not take (N not a multiple of 8) 128 × 128 (8 warps of
 //   64 × 32), V2 128 spatial rows × 32 (4 warps of 32 × 32).
-// - probe_tapsum (V3', and V5, V8, V6 and V4 at a ragged N): the whole
+// - probe_tapsum (V3', V5, V8, V6 and V4 at a ragged N): the whole
 //   weight array stays in shared memory for the block's life (115-129 KB,
 //   the VMEM-resident weights of the TPU probe); per work item one X tile
 //   [KD, BN] is staged
@@ -91,6 +93,11 @@
 //   chains into one accumulator, 32 × 128 a work item, and one add per
 //   element after the chain gives out[32, BN]: no reduction through shared
 //   memory, no cross-warp step. V6 runs on V4's instance (the same sum).
+// - probe_pertap_wgmma (V3' at N a multiple of 8): 64 spatial columns as
+//   wgmma's M, Cout = 32 as its N, a tap's 64 channels as its K; each m64
+//   tile of X loaded once an item into registers (ldmatrix.trans) as A, the
+//   27 taps' K-major B resident, 27 × 4 products chained into one
+//   accumulator that is out[:, n0 … n0 + 63]ᵀ.
 //
 // Sums run in another order than the TPU's and the plain version's; the
 // result is deterministic (no atomics; a rewrite of the output by a later
@@ -881,6 +888,184 @@ __global__ void __launch_bounds__(Cfg::Threads, 1)
   }
 }
 
+// --------------------------------------------------- probe_pertap_wgmma ---
+
+// out[32, N] fp32 = Σ_{t<27} W27[32t:32t+32] · X[64, N] on wgmma for
+// `repeats` passes (V3', v3p): 27 per-tap dots of K = 64 chained into one
+// accumulator, in tap order, the form a 3×3×3 conv keeps once each tap reads
+// a shifted X. Orientation: wgmma's M is 64 spatial columns of X (an m64
+// tile), its N is Cout = 32 (m64n32k16), its K a tap's 64 channels (4 k16
+// steps), so a consumer's accumulators hold out[:, n0 … n0 + 63]ᵀ directly:
+// no fold, no reduction through shared memory, no cross-warp step.
+//
+// - W27 stays in shared memory for the block's life as wgmma's B (the TPU
+//   kernel's VMEM-resident W block): tap t's rows W27[32t:32t+32, :64] are a
+//   K-major B of 32 rows × 64 k as they lie, 4 KB a tap, 110,592 bytes for
+//   the 27, 128-byte swizzled; the block's threads copy them once at the
+//   start. Tap t, k16 step kk: the descriptor at 4096·t + 32·kk.
+// - X streams by TMA in MN-major boxes of 64 k × 64 columns (V4's map); a
+//   ring stage holds one work item of BN = 64·MT columns.
+// - A from registers: a consumer loads each m64 tile's Xᵀ once an item with
+//   ldmatrix.trans from the swizzled box (X lies [k][n], A is wanted [n][k]),
+//   16 registers a thread a tile, frees the stage at once (one arrival a
+//   warp, after fence.proxy.async: without it TMA's refill of the stage
+//   overtook the ldmatrix reads) and then issues its 27 × 4 × MT products,
+//   each reading only B's 1 KB from shared memory. From shared memory
+//   (wgmma's transposed-A bit) A would add 2 KB a product: 1.39-1.41× slower
+//   on the card.
+// - Two consumer warpgroups take alternate work items of the block, each
+//   from SPC ring stages of its own; as the stage is free once in registers,
+//   one stage a consumer keeps the next item's load under the current
+//   products. The producer warpgroup (one thread issues the loads) gives
+//   registers to the consumers (setmaxnreg).
+// - Epilogue from registers: out[c][n] at row c = 8·(q / 4) + 2·(lane % 4) +
+//   q % 2 and column n = 16·warp + lane / 4 + 8·(q % 4 / 2) of the tile: the
+//   8 lanes of one lane % 4 write 8 neighbouring columns of one row, whole
+//   32-byte sectors, masked past N (TMA zero-fills the ragged last item).
+//   Through TMA store boxes it read 3% slower at N = 131,072.
+//
+// What bounds it: the products, 2·32·1728·N a pass, 0.938 ms over R = 64 at
+// N = 131,072 and 989 TFLOP/s; X and the output, 33.6 MB a pass, stay in the
+// 50 MiB L2. An m64n32k16 is 16 tensor cycles of an SM; from shared memory
+// it would read A's 2 KB and B's 1 KB, ~24 cycles at 128 bytes a cycle, so
+// A comes from registers. Deterministic: every output element is one fixed
+// chain of fp32 products.
+constexpr int kPerTapTaps = 27;
+constexpr int kPerTapWBytes = kGroup * 128;  // a tap's B: 32 rows × 64 k
+
+// MT m64 tiles (64 columns each) a work item, CONS consumer warpgroups, SPC
+// ring stages (items) a consumer: 177,184 bytes of shared memory. 256 columns
+// an item read 1.5-2% faster at N = 131,072 than 64 or 128 (with three
+// stages a consumer), the same in L2.
+struct WgV3p {
+  static constexpr int MT = 4, CONS = 2, SPC = 1;
+  static constexpr int BN = MT * 64;                             // columns of a work item
+  static constexpr int WBytes = kPerTapTaps * kPerTapWBytes;     // resident W27: 110,592
+  static constexpr int StageBytes = BN * 128;                    // an item of X: MT boxes [64 k][64 n]
+  static constexpr int Threads = (CONS + 1) * 128;
+  // alignment slack, resident W, ring, barriers
+  static constexpr int Smem = 1024 + WBytes + CONS * SPC * StageBytes + 2 * CONS * SPC * 8;
+  static_assert((CONS * kTapConsumerRegs + kTapProducerRegs) * 128 <= 65536,
+                "the SM's registers for the warpgroups' budgets");
+  static_assert(Smem <= kWgSmemMax, "the card's shared memory");
+};
+
+__global__ void __launch_bounds__(WgV3p::Threads, 1)
+    probe_pertap_wgmma(const __grid_constant__ CUtensorMap map_x, const bf16* __restrict__ w,
+                       float* __restrict__ dst, int N, int repeats) {
+  using Cfg = WgV3p;
+  constexpr int CONS = Cfg::CONS, MT = Cfg::MT, SPC = Cfg::SPC, BN = Cfg::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  unsigned char* wres = smem;                                  // tap t at 4096·t
+  unsigned char* ring = wres + Cfg::WBytes;                    // consumer c's stages c·SPC …
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + CONS * SPC * Cfg::StageBytes);
+  uint64_t* empty = full + CONS * SPC;
+
+  const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
+  const long long per_pass = (N + BN - 1) / BN;
+  const long long items = per_pass * repeats;
+
+  if (tid == 0) {
+    for (int s = 0; s < CONS * SPC; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival a warp of the consumer
+    }
+    mbar_fence_init();
+  }
+  // W27 into the resident B: row r (tap r / 32, output row r % 32), 16-byte
+  // chunk k8 of its 64 k, at sw128_offset(r, k8)
+  for (int c = tid; c < kPerTapTaps * kGroup * 8; c += Cfg::Threads) {
+    const int r = c / 8, k8 = c % 8;
+    *reinterpret_cast<uint4*>(wres + sw128_offset(r, k8)) =
+        *reinterpret_cast<const uint4*>(w + (long long)r * kWgBK + k8 * 8);
+  }
+  fence_proxy_async_shared();  // the products read it through the async proxy
+  __syncthreads();
+
+  if (wg == CONS) {  // the producer: block item li goes to consumer li % CONS
+    setmaxnreg_dec<kTapProducerRegs>();
+    if (lt == 0) {
+      long long li = 0;
+      for (long long it = blockIdx.x; it < items; it += gridDim.x, ++li) {
+        const int n0 = int(it % per_pass) * BN;
+        const long long use = li / CONS;  // the consumer's own item count
+        const int s = int(li % CONS) * SPC + int(use % SPC);
+        mbar_wait(&empty[s], uint32_t(use / SPC & 1) ^ 1);  // its consumer freed it (free at first)
+        unsigned char* st = ring + s * Cfg::StageBytes;
+        mbar_arrive_expect_tx(&full[s], Cfg::StageBytes);
+#pragma unroll
+        for (int b = 0; b < MT; ++b)
+          tma_load_2d(st + b * kWgTile, &map_x, &full[s], n0 + b * kWgBox, 0);
+      }
+    }
+  } else {  // a consumer: block items wg, wg + CONS, …
+    setmaxnreg_inc<kTapConsumerRegs>();
+    float acc[MT][16];
+    uint32_t a[MT][4][4];  // tile i, k16 step kk
+    const int warp = lt / 32, lane = lt % 32;
+    const uint32_t w0 = smem_u32(wres);
+    long long use = 0;  // the consumer's own item count
+    for (long long it = blockIdx.x + (long long)wg * gridDim.x; it < items;
+         it += (long long)CONS * gridDim.x, ++use) {
+      const int n0 = int(it % per_pass) * BN;
+      const int s = wg * SPC + int(use % SPC);
+      mbar_wait(&full[s], uint32_t(use / SPC & 1));
+      const unsigned char* st = ring + s * Cfg::StageBytes;
+      // matrix j = lane / 8 of an ldmatrix.x4.trans: k rows 16·kk + 8·(j / 2)
+      // + lane % 8, the 8 columns 16·warp + 8·(j % 2) … of the tile (16-byte
+      // chunk 2·warp + j % 2): a[i][kk][j] is the A fragment's register j
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldsm_x4_t(a[i][kk], reinterpret_cast<const bf16*>(
+                                  st + i * kWgTile +
+                                  sw128_offset(16 * kk + 8 * (lane / 16) + lane % 8,
+                                               2 * warp + lane / 8 % 2)));
+      // the reads (generic proxy) done before TMA (async proxy) refills the stage
+      fence_proxy_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // the warp's part is in registers
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_fence_regs(a[i][kk]);
+        wgmma_fence_acc(acc[i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < kPerTapTaps; ++t)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = wgmma_desc(w0 + t * kPerTapWBytes + kk * 32, kWgLboA, kWgSbo);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) wgmma_m64n32k16_rs(acc[i], a[i][kk], db, t > 0 || kk > 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();  // the item's products are done
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_fence_regs(a[i][kk]);
+        wgmma_fence_acc(acc[i]);
+      }
+
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // accumulator q: output row 8·(q / 4) + 2·(lane % 4) + q % 2, column
+        // n0 + 64·i + 16·warp + lane / 4 + 8·(q % 4 / 2)
+        const int col = n0 + 64 * i + 16 * warp + lane / 4;
+        float* o = dst + (long long)(2 * (lane % 4)) * N + col;
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          if (col + 8 * (q % 4 / 2) < N)
+            o[(long long)(8 * (q / 4) + q % 2) * N + 8 * (q % 4 / 2)] = acc[i][q];
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launches ---
 
 // A persistent launch: as many blocks as fit on the SMs, at most `items`.
@@ -1032,6 +1217,22 @@ cudaError_t tapsum_wgmma(const void* w, const void* x, void* out, int n, int rep
                 static_cast<const bf16*>(w), static_cast<float*>(out), n, repeats);
 }
 
+// probe_pertap_wgmma on w27 (864 × 64) and x (64 × n): X's tensor map needs a
+// 16-byte row pitch (n a multiple of 8) and 16-byte aligned bases.
+cudaError_t pertap_wgmma(const void* w27, const void* x, void* out, int n, int repeats,
+                         cudaStream_t stream) {
+  using Cfg = WgV3p;
+  if (n < 1 || n % 8 != 0 || reinterpret_cast<uintptr_t>(w27) % 16 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap mx;
+  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, kWgBK, n, kWgBK, kWgBox))
+    return cudaErrorInvalidValue;
+  const long long items = (long long)((n + Cfg::BN - 1) / Cfg::BN) * repeats;
+  return launch(probe_pertap_wgmma, Cfg::Threads, Cfg::Smem, items, stream, mx,
+                static_cast<const bf16*>(w27), static_cast<float*>(out), n, repeats);
+}
+
 // The instances of hvc_probe_v1 (make_v1: out (m, n) = w (m, k) · p (k, n)).
 enum V1Instance {
   kV1MmaNarrow = 0,  // mma.sync, 32 × 128 tiles (V1's before wgmma)
@@ -1109,6 +1310,26 @@ cudaError_t run_v3(int instance, const void* w27, const void* p, void* out, int 
     case kV3Mma:
       return gemm_any<32, 128, 1, 4, true>(w27, p, out, kGroup, n, 27 * kBK, repeats, aligned, s);
     case kV3Wgmma: return gemm_wgmma<WgV3>(w27, p, out, kGroup, n, 27 * kWgBK, repeats, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The instances of hvc_probe_v3p (v3p: out (32, n) = Σ_t w27[32t:32t+32] · x).
+enum V3pInstance {
+  kV3pMma = 0,    // probe_tapsum, 32 × 256 tiles, 8 warps along N (V3' before wgmma)
+  kV3pWgmma = 1,  // WgV3p: 27 per-tap dots, Cout as N, X as A in registers, 256 columns
+};
+
+// The rule of hvc_probe_v3p, an instance code: with a 16-byte row pitch of X
+// for its tensor map (n a multiple of 8) WgV3p, otherwise probe_tapsum on
+// mma.sync.
+int v3p_instance(int n) { return n % 8 == 0 ? kV3pWgmma : kV3pMma; }
+
+cudaError_t run_v3p(int instance, const void* w27, const void* x, void* out, int n, int repeats,
+                    int aligned, cudaStream_t s) {
+  switch (instance) {
+    case kV3pMma: return tapsum<64, 27, 1, 27, 1, 8, 32>(w27, x, out, n, repeats, aligned, s);
+    case kV3pWgmma: return pertap_wgmma(w27, x, out, n, repeats, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1247,11 +1468,23 @@ int hvc_probe_v3_instance(const void* w27, const void* p, void* out, int n, int 
   return run_v3(instance, w27, p, out, n, repeats, aligned, static_cast<cudaStream_t>(stream));
 }
 
-// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · x (64, n)
+// out (32, n) = Σ_{t<27} w27[32t:32t+32] (32, 64) · x (64, n); on the
+// instance hvc_probe_v3p_rule names.
 int hvc_probe_v3p(const void* w27, const void* x, void* out, int n, int repeats, int aligned,
                   void* stream) {
-  return tapsum<64, 27, 1, 27, 1, 8, 32>(w27, x, out, n, repeats, aligned,
-                                         static_cast<cudaStream_t>(stream));
+  return run_v3p(v3p_instance(n), w27, x, out, n, repeats, aligned,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The instance code hvc_probe_v3p runs a call of n columns on (V3pInstance: 0
+// mma.sync, 1 WgV3p), the rule the wrapper counts its launches by.
+int hvc_probe_v3p_rule(int n) { return v3p_instance(n); }
+
+// hvc_probe_v3p on a named instance (V3pInstance), for comparing them
+// (scripts/probe_variants.py); a wgmma instance needs n a multiple of 8.
+int hvc_probe_v3p_instance(const void* w27, const void* x, void* out, int n, int repeats,
+                           int aligned, int instance, void* stream) {
+  return run_v3p(instance, w27, x, out, n, repeats, aligned, static_cast<cudaStream_t>(stream));
 }
 
 // out (32, n) = Σ_{t<14} w14[32t:32t+32] (32, 128) · x2 (128, n); on the

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks for warpgroup matrix products fed by the
-// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0-V6
-// and V8 probes in conv_probe.cu, all but V3'): the 128-byte swizzle address, the
+// Tensor Memory Accelerator, shared by the port's wgmma kernels (the V0-V8
+// probes in conv_probe.cu): the 128-byte swizzle address, the
 // wgmma shared-memory matrix descriptor, mbarriers, register rebalancing
 // between warpgroups, TMA tile loads and
 // stores, wgmma's fence, commit and wait, and the m64n128k16 and m64n32k16
-// bf16 → fp32 products. The tensor maps
+// bf16 → fp32 products (A from shared memory, or at n32 from registers). The tensor maps
 // themselves are built on the host with libcuda's cuTensorMapEncodeTiled,
 // which cudaGetDriverEntryPoint reaches without linking libcuda (cuda.h is
 // included for its types only).
@@ -158,6 +158,13 @@ __device__ __forceinline__ void wgmma_fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// The same for A fragments held in registers: they stay live, and unchanged,
+// until the products that read them are done.
+template <int R>
+__device__ __forceinline__ void wgmma_fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
 
 // d (64 × 128 fp32, 64 a thread of the warpgroup) = A (64 × 16) · B (16 ×
 // 128) + (scale_d ? d : 0), both bf16 in shared memory by descriptor. A is
@@ -206,6 +213,26 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same with A from registers (B K-major by descriptor): thread t of the
+// warpgroup holds, in a[r] (two bf16, the lower k in the low half), row
+// 16·(t / 32) + (t % 32) / 4 + 8·(r % 2) and k 2·(t % 4) + 8·(r / 2) + {0, 1}
+// of A (64 × 16): the m16n8k16 A fragment of mma.sync, one warp a 16-row
+// slice.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace

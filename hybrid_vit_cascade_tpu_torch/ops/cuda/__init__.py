@@ -41,9 +41,11 @@ def launch_counts() -> Dict[str, int]:
     stem, whichever instance),
     and conv_probe_{v1,v2,v3,v3p,v5,v6,v4,v8} (N), conv_probe_v1_wgmma and
     conv_probe_v1_wgmma_m32 (those of conv_probe_v1 on V0's and V1's wgmma
-    instances), conv_probe_v2_wgmma, conv_probe_v3_wgmma, conv_probe_v4_wgmma
-    and conv_probe_v6_wgmma (those of conv_probe_v2, conv_probe_v3,
-    conv_probe_v4 and conv_probe_v6 on their wgmma instances)."""
+    instances), conv_probe_v2_wgmma, conv_probe_v3_wgmma, conv_probe_v3p_wgmma,
+    conv_probe_v4_wgmma, conv_probe_v6_wgmma, conv_probe_v5_wgmma and
+    conv_probe_v8_wgmma (those of conv_probe_v2, conv_probe_v3, conv_probe_v3p,
+    conv_probe_v4, conv_probe_v6, conv_probe_v5 and conv_probe_v8 on their
+    wgmma instances)."""
     from . import conv3d_k3 as ck
     from . import conv_probe as cp
     from . import flash_attention as fa

@@ -21,11 +21,11 @@ wgmma instance also adds one to that instance's counter: ``probe_v1`` on
 V0's (``probe_v1_instance`` = ``V1_WGMMA_V0``) to ``conv_probe_v1_wgmma``, on
 V1's (``V1_WGMMA_M32``) to ``conv_probe_v1_wgmma_m32``, every ``probe_v2``
 launch (``probe_v2_instance`` = ``V2_WGMMA``) to ``conv_probe_v2_wgmma``,
-and ``probe_v3``, ``probe_v4``, ``probe_v6``, ``probe_v5`` and ``probe_v8``
-on their wgmma instances (``probe_v3_instance`` = ``V3_WGMMA``,
-``probe_v4_instance`` = ``V4_WGMMA``, and so on) to ``conv_probe_v3_wgmma``,
-``conv_probe_v4_wgmma``, ``conv_probe_v6_wgmma``, ``conv_probe_v5_wgmma``
-and ``conv_probe_v8_wgmma``.
+and ``probe_v3``, ``probe_v3p``, ``probe_v4``, ``probe_v6``, ``probe_v5`` and
+``probe_v8`` on their wgmma instances (``probe_v3_instance`` = ``V3_WGMMA``,
+``probe_v3p_instance`` = ``V3P_WGMMA``, and so on) to
+``conv_probe_v3_wgmma``, ``conv_probe_v3p_wgmma``, ``conv_probe_v4_wgmma``,
+``conv_probe_v6_wgmma``, ``conv_probe_v5_wgmma`` and ``conv_probe_v8_wgmma``.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ _V1_RULE_ARGTYPES = (_I, _I, _I)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # hvc_probe_v2_rule(k, n): the instance code hvc_probe_v2 takes (-1: none)
 _V2_RULE_ARGTYPES = (_I, _I)
-# hvc_probe_{v3,v4,v6,v5,v8}_rule(n): the instance code hvc_probe_{v3,v4,v6,v5,v8} takes
+# hvc_probe_{v3,v3p,v4,v6,v5,v8}_rule(n): the instance code hvc_probe_{v3,...} takes
 _TAP_RULE_ARGTYPES = (_I,)
 # hvc_probe_{v3,v3p,v5,v6,v4,v8}(w, x, out, n, repeats, aligned, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
@@ -58,19 +58,22 @@ _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)
 # Kernel launches per wrapper since the last reset (ops.cuda.launch_counts).
 LAUNCHES = {**{f"conv_probe_{v}": 0 for v in ("v1", "v2", "v3", "v3p", "v5", "v6", "v4", "v8")},
             "conv_probe_v1_wgmma": 0, "conv_probe_v1_wgmma_m32": 0, "conv_probe_v2_wgmma": 0,
-            "conv_probe_v3_wgmma": 0, "conv_probe_v4_wgmma": 0, "conv_probe_v6_wgmma": 0,
-            "conv_probe_v5_wgmma": 0, "conv_probe_v8_wgmma": 0}
+            "conv_probe_v3_wgmma": 0, "conv_probe_v3p_wgmma": 0, "conv_probe_v4_wgmma": 0,
+            "conv_probe_v6_wgmma": 0, "conv_probe_v5_wgmma": 0, "conv_probe_v8_wgmma": 0}
 # The instance codes of hvc_probe_v1, hvc_probe_v2, hvc_probe_v3,
-# hvc_probe_v4, hvc_probe_v6, hvc_probe_v5 and hvc_probe_v8 (V1Instance …
-# V8Instance in csrc/conv_probe.cu): V1 on the 32 × 128 or the 128 × 128
-# mma.sync tiles, V0's wgmma instance (WgV0), V1's (WgV1); V2 on its wgmma
-# instance with wt resident (WgV2); V3 on the 32 × 128 mma.sync tiles or on
-# its wgmma instance (WgV3); V4, V6, V5 and V8 on probe_tapsum (mma.sync) or
-# on their wgmma instances with the weights resident as A (WgV4, which V6
-# shares, WgV5, WgV8).
+# hvc_probe_v3p, hvc_probe_v4, hvc_probe_v6, hvc_probe_v5 and hvc_probe_v8
+# (V1Instance … V8Instance in csrc/conv_probe.cu): V1 on the 32 × 128 or the
+# 128 × 128 mma.sync tiles, V0's wgmma instance (WgV0), V1's (WgV1); V2 on
+# its wgmma instance with wt resident (WgV2); V3 on the 32 × 128 mma.sync
+# tiles or on its wgmma instance (WgV3); V3' on probe_tapsum (mma.sync) or
+# on its per-tap wgmma instance (WgV3p: X as A in registers, w27 resident as
+# B); V4, V6, V5 and V8 on probe_tapsum (mma.sync) or on their wgmma
+# instances with the weights resident as A (WgV4, which V6 shares, WgV5,
+# WgV8).
 V1_MMA_NARROW, V1_MMA_WIDE, V1_WGMMA_V0, V1_WGMMA_M32 = 0, 1, 2, 3
 V2_WGMMA = 1
 V3_MMA, V3_WGMMA = 0, 1
+V3P_MMA, V3P_WGMMA = 0, 1
 V4_MMA, V4_WGMMA = 0, 1
 V6_MMA, V6_WGMMA = 0, 1
 V5_MMA, V5_WGMMA = 0, 1
@@ -79,6 +82,7 @@ _INSTANCE_COUNTERS = {("v1", V1_WGMMA_V0): "conv_probe_v1_wgmma",
                       ("v1", V1_WGMMA_M32): "conv_probe_v1_wgmma_m32",
                       ("v2", V2_WGMMA): "conv_probe_v2_wgmma",
                       ("v3", V3_WGMMA): "conv_probe_v3_wgmma",
+                      ("v3p", V3P_WGMMA): "conv_probe_v3p_wgmma",
                       ("v4", V4_WGMMA): "conv_probe_v4_wgmma",
                       ("v6", V6_WGMMA): "conv_probe_v6_wgmma",
                       ("v5", V5_WGMMA): "conv_probe_v5_wgmma",
@@ -309,6 +313,17 @@ def probe_v3_instance(n: int) -> int:
     return V3_WGMMA if n % WGMMA_N_ALIGN == 0 else V3_MMA
 
 
+def probe_v3p_instance(n: int) -> int:
+    """The instance ``probe_v3p`` takes, the rule of ``v3p_instance``
+    (csrc/conv_probe.cu), read through ``hvc_probe_v3p_rule``: with N a
+    multiple of 8 (16-byte rows of x for its tensor map) ``V3P_WGMMA``
+    (``probe_pertap_wgmma``, ``WgV3p``: 27 per-tap dots chained into one
+    accumulator, 64 columns of x as wgmma's M in registers, Cout = 32 as its
+    N, w27 resident as B, 256 columns a work item), otherwise
+    ``probe_tapsum`` on mma.sync (``V3P_MMA``)."""
+    return V3P_WGMMA if n % WGMMA_N_ALIGN == 0 else V3P_MMA
+
+
 def probe_v4_instance(n: int) -> int:
     """The instance ``probe_v4`` takes, the rule of ``v4_instance``
     (csrc/conv_probe.cu), read through ``hvc_probe_v4_rule``: with N a
@@ -374,8 +389,10 @@ def probe_v3(w27: torch.Tensor, p: torch.Tensor, repeats: int) -> torch.Tensor:
 
 def probe_v3p(w27: torch.Tensor, x: torch.Tensor, repeats: int) -> torch.Tensor:
     """``v3p`` (V3'): out (32, N) = Σ_{t<27} w27[32t:32t+32] · x; w27
-    (864, 64), x (64, N) shared by every tap."""
-    return _tap_probe("v3p", probe_v3p_plain, w27, x, (TAPS * COUT, CIN), CIN, repeats)
+    (864, 64), x (64, N) shared by every tap; on the instance
+    ``probe_v3p_instance`` names."""
+    return _tap_probe("v3p", probe_v3p_plain, w27, x, (TAPS * COUT, CIN), CIN, repeats,
+                      rule="hvc_probe_v3p_rule")
 
 
 def probe_v5(w14: torch.Tensor, x2: torch.Tensor, repeats: int) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""The V0-V6 and V8 conv probes on each of their instances, beside cuBLAS.
+"""The V0-V8 conv probes on each of their instances, beside cuBLAS.
 
-    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3 V4 V6 V5 V8]
+    python -m hybrid_vit_cascade_tpu_torch.scripts.probe_variants [V0 V1 V2 V3 V3' V4 V6 V5 V8]
         [--sizes N ...] [--out FILE]
 
 Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
 ``hvc_probe_v1_instance``, ``hvc_probe_v2_instance``,
-``hvc_probe_v3_instance``, ``hvc_probe_v4_instance``,
-``hvc_probe_v6_instance``, ``hvc_probe_v5_instance`` and
-``hvc_probe_v8_instance`` in ``csrc/conv_probe.cu``):
+``hvc_probe_v3_instance``, ``hvc_probe_v3p_instance``,
+``hvc_probe_v4_instance``, ``hvc_probe_v6_instance``,
+``hvc_probe_v5_instance`` and ``hvc_probe_v8_instance`` in
+``csrc/conv_probe.cu``):
 
 - V0, ``make_v1`` at m = 256: out (256, N) = W (256, 1728) · P (1728, N) on
   (a) the 128 × 128 mma.sync instance as it walks, every N tile of M tile 0
@@ -27,6 +28,13 @@ Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
   the 32 × 128 mma.sync instance it took before wgmma and still takes at a
   ragged N; (b) the wgmma instance it takes (WgV3: V1's, with K chunk t's A
   box the 64 rows of W27 from row 32t);
+- V3', ``v3p``: out (32, N) = Σ_{t<27} W27[32t:32t+32] · X (64, N) on (a)
+  ``probe_tapsum``, the mma.sync instance it took before wgmma and still
+  takes at a ragged N (32 × 256 tiles, 8 warps along N); (b) the wgmma
+  instance it takes (WgV3p: 27 per-tap m64n32k16 dots into one
+  accumulator, 64 columns of X as M loaded into registers by
+  ldmatrix.trans, Cout as N, W27 resident as B, 256 columns a work item,
+  one stage a consumer, stored from registers);
 - V4, ``v4``: out (32, N) = the 27 row groups of W27 (864, 64) · X (64, N)
   summed, on (a) ``probe_tapsum``, the mma.sync instance it took before
   wgmma and still takes at a ragged N (32 × 32 tiles, 9 × 2 warps, the
@@ -47,15 +55,14 @@ Times, in turns, over R = 64 passes (bf16 in, fp32 out; the instances of
   three k64 chunks a tap, three stages a consumer, stored from registers);
 
 each beside one cuBLAS call over the same operands (``torch.mm``, R calls,
-fp32 out; V3's W27 laid out as V1's 32 × 1728 W; V4's and V6's product
-without the tap sum, (864 × 64)·(64 × N); V5's (448 × 128)·(128 × N), V8's
-(288 × 192)·(192 × N)) as the yardstick, at N = 131,072 (P, 453 MB, streams
-from device memory every pass; V4's and V6's X, 16.8 MB, and V5's X2, 33.6
-MB, stay in L2; V8's X3, 50.3 MB, and its output do not) and at N = 8,192
-(P, 28 MB, stays in the 50 MB L2: the rate at which the instance stages and
-multiplies it), or at the N of
-``--sizes`` (a larger N leaves a smaller share of P in the L2 from one pass
-to the next). Each instance is first
+fp32 out; V3's W27 laid out as V1's 32 × 1728 W; the product of V3', V4
+and V6 without the tap sum, (864 × 64)·(64 × N); V5's (448 × 128)·(128 ×
+N), V8's (288 × 192)·(192 × N)) as the yardstick, at N = 131,072 (P, 453
+MB, streams from device memory every pass; the X of V3', V4 and V6, 16.8
+MB, and V5's X2, 33.6 MB, stay in L2; V8's X3, 50.3 MB, and its output do
+not) and at N = 8,192 (P, 28 MB, stays in the 50 MB L2: the rate at which
+the instance stages and multiplies it), or at the N of ``--sizes`` (a
+larger N leaves a smaller share of P in the L2 from one pass to the next). Each instance is first
 held to the plain product (fp32, one pass) within 1e-4·max|want| +
 1e-4·|want|. Prints the card's name and power limit, one line per (case, N,
 variant) with the median of 5 CUDA-event times, its TFLOP/s (the probes'
@@ -89,7 +96,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _V1_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # hvc_probe_v2_instance(pt, w, out, k, n, repeats, instance, stream)
 _V2_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
-# hvc_probe_{v3,v4,v6,v5,v8}_instance(w, x, out, n, repeats, aligned, instance, stream)
+# hvc_probe_{v3,v3p,v4,v6,v5,v8}_instance(w, x, out, n, repeats, aligned, instance, stream)
 _TAP_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _P)
 # (case, m of the product, {instance code: name})
 CASES = {
@@ -103,6 +110,8 @@ CASES = {
                 2: "(c) wgmma 256 x 32, W chunks streamed"}),
     "V3": (32, {0: "(a) mma.sync 32 x 128",
                 1: "(b) wgmma m64 (32 rows) x 256, W27 tap-major"}),
+    "V3'": (32, {0: "(a) mma.sync 32 x 256, 8 warps along N",
+                 1: "(b) wgmma m64n32, A in registers, 256 columns"}),
     "V4": (32, {0: "(a) mma.sync 32 x 32, 9 x 2 warps",
                 1: "(b) wgmma 32 x 128, W resident, 1 chain"}),
     "V6": (32, {0: "(a) mma.sync 32 x 64, 4 x 2 warps",
@@ -141,7 +150,7 @@ def _calls(case: str, m: int, n: int, dev, gen, stream) -> tuple[dict, dict, tor
                          f"probe_variants V2 {names[v]}")
 
         lib = lambda: [torch.mm(pt, wt, out_dtype=torch.float32) for _ in range(R)]  # noqa: E731
-    elif case in ("V3", "V4", "V6", "V5", "V8"):
+    elif case in ("V3", "V3'", "V4", "V6", "V5", "V8"):
         c = bench.BY_KEY[case]
         w27 = torch.randn(c.w_shape, generator=gen, device=dev, dtype=torch.bfloat16)
         p = torch.randn((c.x_rows, n), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -149,7 +158,8 @@ def _calls(case: str, m: int, n: int, dev, gen, stream) -> tuple[dict, dict, tor
         if case == "V3":  # V1's 32 × 1728 W
             w = w27.view(cp.TAPS, m, cp.CIN).permute(1, 0, 2).reshape(m, K)
         want = c.plain(w27, p, 1)
-        fn = _build.function(f"hvc_probe_{case.lower()}_instance", _TAP_ARGTYPES)
+        variant = case.lower().replace("'", "p")  # V3' → v3p
+        fn = _build.function(f"hvc_probe_{variant}_instance", _TAP_ARGTYPES)
         out_shape = (m, n)
 
         def run(v, out):

@@ -210,6 +210,24 @@ def _tap_instance(key: str) -> str:
 WG_TAP = {key: _tap_cfg(_tap_instance(key)) for key in ("V4", "V6", "V5", "V8")}
 
 
+def _pertap_cfg() -> dict:
+    """WgV3p, the configuration of probe_pertap_wgmma (V3'), its derived
+    sizes computed as the struct computes them (BM: the 32 output rows; BN:
+    MT m64 tiles of 64 columns a work item)."""
+    mt, cons, spc = map(int, re.search(
+        r"^struct WgV3p \{\n  static constexpr int MT = (\d+), CONS = (\d+), SPC = (\d+);",
+        PROBE_SRC, re.M).groups())
+    bn = 64 * mt
+    wbytes = 27 * cp.COUT * 128
+    smem = 1024 + wbytes + cons * spc * bn * 128 + 2 * cons * spc * 8
+    return {"TAP": True, "PERTAP": True, "MT": mt, "CONS": cons, "SPC": spc,
+            "OUTB": 0, "STAGES": cons * spc, "BM": cp.COUT, "BN": bn, "WBytes": wbytes,
+            "StageBytes": bn * 128, "smem": smem}
+
+
+WG_PERTAP = {"V3'": _pertap_cfg()}
+
+
 def test_wgmma_configs_are_the_source():
     """The struct's derived sizes as the tests compute them, and the shapes
     each probe's orientation asks for: V0 256 × 128 items of two warpgroups
@@ -405,7 +423,8 @@ def _tap_ring(cfg: dict, uses: int) -> list:
     ("V4", 32, 2120, 2, 5), ("V4", 32, 8, 3, 132), ("V6", 32, 131072, 64, 132),
     ("V6", 32, 8192, 3, 7), ("V6", 32, 2120, 2, 5), ("V5", 32, 131072, 64, 132),
     ("V5", 32, 2120, 2, 5), ("V5", 32, 8, 3, 132), ("V8", 32, 131072, 64, 132),
-    ("V8", 32, 8192, 3, 7), ("V8", 32, 2120, 2, 5)])
+    ("V8", 32, 8192, 3, 7), ("V8", 32, 2120, 2, 5), ("V3'", 32, 131072, 64, 132),
+    ("V3'", 32, 8200, 3, 132), ("V3'", 32, 2120, 2, 5), ("V3'", 32, 8, 1, 132)])
 def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     """Every (pass, m tile, n tile) is one work item of one block, a work item
     holds all the rows of its N tile where m ≤ BM (V0, V1, V3 and the tap
@@ -414,8 +433,8 @@ def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     rewrites the whole output. The tap sums' (V4, V6, V5, V8) two consumers
     take alternate items of the block, each from ring stages of its own, a
     stage one k64 chunk of an item, so a stage's phases follow its one
-    consumer's chunks in order."""
-    cfg = {**WG, **WG_TAP}[key]
+    consumer's chunks in order; V3' likewise, a stage one whole item."""
+    cfg = {**WG, **WG_TAP, **WG_PERTAP}[key]
     bm, bn = cfg["BM"], cfg["BN"]
     assert _wg_const("kWgBK") == 64
     items = _walk(cfg, m, n, repeats, grid)
@@ -432,7 +451,8 @@ def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
     for passes in by_block.values():
         assert passes == sorted(passes)
     if cfg.get("TAP"):
-        ring = _tap_ring(cfg, max(len(passes) for passes in by_block.values()))
+        uses = max(len(passes) for passes in by_block.values())
+        ring = _pertap_ring(cfg, uses) if cfg.get("PERTAP") else _tap_ring(cfg, uses)
         for stage in range(cfg["STAGES"]):
             seq = [(c, ph) for c, st, ph in ring if st == stage]
             assert {c for c, _ in seq} <= {stage // cfg["SPC"]}  # one consumer's stage
@@ -440,7 +460,7 @@ def test_wgmma_walk_covers_every_pass_and_tile_once(key, m, n, repeats, grid):
         for c in range(cfg["CONS"]):  # a consumer's stages in rotation
             stages = [st for cc, st, _ in ring if cc == c]
             assert stages == [c * cfg["SPC"] + k % cfg["SPC"] for k in range(len(stages))]
-        assert _tap_pipeline_drains(cfg, ring)
+        assert (_pertap_pipeline_drains if cfg.get("PERTAP") else _tap_pipeline_drains)(cfg, ring)
 
 
 def _tap_pipeline_drains(cfg: dict, ring: list) -> bool:
@@ -490,7 +510,7 @@ def _sw128(row: int, chunk: int) -> int:
     return row * 128 + ((chunk ^ (row & 7)) << 4)
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s", "V4", "V6", "V5", "V8"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V2s", "V4", "V6", "V5", "V8", "V3'"])
 def test_sw128_is_the_source_and_a_bijection(key):
     """The mirror states the C function, and on one ring stage (A: the item's
     rows of 128 bytes; B: 64-row MN-major boxes or the item's 32 K-major
@@ -498,12 +518,15 @@ def test_sw128_is_the_source_and_a_bijection(key):
     every (row, chunk) lands on its own 16-byte slot of its row, the 8 rows of
     a chunk column in 8 different bank groups; for the tap sums (V4, V6, V5,
     V8) on one resident box of W (64 rows × 64 k), one 64-row box of X and
-    (V4, V6) one 32-row store box."""
+    (V4, V6) one 32-row store box; for V3' on a tap's resident B (32 rows ×
+    64 k) and one 64-row box of X."""
     assert "  return row * 128u + ((chunk ^ (row & 7u)) << 4);" in WGMMA_SRC
-    cfg = {**WG, **WG_TAP}[key]
+    cfg = {**WG, **WG_TAP, **WG_PERTAP}[key]
     if cfg.get("TAP"):
         assert cfg["StageBytes"] == cfg["BN"] // 64 * 64 * 128 and cfg["StageBytes"] % 1024 == 0
         row_sets = (64, 64, cp.COUT) if cfg["OUTB"] else (64, 64)
+        if cfg.get("PERTAP"):
+            row_sets = (cp.COUT, 64)
     else:
         row_sets = (cfg["BM"], 64 if cfg["BMODE"] == 0 else cfg["BN"], 64)
     for rows in row_sets:
@@ -704,7 +727,7 @@ def _tap_direct_epilogue(cfg: dict) -> None:
         assert all(len(v) == 8 for v in sectors.values()) and len(sectors) == 8
 
 
-@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V4", "V6", "V5", "V8"])
+@pytest.mark.parametrize("key", ["V0", "V1", "V3", "V2", "V4", "V6", "V5", "V8", "V3'"])
 def test_wgmma_epilogue_fills_each_store_box_once(key):
     """A consumer warpgroup's float2 writes of one epilogue round (rows 16·warp
     + lane / 4 + 8·(jj % 4 / 2), columns 8·(jj / 4) + 2·(lane % 4) of a 64 × 32
@@ -714,7 +737,10 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     bytes), and the rounds of a consumer store each 64 × 32 box of its tiles
     once (V1's rows 32-63 fall outside the output and are clipped by the
     store). The tap sums' epilogue stores the folded 32 rows a round
-    (``_tap_epilogue``; V5 and V8 from registers, no box)."""
+    (``_tap_epilogue``; V5 and V8 from registers, no box); V3' stores its
+    m64n32 accumulators from registers (``_pertap_epilogue``)."""
+    if key in WG_PERTAP:
+        return _pertap_epilogue(WG_PERTAP[key])
     if key in WG_TAP:
         return _tap_epilogue(WG_TAP[key])
     cols = _wg_const("kWgOutBox")
@@ -756,12 +782,13 @@ def test_wgmma_epilogue_fills_each_store_box_once(key):
     ("V6", 131072, "conv_probe_v6_wgmma"), ("V6", 2120, "conv_probe_v6_wgmma"), ("V6", 77, None),
     ("V5", 131072, "conv_probe_v5_wgmma"), ("V5", 2120, "conv_probe_v5_wgmma"), ("V5", 77, None),
     ("V8", 131072, "conv_probe_v8_wgmma"), ("V8", 2120, "conv_probe_v8_wgmma"), ("V8", 77, None),
-    ("V3'", 131072, None)])
+    ("V3'", 131072, "conv_probe_v3p_wgmma"), ("V3'", 2120, "conv_probe_v3p_wgmma"),
+    ("V3'", 77, None)])
 def test_chip_smoke_probe_instances(key, n, want):
-    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 / V4 / V6 / V5 / V8
-    call to the wgmma counter of the instance the wrapper's rule names at
-    that N (V1, V3, V4, V6, V5 and V8 at 77 on mma.sync; V3' has no wgmma
-    instance), and every counter it reads exists in ``LAUNCHES``."""
+    """chip_smoke.py [12] holds each V1 / V0 / V2 / V3 / V3' / V4 / V6 / V5 /
+    V8 call to the wgmma counter of the instance the wrapper's rule names at
+    that N (all but V0 and V2 at 77 on mma.sync), and every counter it reads
+    exists in ``LAUNCHES``."""
     import chip_smoke
 
     assert chip_smoke._probe_instance_counter(key, n) == want
@@ -1000,3 +1027,269 @@ def test_v4_v6_resident_rows_replay(key):
     if odd:
         leaked = _tap_replay(cfg, _resident_boxes(cfg, planted, taps_read=taps + 1)[0], x)
         assert (leaked - want).abs().max() > 1e2 * want.abs().max()
+
+
+# ------------------------------------------ V3' on probe_pertap_wgmma ---
+
+_V3P_RULE = "int v3p_instance(int n) { return n % 8 == 0 ? kV3pWgmma : kV3pMma; }"
+
+
+@pytest.mark.parametrize("n", [131072, 8200, 8192, 8191, 2120, 77, 8, 1])
+def test_v3p_wgmma_rule_is_the_source(n):
+    """``probe_v3p_instance`` states the C rule ``v3p_instance``, which
+    ``hvc_probe_v3p`` dispatches by and ``hvc_probe_v3p_rule`` reports, with
+    the source's instance codes: N a multiple of 8 (16-byte rows of X for
+    its tensor map) takes the per-tap wgmma instance, a ragged N
+    probe_tapsum on mma.sync as before; the wrapper asks the C rule and a
+    wgmma launch counts on ``conv_probe_v3p_wgmma``."""
+    assert _V3P_RULE in PROBE_SRC
+    assert "  return run_v3p(v3p_instance(n), w27, x, out, n, repeats, aligned," in PROBE_SRC
+    assert "int hvc_probe_v3p_rule(int n) { return v3p_instance(n); }" in PROBE_SRC
+    for name, code in (("kV3pMma", cp.V3P_MMA), ("kV3pWgmma", cp.V3P_WGMMA)):
+        assert re.search(rf"^  {name} = {code},", PROBE_SRC, re.M), name
+    assert ("    case kV3pMma: return tapsum<64, 27, 1, 27, 1, 8, 32>(w27, x, out, n, repeats, "
+            "aligned, s);") in PROBE_SRC
+    assert "    case kV3pWgmma: return pertap_wgmma(w27, x, out, n, repeats, s);" in PROBE_SRC
+    assert cp.probe_v3p_instance(n) == (cp.V3P_WGMMA if n % 8 == 0 else cp.V3P_MMA)
+    assert cp._INSTANCE_COUNTERS[("v3p", cp.V3P_WGMMA)] == "conv_probe_v3p_wgmma"
+    assert "conv_probe_v3p_wgmma" in cp.LAUNCHES
+    wrapper = (ROOT / "hybrid_vit_cascade_tpu_torch" / "ops" / "cuda" / "conv_probe.py").read_text()
+    assert 'rule="hvc_probe_v3p_rule")' in wrapper
+
+
+def test_v3p_config_is_the_source():
+    """WgV3p as the struct computes it: 256 columns (four m64 tiles) a work
+    item, two consumers of one ring stage each (free once in registers);
+    W27's 27 taps resident as B, 110,592 bytes, all within the card's
+    232,448 bytes of shared memory; one accumulator of 16 fp32 and 16 A
+    registers a thread a tile, 128 of each kind at four tiles, within the
+    consumers' register budget."""
+    for line in ("  static constexpr int BN = MT * 64;                             // columns of a "
+                 "work item",
+                 "  static constexpr int WBytes = kPerTapTaps * kPerTapWBytes;     // resident W27: "
+                 "110,592",
+                 "  static constexpr int StageBytes = BN * 128;                    // an item of X: MT "
+                 "boxes [64 k][64 n]",
+                 "  static constexpr int Smem = 1024 + WBytes + CONS * SPC * StageBytes + 2 * CONS * "
+                 "SPC * 8;",
+                 "    float acc[MT][16];", "    uint32_t a[MT][4][4];  // tile i, k16 step kk",
+                 "    setmaxnreg_inc<kTapConsumerRegs>();"):
+        assert line in PROBE_SRC, line
+    cfg = WG_PERTAP["V3'"]
+    assert "  using Cfg = WgV3p;" in PROBE_SRC
+    assert (cfg["MT"], cfg["BN"], cfg["CONS"], cfg["SPC"]) == (4, 256, 2, 1)
+    assert _wg_const("kPerTapTaps") == cp.TAPS and _wg_const("kPerTapWBytes") == 4096
+    assert cfg["WBytes"] == 110592 == cp.TAPS * cp.COUT * cp.CIN * 2
+    assert cfg["smem"] == 177184 <= _wg_const("kWgSmemMax")
+    # a second stage a consumer at 256 columns would not fit
+    assert cfg["smem"] + cfg["CONS"] * cfg["StageBytes"] > 232448
+    # a consumer's A fragments and accumulators within its setmaxnreg budget
+    assert cfg["MT"] * (16 + 16) <= _wg_const("kTapConsumerRegs") - 64
+
+
+def _pertap_ring(cfg: dict, uses: int) -> list:
+    """(consumer, stage, phase) of a block's items li = 0 … uses - 1 in
+    probe_pertap_wgmma, in the producer's order: item li goes to consumer li
+    % CONS, its use = li / CONS, into stage consumer·SPC + use % SPC, at phase
+    use / SPC % 2 (the producer's and the consumer's expressions)."""
+    for line in ("        const long long use = li / CONS;  // the consumer's own item count",
+                 "        const int s = int(li % CONS) * SPC + int(use % SPC);",
+                 "        mbar_wait(&empty[s], uint32_t(use / SPC & 1) ^ 1);  // its consumer freed it "
+                 "(free at first)",
+                 "          tma_load_2d(st + b * kWgTile, &map_x, &full[s], n0 + b * kWgBox, 0);",
+                 "         it += (long long)CONS * gridDim.x, ++use) {",
+                 "      const int s = wg * SPC + int(use % SPC);",
+                 "      mbar_wait(&full[s], uint32_t(use / SPC & 1));"):
+        assert line in PROBE_SRC, line
+    cons, spc = cfg["CONS"], cfg["SPC"]
+    return [(li % cons, li % cons * spc + li // cons % spc, li // cons // spc % 2)
+            for li in range(uses)]
+
+
+def _pertap_pipeline_drains(cfg: dict, ring: list) -> bool:
+    """Plays the producer and the consumers of probe_pertap_wgmma over the
+    items of `ring` (producer order): the producer fills a stage once its
+    consumer has freed the last fill (4 arrivals: each warp arrives once its
+    ldmatrix loads are in and fenced from the async proxy, before the
+    products); a consumer takes its items in order once filled and frees
+    the item's stage. True when every item is filled and taken, also with
+    one stage a consumer."""
+    for line in ("      mbar_init(&empty[s], 4);  // one arrival a warp of the consumer",
+                 # the ldmatrix reads fenced from TMA's refill before the arrival
+                 "      fence_proxy_async_shared();\n"
+                 "      __syncwarp();\n"
+                 "      if (lane == 0) mbar_arrive(&empty[s]);  // the warp's part is in registers"):
+        assert line in PROBE_SRC, line
+    arrivals = 4
+    fills, arrived = {}, {}
+    per_cons = {}
+    for c, st, _ in ring:
+        per_cons.setdefault(c, []).append(st)
+    pos = {c: 0 for c in per_cons}
+    j, moved = 0, True
+    while moved:
+        moved = False
+        if j < len(ring) and fills.get(ring[j][1], 0) * arrivals == arrived.get(ring[j][1], 0):
+            fills[ring[j][1]] = fills.get(ring[j][1], 0) + 1
+            j, moved = j + 1, True
+        for c, seq in per_cons.items():
+            p = pos[c]
+            if p < len(seq) and fills.get(seq[p], 0) * arrivals > arrived.get(seq[p], 0):
+                arrived[seq[p]] = arrived.get(seq[p], 0) + arrivals  # every warp of the consumer
+                pos[c], moved = p + 1, True
+    return j == len(ring) and all(pos[c] == len(seq) for c, seq in per_cons.items())
+
+
+def _pertap_epilogue(cfg: dict) -> None:
+    """probe_pertap_wgmma's epilogue from registers: thread (warp, lane)
+    stores accumulator q of tile i at output row 8·(q / 4) + 2·(lane % 4) + q
+    % 2, column n0 + 64·i + 16·warp + lane / 4 + 8·(q % 4 / 2) (the m64n32
+    fragment map with the tile's rows as columns of out); over a work item
+    every output element of its 32 rows × BN columns is written once, from
+    each of a thread's 16 accumulators of a tile once; the 8 lanes of one
+    lane % 4 write 8 neighbouring columns of one row (whole 32-byte sectors);
+    columns past N are masked, so a ragged last item writes only its columns
+    inside N."""
+    for line in ("        const int col = n0 + 64 * i + 16 * warp + lane / 4;",
+                 "        float* o = dst + (long long)(2 * (lane % 4)) * N + col;",
+                 "          if (col + 8 * (q % 4 / 2) < N)",
+                 "            o[(long long)(8 * (q / 4) + q % 2) * N + 8 * (q % 4 / 2)] = acc[i][q];"):
+        assert line in PROBE_SRC, line
+    bn = cfg["BN"]
+
+    def cells(n0, n):
+        return [(2 * (ln % 4) + 8 * (q // 4) + q % 2, col + 8 * (q % 4 // 2))
+                for i in range(cfg["MT"]) for w in range(4) for ln in range(32)
+                for col in [n0 + 64 * i + 16 * w + ln // 4] for q in range(16)
+                if col + 8 * (q % 4 // 2) < n]
+
+    full = cells(0, 10 ** 9)
+    assert sorted(full) == [(r, c) for r in range(cp.COUT) for c in range(bn)]
+    n = 2 * bn + 72  # a ragged last item of 72 columns
+    got = sorted(cells(0, n) + cells(bn, n) + cells(2 * bn, n))
+    assert got == [(r, c) for r in range(cp.COUT) for c in range(n)]
+    for w, q in ((w, q) for w in range(4) for q in range(16)):  # one warp store: whole sectors
+        byte = [((2 * (ln % 4) + 8 * (q // 4) + q % 2) * 131072 + 16 * w + ln // 4
+                 + 8 * (q % 4 // 2)) * 4 for ln in range(32)]
+        sectors = {}
+        for b in byte:
+            sectors.setdefault(b // 32, set()).add(b)
+        assert len(sectors) == 4 and all(len(v) == 8 for v in sectors.values())
+
+
+def _ldmatrix_trans(smem: np.ndarray, addrs: list) -> np.ndarray:
+    """ldmatrix.sync.aligned.m8n8.x4.trans.b16 over a uint16 image of shared
+    memory: lane l gives the byte address of row l % 8 of matrix l / 8 (8
+    bf16); lane l receives in register j elements (2·(l % 4), l / 4) and (2·(l
+    % 4) + 1, l / 4) of matrix j, the first in the low half. Returns [32 lanes,
+    4 registers, 2 halves] of uint16."""
+    rows = np.stack([smem[a // 2:a // 2 + 8] for a in addrs])      # [32, 8]: matrix l / 8, row l % 8
+    mats = rows.reshape(4, 8, 8)
+    lane = np.arange(32)
+    out = np.empty((32, 4, 2), dtype=np.uint16)
+    for j in range(4):
+        for h in range(2):
+            out[:, j, h] = mats[j, 2 * (lane % 4) + h, lane // 4]
+    return out
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _bf16(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(bits.astype(np.uint16).view(np.int16).copy()).view(torch.bfloat16)
+
+
+def test_v3p_pertap_replay():
+    """A replay of probe_pertap_wgmma on one shared-memory image: W27 copied
+    into the resident B (row r, 16-byte chunk k8 at sw128_offset(r, k8)); the
+    B descriptor of tap t, k16 step kk (start 4096·t + 32·kk, stride 1,024
+    bytes a group of 8 rows, read under the 128-byte swizzle of the address)
+    rebuilds W27[32t:32t+32, 16kk:16kk+16] exactly, as the K-major [N][K] B;
+    X's TMA boxes (64 k × 64 columns, swizzled, zeros past N) read back by
+    each warp's ldmatrix.x4.trans addresses and laid out by the RS fragment
+    map of wgmma_sm90.cuh rebuild each m64 tile's Xᵀ[64 n, 16 k] exactly,
+    every element from one thread; the 27 × 4 products chained per tile
+    then equal ``probe_v3p_plain`` at N = 200 (a ragged second item)."""
+    for line in ("    *reinterpret_cast<uint4*>(wres + sw128_offset(r, k8)) =",
+                 "        *reinterpret_cast<const uint4*>(w + (long long)r * kWgBK + k8 * 8);",
+                 "          const uint64_t db = wgmma_desc(w0 + t * kPerTapWBytes + kk * 32, kWgLboA, "
+                 "kWgSbo);",
+                 "          for (int i = 0; i < MT; ++i) wgmma_m64n32k16_rs(acc[i], a[i][kk], db, t > 0 "
+                 "|| kk > 0);",
+                 "                                  st + i * kWgTile +",
+                 "                                  sw128_offset(16 * kk + 8 * (lane / 16) + lane % 8,",
+                 "                                               2 * warp + lane / 8 % 2)));",
+                 "  if (!tensor_map(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, kWgBK, n, kWgBK, "
+                 "kWgBox))"):
+        assert line in PROBE_SRC, line
+    for line in ("      \"}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\\n\"",
+                 "// 16·(t / 32) + (t % 32) / 4 + 8·(r % 2) and k 2·(t % 4) + 8·(r / 2) + {0, 1}"):
+        assert line in WGMMA_SRC, line
+    cfg = WG_PERTAP["V3'"]
+    rng = np.random.default_rng(183)
+    w27 = torch.from_numpy(rng.standard_normal((cp.TAPS * cp.COUT, cp.CIN), dtype=np.float32))
+    x = torch.from_numpy(rng.standard_normal((cp.CIN, 200), dtype=np.float32))
+    w27, x = w27.bfloat16(), x.bfloat16()
+    n = x.shape[1]
+    # the resident B
+    wb = _bits(w27)
+    wres = np.zeros(cfg["WBytes"] // 2, dtype=np.uint16)
+    for r in range(cp.TAPS * cp.COUT):
+        for k8 in range(8):
+            off = _sw128(r, k8) // 2
+            wres[off:off + 8] = wb[r, 8 * k8:8 * k8 + 8]
+    sbo, lbo = _wg_const("kWgSbo"), _wg_const("kWgLboA")
+    for t in range(cp.TAPS):
+        for kk in range(4):
+            d = _desc(t * _wg_const("kPerTapWBytes") + kk * 32, lbo, sbo)
+            start, stride = (d & 0x3FFF) << 4, ((d >> 32) & 0x3FFF) << 4
+            nrow, k = np.meshgrid(np.arange(cp.COUT), np.arange(16), indexing="ij")
+            addr = start + nrow // 8 * stride + nrow % 8 * 128 + 2 * k
+            phys = addr ^ (((addr >> 7) & 7) << 4)
+            b = wres[phys // 2]                                           # [32 n][16 k]
+            assert np.array_equal(b, wb[32 * t:32 * t + 32, 16 * kk:16 * kk + 16])
+    # X's items, A fragments, the chain and the epilogue
+    xb = _bits(x)
+    want = cp.probe_v3p_plain(w27, x, 1)
+    out = torch.full((cp.COUT, n), float("nan"))
+    wf = w27.float()
+    for n0 in range(0, n, cfg["BN"]):
+        stage = np.zeros(cfg["StageBytes"] // 2, dtype=np.uint16)
+        for i in range(cfg["MT"]):
+            for k in range(cp.CIN):
+                for c8 in range(8):
+                    cols = [n0 + 64 * i + 8 * c8 + e for e in range(8)]
+                    vals = [xb[k, c] if c < n else 0 for c in cols]
+                    off = (i * 8192 + _sw128(k, c8)) // 2
+                    stage[off:off + 8] = vals
+        for i in range(cfg["MT"]):
+            acc = torch.zeros((64, cp.COUT))
+            for kk in range(4):
+                a = np.full((64, 16), -1, dtype=np.int64)
+                for warp in range(4):
+                    addrs = [i * 8192 + _sw128(16 * kk + 8 * (ln // 16) + ln % 8, 2 * warp + ln // 8 % 2)
+                             for ln in range(32)]
+                    regs = _ldmatrix_trans(stage, addrs)
+                    for ln in range(32):
+                        for r in range(4):
+                            m = 16 * warp + ln // 4 + 8 * (r % 2)
+                            for h in range(2):
+                                k = 2 * (ln % 4) + 8 * (r // 2) + h
+                                assert a[m, k] == -1  # one thread holds each element
+                                a[m, k] = regs[ln, r, h]
+                cols = np.arange(n0 + 64 * i, n0 + 64 * i + 64)
+                xt = np.where(cols[:, None] < n, xb[16 * kk:16 * kk + 16, np.minimum(cols, n - 1)].T, 0)
+                assert np.array_equal(a, xt)                              # Xᵀ of the tile, exactly
+                af = _bf16(a).float()
+                for t in range(cp.TAPS):
+                    acc = acc + af @ wf[32 * t:32 * t + 32, 16 * kk:16 * kk + 16].t()
+            for warp, ln, q in ((w, ln, q) for w in range(4) for ln in range(32) for q in range(16)):
+                m = 16 * warp + ln // 4 + 8 * (q % 4 // 2)               # the m64n32 fragment map
+                c = 8 * (q // 4) + 2 * (ln % 4) + q % 2
+                col = n0 + 64 * i + 16 * warp + ln // 4 + 8 * (q % 4 // 2)
+                if col < n:
+                    out[8 * (q // 4) + q % 2 + 2 * (ln % 4), col] = acc[m, c]
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()

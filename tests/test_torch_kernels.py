@@ -1185,16 +1185,21 @@ def test_wgrad_tc_rule_matches_c(dev):
 PROBE_CASES = ["V1", "V0", "V2", "V3", "V3'", "V5", "V6", "V4", "V8"]
 
 
+def _variant(key: str) -> str:
+    """The wrapper's name of probe case `key`: V3 → v3, V3' → v3p."""
+    return key.lower().replace("'", "p")
+
+
 def _probe_counters(key: str, n: int) -> dict:
     """The launches one call of probe case `key` at N columns adds to
     ``conv_probe.LAUNCHES``: its wrapper's counter, and the counter of the
-    wgmma instance the wrapper's rule names (V1, V0, V2, V3, V4, V6, V5, V8)."""
+    wgmma instance the wrapper's rule names (every case)."""
     case = bench.BY_KEY[key]
     want = {case.kernel: 1}
-    if key in ("V3", "V4", "V6", "V5", "V8"):
-        v = key.lower()
+    if key in ("V3", "V3'", "V4", "V6", "V5", "V8"):
+        v = _variant(key)
         instance = getattr(conv_probe, f"probe_{v}_instance")(n)
-        want[f"conv_probe_{v}_wgmma"] = int(instance == getattr(conv_probe, f"{key}_WGMMA"))
+        want[f"conv_probe_{v}_wgmma"] = int(instance == getattr(conv_probe, f"{v.upper()}_WGMMA"))
     if key == "V2":
         instance = conv_probe.probe_v2_instance(conv_probe.K, n)
         want["conv_probe_v2_wgmma"] = int(instance == conv_probe.V2_WGMMA)
@@ -1322,7 +1327,7 @@ PROBE_TAP_WGMMA = [(131072, 2), (8192, 3), (2120, 2), (200, 1), (77, 2), (1, 1)]
 
 
 def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
-    """probe_v4 / v6 / v5 / v8 against its plain version (1e-4·max|want| +
+    """probe_v3p / v4 / v6 / v5 / v8 against its plain version (1e-4·max|want| +
     1e-4·|want|: both sum the same bf16 products in fp32, in another order),
     counted on the wgmma instance the wrapper's rule names (N % 8 = 0),
     every other counter unchanged, bitwise equal over a rerun and between 1
@@ -1335,7 +1340,7 @@ def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
         w[conv_probe.TAPS * conv_probe.COUT:] = 1e4
     x = _randn((case.x_rows, n), torch.bfloat16, dev, seed + 1)
     took = _probe_counters(key, n)
-    assert took[f"conv_probe_{key.lower()}_wgmma"] == (n % 8 == 0)
+    assert took[f"conv_probe_{_variant(key)}_wgmma"] == (n % 8 == 0)
     before = dict(conv_probe.LAUNCHES)
     got = case.wrapper(w, x, passes)
     assert conv_probe.LAUNCHES == {**before, **{k: before[k] + v for k, v in took.items()}}
@@ -1347,6 +1352,22 @@ def _check_tap_wgmma(dev, key: str, n: int, passes: int, seed: int) -> None:
     assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
     assert torch.equal(case.wrapper(w, x, passes), got)
     assert torch.equal(case.wrapper(w, x, 1), got)
+
+
+# v3p on its per-tap wgmma instance: the probe's N at one and three passes, N
+# in L2, ragged last items (8,200: a last 256-column item of 8 columns;
+# 2,120, 200) and N not a multiple of 8 (8,191, 77, 1: probe_tapsum on
+# mma.sync).
+PROBE_V3P_WGMMA = [(131072, 1), (131072, 3), (8192, 2), (8200, 2), (8191, 2), (2120, 2),
+                   (200, 1), (77, 2), (1, 1)]
+
+
+@pytest.mark.parametrize("n,passes", PROBE_V3P_WGMMA)
+def test_probe_v3p_wgmma(dev, n, passes):
+    """v3p on ``probe_pertap_wgmma`` (``WgV3p``: 27 per-tap dots into one
+    accumulator, X as A in registers, w27 resident as B), counted on
+    ``conv_probe_v3p_wgmma`` only at N % 8 = 0."""
+    _check_tap_wgmma(dev, "V3'", n, passes, 134)
 
 
 @pytest.mark.parametrize("n,passes", PROBE_TAP_WGMMA)
@@ -1378,9 +1399,9 @@ def test_probe_v8_wgmma(dev, n, passes):
 
 def test_probe_v1_wgmma_rule_matches_c(dev):
     """The C rules (``hvc_probe_v1_rule``, ``hvc_probe_v2_rule`` and
-    ``hvc_probe_v{3,4,6,5,8}_rule``, which the wrappers count wgmma launches
-    by) are ``probe_v1_instance``, ``probe_v2_instance`` and
-    ``probe_v{3,4,6,5,8}_instance`` at every m, K and N around their edges."""
+    ``hvc_probe_v{3,3p,4,6,5,8}_rule``, which the wrappers count wgmma
+    launches by) are ``probe_v1_instance``, ``probe_v2_instance`` and
+    ``probe_v{3,3p,4,6,5,8}_instance`` at every m, K and N around their edges."""
     rule = _build.function("hvc_probe_v1_rule", (ctypes.c_int,) * 3)
     for m, n in itertools.product((1, 31, 32, 33, 63, 64, 65, 128, 192, 256, 320),
                                   (1, 7, 8, 9, 16, 77, 2120, 131072)):
@@ -1388,7 +1409,7 @@ def test_probe_v1_wgmma_rule_matches_c(dev):
     rule2 = _build.function("hvc_probe_v2_rule", (ctypes.c_int,) * 2)
     for k, n in itertools.product((0, 32, 64, 1728, 1792, 1856, 4096), (1, 7, 77, 2120, 131072)):
         assert rule2(k, n) == conv_probe.probe_v2_instance(k, n)
-    for v in ("v3", "v4", "v6", "v5", "v8"):
+    for v in ("v3", "v3p", "v4", "v6", "v5", "v8"):
         rule = _build.function(f"hvc_probe_{v}_rule", (ctypes.c_int,))
         mirror = getattr(conv_probe, f"probe_{v}_instance")
         for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
