@@ -145,6 +145,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    conv_probe_v4_wgmma, conv_probe_v6_wgmma, conv_probe_v5_wgmma,
    conv_probe_v8_wgmma); V1, V3, V3', V4, V6, V5 and V8 at N = 77 on
    mma.sync.
+13. The serving commands: ``cli.main(["infer" | "eval" | "inspect" |
+   "diagnose", ...])`` in this process, on the card, on [11]'s full-width
+   ``stage3/best_psnr`` entry (whose config is [11]'s copy), with synthetic
+   256³ patients and ``HVC_PHANTOM_CACHE`` under ``build/``. Checks: infer
+   writes a finite 256³ ``.npy`` (bf16, as the export writes it) and
+   ``.nii.gz``, its PNGs only where matplotlib is installed (else their keys
+   are absent and the skips printed), and finite per-stage metrics, and
+   caches its phantom; eval's summary is finite over the test split; inspect
+   lists every tensor of the entry; diagnose reports finite losses with
+   ``captured_attention == ["cross_attention"]``. Launches, counted from 0
+   per command: EXPECTED_LAUNCHES for every reconstruct of infer (two) and
+   eval (one an item), none for inspect, and for diagnose stage 1's share
+   (STAGE1_LAUNCHES) less its cross-attentions, which the capture takes on
+   the plain path. Prints each command's wall time.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -158,10 +172,10 @@ ex2.approx.bf16x2 go under it) and the time of one
 PyTorch call that computes the same function (library_ms: cuDNN convolution
 or its weight/data gradient, scaled_dot_product_attention forward or
 backward), all in bf16 at the kernel's hot shape; each row names the card
-and its power limit; launches are those of the
-main path: the reconstruct [4], the first step of each stage in [9], the
-training run of [11] (the only one that takes L and M) and the probe run of
-[12] (the only one that takes N). The probe rows are at N = 131,072, R = 64,
+and its power limit; launches are those of the main path: the reconstruct
+[4], the first step of each stage in [9], the training run of [11] (the only
+one that takes L and M), the probe run of [12] (the only one that takes N)
+and the serving commands of [13]. The probe rows are at N = 131,072, R = 64,
 and their library call is cuBLAS (``torch.mm`` over the same operands, R
 calls).
 
@@ -1768,6 +1782,169 @@ def _tc_rule(counter: str) -> str:
 
 # ------------------------------------------------------------------ slice ---
 
+# ------------------------------------------------------- the serving commands ---
+
+# One stage-1 forward (max_stage=1) at the full widths: A in the 4 self- and
+# 4 cross-attentions of its blocks, the 1→64 stem (C, one-input-channel
+# instance) and the 64→128 token-stem conv (C, tensor cores), the 128→256
+# projection (B, tensor cores). Under diagnose's capture the cross-attentions
+# (one a block) take the plain path, so A launches only in the 4 self-attentions.
+STAGE1_LAUNCHES = {"flash_attention": 8, "flash_attention_tc": 8, "conv3d_k3s1": 1,
+                   "conv3d_k3s1_tc": 1, "conv3d_k3s2": 2, "conv3d_k3s2_tc": 1,
+                   "conv3d_k3s2_c1in": 1, "conv3d_k3s2_c1in_tc": 1}
+SERVING_INDEX = 0  # the synthetic patient that infer and diagnose take
+
+
+def _cli_json(cli, argv: list) -> tuple[dict, str, float, dict]:
+    """cli.main(argv) in this process with its output captured → (the JSON
+    it printed, the lines before it, wall seconds, launches counted from 0)."""
+    import contextlib
+    import io
+
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    start = text.index("\n{") + 1 if not text.startswith("{") else 0
+    return json.loads(text[start:]), text[:start], wall, launch_counts()
+
+
+def _saved_volume(path: Path) -> torch.Tensor:
+    """An exported .npy as a tensor: fp32, or the raw bf16 values that the
+    export writes under the descr '<V2'."""
+    import numpy as np
+
+    a = np.load(path)
+    if a.dtype.kind == "V":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def serving_phase(dev, cfg) -> dict:
+    """Phase 13: the serving commands on [11]'s checkpoint."""
+    import importlib.util
+    import os
+
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.data.nifti import read_nifti
+    from hybrid_vit_cascade_tpu_torch.inference.infer import load_checkpoint
+
+    t_phase = time.perf_counter()
+    entry = BUILD_DIR / "cli_train" / "stage3" / "best_psnr"
+    entry_cfg, state = load_checkpoint(entry)
+    ecfg = Config.from_dict(entry_cfg).to_dict()
+    copy = Config.from_json(str(BUILD_DIR / "quality_r5_smoke.json")).to_dict()
+    if any(ecfg[k] != copy[k] for k in ("model", "data")):
+        raise AssertionError("[13] the entry's config is not [11]'s config copy")
+    m = cfg.model
+    widths = (m.voxel_dim, m.xray_feature_dim, m.dtype, tuple(m.stage_depths),
+              tuple(m.stage_heads), tuple(m.stage_sizes))
+    em = Config.from_dict(entry_cfg).model
+    got_widths = (em.voxel_dim, em.xray_feature_dim, em.dtype, tuple(em.stage_depths),
+                  tuple(em.stage_heads), tuple(em.stage_sizes))
+    if got_widths != widths:
+        raise AssertionError(f"[13] the entry's widths {got_widths} are not [4]'s {widths}, "
+                             f"whose launch counts the phase checks")
+    out = BUILD_DIR / "serving"
+    cache = BUILD_DIR / "phantom_cache"
+    for d in (out, cache):
+        shutil.rmtree(d, ignore_errors=True)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    common = ["--checkpoint", str(entry), "--synthetic", "--device", dev.type]
+    saved_env = os.environ.get("HVC_PHANTOM_CACHE")
+    os.environ["HVC_PHANTOM_CACHE"] = str(cache)
+    try:
+        infer, infer_text, infer_s, infer_lc = _cli_json(
+            cli, ["infer", *common, "--index", str(SERVING_INDEX), "--output", str(out / "infer")])
+        cached = sorted(p.name for p in cache.iterdir())
+        ev, _, eval_s, eval_lc = _cli_json(
+            cli, ["eval", *common, "--output", str(out / "evaluation_metrics.json")])
+        insp, _, inspect_s, inspect_lc = _cli_json(cli, ["inspect", "--checkpoint", str(entry)])
+        diag, _, diag_s, diag_lc = _cli_json(
+            cli, ["diagnose", *common, "--index", str(SERVING_INDEX),
+                  "--output", str(out / "diagnose.json")])
+    finally:
+        if saved_env is None:
+            os.environ.pop("HVC_PHANTOM_CACHE")
+        else:
+            os.environ["HVC_PHANTOM_CACHE"] = saved_env
+
+    # infer: one reconstruct for the export, one for the item's metrics
+    exports, metrics = infer["exports"], infer["metrics"]
+    vol = _saved_volume(Path(exports["npy"]))
+    nii = read_nifti(exports["nifti"])
+    size = m.stage_sizes[-1]
+    pngs = ("summary", "views")
+    log(f"[13] infer: {infer_s:.1f} s; exports {sorted(exports)}; .npy {tuple(vol.shape)} "
+        f"{vol.dtype}, .nii.gz {nii.shape}; metrics {metrics}; matplotlib "
+        f"{'present' if has_mpl else 'absent'}; phantom cache after infer {cached}")
+    ok = (tuple(vol.shape) == (size,) * 3 and bool(torch.isfinite(vol.float()).all())
+          and nii.shape == (size,) * 3 and bool(torch.isfinite(torch.from_numpy(nii)).all())
+          and sorted(metrics) == sorted(f"stage{s}_{k}" for s in (1, 2, 3)
+                                        for k in ("psnr", "ssim", "l1"))
+          and all(math.isfinite(v) for v in metrics.values()) and len(cached) == 1)
+    if has_mpl:
+        ok = ok and all(Path(exports[k]).is_file() for k in pngs)
+    else:
+        ok = ok and not any(k in exports for k in pngs) and all(
+            msg in infer_text for msg in ("summary figure skipped", "orthogonal views skipped"))
+    if not ok:
+        raise AssertionError(f"[13] infer: unexpected outputs {infer} / {infer_text!r}")
+
+    # eval: one reconstruct per item of the test split
+    rows = json.loads((out / "evaluation_metrics.json").read_text())["per_sample"]
+    log(f"[13] eval: {eval_s:.1f} s; {len(rows)} test items; summary "
+        f"{({k: round(v['mean'], 4) for k, v in ev.items()})}")
+    if not rows or sorted(ev) != sorted(metrics) or not all(
+            math.isfinite(v[s]) for v in ev.values() for s in ("mean", "std")):
+        raise AssertionError(f"[13] eval: unexpected summary {ev}")
+
+    # inspect: every tensor of the entry, no error
+    log(f"[13] inspect: {inspect_s:.1f} s; {len(insp['arrays'])} tensors, meta epoch "
+        f"{insp['meta'].get('epoch')}")
+    if "error" in insp or insp["arrays"] != {k: str(tuple(v.shape)) for k, v in state.items()}:
+        raise AssertionError(f"[13] inspect: {insp.get('error')} or the names and shapes differ")
+    del state
+
+    # diagnose: stage 1 with its cross-attention captured on the plain path
+    losses = diag["losses"]
+    log(f"[13] diagnose: {diag_s:.1f} s; captured {diag['captured_attention']}; "
+        f"{len(losses)} losses, total {losses['total']:.4f}, cross_attention_align "
+        f"{losses['cross_attention_align']:.4f}; health {diag['health']}")
+    if diag["captured_attention"] != ["cross_attention"] or not all(
+            math.isfinite(v) for v in losses.values()) or not losses["cross_attention_align"]:
+        raise AssertionError(f"[13] diagnose: unexpected report {diag}")
+
+    want = {"infer": {k: 2 * v for k, v in EXPECTED_LAUNCHES.items()},
+            "eval": {k: len(rows) * v for k, v in EXPECTED_LAUNCHES.items()},
+            "inspect": {},
+            "diagnose": {**STAGE1_LAUNCHES, **{k: STAGE1_LAUNCHES[k] - m.stage_depths[0]
+                                               for k in ("flash_attention", "flash_attention_tc")}}}
+    launched = {"infer": infer_lc, "eval": eval_lc, "inspect": inspect_lc, "diagnose": diag_lc}
+    for cmd, lc in launched.items():
+        counted = {k: v for k, v in lc.items() if v}
+        log(f"[13] {cmd} launches {counted} (expected {want[cmd]})")
+        if counted != {k: v for k, v in want[cmd].items() if v}:
+            raise AssertionError(f"[13] {cmd} launched {counted}, expected {want[cmd]}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[13] wall: infer {infer_s:.1f} s, eval {eval_s:.1f} s, inspect {inspect_s:.1f} s, "
+        f"diagnose {diag_s:.1f} s; phase {phase_s:.1f} s")
+    total = {k: sum(lc[k] for lc in launched.values()) for k in infer_lc}
+    return {"wall_s": {"infer": infer_s, "eval": eval_s, "inspect": inspect_s,
+                       "diagnose": diag_s, "phase": phase_s},
+            "launches": total, "launches_by_command": launched, "infer_metrics": metrics,
+            "eval_summary": ev, "test_items": len(rows), "diagnose": diag,
+            "matplotlib": has_mpl}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -1975,13 +2152,18 @@ def main() -> int:
     record["probe"] = probe_phase(dev, args.seed)
     worst.update(record["probe"]["max_abs_err"])
 
+    # 13. the serving commands
+    torch.cuda.empty_cache()
+    record["serving"] = serving_phase(dev, cfg)
+
     # launches on the main path: the reconstruct [4], the first step of each
-    # stage in [9], the cli train run of [11] and the probe run of [12], each
-    # counted from 0
+    # stage in [9], the cli train run of [11], the probe run of [12] and the
+    # serving commands of [13], each counted from 0
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
               "cli_train": record["train_entry_point"]["launches"],
-              "conv_probe": record["probe"]["launches"]}
+              "conv_probe": record["probe"]["launches"],
+              "cli_serving": record["serving"]["launches"]}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]

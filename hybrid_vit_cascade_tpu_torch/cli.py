@@ -1,19 +1,27 @@
 """Command line of the port (counterpart of hybrid_vit_cascade_tpu/cli.py):
-``python -m hybrid_vit_cascade_tpu_torch.cli train --config <json>``.
+``python -m hybrid_vit_cascade_tpu_torch.cli <cmd>``.
 
-``train`` takes the JAX command's flags and config semantics (``_load_cfg``)
-plus ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels) and prints ``{"final": metrics}``. As in the JAX package,
-``--epochs`` sets ``training.num_epochs``, which the cascade's stagewise
-training does not read (each stage has its own ``num_epochs``), and ``--lr``
-is not read by it either. Not ported yet: ``infer``, ``eval``, ``diagnose``,
-``transfer``, ``inspect``, ``export``, ``bench``, ``dryrun``.
+  train    — the cascade, stagewise, from a JSON config
+  infer    — checkpoint → .npy / NIfTI / PNG export and the item's metrics
+  eval     — whole-test-split metric summary (evaluation_metrics.json)
+  diagnose — the diagnostic suite and health grades of one reconstruction
+  inspect  — a checkpoint's tensor names and shapes
+
+Each takes the JAX command's flags and config semantics (``_load_cfg``) plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels); a command that reads a checkpoint reads its embedded config, and
+``infer``, ``eval`` and ``diagnose`` build the dataset at the model's top
+resolution. As in the JAX package, ``train``'s ``--epochs`` sets
+``training.num_epochs``, which the cascade's stagewise training does not
+read (each stage has its own ``num_epochs``), and ``--lr`` is not read by it
+either. Not ported yet: ``transfer``, ``export``, ``bench``, ``dryrun``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 
 
 def _load_cfg(args):
@@ -50,6 +58,94 @@ def cmd_train(args) -> None:
     print(json.dumps({"final": metrics}))
 
 
+def _dataset(args, cfg, num_patients: int):
+    """The synthetic phantoms or the patient folders, at the model's top
+    resolution."""
+    from .config import data_volume_size
+    from .data.dataset import PatientDRRDataset
+    from .data.synthetic import SyntheticCTDataset
+
+    if args.synthetic or cfg.data.synthetic:
+        return SyntheticCTDataset(num_patients=num_patients, volume_size=data_volume_size(cfg),
+                                  xray_size=cfg.data.xray_size)
+    return PatientDRRDataset(args.data_path or cfg.data.dataset_path,
+                             target_xray_size=cfg.data.xray_size,
+                             target_volume_size=data_volume_size(cfg),
+                             normalization=cfg.data.normalization)
+
+
+def _upscale(args):
+    return tuple(int(x) for x in args.upscale.split(",")) if args.upscale else None
+
+
+def cmd_infer(args) -> None:
+    from .inference.infer import InferenceEngine
+
+    engine = InferenceEngine(args.checkpoint, device=args.device)
+    cfg = engine.cfg
+    if args.pa_xray or args.lat_xray:
+        # a raw X-ray pair straight from image files, no dataset folder
+        if not (args.pa_xray and args.lat_xray):
+            raise SystemExit("--pa-xray and --lat-xray must be given together")
+        from .data.dataset import NORMALIZATION_PRESETS
+        from .inference.infer import load_xray_pair
+
+        # raw images follow the checkpoint's normalisation preset, the range
+        # the dataset feeds at train time ([-1, 1] for soft_tissue)
+        xr = load_xray_pair(args.pa_xray, args.lat_xray, size=cfg.data.xray_size,
+                            normalize_range=NORMALIZATION_PRESETS[cfg.data.normalization]["range"])
+        paths = engine.export(xr, args.output, prefix="raw_pair", upscale=_upscale(args),
+                              denormalize=args.denormalize)
+        print(json.dumps({"exports": paths}, indent=2))
+        return
+    item = _dataset(args, cfg, max(1, args.index + 1))[args.index]
+    paths = engine.export(item["drr_stacked"][None], args.output, prefix=item["patient_id"],
+                          upscale=_upscale(args), denormalize=args.denormalize,
+                          target=item["ct_volume"][None])
+    metrics = engine.evaluate_sample(item)
+    print(json.dumps({"exports": paths, "metrics": metrics}, indent=2))
+
+
+def cmd_eval(args) -> None:
+    from .data.dataset import create_train_val_datasets
+    from .inference.infer import InferenceEngine
+
+    engine = InferenceEngine(args.checkpoint, device=args.device)
+    cfg = engine.cfg
+    ds = _dataset(args, cfg, cfg.data.synthetic_patients)
+    _, _, test = create_train_val_datasets(ds, cfg.data.train_split, cfg.data.val_split,
+                                           split_mode=cfg.data.split_mode)
+    if len(test) == 0:
+        test = ds
+    summary = engine.evaluate_dataset(test, out_json=args.output)
+    print(json.dumps(summary, indent=2))
+
+
+def cmd_diagnose(args) -> None:
+    """Health-grade one reconstruction with the diagnostic suite and live
+    stage-1 cross-attention capture."""
+    from .inference.infer import InferenceEngine
+
+    engine = InferenceEngine(args.checkpoint, device=args.device)
+    ds = _dataset(args, engine.cfg, max(1, args.index + 1))
+    report = engine.diagnose(ds[args.index], max_stage=args.stage)
+    text = json.dumps(report, indent=2)
+    if args.output:
+        Path(args.output).write_text(text)
+    print(text)
+
+
+def cmd_inspect(args) -> None:
+    from .inference.infer import inspect_checkpoint
+
+    print(json.dumps(inspect_checkpoint(args.checkpoint), indent=2))
+
+
+def _device_flag(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain versions of the kernels)")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hybrid_vit_cascade_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -69,9 +165,43 @@ def main(argv=None) -> None:
                    help="converted ImageNet VGG16 .npz for the perceptual loss")
     t.add_argument("--viz-every", type=int, default=0,
                    help="epoch-end figures every N epochs (not ported: the run says so)")
-    t.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda; cpu runs the plain versions)")
+    _device_flag(t)
     t.set_defaults(fn=cmd_train)
+
+    i = sub.add_parser("infer", help="reconstruct + export .npy / NIfTI / PNG")
+    i.add_argument("--checkpoint", required=True, help="checkpoint file or entry directory")
+    i.add_argument("--output", default="inference_out")
+    i.add_argument("--index", type=int, default=0)
+    i.add_argument("--data-path", default=None)
+    i.add_argument("--synthetic", action="store_true")
+    i.add_argument("--upscale", default=None, help="D,H,W")
+    i.add_argument("--denormalize", action="store_true", help="export in HU")
+    i.add_argument("--pa-xray", default=None, help="raw AP X-ray image file (with --lat-xray)")
+    i.add_argument("--lat-xray", default=None, help="raw lateral X-ray image file")
+    _device_flag(i)
+    i.set_defaults(fn=cmd_infer)
+
+    e = sub.add_parser("eval", help="test-split metrics")
+    e.add_argument("--checkpoint", required=True)
+    e.add_argument("--output", default="evaluation_metrics.json")
+    e.add_argument("--data-path", default=None)
+    e.add_argument("--synthetic", action="store_true")
+    _device_flag(e)
+    e.set_defaults(fn=cmd_eval)
+
+    dg = sub.add_parser("diagnose", help="diagnostic-loss suite + health grades on one sample")
+    dg.add_argument("--checkpoint", required=True)
+    dg.add_argument("--index", type=int, default=0)
+    dg.add_argument("--stage", type=int, default=1, help="cascade max_stage for the graded forward")
+    dg.add_argument("--synthetic", action="store_true")
+    dg.add_argument("--data-path", default=None)
+    dg.add_argument("--output", default=None, help="optional JSON path")
+    _device_flag(dg)
+    dg.set_defaults(fn=cmd_diagnose)
+
+    n = sub.add_parser("inspect", help="dump checkpoint keys/shapes")
+    n.add_argument("--checkpoint", required=True)
+    n.set_defaults(fn=cmd_inspect)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -11,7 +11,8 @@ nn.Conv kernels are (k…, I, O) and torch wants (O, I, k…). ConvNCDHW kernels
 and the chain ``*_kernel`` parameters are already OIDHW and copy as they
 are; the stage-1 seed volume moves from NDHWC to NCDHW. BatchNorm running
 statistics come from ``batch_stats``. ``vgg16`` converts the perceptual
-loss's VGG variables.
+loss's VGG variables, ``diagnostic_nets`` the diagnostic suite's three frozen
+nets.
 """
 
 from __future__ import annotations
@@ -173,3 +174,27 @@ def vgg16(variables: Mapping) -> StateDict:
         sd[f"{name}.weight"] = _t(p[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
         sd[f"{name}.bias"] = _t(p[name]["bias"])
     return sd
+
+
+def _conv_stack(p: Mapping, convs: str = "convs.", norms: str | None = None) -> StateDict:
+    """flax ``Conv_i`` (and ``GroupNorm_i``) → ``<convs>i.weight`` / ``.bias``
+    (and ``<norms>i.weight`` / ``.bias``)."""
+    sd: StateDict = {}
+    for i, name in enumerate(_indexed(p, "Conv")):
+        _flax_conv(p[name], f"{convs}{i}.", sd)
+    if norms is not None:
+        for i, name in enumerate(_indexed(p, "GroupNorm")):
+            _norm(p[name], f"{norms}{i}.", sd)
+    return sd
+
+
+def diagnostic_nets(perceptual_vars: Mapping, extractor_vars: Mapping,
+                    lpips_vars: Mapping) -> dict:
+    """The JAX diagnostic suite's frozen nets → the ``weights=`` of the port's
+    ``DiagnosticLosses``: ``{"perceptual": Simple3DPerceptualNet,
+    "extractor": MultiLevelFeatureExtractor, "lpips": _Slice2DFeatureNet}``
+    state dicts, from the variables of ``DiagnosticLosses._perc_vars``,
+    ``ComprehensiveFeatureMetrics._vars`` and ``LPIPS3D._vars``."""
+    return {"perceptual": _conv_stack(perceptual_vars["params"]),
+            "extractor": _conv_stack(extractor_vars["params"], norms="norms."),
+            "lpips": _conv_stack(lpips_vars["params"])}

@@ -1,7 +1,8 @@
 """Procedural chest-CT phantoms + synthetic DRR pairs (counterpart of
 hybrid_vit_cascade_tpu/data/synthetic.py: the same phantoms, seeds, item
-schema and DRR range; numpy only). Not ported: the opt-in on-disk phantom
-cache (``HVC_PHANTOM_CACHE``) and ``write_reference_tree``, which needs PIL.
+schema, DRR range and opt-in on-disk phantom cache, ``HVC_PHANTOM_CACHE``,
+whose file names are the JAX package's, so one cache directory serves both;
+numpy only). Not ported: ``write_reference_tree``, which needs PIL.
 
 Deterministic anatomical phantoms in HU (body, lungs with branching vessel
 and airway trees, heart, aorta, vertebrae, ribs; no iid noise, so all fine
@@ -11,6 +12,9 @@ the AP/lateral DRR pair rendered with a Beer–Lambert projector.
 
 from __future__ import annotations
 
+import os
+import tempfile
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -201,13 +205,27 @@ class SyntheticCTDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         if idx in self._cache:
             return self._cache[idx]
-        hu = make_phantom_volume(max(self.volume_size), seed=self.seed * 10007 + idx)
-        vol = window_volume(hu, self.preset)
-        if vol.shape != self.volume_size:
-            vol = _np_resize_trilinear(vol, self.volume_size)
-        drr = render_drr_pair(vol, self.xray_size)
+        base = max(self.volume_size)
+        seed = self.seed * 10007 + idx
+        vol = drr = None
+        disk = self._disk_cache_path(base, seed)
+        if disk is not None and disk.exists():
+            try:
+                with np.load(disk) as z:
+                    vol, drr = z["vol"], z["drr"]
+            except Exception:
+                vol = drr = None  # a corrupt or partial file: regenerate
+        if vol is None:
+            hu = make_phantom_volume(base, seed=seed)
+            vol = window_volume(hu, self.preset)
+            if vol.shape != self.volume_size:
+                vol = _np_resize_trilinear(vol, self.volume_size)
+            drr = render_drr_pair(vol, self.xray_size)
+            if disk is not None:
+                self._disk_cache_write(disk, vol, drr)
         # DRRs follow the preset's normalize_range, the convention
-        # PatientDRRDataset applies to on-disk images: [-1, 1] for soft_tissue
+        # PatientDRRDataset applies to on-disk images: [-1, 1] for soft_tissue;
+        # cache files keep the raw [0, 1] render
         lo, hi = {"soft_tissue": (-1.0, 1.0), "full": (0.0, 1.0)}[self.preset]
         drr_n = (drr * (hi - lo) + lo).astype(np.float32)
         item = {
@@ -219,3 +237,27 @@ class SyntheticCTDataset:
         }
         self._cache[idx] = item
         return item
+
+    def _disk_cache_path(self, base: int, seed: int) -> Optional[Path]:
+        """The on-disk cache file of one phantom, keyed by every generation
+        input, when ``HVC_PHANTOM_CACHE=<dir>`` is set and base ≥ 64 (a 256³
+        phantom takes seconds on one host core)."""
+        root = os.environ.get("HVC_PHANTOM_CACHE")
+        if not root or base < 64:
+            return None
+        d, h, w = self.volume_size
+        return Path(root) / (f"ph_v2_b{base}_s{seed}_{d}x{h}x{w}"
+                             f"_x{self.xray_size}_{self.preset}.npz")
+
+    @staticmethod
+    def _disk_cache_write(path: Path, vol: np.ndarray, drr: np.ndarray) -> None:
+        """Best effort, atomic: written to a temporary file and renamed, so a
+        concurrent reader never sees a partial file."""
+        try:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=str(path.parent), suffix=".npz")
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, vol=vol, drr=drr)
+            os.replace(tmp, path)
+        except Exception:
+            pass

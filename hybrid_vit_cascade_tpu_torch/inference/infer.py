@@ -1,26 +1,39 @@
-"""Checkpoint-driven cascade inference (counterpart of
-hybrid_vit_cascade_tpu/inference/infer.py:27-33, 111-160, and of the cascade
-branch of ``build_model`` in hybrid_vit_cascade_tpu/training/trainer.py).
+"""Checkpoint-driven cascade inference and its exports (counterpart of
+hybrid_vit_cascade_tpu/inference/infer.py and of the cascade branch of
+``build_model`` in hybrid_vit_cascade_tpu/training/trainer.py): reconstruct,
+per-stage and whole-dataset metrics, the diagnostic suite with live
+cross-attention capture, ``.npy`` / NIfTI / PNG export with optional
+trilinear upscale and HU denormalisation, the raw X-ray-pair loader and the
+checkpoint inspector.
 
 A checkpoint is one ``torch.save`` file holding
 ``{"config": Config.to_dict(), "state_dict": model.state_dict()}``, or an
 entry directory that training wrote (``training/checkpoint.py``, e.g.
 ``save_dir/stage3/best_psnr``: the state dict in ``checkpoint.pt``, the
 config in ``meta.json``) — the port's counterparts of an Orbax directory
-plus its ``meta.json``. Evaluation, NIfTI/PNG export and the raw X-ray-pair loader are not ported
-yet.
+plus its ``meta.json``.
+
+The PNG writers need matplotlib: without it ``export`` prints a message and
+leaves their keys out of the paths it returns. Not ported: ``export_serving``
+and ``load_serving`` (a StableHLO artifact; the kernels are not registered
+with ``torch.library``, so ``torch.export`` cannot trace them yet), and
+``evaluate_sample``'s branch for the families other than the cascade, which
+``build_model`` does not build yet.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..losses.metrics import mae, psnr, ssim_metric
 from ..models.cascade import ProgressiveCascadeModel
+from ..ops.resize import resize_trilinear
 from ..training.checkpoint import load_entry
 
 _STAGE_PREFIXES = {1: ("xray_encoder.", "stage2.", "stage3."), 2: ("stage3.",), 3: ()}
@@ -33,6 +46,89 @@ def denormalize_ct(volume: np.ndarray, normalization: str = "soft_tissue") -> np
     if normalization == "full":  # [0,1] → [-1024,3071]
         return volume * 4095.0 - 1024.0
     raise ValueError(normalization)
+
+
+def load_xray_pair(pa_path: str, lat_path: str, size: int = 512,
+                   normalize_range: Tuple[float, float] = (0.0, 1.0)) -> np.ndarray:
+    """A raw AP / lateral X-ray image pair straight from image files (no
+    dataset folder): grey levels, bilinear resize to size², /255 when above 1,
+    then into normalize_range → (1, 2, 1, size, size) fp32. Needs PIL."""
+    from PIL import Image
+
+    from ..data.dataset import _np_resize_bilinear
+
+    views = []
+    for p in (pa_path, lat_path):
+        img = np.asarray(Image.open(p).convert("L"), dtype=np.float32)
+        if img.shape != (size, size):
+            img = _np_resize_bilinear(img, (size, size))
+        if img.max() > 1.0:
+            img = img / 255.0
+        lo, hi = normalize_range
+        views.append(img * (hi - lo) + lo)
+    return np.stack(views)[None, :, None].astype(np.float32)
+
+
+def export_nifti(volume: np.ndarray, path: str,
+                 spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)) -> None:
+    """(D, H, W) → .nii.gz (fp32, diagonal affine) with the port's NIfTI-1
+    writer."""
+    from ..data.nifti import write_nifti
+
+    write_nifti(path, np.asarray(volume, np.float32), spacing)
+
+
+def export_orthogonal_views(volume: np.ndarray, out_prefix: str, title: str = "") -> None:
+    """Axial / coronal / sagittal mid-slice PNGs (matplotlib Agg)."""
+    from ..utils.viz import _plt
+
+    plt = _plt()
+    D, H, W = volume.shape
+    views = {"axial": volume[D // 2], "coronal": volume[:, H // 2],
+             "sagittal": volume[:, :, W // 2]}
+    for name, sl in views.items():
+        fig, ax = plt.subplots(figsize=(5, 5))
+        ax.imshow(sl, cmap="gray")
+        ax.set_title(f"{title} {name}".strip())
+        ax.axis("off")
+        fig.savefig(f"{out_prefix}_{name}.png", dpi=120, bbox_inches="tight")
+        plt.close(fig)
+
+
+def save_npy(path: str | Path, volume: torch.Tensor | np.ndarray) -> None:
+    """``np.save`` of a volume; a bf16 tensor is written as the JAX package's
+    ``np.save`` writes an ml_dtypes bfloat16 array: its raw 2-byte values
+    under the descr ``'<V2'``."""
+    if isinstance(volume, torch.Tensor) and volume.dtype == torch.bfloat16:
+        bits = volume.detach().cpu().contiguous().view(torch.int16).numpy()
+        header = {"descr": "<V2", "fortran_order": False, "shape": bits.shape}
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(f, header)
+            f.write(bits.tobytes())
+        return
+    if isinstance(volume, torch.Tensor):
+        volume = volume.detach().cpu().numpy()
+    np.save(path, volume)
+
+
+def inspect_checkpoint(ckpt_path: str | Path) -> Dict:
+    """The names and shapes (``str(tuple(shape))``) of a checkpoint's state
+    dict, with the entry's ``meta.json`` when there is one (a checkpoint file's
+    own config otherwise); ``"error"`` holds what failed to load."""
+    path = Path(ckpt_path)
+    meta = {}
+    mf = path / "meta.json"
+    if mf.exists():
+        meta = json.loads(mf.read_text())
+    report = {"path": str(path), "meta": meta, "arrays": {}}
+    try:
+        cfg, state = load_checkpoint(path)
+        if not path.is_dir():
+            report["meta"] = {"config": cfg}
+        report["arrays"] = {k: str(tuple(v.shape)) for k, v in state.items()}
+    except Exception as e:
+        report["error"] = repr(e)
+    return report
 
 
 def build_model(cfg: Config, built_stages: int = 3) -> ProgressiveCascadeModel:
@@ -99,3 +195,122 @@ class InferenceEngine:
         with torch.inference_mode():
             return self.model(x, return_intermediate=return_intermediate,
                               max_stage=self.max_stage if max_stage is None else max_stage)
+
+    def _target(self, item: Dict) -> torch.Tensor:
+        return torch.as_tensor(item["ct_volume"][None], dtype=torch.float32).to(self.device)
+
+    def evaluate_sample(self, item: Dict, max_stage: Optional[int] = None) -> Dict[str, float]:
+        """PSNR / SSIM / L1 of one dataset item against its target resized to
+        each stage's output (trilinear, align_corners=False): ``stageN_psnr``,
+        ``stageN_ssim``, ``stageN_l1``. The metrics see the output in its
+        compute dtype, promoted to fp32. The cascade is the one family the
+        port builds; the other families' branch (with ``psnr_dynamic``) comes
+        with the first of them."""
+        from ..training.trainer import resize_target
+
+        if self.cfg.model.family != "cascade":
+            raise NotImplementedError(f"model family {self.cfg.model.family!r} is not ported")
+        xr = item["drr_stacked"][None]
+        target = self._target(item)
+        metrics: Dict[str, float] = {}
+        outs = self.reconstruct(xr, max_stage=max_stage, return_intermediate=True)
+        for stage, vol in outs.items():
+            t = resize_target(target, vol.shape[-3:])
+            metrics[f"{stage}_psnr"] = float(psnr(vol, t))
+            metrics[f"{stage}_ssim"] = float(ssim_metric(vol, t))
+            metrics[f"{stage}_l1"] = float(mae(vol, t))
+        return metrics
+
+    def evaluate_dataset(self, dataset, out_json: Optional[str] = None,
+                         max_stage: Optional[int] = None) -> Dict:
+        """Mean and std of every evaluate_sample metric over the dataset;
+        with out_json also the per-sample rows, as JSON."""
+        rows = [self.evaluate_sample(dataset[i], max_stage) for i in range(len(dataset))]
+        summary = {}
+        for k in rows[0]:
+            vals = np.asarray([r[k] for r in rows], np.float64)
+            summary[k] = {"mean": float(vals.mean()), "std": float(vals.std())}
+        if out_json:
+            Path(out_json).write_text(json.dumps({"per_sample": rows, "summary": summary},
+                                                 indent=2))
+        return summary
+
+    def diagnose(self, item: Dict, max_stage: int = 1) -> Dict:
+        """The diagnostic suite and health grades of one item's reconstruction,
+        with stage 1's cross-attention probabilities captured live (they take
+        the plain path for that forward; every other attention launches its
+        kernel). The fp32 volume stands in as both prediction and x0, the
+        resized target as both target and ground truth."""
+        from ..losses.diagnostics import DiagnosticLosses, analyze_component_health
+        from ..models.attention import collect_attention_maps
+        from ..training.trainer import resize_target
+
+        xr = torch.as_tensor(item["drr_stacked"][None], dtype=torch.float32).to(self.device)
+        target = self._target(item)
+        with torch.inference_mode():
+            with self.model.capture_attention():
+                vol = self.model(xr, max_stage=max_stage)
+                maps = collect_attention_maps(self.model)
+            vol = vol.float()
+            t = resize_target(target, vol.shape[-3:])
+            losses = DiagnosticLosses()(vol, t, vol, t, xr, attention_maps=maps or None)
+        flat = {k: float(v) for k, v in losses.items() if v.dim() == 0}
+        return {"losses": flat, "health": analyze_component_health(losses),
+                "captured_attention": sorted(maps)}
+
+    def export(self, xrays, out_dir: str, prefix: str = "pred",
+               upscale: Optional[Tuple[int, int, int]] = None, denormalize: bool = False,
+               target: Optional[np.ndarray] = None) -> Dict[str, str]:
+        """Reconstruct and write ``<prefix>.npy``, ``.nii.gz``, the orthogonal
+        mid-slice PNGs and the 18-panel summary figure (whose error and target
+        panels and metric title need ``target``, (B, 1, D, H, W) at any
+        resolution, resized to the output). The upscale (trilinear,
+        align_corners=False) runs in the output's dtype before the
+        denormalisation; the ``.npy`` keeps that dtype (bf16 as ``save_npy``
+        writes it) unless denormalised, which gives fp32."""
+        from ..training.trainer import resize_target
+
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        raw = self.reconstruct(xrays)
+        vol = raw[0, 0]
+        try:
+            from ..utils.viz import inference_summary_figure
+
+            t = metrics = None
+            if target is not None:
+                tt = resize_target(torch.as_tensor(target, dtype=torch.float32).to(self.device),
+                                   vol.shape)
+                v = raw.float()
+                metrics = {"psnr": float(psnr(v, tt)), "ssim": float(ssim_metric(v, tt)),
+                           "mae": float(mae(v, tt))}
+                t = tt.cpu().numpy()
+            fig_path = out / f"{prefix}_summary.png"
+            inference_summary_figure(np.asarray(xrays), raw.float().cpu().numpy(), t, metrics,
+                                     str(fig_path))
+            summary_path = str(fig_path)  # only after a successful write
+        except Exception as e:  # matplotlib issues must not kill the export
+            print(f"[infer] summary figure skipped: {e}")
+            summary_path = None
+        if upscale is not None:
+            vol = resize_trilinear(vol[None], upscale, align_corners=False)[0]
+        host = vol.cpu()  # the .npy keeps the output's dtype ...
+        values = host.float().numpy()
+        if denormalize:  # ... unless in HU, fp32
+            values = host = denormalize_ct(values, self.cfg.data.normalization)
+        paths = {}
+        if summary_path:
+            paths["summary"] = summary_path
+        save_npy(out / f"{prefix}.npy", host)
+        paths["npy"] = str(out / f"{prefix}.npy")
+        try:
+            export_nifti(values, out / f"{prefix}.nii.gz")
+            paths["nifti"] = str(out / f"{prefix}.nii.gz")
+        except Exception as e:
+            paths["nifti_error"] = repr(e)
+        try:
+            export_orthogonal_views(values, str(out / prefix), title=prefix)
+            paths["views"] = str(out / f"{prefix}_axial.png")
+        except ImportError as e:  # no matplotlib
+            print(f"[infer] orthogonal views skipped: {e}")
+        return paths

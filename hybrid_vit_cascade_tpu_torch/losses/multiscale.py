@@ -107,16 +107,21 @@ _TAPS = (1, 3, 6)
 _POOL_AFTER = (1, 3)
 
 
+def lecun_normal_(w: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    """flax nn.Conv's default kernel initialiser, drawn from ``g`` into the
+    (O, I, k…) tensor ``w``: truncated normal, std √(1/fan_in)/0.8796 cut at
+    ±2σ."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+
+
 def seeded_vgg16(seed: int = 1234) -> Dict[str, torch.Tensor]:
     """VGG16-prefix filters from a seeded torch.Generator: flax nn.Conv's
-    defaults (lecun_normal kernel = truncated normal, std √(1/fan_in)/0.8796
-    cut at ±2σ; zero bias)."""
+    defaults (``lecun_normal_`` kernels, zero bias)."""
     g = torch.Generator().manual_seed(seed)
     out = {}
     for i, (cin, cout) in enumerate(VGG_CONVS):
-        std = math.sqrt(1.0 / (cin * 9)) / 0.87962566103423978
-        w = torch.empty(cout, cin, 3, 3)
-        torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+        w = lecun_normal_(torch.empty(cout, cin, 3, 3), g)
         out[f"Conv_{i}.weight"] = w
         out[f"Conv_{i}.bias"] = torch.zeros(cout)
     return out

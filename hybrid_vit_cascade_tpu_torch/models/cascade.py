@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.slab import chain_apply_dense, chain_apply_slab, chain_apply_streamed
 from ..ops.conv3d import ConvNCDHW, GroupNormNCDHW
 from ..ops.resize import resize_trilinear
+from .attention import capture_attention
 from .encoders import MultiScaleXrayEncoder
 from .layers import number_dropout_sites
 from .vit3d import HybridViT3D, _stem_plan
@@ -320,6 +321,13 @@ class ProgressiveCascadeModel(nn.Module):
                                            store_min_flops=stage3_store_min_flops,
                                            eval_schedule=stage3_eval_schedule, **kw)
         number_dropout_sites(self)
+
+    def capture_attention(self):
+        """A context manager: the forwards inside it capture stage 1's
+        cross-attention probabilities (what JAX's ``clone(store_attention=True)``
+        does, for one ``with`` block; maps dropped on exit). Only stage 1
+        captures, as in JAX."""
+        return capture_attention(self.stage1)
 
     def forward(self, xrays: torch.Tensor, return_intermediate: bool = False,
                 max_stage: int = 3, train: bool = False, stop_grad_stage1: bool = False,

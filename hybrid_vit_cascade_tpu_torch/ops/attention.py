@@ -7,7 +7,9 @@ backward: kernel D, or kernels L then M when ``FUSED_BWD`` is false;
 ops/cuda/flash_attention.py); on a CPU tensor it runs their plain versions.
 The forward saves q, k, v, out and the natural-log lse, and the backward
 recomputes the probabilities from them, as the JAX package's flash custom
-VJP does. Not ported: the head- and
+VJP does. ``return_probs=True`` takes the plain score-materialising path of
+the JAX ``_reference_attention`` instead, on any device, and also returns the
+fp32 probabilities (the cross-attention capture). Not ported: the head- and
 sequence-sharded mesh paths and the token-count threshold of the JAX
 dispatcher, which are TPU-mesh and TPU-tiling constructs.
 """
@@ -45,14 +47,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, probs): fp32 scores and softmax, the probabilities rounded to q's
+    dtype before the PV product, fp32 accumulation, out in q's dtype."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+    return out, probs
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None, return_probs: bool = False):
     """softmax(q·kᵀ·scale)·v with fp32 softmax statistics and accumulation,
-    output in q's dtype; differentiable."""
+    output in q's dtype; differentiable. ``return_probs=True`` returns
+    ``(out, probs)`` with the (B, H, Nq, Nk) fp32 probabilities, computed on
+    the plain path (it materialises the scores: small token counts only)."""
     B, H, nq, d = q.shape
     nk = k.shape[2]
     if scale is None:
         scale = d ** -0.5
+    if return_probs:
+        return _reference_attention(q, k, v, scale)
     out = _FlashAttention.apply(q.reshape(B * H, nq, d).contiguous(),
                                 k.reshape(B * H, nk, d).contiguous(),
                                 v.reshape(B * H, nk, d).contiguous(), scale)

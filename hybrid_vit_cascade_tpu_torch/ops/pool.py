@@ -6,8 +6,8 @@ hybrid_vit_cascade_tpu/ops/pool.py).
   the SSIM statistics), done separably, one axis at a time, in fp32.
 - ``avg_pool_nd``: torch ``F.avg_poolNd(count_include_pad=True)`` over the
   given axes.
-- ``max_pool_nd``: torch ``F.max_pool2d``, which pads with -inf as the JAX
-  module does.
+- ``max_pool_nd``: torch ``F.max_pool2d`` / ``F.max_pool3d``, which pad with
+  -inf as the JAX module does.
 """
 
 from __future__ import annotations
@@ -67,8 +67,10 @@ def box_filter_same(x: torch.Tensor, window: int, spatial_axes: Sequence[int]) -
 
 def max_pool_nd(x: torch.Tensor, window: int, stride: int | None = None,
                 padding: int = 0) -> torch.Tensor:
-    """torch F.max_pool2d over the (H, W) axes of an (N, C, H, W) tensor,
-    padded with -inf; stride defaults to the window."""
-    if x.dim() != 4:
-        raise ValueError(f"expected (N, C, H, W), got {tuple(x.shape)}")
-    return F.max_pool2d(x, window, stride=window if stride is None else stride, padding=padding)
+    """torch F.max_pool2d / F.max_pool3d over the spatial axes of an
+    (N, C, H, W) / (N, C, D, H, W) tensor, padded with -inf; stride defaults
+    to the window."""
+    pool = {4: F.max_pool2d, 5: F.max_pool3d}.get(x.dim())
+    if pool is None:
+        raise ValueError(f"expected (N, C, H, W) or (N, C, D, H, W), got {tuple(x.shape)}")
+    return pool(x, window, stride=window if stride is None else stride, padding=padding)

@@ -1,1 +1,2 @@
-"""Run logs of the port (counterpart of hybrid_vit_cascade_tpu/utils)."""
+"""Run logs and inference figures of the port (counterpart of
+hybrid_vit_cascade_tpu/utils)."""

@@ -51,6 +51,18 @@ def test_max_pool_matches_jax(rng, window, stride, padding):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("window,stride,padding", [(2, None, 0), (3, 2, 1)])
+def test_max_pool_3d_matches_jax(rng, window, stride, padding):
+    """The (N, C, D, H, W) form (the diagnostic perceptual net's pool)."""
+    x = _f32(rng, (2, 3, 7, 9, 6))
+    want = np.asarray(jax_max_pool(jnp.asarray(x), window, spatial_axes=(2, 3, 4),
+                                   stride=stride, padding=padding))
+    got = max_pool_nd(torch.from_numpy(x), window, stride=stride, padding=padding).numpy()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        max_pool_nd(torch.from_numpy(x[0, 0]), window)
+
+
 @pytest.mark.parametrize("shape,groups", [((2, 16, 4, 5, 6), 4), ((1, 32, 3, 3, 3), 8),
                                           ((2, 64, 5, 7), 32)])
 def test_group_norm_core_matches_jax(rng, shape, groups):
