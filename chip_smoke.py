@@ -159,6 +159,35 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    eval (one an item), none for inspect, and for diagnose stage 1's share
    (STAGE1_LAUNCHES) less its cross-attentions, which the capture takes on
    the plain path. Prints each command's wall time.
+14. The direct-regression families at their configs' full widths (bf16 over
+   fp32 weights from a seeded torch.Generator, written with
+   ``save_checkpoint`` and loaded through InferenceEngine):
+   ``DirectCTRegression`` of ``configs/direct_64.json`` reconstructs one
+   512² pair at batch 1 (finite (1, 1, 64³), launches
+   EXPECTED_LAUNCHES_DIRECT: its 4 × 4,096 × 4,096 × 64 self- and
+   cross-attentions on A's tensor-core instance, which [3] and [7] hold to
+   the plain version at that shape and [7] holds bitwise for D), then 5
+   timed reconstructs (volumes/s), then 1 + 3 train steps at the config's
+   batch 8 (finite losses, peak memory, launches per step: every flash
+   forward and backward and every bf16 B, C, E, F, G call on the instance
+   its rule names); ``cli train`` on a one-epoch copy of the config with 10
+   synthetic patients (latest, latest_opt, best_* written; the same
+   command again trains nothing and launches nothing), then ``cli infer``,
+   ``eval`` and ``diagnose`` on its ``best_psnr`` (the other-family metrics
+   psnr, psnr_dynamic, ssim, l1; diagnose captures ``["cross_attention"]``;
+   launches 2 ×, one × a test item and EXPECTED_LAUNCHES_DIRECT less the 4
+   captured cross-attentions). The CNN decoders (cuDNN, no hand-written
+   kernel launches): ``Direct128ModelH200`` of
+   ``configs/direct128_h200.json`` reconstructs (finite (1, 1, 128³), time,
+   peak) and takes 1 + 3 train steps at batch 2 with ``Direct256Loss`` at
+   128³ (finite losses, peak); ``cli transfer --init-only`` moves its
+   seeded checkpoint into a ``direct256_h200`` copy of that config
+   (transferred and skipped counts > 0), whose written entry reconstructs a
+   finite (1, 1, 256³); ``Direct256ModelB200`` of
+   ``configs/direct256_b200.json`` reconstructs a finite (1, 1, 256³).
+   Small-input references (fp32, card against CPU, 2e-4): a scaled
+   DirectCTRegression's forward and one deterministic step's loss and
+   gradients; ResidualDenseBlock, CBAM, UpConvStage and Direct256Loss at 16³.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -174,10 +203,13 @@ or its weight/data gradient, scaled_dot_product_attention forward or
 backward), all in bf16 at the kernel's hot shape; each row names the card
 and its power limit; launches are those of the main path: the reconstruct
 [4], the first step of each stage in [9], the training run of [11] (the only
-one that takes L and M), the probe run of [12] (the only one that takes N)
-and the serving commands of [13]. The probe rows are at N = 131,072, R = 64,
-and their library call is cuBLAS (``torch.mm`` over the same operands, R
-calls).
+one that takes L and M), the probe run of [12] (the only one that takes N),
+the serving commands of [13] and [14]'s direct_vit reconstruct, first train
+step and entry points; the rows of A and D also carry, under
+``direct_vit``, their time, plain time, bound and library time at the direct
+model's attention shape and their launches in [14]. The probe rows are at
+N = 131,072, R = 64, and their library call is cuBLAS (``torch.mm`` over
+the same operands, R calls).
 
 cuDNN and cuBLAS run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 are set False), so the fp32 plain
@@ -1497,6 +1529,20 @@ def tc_fwd_dispatch(dev, seed: int) -> dict:
 
 # ----------------------------------------------------- training entry point ---
 
+def _config_copy(src: Path, name: str, **overrides) -> Path:
+    """A copy of config ``src`` under build/ with dotted-key overrides."""
+    cfg = json.loads(src.read_text())
+    for key, value in overrides.items():
+        *path, leaf = key.split(".")
+        node = cfg
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    out = BUILD_DIR / name
+    out.write_text(json.dumps(cfg, indent=1))
+    return out
+
+
 def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
     """Phase 11: ``cli train`` on a copy of configs/quality_r5.json with the
     split flash backward, then resume, then serve from its checkpoint."""
@@ -1508,20 +1554,13 @@ def train_entry_point(dev, seed: int, fused_stage3_ms: float) -> dict:
     from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry
 
     t_phase = time.perf_counter()
-    cfg = json.loads(TRAIN_CONFIG.read_text())
     save_dir = BUILD_DIR / "cli_train"
     shutil.rmtree(save_dir, ignore_errors=True)
     overrides = {**{f"training.stages.stage{n}.num_epochs": 1 for n in (1, 2, 3)},
                  "data.synthetic_patients": 11, "training.viz_every": 0,
                  "checkpoints.save_dir": str(save_dir)}
-    for key, value in overrides.items():
-        *path, leaf = key.split(".")
-        node = cfg
-        for part in path:
-            node = node[part]
-        node[leaf] = value
-    copy = BUILD_DIR / "quality_r5_smoke.json"
-    copy.write_text(json.dumps(cfg, indent=1))
+    copy = _config_copy(TRAIN_CONFIG, "quality_r5_smoke.json", **overrides)
+    cfg = json.loads(copy.read_text())
     log(f"[11] cli train on {copy.relative_to(ROOT)}, a copy of {TRAIN_CONFIG.relative_to(ROOT)} "
         f"with {overrides}; widths, batches, schedule and losses are the config's "
         f"(freeze_shared_encoder_stage3 {cfg['training']['freeze_shared_encoder_stage3']}, "
@@ -1795,9 +1834,9 @@ STAGE1_LAUNCHES = {"flash_attention": 8, "flash_attention_tc": 8, "conv3d_k3s1":
 SERVING_INDEX = 0  # the synthetic patient that infer and diagnose take
 
 
-def _cli_json(cli, argv: list) -> tuple[dict, str, float, dict]:
-    """cli.main(argv) in this process with its output captured → (the JSON
-    it printed, the lines before it, wall seconds, launches counted from 0)."""
+def _cli_text(cli, argv: list) -> tuple[str, float, dict]:
+    """cli.main(argv) in this process with its output captured → (the
+    output, wall seconds, launches counted from 0)."""
     import contextlib
     import io
 
@@ -1810,10 +1849,15 @@ def _cli_json(cli, argv: list) -> tuple[dict, str, float, dict]:
         cli.main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    text = buf.getvalue()
+    return buf.getvalue(), time.perf_counter() - t0, launch_counts()
+
+
+def _cli_json(cli, argv: list) -> tuple[dict, str, float, dict]:
+    """_cli_text → (the JSON the command printed last, the lines before it,
+    wall seconds, launches)."""
+    text, wall, launched = _cli_text(cli, argv)
     start = text.index("\n{") + 1 if not text.startswith("{") else 0
-    return json.loads(text[start:]), text[:start], wall, launch_counts()
+    return json.loads(text[start:]), text[:start], wall, launched
 
 
 def _saved_volume(path: Path) -> torch.Tensor:
@@ -1943,6 +1987,336 @@ def serving_phase(dev, cfg) -> dict:
             "launches": total, "launches_by_command": launched, "infer_metrics": metrics,
             "eval_summary": ev, "test_items": len(rows), "diagnose": diag,
             "matplotlib": has_mpl}
+
+
+# ------------------------------------------------------ the direct families ---
+
+DIRECT_CONFIG = ROOT / "configs" / "direct_64.json"
+DIRECT128_CONFIG = ROOT / "configs" / "direct128_h200.json"
+DIRECT_B200_CONFIG = ROOT / "configs" / "direct256_b200.json"
+# One DirectCTRegression forward at configs/direct_64.json's widths (64³,
+# voxel_dim 256, depth 4, 4 heads, X-ray features 512 at 64² = 4,096 keys):
+# A in the 4 self- and 4 cross-attentions (4 × 4,096 × 4,096 × 64 both, on
+# the tensor cores), the 1→64 stride-2 stem (C, one-input-channel instance),
+# the 64→128 token-stem conv (C, tensor cores) and the 128→256 projection at
+# 16³ (B, tensor cores): stage 1's counts, the same backbone at the same widths.
+EXPECTED_LAUNCHES_DIRECT = STAGE1_LAUNCHES
+# A and D at the direct model's attention shape (BH, Nq, Nk, d): serving
+# batch 1 and the config's training batch 8; [3] and [7] check both (and D
+# bitwise) among the stage-1 shapes
+DIRECT_FLASH = {"flash_attention": (4, 4096, 4096, 64), "flash_attention_bwd": (32, 4096, 4096, 64)}
+DIRECT_PATIENTS = 10  # [14]'s cli train: 8 train, 1 val, 1 test at the config's splits
+
+
+def _timed_reconstruct(engine, xr, dev) -> dict:
+    """One warm-up reconstruct, then REPS timed ones (host clock ending in a
+    sync) and the peak memory of the last one."""
+    engine.reconstruct(xr)
+    times = []
+    for _ in range(REPS):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        engine.reconstruct(xr)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return {"ms": [t * 1e3 for t in times], "median_ms": med * 1e3, "volumes_per_s": 1.0 / med,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _check_direct_step(lc: dict, calls: dict, where: str) -> None:
+    """Every flash forward and backward of a bf16 direct_vit step on the
+    tensor cores, every bf16 B, C, E, F and G call on the instance its rule
+    names (tensor cores at Cin ≥ 8; the 1→64 stem and its dx, dW on the
+    one-input- and one-dx-channel instances), nothing on the CUDA cores."""
+    pairs = {"flash_attention": lc["flash_attention_tc"],
+             "flash_attention_bwd": lc["flash_attention_bwd_tc"],
+             "conv3d_k3s1": lc["conv3d_k3s1_tc"] - lc["conv3d_k3s1_dgrad"],
+             "conv3d_k3s1_wgrad": lc["conv3d_k3s1_wgrad_tc"],
+             "conv3d_k3s2": lc["conv3d_k3s2_tc"] + lc["conv3d_k3s2_c1in_tc"],
+             "conv3d_k3s2_dgrad": lc["conv3d_k3s2_dgrad_tc"] + lc["conv3d_k3s2_dgrad_c1in_tc"],
+             "conv3d_k3s2_wgrad": lc["conv3d_k3s2_wgrad_tc"] + lc["conv3d_k3s2_wgrad_c1in_tc"]}
+    off = {k: (lc[k], v) for k, v in pairs.items() if lc[k] != v or not v}
+    if off:
+        raise AssertionError(f"{where}: launches off their rule's instance or missing "
+                             f"(launched, on the instance): {off}")
+    if any(lc[k] != calls["n"][k] for k in _RULE_COUNTERS):
+        raise AssertionError(f"{where}: tensor-core launches differ from the calls the rules "
+                             f"name {calls['n']}: {lc}")
+    check_c1in(lc, calls["c1in"], where)
+
+
+def direct_reference(dev, seed: int) -> dict:
+    """Phase 14's small-input references, fp32, card (kernels, cuDNN with
+    TF32 off) against CPU (plain versions): a scaled DirectCTRegression's
+    eval forward and one deterministic train step's loss and gradients; a
+    ResidualDenseBlock, CBAM, UpConvStage and Direct256Loss at 16³."""
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.losses.direct256 import Direct256Loss
+    from hybrid_vit_cascade_tpu_torch.models import cnn_models as cm
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training.trainer import single_model_step
+
+    small = Config.from_json(str(DIRECT_CONFIG))
+    sm = small.model
+    sm.volume_size, sm.voxel_dim, sm.xray_feature_dim = (32, 32, 32), 128, 128
+    sm.vit_depth, sm.num_heads, sm.dtype, small.data.xray_size = 1, 4, "float32", 64
+    g = torch.Generator().manual_seed(seed + 50)
+    batch = {"drr_stacked": torch.rand((2, 2, 1, 64, 64), generator=g) * 2 - 1,
+             "ct_volume": torch.rand((2, 1, 32, 32, 32), generator=g) * 2 - 1}
+    x16 = {"rdb": torch.randn((1, 16, 16, 16, 16), generator=g),
+           "cbam": torch.randn((1, 32, 16, 16, 16), generator=g),
+           "upconv": torch.randn((1, 8, 8, 8, 8), generator=g)}
+    pred = torch.rand((1, 1, 16, 16, 16), generator=g) * 2 - 1
+    target = (0.6 * pred + 0.4 * torch.rand(pred.shape, generator=g)).clamp(-1, 1)
+    runs = {}
+    for where in ("cpu", dev):
+        model = seeded_init_(build_model(small), seed).to(where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            fwd = model.eval()(b["drr_stacked"]).cpu()
+        state, step = single_model_step(model, small, 1, 1e-4, train=False)
+        reset_launch_counts()
+        _, metrics = step(state, b, None)
+        launched = launch_counts()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+        torch.manual_seed(seed)
+        blocks = {"rdb": cm.ResidualDenseBlock(16, 24, 4), "cbam": cm.CBAM(32, 16),
+                  "upconv": cm.UpConvStage(8, 16, 8, ((8, 2),))}
+        with torch.no_grad():
+            outs = {k: blk.to(where)(x16[k].to(where)).cpu() for k, blk in blocks.items()}
+            loss = Direct256Loss()(pred.to(where), target.to(where))
+            loss = {k: v.cpu() for k, v in loss.items()}
+        runs[str(where)] = (fwd, metrics, grads, outs, loss, launched)
+    (f_c, m_c, g_c, o_c, l_c, _), (f_g, m_g, g_g, o_g, l_g, launched) = runs["cpu"], runs[str(dev)]
+    if sorted(g_c) != sorted(g_g) or not g_c:
+        raise AssertionError("[14] the card and the CPU step trained different parameters")
+    atol, rtol = SMALL_TOL
+    pairs = ([("forward", f_g, f_c)] + [(f"loss {k}", m_g[k].cpu(), m_c[k]) for k in m_c]
+             + [(f"grad {n}", g_g[n], w) for n, w in g_c.items()]
+             + [(f"{k} 16³", o_g[k], w) for k, w in o_c.items()]
+             + [(f"Direct256Loss {k}", l_g[k], w) for k, w in l_c.items()])
+    worst = {}
+    for name, got, want in pairs:
+        diff = (got.float() - want.float()).abs()
+        group = name.split()[0]
+        worst[group] = max(worst.get(group, 0.0), float(diff.max()))
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"[14] small reference {name}: card vs cpu max_abs_err "
+                                 f"{float(diff.max())}")
+    need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s1", "conv3d_k3s2",
+            "conv3d_k3s2_dgrad", "conv3d_k3s2_wgrad", "conv3d_k3s1_wgrad")
+    if any(launched[k] == 0 for k in need):
+        raise AssertionError(f"[14] the small step did not run every kernel of {need}: {launched}")
+    log(f"[14] small references (fp32, card vs cpu, tol {atol:g}+{rtol:g}|ref|): max_abs_err "
+        f"{ {k: f'{v:.3e}' for k, v in worst.items()} }; total_loss card "
+        f"{float(m_g['total_loss']):.6f} cpu {float(m_c['total_loss']):.6f}; {len(g_c)} gradients; "
+        f"launches of the step {({k: v for k, v in launched.items() if v})}")
+    return {"max_abs_err": worst, "launches": launched}
+
+
+def direct_phase(dev, seed: int) -> dict:
+    """Phase 14: the direct-regression families on their configs' widths."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import (
+        InferenceEngine,
+        build_model,
+        save_checkpoint,
+    )
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    t_phase = time.perf_counter()
+    rec = {}
+    for name, shape in DIRECT_FLASH.items():  # checked in [3] / [7] among stage 1's shapes
+        if shape not in {**KERNELS, **TRAIN_KERNELS}[name]["shapes"]:
+            raise AssertionError(f"[14] {name} is not checked at the direct shape {shape}")
+    xr = torch.rand((1, 2, 1, 512, 512), generator=torch.Generator().manual_seed(seed + 1))
+
+    # 14a DirectCTRegression at full width: one reconstruct with its launches
+    cfg = Config.from_json(str(DIRECT_CONFIG))
+    m = cfg.model
+    widths = (m.family, tuple(m.volume_size), m.voxel_dim, m.vit_depth, m.num_heads,
+              m.xray_feature_dim, m.dtype, cfg.data.xray_size, cfg.training.batch_size)
+    if widths != ("direct_vit", (64, 64, 64), 256, 4, 4, 512, "bfloat16", 512, 8):
+        raise AssertionError(f"{DIRECT_CONFIG.name} no longer holds the direct_vit widths: "
+                             f"{widths}")
+    ckpt = CKPT_DIR / "direct_vit_seeded.pt"
+    save_checkpoint(ckpt, cfg, seeded_init_(build_model(cfg), seed))
+    engine = InferenceEngine(ckpt, device=dev)
+    reset_launch_counts()
+    vol = engine.reconstruct(xr)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    counted = {k: v for k, v in launched.items() if v}
+    finite = bool(torch.isfinite(vol.float()).all())
+    if tuple(vol.shape) != (1, 1, 64, 64, 64) or not finite or counted != EXPECTED_LAUNCHES_DIRECT:
+        raise AssertionError(f"[14] direct_vit reconstruct: {tuple(vol.shape)} finite={finite}, "
+                             f"launches {counted} (expected {EXPECTED_LAUNCHES_DIRECT})")
+    t = _timed_reconstruct(engine, xr, dev)
+    log(f"[14] direct_vit reconstruct 64³ (batch 1, bf16): launches {counted} as expected; median "
+        f"{t['median_ms']:.2f} ms over {REPS} ({', '.join(f'{v:.2f}' for v in t['ms'])}); "
+        f"{t['volumes_per_s']:.2f} volumes/s; peak {t['peak_gb']:.2f} GB")
+    rec["direct_vit"] = {**t, "launches": launched}
+    del engine, vol
+
+    # 14b its training step at the config's batch
+    model = seeded_init_(build_model(cfg), seed).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    b = cfg.training.batch_size
+    with rule_calls() as rc:
+        r = train_steps(model, cfg, None, b, TRAIN_STEPS, g)
+    calls = {"n": {k: n / (1 + TRAIN_STEPS) for k, n in rc.n.items()},
+             "c1in": {k: n / (1 + TRAIN_STEPS) for k, n in rc.c1in_bf16.items()}}
+    lc = r["launches_per_step"]
+    r["train_direct_vit_64_b8_steps_per_sec"] = r.pop("steps_per_sec")
+    log(f"[14] direct_vit train step (64³, batch {b}, {r['trainable_params'] / 1e6:.1f} M "
+        f"parameters): {r['train_direct_vit_64_b8_steps_per_sec']:.3f} steps/s (steps "
+        f"{', '.join(f'{v:.1f}' for v in r['step_ms'])} ms; warm-up {r['warmup_s']:.2f} s); "
+        f"peak {r['peak_allocated_gb']:.2f} GB; total_loss "
+        f"{', '.join(f'{v:.5f}' for v in r['total_loss'])}; launches per step "
+        f"{({k: v for k, v in lc.items() if v})}")
+    if not all(math.isfinite(v) for v in r["total_loss"]):
+        raise AssertionError(f"[14] direct_vit: non-finite loss {r['total_loss']}")
+    _check_direct_step(lc, calls, "[14] direct_vit step")
+    rec["direct_vit_train"] = r
+    del model
+    torch.cuda.empty_cache()
+
+    # 14c the entry points on a one-epoch copy of the config
+    save_dir = BUILD_DIR / "direct_train"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    copy = _config_copy(DIRECT_CONFIG, "direct_64_smoke.json", **{
+        "training.num_epochs": 1, "data.synthetic": True,
+        "data.synthetic_patients": DIRECT_PATIENTS, "checkpoints.save_dir": str(save_dir)})
+    argv = ["train", "--config", str(copy), "--device", dev.type]
+    final, _, train_s, train_lc = _cli_json(cli, argv)
+    again, _, again_s, again_lc = _cli_json(cli, argv)
+    entries = sorted(p.name for p in save_dir.iterdir() if p.is_dir())
+    log(f"[14] cli train build/{copy.name}: {train_s:.1f} s, final {final['final']}, "
+        f"entries {entries}; again {again_s:.1f} s: {again}")
+    if (not {"latest", "latest_opt", "best_loss", "best_psnr", "best_ssim"} <= set(entries)
+            or not all(math.isfinite(v) for v in final["final"].values())
+            or again != {"final": {}} or any(again_lc.values())):
+        raise AssertionError(f"[14] cli train: {final}, {entries}; resumed run {again} "
+                             f"launched {again_lc}")
+    common = ["--checkpoint", str(save_dir / "best_psnr"), "--synthetic", "--device", dev.type]
+    infer, _, infer_s, infer_lc = _cli_json(cli, ["infer", *common,
+                                                  "--output", str(BUILD_DIR / "direct_infer")])
+    ev, _, eval_s, eval_lc = _cli_json(cli, ["eval", *common,
+                                             "--output", str(BUILD_DIR / "direct_eval.json")])
+    diag, _, diag_s, diag_lc = _cli_json(cli, ["diagnose", *common])
+    rows = json.loads((BUILD_DIR / "direct_eval.json").read_text())["per_sample"]
+    metrics = infer["metrics"]
+    saved = _saved_volume(Path(infer["exports"]["npy"]))
+    log(f"[14] cli infer {infer_s:.1f} s: {metrics}, .npy {tuple(saved.shape)}; "
+        f"eval {eval_s:.1f} s "
+        f"({len(rows)} items): { {k: round(v['mean'], 4) for k, v in ev.items()} }; diagnose "
+        f"{diag_s:.1f} s: captured {diag['captured_attention']}, {len(diag['losses'])} losses")
+    keys = ["psnr", "psnr_dynamic", "ssim", "l1"]
+    if (list(metrics) != keys or not all(math.isfinite(v) for v in metrics.values())
+            or tuple(saved.shape) != (64, 64, 64) or not bool(torch.isfinite(saved.float()).all())
+            or list(ev) != keys or not rows
+            or diag["captured_attention"] != ["cross_attention"]
+            or not all(math.isfinite(v) for v in diag["losses"].values())):
+        raise AssertionError(f"[14] serving: infer {infer}, eval {ev}, diagnose {diag}")
+    want = {"infer": {k: 2 * v for k, v in EXPECTED_LAUNCHES_DIRECT.items()},
+            "eval": {k: len(rows) * v for k, v in EXPECTED_LAUNCHES_DIRECT.items()},
+            "diagnose": {**EXPECTED_LAUNCHES_DIRECT, **{
+                k: EXPECTED_LAUNCHES_DIRECT[k] - m.vit_depth
+                for k in ("flash_attention", "flash_attention_tc")}}}
+    for cmd, got in (("infer", infer_lc), ("eval", eval_lc), ("diagnose", diag_lc)):
+        if {k: v for k, v in got.items() if v} != want[cmd]:
+            raise AssertionError(f"[14] {cmd} launched {got}, expected {want[cmd]}")
+    cli_lc = {k: sum(x[k] for x in (train_lc, infer_lc, eval_lc, diag_lc)) for k in train_lc}
+    rec["direct_cli"] = {"wall_s": {"train": train_s, "train_again": again_s, "infer": infer_s,
+                                    "eval": eval_s, "diagnose": diag_s},
+                         "final": final["final"], "infer_metrics": metrics, "eval_summary": ev,
+                         "captured_attention": diag["captured_attention"], "launches": cli_lc,
+                         "train_launches": train_lc}
+    torch.cuda.empty_cache()
+
+    # 14d Direct128ModelH200: reconstruct, train at the config's batch 2
+    cfg128 = Config.from_json(str(DIRECT128_CONFIG))
+    if (cfg128.model.family, cfg128.model.dtype, cfg128.training.batch_size) != (
+            "direct128_h200", "bfloat16", 2):
+        raise AssertionError(f"{DIRECT128_CONFIG.name} changed: {cfg128.model}")
+    ckpt128 = CKPT_DIR / "direct128_seeded.pt"
+    save_checkpoint(ckpt128, cfg128, seeded_init_(build_model(cfg128), seed))
+    decoders = {}
+
+    def serve(name, path, size):
+        engine = InferenceEngine(path, device=dev)
+        reset_launch_counts()
+        v = engine.reconstruct(xr)
+        torch.cuda.synchronize()
+        lc = {k: n for k, n in launch_counts().items() if n}
+        ok = tuple(v.shape) == (1, 1, size, size, size) and bool(torch.isfinite(v.float()).all())
+        t = _timed_reconstruct(engine, xr, dev)
+        log(f"[14] {name} reconstruct {size}³ (batch 1, bf16, "
+            f"{sum(p.numel() for p in engine.model.parameters()) / 1e6:.1f} M parameters"
+            f"): finite {ok}; median {t['median_ms']:.1f} ms over "
+            f"{REPS} ({', '.join(f'{x:.1f}' for x in t['ms'])}); peak {t['peak_gb']:.2f} GB; "
+            f"hand-written kernels launched {lc}")
+        if not ok or lc:  # the decoders are cuDNN's, as the JAX package's are XLA's
+            raise AssertionError(f"[14] {name}: {tuple(v.shape)} finite {ok}, launches {lc}")
+        decoders[name] = t
+
+    serve("direct128_h200", ckpt128, 128)
+    torch.cuda.empty_cache()
+    model = seeded_init_(build_model(cfg128), seed).to(dev)
+    r128 = train_steps(model, cfg128, None, 2, TRAIN_STEPS,
+                       torch.Generator(device=dev).manual_seed(seed + 41))
+    r128["train_direct128_h200_128_b2_steps_per_sec"] = r128.pop("steps_per_sec")
+    log(f"[14] direct128_h200 train step (128³, batch 2, Direct256Loss, remat): "
+        f"{r128['train_direct128_h200_128_b2_steps_per_sec']:.3f} steps/s (steps "
+        f"{', '.join(f'{v:.1f}' for v in r128['step_ms'])} ms; warm-up {r128['warmup_s']:.2f} s); "
+        f"peak {r128['peak_allocated_gb']:.2f} GB; total_loss "
+        f"{', '.join(f'{v:.5f}' for v in r128['total_loss'])}")
+    if not all(math.isfinite(v) for v in r128["total_loss"]):
+        raise AssertionError(f"[14] direct128_h200: non-finite loss {r128['total_loss']}")
+    rec["direct128_train"] = r128
+    del model
+    torch.cuda.empty_cache()
+
+    # 14e cli transfer of it into direct256_h200, then serve the written entry
+    tdir = BUILD_DIR / "direct_transfer"
+    shutil.rmtree(tdir, ignore_errors=True)
+    copy256 = _config_copy(DIRECT128_CONFIG, "direct256_h200_smoke.json", **{
+        "model.family": "direct256_h200", "data.synthetic": True, "data.synthetic_patients": 4,
+        "checkpoints.save_dir": str(tdir)})
+    text, transfer_s, transfer_lc = _cli_text(cli, ["transfer", "--from-checkpoint",
+                                                    str(ckpt128), "--init-only", "--config",
+                                                    str(copy256), "--device", dev.type])
+    line = text.strip().splitlines()[-1]
+    counts = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+    log(f"[14] cli transfer {ckpt128.name} → {copy256.name} --init-only: "
+        f"{transfer_s:.1f} s; {line}")
+    if not line.startswith("transfer: ") or len(counts) < 2 or min(counts[:2]) <= 0 \
+            or any(transfer_lc.values()):
+        raise AssertionError(f"[14] transfer: {text!r}, launches {transfer_lc}")
+    serve("direct256_h200", tdir / "latest", 256)
+    torch.cuda.empty_cache()
+
+    # 14f Direct256ModelB200
+    cfgb = Config.from_json(str(DIRECT_B200_CONFIG))
+    ckptb = CKPT_DIR / "direct256_b200_seeded.pt"
+    save_checkpoint(ckptb, cfgb, seeded_init_(build_model(cfgb), seed))
+    serve("direct256_b200", ckptb, 256)
+    torch.cuda.empty_cache()
+    rec["decoders"] = decoders
+    rec["transfer"] = {"line": line, "transferred": counts[0], "skipped": counts[1],
+                       "wall_s": transfer_s}
+
+    # 14g small-input references
+    rec["reference"] = direct_reference(dev, seed)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[14] phase {rec['phase_s']:.1f} s")
+    return rec
 
 
 def main() -> int:
@@ -2156,14 +2530,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["serving"] = serving_phase(dev, cfg)
 
+    # 14. the direct-regression families
+    torch.cuda.empty_cache()
+    record["direct"] = direct_phase(dev, args.seed)
+
     # launches on the main path: the reconstruct [4], the first step of each
-    # stage in [9], the cli train run of [11], the probe run of [12] and the
-    # serving commands of [13], each counted from 0
+    # stage in [9], the cli train run of [11], the probe run of [12], the
+    # serving commands of [13] and [14]'s direct_vit reconstruct, first train
+    # step and entry points, each counted from 0
+    direct = record["direct"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
               "cli_train": record["train_entry_point"]["launches"],
               "conv_probe": record["probe"]["launches"],
-              "cli_serving": record["serving"]["launches"]}
+              "cli_serving": record["serving"]["launches"],
+              "direct_vit_reconstruct": direct["direct_vit"]["launches"],
+              "direct_vit_train": direct["direct_vit_train"]["launches_per_step"],
+              "direct_vit_cli": direct["direct_cli"]["launches"]}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
@@ -2185,6 +2568,14 @@ def main() -> int:
                 for sh in spec["library_at"]]
         if "exp2_ms" in terms:
             kernels[-1]["bound_note"] = _EXP2_NOTE
+        if name in DIRECT_FLASH:  # the direct model's attention shape, and its launches there
+            sh = DIRECT_FLASH[name]
+            d_runs = {k: by_run[k][name] for k in by_run if k.startswith("direct_vit")}
+            kernels[-1]["direct_vit"] = {
+                "at": f"{sh} bf16", "ms": rows[(name, sh)][0], "plain_ms": rows[(name, sh)][1],
+                "bound_ms": bound(name, sh, exp2_rate=exp2_rate)[0],
+                "library_ms": library_ms(name, sh, dev, args.seed), "launches": sum(d_runs.values()),
+                "launches_by_run": d_runs}
         if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
             fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in_fp32"] for run, counts in by_run.items()}
             kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),

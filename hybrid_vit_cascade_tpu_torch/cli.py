@@ -1,7 +1,8 @@
 """Command line of the port (counterpart of hybrid_vit_cascade_tpu/cli.py):
 ``python -m hybrid_vit_cascade_tpu_torch.cli <cmd>``.
 
-  train    — the cascade, stagewise, from a JSON config
+  train    — a model family from a JSON config (the cascade stagewise)
+  transfer — shape-matched weight transfer into a config's model, then train
   infer    — checkpoint → .npy / NIfTI / PNG export and the item's metrics
   eval     — whole-test-split metric summary (evaluation_metrics.json)
   diagnose — the diagnostic suite and health grades of one reconstruction
@@ -12,9 +13,9 @@ Each takes the JAX command's flags and config semantics (``_load_cfg``) plus
 kernels); a command that reads a checkpoint reads its embedded config, and
 ``infer``, ``eval`` and ``diagnose`` build the dataset at the model's top
 resolution. As in the JAX package, ``train``'s ``--epochs`` sets
-``training.num_epochs``, which the cascade's stagewise training does not
-read (each stage has its own ``num_epochs``), and ``--lr`` is not read by it
-either. Not ported yet: ``transfer``, ``export``, ``bench``, ``dryrun``.
+``training.num_epochs`` and ``--lr`` overrides the learning rate, which the
+single-model families read and the cascade's stagewise training does not
+(each stage has its own). Not ported yet: ``export``, ``bench``, ``dryrun``.
 """
 
 from __future__ import annotations
@@ -56,6 +57,31 @@ def cmd_train(args) -> None:
     trainer = Trainer(cfg, device=args.device)
     metrics = trainer.fit(lr_override=args.lr, resume=not args.no_resume)
     print(json.dumps({"final": metrics}))
+
+
+def cmd_transfer(args) -> None:
+    """Shape-matched transfer (e.g. a 128³ decoder's weights into the 256³
+    one): every parameter of the config's model whose name and shape a
+    parameter of ``--from-checkpoint`` has is copied, the rest keep their
+    init; the result is written as ``save_dir/latest`` at epoch −1 (no
+    optimizer state), from which ``fit`` then trains unless ``--init-only``."""
+    from .inference.infer import load_checkpoint
+    from .training.checkpoint import shape_matched_transfer
+    from .training.trainer import Trainer
+
+    cfg = _load_cfg(args)
+    trainer = Trainer(cfg, device=args.device)
+    _, loaded = load_checkpoint(args.from_checkpoint)
+    params = {k: p.detach() for k, p in trainer.model.named_parameters()}
+    new, transferred, skipped = shape_matched_transfer(params, loaded)
+    print(f"transfer: {transferred} leaves transferred, {skipped} skipped "
+          f"({transferred / max(transferred + skipped, 1) * 100:.1f}%)")
+    trainer.model.load_state_dict({**trainer.model.state_dict(), **new})
+    trainer.ckpt.save({"state_dict": trainer._state_dict_cpu()}, epoch=-1, metrics={},
+                      config=cfg.to_dict())
+    if not args.init_only:
+        metrics = trainer.fit(lr_override=args.lr, resume=True)
+        print(json.dumps({"final": metrics}))
 
 
 def _dataset(args, cfg, num_patients: int):
@@ -150,7 +176,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hybrid_vit_cascade_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train a model family (the cascade, stagewise)")
+    t = sub.add_parser("train", help="train a model family (the cascade stagewise)")
     t.add_argument("--config", default=None)
     t.add_argument("--family", default=None)
     t.add_argument("--synthetic", action="store_true")
@@ -198,6 +224,20 @@ def main(argv=None) -> None:
     dg.add_argument("--output", default=None, help="optional JSON path")
     _device_flag(dg)
     dg.set_defaults(fn=cmd_diagnose)
+
+    x = sub.add_parser("transfer",
+                       help="shape-matched weight transfer (e.g. 128³→256³) then train")
+    x.add_argument("--from-checkpoint", required=True, help="source checkpoint file or entry")
+    x.add_argument("--config", default=None)
+    x.add_argument("--family", default=None)
+    x.add_argument("--synthetic", action="store_true")
+    x.add_argument("--epochs", type=int, default=None)
+    x.add_argument("--lr", type=float, default=None)
+    x.add_argument("--save-dir", default=None)
+    x.add_argument("--data-path", default=None)
+    x.add_argument("--init-only", action="store_true", help="only write the transferred init")
+    _device_flag(x)
+    x.set_defaults(fn=cmd_transfer)
 
     n = sub.add_parser("inspect", help="dump checkpoint keys/shapes")
     n.add_argument("--checkpoint", required=True)

@@ -12,7 +12,8 @@ and the chain ``*_kernel`` parameters are already OIDHW and copy as they
 are; the stage-1 seed volume moves from NDHWC to NCDHW. BatchNorm running
 statistics come from ``batch_stats``. ``vgg16`` converts the perceptual
 loss's VGG variables, ``diagnostic_nets`` the diagnostic suite's three frozen
-nets.
+nets, ``direct256_nets`` the CNN decoders' loss nets. The CNN decoders keep
+flax's module names, so ``flax_tree`` converts them by walking the tree.
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _volume(a) -> torch.Tensor:
+    """A seed volume (1, D, H, W, C) → (1, C, D, H, W)."""
+    return _t(a).permute(0, 4, 1, 2, 3).contiguous()
+
+
 def _dense(p: Mapping, prefix: str, sd: StateDict) -> None:
     sd[prefix + "weight"] = _t(p["kernel"]).T.contiguous()
     if "bias" in p:
@@ -45,7 +51,8 @@ def _flax_conv(p: Mapping, prefix: str, sd: StateDict) -> None:
     k = _t(p["kernel"])
     perm = (k.dim() - 1, k.dim() - 2) + tuple(range(k.dim() - 2))  # (k…, I, O) → (O, I, k…)
     sd[prefix + "weight"] = k.permute(*perm).contiguous()
-    sd[prefix + "bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[prefix + "bias"] = _t(p["bias"])
 
 
 def _ncdhw_conv(p: Mapping, prefix: str, sd: StateDict) -> None:
@@ -138,7 +145,7 @@ def cascade(variables: Mapping) -> StateDict:
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: StateDict = {}
     s1 = params["stage1"]
-    sd["stage1.initial_volume"] = _t(s1["initial_volume"]).permute(0, 4, 1, 2, 3).contiguous()
+    sd["stage1.initial_volume"] = _volume(s1["initial_volume"])
     sd.update(multiscale_encoder(s1["xray_encoder"], stats["stage1"]["xray_encoder"],
                                  "stage1.xray_encoder."))
     sd.update(vit3d(s1["vit_backbone"], "stage1.vit_backbone."))
@@ -198,3 +205,46 @@ def diagnostic_nets(perceptual_vars: Mapping, extractor_vars: Mapping,
     return {"perceptual": _conv_stack(perceptual_vars["params"]),
             "extractor": _conv_stack(extractor_vars["params"], norms="norms."),
             "lpips": _conv_stack(lpips_vars["params"])}
+
+
+def flax_tree(p: Mapping, prefix: str = "") -> StateDict:
+    """A params tree whose module names the port keeps (the CNN decoders,
+    their encoders and blocks, the loss nets): a leaf module with a 2D
+    ``kernel`` is a Dense, with a higher-rank one a flax nn.Conv, with a
+    ``scale`` a norm; ``initial_volume`` moves to NCDHW; every other entry is
+    a submodule of the same name."""
+    sd: StateDict = {}
+    for name, v in p.items():
+        if name == "initial_volume":
+            sd[prefix + name] = _volume(v)
+        elif "kernel" in v:
+            (_dense if np.ndim(v["kernel"]) == 2 else _flax_conv)(v, f"{prefix}{name}.", sd)
+        elif "scale" in v:
+            _norm(v, f"{prefix}{name}.", sd)
+        else:
+            sd.update(flax_tree(v, f"{prefix}{name}."))
+    return sd
+
+
+def cnn_decoder(variables: Mapping) -> StateDict:
+    """Direct128ModelH200, Direct256ModelH200 or Direct256ModelB200 (no
+    batch statistics: GroupNorm only)."""
+    return flax_tree(variables["params"])
+
+
+def direct_regression(variables: Mapping) -> StateDict:
+    """DirectCTRegression: the BatchNorm encoder with its running statistics,
+    the seed volume and the channels-last-stem ViT."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = xray_conditioning(params["xray_encoder"], stats["xray_encoder"], "xray_encoder.")
+    sd["initial_volume"] = _volume(params["initial_volume"])
+    sd.update(vit3d(params["vit_backbone"], "vit_backbone."))
+    return sd
+
+
+def direct256_nets(pyramid_vars: Mapping, style_vars: Mapping, attention_vars: Mapping) -> dict:
+    """The JAX ``Direct256Loss``'s frozen nets (``_pyr_vars``, ``_style_vars``,
+    ``_attn_vars``) → the ``weights=`` of the port's ``Direct256Loss``."""
+    return {"pyramid": flax_tree(pyramid_vars["params"]),
+            "style": flax_tree(style_vars["params"]),
+            "attention": flax_tree(attention_vars["params"])}

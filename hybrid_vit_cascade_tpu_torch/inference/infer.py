@@ -1,8 +1,9 @@
-"""Checkpoint-driven cascade inference and its exports (counterpart of
-hybrid_vit_cascade_tpu/inference/infer.py and of the cascade branch of
-``build_model`` in hybrid_vit_cascade_tpu/training/trainer.py): reconstruct,
-per-stage and whole-dataset metrics, the diagnostic suite with live
-cross-attention capture, ``.npy`` / NIfTI / PNG export with optional
+"""Checkpoint-driven inference and its exports (counterpart of
+hybrid_vit_cascade_tpu/inference/infer.py and of ``build_model`` in
+hybrid_vit_cascade_tpu/training/trainer.py): reconstruct, per-stage (the
+cascade) or whole-volume (the other families) metrics and whole-dataset
+summaries, the diagnostic suite with live cross-attention capture (the
+families with attention), ``.npy`` / NIfTI / PNG export with optional
 trilinear upscale and HU denormalisation, the raw X-ray-pair loader and the
 checkpoint inspector.
 
@@ -16,13 +17,13 @@ plus its ``meta.json``.
 The PNG writers need matplotlib: without it ``export`` prints a message and
 leaves their keys out of the paths it returns. Not ported: ``export_serving``
 and ``load_serving`` (a StableHLO artifact; the kernels are not registered
-with ``torch.library``, so ``torch.export`` cannot trace them yet), and
-``evaluate_sample``'s branch for the families other than the cascade, which
-``build_model`` does not build yet.
+with ``torch.library``, so ``torch.export`` cannot trace them yet), and the
+diffusion family, which ``build_model`` refuses.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -31,12 +32,16 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..losses.metrics import mae, psnr, ssim_metric
+from ..losses.metrics import mae, psnr, psnr_dynamic_range, ssim_metric
+from ..models import cnn_models
 from ..models.cascade import ProgressiveCascadeModel
+from ..models.direct import DirectCTRegression
 from ..ops.resize import resize_trilinear
 from ..training.checkpoint import load_entry
 
 _STAGE_PREFIXES = {1: ("xray_encoder.", "stage2.", "stage3."), 2: ("stage3.",), 3: ()}
+# the model families build_model builds (all but diffusion)
+PORTED_FAMILIES = ("cascade", "direct_vit", "direct128_h200", "direct256_h200", "direct256_b200")
 
 
 def denormalize_ct(volume: np.ndarray, normalization: str = "soft_tissue") -> np.ndarray:
@@ -131,19 +136,32 @@ def inspect_checkpoint(ckpt_path: str | Path) -> Dict:
     return report
 
 
-def build_model(cfg: Config, built_stages: int = 3) -> ProgressiveCascadeModel:
-    """The model a config names: fp32 parameters, compute in cfg.model.dtype.
-    Only the cascade family is ported so far."""
+def build_model(cfg: Config, built_stages: int = 3) -> torch.nn.Module:
+    """The model a config names: fp32 parameters, compute in cfg.model.dtype
+    (JAX ``trainer.py:63-95``). ``built_stages`` applies to the cascade. The
+    CNN decoders take the config's ``use_gradient_checkpointing`` as
+    ``remat``; ``DirectCTRegression`` takes no remat, as in JAX. The diffusion family is
+    not ported."""
     m = cfg.model
-    if m.family != "cascade":
-        raise NotImplementedError(f"model family {m.family!r} is not ported yet (cascade only)")
+    if m.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"model family {m.family!r} is not ported yet")
     dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
-    return ProgressiveCascadeModel(
-        xray_feature_dim=m.xray_feature_dim, voxel_dim=m.voxel_dim,
-        stage_depths=tuple(m.stage_depths), stage_heads=tuple(m.stage_heads),
-        stage_sizes=tuple(m.stage_sizes), dtype=dtype, built_stages=built_stages,
-        use_gradient_checkpointing=m.use_gradient_checkpointing, remat_mode=m.remat_mode,
-        stage3_slab_scan=m.stage3_slab_scan, slab_count=m.slab_count, slab_impl=m.slab_impl)
+    if m.family == "cascade":
+        return ProgressiveCascadeModel(
+            xray_feature_dim=m.xray_feature_dim, voxel_dim=m.voxel_dim,
+            stage_depths=tuple(m.stage_depths), stage_heads=tuple(m.stage_heads),
+            stage_sizes=tuple(m.stage_sizes), dtype=dtype, built_stages=built_stages,
+            use_gradient_checkpointing=m.use_gradient_checkpointing, remat_mode=m.remat_mode,
+            stage3_slab_scan=m.stage3_slab_scan, slab_count=m.slab_count, slab_impl=m.slab_impl)
+    if m.family == "direct_vit":
+        return DirectCTRegression(tuple(m.volume_size), m.voxel_dim, m.vit_depth, m.num_heads,
+                                  m.xray_feature_dim, dtype)
+    remat = m.use_gradient_checkpointing
+    if m.family == "direct128_h200":
+        return cnn_models.Direct128ModelH200(m.xray_feature_dim, dtype=dtype, remat=remat)
+    if m.family == "direct256_h200":
+        return cnn_models.Direct256ModelH200(m.xray_feature_dim, dtype=dtype, remat=remat)
+    return cnn_models.Direct256ModelB200(dtype=dtype, remat=remat)
 
 
 def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> None:
@@ -165,9 +183,9 @@ def load_checkpoint(path: str | Path) -> tuple[dict, dict]:
 class InferenceEngine:
     """Load a checkpoint (+ embedded config) and reconstruct volumes.
 
-    max_stage: the deepest stage to build and load — pass 2 to load a
-    stage-pruned checkpoint (or to skip stage 3's weights) and serve stages
-    ≤ 2."""
+    max_stage (the cascade): the deepest stage to build and load — pass 2 to
+    load a stage-pruned checkpoint (or to skip stage 3's weights) and serve
+    stages ≤ 2."""
 
     def __init__(self, checkpoint_path: str | Path, config: Optional[Config] = None,
                  device: str | torch.device = "cuda", max_stage: int = 3):
@@ -178,7 +196,7 @@ class InferenceEngine:
         model = build_model(self.cfg, built_stages=max_stage)
         state = dict(state)
         extra = [k for k in state if k not in model.state_dict()]
-        pruned = _STAGE_PREFIXES[max_stage]
+        pruned = _STAGE_PREFIXES[max_stage] if self.cascade else ()
         bad = [k for k in extra if not k.startswith(pruned)]
         if bad:
             raise KeyError(f"checkpoint keys the model does not have: {bad[:5]}")
@@ -187,12 +205,20 @@ class InferenceEngine:
         model.load_state_dict(state, strict=True)
         self.model = model.to(self.device).eval()
 
+    @property
+    def cascade(self) -> bool:
+        return self.cfg.model.family == "cascade"
+
     def reconstruct(self, xrays, max_stage: Optional[int] = None,
                     return_intermediate: bool = False):
         """xrays (B, 2, 1, S, S) → (B, 1, D, H, W) on the engine's device in
-        the model's compute dtype, or a {"stage1": ..., ...} dict."""
+        the model's compute dtype, or (the cascade) a {"stage1": ..., ...}
+        dict. The other families have one output and read neither option, as
+        in JAX."""
         x = torch.as_tensor(xrays, dtype=torch.float32).to(self.device)
         with torch.inference_mode():
+            if not self.cascade:
+                return self.model(x)
             return self.model(x, return_intermediate=return_intermediate,
                               max_stage=self.max_stage if max_stage is None else max_stage)
 
@@ -200,18 +226,22 @@ class InferenceEngine:
         return torch.as_tensor(item["ct_volume"][None], dtype=torch.float32).to(self.device)
 
     def evaluate_sample(self, item: Dict, max_stage: Optional[int] = None) -> Dict[str, float]:
-        """PSNR / SSIM / L1 of one dataset item against its target resized to
-        each stage's output (trilinear, align_corners=False): ``stageN_psnr``,
-        ``stageN_ssim``, ``stageN_l1``. The metrics see the output in its
-        compute dtype, promoted to fp32. The cascade is the one family the
-        port builds; the other families' branch (with ``psnr_dynamic``) comes
-        with the first of them."""
+        """The metrics of one dataset item against its target resized to the
+        output (trilinear, align_corners=False), the output in its compute
+        dtype promoted to fp32. The cascade: ``stageN_psnr``, ``stageN_ssim``,
+        ``stageN_l1`` for each stage up to max_stage; the other families:
+        ``psnr``, ``psnr_dynamic``, ``ssim``, ``l1``."""
         from ..training.trainer import resize_target
 
-        if self.cfg.model.family != "cascade":
+        if self.cfg.model.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"model family {self.cfg.model.family!r} is not ported")
         xr = item["drr_stacked"][None]
         target = self._target(item)
+        if not self.cascade:
+            vol = self.reconstruct(xr)
+            t = resize_target(target, vol.shape[-3:])
+            return {"psnr": float(psnr(vol, t)), "psnr_dynamic": float(psnr_dynamic_range(vol, t)),
+                    "ssim": float(ssim_metric(vol, t)), "l1": float(mae(vol, t))}
         metrics: Dict[str, float] = {}
         outs = self.reconstruct(xr, max_stage=max_stage, return_intermediate=True)
         for stage, vol in outs.items():
@@ -236,9 +266,11 @@ class InferenceEngine:
         return summary
 
     def diagnose(self, item: Dict, max_stage: int = 1) -> Dict:
-        """The diagnostic suite and health grades of one item's reconstruction,
-        with stage 1's cross-attention probabilities captured live (they take
-        the plain path for that forward; every other attention launches its
+        """The diagnostic suite and health grades of one item's reconstruction
+        (the cascade's up to ``max_stage``), with the cross-attention
+        probabilities captured live where the model has attention (the
+        cascade's stage 1, every block of DirectCTRegression; they take the
+        plain path for that forward, every other attention launches its
         kernel). The fp32 volume stands in as both prediction and x0, the
         resized target as both target and ground truth."""
         from ..losses.diagnostics import DiagnosticLosses, analyze_component_health
@@ -247,9 +279,12 @@ class InferenceEngine:
 
         xr = torch.as_tensor(item["drr_stacked"][None], dtype=torch.float32).to(self.device)
         target = self._target(item)
+        kw = {"max_stage": max_stage} if self.cascade else {}
+        capture = (self.model.capture_attention() if hasattr(self.model, "capture_attention")
+                   else contextlib.nullcontext())
         with torch.inference_mode():
-            with self.model.capture_attention():
-                vol = self.model(xr, max_stage=max_stage)
+            with capture:
+                vol = self.model(xr, **kw)
                 maps = collect_attention_maps(self.model)
             vol = vol.float()
             t = resize_target(target, vol.shape[-3:])

@@ -1,4 +1,4 @@
-"""X-ray CNN encoders (counterpart of hybrid_vit_cascade_tpu/models/encoders.py:38-120).
+"""X-ray CNN encoders (counterpart of hybrid_vit_cascade_tpu/models/encoders.py).
 
 Feature maps are NCHW here (the JAX package is channels-last); the X-ray
 input keeps the reference layout (B, V, 1, H, W). The 2D convs, BatchNorm
@@ -6,8 +6,12 @@ and max pooling are plain torch ops, as the JAX package leaves them to XLA.
 BatchNorm and the down blocks' GroupNorm follow flax's numerics (statistics,
 normalisation and affine in fp32, then one cast to the compute dtype).
 ``train=True`` normalises BatchNorm with the batch statistics and updates
-the running ones, as flax does under ``mutable=["batch_stats"]``. Only the
-cascade's two encoders are ported so far.
+the running ones, as flax does under ``mutable=["batch_stats"]``.
+
+``SimpleXrayEncoder`` and ``XRayEncoderB200`` (the CNN decoders' encoders)
+take the two views as two input channels and keep flax's auto-names
+(``Conv_i``, ``GroupNorm_i``) as module names, so ``convert.flax_tree``
+walks them and ``shape_matched_transfer`` pairs what the JAX function pairs.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv3d import GroupNormNCDHW
+from ..ops.conv3d import GroupNormNCDHW, group_norm_groups
 from ..ops.pool import max_pool_nd
 from .layers import Linear
 
@@ -139,3 +143,45 @@ class MultiScaleXrayEncoder(nn.Module):
         for name in _BRANCHES[stage]:
             feats = self.down[name](feats)
         return feats, time_xray_cond, xray_context
+
+
+class _ViewsAsChannelsEncoder(nn.Module):
+    """(B, 2, 1, H, W) → (B, C, H/16, W/16): four stride-2 conv → GroupNorm
+    (flax numerics) → act stages over the two views as channels."""
+
+    def __init__(self, plan, act, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.act = act
+        self.n = len(plan)
+        cin = 2
+        for i, (ch, k, s, p, g) in enumerate(plan):
+            self.add_module(f"Conv_{i}", Conv2d(cin, ch, k, stride=s, padding=p, dtype=dtype))
+            self.add_module(f"GroupNorm_{i}",
+                            GroupNormNCDHW(group_norm_groups(g, ch), ch, dtype, flax=True))
+            cin = ch
+
+    def forward(self, xrays: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = xrays[:, :, 0].to(self.dtype)  # (B, V, H, W): views as channels
+        for i in range(self.n):
+            x = self.act(getattr(self, f"GroupNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        return x
+
+
+class SimpleXrayEncoder(_ViewsAsChannelsEncoder):
+    """The H200 CNN decoders' encoder: 64/128/256/feature_dim channels, GELU
+    (JAX ``encoders.py:123``)."""
+
+    def __init__(self, feature_dim: int = 512, dtype: torch.dtype = torch.float32):
+        plan = [(64, 7, 2, 3, 16), (128, 3, 2, 1, 32), (256, 3, 2, 1, 64),
+                (feature_dim, 3, 2, 1, 64)]
+        super().__init__(plan, F.gelu, dtype)
+
+
+class XRayEncoderB200(_ViewsAsChannelsEncoder):
+    """The B200 decoder's 128-channel encoder: 32/64/96/128 channels, ReLU
+    (JAX ``encoders.py:141``)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        plan = [(32, 7, 2, 3, 8), (64, 3, 2, 1, 8), (96, 3, 2, 1, 16), (128, 3, 2, 1, 16)]
+        super().__init__(plan, F.relu, dtype)

@@ -162,22 +162,85 @@ def group_norm_core(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _GroupNormCore.apply(x, scale, bias, num_groups)
 
 
+# fp32 bytes of the groups group_norm_flax normalises at once: a 256³ map of
+# 192 channels is 12.9 GB in fp32, so its groups go in slices
+GN_CHUNK_BYTES = 1 << 30
+
+
+def group_norm_groups(groups: int, channels: int) -> int:
+    """The largest group count ≤ ``groups`` that divides ``channels`` (the JAX
+    package's ``_gn``, ``models/encoders.py:29``, and the decoders'
+    ``_rdb_groups`` / ``_fusion_groups``)."""
+    g = min(groups, channels)
+    while channels % g != 0:
+        g -= 1
+    return g
+
+
+class _GroupNormFlax(torch.autograd.Function):
+    """flax ``nn.GroupNorm`` forward and its exact gradient, GN_CHUNK_BYTES
+    of groups at a time, saving only x and the per-(batch, group) fp32 mean
+    and 1/std: the normalised values are recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int, dtype: torch.dtype):
+        B, C = x.shape[:2]
+        G = num_groups
+        xr = x.unflatten(1, (G, C // G))
+        red = tuple(range(2, xr.dim()))
+        cshape = (1, G, C // G) + (1,) * (x.dim() - 2)
+        sc, bi = scale.float().reshape(cshape), bias.float().reshape(cshape)
+        step = max(1, GN_CHUNK_BYTES // (4 * max(1, xr[:, :1].numel())))
+        outs, means, rstds = [], [], []
+        for g in range(0, G, step):
+            xc = xr[:, g:g + step].float()
+            mean = xc.mean(dim=red, keepdim=True)
+            var = ((xc * xc).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
+            rstd = torch.rsqrt(var + 1e-5)
+            outs.append(((xc - mean) * (rstd * sc[:, g:g + step]) + bi[:, g:g + step]).to(dtype))
+            means.append(mean)
+            rstds.append(rstd)
+        ctx.save_for_backward(x, scale, torch.cat(means, 1), torch.cat(rstds, 1))
+        ctx.meta = (G, step, bias.dtype)
+        return (outs[0] if len(outs) == 1 else torch.cat(outs, 1)).flatten(1, 2)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, mean, rstd = ctx.saved_tensors
+        G, step, bias_dtype = ctx.meta
+        B, C = x.shape[:2]
+        xr, gr = x.unflatten(1, (G, C // G)), gy.unflatten(1, (G, C // G))
+        red = tuple(range(2, xr.dim()))  # a (batch, group)'s elements
+        per_channel = (0,) + tuple(range(3, xr.dim()))
+        sc = scale.float().reshape((1, G, C // G) + (1,) * (x.dim() - 2))
+        dxs, dscale, dbias = [], [], []
+        for g in range(0, G, step):
+            s = slice(g, g + step)
+            xhat = (xr[:, s].float() - mean[:, s]) * rstd[:, s]
+            gc = gr[:, s].float()
+            dbias.append(gc.sum(dim=per_channel))
+            dscale.append((gc * xhat).sum(dim=per_channel))
+            if ctx.needs_input_grad[0]:
+                gs = gc * sc[:, s]
+                m1 = gs.mean(dim=red, keepdim=True)
+                m2 = (gs * xhat).mean(dim=red, keepdim=True)
+                dxs.append(((gs - m1 - xhat * m2) * rstd[:, s]).to(x.dtype))
+        dx = None
+        if dxs:
+            dx = (dxs[0] if len(dxs) == 1 else torch.cat(dxs, 1)).flatten(1, 2)
+        return (dx, torch.cat(dscale).reshape(C).to(scale.dtype),
+                torch.cat(dbias).reshape(C).to(bias_dtype), None, None)
+
+
 def group_norm_flax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     num_groups: int, dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.GroupNorm(epsilon=1e-5)`` on (B, C, *spatial), in the order
     of flax's ``_compute_stats`` and ``_normalize``: x promoted to fp32,
     mean and E[x²] in fp32, var = max(0, E[x²] − mean²), then
-    y = (x − mean)·(rsqrt(var + eps)·scale) + bias in fp32, cast to ``dtype``."""
-    B, C = x.shape[:2]
-    G = num_groups
-    xr = x.float().reshape(B, G, C // G, *x.shape[2:])
-    red = tuple(range(2, xr.dim()))
-    mean = xr.mean(dim=red, keepdim=True)
-    var = ((xr * xr).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
-    cshape = (1, G, C // G) + (1,) * (x.dim() - 2)
-    mul = torch.rsqrt(var + 1e-5) * scale.float().reshape(cshape)
-    y = (xr - mean) * mul + bias.float().reshape(cshape)
-    return y.reshape(x.shape).to(dtype)
+    y = (x − mean)·(rsqrt(var + eps)·scale) + bias in fp32, cast to ``dtype``.
+    Groups go GN_CHUNK_BYTES of fp32 at a time (each group's numbers are the
+    same either way). Differentiable, saving x and per-group statistics only."""
+    return _GroupNormFlax.apply(x, scale, bias, num_groups, dtype)
 
 
 class ConvNCDHW(nn.Conv3d):

@@ -1,15 +1,24 @@
-"""Time, profile and size the staged train step of the cascade.
+"""Time, profile and size a train step: the cascade's staged one, or the
+single-model step of the other families.
 
     python -m hybrid_vit_cascade_tpu_torch.training.measure --stage 3 --batch 1 --steps 3 --profile
+    python -m hybrid_vit_cascade_tpu_torch.training.measure --config configs/direct128_h200.json --batch 2
 
-Builds the cascade of ``--config`` (default ``configs/progressive_cascade.json``,
+Builds the model of ``--config`` (default ``configs/progressive_cascade.json``,
 full width) with weights from ``--seed``, feeds seeded X-rays
-(B, 2, 1, S, S) and a seeded CT volume (B, 1, 256, 256, 256) in [-1, 1], and
-runs one warm-up step and ``--steps`` timed steps of the step that
-``stage_step`` builds for ``--stage``. ``--deterministic`` runs that step with
-``train=False`` (running statistics, no dropout). ``--stage3-schedule dense``
+(B, 2, 1, S, S) and a seeded CT volume (B, 1, D, H, W) at the dataset's
+resolution (256³ for the cascade) in [-1, 1], and runs one warm-up step and
+``--steps`` timed steps of the step that ``stage_step`` builds for
+``--stage`` (the cascade) or ``single_model_step`` builds (the others).
+``--deterministic`` runs that step with ``train=False`` (running
+statistics, no dropout). ``--stage3-schedule dense``
 runs the stage-3 conv chains densely (``stage3_slab_scan`` off, eval schedule
-'train'), to set beside the config's streamed schedule. ``--profile`` runs
+'train'), to set beside the config's streamed schedule. For a CNN decoder,
+``--decoder-remat rdbs`` recomputes only its ResidualDenseBlocks, not each
+upsample stage around them, to set beside the decoders' nested form, and
+``--channels-last`` lays its 3D conv weights out as ``channels_last_3d``
+(cuDNN then gives channels-last activations), to set beside NCDHW.
+``--profile`` runs
 one more step under ``torch.profiler`` and adds the device time of each
 kernel name; ``--memory`` profiles one more step's allocations and lists
 what is allocated at its peak, by the code that allocated it.
@@ -31,9 +40,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..config import data_volume_size
 from ..losses.multiscale import MultiScaleLoss
 from ..ops.cuda import launch_counts, reset_launch_counts
-from .trainer import stage_step
+from .trainer import single_model_step, stage_step
 
 
 def _sync(dev: torch.device) -> None:
@@ -162,24 +172,46 @@ def use_dense_stage3(model: nn.Module) -> None:
     model.stage3.eval_schedule = "train"
 
 
-def train_steps(model: nn.Module, cfg, stage: int, batch_size: int, steps: int,
+def use_rdb_remat(model: nn.Module) -> None:
+    """A CNN decoder's upsample stages recompute their ResidualDenseBlocks
+    only, not the stage as a whole (one recompute of each RDB a step, against
+    two when nested)."""
+    model._stage = lambda name, x, train: getattr(model, name)(x, model.remat and train)
+
+
+def use_channels_last(model: nn.Module) -> None:
+    """A CNN decoder's 3D conv weights laid out as ``channels_last_3d``."""
+    for p in model.parameters():
+        if p.dim() == 5:
+            p.data = p.data.contiguous(memory_format=torch.channels_last_3d)
+
+
+def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, steps: int,
                 generator: torch.Generator, train: bool = True,
                 loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False,
                 memory: bool = False) -> Dict:
-    """One warm-up step and ``steps`` timed steps of stage ``stage`` on the
-    model's device, on a batch drawn from ``generator`` (which also seeds
-    dropout). Returns step times (ms, host clock around work that ends in a
-    device sync), total_loss per step (warm-up first), peak memory (GB, CUDA
-    only), kernel launches of the warm-up step, with ``profile`` the kernel
-    profile of one more step and with ``memory`` (CUDA only) what is
-    allocated at the peak of one more step."""
+    """One warm-up step and ``steps`` timed steps of the cascade's stage
+    ``stage`` (another family: its single-model step; ``stage`` and
+    ``loss_obj`` unread) on the model's device, on a batch drawn from
+    ``generator`` (which also seeds dropout). Returns step times (ms, host
+    clock around work that ends in a device sync), total_loss per step
+    (warm-up first), peak memory (GB, CUDA only), kernel launches of the
+    warm-up step, with ``profile`` the kernel profile of one more step and
+    with ``memory`` (CUDA only) what is allocated at the peak of one more
+    step."""
     dev = next(model.parameters()).device
-    xs, top = cfg.data.xray_size, max(cfg.model.stage_sizes)
+    xs = cfg.data.xray_size
     batch = {"drr_stacked": torch.rand((batch_size, 2, 1, xs, xs), generator=generator,
                                        device=dev) * 2 - 1,
-             "ct_volume": torch.rand((batch_size, 1, top, top, top), generator=generator,
-                                     device=dev) * 2 - 1}
-    state, step = stage_step(model, cfg, stage, loss_obj, steps_per_epoch=1, train=train)
+             "ct_volume": torch.rand((batch_size, 1, *data_volume_size(cfg)),
+                                     generator=generator, device=dev) * 2 - 1}
+    if cfg.model.family == "cascade":
+        state, step = stage_step(model, cfg, stage, loss_obj, steps_per_epoch=1, train=train)
+    else:
+        # one step an epoch, as stage_step is given: the schedule runs over
+        # training.num_epochs steps
+        state, step = single_model_step(model, cfg, cfg.training.num_epochs,
+                                        cfg.training.learning_rate, train=train)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
@@ -215,7 +247,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="configs/progressive_cascade.json")
-    ap.add_argument("--stage", type=int, choices=(1, 2, 3), required=True)
+    ap.add_argument("--stage", type=int, choices=(1, 2, 3), default=None,
+                    help="the cascade's stage (required for the cascade, unread otherwise)")
     ap.add_argument("--batch", type=int, required=True)
     ap.add_argument("--steps", type=int, default=3, help="timed steps after one warm-up step")
     ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and dropout")
@@ -223,6 +256,10 @@ def main(argv=None) -> int:
                     help="train=False: running statistics, no dropout")
     ap.add_argument("--stage3-schedule", choices=("config", "dense"), default="config",
                     help="the config's stage-3 chain schedule, or the dense one")
+    ap.add_argument("--decoder-remat", choices=("nested", "rdbs"), default="nested",
+                    help="a CNN decoder's recompute: stages and RDBs, or the RDBs alone")
+    ap.add_argument("--channels-last", action="store_true",
+                    help="a CNN decoder's 3D conv weights as channels_last_3d")
     ap.add_argument("--profile", action="store_true", help="profile one more step")
     ap.add_argument("--memory", action="store_true",
                     help="list what is allocated at the peak of one more step")
@@ -234,18 +271,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = Config.from_json(args.config)
+    if cfg.model.family == "cascade" and args.stage is None:
+        sys.exit("measure: --stage is required for the cascade")
     model = seeded_init_(build_model(cfg), args.seed).to(dev)
     if args.stage3_schedule == "dense":
         use_dense_stage3(model)
+    if args.decoder_remat == "rdbs":
+        use_rdb_remat(model)
+    if args.channels_last:
+        use_channels_last(model)
     loss_obj = MultiScaleLoss({f"stage{n}": getattr(cfg.loss, f"stage{n}") for n in (1, 2, 3)})
-    g = torch.Generator(device=dev).manual_seed(args.seed + 10 + args.stage)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 10 + (args.stage or 0))
     res = train_steps(model, cfg, args.stage, args.batch, args.steps, g,
                       train=not args.deterministic, loss_obj=loss_obj, profile=args.profile,
                       memory=args.memory)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     res.update(stage=args.stage, batch=args.batch, train=not args.deterministic, card=card,
-               stage3_schedule=args.stage3_schedule, torch=torch.__version__)
+               stage3_schedule=args.stage3_schedule, decoder_remat=args.decoder_remat,
+               channels_last=args.channels_last, torch=torch.__version__)
     text = json.dumps(res, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,8 @@
-"""Stagewise cascade training (counterpart of
-hybrid_vit_cascade_tpu/training/trainer.py): ``make_train_step`` :130-185,
-``make_eval_step`` :188-204, ``resize_target`` :207, ``host_target_transform``
-:215-267 and the ``Trainer`` with ``fit_cascade`` :632-748, ``_carry_best``
-:750-757 and ``_run_epochs`` :760-863.
+"""Training (counterpart of hybrid_vit_cascade_tpu/training/trainer.py):
+``make_train_step`` :130-185, ``make_eval_step`` :188-204, ``resize_target``
+:207, ``host_target_transform`` :215-267 and the ``Trainer`` with ``fit``
+:364-397 (the single-model families), ``fit_cascade`` :632-748,
+``_carry_best`` :750-757 and ``_run_epochs`` :760-863.
 
 A step is ``(state, batch, generator) → (state, metrics)``: one forward of
 the cascade in train mode (batch-statistics BatchNorm with running-statistic
@@ -14,7 +14,11 @@ the frozen-encoder stage 3 (``freeze_shared_encoder_stage3``: encoder out of
 the optimizer, its BatchNorm running statistics pinned) and its split step
 (``stage3_split_step``) included.
 
-Only the cascade family trains here. Not ported: the epoch-end
+``single_model_step`` builds what ``fit`` builds for ``direct_vit`` and the
+three CNN decoders: every parameter trainable, the loss at the dataset's
+resolution (``MultiScaleLoss`` stage 1 for ``direct_vit``,
+``Direct256Loss`` for the decoders). The diffusion family is not ported.
+Not ported either: the epoch-end
 visualization (``_viz_epoch``: the run prints that it is skipped and goes
 on, as the JAX trainer does when visualization fails), wandb logging,
 profiler traces and NaN debugging (``use_wandb``, ``profile_dir`` and
@@ -38,6 +42,7 @@ from ..data.dataset import PatientDRRDataset, create_train_val_datasets
 from ..data.pipeline import DataLoader, to_device
 from ..data.synthetic import SyntheticCTDataset
 from ..inference.infer import build_model
+from ..losses.direct256 import Direct256Loss
 from ..losses.metrics import psnr, ssim_metric
 from ..losses.multiscale import MultiScaleLoss, l1_loss
 from ..ops.resize import resize_trilinear, resize_trilinear_np
@@ -180,6 +185,27 @@ def stage_step(model: nn.Module, cfg, stage: int, loss_obj: Optional[MultiScaleL
     return TrainState(model, opt), split_step
 
 
+def single_model_step(model: nn.Module, cfg, total_steps: int, learning_rate: float,
+                      train: bool = True):
+    """What ``Trainer.fit`` builds for a single-model family: AdamW over every
+    parameter with the config's decay, clip and warmup and a cosine schedule
+    over ``total_steps`` from ``learning_rate``; the loss against the batch's
+    CT volume as it comes (the dataset holds it at the model's resolution):
+    ``MultiScaleLoss`` with ``loss.stage1``'s weights at stage 1 for
+    ``direct_vit``, ``Direct256Loss()`` for the CNN decoders. Returns
+    (state, step)."""
+    t = cfg.training
+    opt = make_optimizer(model.parameters(), learning_rate, total_steps, t.weight_decay,
+                         t.gradient_clip, t.warmup_steps)
+    if cfg.model.family == "direct_vit":
+        loss_obj = MultiScaleLoss({"stage1": cfg.loss.stage1}, vgg_weights=cfg.loss.vgg_weights)
+        loss_fn = lambda pred, batch: loss_obj(pred, batch["ct_volume"], stage=1)  # noqa: E731
+    else:
+        d256 = Direct256Loss()
+        loss_fn = lambda pred, batch: d256(pred, batch["ct_volume"])  # noqa: E731
+    return TrainState(model, opt), make_train_step(model, loss_fn, train=train)
+
+
 def host_target_transform(resolution: Sequence[int], cache: bool = False):
     """DataLoader batch map: resize the CT target to the stage resolution on
     the host (the native threaded resample when ``native/libnifti_io.so``
@@ -221,19 +247,17 @@ def host_target_transform(resolution: Sequence[int], cache: bool = False):
 
 
 class Trainer:
-    """End-to-end training of the cascade: ``Trainer(cfg).fit()``.
+    """End-to-end training: ``Trainer(cfg).fit()``.
 
     The model is built from the config with torch's initialisers under
     ``training.seed`` and lives on ``device`` (the card unless the caller
-    asks for the CPU). Stage N's checkpoints go to ``save_dir/stageN``, the
-    CSV and JSONL logs to ``save_dir/training_log.{csv,jsonl}``."""
+    asks for the CPU). The cascade's stage N writes its checkpoints to
+    ``save_dir/stageN``, a single-model family to ``save_dir`` (``ckpt``);
+    the CSV and JSONL logs go to ``save_dir/training_log.{csv,jsonl}``."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         validate_config(cfg)
         t = cfg.training
-        if cfg.model.family != "cascade":
-            raise NotImplementedError(f"the port's Trainer trains the cascade only, not model "
-                                      f"family {cfg.model.family!r}")
         for flag in ("use_wandb", "profile_dir", "debug_nans"):
             if getattr(t, flag):
                 raise NotImplementedError(f"training.{flag} is not ported")
@@ -245,6 +269,8 @@ class Trainer:
             torch.manual_seed(t.seed)
             self.model = build_model(cfg).to(self.device)
         save_dir = cfg.checkpoints.save_dir
+        self.ckpt = CheckpointManager(save_dir, cfg.checkpoints.save_every,
+                                      cfg.checkpoints.keep_best)
         self.csv = CSVLogger(f"{save_dir}/training_log.csv")
         self.jsonl = JSONLLogger(f"{save_dir}/training_log.jsonl")
         self._build_data()
@@ -269,8 +295,22 @@ class Trainer:
             resume: bool = True, progress: bool = True) -> Dict[str, float]:
         """The cascade trains stage by stage (``fit_cascade``), which, as in
         the JAX package, takes the epochs and learning rate of each stage
-        from ``training.stages``: ``epochs`` and ``lr_override`` are not read."""
-        return self.fit_cascade(resume=resume)
+        from ``training.stages``: ``epochs`` and ``lr_override`` are not read.
+        A single-model family trains ``epochs`` (default
+        ``training.num_epochs``) at ``lr_override`` (default
+        ``training.learning_rate``), resuming from ``latest`` with its
+        optimizer state."""
+        if self.cfg.model.family == "cascade":
+            return self.fit_cascade(resume=resume, progress=progress)
+        t = self.cfg.training
+        epochs = epochs if epochs is not None else t.num_epochs
+        lr = lr_override if lr_override is not None else t.learning_rate
+        steps_per_epoch = max(1, len(self.train_ds) // t.batch_size)
+        state, train_step = single_model_step(self.model, self.cfg, steps_per_epoch * epochs, lr)
+        start_epoch = self._restore_state(self.ckpt, state) if resume else 0
+        eval_step = make_eval_step(self.model, lambda b: b["ct_volume"])
+        return self._run_epochs(state, train_step, eval_step, t.batch_size, start_epoch, epochs,
+                                lr, progress, "train", self.ckpt, None)
 
     def fit_cascade(self, stages: Sequence[str] = ("stage1", "stage2", "stage3"),
                     resume: bool = True, progress: bool = True) -> Dict[str, float]:
@@ -338,7 +378,8 @@ class Trainer:
                     start_epoch: int, epochs: int, lr: float, progress: bool, phase: str,
                     ckpt: CheckpointManager, target_resolution) -> Dict[str, float]:
         d, t = self.cfg.data, self.cfg.training
-        tf = host_target_transform(target_resolution, cache=not d.augmentation)
+        tf = (host_target_transform(target_resolution, cache=not d.augmentation)
+              if target_resolution else None)
         train_loader = DataLoader(self.train_ds, batch_size, shuffle=True, seed=t.seed,
                                   num_prefetch=d.num_prefetch, transform=tf)
         val_loader = DataLoader(self.val_ds, batch_size=min(batch_size, max(1, len(self.val_ds))),

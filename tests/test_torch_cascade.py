@@ -113,8 +113,8 @@ def test_build_model_families():
     model = build_model(cfg)
     assert model.stage3.detail_enhancer.dtype == torch.bfloat16
     assert all(p.dtype == torch.float32 for p in model.parameters())
-    cfg.model.family = "direct_vit"
-    with pytest.raises(NotImplementedError):
+    cfg.model.family = "diffusion"
+    with pytest.raises(NotImplementedError, match="diffusion"):
         build_model(cfg)
 
 

@@ -139,12 +139,12 @@ def test_evaluate_sample_matches_jax(setup, max_stage):
 
 
 def test_evaluate_sample_other_family_raises(setup, monkeypatch):
-    """The cascade is the only family the port builds: evaluate_sample
-    refuses another before it reconstructs anything."""
+    """Diffusion is the one family the port does not build: evaluate_sample
+    refuses it before it reconstructs anything."""
     engine = setup["engine"]
-    monkeypatch.setattr(engine.cfg.model, "family", "direct_vit")
+    monkeypatch.setattr(engine.cfg.model, "family", "diffusion")
     monkeypatch.setattr(engine, "reconstruct", None)
-    with pytest.raises(NotImplementedError, match="direct_vit"):
+    with pytest.raises(NotImplementedError, match="diffusion"):
         engine.evaluate_sample(setup["ds"][2])
 
 
