@@ -188,6 +188,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    Small-input references (fp32, card against CPU, 2e-4): a scaled
    DirectCTRegression's forward and one deterministic step's loss and
    gradients; ResidualDenseBlock, CBAM, UpConvStage and Direct256Loss at 16³.
+15. The diffusion family at its configs' full widths (bf16 over fp32
+   weights from a seeded torch.Generator, T = 1000): ``configs/
+   diffusion_64.json``'s stage1_low (64³, voxel_dim 256, depth 4, 4 heads,
+   X-ray features 512, remat) takes 1 + 3 train steps at batch 4 (every
+   loss component finite, peak, launches per step DIFFUSION_STEP[1], the
+   17→64 stem's forward, dx and dW on the tensor-core C, F, G), one denoise
+   forward (EXPECTED_LAUNCHES_DIFFUSION) and ``ddim_sample`` at batch 1 with
+   the config's 20 steps, twice (cold, warm; 20 × those launches); the
+   stage2_mid step (128³, depth 6, 8 heads) of ``diffusion_quality_r5.json``
+   (batch 2, lifter streamed in 8 slabs) and of ``diffusion_progressive.json``
+   (batch 1, dense lifter), conditioned on the ground truth at 64³
+   (DIFFUSION_STEP[2]); ``cascaded_ddim_sample`` of the r5 ladder at batch 1
+   with its 25 steps (wall time and launches per stage); the stage-2 lifter
+   streamed against dense at full width in fp32 (value and gradients within
+   1e-4·max|want|); ``cli train`` on a one-epoch-a-stage copy of the r5
+   config (6 synthetic 128³ patients, ``diffusion_sample_steps`` cut to 2 for
+   wall time): both stages' ``latest``, a finite ``diffusion_chain_eval``
+   row, and the same command again trains nothing; a scaled two-stage
+   ladder in fp32 on the card against the CPU (loss components, every
+   gradient, a 4-step ddim_sample, 2e-4); C, F and G timed at the 17→64
+   stem's shapes beside the same calls with 16, 32 and 64 input channels
+   (CIN_COST). [3] and [7] hold A, C, D, F and G
+   at the slice's new shapes (DIFFUSION_AT: the 17→64 stem from 64³ at
+   batch 4 and from 128³ at batch 2; A and D at 16 × 4,096² at d = 64 and
+   32), D bitwise at 16 × 4,096² × 32 among the training shapes.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -204,10 +229,13 @@ backward), all in bf16 at the kernel's hot shape; each row names the card
 and its power limit; launches are those of the main path: the reconstruct
 [4], the first step of each stage in [9], the training run of [11] (the only
 one that takes L and M), the probe run of [12] (the only one that takes N),
-the serving commands of [13] and [14]'s direct_vit reconstruct, first train
-step and entry points; the rows of A and D also carry, under
-``direct_vit``, their time, plain time, bound and library time at the direct
-model's attention shape and their launches in [14]. The probe rows are at
+the serving commands of [13], [14]'s direct_vit reconstruct, first train
+step and entry points, and [15]'s first train steps, samplers and cli
+train; the rows of A and D also carry, under ``direct_vit``, their time,
+plain time, bound and library time at the direct model's attention shape
+and their launches in [14], and the rows of A, C, D, F and G under
+``diffusion`` the same at each DIFFUSION_AT shape and their launches in
+[15]. The probe rows are at
 N = 131,072, R = 64, and their library call is cuBLAS (``torch.mm`` over
 the same operands, R calls).
 
@@ -304,14 +332,20 @@ _STEMS = [(1, 1, 32, (256, 256, 256)), (1, 1, 64, (256, 256, 256))]
 # Ragged: Cout 8 / 40 / 96 (masked, and two Cout tiles of the forward: the
 # data gradient's CUDA cores), odd D, H and W, W not a multiple of 16.
 _S2_STEM = (8, 1, 64, (64, 64, 64))
+# The diffusion denoisers' 17→64 stride-2 stem (the noisy volume and the
+# 16-channel prior) at its training batches: stage 1 at 64³ (batch 4),
+# stage 2 at 128³ (batch 2); a last 16-channel chunk with one real channel
+_S2_C17 = [(4, 17, 64, (64, 64, 64)), (2, 17, 64, (128, 128, 128))]
 _S2_STEM_RAGGED = [(2, 1, 8, (5, 6, 10)), (1, 1, 40, (7, 9, 35)), (2, 1, 64, (9, 7, 13))]
 KERNELS = {
     "flash_attention": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py:156",
-        # (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross
+        # (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross;
+        # the diffusion ladder's training forwards (stage 1 at batch 4, stage 2 at 2)
         "shapes": [(4, 4096, 4096, 64), (4, 4096, 256, 64), (8, 4096, 4096, 32),
-                   (8, 4096, 1024, 32), (8, 32768, 32768, 32), (8, 32768, 4096, 32)],
+                   (8, 4096, 1024, 32), (8, 32768, 32768, 32), (8, 32768, 4096, 32),
+                   (16, 4096, 4096, 64), (16, 4096, 4096, 32)],
         "ragged": [(3, 200, 77, 32), (3, 200, 77, 64)],
         "hot": (8, 32768, 32768, 32),
     },
@@ -341,7 +375,7 @@ KERNELS = {
         "shapes": [(1, 64, 128, (32, 32, 32)),
                    (1, 32, 64, (128, 128, 128)), (1, 64, 128, (64, 64, 64)),
                    (1, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
-                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))],
+                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17,
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 32, 64, (256, 256, 256)),
     },
@@ -361,7 +395,7 @@ KERNELS = {
 _S2_GRAD_SHAPES = [(8, 64, 128, (32, 32, 32)),
                    (2, 32, 64, (128, 128, 128)), (2, 64, 128, (64, 64, 64)),
                    (2, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
-                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))]
+                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17
 _RAGGED_CONV = [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))]
 # (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross
 _FLASH_TRAIN_SHAPES = [(32, 4096, 4096, 64), (32, 4096, 256, 64), (16, 4096, 4096, 32),
@@ -372,7 +406,9 @@ TRAIN_KERNELS = {
     "flash_attention_bwd": {
         "source": "hybrid_vit_cascade_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "hybrid_vit_cascade_tpu/ops/pallas/flash_attention.py:399",
-        "shapes": _FLASH_TRAIN_SHAPES,
+        # and the diffusion ladder's stage 1 at batch 4 (its stage 2 at batch 2
+        # is the cascade's stage 2, (16, 4096, 4096, 32))
+        "shapes": _FLASH_TRAIN_SHAPES + [(16, 4096, 4096, 64)],
         "ragged": _FLASH_RAGGED,
         "hot": (8, 32768, 32768, 32),
     },
@@ -2319,6 +2355,398 @@ def direct_phase(dev, seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------- the diffusion family ---
+
+DIFFUSION_64 = ROOT / "configs" / "diffusion_64.json"
+DIFFUSION_R5 = ROOT / "configs" / "diffusion_quality_r5.json"
+DIFFUSION_PROG = ROOT / "configs" / "diffusion_progressive.json"
+# One denoise forward of stage1_low (64³, voxel_dim 256, depth 4, 4 heads):
+# A in the 4 self- and 4 cross-attentions (4,096 queries over 4,096 voxel
+# tokens and over the 64² X-ray features, d = 64), the 17→64 and 64→128
+# token-stem convs (C, tensor cores: the noisy volume and the 16-channel
+# prior) and the 128→256 projection at 16³ (B, tensor cores).
+EXPECTED_LAUNCHES_DIFFUSION = {"flash_attention": 8, "flash_attention_tc": 8, "conv3d_k3s1": 1,
+                               "conv3d_k3s1_tc": 1, "conv3d_k3s2": 2, "conv3d_k3s2_tc": 2}
+# One of stage2_mid (128³, depth 6, 8 heads, d = 32): A 12, C 3 (17→64,
+# 64→128, 128→256); the stem ends at voxel_dim, so no projection.
+EXPECTED_LAUNCHES_DIFFUSION_S2 = {"flash_attention": 12, "flash_attention_tc": 12,
+                                  "conv3d_k3s2": 3, "conv3d_k3s2_tc": 3}
+# One train step (remat: every block's forward runs again in the backward;
+# the token stem does not): stage 1 A 16, D 8, C 2, F 2 (the 17-channel dx
+# feeds the lifter), G 2, B 1, B as the dgrad 1, E 1; stage 2 A 24, D 12,
+# C 3, F 3, G 3.
+DIFFUSION_STEP = {
+    1: {"flash_attention": 16, "flash_attention_bwd": 8, "conv3d_k3s2": 2,
+        "conv3d_k3s2_dgrad": 2, "conv3d_k3s2_wgrad": 2, "conv3d_k3s1": 1,
+        "conv3d_k3s1_dgrad": 1, "conv3d_k3s1_wgrad": 1},
+    2: {"flash_attention": 24, "flash_attention_bwd": 12, "conv3d_k3s2": 3,
+        "conv3d_k3s2_dgrad": 3, "conv3d_k3s2_wgrad": 3, "conv3d_k3s1": 0,
+        "conv3d_k3s1_dgrad": 0, "conv3d_k3s1_wgrad": 0}}
+# The shapes the slice first gives A, C, D, F and G ([3] and [7] check them):
+# the training forwards and backwards of both stages and the 17→64 stem.
+DIFFUSION_AT = {"flash_attention": [(16, 4096, 4096, 64), (16, 4096, 4096, 32)],
+                "flash_attention_bwd": [(16, 4096, 4096, 64), (16, 4096, 4096, 32)],
+                "conv3d_k3s2": _S2_C17, "conv3d_k3s2_dgrad": _S2_C17,
+                "conv3d_k3s2_wgrad": _S2_C17}
+DIFFUSION_PATIENTS = 6  # [15]'s cli train: 4 train (and validation) patients at 128³
+LIFT_TOL = 1e-4  # the streamed lifter against the dense one: × max|want|
+
+
+def _check_diffusion_step(lc: dict, calls: dict, stage: int, where: str) -> None:
+    """A bf16 diffusion step launched each kernel as often as DIFFUSION_STEP
+    says, every flash forward and backward and every bf16 B, C, E, F and G
+    call (the 17→64 stem's forward, dx and dW included) on its tensor-core
+    instance, as many launches as the rules name, none with one channel."""
+    pairs = {"flash_attention": lc["flash_attention_tc"],
+             "flash_attention_bwd": lc["flash_attention_bwd_tc"],
+             "conv3d_k3s1": lc["conv3d_k3s1_tc"] - lc["conv3d_k3s1_dgrad"],
+             "conv3d_k3s1_wgrad": lc["conv3d_k3s1_wgrad_tc"],
+             "conv3d_k3s2": lc["conv3d_k3s2_tc"],
+             "conv3d_k3s2_dgrad": lc["conv3d_k3s2_dgrad_tc"],
+             "conv3d_k3s2_wgrad": lc["conv3d_k3s2_wgrad_tc"]}
+    off = {k: (lc[k], v) for k, v in pairs.items() if lc[k] != v}
+    counts = {k: lc[k] for k in DIFFUSION_STEP[stage]}
+    if off or counts != DIFFUSION_STEP[stage]:
+        raise AssertionError(f"{where}: launches {counts} (expected {DIFFUSION_STEP[stage]}); "
+                             f"off the tensor-core instance (launched, on it): {off}")
+    if any(lc[k] != calls["n"][k] for k in _RULE_COUNTERS) or any(calls["c1in"].values()):
+        raise AssertionError(f"{where}: tensor-core launches differ from the calls the rules "
+                             f"name {calls}: {lc}")
+
+
+def _diffusion_train(model, cfg, stage: int, batch: int, dev, seed: int, where: str) -> dict:
+    """1 + TRAIN_STEPS train steps of a ladder stage (training.measure's
+    train_steps over diffusion_steps' step), every loss component finite,
+    launches checked by _check_diffusion_step."""
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    with rule_calls() as rc:
+        r = train_steps(model, cfg, stage, batch, TRAIN_STEPS,
+                        torch.Generator(device=dev).manual_seed(seed))
+    calls = {"n": {k: n / (1 + TRAIN_STEPS) for k, n in rc.n.items()},
+             "c1in": {k: n / (1 + TRAIN_STEPS) for k, n in rc.c1in_bf16.items()}}
+    lc = r["launches_per_step"]
+    log(f"{where} train step (stage {stage}, batch {batch}, {r['trainable_params'] / 1e6:.1f} M "
+        f"trainable): median {statistics.median(r['step_ms']):.1f} ms (steps "
+        f"{', '.join(f'{v:.1f}' for v in r['step_ms'])} ms; warm-up {r['warmup_s']:.2f} s); peak "
+        f"{r.get('peak_allocated_gb', float('nan')):.2f} GB; losses per step "
+        + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in m.items() if k != "total_loss")
+                    for m in r["metrics"])
+        + f"; launches per step {({k: v for k, v in lc.items() if v})}")
+    bad = [m for m in r["metrics"] if not all(math.isfinite(v) for v in m.values())]
+    if bad or set(r["metrics"][0]) != {"total_loss", "loss", "diffusion_loss", "physics_loss"}:
+        raise AssertionError(f"{where}: loss components {r['metrics']}")
+    _check_diffusion_step(lc, calls, stage, where)
+    return r
+
+
+def _sample(fn, dev, where: str, want: dict) -> tuple:
+    """fn() under launch counting and a synced host clock: (its output, wall
+    s, launches); the launches must be ``want``."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lc = {k: v for k, v in launch_counts().items() if v}
+    if lc != want:
+        raise AssertionError(f"{where}: launches {lc}, expected {want}")
+    return out, wall, lc
+
+
+def lifter_streamed_vs_dense(dev, seed: int) -> dict:
+    """Phase 15c: the depth lifter of stage2_mid at full width (D = 128, 64²
+    X-ray features, C = 512, batch 1, a 64³ previous volume), fp32 with TF32
+    off: the streamed fusion in 8 slabs against the dense one, value and the
+    gradients of Σ out² (every parameter, the features, the previous volume)
+    within LIFT_TOL·max|want|."""
+    from hybrid_vit_cascade_tpu_torch.models.depth_lifting import CascadedDepthLifting
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+
+    g = torch.Generator().manual_seed(seed + 70)
+    feats = torch.randn((1, 512, 64, 64), generator=g)
+    prev = torch.rand((1, 1, 64, 64, 64), generator=g) * 2 - 1
+    dense = seeded_init_(CascadedDepthLifting(512, 128, lift_slabs=0), seed).to(dev)
+    runs = {}
+    for slabs in (0, 8):
+        m = CascadedDepthLifting(512, 128, lift_slabs=slabs).to(dev)
+        m.load_state_dict(dense.state_dict())
+        f, p = feats.to(dev).requires_grad_(), prev.to(dev).requires_grad_()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m(f, p)
+        (out.double() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grads = {"features": f.grad, "prev": p.grad,
+                 **{n: q.grad for n, q in m.named_parameters()}}
+        runs[slabs] = (out.detach(), grads, wall, torch.cuda.max_memory_allocated(dev) / 1e9)
+        del m, out
+    (want, wg, w_s, w_gb), (got, gg, g_s, g_gb) = runs[0], runs[8]
+    errs = {}
+    for name, a, b in [("value", got, want)] + [(n, gg[n], wg[n]) for n in wg]:
+        errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+    worst = max(errs, key=errs.get)
+    log(f"[15c] lifter 128 × 64² × 512 (fp32, TF32 off), 8 slabs vs dense: max |err| / max|want| "
+        f"{errs[worst]:.3e} at {worst} (value {errs['value']:.3e}); fwd+bwd {g_s:.2f} s, "
+        f"{g_gb:.2f} GB streamed; {w_s:.2f} s, {w_gb:.2f} GB dense")
+    if errs[worst] > LIFT_TOL or not all(math.isfinite(v) for v in errs.values()):
+        raise AssertionError(f"[15c] the streamed lifter disagrees with the dense one: {errs}")
+    return {"rel_err": errs, "streamed_s": g_s, "streamed_gb": g_gb, "dense_s": w_s,
+            "dense_gb": w_gb}
+
+
+def diffusion_reference(dev, seed: int) -> dict:
+    """Phase 15e: a scaled two-stage ladder (16³ → 32³, voxel_dim 128 so
+    that the heads are d = 32, depth 1, 4 heads, X-ray features 32, 64²
+    X-rays, T = 1000) in fp32 from one seed, on the card (kernels, cuDNN with
+    TF32 off) and on the CPU (plain versions): the refiner's loss components
+    and every gradient from the same t and noise, and a 4-step ddim_sample of
+    it from the same x_T, within SMALL_TOL."""
+    from hybrid_vit_cascade_tpu_torch.models.diffusion import UnifiedHybridViTCascade, ddim_sample
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    ladder = tuple(dict(name=n, volume_size=(s, s, s), voxel_dim=128, vit_depth=1, num_heads=4,
+                        use_depth_lifting=True, use_physics_loss=True)
+                   for n, s in (("s1", 16), ("s2", 32)))
+    g = torch.Generator().manual_seed(seed + 80)
+    xr = torch.rand((2, 2, 1, 64, 64), generator=g) * 2 - 1
+    x0 = torch.rand((2, 1, 32, 32, 32), generator=g) * 2 - 1
+    prev = torch.rand((2, 1, 16, 16, 16), generator=g) * 2 - 1
+    t = torch.randint(0, 1000, (2,), generator=g)
+    noise = torch.randn(x0.shape, generator=g)
+    x_T = torch.randn(x0.shape, generator=g)
+    runs = {}
+    for where in ("cpu", dev):
+        model = seeded_init_(UnifiedHybridViTCascade(ladder, xray_embed_dim=32), seed).to(where)
+        mv = lambda a: a.to(where)  # noqa: E731
+        reset_launch_counts()
+        ld = model(mv(x0), mv(xr), "s2", prev_stage_volume=mv(prev), t=mv(t), noise=mv(noise))
+        ld["loss"].backward()
+        launched = launch_counts()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+        vol = ddim_sample(model, mv(xr), "s2", num_steps=4, prev_stage_volume=mv(prev),
+                          x_T=mv(x_T)).cpu()
+        runs[str(where)] = ({k: v.detach().cpu() for k, v in ld.items()}, grads, vol, launched)
+        del model
+    (l_c, g_c, v_c, _), (l_g, g_g, v_g, launched) = runs["cpu"], runs[str(dev)]
+    if sorted(g_c) != sorted(g_g) or len(g_c) < 40:
+        raise AssertionError("[15e] the card and the CPU step reached different parameters")
+    atol, rtol = SMALL_TOL
+    pairs = ([(f"loss {k}", l_g[k], w) for k, w in l_c.items()] + [("ddim_sample", v_g, v_c)]
+             + [(f"grad {n}", g_g[n], w) for n, w in g_c.items()])
+    worst = {}
+    for name, got, want in pairs:
+        diff = (got.float() - want.float()).abs()
+        group = name.split()[0]
+        worst[group] = max(worst.get(group, 0.0), float(diff.max()))
+        if not bool((diff <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"[15e] small reference {name}: card vs cpu max_abs_err "
+                                 f"{float(diff.max())}")
+    need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s1", "conv3d_k3s1_wgrad",
+            "conv3d_k3s1_dgrad", "conv3d_k3s2", "conv3d_k3s2_dgrad", "conv3d_k3s2_wgrad")
+    if any(launched[k] == 0 for k in need):
+        raise AssertionError(f"[15e] the small step did not run every kernel of {need}: "
+                             f"{launched}")
+    log(f"[15e] small references (fp32, card vs cpu, tol {atol:g}+{rtol:g}|ref|): max_abs_err "
+        f"{ {k: f'{v:.3e}' for k, v in worst.items()} }; loss card {float(l_g['loss']):.6f} cpu "
+        f"{float(l_c['loss']):.6f}; {len(g_c)} gradients; launches of the step "
+        f"{({k: v for k, v in launched.items() if v})}")
+    return {"max_abs_err": worst, "launches": launched}
+
+
+# The ragged chunk's cost: C, F and G at the 17→64 stem's shapes beside the
+# same calls with 16, 32 and 64 input channels (16-channel chunks in C, 32
+# dx channels a block in F, 32-channel Cin blocks in G), bf16, kernel alone.
+CIN_COST = (16, 17, 32, 64)
+
+
+def cin_cost(dev, seed: int) -> dict:
+    """Phase 15f: CUDA-event medians of C, F and G (bf16, 5 launches each
+    after a warm-up) at each _S2_C17 shape with Cin ∈ CIN_COST."""
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+
+    out = {}
+    for b, _, cout, dhw in _S2_C17:
+        for cin in CIN_COST:
+            sh = (b, cin, cout, dhw)
+            x, w, bias = _inputs("conv3d_k3s2", sh, torch.bfloat16, dev, seed)
+            gy, _, xe = _train_inputs("conv3d_k3s2_dgrad", sh, torch.bfloat16, dev, seed)
+            calls = {"C": (lambda: ck.conv3d_k3(x, w, bias, 2, 1, (dhw[0] - 1) // 2 + 1,
+                                                dense=True)),
+                     "F": lambda: ck.conv3d_k3_dgrad(gy, w, xe, 2, 1, dense=True),
+                     "G": lambda: ck.conv3d_k3_wgrad(x, gy, 2, 1, dense=True)}
+            for k, fn in calls.items():
+                fn()
+                out[f"{k} {sh}"] = statistics.median(_once(lambda: fn(), ()) for _ in range(5))
+            del x, w, bias, gy, xe
+        log(f"[15f] C / F / G at {b} × Cin→{cout} from {dhw[0]}³, Cin {CIN_COST}: "
+            + "; ".join(f"{k} " + ", ".join(f"{out[f'{k} {(b, c, cout, dhw)}']:.3f}"
+                                             for c in CIN_COST) for k in "CFG") + " ms")
+    return out
+
+
+def diffusion_phase(dev, seed: int) -> dict:
+    """Phase 15: the diffusion family at its configs' full widths."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.models import diffusion as dm
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    rec = {}
+    for name, shapes in DIFFUSION_AT.items():  # checked and timed in [3] / [7]
+        spec = {**KERNELS, **TRAIN_KERNELS}[name]
+        if not set(shapes) <= set(spec["shapes"]):
+            raise AssertionError(f"[15] {name} is not checked at the diffusion shapes {shapes}")
+    xr = torch.rand((1, 2, 1, 512, 512), generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+
+    # 15a diffusion_64: stage1_low's train step, one denoise forward, ddim_sample
+    cfg = Config.from_json(str(DIFFUSION_64))
+    m, t = cfg.model, cfg.training
+    widths = (m.family, tuple(m.volume_size), m.voxel_dim, m.xray_feature_dim, m.dtype,
+              m.use_gradient_checkpointing, t.batch_size, t.diffusion_sample_steps)
+    if widths != ("diffusion", (64, 64, 64), 256, 512, "bfloat16", True, 4, 20):
+        raise AssertionError(f"{DIFFUSION_64.name} changed: {widths}")
+    model = seeded_init_(build_model(cfg), seed).to(dev)
+    ladder = [(c["name"], c["volume_size"], c["vit_depth"], c["num_heads"])
+              for c in model.stage_configs]
+    if ladder != [("stage1_low", (64, 64, 64), 4, 4)]:
+        raise AssertionError(f"[15] diffusion_64's ladder {ladder}")
+    rec["train_64_b4"] = _diffusion_train(model, cfg, 1, 4, dev, seed + 60, "[15a]")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    x = torch.randn((1, 1, 64, 64, 64), generator=gen, device=dev)
+    t999 = torch.full((1,), 999, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        v, _, _ = _sample(lambda: model(x, xr, "stage1_low", mode="denoise", t=t999), dev,
+                          "[15a] one denoise forward", EXPECTED_LAUNCHES_DIFFUSION)
+    n = t.diffusion_sample_steps
+    want = {k: n * c for k, c in EXPECTED_LAUNCHES_DIFFUSION.items()}
+    walls = []
+    for _ in range(2):  # the first call cold (cuDNN plans), the second warm
+        torch.cuda.reset_peak_memory_stats(dev)
+        vol, wall, lc = _sample(lambda: dm.ddim_sample(
+            model, xr, "stage1_low", torch.Generator(device=dev).manual_seed(seed + 62),
+            num_steps=n), dev, "[15a] ddim_sample", want)
+        walls.append(wall)
+    finite = bool(torch.isfinite(vol).all())
+    log(f"[15a] ddim_sample 64³ (batch 1, {n} steps, bf16): {tuple(vol.shape)} finite {finite}, "
+        f"std {float(vol.std()):.4f}; wall {walls[0]:.3f} s cold, {walls[1]:.3f} s warm "
+        f"({walls[1] / n * 1e3:.1f} ms a step); peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+        f" GB; launches {lc} (one denoise forward {EXPECTED_LAUNCHES_DIFFUSION})")
+    if tuple(vol.shape) != (1, 1, 64, 64, 64) or not finite or not bool(torch.isfinite(v).all()):
+        raise AssertionError(f"[15a] ddim_sample: {tuple(vol.shape)} finite {finite}")
+    rec["sample_64"] = {"wall_s": walls, "steps": n, "launches": lc,
+                        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del model, vol, v
+    torch.cuda.empty_cache()
+
+    # 15b diffusion_quality_r5 (streamed lifter) and diffusion_progressive
+    # (dense): stage2_mid's step; then the r5 ladder's cascaded DDIM
+    steps = {}
+    for path, slabs, batch, key in ((DIFFUSION_R5, 8, 2, "r5"), (DIFFUSION_PROG, 0, 1, "prog")):
+        c = Config.from_json(str(path))
+        w = (c.model.family, tuple(c.model.volume_size), c.model.voxel_dim, c.model.dtype,
+             c.model.diffusion_lift_slabs, c.training.stages["stage2"].batch_size,
+             c.training.diffusion_progressive)
+        if w != ("diffusion", (128, 128, 128), 256, "bfloat16", slabs, batch, True):
+            raise AssertionError(f"{path.name} changed: {w}")
+        model = seeded_init_(build_model(c), seed).to(dev)
+        ladder = [(s["name"], s["volume_size"], s["vit_depth"], s["num_heads"])
+                  for s in model.stage_configs]
+        if ladder != [("stage1_low", (64, 64, 64), 4, 4), ("stage2_mid", (128, 128, 128), 6, 8)]:
+            raise AssertionError(f"[15] {path.name}'s ladder {ladder}")
+        steps[key] = _diffusion_train(model, c, 2, batch, dev, seed + 63,
+                                      f"[15b] {path.stem} stage2_mid")
+        torch.cuda.empty_cache()
+        if key != "r5":
+            del model
+            continue
+        per_stage, real = {}, dm.ddim_sample
+        n = c.training.diffusion_sample_steps
+        expect = {"stage1_low": {k: n * v for k, v in EXPECTED_LAUNCHES_DIFFUSION.items()},
+                  "stage2_mid": {k: n * v for k, v in EXPECTED_LAUNCHES_DIFFUSION_S2.items()}}
+
+        def timed(model, xrays, stage_name, *a, **kw):
+            vol, wall, lc = _sample(lambda: real(model, xrays, stage_name, *a, **kw), dev,
+                                    f"[15b] cascaded_ddim_sample {stage_name}",
+                                    expect[stage_name])
+            per_stage[stage_name] = {"wall_s": wall, "launches": lc}
+            return vol
+        dm.ddim_sample = timed
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            vols = dm.cascaded_ddim_sample(model, xr,
+                                           torch.Generator(device=dev).manual_seed(seed + 64),
+                                           num_steps=n)
+        finally:
+            dm.ddim_sample = real
+        if set(per_stage) != {"stage1_low", "stage2_mid"}:
+            raise AssertionError(f"[15b] cascaded_ddim_sample timed the stages {sorted(per_stage)}")
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        shapes = {k: tuple(v.shape) for k, v in vols.items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in vols.values())
+        log(f"[15b] cascaded_ddim_sample (batch 1, {n} steps, bf16): {shapes} finite {finite}; "
+            + "; ".join(f"{k} {v['wall_s']:.3f} s ({v['wall_s'] / n * 1e3:.1f} ms a step), "
+                        f"launches {v['launches']}" for k, v in per_stage.items())
+            + f"; peak {peak:.2f} GB")
+        if shapes != {"stage1_low": (1, 1, 64, 64, 64), "stage2_mid": (1, 1, 128, 128, 128)} \
+                or not finite:
+            raise AssertionError(f"[15b] cascaded_ddim_sample: {shapes} finite {finite}")
+        rec["cascade_sample_r5"] = {"steps": n, "per_stage": per_stage, "peak_gb": peak}
+        del model, vols
+        torch.cuda.empty_cache()
+    rec["train_r5_s2_b2"], rec["train_prog_s2_b1"] = steps["r5"], steps["prog"]
+
+    # 15c the streamed lifter against the dense one, full width, fp32
+    rec["lifter"] = lifter_streamed_vs_dense(dev, seed)
+    torch.cuda.empty_cache()
+
+    # 15d cli train on a one-epoch-a-stage copy of diffusion_quality_r5.json
+    save_dir = BUILD_DIR / "diffusion_train"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    copy = _config_copy(DIFFUSION_R5, "diffusion_quality_r5_smoke.json", **{
+        "training.stages.stage1.num_epochs": 1, "training.stages.stage2.num_epochs": 1,
+        "training.diffusion_sample_steps": 2, "data.synthetic_patients": DIFFUSION_PATIENTS,
+        "checkpoints.save_dir": str(save_dir)})
+    argv = ["train", "--config", str(copy), "--device", dev.type]
+    final, _, train_s, train_lc = _cli_json(cli, argv)
+    log_file = save_dir / "training_log.jsonl"
+    rows = [json.loads(r) for r in log_file.read_text().splitlines()]
+    again, _, again_s, _ = _cli_json(cli, argv)
+    rows_again = [json.loads(r) for r in log_file.read_text().splitlines()][len(rows):]
+    chain = [r for r in rows if r.get("phase") == "diffusion_chain_eval"]
+    latest = [(save_dir / f"diffusion_{s}" / "latest").is_dir() for s in ("stage1_low", "stage2_mid")]
+    log(f"[15d] cli train build/{copy.name} (one epoch a stage, {DIFFUSION_PATIENTS} patients, "
+        f"diffusion_sample_steps cut to 2 for wall time): {train_s:.1f} s; phases "
+        f"{[r['phase'] for r in rows]}; final {final['final']}; latest written {latest}; again "
+        f"{again_s:.1f} s: phases {[r['phase'] for r in rows_again]}")
+    if (not all(latest) or len(chain) != 1
+            or not all(math.isfinite(v) for k, v in chain[0].items() if k != "phase")
+            or [r["phase"] for r in rows_again] != ["diffusion_chain_eval"]
+            or not all(math.isfinite(v) for v in final["final"].values())):
+        raise AssertionError(f"[15d] cli train: rows {rows}, again {rows_again}, final {final}")
+    rec["cli_train"] = {"wall_s": train_s, "again_s": again_s, "final": final["final"],
+                        "again": again["final"], "launches": train_lc,
+                        "phases": [r["phase"] for r in rows]}
+    torch.cuda.empty_cache()
+
+    # 15e small-input reference; 15f the 17-channel calls beside 16, 32, 64
+    rec["reference"] = diffusion_reference(dev, seed)
+    rec["cin_cost_ms"] = cin_cost(dev, seed)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[15] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2534,11 +2962,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["direct"] = direct_phase(dev, args.seed)
 
+    # 15. the diffusion family
+    torch.cuda.empty_cache()
+    record["diffusion"] = diffusion_phase(dev, args.seed)
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
-    # serving commands of [13] and [14]'s direct_vit reconstruct, first train
-    # step and entry points, each counted from 0
-    direct = record["direct"]
+    # serving commands of [13], [14]'s direct_vit reconstruct, first train
+    # step and entry points, and [15]'s first train steps, samplers and cli
+    # train, each counted from 0
+    direct, diffusion = record["direct"], record["diffusion"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
               "cli_train": record["train_entry_point"]["launches"],
@@ -2546,7 +2979,14 @@ def main() -> int:
               "cli_serving": record["serving"]["launches"],
               "direct_vit_reconstruct": direct["direct_vit"]["launches"],
               "direct_vit_train": direct["direct_vit_train"]["launches_per_step"],
-              "direct_vit_cli": direct["direct_cli"]["launches"]}
+              "direct_vit_cli": direct["direct_cli"]["launches"],
+              **{f"diffusion_{k}": diffusion[k]["launches_per_step"]
+                 for k in ("train_64_b4", "train_r5_s2_b2", "train_prog_s2_b1")},
+              "diffusion_sample_64": diffusion["sample_64"]["launches"],
+              **{f"diffusion_cascade_sample_{k}": v["launches"]
+                 for k, v in diffusion["cascade_sample_r5"]["per_stage"].items()},
+              "diffusion_cli": diffusion["cli_train"]["launches"]}
+    by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
         ms, plain_ms = rows[(name, spec["hot"])]
@@ -2576,6 +3016,15 @@ def main() -> int:
                 "bound_ms": bound(name, sh, exp2_rate=exp2_rate)[0],
                 "library_ms": library_ms(name, sh, dev, args.seed), "launches": sum(d_runs.values()),
                 "launches_by_run": d_runs}
+        if name in DIFFUSION_AT:  # the diffusion slice's shapes, and its launches
+            f_runs = {k: by_run[k][name] for k in by_run if k.startswith("diffusion")}
+            kernels[-1]["diffusion"] = {
+                "at": [{"at": f"{sh} bf16", "ms": rows[(name, sh)][0],
+                        "plain_ms": rows[(name, sh)][1],
+                        "bound_ms": bound(name, sh, exp2_rate=exp2_rate)[0],
+                        "library_ms": library_ms(name, sh, dev, args.seed)}
+                       for sh in DIFFUSION_AT[name]],
+                "launches": sum(f_runs.values()), "launches_by_run": f_runs}
         if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
             fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in_fp32"] for run, counts in by_run.items()}
             kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),

@@ -1,12 +1,18 @@
 """Command line of the port (counterpart of hybrid_vit_cascade_tpu/cli.py):
 ``python -m hybrid_vit_cascade_tpu_torch.cli <cmd>``.
 
-  train    — a model family from a JSON config (the cascade stagewise)
+  train    — a model family from a JSON config (the cascade stagewise, the
+             diffusion ladder stage by stage with ``diffusion_progressive``)
   transfer — shape-matched weight transfer into a config's model, then train
   infer    — checkpoint → .npy / NIfTI / PNG export and the item's metrics
   eval     — whole-test-split metric summary (evaluation_metrics.json)
   diagnose — the diagnostic suite and health grades of one reconstruction
   inspect  — a checkpoint's tensor names and shapes
+
+``infer``, ``eval`` and ``diagnose`` serve every family but diffusion, as in
+the JAX package: on a diffusion entry they stop with the engine's message,
+which names the samplers (``models.diffusion.ddim_sample``,
+``cascaded_ddim_sample``).
 
 Each takes the JAX command's flags and config semantics (``_load_cfg``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
@@ -176,7 +182,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hybrid_vit_cascade_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    t = sub.add_parser("train", help="train a model family (the cascade stagewise)")
+    t = sub.add_parser("train", help="train a model family (the cascade stagewise, the "
+                                     "diffusion ladder by stage)")
     t.add_argument("--config", default=None)
     t.add_argument("--family", default=None)
     t.add_argument("--synthetic", action="store_true")
@@ -194,7 +201,8 @@ def main(argv=None) -> None:
     _device_flag(t)
     t.set_defaults(fn=cmd_train)
 
-    i = sub.add_parser("infer", help="reconstruct + export .npy / NIfTI / PNG")
+    i = sub.add_parser("infer", help="reconstruct + export .npy / NIfTI / PNG (not diffusion: "
+                                     "sample it with models.diffusion.ddim_sample)")
     i.add_argument("--checkpoint", required=True, help="checkpoint file or entry directory")
     i.add_argument("--output", default="inference_out")
     i.add_argument("--index", type=int, default=0)

@@ -12,8 +12,9 @@ and the chain ``*_kernel`` parameters are already OIDHW and copy as they
 are; the stage-1 seed volume moves from NDHWC to NCDHW. BatchNorm running
 statistics come from ``batch_stats``. ``vgg16`` converts the perceptual
 loss's VGG variables, ``diagnostic_nets`` the diagnostic suite's three frozen
-nets, ``direct256_nets`` the CNN decoders' loss nets. The CNN decoders keep
-flax's module names, so ``flax_tree`` converts them by walking the tree.
+nets, ``direct256_nets`` the CNN decoders' loss nets. The CNN decoders and
+the diffusion family's depth lifter keep flax's module names, so
+``flax_tree`` converts them by walking the tree.
 """
 
 from __future__ import annotations
@@ -248,3 +249,24 @@ def direct256_nets(pyramid_vars: Mapping, style_vars: Mapping, attention_vars: M
     return {"pyramid": flax_tree(pyramid_vars["params"]),
             "style": flax_tree(style_vars["params"]),
             "attention": flax_tree(attention_vars["params"])}
+
+
+def diffusion(variables: Mapping) -> StateDict:
+    """UnifiedHybridViTCascade: the time MLP (``Dense_0``, ``Dense_1``), the
+    BatchNorm encoder with its running statistics, and per stage
+    ``prev_proj_{name}`` and ``stage_{name}`` (the lifter and
+    ``depth_to_volume`` by flax's names, the channels-last-stem ViT). The
+    streamed and dense lifters share one tree."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    for name in ("Dense_0", "Dense_1"):
+        _dense(params[name], f"{name}.", sd)
+    sd.update(xray_conditioning(params["xray_encoder"], stats["xray_encoder"], "xray_encoder."))
+    for name, p in params.items():
+        if name.startswith("prev_proj_"):
+            _dense(p, f"{name}.", sd)
+        elif name.startswith("stage_"):
+            rest = dict(p)
+            sd.update(vit3d(rest.pop("vit_backbone"), f"{name}.vit_backbone."))
+            sd.update(flax_tree(rest, f"{name}."))
+    return sd

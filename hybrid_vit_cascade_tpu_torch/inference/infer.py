@@ -15,10 +15,14 @@ config in ``meta.json``) — the port's counterparts of an Orbax directory
 plus its ``meta.json``.
 
 The PNG writers need matplotlib: without it ``export`` prints a message and
-leaves their keys out of the paths it returns. Not ported: ``export_serving``
-and ``load_serving`` (a StableHLO artifact; the kernels are not registered
-with ``torch.library``, so ``torch.export`` cannot trace them yet), and the
-diffusion family, which ``build_model`` refuses.
+leaves their keys out of the paths it returns. ``build_model`` builds every
+family; ``InferenceEngine`` serves all but the diffusion family, which the
+JAX engine cannot serve either (its template ``init`` cannot call the
+diffusion model): it refuses a diffusion entry and names the samplers,
+``models.diffusion.ddim_sample`` and ``cascaded_ddim_sample``.
+``inspect_checkpoint`` reads any entry. Not ported: ``export_serving`` and
+``load_serving`` (a StableHLO artifact; the kernels are not registered with
+``torch.library``, so ``torch.export`` cannot trace them yet).
 """
 
 from __future__ import annotations
@@ -40,8 +44,14 @@ from ..ops.resize import resize_trilinear
 from ..training.checkpoint import load_entry
 
 _STAGE_PREFIXES = {1: ("xray_encoder.", "stage2.", "stage3."), 2: ("stage3.",), 3: ()}
-# the model families build_model builds (all but diffusion)
-PORTED_FAMILIES = ("cascade", "direct_vit", "direct128_h200", "direct256_h200", "direct256_b200")
+# the model families build_model builds
+PORTED_FAMILIES = ("cascade", "direct_vit", "direct128_h200", "direct256_h200", "direct256_b200",
+                   "diffusion")
+# what InferenceEngine says of a diffusion entry
+DIFFUSION_NOT_SERVED = (
+    "InferenceEngine does not serve the diffusion family (nor does the JAX engine): sample it "
+    "with hybrid_vit_cascade_tpu_torch.models.diffusion.ddim_sample (one stage) or "
+    "cascaded_ddim_sample (the ladder) on a model from build_model")
 
 
 def denormalize_ct(volume: np.ndarray, normalization: str = "soft_tissue") -> np.ndarray:
@@ -140,8 +150,10 @@ def build_model(cfg: Config, built_stages: int = 3) -> torch.nn.Module:
     """The model a config names: fp32 parameters, compute in cfg.model.dtype
     (JAX ``trainer.py:63-95``). ``built_stages`` applies to the cascade. The
     CNN decoders take the config's ``use_gradient_checkpointing`` as
-    ``remat``; ``DirectCTRegression`` takes no remat, as in JAX. The diffusion family is
-    not ported."""
+    ``remat``; ``DirectCTRegression`` takes no remat, as in JAX. The
+    diffusion family builds the ladder of ``diffusion_stage_configs`` with
+    ``remat`` = ``use_gradient_checkpointing``, ``lift_slabs`` =
+    ``diffusion_lift_slabs`` and T = 1000."""
     m = cfg.model
     if m.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"model family {m.family!r} is not ported yet")
@@ -161,7 +173,13 @@ def build_model(cfg: Config, built_stages: int = 3) -> torch.nn.Module:
         return cnn_models.Direct128ModelH200(m.xray_feature_dim, dtype=dtype, remat=remat)
     if m.family == "direct256_h200":
         return cnn_models.Direct256ModelH200(m.xray_feature_dim, dtype=dtype, remat=remat)
-    return cnn_models.Direct256ModelB200(dtype=dtype, remat=remat)
+    if m.family == "direct256_b200":
+        return cnn_models.Direct256ModelB200(dtype=dtype, remat=remat)
+    from ..models.diffusion import UnifiedHybridViTCascade
+    from ..training.trainer import diffusion_stage_configs
+
+    return UnifiedHybridViTCascade(diffusion_stage_configs(m), xray_embed_dim=m.xray_feature_dim,
+                                   dtype=dtype, remat=remat, lift_slabs=m.diffusion_lift_slabs)
 
 
 def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> None:
@@ -191,6 +209,8 @@ class InferenceEngine:
                  device: str | torch.device = "cuda", max_stage: int = 3):
         cfg_dict, state = load_checkpoint(checkpoint_path)
         self.cfg = config if config is not None else Config.from_dict(cfg_dict)
+        if self.cfg.model.family == "diffusion":
+            raise NotImplementedError(DIFFUSION_NOT_SERVED)
         self.device = torch.device(device)
         self.max_stage = max_stage
         model = build_model(self.cfg, built_stages=max_stage)
@@ -233,8 +253,8 @@ class InferenceEngine:
         ``psnr``, ``psnr_dynamic``, ``ssim``, ``l1``."""
         from ..training.trainer import resize_target
 
-        if self.cfg.model.family not in PORTED_FAMILIES:
-            raise NotImplementedError(f"model family {self.cfg.model.family!r} is not ported")
+        if self.cfg.model.family == "diffusion":
+            raise NotImplementedError(DIFFUSION_NOT_SERVED)
         xr = item["drr_stacked"][None]
         target = self._target(item)
         if not self.cascade:

@@ -9,6 +9,10 @@ stem it reproduces, which decides the GroupNorm numerics: the channels-last
 stem (stage 1) uses flax ``nn.GroupNorm``, the feature-first one
 ``group_norm_core``.
 
+``use_prev_stage`` (the diffusion family's refiner stages, JAX vit3d.py:27,
+59-62): every block appends a 256-wide previous-stage embedding to ``cond``,
+zeros when none is given, so its AdaLN reads ``cond_dim + 256`` inputs.
+
 Training: ``seed`` (an int drawn by the caller, or None) drives dropout, and
 ``remat`` with ``remat_mode`` selects activation checkpointing as the JAX
 module does (vit3d.py:151-157): 'block' recomputes whole blocks in the
@@ -31,6 +35,8 @@ from ..ops.resize import resize_trilinear
 from .attention import MultiHeadCrossAttention, MultiHeadSelfAttention
 from .layers import AdaLNModulation, LayerNorm, Linear, Mlp, number_dropout_sites
 
+PREV_STAGE_EMBED_DIM = 256
+
 
 class HybridViTBlock3D(nn.Module):
     """Pre-norm block: AdaLN-modulated self-attn → un-modulated, ungated
@@ -38,10 +44,12 @@ class HybridViTBlock3D(nn.Module):
 
     def __init__(self, voxel_dim: int, num_heads: int = 8, context_dim: int = 512,
                  cond_dim: int = 1024, mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
-                 remat_mlp: bool = False):
+                 remat_mlp: bool = False, use_prev_stage: bool = False):
         super().__init__()
         self.remat_mlp = remat_mlp
-        self.adaln = AdaLNModulation(cond_dim, voxel_dim, dtype)
+        self.use_prev_stage = use_prev_stage
+        self.adaln = AdaLNModulation(cond_dim + PREV_STAGE_EMBED_DIM * use_prev_stage, voxel_dim,
+                                     dtype)
         self.norm1 = LayerNorm(voxel_dim, dtype)
         self.self_attn = MultiHeadSelfAttention(voxel_dim, num_heads, dtype)
         self.norm2 = LayerNorm(voxel_dim, dtype)
@@ -50,8 +58,14 @@ class HybridViTBlock3D(nn.Module):
         self.mlp = Mlp(voxel_dim, voxel_dim * mlp_ratio, voxel_dim, dtype)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
-                seed: int | None = None) -> torch.Tensor:
-        # x (B, N, voxel_dim), context (B, M, context_dim), cond (B, cond_dim)
+                seed: int | None = None,
+                prev_stage_embed: torch.Tensor | None = None) -> torch.Tensor:
+        # x (B, N, voxel_dim), context (B, M, context_dim), cond (B, cond_dim),
+        # prev_stage_embed (B, 256) or None
+        if self.use_prev_stage:
+            if prev_stage_embed is None:
+                prev_stage_embed = x.new_zeros((x.shape[0], PREV_STAGE_EMBED_DIM))
+            cond = torch.cat([cond, prev_stage_embed.to(cond.dtype)], dim=-1)
         shift_sa, scale_sa, gate_sa, shift_mlp, scale_mlp, gate_mlp = self.adaln(cond)
         h = (1.0 + scale_sa) * self.norm1(x) + shift_sa
         x = x + gate_sa * self.self_attn(h, seed)
@@ -103,7 +117,8 @@ class HybridViT3D(nn.Module):
     def __init__(self, volume_size: Tuple[int, int, int], in_channels: int, voxel_dim: int,
                  depth: int, num_heads: int, context_dim: int = 512, cond_dim: int = 1024,
                  dtype: torch.dtype = torch.float32, external_stem: bool = False,
-                 layout: str = "NCDHW", remat: bool = False, remat_mode: str = "block"):
+                 layout: str = "NCDHW", remat: bool = False, remat_mode: str = "block",
+                 use_prev_stage: bool = False):
         super().__init__()
         if layout not in ("NCDHW", "NDHWC") or remat_mode not in ("block", "mlp"):
             raise ValueError(f"layout {layout!r} / remat_mode {remat_mode!r}")
@@ -129,14 +144,16 @@ class HybridViT3D(nn.Module):
         self.pos_embed = nn.Parameter(0.02 * torch.randn(1, n_tokens, voxel_dim))
         self.blocks = nn.ModuleList(
             HybridViTBlock3D(voxel_dim, num_heads, context_dim, cond_dim, dtype=dtype,
-                             remat_mlp=remat and remat_mode == "mlp")
+                             remat_mlp=remat and remat_mode == "mlp",
+                             use_prev_stage=use_prev_stage)
             for _ in range(depth))
         self.norm = LayerNorm(voxel_dim, dtype)
         self.head = Linear(voxel_dim, 1, dtype=dtype)
         number_dropout_sites(self)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, cond: torch.Tensor,
-                seed: int | None = None) -> torch.Tensor:
+                seed: int | None = None,
+                prev_stage_embed: torch.Tensor | None = None) -> torch.Tensor:
         B = x.shape[0]
         h = x.to(self.dtype)
         if self.external_stem:
@@ -152,8 +169,9 @@ class HybridViT3D(nn.Module):
         tokens = h.flatten(2).transpose(1, 2) + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
             if self.remat_blocks and torch.is_grad_enabled():
-                tokens = checkpoint(blk, tokens, context, cond, seed, use_reentrant=False)
+                tokens = checkpoint(blk, tokens, context, cond, seed, prev_stage_embed,
+                                    use_reentrant=False)
             else:
-                tokens = blk(tokens, context, cond, seed)
+                tokens = blk(tokens, context, cond, seed, prev_stage_embed)
         out = self.head(self.norm(tokens)).reshape(B, 1, Dd, Hd, Wd)
         return resize_trilinear(out, self.volume_size, align_corners=True)

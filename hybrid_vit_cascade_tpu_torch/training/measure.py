@@ -1,15 +1,19 @@
-"""Time, profile and size a train step: the cascade's staged one, or the
-single-model step of the other families.
+"""Time, profile and size a train step: the cascade's staged one, a
+diffusion ladder stage's, or the single-model step of the other families.
 
     python -m hybrid_vit_cascade_tpu_torch.training.measure --stage 3 --batch 1 --steps 3 --profile
     python -m hybrid_vit_cascade_tpu_torch.training.measure --config configs/direct128_h200.json --batch 2
+    python -m hybrid_vit_cascade_tpu_torch.training.measure --config configs/diffusion_quality_r5.json --stage 2 --batch 2
 
 Builds the model of ``--config`` (default ``configs/progressive_cascade.json``,
 full width) with weights from ``--seed``, feeds seeded X-rays
 (B, 2, 1, S, S) and a seeded CT volume (B, 1, D, H, W) at the dataset's
 resolution (256³ for the cascade) in [-1, 1], and runs one warm-up step and
 ``--steps`` timed steps of the step that ``stage_step`` builds for
-``--stage`` (the cascade) or ``single_model_step`` builds (the others).
+``--stage`` (the cascade), ``diffusion_steps`` builds for the ladder's stage
+``--stage`` (the diffusion family: that stage's trainable set, a refiner
+conditioned on the ground truth at the previous stage's size) or
+``single_model_step`` builds (the others).
 ``--deterministic`` runs that step with ``train=False`` (running
 statistics, no dropout). ``--stage3-schedule dense``
 runs the stage-3 conv chains densely (``stage3_slab_scan`` off, eval schedule
@@ -43,7 +47,7 @@ import torch.nn as nn
 from ..config import data_volume_size
 from ..losses.multiscale import MultiScaleLoss
 from ..ops.cuda import launch_counts, reset_launch_counts
-from .trainer import single_model_step, stage_step
+from .trainer import diffusion_state, diffusion_steps, single_model_step, stage_step
 
 
 def _sync(dev: torch.device) -> None:
@@ -191,12 +195,13 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
                 loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False,
                 memory: bool = False) -> Dict:
     """One warm-up step and ``steps`` timed steps of the cascade's stage
-    ``stage`` (another family: its single-model step; ``stage`` and
-    ``loss_obj`` unread) on the model's device, on a batch drawn from
+    ``stage``, of the diffusion ladder's stage ``stage`` (1-based), or
+    (another family) its single-model step (``stage`` unread; ``loss_obj``
+    is read by the cascade only) on the model's device, on a batch drawn from
     ``generator`` (which also seeds dropout). Returns step times (ms, host
     clock around work that ends in a device sync), total_loss per step
-    (warm-up first), peak memory (GB, CUDA only), kernel launches of the
-    warm-up step, with ``profile`` the kernel profile of one more step and
+    (warm-up first) and every metric of the step's (``metrics``, per step),
+    peak memory (GB, CUDA only), kernel launches of the warm-up step, with ``profile`` the kernel profile of one more step and
     with ``memory`` (CUDA only) what is allocated at the peak of one more
     step."""
     dev = next(model.parameters()).device
@@ -205,8 +210,14 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
                                        device=dev) * 2 - 1,
              "ct_volume": torch.rand((batch_size, 1, *data_volume_size(cfg)),
                                      generator=generator, device=dev) * 2 - 1}
+    t = cfg.training
     if cfg.model.family == "cascade":
         state, step = stage_step(model, cfg, stage, loss_obj, steps_per_epoch=1, train=train)
+    elif cfg.model.family == "diffusion":
+        idx = stage - 1
+        state = diffusion_state(model, cfg, idx, t.learning_rate, t.num_epochs,
+                                t.freeze_shared_diffusion)
+        step = diffusion_steps(model, idx, t.diffusion_sample_steps, train=train)[0]
     else:
         # one step an epoch, as stage_step is given: the schedule runs over
         # training.num_epochs steps
@@ -221,6 +232,7 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
     _sync(dev)
     out = {"warmup_s": time.perf_counter() - t0, "launches_per_step": launch_counts(),
            "total_loss": [float(metrics["total_loss"])], "step_ms": [],
+           "metrics": [{k: float(v) for k, v in metrics.items()}],
            "trainable_params": sum(p.numel() for p in model.parameters() if p.requires_grad)}
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -228,6 +240,7 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
         _sync(dev)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["total_loss"].append(float(metrics["total_loss"]))
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
     if steps:
         out["steps_per_sec"] = 1e3 / statistics.median(out["step_ms"])
     if dev.type == "cuda":
@@ -248,7 +261,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="configs/progressive_cascade.json")
     ap.add_argument("--stage", type=int, choices=(1, 2, 3), default=None,
-                    help="the cascade's stage (required for the cascade, unread otherwise)")
+                    help="the cascade's or the diffusion ladder's stage (required for "
+                         "those, unread otherwise)")
     ap.add_argument("--batch", type=int, required=True)
     ap.add_argument("--steps", type=int, default=3, help="timed steps after one warm-up step")
     ap.add_argument("--seed", type=int, default=0, help="seed of weights, inputs and dropout")
@@ -271,8 +285,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = Config.from_json(args.config)
-    if cfg.model.family == "cascade" and args.stage is None:
-        sys.exit("measure: --stage is required for the cascade")
+    if cfg.model.family in ("cascade", "diffusion") and args.stage is None:
+        sys.exit("measure: --stage is required for the cascade and the diffusion ladder")
     model = seeded_init_(build_model(cfg), args.seed).to(dev)
     if args.stage3_schedule == "dense":
         use_dense_stage3(model)

@@ -17,8 +17,19 @@ the optimizer, its BatchNorm running statistics pinned) and its split step
 ``single_model_step`` builds what ``fit`` builds for ``direct_vit`` and the
 three CNN decoders: every parameter trainable, the loss at the dataset's
 resolution (``MultiScaleLoss`` stage 1 for ``direct_vit``,
-``Direct256Loss`` for the decoders). The diffusion family is not ported.
-Not ported either: the epoch-end
+``Direct256Loss`` for the decoders).
+
+The diffusion family (``diffusion_stage_configs`` :99-118,
+``_diffusion_steps`` :414-485, ``fit_diffusion`` :501-519,
+``fit_diffusion_cascade`` :521-630): ``diffusion_steps`` builds one stage's
+train step (the model's sampled-t loss in train mode; a refiner conditioned
+on the ground truth resized to the previous stage's size) and eval step (the
+loss and a DDIM reconstruction's PSNR and SSIM); ``diffusion_state`` its
+trainable set and optimizer; ``fit`` trains the ladder's last stage
+(``fit_diffusion``) or the ladder (``fit_diffusion_cascade``, with its
+cascaded-DDIM chain evaluation) by ``training.diffusion_progressive``.
+
+Not ported: the epoch-end
 visualization (``_viz_epoch``: the run prints that it is skipped and goes
 on, as the JAX trainer does when visualization fails), wandb logging,
 profiler traces and NaN debugging (``use_wandb``, ``profile_dir`` and
@@ -56,6 +67,27 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+
+def diffusion_stage_configs(m) -> tuple:
+    """The diffusion stage ladder (JAX ``trainer.py:99-118``): 64³ / 128³ /
+    256³ at depths 4 / 6 / 8 and heads 4 / 8 / 8 whatever the config says,
+    truncated to the configured volume size; below 64, one stage at the
+    config's size, depth and heads."""
+    ladder = [
+        dict(name="stage1_low", volume_size=(64, 64, 64), voxel_dim=m.voxel_dim,
+             vit_depth=4, num_heads=4, use_depth_lifting=True, use_physics_loss=True),
+        dict(name="stage2_mid", volume_size=(128, 128, 128), voxel_dim=m.voxel_dim,
+             vit_depth=6, num_heads=8, use_depth_lifting=True, use_physics_loss=True),
+        dict(name="stage3_high", volume_size=(256, 256, 256), voxel_dim=m.voxel_dim,
+             vit_depth=8, num_heads=8, use_depth_lifting=True, use_physics_loss=True),
+    ]
+    top = max(m.volume_size)
+    if top < 64:
+        return (dict(name="stage1_low", volume_size=tuple(m.volume_size), voxel_dim=m.voxel_dim,
+                     vit_depth=m.vit_depth, num_heads=m.num_heads, use_depth_lifting=True,
+                     use_physics_loss=True),)
+    return tuple(c for c in ladder if max(c["volume_size"]) <= top)
 
 
 def resize_target(volume: torch.Tensor, resolution: Sequence[int]) -> torch.Tensor:
@@ -206,6 +238,81 @@ def single_model_step(model: nn.Module, cfg, total_steps: int, learning_rate: fl
     return TrainState(model, opt), make_train_step(model, loss_fn, train=train)
 
 
+def diffusion_trainable(stage_configs: Sequence[Dict], stage_idx: int,
+                        freeze_shared: bool = False) -> list:
+    """The top-level submodules a diffusion stage trains (JAX
+    ``trainer.py:571-579``): its ``stage_{name}`` and ``prev_proj_{name}``,
+    and the shared encoder and time MLP, which ``freeze_shared`` pins after
+    the first stage."""
+    name = stage_configs[stage_idx]["name"]
+    if stage_idx > 0 and freeze_shared:
+        return [f"stage_{name}", f"prev_proj_{name}"]
+    return [f"stage_{name}", f"prev_proj_{name}", "xray_encoder", "Dense_0", "Dense_1"]
+
+
+def diffusion_state(model: nn.Module, cfg, stage_idx: int, lr: float, total_steps: int,
+                    freeze_shared: bool = False) -> TrainState:
+    """The trainable set of a diffusion stage (``diffusion_trainable``)
+    under AdamW with cosine decay over ``total_steps`` (no warmup, as the JAX
+    trainer builds it); every other parameter frozen."""
+    t = cfg.training
+    params = apply_stage_freeze(
+        model, diffusion_trainable(model.stage_configs, stage_idx, freeze_shared))
+    return TrainState(model, make_optimizer(params, lr, total_steps, t.weight_decay,
+                                            t.gradient_clip))
+
+
+def diffusion_steps(model: nn.Module, stage_idx: int, sample_steps: int, train: bool = True):
+    """One diffusion stage's (train_step, eval_step, resolution) (JAX
+    ``_diffusion_steps``). A refiner stage is conditioned on the ground
+    truth resized (align_corners=False) to the previous stage's size.
+
+    train_step(state, batch, generator) → (state, metrics): the model's
+    sampled-t loss in train mode (t, noise and dropout drawn from
+    ``generator``), backward, optimizer step; metrics ``total_loss``,
+    ``loss``, ``diffusion_loss``, ``physics_loss``. ``train=False`` runs that
+    loss deterministically (running statistics, no dropout).
+    eval_step(batch) → {loss, psnr, ssim}: the deterministic loss, and
+    ``ddim_sample`` with ``sample_steps`` steps against the target. Fixed
+    generators stand where JAX has fixed keys: seed 0 for the loss, 1 for
+    the sampler (their bits differ from JAX's)."""
+    from ..models.diffusion import ddim_sample
+
+    stage_cfgs = model.stage_configs
+    stage = stage_cfgs[stage_idx]["name"]
+    resolution = tuple(stage_cfgs[stage_idx]["volume_size"])
+    prev_res = tuple(stage_cfgs[stage_idx - 1]["volume_size"]) if stage_idx > 0 else None
+
+    def prev_of(batch):
+        return None if prev_res is None else resize_target(batch["ct_volume"], prev_res)
+
+    def train_step(state: TrainState, batch: Dict, generator: Optional[torch.Generator]):
+        state.optimizer.zero_grad(set_to_none=True)
+        x_start = resize_target(batch["ct_volume"], resolution)
+        ld = model(x_start, batch["drr_stacked"], stage, generator,
+                   prev_stage_volume=prev_of(batch), train=train)
+        ld["loss"].backward()
+        state.optimizer.step()
+        state.step += 1
+        ld = {k: v.detach() for k, v in ld.items()}
+        return state, {"total_loss": ld["loss"], **ld}
+
+    @torch.no_grad()
+    def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
+        target = resize_target(batch["ct_volume"], resolution)
+        prev = prev_of(batch)
+        dev = target.device
+        ld = model(target, batch["drr_stacked"], stage,
+                   torch.Generator(device=dev).manual_seed(0), prev_stage_volume=prev)
+        recon = ddim_sample(model, batch["drr_stacked"], stage,
+                            torch.Generator(device=dev).manual_seed(1),
+                            num_steps=sample_steps, prev_stage_volume=prev)
+        return {"loss": ld["loss"], "psnr": psnr(recon, target),
+                "ssim": ssim_metric(recon, target)}
+
+    return train_step, eval_step, resolution
+
+
 def host_target_transform(resolution: Sequence[int], cache: bool = False):
     """DataLoader batch map: resize the CT target to the stage resolution on
     the host (the native threaded resample when ``native/libnifti_io.so``
@@ -302,6 +409,10 @@ class Trainer:
         optimizer state."""
         if self.cfg.model.family == "cascade":
             return self.fit_cascade(resume=resume, progress=progress)
+        if self.cfg.model.family == "diffusion":
+            if self.cfg.training.diffusion_progressive:
+                return self.fit_diffusion_cascade(resume=resume, progress=progress)
+            return self.fit_diffusion(epochs=epochs, progress=progress)
         t = self.cfg.training
         epochs = epochs if epochs is not None else t.num_epochs
         lr = lr_override if lr_override is not None else t.learning_rate
@@ -347,6 +458,86 @@ class Trainer:
                                     sc.num_epochs, sc.learning_rate, progress, stage_name,
                                     stage_ckpt, resolution)
             self._carry_best(stage_ckpt)
+        return last
+
+    def fit_diffusion(self, epochs: Optional[int] = None,
+                      progress: bool = True) -> Dict[str, float]:
+        """Train the ladder's last diffusion stage into ``save_dir``, from the
+        model as built (no resume, as in JAX). A refiner stage is conditioned
+        on the ground truth at the previous stage's size;
+        ``fit_diffusion_cascade`` trains the ladder."""
+        t = self.cfg.training
+        epochs = epochs if epochs is not None else t.num_epochs
+        stages = self.model.stage_configs
+        idx = len(stages) - 1
+        steps_per_epoch = max(1, len(self.train_ds) // t.batch_size)
+        state = diffusion_state(self.model, self.cfg, idx, t.learning_rate,
+                                steps_per_epoch * epochs)
+        train_step, eval_step, resolution = diffusion_steps(self.model, idx,
+                                                            t.diffusion_sample_steps)
+        return self._run_epochs(state, train_step, eval_step, t.batch_size, 0, epochs,
+                                t.learning_rate, progress, f"diffusion_{stages[idx]['name']}",
+                                self.ckpt, resolution)
+
+    def fit_diffusion_cascade(self, resume: bool = True,
+                              progress: bool = True) -> Dict[str, float]:
+        """Progressive diffusion training, stage by stage, each refiner
+        conditioned on the ground truth at the previous stage's size, then a
+        fully generated cascaded-DDIM evaluation on one validation item
+        (``chain_{name}_psnr`` / ``_ssim``, logged to the JSONL as
+        ``diffusion_chain_eval``). Per-stage epochs, batch and learning rate
+        come from ``training.stages['stageN']`` by ladder position. A stage
+        trains its own subtree and the shared encoder and time MLP (those
+        only at stage 1 under ``freeze_shared_diffusion``); checkpoints go to
+        ``save_dir/diffusion_{name}/``; a resumed run skips a completed stage.
+        Each finished stage hands its best-validation-PSNR weights on."""
+        from ..models.diffusion import cascaded_ddim_sample
+
+        t = self.cfg.training
+        stages = self.model.stage_configs
+        last: Dict[str, float] = {}
+        for i, sc_diff in enumerate(stages):
+            name = sc_diff["name"]
+            sc = t.stages.get(f"stage{i + 1}")
+            epochs = sc.num_epochs if sc else t.num_epochs
+            batch = sc.batch_size if sc else t.batch_size
+            lr = sc.learning_rate if sc else t.learning_rate
+            steps_per_epoch = max(1, len(self.train_ds) // batch)
+            state = diffusion_state(self.model, self.cfg, i, lr, steps_per_epoch * epochs,
+                                    t.freeze_shared_diffusion)
+            stage_ckpt = CheckpointManager(f"{self.cfg.checkpoints.save_dir}/diffusion_{name}",
+                                           self.cfg.checkpoints.save_every)
+            start_epoch = self._restore_state(stage_ckpt, state) if resume else 0
+            if start_epoch >= epochs:  # stage already complete
+                self._carry_best(stage_ckpt)
+                best = stage_ckpt.best
+                last = {k: best.get(k, 0.0) for k in ("loss", "psnr", "ssim")}
+                if progress:
+                    print(f"[diffusion_{name}] complete at epoch {start_epoch - 1}; skipping")
+                continue
+            train_step, eval_step, resolution = diffusion_steps(self.model, i,
+                                                                t.diffusion_sample_steps)
+            last = self._run_epochs(state, train_step, eval_step, batch, start_epoch, epochs, lr,
+                                    progress, f"diffusion_{name}", stage_ckpt, resolution)
+            self._carry_best(stage_ckpt)
+
+        item = self.val_ds[0]
+        xr = torch.as_tensor(np.asarray(item["drr_stacked"])[None],
+                             dtype=torch.float32).to(self.device)
+        vols = cascaded_ddim_sample(self.model, xr,
+                                    torch.Generator(device=self.device).manual_seed(7),
+                                    num_steps=t.diffusion_sample_steps)
+        gt = torch.as_tensor(np.asarray(item["ct_volume"])[None],
+                             dtype=torch.float32).to(self.device)
+        for nm, vol in vols.items():
+            tgt = resize_target(gt, vol.shape[-3:])
+            last[f"chain_{nm}_psnr"] = float(psnr(vol, tgt))
+            last[f"chain_{nm}_ssim"] = float(ssim_metric(vol, tgt))
+        chain = {k: v for k, v in last.items() if k.startswith("chain_")}
+        self.jsonl.log({"phase": "diffusion_chain_eval", **chain})
+        if progress:
+            print(f"[diffusion] cascaded DDIM eval: "
+                  f"{ {k: round(v, 3) for k, v in chain.items()} }")
         return last
 
     def _restore_state(self, ckpt: CheckpointManager, state: TrainState) -> int:

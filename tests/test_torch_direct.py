@@ -262,8 +262,8 @@ def test_cli_transfer_matches_jax(setup, tmp_path, capsys):
 
 
 def test_build_model_and_trainer_families(tmp_path):
-    """build_model builds every direct family; diffusion alone is refused,
-    by build_model and by the Trainer."""
+    """build_model builds every direct family and the diffusion family, which
+    the Trainer takes too."""
     cfg, _ = configs()
     for family, cls in (("direct128_h200", "Direct128ModelH200"),
                         ("direct256_h200", "Direct256ModelH200"),
@@ -273,11 +273,10 @@ def test_build_model_and_trainer_families(tmp_path):
         with torch.device("meta"):
             assert type(build_model(cfg)).__name__ == cls
     cfg.model.family = "diffusion"
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        build_model(cfg)
+    with torch.device("meta"):
+        assert type(build_model(cfg)).__name__ == "UnifiedHybridViTCascade"
     cfg.checkpoints.save_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        Trainer(cfg, device="cpu")
+    assert type(Trainer(cfg, device="cpu").model).__name__ == "UnifiedHybridViTCascade"
 
 
 def test_transfer_defaults_to_the_card(tmp_path, monkeypatch):

@@ -40,7 +40,7 @@ def test_port_modules_found():
               "ops.drr", "losses.metrics", "losses.multiscale", "training.schedules",
               "training.trainer", "config", "cli", "data.dataset", "data.nifti",
               "data.native_io", "data.pipeline", "data.synthetic", "training.checkpoint",
-              "utils.logging"):
+              "utils.logging", "models.depth_lifting", "models.diffusion"):
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 

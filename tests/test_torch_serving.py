@@ -139,8 +139,9 @@ def test_evaluate_sample_matches_jax(setup, max_stage):
 
 
 def test_evaluate_sample_other_family_raises(setup, monkeypatch):
-    """Diffusion is the one family the port does not build: evaluate_sample
-    refuses it before it reconstructs anything."""
+    """Diffusion is the one family the engine does not serve (the JAX engine
+    cannot either): evaluate_sample refuses it before it reconstructs
+    anything."""
     engine = setup["engine"]
     monkeypatch.setattr(engine.cfg.model, "family", "diffusion")
     monkeypatch.setattr(engine, "reconstruct", None)

@@ -181,10 +181,6 @@ def test_fit_cascade_stagewise_tiny(tmp_path, capsys):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    cfg = _cfg(tmp_path)
-    cfg.model.family = "diffusion"
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        Trainer(cfg, device="cpu")
     for flag, value in (("use_wandb", True), ("profile_dir", "p"), ("debug_nans", True)):
         with pytest.raises(NotImplementedError, match=flag):
             Trainer(_cfg(tmp_path, **{flag: value}), device="cpu")
