@@ -5,7 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and nothing is caught:
+Phases, in order; any failure exits non-zero and nothing is caught but [17]'s
+expected FloatingPointError:
 
 1. Require a CUDA device; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
@@ -213,6 +214,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    at the slice's new shapes (DIFFUSION_AT: the 17→64 stem from 64³ at
    batch 4 and from 128³ at batch 2; A and D at 16 × 4,096² at d = 64 and
    32), D bitwise at 16 × 4,096² × 32 among the training shapes.
+16. The serving artifact: ``InferenceEngine.export_serving`` of [4]'s
+   full-width cascade (bf16, max_stage=3, batch 1) and of [14]'s
+   ``direct_vit`` on the card (export seconds, artifact bytes, the sidecar),
+   ``load_serving`` in this process: one served call launches exactly
+   EXPECTED_LAUNCHES (EXPECTED_LAUNCHES_DIRECT) and no gradient kernel, and
+   its volume matches ``reconstruct``'s within 2⁻⁷·max|want| (SERVE_TOL); 5
+   served calls and 5 reconstructs in turns (median ms); then a fresh
+   ``python3`` process that imports only the serving loader loads the
+   cascade's artifact, runs it (its volume within the same bound) and has
+   imported no ``hybrid_vit_cascade_tpu_torch.models`` module. ``cli export`` on [11]'s
+   entry (sidecar checked). Each number beside the card's name and power
+   limit.
+17. Training observability: ``cli train`` on a copy of
+   ``configs/quality_r5.json`` at [5]'s widths (one epoch a stage,
+   OBS_PATIENTS patients) with ``profile_dir``, ``debug_nans``, ``viz_every``
+   1 and ``use_wandb`` (wandb replaced by a recording stand-in, so the real
+   package is never called: an init, then each epoch's row under JAX's keys,
+   OBS_WANDB_KEYS): every epoch in the JSONL, one
+   Chrome trace a phase whose kernel events name A, D and the convs
+   (OBS_KERNELS, the port's anonymous-namespace kernels), the figures
+   written where matplotlib is installed and else the ``[viz] ... failed``
+   line for every epoch while the run completes; then one stage-1 step on
+   NaN X-rays with ``debug_nans`` raises FloatingPointError (the one
+   exception the script expects).
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -230,8 +255,8 @@ and its power limit; launches are those of the main path: the reconstruct
 [4], the first step of each stage in [9], the training run of [11] (the only
 one that takes L and M), the probe run of [12] (the only one that takes N),
 the serving commands of [13], [14]'s direct_vit reconstruct, first train
-step and entry points, and [15]'s first train steps, samplers and cli
-train; the rows of A and D also carry, under ``direct_vit``, their time,
+step and entry points, [15]'s first train steps, samplers and cli train,
+[16]'s two served calls and [17]'s cli train; the rows of A and D also carry, under ``direct_vit``, their time,
 plain time, bound and library time at the direct model's attention shape
 and their launches in [14], and the rows of A, C, D, F and G under
 ``diffusion`` the same at each DIFFUSION_AT shape and their launches in
@@ -2747,6 +2772,283 @@ def diffusion_phase(dev, seed: int) -> dict:
     return rec
 
 
+SERVE_TOL = 2 ** -7  # [16]: the served volume against reconstruct, × max|want|
+SERVE_DIR = BUILD_DIR / "serving"
+# [16]'s fresh process: it imports the serving loader (and through it the
+# operator module) and nothing else of the port, loads the artifact, runs it
+# on the saved X-rays and prints the model modules it imported and the
+# largest difference from the saved reconstruct.
+_FRESH_SERVE = """
+import json, sys, time
+import torch
+t0 = time.perf_counter()
+from hybrid_vit_cascade_tpu_torch.inference.serving import load_serving
+path, xr, want, device = sys.argv[1:5]
+serve = load_serving(path, device=device)
+got = serve(torch.load(xr)).cpu()
+want = torch.load(want)
+models = sorted(m for m in sys.modules if m.startswith("hybrid_vit_cascade_tpu_torch.models"))
+print(json.dumps({"models": models, "max_diff": float((got.float() - want.float()).abs().max()),
+                  "load_and_run_s": time.perf_counter() - t0}))
+"""
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _seeded_checkpoint(cfg_path: Path, name: str, seed: int) -> Path:
+    """A checkpoint of the config's model with weights seeded as [4] and [14]
+    seed theirs (the file those phases wrote, when it is there)."""
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model, save_checkpoint
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+
+    ckpt = CKPT_DIR / name
+    if not ckpt.exists():
+        CKPT_DIR.mkdir(parents=True, exist_ok=True)
+        cfg = Config.from_json(str(cfg_path))
+        save_checkpoint(ckpt, cfg, seeded_init_(build_model(cfg), seed))
+    return ckpt
+
+
+def export_phase(dev, seed: int, card: str) -> dict:
+    """Phase 16: the serving artifact (``export_serving`` / ``load_serving``,
+    ``cli export``) of the full-width cascade and direct_vit."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.inference.infer import InferenceEngine, load_checkpoint
+    from hybrid_vit_cascade_tpu_torch.inference.serving import load_serving
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    rec = {}
+    for name, cfg_path, ckpt_name, want_launches, kw in (
+            ("cascade", CONFIG, "cascade_seeded.pt", EXPECTED_LAUNCHES, {"max_stage": 3}),
+            ("direct_vit", DIRECT_CONFIG, "direct_vit_seeded.pt", EXPECTED_LAUNCHES_DIRECT, {})):
+        engine = InferenceEngine(_seeded_checkpoint(cfg_path, ckpt_name, seed), device=dev)
+        size = engine.cfg.data.xray_size  # [4]'s and [14]'s X-ray pair
+        xr = torch.rand((1, 2, 1, size, size), generator=torch.Generator().manual_seed(seed + 1))
+        torch.save(xr, SERVE_DIR / "xrays.pt")
+        path = SERVE_DIR / f"{name}.pt2"
+        t0 = time.perf_counter()
+        info = engine.export_serving(path, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = load_serving(path, device=dev.type)
+        load_s = time.perf_counter() - t0
+        reset_launch_counts()
+        got = serve(xr)
+        _sync(dev)
+        launched = launch_counts()
+        counted = {k: v for k, v in launched.items() if v}
+        want = engine.reconstruct(xr, **kw)
+        diff = float((got.float() - want.float()).abs().max())
+        tol = SERVE_TOL * float(want.float().abs().max())
+        log(f"[16] {name}: export {export_s:.1f} s, artifact {info['bytes'] / 1e9:.3f} GB, load "
+            f"{load_s:.1f} s; sidecar {json.dumps(info)}; one served call launches {counted}; "
+            f"max |served - reconstruct| {diff:.3e} (tol {tol:.3e}) on {card}")
+        if counted != {k: v for k, v in want_launches.items() if v}:
+            raise AssertionError(f"[16] {name}: a served call launched {counted}, expected "
+                                 f"{want_launches} and no gradient kernel")
+        if not (diff <= tol and torch.isfinite(got.float()).all()) or got.shape != want.shape:
+            raise AssertionError(f"[16] {name}: served {tuple(got.shape)} differs from "
+                                 f"reconstruct {tuple(want.shape)} by {diff}")
+        if info["platforms"] != [dev.type] or info["output_shape"] != [list(want.shape)]:
+            raise AssertionError(f"[16] {name}: sidecar {info}")
+        times = {"served": [], "reconstruct": []}
+        for i in range(REPS):  # in turns
+            for which in (("served", "reconstruct") if i % 2 == 0 else ("reconstruct", "served")):
+                t0 = time.perf_counter()
+                serve(xr) if which == "served" else engine.reconstruct(xr, **kw)
+                _sync(dev)
+                times[which].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        log(f"[16] {name}: median of {REPS} in turns: served {med['served']:.2f} ms "
+            f"({', '.join(f'{t:.2f}' for t in times['served'])}), reconstruct "
+            f"{med['reconstruct']:.2f} ms ({', '.join(f'{t:.2f}' for t in times['reconstruct'])})"
+            f" on {card}")
+        rec[name] = {"export_s": export_s, "bytes": info["bytes"], "load_s": load_s,
+                     "sidecar": info, "launches": launched, "max_abs_diff": diff, "tol": tol,
+                     "served_ms": times["served"], "reconstruct_ms": times["reconstruct"],
+                     "served_median_ms": med["served"],
+                     "reconstruct_median_ms": med["reconstruct"], "card": card}
+        torch.save(want.cpu(), SERVE_DIR / f"{name}_want.pt")
+        del serve, engine, got, want
+        torch.cuda.empty_cache()
+        if name != "cascade":
+            path.unlink()
+            continue
+        res = subprocess.run([sys.executable, "-c", _FRESH_SERVE, str(path),
+                              str(SERVE_DIR / "xrays.pt"), str(SERVE_DIR / f"{name}_want.pt"),
+                              dev.type],
+                             capture_output=True, text=True, cwd=ROOT, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"[16] {name}: the fresh process failed:\n{res.stderr[-4000:]}")
+        fresh = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f"[16] {name}: fresh process: model modules imported {fresh['models']}, max diff "
+            f"{fresh['max_diff']:.3e}, import + load + run {fresh['load_and_run_s']:.1f} s")
+        if fresh["models"] or not fresh["max_diff"] <= tol:
+            raise AssertionError(f"[16] {name}: fresh process {fresh}")
+        rec[name]["fresh"] = fresh
+        path.unlink()
+
+    # 16c cli export on [11]'s entry
+    entry = BUILD_DIR / "cli_train" / "stage3" / "best_psnr"
+    size = load_checkpoint(entry)[0]["model"]["stage_sizes"][2]
+    out = SERVE_DIR / "quality_r5.pt2"
+    info, _, wall, _ = _cli_json(cli, ["export", "--checkpoint", str(entry), "--output", str(out),
+                                       "--device", dev.type])
+    log(f"[16c] cli export {entry.relative_to(ROOT)}: {wall:.1f} s; {json.dumps(info)}")
+    if (info["output_shape"] != [[1, 1, size, size, size]] or info["platforms"] != [dev.type]
+            or info["bytes"] != out.stat().st_size):
+        raise AssertionError(f"[16c] cli export: {info}")
+    rec["cli_export"] = {"wall_s": wall, "sidecar": info}
+    shutil.rmtree(SERVE_DIR)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[16] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
+class _NaNXrays:
+    """[17]'s debug_nans check: a dataset whose X-rays are NaN."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        item = dict(self.ds[i])
+        item["drr_stacked"] = item["drr_stacked"] * float("nan")
+        return item
+
+
+class _RecordingWandb:
+    """[17]'s stand-in for the wandb module: it records init, log and Image
+    calls, so the run's wandb logging is checked and the real package (which
+    the card's machine may have) is never imported or called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kwargs):
+        self.calls.append(("init", sorted(kwargs)))
+
+    def log(self, metrics, step=None):
+        self.calls.append(("log", sorted(metrics), step))
+
+    def Image(self, path):  # noqa: N802 (wandb's name)
+        return path
+
+
+OBS_PATIENTS = 6  # [17]: 4 train, 1 val, 1 test at quality_r5.json's splits
+# [17]: the keys of each epoch's wandb row, JAX's (training/trainer.py:844-847)
+OBS_WANDB_KEYS = ["loss", "phase", "psnr", "ssim", "train_loss"]
+# [17]'s trace check: kernel names (the port's kernels sit in anonymous
+# namespaces, as training/measure.py:kernel_profile's ``own`` filter reads
+# them) that each phase's trace must hold: A, D and the convs
+OBS_KERNELS = {"A": ("flash_fwd",), "D": ("flash_bwd_kernel", "flash_bwd_tc_kernel"),
+               "conv": ("conv",)}
+
+
+def observability_phase(dev, seed: int, card: str) -> dict:
+    """Phase 17: ``cli train`` with ``profile_dir``, ``debug_nans``,
+    ``viz_every`` and ``use_wandb``, then debug_nans on a NaN batch."""
+    import importlib.util
+
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    save_dir = BUILD_DIR / "observability"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    prof_dir = save_dir / "profile"
+    overrides = {"model.voxel_dim": 128, "model.xray_feature_dim": 128,
+                 "model.stage_depths": [1, 1, 1], "model.stage_heads": [4, 4, 4],
+                 "model.stage_sizes": [8, 16, 32], "data.xray_size": 64,
+                 "data.synthetic_patients": OBS_PATIENTS,
+                 **{f"training.stages.stage{n}.{k}": v for n, size in zip((1, 2, 3), (8, 16, 32))
+                    for k, v in (("num_epochs", 1), ("batch_size", 2),
+                                 ("target_resolution", [size] * 3))},
+                 "training.profile_dir": str(prof_dir), "training.debug_nans": True,
+                 "training.viz_every": 1, "training.use_wandb": True,
+                 "checkpoints.save_dir": str(save_dir)}
+    copy = _config_copy(TRAIN_CONFIG, "quality_r5_observability.json", **overrides)
+    recorder = _RecordingWandb()
+    real = sys.modules.get("wandb")
+    sys.modules["wandb"] = recorder  # what utils/wandb_compat.py imports
+    from hybrid_vit_cascade_tpu_torch.utils import wandb_compat
+
+    saved = wandb_compat.wandb, wandb_compat.WANDB_AVAILABLE, wandb_compat._active
+    wandb_compat.wandb, wandb_compat.WANDB_AVAILABLE = recorder, True
+    try:
+        text, train_s, launched = _cli_text(cli, ["train", "--config", str(copy), "--device",
+                                                  dev.type])
+    finally:
+        wandb_compat.wandb, wandb_compat.WANDB_AVAILABLE, wandb_compat._active = saved
+        if real is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = real
+    final = json.loads(text.strip().splitlines()[-1])["final"]
+    rows = [json.loads(r) for r in (save_dir / "training_log.jsonl").read_text().splitlines()]
+    epochs = [(r["phase"], r["epoch"]) for r in rows if "train_loss" in r]
+    phases = ("stage1", "stage2", "stage3")
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    viz_failed = text.count("visualization failed")
+    log(f"[17] cli train build/{copy.name} (quality_r5.json at [5]'s widths, one epoch a stage, "
+        f"{OBS_PATIENTS} patients, all four flags): {train_s:.1f} s on {card}; epochs {epochs}; "
+        f"'[viz] ... visualization failed' printed {viz_failed} times (matplotlib "
+        f"{'installed' if matplotlib else 'absent'}); final {final}")
+    if epochs != [(s, 0) for s in phases] or not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"[17] cli train: epochs {epochs}, final {final}")
+    viz_rows = [r for r in rows if "viz_files" in r]
+    if (viz_failed, len(viz_rows)) != ((0, 3) if matplotlib else (3, 0)):
+        raise AssertionError(f"[17] figures: {viz_failed} failures, {len(viz_rows)} rows")
+    logged = [c for c in recorder.calls if c[0] == "log" and "phase" in c[1]]
+    log(f"[17] wandb (a recording stand-in): {len(recorder.calls)} calls, "
+        f"{[c[0] for c in recorder.calls]}; epoch rows' keys {[c[1] for c in logged]}")
+    if recorder.calls[0][0] != "init" or [c[1] for c in logged] != [OBS_WANDB_KEYS] * 3:
+        raise AssertionError(f"[17] wandb calls: {recorder.calls}")
+    traces = {}
+    for s in phases:
+        path = prof_dir / f"{s}_epoch000.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        names = {e["name"].removeprefix("void ") for e in events if e.get("cat") == "kernel"}
+        own = sorted(n for n in names if n.startswith("(anonymous namespace)::"))
+        found = {k: any(p in n for n in own for p in pats) for k, pats in OBS_KERNELS.items()}
+        traces[s] = {"bytes": path.stat().st_size, "kernel_names": len(names), "own": own,
+                     "found": found}
+        log(f"[17] {path.relative_to(ROOT)}: {path.stat().st_size / 1e6:.2f} MB, {len(names)} "
+            f"kernel names, {len(own)} of the port's; A, D, convs found {found}")
+        if not all(found.values()):
+            raise AssertionError(f"[17] {s}'s trace lacks kernels: {found}; own {own}")
+
+    # 17b debug_nans: one step on a batch of NaN X-rays raises
+    cfg = Config.from_json(str(copy))
+    cfg.training.profile_dir, cfg.training.viz_every, cfg.training.use_wandb = "", 0, False
+    cfg.checkpoints.save_dir = str(save_dir / "nan")
+    trainer = Trainer(cfg, device=dev)
+    trainer.train_ds = _NaNXrays(trainer.train_ds)
+    try:
+        trainer.fit_cascade(stages=("stage1",), progress=False)
+    except FloatingPointError as exc:
+        raised = str(exc)
+    else:
+        raise AssertionError("[17b] debug_nans: a step on NaN X-rays raised no FloatingPointError")
+    log(f"[17b] debug_nans on NaN X-rays: FloatingPointError({raised!r})")
+    shutil.rmtree(save_dir)
+    rec = {"train_s": train_s, "launches": launched, "epochs": epochs, "viz_failed": viz_failed,
+           "wandb_calls": recorder.calls, "traces": traces, "debug_nans": raised, "phase_s": time.perf_counter() - t_phase}
+    log(f"[17] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2966,11 +3268,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["diffusion"] = diffusion_phase(dev, args.seed)
 
+    # 16. the serving artifact; 17. training observability
+    torch.cuda.empty_cache()
+    record["export"] = export_phase(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    record["observability"] = observability_phase(dev, args.seed, card)
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
     # serving commands of [13], [14]'s direct_vit reconstruct, first train
-    # step and entry points, and [15]'s first train steps, samplers and cli
-    # train, each counted from 0
+    # step and entry points, [15]'s first train steps, samplers and cli
+    # train, [16]'s served calls and [17]'s cli train, each counted from 0
     direct, diffusion = record["direct"], record["diffusion"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
@@ -2985,7 +3293,9 @@ def main() -> int:
               "diffusion_sample_64": diffusion["sample_64"]["launches"],
               **{f"diffusion_cascade_sample_{k}": v["launches"]
                  for k, v in diffusion["cascade_sample_r5"]["per_stage"].items()},
-              "diffusion_cli": diffusion["cli_train"]["launches"]}
+              "diffusion_cli": diffusion["cli_train"]["launches"],
+              **{f"served_{k}": record["export"][k]["launches"] for k in ("cascade", "direct_vit")},
+              "observability_cli": record["observability"]["launches"]}
     by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():

@@ -8,6 +8,7 @@
   eval     — whole-test-split metric summary (evaluation_metrics.json)
   diagnose — the diagnostic suite and health grades of one reconstruction
   inspect  — a checkpoint's tensor names and shapes
+  export   — checkpoint + model → one torch.export serving artifact
 
 ``infer``, ``eval`` and ``diagnose`` serve every family but diffusion, as in
 the JAX package: on a diffusion entry they stop with the engine's message,
@@ -21,7 +22,9 @@ kernels); a command that reads a checkpoint reads its embedded config, and
 resolution. As in the JAX package, ``train``'s ``--epochs`` sets
 ``training.num_epochs`` and ``--lr`` overrides the learning rate, which the
 single-model families read and the cascade's stagewise training does not
-(each stage has its own). Not ported yet: ``export``, ``bench``, ``dryrun``.
+(each stage has its own). ``export`` takes ``--device`` in place of the JAX
+command's ``--platforms``: an artifact runs on the device type it was
+exported on. Not ported yet: ``bench``, ``dryrun``.
 """
 
 from __future__ import annotations
@@ -173,6 +176,15 @@ def cmd_inspect(args) -> None:
     print(json.dumps(inspect_checkpoint(args.checkpoint), indent=2))
 
 
+def cmd_export(args) -> None:
+    """Write the serving artifact of a checkpoint and print its info."""
+    from .inference.infer import InferenceEngine
+
+    engine = InferenceEngine(args.checkpoint, device=args.device)
+    info = engine.export_serving(args.output, batch_size=args.batch_size, max_stage=args.stage)
+    print(json.dumps(info, indent=2))
+
+
 def _device_flag(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions of the kernels)")
@@ -192,12 +204,15 @@ def main(argv=None) -> None:
     t.add_argument("--save-dir", default=None)
     t.add_argument("--data-path", default=None)
     t.add_argument("--no-resume", action="store_true")
-    t.add_argument("--profile-dir", default=None, help="not ported: raises when given")
-    t.add_argument("--debug-nans", action="store_true", help="not ported: raises when given")
+    t.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of each phase's first epoch here")
+    t.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first step with a non-finite loss "
+                        "or gradient")
     t.add_argument("--vgg-weights", default=None,
                    help="converted ImageNet VGG16 .npz for the perceptual loss")
     t.add_argument("--viz-every", type=int, default=0,
-                   help="epoch-end figures every N epochs (not ported: the run says so)")
+                   help="epoch-end figures every N epochs (under save_dir/viz)")
     _device_flag(t)
     t.set_defaults(fn=cmd_train)
 
@@ -250,6 +265,15 @@ def main(argv=None) -> None:
     n = sub.add_parser("inspect", help="dump checkpoint keys/shapes")
     n.add_argument("--checkpoint", required=True)
     n.set_defaults(fn=cmd_inspect)
+
+    ex = sub.add_parser("export", help="serialize checkpoint + model into one torch.export "
+                                       "serving artifact")
+    ex.add_argument("--checkpoint", required=True)
+    ex.add_argument("--output", required=True, help="artifact path (e.g. model.pt2)")
+    ex.add_argument("--batch-size", type=int, default=1)
+    ex.add_argument("--stage", type=int, default=3, help="cascade max_stage to export")
+    _device_flag(ex)
+    ex.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -2,7 +2,9 @@
 hybrid_vit_cascade_tpu/data/synthetic.py: the same phantoms, seeds, item
 schema, DRR range and opt-in on-disk phantom cache, ``HVC_PHANTOM_CACHE``,
 whose file names are the JAX package's, so one cache directory serves both;
-numpy only). Not ported: ``write_reference_tree``, which needs PIL.
+numpy only) and ``write_reference_tree``, a patient tree in the real
+dataset's layout (PNG DRRs through PIL, which the card's machine lacks: a
+CPU-side tool).
 
 Deterministic anatomical phantoms in HU (body, lungs with branching vessel
 and airway trees, heart, aorta, vertebrae, ribs; no iid noise, so all fine
@@ -261,3 +263,31 @@ class SyntheticCTDataset:
             os.replace(tmp, path)
         except Exception:
             pass
+
+
+def write_reference_tree(root, num_patients: int = 4, base_size: int = 64, xray_size: int = 512,
+                         seed: int = 0) -> list:
+    """Write phantoms as a patient tree in the layout ``PatientDRRDataset``
+    reads: ``<root>/<pid>/{<pid>_pa_drr.png, <pid>_lat_drr.png, <pid>.nii.gz}``,
+    the volume in raw HU through the port's NIfTI writer (``data/nifti.py``),
+    the DRRs as 8-bit PNGs rendered from the soft-tissue-windowed volume.
+    Needs PIL, so it runs where PIL is installed (not on the card's machine).
+    Returns the patient ids."""
+    from PIL import Image
+
+    from .nifti import write_nifti
+
+    root = Path(root)
+    pids = []
+    for i in range(num_patients):
+        pid = f"patient{i:03d}"
+        d = root / pid
+        d.mkdir(parents=True, exist_ok=True)
+        hu = make_phantom_volume(base_size, seed=seed * 10007 + i)
+        write_nifti(d / f"{pid}.nii.gz", hu.astype(np.float32))
+        drr = render_drr_pair(window_volume(hu, "soft_tissue"), xray_size)
+        for view, name in ((drr[0, 0], "pa_drr"), (drr[1, 0], "lat_drr")):
+            img = np.clip(view * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(d / f"{pid}_{name}.png")  # uint8 (H, W): mode L
+        pids.append(pid)
+    return pids

@@ -5,7 +5,8 @@ cascade) or whole-volume (the other families) metrics and whole-dataset
 summaries, the diagnostic suite with live cross-attention capture (the
 families with attention), ``.npy`` / NIfTI / PNG export with optional
 trilinear upscale and HU denormalisation, the raw X-ray-pair loader and the
-checkpoint inspector.
+checkpoint inspector, and the serving artifact (``export_serving``, loaded by
+``load_serving``).
 
 A checkpoint is one ``torch.save`` file holding
 ``{"config": Config.to_dict(), "state_dict": model.state_dict()}``, or an
@@ -20,9 +21,15 @@ family; ``InferenceEngine`` serves all but the diffusion family, which the
 JAX engine cannot serve either (its template ``init`` cannot call the
 diffusion model): it refuses a diffusion entry and names the samplers,
 ``models.diffusion.ddim_sample`` and ``cascaded_ddim_sample``.
-``inspect_checkpoint`` reads any entry. Not ported: ``export_serving`` and
-``load_serving`` (a StableHLO artifact; the kernels are not registered with
-``torch.library``, so ``torch.export`` cannot trace them yet).
+``inspect_checkpoint`` reads any entry.
+
+``export_serving`` writes a ``torch.export`` program of the inference
+function with the weights in it, the kernels as the ``hvc::`` operators of
+``ops/cuda/library.py``; ``inference.serving.load_serving``, the one entry
+point that loads it, needs no model code. Two departures from the JAX artifact (StableHLO,
+lowered for any list of platforms): a program runs on the one device type it
+was exported for, and the loading process imports the operator module
+(``load_serving`` does).
 """
 
 from __future__ import annotations
@@ -182,6 +189,19 @@ def build_model(cfg: Config, built_stages: int = 3) -> torch.nn.Module:
                                    dtype=dtype, remat=remat, lift_slabs=m.diffusion_lift_slabs)
 
 
+class _ServingFunction(torch.nn.Module):
+    """``model(xrays, **kwargs)`` as a module of the X-rays alone: what
+    ``torch.export`` traces, so the program takes one argument."""
+
+    def __init__(self, model: torch.nn.Module, kwargs: Dict):
+        super().__init__()
+        self.model = model
+        self.kwargs = kwargs
+
+    def forward(self, xrays: torch.Tensor) -> torch.Tensor:
+        return self.model(xrays, **self.kwargs)
+
+
 def save_checkpoint(path: str | Path, cfg: Config, model: torch.nn.Module) -> None:
     """Write a checkpoint that InferenceEngine loads."""
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -270,6 +290,35 @@ class InferenceEngine:
             metrics[f"{stage}_ssim"] = float(ssim_metric(vol, t))
             metrics[f"{stage}_l1"] = float(mae(vol, t))
         return metrics
+
+    def export_serving(self, output_path: str | Path, batch_size: int = 1,
+                       max_stage: int = 3) -> Dict:
+        """Write the inference function with the checkpoint's weights as one
+        ``torch.export`` program (``torch.export.save``): ``model(xrays,
+        max_stage=max_stage)`` for the cascade, ``model(xrays)`` for the other
+        families, traced under ``torch.no_grad()`` at the static input shape
+        (batch_size, 2, 1, S, S) fp32 on the engine's device, every kernel an
+        ``hvc::`` operator node. ``load_serving(path)`` runs it with no model
+        code, checkpoint or config. Writes ``<output>.json`` beside it and
+        returns the same dict: ``path``, ``bytes``, ``platforms`` (the one
+        device type the program runs on), ``input_shape``, ``output_shape``,
+        ``family``."""
+        cfg = self.cfg
+        xr_shape = (batch_size, 2, 1, cfg.data.xray_size, cfg.data.xray_size)
+        kw = {"max_stage": max_stage} if self.cascade else {}
+        x = torch.zeros(xr_shape, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(_ServingFunction(self.model, kw), (x,))
+        out = Path(output_path)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        torch.export.save(program, str(out))
+        results = program.graph.find_nodes(op="output")[0].args[0]
+        info = {"path": str(out), "bytes": out.stat().st_size, "platforms": [self.device.type],
+                "input_shape": list(xr_shape),
+                "output_shape": [list(r.meta["val"].shape) for r in results],
+                "family": cfg.model.family}
+        (out.parent / (out.name + ".json")).write_text(json.dumps(info, indent=2))
+        return info
 
     def evaluate_dataset(self, dataset, out_json: Optional[str] = None,
                          max_stage: Optional[int] = None) -> Dict:

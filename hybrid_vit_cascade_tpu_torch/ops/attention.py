@@ -2,9 +2,11 @@
 
 Shapes: q (B, H, Nq, Dh), k/v (B, H, Nk, Dh) → (B, H, Nq, Dh).
 
-On a CUDA tensor every call launches the flash kernels (forward: kernel A;
-backward: kernel D, or kernels L then M when ``FUSED_BWD`` is false;
-ops/cuda/flash_attention.py); on a CPU tensor it runs their plain versions.
+On a CUDA tensor every call launches the flash kernels (forward: kernel A,
+reached through the ``hvc::flash_attention_fwd`` operator of
+ops/cuda/library.py; backward: kernel D, or kernels L then M when
+``FUSED_BWD`` is false; ops/cuda/flash_attention.py); on a CPU tensor it runs
+their plain versions.
 The forward saves q, k, v, out and the natural-log lse, and the backward
 recomputes the probabilities from them, as the JAX package's flash custom
 VJP does. ``return_probs=True`` takes the plain score-materialising path of
@@ -21,6 +23,7 @@ import os
 import torch
 
 from .cuda import flash_attention as fa
+from .cuda import library  # noqa: F401  (registers the hvc:: operators)
 
 # The backward: the fused kernel D (default) or the split kernels L + M. Set
 # as the JAX package sets its own switch (ops/pallas/flash_attention.py:70),
@@ -34,7 +37,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        out, lse = fa.flash_attention_fwd(q, k, v, scale)
+        out, lse = torch.ops.hvc.flash_attention_fwd(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out

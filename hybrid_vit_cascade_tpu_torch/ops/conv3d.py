@@ -2,7 +2,9 @@
 hybrid_vit_cascade_tpu/ops/conv3d.py).
 
 Every 3×3×3 conv goes through one autograd Function over the hand-written
-kernels of ``ops/cuda/conv3d_k3.py``: ``conv3d_ncdhw`` for the padding-1
+kernels of ``ops/cuda/conv3d_k3.py`` (the forward through the
+``hvc::conv3d_k3`` operator of ``ops/cuda/library.py``, the gradients
+through the wrappers): ``conv3d_ncdhw`` for the padding-1
 conv (kernels B-G), ``conv3d_chain`` for the slab-streamed chains of
 ``ops/slab.py`` (H-K); the dense conv is the chain conv over the whole
 volume. The bias gradient is an fp32 sum, as the JAX package takes it
@@ -29,7 +31,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .cuda.conv3d_k3 import conv3d_k3, conv3d_k3_dgrad, conv3d_k3_wgrad
+from .cuda import library  # noqa: F401  (registers the hvc:: operators)
+from .cuda.conv3d_k3 import conv3d_k3_dgrad, conv3d_k3_wgrad
 
 
 class _Conv3dK3(torch.autograd.Function):
@@ -45,10 +48,11 @@ class _Conv3dK3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, stride: int, qlo: int, d_out: int, want_sums: bool,
                 act: Optional[str], dense: bool):
-        res = conv3d_k3(x, w, bias, stride, qlo, d_out, want_sums, act, dense=dense)
-        ctx.save_for_backward(x, w, res[0] if want_sums else None)
+        out, s1, s2 = torch.ops.hvc.conv3d_k3(x, w, bias, stride, qlo, d_out, want_sums, act,
+                                               dense)
+        ctx.save_for_backward(x, w, out if want_sums else None)
         ctx.meta = (stride, qlo, want_sums, act, dense)
-        return res
+        return (out, s1, s2) if want_sums else out
 
     @staticmethod
     def backward(ctx, g, *stat_grads):

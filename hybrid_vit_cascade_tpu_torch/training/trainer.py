@@ -29,11 +29,19 @@ trainable set and optimizer; ``fit`` trains the ladder's last stage
 (``fit_diffusion``) or the ladder (``fit_diffusion_cascade``, with its
 cascaded-DDIM chain evaluation) by ``training.diffusion_progressive``.
 
-Not ported: the epoch-end
-visualization (``_viz_epoch``: the run prints that it is skipped and goes
-on, as the JAX trainer does when visualization fails), wandb logging,
-profiler traces and NaN debugging (``use_wandb``, ``profile_dir`` and
-``debug_nans`` raise), the multi-device mesh (one card).
+Observability (JAX ``trainer.py:287-292``, ``:777-798``, ``:844-951``):
+``training.use_wandb`` logs each epoch's row through ``utils/wandb_compat.py``
+(a silent no-op without wandb); ``training.profile_dir`` records the first
+epoch of each fit loop's training under ``torch.profiler`` (CPU and, on the
+card, CUDA activity) and writes one Chrome trace a phase,
+``<profile_dir>/<phase>_epoch<NNN>.json``; ``training.debug_nans`` raises
+``FloatingPointError`` at the first step whose loss or gradient is not finite
+(JAX's ``jax_debug_nans`` stops at the first op that makes a NaN; here the
+check is once a step, one host sync a step when set); ``training.viz_every``
+writes the epoch-end figures of ``_viz_epoch`` (``fit`` and
+``fit_cascade``, as in JAX) under ``save_dir/viz/epoch_NNN``, and a figure
+that fails (no matplotlib) prints ``[viz] epoch N visualization failed: ...``
+while training goes on. Not ported: the multi-device mesh (one card).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -365,13 +374,14 @@ class Trainer:
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         validate_config(cfg)
         t = cfg.training
-        for flag in ("use_wandb", "profile_dir", "debug_nans"):
-            if getattr(t, flag):
-                raise NotImplementedError(f"training.{flag} is not ported")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
         self.cfg = cfg
+        if t.use_wandb:
+            from ..utils import wandb_compat
+
+            wandb_compat.init(config=cfg.to_dict())
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(t.seed)
             self.model = build_model(cfg).to(self.device)
@@ -421,7 +431,7 @@ class Trainer:
         start_epoch = self._restore_state(self.ckpt, state) if resume else 0
         eval_step = make_eval_step(self.model, lambda b: b["ct_volume"])
         return self._run_epochs(state, train_step, eval_step, t.batch_size, start_epoch, epochs,
-                                lr, progress, "train", self.ckpt, None)
+                                lr, progress, "train", self.ckpt, None, viz_kwargs={})
 
     def fit_cascade(self, stages: Sequence[str] = ("stage1", "stage2", "stage3"),
                     resume: bool = True, progress: bool = True) -> Dict[str, float]:
@@ -456,7 +466,7 @@ class Trainer:
                 {"max_stage": n})
             last = self._run_epochs(state, train_step, eval_step, sc.batch_size, start_epoch,
                                     sc.num_epochs, sc.learning_rate, progress, stage_name,
-                                    stage_ckpt, resolution)
+                                    stage_ckpt, resolution, viz_kwargs={"max_stage": n})
             self._carry_best(stage_ckpt)
         return last
 
@@ -567,7 +577,10 @@ class Trainer:
 
     def _run_epochs(self, state: TrainState, train_step, eval_step, batch_size: int,
                     start_epoch: int, epochs: int, lr: float, progress: bool, phase: str,
-                    ckpt: CheckpointManager, target_resolution) -> Dict[str, float]:
+                    ckpt: CheckpointManager, target_resolution,
+                    viz_kwargs: Optional[Dict] = None) -> Dict[str, float]:
+        """The epoch loop; ``viz_kwargs`` (the model's keyword arguments for
+        the figures) turns on ``_viz_epoch`` under ``training.viz_every``."""
         d, t = self.cfg.data, self.cfg.training
         tf = (host_target_transform(target_resolution, cache=not d.augmentation)
               if target_resolution else None)
@@ -579,17 +592,27 @@ class Trainer:
         # folds the step into PRNGKey(seed + 1): a resumed run draws what an
         # uninterrupted one would have
         gen = torch.Generator(device=self.device)
+        activities = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
         metrics: Dict[str, float] = {}
         for epoch in range(start_epoch, epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
             losses, n_samples = [], 0
-            for batch in train_loader:
-                batch = to_device(batch, self.device)
-                gen.manual_seed((t.seed + 1) * 1_000_003 + state.step)
-                state, m = train_step(state, batch, gen)
-                losses.append(m["total_loss"].float())
-                n_samples += batch["drr_stacked"].shape[0]
+            profiling = bool(t.profile_dir) and epoch == start_epoch
+            with (torch.profiler.profile(activities=activities) if profiling
+                  else contextlib.nullcontext()) as prof:
+                for i, batch in enumerate(train_loader):
+                    batch = to_device(batch, self.device)
+                    gen.manual_seed((t.seed + 1) * 1_000_003 + state.step)
+                    state, m = train_step(state, batch, gen)
+                    if t.debug_nans:
+                        _raise_if_not_finite(state, m["total_loss"], phase, epoch, i)
+                    losses.append(m["total_loss"].float())
+                    n_samples += batch["drr_stacked"].shape[0]
+            if profiling:
+                Path(t.profile_dir).mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(Path(t.profile_dir) / f"{phase}_epoch{epoch:03d}.json"))
             train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
             vals = [eval_step(to_device(b, self.device)) for b in val_loader]
             val = ({k: float(torch.stack([v[k].float() for v in vals]).mean()) for k in vals[0]}
@@ -605,11 +628,96 @@ class Trainer:
                          lr=lr, time=f"{dt:.1f}")
             self.jsonl.log({"epoch": epoch, "phase": phase, "train_loss": train_loss, **val,
                             "seconds": dt, "samples_per_sec": n_samples / max(dt, 1e-9)})
+            if t.use_wandb:
+                from ..utils import wandb_compat
+
+                wandb_compat.log({"phase": phase, "train_loss": train_loss, **val}, step=epoch)
             if progress:
                 print(f"[{phase}] epoch {epoch}: loss={train_loss:.4f} "
                       f"val_psnr={metrics['psnr']:.2f} dB val_ssim={metrics['ssim']:.4f} "
                       f"({dt:.1f}s)")
             ve = t.viz_every
-            if ve and ((epoch + 1) % ve == 0 or epoch == epochs - 1):
-                print(f"[viz] epoch {epoch}: epoch-end visualization is not ported; skipped")
+            if ve and viz_kwargs is not None and ((epoch + 1) % ve == 0 or epoch == epochs - 1):
+                try:
+                    self._viz_epoch(epoch, phase, viz_kwargs)
+                except Exception as exc:  # viz must never kill a training run
+                    print(f"[viz] epoch {epoch} visualization failed: {exc}")
         return metrics
+
+    def _viz_epoch(self, epoch: int, phase: str, model_kwargs: Dict) -> None:
+        """Epoch-end figures of one validation item, written to
+        ``save_dir/viz/epoch_NNN/``: the prediction against the ground truth
+        (every stage's volume for the cascade, by ``return_intermediate``),
+        the last 4-D feature map that a module named ``xray_encoder`` puts
+        out (forward hooks in place of flax's ``capture_intermediates``) and
+        the cross-attention salience of the captured probabilities
+        (``capture_attention``: the cascade's stage 1, every block of
+        ``direct_vit``). Logs ``{epoch, phase, viz_dir, viz_files}`` to the
+        JSONL and the figures to wandb when it is on."""
+        from ..models.attention import collect_attention_maps
+        from ..models.cascade import ProgressiveCascadeModel
+        from ..utils import viz as V
+        from ..utils import wandb_compat
+
+        out_dir = Path(self.cfg.checkpoints.save_dir) / "viz" / f"epoch_{epoch:03d}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        item = self.val_ds[0]
+        xrays = torch.as_tensor(np.asarray(item["drr_stacked"])[None],
+                                dtype=torch.float32).to(self.device)
+        gt = np.asarray(item["ct_volume"], np.float32)
+        mkw = dict(model_kwargs)
+        if isinstance(self.model, ProgressiveCascadeModel):
+            mkw["return_intermediate"] = True  # all stage volumes
+        feats = []
+
+        def keep_maps(module, args, out):
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            feats.extend(o for o in outs if isinstance(o, torch.Tensor) and o.dim() == 4)
+
+        hooks = [m.register_forward_hook(keep_maps) for name, m in self.model.named_modules()
+                 if "xray_encoder" in name.rsplit(".", 1)[-1]]
+        capture = (self.model.capture_attention() if hasattr(self.model, "capture_attention")
+                   else contextlib.nullcontext())
+        try:
+            with torch.no_grad(), capture:
+                pred = self.model(xrays, train=False, **mkw)
+                att = collect_attention_maps(self.model)
+        finally:
+            for h in hooks:
+                h.remove()
+
+        files: Dict[str, str] = {}
+        vols = pred if isinstance(pred, dict) else {phase: pred}
+        vols = {k: v.float().cpu().numpy() for k, v in vols.items()}
+        p = str(out_dir / f"{phase}_prediction_vs_gt.png")
+        V.compare_stage_outputs(vols, gt, p)
+        files[f"viz/{phase}/prediction_vs_gt"] = p
+        if feats:
+            p = str(out_dir / f"{phase}_xray_features.png")
+            V.plot_feature_maps(feats[-1].float().cpu().numpy(), p,
+                                title=f"X-ray encoder features — {phase} epoch {epoch}")
+            files[f"viz/{phase}/xray_features"] = p
+        if att:
+            p = str(out_dir / f"{phase}_attention_salience.png")
+            V.plot_attention_salience(att["cross_attention"].float().cpu().numpy(), p,
+                                      title=f"Cross-attention salience — {phase} epoch {epoch}")
+            files[f"viz/{phase}/attention_salience"] = p
+        self.jsonl.log({"epoch": epoch, "phase": phase, "viz_dir": str(out_dir),
+                        "viz_files": sorted(Path(f).name for f in files.values())})
+        if self.cfg.training.use_wandb:
+            wandb_compat.log_images(files, step=epoch)
+
+
+def _raise_if_not_finite(state: TrainState, loss: torch.Tensor, phase: str, epoch: int,
+                         step: int) -> None:
+    """``training.debug_nans``: FloatingPointError when the step's loss or a
+    gradient it left on the optimizer's parameters is not finite; one host
+    sync."""
+    grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    finite = torch.stack([torch.isfinite(loss).all(), *(torch.isfinite(g).all() for g in grads)])
+    if not bool(finite.all()):
+        what = "loss" if not bool(finite[0]) else "gradient"
+        raise FloatingPointError(f"debug_nans: non-finite {what} in phase {phase}, epoch "
+                                 f"{epoch}, step {step} of the epoch (optimizer step "
+                                 f"{state.step})")

@@ -1,2 +1,2 @@
-"""Run logs and inference figures of the port (counterpart of
-hybrid_vit_cascade_tpu/utils)."""
+"""Run logs, model summaries, optional wandb logging and figures of the port
+(counterpart of hybrid_vit_cascade_tpu/utils)."""

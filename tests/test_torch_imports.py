@@ -40,7 +40,9 @@ def test_port_modules_found():
               "ops.drr", "losses.metrics", "losses.multiscale", "training.schedules",
               "training.trainer", "config", "cli", "data.dataset", "data.nifti",
               "data.native_io", "data.pipeline", "data.synthetic", "training.checkpoint",
-              "utils.logging", "models.depth_lifting", "models.diffusion"):
+              "utils.logging", "models.depth_lifting", "models.diffusion",
+              "ops.cuda.library", "inference.serving", "utils.summary", "utils.wandb_compat",
+              "utils.viz"):
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe
+from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, conv_probe, launch_counts
+from hybrid_vit_cascade_tpu_torch.ops.cuda import library  # noqa: F401  (the hvc:: operators)
 from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import (
     DGRAD_S2_C1_FP32,
     DGRAD_S2_C1_TC,
@@ -1414,3 +1415,59 @@ def test_probe_v1_wgmma_rule_matches_c(dev):
         mirror = getattr(conv_probe, f"probe_{v}_instance")
         for n in (1, 7, 8, 9, 16, 77, 200, 2120, 8192, 131072):
             assert rule(n) == mirror(n)
+
+
+# ---------------------------------------------- the hvc:: torch.library ops ---
+
+def _counts_after(fn):
+    """(result, launch-count increments) of fn()."""
+    before = launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return res, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,nq,nk,d", [(3, 200, 77, 32), (4, 1024, 256, 64)])
+def test_flash_op_is_the_wrapper(dev, dtype, bh, nq, nk, d):
+    """hvc::flash_attention_fwd on the card launches kernel A once, counted as
+    the wrapper counts it, and gives the wrapper's bits."""
+    q, k, v = (_randn((bh, n, d), dtype, dev, s) for s, n in ((0, nq), (1, nk), (2, nk)))
+    want, counted = _counts_after(lambda: flash_attention_fwd(q, k, v, d ** -0.5))
+    got, counts = _counts_after(lambda: torch.ops.hvc.flash_attention_fwd(q, k, v, d ** -0.5))
+    assert counts == counted and counts["flash_attention"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# (x shape, Cout, stride, qlo, d_out, sums, act, dense): the dense conv on
+# each instance (CUDA cores, tensor cores, one input channel), chain calls
+# with sums and prologue, a one-output-channel call
+_OP_CONV = [((1, 8, 6, 8, 16), 16, 1, 1, 6, False, None, True),
+            ((1, 32, 8, 8, 16), 64, 2, 1, 4, False, None, True),
+            ((1, 1, 8, 8, 32), 32, 1, 1, 8, False, None, True),
+            ((1, 1, 8, 8, 32), 64, 2, 1, 4, False, None, True),
+            ((2, 3, 5, 6, 10), 5, 1, 0, 4, True, "gelu", False),
+            ((1, 32, 6, 8, 16), 64, 2, 2, 3, True, "silu", False),
+            ((1, 64, 6, 8, 16), 32, 1, 1, 6, True, "gelu", False),
+            ((1, 32, 6, 8, 16), 1, 1, 1, 6, False, None, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", _OP_CONV)
+def test_conv_op_is_the_wrapper(dev, dtype, case):
+    """hvc::conv3d_k3 on the card launches the kernel the wrapper launches,
+    once, counted as the wrapper counts it (its letter and instance), and
+    gives the wrapper's bits: out and, with sums, Σ and Σ²."""
+    xs, cout, stride, qlo, d_out, sums, act, dense = case
+    x = _randn(xs, dtype, dev, 3)
+    w = (_randn((cout, xs[1], 3, 3, 3), torch.float32, dev, 4) / (27 * xs[1]) ** 0.5).to(dtype)
+    bias = _randn((cout,), torch.float32, dev, 5)
+    args = (x, w, bias, stride, qlo, d_out, sums, act)
+    want, counted = _counts_after(lambda: conv3d_k3(*args, dense=dense))
+    got, counts = _counts_after(lambda: torch.ops.hvc.conv3d_k3(*args, dense))
+    letter = f"conv3d_k3s{stride}{'' if dense else '_chain'}"
+    assert counts == counted and counts[letter] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want if sums else (want,)))
+    if not sums:
+        assert got[1].shape == got[2].shape == (0,)

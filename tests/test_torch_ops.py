@@ -20,7 +20,7 @@ from hybrid_vit_cascade_tpu.ops.slab import conv3d_ncdhw as jax_conv3d
 from hybrid_vit_cascade_tpu_torch.ops.attention import dot_product_attention
 from hybrid_vit_cascade_tpu_torch.ops.conv3d import conv1x1_ncdhw, conv3d_ncdhw, group_norm_core
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, launch_counts
-from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import conv3d_k3
+from hybrid_vit_cascade_tpu_torch.ops.cuda.conv3d_k3 import conv3d_k3, conv3d_k3_plain
 from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
@@ -186,3 +186,67 @@ def test_build_dir_follows_sources(monkeypatch, tmp_path):
     assert first == _build.build_dir() and first.parent == _build.BUILD_DIR
     (tmp_path / "conv3d_k3.cu").write_text((tmp_path / "conv3d_k3.cu").read_text() + "\n")
     assert _build.build_dir() != first
+
+
+# ------------------------------------------------------- torch.library ops ---
+
+@pytest.mark.parametrize("bh,nq,nk,d", [(3, 20, 17, 32), (2, 9, 40, 64)])
+def test_flash_op_opcheck(rng, bh, nq, nk, d):
+    """hvc::flash_attention_fwd passes torch.library.opcheck (schema, fake
+    tensor, AOT dispatch) and on the CPU is the plain version, bit for bit."""
+    q, k, v = (torch.from_numpy(_f32(rng, (bh, n, d))) for n in (nq, nk, nk))
+    torch.library.opcheck(torch.ops.hvc.flash_attention_fwd.default, (q, k, v, d ** -0.5))
+    for got, want in zip(torch.ops.hvc.flash_attention_fwd(q, k, v, d ** -0.5),
+                         flash_attention_plain(q, k, v, d ** -0.5)):
+        assert torch.equal(got, want)
+
+
+# (x shape, w shape, bias, stride, qlo, d_out, want_sums, act, dense): dense
+# convs at both strides, chain calls with the window, sums and prologue, and
+# a D-narrowed view with free batch and channel strides.
+_CONV_OP_CASES = [((2, 3, 5, 6, 10), (5, 3), True, 1, 1, 5, False, None, True),
+                  ((1, 4, 6, 5, 7), (3, 4), False, 2, 1, 3, False, None, True),
+                  ((2, 3, 5, 6, 10), (5, 3), True, 1, 0, 4, True, "gelu", False),
+                  ((1, 2, 4, 6, 6), (8, 2), True, 2, 2, 3, True, "silu", False),
+                  ((1, 8, 6, 4, 5), (1, 8), False, 1, 2, 3, False, None, False)]
+
+
+@pytest.mark.parametrize("case", _CONV_OP_CASES)
+@pytest.mark.parametrize("view", [False, True])
+def test_conv_op_opcheck(rng, case, view):
+    """hvc::conv3d_k3 passes torch.library.opcheck with and without sums (the
+    empty (0,) sums when none are asked), and on the CPU is the plain
+    version (the kernel wrapper's CPU branch), bit for bit."""
+    xs, (cout, cin), has_bias, stride, qlo, d_out, sums, act, dense = case
+    big = torch.from_numpy(_f32(rng, (xs[0], xs[1], xs[2] + 3, *xs[3:])))
+    x = big[:, :, 1:1 + xs[2]] if view else big[:, :, :xs[2]].contiguous()
+    w = torch.from_numpy(_f32(rng, (cout, cin, 3, 3, 3), 0.2))
+    bias = torch.from_numpy(_f32(rng, (cout,))) if has_bias else None
+    args = (x, w, bias, stride, qlo, d_out, sums, act, dense)
+    torch.library.opcheck(torch.ops.hvc.conv3d_k3.default, args)
+    out, s1, s2 = torch.ops.hvc.conv3d_k3(*args)
+    for want in (conv3d_k3_plain(x, w, bias, stride, qlo, d_out, sums, act),
+                 conv3d_k3(x, w, bias, stride, qlo, d_out, sums, act, dense=dense)):
+        if sums:
+            assert all(torch.equal(a, b) for a, b in zip((out, s1, s2), want))
+        else:
+            assert torch.equal(out, want) and s1.shape == s2.shape == (0,)
+
+
+def test_models_reach_the_forward_kernels_through_the_ops(rng):
+    """The autograd Functions' forwards call the hvc:: ops (what torch.export
+    records): a traced conv and attention hold one op node each."""
+    from hybrid_vit_cascade_tpu_torch.ops.attention import dot_product_attention as attn
+
+    x = torch.from_numpy(_f32(rng, (1, 2, 4, 4, 4)))
+    w = torch.from_numpy(_f32(rng, (8, 2, 3, 3, 3)))
+    q = torch.from_numpy(_f32(rng, (1, 2, 5, 32)))
+
+    class Both(torch.nn.Module):
+        def forward(self, x, q):
+            return conv3d_ncdhw(x, w, None, 2), attn(q, q, q)
+
+    with torch.no_grad():
+        program = torch.export.export(Both(), (x, q))
+    ops = [str(n.target) for n in program.graph.nodes if str(n.target).startswith("hvc.")]
+    assert sorted(ops) == ["hvc.conv3d_k3.default", "hvc.flash_attention_fwd.default"]

@@ -1,7 +1,8 @@
 """The port's serving surfaces — InferenceEngine.evaluate_sample,
-evaluate_dataset and export, load_xray_pair, inspect_checkpoint,
-psnr_dynamic_range, the phantom disk cache and ``cli infer`` / ``eval`` /
-``inspect`` — against the JAX package, with converted weights.
+evaluate_dataset, export and export_serving / load_serving, load_xray_pair,
+inspect_checkpoint, psnr_dynamic_range, the phantom disk cache, the model
+summary and ``cli infer`` / ``eval`` / ``inspect`` / ``export`` — against the
+JAX package, with converted weights.
 
 Scaled cascade of tests/test_parity_cascade.py:46-47: 8³→16³→32³ volumes,
 64² X-rays, E=32, 4 heads, two stage-1 blocks and one block in each later
@@ -13,8 +14,10 @@ that engine, so its compiled forwards are shared. Metrics and volumes agree
 within rtol/atol 2e-4 (the tolerance of tests/test_parity_cascade.py:345);
 exports of the same values are equal."""
 
+import functools
 import gzip
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -33,6 +36,7 @@ from hybrid_vit_cascade_tpu.inference import infer as jax_infer
 from hybrid_vit_cascade_tpu.losses.metrics import psnr_dynamic_range as jax_psnr_dynamic
 from hybrid_vit_cascade_tpu.training.checkpoint import CheckpointManager as JaxCheckpoints
 from hybrid_vit_cascade_tpu.training.trainer import build_model as jax_build_model
+from hybrid_vit_cascade_tpu.utils import summary as jax_summary
 from hybrid_vit_cascade_tpu_torch import cli, convert
 from hybrid_vit_cascade_tpu_torch.config import Config, data_volume_size
 from hybrid_vit_cascade_tpu_torch.data import synthetic
@@ -46,8 +50,12 @@ from hybrid_vit_cascade_tpu_torch.inference.infer import (
     save_checkpoint,
     save_npy,
 )
+from hybrid_vit_cascade_tpu_torch.inference.serving import load_serving
 from hybrid_vit_cascade_tpu_torch.losses.metrics import psnr_dynamic_range
+from hybrid_vit_cascade_tpu_torch.models import cascade as tcascade
 from hybrid_vit_cascade_tpu_torch.training.checkpoint import CheckpointManager
+from hybrid_vit_cascade_tpu_torch.utils import summary
+from tests import test_torch_direct
 from tests.test_torch_models import jax_variables
 
 S1, S2, S3 = 8, 16, 32
@@ -401,8 +409,141 @@ def test_cli_commands_default_to_cuda(monkeypatch):
     """Every serving command reads --device, whose default is cuda, as the
     engine's."""
     seen = {}
-    for cmd in ("infer", "eval", "diagnose"):
+    for cmd in ("infer", "eval", "diagnose", "export"):
         monkeypatch.setattr(cli, f"cmd_{cmd}", lambda args: seen.update({args.cmd: args.device}))
-        cli.main([cmd, "--checkpoint", "x"])
-    assert seen == {"infer": "cuda", "eval": "cuda", "diagnose": "cuda"}
+        cli.main([cmd, "--checkpoint", "x"] + (["--output", "y"] if cmd == "export" else []))
+    assert seen == {"infer": "cuda", "eval": "cuda", "diagnose": "cuda", "export": "cuda"}
     assert infer.InferenceEngine.__init__.__defaults__[1] == "cuda"
+
+
+# ------------------------------------------------------- serving artifacts ---
+
+# The sidecar's keys and the values both packages must share (JAX
+# InferenceEngine.export_serving, inference/infer.py:295-302); on the CPU both
+# name the one platform "cpu".
+SIDECAR_SHARED = ("platforms", "input_shape", "output_shape", "family")
+
+
+def _xrays(seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(0, 1, (1, 2, 1, XR, XR)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_sidecar(setup, tmp_path_factory):
+    """The JAX engine's export of the scaled cascade at max_stage 1 on the CPU
+    and its sidecar."""
+    out = tmp_path_factory.mktemp("jax_export") / "cascade.stablehlo"
+    info = setup["jax_engine"].export_serving(str(out), max_stage=1)
+    assert json.loads(Path(str(out) + ".json").read_text()) == info
+    return info
+
+
+@pytest.mark.parametrize("max_stage", [1, 3])
+def test_export_serving_matches_engine_and_jax(setup, tmp_path, monkeypatch, jax_sidecar,
+                                               max_stage):
+    """The artifact's volume equals the engine's reconstruct (1e-6) and JAX's
+    (2e-4); stage 3's chains stream, so the program holds the eval schedule
+    (one slab, every endpoint stored)."""
+    monkeypatch.setattr(tcascade, "chain_apply_streamed",
+                        functools.partial(tcascade.chain_apply_streamed, dense_max_voxels=0))
+    path = tmp_path / "cascade.pt2"
+    info = setup["engine"].export_serving(path, max_stage=max_stage)
+    size = (S1, S2, S3)[max_stage - 1]
+    assert sorted(info) == sorted(jax_sidecar)
+    assert json.loads((tmp_path / "cascade.pt2.json").read_text()) == info
+    assert info["bytes"] == path.stat().st_size and info["path"] == str(path)
+    assert info["output_shape"] == [[1, 1, size, size, size]]
+    if max_stage == 1:
+        assert {k: info[k] for k in SIDECAR_SHARED} == {k: jax_sidecar[k] for k in SIDECAR_SHARED}
+    program = torch.export.load(str(path))
+    ops = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"hvc.flash_attention_fwd.default", "hvc.conv3d_k3.default"} <= ops
+
+    xr = _xrays(5)
+    got = load_serving(path, device="cpu")(xr)
+    want = setup["engine"].reconstruct(xr, max_stage=max_stage)
+    assert got.shape == want.shape == (1, 1, size, size, size)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    jax_want = setup["jax_engine"].reconstruct(xr, max_stage=max_stage,
+                                               return_intermediate=True)[f"stage{max_stage}"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_want), **TOL)
+
+
+_FRESH = """
+import json, sys
+import numpy as np
+from hybrid_vit_cascade_tpu_torch.inference.serving import load_serving
+path, xr, want = sys.argv[1:4]
+got = load_serving(path, device="cpu")(np.load(xr)).numpy()
+models = sorted(m for m in sys.modules if m.startswith("hybrid_vit_cascade_tpu_torch.models"))
+print(json.dumps({"models": models, "diff": float(np.abs(got - np.load(want)).max())}))
+"""
+
+
+@pytest.fixture(scope="module")
+def stage2_artifact(setup, tmp_path_factory):
+    path = tmp_path_factory.mktemp("artifact") / "cascade.pt2"
+    setup["engine"].export_serving(path, max_stage=2)
+    return path
+
+
+def test_load_serving_in_a_fresh_process(setup, stage2_artifact, tmp_path):
+    """A process that imports only the serving loader (and through it the
+    operator module) runs the artifact; no model module is imported."""
+    path = stage2_artifact
+    xr = _xrays(6)
+    np.save(tmp_path / "xr.npy", xr)
+    np.save(tmp_path / "want.npy", setup["engine"].reconstruct(xr, max_stage=2).numpy())
+    res = subprocess.run([sys.executable, "-c", _FRESH, str(path), str(tmp_path / "xr.npy"),
+                          str(tmp_path / "want.npy")], capture_output=True, text=True,
+                         cwd=Path(__file__).resolve().parents[1], timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"models": [], "diff": 0.0}
+
+
+def test_load_serving_refuses_another_device(stage2_artifact):
+    with pytest.raises(ValueError, match="exported for cpu"):
+        load_serving(stage2_artifact, device="cuda")
+
+
+def test_export_serving_direct_vit_matches_jax(tmp_path):
+    """The scaled DirectCTRegression of tests/test_torch_direct.py: the
+    artifact against the port engine (1e-6) and the JAX engine (2e-4)."""
+    cfg, jcfg = test_torch_direct.configs()
+    tree, jv = jax_variables(jax_build_model(jcfg), np.random.default_rng(21),
+                             jnp.zeros((1, 2, 1, XR, XR)))
+    model = build_model(cfg)
+    model.load_state_dict(convert.direct_regression(tree), strict=True)
+    save_checkpoint(tmp_path / "direct.pt", cfg, model)
+    JaxCheckpoints(str(tmp_path / "jax")).save(jv, epoch=0, metrics={}, config=jcfg.to_dict())
+    engine = InferenceEngine(tmp_path / "direct.pt", device="cpu")
+    info = engine.export_serving(tmp_path / "direct.pt2")
+    s = test_torch_direct.S
+    assert info["family"] == "direct_vit" and info["output_shape"] == [[1, 1, s, s, s]]
+    xr = _xrays(7)
+    got = load_serving(tmp_path / "direct.pt2", device="cpu")(xr).numpy()
+    np.testing.assert_allclose(got, engine.reconstruct(xr).numpy(), rtol=1e-6, atol=1e-6)
+    want = jax_inference.InferenceEngine(str(tmp_path / "jax" / "latest")).reconstruct(xr)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_cli_export(setup, tmp_path, capsys):
+    out = tmp_path / "cli" / "cascade.pt2"
+    info = _run(cli.main, ["export", "--checkpoint", str(setup["port"]), "--output", str(out),
+                           "--stage", "1", "--device", "cpu"], capsys)
+    assert info == json.loads((out.parent / "cascade.pt2.json").read_text())
+    assert info["output_shape"] == [[1, 1, S1, S1, S1]] and info["platforms"] == ["cpu"]
+
+
+def test_model_summary_matches_jax(setup, capsys):
+    """count_parameters and print_model_summary of the port's cascade against
+    JAX's over the same variables' params: the total and the count under each
+    top-level name (the port keeps flax's module names)."""
+    params = setup["tree"]["params"]
+    model = setup["engine"].model
+    assert summary.count_parameters(model) == jax_summary.count_parameters(params)
+    got = summary.print_model_summary("cascade", model).splitlines()
+    want = jax_summary.print_model_summary("cascade", params).splitlines()
+    assert got[:3] == want[:3] and sorted(got[3:]) == sorted(want[3:]) and len(got) > 4
+    assert capsys.readouterr().out.count("=== cascade ===") == 2
