@@ -105,7 +105,10 @@ expected FloatingPointError:
    every bf16 stride-2 conv, data gradient and weight gradient with one
    input channel (the 1→64 stem: all three in every stage-1 step) on their
    tensor-core instances).
-   Stage 3 trains on the config's streamed schedule (8 slabs).
+   Stage 3 trains on the config's streamed schedule (8 slabs). Each stage's
+   steps run a second time from the state they began from, and stage 3's
+   twice more with the split flash backward (L + M): the losses, the state
+   after the last step and its gradients must agree in every bit.
 10. The chain phase: the full 256³ detail-enhancer and trunk chains (full
    widths, seeded weights, fp32) streamed — 8 slabs, then 1 slab with every
    endpoint stored, each with the activation prologue off and on — against
@@ -238,6 +241,20 @@ expected FloatingPointError:
    line for every epoch while the run completes; then one stage-1 step on
    NaN X-rays with ``debug_nans`` raises FloatingPointError (the one
    exception the script expects).
+18. Data-parallel training (``parallel_phase``): ``cli train`` under
+   ``torchrun --standalone --nproc_per_node 1`` (an NCCL process group of
+   one), in a process of its own, against the same command run plain, on a
+   copy of ``configs/quality_r5.json`` at full width, stage 1 only (stages
+   2-3 at 0 epochs), PARALLEL_EPOCHS epochs of one step at the config's
+   batch 8 on PARALLEL_PATIENTS synthetic 256³ patients (the train and
+   val ones made once, a process each, into a phantom cache under
+   ``build/``). Checks: (a) the loss
+   of every step and stage1/latest bitwise the plain run's; (b) every
+   checkpoint entry and log row written once, by rank 0; (c) the same
+   kernel launches; (d) each run's step times, printed beside the card's
+   name and power limit. With two cards or more, 2 ranks against one
+   process on the global batch, dropout off in both, within bf16's TOL;
+   with one card the log says it did not run.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -256,7 +273,8 @@ and its power limit; launches are those of the main path: the reconstruct
 one that takes L and M), the probe run of [12] (the only one that takes N),
 the serving commands of [13], [14]'s direct_vit reconstruct, first train
 step and entry points, [15]'s first train steps, samplers and cli train,
-[16]'s two served calls and [17]'s cli train; the rows of A and D also carry, under ``direct_vit``, their time,
+[16]'s two served calls, [17]'s cli train and [18]'s cli train under
+torchrun; the rows of A and D also carry, under ``direct_vit``, their time,
 plain time, bound and library time at the direct model's attention shape
 and their launches in [14], and the rows of A, C, D, F and G under
 ``diffusion`` the same at each DIFFUSION_AT shape and their launches in
@@ -1315,11 +1333,45 @@ def train_reference(cfg, dev, seed: int) -> dict:
     return {"max_abs_err": worst, "launches": launched}
 
 
+def _trained_state(model) -> tuple[dict, dict]:
+    """Copies of the model's state and of the gradients its last step left."""
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+
+
+def _tensors_differing(a: dict, b: dict) -> tuple[int, float]:
+    """How many tensors of ``a`` and ``b`` differ in any bit, and by how much at most."""
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    return len(bad), max((float((a[k].float() - b[k].float()).abs().max()) for k in bad),
+                         default=0.0)
+
+
+def train_twice(model, run, start: dict, first: tuple) -> dict:
+    """The stage's steps once more, from the state ``start`` they began from
+    (``run()`` draws its batch and dropout from a generator seeded as the
+    first run's): the losses, the state after the last step (weights and
+    BatchNorm statistics) and its gradients, against the first run's
+    ``first`` = (losses, state, gradients)."""
+    model.load_state_dict(start)
+    losses = run()["total_loss"]
+    state, grads = _trained_state(model)
+    n_state, d_state = _tensors_differing(first[1], state)
+    n_grads, d_grads = _tensors_differing(first[2], grads)
+    return {"losses": [first[0], losses], "losses_equal": first[0] == losses,
+            "state_differing": n_state, "state_tensors": len(state),
+            "grads_differing": n_grads, "grads": len(grads),
+            "max_abs_diff": max(d_state, d_grads)}
+
+
 def train_full_width(cfg, dev, seed: int) -> dict:
-    """Phase 9: full-width training of stages 1, 2 and 3."""
+    """Phase 9: full-width training of stages 1, 2 and 3. Each stage's steps
+    run twice from the state they began from, and the third stage's twice
+    more with the split flash backward (L + M): each pair must agree in
+    every bit."""
     from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
     from hybrid_vit_cascade_tpu_torch.losses.multiscale import MultiScaleLoss
     from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops import attention
     from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
 
     model = seeded_init_(build_model(cfg), seed).to(dev)
@@ -1327,9 +1379,27 @@ def train_full_width(cfg, dev, seed: int) -> dict:
     out = {}
     for stage in (1, 2, 3):
         b = TRAIN_BATCH[stage]
-        g = torch.Generator(device=dev).manual_seed(seed + 10 + stage)
+
+        def run(stage=stage, b=b):
+            g = torch.Generator(device=dev).manual_seed(seed + 10 + stage)
+            return train_steps(model, cfg, stage, b, TRAIN_STEPS, g, loss_obj=loss_obj)
+
+        start = {k: v.clone() for k, v in model.state_dict().items()}
         with rule_calls() as rc:
-            r = train_steps(model, cfg, stage, b, TRAIN_STEPS, g, loss_obj=loss_obj)
+            r = run()
+        trained = _trained_state(model)
+        r["repeat"] = train_twice(model, run, start, (r["total_loss"], *trained))
+        if stage == 3:
+            attention.FUSED_BWD = False
+            try:
+                model.load_state_dict(start)
+                split = run()
+                r["repeat_split_bwd"] = train_twice(model, run, start,
+                                                    (split["total_loss"], *_trained_state(model)))
+            finally:
+                attention.FUSED_BWD = True
+            model.load_state_dict(trained[0])
+        del start, trained
         # every step runs the same calls: the warm-up step's share of them
         r["tc_rule_calls_per_step"] = {k: n / (1 + TRAIN_STEPS) for k, n in rc.n.items()}
         r["c1in_bf16_calls_per_step"] = {k: n / (1 + TRAIN_STEPS) for k, n in rc.c1in_bf16.items()}
@@ -1344,8 +1414,21 @@ def train_full_width(cfg, dev, seed: int) -> dict:
             f"{r['launches_per_step']}")
         if not all(math.isfinite(v) for v in r["total_loss"]):
             raise AssertionError(f"[9] stage {stage}: non-finite loss {r['total_loss']}")
+        for key, bwd in (("repeat", "D"), ("repeat_split_bwd", "L + M")):
+            if key in r:
+                x = r[key]
+                log(f"[9] stage {stage} ({bwd}) run twice from one state: losses equal "
+                    f"{x['losses_equal']}, {x['state_differing']} of {x['state_tensors']} "
+                    f"state tensors and {x['grads_differing']} of {x['grads']} gradients differ "
+                    f"(max |diff| {x['max_abs_diff']:.3e})")
         out[f"stage{stage}"] = r
         torch.cuda.empty_cache()
+    unrepeated = {f"{stage} {key}": r[key] for stage, r in out.items()
+                  for key in ("repeat", "repeat_split_bwd")
+                  if key in r and (not r[key]["losses_equal"] or r[key]["state_differing"]
+                                   or r[key]["grads_differing"])}
+    if unrepeated:
+        raise AssertionError(f"[9] a step did not repeat bitwise: {unrepeated}")
     step3 = out["stage3"]["launches_per_step"]
     need = ("flash_attention", "flash_attention_bwd", "conv3d_k3s2", "conv3d_k3s2_dgrad",
             "conv3d_k3s2_wgrad", *_CHAIN_LETTERS, "conv3d_k3s1_wgrad_tc", "conv3d_k3s2_wgrad_tc",
@@ -3049,10 +3132,232 @@ def observability_phase(dev, seed: int, card: str) -> dict:
     return rec
 
 
+# ------------------------------------------------------- data parallelism ---
+
+PARALLEL_PATIENTS = 11  # [18]: 8 train (one global batch of 8), 1 val, 2 test
+PARALLEL_EPOCHS = 3  # [18]: stage 1's steps, one an epoch
+PARALLEL_TIMEOUT_S = 300  # one [18] training process (or torchrun and its ranks)
+PARALLEL_CACHE = BUILD_DIR / "phantom_cache18"
+
+
+def _phantom(item: tuple) -> None:
+    """[18]'s pool worker: synthetic patient ``i`` written to the phantom
+    cache ``cache`` (numpy on one host core)."""
+    import os
+
+    from hybrid_vit_cascade_tpu_torch.data.synthetic import SyntheticCTDataset
+
+    i, n, size, xray, cache = item
+    os.environ["HVC_PHANTOM_CACHE"] = cache
+    SyntheticCTDataset(num_patients=n, volume_size=(size,) * 3, xray_size=xray)[i]
+
+
+def parallel_run(out: Path, config: Path, no_dropout: bool) -> None:
+    """[18]'s training process: ``cli.main(["train", ...])`` on ``config``,
+    under torchrun when launched so (a process group of the ranks), plain
+    otherwise. Writes to ``out`` (``<out>.rank<r>.json``): every step's loss
+    (the global batch's) and wall ms, the kernel launches of the run (counted from 0), the
+    checkpoint entries and log rows this process wrote, and the collective
+    backend it trained under."""
+    import os
+
+    import torch.distributed as dist
+
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.models import layers
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.parallel.mesh import all_reduce_mean, ambient_group
+    from hybrid_vit_cascade_tpu_torch.training import trainer as trainer_mod
+    from hybrid_vit_cascade_tpu_torch.training.checkpoint import CheckpointManager
+    from hybrid_vit_cascade_tpu_torch.utils.logging import CSVLogger, JSONLLogger
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if no_dropout:  # one process and n ranks draw other masks
+        real_init = layers.Dropout.__init__
+        layers.Dropout.__init__ = lambda self, rate: real_init(self, 0.0)
+    rank = int(os.environ.get("RANK", 0))
+    rec = {"rank": rank, "losses": [], "step_ms": [], "writes": [], "rows": 0, "backend": None}
+    real_stage_step = trainer_mod.stage_step
+
+    def timed_stage_step(*a, **kw):
+        state, step = real_stage_step(*a, **kw)
+
+        def timed(state, batch, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(all_reduce_mean(m["total_loss"].float(), ambient_group())))
+            rec["backend"] = dist.get_backend() if dist.is_initialized() else None
+            return state, m
+        return state, timed
+
+    real_write, real_csv, real_jsonl = CheckpointManager._write, CSVLogger.log, JSONLLogger.log
+
+    def write(self, name, tree, meta):
+        rec["writes"].append(f"{self.save_dir.name}/{name}@{meta['epoch']}")
+        real_write(self, name, tree, meta)
+
+    def row(real):
+        def logged(self, *a, **kw):
+            rec["rows"] += 1
+            real(self, *a, **kw)
+        return logged
+
+    trainer_mod.stage_step = timed_stage_step
+    CheckpointManager._write, CSVLogger.log, JSONLLogger.log = (write, row(real_csv),
+                                                                row(real_jsonl))
+    _build.library()  # built by the parent in [2]
+    reset_launch_counts()
+    cli.main(["train", "--config", str(config)])
+    torch.cuda.synchronize()
+    rec["launches"] = launch_counts()
+    Path(f"{out}.rank{rank}.json").write_text(json.dumps(rec))
+
+
+def _parallel_child(name: str, config: Path, nproc: int, no_dropout: bool = False) -> dict:
+    """Run [18]'s training process (``nproc`` 0: plain; else torchrun with
+    that many ranks) and return its ranks' records and its wall seconds."""
+    import os
+    import signal
+
+    out = BUILD_DIR / "parallel" / name
+    for f in out.parent.glob(f"{name}.rank*.json"):
+        f.unlink()
+    me = [str(ROOT / "chip_smoke.py"), "--parallel-run", str(out), "--config", str(config)]
+    me += ["--no-dropout"] if no_dropout else []
+    argv = ([sys.executable, *me] if not nproc else
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(nproc), *me])
+    env = {**os.environ, "HVC_PHANTOM_CACHE": str(PARALLEL_CACHE)}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[18] {name}: rc {proc.returncode} after {wall:.1f} s\n{text[-6000:]}")
+    recs = [json.loads(out.parent.joinpath(f"{name}.rank{r}.json").read_text())
+            for r in range(max(nproc, 1))]
+    return {"ranks": recs, "wall_s": wall, "final": text.strip().splitlines()[-1]}
+
+
+def parallel_phase(dev, seed: int, card: str) -> dict:
+    """Phase 18: ``cli train`` under ``torchrun --standalone --nproc_per_node
+    1`` (an NCCL process group of one) against the same command run plain,
+    each in a process of its own, on a copy of configs/quality_r5.json at
+    full width, stage 1 only (stages 2-3 at 0 epochs), PARALLEL_EPOCHS
+    epochs of one step at the config's batch 8 on synthetic 256³ patients
+    (the train and val ones made once, in parallel, into a phantom cache). Checks: the loss of
+    every step and the final parameters bitwise equal, every checkpoint
+    entry and log row written once and by rank 0 alone, the same kernel
+    launches; prints each run's step times. With two cards or more, also 2
+    ranks against one process, dropout off in both, within bf16's
+    tolerance."""
+    import multiprocessing
+
+    from hybrid_vit_cascade_tpu_torch.data.dataset import create_train_val_datasets
+    from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry
+
+    t_phase = time.perf_counter()
+    save = BUILD_DIR / "parallel"
+    shutil.rmtree(save, ignore_errors=True)
+    save.mkdir(parents=True)
+    raw = json.loads(TRAIN_CONFIG.read_text())
+    size, xray = max(raw["model"].get("stage_sizes", [64, 128, 256])), raw["data"]["xray_size"]
+    # the train and val patients (the test split is never read), one process each
+    train, val, _ = create_train_val_datasets(range(PARALLEL_PATIENTS), raw["data"]["train_split"],
+                                              raw["data"]["val_split"], seed=42)
+    used = [int(i) for i in (*train.indices, *val.indices)]
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(used)) as pool:
+        pool.map(_phantom, [(i, PARALLEL_PATIENTS, size, xray, str(PARALLEL_CACHE)) for i in used])
+    phantom_s = time.perf_counter() - t0
+
+    def config(run: str) -> Path:
+        return _config_copy(TRAIN_CONFIG, f"quality_r5_parallel_{run}.json", **{
+            "training.stages.stage1.num_epochs": PARALLEL_EPOCHS,
+            "training.stages.stage2.num_epochs": 0, "training.stages.stage3.num_epochs": 0,
+            "data.synthetic_patients": PARALLEL_PATIENTS, "training.viz_every": 0,
+            "checkpoints.save_dir": str(save / run)})
+
+    plain = _parallel_child("plain", config("plain"), 0)
+    group = _parallel_child("nccl1", config("nccl1"), 1)
+    p, g = plain["ranks"][0], group["ranks"][0]
+    log(f"[18] the {len(used)} train and val patients of {PARALLEL_PATIENTS} (synthetic, "
+        f"{size}³) into the phantom cache in {phantom_s:.1f} s ({len(used)} processes); plain run {plain['wall_s']:.1f} s, torchrun "
+        f"--nproc_per_node 1 {group['wall_s']:.1f} s (process start, model, data, "
+        f"{PARALLEL_EPOCHS} epochs and checkpoints)")
+    if p["backend"] is not None or g["backend"] != "nccl":
+        raise AssertionError(f"[18] backends: plain {p['backend']}, torchrun {g['backend']}")
+    sd_p = load_entry(save / "plain" / "stage1" / "latest")[0]["state_dict"]
+    sd_g = load_entry(save / "nccl1" / "stage1" / "latest")[0]["state_dict"]
+    differ = [k for k in sd_p if not torch.equal(sd_p[k], sd_g[k])]
+    log(f"[18a] stage-1 losses plain {p['losses']}, NCCL group of one {g['losses']}; "
+        f"{len(differ)} of {len(sd_p)} tensors of stage1/latest differ")
+    if p["losses"] != g["losses"] or differ or len(p["losses"]) != PARALLEL_EPOCHS:
+        raise AssertionError(f"[18a] the group of one is not bitwise the plain run: losses "
+                             f"{p['losses']} vs {g['losses']}, tensors {differ[:5]}")
+    writes = [w for w in g["writes"]]
+    log(f"[18b] rank 0 wrote {len(writes)} entries ({writes}) and {g['rows']} log rows; the "
+        f"plain run {len(p['writes'])} and {p['rows']}")
+    if writes != p["writes"] or len(set(writes)) != len(writes) or g["rows"] != p["rows"] or \
+            g["rows"] != 2 * PARALLEL_EPOCHS:
+        raise AssertionError(f"[18b] writes {writes} / rows {g['rows']} against the plain "
+                             f"run's {p['writes']} / {p['rows']}")
+    letters = {k: v for k, v in g["launches"].items() if v}
+    log(f"[18c] launches under the group {letters}; plain "
+        f"{({k: v for k, v in p['launches'].items() if v})}")
+    if g["launches"] != p["launches"] or not letters:
+        raise AssertionError(f"[18c] the group launched {g['launches']}, plain {p['launches']}")
+    med = {k: statistics.median(r["step_ms"][1:]) for k, r in (("plain", p), ("nccl1", g))}
+    log(f"[18d] stage-1 step (full width, batch 8, bf16) ms: plain {p['step_ms']}, NCCL group "
+        f"of one {g['step_ms']}; median after the first {med['plain']:.1f} / {med['nccl1']:.1f} "
+        f"ms on {card}")
+    rec = {"phantom_s": phantom_s, "plain": plain, "nccl1": group, "median_step_ms": med,
+           "launches": g["launches"], "card": card}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        one = _parallel_child("plain_nodrop", config("plain_nodrop"), 0, no_dropout=True)
+        two = _parallel_child("nccl2", config("nccl2"), 2, no_dropout=True)
+        lo, lt = one["ranks"][0]["losses"], two["ranks"][0]["losses"]
+        sd_o = load_entry(save / "plain_nodrop" / "stage1" / "latest")[0]["state_dict"]
+        sd_t = load_entry(save / "nccl2" / "stage1" / "latest")[0]["state_dict"]
+        atol, rtol = TOL[torch.bfloat16]
+        bad = [k for k in sd_o if not torch.allclose(sd_t[k], sd_o[k], rtol=rtol, atol=atol)]
+        rank1 = two["ranks"][1]
+        log(f"[18e] 2 ranks (NCCL) vs one process on the global batch of 8, dropout off: "
+            f"losses {lt} vs {lo}; {len(bad)} tensors outside {atol:g}+{rtol:g}|ref|; rank 1 "
+            f"wrote {len(rank1['writes'])} entries, {rank1['rows']} rows; step ms "
+            f"{two['ranks'][0]['step_ms']} vs {one['ranks'][0]['step_ms']}")
+        if (not torch.allclose(torch.tensor(lt), torch.tensor(lo), rtol=rtol, atol=atol) or bad
+                or rank1["writes"] or rank1["rows"]):
+            raise AssertionError(f"[18e] 2 ranks disagree with one process: {lt} vs {lo}, "
+                                 f"{bad[:5]}, rank 1 wrote {rank1['writes']}")
+        rec.update(plain_nodrop=one, nccl2=two)
+    else:
+        log(f"[18e] 2 ranks against one process: not run, this machine has {n_cards} card")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[18] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
+    ap.add_argument("--parallel-run", type=Path, help=argparse.SUPPRESS)  # [18]'s processes
+    ap.add_argument("--config", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--no-dropout", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.parallel_run:
+        parallel_run(args.parallel_run, args.config, args.no_dropout)
+        return 0
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -3274,11 +3579,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["observability"] = observability_phase(dev, args.seed, card)
 
+    # 18. data-parallel training under torchrun
+    torch.cuda.empty_cache()
+    record["parallel"] = parallel_phase(dev, args.seed, card)
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
     # serving commands of [13], [14]'s direct_vit reconstruct, first train
     # step and entry points, [15]'s first train steps, samplers and cli
-    # train, [16]'s served calls and [17]'s cli train, each counted from 0
+    # train, [16]'s served calls, [17]'s cli train and [18]'s cli train
+    # under torchrun, each counted from 0
     direct, diffusion = record["direct"], record["diffusion"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
@@ -3295,7 +3605,8 @@ def main() -> int:
                  for k, v in diffusion["cascade_sample_r5"]["per_stage"].items()},
               "diffusion_cli": diffusion["cli_train"]["launches"],
               **{f"served_{k}": record["export"][k]["launches"] for k in ("cascade", "direct_vit")},
-              "observability_cli": record["observability"]["launches"]}
+              "observability_cli": record["observability"]["launches"],
+              "parallel_cli": record["parallel"]["launches"]}
     by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():

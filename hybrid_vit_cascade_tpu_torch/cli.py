@@ -9,6 +9,7 @@
   diagnose — the diagnostic suite and health grades of one reconstruction
   inspect  — a checkpoint's tensor names and shapes
   export   — checkpoint + model → one torch.export serving artifact
+  dryrun   — N data-parallel ranks' stage-1 step, held to one process's
 
 ``infer``, ``eval`` and ``diagnose`` serve every family but diffusion, as in
 the JAX package: on a diffusion entry they stop with the engine's message,
@@ -24,7 +25,19 @@ resolution. As in the JAX package, ``train``'s ``--epochs`` sets
 single-model families read and the cascade's stagewise training does not
 (each stage has its own). ``export`` takes ``--device`` in place of the JAX
 command's ``--platforms``: an artifact runs on the device type it was
-exported on. Not ported yet: ``bench``, ``dryrun``.
+exported on. Not ported yet: ``bench``.
+
+``train`` trains data-parallel over the cards of one host when torchrun
+starts it, one process per card:
+
+    torchrun --standalone --nproc_per_node N -m hybrid_vit_cascade_tpu_torch.cli train --config ...
+
+(``parallel/mesh.py``; the config's batch sizes are global batches). A plain
+``python -m ... train`` runs in one process. ``dryrun --devices
+N`` is the counterpart of the JAX command's rehearsal, for the data axis:
+N ranks (gloo on the CPU with ``--device cpu``, NCCL on N cards) run the
+scaled cascade's stage-1 step on a global batch of 2N and are held to one
+process on the same batch.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ def _load_cfg(args):
 
 
 def cmd_train(args) -> None:
+    from .parallel import mesh
     from .training.trainer import Trainer
 
     cfg = _load_cfg(args)
@@ -63,9 +77,13 @@ def cmd_train(args) -> None:
         cfg.loss.vgg_weights = args.vgg_weights
     if getattr(args, "viz_every", None):
         cfg.training.viz_every = args.viz_every
-    trainer = Trainer(cfg, device=args.device)
-    metrics = trainer.fit(lr_override=args.lr, resume=not args.no_resume)
-    print(json.dumps({"final": metrics}))
+    try:
+        trainer = Trainer(cfg, device=args.device)  # under torchrun: starts the process group
+        metrics = trainer.fit(lr_override=args.lr, resume=not args.no_resume)
+        if mesh.is_main():
+            print(json.dumps({"final": metrics}))
+    finally:
+        mesh.shutdown()
 
 
 def cmd_transfer(args) -> None:
@@ -185,6 +203,121 @@ def cmd_export(args) -> None:
     print(json.dumps(info, indent=2))
 
 
+def _dryrun_model(device_type: str):
+    """The scaled cascade (8³ → 16³ → 32³, 64² X-rays, one block a stage,
+    fp32) from seed 0, dropout off: n ranks draw other masks than one
+    process."""
+    import torch
+
+    from .config import Config
+    from .inference.infer import build_model
+    from .models.layers import Dropout
+
+    cfg = Config()
+    m = cfg.model
+    m.family, m.stage_sizes, m.stage_depths, m.stage_heads = ("cascade", (8, 16, 32), (1, 1, 1),
+                                                              (4, 4, 4))
+    # the card's attention kernels take a head width of 32 or 64
+    m.voxel_dim = m.xray_feature_dim = 32 if device_type == "cpu" else 128
+    cfg.training.stages["stage1"].target_resolution = (8, 8, 8)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = build_model(cfg)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    return cfg, model
+
+
+def _dryrun_step(device, global_batch: int, group) -> dict:
+    """One train-mode stage-1 step on this rank's part of a seeded global
+    batch under ``group``: the global batch's loss, and the parameters,
+    gradients (averaged, clipped) and buffers after it, on the CPU."""
+    import numpy as np
+    import torch
+
+    from .parallel.mesh import all_reduce_mean, use_data_group
+    from .training.trainer import stage_step
+
+    cfg, model = _dryrun_model(device.type)
+    model.to(device)
+    state, step = stage_step(model, cfg, 1)
+    rng = np.random.default_rng(0)
+    batch = {"drr_stacked": rng.uniform(-1, 1, (global_batch, 2, 1, 64, 64)),
+             "ct_volume": rng.uniform(-1, 1, (global_batch, 1, 8, 8, 8))}
+    per = global_batch // group.size
+    part = {k: torch.as_tensor(v[group.index * per:(group.index + 1) * per], dtype=torch.float32,
+                               device=device) for k, v in batch.items()}
+    with use_data_group(group):
+        state, metrics = step(state, part, torch.Generator(device=device).manual_seed(1))
+    return {"loss": float(all_reduce_mean(metrics["total_loss"].float(), group)),
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+            "buffers": {n: b.cpu() for n, b in model.named_buffers()}}
+
+
+def _dryrun_rank(device, workdir: str, global_batch: int) -> None:
+    import torch
+
+    from .parallel import mesh
+
+    res = _dryrun_step(device, global_batch, mesh.data_group(global_batch))
+    torch.save(res, Path(workdir) / f"rank{mesh.rank()}.pt")
+
+
+def _grad_err(got: dict, want: dict) -> float:
+    """max over tensors of max|got − want| / (max|want| + 1e-3): a bias in
+    front of a norm has a gradient of 0 in exact arithmetic, and a few 1e-9
+    of rounding in either run."""
+    return max(float((got[k] - w).abs().max()) / (float(w.abs().max()) + 1e-3)
+               for k, w in want.items())
+
+
+def cmd_dryrun(args) -> None:
+    """The data axis rehearsed (JAX ``cmd_dryrun``): ``--devices`` ranks of
+    this host each run the scaled cascade's stage-1 step on their part of a
+    global batch of 2 × devices; one process then runs it on the whole
+    batch. The ranks must end bitwise equal and hold to one process within
+    1e-5 in the loss, 1e-4 in the gradients (``_grad_err``) and 1e-4 in the
+    BatchNorm running statistics; the parameters' largest difference is
+    printed (AdamW's first step turns rounding-level gradients into steps of
+    up to the learning rate)."""
+    import tempfile
+
+    import torch
+
+    from .parallel import mesh
+
+    n, dev = args.devices, torch.device(args.device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(f"dryrun: {n} ranks on cuda need {n} cards, this host has "
+                         f"{torch.cuda.device_count()} (--device cpu runs gloo ranks)")
+    global_batch = 2 * n
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.spawn(_dryrun_rank, n, args.device, tmp, tmp, global_batch)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=True) for r in range(n)]
+    one = _dryrun_step(torch.device("cuda", 0) if dev.type == "cuda" else dev, global_batch,
+                       mesh.SOLO)
+    r0 = ranks[0]
+    same = all(torch.equal(r[part][k], v) for r in ranks[1:] for part in ("params", "buffers")
+               for k, v in r0[part].items())
+    loss_err = abs(r0["loss"] - one["loss"]) / abs(one["loss"])
+    grad_err = _grad_err(r0["grads"], one["grads"])
+    stats_err = max(float((r0["buffers"][k] - v).abs().max() / v.abs().max())
+                    for k, v in one["buffers"].items() if "running" in k)
+    param_diff = max(float((r0["params"][k] - v).abs().max()) for k, v in one["params"].items())
+    ok = same and loss_err <= 1e-5 and grad_err <= 1e-4 and stats_err <= 1e-4
+    print(f"dryrun({n}): {'OK' if ok else 'FAILED'}, {n} "
+          f"{'gloo' if dev.type == 'cpu' else 'nccl'} ranks on {dev.type}, scaled cascade "
+          f"stage-1 step, global batch {global_batch}: loss {r0['loss']:.6f} (one process "
+          f"{one['loss']:.6f}, rel err {loss_err:.1e}), gradients rel err {grad_err:.1e}, "
+          f"BatchNorm running statistics rel err {stats_err:.1e}, largest parameter "
+          f"difference {param_diff:.1e}; ranks bitwise equal: {same}. The model axis is not "
+          f"ported (data axis only).")
+    if not ok:
+        raise SystemExit(1)
+
+
 def _device_flag(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions of the kernels)")
@@ -274,6 +407,12 @@ def main(argv=None) -> None:
     ex.add_argument("--stage", type=int, default=3, help="cascade max_stage to export")
     _device_flag(ex)
     ex.set_defaults(fn=cmd_export)
+
+    dr = sub.add_parser("dryrun", help="data-parallel rehearsal: N ranks' stage-1 step against "
+                                       "one process")
+    dr.add_argument("--devices", type=int, default=2, help="ranks (cards with --device cuda)")
+    _device_flag(dr)
+    dr.set_defaults(fn=cmd_dryrun)
 
     args = p.parse_args(argv)
     args.fn(args)

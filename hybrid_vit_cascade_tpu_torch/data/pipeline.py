@@ -4,10 +4,15 @@ hybrid_vit_cascade_tpu/data/pipeline.py).
 ``DataLoader`` batches numpy items with a seeded per-epoch shuffle (the
 ``sampler.set_epoch`` equivalent), drops the ragged last batch by default and
 can prefetch batches in one background thread, which runs the dataset and
-the batch ``transform`` and never touches the device. ``to_device`` takes the
-place of ``shard_batch``: one process, one card, so placing a batch is a copy
-of its arrays to the device, made in the caller's thread. The JAX loader's
-per-host slicing has no counterpart (one process).
+the batch ``transform`` and never touches the device. ``batch_size`` is the
+global batch: with ``world`` data-parallel ranks, rank r takes positions
+[r·B/k, (r+1)·B/k) of each global batch whose size divides by k = ``world``,
+so the ranks' batch s together hold a one-process run's batch s, and a
+batch that does not divide (a ragged validation tail) is taken whole by
+every rank, as the JAX trainer replicates it on one host. ``to_device``
+takes the place of ``shard_batch``: each process feeds its own card, so
+placing a batch is a copy of its arrays to the device, made in the caller's
+thread. Multi-host loading has no counterpart (one host).
 """
 
 from __future__ import annotations
@@ -28,13 +33,20 @@ def to_device(batch: Dict, device: torch.device | str) -> Dict[str, torch.Tensor
 
 
 class DataLoader:
-    """Minimal epoch-based loader: shuffle (seeded per epoch), batch,
-    optional background prefetch of ``num_prefetch`` batches."""
+    """Minimal epoch-based loader: shuffle (seeded per epoch), batch, this
+    rank's part of each batch, optional background prefetch of
+    ``num_prefetch`` batches."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 drop_last: bool = True, num_prefetch: int = 2, transform=None):
+                 drop_last: bool = True, num_prefetch: int = 2, transform=None,
+                 rank: int = 0, world: int = 1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
+        if drop_last and batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not split over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
@@ -65,10 +77,19 @@ class DataLoader:
             out[key] = np.stack(vals) if isinstance(vals[0], np.ndarray) else vals
         return out
 
+    def sharded(self, b: int) -> bool:
+        """Whether global batch ``b`` is split over the ranks (else every
+        rank takes it whole)."""
+        size = min(self.batch_size, len(self.dataset) - b * self.batch_size)
+        return self.world > 1 and size % self.world == 0
+
     def _batches(self) -> Iterator[Dict]:
         idx = self._indices()
         for b in range(len(self)):
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.sharded(b):
+                per = len(chunk) // self.world
+                chunk = chunk[self.rank * per:(self.rank + 1) * per]
             batch = self._collate([self.dataset[int(i)] for i in chunk])
             yield self.transform(batch) if self.transform is not None else batch
 

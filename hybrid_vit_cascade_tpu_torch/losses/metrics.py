@@ -11,8 +11,15 @@ from ..ops.ssim import ssim3d
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 2.0) -> torch.Tensor:
     """20·log10(range/√MSE); range 2.0 for [-1, 1] volumes."""
-    mse = ((pred.float() - target.float()) ** 2).mean()
-    return 20.0 * torch.log10(data_range / torch.sqrt(mse.clamp_min(1e-12)))
+    return psnr_of_mse(mse(pred, target), data_range)
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred.float() - target.float()) ** 2).mean()
+
+
+def psnr_of_mse(mse_: torch.Tensor, data_range: float = 2.0) -> torch.Tensor:
+    return 20.0 * torch.log10(data_range / torch.sqrt(mse_.clamp_min(1e-12)))
 
 
 def psnr_dynamic_range(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

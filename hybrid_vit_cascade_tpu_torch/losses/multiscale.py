@@ -35,6 +35,7 @@ from ..ops.fft import (
     rfft_magnitude_3d,
 )
 from ..ops.ssim import ssim3d
+from ..parallel.mesh import all_reduce_mean, ambient_group
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -48,15 +49,19 @@ def ssim_loss(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11) -
 def total_variation_loss(pred: torch.Tensor, target: Optional[torch.Tensor] = None,
                          eps: float = 1e-8) -> torch.Tensor:
     """Anisotropic sqrt(ε)-smoothed TV clamped to [0, 100]; with a target, the
-    L1 between the two scalar TVs."""
+    L1 between the two scalar TVs. Under a data group (``parallel.mesh``)
+    the means are the global batch's, so the term is the one-process term."""
+    group = ambient_group()
 
     def tv(v):
         v = v.float()
         dd = (v[..., 1:, :, :] - v[..., :-1, :, :]).abs()
         dh = (v[..., :, 1:, :] - v[..., :, :-1, :]).abs()
         dw = (v[..., :, :, 1:] - v[..., :, :, :-1]).abs()
-        t = (torch.sqrt(dd ** 2 + eps).mean() + torch.sqrt(dh ** 2 + eps).mean()
-             + torch.sqrt(dw ** 2 + eps).mean()) / 3.0
+        means = [torch.sqrt(d ** 2 + eps).mean() for d in (dd, dh, dw)]
+        if group is not None and group.synced:
+            means = all_reduce_mean(torch.stack(means), group, differentiable=True).unbind()
+        t = (means[0] + means[1] + means[2]) / 3.0
         return t.clamp(0.0, 100.0)
 
     tv_pred = tv(pred)

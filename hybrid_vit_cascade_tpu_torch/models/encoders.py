@@ -6,7 +6,8 @@ and max pooling are plain torch ops, as the JAX package leaves them to XLA.
 BatchNorm and the down blocks' GroupNorm follow flax's numerics (statistics,
 normalisation and affine in fp32, then one cast to the compute dtype).
 ``train=True`` normalises BatchNorm with the batch statistics and updates
-the running ones, as flax does under ``mutable=["batch_stats"]``.
+the running ones, as flax does under ``mutable=["batch_stats"]``; under a
+data group (``parallel.mesh``) those of the global batch.
 
 ``SimpleXrayEncoder`` and ``XRayEncoderB200`` (the CNN decoders' encoders)
 take the two views as two input channels and keep flax's auto-names
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.conv3d import GroupNormNCDHW, group_norm_groups
 from ..ops.pool import max_pool_nd
+from ..parallel.mesh import all_reduce_mean, ambient_group
 from .layers import Linear
 
 
@@ -54,8 +56,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            group = ambient_group()
+            if group is not None and group.synced:
+                # a data-parallel step normalises over the global batch, as
+                # flax's mean over a sharded batch axis does: Σx, Σx² and the
+                # count of every rank, through an all-reduce whose backward
+                # carries the other ranks' terms too (SyncBatchNorm's scheme)
+                c = xf.shape[1]
+                local = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                   xf.new_full((1,), xf.numel() // c)])
+                stats = all_reduce_mean(local, group, differentiable=True)
+                mean = stats[:c] / stats[2 * c]
+                var = (stats[c:2 * c] / stats[2 * c] - mean * mean).clamp_min(0.0)
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(m * mean.detach())

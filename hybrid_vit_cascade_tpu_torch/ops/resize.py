@@ -2,7 +2,7 @@
 
 The JAX module reproduces torch's ``F.interpolate`` coordinate conventions
 with per-axis interpolation matrices; here ``F.interpolate`` itself is the
-implementation:
+forward, and the backward is those matrices transposed (``_LinearResize``):
   * align_corners=True : src = i * (in-1) / (out-1)
   * align_corners=False: src = (i + 0.5) * in/out - 0.5, clamped to [0, in-1]
 Like the JAX module it computes in fp32 and returns the input dtype.
@@ -28,8 +28,7 @@ def resize_bilinear(x: torch.Tensor, out_hw: Sequence[int],
     if tuple(x.shape[-2:]) == out_hw:
         return x
     lead = x.shape[:-2]
-    y = F.interpolate(x.reshape(-1, 1, *x.shape[-2:]).float(), size=out_hw,
-                      mode="bilinear", align_corners=align_corners)
+    y = _LinearResize.apply(x.reshape(-1, 1, *x.shape[-2:]).float(), out_hw, align_corners)
     return y.reshape(*lead, *out_hw).to(x.dtype)
 
 
@@ -40,9 +39,38 @@ def resize_trilinear(x: torch.Tensor, out_dhw: Sequence[int],
     if tuple(x.shape[-3:]) == out_dhw:
         return x
     lead = x.shape[:-3]
-    y = F.interpolate(x.reshape(-1, 1, *x.shape[-3:]).float(), size=out_dhw,
-                      mode="trilinear", align_corners=align_corners)
+    y = _LinearResize.apply(x.reshape(-1, 1, *x.shape[-3:]).float(), out_dhw, align_corners)
     return y.reshape(*lead, *out_dhw).to(x.dtype)
+
+
+class _LinearResize(torch.autograd.Function):
+    """``F.interpolate``'s (bi/tri)linear resize of (N, 1, *spatial) forward;
+    the backward is the transpose of the per-axis interpolation matrices,
+    one matmul an axis (JAX's resize is those matrices both ways). It adds
+    in a fixed order, so a training step gives the same bits from run to
+    run: ``F.interpolate``'s own CUDA backward adds with atomics."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, out_size: tuple, align_corners: bool) -> torch.Tensor:
+        ctx.in_size, ctx.align_corners = tuple(x.shape[2:]), align_corners
+        mode = "bilinear" if len(out_size) == 2 else "trilinear"
+        return F.interpolate(x, size=out_size, mode=mode, align_corners=align_corners)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        for axis, n_in in zip(range(2, g.dim()), ctx.in_size):
+            if g.shape[axis] != n_in:
+                mat = _resize_matrix_on(n_in, g.shape[axis], ctx.align_corners, g.device)
+                g = (g.movedim(axis, -1) @ mat.to(g.dtype)).movedim(-1, axis)
+        return g, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix_on(in_size: int, out_size: int, align_corners: bool,
+                      device: torch.device) -> torch.Tensor:
+    """``_linear_resize_matrix`` on ``device``, copied there once: a copy
+    from the host inside every backward would stall the stream."""
+    return torch.from_numpy(_linear_resize_matrix(in_size, out_size, align_corners)).to(device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,8 +13,11 @@ entry is a directory holding one ``torch.save`` file (``checkpoint.pt``) and
 ``meta.json`` ({"epoch", "metrics", "config"}); it is written under
 ``<name>.tmp`` and renamed into place, so a reader sees a whole entry or the
 previous one. Model entries hold ``{"state_dict": ...}``, ``latest_opt``
-holds ``{"optimizer": Optimizer.state_dict(), "step": int}``. One process
-writes (the port runs on one card).
+holds ``{"optimizer": Optimizer.state_dict(), "step": int}``. Under data
+parallelism every rank calls ``save`` and keeps the same ``best``, rank 0
+alone writes, and the others wait at a barrier until every entry is renamed
+into place (the JAX manager's process-0 writes between barriers); restore
+runs on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import barrier, is_main
 
 CKPT_FILE = "checkpoint.pt"
 
@@ -63,13 +68,17 @@ class CheckpointManager:
         """Save 'latest' (+ 'latest_opt' when ``opt`` is given, + the periodic
         entry) and update the best-by-metric entries. metrics: {'loss':
         val_loss, 'psnr': ..., 'ssim': ...}; loss is best when lowest, the
-        others when highest. Returns which best tags improved."""
+        others when highest. Returns which best tags improved. Every rank
+        calls it with the same metrics; only rank 0's ``tree`` and ``opt``
+        are read."""
+        main = is_main()
         meta = {"epoch": epoch, "metrics": metrics, "config": config or {}}
-        self._write("latest", tree, meta)
-        if opt is not None:
-            self._write("latest_opt", opt, meta)
-        if self.save_every and (epoch + 1) % self.save_every == 0:
-            self._write(f"epoch_{epoch:04d}", tree, meta)
+        if main:
+            self._write("latest", tree, meta)
+            if opt is not None:
+                self._write("latest_opt", opt, meta)
+            if self.save_every and (epoch + 1) % self.save_every == 0:
+                self._write(f"epoch_{epoch:04d}", tree, meta)
         improved = {}
         for tag in self.keep_best:
             if tag not in metrics:
@@ -81,9 +90,12 @@ class CheckpointManager:
                 better = val > self.best.get(tag, -math.inf)
             if better:
                 self.best[tag] = val
-                self._write(f"best_{tag}", tree, meta)
+                if main:
+                    self._write(f"best_{tag}", tree, meta)
                 improved[tag] = True
-        (self.save_dir / "best_records.json").write_text(json.dumps(self.best, indent=2))
+        if main:
+            (self.save_dir / "best_records.json").write_text(json.dumps(self.best, indent=2))
+        barrier()
         return improved
 
     # --- restore ----------------------------------------------------------

@@ -26,6 +26,8 @@ from typing import Callable, Dict, Iterable, List, Sequence
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import all_reduce_grads, ambient_group
+
 
 def cosine_schedule(learning_rate: float, total_steps: int,
                     warmup_steps: int = 0) -> Callable[[int], float]:
@@ -52,8 +54,9 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float, total_s
                    warmup_steps: int = 0) -> torch.optim.AdamW:
     """AdamW + cosine decay to 0 over total_steps (+ optional warmup) with
     global-norm clipping over exactly ``params`` (the trainable ones). Its
-    ``step()`` clips the gradients in place, updates, then sets the next
-    step's learning rate.
+    ``step()`` averages the gradients over the ambient data group
+    (``parallel.mesh.use_data_group``; nothing without one), clips them in
+    place, updates, then sets the next step's learning rate.
 
     The schedule's step count lives in each parameter group
     (``"schedule_step"``), so ``state_dict`` carries it and
@@ -72,6 +75,9 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float, total_s
     for group in opt.param_groups:
         group["schedule_step"] = 0
 
+    def sync(*_) -> None:
+        all_reduce_grads(params, ambient_group())
+
     def clip(*_) -> None:
         torch.nn.utils.clip_grad_norm_(params, gradient_clip, foreach=True)
 
@@ -84,6 +90,7 @@ def make_optimizer(params: Iterable[torch.Tensor], learning_rate: float, total_s
         for group in optimizer.param_groups:
             group["lr"] = schedule(group.get("schedule_step", 0))
 
+    opt.register_step_pre_hook(sync)  # pre-hooks run in order: clip sees the average
     opt.register_step_pre_hook(clip)
     opt.register_step_post_hook(advance)
     opt.register_load_state_dict_post_hook(resume)

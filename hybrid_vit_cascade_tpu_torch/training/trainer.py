@@ -41,7 +41,24 @@ check is once a step, one host sync a step when set); ``training.viz_every``
 writes the epoch-end figures of ``_viz_epoch`` (``fit`` and
 ``fit_cascade``, as in JAX) under ``save_dir/viz/epoch_NNN``, and a figure
 that fails (no matplotlib) prints ``[viz] epoch N visualization failed: ...``
-while training goes on. Not ported: the multi-device mesh (one card).
+while training goes on.
+
+Data parallelism (JAX ``trainer.py:293``, ``_mesh_for_batch`` :323-336,
+``_run_epochs`` :763-861), one process per card under torchrun: the
+``Trainer`` starts the process group (``parallel.mesh.init_from_env``) and
+each stage trains on ``data_group(batch)``, the first gcd(batch, world)
+ranks, each on its part of the stage's global batch (``DataLoader`` rank and
+world). Inside the stage's steps the group is ambient: the train-mode
+BatchNorm normalises over the global batch, the TV loss takes the global
+means and the optimizer averages the gradients before it clips. A rank
+outside the group skips the steps but joins the barriers, and rank 0's
+state is broadcast when such a stage ends. Dropout draws from the seed of
+(step, rank). ``train_loss`` and the validation metrics are averaged over
+the group (a validation batch that does not divide is evaluated whole on
+every rank) and agree on every rank, so every rank takes the same
+best-checkpoint decisions; rank 0 alone writes checkpoints, logs, wandb
+rows, figures and profiler traces. Not ported: the model axis and multiple
+hosts.
 """
 
 from __future__ import annotations
@@ -63,9 +80,21 @@ from ..data.pipeline import DataLoader, to_device
 from ..data.synthetic import SyntheticCTDataset
 from ..inference.infer import build_model
 from ..losses.direct256 import Direct256Loss
-from ..losses.metrics import psnr, ssim_metric
+from ..losses.metrics import mse, psnr, psnr_of_mse, ssim_metric
 from ..losses.multiscale import MultiScaleLoss, l1_loss
 from ..ops.resize import resize_trilinear, resize_trilinear_np
+from ..parallel.mesh import (
+    DataGroup,
+    all_reduce_mean,
+    broadcast_module,
+    broadcast_object,
+    data_group,
+    init_from_env,
+    is_main,
+    rank,
+    use_data_group,
+    world,
+)
 from ..utils.logging import CSVLogger, JSONLLogger
 from .checkpoint import CheckpointManager
 from .schedules import apply_stage_freeze, make_optimizer
@@ -157,16 +186,28 @@ def make_train_step(model: nn.Module, loss_fn: Callable, model_kwargs: Optional[
     return step
 
 
+def eval_metrics(loss: torch.Tensor, pred: torch.Tensor, target: torch.Tensor,
+                 group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+    """{'loss', 'psnr', 'ssim'} of a validation batch; with the data group
+    over which the batch is split, those of the global batch (the means
+    averaged, PSNR from the averaged MSE)."""
+    if group is None:
+        return {"loss": loss, "psnr": psnr(pred, target), "ssim": ssim_metric(pred, target)}
+    loss, mse_, ssim_ = all_reduce_mean(
+        torch.stack([loss.float(), mse(pred, target), ssim_metric(pred, target)]), group).unbind()
+    return {"loss": loss, "psnr": psnr_of_mse(mse_), "ssim": ssim_}
+
+
 def make_eval_step(model: nn.Module, target_fn: Callable, model_kwargs: Optional[Dict] = None):
-    """step(batch) → {'loss': l1, 'psnr', 'ssim'} of the deterministic forward."""
+    """step(batch, group=None) → {'loss': l1, 'psnr', 'ssim'} of the
+    deterministic forward (``eval_metrics``)."""
     mkw = dict(model_kwargs or {})
 
     @torch.no_grad()
-    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+    def step(batch: Dict, group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
         pred = model(batch["drr_stacked"], train=False, **mkw)
         target = target_fn(batch)
-        return {"loss": l1_loss(pred, target), "psnr": psnr(pred, target),
-                "ssim": ssim_metric(pred, target)}
+        return eval_metrics(l1_loss(pred, target), pred, target, group)
 
     return step
 
@@ -281,8 +322,9 @@ def diffusion_steps(model: nn.Module, stage_idx: int, sample_steps: int, train: 
     ``generator``), backward, optimizer step; metrics ``total_loss``,
     ``loss``, ``diffusion_loss``, ``physics_loss``. ``train=False`` runs that
     loss deterministically (running statistics, no dropout).
-    eval_step(batch) → {loss, psnr, ssim}: the deterministic loss, and
-    ``ddim_sample`` with ``sample_steps`` steps against the target. Fixed
+    eval_step(batch, group=None) → {loss, psnr, ssim}: the deterministic
+    loss, and ``ddim_sample`` with ``sample_steps`` steps against the target
+    (``eval_metrics``). Fixed
     generators stand where JAX has fixed keys: seed 0 for the loss, 1 for
     the sampler (their bits differ from JAX's)."""
     from ..models.diffusion import ddim_sample
@@ -307,7 +349,7 @@ def diffusion_steps(model: nn.Module, stage_idx: int, sample_steps: int, train: 
         return state, {"total_loss": ld["loss"], **ld}
 
     @torch.no_grad()
-    def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Dict, group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
         target = resize_target(batch["ct_volume"], resolution)
         prev = prev_of(batch)
         dev = target.device
@@ -316,8 +358,7 @@ def diffusion_steps(model: nn.Module, stage_idx: int, sample_steps: int, train: 
         recon = ddim_sample(model, batch["drr_stacked"], stage,
                             torch.Generator(device=dev).manual_seed(1),
                             num_steps=sample_steps, prev_stage_volume=prev)
-        return {"loss": ld["loss"], "psnr": psnr(recon, target),
-                "ssim": ssim_metric(recon, target)}
+        return eval_metrics(ld["loss"], recon, target, group)
 
     return train_step, eval_step, resolution
 
@@ -367,9 +408,11 @@ class Trainer:
 
     The model is built from the config with torch's initialisers under
     ``training.seed`` and lives on ``device`` (the card unless the caller
-    asks for the CPU). The cascade's stage N writes its checkpoints to
+    asks for the CPU; under torchrun, ``cuda:LOCAL_RANK``, with the process
+    group started). The cascade's stage N writes its checkpoints to
     ``save_dir/stageN``, a single-model family to ``save_dir`` (``ckpt``);
-    the CSV and JSONL logs go to ``save_dir/training_log.{csv,jsonl}``."""
+    the CSV and JSONL logs go to ``save_dir/training_log.{csv,jsonl}``
+    (rank 0's; ``csv`` and ``jsonl`` are None on the other ranks)."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         validate_config(cfg)
@@ -377,8 +420,10 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+        self.device = init_from_env(self.device)
         self.cfg = cfg
-        if t.use_wandb:
+        main = is_main()
+        if t.use_wandb and main:
             from ..utils import wandb_compat
 
             wandb_compat.init(config=cfg.to_dict())
@@ -388,8 +433,8 @@ class Trainer:
         save_dir = cfg.checkpoints.save_dir
         self.ckpt = CheckpointManager(save_dir, cfg.checkpoints.save_every,
                                       cfg.checkpoints.keep_best)
-        self.csv = CSVLogger(f"{save_dir}/training_log.csv")
-        self.jsonl = JSONLLogger(f"{save_dir}/training_log.jsonl")
+        self.csv = CSVLogger(f"{save_dir}/training_log.csv") if main else None
+        self.jsonl = JSONLLogger(f"{save_dir}/training_log.jsonl") if main else None
         self._build_data()
 
     def _build_data(self) -> None:
@@ -457,7 +502,7 @@ class Trainer:
                 self._carry_best(stage_ckpt)
                 best = stage_ckpt.best
                 last = {k: best.get(k, 0.0) for k in ("loss", "psnr", "ssim")}
-                if progress:
+                if progress and is_main():
                     print(f"[{stage_name}] complete at epoch {start_epoch - 1}; skipping")
                 continue
             resolution = tuple(sc.target_resolution)
@@ -522,7 +567,7 @@ class Trainer:
                 self._carry_best(stage_ckpt)
                 best = stage_ckpt.best
                 last = {k: best.get(k, 0.0) for k in ("loss", "psnr", "ssim")}
-                if progress:
+                if progress and is_main():
                     print(f"[diffusion_{name}] complete at epoch {start_epoch - 1}; skipping")
                 continue
             train_step, eval_step, resolution = diffusion_steps(self.model, i,
@@ -544,6 +589,8 @@ class Trainer:
             last[f"chain_{nm}_psnr"] = float(psnr(vol, tgt))
             last[f"chain_{nm}_ssim"] = float(ssim_metric(vol, tgt))
         chain = {k: v for k, v in last.items() if k.startswith("chain_")}
+        if not is_main():
+            return last
         self.jsonl.log({"phase": "diffusion_chain_eval", **chain})
         if progress:
             print(f"[diffusion] cascaded DDIM eval: "
@@ -580,55 +627,76 @@ class Trainer:
                     ckpt: CheckpointManager, target_resolution,
                     viz_kwargs: Optional[Dict] = None) -> Dict[str, float]:
         """The epoch loop; ``viz_kwargs`` (the model's keyword arguments for
-        the figures) turns on ``_viz_epoch`` under ``training.viz_every``."""
+        the figures) turns on ``_viz_epoch`` under ``training.viz_every``.
+        Under data parallelism (the module docstring) every rank runs it:
+        the stage's data group trains, an idle rank waits at the barriers."""
         d, t = self.cfg.data, self.cfg.training
+        group = data_group(batch_size)
+        shard = dict(rank=max(group.index, 0), world=group.size)
+        main = is_main()
+        progress = progress and main
         tf = (host_target_transform(target_resolution, cache=not d.augmentation)
               if target_resolution else None)
         train_loader = DataLoader(self.train_ds, batch_size, shuffle=True, seed=t.seed,
-                                  num_prefetch=d.num_prefetch, transform=tf)
+                                  num_prefetch=d.num_prefetch, transform=tf, **shard)
         val_loader = DataLoader(self.val_ds, batch_size=min(batch_size, max(1, len(self.val_ds))),
-                                shuffle=False, drop_last=False, num_prefetch=0, transform=tf)
+                                shuffle=False, drop_last=False, num_prefetch=0, transform=tf,
+                                **shard)
         # dropout of step s is drawn from (seed + 1, s), as the JAX trainer
         # folds the step into PRNGKey(seed + 1): a resumed run draws what an
-        # uninterrupted one would have
+        # uninterrupted one would have; each rank draws for its own samples
         gen = torch.Generator(device=self.device)
+        rank_seed = rank() << 40
         activities = [torch.profiler.ProfilerActivity.CPU] + (
             [torch.profiler.ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
         metrics: Dict[str, float] = {}
         for epoch in range(start_epoch, epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
-            losses, n_samples = [], 0
-            profiling = bool(t.profile_dir) and epoch == start_epoch
-            with (torch.profiler.profile(activities=activities) if profiling
-                  else contextlib.nullcontext()) as prof:
-                for i, batch in enumerate(train_loader):
-                    batch = to_device(batch, self.device)
-                    gen.manual_seed((t.seed + 1) * 1_000_003 + state.step)
-                    state, m = train_step(state, batch, gen)
-                    if t.debug_nans:
-                        _raise_if_not_finite(state, m["total_loss"], phase, epoch, i)
-                    losses.append(m["total_loss"].float())
-                    n_samples += batch["drr_stacked"].shape[0]
-            if profiling:
-                Path(t.profile_dir).mkdir(parents=True, exist_ok=True)
-                prof.export_chrome_trace(str(Path(t.profile_dir) / f"{phase}_epoch{epoch:03d}.json"))
-            train_loss = float(torch.stack(losses).mean()) if losses else float("nan")
-            vals = [eval_step(to_device(b, self.device)) for b in val_loader]
-            val = ({k: float(torch.stack([v[k].float() for v in vals]).mean()) for k in vals[0]}
-                   if vals else {})
+            row: Dict[str, float] = {}
+            if group.active:
+                losses = []
+                profiling = main and bool(t.profile_dir) and epoch == start_epoch
+                with (torch.profiler.profile(activities=activities) if profiling
+                      else contextlib.nullcontext()) as prof, use_data_group(group):
+                    for i, batch in enumerate(train_loader):
+                        batch = to_device(batch, self.device)
+                        gen.manual_seed((t.seed + 1) * 1_000_003 + state.step + rank_seed)
+                        state, m = train_step(state, batch, gen)
+                        if t.debug_nans:
+                            _raise_if_not_finite(state, m["total_loss"], phase, epoch, i)
+                        losses.append(m["total_loss"].float())
+                if profiling:
+                    Path(t.profile_dir).mkdir(parents=True, exist_ok=True)
+                    prof.export_chrome_trace(
+                        str(Path(t.profile_dir) / f"{phase}_epoch{epoch:03d}.json"))
+                row["train_loss"] = (float(all_reduce_mean(torch.stack(losses).mean(), group))
+                                     if losses else float("nan"))
+                vals = [eval_step(to_device(b, self.device),
+                                  group if val_loader.sharded(i) else None)
+                        for i, b in enumerate(val_loader)]
+                if vals:
+                    row.update({k: float(torch.stack([v[k].float() for v in vals]).mean())
+                                for k in vals[0]})
+            if world() > group.size:  # the idle ranks take rank 0's numbers
+                row = broadcast_object(row)
+            train_loss = row.pop("train_loss")
+            val = row
             dt = time.time() - t0
             metrics = {"loss": val.get("loss", train_loss), "psnr": val.get("psnr", 0.0),
                        "ssim": val.get("ssim", 0.0)}
-            ckpt.save({"state_dict": self._state_dict_cpu()}, epoch, metrics,
+            ckpt.save({"state_dict": self._state_dict_cpu()} if main else {}, epoch, metrics,
                       config=self.cfg.to_dict(),
-                      opt={"optimizer": state.optimizer.state_dict(), "step": state.step})
-            self.csv.log(epoch=epoch, phase=phase, loss=f"{train_loss:.6f}",
-                         psnr=f"{metrics['psnr']:.3f}", ssim=f"{metrics['ssim']:.4f}",
-                         lr=lr, time=f"{dt:.1f}")
-            self.jsonl.log({"epoch": epoch, "phase": phase, "train_loss": train_loss, **val,
-                            "seconds": dt, "samples_per_sec": n_samples / max(dt, 1e-9)})
-            if t.use_wandb:
+                      opt={"optimizer": state.optimizer.state_dict(), "step": state.step}
+                      if main else None)
+            if main:
+                self.csv.log(epoch=epoch, phase=phase, loss=f"{train_loss:.6f}",
+                             psnr=f"{metrics['psnr']:.3f}", ssim=f"{metrics['ssim']:.4f}",
+                             lr=lr, time=f"{dt:.1f}")
+                n_samples = len(train_loader) * batch_size
+                self.jsonl.log({"epoch": epoch, "phase": phase, "train_loss": train_loss, **val,
+                                "seconds": dt, "samples_per_sec": n_samples / max(dt, 1e-9)})
+            if t.use_wandb and main:
                 from ..utils import wandb_compat
 
                 wandb_compat.log({"phase": phase, "train_loss": train_loss, **val}, step=epoch)
@@ -637,11 +705,14 @@ class Trainer:
                       f"val_psnr={metrics['psnr']:.2f} dB val_ssim={metrics['ssim']:.4f} "
                       f"({dt:.1f}s)")
             ve = t.viz_every
-            if ve and viz_kwargs is not None and ((epoch + 1) % ve == 0 or epoch == epochs - 1):
+            if ve and viz_kwargs is not None and main and (
+                    (epoch + 1) % ve == 0 or epoch == epochs - 1):
                 try:
                     self._viz_epoch(epoch, phase, viz_kwargs)
                 except Exception as exc:  # viz must never kill a training run
                     print(f"[viz] epoch {epoch} visualization failed: {exc}")
+        if world() > group.size:  # the idle ranks' weights are a stage behind
+            broadcast_module(self.model)
         return metrics
 
     def _viz_epoch(self, epoch: int, phase: str, model_kwargs: Dict) -> None:

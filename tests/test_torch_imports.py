@@ -42,7 +42,7 @@ def test_port_modules_found():
               "data.native_io", "data.pipeline", "data.synthetic", "training.checkpoint",
               "utils.logging", "models.depth_lifting", "models.diffusion",
               "ops.cuda.library", "inference.serving", "utils.summary", "utils.wandb_compat",
-              "utils.viz"):
+              "utils.viz", "parallel", "parallel.mesh"):
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 

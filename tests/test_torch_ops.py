@@ -26,7 +26,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_plain,
 )
 from hybrid_vit_cascade_tpu_torch.ops.pool import max_pool_nd
-from hybrid_vit_cascade_tpu_torch.ops.resize import resize_trilinear
+from hybrid_vit_cascade_tpu_torch.ops.resize import resize_bilinear, resize_trilinear
 
 
 def _f32(rng, shape, scale=1.0):
@@ -40,6 +40,54 @@ def test_resize_matches_jax(rng, align_corners, out):
     want = np.asarray(jax_resize(jnp.asarray(x), out, align_corners=align_corners))
     got = resize_trilinear(torch.from_numpy(x), out, align_corners=align_corners).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("out", [(10, 12, 14), (3, 4, 5), (5, 12, 7)])
+def test_resize_backward_matches_jax(rng, align_corners, out):
+    """The resize's backward (the interpolation matrices transposed, a fixed
+    order of adds) against JAX's VJP and against ``F.interpolate``'s own
+    backward in float64."""
+    import jax
+
+    x, g = _f32(rng, (2, 3, 5, 6, 7)), _f32(rng, (2, 3, *out))
+    _, vjp = jax.vjp(lambda v: jax_resize(v, out, align_corners=align_corners), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    resize_trilinear(xt, out, align_corners=align_corners).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-5, atol=1e-5)
+    x64 = torch.from_numpy(x).double().requires_grad_(True)
+    torch.nn.functional.interpolate(x64.reshape(6, 1, 5, 6, 7), size=out, mode="trilinear",
+                                    align_corners=align_corners).backward(
+        torch.from_numpy(g).double().reshape(6, 1, *out))
+    np.testing.assert_allclose(xt.grad.numpy(), x64.grad.numpy().reshape(x.shape), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_bilinear_backward_is_interpolate_backward(rng, align_corners):
+    x, g = _f32(rng, (2, 3, 7, 9)), _f32(rng, (2, 3, 12, 4))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    resize_bilinear(xt, (12, 4), align_corners=align_corners).backward(torch.from_numpy(g))
+    x64 = torch.from_numpy(x).double().requires_grad_(True)
+    torch.nn.functional.interpolate(x64, size=(12, 4), mode="bilinear",
+                                    align_corners=align_corners).backward(
+        torch.from_numpy(g).double())
+    np.testing.assert_allclose(xt.grad.numpy(), x64.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_resize_backward_copies_its_matrices_once(rng):
+    """The backward's interpolation matrices are made on the gradient's
+    device once a shape: a second backward copies nothing from the host."""
+    from hybrid_vit_cascade_tpu_torch.ops import resize
+
+    x = torch.from_numpy(_f32(rng, (1, 2, 5, 6, 7))).requires_grad_(True)
+    resize.resize_trilinear(x, (9, 11, 13)).sum().backward()
+    first = resize._resize_matrix_on.cache_info()
+    resize.resize_trilinear(x, (9, 11, 13)).sum().backward()
+    again = resize._resize_matrix_on.cache_info()
+    assert again.misses == first.misses and again.hits == first.hits + 3
+    assert resize._resize_matrix_on(6, 11, False, x.device).device == x.device
 
 
 @pytest.mark.parametrize("window,stride,padding", [(3, 2, 1), (2, 2, 0), (3, 1, 1)])
