@@ -188,7 +188,15 @@ expected FloatingPointError:
    seeded checkpoint into a ``direct256_h200`` copy of that config
    (transferred and skipped counts > 0), whose written entry reconstructs a
    finite (1, 1, 256³); ``Direct256ModelB200`` of
-   ``configs/direct256_b200.json`` reconstructs a finite (1, 1, 256³).
+   ``configs/direct256_b200.json`` reconstructs a finite (1, 1, 256³),
+   then ([14f]) takes 1 + 1 train steps at its batch 1 at 256³ with
+   ``Direct256Loss`` (the loss nets' layers and the decoder's top scale
+   recomputed: finite losses, step time, peak), run twice from one state
+   with every bit of the losses, the state and the gradients equal; ``cli
+   train`` on a one-epoch copy of that config (B200_PATIENTS synthetic 256³
+   patients: latest, latest_opt, best_* written, finite metrics, no
+   hand-written kernel launched); ``Direct256ModelH200``'s 256³ step at batch
+   1 on [14e]'s copy, or the allocator's numbers where it runs out of memory.
    Small-input references (fp32, card against CPU, 2e-4): a scaled
    DirectCTRegression's forward and one deterministic step's loss and
    gradients; ResidualDenseBlock, CBAM, UpConvStage and Direct256Loss at 16³.
@@ -255,6 +263,21 @@ expected FloatingPointError:
    name and power limit. With two cards or more, 2 ranks against one
    process on the global batch, dropout off in both, within bf16's TOL;
    with one card the log says it did not run.
+19. The flagship cascade of ``configs/progressive_h200.json`` at full width
+   and depth (voxel_dim 512, 16 heads of 32, depths 4/8/12, stage 3 dense;
+   bf16 over fp32 weights from a seeded torch.Generator): C, F and G at its
+   token stems' new widths (in → 128 → 256 → 512 from 256³, 128³ and 64³ at
+   the stages' batches), I, J and K on a training slab of the stage-3 stem,
+   A and D at 2 × 16 heads over 32,768² and 32,768 × 4,096 (d = 32), each
+   against its plain version in bf16, the hot ones timed (the ``h200`` entry
+   of their rows); a reconstruct at batch 1 (finite (1, 1, 256³), 2 × 24
+   flash forwards on the tensor cores, no gradient kernel) and REPS timed
+   ones; one warm-up and one timed step of each stage at the config's batch
+   8 / 4 / 2, or at the largest batch that fits, halved while a step runs
+   out of memory and each failure logged with the allocator's numbers:
+   finite losses, peak memory, launches per step by letter, every flash
+   forward and backward and every call the rules send to a tensor-core
+   instance taken there.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -273,12 +296,13 @@ and its power limit; launches are those of the main path: the reconstruct
 one that takes L and M), the probe run of [12] (the only one that takes N),
 the serving commands of [13], [14]'s direct_vit reconstruct, first train
 step and entry points, [15]'s first train steps, samplers and cli train,
-[16]'s two served calls, [17]'s cli train and [18]'s cli train under
-torchrun; the rows of A and D also carry, under ``direct_vit``, their time,
+[16]'s two served calls, [17]'s cli train, [18]'s cli train under
+torchrun and [19]'s reconstruct and first stage steps; the rows of A and D also carry, under ``direct_vit``, their time,
 plain time, bound and library time at the direct model's attention shape
 and their launches in [14], and the rows of A, C, D, F and G under
 ``diffusion`` the same at each DIFFUSION_AT shape and their launches in
-[15]. The probe rows are at
+[15], and the rows of A, C, D, F and G under ``h200`` the same at the
+H200_AT shape, its max_abs_err there and their launches in [19]. The probe rows are at
 N = 131,072, R = 64, and their library call is cuBLAS (``torch.mm`` over
 the same operands, R calls).
 
@@ -678,9 +702,10 @@ def _fns(name: str):
             lambda x, w, b: ck.conv3d_k3_plain(x, w, b, s, 1, (x.shape[2] - 1) // s + 1))
 
 
-def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False) -> dict:
+def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False,
+                  dtypes: tuple = (torch.bfloat16, torch.float32)) -> dict:
     """Phases 3 and 7: every kernel of ``specs`` against its plain version at
-    every shape, in bf16 and fp32; returns the max error per kernel. Each
+    every shape, in each of ``dtypes``; returns the max error per kernel. Each
     output is held to the tolerance of its own dtype (flash attention's lse
     and the weight gradients are fp32); ``scaled`` multiplies the absolute
     part by the largest |want| of the call, as FLASH_OUT_TOL always does for
@@ -690,7 +715,7 @@ def check_kernels(dev, seed: int, specs: dict, inputs, fns, scaled: bool = False
         kern, plain = fns(name)
         worst[name] = 0.0
         for shape in spec["shapes"] + spec["ragged"]:
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in dtypes:
                 args = inputs(name, shape, dtype, dev, seed)
                 got, want = kern(*args), plain(*args)
                 if not isinstance(got, tuple):
@@ -2150,6 +2175,7 @@ EXPECTED_LAUNCHES_DIRECT = STAGE1_LAUNCHES
 # bitwise) among the stage-1 shapes
 DIRECT_FLASH = {"flash_attention": (4, 4096, 4096, 64), "flash_attention_bwd": (32, 4096, 4096, 64)}
 DIRECT_PATIENTS = 10  # [14]'s cli train: 8 train, 1 val, 1 test at the config's splits
+B200_PATIENTS = 2  # [14f]'s cli train: 1 train, 1 val (splits 0.5 / 0.5)
 
 
 def _timed_reconstruct(engine, xr, dev) -> dict:
@@ -2259,6 +2285,80 @@ def direct_reference(dev, seed: int) -> dict:
         f"{float(m_g['total_loss']):.6f} cpu {float(m_c['total_loss']):.6f}; {len(g_c)} gradients; "
         f"launches of the step {({k: v for k, v in launched.items() if v})}")
     return {"max_abs_err": worst, "launches": launched}
+
+
+def decoder256_train(dev, seed: int, cfgb, cfg_h200: Path) -> dict:
+    """[14f]: Direct256ModelB200's 256³ step at configs/direct256_b200.json's
+    batch 1 (1 + 1 steps, run twice from one state), ``cli train`` on a
+    one-epoch copy of that config (B200_PATIENTS synthetic 256³ patients),
+    and Direct256ModelH200's step at batch 1 on [14e]'s copy, or the
+    allocator's numbers where it runs out of memory."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    out = {}
+    model = seeded_init_(build_model(cfgb), seed).to(dev)
+
+    def run():
+        return train_steps(model, cfgb, None, 1, 1,
+                           torch.Generator(device=dev).manual_seed(seed + 44))
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    r = run()
+    r["repeat"] = train_twice(model, run, start, (r["total_loss"], *_trained_state(model)))
+    x = r["repeat"]
+    log(f"[14f] direct256_b200 train step (256³, batch 1, Direct256Loss, remat): "
+        f"{r['step_ms'][0]:.1f} ms (warm-up {r['warmup_s']:.2f} s); peak "
+        f"{r['peak_allocated_gb']:.2f} GB, reserved {r['peak_reserved_gb']:.2f} GB; total_loss "
+        f"{', '.join(f'{v:.5f}' for v in r['total_loss'])}; run twice from one state: losses "
+        f"equal {x['losses_equal']}, {x['state_differing']} of {x['state_tensors']} state "
+        f"tensors and {x['grads_differing']} of {x['grads']} gradients differ (max |diff| "
+        f"{x['max_abs_diff']:.3e})")
+    if not all(math.isfinite(v) for v in r["total_loss"]):
+        raise AssertionError(f"[14f] direct256_b200: non-finite loss {r['total_loss']}")
+    if not x["losses_equal"] or x["state_differing"] or x["grads_differing"]:
+        raise AssertionError(f"[14f] the direct256_b200 step did not repeat bitwise: {x}")
+    out["b200_train"] = r
+    del model, start
+    torch.cuda.empty_cache()
+
+    save_dir = BUILD_DIR / "b200_train"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    copy = _config_copy(DIRECT_B200_CONFIG, "direct256_b200_smoke.json", **{
+        "training.num_epochs": 1, "data.synthetic": True,
+        "data.synthetic_patients": B200_PATIENTS, "data.train_split": 0.5,
+        "data.val_split": 0.5, "checkpoints.save_dir": str(save_dir)})
+    final, _, train_s, train_lc = _cli_json(cli, ["train", "--config", str(copy),
+                                                  "--device", dev.type])
+    entries = sorted(p.name for p in save_dir.iterdir() if p.is_dir())
+    log(f"[14f] cli train build/{copy.name} ({B200_PATIENTS} patients at 256³): {train_s:.1f} s, "
+        f"final {final['final']}, entries {entries}")
+    if (not {"latest", "latest_opt", "best_loss", "best_psnr", "best_ssim"} <= set(entries)
+            or not all(math.isfinite(v) for v in final["final"].values()) or any(train_lc.values())):
+        raise AssertionError(f"[14f] cli train: {final}, {entries}, launches {train_lc}")
+    out["b200_cli"] = {"wall_s": train_s, "final": final["final"], "entries": entries}
+    torch.cuda.empty_cache()
+
+    cfgh = Config.from_json(str(cfg_h200))
+    model = seeded_init_(build_model(cfgh), seed).to(dev)
+    r = train_steps(model, cfgh, None, 1, 1, torch.Generator(device=dev).manual_seed(seed + 45),
+                    allow_oom=True)
+    oom = r.get("out_of_memory")
+    log(f"[14f] direct256_h200 train step (256³, batch 1): " + (
+        f"out of memory: {oom['error']}; allocated {oom['allocated_gb']:.2f} GB, peak "
+        f"{oom['max_allocated_gb']:.2f} GB, reserved {oom['reserved_gb']:.2f} GB of "
+        f"{oom['card_gb']:.2f}; in {' < '.join(reversed(oom['where']))}" if oom else
+        f"steps {', '.join(f'{v:.1f}' for v in r['step_ms'])} ms; peak "
+        f"{r['peak_allocated_gb']:.2f} GB; total_loss {r['total_loss']}"))
+    if not oom and not all(math.isfinite(v) for v in r["total_loss"]):
+        raise AssertionError(f"[14f] direct256_h200: non-finite loss {r['total_loss']}")
+    out["h200_decoder_train"] = r
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def direct_phase(dev, seed: int) -> dict:
@@ -2446,12 +2546,14 @@ def direct_phase(dev, seed: int) -> dict:
     serve("direct256_h200", tdir / "latest", 256)
     torch.cuda.empty_cache()
 
-    # 14f Direct256ModelB200
+    # 14f Direct256ModelB200: reconstruct, its 256³ step and cli train; the
+    # H200 decoder's 256³ step
     cfgb = Config.from_json(str(DIRECT_B200_CONFIG))
     ckptb = CKPT_DIR / "direct256_b200_seeded.pt"
     save_checkpoint(ckptb, cfgb, seeded_init_(build_model(cfgb), seed))
     serve("direct256_b200", ckptb, 256)
     torch.cuda.empty_cache()
+    rec.update(decoder256_train(dev, seed, cfgb, copy256))
     rec["decoders"] = decoders
     rec["transfer"] = {"line": line, "transferred": counts[0], "skipped": counts[1],
                        "wall_s": transfer_s}
@@ -3348,6 +3450,155 @@ def parallel_phase(dev, seed: int, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------- the h200 cascade [19] ---
+
+H200_CONFIG = ROOT / "configs" / "progressive_h200.json"
+H200_BATCH = {1: 8, 2: 4, 3: 2}  # the config's stage batches
+# The shapes the h200 cascade (voxel_dim 512, 16 heads of 32) first gives the
+# kernels: its token stems in → 128 → 256 → 512 (stage 3 from 256³ at batch
+# 2, stage 2 from 128³ at batch 4; stage 1's 128→256 from 32³ and 1→128 from
+# 64³ at batch 8) for C, F and G; stage 3's self- and cross-attention at
+# batch 2 (2 × 16 heads over 32,768 voxel tokens and 4,096 X-ray tokens) for
+# A and D; I, J and K on a training slab of the stage-3 stem's first conv (8
+# slabs at 256³: 33 planes to 16), with Σ/Σ² and without and with the gelu
+# prologue.
+_H200_S2 = [(2, 32, 128, (256, 256, 256)), (2, 128, 256, (128, 128, 128)),
+            (2, 256, 512, (64, 64, 64)), (4, 32, 128, (128, 128, 128)),
+            (4, 128, 256, (64, 64, 64)), (4, 256, 512, (32, 32, 32)),
+            (8, 128, 256, (32, 32, 32)), (8, 1, 128, (64, 64, 64))]
+_H200_FLASH = [(32, 32768, 32768, 32), (32, 32768, 4096, 32)]
+_H200_CHAIN = [(2, 32, 128, 33, 256, 256, 0, 16, True, None),
+               (2, 32, 128, 33, 256, 256, 0, 16, True, "gelu")]
+H200_CHECKS = (({"flash_attention": _H200_FLASH, "conv3d_k3s2": _H200_S2}, "_inputs", "_fns"),
+               ({"flash_attention_bwd": _H200_FLASH, "conv3d_k3s2_dgrad": _H200_S2,
+                 "conv3d_k3s2_wgrad": _H200_S2}, "_train_inputs", "_train_fns"),
+               ({"conv3d_k3s2_chain": _H200_CHAIN, "conv3d_k3s2_chain_dgrad": _H200_CHAIN,
+                 "conv3d_k3s2_chain_wgrad": _H200_CHAIN}, "_chain_inputs", "_chain_fns"))
+# the hot one of each, timed beside its plain version and library call (the
+# ``h200`` entry of its row in the kernels line)
+H200_AT = {"flash_attention": _H200_FLASH[0], "flash_attention_bwd": _H200_FLASH[0],
+           "conv3d_k3s2": _H200_S2[0], "conv3d_k3s2_dgrad": _H200_S2[0],
+           "conv3d_k3s2_wgrad": _H200_S2[0]}
+
+
+def h200_phase(dev, seed: int) -> dict:
+    """Phase 19: ``configs/progressive_h200.json`` at full width and depth.
+    Its kernels at the new shapes in bf16 against their plain versions, and
+    the hot ones timed; one reconstruct at batch 1 (max_stage=3) with its
+    launches and REPS timed ones; one warm-up and one timed step of each
+    stage at the config's batch, halved while it runs out of memory (each
+    failure logged with the allocator's numbers), with its launches per
+    step, every flash forward and backward on the tensor cores and every
+    call the rules send there taken there (stage 1's 1→128 stem gives F a
+    dx of one channel from 128: past the one-dx-channel instance's 64, so
+    its CUDA cores)."""
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import (
+        InferenceEngine,
+        build_model,
+        save_checkpoint,
+    )
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    t_phase = time.perf_counter()
+    cfg = Config.from_json(str(H200_CONFIG))
+    m = cfg.model
+    widths = (m.family, m.voxel_dim, m.xray_feature_dim, m.dtype, tuple(m.stage_depths),
+              tuple(m.stage_heads), tuple(m.stage_sizes), cfg.data.xray_size, m.stage3_slab_scan,
+              tuple(cfg.training.stages[f"stage{n}"].batch_size for n in (1, 2, 3)))
+    if widths != ("cascade", 512, 512, "bfloat16", (4, 8, 12), (16, 16, 16), (64, 128, 256),
+                  512, False, tuple(H200_BATCH.values())):
+        raise AssertionError(f"{H200_CONFIG.name} no longer holds the h200 cascade: {widths}")
+    rec = {"max_abs_err": {}, "rows": {}}
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+
+    # 19a the kernels at the new shapes, bf16
+    log("[19] kernels at the h200 cascade's shapes vs plain versions (bf16)")
+    for specs, inputs, fns in H200_CHECKS:
+        inputs, fns = globals()[inputs], globals()[fns]
+        rec["max_abs_err"].update(check_kernels(
+            dev, seed, {k: {"shapes": v, "ragged": []} for k, v in specs.items()}, inputs, fns,
+            scaled=inputs is not _inputs, dtypes=(torch.bfloat16,)))
+        timed = {k: {"shapes": [H200_AT[k]]} for k in specs if k in H200_AT}
+        rec["rows"].update(time_kernels(dev, seed, timed, inputs, fns))
+    torch.cuda.empty_cache()
+
+    # 19b reconstruct at batch 1
+    ckpt = CKPT_DIR / "h200_seeded.pt"
+    model = seeded_init_(build_model(cfg), seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    save_checkpoint(ckpt, cfg, model)
+    del model
+    engine = InferenceEngine(ckpt, device=dev, max_stage=3)
+    xs = cfg.data.xray_size
+    xr = torch.rand((1, 2, 1, xs, xs), generator=torch.Generator().manual_seed(seed + 1))
+    reset_launch_counts()
+    vol = engine.reconstruct(xr, max_stage=3)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    finite = bool(torch.isfinite(vol.float()).all())
+    n_attn = 2 * sum(m.stage_depths)  # a self- and a cross-attention a block
+    if (tuple(vol.shape) != (1, 1, 256, 256, 256) or not finite
+            or launched["flash_attention"] != n_attn or launched["flash_attention_tc"] != n_attn
+            or not launched["conv3d_k3s2"] or any(launched[k] for k in launched if "grad" in k)):
+        raise AssertionError(f"[19] reconstruct: {tuple(vol.shape)} finite={finite}, launches "
+                             f"{launched} (A {n_attn} on the tensor cores, C, no gradient kernel)")
+    t = _timed_reconstruct(engine, xr, dev)
+    log(f"[19] progressive_h200 reconstruct 256³ (batch 1, bf16, {n_params / 1e6:.1f} M "
+        f"parameters): median {t['median_ms']:.1f} ms over {REPS} "
+        f"({', '.join(f'{v:.1f}' for v in t['ms'])}); {t['volumes_per_s']:.3f} volumes/s; peak "
+        f"{t['peak_gb']:.2f} GB; launches {({k: v for k, v in launched.items() if v})}")
+    rec["reconstruct"] = {**t, "launches": launched, "n_params": n_params}
+    del engine, vol
+    torch.cuda.empty_cache()
+
+    # 19c one step of each stage, at the config's batch or the largest that fits
+    model = seeded_init_(build_model(cfg), seed).to(dev)
+    for stage in (1, 2, 3):
+        b, ooms = H200_BATCH[stage], {}
+        while True:
+            g = torch.Generator(device=dev).manual_seed(seed + 60 + stage)
+            with rule_calls() as rc:
+                r = train_steps(model, cfg, stage, b, 1, g, allow_oom=True)
+            if "out_of_memory" not in r:
+                break
+            o = ooms[b] = r["out_of_memory"]
+            log(f"[19] stage {stage} at batch {b}: out of memory: {o['error']}; allocated "
+                f"{o['allocated_gb']:.2f} GB, peak {o['max_allocated_gb']:.2f} GB, reserved "
+                f"{o['reserved_gb']:.2f} GB of {o['card_gb']:.2f}")
+            if b == 1:
+                raise AssertionError(f"[19] stage {stage} does not fit at batch 1")
+            b //= 2
+        lc = r["launches_per_step"]
+        r.update(batch=b, out_of_memory_at=ooms)
+        log(f"[19] stage {stage} step ({m.stage_sizes[stage - 1]}³, batch {b}"
+            f"{'' if b == H200_BATCH[stage] else f', the config says {H200_BATCH[stage]}'}, "
+            f"{r['trainable_params'] / 1e6:.1f} M trainable): {r['step_ms'][0]:.1f} ms (warm-up "
+            f"{r['warmup_s']:.2f} s); peak {r['peak_allocated_gb']:.2f} GB; total_loss "
+            f"{', '.join(f'{v:.5f}' for v in r['total_loss'])}; launches per step "
+            f"{({k: v for k, v in lc.items() if v})}")
+        if not all(math.isfinite(v) for v in r["total_loss"]):
+            raise AssertionError(f"[19] stage {stage}: non-finite loss {r['total_loss']}")
+        want = {k: n / 2 for k, n in rc.n.items()}  # the warm-up step's half of two
+        if (not lc["flash_attention"] or not lc["flash_attention_bwd"]
+                or any(lc[f"{k}_tc"] != lc[k] for k in ("flash_attention", "flash_attention_bwd"))
+                or any(lc[k] != want[k] for k in _RULE_COUNTERS)):
+            raise AssertionError(f"[19] stage {stage}: launches {lc} off the tensor cores or "
+                                 f"the rules' instances {want}")
+        rec[f"stage{stage}"] = r
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    rec["launches"] = {k: launched[k] + sum(rec[f"stage{n}"]["launches_per_step"][k]
+                                            for n in (1, 2, 3)) for k in launched}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[19] launches by letter (reconstruct and each stage's first step): "
+        f"{({k: v for k, v in rec['launches'].items() if v})}; phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -3583,12 +3834,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["parallel"] = parallel_phase(dev, args.seed, card)
 
+    # 19. the h200 cascade
+    torch.cuda.empty_cache()
+    record["h200"] = h200_phase(dev, args.seed)
+    rows.update(record["h200"].pop("rows"))
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
     # serving commands of [13], [14]'s direct_vit reconstruct, first train
     # step and entry points, [15]'s first train steps, samplers and cli
-    # train, [16]'s served calls, [17]'s cli train and [18]'s cli train
-    # under torchrun, each counted from 0
+    # train, [16]'s served calls, [17]'s cli train, [18]'s cli train under
+    # torchrun and [19]'s reconstruct and first step of each stage, each
+    # counted from 0
     direct, diffusion = record["direct"], record["diffusion"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
@@ -3606,7 +3863,10 @@ def main() -> int:
               "diffusion_cli": diffusion["cli_train"]["launches"],
               **{f"served_{k}": record["export"][k]["launches"] for k in ("cascade", "direct_vit")},
               "observability_cli": record["observability"]["launches"],
-              "parallel_cli": record["parallel"]["launches"]}
+              "parallel_cli": record["parallel"]["launches"],
+              "h200_reconstruct": record["h200"]["reconstruct"]["launches"],
+              **{f"h200_train_s{n}": record["h200"][f"stage{n}"]["launches_per_step"]
+                 for n in (1, 2, 3)}}
     by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
@@ -3646,6 +3906,15 @@ def main() -> int:
                         "library_ms": library_ms(name, sh, dev, args.seed)}
                        for sh in DIFFUSION_AT[name]],
                 "launches": sum(f_runs.values()), "launches_by_run": f_runs}
+        if name in H200_AT:  # the h200 cascade's hot shape, and its launches in [19]
+            sh = H200_AT[name]
+            h_runs = {k: by_run[k][name] for k in by_run if k.startswith("h200")}
+            kernels[-1]["h200"] = {
+                "at": f"{sh} bf16", "ms": rows[(name, sh)][0], "plain_ms": rows[(name, sh)][1],
+                "bound_ms": bound(name, sh, exp2_rate=exp2_rate)[0],
+                "library_ms": library_ms(name, sh, dev, args.seed),
+                "max_abs_err": record["h200"]["max_abs_err"][name],
+                "launches": sum(h_runs.values()), "launches_by_run": h_runs}
         if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
             fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in_fp32"] for run, counts in by_run.items()}
             kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),

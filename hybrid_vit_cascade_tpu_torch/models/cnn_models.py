@@ -28,7 +28,11 @@ beyond it, every ResidualDenseBlock (in the stages and in the head) is a
 recompute region of its own, so each stage RDB's forward runs three times
 a step. On an 80 GB card the 128³ decoder's batch-2 step ran out of memory
 with the stages alone recomputed and with the RDBs alone; nested it fits
-(PERF.md §6). Recomputing changes no value.
+(PERF.md §6). The 256³ decoders' top scale recomputes too, in a few regions
+(the B200's last upsample stage with the fusion after it, each skip
+projection, the concat with its 1×1 fusion, the conv head), so that no more
+of its maps are held at once than one region makes. Recomputing changes no
+value.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3d import GroupNormNCDHW, group_norm_groups
+from ..ops.resize import resize_bilinear, resize_trilinear
 from .encoders import SimpleXrayEncoder, XRayEncoderB200
 from .layers import Linear
 
@@ -77,7 +82,7 @@ def _gn(groups: int, channels: int, dtype: torch.dtype) -> GroupNormNCDHW:
 def _upsample(x: torch.Tensor, scale: int, dtype: torch.dtype) -> torch.Tensor:
     """Trilinear ×scale (align_corners=False) in fp32, cast to ``dtype``."""
     size = tuple(scale * s for s in x.shape[2:])
-    return F.interpolate(x.float(), size=size, mode="trilinear", align_corners=False).to(dtype)
+    return resize_trilinear(x, size, align_corners=False).to(dtype)
 
 
 class ResidualDenseBlock(nn.Module):
@@ -192,8 +197,7 @@ def depth_modulated_broadcast(xray_feats: torch.Tensor, size: int,
     1 + 0.3·sin(linspace(0, 1, size)·3.14159) along depth, in the features'
     dtype (JAX ``cnn_models.py:152``). Unmodulated, the result is an
     expanded view (torch.cat copies it once)."""
-    f = F.interpolate(xray_feats.float(), size=(size, size), mode="bilinear",
-                      align_corners=False).to(xray_feats.dtype)
+    f = resize_bilinear(xray_feats, (size, size), align_corners=False)
     f3d = f[:, :, None].expand(-1, -1, size, -1, -1)
     if not modulate:
         return f3d
@@ -310,10 +314,21 @@ class Direct256ModelH200(_Decoder):
         x = self._seed(xrays.shape[0])
         x64f = self._fuse("xray_fusion_64", self._stage("enc_32_64", x, train), feats, True)
         x128f = self._fuse("xray_fusion_128", self._stage("enc_64_128", x64f, train), feats, True)
-        x256f = self._fuse("xray_fusion_256", self._stage("enc_128_256", x128f, train), feats, True)
-        h = torch.cat([x256f, self.skip_proj_128_to_256(x128f), self.skip_proj_64_to_256(x64f)], 1)
-        h = F.gelu(self.GroupNorm_0(self.Conv_0(h)))
+        remat = self.remat and train
+        x256f = _remat(self._top, self._stage("enc_128_256", x128f, train), remat, feats)
+        skips = [_remat(self.skip_proj_128_to_256, x128f, remat),
+                 _remat(self.skip_proj_64_to_256, x64f, remat)]
+        h = _remat(self._concat_fuse, x256f, remat, *skips)
         h = self._rdb("ResidualDenseBlock_0", h, train)
+        return _remat(self._head, h, remat)
+
+    def _top(self, x: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        return self._fuse("xray_fusion_256", x, feats, True)
+
+    def _concat_fuse(self, x: torch.Tensor, *skips: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.GroupNorm_0(self.Conv_0(torch.cat([x, *skips], 1))))
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         for i in (1, 2):
             h = F.gelu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"Conv_{i}")(h)))
         return self.Conv_3(h)
@@ -357,12 +372,22 @@ class Direct256ModelB200(_Decoder):
         skip64 = self._fuse("xray_fusion_64", self._stage("enc_32_64", skip32, train), feats, False)
         skip128 = self.cbam_128(
             self._fuse("xray_fusion_128", self._stage("enc_64_128", skip64, train), feats, False))
-        x = self._stage("enc_128_256_a", skip128, train)
-        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
-        x = self._fuse("xray_fusion_256", x, feats, False)
-        h = torch.cat([x, self.skip_proj_32_to_256(skip32), self.skip_proj_64_to_256(skip64),
-                       self.skip_proj_128_to_256(skip128)], 1)
-        h = F.relu(self.GroupNorm_1(self.Conv_1(h)))
+        remat = self.remat and train
+        x = _remat(self._top, skip128, remat, feats)
+        skips = [_remat(getattr(self, f"skip_proj_{n}_to_256"), t, remat)
+                 for n, t in ((32, skip32), (64, skip64), (128, skip128))]
+        h = _remat(self._concat_fuse, x, remat, *skips)
+        return _remat(self._head, h, remat)
+
+    def _top(self, skip128: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        """enc_128_256_a → Conv_0 → GroupNorm_0 → ReLU → xray_fusion_256."""
+        x = F.relu(self.GroupNorm_0(self.Conv_0(self.enc_128_256_a(skip128))))
+        return self._fuse("xray_fusion_256", x, feats, False)
+
+    def _concat_fuse(self, x: torch.Tensor, *skips: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.GroupNorm_1(self.Conv_1(torch.cat([x, *skips], 1))))
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
         for i in (2, 3, 4):
             h = F.relu(getattr(self, f"GroupNorm_{i}")(getattr(self, f"Conv_{i}")(h)))
         return self.Conv_5(h)

@@ -181,6 +181,50 @@ def group_norm_groups(groups: int, channels: int) -> int:
     return g
 
 
+def group_norm_flax_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          num_groups: int, dtype: torch.dtype, out: torch.Tensor | None = None):
+    """flax ``nn.GroupNorm``'s forward (``group_norm_flax``) without autograd:
+    (y, per-(batch, group) fp32 mean, 1/std, groups a chunk). The chunks'
+    outputs go into one tensor: ``out`` when given (of x's shape and
+    ``dtype``; x itself is allowed, each chunk is read before it is
+    written), else a new one."""
+    C, G = x.shape[1], num_groups
+    xr = x.unflatten(1, (G, C // G))
+    red = tuple(range(2, xr.dim()))
+    cshape = (1, G, C // G) + (1,) * (x.dim() - 2)
+    sc, bi = scale.float().reshape(cshape), bias.float().reshape(cshape)
+    step = max(1, GN_CHUNK_BYTES // (4 * max(1, xr[:, :1].numel())))
+    yr = None if out is None else out.unflatten(1, (G, C // G))
+    if yr is None and step < G:
+        yr = torch.empty(xr.shape, dtype=dtype, device=x.device)
+    means, rstds = [], []
+    for g in range(0, G, step):
+        xc = xr[:, g:g + step].float()
+        mean = xc.mean(dim=red, keepdim=True)
+        var = ((xc * xc).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
+        rstd = torch.rsqrt(var + 1e-5)
+        y = ((xc - mean) * (rstd * sc[:, g:g + step]) + bi[:, g:g + step]).to(dtype)
+        if yr is None:
+            yr = y
+        else:
+            yr[:, g:g + step] = y
+        means.append(mean)
+        rstds.append(rstd)
+    return yr.flatten(1, 2), torch.cat(means, 1), torch.cat(rstds, 1), step
+
+
+def group_norm_flax_dx(xhat: torch.Tensor, gc: torch.Tensor, sc: torch.Tensor,
+                       rstd: torch.Tensor) -> torch.Tensor:
+    """The input gradient of group_norm_flax over one chunk of groups, fp32:
+    xhat the chunk's normalised input (B, groups, C/G, ...), gc its output
+    gradient in fp32, sc its scales and rstd its 1/std, broadcastable."""
+    red = tuple(range(2, xhat.dim()))
+    gs = gc * sc
+    m1 = gs.mean(dim=red, keepdim=True)
+    m2 = (gs * xhat).mean(dim=red, keepdim=True)
+    return (gs - m1 - xhat * m2) * rstd
+
+
 class _GroupNormFlax(torch.autograd.Function):
     """flax ``nn.GroupNorm`` forward and its exact gradient, GN_CHUNK_BYTES
     of groups at a time, saving only x and the per-(batch, group) fp32 mean
@@ -188,25 +232,10 @@ class _GroupNormFlax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups: int, dtype: torch.dtype):
-        B, C = x.shape[:2]
-        G = num_groups
-        xr = x.unflatten(1, (G, C // G))
-        red = tuple(range(2, xr.dim()))
-        cshape = (1, G, C // G) + (1,) * (x.dim() - 2)
-        sc, bi = scale.float().reshape(cshape), bias.float().reshape(cshape)
-        step = max(1, GN_CHUNK_BYTES // (4 * max(1, xr[:, :1].numel())))
-        outs, means, rstds = [], [], []
-        for g in range(0, G, step):
-            xc = xr[:, g:g + step].float()
-            mean = xc.mean(dim=red, keepdim=True)
-            var = ((xc * xc).mean(dim=red, keepdim=True) - mean * mean).clamp_min(0.0)
-            rstd = torch.rsqrt(var + 1e-5)
-            outs.append(((xc - mean) * (rstd * sc[:, g:g + step]) + bi[:, g:g + step]).to(dtype))
-            means.append(mean)
-            rstds.append(rstd)
-        ctx.save_for_backward(x, scale, torch.cat(means, 1), torch.cat(rstds, 1))
-        ctx.meta = (G, step, bias.dtype)
-        return (outs[0] if len(outs) == 1 else torch.cat(outs, 1)).flatten(1, 2)
+        y, mean, rstd, step = group_norm_flax_stats(x, scale, bias, num_groups, dtype)
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.meta = (num_groups, step, bias.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
@@ -225,10 +254,7 @@ class _GroupNormFlax(torch.autograd.Function):
             dbias.append(gc.sum(dim=per_channel))
             dscale.append((gc * xhat).sum(dim=per_channel))
             if ctx.needs_input_grad[0]:
-                gs = gc * sc[:, s]
-                m1 = gs.mean(dim=red, keepdim=True)
-                m2 = (gs * xhat).mean(dim=red, keepdim=True)
-                dxs.append(((gs - m1 - xhat * m2) * rstd[:, s]).to(x.dtype))
+                dxs.append(group_norm_flax_dx(xhat, gc, sc[:, s], rstd[:, s]).to(x.dtype))
         dx = None
         if dxs:
             dx = (dxs[0] if len(dxs) == 1 else torch.cat(dxs, 1)).flatten(1, 2)

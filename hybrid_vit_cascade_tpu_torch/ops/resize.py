@@ -46,9 +46,10 @@ def resize_trilinear(x: torch.Tensor, out_dhw: Sequence[int],
 class _LinearResize(torch.autograd.Function):
     """``F.interpolate``'s (bi/tri)linear resize of (N, 1, *spatial) forward;
     the backward is the transpose of the per-axis interpolation matrices,
-    one matmul an axis (JAX's resize is those matrices both ways). It adds
-    in a fixed order, so a training step gives the same bits from run to
-    run: ``F.interpolate``'s own CUDA backward adds with atomics."""
+    one matmul an axis (JAX's resize is those matrices both ways), over
+    RESIZE_CHUNK_BYTES of the gradient at a time. It adds in a fixed order,
+    so a training step gives the same bits from run to run:
+    ``F.interpolate``'s own CUDA backward adds with atomics."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, out_size: tuple, align_corners: bool) -> torch.Tensor:
@@ -58,11 +59,29 @@ class _LinearResize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        for axis, n_in in zip(range(2, g.dim()), ctx.in_size):
-            if g.shape[axis] != n_in:
-                mat = _resize_matrix_on(n_in, g.shape[axis], ctx.align_corners, g.device)
-                g = (g.movedim(axis, -1) @ mat.to(g.dtype)).movedim(-1, axis)
-        return g, None, None
+        step = max(1, RESIZE_CHUNK_BYTES // (g[:1].numel() * g.element_size()))
+        if step >= g.shape[0]:
+            return _resize_vjp(g, ctx.in_size, ctx.align_corners), None, None
+        dx = g.new_empty((g.shape[0], g.shape[1], *ctx.in_size))
+        for i in range(0, g.shape[0], step):
+            dx[i:i + step] = _resize_vjp(g[i:i + step], ctx.in_size, ctx.align_corners)
+        return dx, None, None
+
+
+# fp32 bytes of the output gradient the resize's backward contracts at once:
+# each axis's product copies its slab and makes a result of up to its size,
+# and the CNN decoders resize 128 channels to 256³ (8.6 GB in fp32)
+RESIZE_CHUNK_BYTES = 1 << 30
+
+
+def _resize_vjp(g: torch.Tensor, in_size: tuple, align_corners: bool) -> torch.Tensor:
+    """g (N, 1, *out) through the transposed interpolation matrices, one
+    matmul an axis."""
+    for axis, n_in in zip(range(2, g.dim()), in_size):
+        if g.shape[axis] != n_in:
+            mat = _resize_matrix_on(n_in, g.shape[axis], align_corners, g.device)
+            g = (g.movedim(axis, -1) @ mat.to(g.dtype)).movedim(-1, axis)
+    return g
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,11 +21,15 @@ runs the stage-3 conv chains densely (``stage3_slab_scan`` off, eval schedule
 ``--decoder-remat rdbs`` recomputes only its ResidualDenseBlocks, not each
 upsample stage around them, to set beside the decoders' nested form, and
 ``--channels-last`` lays its 3D conv weights out as ``channels_last_3d``
-(cuDNN then gives channels-last activations), to set beside NCDHW.
+(cuDNN then gives channels-last activations), to set beside NCDHW;
+``--no-loss-remat`` builds its ``Direct256Loss`` without the nets' recompute
+(the decoder keeps its own), to set beside the default.
 ``--profile`` runs
 one more step under ``torch.profiler`` and adds the device time of each
 kernel name; ``--memory`` profiles one more step's allocations and lists
 what is allocated at its peak, by the code that allocated it.
+A step that runs out of the card's memory ends the run with the
+allocator's numbers under ``out_of_memory`` (and exit code 1).
 Prints one JSON object (and writes it to ``--out`` if given). Needs a CUDA
 card; ``train_steps`` also runs on the CPU at a small config.
 """
@@ -38,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -120,7 +125,9 @@ def memory_peak(fn, dev: torch.device) -> Dict:
     frames; replay the card's allocations to the moment of the most memory
     allocated and group the blocks live then by ``_alloc_site``. 'before the
     step' is what was allocated when ``fn`` began and is still live (weights,
-    optimizer state, batch). (The allocator's own history recorder is not
+    optimizer state, batch). If ``fn`` runs out of memory, the peak is the
+    last allocation that succeeded, and ``out_of_memory`` holds oom_record's
+    numbers. (The allocator's own history recorder is not
     used: with Python or C++ stacks it made Function.apply fail inside a
     checkpoint's recompute, torch 2.11 on an H100.)"""
     from torch._C._profiler import _EventType
@@ -129,9 +136,13 @@ def memory_peak(fn, dev: torch.device) -> Dict:
     _sync(dev)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    oom = None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], profile_memory=True,
                  with_stack=True) as prof:
-        fn()
+        try:
+            fn()
+        except torch.cuda.OutOfMemoryError as e:
+            oom = oom_record(e, dev)
         _sync(dev)
     events = []  # (time, ptr, signed size, allocated after, site)
     stack = [(root, ()) for root in prof.profiler.kineto_results.experimental_event_tree()]
@@ -159,13 +170,32 @@ def memory_peak(fn, dev: torch.device) -> Dict:
         entry[1] += 1
         entry[2][size] = entry[2].get(size, 0) + 1
     top = sorted(sites.items(), key=lambda kv: -kv[1][0])[:TOP_SITES]
-    return {"peak_gb": events[peak_i][4] / 1e9 if events else None,
+    return {"out_of_memory": oom, "peak_gb": events[peak_i][4] / 1e9 if events else None,
             "max_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
             "before_gb": before / 1e9, "alloc_events": len(events), "peak_event": peak_i,
             "at_peak": [{"site": k, "gb": b / 1e9, "blocks": n,
                          "largest_blocks_gb": [[sz / 1e9, c] for sz, c in
                                                sorted(sizes.items(), reverse=True)[:3]]}
                         for k, (b, n, sizes) in top]}
+
+
+# the port's frames oom_record keeps of a failed call
+OOM_FRAMES = 6
+
+
+def oom_record(err: Exception, dev: torch.device) -> Dict:
+    """The allocator's numbers where a step ran out of memory: the error's
+    first line (the request, the card's capacity, what PyTorch held), the
+    allocated, peak and reserved GB then, and the port's innermost frames
+    of the failed call ("file:line function", innermost last)."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if "hybrid_vit_cascade_tpu_torch" in f.filename]
+    return {"error": str(err).strip().splitlines()[0],
+            "where": [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in frames[-OOM_FRAMES:]],
+            "allocated_gb": torch.cuda.memory_allocated(dev) / 1e9,
+            "max_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved(dev) / 1e9,
+            "card_gb": torch.cuda.get_device_properties(dev).total_memory / 1e9}
 
 
 def use_dense_stage3(model: nn.Module) -> None:
@@ -193,7 +223,7 @@ def use_channels_last(model: nn.Module) -> None:
 def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, steps: int,
                 generator: torch.Generator, train: bool = True,
                 loss_obj: Optional[MultiScaleLoss] = None, profile: bool = False,
-                memory: bool = False) -> Dict:
+                memory: bool = False, allow_oom: bool = False) -> Dict:
     """One warm-up step and ``steps`` timed steps of the cascade's stage
     ``stage``, of the diffusion ladder's stage ``stage`` (1-based), or
     (another family) its single-model step (``stage`` unread; ``loss_obj``
@@ -203,7 +233,9 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
     (warm-up first) and every metric of the step's (``metrics``, per step),
     peak memory (GB, CUDA only), kernel launches of the warm-up step, with ``profile`` the kernel profile of one more step and
     with ``memory`` (CUDA only) what is allocated at the peak of one more
-    step."""
+    step. With ``allow_oom``, a step that runs out of the card's memory ends
+    the run with ``out_of_memory`` (``oom_record``) in place of an error, and
+    ``memory`` then profiles one more step up to its failed allocation."""
     dev = next(model.parameters()).device
     xs = cfg.data.xray_size
     batch = {"drr_stacked": torch.rand((batch_size, 2, 1, xs, xs), generator=generator,
@@ -227,25 +259,33 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
     reset_launch_counts()
-    t0 = time.perf_counter()
-    state, metrics = step(state, batch, generator)  # warm-up
-    _sync(dev)
-    out = {"warmup_s": time.perf_counter() - t0, "launches_per_step": launch_counts(),
-           "total_loss": [float(metrics["total_loss"])], "step_ms": [],
-           "metrics": [{k: float(v) for k, v in metrics.items()}],
-           "trainable_params": sum(p.numel() for p in model.parameters() if p.requires_grad)}
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, generator)
-        _sync(dev)
-        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        out["total_loss"].append(float(metrics["total_loss"]))
-        out["metrics"].append({k: float(v) for k, v in metrics.items()})
-    if steps:
+    out = {"trainable_params": sum(p.numel() for p in model.parameters() if p.requires_grad),
+           "total_loss": [], "step_ms": [], "metrics": []}
+    try:
+        for i in range(1 + steps):  # a warm-up step, then the timed ones
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            _sync(dev)
+            if i == 0:
+                out.update(warmup_s=time.perf_counter() - t0, launches_per_step=launch_counts())
+            else:
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["total_loss"].append(float(metrics["total_loss"]))
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+    except torch.cuda.OutOfMemoryError as e:
+        if dev.type != "cuda" or not allow_oom:
+            raise
+        out["out_of_memory"] = oom_record(e, dev)
+    if out["step_ms"]:
         out["steps_per_sec"] = 1e3 / statistics.median(out["step_ms"])
     if dev.type == "cuda":
         out["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         out["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    if "out_of_memory" in out:
+        torch.cuda.empty_cache()
+        if memory:
+            out["memory"] = memory_peak(lambda: step(state, batch, generator), dev)
+        return out
     if profile:
         out["profile"] = kernel_profile(lambda: step(state, batch, generator), dev)
     if memory:
@@ -274,6 +314,8 @@ def main(argv=None) -> int:
                     help="a CNN decoder's recompute: stages and RDBs, or the RDBs alone")
     ap.add_argument("--channels-last", action="store_true",
                     help="a CNN decoder's 3D conv weights as channels_last_3d")
+    ap.add_argument("--no-loss-remat", action="store_true",
+                    help="a CNN decoder's Direct256Loss without its nets' recompute")
     ap.add_argument("--profile", action="store_true", help="profile one more step")
     ap.add_argument("--memory", action="store_true",
                     help="list what is allocated at the peak of one more step")
@@ -288,6 +330,8 @@ def main(argv=None) -> int:
     if cfg.model.family in ("cascade", "diffusion") and args.stage is None:
         sys.exit("measure: --stage is required for the cascade and the diffusion ladder")
     model = seeded_init_(build_model(cfg), args.seed).to(dev)
+    if args.no_loss_remat:  # read by single_model_step's loss; the model is built
+        cfg.model.use_gradient_checkpointing = False
     if args.stage3_schedule == "dense":
         use_dense_stage3(model)
     if args.decoder_remat == "rdbs":
@@ -298,18 +342,19 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(args.seed + 10 + (args.stage or 0))
     res = train_steps(model, cfg, args.stage, args.batch, args.steps, g,
                       train=not args.deterministic, loss_obj=loss_obj, profile=args.profile,
-                      memory=args.memory)
+                      memory=args.memory, allow_oom=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     res.update(stage=args.stage, batch=args.batch, train=not args.deterministic, card=card,
                stage3_schedule=args.stage3_schedule, decoder_remat=args.decoder_remat,
-               channels_last=args.channels_last, torch=torch.__version__)
+               channels_last=args.channels_last, loss_remat=not args.no_loss_remat,
+               torch=torch.__version__)
     text = json.dumps(res, indent=1)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(text)
     print(text)
-    return 0
+    return 1 if "out_of_memory" in res else 0
 
 
 if __name__ == "__main__":

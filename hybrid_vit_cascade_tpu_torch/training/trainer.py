@@ -274,7 +274,9 @@ def single_model_step(model: nn.Module, cfg, total_steps: int, learning_rate: fl
     over ``total_steps`` from ``learning_rate``; the loss against the batch's
     CT volume as it comes (the dataset holds it at the model's resolution):
     ``MultiScaleLoss`` with ``loss.stage1``'s weights at stage 1 for
-    ``direct_vit``, ``Direct256Loss()`` for the CNN decoders. Returns
+    ``direct_vit``, ``Direct256Loss`` for the CNN decoders (its nets' layers
+    recomputed in the backward with ``use_gradient_checkpointing``; their
+    step on cuDNN's deterministic algorithms). Returns
     (state, step)."""
     t = cfg.training
     opt = make_optimizer(model.parameters(), learning_rate, total_steps, t.weight_decay,
@@ -282,10 +284,29 @@ def single_model_step(model: nn.Module, cfg, total_steps: int, learning_rate: fl
     if cfg.model.family == "direct_vit":
         loss_obj = MultiScaleLoss({"stage1": cfg.loss.stage1}, vgg_weights=cfg.loss.vgg_weights)
         loss_fn = lambda pred, batch: loss_obj(pred, batch["ct_volume"], stage=1)  # noqa: E731
-    else:
-        d256 = Direct256Loss()
-        loss_fn = lambda pred, batch: d256(pred, batch["ct_volume"])  # noqa: E731
-    return TrainState(model, opt), make_train_step(model, loss_fn, train=train)
+        return TrainState(model, opt), make_train_step(model, loss_fn, train=train)
+    d256 = Direct256Loss(remat=cfg.model.use_gradient_checkpointing)
+    loss_fn = lambda pred, batch: d256(pred, batch["ct_volume"])  # noqa: E731
+    return TrainState(model, opt), _cudnn_deterministic(make_train_step(model, loss_fn,
+                                                                        train=train))
+
+
+def _cudnn_deterministic(step: Callable) -> Callable:
+    """``step`` with cuDNN held to its deterministic algorithms, the flag
+    restored after. The CNN decoders and their loss nets are cuDNN convs,
+    and with the flag off cuDNN's backward may add in a varying order: two
+    runs of the 128³ decoder's step then part from the second step on
+    (PERF.md §6); the JAX package's step repeats bitwise."""
+
+    def run(*args, **kwargs):
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return step(*args, **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+    return run
 
 
 def diffusion_trainable(stage_configs: Sequence[Dict], stage_idx: int,

@@ -28,14 +28,16 @@ from hybrid_vit_cascade_tpu.losses import direct256 as jd
 from hybrid_vit_cascade_tpu.losses.direct256 import Direct256Loss as JaxLoss
 from hybrid_vit_cascade_tpu.models import cnn_models as jcm
 from hybrid_vit_cascade_tpu.models import encoders as jenc
+from hybrid_vit_cascade_tpu.ops import resize as jres
 from hybrid_vit_cascade_tpu.training.checkpoint import shape_matched_transfer as jax_transfer
 from hybrid_vit_cascade_tpu_torch import cli, convert
 from hybrid_vit_cascade_tpu_torch.config import Config
 from hybrid_vit_cascade_tpu_torch.inference.infer import InferenceEngine, save_checkpoint
+from hybrid_vit_cascade_tpu_torch.losses import direct256 as d256
 from hybrid_vit_cascade_tpu_torch.losses.direct256 import Direct256Loss, get_loss_summary_string
 from hybrid_vit_cascade_tpu_torch.models import cnn_models as cm
 from hybrid_vit_cascade_tpu_torch.models import encoders as enc
-from hybrid_vit_cascade_tpu_torch.ops import conv3d
+from hybrid_vit_cascade_tpu_torch.ops import conv3d, resize
 from hybrid_vit_cascade_tpu_torch.training import trainer as trainer_mod
 from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry, shape_matched_transfer
 from tests.test_torch_models import jax_variables, random_variables
@@ -124,6 +126,38 @@ def test_depth_modulated_broadcast_matches_jax(rng, modulate, dtype):
     assert got.shape == (2, 5, 16, 16, 16) and got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(), _to_ncdhw(want.astype(jnp.float32)),
                                **(TOL if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)))
+
+
+@pytest.mark.parametrize("scale,slabs", [(2, 1), (8, 3)])
+def test_upsample_vjp_matches_jax(rng, monkeypatch, scale, slabs):
+    """The decoders' trilinear ×scale upsample and its VJP, fp32, against
+    JAX's ``resize_trilinear`` (the JAX decoders' resize) and its VJP; the
+    backward in ``slabs`` slabs of the gradient (RESIZE_CHUNK_BYTES cut)."""
+    x = rng.standard_normal((2, 3, 4, 3, 5)).astype(np.float32)
+    size = tuple(scale * n for n in x.shape[2:])
+    g = rng.standard_normal((2, 3, *size)).astype(np.float32)
+    monkeypatch.setattr(resize, "RESIZE_CHUNK_BYTES", 4 * int(np.prod(size)) * (6 // slabs))
+    want, vjp = jax.vjp(lambda a: jres.resize_trilinear(a, size, align_corners=False),
+                        jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    got = cm._upsample(xt, scale, torch.float32)
+    got.backward(_t(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+
+
+@pytest.mark.parametrize("modulate", [True, False])
+def test_depth_modulated_broadcast_vjp_matches_jax(rng, modulate):
+    """``depth_modulated_broadcast``'s VJP (its bilinear resize, then the
+    broadcast along depth), fp32, against JAX's."""
+    f = rng.standard_normal((2, 5, 6, 6)).astype(np.float32)
+    g = rng.standard_normal((2, 5, 16, 16, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jcm.depth_modulated_broadcast(a, 16, modulate),
+                     jnp.asarray(np.moveaxis(f, 1, -1)))
+    want = np.moveaxis(np.asarray(vjp(_cl(g))[0]), -1, 1)
+    ft = _t(f).requires_grad_(True)
+    cm.depth_modulated_broadcast(ft, 16, modulate).backward(_t(g))
+    np.testing.assert_allclose(ft.grad.numpy(), want, **TOL)
 
 
 # ------------------------------------------------------- decoders, full size ---
@@ -319,6 +353,45 @@ def test_direct256_loss_matches_jax(losses, rng, shape):
     assert line.startswith("Loss: ") and line.count("|") == 7
 
 
+# the even shape of test_direct256_loss_matches_jax only: the odd one's
+# values are held there, and each shape costs one more compile of JAX's
+# gradient of the whole loss
+@pytest.mark.parametrize("shape", [(2, 1, 16, 16, 16)])
+def test_direct256_loss_grad_matches_jax(losses, rng, monkeypatch, shape):
+    """The total loss's gradient with respect to the prediction (the focal
+    loss's rfft half-spectrum branch, a batch of two) against ``jax.grad``
+    of JAX's loss, with the nets' layers recomputed in the backward
+    (``remat``) and without: the two bitwise equal, with the GroupNorms in
+    one chunk of groups and in chunks of two; and with ``remat`` the convs
+    cut into parts of 5 output channels, as a 256³ map of 128 channels is
+    (CONV_OUT_LIMIT)."""
+    jl, tl = losses
+    target = rng.uniform(-1, 1, shape).astype(np.float32)
+    pred = (0.7 * target + 0.3 * rng.standard_normal(shape)).astype(np.float32)
+    want = np.asarray(jax.jit(jax.grad(lambda a, b: jl(a, b)["total_loss"]))(
+        jnp.asarray(pred), jnp.asarray(target)))
+    for chunk in (conv3d.GN_CHUNK_BYTES, 2 * 4 * int(np.prod(shape)) * 4):
+        monkeypatch.setattr(conv3d, "GN_CHUNK_BYTES", chunk)
+        grads = []
+        for remat in (False, True):
+            p = _t(pred).requires_grad_(True)
+            whole = Direct256Loss(weights=tl._nets, remat=remat)(p, _t(target))
+            whole["total_loss"].backward()
+            grads.append(p.grad)
+        assert torch.equal(grads[0], grads[1]), chunk
+        np.testing.assert_allclose(grads[1].numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(want).max()))
+    monkeypatch.setattr(d256, "CONV_OUT_LIMIT", 5 * int(np.prod(shape)))
+    p = _t(pred).requires_grad_(True)
+    loss = Direct256Loss(weights=tl._nets, remat=True)(p, _t(target))
+    loss["total_loss"].backward()
+    np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(want).max()))
+    for k, v in whole.items():
+        np.testing.assert_allclose(float(loss[k].detach()), float(v.detach()), **LOSS_TOL,
+                                   err_msg=k)
+
+
 def test_direct256_loss_fallback(losses, rng):
     """A non-finite total falls back to L1 + SSIM + TV in both packages."""
     jl, tl = losses
@@ -400,18 +473,27 @@ def test_cli_transfer_decoder(tmp_path, capsys):
 
 
 def test_remat_changes_no_value(rng):
-    """With remat the stages and every RDB recompute in the backward: the
-    loss and every gradient are the ones without it."""
+    """With remat the stages and every RDB recompute in the backward, and
+    the 256³ decoders' top scale (the H200's fusion, the B200's last
+    upsample stage with the fusion after it; each skip projection, the
+    concat's 1×1 fusion, the head) in regions of its own: the loss and every
+    gradient are the ones without it. (The B200 decoder, at full width, from
+    a 1³ seed: a 16³ output.)"""
     xr = torch.from_numpy(rng.uniform(-1, 1, (1, 2, 1, 32, 32)).astype(np.float32))
-    grads = []
-    for remat in (False, True):
-        torch.manual_seed(0)
-        model = _small_seed(cm.Direct128ModelH200(8, num_rdb=1, remat=remat))
-        model(xr, train=True).square().mean().backward()
-        grads.append({n: p.grad for n, p in model.named_parameters()})
-    assert sorted(grads[0]) == sorted(grads[1])
-    for n, g in grads[0].items():
-        torch.testing.assert_close(grads[1][n], g, rtol=1e-5, atol=1e-7, msg=n)
+    for make, edge in ((lambda remat: cm.Direct128ModelH200(8, num_rdb=1, remat=remat), 2),
+                       (lambda remat: cm.Direct256ModelH200(8, num_rdb=1, remat=remat), 2),
+                       (lambda remat: cm.Direct256ModelB200(remat=remat), 1)):
+        losses, grads = [], []
+        for remat in (False, True):
+            torch.manual_seed(0)
+            model = _small_seed(make(remat), edge)
+            loss = model(xr, train=True).square().mean()
+            loss.backward()
+            losses.append(loss.detach())
+            grads.append({n: p.grad for n, p in model.named_parameters()})
+        assert sorted(grads[0]) == sorted(grads[1]) and torch.equal(*losses)
+        for n, g in grads[0].items():
+            torch.testing.assert_close(grads[1][n], g, rtol=1e-5, atol=1e-7, msg=n)
 
 
 @pytest.mark.slow

@@ -723,6 +723,50 @@ def test_dgrad_s2_tensor_cores_chain(dev, shape):
     _dgrad_s2_check(shape, dev, dense=False)
 
 
+# The token stems of configs/progressive_h200.json (voxel_dim 512: in → 128 →
+# 256 → 512, Cout tiled by 64 on C/I's tensor cores), each at its stage's
+# batch with D cut to 8 planes and the widths and H, W kept: stage 3 from
+# 256³ (batch 2), stage 2 from 128³ (batch 4), stage 1's 1→128 from 64³
+# (batch 8, whose dx takes F's CUDA cores: the one-dx-channel instance stops
+# at Cout 64). (B, Cin, Cout, D, H, W)
+H200_STEM = [(2, 32, 128, 8, 256, 256), (2, 128, 256, 8, 128, 128), (2, 256, 512, 8, 64, 64),
+             (4, 32, 128, 8, 128, 128), (4, 128, 256, 8, 64, 64), (4, 256, 512, 8, 32, 32),
+             (8, 1, 128, 8, 64, 64)]
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("shape", H200_STEM)
+def test_h200_stem_s2_matches_plain(dev, shape, dense):
+    """C, F and G (``dense``) or I, J and K (the chain call from slab plane
+    0 over D + 1 planes, Σ/Σ² and the gelu prologue) at the h200 stems'
+    widths in bf16, each on the instance its rule names, against its plain
+    version (the tolerances of the main-path tests above)."""
+    b, cin, cout, d, h, w_ = shape
+    if cin == 1 and not dense:
+        pytest.skip("the 1→128 stem runs dense only")
+    nv, qlo, sums, act = (d, 1, False, None) if dense else (d + 1, 0, True, "gelu")
+    _conv_s2_check((b, cin, cout, nv, h, w_, qlo, d // 2, sums, act), dev, dense)
+    dt = torch.bfloat16
+    x = _randn((b, cin, nv, h, w_), dt, dev, 73)
+    w = (_randn((cout, cin, 3, 3, 3), torch.float32, dev, 74) / (27 * cin) ** 0.5).to(dt)
+    g = _randn((b, cout, d // 2, h // 2, w_ // 2), dt, dev, 75)
+    tc = "conv3d_k3s2_dgrad_tc" if dense else "conv3d_k3s2_chain_dgrad_tc"
+    before = LAUNCHES[tc]
+    dx = conv3d_k3_dgrad(g, w, x, 2, qlo, act, dense=dense)
+    on_tc = dgrad_s2_instance(dt, cin, cout, act is not None) == DGRAD_S2_TC
+    assert LAUNCHES[tc] == before + on_tc
+    want = conv3d_k3_dgrad_plain(g, w, x, 2, qlo, act)
+    _close(dx, want, dt, tol={dt: (2e-2 * max(1.0, float(want.float().abs().max())), 2e-2)})
+    counter = {WGRAD_TC: "conv3d_k3s2_wgrad_tc", WGRAD_C1IN_S2_TC: "conv3d_k3s2_wgrad_c1in_tc"}[
+        wgrad_instance(dt, 2, cin)]
+    before = LAUNCHES[counter]
+    dw = conv3d_k3_wgrad(x, g, 2, qlo, act, dense=dense)
+    assert LAUNCHES[counter] == before + 1
+    want = conv3d_k3_wgrad_plain(x, g, 2, qlo, act)
+    err = (dw - want).abs()
+    assert bool((err <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all()), float(err.max())
+
+
 def test_dgrad_s2_tc_rule_matches_c(dev):
     """The C dispatch's rule (``hvc_conv3d_k3s2_dgrad_tc``, which the
     wrapper counts launches on either tensor-core instance by) is
