@@ -278,6 +278,17 @@ expected FloatingPointError:
    finite losses, peak memory, launches per step by letter, every flash
    forward and backward and every call the rules send to a tensor-core
    instance taken there.
+20. A JAX run converted by the Orbax reader's port-side half and resumed
+   (``orbax_resume_phase``): on the CPU, the full-width
+   ``progressive_cascade.json`` at stage 2 written as ``convert_orbax.py``
+   writes it (the seeded weights in the JAX layout, converting back bitwise;
+   seeded moments over stage2 + xray_encoder through ``convert.adamw_state``;
+   ``latest`` and ``latest_opt`` by ``write_entry``); on the card the
+   Trainer's resume into ``stage_step``'s state and one stage-2 step at
+   batch 2. Checks: the epoch, step, schedule step and learning rate
+   resumed; every group still fused; the step finite, launching what [9]'s
+   stage-2 step launches, and bitwise the step from the same state loaded
+   into a card optimizer by hand; the step's ms printed.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -297,7 +308,8 @@ one that takes L and M), the probe run of [12] (the only one that takes N),
 the serving commands of [13], [14]'s direct_vit reconstruct, first train
 step and entry points, [15]'s first train steps, samplers and cli train,
 [16]'s two served calls, [17]'s cli train, [18]'s cli train under
-torchrun and [19]'s reconstruct and first stage steps; the rows of A and D also carry, under ``direct_vit``, their time,
+torchrun, [19]'s reconstruct and first stage steps and [20]'s resumed
+step; the rows of A and D also carry, under ``direct_vit``, their time,
 plain time, bound and library time at the direct model's attention shape
 and their launches in [14], and the rows of A, C, D, F and G under
 ``diffusion`` the same at each DIFFUSION_AT shape and their launches in
@@ -3599,6 +3611,269 @@ def h200_phase(dev, seed: int) -> dict:
     return rec
 
 
+# ------------------------------------------ a converted JAX run resumed [20] ---
+
+ORBAX_EPOCH = 3  # the converted entry's epoch: the resume starts at epoch 4
+ORBAX_COUNT = 7  # optax's Adam and schedule counts, and the trainer's step
+ORBAX_STEPS_PER_EPOCH = 10  # the schedule's length: 10 × stage 2's epochs
+
+
+def _flax_dense(sd: dict, prefix: str) -> dict:
+    out = {"kernel": sd[prefix + "weight"].T.numpy()}
+    if prefix + "bias" in sd:
+        out["bias"] = sd[prefix + "bias"].numpy()
+    return out
+
+
+def _flax_norm(sd: dict, prefix: str) -> dict:
+    return {"scale": sd[prefix + "weight"].numpy(), "bias": sd[prefix + "bias"].numpy()}
+
+
+def _flax_conv(sd: dict, prefix: str) -> dict:
+    w = sd[prefix + "weight"]  # (O, I, k…) → flax's (k…, I, O)
+    return {"kernel": w.permute(*range(2, w.dim()), 1, 0).numpy(), "bias": sd[prefix + "bias"].numpy()}
+
+
+def _ncdhw_conv(sd: dict, prefix: str) -> dict:
+    return {"kernel": sd[prefix + "weight"].numpy(), "bias": sd[prefix + "bias"].numpy()}
+
+
+def _jax_encoder(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """MultiScaleXrayEncoder's (params, batch_stats) in the JAX layout."""
+    enc = prefix + "xray_encoder."
+    params = {f"Conv_{i}": _flax_conv(sd, f"{enc}conv{i + 1}.") for i in range(3)}
+    params.update({f"BatchNorm_{i}": _flax_norm(sd, f"{enc}bn{i + 1}.") for i in range(3)})
+    params.update(to_cond=_flax_dense(sd, enc + "to_cond."), Dense_0=_flax_dense(sd, enc + "time1."),
+                  Dense_1=_flax_dense(sd, enc + "time2."))
+    stats = {f"BatchNorm_{i}": {"mean": sd[f"{enc}bn{i + 1}.running_mean"].numpy(),
+                                "var": sd[f"{enc}bn{i + 1}.running_var"].numpy()} for i in range(3)}
+    out = {"xray_encoder": params}
+    branches = sorted({k[len(prefix + "down."):].split(".")[0] for k in sd
+                       if k.startswith(prefix + "down.")})
+    for i, name in enumerate(branches):
+        out[f"{name}_conv"] = _flax_conv(sd, f"{prefix}down.{name}.conv.")
+        out[f"GroupNorm_{i}"] = _flax_norm(sd, f"{prefix}down.{name}.norm.")
+    return out, {"xray_encoder": stats}
+
+
+def _jax_vit(sd: dict, prefix: str, ncdhw: bool) -> dict:
+    """HybridViT3D's params in the JAX layout: its stem feature-first
+    (ConvNCDHW_i / GroupNormNCDHW_i) or channels-last (Conv_i / GroupNorm_i)."""
+    conv, gn, to_jax = (("ConvNCDHW", "GroupNormNCDHW", _ncdhw_conv) if ncdhw
+                        else ("Conv", "GroupNorm", _flax_conv))
+    n_conv = len({k.split(".")[0] for k in (k[len(prefix + "stem_convs."):] for k in sd
+                                             if k.startswith(prefix + "stem_convs."))})
+    out = {}
+    for i in range(n_conv):
+        out[f"{conv}_{i}"] = to_jax(sd, f"{prefix}stem_convs.{i}.")
+        out[f"{gn}_{i}"] = _flax_norm(sd, f"{prefix}stem_norms.{i}.")
+    if prefix + "proj.weight" in sd:
+        out[f"{conv}_{n_conv}"] = to_jax(sd, prefix + "proj.")
+    out["pos_embed"] = sd[prefix + "pos_embed"].numpy()
+    blocks = sorted({int(k[len(prefix + "blocks."):].split(".")[0]) for k in sd
+                     if k.startswith(prefix + "blocks.")})
+    for i in blocks:
+        b = f"{prefix}blocks.{i}."
+        out[f"HybridViTBlock3D_{i}"] = {
+            "AdaLNModulation_0": {"Dense_0": _flax_dense(sd, b + "adaln.linear.")},
+            **{f"LayerNorm_{j}": _flax_norm(sd, f"{b}norm{j + 1}.") for j in range(3)},
+            "MultiHeadSelfAttention_0": {"Dense_0": _flax_dense(sd, b + "self_attn.qkv."),
+                                         "Dense_1": _flax_dense(sd, b + "self_attn.proj.")},
+            "MultiHeadCrossAttention_0": {"q": _flax_dense(sd, b + "cross_attn.q."),
+                                          "kv": _flax_dense(sd, b + "cross_attn.kv."),
+                                          "Dense_0": _flax_dense(sd, b + "cross_attn.proj.")},
+            "Mlp_0": {"Dense_0": _flax_dense(sd, b + "mlp.fc1."),
+                      "Dense_1": _flax_dense(sd, b + "mlp.fc2.")}}
+    out["LayerNorm_0"] = _flax_norm(sd, prefix + "norm.")
+    out["Dense_0"] = _flax_dense(sd, prefix + "head.")
+    return out
+
+
+def cascade_jax_layout(sd: dict) -> dict:
+    """A cascade's port state dict as the JAX package's ``{"params",
+    "batch_stats"}`` numpy tree: what ``convert.cascade`` reads, so that it
+    gives ``sd`` back (phase [20] holds it to that, bitwise). The card's
+    machine has no JAX: this stands in for a JAX run's restored entry."""
+    s1_enc, s1_stats = _jax_encoder(sd, "stage1.xray_encoder.")
+    params = {"stage1": {"initial_volume": sd["stage1.initial_volume"].permute(0, 2, 3, 4, 1).numpy(),
+                         "xray_encoder": s1_enc,
+                         "vit_backbone": _jax_vit(sd, "stage1.vit_backbone.", ncdhw=False)}}
+    stats = {"stage1": {"xray_encoder": s1_stats}}
+    if any(k.startswith("xray_encoder.") for k in sd):
+        params["xray_encoder"], stats["xray_encoder"] = _jax_encoder(sd, "xray_encoder.")
+    if "stage2.residual_weight" in sd:
+        params["stage2"] = {
+            "residual_weight": sd["stage2.residual_weight"].numpy(),
+            "upsample_from_64": {
+                "ConvNCDHW_0": _ncdhw_conv(sd, "stage2.upsample_from_64.conv."),
+                "GroupNormNCDHW_0": _flax_norm(sd, "stage2.upsample_from_64.norm.")},
+            "vit_refiner": _jax_vit(sd, "stage2.vit_refiner.", ncdhw=True)}
+    if "stage3.residual_weight" in sd:
+        trunk = {k[len("stage3.vit_trunk."):]: v.numpy() for k, v in sd.items()
+                 if k.startswith("stage3.vit_trunk.")
+                 and not k.startswith("stage3.vit_trunk.vit_refiner.")}
+        params["stage3"] = {
+            "residual_weight": sd["stage3.residual_weight"].numpy(),
+            "detail_weight": sd["stage3.detail_weight"].numpy(),
+            "vit_trunk": {**trunk, "vit_refiner": _jax_vit(sd, "stage3.vit_trunk.vit_refiner.",
+                                                           ncdhw=True)},
+            "detail_enhancer": {k[len("stage3.detail_enhancer."):]: v.numpy()
+                                for k, v in sd.items() if k.startswith("stage3.detail_enhancer.")}}
+    return {"params": params, "batch_stats": stats}
+
+
+def _seeded_moments(tree: dict, trainable, g: torch.Generator, square: bool) -> dict:
+    """optax-shaped moments over ``tree``: seeded values at the leaves of the
+    top-level subtrees named by ``trainable``, None (optax's MaskedNode) at
+    every other."""
+    def fill(sub, train):
+        if isinstance(sub, dict):
+            return {k: fill(v, train) for k, v in sub.items()}
+        if not train:
+            return None
+        x = 1e-3 * torch.randn(tuple(sub.shape), generator=g)
+        return (x * x if square else x).numpy()
+
+    return {k: fill(v, any(k.startswith(p) for p in trainable)) for k, v in tree.items()}
+
+
+def orbax_resume_phase(dev, seed: int, stage2_launches: dict) -> dict:
+    """Phase 20: a converted JAX run resumed on the card. On the CPU, the
+    full-width ``progressive_cascade.json`` at stage 2 (stage2 + xray_encoder
+    trained) as the Orbax reader writes it: the seeded weights in the JAX
+    layout (``cascade_jax_layout``, checked to convert back bitwise),
+    seeded moments over the trainable leaves with optax's counts at
+    ORBAX_COUNT through ``convert.adamw_state``, ``latest`` and
+    ``latest_opt`` written by ``write_entry``. On the card, the Trainer's
+    resume (``_restore_state``, as ``fit_cascade`` calls it) into
+    ``stage_step``'s state, which must start at ORBAX_EPOCH + 1 with every
+    group still fused, and one stage-2 step at batch 2: finite, launching
+    what [9]'s stage-2 step launches, and bitwise the same step from the same
+    state loaded into a card optimizer by hand."""
+    from hybrid_vit_cascade_tpu_torch import convert
+    from hybrid_vit_cascade_tpu_torch.config import Config, data_volume_size
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.losses.multiscale import MultiScaleLoss
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training.checkpoint import CheckpointManager, write_entry
+    from hybrid_vit_cascade_tpu_torch.training.schedules import (
+        apply_stage_freeze,
+        cosine_schedule,
+        make_optimizer,
+    )
+    from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer, cascade_trainable, stage_step
+
+    t_phase = time.perf_counter()
+    cfg = Config.from_json(str(CONFIG))
+    run = BUILD_DIR / "orbax_resume"
+    shutil.rmtree(run, ignore_errors=True)
+    cfg.checkpoints.save_dir = str(run)
+    cfg.data.synthetic, cfg.data.synthetic_patients = True, 2
+    t, sc = cfg.training, cfg.training.stages["stage2"]
+    total = ORBAX_STEPS_PER_EPOCH * sc.num_epochs
+
+    # 20a the converted entry, on the CPU
+    model = seeded_init_(build_model(cfg), seed)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tree = cascade_jax_layout(sd)
+    back = convert.cascade(tree)
+    differ = [k for k in sd if k not in back or not torch.equal(back[k], sd[k])]
+    if sorted(back) != sorted(sd) or differ:
+        raise AssertionError(f"[20] the JAX layout does not convert back: {differ[:5]} "
+                             f"{sorted(set(back) ^ set(sd))[:5]}")
+    trainable = cascade_trainable(2, t.freeze_shared_encoder_stage3)
+    g = torch.Generator().manual_seed(seed + 20)
+    mu = _seeded_moments(tree["params"], trainable, g, square=False)
+    nu = _seeded_moments(tree["params"], trainable, g, square=True)
+    opt = make_optimizer(apply_stage_freeze(model, trainable), sc.learning_rate, total,
+                         t.weight_decay, t.gradient_clip)
+    state = convert.adamw_state("cascade", tree, mu, nu, ORBAX_COUNT, ORBAX_COUNT, ORBAX_COUNT,
+                                model, opt)
+    meta = {"epoch": ORBAX_EPOCH, "metrics": {"loss": 1.0, "psnr": 10.0, "ssim": 0.1},
+            "config": cfg.to_dict()}
+    write_entry(run / "stage2" / "latest", {"state_dict": sd}, meta)
+    write_entry(run / "stage2" / "latest_opt", state, meta)
+    n_trained = sum(p.numel() for p in opt.param_groups[0]["params"])
+    convert_s = time.perf_counter() - t_phase
+    del model, opt, tree, back, mu, nu
+    log(f"[20] converted entry on the CPU: {len(sd)} tensors, {n_trained / 1e6:.1f} M trained "
+        f"parameters with their moments, counts {ORBAX_COUNT}, in {convert_s:.1f} s")
+
+    # 20b the Trainer's resume on the card, and the same state loaded by hand
+    loss_obj = MultiScaleLoss({f"stage{n}": getattr(cfg.loss, f"stage{n}") for n in (1, 2, 3)})
+    trainer = Trainer(cfg, device=dev)
+    tstate, tstep = stage_step(trainer.model, cfg, 2, loss_obj, ORBAX_STEPS_PER_EPOCH)
+    start = trainer._restore_state(CheckpointManager(str(run / "stage2")), tstate)
+    groups = tstate.optimizer.param_groups
+    flags = [(gr["fused"], gr["foreach"]) for gr in groups]
+    lr = cosine_schedule(sc.learning_rate, total)(ORBAX_COUNT)
+    if (start != ORBAX_EPOCH + 1 or tstate.step != ORBAX_COUNT
+            or any(gr["schedule_step"] != ORBAX_COUNT or gr["lr"] != lr for gr in groups)):
+        raise AssertionError(f"[20] resumed at epoch {start}, step {tstate.step}, groups "
+                             f"{[(gr['schedule_step'], gr['lr']) for gr in groups]}; expected "
+                             f"{ORBAX_EPOCH + 1}, {ORBAX_COUNT}, ({ORBAX_COUNT}, {lr})")
+    if not all(f is True for f, _ in flags):
+        raise AssertionError(f"[20] the resumed optimizer is not fused: (fused, foreach) {flags}")
+    ref = build_model(cfg).to(dev)
+    ref.load_state_dict(sd)
+    rstate, rstep = stage_step(ref, cfg, 2, loss_obj, ORBAX_STEPS_PER_EPOCH)
+    saved = state["optimizer"]["state"]
+    ropt = rstate.optimizer
+    for i, p in enumerate(p for gr in ropt.param_groups for p in gr["params"]):
+        ropt.state[p] = {"step": torch.tensor(float(ORBAX_COUNT), device=dev),
+                         "exp_avg": saved[i]["exp_avg"].to(dev),
+                         "exp_avg_sq": saved[i]["exp_avg_sq"].to(dev)}
+    for gr in ropt.param_groups:
+        gr["schedule_step"], gr["lr"] = ORBAX_COUNT, lr
+    rstate.step = ORBAX_COUNT
+    if not all(gr["fused"] for gr in ropt.param_groups):
+        raise AssertionError("[20] the card optimizer built by hand is not fused")
+
+    xs, b = cfg.data.xray_size, TRAIN_BATCH[2]
+    gb = torch.Generator(device=dev).manual_seed(seed + 21)
+    batch = {"drr_stacked": torch.rand((b, 2, 1, xs, xs), generator=gb, device=dev) * 2 - 1,
+             "ct_volume": torch.rand((b, 1, *data_volume_size(cfg)), generator=gb,
+                                     device=dev) * 2 - 1}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with rule_calls() as rc:
+        t0 = time.perf_counter()
+        tstate, tm = tstep(tstate, batch, torch.Generator(device=dev).manual_seed(seed + 22))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    launched = launch_counts()
+    rstate, rm = rstep(rstate, batch, torch.Generator(device=dev).manual_seed(seed + 22))
+    torch.cuda.synchronize()
+    loss = float(tm["total_loss"])
+    n_state, worst = _tensors_differing(trainer.model.state_dict(), ref.state_dict())
+    topt = tstate.optimizer.state_dict()["state"]
+    ropt_sd = ropt.state_dict()["state"]
+    n_opt = sum(not torch.equal(topt[i][k], ropt_sd[i][k]) for i in topt for k in topt[i])
+    log(f"[20] resumed at epoch {start}, step {ORBAX_COUNT}, lr {lr:.6g}, (fused, foreach) "
+        f"{sorted(set(flags))}; one stage-2 step ({cfg.model.stage_sizes[1]}³, batch {b}): "
+        f"{step_ms:.1f} ms, total_loss "
+        f"{loss:.5f} against {float(rm['total_loss']):.5f} by hand; {n_state} of "
+        f"{len(ref.state_dict())} state tensors and {n_opt} optimizer tensors differ "
+        f"(max |diff| {worst:.3e}); launches {({k: v for k, v in launched.items() if v})}")
+    if not math.isfinite(loss) or loss != float(rm["total_loss"]) or n_state or n_opt:
+        raise AssertionError("[20] the resumed step is not the step from the state loaded by hand")
+    if launched != stage2_launches:
+        raise AssertionError(f"[20] the resumed step launched {launched}, [9]'s stage-2 step "
+                             f"{stage2_launches}")
+    want = {k: rc.n[k] for k in _RULE_COUNTERS}
+    if (not launched["flash_attention"] or not launched["flash_attention_bwd"]
+            or any(launched[k] != want[k] for k in _RULE_COUNTERS)):
+        raise AssertionError(f"[20] launches {launched} miss A, D or the rules' instances {want}")
+    del trainer, ref, tstate, rstate
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[20] phase {phase_s:.1f} s")
+    return {"step_ms": step_ms, "total_loss": loss, "launches": launched, "flags": flags,
+            "start_epoch": start, "convert_s": convert_s, "phase_s": phase_s,
+            "trained_params": n_trained, "lr": lr}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -3839,13 +4114,18 @@ def main() -> int:
     record["h200"] = h200_phase(dev, args.seed)
     rows.update(record["h200"].pop("rows"))
 
+    # 20. a converted JAX run resumed on the card
+    torch.cuda.empty_cache()
+    record["orbax_resume"] = orbax_resume_phase(dev, args.seed,
+                                                record["train"]["stage2"]["launches_per_step"])
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
     # serving commands of [13], [14]'s direct_vit reconstruct, first train
     # step and entry points, [15]'s first train steps, samplers and cli
     # train, [16]'s served calls, [17]'s cli train, [18]'s cli train under
-    # torchrun and [19]'s reconstruct and first step of each stage, each
-    # counted from 0
+    # torchrun, [19]'s reconstruct and first step of each stage and [20]'s
+    # resumed step, each counted from 0
     direct, diffusion = record["direct"], record["diffusion"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
@@ -3866,7 +4146,8 @@ def main() -> int:
               "parallel_cli": record["parallel"]["launches"],
               "h200_reconstruct": record["h200"]["reconstruct"]["launches"],
               **{f"h200_train_s{n}": record["h200"][f"stage{n}"]["launches_per_step"]
-                 for n in (1, 2, 3)}}
+                 for n in (1, 2, 3)},
+              "orbax_resume": record["orbax_resume"]["launches"]}
     by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():

@@ -15,12 +15,17 @@ loss's VGG variables, ``diagnostic_nets`` the diagnostic suite's three frozen
 nets, ``direct256_nets`` the CNN decoders' loss nets. The CNN decoders and
 the diffusion family's depth lifter keep flax's module names, so
 ``flax_tree`` converts them by walking the tree.
+
+The Orbax reader (``convert_orbax.py``, which runs where JAX is) calls
+``variables``, the converter of a checkpoint's family, and
+``adamw_state``, which puts optax's AdamW moments and counts through the
+same converter into an ``Optimizer.state_dict()``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -270,3 +275,132 @@ def diffusion(variables: Mapping) -> StateDict:
             sd.update(vit3d(rest.pop("vit_backbone"), f"{name}.vit_backbone."))
             sd.update(flax_tree(rest, f"{name}."))
     return sd
+
+
+FAMILIES = {"cascade": cascade, "direct_vit": direct_regression,
+            "direct128_h200": cnn_decoder, "direct256_h200": cnn_decoder,
+            "direct256_b200": cnn_decoder, "diffusion": diffusion}
+
+
+def variables(family: str, tree: Mapping) -> StateDict:
+    """The converter of model family ``family`` (a checkpoint's
+    ``config.model.family``) applied to its variables tree."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown model family {family!r}; the converters cover "
+                         f"{sorted(FAMILIES)}")
+    return FAMILIES[family](tree)
+
+
+def _leaves(tree: Mapping, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _with_leaves(tree: Mapping, fn, prefix: tuple = ()) -> dict:
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``."""
+    return {k: (_with_leaves(v, fn, prefix + (k,)) if isinstance(v, Mapping)
+                else fn(prefix + (k,), v)) for k, v in tree.items()}
+
+
+def leaf_sources(family: str, tree: Mapping) -> Dict[str, tuple]:
+    """For each entry of ``variables(family, tree)``, the path of the one
+    leaf of ``tree["params"]`` or ``tree["batch_stats"]`` it is made from.
+    Checks what the moments' conversion rests on: that the family's
+    converter moves every leaf by a copy, a transpose or a permutation and
+    nothing else (no sum, no scale, no mix of two leaves), so that it maps
+    optax's ``mu`` and ``nu`` exactly as it maps the parameters. Two probes
+    go through the converter: each leaf filled with its own index (which
+    entry comes from which leaf), and each leaf holding 0, 1, … in its own
+    order (each entry must hold exactly those values, once each)."""
+    shapes = {p: np.shape(v) for col in ("params", "batch_stats") if col in tree
+              for p, v in _leaves(tree[col], (col,))}
+    paths = list(shapes)
+    index = {p: i for i, p in enumerate(paths)}
+
+    def probe(fill):
+        return variables(family, {col: _with_leaves(tree[col], fill, (col,))
+                                  for col in ("params", "batch_stats") if col in tree})
+
+    ids = probe(lambda p, _: np.full(shapes[p], index[p], np.float32))
+    order = probe(lambda p, _: np.arange(int(np.prod(shapes[p])), dtype=np.float32)
+                  .reshape(shapes[p]))
+    out = {}
+    for name, t in ids.items():
+        if not t.is_floating_point():  # num_batches_tracked: made, not converted
+            continue
+        src = int(t.flatten()[0]) if t.numel() else -1
+        if t.numel() == 0 or not bool((t == src).all()):
+            raise AssertionError(f"convert.{FAMILIES[family].__name__}: {name} mixes leaves")
+        n = int(np.prod(shapes[paths[src]]))
+        got = order[name].flatten()
+        if t.numel() != n or float(got.min()) < 0 or not torch.equal(got, got.round()) \
+                or not bool((torch.bincount(got.long(), minlength=n) == 1).all()):
+            raise AssertionError(f"convert.{FAMILIES[family].__name__}: {name} is not a "
+                                 f"permutation of {'/'.join(paths[src])}")
+        out[name] = paths[src]
+    return out
+
+
+def adamw_state(family: str, tree: Mapping, mu: Mapping, nu: Mapping, adam_count: int,
+                schedule_count: int, step: int, model: torch.nn.Module,
+                optimizer: torch.optim.Optimizer) -> dict:
+    """optax's AdamW state → ``{"optimizer": Optimizer.state_dict(), "step":
+    step}``, the port's ``latest_opt`` entry.
+
+    ``tree`` is the model's variables (the JAX layout, as for ``variables``);
+    ``mu`` and ``nu`` are ``ScaleByAdamState``'s moments, trees of the shape
+    of ``tree["params"]`` with None at every frozen parameter (optax's
+    ``MaskedNode``); ``adam_count`` is its count, ``schedule_count``
+    ``ScaleByScheduleState``'s. ``optimizer`` is the port's optimizer for the
+    same stage, built by ``make_optimizer`` over ``model``'s trainable
+    parameters (``apply_stage_freeze``): its parameter groups give the
+    hyperparameters and the order of the parameters, and its trainable set
+    must be the one the moments hold, else ValueError naming the parameters.
+    The moments go through the family's converter (``leaf_sources`` checks it
+    permutes); each parameter's ``step`` is ``adam_count`` and each group's
+    ``schedule_step`` is ``schedule_count``. The group's ``lr`` stays the one
+    ``make_optimizer`` set: the optimizer that loads the state sets it from
+    its schedule at ``schedule_step``, as optax evaluates its schedule at the
+    count."""
+    sources = leaf_sources(family, tree)
+    params = tree["params"]
+    names = {id(p): n for n, p in model.named_parameters()}
+    param_names = set(names.values())
+    held = {n for n, path in sources.items()
+            if n in param_names and _at(mu, path[1:]) is not None}
+    trained = {names[id(p)] for g in optimizer.param_groups for p in g["params"]}
+    if held != trained:
+        raise ValueError(
+            f"the optimizer state's trainable set is not the port's rule for this stage: "
+            f"moments for {sorted(held - trained)} which the rule freezes, none for "
+            f"{sorted(trained - held)} which it trains")
+
+    def moments(m: Mapping) -> StateDict:
+        filled = _with_leaves(params, lambda p, v: (np.zeros(np.shape(v), np.float32)
+                                                    if _at(m, p) is None else _at(m, p)))
+        return variables(family, {**tree, "params": filled})
+
+    exp_avg, exp_avg_sq = moments(mu), moments(nu)
+    sd = optimizer.state_dict()
+    state, i = {}, 0
+    for group, saved in zip(optimizer.param_groups, sd["param_groups"]):
+        for p in group["params"]:
+            n = names[id(p)]
+            state[i] = {"step": torch.tensor(float(adam_count), dtype=torch.float32),
+                        "exp_avg": exp_avg[n].to(p.dtype), "exp_avg_sq": exp_avg_sq[n].to(p.dtype)}
+            i += 1
+        saved["schedule_step"] = int(schedule_count)
+    return {"optimizer": {"state": state, "param_groups": sd["param_groups"]}, "step": int(step)}
+
+
+def _at(tree: Mapping, path: tuple):
+    """The entry of ``tree`` at ``path``; None where the path ends early in a
+    None (a masked subtree)."""
+    for k in path:
+        if tree is None:
+            return None
+        tree = tree[k]
+    return tree

@@ -52,16 +52,7 @@ class CheckpointManager:
             self.best = json.loads(f.read_text())
 
     def _write(self, name: str, tree: Dict, meta: Dict[str, Any]) -> None:
-        path = (self.save_dir / name).absolute()
-        tmp = path.with_suffix(".tmp")
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir()
-        torch.save(tree, tmp / CKPT_FILE)
-        (tmp / "meta.json").write_text(json.dumps(meta, indent=2, default=float))
-        if path.exists():
-            shutil.rmtree(path)
-        tmp.rename(path)
+        write_entry(self.save_dir / name, tree, meta)
 
     def save(self, tree: Dict, epoch: int, metrics: Dict[str, float],
              config: Optional[dict] = None, opt: Optional[Dict] = None) -> Dict[str, bool]:
@@ -131,6 +122,23 @@ class CheckpointManager:
         return tree
 
 
+def write_entry(path: str | Path, tree: Dict, meta: Dict[str, Any]) -> None:
+    """Write one checkpoint entry directory: ``checkpoint.pt`` (``tree``) and
+    ``meta.json``, under ``<path>.tmp`` renamed into place over any previous
+    entry, so a reader sees a whole entry or the previous one. Makes the
+    entry's directory as needed."""
+    path = Path(path).absolute()
+    tmp = path.with_suffix(".tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    torch.save(tree, tmp / CKPT_FILE)
+    (tmp / "meta.json").write_text(json.dumps(meta, indent=2, default=float))
+    if path.exists():
+        shutil.rmtree(path)
+    tmp.rename(path)
+
+
 def load_entry(path: str | Path) -> Tuple[Dict, Dict]:
     """(tree, meta) of one checkpoint entry directory; tensors on the CPU."""
     path = Path(path)
@@ -138,6 +146,21 @@ def load_entry(path: str | Path) -> Tuple[Dict, Dict]:
     mf = path / "meta.json"
     meta = json.loads(mf.read_text()) if mf.exists() else {}
     return tree, meta
+
+
+DEVICE_FLAGS = ("fused", "foreach", "capturable", "differentiable")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state: Mapping) -> None:
+    """``optimizer.load_state_dict(state)``, keeping the live optimizer's
+    implementation flags (``DEVICE_FLAGS``): ``load_state_dict`` takes every
+    group setting from the file, so a state written on the CPU (``fused``
+    False) would turn the card's fused AdamW into the per-tensor loop. Every
+    other setting, the moments and the counts come from ``state``."""
+    groups = []
+    for saved, live in zip(state["param_groups"], optimizer.param_groups):
+        groups.append({**saved, **{k: live[k] for k in DEVICE_FLAGS if k in live}})
+    optimizer.load_state_dict({**state, "param_groups": groups})
 
 
 def _fits(state: Any, optimizer: torch.optim.Optimizer) -> bool:

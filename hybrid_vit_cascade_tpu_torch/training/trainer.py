@@ -96,7 +96,7 @@ from ..parallel.mesh import (
     world,
 )
 from ..utils.logging import CSVLogger, JSONLLogger
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, load_optimizer_state
 from .schedules import apply_stage_freeze, make_optimizer
 
 
@@ -236,8 +236,7 @@ def stage_step(model: nn.Module, cfg, stage: int, loss_obj: Optional[MultiScaleL
     if loss_obj is None:
         loss_obj = MultiScaleLoss({"stage1": cfg.loss.stage1, "stage2": cfg.loss.stage2,
                                    "stage3": cfg.loss.stage3}, vgg_weights=cfg.loss.vgg_weights)
-    trainable = [f"stage{stage}"] + (["xray_encoder"] if stage >= 2 and not freeze_enc3 else [])
-    params = apply_stage_freeze(model, trainable)
+    params = apply_stage_freeze(model, cascade_trainable(stage, t.freeze_shared_encoder_stage3))
     opt = make_optimizer(params, sc.learning_rate, steps_per_epoch * sc.num_epochs,
                          t.weight_decay, t.gradient_clip)
     resolution = tuple(sc.target_resolution)
@@ -307,6 +306,14 @@ def _cudnn_deterministic(step: Callable) -> Callable:
             torch.backends.cudnn.deterministic = before
 
     return run
+
+
+def cascade_trainable(stage: int, freeze_shared_encoder_stage3: bool = False) -> list:
+    """The top-level submodules cascade stage ``stage`` (1-3) trains (JAX
+    ``trainer.py:661-662``): its ``stageN``, and from stage 2 on the shared
+    ``xray_encoder``, which ``freeze_shared_encoder_stage3`` pins at stage 3."""
+    share_enc = stage >= 2 and not (stage == 3 and freeze_shared_encoder_stage3)
+    return [f"stage{stage}"] + (["xray_encoder"] if share_enc else [])
 
 
 def diffusion_trainable(stage_configs: Sequence[Dict], stage_idx: int,
@@ -629,7 +636,7 @@ class Trainer:
         self.model.load_state_dict(tree["state_dict"])
         opt = ckpt.restore_opt(state.optimizer)
         if opt is not None:
-            state.optimizer.load_state_dict(opt["optimizer"])
+            load_optimizer_state(state.optimizer, opt["optimizer"])
             state.step = int(opt["step"])
         return int(meta.get("epoch", -1)) + 1
 

@@ -58,6 +58,7 @@ from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_chain as j
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
 from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 jfa = importlib.import_module("hybrid_vit_cascade_tpu.ops.pallas.flash_attention")
 

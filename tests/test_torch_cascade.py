@@ -28,6 +28,7 @@ from hybrid_vit_cascade_tpu_torch.models import cascade as tcascade
 from hybrid_vit_cascade_tpu_torch.models.cascade import ProgressiveCascadeModel, Stage3Refiner256
 from tests.test_torch_models import jax_variables
 from tests.test_torch_slab import force_streaming
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 S1, S2, S3 = 8, 16, 32

@@ -41,6 +41,7 @@ from hybrid_vit_cascade_tpu_torch.ops import conv3d, resize
 from hybrid_vit_cascade_tpu_torch.training import trainer as trainer_mod
 from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry, shape_matched_transfer
 from tests.test_torch_models import jax_variables, random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)

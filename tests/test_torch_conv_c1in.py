@@ -41,6 +41,7 @@ import chip_smoke
 from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3 import conv3d_k3s1_chain as jax_chain_s1
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16, F32 = torch.bfloat16, torch.float32
 H100_SMS = 132

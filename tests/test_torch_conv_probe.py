@@ -25,6 +25,7 @@ from jax.experimental import pallas as pl
 
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv_probe as cp
 from hybrid_vit_cascade_tpu_torch.scripts import bench_conv_probe as bench
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 R, N_TOTAL, N_BLK = 2, 256, 128

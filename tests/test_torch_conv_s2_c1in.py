@@ -54,6 +54,7 @@ from hybrid_vit_cascade_tpu.ops.conv3d import ConvNCDHW
 from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_flat, supports_s2
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 from hybrid_vit_cascade_tpu_torch.ops.cuda import conv3d_k3 as ck
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF16, F32 = torch.bfloat16, torch.float32
 CC, TC, C1, C1F = ck.DGRAD_S2_CUDA_CORE, ck.DGRAD_S2_TC, ck.DGRAD_S2_C1_TC, ck.DGRAD_S2_C1_FP32

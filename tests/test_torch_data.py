@@ -23,6 +23,7 @@ from hybrid_vit_cascade_tpu_torch.data.nifti import read_nifti, write_nifti
 from hybrid_vit_cascade_tpu_torch.data.pipeline import DataLoader, to_device
 from hybrid_vit_cascade_tpu_torch.data.synthetic import SyntheticCTDataset
 from hybrid_vit_cascade_tpu_torch.training.trainer import host_target_transform
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _same_item(a, b, atol=0.0):

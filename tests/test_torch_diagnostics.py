@@ -44,6 +44,7 @@ from hybrid_vit_cascade_tpu_torch.models.attention import (
 )
 from hybrid_vit_cascade_tpu_torch.ops.attention import dot_product_attention
 from tests.test_torch_serving import DEPTHS, S1, S2, S3, XR, E, HEADS, scaled_cascade
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SAME = dict(rtol=1e-5, atol=1e-6)  # one fp32 formula, the same inputs
 MODEL = dict(rtol=2e-4, atol=2e-4)  # through the cascade

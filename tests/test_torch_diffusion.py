@@ -63,6 +63,7 @@ from hybrid_vit_cascade_tpu_torch.training.trainer import (
 from tests import test_torch_bwd_plans as bwd_plans
 from tests import test_torch_fwd_plans as fwd_plans
 from tests.test_torch_models import jax_variables, random_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 XR, E, HEADS, T = 64, 32, 4, 10
 LADDER = (

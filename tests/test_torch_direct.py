@@ -39,6 +39,7 @@ from hybrid_vit_cascade_tpu_torch.models.layers import Dropout
 from hybrid_vit_cascade_tpu_torch.training.checkpoint import load_entry
 from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer, single_model_step
 from tests.test_torch_models import jax_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S, XR, E, HEADS = 32, 64, 32, 4
 TOL = dict(rtol=2e-4, atol=2e-4)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from hybrid_vit_cascade_tpu_torch.ops import attention
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the module (the package's __init__ exports its function under the same name)
 jfa = importlib.import_module("hybrid_vit_cascade_tpu.ops.pallas.flash_attention")

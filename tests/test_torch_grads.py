@@ -26,6 +26,7 @@ from hybrid_vit_cascade_tpu_torch.models.vit3d import HybridViT3D
 from hybrid_vit_cascade_tpu_torch.ops.attention import dot_product_attention
 from hybrid_vit_cascade_tpu_torch.ops.conv3d import conv3d_ncdhw, group_norm_core
 from tests.test_torch_models import jax_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # VJP tolerances of the JAX kernels' own tests: tests/test_flash_attention.py:52
 # (gradients 5e-4) and tests/test_pallas_conv.py / test_pallas_conv_s2.py

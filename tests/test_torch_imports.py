@@ -1,6 +1,11 @@
 """The PyTorch port imports no JAX: every module of hybrid_vit_cascade_tpu_torch
-is imported in a fresh interpreter, which must then hold none of jax, flax,
-optax or orbax. Importing also compiles nothing."""
+and ``chip_smoke.py`` are imported in a fresh interpreter, which must then
+hold none of jax, flax, optax, orbax or the JAX package. Importing also
+compiles nothing. ``convert_orbax.py`` is left out of the scan by design: it
+is the one file that imports both packages (it runs on a host with JAX and
+reads the JAX package's checkpoints); the port-side half it calls
+(``convert.variables``, ``convert.adamw_state``,
+``training.checkpoint.write_entry``) lives in scanned modules."""
 
 import json
 import pkgutil
@@ -9,6 +14,7 @@ import sys
 from pathlib import Path
 
 import hybrid_vit_cascade_tpu_torch
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 _CHECK = """
@@ -16,7 +22,8 @@ import importlib, json, sys
 mods = json.loads(sys.argv[1])
 for m in mods:
     importlib.import_module(m)
-banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
+banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                                               "hybrid_vit_cascade_tpu", "convert_orbax"))
 from hybrid_vit_cascade_tpu_torch.ops.cuda import _build
 print(json.dumps({"banned": banned, "lib_loaded": _build.library.cache_info().currsize}))
 """
@@ -46,8 +53,19 @@ def test_port_modules_found():
         assert f"hybrid_vit_cascade_tpu_torch.{m}" in names, m
 
 
+def test_port_functions_in_scanned_modules():
+    """The Orbax reader's port-side half sits in modules the scan imports."""
+    from hybrid_vit_cascade_tpu_torch import convert
+    from hybrid_vit_cascade_tpu_torch.training import checkpoint, trainer
+
+    scanned = set(_modules())
+    for fn in (convert.variables, convert.leaf_sources, convert.adamw_state,
+               checkpoint.write_entry, checkpoint.load_optimizer_state, trainer.cascade_trainable):
+        assert fn.__module__ in scanned, fn
+
+
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _CHECK, json.dumps(_modules())],
+    res = subprocess.run([sys.executable, "-c", _CHECK, json.dumps(_modules() + ["chip_smoke"])],
                          capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])

@@ -22,6 +22,7 @@ from hybrid_vit_cascade_tpu_torch.losses import metrics
 from hybrid_vit_cascade_tpu_torch.losses import multiscale as tloss
 from hybrid_vit_cascade_tpu_torch.ops import drr, pool, ssim
 from hybrid_vit_cascade_tpu_torch.ops.resize import resize_bilinear
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _f32(rng, shape, scale=1.0):

@@ -19,6 +19,7 @@ from hybrid_vit_cascade_tpu_torch import convert
 from hybrid_vit_cascade_tpu_torch.models.encoders import MultiScaleXrayEncoder
 from hybrid_vit_cascade_tpu_torch.models.vit3d import HybridViT3D, HybridViTBlock3D
 from hybrid_vit_cascade_tpu_torch.ops.slab import chain_apply_dense
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -22,6 +22,7 @@ from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer
 from hybrid_vit_cascade_tpu_torch.utils import viz, wandb_compat
 from tests.test_torch_direct import configs
 from tests.test_torch_trainer import _cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # What the JAX trainer logs to wandb: each epoch {"phase", "train_loss", **val}
 # with the eval step's keys (hybrid_vit_cascade_tpu/training/trainer.py:844-847,

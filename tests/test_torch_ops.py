@@ -27,6 +27,7 @@ from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
 )
 from hybrid_vit_cascade_tpu_torch.ops.pool import max_pool_nd
 from hybrid_vit_cascade_tpu_torch.ops.resize import resize_bilinear, resize_trilinear
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _f32(rng, shape, scale=1.0):

@@ -56,6 +56,7 @@ from hybrid_vit_cascade_tpu_torch.parallel import mesh
 from hybrid_vit_cascade_tpu_torch.training.checkpoint import CheckpointManager, load_entry
 from hybrid_vit_cascade_tpu_torch.training.schedules import make_optimizer
 from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer, stage_step
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 S1, S2, S3 = 8, 16, 32

@@ -57,6 +57,7 @@ from hybrid_vit_cascade_tpu_torch.training.checkpoint import CheckpointManager
 from hybrid_vit_cascade_tpu_torch.utils import summary
 from tests import test_torch_direct
 from tests.test_torch_models import jax_variables
+from tests.torch_threads import one_thread_env, one_torch_thread  # noqa: F401  (autouse)
 
 S1, S2, S3 = 8, 16, 32
 XR, E, HEADS = 64, 32, 4
@@ -496,7 +497,8 @@ def test_load_serving_in_a_fresh_process(setup, stage2_artifact, tmp_path):
     np.save(tmp_path / "want.npy", setup["engine"].reconstruct(xr, max_stage=2).numpy())
     res = subprocess.run([sys.executable, "-c", _FRESH, str(path), str(tmp_path / "xr.npy"),
                           str(tmp_path / "want.npy")], capture_output=True, text=True,
-                         cwd=Path(__file__).resolve().parents[1], timeout=300)
+                         cwd=Path(__file__).resolve().parents[1], env=one_thread_env(),
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"models": [], "diff": 0.0}

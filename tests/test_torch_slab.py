@@ -31,6 +31,7 @@ from hybrid_vit_cascade_tpu.ops.pallas.conv3d_k3s2 import conv3d_k3s2_chain as j
 from hybrid_vit_cascade_tpu_torch.ops import slab as tslab
 from hybrid_vit_cascade_tpu_torch.ops.conv3d import conv3d_chain
 from tests.test_torch_models import _chain_arrays
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VAL_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-5, atol=5e-5)

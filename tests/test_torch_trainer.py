@@ -31,6 +31,7 @@ from hybrid_vit_cascade_tpu_torch.training.checkpoint import (
 from hybrid_vit_cascade_tpu_torch.training.schedules import make_optimizer
 from hybrid_vit_cascade_tpu_torch.training.trainer import Trainer, stage_step
 from tests.test_torch_models import jax_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S1, S2, S3 = 8, 16, 32
 XR, E, HEADS = 64, 32, 4

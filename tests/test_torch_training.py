@@ -49,6 +49,7 @@ from hybrid_vit_cascade_tpu_torch.training.trainer import (
 )
 from tests.test_torch_models import jax_variables
 from tests.test_torch_slab import force_streaming
+from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 S1, S2, S3 = 8, 16, 32
 XR, E, HEADS = 64, 32, 4
