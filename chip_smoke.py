@@ -83,7 +83,13 @@ expected FloatingPointError:
    beside it and conv3d_input in fp32, by CUDA events around the wrapper and
    a launch at a time (the mean of 20 back-to-back launches): the ``fp32``
    entry of its row, whose launches are that instance's on the main path
-   (0: the main path is bf16).
+   (0: the main path is bf16). [7h] holds A, D, L and M at head dims other
+   than 32 and 64 (HEAD_DIM_AT: d = 128 at 2 heads and d = 16, padded to
+   the d = 32 instance, at 16 heads, over 32,768 voxel tokens and 32,768 ×
+   4,096 cross-attention; HEAD_DIM_RAGGED at padded d 16, 48, 96 and at
+   128) to their plain versions in bf16 and fp32, checks each bf16 call's
+   tensor-core launch and two runs of D (bf16, fp32), L and M (bf16)
+   bitwise, and times them beside their plain versions.
 8. A small training reference: one scaled stage-3 train step (deterministic
    forward, fp32, stage-3 chains streamed in 4 slabs at every level) on the
    card (kernels) against the same step on the CPU (plain versions): loss and
@@ -221,10 +227,22 @@ expected FloatingPointError:
    ladder in fp32 on the card against the CPU (loss components, every
    gradient, a 4-step ddim_sample, 2e-4); C, F and G timed at the 17→64
    stem's shapes beside the same calls with 16, 32 and 64 input channels
-   (CIN_COST). [3] and [7] hold A, C, D, F and G
+   (CIN_COST). Then the ladder's third stage, stage3_high (256³,
+   voxel_dim 256, depth 8, 8 heads of 32, a 256-deep lifter), on a copy of
+   ``diffusion_progressive.json`` with ``volume_size`` 256³ and a
+   ``stage3`` entry (batch 1, stage 2's learning rate, one epoch): [15g]
+   one warm-up and one timed step at batch 1 (launches DIFFUSION_STEP[3],
+   every call on its tensor-core instance; peak memory), run twice from one
+   state bitwise, then profiled; out of memory fails the phase after the
+   allocator's numbers are logged; [15h] ``cascaded_ddim_sample`` 64³ → 128³ →
+   256³ at the config's 10 steps, batch 1 (seconds and launches a stage,
+   every volume finite); [15i] ``cli train`` on a one-epoch-a-stage copy
+   (DIFFUSION_PATIENTS synthetic 256³ patients, 2 sampling steps), then
+   again: every stage skipped. [3] and [7] hold A, C, D, F and G
    at the slice's new shapes (DIFFUSION_AT: the 17→64 stem from 64³ at
-   batch 4 and from 128³ at batch 2; A and D at 16 × 4,096² at d = 64 and
-   32), D bitwise at 16 × 4,096² × 32 among the training shapes.
+   batch 4, from 128³ at batch 2 and from 256³ at batch 1; A and D at 16 ×
+   4,096² at d = 64 and 32 and at the stage-3 shapes 8 × 32,768² and 8 ×
+   32,768 × 4,096), D bitwise at 16 × 4,096² × 32 among the training shapes.
 16. The serving artifact: ``InferenceEngine.export_serving`` of [4]'s
    full-width cascade (bf16, max_stage=3, batch 1) and of [14]'s
    ``direct_vit`` on the card (export seconds, artifact bytes, the sidecar),
@@ -289,6 +307,13 @@ expected FloatingPointError:
    resumed; every group still fused; the step finite, launching what [9]'s
    stage-2 step launches, and bitwise the step from the same state loaded
    into a card optimizer by hand; the step's ms printed.
+21. Head dims other than 32 and 64 (``head_dim_phase``): copies of
+   ``configs/progressive_cascade.json`` with 16 heads of 16 and 2 heads of
+   128 at every stage (HEAD_DIM_CASCADES), each a seeded checkpoint served
+   by InferenceEngine (a 256³ reconstruct at batch 1: finite, A 36 times on
+   the tensor cores, no gradient kernel) and one stage-3 train step at
+   batch 1 with the fused backward (D) and one with the split backward (L
+   and M), finite, every flash kernel on its tensor-core instance.
 
 Every kernel in the {"kernels": ...} line carries its time, the plain
 version's, the least time the card could take for the same work (bound_ms:
@@ -308,8 +333,12 @@ one that takes L and M), the probe run of [12] (the only one that takes N),
 the serving commands of [13], [14]'s direct_vit reconstruct, first train
 step and entry points, [15]'s first train steps, samplers and cli train,
 [16]'s two served calls, [17]'s cli train, [18]'s cli train under
-torchrun, [19]'s reconstruct and first stage steps and [20]'s resumed
-step; the rows of A and D also carry, under ``direct_vit``, their time,
+torchrun, [19]'s reconstruct and first stage steps, [20]'s resumed
+step and [21]'s reconstructs and steps; the rows of A, D, L and M also
+carry, under ``head_dims``, for d = 16 and 128 the instance's d, their
+time, plain time, bound and library time at each HEAD_DIM_AT shape, the
+max_abs_err of [7h] and their launches and tensor-core launches in [21];
+the rows of A and D also carry, under ``direct_vit``, their time,
 plain time, bound and library time at the direct model's attention shape
 and their launches in [14], and the rows of A, C, D, F and G under
 ``diffusion`` the same at each DIFFUSION_AT shape and their launches in
@@ -322,7 +351,8 @@ cuDNN and cuBLAS run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 are set False), so the fp32 plain
 versions are full fp32. The second-to-last line of the output is a
 {"kernels": [...]} JSON object, the last line {"ok": true, "device": ...};
-the full record goes to build/chip_smoke.json.
+a line before them gives the script's wall; the full record goes to
+build/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -415,6 +445,8 @@ _S2_STEM = (8, 1, 64, (64, 64, 64))
 # 16-channel prior) at its training batches: stage 1 at 64³ (batch 4),
 # stage 2 at 128³ (batch 2); a last 16-channel chunk with one real channel
 _S2_C17 = [(4, 17, 64, (64, 64, 64)), (2, 17, 64, (128, 128, 128))]
+# and the ladder's stage3_high from 256³ at its batch 1 ([15g])
+_S2_C17_256 = [(1, 17, 64, (256, 256, 256))]
 _S2_STEM_RAGGED = [(2, 1, 8, (5, 6, 10)), (1, 1, 40, (7, 9, 35)), (2, 1, 64, (9, 7, 13))]
 KERNELS = {
     "flash_attention": {
@@ -454,7 +486,8 @@ KERNELS = {
         "shapes": [(1, 64, 128, (32, 32, 32)),
                    (1, 32, 64, (128, 128, 128)), (1, 64, 128, (64, 64, 64)),
                    (1, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
-                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17,
+                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17
+                  + _S2_C17_256,
         "ragged": [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))],
         "hot": (1, 32, 64, (256, 256, 256)),
     },
@@ -474,7 +507,8 @@ KERNELS = {
 _S2_GRAD_SHAPES = [(8, 64, 128, (32, 32, 32)),
                    (2, 32, 64, (128, 128, 128)), (2, 64, 128, (64, 64, 64)),
                    (2, 128, 256, (32, 32, 32)), (1, 32, 64, (256, 256, 256)),
-                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17
+                   (1, 64, 128, (128, 128, 128)), (1, 128, 256, (64, 64, 64))] + _S2_C17 \
+    + _S2_C17_256
 _RAGGED_CONV = [(2, 3, 5, (5, 6, 10)), (1, 8, 40, (5, 6, 10))]
 # (BH, Nq, Nk, d): stage 1 self/cross, stage 2 self/cross, stage 3 self/cross
 _FLASH_TRAIN_SHAPES = [(32, 4096, 4096, 64), (32, 4096, 256, 64), (16, 4096, 4096, 32),
@@ -1560,6 +1594,72 @@ def flash_bwd_bitwise(dev, seed: int) -> dict:
     return out
 
 
+# Head dims other than 32 and 64 ([7h], [21]): the d = 128 instances of A, D,
+# L and M, and d = 16 zero-padded to the d = 32 instance, at the stage-3
+# self- and cross-attention shapes of a cascade with 2 heads of 128 or 16
+# heads of 16 (32,768 voxel tokens over themselves and over 4,096 X-ray
+# tokens, batch 1), and ragged shapes at padded d (16 → 32, 48 → 64, 96 →
+# 128) and at d = 128.
+HEAD_DIM_AT = {128: [(2, 32768, 32768, 128), (2, 32768, 4096, 128)],
+               16: [(16, 32768, 32768, 16), (16, 32768, 4096, 16)]}
+HEAD_DIM_RAGGED = [(3, 200, 77, 128), (3, 200, 77, 16), (3, 200, 77, 48), (2, 65, 63, 96)]
+FLASH_NAMES = ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+
+
+def _flash_wrapper(name: str):
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import flash_attention as fa
+
+    return getattr(fa, name if name != "flash_attention" else "flash_attention_fwd")
+
+
+def head_dim_kernels(dev, seed: int) -> dict:
+    """Phase 7h: A, D, L and M at HEAD_DIM_AT and HEAD_DIM_RAGGED against their
+    plain versions in bf16 and fp32 (FLASH_OUT_TOL, as [3] and [7]); each bf16
+    call at HEAD_DIM_AT on its tensor-core instance (one launch and one
+    tensor-core launch on its wrapper's counters); two runs of D, L and M at
+    each HEAD_DIM_AT shape bitwise equal in bf16 (and D in fp32); each timed
+    beside its plain version in bf16. Returns max_abs_err by kernel and d,
+    the timed rows and the bitwise record."""
+    rec = {"max_abs_err": {}, "rows": {}, "bitwise": {}}
+    for name in FLASH_NAMES:
+        inputs, fns = (_inputs, _fns) if name == "flash_attention" else (_train_inputs, _train_fns)
+        for d, shapes in HEAD_DIM_AT.items():
+            log(f"[7h] {name} at d = {d} vs plain (bf16 and fp32)")
+            rec["max_abs_err"][f"{name} d{d}"] = check_kernels(
+                dev, seed, {name: {"shapes": shapes, "ragged": []}}, inputs, fns,
+                scaled=name != "flash_attention")[name]
+            wrapper, kern = _flash_wrapper(name), fns(name)[0]
+            for shape in shapes:
+                args = inputs(name, shape, torch.bfloat16, dev, seed)
+                before = (wrapper.launches, wrapper.tc_launches)
+                first = kern(*args)
+                took = (wrapper.launches - before[0], wrapper.tc_launches - before[1])
+                if took != (1, 1):
+                    raise AssertionError(f"[7h] {name} {shape} bf16: launches, tensor-core "
+                                         f"launches {took}, expected (1, 1)")
+                runs = [(torch.bfloat16, args, first)] if name != "flash_attention" else []
+                if name == "flash_attention_bwd":
+                    a32 = inputs(name, shape, torch.float32, dev, seed)
+                    runs.append((torch.float32, a32, kern(*a32)))
+                for dtype, a, got in runs:
+                    again = kern(*a)
+                    torch.cuda.synchronize()
+                    key = f"{name} {shape} {str(dtype).replace('torch.', '')}"
+                    ok = rec["bitwise"][key] = all(torch.equal(x, y) for x, y in zip(got, again))
+                    log(f"[7h] {key:64s} two runs: bitwise equal {ok}")
+                    if not ok:
+                        raise AssertionError(f"[7h] {key}: two runs differ")
+                del args, first, runs
+            rec["rows"].update(time_kernels(dev, seed, {name: {"shapes": shapes}}, inputs, fns))
+        log(f"[7h] {name} at ragged head dims vs plain (bf16 and fp32)")
+        rec["max_abs_err"][f"{name} ragged"] = check_kernels(
+            dev, seed, {name: {"shapes": [], "ragged": HEAD_DIM_RAGGED}}, inputs, fns,
+            scaled=name != "flash_attention")[name]
+        torch.cuda.empty_cache()
+    return rec
+
+
 # bf16 weight gradients of the stage-3 step: the dense 64→32 and 32→64 and
 # one training slab of each chain, with the counter their launch must add to.
 _TC_WGRAD_CALLS = [("conv3d_k3s1_wgrad", (1, 64, 32, (256, 256, 256))),
@@ -2593,23 +2693,35 @@ EXPECTED_LAUNCHES_DIFFUSION = {"flash_attention": 8, "flash_attention_tc": 8, "c
 # 64→128, 128→256); the stem ends at voxel_dim, so no projection.
 EXPECTED_LAUNCHES_DIFFUSION_S2 = {"flash_attention": 12, "flash_attention_tc": 12,
                                   "conv3d_k3s2": 3, "conv3d_k3s2_tc": 3}
+# One of stage3_high (256³, depth 8, 8 heads, d = 32): A 16, C 3 (17→64,
+# 64→128, 128→256 to 32³ tokens at voxel_dim: no projection).
+EXPECTED_LAUNCHES_DIFFUSION_S3 = {"flash_attention": 16, "flash_attention_tc": 16,
+                                  "conv3d_k3s2": 3, "conv3d_k3s2_tc": 3}
 # One train step (remat: every block's forward runs again in the backward;
 # the token stem does not): stage 1 A 16, D 8, C 2, F 2 (the 17-channel dx
 # feeds the lifter), G 2, B 1, B as the dgrad 1, E 1; stage 2 A 24, D 12,
-# C 3, F 3, G 3.
+# C 3, F 3, G 3; stage 3 A 32, D 16, C 3, F 3, G 3.
 DIFFUSION_STEP = {
     1: {"flash_attention": 16, "flash_attention_bwd": 8, "conv3d_k3s2": 2,
         "conv3d_k3s2_dgrad": 2, "conv3d_k3s2_wgrad": 2, "conv3d_k3s1": 1,
         "conv3d_k3s1_dgrad": 1, "conv3d_k3s1_wgrad": 1},
     2: {"flash_attention": 24, "flash_attention_bwd": 12, "conv3d_k3s2": 3,
         "conv3d_k3s2_dgrad": 3, "conv3d_k3s2_wgrad": 3, "conv3d_k3s1": 0,
+        "conv3d_k3s1_dgrad": 0, "conv3d_k3s1_wgrad": 0},
+    3: {"flash_attention": 32, "flash_attention_bwd": 16, "conv3d_k3s2": 3,
+        "conv3d_k3s2_dgrad": 3, "conv3d_k3s2_wgrad": 3, "conv3d_k3s1": 0,
         "conv3d_k3s1_dgrad": 0, "conv3d_k3s1_wgrad": 0}}
 # The shapes the slice first gives A, C, D, F and G ([3] and [7] check them):
 # the training forwards and backwards of both stages and the 17→64 stem.
-DIFFUSION_AT = {"flash_attention": [(16, 4096, 4096, 64), (16, 4096, 4096, 32)],
-                "flash_attention_bwd": [(16, 4096, 4096, 64), (16, 4096, 4096, 32)],
-                "conv3d_k3s2": _S2_C17, "conv3d_k3s2_dgrad": _S2_C17,
-                "conv3d_k3s2_wgrad": _S2_C17}
+# stage3_high (256³, 8 heads of 32, batch 1) adds the 17→64 stem from 256³
+# and A and D at 8 × 32,768² and 8 × 32,768 × 4,096 (the cascade's stage-3
+# shapes, in both lists already).
+_DIFF_FLASH = [(16, 4096, 4096, 64), (16, 4096, 4096, 32), (8, 32768, 32768, 32),
+               (8, 32768, 4096, 32)]
+DIFFUSION_AT = {"flash_attention": _DIFF_FLASH, "flash_attention_bwd": _DIFF_FLASH,
+                "conv3d_k3s2": _S2_C17 + _S2_C17_256,
+                "conv3d_k3s2_dgrad": _S2_C17 + _S2_C17_256,
+                "conv3d_k3s2_wgrad": _S2_C17 + _S2_C17_256}
 DIFFUSION_PATIENTS = 6  # [15]'s cli train: 4 train (and validation) patients at 128³
 LIFT_TOL = 1e-4  # the streamed lifter against the dense one: × max|want|
 
@@ -2677,6 +2789,50 @@ def _sample(fn, dev, where: str, want: dict) -> tuple:
     if lc != want:
         raise AssertionError(f"{where}: launches {lc}, expected {want}")
     return out, wall, lc
+
+
+# one denoise forward of each ladder stage ([15b], [15h])
+EXPECTED_BY_STAGE = {"stage1_low": EXPECTED_LAUNCHES_DIFFUSION,
+                     "stage2_mid": EXPECTED_LAUNCHES_DIFFUSION_S2,
+                     "stage3_high": EXPECTED_LAUNCHES_DIFFUSION_S3}
+
+
+def _cascade_sample(model, xr, n: int, dev, seed: int, where: str) -> dict:
+    """``cascaded_ddim_sample`` of the whole ladder at batch 1 with ``n``
+    steps, each stage under ``_sample`` (wall seconds; n × one denoise
+    forward's launches, EXPECTED_BY_STAGE); every volume finite at its
+    stage's size. Returns the steps, each stage's wall and launches, and the
+    peak GB."""
+    from hybrid_vit_cascade_tpu_torch.models import diffusion as dm
+
+    per_stage, real = {}, dm.ddim_sample
+
+    def timed(model, xrays, stage_name, *a, **kw):
+        want = {k: n * v for k, v in EXPECTED_BY_STAGE[stage_name].items()}
+        vol, wall, lc = _sample(lambda: real(model, xrays, stage_name, *a, **kw), dev,
+                                f"{where} cascaded_ddim_sample {stage_name}", want)
+        per_stage[stage_name] = {"wall_s": wall, "launches": lc}
+        return vol
+    dm.ddim_sample = timed
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        vols = dm.cascaded_ddim_sample(model, xr, torch.Generator(device=dev).manual_seed(seed),
+                                       num_steps=n)
+    finally:
+        dm.ddim_sample = real
+    want = {c["name"]: (1, 1, *c["volume_size"]) for c in model.stage_configs}
+    if set(per_stage) != set(want):
+        raise AssertionError(f"{where} cascaded_ddim_sample timed the stages {sorted(per_stage)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    shapes = {k: tuple(v.shape) for k, v in vols.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in vols.values())
+    log(f"{where} cascaded_ddim_sample (batch 1, {n} steps, bf16): {shapes} finite {finite}; "
+        + "; ".join(f"{k} {v['wall_s']:.3f} s ({v['wall_s'] / n * 1e3:.1f} ms a step), "
+                    f"launches {v['launches']}" for k, v in per_stage.items())
+        + f"; peak {peak:.2f} GB")
+    if shapes != want or not finite:
+        raise AssertionError(f"{where} cascaded_ddim_sample: {shapes} finite {finite}")
+    return {"steps": n, "per_stage": per_stage, "peak_gb": peak}
 
 
 def lifter_streamed_vs_dense(dev, seed: int) -> dict:
@@ -2813,6 +2969,135 @@ def cin_cost(dev, seed: int) -> dict:
     return out
 
 
+def _diffusion_256_config() -> Path:
+    """A copy of diffusion_progressive.json under build/ whose ladder reaches
+    256³: ``volume_size`` 256³ and a ``stage3`` entry (batch 1, stage 2's
+    learning rate, one epoch)."""
+    stage2 = json.loads(DIFFUSION_PROG.read_text())["training"]["stages"]["stage2"]
+    return _config_copy(DIFFUSION_PROG, "diffusion_progressive_256.json", **{
+        "model.volume_size": [256, 256, 256],
+        "training.stages.stage3": {"num_epochs": 1, "batch_size": 1,
+                                   "learning_rate": stage2["learning_rate"],
+                                   "target_resolution": [256, 256, 256]}})
+
+
+def diffusion_256(dev, seed: int, xr) -> dict:
+    """[15g]-[15i]: the ladder's third stage, stage3_high (256³, voxel_dim
+    256, depth 8, 8 heads of 32, 32,768 voxel tokens, a 256-deep lifter), on
+    a copy of diffusion_progressive.json whose ladder reaches 256³. [15g] one
+    warm-up and one timed step at batch 1 (training.measure's train_steps over
+    diffusion_steps' step; launches DIFFUSION_STEP[3] on the tensor-core
+    instances), run twice from one state with every bit of the losses, state
+    and gradients equal, then one more step under torch.profiler; out of
+    memory fails the phase, after the allocator's numbers are logged. [15h]
+    cascaded_ddim_sample 64³ → 128³ → 256³ at the config's steps, batch 1,
+    bf16 (seconds and launches a stage). [15i] cli train on the copy, one
+    epoch a stage, DIFFUSION_PATIENTS synthetic 256³ patients,
+    diffusion_sample_steps cut to 2, then again: every stage skipped."""
+    from hybrid_vit_cascade_tpu_torch import cli
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    rec, t0 = {}, time.perf_counter()
+    copy = _diffusion_256_config()
+    cfg = Config.from_json(str(copy))
+    model = seeded_init_(build_model(cfg), seed).to(dev)
+    ladder = [(c["name"], c["volume_size"], c["vit_depth"], c["num_heads"])
+              for c in model.stage_configs]
+    if ladder != [("stage1_low", (64, 64, 64), 4, 4), ("stage2_mid", (128, 128, 128), 6, 8),
+                  ("stage3_high", (256, 256, 256), 8, 8)] or cfg.model.voxel_dim != 256:
+        raise AssertionError(f"[15g] {copy.name}'s ladder {ladder}")
+
+    def run(profile: bool = False, steps: int = 1):
+        with rule_calls() as rc:
+            r = train_steps(model, cfg, 3, 1, steps,
+                            torch.Generator(device=dev).manual_seed(seed + 66),
+                            allow_oom=True, profile=profile)
+        if "out_of_memory" in r:
+            o = r["out_of_memory"]
+            log(f"[15g] stage3_high step (256³, batch 1): out of memory: {o['error']}; "
+                f"allocated {o['allocated_gb']:.2f} GB, peak {o['max_allocated_gb']:.2f} GB, "
+                f"reserved {o['reserved_gb']:.2f} GB of {o['card_gb']:.2f}; in "
+                f"{' < '.join(reversed(o['where']))}")
+            raise AssertionError("[15g] stage3_high ran out of memory at batch 1")
+        r["calls"] = {"n": {k: n / (1 + steps) for k, n in rc.n.items()},
+                      "c1in": {k: n / (1 + steps) for k, n in rc.c1in_bf16.items()}}
+        return r
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    r = run()
+    lc = r["launches_per_step"]
+    r["repeat"] = train_twice(model, run, start, (r["total_loss"], *_trained_state(model)))
+    x = r["repeat"]
+    log(f"[15g] stage3_high train step (256³, batch 1, "
+        f"{r['trainable_params'] / 1e6:.1f} M trainable): {r['step_ms'][0]:.1f} ms (warm-up "
+        f"{r['warmup_s']:.2f} s); peak {r['peak_allocated_gb']:.2f} GB, reserved "
+        f"{r['peak_reserved_gb']:.2f} GB; losses per step "
+        + "; ".join(", ".join(f"{k} {v:.5f}" for k, v in m.items() if k != "total_loss")
+                    for m in r["metrics"])
+        + f"; launches per step {({k: v for k, v in lc.items() if v})}; run twice from one "
+        f"state: losses equal {x['losses_equal']}, {x['state_differing']} of "
+        f"{x['state_tensors']} state tensors and {x['grads_differing']} of {x['grads']} "
+        f"gradients differ (max |diff| {x['max_abs_diff']:.3e})")
+    if not all(math.isfinite(v) for m in r["metrics"] for v in m.values()):
+        raise AssertionError(f"[15g] stage3_high: loss components {r['metrics']}")
+    _check_diffusion_step(lc, r["calls"], 3, "[15g]")
+    if not x["losses_equal"] or x["state_differing"] or x["grads_differing"]:
+        raise AssertionError(f"[15g] the stage3_high step did not repeat bitwise: {x}")
+    prof = run(profile=True, steps=0)["profile"]
+    log(f"[15g] profiled stage3_high step: wall {prof['wall_ms']:.1f} ms, kernels "
+        f"{prof['kernel_ms']:.1f} ms, idle {prof['idle_share']:.1%}; top: "
+        + "; ".join(f"{t['name'][:60]} {t['ms']:.1f} ms ×{t['launches']}" for t in prof["top"][:12]))
+    r["profile"] = prof
+    rec.update(train_s3_b1=r, config=copy.name)
+    del start
+    torch.cuda.empty_cache()
+
+    # 15h the whole cascaded sampler, 64³ → 128³ → 256³
+    model.eval()
+    rec["cascade_sample_256"] = _cascade_sample(model, xr, cfg.training.diffusion_sample_steps,
+                                                dev, seed + 67, "[15h]")
+    del model
+    torch.cuda.empty_cache()
+
+    # 15i cli train on a one-epoch-a-stage copy, then again
+    save_dir = BUILD_DIR / "diffusion_train256"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    train_copy = _config_copy(copy, "diffusion_progressive_256_smoke.json", **{
+        "training.stages.stage1.num_epochs": 1, "training.stages.stage2.num_epochs": 1,
+        "training.diffusion_sample_steps": 2, "data.synthetic_patients": DIFFUSION_PATIENTS,
+        "checkpoints.save_dir": str(save_dir)})
+    argv = ["train", "--config", str(train_copy), "--device", dev.type]
+    final, _, train_s, train_lc = _cli_json(cli, argv)
+    log_file = save_dir / "training_log.jsonl"
+    rows = [json.loads(r) for r in log_file.read_text().splitlines()]
+    again, out_again, again_s, _ = _cli_json(cli, argv)
+    rows_again = [json.loads(r) for r in log_file.read_text().splitlines()][len(rows):]
+    stages = ("stage1_low", "stage2_mid", "stage3_high")
+    latest = [(save_dir / f"diffusion_{n}" / "latest").is_dir() for n in stages]
+    skipped = [f"[diffusion_{n}] complete" in out_again for n in stages]
+    chain = [r for r in rows if r.get("phase") == "diffusion_chain_eval"]
+    log(f"[15i] cli train build/{train_copy.name} (one epoch a stage, {DIFFUSION_PATIENTS} "
+        f"patients at 256³, diffusion_sample_steps cut to 2): {train_s:.1f} s; phases "
+        f"{[r['phase'] for r in rows]}; final {final['final']}; latest written {latest}; again "
+        f"{again_s:.1f} s: stages skipped {skipped}, phases {[r['phase'] for r in rows_again]}")
+    if (not all(latest) or not all(skipped) or len(chain) != 1
+            or [r["phase"] for r in rows] != [f"diffusion_{n}" for n in stages]
+            + ["diffusion_chain_eval"]
+            or not all(math.isfinite(v) for k, v in chain[0].items() if k != "phase")
+            or [r["phase"] for r in rows_again] != ["diffusion_chain_eval"]
+            or not all(math.isfinite(v) for v in final["final"].values())):
+        raise AssertionError(f"[15i] cli train: rows {rows}, again {rows_again}, final {final}")
+    rec["cli_train"] = {"wall_s": train_s, "again_s": again_s, "final": final["final"],
+                        "again": again["final"], "launches": train_lc,
+                        "phases": [r["phase"] for r in rows]}
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def diffusion_phase(dev, seed: int) -> dict:
     """Phase 15: the diffusion family at its configs' full widths."""
     from hybrid_vit_cascade_tpu_torch import cli
@@ -2892,39 +3177,9 @@ def diffusion_phase(dev, seed: int) -> dict:
         if key != "r5":
             del model
             continue
-        per_stage, real = {}, dm.ddim_sample
-        n = c.training.diffusion_sample_steps
-        expect = {"stage1_low": {k: n * v for k, v in EXPECTED_LAUNCHES_DIFFUSION.items()},
-                  "stage2_mid": {k: n * v for k, v in EXPECTED_LAUNCHES_DIFFUSION_S2.items()}}
-
-        def timed(model, xrays, stage_name, *a, **kw):
-            vol, wall, lc = _sample(lambda: real(model, xrays, stage_name, *a, **kw), dev,
-                                    f"[15b] cascaded_ddim_sample {stage_name}",
-                                    expect[stage_name])
-            per_stage[stage_name] = {"wall_s": wall, "launches": lc}
-            return vol
-        dm.ddim_sample = timed
-        try:
-            torch.cuda.reset_peak_memory_stats(dev)
-            vols = dm.cascaded_ddim_sample(model, xr,
-                                           torch.Generator(device=dev).manual_seed(seed + 64),
-                                           num_steps=n)
-        finally:
-            dm.ddim_sample = real
-        if set(per_stage) != {"stage1_low", "stage2_mid"}:
-            raise AssertionError(f"[15b] cascaded_ddim_sample timed the stages {sorted(per_stage)}")
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        shapes = {k: tuple(v.shape) for k, v in vols.items()}
-        finite = all(bool(torch.isfinite(v).all()) for v in vols.values())
-        log(f"[15b] cascaded_ddim_sample (batch 1, {n} steps, bf16): {shapes} finite {finite}; "
-            + "; ".join(f"{k} {v['wall_s']:.3f} s ({v['wall_s'] / n * 1e3:.1f} ms a step), "
-                        f"launches {v['launches']}" for k, v in per_stage.items())
-            + f"; peak {peak:.2f} GB")
-        if shapes != {"stage1_low": (1, 1, 64, 64, 64), "stage2_mid": (1, 1, 128, 128, 128)} \
-                or not finite:
-            raise AssertionError(f"[15b] cascaded_ddim_sample: {shapes} finite {finite}")
-        rec["cascade_sample_r5"] = {"steps": n, "per_stage": per_stage, "peak_gb": peak}
-        del model, vols
+        rec["cascade_sample_r5"] = _cascade_sample(model, xr, c.training.diffusion_sample_steps,
+                                                   dev, seed + 64, "[15b]")
+        del model
         torch.cuda.empty_cache()
     rec["train_r5_s2_b2"], rec["train_prog_s2_b1"] = steps["r5"], steps["prog"]
 
@@ -2964,6 +3219,10 @@ def diffusion_phase(dev, seed: int) -> dict:
     # 15e small-input reference; 15f the 17-channel calls beside 16, 32, 64
     rec["reference"] = diffusion_reference(dev, seed)
     rec["cin_cost_ms"] = cin_cost(dev, seed)
+    torch.cuda.empty_cache()
+
+    # 15g-15i stage3_high at 256³: its step, the whole sampler, cli train
+    rec["s256"] = diffusion_256(dev, seed, xr)
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[15] phase {rec['phase_s']:.1f} s")
     return rec
@@ -3613,6 +3872,92 @@ def h200_phase(dev, seed: int) -> dict:
 
 # ------------------------------------------ a converted JAX run resumed [20] ---
 
+# [21]: copies of progressive_cascade.json (voxel_dim 256) whose heads are
+# d = 16 (16 heads at every stage) and d = 128 (2 heads)
+HEAD_DIM_CASCADES = {16: (16, 16, 16), 128: (2, 2, 2)}
+
+
+def head_dim_phase(dev, seed: int) -> dict:
+    """Phase 21: the full-width cascade at head dims other than 32 and 64,
+    for d in HEAD_DIM_CASCADES: a seeded checkpoint of the copy served by
+    InferenceEngine (a 256³ reconstruct at batch 1, max_stage=3: finite, A 36
+    times on the tensor cores, no gradient kernel), then one stage-3 train
+    step at batch 1 with the fused backward (D on the tensor cores) and one
+    with the split one (L and M on the tensor cores, no D), finite."""
+    from hybrid_vit_cascade_tpu_torch.config import Config
+    from hybrid_vit_cascade_tpu_torch.inference.infer import (
+        InferenceEngine,
+        build_model,
+        save_checkpoint,
+    )
+    from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
+    from hybrid_vit_cascade_tpu_torch.ops import attention
+    from hybrid_vit_cascade_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.training.measure import train_steps
+
+    rec, t_phase = {}, time.perf_counter()
+    xr = torch.rand((1, 2, 1, 512, 512), generator=torch.Generator().manual_seed(seed + 1))
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    for d, heads in HEAD_DIM_CASCADES.items():
+        copy = _config_copy(CONFIG, f"progressive_cascade_d{d}.json",
+                            **{"model.stage_heads": list(heads)})
+        cfg = Config.from_json(str(copy))
+        model = seeded_init_(build_model(cfg), seed)
+        dims = {m.head_dim for m in model.modules() if hasattr(m, "head_dim")}
+        if dims != {d}:
+            raise AssertionError(f"[21] {copy.name}: head dims {dims}, expected {d}")
+        ckpt = CKPT_DIR / f"cascade_d{d}.pt"
+        save_checkpoint(ckpt, cfg, model)
+        del model
+        engine = InferenceEngine(ckpt, device=dev, max_stage=3)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        vol = engine.reconstruct(xr, max_stage=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = launch_counts()
+        finite = bool(torch.isfinite(vol.float()).all())
+        log(f"[21] d = {d} ({heads} heads): reconstruct 256³ (batch 1, bf16, first call) "
+            f"{wall:.2f} s, {tuple(vol.shape)} finite {finite}, std {float(vol.float().std()):.4f}; "
+            f"launches {({k: v for k, v in launched.items() if v})}")
+        if (tuple(vol.shape) != (1, 1, 256, 256, 256) or not finite
+                or launched["flash_attention"] != 36 or launched["flash_attention_tc"] != 36
+                or any(launched[k] for k in launched if "grad" in k or "bwd" in k)):
+            raise AssertionError(f"[21] d = {d}: reconstruct {tuple(vol.shape)} finite {finite}, "
+                                 f"launches {launched}")
+        rec[f"d{d}_reconstruct"] = {"wall_s": wall, "launches": launched}
+        del engine, vol
+        torch.cuda.empty_cache()
+        model = seeded_init_(build_model(cfg), seed).to(dev)
+        fused_before = attention.FUSED_BWD
+        for fused in (True, False):
+            attention.FUSED_BWD = fused
+            try:
+                r = train_steps(model, cfg, 3, 1, 0,
+                                torch.Generator(device=dev).manual_seed(seed + 90 + d))
+            finally:
+                attention.FUSED_BWD = fused_before
+            lc = r["launches_per_step"]
+            bwd = "fused" if fused else "split"
+            log(f"[21] d = {d}: stage-3 step ({bwd} backward, batch 1) warm-up "
+                f"{r['warmup_s']:.2f} s, peak {r['peak_allocated_gb']:.2f} GB, total_loss "
+                f"{r['total_loss'][0]:.5f}; launches {({k: v for k, v in lc.items() if v})}")
+            names = (("flash_attention_bwd",) if fused
+                     else ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+            if (not all(math.isfinite(v) for v in r["total_loss"])
+                    or any(not lc[k] or lc[f"{k}_tc"] != lc[k] for k in names)
+                    or lc["flash_attention_tc"] != lc["flash_attention"]
+                    or (not fused and lc["flash_attention_bwd"])):
+                raise AssertionError(f"[21] d = {d} {bwd} step: loss {r['total_loss']}, "
+                                     f"launches {lc}")
+            rec[f"d{d}_train_{bwd}"] = r
+        del model
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[21] phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 ORBAX_EPOCH = 3  # the converted entry's epoch: the resume starts at epoch 4
 ORBAX_COUNT = 7  # optax's Adam and schedule counts, and the trainer's step
 ORBAX_STEPS_PER_EPOCH = 10  # the schedule's length: 10 × stage 2's epochs
@@ -3881,6 +4226,7 @@ def main() -> int:
     ap.add_argument("--config", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--no-dropout", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if args.parallel_run:
         parallel_run(args.parallel_run, args.config, args.no_dropout)
         return 0
@@ -3897,6 +4243,9 @@ def main() -> int:
     )
     from hybrid_vit_cascade_tpu_torch.models.layers import seeded_init_
     from hybrid_vit_cascade_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from hybrid_vit_cascade_tpu_torch.ops.cuda.flash_attention import (
+        kernel_head_dim as fa_kernel_head_dim,
+    )
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4059,6 +4408,9 @@ def main() -> int:
     rows.update(time_kernels(dev, args.seed, TRAIN_KERNELS, _train_inputs, _train_fns))
     record["flash_bwd_bitwise"] = flash_bwd_bitwise(dev, args.seed)
     torch.cuda.empty_cache()
+    record["head_dims"] = head_dim_kernels(dev, args.seed)
+    rows.update(record["head_dims"].pop("rows"))
+    torch.cuda.empty_cache()
     record["tc_wgrad_launches"] = tc_wgrad_dispatch(dev, args.seed)
     torch.cuda.empty_cache()
     record["tc_fwd_launches"] = tc_fwd_dispatch(dev, args.seed)
@@ -4119,14 +4471,19 @@ def main() -> int:
     record["orbax_resume"] = orbax_resume_phase(dev, args.seed,
                                                 record["train"]["stage2"]["launches_per_step"])
 
+    # 21. the cascade at head dims 16 and 128
+    torch.cuda.empty_cache()
+    record["head_dim_cascades"] = head_dim_phase(dev, args.seed)
+
     # launches on the main path: the reconstruct [4], the first step of each
     # stage in [9], the cli train run of [11], the probe run of [12], the
     # serving commands of [13], [14]'s direct_vit reconstruct, first train
     # step and entry points, [15]'s first train steps, samplers and cli
     # train, [16]'s served calls, [17]'s cli train, [18]'s cli train under
-    # torchrun, [19]'s reconstruct and first step of each stage and [20]'s
-    # resumed step, each counted from 0
+    # torchrun, [19]'s reconstruct and first step of each stage, [20]'s
+    # resumed step and [21]'s reconstructs and steps, each counted from 0
     direct, diffusion = record["direct"], record["diffusion"]
+    s256 = diffusion["s256"]
     by_run = {"reconstruct": launched, **{f"train_{k}": v["launches_per_step"]
                                           for k, v in record["train"].items()},
               "cli_train": record["train_entry_point"]["launches"],
@@ -4141,13 +4498,21 @@ def main() -> int:
               **{f"diffusion_cascade_sample_{k}": v["launches"]
                  for k, v in diffusion["cascade_sample_r5"]["per_stage"].items()},
               "diffusion_cli": diffusion["cli_train"]["launches"],
+              "diffusion_train_s3_b1": s256["train_s3_b1"]["launches_per_step"],
+              **{f"diffusion_cascade_sample256_{k}": v["launches"]
+                 for k, v in s256["cascade_sample_256"]["per_stage"].items()},
+              "diffusion_cli256": s256["cli_train"]["launches"],
               **{f"served_{k}": record["export"][k]["launches"] for k in ("cascade", "direct_vit")},
               "observability_cli": record["observability"]["launches"],
               "parallel_cli": record["parallel"]["launches"],
               "h200_reconstruct": record["h200"]["reconstruct"]["launches"],
               **{f"h200_train_s{n}": record["h200"][f"stage{n}"]["launches_per_step"]
                  for n in (1, 2, 3)},
-              "orbax_resume": record["orbax_resume"]["launches"]}
+              "orbax_resume": record["orbax_resume"]["launches"],
+              **{f"headdim{d}_reconstruct": record["head_dim_cascades"][f"d{d}_reconstruct"][
+                  "launches"] for d in HEAD_DIM_CASCADES},
+              **{f"headdim{d}_train_{bwd}": record["head_dim_cascades"][f"d{d}_train_{bwd}"][
+                  "launches_per_step"] for d in HEAD_DIM_CASCADES for bwd in ("fused", "split")}}
     by_run = {run: {**dict.fromkeys(launched, 0), **counts} for run, counts in by_run.items()}
     kernels = []
     for name, spec in {**KERNELS, **TRAIN_KERNELS, **CHAIN_KERNELS}.items():
@@ -4196,6 +4561,26 @@ def main() -> int:
                 "library_ms": library_ms(name, sh, dev, args.seed),
                 "max_abs_err": record["h200"]["max_abs_err"][name],
                 "launches": sum(h_runs.values()), "launches_by_run": h_runs}
+        if name in FLASH_NAMES:  # head dims 16 (padded) and 128: [7h]'s rows, [21]'s launches
+            tc_name = _TC_COUNTERS[name]
+            kernels[-1]["head_dims"] = {}
+            for d, shapes in HEAD_DIM_AT.items():
+                h_runs = {k: by_run[k][name] for k in by_run if k.startswith(f"headdim{d}_")}
+                kernels[-1]["head_dims"][str(d)] = {
+                    "instance_d": fa_kernel_head_dim(d),
+                    "at": [{"at": f"{sh} bf16", "ms": rows[(name, sh)][0],
+                            "plain_ms": rows[(name, sh)][1],
+                            "bound_ms": bound(name, sh, exp2_rate=exp2_rate)[0],
+                            "bound_by": bound(name, sh, exp2_rate=exp2_rate)[1],
+                            "library_ms": library_ms(name, sh, dev, args.seed)} for sh in shapes],
+                    "max_abs_err": record["head_dims"]["max_abs_err"][f"{name} d{d}"],
+                    "launches": sum(h_runs.values()), "launches_by_run": h_runs,
+                    "tc_launches": sum(by_run[k][tc_name] for k in h_runs)}
+                hd = kernels[-1]["head_dims"][str(d)]
+                log(f"  {name:24s} d = {d}: " + "; ".join(
+                    f"{a['at']} {a['ms']:.3f} ms, plain {a['plain_ms']:.3f}, bound "
+                    f"{a['bound_ms']:.3f} ({a['bound_by']}), library {a['library_ms']:.3f}"
+                    for a in hd["at"]) + f"; launches {hd['launches']} (tc {hd['tc_launches']})")
         if name == "conv3d_k3s2_c1in_dgrad":  # its fp32 instance, off the bf16 main path
             fp32_runs = {run: counts["conv3d_k3s2_dgrad_c1in_fp32"] for run, counts in by_run.items()}
             kernels[-1]["fp32"] = {**record["fp32_stem_dgrad"], "launches": sum(fp32_runs.values()),
@@ -4236,7 +4621,9 @@ def main() -> int:
     unlaunched = [k["name"] for k in kernels if k["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"kernels the main path never launched: {unlaunched}")
+    record["wall_s"] = time.perf_counter() - t_start
     (BUILD_DIR / "chip_smoke.json").write_text(json.dumps({**record, "kernels": kernels}, indent=1))
+    log(f"wall {record['wall_s']:.1f} s (build {build_s:.1f} s)")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,9 +29,16 @@ Orbax metadata, each leaf a ``ShapeDtypeStruct`` on one CPU device: the
 file's own tree (optax's masked leaves included, which name the trainable
 set) restores on any host, from any mesh.
 
+The root of a diffusion run that did not train progressively (JAX
+``fit_diffusion``) holds the ladder's last stage alone, with the shared
+encoder and time MLP: its entries convert to that stage's keys, which
+``models.diffusion.load_ladder_state`` loads strict into the port's ladder
+(the port's ``fit_diffusion`` resumes from them through it).
+
 It refuses, writing nothing: an unknown model family; a tree whose names or
 shapes do not load ``strict=True`` into the port's ``build_model`` of the
-embedded config; an optimizer tree of another shape than the two the JAX
+embedded config (a diffusion tree: the whole ladder or one stage of it, the
+root's the last stage); an optimizer tree of another shape than the two the JAX
 ``make_optimizer`` builds; and an optimizer state whose trainable set is not
 the port's rule for its directory. Output is written into ``<to>.converting``
 and renamed to ``<to>`` at the end. One line is printed per entry.
@@ -140,6 +147,7 @@ def convert_dir(src: Path, dst: Path, rel: str, log) -> None:
     from hybrid_vit_cascade_tpu_torch import convert
     from hybrid_vit_cascade_tpu_torch.config import Config
     from hybrid_vit_cascade_tpu_torch.inference.infer import build_model
+    from hybrid_vit_cascade_tpu_torch.models.diffusion import load_ladder_state
     from hybrid_vit_cascade_tpu_torch.training.checkpoint import write_entry
 
     dst.mkdir(parents=True, exist_ok=True)
@@ -160,7 +168,14 @@ def convert_dir(src: Path, dst: Path, rel: str, log) -> None:
         key = json.dumps(meta.get("config", {}), sort_keys=True)
         model = models[key] = models.get(key) or build_model(cfg)
         try:
-            model.load_state_dict(sd, strict=True)
+            if family == "diffusion":
+                held = load_ladder_state(model, sd)
+                ladder = [c["name"] for c in model.stage_configs]
+                if rel == "" and held not in (ladder, ladder[-1:]):
+                    raise RuntimeError(f"the root holds stage {held}, not the ladder's last "
+                                       f"({ladder[-1]!r}) that fit_diffusion trains")
+            else:
+                model.load_state_dict(sd, strict=True)
         except RuntimeError as e:
             raise ConversionError(f"{where}{name}: the tree does not load into the port's "
                                   f"{family} model of its config: {e}") from None

@@ -188,6 +188,11 @@ def _build_training(src: dict) -> TrainingConfig:
     return t
 
 
+# the values of model.attn_impl, as the JAX dispatcher reads them
+# (ops/attention.py:144); ops/attention.py dispatches on them
+ATTN_IMPLS = ("auto", "flash", "flash_sharded", "xla")
+
+
 def validate_config(cfg: Config) -> None:
     """Schema and consistency checks (the JAX ``validate_config``)."""
     if cfg.model.family not in MODEL_FAMILIES:
@@ -199,6 +204,9 @@ def validate_config(cfg: Config) -> None:
         raise ValueError(f"slab_impl must be streamed|recompute, got {cfg.model.slab_impl}")
     if cfg.model.remat_mode not in ("block", "mlp"):
         raise ValueError(f"remat_mode must be block|mlp, got {cfg.model.remat_mode}")
+    if cfg.model.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {'|'.join(ATTN_IMPLS)}, got "
+                         f"{cfg.model.attn_impl!r}")
     if cfg.model.family == "cascade":
         for name in ("stage1", "stage2", "stage3"):
             if name not in cfg.training.stages:

@@ -9,8 +9,10 @@
 //
 // Not carried over from the TPU kernel: the 128-lane padding of d and the
 // "ones-lane" padded into V. Both work around the TPU's (8, 128) tiling; here
-// d is a template parameter, and the tensor-core path takes the same row sum
-// from an all-ones operand of its own (the CUDA-core path sums in a register).
+// d is a template parameter (32, 64 or 128; the wrapper zero-pads any other
+// d ≤ 128 to the next of these), and the tensor-core path takes the same row
+// sum from an all-ones operand of its own (the CUDA-core path sums in a
+// register).
 //
 // What bounds it on this card: at the main path's long shapes (8 heads ×
 // 32,768 queries × 32,768 keys, d = 32) the work is 4·N²·d flops per head and
@@ -43,8 +45,14 @@
 // wgmma (64-row warpgroup tiles) and a polynomial exp2 on the FMA units,
 // which FlashAttention-3 uses to get under the exp2 term, are not used.
 //
+// At d = 128 the tensor-core instance holds a 16 × 128 fp32 accumulator and
+// the q fragments a warp (96 registers a thread): it is launched for 2 blocks
+// an SM (255 registers a thread) where d ≤ 64 takes 4, and its 87 KB of
+// shared memory is dynamic.
+//
 // fp32 on the CUDA cores (flash_fwd_kernel): fp32 FMAs, one query row per
-// thread, with q, the accumulator and one tile of scores held in registers;
+// thread (d = 128: half a row, the two halves' dot products combined with one
+// warp shuffle), with q, the accumulator and one tile of scores held in registers;
 // K and V tiles staged once per block in shared memory and read as float4
 // broadcasts, so four FMAs are issued per shared-memory load; one exp2 per
 // score, with log2(e) folded into the q pre-scale.
@@ -78,26 +86,31 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, int D, int BKV>
+// TPR threads per query row (neighbouring lanes), each owning DH = D / TPR
+// columns of q and of the accumulator.
+template <typename T, int D, int BKV, int TPR>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, long long nq, long long nk,
                  float scale_log2) {
-  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
+  constexpr int DH = D / TPR;
+  static_assert(DH % 4 == 0, "a thread's columns must be a multiple of 4");
   __shared__ __align__(16) float ks[BKV * D];
   __shared__ __align__(16) float vs[BKV * D];
 
   const long long bh = blockIdx.y;
-  const long long row = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / TPR) + threadIdx.x / TPR;
+  const int c0 = (threadIdx.x % TPR) * DH;  // first column owned by this thread
   const bool valid = row < nq;
-  const T* qrow = q + (bh * nq + (valid ? row : 0)) * D;
+  const T* qrow = q + (bh * nq + (valid ? row : 0)) * D + c0;
   const T* kb = k + bh * nk * D;
   const T* vb = v + bh * nk * D;
 
-  float qr[D];
-  float acc[D];
+  float qr[DH];
+  float acc[DH];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
+  for (int c = 0; c < DH; ++c) {
     qr[c] = valid ? to_f32(qrow[c]) * scale_log2 : 0.f;
     acc[c] = 0.f;
   }
@@ -121,16 +134,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     float m_new = m;
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * D);
+      const float4* kr = reinterpret_cast<const float4*>(ks + j * D + c0);
       float dot = 0.f;
 #pragma unroll
-      for (int c4 = 0; c4 < D / 4; ++c4) {
+      for (int c4 = 0; c4 < DH / 4; ++c4) {
         const float4 kk = kr[c4];
         dot = fmaf(qr[4 * c4 + 0], kk.x, dot);
         dot = fmaf(qr[4 * c4 + 1], kk.y, dot);
         dot = fmaf(qr[4 * c4 + 2], kk.z, dot);
         dot = fmaf(qr[4 * c4 + 3], kk.w, dot);
       }
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       s[j] = j < n_valid ? dot : -CUDART_INF_F;
       m_new = fmaxf(m_new, s[j]);
     }
@@ -139,14 +154,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float alpha = exp2f(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
+    for (int c = 0; c < DH; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
       const float p = exp2f(s[j] - m_new);
       l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * D);
+      const float4* vr = reinterpret_cast<const float4*>(vs + j * D + c0);
 #pragma unroll
-      for (int c4 = 0; c4 < D / 4; ++c4) {
+      for (int c4 = 0; c4 < DH / 4; ++c4) {
         const float4 vv = vr[c4];
         acc[4 * c4 + 0] = fmaf(p, vv.x, acc[4 * c4 + 0]);
         acc[4 * c4 + 1] = fmaf(p, vv.y, acc[4 * c4 + 1]);
@@ -159,19 +174,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (valid) {
     const float inv = 1.f / l;
-    T* orow = out + (bh * nq + row) * D;
+    T* orow = out + (bh * nq + row) * D + c0;
 #pragma unroll
-    for (int c = 0; c < D; ++c) orow[c] = from_f32<T>(acc[c] * inv);
-    lse[bh * nq + row] = (m + log2f(l)) * kLn2;
+    for (int c = 0; c < DH; ++c) orow[c] = from_f32<T>(acc[c] * inv);
+    if (c0 == 0) lse[bh * nq + row] = (m + log2f(l)) * kLn2;
   }
 }
 
-template <typename T, int D, int BKV>
+template <typename T, int D, int BKV, int TPR>
 void launch(const void* q, const void* k, const void* v, void* out, void* lse, long long bh,
             long long nq, long long nk, float scale, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((nq + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(bh));
-  flash_fwd_kernel<T, D, BKV><<<grid, kThreads, 0, stream>>>(
+  constexpr int rows = kThreads / TPR;  // query rows per block
+  const dim3 grid(static_cast<unsigned>((nq + rows - 1) / rows), static_cast<unsigned>(bh));
+  flash_fwd_kernel<T, D, BKV, TPR><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), nq, nk, scale * kLog2e);
 }
@@ -181,6 +196,15 @@ void launch(const void* q, const void* k, const void* v, void* out, void* lse, l
 constexpr int kTcWarps = 4;
 constexpr int kTcRows = 16 * kTcWarps;  // query rows per block
 constexpr int kTcKv = 64;               // keys per tile
+
+template <int D>
+struct FwdTcShape {
+  static constexpr int LD = D + 8;  // bf16 per shared row: 16 bytes of padding
+  // q, then K and V × 2 buffers, dynamic (d = 128: 87,040 bytes)
+  static constexpr int SMEM = (kTcRows + 4 * kTcKv) * LD * 2;
+  // ≤ 128 registers a thread at d ≤ 64 (4 blocks an SM), ≤ 255 at d = 128
+  static constexpr int MIN_BLOCKS = D <= 64 ? 4 : 2;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -201,15 +225,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcWarps * 32, 4)
+__global__ void __launch_bounds__(kTcWarps * 32, FwdTcShape<D>::MIN_BLOCKS)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
                     long long nq, long long nk, float scale_log2) {
-  constexpr int LD = D + 8;  // bf16 per shared row: 16 bytes of padding
+  constexpr int LD = FwdTcShape<D>::LD;
   constexpr int KS = D / 16; // k-steps of q·kᵀ
   constexpr int DT = D / 8;  // 8-column tiles of the output
-  __shared__ __align__(16) unsigned short smem[(kTcRows + 4 * kTcKv) * LD];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks[2] = {qs + kTcRows * LD, qs + (kTcRows + kTcKv) * LD};
   bf16* vs[2] = {qs + (kTcRows + 2 * kTcKv) * LD, qs + (kTcRows + 3 * kTcKv) * LD};
 
@@ -354,35 +378,45 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-void launch_tc(const void* q, const void* k, const void* v, void* out, void* lse, long long bh,
-               long long nq, long long nk, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse, long long bh,
+              long long nq, long long nk, float scale, cudaStream_t stream) {
+  constexpr int smem = FwdTcShape<D>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((nq + kTcRows - 1) / kTcRows), static_cast<unsigned>(bh));
-  flash_fwd_tc_kernel<D><<<grid, kTcWarps * 32, 0, stream>>>(
+  flash_fwd_tc_kernel<D><<<grid, kTcWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; q, k, v 16-byte
-// aligned). head_dim: 32 or 64. Returns a cudaError_t.
+// aligned). head_dim: 32, 64 or 128. Returns a cudaError_t.
 extern "C" int hvc_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* lse, long long bh, long long nq, long long nk,
                                        int head_dim, int dtype, float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (nq + kThreads - 1) / kThreads > 2147483647LL)
+  // the smallest row block of any instance: 64 rows (tensor cores; d = 128 on the CUDA cores)
+  if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || (nq + kTcRows - 1) / kTcRows > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                      reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (head_dim == 32) return launch_tc<32>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    if (head_dim == 64) return launch_tc<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    if (head_dim == 128) return launch_tc<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0 && head_dim == 32) {
-    launch<float, 32, 64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    launch<float, 32, 64, 1>(q, k, v, out, lse, bh, nq, nk, scale, s);
   } else if (dtype == 0 && head_dim == 64) {
-    launch<float, 64, 32>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  } else if (dtype == 1 && head_dim == 32) {
-    launch_tc<32>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    launch_tc<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    launch<float, 64, 32, 1>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  } else if (dtype == 0 && head_dim == 128) {
+    launch<float, 128, 32, 2>(q, k, v, out, lse, bh, nq, nk, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

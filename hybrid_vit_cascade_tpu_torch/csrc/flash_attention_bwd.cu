@@ -40,8 +40,8 @@
 //
 // fp32 on the CUDA cores (flash_bwd_kernel): a block owns a group of
 // consecutive key tiles of 64 keys and takes them one after the other: for
-// each it sweeps every query tile, one key row per thread (d = 32) or half
-// of one (d = 64, the two halves combined with one warp shuffle) holding its
+// each it sweeps every query tile, one key row per thread (d = 32) or a half
+// or a quarter of one (d = 64, 128: the parts combined with warp shuffles) holding its
 // k, v, dk and dv slices in registers, the query tile's q, dout, lse and delta
 // staged once per block in shared memory and read as float4 broadcasts (four
 // FMAs per shared-memory load); the dq share ds·K is a small register-blocked
@@ -50,7 +50,15 @@
 // Each partial element has one writer, which adds the key tiles in order, and
 // a second small kernel adds the G partials in group order (repeatable bits).
 // The caller picks G (about 4 blocks per SM; every group non-empty) and
-// allocates the (G, BH, Nq, d) partials uninitialised.
+// allocates the (G, BH, Nq, d) partials uninitialised. Its shared memory is
+// dynamic: 41 KB at d = 32 and 64, 74 KB at d = 128.
+//
+// d = 128 (any other d ≤ 128 arrives zero-padded to 32, 64 or 128): the
+// tensor-core instance keeps its tiles (128 keys an item, query tiles of 64,
+// so the dq scratch and counters are sized as at d ≤ 64) but no longer holds
+// the k and v fragments in registers: it reads them from shared memory at
+// each use and takes a query tile's scores 32 queries at a time, so that dk
+// and dv (128 fp32 registers a thread) fit in 255 registers (flash_bwd_tc.cuh).
 //
 // Layout: q (BH, Nq, d), k and v (BH, Nk, d), dout (BH, Nq, d), contiguous,
 // fp32 or bf16 (the bf16 ones 16-byte aligned); lse and delta (BH, Nq) fp32;
@@ -89,6 +97,9 @@ struct BwdShape {
   static constexpr int kBq = D == 32 ? 64 : 32;        // query rows per staged tile
   static constexpr int kColGroups = D / 4;             // float4 columns of dq
   static constexpr int kRows = kBq * kColGroups / kThreads;  // dq rows per thread
+  static constexpr int kDss = kBkv + 1;                // ds row stride: conflict-free column reads
+  // q, dout and ks tiles, ds, lse and delta, fp32, dynamic
+  static constexpr int kSmem = (2 * kBq * D + kBkv * D + kBq * kDss + 2 * kBq) * 4;
 };
 
 // Grid (G, BH): block (grp, bh) takes key tiles grp·per … grp·per + per − 1
@@ -106,15 +117,16 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int BQ = S::kBq;
   constexpr int CG = S::kColGroups;
   constexpr int RQ = S::kRows;
-  constexpr int DSS = kBkv + 1;  // ds row stride: conflict-free column reads
+  constexpr int DSS = S::kDss;
   static_assert(RQ * (NT / CG) == BQ, "dq tile must cover the query tile");
 
-  __shared__ __align__(16) float qs[BQ * D];
-  __shared__ __align__(16) float dos[BQ * D];
-  __shared__ __align__(16) float ks[kBkv * D];
-  __shared__ float ds_s[BQ * DSS];
-  __shared__ float lse_s[BQ];
-  __shared__ float delta_s[BQ];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // BQ × D
+  float* dos = qs + BQ * D;                         // BQ × D
+  float* ks = dos + BQ * D;                         // kBkv × D
+  float* ds_s = ks + kBkv * D;                      // BQ × DSS
+  float* lse_s = ds_s + BQ * DSS;                   // BQ
+  float* delta_s = lse_s + BQ;                      // BQ
 
   const long long grp = blockIdx.x;
   const long long bh = blockIdx.y;
@@ -190,9 +202,10 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           dp = fmaf(dd.z, vr[4 * c4 + 2], dp);
           dp = fmaf(dd.w, vr[4 * c4 + 3], dp);
         }
-        if (TPR == 2) {  // the two halves of a key row are neighbouring lanes
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1) {  // the parts of a key row are neighbouring lanes
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+          dp += __shfl_xor_sync(0xffffffffu, dp, o);
         }
         const float p = jvalid ? exp2f(fmaf(s, scale_log2, -lse_s[i])) : 0.f;
         const float ds = p * (dp - delta_s[i]);
@@ -276,13 +289,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   // every group takes at least one key tile: its partial is written
   if (groups < 1 || groups > n_tiles || (groups - 1) * per >= n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = BwdShape<D>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(bh));
-  flash_bwd_kernel<T, D><<<grid, BwdShape<D>::kThreads, 0, stream>>>(
+  flash_bwd_kernel<T, D><<<grid, BwdShape<D>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq_part), static_cast<T*>(dk),
       static_cast<T*>(dv), bh, nq, nk, per, scale);
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n = bh * nq * D;
   sum_groups_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
@@ -297,7 +314,7 @@ bool bwd_uses_tc(int dtype) { return dtype == 1; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Scratch by instance
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 32, 64 or 128. Scratch by instance
 // (bwd_uses_tc): the tensor cores take dq_scratch as the fp32 (BH, Nq, d)
 // accumulator and counters as 1 + BH·⌈Nq/64⌉ int32, all zero (groups is not
 // read); the CUDA cores take dq_scratch as the G = groups partials
@@ -322,12 +339,16 @@ extern "C" int hvc_flash_attention_bwd(const void* q, const void* k, const void*
     if (head_dim == 64)
       return launch_bwd_tc<64, true>(q, k, v, dout, lse, delta, dq_scratch, counters, dq, dk, dv,
                                      bh, nq, nk, scale, s);
+    if (head_dim == 128)
+      return launch_bwd_tc<128, true>(q, k, v, dout, lse, delta, dq_scratch, counters, dq, dk,
+                                      dv, bh, nq, nk, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define LAUNCH_BWD(T, D) \
   launch<T, D>(q, k, v, dout, lse, delta, dq_scratch, dq, dk, dv, bh, nq, nk, groups, scale, s)
   if (dtype == 0 && head_dim == 32) return LAUNCH_BWD(float, 32);
   if (dtype == 0 && head_dim == 64) return LAUNCH_BWD(float, 64);
+  if (dtype == 0 && head_dim == 128) return LAUNCH_BWD(float, 128);
 #undef LAUNCH_BWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

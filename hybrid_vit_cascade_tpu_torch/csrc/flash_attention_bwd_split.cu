@@ -59,9 +59,15 @@
 // pb = p.astype, ds = (...).astype) and taken as A operands straight from the
 // accumulator fragments; one block per item. Its dk and dv are D's bits.
 //
+// At d = 128 (the wrapper zero-pads any other d ≤ 128 to 32, 64 or 128) the
+// tensor-core L holds q, dout and dq fragments of 16 × 128 a warp: it is
+// launched for 2 blocks an SM (255 registers a thread) and its 68 KB of
+// double-buffered K and V is dynamic shared memory; M takes D's body at
+// d = 128 (flash_bwd_tc.cuh); the fp32 L stages K and V tiles of 32 keys.
+//
 // L and M in fp32 run as fp32 FMAs on the CUDA cores (67 TFLOP/s peak): each
-// thread owns one row (d = 32) or half of one (d = 64, the halves combined with
-// one warp shuffle) and holds its slices of the row's operands and
+// thread owns one row (d = 32) or a half or a quarter of one (d = 64, 128, the
+// parts combined with warp shuffles) and holds its slices of the row's operands and
 // accumulators in registers; the other side's tile is staged once per block in
 // shared memory as fp32 and read as float4 broadcasts, four FMAs per
 // shared-memory load. These do not round p and ds.
@@ -95,8 +101,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 // Σ over this thread's kDh columns of a·row, and of b·row2, for rows in shared
-// memory read as float4 broadcasts; the two halves of a d = 64 row are
-// neighbouring lanes and are combined with one shuffle.
+// memory read as float4 broadcasts; the TPR parts of a d = 64 or 128 row are
+// neighbouring lanes and are combined with shuffles.
 template <int TPR>
 __device__ __forceinline__ void two_dots(const float* ra, const float* rb, const float (&a)[kDh],
                                          const float (&b)[kDh], float& sa, float& sb) {
@@ -117,9 +123,10 @@ __device__ __forceinline__ void two_dots(const float* ra, const float* rb, const
     sb = fmaf(y.z, b[4 * c4 + 2], sb);
     sb = fmaf(y.w, b[4 * c4 + 3], sb);
   }
-  if (TPR == 2) {
-    sa += __shfl_xor_sync(0xffffffffu, sa, 1);
-    sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, o);
+    sb += __shfl_xor_sync(0xffffffffu, sb, o);
   }
 }
 
@@ -145,7 +152,10 @@ __device__ __forceinline__ void load_row(const T* src, bool valid, float (&dst)[
 // ------------------------------------------------------------- kernel L: dq ---
 
 constexpr int kDqRows = 128;  // query rows per block
-constexpr int kDqBkv = 64;    // keys per staged tile
+
+// keys per staged tile: 64, 32 at d = 128 (K and V tiles in 32 KB)
+template <int D>
+__host__ __device__ constexpr int dq_bkv() { return D == 128 ? 32 : 64; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kDqRows * (D / kDh))
@@ -155,6 +165,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long nk, float scale) {
   constexpr int TPR = D / kDh;
   constexpr int NT = kDqRows * TPR;
+  constexpr int kDqBkv = dq_bkv<D>();
   __shared__ __align__(16) float ks[kDqBkv * D];
   __shared__ __align__(16) float vs[kDqBkv * D];
 
@@ -297,9 +308,14 @@ __device__ __forceinline__ void load_rows_dq(bf16* dst, const bf16* src, long lo
   }
 }
 
-// ≤ 128 registers a thread at d = 32 (4 blocks an SM), ≤ 168 at d = 64
+// bf16 of one k or v tile: rows padded by 16 bytes
 template <int D>
-__global__ void __launch_bounds__(kDqTcThreads, D == 32 ? 4 : 3)
+__host__ __device__ constexpr int dq_tc_tile() { return kDqTcKv * (D + 8); }
+
+// ≤ 128 registers a thread at d = 32 (4 blocks an SM), ≤ 168 at d = 64, ≤ 255
+// at d = 128; the four tiles in dynamic shared memory (68 KB at d = 128)
+template <int D>
+__global__ void __launch_bounds__(kDqTcThreads, D == 32 ? 4 : D == 64 ? 3 : 2)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
@@ -307,10 +323,10 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + 8;  // bf16 per shared row: 16 bytes of padding
   constexpr int KS = D / 16; // k-steps of q·kᵀ and dout·vᵀ
   constexpr int DT = D / 8;  // 8-column tiles of dq
-  constexpr int TILE = kDqTcKv * LD;  // bf16 of one k or v tile
+  constexpr int TILE = dq_tc_tile<D>();  // bf16 of one k or v tile
   // k and v tiles of buffer b at base + 2b·TILE and base + (2b + 1)·TILE
-  __shared__ __align__(16) unsigned short smem[4 * TILE];
-  bf16* base = reinterpret_cast<bf16*>(smem);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* base = reinterpret_cast<bf16*>(smem_raw);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long bh = blockIdx.y;
@@ -429,9 +445,13 @@ template <int D>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* delta, void* dq, long long bh, long long nq, long long nk,
                  float scale, cudaStream_t stream) {
+  constexpr int smem = 4 * dq_tc_tile<D>() * 2;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((nq + kDqTcRows - 1) / kDqTcRows),
                   static_cast<unsigned>(bh));
-  flash_bwd_dq_tc_kernel<D><<<grid, kDqTcThreads, 0, stream>>>(
+  flash_bwd_dq_tc_kernel<D><<<grid, kDqTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq), nq, nk, scale);
@@ -456,7 +476,7 @@ bool dq_uses_tc(int dtype) { return dtype == 1; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and dout 16-byte aligned).
-// head_dim: 32 or 64. Returns a cudaError_t.
+// head_dim: 32, 64 or 128. Returns a cudaError_t.
 extern "C" int hvc_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, long long bh,
@@ -470,6 +490,8 @@ extern "C" int hvc_flash_attention_bwd_dq(const void* q, const void* k, const vo
       return static_cast<int>(cudaErrorMisalignedAddress);
     if (head_dim == 32) return launch_dq_tc<32>(q, k, v, dout, lse, delta, dq, bh, nq, nk, scale, s);
     if (head_dim == 64) return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh, nq, nk, scale, s);
+    if (head_dim == 128)
+      return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, nq, nk, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!sizes_ok(bh, nq, nk, kDqRows, nq)) return static_cast<int>(cudaErrorInvalidValue);
@@ -483,6 +505,8 @@ extern "C" int hvc_flash_attention_bwd_dq(const void* q, const void* k, const vo
     HVC_DQ(float, 32);
   } else if (dtype == 0 && head_dim == 64) {
     HVC_DQ(float, 64);
+  } else if (dtype == 0 && head_dim == 128) {
+    HVC_DQ(float, 128);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -507,6 +531,9 @@ extern "C" int hvc_flash_attention_bwd_dkv(const void* q, const void* k, const v
     if (head_dim == 64)
       return launch_bwd_tc<64, false>(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
                                       bh, nq, nk, scale, s);
+    if (head_dim == 128)
+      return launch_bwd_tc<128, false>(q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk,
+                                       dv, bh, nq, nk, scale, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>((nk + kKvRows - 1) / kKvRows), static_cast<unsigned>(bh));
@@ -520,6 +547,8 @@ extern "C" int hvc_flash_attention_bwd_dkv(const void* q, const void* k, const v
     HVC_DKV(float, 32);
   } else if (dtype == 0 && head_dim == 64) {
     HVC_DKV(float, 64);
+  } else if (dtype == 0 && head_dim == 128) {
+    HVC_DKV(float, 128);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

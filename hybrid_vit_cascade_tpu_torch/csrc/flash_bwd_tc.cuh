@@ -32,6 +32,12 @@
 // never depends on launch order or on how many blocks are resident. A last
 // kernel scales the accumulator and casts it to bf16.
 //
+// At d = 128 (the wrapper zero-pads any other d ≤ 128 to 32, 64 or 128) the
+// tiles stay; dk and dv alone take 128 fp32 registers a thread, so the warp's
+// k and v fragments are read from shared memory at each use instead of held
+// in registers (KV_REGS), and a query tile's Sᵀ, dPᵀ, P and dS are taken 32
+// queries at a time (QSUB = 2): one block an SM, 255 registers a thread.
+//
 // Without DQ (kernel M) none of that runs: no dS store, no dq product, no
 // counters, no waits, and no dS buffer in shared memory. Each item has its
 // own dk and dv rows and nothing to wait for, so a plain grid serves, one
@@ -63,7 +69,22 @@ struct TbShape {
   // k, v, q and dout × 2 buffers, dS (DQ only), lse and delta × 2 buffers
   static constexpr int smem(bool dq) { return (2 * KV + 4 * QT + (dq ? DS : 0)) * 2 + 4 * kTbRows * 4; }
   static constexpr int MIN_BLOCKS = D == 32 ? 2 : 1;  // ≤ 128 registers a thread at d = 32
+  static constexpr bool KV_REGS = D <= 64;  // k and v fragments held in registers
+  static constexpr int QSUB = D <= 64 ? 1 : 2;  // parts of a query tile taken in turn
 };
+
+// The A fragment of k-step kk of this warp's 16 rows: from the registers it
+// is held in (HELD), else by ldmatrix from the shared rows it came from.
+template <bool HELD, int KS>
+__device__ __forceinline__ void kv_frag(uint32_t (&a)[4], const uint32_t (&held)[KS][4],
+                                        const bf16* s, int ld, int row0, int kk, int lane) {
+  if constexpr (HELD) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = held[kk][i];
+  } else {
+    load_a(a, s, ld, row0, kk * 16, lane);
+  }
+}
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -120,6 +141,8 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using TS = TbShape<D>;
   constexpr int LD = TS::LD, LDS = TS::LDS;
   constexpr int KS = D / 16;  // k-steps of the products over d
+  constexpr int QS = kTbRows / TS::QSUB;  // queries of a part of a query tile
+  constexpr int JT = QS / 8;              // its 8-query tiles
   constexpr int DT = D / 8;   // 8-column tiles of dk, dv
   constexpr int QN = D / 16;  // 8-column tiles of a warp's dq share (d / 2 columns)
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -198,7 +221,7 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* dosb = dos0 + buf * TS::QT;
       const float* lse_s = lse0 + buf * kTbRows;
       const float* del_s = del0 + buf * kTbRows;
-      if (qt == 0) {
+      if (TS::KV_REGS && qt == 0) {
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
           load_a(kf[kk], ks, LD, warp * 16, kk * 16, lane);
@@ -206,77 +229,86 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // dPᵀ = V·doutᵀ, then Sᵀ = K·qᵀ two 8-query tiles at a time, each turned
-      // into P and dS at once: element e of tile j is key lane / 4 + 8·(e / 2)
-      // of the warp's 16, query 8j + 2·(lane % 4) + e % 2 of the tile
-      float dp[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int sub = 0; sub < TS::QSUB; ++sub) {  // queries q0 … q0 + QS − 1 of the tile
+        const int q0 = sub * QS;
+        // dPᵀ = V·doutᵀ, then Sᵀ = K·qᵀ two 8-query tiles at a time, each turned
+        // into P and dS at once: element e of tile j is key lane / 4 + 8·(e / 2)
+        // of the warp's 16, query q0 + 8j + 2·(lane % 4) + e % 2 of the tile
+        float dp[JT][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+        for (int j = 0; j < JT; ++j)
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-        for (int j2 = 0; j2 < 4; ++j2) {
-          uint32_t b[4];
-          ldsm_x4(b, dosb + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                         (((lane >> 3) & 1) << 3));
-          mma16816(dp[2 * j2], vf[kk], b[0], b[1]);
-          mma16816(dp[2 * j2 + 1], vf[kk], b[2], b[3]);
-        }
-      uint32_t pb[8][2], dsb[8][2];  // bf16 pairs [tile][row half]
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) {
-          uint32_t b[4];
-          ldsm_x4(b, qsb + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                         (((lane >> 3) & 1) << 3));
-          mma16816(s[0], kf[kk], b[0], b[1]);
-          mma16816(s[1], kf[kk], b[2], b[3]);
-        }
+          uint32_t va[4];
+          kv_frag<TS::KV_REGS>(va, vf, vs, LD, warp * 16, kk, lane);
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int j = 2 * j2 + t;
-          const int col = 8 * j + 2 * (lane & 3);
-          const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
-          const float2 dl = *reinterpret_cast<const float2*>(del_s + col);
-          const float nl[2] = {-l.x * kLog2e, -l.y * kLog2e};
-          const float de[2] = {dl.x, dl.y};
-          float p[4], ds[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            p[e] = key_ok[e >> 1] ? exp2f(fmaf(s[t][e], c, nl[e & 1])) : 0.f;
-            ds[e] = p[e] * (dp[j][e] - de[e & 1]);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            pb[j][h] = pack_bf16x2(p[2 * h], p[2 * h + 1]);
-            dsb[j][h] = pack_bf16x2(ds[2 * h], ds[2 * h + 1]);
-            if constexpr (DQ)
-              *reinterpret_cast<uint32_t*>(dss + (warp * 16 + (lane >> 2) + 8 * h) * LDS + col) =
-                  dsb[j][h];
+          for (int j2 = 0; j2 < JT / 2; ++j2) {
+            uint32_t b[4];
+            ldsm_x4(b, dosb + (q0 + j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                           (((lane >> 3) & 1) << 3));
+            mma16816(dp[2 * j2], va, b[0], b[1]);
+            mma16816(dp[2 * j2 + 1], va, b[2], b[3]);
           }
         }
-      }
+        uint32_t pb[JT][2], dsb[JT][2];  // bf16 pairs [tile][row half]
+#pragma unroll
+        for (int j2 = 0; j2 < JT / 2; ++j2) {
+          float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t ka[4];
+            kv_frag<TS::KV_REGS>(ka, kf, ks, LD, warp * 16, kk, lane);
+            uint32_t b[4];
+            ldsm_x4(b, qsb + (q0 + j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                           (((lane >> 3) & 1) << 3));
+            mma16816(s[0], ka, b[0], b[1]);
+            mma16816(s[1], ka, b[2], b[3]);
+          }
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int j = 2 * j2 + t;
+            const int col = q0 + 8 * j + 2 * (lane & 3);
+            const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+            const float2 dl = *reinterpret_cast<const float2*>(del_s + col);
+            const float nl[2] = {-l.x * kLog2e, -l.y * kLog2e};
+            const float de[2] = {dl.x, dl.y};
+            float p[4], ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              p[e] = key_ok[e >> 1] ? exp2f(fmaf(s[t][e], c, nl[e & 1])) : 0.f;
+              ds[e] = p[e] * (dp[j][e] - de[e & 1]);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              pb[j][h] = pack_bf16x2(p[2 * h], p[2 * h + 1]);
+              dsb[j][h] = pack_bf16x2(ds[2 * h], ds[2 * h + 1]);
+              if constexpr (DQ)
+                *reinterpret_cast<uint32_t*>(dss + (warp * 16 + (lane >> 2) + 8 * h) * LDS + col) =
+                    dsb[j][h];
+            }
+          }
+        }
 
-      // dV += P·dout, dK += dS·q: queries 16·kk … are one k-step, the
-      // fragments of tiles 2kk and 2kk + 1 its A operand
+        // dV += P·dout, dK += dS·q: queries q0 + 16·kk … are one k-step, the
+        // fragments of tiles 2kk and 2kk + 1 its A operand
 #pragma unroll
-      for (int kk = 0; kk < kTbRows / 16; ++kk) {
-        const uint32_t ap[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0], pb[2 * kk + 1][1]};
-        const uint32_t ad[4] = {dsb[2 * kk][0], dsb[2 * kk][1], dsb[2 * kk + 1][0],
-                                dsb[2 * kk + 1][1]};
+        for (int kk = 0; kk < QS / 16; ++kk) {
+          const uint32_t ap[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0], pb[2 * kk + 1][1]};
+          const uint32_t ad[4] = {dsb[2 * kk][0], dsb[2 * kk][1], dsb[2 * kk + 1][0],
+                                  dsb[2 * kk + 1][1]};
 #pragma unroll
-        for (int jd = 0; jd < D / 16; ++jd) {
-          uint32_t b[4];
-          load_b2(b, dosb, LD, kk * 16, jd * 16, lane);
-          mma16816(dva[2 * jd], ap, b[0], b[1]);
-          mma16816(dva[2 * jd + 1], ap, b[2], b[3]);
-          load_b2(b, qsb, LD, kk * 16, jd * 16, lane);
-          mma16816(dka[2 * jd], ad, b[0], b[1]);
-          mma16816(dka[2 * jd + 1], ad, b[2], b[3]);
+          for (int jd = 0; jd < D / 16; ++jd) {
+            uint32_t b[4];
+            load_b2(b, dosb, LD, q0 + kk * 16, jd * 16, lane);
+            mma16816(dva[2 * jd], ap, b[0], b[1]);
+            mma16816(dva[2 * jd + 1], ap, b[2], b[3]);
+            load_b2(b, qsb, LD, q0 + kk * 16, jd * 16, lane);
+            mma16816(dka[2 * jd], ad, b[0], b[1]);
+            mma16816(dka[2 * jd + 1], ad, b[2], b[3]);
+          }
         }
       }
       __syncthreads();  // DQ: dS of all 128 keys is in shared memory; else: tile qt's buffers are free

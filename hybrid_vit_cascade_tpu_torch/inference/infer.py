@@ -45,6 +45,7 @@ import torch
 from ..config import Config
 from ..losses.metrics import mae, psnr, psnr_dynamic_range, ssim_metric
 from ..models import cnn_models
+from ..models.attention import check_head_dims, set_attn_impl
 from ..models.cascade import ProgressiveCascadeModel
 from ..models.direct import DirectCTRegression
 from ..ops.resize import resize_trilinear
@@ -160,7 +161,12 @@ def build_model(cfg: Config, built_stages: int = 3) -> torch.nn.Module:
     ``remat``; ``DirectCTRegression`` takes no remat, as in JAX. The
     diffusion family builds the ladder of ``diffusion_stage_configs`` with
     ``remat`` = ``use_gradient_checkpointing``, ``lift_slabs`` =
-    ``diffusion_lift_slabs`` and T = 1000."""
+    ``diffusion_lift_slabs`` and T = 1000. Every attention module takes
+    ``attn_impl`` (``set_attn_impl``)."""
+    return set_attn_impl(_build_model(cfg, built_stages), cfg.model.attn_impl)
+
+
+def _build_model(cfg: Config, built_stages: int) -> torch.nn.Module:
     m = cfg.model
     if m.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"model family {m.family!r} is not ported yet")
@@ -234,6 +240,7 @@ class InferenceEngine:
         self.device = torch.device(device)
         self.max_stage = max_stage
         model = build_model(self.cfg, built_stages=max_stage)
+        check_head_dims(model, self.device)
         state = dict(state)
         extra = [k for k in state if k not in model.state_dict()]
         pruned = _STAGE_PREFIXES[max_stage] if self.cascade else ()

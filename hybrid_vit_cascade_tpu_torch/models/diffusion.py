@@ -296,6 +296,38 @@ class UnifiedHybridViTCascade(nn.Module):
         return {"loss": total, "diffusion_loss": diffusion_loss, "physics_loss": physics_loss}
 
 
+def load_ladder_state(model: UnifiedHybridViTCascade, state: Dict[str, torch.Tensor]) -> list:
+    """Load ``state`` into the ladder, strict in what it holds: the whole
+    ladder (the port's own entries), or one stage's ``stage_{name}`` and
+    ``prev_proj_{name}`` with the shared encoder and time MLP and no other
+    stage: the layout the JAX ``fit_diffusion`` writes, whose variables hold
+    only the stage it trains. Every key of ``state`` must be the model's, at
+    its shape, and the keys it lacks exactly those of the other stages; the
+    other stages keep their values. Returns the names of the stages loaded."""
+    names = [c["name"] for c in model.stage_configs]
+
+    def stage_of(key: str) -> Optional[str]:
+        top = key.split(".", 1)[0]
+        for n in names:
+            if top in (f"stage_{n}", f"prev_proj_{n}"):
+                return n
+        return None
+    own = model.state_dict()
+    held = {stage_of(k) for k in state} - {None}
+    if len(held) != 1:
+        model.load_state_dict(state, strict=True)
+        return names
+    others = {k for k in own if stage_of(k) not in (None, *held)}
+    missing, extra = set(own) - set(state), set(state) - set(own)
+    if extra or missing != others:
+        raise RuntimeError(
+            f"a diffusion entry holding stage {sorted(held)[0]!r} alone must hold every key of "
+            f"that stage, the shared encoder and the time MLP, and no other: unexpected "
+            f"{sorted(extra)[:5]}, missing {sorted(missing - others)[:5]}")
+    model.load_state_dict({**own, **state}, strict=True)
+    return sorted(held)
+
+
 def _draw(fn, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """fn(generator, its device) drawn where the generator lives (the default
     generator on ``device`` when None), moved to ``device``."""

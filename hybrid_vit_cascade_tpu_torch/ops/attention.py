@@ -2,11 +2,17 @@
 
 Shapes: q (B, H, Nq, Dh), k/v (B, H, Nk, Dh) → (B, H, Nq, Dh).
 
-On a CUDA tensor every call launches the flash kernels (forward: kernel A,
-reached through the ``hvc::flash_attention_fwd`` operator of
-ops/cuda/library.py; backward: kernel D, or kernels L then M when
-``FUSED_BWD`` is false; ops/cuda/flash_attention.py); on a CPU tensor it runs
-their plain versions.
+``impl`` is the config's ``model.attn_impl``, dispatched as the JAX
+dispatcher does (its ops/attention.py:139-227): "auto" and "flash" take the
+flash kernels, "xla" the plain score-materialising ``_reference_attention``
+on any device, and "flash_sharded" raises the JAX package's ValueError for a
+call without an ambient model>1 mesh (the port has no model axis); any other
+value is refused. On a CUDA tensor the kernel path launches the flash kernels
+(forward: kernel A, reached through the ``hvc::flash_attention_fwd``
+operator of ops/cuda/library.py; backward: kernel D, or kernels L then M
+when ``FUSED_BWD`` is false; ops/cuda/flash_attention.py), at any head dim
+up to 128 (a d other than 32, 64 and 128 zero-padded to the next); on a CPU
+tensor it runs their plain versions.
 The forward saves q, k, v, out and the natural-log lse, and the backward
 recomputes the probabilities from them, as the JAX package's flash custom
 VJP does. ``return_probs=True`` takes the plain score-materialising path of
@@ -22,6 +28,7 @@ import os
 
 import torch
 
+from ..config import ATTN_IMPLS
 from .cuda import flash_attention as fa
 from .cuda import library  # noqa: F401  (registers the hvc:: operators)
 
@@ -61,17 +68,32 @@ def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float | None = None, return_probs: bool = False):
+                          scale: float | None = None, impl: str = "auto",
+                          return_probs: bool = False):
     """softmax(q·kᵀ·scale)·v with fp32 softmax statistics and accumulation,
-    output in q's dtype; differentiable. ``return_probs=True`` returns
-    ``(out, probs)`` with the (B, H, Nq, Nk) fp32 probabilities, computed on
-    the plain path (it materialises the scores: small token counts only)."""
+    output in q's dtype; differentiable. ``impl`` ∈ ATTN_IMPLS picks the path
+    (module docstring). ``return_probs=True`` returns ``(out, probs)`` with
+    the (B, H, Nq, Nk) fp32 probabilities, computed on the plain path (it
+    materialises the scores: small token counts only)."""
     B, H, nq, d = q.shape
     nk = k.shape[2]
     if scale is None:
         scale = d ** -0.5
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attention impl must be one of {ATTN_IMPLS}, got {impl!r}")
+    if impl == "flash_sharded":
+        if return_probs:
+            raise ValueError(
+                "return_probs=True is incompatible with impl='flash_sharded': "
+                "a streamed sharded kernel never materializes the (Nq, Nk) "
+                "probability map. Use impl='xla' (small token counts only).")
+        raise ValueError(
+            f"flash_sharded needs an ambient (data, model) mesh dividing "
+            f"(B={B}, H={H}) or (B, Nq={nq}); mesh=None")
     if return_probs:
         return _reference_attention(q, k, v, scale)
+    if impl == "xla":
+        return _reference_attention(q, k, v, scale)[0]
     out = _FlashAttention.apply(q.reshape(B * H, nq, d).contiguous(),
                                 k.reshape(B * H, nk, d).contiguous(),
                                 v.reshape(B * H, nk, d).contiguous(), scale)

@@ -22,17 +22,27 @@ A, D, L and M has two instances, by an explicit rule
 tensor cores, whose launches also count in ``.tc_launches`` of the same
 wrapper, and fp32 on the CUDA cores. M's tensor-core instance is D's body
 without its dq phase; L's takes queries as M, as A does.
+
+Head dims: each kernel has instances at d = 32, 64 and 128 (``HEAD_DIMS``).
+Any other d ≤ 128 is zero-padded along d to the next of them by the
+wrappers (``_at_kernel_head_dim``: ``kernel_head_dim`` names the
+instance, ``pad_head_dim`` pads):
+zero lanes add nothing to q·kᵀ and give zero output lanes, the caller's
+scale (the real d's) is kept, and out, dq, dk and dv are sliced back to d.
+The TPU kernel pads d to 128 lanes the same way. d > 128 has no instance
+and is refused.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -85,6 +95,52 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def kernel_head_dim(d: int) -> int:
+    """The instance a head dim ``d`` runs on: the least of ``HEAD_DIMS`` ≥ d
+    (a smaller d is zero-padded to it). Raises for d > 128, which no
+    instance takes."""
+    if not 1 <= d <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {d}: the flash attention kernels take head dims up to "
+                         f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}, a smaller d zero-padded to "
+                         f"the next)")
+    return next(h for h in HEAD_DIMS if h >= d)
+
+
+def pad_head_dim(t: torch.Tensor, d_kernel: int) -> torch.Tensor:
+    """``t`` (..., d) zero-padded along its last axis to ``d_kernel``: a new
+    contiguous tensor (so 16-byte aligned, as the bf16 kernels need), or
+    ``t`` itself when d is ``d_kernel``."""
+    d = t.shape[-1]
+    return t if d == d_kernel else torch.nn.functional.pad(t, (0, d_kernel - d))
+
+
+def _at_kernel_head_dim(fn, q, *args):
+    """``fn(q, *args)`` at the instance's head dim: the (BH, N, d) arguments
+    zero-padded along d to ``kernel_head_dim(d)``, the (BH, N, ·) results
+    sliced back to d, contiguous; ``fn`` as it is at an instance's own d. An
+    argument of another d goes to ``fn`` as it is, which refuses it."""
+    d = q.shape[-1]
+    dk = kernel_head_dim(d)
+    if dk == d:
+        return fn(q, *args)
+    got = fn(*(pad_head_dim(t, dk) if isinstance(t, torch.Tensor) and t.dim() == 3
+               and t.shape[-1] == d else t for t in (q, *args)))
+    one = isinstance(got, torch.Tensor)
+    sliced = tuple(g[..., :d].contiguous() if g.dim() == 3 else g for g in ((got,) if one else got))
+    return sliced[0] if one else sliced
+
+
+def _pads_head_dim(fn):
+    """The kernel wrapper ``fn`` with its CUDA calls taken through
+    ``_at_kernel_head_dim``."""
+    @functools.wraps(fn)
+    def run(q, *args):
+        if q.device.type != "cuda" or q.dim() != 3:
+            return fn(q, *args)
+        return _at_kernel_head_dim(fn, q, *args)
+    return run
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {q.dtype}")
@@ -98,8 +154,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     bh, nq, d = q.shape
     if k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel (takes {HEAD_DIMS})")
+    kernel_head_dim(d)
     if not (1 <= bh <= 65535) or nq < 1 or k.shape[1] < 1:
         raise ValueError(f"unsupported sizes BH={bh} Nq={nq} Nk={k.shape[1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -115,13 +170,15 @@ def fwd_uses_tensor_cores(dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16
 
 
+@_pads_head_dim
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Softmax attention without materialised scores.
 
     q (BH, Nq, d), k and v (BH, Nk, d), contiguous, fp32 or bf16 (16-byte
-    aligned), d ∈ {32, 64} → (out (BH, Nq, d) in q's dtype, lse (BH, Nq)
-    fp32, natural log)."""
+    aligned), d ≤ 128 (zero-padded to the instance ``kernel_head_dim``
+    names) → (out (BH, Nq, d) in q's dtype, lse (BH, Nq) fp32, natural
+    log)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
@@ -224,12 +281,14 @@ def bwd_tc_scratch(bh: int, nq: int, d: int) -> tuple[int, int]:
     return bh * nq * d, 1 + bh * -(-nq // _TC_ROWS)
 
 
+@_pads_head_dim
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor,
                         scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``flash_attention_fwd`` from its (out, lse) and the output
     gradient. q, dout, out (BH, Nq, d), k and v (BH, Nk, d), contiguous, one
-    dtype (fp32 or bf16, 16-byte aligned), d ∈ {32, 64}; lse (BH, Nq) fp32,
+    dtype (fp32 or bf16, 16-byte aligned), d ≤ 128 (zero-padded as the
+    forward pads); lse (BH, Nq) fp32,
     natural log. Returns (dq, dk, dv) in q's dtype. Kernel D, on the instance
     the C rule names (``bwd_uses_tensor_cores``): on the tensor cores work
     items of one head's ``_TC_KEYS`` keys, handed out in index order (key tile
@@ -342,6 +401,7 @@ def _bwd_dkv(q, k, v, dout, lse, delta, scale: float) -> tuple[torch.Tensor, tor
     return dk, dv
 
 
+@_pads_head_dim
 def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                            lse: torch.Tensor, dout: torch.Tensor, scale: float) -> torch.Tensor:
     """Kernel L alone: dq of ``flash_attention_fwd``, in q's dtype; arguments
@@ -358,6 +418,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
 
 
+@_pads_head_dim
 def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor,
                             scale: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -376,6 +437,7 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 
 
+@_pads_head_dim
 def flash_attention_bwd_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                               scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

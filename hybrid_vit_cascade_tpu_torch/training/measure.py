@@ -296,6 +296,7 @@ def train_steps(model: nn.Module, cfg, stage: Optional[int], batch_size: int, st
 def main(argv=None) -> int:
     from ..config import Config
     from ..inference.infer import build_model
+    from ..models.attention import check_head_dims
     from ..models.layers import seeded_init_
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -329,7 +330,9 @@ def main(argv=None) -> int:
     cfg = Config.from_json(args.config)
     if cfg.model.family in ("cascade", "diffusion") and args.stage is None:
         sys.exit("measure: --stage is required for the cascade and the diffusion ladder")
-    model = seeded_init_(build_model(cfg), args.seed).to(dev)
+    model = build_model(cfg)
+    check_head_dims(model, dev)
+    model = seeded_init_(model, args.seed).to(dev)
     if args.no_loss_remat:  # read by single_model_step's loss; the model is built
         cfg.model.use_gradient_checkpointing = False
     if args.stage3_schedule == "dense":

@@ -82,6 +82,7 @@ from ..inference.infer import build_model
 from ..losses.direct256 import Direct256Loss
 from ..losses.metrics import mse, psnr, psnr_of_mse, ssim_metric
 from ..losses.multiscale import MultiScaleLoss, l1_loss
+from ..models.attention import check_head_dims
 from ..ops.resize import resize_trilinear, resize_trilinear_np
 from ..parallel.mesh import (
     DataGroup,
@@ -457,7 +458,9 @@ class Trainer:
             wandb_compat.init(config=cfg.to_dict())
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(t.seed)
-            self.model = build_model(cfg).to(self.device)
+            self.model = build_model(cfg)
+        check_head_dims(self.model, self.device)
+        self.model = self.model.to(self.device)
         save_dir = cfg.checkpoints.save_dir
         self.ckpt = CheckpointManager(save_dir, cfg.checkpoints.save_every,
                                       cfg.checkpoints.keep_best)
@@ -495,7 +498,7 @@ class Trainer:
         if self.cfg.model.family == "diffusion":
             if self.cfg.training.diffusion_progressive:
                 return self.fit_diffusion_cascade(resume=resume, progress=progress)
-            return self.fit_diffusion(epochs=epochs, progress=progress)
+            return self.fit_diffusion(epochs=epochs, resume=resume, progress=progress)
         t = self.cfg.training
         epochs = epochs if epochs is not None else t.num_epochs
         lr = lr_override if lr_override is not None else t.learning_rate
@@ -543,12 +546,17 @@ class Trainer:
             self._carry_best(stage_ckpt)
         return last
 
-    def fit_diffusion(self, epochs: Optional[int] = None,
+    def fit_diffusion(self, epochs: Optional[int] = None, resume: bool = True,
                       progress: bool = True) -> Dict[str, float]:
-        """Train the ladder's last diffusion stage into ``save_dir``, from the
-        model as built (no resume, as in JAX). A refiner stage is conditioned
-        on the ground truth at the previous stage's size;
-        ``fit_diffusion_cascade`` trains the ladder."""
+        """Train the ladder's last diffusion stage into ``save_dir``. A refiner
+        stage is conditioned on the ground truth at the previous stage's
+        size; ``fit_diffusion_cascade`` trains the ladder. With ``resume``
+        it continues from ``save_dir/latest`` and its optimizer state, as
+        ``fit`` does (the JAX ``fit_diffusion`` starts afresh each run):
+        the port's own entries, which hold the ladder, or a converted JAX
+        entry, which holds the stage alone (``load_ladder_state``)."""
+        from ..models.diffusion import load_ladder_state
+
         t = self.cfg.training
         epochs = epochs if epochs is not None else t.num_epochs
         stages = self.model.stage_configs
@@ -556,9 +564,11 @@ class Trainer:
         steps_per_epoch = max(1, len(self.train_ds) // t.batch_size)
         state = diffusion_state(self.model, self.cfg, idx, t.learning_rate,
                                 steps_per_epoch * epochs)
+        start_epoch = self._restore_state(
+            self.ckpt, state, lambda sd: load_ladder_state(self.model, sd)) if resume else 0
         train_step, eval_step, resolution = diffusion_steps(self.model, idx,
                                                             t.diffusion_sample_steps)
-        return self._run_epochs(state, train_step, eval_step, t.batch_size, 0, epochs,
+        return self._run_epochs(state, train_step, eval_step, t.batch_size, start_epoch, epochs,
                                 t.learning_rate, progress, f"diffusion_{stages[idx]['name']}",
                                 self.ckpt, resolution)
 
@@ -625,15 +635,17 @@ class Trainer:
                   f"{ {k: round(v, 3) for k, v in chain.items()} }")
         return last
 
-    def _restore_state(self, ckpt: CheckpointManager, state: TrainState) -> int:
-        """Load ``latest`` into the model (and its optimizer state and step,
-        when saved and still fitting the optimizer). Returns the epoch to
-        start at: 0 when nothing is saved yet."""
+    def _restore_state(self, ckpt: CheckpointManager, state: TrainState,
+                       load: Optional[Callable] = None) -> int:
+        """Load ``latest`` into the model (with ``load``, default the model's
+        strict ``load_state_dict``), and its optimizer state and step, when
+        saved and still fitting the optimizer. Returns the epoch to start
+        at: 0 when nothing is saved yet."""
         restored = ckpt.restore_latest()
         if restored is None:
             return 0
         tree, meta = restored
-        self.model.load_state_dict(tree["state_dict"])
+        (load or self.model.load_state_dict)(tree["state_dict"])
         opt = ckpt.restore_opt(state.optimizer)
         if opt is not None:
             load_optimizer_state(state.optimizer, opt["optimizer"])

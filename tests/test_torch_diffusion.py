@@ -96,30 +96,38 @@ def _port(tree, v_param: bool = True, lift_slabs: int = 0) -> UnifiedHybridViTCa
     return model.eval()
 
 
-@pytest.fixture(scope="module")
-def ladder():
-    """The scaled two-stage JAX model (both parameterisations), its variables
-    from numpy (each stage's init shape, merged as fit_diffusion_cascade
-    merges them), inputs, and jitted loss / gradient / sampler functions."""
-    rng = np.random.default_rng(31)
+def _jax_ladder(stages, seed: int, v_params=(True, False)) -> dict:
+    """The scaled JAX ladder ``stages`` (each parameterisation of
+    ``v_params``), its variables from numpy (each stage's init shape, merged
+    as fit_diffusion_cascade merges them), inputs (every stage's x0, the
+    X-rays, a previous volume at the second-to-last stage's size), and jitted
+    loss / gradient functions."""
+    rng = np.random.default_rng(seed)
+    names = [c["name"] for c in stages]
     xr = rng.standard_normal((1, 2, 1, XR, XR)).astype(np.float32)
     x0 = {n: (0.3 * rng.standard_normal((1, 1, *c["volume_size"]))).astype(np.float32)
-          for n, c in zip(("s1", "s2"), LADDER)}
-    prev = (0.3 * rng.standard_normal((1, 1, 16, 16, 16))).astype(np.float32)
+          for n, c in zip(names, stages)}
+    prev = (0.3 * rng.standard_normal((1, 1, *stages[-2]["volume_size"]))).astype(np.float32)
     models = {v: jax_diffusion.UnifiedHybridViTCascade(
-        stage_configs=LADDER, xray_embed_dim=E, num_timesteps=T, v_parameterization=v,
-        attn_impl="xla") for v in (True, False)}
-    jm = models[True]
+        stage_configs=stages, xray_embed_dim=E, num_timesteps=T, v_parameterization=v,
+        attn_impl="xla") for v in v_params}
+    jm = models[v_params[0]]
     k = jax.random.PRNGKey(0)
-    shapes = [jax.eval_shape(lambda: jm.init(k, jnp.asarray(x0["s1"]), jnp.asarray(xr), "s1", k)),
-              jax.eval_shape(lambda: jm.init(k, jnp.asarray(x0["s2"]), jnp.asarray(xr), "s2", k,
-                                             prev_stage_volume=jnp.asarray(prev)))]
-    tree = random_variables(_merge(*[jax.tree.map(lambda s: s, sh) for sh in shapes]), rng)
+    shapes = [jax.eval_shape(lambda: jm.init(k, jnp.asarray(x0[names[0]]), jnp.asarray(xr),
+                                             names[0], k))]
+    for i in range(1, len(stages)):
+        p_i = jnp.zeros((1, 1, *stages[i - 1]["volume_size"]))
+        shapes.append(jax.eval_shape(lambda n=names[i], p=p_i: jm.init(
+            k, jnp.asarray(x0[n]), jnp.asarray(xr), n, k, prev_stage_volume=p)))
+    tree = {}
+    for sh in shapes:
+        tree = _merge(tree, sh)
+    tree = random_variables(tree, rng)
     jv = jax.tree.map(jnp.asarray, tree)
 
     def loss(v_param, stage, grads=True):
         m = models[v_param]
-        p = jnp.asarray(prev) if stage == "s2" else None
+        p = jnp.asarray(prev) if stage == names[-1] else None
 
         def f(params, x, key):
             out = m.apply({"params": params, "batch_stats": jv["batch_stats"]}, x,
@@ -130,6 +138,13 @@ def ladder():
         return jax.jit(lambda *a: (f(*a), None))
 
     return dict(tree=tree, jv=jv, xr=xr, x0=x0, prev=prev, models=models, loss=loss)
+
+
+@pytest.fixture(scope="module")
+def ladder():
+    """The scaled two-stage JAX model (both parameterisations): ``_jax_ladder``
+    of LADDER."""
+    return _jax_ladder(LADDER, 31)
 
 
 # ------------------------------------------------------------ the schedule ---
@@ -257,13 +272,21 @@ def test_loss_and_grads_match_jax(ladder, stage, v_param, grads):
     refiner with a previous volume, under both parameterisations,
     train=False; in two of the four cases, which take both stages and both
     parameterisations, the gradient of every parameter the stage reaches."""
+    _hold_loss_and_grads(ladder, _port(ladder["tree"], v_param), stage, v_param, grads)
+
+
+def _hold_loss_and_grads(ladder, model, stage, v_param, grads) -> None:
+    """The port model's loss components at ``stage`` (2e-4) against JAX's from
+    JAX's own t and noise, a refiner conditioned on ladder["prev"]; with
+    ``grads`` every parameter's gradient by GRAD_RATIO (exact zeros where
+    JAX's is zero)."""
     key = jax.random.PRNGKey(5)
     x0 = ladder["x0"][stage]
     (_, want), jgrads = ladder["loss"](v_param, stage, grads)(ladder["jv"]["params"],
                                                               jnp.asarray(x0), key)
     t, noise = _jax_draws(key, x0.shape)
-    model = _port(ladder["tree"], v_param)
-    prev = torch.from_numpy(ladder["prev"]) if stage == "s2" else None
+    last = model.stage_configs[-1]["name"]
+    prev = torch.from_numpy(ladder["prev"]) if stage == last else None
     got = model(torch.from_numpy(x0), torch.from_numpy(ladder["xr"]), stage,
                 prev_stage_volume=prev, t=torch.from_numpy(t), noise=torch.from_numpy(noise))
     for k in ("loss", "diffusion_loss", "physics_loss"):
@@ -275,12 +298,13 @@ def test_loss_and_grads_match_jax(ladder, stage, v_param, grads):
     wg = convert.diffusion({"params": jax.tree.map(np.asarray, jgrads),
                             "batch_stats": ladder["tree"]["batch_stats"]})
     ratios = {}
+    depths = [c["volume_size"][0] for c in model.stage_configs]
     for name, p in model.named_parameters():
         if p.grad is None:  # another stage's, or prev_proj of a stage without prev
             assert not np.any(wg[name].numpy()), name
             continue
-        if name.endswith(("stem_convs.0.bias", "depth_lifter.depth_16.Conv_1.bias",
-                          "depth_lifter.depth_32.Conv_1.bias")):
+        if name.endswith(("stem_convs.0.bias",
+                          *(f"depth_lifter.depth_{d}.Conv_1.bias" for d in depths))):
             # 0 in exact arithmetic: at these widths the stem's first GroupNorm
             # and the weight network's second have one channel a group, and a
             # bias in front of them cancels; both sides hold rounding only
@@ -290,6 +314,25 @@ def test_loss_and_grads_match_jax(ladder, stage, v_param, grads):
         ratios[name] = float((p.grad - wg[name]).norm() / wg[name].norm())
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
     assert len(ratios) > 40 and worst[0][1] <= GRAD_RATIO, worst
+
+
+# the ladder's three stages cut to 8³ → 16³ → 32³ (stage3_high's place at 32³)
+LADDER3 = tuple(dict(c, name=n, volume_size=(s, s, s))
+                for c, n, s in zip(LADDER + LADDER[1:], ("s1", "s2", "s3"), (8, 16, 32)))
+
+
+def test_three_stage_ladder_matches_jax():
+    """A three-stage scaled ladder: the third stage (32³) conditioned on a
+    16³ previous volume, its loss components and the gradient of every
+    parameter against JAX, as test_loss_and_grads_match_jax holds two
+    stages; the first two stages' parameters take no gradient on either
+    side."""
+    lad = _jax_ladder(LADDER3, 33, v_params=(True,))
+    model = UnifiedHybridViTCascade(LADDER3, xray_embed_dim=E, num_timesteps=T)
+    model.load_state_dict(convert.diffusion(lad["tree"]), strict=True)
+    _hold_loss_and_grads(lad, model.eval(), "s3", True, True)
+    assert not any(p.grad is not None for n, p in model.named_parameters()
+                   if n.startswith(("stage_s1.", "stage_s2.", "prev_proj_s2.")))
 
 
 def test_refiner_lift_slabs_matches_dense(ladder):
@@ -362,13 +405,18 @@ def _jax_stage_shapes(jcfg, ladder, i):
     return _STAGE_SHAPES[key]
 
 
-@pytest.mark.parametrize("name", ["diffusion_64", "diffusion_progressive", "diffusion_quality_r5"])
+@pytest.mark.parametrize("name", ["diffusion_64", "diffusion_progressive", "diffusion_quality_r5",
+                                  "diffusion_progressive@256"])
 def test_build_model_full_width_shapes(name):
     """The configs' ladders equal JAX's, and every parameter's shape is what
     jax.eval_shape of the JAX model's per-stage init gives (the port on the
-    meta device)."""
+    meta device). "@256": the config with ``volume_size`` 256³ set here (no
+    file under configs/ asks for it), whose ladder reaches stage3_high."""
+    name, _, size = name.partition("@")
     cfg = Config.from_json(f"configs/{name}.json")
     jcfg = JaxConfig.from_json(f"configs/{name}.json")
+    if size:
+        cfg.model.volume_size = jcfg.model.volume_size = (int(size),) * 3
     ladder = diffusion_stage_configs(cfg.model)
     assert [dict(c) for c in ladder] == [dict(c) for c in jax_trainer.diffusion_stage_configs(jcfg.model)]
     tree = {}
@@ -382,6 +430,7 @@ def test_build_model_full_width_shapes(name):
     got = {n: tuple(t.shape) for n, t in model.state_dict().items()}
     assert got == want
     assert model.stage_configs[-1]["volume_size"] == tuple(cfg.model.volume_size)
+    assert len(ladder) == {64: 1, 128: 2, 256: 3}[cfg.model.volume_size[0]]
     lifter = getattr(model, f"stage_{ladder[-1]['name']}").depth_lifter
     assert lifter.lift_slabs == cfg.model.diffusion_lift_slabs
 
@@ -450,6 +499,39 @@ def test_fit_diffusion_cascade_chains_and_resumes(tmp_path, capsys):
     run()
     out = capsys.readouterr().out
     assert "[diffusion_lo] complete" in out and "[diffusion_hi] complete" in out
+
+
+def test_fit_diffusion_resumes_its_own_root(tmp_path, monkeypatch):
+    """The port's ``fit_diffusion`` saves the whole two-stage ladder at the
+    run's root, and a second run with more epochs resumes from it: every
+    tensor of the ladder as the first run left it (``load_ladder_state``'s
+    whole-ladder load, strict), the saved optimizer step, epoch 1 first.
+    The converted JAX root, which holds the last stage alone, is held in
+    tests/test_torch_orbax.py."""
+    cfg = _cfg(tmp_path, size=8, diffusion_sample_steps=2)
+
+    def trainer():
+        tr = Trainer(cfg, device="cpu")
+        tr.model = UnifiedHybridViTCascade(TINY, xray_embed_dim=E, num_timesteps=T)
+        return tr
+    trainer().fit_diffusion(progress=False)
+    saved, meta = load_entry(tmp_path / "ckpt" / "latest")
+    opt, _ = load_entry(tmp_path / "ckpt" / "latest_opt")
+    saved = saved["state_dict"]
+    assert meta["epoch"] == 0 and any(k.startswith("stage_lo.") for k in saved)
+    seen = {}
+
+    def record(self, state, train_step, eval_step, batch_size, start_epoch, *a, **kw):
+        seen.update(start=start_epoch, step=state.step,
+                    state={k: v.clone() for k, v in self.model.state_dict().items()})
+        return {}
+    monkeypatch.setattr(Trainer, "_run_epochs", record)
+    fresh = trainer()
+    assert not all(torch.equal(fresh.model.state_dict()[k], v) for k, v in saved.items())
+    fresh.fit_diffusion(epochs=2, progress=False)
+    assert seen["start"] == 1 and seen["step"] == opt["step"] > 0
+    assert sorted(seen["state"]) == sorted(saved)
+    assert all(torch.equal(seen["state"][k], v) for k, v in saved.items())
 
 
 _TINY_INIT_SHAPES = {}

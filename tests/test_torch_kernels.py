@@ -105,8 +105,8 @@ def test_flash_matches_plain(dev, dtype, bh, nq, nk, d):
 
 
 def test_flash_rejects_unsupported(dev):
-    q = torch.zeros((1, 8, 48), device=dev)
-    with pytest.raises(ValueError):
+    q = torch.zeros((1, 8, 129), device=dev)  # no instance above d = 128
+    with pytest.raises(ValueError, match="128"):
         flash_attention_fwd(q, q, q, 1.0)
     q = torch.zeros((1, 8, 32), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -509,7 +509,8 @@ def test_flash_bwd_from_tensor_core_forward(dev, bh, nq, nk, d):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,nq,nk,d", [(8, 32768, 32768, 32), (3, 200, 77, 32), (3, 200, 77, 64),
-                                        (2, 130, 4100, 32)])
+                                        (2, 130, 4100, 32), (2, 4096, 4096, 128),
+                                        (3, 200, 77, 128), (3, 200, 77, 16)])
 def test_flash_bwd_bitwise_repeatable(dev, dtype, bh, nq, nk, d):
     """Kernel D sums dq in a fixed order (per-group partials, added in group
     order; no atomics): two runs give the same bits, at the stage-3 self-
@@ -524,12 +525,57 @@ def test_flash_bwd_bitwise_repeatable(dev, dtype, bh, nq, nk, d):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+# Head dims other than 32 and 64: the d = 128 instances of A, D, L and M and a
+# d zero-padded to the next instance (16 → 32, 48 → 64, 96 → 128, 8 → 32 at
+# one key), ragged Nq and Nk and the stage-3 shapes cut to 4,096 tokens.
+HEAD_DIM_SHAPES = [(3, 200, 77, 128), (2, 130, 300, 16), (3, 200, 77, 48), (2, 65, 63, 96),
+                   (2, 4096, 4096, 128), (16, 4096, 4096, 16), (2, 4096, 1024, 128),
+                   (2, 1, 1, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,nq,nk,d", HEAD_DIM_SHAPES)
+def test_flash_head_dims_match_plain(dev, dtype, bh, nq, nk, d):
+    """A, D, L and M at a head dim other than 32 and 64 against the plain
+    versions (FLASH_OUT_TOL), each launched once a call and, in bf16, on its
+    tensor-core instance; the outputs and gradients keep the caller's d. At
+    one key (p = 1, dp = delta) dq and dk are zero in exact arithmetic: on
+    both sides they are the rounding of ds alone, held to its bound
+    (``_ds_rounding``) in place of the comparison."""
+    q, dout = (_randn((bh, nq, d), dtype, dev, s) for s in (0, 3))
+    k, v = (_randn((bh, nk, d), dtype, dev, s) for s in (1, 2))
+    scale = d ** -0.5
+    wrappers = (flash_attention_fwd, flash_attention_bwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv)
+    before = [(w.launches, w.tc_launches) for w in wrappers]
+    out, lse = flash_attention_fwd(q, k, v, scale)
+    want_out, want_lse = flash_attention_plain(q, k, v, scale)
+    assert out.shape == (bh, nq, d) and out.is_contiguous()
+    _close(out, want_out, dtype, FLASH_OUT_TOL)
+    _close(lse, want_lse, torch.float32)
+    want = flash_attention_bwd_plain(q, k, v, want_out, want_lse, dout, scale)
+    got = flash_attention_bwd(q, k, v, want_out, want_lse, dout, scale)
+    dq = flash_attention_bwd_dq(q, k, v, want_out, want_lse, dout, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, want_out, want_lse, dout, scale)
+    floor = _ds_rounding(q, k, v, dout, scale)
+    names = ("dq", "dk", "dv") * 2
+    for name, g, w in zip(names, list(got) + [dq, dk, dv], list(want) * 2):
+        assert g.shape == w.shape and g.dtype == dtype and g.is_contiguous()
+        if nk == 1 and name != "dv":
+            torch.cuda.synchronize()
+            assert max(float(g.float().abs().max()), float(w.float().abs().max())) <= floor
+        else:
+            _close(g, w, dtype, FLASH_OUT_TOL, floor=floor)
+    tc = dtype == torch.bfloat16
+    assert [(w.launches, w.tc_launches) for w in wrappers] == [(n + 1, t + tc) for n, t in before]
+
+
 def _ds_rounding(q, k, v, dout, scale):
     """A floor for the scale of dq and dk, tied to the inputs: where ds =
     p·(dp − delta) cancels (one key: p = 1, dp = delta), they are rounding
-    alone. dp and delta each sum d ≤ 64 fp32 products of size up to
+    alone. dp and delta each sum d ≤ 128 fp32 products of size up to
     ‖dout‖·‖v‖ (largest rows), in another order on the two sides, so they
-    differ by at most 2·d·2^-24 < 2^-16 of that; dq and dk carry it by one
+    differ by at most 2·d·2^-24 ≤ 2^-16 of that; dq and dk carry it by one
     product with k or q and the scale. At the long shapes this is ~1e-3,
     far under their max|want| of ~0.1."""
     def rows(t):

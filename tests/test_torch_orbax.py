@@ -14,7 +14,11 @@ schedule step, ``lr`` equal to the JAX schedule at the count; for a staged
 cascade stage 2 and for the single-model chain; no model step is compiled.
 (c) a JAX cascade run (stage 1 complete, stage 2 mid-stage, best records,
 an ``epoch_0001`` entry, a stale ``latest.tmp``) converted by the command's
-``main`` and resumed by the port's ``fit_cascade``. (d) each
+``main`` and resumed by the port's ``fit_cascade``; the root of a
+non-progressive diffusion run over a two-stage ladder, which holds the
+ladder's last stage alone (JAX ``fit_diffusion``), written by the JAX
+``Trainer``, converted, loaded into the port's ladder bitwise JAX's arrays
+and resumed by the port's ``fit_diffusion``. (d) each
 refusal raises and writes nothing. (e) a restored optimizer keeps its
 implementation flags (``fused``, ``foreach``)."""
 
@@ -378,6 +382,83 @@ def test_cascade_run_converts_and_resumes(tmp_path, capsys):
     carried = load_entry(port_dir / "stage1" / "best_psnr")[0]["state_dict"]
     now = tr.model.state_dict()
     assert all(torch.equal(now[k], v) for k, v in carried.items() if k.startswith("stage1."))
+
+
+# the two-stage ladder both trainers build for (c)'s diffusion run, in place
+# of diffusion_stage_configs (which gives a volume under 64³ one stage)
+TINY_LADDER = tuple(dict(name=n, volume_size=(s, s, s), voxel_dim=E, vit_depth=1,
+                         num_heads=HEADS, use_depth_lifting=True, use_physics_loss=True)
+                    for n, s in (("lo", 4), ("hi", 8)))
+
+
+def test_fit_diffusion_root_converts_and_resumes(tmp_path, monkeypatch, capsys):
+    """JAX ``fit_diffusion`` (``diffusion_progressive`` off) over a two-stage
+    ladder trains and saves the last stage alone at the run's root. The JAX
+    Trainer writes that root (its epoch loop stands in for one epoch's save:
+    the stage's variables, optimizer state and step as its ``_run_epochs``
+    saves them); the command converts it to the stage's keys alone; they
+    load into the port's ladder (``load_ladder_state``) bitwise the JAX
+    arrays, the other stage untouched; the port's ``fit_diffusion`` resumes
+    from it at epoch 1 with the converted optimizer state."""
+    from hybrid_vit_cascade_tpu.training import trainer as jax_trainer
+    from hybrid_vit_cascade_tpu_torch.models.diffusion import load_ladder_state
+    from hybrid_vit_cascade_tpu_torch.training import trainer as port_trainer
+
+    for mod in (jax_trainer, port_trainer):
+        monkeypatch.setattr(mod, "diffusion_stage_configs", lambda m: TINY_LADDER)
+    cfg, jcfg = _configs("diffusion", num_epochs=2, batch_size=2, diffusion_sample_steps=2)
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    for c, d in ((cfg, port_dir), (jcfg, jax_dir)):
+        c.model.volume_size = (8, 8, 8)
+        c.checkpoints.save_dir, c.checkpoints.save_every = str(d), 0
+
+    def one_epoch(self, state, train_step, eval_step, *a, **kw):
+        self.ckpt.save({"params": state.params, "batch_stats": state.batch_stats}, 0,
+                       {"loss": 1.0, "psnr": 10.0, "ssim": 0.5}, config=self.cfg.to_dict(),
+                       opt={"opt_state": state.opt_state, "step": state.step})
+        self._saved = jax.tree.map(np.asarray, {"params": state.params,
+                                                "batch_stats": state.batch_stats})
+        return {}
+    monkeypatch.setattr(jax_trainer.Trainer, "_run_epochs", one_epoch)
+    jtr = jax_trainer.Trainer(jcfg)
+    jtr.fit_diffusion(progress=False)
+    jtree = jtr._saved
+    assert sorted(jtree["params"]) == ["Dense_0", "Dense_1", "prev_proj_hi", "stage_hi",
+                                       "xray_encoder"]
+
+    capsys.readouterr()
+    assert convert_orbax.main(["--from", str(jax_dir), "--to", str(port_dir)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    entries = [line.split(":")[0] for line in lines[:-1]]
+    assert entries[-2:] == ["latest", "latest_opt"] and set(entries[:-2]) <= {
+        "best_loss", "best_psnr", "best_ssim"}
+    got = load_entry(port_dir / "latest")[0]["state_dict"]
+    want = convert.variables("diffusion", jtree)
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    model = build_model(cfg)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    assert load_ladder_state(model, got) == ["hi"]
+    now = model.state_dict()
+    assert all(torch.equal(now[k], want[k]) for k in want)
+    assert all(torch.equal(now[k], before[k]) for k in now if k not in want)
+    assert any(k.startswith("stage_lo.") for k in now) and not any(
+        k.startswith(("stage_lo.", "prev_proj_lo")) for k in want)
+    with pytest.raises(RuntimeError, match="alone must hold every key"):
+        load_ladder_state(model, {k: v for k, v in got.items() if not k.startswith("Dense_0")})
+
+    tr = Trainer(cfg, device="cpu")
+    tr.fit_diffusion(progress=False)
+    rows = [json.loads(r) for r in (port_dir / "training_log.jsonl").read_text().splitlines()]
+    assert [(r["epoch"], r["phase"]) for r in rows] == [(1, "diffusion_hi")]
+    opt, meta = load_entry(port_dir / "latest_opt")
+    assert meta["epoch"] == 1 and opt["step"] == 1 + int(np.asarray(jtr_step(jax_dir)))
+
+
+def jtr_step(run: Path):
+    """The step the JAX run's latest_opt holds."""
+    opt_tree, _ = convert_orbax.restore(run, "latest_opt")
+    return opt_tree["step"]
 
 
 # ------------------------------------------------------------ (d) refusals ---
